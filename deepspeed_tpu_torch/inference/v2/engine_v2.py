@@ -1,0 +1,665 @@
+"""InferenceEngineV2: paged-KV continuous-batching engine (PyTorch).
+
+Counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py`` (reference
+``InferenceEngineV2.put()``, inference/v2/engine_v2.py:107). The scheduler,
+state manager and block allocator are the JAX package's, copied; the step
+bodies are eager PyTorch:
+
+  * the paged KV pools are two contiguous tensors [L, num_blocks + 1,
+    block_size, n_kv, d] (block ``num_blocks`` is the trash block padded
+    tokens write to); attention reads flat multi-layer views
+    [L * NBp, bs, nkv, d] through layer-offset tables and trash ids;
+  * the split-phase step runs R decode slots and Rc prompt chunks of tq
+    tokens in one pass: decode rows through ``paged_attention`` (the CUDA
+    paged-decode kernel on a card) with their own K/V as one extra column,
+    chunk rows through ``paged_chunk_attention`` (plain torch);
+  * ``decode_round`` runs n_steps decode iterations with the sampled token
+    fed back on the device; the round's own K/V ride in side buffers
+    [L, R, n, nkv, d] as the kernel's extra columns;
+  * every norm goes through ``rms_norm`` (the CUDA RMSNorm kernel on a card).
+
+Where the JAX package scatters new K/V into a donated buffer and reads the
+pool at its step- or round-start state, the port writes the pools in
+place, after each layer's attention. That is the same computation: a
+layer's attention reads only its own layer's region, and the pool limit
+(the step's decode positions, the chunk starts, the round's start
+positions) masks every position the step or round has written.
+
+The engine runs on ``device`` ("cuda" unless the caller passes "cpu"), and
+raises when asked for a card that is not there. Features of the JAX engine
+that later slices port raise ``NotImplementedError`` naming their ROADMAP
+item.
+"""
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+from deepspeed_tpu_torch.inference.sampling import row_keys, sample_tokens
+from deepspeed_tpu_torch.inference.v2.ragged_manager import DSStateManager
+from deepspeed_tpu_torch.inference.v2.scheduler import RaggedScheduler
+from deepspeed_tpu_torch.models import transformer as T
+from deepspeed_tpu_torch.ops.attention.paged import (
+    paged_attention,
+    paged_chunk_attention,
+    resolve_impl,
+)
+from deepspeed_tpu_torch.utils.logging import log_dist
+
+
+def _later(what: str, item: str):
+    return NotImplementedError(f"InferenceEngineV2: {what} is not ported yet ({item})")
+
+
+def serving_benchmark(eng, n_seq=32, max_new=64, repeats=2, prompt_min=64,
+                      prompt_max=512, seed=0):
+    """The canonical serving-throughput workload of the JAX package: n_seq
+    concurrent sequences of mixed prompt lengths, max_new generated tokens
+    each. Returns the best generated tok/s over ``repeats`` passes after
+    one warm pass (the wall clock ends on the host copy of the tokens)."""
+    import time as _time
+
+    rng = np.random.default_rng(seed)
+    vocab = eng._mc.vocab_size
+
+    def batch():
+        return [
+            rng.integers(0, vocab, size=(int(n),)).astype(np.int32)
+            for n in rng.integers(prompt_min, prompt_max, size=n_seq)
+        ]
+
+    eng.generate(batch(), max_new_tokens=max_new)  # warm
+    best = 0.0
+    for _ in range(repeats):
+        prompts = batch()
+        t0 = _time.perf_counter()
+        outs = eng.generate(prompts, max_new_tokens=max_new)
+        dt = _time.perf_counter() - t0
+        gen = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+        best = max(best, gen / dt)
+    return best
+
+
+def _materialize_rows(res: dict, want_tokens: bool = False) -> dict:
+    """{uid: (logits tensor, row, token tensor)} -> {uid: host logits row,
+    or host token with ``want_tokens``}, copying each distinct tensor to the
+    host once (rows of one step share their tensors)."""
+    hosts = {}
+    out = {}
+    for uid, (logits, idx, toks) in res.items():
+        arr = toks if want_tokens else logits
+        if id(arr) not in hosts:
+            hosts[id(arr)] = arr.detach().cpu().numpy()
+        out[uid] = hosts[id(arr)][idx]
+    return out
+
+
+def _upload(device, *arrays):
+    """Host int32 arrays -> device tensors through ONE copy: the step's
+    small metadata arrays are packed, copied, then split into views."""
+    flat = torch.from_numpy(np.concatenate([np.asarray(a, np.int32).reshape(-1) for a in arrays]))
+    dev = flat.to(device)
+    out, off = [], 0
+    for a in arrays:
+        n = int(np.prod(np.shape(a), dtype=np.int64))
+        out.append(dev[off : off + n].view(np.shape(a)))
+        off += n
+    return out
+
+
+class InferenceEngineV2:
+    def __init__(self, model_config: T.TransformerConfig, params,
+                 config: Optional[RaggedInferenceEngineConfig] = None, device="cuda"):
+        self.config = config or RaggedInferenceEngineConfig()
+        self._mc = c = model_config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "InferenceEngineV2: no CUDA device is available; pass device='cpu' "
+                "to run on the CPU"
+            )
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"InferenceEngineV2: device {device!r} (expected cuda or cpu)")
+        if c.position == "alibi":
+            raise NotImplementedError(
+                "v2 paged engine: alibi (bloom) is not supported — the paged "
+                "attention kernel takes no bias"
+            )
+        if not c.attn_causal:
+            raise ValueError(
+                "v2 paged engine: encoder models (attn_causal=False) do not "
+                "autoregressively generate — run models.transformer.forward()"
+            )
+        cfg = self.config
+        kv = cfg.kv_cache
+        if int(getattr(cfg, "tp_size", 1) or 1) > 1:
+            raise _later("tp_size > 1", "ROADMAP queue 1, item 6: multi-GPU")
+        if getattr(cfg, "quant", None) is not None and cfg.quant.enabled:
+            raise _later("weight-only quantized inference (quant)",
+                         "ROADMAP queue 1, item 8")
+        if int(getattr(cfg, "spec_k", 0) or 0) > 0:
+            raise _later("speculative decoding (spec_k > 0)", "ROADMAP queue 1, item 4")
+        if int(getattr(kv, "host_tier_bytes", 0) or 0) > 0:
+            raise _later("the host block tier (host_tier_bytes > 0)", "ROADMAP queue 1, item 4")
+        if c.attention_impl == "splash" or c.attn_sparsity is not None:
+            raise _later("splash attention", "ROADMAP queue 2, item 4")
+        T._check_served(c)
+        from deepspeed_tpu_torch.inference.v2.kv_pool import _check_dtype
+
+        if _check_dtype(str(getattr(kv, "kv_cache_dtype", "bf16") or "bf16")) == "int8":
+            raise _later("int8 KV pools (kv_cache_dtype='int8')",
+                         "ROADMAP queue 2, item 3: int8 KV with quantize_kv")
+        for knob, allowed in (("comm_quant", ("none", "int8")),
+                              ("comm_overlap", ("none", "tiled"))):
+            val = str(getattr(cfg, knob, "none") or "none")
+            if val not in allowed:
+                raise ValueError(f"{knob}={val!r}: expected one of {allowed}")
+            # both are validated no-ops at tp_size=1, as in the JAX engine
+
+        impl = str(getattr(cfg, "paged_attention_impl", "auto") or "auto")
+        if impl not in ("auto", "kernel", "dense"):
+            raise ValueError(
+                f"paged_attention_impl={impl!r}: expected 'auto', 'kernel' or 'dense' "
+                "(a typo must not silently fall back to the gather path)"
+            )
+        self._attn_impl = resolve_impl(impl, self.device.type, c.head_dim)
+
+        self._dtype = T.DTYPES.get(cfg.dtype, torch.bfloat16)
+        self.params = self._place(params)
+        self._layer_params = [
+            {k: w[li] for k, w in self.params["layers"].items()} for li in range(c.n_layers)
+        ]
+        self.state_manager = DSStateManager(cfg.state_manager, kv)
+        self.scheduler = RaggedScheduler(
+            cfg.state_manager,
+            self.state_manager,
+            prompt_chunk=int(getattr(cfg, "prompt_chunk", 0) or 0),
+            max_prompt_chunks=int(getattr(cfg, "max_prompt_chunks", 0) or 0),
+        )
+        # +1 trash block: padded tail tokens of bucketed chunks scatter there
+        # instead of corrupting block 0 (which belongs to a live sequence)
+        shape = (c.n_layers, kv.num_blocks + 1, kv.block_size, c.kv_heads, c.head_dim)
+        self._k_cache = torch.zeros(shape, dtype=self._dtype, device=self.device)
+        self._v_cache = torch.zeros(shape, dtype=self._dtype, device=self.device)
+        # layer offsets of the flat pool views, for the per-step tables
+        self._layer_off = torch.arange(c.n_layers, device=self.device, dtype=torch.int32) * (
+            kv.num_blocks + 1
+        )
+        self._seed = int(getattr(cfg, "seed", 0) or 0)
+        self.last_logprobs: Dict[int, np.ndarray] = {}
+        self.last_scheduled_tokens = 0
+        self.last_capped = set()
+        log_dist(
+            f"InferenceEngineV2: {kv.num_blocks} KV blocks × {kv.block_size} tokens, "
+            f"budget {cfg.state_manager.max_ragged_batch_size} tok/step, "
+            f"attn={self._attn_impl}, device={self.device}"
+            + (", prefix_cache=on" if self.state_manager.prefix_cache is not None else ""),
+            ranks=[0],
+        )
+
+    def _place(self, tree):
+        """Floating parameters at the engine dtype on the engine device."""
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = self._place(v)
+            else:
+                v = torch.as_tensor(v)
+                dt = self._dtype if v.is_floating_point() else v.dtype
+                out[k] = v.to(device=self.device, dtype=dt).contiguous()
+        return out
+
+    @property
+    def paged_attention_impl(self) -> str:
+        """The RESOLVED decode-attention impl ("kernel" or "dense")."""
+        return self._attn_impl
+
+    # -- not ported in this slice -----------------------------------------
+    def export_kv_blocks(self, *a, **k):
+        raise _later("KV block export/import", "ROADMAP queue 1, item 5: serving stack")
+
+    import_kv_blocks = import_kv_blocks_chunked = export_kv_blocks
+    export_kv_blocks_device = export_kv_blocks_windows = export_kv_blocks
+    import_kv_blocks_device = export_kv_blocks
+
+    def spec_round(self, *a, **k):
+        raise _later("speculative decoding (spec_round)", "ROADMAP queue 1, item 4")
+
+    def _step_per_row(self):
+        raise _later("the per-row step (_step_per_row)", "ROADMAP queue 1, item 4")
+
+    def enable_tracing(self, *a, **k):
+        raise _later("engine tracing spans", "ROADMAP queue 1, item 5: observability")
+
+    # ------------------------------------------------------------------
+    def _sample(self, logits, uids, positions, return_logprobs=False):
+        """Next tokens for [R, vocab] logits, keyed on (seed, uid, position
+        of the logits source) like the JAX package's row_keys."""
+        cfg = self.config
+        greedy = bool(getattr(cfg, "greedy", True))
+        keys = None if greedy else row_keys(self._seed, uids, positions)
+        return sample_tokens(
+            logits.float(), keys,
+            temperature=float(getattr(cfg, "temperature", 1.0) or 1.0),
+            greedy=greedy,
+            top_k=int(getattr(cfg, "top_k", 0) or 0),
+            top_p=float(getattr(cfg, "top_p", 0.0) or 0.0),
+            return_logprobs=return_logprobs,
+        )
+
+    # ------------------------------------------------------------------
+    def _pool_views(self):
+        """Flat multi-layer block-pool views [L*NBp, bs, nkv, d] (views of
+        the contiguous pools: no copy)."""
+        c, kv = self._mc, self.config.kv_cache
+        shape = (c.n_layers * (kv.num_blocks + 1), kv.block_size, c.kv_heads, c.head_dim)
+        return self._k_cache.view(shape), self._v_cache.view(shape)
+
+    def _trash(self, li: int) -> int:
+        kv = self.config.kv_cache
+        return li * (kv.num_blocks + 1) + kv.num_blocks
+
+    def _scatter_kv(self, li, blk, row, k, v):
+        """Write the new tokens' K/V into the pools IN PLACE through one
+        index_put on a flat slot view [L*NBp*bs, nkv, d] (the JAX package
+        scatters into a donated buffer instead). blk/row: [t] int32."""
+        c, kv = self._mc, self.config.kv_cache
+        L, NBp, bs = c.n_layers, kv.num_blocks + 1, kv.block_size
+        slot = ((li * NBp + blk.long()) * bs + row.long())
+        flat = (L * NBp * bs, c.kv_heads, c.head_dim)
+        self._k_cache.view(flat)[slot] = k.to(self._dtype)
+        self._v_cache.view(flat)[slot] = v.to(self._dtype)
+
+    def _window(self, li: int) -> int:
+        c = self._mc
+        if c.attn_layer_pattern is None:
+            return int(c.sliding_window or 0)
+        return int(c.sliding_window or 0) if c.attn_layer_pattern[li] else 0
+
+    def _layer_qkv(self, lp, x, positions, live: int):
+        """Shared per-layer prologue: pre-norm → QKV projections (+ biases)
+        → qk-norm → rope. x: [t, h]; returns [t, nh|nkv, d] heads."""
+        c = self._mc
+        nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
+        t = x.shape[0]
+        a = T._norm(x, lp["attn_norm"], lp.get("attn_norm_b"), c.norm, c.norm_eps)
+        q, k, v = a @ lp["wq"], a @ lp["wk"], a @ lp["wv"]
+        if c.attn_qkv_bias:
+            q, k, v = q + lp["wq_b"], k + lp["wk_b"], v + lp["wv_b"]
+        q = q.reshape(t, nh, d)
+        k = k.reshape(t, nkv, d)
+        v = v.reshape(t, nkv, d)
+        if c.qk_norm:
+            q = T.qk_norm_apply(c, q, lp["q_norm"], head_axis=1, b=lp.get("q_norm_b"))
+            k = T.qk_norm_apply(c, k, lp["k_norm"], head_axis=1, b=lp.get("k_norm_b"))
+        if c.position == "rope":
+            q = T._rope(q.transpose(0, 1)[None], positions[None], c, live)[0].transpose(0, 1)
+            k = T._rope(k.transpose(0, 1)[None], positions[None], c, live)[0].transpose(0, 1)
+        return q.contiguous(), k.contiguous(), v
+
+    def _layer_tail(self, lp, x, out):
+        """Shared per-layer epilogue: wo projection (+ bias), then the
+        parallel-block or sequential residual + MLP."""
+        c = self._mc
+        t = x.shape[0]
+        attn_out = out.reshape(t, c.n_heads * c.head_dim) @ lp["wo"]
+        if c.attn_out_bias:
+            attn_out = attn_out + lp["wo_b"]
+        if c.parallel_block:
+            m = T._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"), c.norm, c.norm_eps)
+            return x + attn_out + T._mlp_block(c, lp, m)[0]
+        x = x + attn_out
+        m = T._norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"), c.norm, c.norm_eps)
+        return x + T._mlp_block(c, lp, m)[0]
+
+    def _final(self, x):
+        c = self._mc
+        return T._norm(x, self.params["final_norm"], self.params.get("final_norm_b"),
+                       c.norm, c.norm_eps)
+
+    # ------------------------------------------------------------------
+    def _split_layer(self, li, x, meta):
+        """One layer of the split-phase step: the packed token axis is
+        [R decode slots | Rc chunks x tq tokens]. Projections, norms and the
+        MLP run on the whole batch; attention splits into the decode rows
+        (paged_attention, their own K/V as one extra column, pool limited
+        to positions below theirs) and the chunk rows (paged_chunk_attention
+        over the chunk's fresh K/V plus the pool below the chunk start).
+        The pools are written after attention."""
+        c = self._mc
+        lp = self._layer_params[li]
+        nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
+        R, Rc, tq = meta["R"], meta["Rc"], meta["tq"]
+        w = self._window(li)
+        q, k, v = self._layer_qkv(lp, x, meta["positions"], meta["live"])
+        k_pool, v_pool = self._pool_views()
+        dec_pos = meta["dec_pos"]
+        out_d = paged_attention(
+            q[:R], k_pool, v_pool, meta["dec_tables"][li], dec_pos, self._trash(li),
+            impl=self._attn_impl, window=w, scale=c.attn_scale,
+            extra_kv=(k[:R, None], v[:R, None], dec_pos[:, None]), pool_limit=dec_pos,
+        )
+        out_c = paged_chunk_attention(
+            q[R:].reshape(Rc, tq, nh, d), k_pool, v_pool, meta["chk_tables"][li],
+            meta["chk_pos"], self._trash(li), window=w, scale=c.attn_scale,
+            new_kv=(k[R:].reshape(Rc, tq, nkv, d), v[R:].reshape(Rc, tq, nkv, d)),
+            pool_limit=meta["chk_start"],
+        )
+        self._scatter_kv(li, meta["blk"], meta["row"], k, v)
+        out = torch.cat([out_d, out_c.reshape(Rc * tq, nh, d)], dim=0)
+        return self._layer_tail(lp, x, out)
+
+    def _round_layer(self, li, x, meta, side_k, side_v):
+        """One layer of one step of a fused decode round: queries are the
+        round's step-``s`` tokens (one per row); context = the pool below
+        each row's round start + the round's tokens so far from the side
+        buffers [L, R, n, nkv, d] (written in place before attention: the
+        query sees itself)."""
+        c = self._mc
+        lp = self._layer_params[li]
+        q, k, v = self._layer_qkv(lp, x, meta["pos"], meta["live"])
+        s = meta["s"]
+        side_k[li, :, s] = k
+        side_v[li, :, s] = v
+        k_pool, v_pool = self._pool_views()
+        out = paged_attention(
+            q, k_pool, v_pool, meta["tables"][li], meta["pos"], self._trash(li),
+            impl=self._attn_impl, window=self._window(li), scale=c.attn_scale,
+            extra_kv=(side_k[li], side_v[li], meta["epos"]), pool_limit=meta["pos0"],
+        )
+        self._scatter_kv(li, meta["blk"], meta["row"], k, v)
+        return self._layer_tail(lp, x, out)
+
+    # ------------------------------------------------------------------
+    def decode_round(self, n_steps: Optional[int] = None) -> Dict[int, np.ndarray]:
+        """One fused decode round: ``n_steps`` tokens for every eligible
+        RUNNING sequence, the sampled token fed back on the device. Only
+        legal when no prompt chunks are pending. Returns {uid: [n_steps]
+        generated tokens}; sequences that cannot take a full round (near
+        max_context or the block cap, or waiting on blocks) are left to the
+        per-step path, as in the JAX engine."""
+        n = int(n_steps or self.config.decode_steps)
+        sched = self.scheduler
+        if sched.has_pending():
+            raise RuntimeError(
+                "decode_round: prompt chunks are still pending — drive step() "
+                "until prefill completes before fused decode"
+            )
+        c = self._mc
+        max_context = self.config.state_manager.max_context
+        R = self.config.state_manager.max_ragged_sequence_count
+        uids = []
+        for uid in sched.running_uids():
+            if len(uids) >= R:
+                break
+            seq = self.state_manager.get_sequence(uid)
+            if seq.seen_tokens + n > max_context:
+                continue
+            if self.state_manager.seq_capped(seq, n):
+                continue
+            if not self.state_manager.extend(seq, n):
+                continue
+            uids.append(uid)
+        if not uids:
+            return {}
+        kv = self.config.kv_cache
+        B, bs, trash = kv.max_blocks_per_seq, kv.block_size, kv.num_blocks
+        tokens = np.zeros(R, np.int32)
+        pos0 = np.zeros(R, np.int32)
+        tables = np.full((R, B), trash, np.int32)
+        uid_arr = np.zeros(R, np.int32)
+        active = np.zeros(R, bool)
+        for i, uid in enumerate(uids):
+            seq = self.state_manager.get_sequence(uid)
+            tokens[i] = sched.peek_next_token(uid)
+            pos0[i] = seq.seen_tokens
+            tables[i, : len(seq.block_table)] = seq.block_table
+            uid_arr[i] = uid
+            active[i] = True
+        tables = np.where(active[:, None], tables, trash).astype(np.int32)
+        j = np.arange(n, dtype=np.int32)
+        toks, tables_d, uids_d, pos0_d, act_d = _upload(
+            self.device, tokens, tables, uid_arr, np.where(active, pos0, 0), active
+        )
+        tables_l = tables_d[None] + self._layer_off[:, None, None]  # [L, R, B]
+        act_d = act_d.bool()
+        side_shape = (c.n_layers, R, n, c.kv_heads, c.head_dim)
+        side_k = torch.zeros(side_shape, dtype=self._dtype, device=self.device)
+        side_v = torch.zeros(side_shape, dtype=self._dtype, device=self.device)
+        toks_out, logps_out = [], []
+        for s in range(n):
+            # positions advance on the host: no device read inside the round
+            pos = (pos0 + s * active).astype(np.int32)
+            blk = tables[np.arange(R), np.clip(pos // bs, 0, B - 1)]
+            epos = np.where((j[None] <= s) & active[:, None], pos0[:, None] + j[None], -1)
+            pos_d, blk_d, row_d, epos_d, key_pos = _upload(
+                self.device, pos, blk, pos % bs, epos, np.where(active, pos, -1)
+            )
+            meta = {
+                "tables": tables_l, "pos": pos_d, "pos0": pos0_d, "s": s,
+                "epos": epos_d, "blk": blk_d, "row": row_d,
+                "live": int(np.max(np.where(active, pos, 0))) + 1,
+            }
+            x = T.embed_tokens(self.params, toks, pos_d, c)
+            for li in range(c.n_layers):
+                x = self._round_layer(li, x, meta, side_k, side_v)
+            logits = T._apply_lm_head(self.params, self._final(x), c)
+            nxt, logp = self._sample(logits, uids_d, key_pos, return_logprobs=True)
+            toks = torch.where(act_d, nxt, toks)  # inactive rows freeze
+            toks_out.append(toks)
+            logps_out.append(logp)
+        toks_h = torch.stack(toks_out).cpu().numpy()  # [n, R]
+        logps_h = torch.stack(logps_out).cpu().numpy()
+        results: Dict[int, np.ndarray] = {}
+        self.last_logprobs = {}
+        for i, uid in enumerate(uids):
+            gen = toks_h[:, i]
+            sched.apply_decode_round(uid, gen)
+            results[uid] = gen
+            self.last_logprobs[uid] = logps_h[:, i]
+        return results
+
+    # ------------------------------------------------------------------
+    def put(self, batch_uids, batch_tokens) -> Dict[int, np.ndarray]:
+        """Submit new sequences (reference put :107) and run ONE engine step.
+        Returns {uid: logits} for sequences whose scheduled tokens completed a
+        prompt or decode step this round."""
+        for uid, toks in zip(batch_uids, batch_tokens):
+            self.scheduler.submit(uid, toks)
+        return self.step()
+
+    def step(self) -> Dict[int, np.ndarray]:
+        """One engine step; returns host fp32 logits per completed row."""
+        return _materialize_rows(self._step_device())
+
+    def step_tokens(self) -> Dict[int, int]:
+        """One engine step returning ``{uid: next-token int}`` (the sampled
+        token computed with the step, never a host argmax)."""
+        rows = _materialize_rows(self._step_device(), want_tokens=True)
+        return {uid: int(tok) for uid, tok in rows.items()}
+
+    def _step_device(self) -> Dict[int, tuple]:
+        """The split-phase step: stage the scheduler's batch onto the fixed
+        [R decode slots | Rc chunks x tq] grid, run the layers, return
+        {uid: (logits tensor, row, token tensor)} for rows whose prompt (or
+        decode token) completed. Nothing here waits for the device."""
+        batch = self.scheduler.next_batch()
+        self.last_scheduled_tokens = batch.total_tokens if batch is not None else 0
+        self.last_capped |= self.scheduler.drain_capped()
+        if batch is None:
+            return {}
+        c = self._mc
+        kv = self.config.kv_cache
+        R = self.config.state_manager.max_ragged_sequence_count
+        Rc = self.scheduler.max_prompt_chunks
+        B, bs, trash = kv.max_blocks_per_seq, kv.block_size, kv.num_blocks
+
+        dec_rows = [
+            (uid, toks, start)
+            for uid, toks, start, dec in zip(
+                batch.uids, batch.tokens, batch.start_positions, batch.is_decode
+            )
+            if dec
+        ]
+        chk_rows = [
+            (uid, toks, start, chunked)
+            for uid, toks, start, chunked, dec in zip(
+                batch.uids, batch.tokens, batch.start_positions,
+                batch.is_prompt_chunk, batch.is_decode,
+            )
+            if not dec
+        ]
+        if len(dec_rows) > R or len(chk_rows) > Rc:
+            raise RuntimeError(
+                f"split-phase batch overflow: {len(dec_rows)} decode rows "
+                f"(cap {R}), {len(chk_rows)} prompt chunks (cap {Rc})"
+            )
+        max_chunk = max((len(t) for _, t, _, _ in chk_rows), default=1)
+        # two chunk-length buckets, as in the JAX engine (same padding, so
+        # the two engines run the same shapes)
+        tq = 128 if max_chunk <= 128 else self.scheduler.prompt_chunk
+        tq = min(tq, self.scheduler.prompt_chunk)
+        T_ = R + Rc * tq
+
+        tokens = np.zeros(T_, np.int32)
+        positions = np.zeros(T_, np.int32)
+        blk = np.full(T_, trash, np.int32)
+        row = np.zeros(T_, np.int32)
+        dec_tables = np.full((R, B), trash, np.int32)
+        dec_pos = np.full(R, -1, np.int32)  # -1 = inactive slot (masks all)
+        dec_uids = np.zeros(R, np.int32)
+        chk_tables = np.full((Rc, B), trash, np.int32)
+        chk_pos = np.full((Rc, tq), -1, np.int32)
+        chk_start = np.zeros(Rc, np.int32)  # 0 = inactive (empty pool window)
+        chk_last = np.zeros(Rc, np.int32)
+        chk_uids = np.zeros(Rc, np.int32)
+
+        for i, (uid, toks, start) in enumerate(dec_rows):
+            seq = self.state_manager.get_sequence(uid)
+            tokens[i] = toks[0]
+            positions[i] = start
+            nblk = len(seq.block_table)
+            dec_tables[i, :nblk] = seq.block_table
+            dec_pos[i] = start
+            dec_uids[i] = uid
+            blk[i] = seq.block_table[min(start // bs, nblk - 1)]
+            row[i] = start % bs
+        for j, (uid, toks, start, _chunked) in enumerate(chk_rows):
+            seq = self.state_manager.get_sequence(uid)
+            n = len(toks)
+            off = R + j * tq
+            tokens[off : off + n] = toks
+            pos = start + np.arange(n)
+            positions[off : off + n] = pos
+            nblk = len(seq.block_table)
+            chk_tables[j, :nblk] = seq.block_table
+            chk_pos[j, :n] = pos
+            chk_start[j] = start
+            chk_uids[j] = uid
+            blk[off : off + n] = np.asarray(seq.block_table, np.int32)[np.minimum(pos // bs, nblk - 1)]
+            row[off : off + n] = pos % bs
+            chk_last[j] = off + n - 1
+        chk_src = positions[np.clip(chk_last, 0, T_ - 1)]
+
+        (tokens_d, positions_d, blk_d, row_d, dec_tables_d, dec_pos_d, dec_uids_d,
+         chk_tables_d, chk_pos_d, chk_start_d, chk_last_d, chk_uids_d, chk_src_d) = _upload(
+            self.device, tokens, positions, blk, row, dec_tables, dec_pos, dec_uids,
+            chk_tables, chk_pos, chk_start, np.clip(chk_last, 0, T_ - 1), chk_uids, chk_src,
+        )
+        off = self._layer_off[:, None, None]
+        meta = {
+            "R": R, "Rc": Rc, "tq": tq, "positions": positions_d,
+            "blk": blk_d, "row": row_d,
+            # live length (HF max(position_ids)+1) for the rope-scaling
+            # switch: padded slots carry position 0, so the plain max works
+            "live": int(positions.max()) + 1,
+            "dec_tables": dec_tables_d[None] + off, "dec_pos": dec_pos_d,
+            "chk_tables": chk_tables_d[None] + off, "chk_pos": chk_pos_d,
+            "chk_start": chk_start_d,
+        }
+        x = T.embed_tokens(self.params, tokens_d, positions_d, c)
+        for li in range(c.n_layers):
+            x = self._split_layer(li, x, meta)
+        x = self._final(x)
+        logits_dec = T._apply_lm_head(self.params, x[:R], c).float()
+        logits_chk = T._apply_lm_head(self.params, x[chk_last_d.long()], c).float()
+        toks_dec = self._sample(logits_dec, dec_uids_d, dec_pos_d)
+        toks_chk = self._sample(logits_chk, chk_uids_d, chk_src_d)
+
+        results: Dict[int, tuple] = {}
+        for i, (uid, toks, _start) in enumerate(dec_rows):
+            seq = self.state_manager.get_sequence(uid)
+            seq.seen_tokens += len(toks)
+            results[uid] = (logits_dec, i, toks_dec)
+        for j, (uid, toks, _start, chunked) in enumerate(chk_rows):
+            seq = self.state_manager.get_sequence(uid)
+            seq.seen_tokens += len(toks)
+            if not chunked:  # prompt complete: last-token logits usable
+                results[uid] = (logits_chk, j, toks_chk)
+        return results
+
+    # -- convenience generation loop ---------------------------------------
+    def generate(self, prompts, max_new_tokens: int = 32, eos_token_id: Optional[int] = None):
+        """Drive submit/step/feedback to completion for a list of prompts.
+        Returns a list of int32 arrays (prompt + generated).
+
+        Two phases, as in the JAX engine: (1) prefill — split-phase steps
+        with no host read between them; the completed rows' next tokens are
+        copied to the host once at the end; (2) decode — fused rounds of
+        ``decode_steps`` tokens, with the per-step loop underneath for caps
+        and memory pressure."""
+        uids = list(range(len(prompts)))
+        for uid, p in zip(uids, prompts):
+            self.scheduler.submit(uid, p)
+        remaining = {uid: max_new_tokens for uid in uids}
+        outputs = {uid: list(np.asarray(p, np.int32).reshape(-1)) for uid, p in zip(uids, prompts)}
+        self.last_capped = set()
+        ds = int(getattr(self.config, "decode_steps", 1) or 1)
+
+        def take_token(uid, nxt):
+            outputs[uid].append(nxt)
+            remaining[uid] -= 1
+            if remaining[uid] <= 0 or (eos_token_id is not None and nxt == eos_token_id):
+                self.scheduler.finish(uid)
+            else:
+                self.scheduler.feedback(uid, nxt)
+
+        # ---- phase 1: prefill without per-step host reads ----
+        held: Dict[int, tuple] = {}
+        while self.scheduler.has_pending():
+            res = self._step_device()
+            if self.last_scheduled_tokens == 0:
+                break  # pool pressure: the interleaved loop below owns waiting
+            held.update(res)
+        for uid, tok in _materialize_rows(held, want_tokens=True).items():
+            take_token(uid, int(tok))
+
+        # ---- phase 2: fused decode rounds + interleaved fallback ----
+        while self.scheduler.has_work():
+            if ds > 1 and not self.scheduler._pending and self.scheduler._running:
+                res = self.decode_round(ds)
+                if res:
+                    for uid, gen in res.items():
+                        take = [int(t) for t in gen]
+                        if eos_token_id is not None and eos_token_id in take:
+                            take = take[: take.index(eos_token_id) + 1]
+                        take = take[: remaining[uid]]
+                        outputs[uid].extend(take)
+                        remaining[uid] -= len(take)
+                        if remaining[uid] <= 0 or (
+                            eos_token_id is not None and take and take[-1] == eos_token_id
+                        ):
+                            self.scheduler.finish(uid)
+                    continue
+            res = self._step_device()
+            if self.last_scheduled_tokens == 0 and self.scheduler.has_work():
+                raise RuntimeError(
+                    "scheduler deadlock: work pending but nothing schedulable "
+                    f"(free KV blocks={self.state_manager.free_blocks}); "
+                    "increase kv_cache.num_blocks or reduce concurrency"
+                )
+            for uid, tok in _materialize_rows(res, want_tokens=True).items():
+                take_token(uid, int(tok))
+        return [np.asarray(outputs[uid], np.int32) for uid in uids]

@@ -1,0 +1,743 @@
+"""Decoder-only transformer family for the port (plain PyTorch).
+
+Counterpart of ``deepspeed_tpu/models/transformer.py``. The config
+(``TransformerConfig``, every field and check), the presets and the
+parameter layout are the JAX package's: a flat dict of tensors whose layer
+weights are stacked on a leading ``[n_layers]`` dim, projections stored
+``[in, out]``. ``models/convert.params_from_numpy`` loads the JAX
+package's parameters as they are, so both packages compute on identical
+weights.
+
+This slice ports what serving needs: the norms (RMSNorm through the CUDA
+kernel on a card), RoPE with every scaling kind, projections at the model
+dtype, the dense MLP, the LM head, and a plain ``forward`` whose attention
+is ``mha_reference``. ``forward`` is the logit reference of the engine's
+tests and of ``chip_smoke.py``. The flash kernel, MoE, quantized
+projections and training are later slices and raise here.
+"""
+
+import dataclasses
+import functools
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.ops.attention.core import mha_reference
+from deepspeed_tpu_torch.ops.normalization import (
+    fused_layer_norm,
+    rms_norm,
+    rms_norm_reference,
+)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+# attn_sparsity spec kinds (the JAX package's SparsityConfig families);
+# the config checks them, the splash kernel that reads them is not ported
+_SPARSITY_KINDS = ("dense", "fixed", "bigbird", "bslongformer", "variable")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Architecture config. Defaults give a Llama-style decoder."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: Optional[int] = None  # None → MHA; < n_heads → GQA; 1 → MQA
+    ffn_hidden_size: Optional[int] = None  # None → 4x (gelu) / 8/3x rounded (swiglu)
+    max_seq_len: int = 2048
+    norm: str = "rmsnorm"  # rmsnorm | rmsnorm_1p (gemma zero-centered) | layernorm
+    # swiglu | geglu (gemma) | gelu (tanh) | gelu_exact (erf) | relu |
+    # quick_gelu (CLIP: x * sigmoid(1.702 x))
+    activation: str = "swiglu"
+    position: str = "rope"  # rope | learned | alibi (bloom) | none
+    rope_theta: float = 10000.0
+    # Scaled RoPE (HF rope_scaling; reference AutoTP serves these checkpoints
+    # via the wrapped HF module — module_inject/auto_tp.py:193 — so parity
+    # requires native support): canonical hashable form, a sorted tuple of
+    # (key, value) pairs with list values as tuples. Build it with
+    # ``rope_scaling_from_hf``. Supported rope_type: linear, dynamic, yarn,
+    # longrope, llama3. None → plain theta RoPE.
+    rope_scaling: Optional[Tuple[Tuple[str, Any], ...]] = None
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # --- per-arch variations (reference module_inject/containers/ +
+    # inference/v2/model_implementations/ breadth) -------------------------
+    # decoupled head dim (mistral-nemo / qwen3 style): projections become
+    # [h, n_heads*head_dim] with head_dim != h/n_heads
+    head_dim_override: Optional[int] = None
+    # q/k normalization over head_dim, applied to the head-reshaped
+    # projections BEFORE rope. "rmsnorm" (qwen3): one [d] weight per layer
+    # shared across heads. "layernorm_per_head" (stablelm-2 qk_layernorm):
+    # biasless LayerNorm with PER-HEAD weights ([nh, d] / [nkv, d]).
+    # "layernorm" (phi qk_layernorm): one affine LayerNorm ([d] weight +
+    # bias) shared across heads.
+    qk_norm: bool = False
+    qk_norm_kind: str = "rmsnorm"
+    attn_qkv_bias: bool = False  # qwen2-style bias on q/k/v projections
+    attn_out_bias: bool = False  # phi-style bias on the output projection
+    mlp_bias: bool = False  # phi-style bias on MLP projections
+    lm_head_bias: bool = False  # phi ships a biased lm_head
+    # falcon/phi parallel block: x + attn(norm1(x)) + mlp(norm2(x)) — one
+    # residual stream, attention and MLP branches computed from pre-attn
+    # state (falcon-7b/phi share one norm: import the same weights into both)
+    parallel_block: bool = False
+    # phi partial rotary: rope applies to the first rope_frac*head_dim dims
+    rope_frac: float = 1.0
+    # softmax scale override: None → 1/sqrt(head_dim); gpt_neo uses 1.0
+    # (HF GPTNeoSelfAttention never divides the logits)
+    attn_scale: Optional[float] = None
+    # --- encoder family (bert/distilbert — reference module_inject/
+    # containers/{bert,distil_bert}.py serve these through kernel injection;
+    # the training transformer kernel, csrc/transformer/, is BERT-shaped) ---
+    # False → bidirectional self-attention (encoder)
+    attn_causal: bool = True
+    # "pre" (GPT/llama: norm before each block) | "post" (BERT: norm AFTER
+    # each residual add — x = LN(x + attn(x)); x = LN(x + mlp(x)))
+    norm_scheme: str = "pre"
+    # > 0: token-type (segment) embeddings added into the stem (BERT);
+    # forward takes token_type_ids (defaults to all-zeros)
+    type_vocab_size: int = 0
+    # BERT has no final norm (the post-LN layers end normalized already)
+    final_norm: bool = True
+    # masked-LM head: dense[h,h] + activation + LN before the tied decoder
+    # (+ per-vocab bias) — BertForMaskedLM's cls.predictions transform
+    mlm_head: bool = False
+    # sliding-window attention (mistral/starcoder2 sliding_window, gpt_neo
+    # local attention): query i sees keys in (i - window, i]. 0 = full
+    # causal. Applies to every layer unless attn_layer_pattern says which.
+    sliding_window: int = 0
+    # per-layer window flags for alternating local/global stacks (gpt_neo
+    # attention_types): tuple of n_layers ints, 1 = windowed, 0 = global.
+    # None with sliding_window > 0 → all layers windowed.
+    attn_layer_pattern: Optional[Tuple[int, ...]] = None
+    # gemma scales embeddings by sqrt(hidden_size) after lookup
+    embed_scale: bool = False
+    # bloom applies a LayerNorm to the embedding output
+    # (word_embeddings_layernorm); params carry embed_norm/embed_norm_b
+    embed_norm: bool = False
+    # layer-projection matmul precision (VERDICT fp8 lever; ops/qmatmul.py):
+    # "default" = model dtype; "fp8" = e4m3 tensor-scaled forward operands;
+    # "int8" = symmetric int8 forward (native 2x MXU rate on v5e). Backward
+    # stays full precision (straight-through vjp). Head/embed stay dense.
+    matmul_precision: str = "default"
+    dtype: str = "bfloat16"
+    remat: bool = True
+    # remat policy knob (reference activation_checkpointing config; VERDICT
+    # asked for this to be tunable): see remat_policy() for the names
+    remat_policy: str = "dots_with_no_batch_dims"
+    # Pallas fused head+CE (ops/fused_ce.py): skip materializing [b*s, V]
+    # logits. Takes effect on single-device TPU; multi-chip uses the sharded
+    # dense head.
+    fused_ce: bool = False
+    # MoE (0 → dense). When n_experts > 0 the MLP becomes a top-k gated MoE
+    # over the `expert` mesh axis (parallel/moe/).
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_coef: float = 0.01
+    # Residual-MoE (reference moe/layer.py:29 use_residual, arXiv 2201.05596):
+    # out = expert_out·coef₀ + dense_mlp(x)·coef₁ with coef = softmax of a
+    # learned [h, 2] projection per token
+    moe_residual: bool = False
+    # qwen2-moe shared expert: a dense expert of this ffn width runs on every
+    # token, added as sigmoid(shared_gate(x))·shared_mlp(x) (0 → none)
+    moe_shared_expert_dim: int = 0
+    # renormalize top-k combine weights over surviving experts (mixtral /
+    # qwen2 norm_topk_prob=True); False keeps raw softmax mass (qwen1.5-moe)
+    moe_norm_topk_prob: bool = True
+    vocab_parallel: bool = True  # shard embedding/lm_head vocab dim on `model`
+    # sequence-parallel attention: "ulysses" (all-to-all head scatter) or
+    # "ring" (ppermute blockwise — O(s/N) per-device memory, unbounded SP
+    # degree; no segment_ids support)
+    seq_impl: str = "ulysses"
+    # attention backend seam (ops.attention.core dispatch): "auto" picks the
+    # flash ring when the mesh's `context` axis is >1, else the platform
+    # best; "flash_ring" / "flash_head_sharded" / "flash" / "reference"
+    # force a specific path (hard error when shapes/mesh don't support it);
+    # "splash" routes through the scheduled block-sparse kernel
+    # (ops/sparse_attention/splash_pallas.py) — masked kv blocks are never
+    # scheduled, cost scales with mask density not s²
+    attention_impl: str = "auto"
+    # splash mask family as a hashable spec: (kind, ((kwarg, value), ...))
+    # with kind ∈ "fixed" | "bigbird" | "bslongformer" | "variable" |
+    # "dense" (the SparsityConfig families). The spec is compiled into a
+    # compacted per-q-block schedule at trace time (a Python constant —
+    # never rebuilt per step). None with attention_impl="splash" derives
+    # the schedule from attn_causal/sliding_window instead.
+    attn_sparsity: Optional[Tuple] = None
+    # kernel block edge for splash schedules; 0 → the op-layer default
+    # (DSTPU_SPLASH_BLOCK env or 512, shrunk to fit the sequence)
+    splash_block: int = 0
+    # >1: compute the LM loss per sequence tile so [b, s, vocab] logits never
+    # materialize (ALST TiledFusedLogitsLoss, ulysses_sp.py:960) — frees
+    # ~b*s*vocab bytes of activations at the cost of recomputing the head
+    # matmul in backward (~1pp MFU at 32k vocab); enable when memory-bound
+    loss_tiles: int = 0
+    # quantized collectives seam (comm/quantized.py): "int8" moves the MoE
+    # expert-parallel dispatch/combine exchange (and, via the pipe/serving
+    # configs that read it, the pipeline activation sends and the serving TP
+    # psum) as int8 payloads + fp32 block scales INSIDE the collective;
+    # "none" keeps full-width GSPMD collectives (bit-identical to before)
+    comm_quant: str = "none"
+    # ZeRO-Infinity weight streaming (reference partition_parameters.py
+    # remote_device + partitioned_param_coordinator prefetch): params rest in
+    # pinned_host; each scan iteration stages ONE layer's weights into HBM
+    # (XLA's latency-hiding scheduler overlaps the copy with compute — the
+    # reference's prefetch_bucket_size machinery for free), remat re-stages
+    # them in backward, and weight grads stream back to host via the staging
+    # vjp. HBM then holds one layer + activations, so models far larger than
+    # HBM train on one chip. Requires offload_param + a TPU backend; no-op
+    # elsewhere.
+    weight_stream: bool = False
+
+    def __post_init__(self):
+        if self.norm_scheme not in ("pre", "post"):
+            raise ValueError(f"norm_scheme={self.norm_scheme!r}: expected 'pre' or 'post'")
+        if self.qk_norm_kind not in ("rmsnorm", "layernorm", "layernorm_per_head"):
+            raise ValueError(
+                f"qk_norm_kind={self.qk_norm_kind!r}: expected 'rmsnorm', "
+                "'layernorm' or 'layernorm_per_head'"
+            )
+        if self.position == "alibi" and (self.sliding_window > 0 or self.attn_scale is not None):
+            # the alibi training branch rides the flash kernel's rank-1 bias
+            # and takes no window/scale — silently ignoring them would train
+            # full-context and then DECODE windowed (train/serve mismatch)
+            raise ValueError(
+                "alibi attention does not compose with sliding_window or "
+                "attn_scale (no supported arch combines them)"
+            )
+        if self.seq_impl not in ("ulysses", "ring"):
+            raise ValueError(
+                f"seq_impl={self.seq_impl!r}: expected 'ulysses' or 'ring' "
+                "(a typo would silently fall back to the wrong parallelism)"
+            )
+        if self.attention_impl not in (
+            "auto", "flash", "flash_head_sharded", "flash_ring", "reference",
+            "splash",
+        ):
+            raise ValueError(
+                f"attention_impl={self.attention_impl!r}: expected 'auto', "
+                "'flash', 'flash_head_sharded', 'flash_ring', 'reference' "
+                "or 'splash'"
+            )
+        if self.attn_sparsity is not None:
+            if self.attention_impl not in ("auto", "splash"):
+                raise ValueError(
+                    f"attn_sparsity set with attention_impl="
+                    f"{self.attention_impl!r} — the sparsity schedule only "
+                    "routes through 'splash' (or 'auto' promotion)"
+                )
+            kind = self.attn_sparsity[0] if self.attn_sparsity else None
+            if kind not in _SPARSITY_KINDS:
+                raise ValueError(
+                    f"attn_sparsity kind {kind!r}: expected one of "
+                    f"{sorted(_SPARSITY_KINDS)}"
+                )
+            if self.sliding_window > 0:
+                raise ValueError(
+                    "attn_sparsity and sliding_window are mutually "
+                    "exclusive — the sparsity layout replaces the window "
+                    "band (silently ignoring the window would train a "
+                    "different mask than configured)"
+                )
+        if self.attention_impl == "splash" or self.attn_sparsity is not None:
+            if self.attn_layer_pattern is not None:
+                raise ValueError(
+                    "splash attention does not compose with "
+                    "attn_layer_pattern — the per-layer window flag is a "
+                    "traced scalar inside the layer scan, but splash "
+                    "schedules are trace-time constants"
+                )
+            if self.position == "alibi":
+                raise ValueError(
+                    "splash attention does not compose with alibi (the "
+                    "scheduled kernel takes no positional bias)"
+                )
+        if self.attn_layer_pattern is not None:
+            if self.sliding_window <= 0:
+                raise ValueError(
+                    "attn_layer_pattern set without sliding_window — the "
+                    "pattern flags which layers use the window"
+                )
+            if len(self.attn_layer_pattern) != self.n_layers:
+                raise ValueError(
+                    f"attn_layer_pattern has {len(self.attn_layer_pattern)} "
+                    f"entries for {self.n_layers} layers"
+                )
+        if self.comm_quant not in ("none", "int8"):
+            raise ValueError(
+                f"comm_quant={self.comm_quant!r}: expected 'none' or 'int8' "
+                "(a typo would silently serve full-width collectives)"
+            )
+        if self.matmul_precision not in ("default", "fp8", "int8", "int8_tensor"):
+            raise ValueError(
+                f"matmul_precision={self.matmul_precision!r}: expected "
+                "'default', 'fp8', 'int8' (per-token/per-channel scales) or "
+                "'int8_tensor' (legacy per-tensor scales)"
+            )
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
+        if self.hidden_size % self.n_heads != 0:
+            raise ValueError(f"hidden_size {self.hidden_size} not divisible by "
+                             f"n_heads {self.n_heads}")
+        return self.hidden_size // self.n_heads
+
+    @property
+    def ffn_dim(self) -> int:
+        if self.ffn_hidden_size:
+            return self.ffn_hidden_size
+        if self.activation in ("swiglu", "geglu"):
+            # llama-style 2/3 * 4h rounded up to a multiple of 256
+            d = int(8 * self.hidden_size / 3)
+            return ((d + 255) // 256) * 256
+        return 4 * self.hidden_size
+
+
+# Presets: the JAX package's, plus this port's flagship serving width.
+PRESETS: Dict[str, Dict[str, Any]] = {
+    "tiny": dict(vocab_size=512, hidden_size=128, n_layers=2, n_heads=4, max_seq_len=256),
+    "gpt2-small": dict(
+        vocab_size=50257, hidden_size=768, n_layers=12, n_heads=12, max_seq_len=1024,
+        norm="layernorm", activation="gelu", position="learned", tie_embeddings=True,
+    ),
+    "llama-7b": dict(
+        vocab_size=32000, hidden_size=4096, n_layers=32, n_heads=32, max_seq_len=4096,
+        ffn_hidden_size=11008,
+    ),
+    "llama-1b": dict(
+        vocab_size=32000, hidden_size=2048, n_layers=16, n_heads=16, n_kv_heads=8,
+        max_seq_len=4096, ffn_hidden_size=5632,
+    ),
+    "bench-767m": dict(
+        vocab_size=32000, hidden_size=2304, n_layers=10, n_heads=18,
+        n_kv_heads=6, ffn_hidden_size=6912, max_seq_len=2048,
+        remat_policy="flash",
+    ),
+    "mixtral-tiny": dict(
+        vocab_size=1024, hidden_size=256, n_layers=2, n_heads=4, n_kv_heads=2,
+        max_seq_len=512, n_experts=4, moe_top_k=2,
+    ),
+    # mistralai/Mistral-7B-v0.1 config.json: GQA 32/8 heads of 128, SwiGLU
+    # ffn 14336, rope_theta 1e4, rms eps 1e-5, sliding_window 4096 (the
+    # mapping of deepspeed_tpu/models/hf.py config_from_hf)
+    "mistral-7b": dict(
+        vocab_size=32000, hidden_size=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        ffn_hidden_size=14336, max_seq_len=32768, rope_theta=10000.0, norm_eps=1e-5,
+        sliding_window=4096,
+    ),
+}
+
+
+def get_config(preset: str = "tiny", **overrides) -> TransformerConfig:
+    kw = dict(PRESETS[preset])
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def _check_served(c: TransformerConfig) -> None:
+    """Raise for features whose ops are not ported in this slice."""
+    if c.n_experts > 0:
+        raise NotImplementedError("MoE (n_experts > 0) is not ported yet (ROADMAP queue 1, item 2)")
+    if c.matmul_precision != "default":
+        raise NotImplementedError(
+            f"matmul_precision={c.matmul_precision!r} is not ported yet (ROADMAP queue 1, item 8)"
+        )
+    if c.position == "alibi":
+        raise NotImplementedError("alibi attention is not ported yet (ROADMAP queue 1, item 2)")
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+def init_params(config: TransformerConfig, generator: torch.Generator,
+                device="cuda") -> Dict[str, Any]:
+    """Seeded random parameters in the JAX package's layout: layer weights
+    stacked on a leading [n_layers] dim, projections [in, out], normal
+    init scaled by 1/sqrt(fan_in), embeddings by 0.02. Draws come from
+    ``generator`` (on ``device``), so they differ from the JAX package's
+    for the same seed; tests that compare the two load the JAX parameters
+    through ``models.convert.params_from_numpy``."""
+    c = config
+    _check_served(c)
+    dtype = DTYPES[c.dtype]
+    dev = torch.device(device)
+    h, d, nh, nkv = c.hidden_size, c.head_dim, c.n_heads, c.kv_heads
+    ffn = c.ffn_dim
+    L = c.n_layers
+
+    def normal(shape, std):
+        out = torch.empty(shape, device=dev, dtype=dtype)
+        # one layer at a time keeps the fp32 draw small at full width
+        for i in range(shape[0]):
+            out[i] = torch.randn(shape[1:], generator=generator, device=dev).mul_(std).to(dtype)
+        return out
+
+    def dense(shape, fan_in):
+        return normal(shape, 1.0 / math.sqrt(fan_in))
+
+    def const(shape, value):
+        return torch.full(shape, value, device=dev, dtype=dtype)
+
+    # rmsnorm_1p's effective scale is (1 + w): identity init is zeros there
+    one = 0.0 if c.norm == "rmsnorm_1p" else 1.0
+    layers: Dict[str, Any] = {
+        "attn_norm": const((L, h), one),
+        "wq": dense((L, h, nh * d), h),
+        "wk": dense((L, h, nkv * d), h),
+        "wv": dense((L, h, nkv * d), h),
+        "wo": dense((L, nh * d, h), nh * d),
+        "mlp_norm": const((L, h), one),
+        "w_up": dense((L, h, ffn), h),
+        "w_down": dense((L, ffn, h), ffn),
+    }
+    if c.activation in ("swiglu", "geglu"):
+        layers["w_gate"] = dense((L, h, ffn), h)
+    if c.norm == "layernorm":
+        layers["attn_norm_b"] = const((L, h), 0.0)
+        layers["mlp_norm_b"] = const((L, h), 0.0)
+    if c.attn_qkv_bias:
+        layers["wq_b"] = const((L, nh * d), 0.0)
+        layers["wk_b"] = const((L, nkv * d), 0.0)
+        layers["wv_b"] = const((L, nkv * d), 0.0)
+    if c.qk_norm:
+        if c.qk_norm_kind == "layernorm_per_head":
+            layers["q_norm"] = const((L, nh, d), 1.0)
+            layers["k_norm"] = const((L, nkv, d), 1.0)
+        else:
+            layers["q_norm"] = const((L, d), 1.0)
+            layers["k_norm"] = const((L, d), 1.0)
+            if c.qk_norm_kind == "layernorm":
+                layers["q_norm_b"] = const((L, d), 0.0)
+                layers["k_norm_b"] = const((L, d), 0.0)
+    if c.attn_out_bias:
+        layers["wo_b"] = const((L, h), 0.0)
+    if c.mlp_bias:
+        layers["w_up_b"] = const((L, ffn), 0.0)
+        layers["w_down_b"] = const((L, h), 0.0)
+        if c.activation in ("swiglu", "geglu"):
+            layers["w_gate_b"] = const((L, ffn), 0.0)
+    params: Dict[str, Any] = {"embed": normal((c.vocab_size, h), 0.02), "layers": layers}
+    if c.final_norm:
+        params["final_norm"] = const((h,), one)
+        if c.norm == "layernorm":
+            params["final_norm_b"] = const((h,), 0.0)
+    if c.position == "learned":
+        params["pos_embed"] = normal((c.max_seq_len, h), 0.02)
+    if c.embed_norm:
+        params["embed_norm"] = const((h,), 1.0)
+        params["embed_norm_b"] = const((h,), 0.0)
+    if not c.tie_embeddings:
+        params["lm_head"] = dense((h, c.vocab_size), h)
+        if c.lm_head_bias:
+            params["lm_head_b"] = const((c.vocab_size,), 0.0)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# layer pieces
+# ---------------------------------------------------------------------------
+def _norm(x, w, b, kind, eps, rms=rms_norm):
+    """One definition of the model's norms. RMSNorm goes through ``rms``:
+    the engine's ``rms_norm`` (the CUDA kernel on a card, the plain version
+    on the CPU), or ``rms_norm_reference`` in the plain ``forward``."""
+    if kind == "rmsnorm":
+        y = rms(x, w, eps)
+        return y + b if b is not None else y
+    if kind == "rmsnorm_1p":
+        # gemma zero-centered weight: y = rms(x) * (1 + w), the add in fp32;
+        # the kernel takes the fp32 weight
+        y = rms(x, 1.0 + w.float(), eps)
+        return y + b if b is not None else y
+    return fused_layer_norm(x, w, b if b is not None else torch.zeros_like(w), eps)
+
+
+def rope_params(c: TransformerConfig, rot: int, seq_len: Optional[int] = None):
+    """Inverse frequencies [rot//2] (fp32 numpy) and the cos/sin attention
+    factor, faithful to HF ``modeling_rope_utils`` for every scaling kind
+    (linear, dynamic, yarn, longrope, llama3). ``seq_len`` is the live
+    sequence length (HF's max(position_ids)+1); the port's callers know it
+    on the host, so it is a Python int here, never a device value."""
+    theta = float(c.rope_theta)
+    dims = np.arange(0, rot, 2, dtype=np.float32) / rot
+    inv_freq = 1.0 / (theta**dims)
+    sc = dict(c.rope_scaling) if c.rope_scaling else None
+    if not sc:
+        return inv_freq.astype(np.float32), 1.0
+    kind = sc["rope_type"]
+    factor = float(sc.get("factor", 1.0))
+    if kind == "linear":
+        return (inv_freq / factor).astype(np.float32), 1.0
+    if kind == "dynamic":
+        maxp = c.max_seq_len
+        seq = np.float32(max(float(seq_len if seq_len is not None else maxp), maxp))
+        base = np.float32(theta) * ((np.float32(factor) * seq / np.float32(maxp))
+                                    - np.float32(factor - 1)) ** np.float32(rot / (rot - 2))
+        return (np.float32(1.0) / (base ** dims)).astype(np.float32), 1.0
+    if kind == "llama3":
+        old_len = float(sc["original_max_position_embeddings"])
+        low_wl = old_len / float(sc["low_freq_factor"])
+        high_wl = old_len / float(sc["high_freq_factor"])
+        wavelen = 2 * math.pi / inv_freq
+        scaled = np.where(wavelen > low_wl, inv_freq / factor, inv_freq)
+        smooth = (old_len / wavelen - float(sc["low_freq_factor"])) / (
+            float(sc["high_freq_factor"]) - float(sc["low_freq_factor"])
+        )
+        mid = (1 - smooth) * scaled / factor + smooth * scaled
+        is_mid = (wavelen >= high_wl) & (wavelen <= low_wl)
+        return np.where(is_mid, mid, scaled).astype(np.float32), 1.0
+    if kind == "yarn":
+        old_len = float(sc.get("original_max_position_embeddings") or c.max_seq_len)
+        attn = sc.get("attention_factor")
+        mscale, mscale_all = sc.get("mscale"), sc.get("mscale_all_dim")
+
+        def get_mscale(scale, m=1.0):
+            return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+        if attn is None:
+            attn = (
+                get_mscale(factor, mscale) / get_mscale(factor, mscale_all)
+                if mscale and mscale_all
+                else get_mscale(factor)
+            )
+        beta_fast = float(sc.get("beta_fast") or 32)
+        beta_slow = float(sc.get("beta_slow") or 1)
+
+        def corr_dim(n_rot):
+            return rot * math.log(old_len / (n_rot * 2 * math.pi)) / (2 * math.log(theta))
+
+        low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+        if sc.get("truncate", True):
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, rot - 1)
+        if low == high:
+            high += 0.001
+        ramp = np.clip((np.arange(rot // 2, dtype=np.float32) - low) / (high - low), 0, 1)
+        extrap = 1.0 - ramp  # 1 → keep base freq, 0 → interpolate by factor
+        return (
+            (inv_freq / factor * (1 - extrap) + inv_freq * extrap).astype(np.float32),
+            float(attn),
+        )
+    # longrope: per-dim factor lists, chosen by seq length vs pretrain length
+    old_len = int(sc.get("original_max_position_embeddings") or c.max_seq_len)
+    if factor == 1.0 and sc.get("original_max_position_embeddings"):
+        factor = c.max_seq_len / old_len
+    attn = sc.get("attention_factor")
+    if attn is None:
+        attn = 1.0 if factor <= 1.0 else math.sqrt(1 + math.log(factor) / math.log(old_len))
+    short = 1.0 / (np.asarray(sc["short_factor"], np.float32) * theta**dims)
+    long = 1.0 / (np.asarray(sc["long_factor"], np.float32) * theta**dims)
+    return (long if (seq_len or 0) > old_len else short).astype(np.float32), float(attn)
+
+
+def _rope(x, positions, c: TransformerConfig, seq_len: Optional[int] = None):
+    """Rotary embedding on [b, h, s, d] given positions [b, s] or [s]
+    (rope_frac < 1: only the first frac*d dims rotate)."""
+    d = x.shape[-1]
+    frac = c.rope_frac
+    rot = d if frac >= 1.0 else (int(d * frac) // 2) * 2
+    tail = None
+    if rot < d:
+        x, tail = x[..., :rot], x[..., rot:]
+    seq_dependent = c.rope_scaling is not None and dict(c.rope_scaling)["rope_type"] in (
+        "dynamic", "longrope")
+    inv_freq, attn_factor = rope_params(c, rot, seq_len if seq_dependent else None)
+    freqs = torch.as_tensor(inv_freq, device=x.device)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs  # [b, s, rot/2]
+    cos = torch.cos(angles)[:, None] * attn_factor  # [b, 1, s, rot/2]
+    sin = torch.sin(angles)[:, None] * attn_factor
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    out = out.to(tail.dtype if tail is not None else x.dtype)
+    return out if tail is None else torch.cat([out, tail], dim=-1)
+
+
+def _scale_embed(x, c: TransformerConfig, dtype):
+    """gemma sqrt(h) embedding normalizer, rounded to the model dtype before
+    the multiply (as HF does)."""
+    if not c.embed_scale:
+        return x
+    # a 0-dim CPU tensor enters a device op as a scalar (no host-to-device copy)
+    return x * torch.tensor(math.sqrt(c.hidden_size), dtype=dtype)
+
+
+def _proj(c: TransformerConfig, x, w):
+    """Layer projection at the model dtype (matmul_precision "default"; the
+    quantized precisions raise in ``_check_served``)."""
+    return x @ w
+
+
+def qk_norm_apply(c: TransformerConfig, x, w, head_axis: int, b=None):
+    """q/k normalization over head_dim (qwen3 rmsnorm, phi affine
+    layernorm, stablelm-2 per-head layernorm), plain torch."""
+    if c.qk_norm_kind == "rmsnorm":
+        return rms_norm_reference(x, w, c.norm_eps)
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + c.norm_eps)
+    if c.qk_norm_kind == "layernorm":
+        y = y * w.float()
+        if b is not None:
+            y = y + b.float()
+        return y.to(x.dtype)
+    shape = [1] * x.ndim
+    shape[head_axis] = w.shape[0]
+    shape[-1] = w.shape[1]
+    return (y * w.float().reshape(shape)).to(x.dtype)
+
+
+def _activation(c: TransformerConfig, up, gate=None):
+    F = torch.nn.functional
+    if c.activation in ("swiglu", "geglu"):
+        return (F.gelu(gate, approximate="tanh") if c.activation == "geglu" else F.silu(gate)) * up
+    if c.activation == "relu":
+        return F.relu(up)
+    if c.activation == "quick_gelu":
+        return up * torch.sigmoid(1.702 * up)
+    return F.gelu(up, approximate="none" if c.activation == "gelu_exact" else "tanh")
+
+
+def _mlp_block(c: TransformerConfig, lp, x):
+    """Dense MLP; returns (out, aux_loss) like the JAX package's."""
+    up = _proj(c, x, lp["w_up"])
+    if c.mlp_bias:
+        up = up + lp["w_up_b"]
+    gate = None
+    if c.activation in ("swiglu", "geglu"):
+        gate = _proj(c, x, lp["w_gate"])
+        if c.mlp_bias:
+            gate = gate + lp["w_gate_b"]
+    out = _proj(c, _activation(c, up, gate), lp["w_down"])
+    if c.mlp_bias:
+        out = out + lp["w_down_b"]
+    return out, 0.0
+
+
+def _embed_norm(params, c: TransformerConfig, x):
+    """bloom word_embeddings_layernorm applied to the embedding output."""
+    return _norm(x, params["embed_norm"], params["embed_norm_b"], "layernorm", c.norm_eps)
+
+
+def _lm_head_matrix(params, config: TransformerConfig, dtype):
+    if config.tie_embeddings:
+        return params["embed"].to(dtype).t()
+    return params["lm_head"]
+
+
+def _apply_lm_head(params, x, config: TransformerConfig):
+    logits = x @ _lm_head_matrix(params, config, x.dtype)
+    if config.lm_head_bias and not config.tie_embeddings:
+        logits = logits + params["lm_head_b"].to(logits.dtype)
+    return logits
+
+
+def embed_tokens(params, tokens, positions, config: TransformerConfig):
+    """Token (+ learned position) embedding at the model dtype, the stem
+    shared by ``forward`` and the engine's steps."""
+    c = config
+    dtype = DTYPES[c.dtype]
+    x = _scale_embed(params["embed"].to(dtype)[tokens.long()], c, dtype)
+    if c.position == "learned":
+        x = x + params["pos_embed"][positions.long().clamp(0, c.max_seq_len - 1)]
+    if c.embed_norm:
+        x = _embed_norm(params, c, x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# plain forward (the logit reference)
+# ---------------------------------------------------------------------------
+def _attention_block(c: TransformerConfig, lp, x, positions, window_flag=None):
+    b, s, _ = x.shape
+    nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
+    q = _proj(c, x, lp["wq"])
+    k = _proj(c, x, lp["wk"])
+    v = _proj(c, x, lp["wv"])
+    if c.attn_qkv_bias:
+        q, k, v = q + lp["wq_b"], k + lp["wk_b"], v + lp["wv_b"]
+    q = q.reshape(b, s, nh, d).transpose(1, 2)
+    k = k.reshape(b, s, nkv, d).transpose(1, 2)
+    v = v.reshape(b, s, nkv, d).transpose(1, 2)
+    if c.qk_norm:
+        q = qk_norm_apply(c, q, lp["q_norm"], head_axis=1, b=lp.get("q_norm_b"))
+        k = qk_norm_apply(c, k, lp["k_norm"], head_axis=1, b=lp.get("k_norm_b"))
+    if c.position == "rope":
+        q = _rope(q, positions, c, s)
+        k = _rope(k, positions, c, s)
+    out = mha_reference(
+        q, k, v, causal=c.attn_causal, scale=c.attn_scale, window=c.sliding_window,
+        window_flag=window_flag,
+    )
+    out = _proj(c, out.transpose(1, 2).reshape(b, s, nh * d), lp["wo"])
+    if c.attn_out_bias:
+        out = out + lp["wo_b"]
+    return out
+
+
+def forward(params: Dict[str, Any], tokens, config: TransformerConfig,
+            positions=None) -> Tuple[torch.Tensor, float]:
+    """Plain forward: tokens [b, s] → (logits [b, s, vocab], aux_loss).
+    Attention is ``mha_reference`` and RMSNorm ``rms_norm_reference``, on any
+    device; ``attention_impl`` other than "auto" or
+    "reference" raises (the flash kernel is not ported yet)."""
+    c = config
+    if c.attention_impl not in ("auto", "reference"):
+        raise NotImplementedError("flash kernel not yet ported")
+    _check_served(c)
+    if c.mlm_head or c.type_vocab_size > 0:
+        raise NotImplementedError(
+            "encoder heads (mlm_head, token types) are not ported yet (ROADMAP queue 1, item 2)"
+        )
+    tokens = torch.as_tensor(tokens)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device, dtype=torch.int32)
+    dtype = DTYPES[c.dtype]
+    # the plain RMSNorm throughout, so the reference never runs a kernel
+    norm = functools.partial(_norm, rms=rms_norm_reference)
+    x = embed_tokens(params, tokens, positions, c)
+    L = c.n_layers
+    for li in range(L):
+        lp = {k: w[li].to(dtype) if w.is_floating_point() else w[li]
+              for k, w in params["layers"].items()}
+        flag = None
+        if c.attn_layer_pattern is not None:
+            flag = int(c.attn_layer_pattern[li])
+        if c.norm_scheme == "post":
+            x = norm(x + _attention_block(c, lp, x, positions, flag), lp["attn_norm"],
+                     lp.get("attn_norm_b"), c.norm, c.norm_eps)
+            x = norm(x + _mlp_block(c, lp, x)[0], lp["mlp_norm"], lp.get("mlp_norm_b"),
+                     c.norm, c.norm_eps)
+            continue
+        a = norm(x, lp["attn_norm"], lp.get("attn_norm_b"), c.norm, c.norm_eps)
+        attn_out = _attention_block(c, lp, a, positions, flag)
+        if c.parallel_block:
+            m = norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"), c.norm, c.norm_eps)
+            x = x + attn_out + _mlp_block(c, lp, m)[0]
+            continue
+        x = x + attn_out
+        m = norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"), c.norm, c.norm_eps)
+        x = x + _mlp_block(c, lp, m)[0]
+    if c.final_norm:
+        x = norm(x, params["final_norm"], params.get("final_norm_b"), c.norm, c.norm_eps)
+    return _apply_lm_head(params, x, c), 0.0
+
+
+def num_params(params) -> int:
+    n = 0
+    for v in params.values():
+        n += num_params(v) if isinstance(v, dict) else v.numel()
+    return n

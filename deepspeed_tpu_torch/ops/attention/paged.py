@@ -1,0 +1,331 @@
+"""Paged (block-table) attention for the ragged inference batch.
+
+Counterpart of ``deepspeed_tpu/ops/attention/paged_pallas.py``. Layout:
+
+  q            [T, nh, d]       packed new-token queries
+  k/v pool     [NB, bs, nkv, d] paged block pool (token-major); the engine
+                 passes a flat multi-layer view [L*NBp, bs, nkv, d] with
+                 layer-offset block tables and trash id
+  block_tables [T, B] per token (decode: one token per row)
+  q_pos        global position of each query in its sequence
+
+Implementations:
+  * ``paged_attention_reference``, ``paged_decode_attention_dense`` and
+    ``paged_chunk_attention``: plain torch (block gather + masked softmax),
+    as the JAX package's are plain XLA.
+  * ``paged_decode``: the hand-written CUDA kernel (``ops/kernels/csrc/
+    paged_decode.cu``, replacing the Pallas ``_paged_kernel``). On a CPU
+    tensor it takes its plain version, ``paged_decode_attention_dense``,
+    which computes the same function (pool limit, extra columns, window,
+    scale, trash blocks, zero for fully-masked rows).
+  * ``paged_attention(impl=...)``: the dispatch seam, with the JAX
+    contract ``auto | kernel | dense | reference``.
+
+int8 pools (``k_scale``/``v_scale``) are not ported in this slice: every
+entry point raises ``NotImplementedError`` for them.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.ops.attention.core import window_too_far
+from deepspeed_tpu_torch.ops.kernels import KERNELS, stream_ptr
+
+NEG_INF = -1e30
+PAGED_ATTENTION_IMPLS = ("auto", "kernel", "dense", "reference")
+KERNEL_HEAD_DIMS = (64, 128, 256)
+PAGED_KERNEL = KERNELS["paged_decode"]
+
+
+def _no_int8(k_cache, k_scale, v_scale, where):
+    if k_scale is not None or v_scale is not None or k_cache.dtype == torch.int8:
+        raise NotImplementedError(
+            f"{where}: int8 KV pools (k_scale/v_scale planes) are not ported yet "
+            "(ROADMAP queue 2, item 3: int8 KV with quantize_kv)"
+        )
+
+
+def _gather_ctx(cache, tables):
+    """cache [NB, bs, nkv, d], tables [R, B] -> fp32 context [R, nkv, B*bs, d]."""
+    R, B = tables.shape
+    _, bs, nkv, d = cache.shape
+    g = cache[tables.long()]  # [R, B, bs, nkv, d]
+    return g.permute(0, 3, 1, 2, 4).reshape(R, nkv, B * bs, d).float()
+
+
+def paged_attention_reference(q, k_cache, v_cache, block_tables, q_pos, trash_block,
+                              window: int = 0, scale=None, k_scale=None, v_scale=None):
+    """Plain per-token context gather + masked softmax. Shapes as the
+    module docstring; returns [T, nh, d]. Tokens go in groups of 32 so peak
+    memory is 32 context windows."""
+    _no_int8(k_cache, k_scale, v_scale, "paged_attention_reference")
+    T, nh, d = q.shape
+    _, bs, nkv, _ = k_cache.shape
+    B = block_tables.shape[1]
+    S = B * bs
+    group = nh // nkv
+    kpos = torch.arange(S, device=q.device, dtype=torch.int32)
+    sc = scale if scale is not None else d ** -0.5
+    outs = []
+    for t0 in range(0, T, 32):
+        bt = block_tables[t0 : t0 + 32]
+        pos = q_pos[t0 : t0 + 32]
+        n = bt.shape[0]
+        k_ctx = _gather_ctx(k_cache, bt)  # [n, nkv, S, d]
+        v_ctx = _gather_ctx(v_cache, bt)
+        blk_valid = (bt != trash_block).repeat_interleave(bs, dim=1)  # [n, S]
+        mask = (kpos[None] <= pos[:, None]) & blk_valid
+        if window:
+            mask = mask & ~window_too_far(pos[:, None], kpos[None], window)
+        qg = q[t0 : t0 + 32].reshape(n, nkv, group, d).float()
+        s = torch.einsum("rngd,rnsd->rngs", qg, k_ctx) * sc
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+        w = torch.softmax(s, dim=-1)
+        w = torch.where(mask.any(dim=1)[:, None, None, None], w, torch.zeros_like(w))
+        outs.append(torch.einsum("rngs,rnsd->rngd", w, v_ctx).reshape(n, nh, d))
+    return torch.cat(outs, dim=0).to(q.dtype)
+
+
+def paged_decode_attention_dense(q, k_cache, v_cache, block_tables, q_pos, trash_block,
+                                 window: int = 0, scale: Optional[float] = None,
+                                 extra_kv=None, pool_limit=None, k_scale=None,
+                                 v_scale=None):
+    """Decode attention as plain torch (block gather + masked softmax): the
+    plain version of the paged-decode kernel. q [R, nh, d], tables [R, B]
+    per row. ``extra_kv`` = (ke [R, E, nkv, d], ve, epos [R, E]): not-yet-
+    cached tokens appended as extra score columns, epos = -1 invalid.
+    ``pool_limit`` [R]: pool positions >= limit are masked (default
+    q_pos + 1, the causal <=)."""
+    _no_int8(k_cache, k_scale, v_scale, "paged_decode_attention_dense")
+    R, nh, d = q.shape
+    _, bs, nkv, _ = k_cache.shape
+    B = block_tables.shape[1]
+    S = B * bs
+    group = nh // nkv
+    k_ctx = _gather_ctx(k_cache, block_tables)
+    v_ctx = _gather_ctx(v_cache, block_tables)
+    kpos = torch.arange(S, device=q.device, dtype=torch.int32)
+    limit = (q_pos + 1) if pool_limit is None else pool_limit
+    mask = (kpos[None] < limit[:, None]) & (block_tables != trash_block).repeat_interleave(
+        bs, dim=1
+    )  # [R, S]
+    if pool_limit is not None:
+        # a slot at q_pos < 0 is padding and sees nothing, as in the Pallas
+        # kernel (the JAX dense gather lets it see the pool below its limit;
+        # the engine never passes that combination)
+        mask = mask & (q_pos[:, None] >= 0)
+    if window:
+        mask = mask & ~window_too_far(q_pos[:, None], kpos[None], window)
+    qg = q.reshape(R, nkv, group, d).float() * (scale if scale is not None else d ** -0.5)
+    s = torch.einsum("rngd,rnsd->rngs", qg, k_ctx)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    if extra_kv is not None:
+        ke, ve, epos = extra_kv
+        emask = (epos >= 0) & (epos <= q_pos[:, None])  # [R, E]
+        if window:
+            emask = emask & ~window_too_far(q_pos[:, None], epos, window)
+        ke32 = ke.permute(0, 2, 1, 3).float()  # [R, nkv, E, d]
+        ve32 = ve.permute(0, 2, 1, 3).float()
+        se = torch.einsum("rngd,rned->rnge", qg, ke32)
+        se = torch.where(emask[:, None, None], se, torch.full_like(se, NEG_INF))
+        s = torch.cat([s, se], dim=-1)
+        any_valid = mask.any(dim=1) | emask.any(dim=1)
+        w = torch.softmax(s, dim=-1)
+        w = torch.where(any_valid[:, None, None, None], w, torch.zeros_like(w))
+        out = torch.einsum("rngs,rnsd->rngd", w[..., :S], v_ctx) + torch.einsum(
+            "rnge,rned->rngd", w[..., S:], ve32
+        )
+        return out.reshape(R, nh, d).to(q.dtype)
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(mask.any(dim=1)[:, None, None, None], w, torch.zeros_like(w))
+    out = torch.einsum("rngs,rnsd->rngd", w, v_ctx)
+    return out.reshape(R, nh, d).to(q.dtype)
+
+
+def paged_chunk_attention(q, k_cache, v_cache, row_tables, q_pos, trash_block,
+                          window: int = 0, scale: Optional[float] = None, new_kv=None,
+                          pool_limit=None, k_scale=None, v_scale=None):
+    """Prefill-chunk attention: Rc rows x tq new tokens, each row's tokens
+    sharing that row's block table (q [Rc, tq, nh, d], row_tables [Rc, B],
+    q_pos [Rc, tq], -1 = padding). One context gather per row, then a dense
+    masked softmax; padded tokens emit exactly 0. ``new_kv`` = (ke
+    [Rc, tq, nkv, d], ve): this chunk's not-yet-cached K/V, attended
+    causally, while the pool covers positions < ``pool_limit`` [Rc]."""
+    _no_int8(k_cache, k_scale, v_scale, "paged_chunk_attention")
+    Rc, tq, nh, d = q.shape
+    _, bs, nkv, _ = k_cache.shape
+    B = row_tables.shape[1]
+    S = B * bs
+    group = nh // nkv
+    k_ctx = _gather_ctx(k_cache, row_tables)  # [Rc, nkv, S, d]
+    v_ctx = _gather_ctx(v_cache, row_tables)
+    kpos = torch.arange(S, device=q.device, dtype=torch.int32)
+    blk_valid = (row_tables != trash_block).repeat_interleave(bs, dim=1)  # [Rc, S]
+    if pool_limit is None:
+        pool_ok = kpos[None, None] <= q_pos[:, :, None]
+    else:
+        pool_ok = (kpos[None] < pool_limit[:, None])[:, None].expand(Rc, tq, S)
+    mask = pool_ok & (q_pos[:, :, None] >= 0) & blk_valid[:, None]  # [Rc, tq, S]
+    if window:
+        mask = mask & ~window_too_far(q_pos[:, :, None], kpos[None, None], window)
+    qg = q.reshape(Rc, tq, nkv, group, d).float() * (scale if scale is not None else d ** -0.5)
+    s = torch.einsum("rtngd,rnsd->rntgs", qg, k_ctx)
+    s = torch.where(mask[:, None, :, None], s, torch.full_like(s, NEG_INF))
+    if new_kv is not None:
+        ke, ve = new_kv
+        # in-chunk causal: key j visible to query i iff 0 <= pos_j <= pos_i
+        cmask = (
+            (q_pos[:, None, :] >= 0)
+            & (q_pos[:, :, None] >= 0)
+            & (q_pos[:, None, :] <= q_pos[:, :, None])
+        )  # [Rc, tq(i), tq(j)]
+        if window:
+            cmask = cmask & ~window_too_far(q_pos[:, :, None], q_pos[:, None, :], window)
+        ke32 = ke.permute(0, 2, 1, 3).float()  # [Rc, nkv, tq, d]
+        ve32 = ve.permute(0, 2, 1, 3).float()
+        sc = torch.einsum("rtngd,rnjd->rntgj", qg, ke32)
+        sc = torch.where(cmask[:, None, :, None], sc, torch.full_like(sc, NEG_INF))
+        s = torch.cat([s, sc], dim=-1)
+        any_valid = mask.any(dim=2) | cmask.any(dim=2)  # [Rc, tq]
+        w = torch.softmax(s, dim=-1)
+        w = torch.where(any_valid[:, None, :, None, None], w, torch.zeros_like(w))
+        out = torch.einsum("rntgs,rnsd->rtngd", w[..., :S], v_ctx) + torch.einsum(
+            "rntgj,rnjd->rtngd", w[..., S:], ve32
+        )
+        return out.reshape(Rc, tq, nh, d).to(q.dtype)
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(mask.any(dim=2)[:, None, :, None, None], w, torch.zeros_like(w))
+    out = torch.einsum("rntgs,rnsd->rtngd", w, v_ctx)
+    return out.reshape(Rc, tq, nh, d).to(q.dtype)
+
+
+def _i32(t, shape, name):
+    t = torch.as_tensor(t)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"paged_decode: {name} shape {tuple(t.shape)}, expected {tuple(shape)}")
+    return t.to(torch.int32).contiguous()
+
+
+def paged_decode(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: int = 0,
+                 scale: Optional[float] = None, extra_kv=None, pool_limit=None):
+    """The paged-decode kernel's wrapper. A CPU tensor takes the plain
+    version (``paged_decode_attention_dense``); a CUDA tensor launches the
+    kernel or raises. ``trash_block`` is a Python int (or 0-d tensor)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_dense(
+            q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window,
+            scale=scale, extra_kv=extra_kv, pool_limit=pool_limit,
+        )
+    T, nh, d = q.shape
+    NB, bs, nkv, dk = k_cache.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode: q on {q.device}; expected a CPU or CUDA tensor")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"paged_decode: {q.dtype} queries; the kernel takes bf16 or fp32")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        _no_int8(k_cache, None, None, "paged_decode")
+        raise ValueError(
+            f"paged_decode: pool dtype {k_cache.dtype}/{v_cache.dtype} differs from q {q.dtype}"
+        )
+    if d not in KERNEL_HEAD_DIMS or dk != d or tuple(v_cache.shape) != tuple(k_cache.shape):
+        raise ValueError(
+            f"paged_decode: head_dim {d} (pool {tuple(k_cache.shape)}); the kernel "
+            f"takes d in {KERNEL_HEAD_DIMS} and matching K/V pools"
+        )
+    if nh % nkv:
+        raise ValueError(f"paged_decode: nh={nh} is not a multiple of nkv={nkv}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"paged_decode: {name} must be contiguous on {q.device}")
+    B = block_tables.shape[1]
+    tables = _i32(block_tables, (T, B), "block_tables")
+    qpos = _i32(q_pos, (T,), "q_pos")
+    limit = None if pool_limit is None else _i32(pool_limit, (T,), "pool_limit")
+    E = 0
+    ke = ve = epos = None
+    if extra_kv is not None:
+        ke, ve, epos = extra_kv
+        E = int(ke.shape[1])
+        if tuple(ke.shape) != (T, E, nkv, d) or tuple(ve.shape) != (T, E, nkv, d):
+            raise ValueError(
+                f"paged_decode: extras {tuple(ke.shape)}/{tuple(ve.shape)}, expected "
+                f"{(T, E, nkv, d)}"
+            )
+        if ke.dtype != q.dtype or ve.dtype != q.dtype:
+            raise ValueError("paged_decode: extra K/V must be in q's dtype")
+        ke, ve = ke.contiguous(), ve.contiguous()
+        epos = _i32(epos, (T, E), "epos")
+    out = torch.empty_like(q)
+    if T == 0:
+        return out
+    tensors = [q, k_cache, v_cache, out] + ([ke, ve] if E else [])
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("paged_decode: tensors must be 16-byte aligned")
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    fn = PAGED_KERNEL.fn()
+    rc = fn(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(tables), ptr(qpos), ptr(limit),
+        ptr(ke), ptr(ve), ptr(epos), ptr(out),
+        T, nh, nkv, d, bs, B, E, int(trash_block), int(window),
+        ctypes.c_float(scale if scale is not None else d ** -0.5),
+        int(q.dtype == torch.bfloat16), stream_ptr(q),
+    )
+    PAGED_KERNEL.check(rc)
+    PAGED_KERNEL.launches += 1
+    return out
+
+
+def resolve_impl(impl: Optional[str], device_type: str, head_dim: int) -> str:
+    """What ``impl`` ("auto" or None, "kernel", "dense", "reference") runs
+    on a ``device_type`` tensor. "auto" is the CUDA kernel on a card and the
+    dense gather on the CPU; on a card with a head_dim the kernel does not
+    take it raises, since only an explicit "dense"/"reference" may put the
+    plain version on a card."""
+    if impl is not None and impl not in PAGED_ATTENTION_IMPLS:
+        raise ValueError(
+            f"paged_attention: unknown impl {impl!r} (expected one of {PAGED_ATTENTION_IMPLS})"
+        )
+    if impl not in (None, "auto"):
+        return impl
+    if device_type == "cpu":
+        return "dense"
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"paged_attention: head_dim {head_dim} on the card; the paged-decode kernel "
+            f"takes d in {KERNEL_HEAD_DIMS} (other head dims: ROADMAP queue 2, item 3). "
+            "Select paged_attention_impl='dense' to run the plain gather instead"
+        )
+    return "kernel"
+
+
+def paged_attention(q, k_cache, v_cache, block_tables, q_pos, trash_block,
+                    impl: Optional[str] = None, window: int = 0,
+                    scale: Optional[float] = None, k_scale=None, v_scale=None,
+                    extra_kv=None, pool_limit=None):
+    """Dispatching entry point for paged decode attention.
+
+    ``impl``: "auto" (None) resolves as ``resolve_impl`` says; "kernel",
+    "dense", "reference" force a path; anything else raises. "kernel" on a
+    CPU tensor runs the kernel's plain version."""
+    _no_int8(k_cache, k_scale, v_scale, "paged_attention")
+    impl = resolve_impl(impl, q.device.type, q.shape[-1])
+    if impl == "reference":
+        if extra_kv is not None or pool_limit is not None:
+            raise ValueError(
+                "paged_attention: impl='reference' serves the plain parity form only "
+                "(no extra_kv/pool_limit)"
+            )
+        return paged_attention_reference(
+            q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window, scale=scale
+        )
+    if impl == "dense":
+        return paged_decode_attention_dense(
+            q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window,
+            scale=scale, extra_kv=extra_kv, pool_limit=pool_limit,
+        )
+    return paged_decode(
+        q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window, scale=scale,
+        extra_kv=extra_kv, pool_limit=pool_limit,
+    )

@@ -1,0 +1,178 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source exposes a plain C entry point and builds into its
+own shared library with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-shared -Xcompiler -fPIC`` at first use, into ``build/torch_kernels/`` at
+the root of the checkout (listed in ``.gitignore``). Libraries are named by
+a digest of their sources and flags, so an edited source rebuilds. The
+library is bound with ``ctypes``; nothing includes PyTorch's headers, so a
+build takes seconds.
+
+Nothing here runs at import time: CPU-only installs import every module,
+and ``nvcc`` and a card are needed only when a kernel is first launched. ``build()`` starts one ``nvcc`` per source, all together,
+for callers that want the builds up front (``chip_smoke.py``).
+
+Every entry point returns ``cudaGetLastError()`` after its launch;
+``Kernel.check`` raises on anything but 0. Each ``Kernel`` carries
+``launches``, a plain count its wrapper raises by one per launch.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class Kernel:
+    """One CUDA source, its C entry point and its launch count."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes, replaces: str):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.replaces = replaces
+        self.launches = 0
+        self._lib = None
+        self._fn = None
+        self._lock = threading.Lock()
+
+    @property
+    def source_path(self) -> Path:
+        return CSRC / self.source
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256()
+        for p in [self.source_path, *sorted(CSRC.glob("*.cuh"))]:
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source_path.stem}-{h.hexdigest()[:12]}.so"
+
+    def fn(self):
+        """The bound C entry point, building the library on first use."""
+        if self._fn is None:
+            with self._lock:
+                if self._fn is None:
+                    path = self.library_path()
+                    if not path.exists():
+                        build([self])
+                    lib = ctypes.CDLL(str(path))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    err = lib.dstt_error_string
+                    err.argtypes = [ctypes.c_int]
+                    err.restype = ctypes.c_char_p
+                    self._lib = lib
+                    self._fn = fn
+        return self._fn
+
+    def check(self, rc: int) -> None:
+        if rc != 0:
+            msg = self._lib.dstt_error_string(rc).decode() if self._lib else "?"
+            raise RuntimeError(f"{self.name}: CUDA launch failed with error {rc} ({msg})")
+
+
+KERNELS: Dict[str, Kernel] = {
+    k.name: k
+    for k in (
+        Kernel(
+            "rms_norm_fwd", "rms_norm.cu", "dstt_rms_norm_fwd",
+            # x, w, out, rows, h, eps, x_bf16, w_bf16, vec, stream
+            [_P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _I, _I, _I, _P],
+            "deepspeed_tpu/ops/normalization/fused_norm.py:30",
+        ),
+        Kernel(
+            "paged_decode", "paged_decode.cu", "dstt_paged_decode",
+            # q, k, v, tables, qpos, limit, ke, ve, epos, out,
+            # n_tok, nh, nkv, d, bs, B, E, trash, window, scale, bf16, stream
+            [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _P],
+            "deepspeed_tpu/ops/attention/paged_pallas.py:84",
+        ),
+    )
+}
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the port's CUDA kernels build from source at first use"
+        )
+    return found
+
+
+def build(kernels: Optional[Iterable[Kernel]] = None) -> List[dict]:
+    """Compile each kernel's library that is not built yet, one ``nvcc``
+    per source, all started together. Returns one record per kernel:
+    name, library path, seconds (0 when it was already built) and the
+    ``-Xptxas -v`` report. Raises if any build fails."""
+    kernels = list(KERNELS.values() if kernels is None else kernels)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    jobs = []
+    for k in kernels:
+        out = k.library_path()
+        if out.exists():
+            jobs.append((k, out, None, None, 0.0))
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(k.source_path)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((k, out, tmp, proc, time.perf_counter()))
+    records = []
+    failures = []
+    for k, out, tmp, proc, t0 in jobs:
+        if proc is None:
+            records.append({"name": k.name, "library": str(out), "seconds": 0.0, "ptxas": ""})
+            continue
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"{k.source}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        records.append({"name": k.name, "library": str(out), "seconds": secs, "ptxas": log})
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return records
+
+
+def stream_ptr(tensor) -> int:
+    """PyTorch's current stream on the tensor's device, as an int handle."""
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream

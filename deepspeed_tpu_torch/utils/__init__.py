@@ -1,0 +1,1 @@
+"""Subpackage of deepspeed_tpu_torch (mirrors deepspeed_tpu/utils)."""

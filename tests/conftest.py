@@ -51,6 +51,11 @@ def pytest_configure(config):
         "slow: excluded from the tier-1 gate (-m 'not slow'); real sockets, "
         "long soaks",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc (the port's kernels); skips inside "
+        "the test when there is none (python -m pytest tests/ -m cuda)",
+    )
 
 
 # One representative test per subsystem joins the smoke tier (the first

@@ -1,0 +1,254 @@
+"""The port's serving engine against the JAX package's, on the CPU.
+
+Both ``InferenceEngineV2``s run a tiny fp32 model (2 layers, h 128, 4 query
+heads over 2 kv heads) on identical weights: the JAX package's
+``init_params`` from a seed, moved into the port with
+``params_from_numpy``. Prompts come from a seeded numpy generator.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deepspeed_tpu.inference import sampling as jsampling
+from deepspeed_tpu.inference.config import RaggedInferenceEngineConfig as JaxEngineConfig
+from deepspeed_tpu.inference.v2.engine_v2 import InferenceEngineV2 as JaxEngine
+from deepspeed_tpu.models import transformer as JT
+from deepspeed_tpu_torch.inference import sampling as psampling
+from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig as EngineConfig
+from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+from deepspeed_tpu_torch.models import transformer as PT
+from deepspeed_tpu_torch.models.convert import params_from_numpy
+
+MODEL = dict(vocab_size=256, hidden_size=128, n_layers=2, n_heads=4, n_kv_heads=2,
+             max_seq_len=256, dtype="float32")
+# fp32 logits of a 2-layer model: matmuls and softmaxes summed in another
+# order (XLA vs ATen, one-shot vs chunked shapes) differ by ~1e-6 of logits
+# of magnitude ~1
+LOGIT_ATOL = LOGIT_RTOL = 1e-4
+
+
+def engine_config(**over):
+    cfg = {
+        "dtype": "float32", "decode_steps": 1, "prompt_chunk": 32, "max_prompt_chunks": 2,
+        "kv_cache": {"block_size": 8, "num_blocks": 64, "max_blocks_per_seq": 12},
+        "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 96,
+                          "max_ragged_sequence_count": 4, "max_context": 96},
+    }
+    cfg.update(over)
+    return cfg
+
+
+@functools.lru_cache(maxsize=4)
+def _jax_params(window):
+    cfg = JT.TransformerConfig(**MODEL, sliding_window=window)
+    return cfg, JT.init_params(cfg, jax.random.key(0))
+
+
+def engines(window=0, **over):
+    """(jax engine, port engine) on the same weights and engine config."""
+    jcfg, jp = _jax_params(window)
+    pcfg = PT.TransformerConfig(**MODEL, sliding_window=window)
+    pp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    ec = engine_config(**over)
+    return (JaxEngine(jcfg, jp, JaxEngineConfig.from_dict(ec)),
+            InferenceEngineV2(pcfg, pp, EngineConfig.from_dict(ec), device="cpu"))
+
+
+def prompts(seed=0, lens=(5, 40, 17)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, MODEL["vocab_size"], size=n).astype(np.int32) for n in lens]
+
+
+def _prefill(eng, ps):
+    for uid, p in enumerate(ps):
+        eng.scheduler.submit(uid, p)
+    out = {}
+    while eng.scheduler.has_pending():
+        out.update(eng.step())
+    return out
+
+
+def test_prefill_and_decode_logits_match_jax():
+    je, pe = engines()
+    ps = prompts()
+    jl, pl = _prefill(je, ps), _prefill(pe, ps)
+    assert sorted(jl) == sorted(pl) == [0, 1, 2]
+    for uid in jl:
+        np.testing.assert_allclose(pl[uid], jl[uid], atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+    for uid in jl:
+        tok = int(np.argmax(jl[uid]))
+        je.scheduler.feedback(uid, tok)
+        pe.scheduler.feedback(uid, tok)
+    jd, pd = je.step(), pe.step()
+    assert sorted(jd) == sorted(pd) == [0, 1, 2]
+    for uid in jd:
+        np.testing.assert_allclose(pd[uid], jd[uid], atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+
+
+@pytest.mark.parametrize("decode_steps", [1, 4])
+@pytest.mark.parametrize("window", [0, 12])
+def test_greedy_streams_match_jax(decode_steps, window):
+    """Token for token; window 12 is shorter than every context here past
+    the first prompt, so the band masks pool blocks and extras alike."""
+    je, pe = engines(window=window, decode_steps=decode_steps)
+    ps = prompts(1, lens=(9, 40, 23))
+    jo = je.generate(ps, max_new_tokens=10)
+    po = pe.generate(ps, max_new_tokens=10)
+    for a, b in zip(jo, po):
+        np.testing.assert_array_equal(b, a)
+
+
+def test_in_place_round_matches_jax_round_start_snapshot():
+    """The JAX round reads the pool at its round-start state and scatters
+    into a donated copy; the port writes the pool in place inside the
+    round. The pool limit (the round start) masks every position the round
+    writes, so tokens and log-probabilities agree."""
+    je, pe = engines(window=12)
+    ps = prompts(2, lens=(30, 11))
+    jl, pl = _prefill(je, ps), _prefill(pe, ps)
+    for uid in jl:
+        tok = int(np.argmax(jl[uid]))
+        je.scheduler.feedback(uid, tok)
+        pe.scheduler.feedback(uid, tok)
+    jr, pr = je.decode_round(6), pe.decode_round(6)
+    for uid in jr:
+        np.testing.assert_array_equal(pr[uid], jr[uid])
+        np.testing.assert_allclose(pe.last_logprobs[uid], je.last_logprobs[uid],
+                                   atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+
+
+def test_engine_logits_match_plain_forward():
+    """Prefill logits and a fused round's tokens and log-probabilities
+    against the port's plain forward on prompt + generated tokens."""
+    _, pe = engines(window=12)
+    ps = prompts(3, lens=(20, 33))
+    pl = _prefill(pe, ps)
+    firsts = {}
+    for uid, lg in pl.items():
+        firsts[uid] = int(np.argmax(lg))
+        pe.scheduler.feedback(uid, firsts[uid])
+    rounds = pe.decode_round(5)
+    for uid, p in enumerate(ps):
+        seq = list(p) + [firsts[uid]] + [int(t) for t in rounds[uid]]
+        ref = PT.forward(pe.params, torch.as_tensor([seq]), pe._mc)[0][0]
+        n = len(p)
+        np.testing.assert_allclose(pl[uid], ref[n - 1].numpy(), atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+        logp = torch.log_softmax(ref[n : n + 5], dim=-1)
+        want_tok = logp.argmax(dim=-1).numpy()
+        np.testing.assert_array_equal(rounds[uid], want_tok)
+        np.testing.assert_allclose(
+            pe.last_logprobs[uid], logp[torch.arange(5), torch.as_tensor(want_tok)].numpy(),
+            atol=LOGIT_ATOL, rtol=LOGIT_RTOL,
+        )
+
+
+def test_sampled_streams_invariant_to_decode_steps_and_chunking():
+    """Sampled draws depend only on (seed, uid, position): the stream is
+    the same under any decode_steps partitioning and prompt chunking."""
+    streams = []
+    for decode_steps, chunk in ((1, 32), (4, 32), (3, 16)):
+        _, pe = engines(decode_steps=decode_steps, prompt_chunk=chunk, greedy=False,
+                        temperature=0.8, top_k=40, seed=7)
+        streams.append(pe.generate(prompts(4, lens=(12, 37)), max_new_tokens=9))
+    for other in streams[1:]:
+        for a, b in zip(streams[0], other):
+            np.testing.assert_array_equal(b, a)
+    _, pe = engines(greedy=False, temperature=0.8, top_k=40, seed=8)
+    reseeded = pe.generate(prompts(4, lens=(12, 37)), max_new_tokens=9)
+    assert any((a != b).any() for a, b in zip(streams[0], reseeded))
+
+
+def test_filter_logits_and_greedy_match_jax():
+    rng = np.random.default_rng(5)
+    logits = rng.normal(size=(4, 64)).astype(np.float32) * 3
+    for top_k, top_p in ((0, 0.0), (5, 0.0), (0, 0.7), (9, 0.5)):
+        want = np.asarray(jsampling.filter_logits(jnp.asarray(logits), top_k, top_p))
+        got = psampling.filter_logits(torch.from_numpy(logits), top_k, top_p).numpy()
+        np.testing.assert_array_equal(got, want)
+    want = np.asarray(jsampling.sample_tokens(jnp.asarray(logits), jax.random.key(0)))
+    got = psampling.sample_tokens(torch.from_numpy(logits)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sampled_draws_follow_the_distribution():
+    """Gumbel-max over the counter-based bits: empirical token frequencies
+    over many (uid, position) keys match softmax(logits / T)."""
+    logits = torch.tensor([[2.0, 1.0, 0.0, -1.0]]).expand(4000, 4)
+    keys = psampling.row_keys(3, torch.arange(4000), torch.arange(4000) % 97)
+    toks = psampling.sample_tokens(logits, keys, temperature=1.0, greedy=False)
+    freq = torch.bincount(toks.long(), minlength=4).float() / 4000
+    # 4000 draws: 3 standard errors of the largest frequency are ~0.02
+    torch.testing.assert_close(freq, torch.softmax(logits[0], -1), atol=0.03, rtol=0)
+
+
+def test_forward_matches_jax_forward():
+    jcfg, jp = _jax_params(12)
+    pcfg = PT.TransformerConfig(**MODEL, sliding_window=12)
+    toks = np.random.default_rng(6).integers(0, 256, size=(2, 30)).astype(np.int32)
+    want = np.asarray(JT.forward(jp, jnp.asarray(toks), jcfg)[0])
+    got = PT.forward(params_from_numpy(jax.tree.map(np.asarray, jp)), torch.from_numpy(toks), pcfg)[0]
+    np.testing.assert_allclose(got.numpy(), want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+    with pytest.raises(NotImplementedError, match="flash kernel not yet ported"):
+        PT.forward({}, torch.from_numpy(toks), PT.TransformerConfig(**MODEL, attention_impl="flash"))
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"tp_size": 2}, "queue 1, item 6"),
+    ({"quant": {"enabled": True}}, "item 8"),
+    ({"spec_k": 2}, "item 4"),
+    ({"kv_cache": {"kv_cache_dtype": "int8"}}, "queue 2, item 3"),
+    ({"kv_cache": {"host_tier_bytes": 1 << 20, "prefix_cache": True}}, "item 4"),
+])
+def test_unported_engine_features_raise(over, match):
+    _, jp = _jax_params(0)
+    pp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    cfg = EngineConfig.from_dict(engine_config(**over))
+    with pytest.raises(NotImplementedError, match=match):
+        InferenceEngineV2(PT.TransformerConfig(**MODEL), pp, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("model_over", [
+    {"n_experts": 2}, {"matmul_precision": "fp8"}, {"position": "alibi"},
+])
+def test_unported_model_features_raise(model_over):
+    with pytest.raises(NotImplementedError):
+        InferenceEngineV2(PT.TransformerConfig(**{**MODEL, **model_over}), {},
+                          EngineConfig.from_dict(engine_config()), device="cpu")
+
+
+def test_engine_rejects_an_unknown_attention_impl():
+    _, jp = _jax_params(0)
+    pp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    cfg = EngineConfig.from_dict(engine_config(paged_attention_impl="pallas"))
+    with pytest.raises(ValueError, match="paged_attention_impl"):
+        InferenceEngineV2(PT.TransformerConfig(**MODEL), pp, cfg, device="cpu")
+    eng = InferenceEngineV2(PT.TransformerConfig(**MODEL), pp,
+                            EngineConfig.from_dict(engine_config()), device="cpu")
+    assert eng.paged_attention_impl == "dense"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.export_kv_blocks([0])
+
+
+@pytest.mark.parametrize("scaling,seq_len", [
+    ({"rope_type": "linear", "factor": 4.0}, None),
+    ({"rope_type": "dynamic", "factor": 2.0}, 300),
+    ({"rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 64}, None),
+    ({"rope_type": "longrope", "short_factor": [1.0 + i / 16 for i in range(16)],
+      "long_factor": [2.0 + i / 8 for i in range(16)]}, 1000),
+    ({"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+      "original_max_position_embeddings": 64}, None),
+])
+def test_rope_params_match_jax(scaling, seq_len):
+    """Every scaling kind's frequencies and attention factor (fp32 numpy on
+    both sides: equal up to the last bit of the power and exp functions)."""
+    kw = dict(MODEL, rope_scaling=JT.rope_scaling_from_hf(scaling, 128))
+    want_f, want_a = JT.rope_params(JT.TransformerConfig(**kw), 32, seq_len)
+    got_f, got_a = PT.rope_params(PT.TransformerConfig(**kw), 32, seq_len)
+    np.testing.assert_allclose(got_f, np.asarray(want_f), rtol=1e-6, atol=0)
+    assert got_a == pytest.approx(float(want_a), rel=1e-7)
