@@ -12,22 +12,34 @@ Phases, each printing one JSON line (any failure exits non-zero):
    sm_90a, one process per source, all started together, with the
    ``-Xptxas -v`` report and the build seconds.
 2. kernels: each kernel against its plain PyTorch version at the shapes
-   the serving path gives it at Mistral-7B width, in bf16, with the
-   tolerance stated; then CUDA-event times of the kernel, the plain
-   version and one PyTorch library call computing the same function (a
-   yardstick only: the port never calls it), beside the least time the
-   card could take (``bound_ms``).
+   the serving and training paths give it at Mistral-7B width, in bf16,
+   with the tolerance stated (the flash kernels also at s 1024 with a
+   static window, the window flag at 0 and 1, and packed segments); then
+   CUDA-event times of the kernel, the plain version and one PyTorch
+   library call computing the same function (a yardstick only: the port
+   never calls it), beside the least time the card could take
+   (``bound_ms``).
 3. engine: ``InferenceEngineV2`` at Mistral-7B width (seeded random bf16
    weights, all 32 layers) prefills 32 prompts through ``step()`` and runs
    one fused ``decode_round(64)``; logits are held against the plain
-   ``forward``; kernel launches are counted and checked; then
-   ``serving_benchmark`` prints generated tokens per second. With
-   ``--profile``, a torch.profiler breakdown of a split step and a decode
-   round follows.
+   ``forward_reference``; the serving kernels' launches are counted and
+   checked; then ``serving_benchmark`` prints generated tokens per second.
+   With ``--profile``, a torch.profiler breakdown of a split step and a
+   decode round follows (and of one train step after phase 4).
+4. train: Mistral-7B width, bf16. Parity leg (2 layers, seq 4096, a
+   batch packed into two segments with positions restarting): the loss and
+   every leaf's gradient of ``make_loss_fn`` (the kernels) against autograd
+   through ``forward_reference`` + ``nll_loss`` on the same weights, a
+   control against another batch's gradients, then 8 engine steps on that
+   batch (the loss must fall). Timed leg (8 layers, ``initialize`` ->
+   ``train_batch``, micro-batch 1, 2 accumulation steps, AdamW, WarmupLR,
+   clipping): 1 warm-up and 4 timed steps, losses, step seconds, tok/s,
+   MFU, peak memory and the training kernels' exact launch counts.
 
-The line before the last lists the kernels; the last line is the result
-object. With no card, or outside a checkout, it exits non-zero and prints
-no result.
+Serving kernels must launch in the engine phase and training kernels in
+the train phase, together every kernel. The line before the last lists the
+kernels; the last line is the result object. With no card, or outside a
+checkout, it exits non-zero and prints no result.
 """
 
 import argparse
@@ -179,6 +191,256 @@ def kernel_rms_norm(torch, dev, h=4096, rows=32 + 4 * 256, eps=1e-5):
         "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations",
         "bytes": moved,
     }
+
+
+def kernel_rms_norm_bwd(torch, dev, rows=4096, h=4096, eps=1e-5):
+    """RMSNorm backward (dx) at the train step's shape: one micro-batch of
+    4096 tokens at width 4096."""
+    from deepspeed_tpu_torch.ops.normalization.fused_norm import (
+        rms_norm_bwd_cuda,
+        rms_norm_bwd_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(rows, h, generator=gen, device=dev).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=dev)).to(torch.bfloat16)
+    g = torch.randn(rows, h, generator=gen, device=dev).to(torch.bfloat16)
+    errs = {"bf16": check_close(torch, "rms_norm_bwd bf16", rms_norm_bwd_cuda(x, w, g, eps),
+                                rms_norm_bwd_reference(x, w, g, eps), BF16_ATOL, BF16_RTOL)}
+    w32 = 1 + w.float()  # rmsnorm_1p's fp32 weight
+    errs["bf16_w32"] = check_close(
+        torch, "rms_norm_bwd bf16/fp32 w", rms_norm_bwd_cuda(x, w32, g, eps),
+        rms_norm_bwd_reference(x, w32, g, eps), BF16_ATOL, BF16_RTOL)
+    for r, hh in ((7, 96), (13, 128), (5, 100)):
+        xs = torch.randn(r, hh, generator=gen, device=dev)
+        ws = torch.randn(hh, generator=gen, device=dev)
+        gs = torch.randn(r, hh, generator=gen, device=dev)
+        errs[f"fp32_{r}x{hh}"] = check_close(
+            torch, f"rms_norm_bwd fp32 {r}x{hh}", rms_norm_bwd_cuda(xs, ws, gs, eps),
+            rms_norm_bwd_reference(xs, ws, gs, eps), FP32_ATOL, FP32_RTOL)
+    torch.cuda.synchronize()
+
+    n_buf = 4  # x and g copies larger than the 50 MB L2 together
+    xs = [x.clone() for _ in range(n_buf)]
+    gs = [g.clone() for _ in range(n_buf)]
+    it = iter(range(1 << 30))
+
+    def rotating(fn):
+        i = next(it) % n_buf
+        return fn(xs[i], w, gs[i], eps)
+
+    ms = time_ms(torch, lambda: rotating(rms_norm_bwd_cuda))
+    plain_ms = time_ms(torch, lambda: rotating(rms_norm_bwd_reference), iters=5)
+    xl = x.clone().requires_grad_(True)
+    wl = w.clone().requires_grad_(True)
+    y = torch.nn.functional.rms_norm(xl, (h,), wl, eps)
+    library_ms = eager_ms(torch, lambda: torch.autograd.grad(y, (xl, wl), g, retain_graph=True))
+    moved = 3 * rows * h * x.element_size() + h * w.element_size()
+    ops = 10 * rows * h  # squares, sums, the dot and the dx formula, per element
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return {
+        "name": "rms_norm_bwd",
+        "shape": [rows, h],
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_by_case": errs,
+        "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "fp32": [FP32_ATOL, FP32_RTOL]},
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library": "autograd backward of torch.nn.functional.rms_norm (dx and dw, eager)",
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": moved,
+    }
+
+
+# flash kernels: bf16 outputs against their plain versions (both round p
+# and ds to bf16 before their products and sum in fp32 in another order;
+# outputs round once): a few bf16 units of the largest element. The LSE is
+# fp32: sums over up to 4096 keys in another order.
+FLASH_LSE_ATOL = 1e-4
+# The gradients' magnitudes fall along the sequence (causal: a key's dk/dv
+# sums over the queries that see it, a query's dq over 1/i-sized weights),
+# so an atol scaled by the largest element exceeds the typical late
+# element. Each (batch, head, 64-row tile) of dq, dk and dv is also held to
+# its own relative Frobenius error: two bf16 roundings of fp32 sums in
+# another order give ~2^-9 relative per element (~0.002 over a tile).
+FLASH_TILE = 64
+FLASH_TILE_RTOL = 1e-2
+
+
+def tile_rel_err(torch, name, got, want, tile=FLASH_TILE, limit=FLASH_TILE_RTOL):
+    """Largest ||got - want||_F / ||want||_F over the (batch, head,
+    ``tile``-row) tiles of [b, h, s, d] tensors (a tail tile is partial);
+    raises above ``limit``. A tile whose reference is all zero must be zero."""
+    b, h, s, d = want.shape
+    pad = -s % tile
+
+    def tiles(t):
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+        return t.reshape(b, h, -1, tile * d)
+
+    g, w = tiles(got), tiles(want)
+    err = (g - w).norm(dim=-1)
+    ref = w.norm(dim=-1)
+    rel = torch.where(ref > 0, err / ref.clamp_min(torch.finfo(torch.float32).tiny),
+                      torch.where(err > 0, float("inf"), 0.0))
+    worst = float(rel.max())
+    if not worst <= limit:
+        raise AssertionError(f"{name}: a {tile}-row tile is off by {worst} relative "
+                             f"(Frobenius; limit {limit})")
+    return worst
+
+
+def flash_pairs(s, causal, window, window_flag, segment_ids):
+    """Visible (query, key) pairs per (batch, head), summed over the batch:
+    the work these inputs need."""
+    import numpy as np
+
+    q = np.arange(s)[:, None]
+    k = np.arange(s)[None, :]
+    vis = np.ones((s, s), bool) if not causal else q >= k
+    if window and (window_flag is None or window_flag > 0):
+        vis &= (q - k) < window
+    if segment_ids is None:
+        return int(vis.sum())
+    total = 0
+    for row in segment_ids.cpu().numpy():
+        total += int((vis & (row[:, None] == row[None, :])).sum())
+    return total
+
+
+def flash_inputs(torch, dev, b, h, h_kv, s, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, h_kv, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, h_kv, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    do = torch.randn(b, h, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def two_segments(torch, dev, b, s, cut):
+    seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
+    seg[:, cut:] = 1
+    return seg
+
+
+def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
+    """The three flash kernels at the train step's shape (Mistral-7B: 32/8
+    heads of 128, causal, static window 4096 = seq), and at s 1024 with a
+    static window of 256, the window flag at 0 and 1, and two packed
+    segments. Returns one record per kernel."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    cases = {"s4096_causal_window4096": dict(s=s, window=window, window_flag=None, seg=None)}
+    for name, flag in (("s1024_window256", None), ("s1024_window256_flag0", 0),
+                       ("s1024_window256_flag1", 1)):
+        cases[name] = dict(s=1024, window=256, window_flag=flag, seg=None)
+    cases["s1024_window256_segments2"] = dict(s=1024, window=256, window_flag=None,
+                                              seg=two_segments(torch, dev, b, 1024, 389))
+    errs = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    tile_errs = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for i, (name, c) in enumerate(cases.items()):
+        q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, c["s"], d, seed=10 + i)
+        kw = dict(causal=True, segment_ids=c["seg"], window=c["window"],
+                  window_flag=c["window_flag"])
+        out, lse = F.flash_fwd_cuda(q, k, v, **kw)
+        ref_out, ref_lse = F.flash_fwd_reference(q, k, v, **kw)
+        errs["flash_fwd"][name] = check_close(torch, f"flash_fwd {name}", out, ref_out,
+                                              BF16_ATOL, BF16_RTOL)
+        errs["flash_fwd"][name + "_lse"] = check_close(
+            torch, f"flash_fwd lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
+        del ref_out, ref_lse
+        dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+        dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
+        rdq, rdk, rdv = F.flash_bwd_reference(q, k, v, out, do, lse, **kw)
+        for kname, got, want in (("flash_bwd_dq", dq, rdq), ("flash_bwd_dkv", dk, rdk),
+                                 ("flash_bwd_dkv", dv, rdv)):
+            scale = max(1.0, float(want.float().abs().max()))
+            tag = name + ("_dv" if got is dv else "")
+            errs[kname][tag] = check_close(torch, f"{kname} {tag}", got, want,
+                                           BF16_ATOL * scale, BF16_RTOL)
+            tile_errs[kname][tag] = tile_rel_err(torch, f"{kname} {tag}", got, want)
+        del rdq, rdk, rdv, dq, dk, dv
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # times at the train step's shape
+    q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed=10)
+    kw = dict(causal=True, window=window)
+    out, lse = F.flash_fwd_cuda(q, k, v, **kw)
+    ms = {
+        "flash_fwd": time_ms(torch, lambda: F.flash_fwd_cuda(q, k, v, **kw), iters=10),
+        "flash_bwd_dq": time_ms(torch, lambda: F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw),
+                                iters=10),
+        "flash_bwd_dkv": time_ms(
+            torch, lambda: F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw), iters=10),
+    }
+    plain = {
+        "flash_fwd": time_ms(torch, lambda: F.flash_fwd_reference(q, k, v, **kw), iters=2,
+                             warmup=1),
+    }
+    # the plain backward computes dq, dk and dv together: its time stands
+    # for both backward kernels
+    plain["flash_bwd_dq"] = plain["flash_bwd_dkv"] = time_ms(
+        torch, lambda: F.flash_bwd_reference(q, k, v, out, do, lse, **kw), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    library = sdpa_train_ms(torch, q, k, v, do)
+    pairs = b * h * flash_pairs(s, True, window, None, None)
+    el = q.element_size()
+    qb, kvb, lseb = q.numel() * el, k.numel() * el, b * h * s * 4
+    work = {  # (FLOPs, bytes: each input read once, each output written once)
+        "flash_fwd": (4 * pairs * d, qb + 2 * kvb + qb + lseb),
+        "flash_bwd_dq": (6 * pairs * d, 3 * qb + 2 * kvb + lseb + qb),
+        "flash_bwd_dkv": (8 * pairs * d, 3 * qb + 2 * kvb + lseb + 2 * kvb),
+    }
+    records = {}
+    for name, (flops, moved) in work.items():
+        t_ops, t_bytes = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
+        records[name] = {
+            "name": name,
+            "shape": {"b": b, "h": h, "h_kv": h_kv, "s": s, "d": d, "causal": True,
+                      "window": window},
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_case": errs[name],
+            "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "scaled_by": "max(1, max|ref|)",
+                          "lse": [FLASH_LSE_ATOL, FP32_RTOL],
+                          "tile_rel_frobenius": FLASH_TILE_RTOL if name in tile_errs else None},
+            "tile_rel_frobenius_by_case": tile_errs.get(name),
+            "ms": ms[name],
+            "plain_ms": plain[name],
+            "library_ms": library[name],
+            "library": library["what"],
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops,
+            "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
+        }
+    return records
+
+
+def sdpa_train_ms(torch, q, k, v, do):
+    """Yardsticks: ``scaled_dot_product_attention`` (causal, GQA) under the
+    flash backend (an error if that backend refuses the inputs); its
+    forward timed in a CUDA graph, its autograd backward (dq, dk and dv in
+    one call) timed eagerly."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    f = torch.nn.functional.scaled_dot_product_attention
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = f(ql, kl, vl, is_causal=True, enable_gqa=True)
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            f(q, k, v, is_causal=True, enable_gqa=True)
+
+    fwd_ms = time_ms(torch, fwd, iters=10)
+    bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                         retain_graph=True), iters=10)
+    return {"what": "torch.nn.functional.scaled_dot_product_attention, flash backend "
+                    "(backward: autograd, dq+dk+dv in one call, eager)",
+            "flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms, "flash_bwd_dkv": bwd_ms}
 
 
 class PagedWorld:
@@ -548,7 +810,8 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
     launches = K.counts()
     rec["launches"] = launches
     fwd_steps = split_steps + 64
-    expected = {"rms_norm_fwd": (2 * L + 1) * fwd_steps, "paged_decode": L * fwd_steps}
+    expected = {name: 0 for name in launches}
+    expected.update({"rms_norm_fwd": (2 * L + 1) * fwd_steps, "paged_decode": L * fwd_steps})
     rec["launches_expected"] = expected
     rec["forward_steps"] = {"split": split_steps, "round": 64}
     if dev.type == "cuda" and launches != expected:  # the CPU runs the plain versions
@@ -560,7 +823,7 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
         if not all(0 <= int(t) < cfg.vocab_size for t in g):
             raise AssertionError("decode_round gave a token outside the vocabulary")
 
-    # ---- the plain forward (plain RMSNorm, dense attention: no kernel) on
+    # ---- the plain forward_reference (plain RMSNorm, dense attention: no kernel) on
     # the same tokens, for every slot
     round_logits = torch.stack(round_logits)  # [64, R, V]; row i is the round's i-th uid
     errs = {"prefill": [], "decode": [], "round": [], "shifted": []}
@@ -574,7 +837,7 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
         n_p = len(prompts[uid])
         toks = torch.as_tensor(np.asarray(full, np.int64), device=dev)[None]
         with torch.no_grad():
-            ref = T.forward(eng.params, toks, cfg)[0][0].float()  # [s, V]
+            ref = T.forward_reference(eng.params, toks, cfg)[0][0].float()  # [s, V]
         if not bool(torch.isfinite(ref).all()):
             raise AssertionError("plain forward gave non-finite logits")
         errs["prefill"].append(rows_rel_err(torch, prefill_logits[uid], ref[n_p - 1]))
@@ -615,11 +878,8 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
 
 def profile_engine(torch, eng, rng, vocab, steps=8):
     """torch.profiler over one split step with 32 decode rows and one fused
-    round of ``steps`` tokens: device time by kernel name, device busy
-    share of the wall time. Opt-in (``--profile``)."""
+    round of ``steps`` tokens. Opt-in (``--profile``)."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for uid in range(32):
         eng.scheduler.submit(1000 + uid, rng.integers(0, vocab, size=int(rng.integers(64, 512))))
@@ -628,18 +888,215 @@ def profile_engine(torch, eng, rng, vocab, steps=8):
         last.update(eng.step())
     for uid, lg in last.items():
         eng.scheduler.feedback(uid, int(np.argmax(lg)))
-    torch.cuda.synchronize()
+
+    def split_step():
+        for uid, lg in eng.step().items():
+            eng.scheduler.feedback(uid, int(np.argmax(lg)))
+
+    out = device_profile(torch, {"split_step_32_decode_rows": split_step,
+                                 f"decode_round_{steps}": lambda: eng.decode_round(steps)})
+    for uid in list(eng.scheduler.running_uids()):
+        eng.scheduler.finish(uid)
+    return out
+
+# ---------------------------------------------------------------------------
+# phase 4: training at Mistral-7B width
+# ---------------------------------------------------------------------------
+SEQ = 4096
+# the timed leg: 8 of Mistral-7B's 32 layers. Full depth cannot train on one
+# 80 GB card: 7.24 B params x (2 bf16 param + 4 fp32 master + 8 Adam
+# moments + 4 fp32 grad accumulator + 2 bf16 micro-grad) bytes is ~145 GB;
+# 8 layers are 2.007 B params, ~40 GB of the same
+TRAIN_LAYERS = 8
+PARITY_LAYERS = 2
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 2, "warmup_max_lr": 1e-4}},
+    "gradient_clipping": 1.0, "zero_optimization": {"stage": 0}, "steps_per_print": 1000,
+}
+# kernel path (flash kernels, RMSNorm kernels) against autograd through the
+# plain forward_reference, bf16 weights and activations on both sides: the
+# two attentions round p to bf16 against different maxima and sum in
+# another order, so each leaf's gradient differs by a few bf16 units
+# relative (2^-8 = 0.004 each); the loss is an fp32 reduction of bf16
+# logits. A gradient of another batch is off by order 1.
+PARITY_LOSS_ATOL = 0.02
+PARITY_GRAD_RTOL = 0.05
+PARITY_CONTROL_MIN = 0.5
+TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SERVE_KERNELS = ("rms_norm_fwd", "paged_decode")
+
+
+def packed_batch(torch, dev, rng, b, s, vocab):
+    """input_ids [b, s + 1] with two packed sequences per row: segment ids
+    and positions that restart at the boundary (for the s inputs)."""
+    import numpy as np
+
+    toks = rng.integers(0, vocab, size=(b, s + 1)).astype(np.int64)
+    cut = s * 3 // 8
+    seg = np.zeros((b, s), np.int32)
+    seg[:, cut:] = 1
+    pos = np.tile(np.concatenate([np.arange(cut), np.arange(s - cut)]), (b, 1)).astype(np.int32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in
+            (("input_ids", toks), ("segment_ids", seg), ("positions", pos))}
+
+
+def leaves(tree):
+    from deepspeed_tpu_torch.runtime.optimizers import _leaves
+
+    return dict(_leaves(tree))
+
+
+def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
+                parity_layers=PARITY_LAYERS, profile=False):
+    """The training path, counted. ``widths``/``seq``/``layers`` shrink it
+    for a rehearsal on the CPU; the card run uses the defaults."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as T
+
+    widths = dict(widths or {})
+    widths.setdefault("dtype", "bfloat16")
+    rec = {"phase": "train", "model": MODEL, "seq": seq, "dtype": widths["dtype"]}
+    ds_config = dict(TRAIN_CONFIG)
+    if widths["dtype"] != "bfloat16":  # a CPU rehearsal in the model's own dtype
+        del ds_config["bf16"]
+    rng = np.random.default_rng(SEED)
+
+    # ---- parity leg: kernels against the plain oracle, one micro-batch
+    t0 = time.perf_counter()
+    cfg = T.get_config(MODEL, n_layers=parity_layers, remat=False, **widths)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    for t in leaves(params).values():
+        t.requires_grad_(True)
+    names = list(leaves(params))
+    flat = list(leaves(params).values())
+    batch = packed_batch(torch, dev, rng, 1, seq, cfg.vocab_size)
+    other = packed_batch(torch, dev, rng, 1, seq, cfg.vocab_size)
+    loss_fn = T.make_loss_fn(cfg)
+
+    def kernel_grads(b):
+        loss = loss_fn(params, b)
+        return loss.detach(), [g.float() for g in torch.autograd.grad(loss, flat)]
+
+    k_loss, k_grads = kernel_grads(batch)
+    _, c_grads = kernel_grads(other)
+    inputs, labels, mask, positions, segment_ids = T.split_lm_batch(batch)
+    logits, _ = T.forward_reference(params, inputs, cfg, positions=positions,
+                                    segment_ids=segment_ids)
+    r_loss = T.nll_loss(logits, labels, mask)
+    r_grads = [g.float() for g in torch.autograd.grad(r_loss, flat)]
+    del logits
+    rel = {}
+    control = {}
+    for name, kg, cg, rg in zip(names, k_grads, c_grads, r_grads):
+        ref_norm = float(rg.norm())
+        rel[name] = float((kg - rg).norm()) / ref_norm
+        control[name] = float((cg - rg).norm()) / ref_norm
+        if not bool(torch.isfinite(kg).all()):
+            raise AssertionError(f"train parity: non-finite kernel-path grad for {name}")
+    del k_grads, c_grads, r_grads
+    rec["parity"] = {
+        "layers": parity_layers, "batch": [1, seq], "segments": 2,
+        "loss_kernels": float(k_loss), "loss_reference": float(r_loss.detach()),
+        "loss_abs_diff": abs(float(k_loss) - float(r_loss.detach())),
+        "loss_atol": PARITY_LOSS_ATOL,
+        "grad_rel_frobenius": rel, "grad_rtol": PARITY_GRAD_RTOL,
+        "control_rel_frobenius_min": min(control.values()),
+        "control_min_required": PARITY_CONTROL_MIN,
+    }
+    if not np.isfinite(float(k_loss)) or rec["parity"]["loss_abs_diff"] > PARITY_LOSS_ATOL:
+        raise AssertionError(f"train parity: loss {rec['parity']}")
+    if max(rel.values()) > PARITY_GRAD_RTOL:
+        raise AssertionError(f"train parity: gradients off the plain oracle: {rel}")
+    if min(control.values()) < PARITY_CONTROL_MIN:
+        raise AssertionError(f"train parity: the control is too close: {control}")
+
+    # 8 engine steps on that batch: the loss must fall
+    for t in flat:
+        t.requires_grad_(False)
+    one = dict(ds_config, gradient_accumulation_steps=1)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=loss_fn, model_parameters=params,
+                                             config=one)
+    del params, flat
+    fit = [float(eng.train_batch(batch=batch)) for _ in range(8)]
+    rec["parity"]["fixed_batch_losses"] = fit
+    if not all(np.isfinite(fit)) or not fit[-1] < fit[0]:
+        raise AssertionError(f"train: the loss did not fall on a fixed batch: {fit}")
+    del eng
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec["parity"]["seconds"] = time.perf_counter() - t0
+
+    # ---- timed leg: initialize -> train_batch at TRAIN_LAYERS layers
+    cfg = T.get_config(MODEL, n_layers=layers, remat=False, **widths)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 1), dev)
+    gas = ds_config["gradient_accumulation_steps"]
+    batches = [{"input_ids": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(gas, seq + 1)), device=dev)} for _ in range(5)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    eng, *_ = deepspeed_tpu_torch.initialize(model=T.make_loss_fn(cfg), model_parameters=params,
+                                             config=ds_config)
+    del params
+    rec["params"] = sum(t.numel() for t in leaves(eng.params).values())
+    rec["layers"] = layers
+    losses, step_s = [], []
+    for i, b in enumerate(batches):
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch=b)))  # float() waits for the step
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t1)
+    launches = K.counts()
+    steps = len(batches)
+    per_step = {"flash_fwd": gas * layers, "flash_bwd_dq": gas * layers,
+                "flash_bwd_dkv": gas * layers, "rms_norm_fwd": gas * (2 * layers + 1),
+                "rms_norm_bwd": gas * (2 * layers + 1)}
+    expected = {name: 0 for name in launches}
+    expected.update({k: v * steps for k, v in per_step.items()})
+    rec["launches"] = launches
+    rec["launches_expected"] = expected
+    rec["launches_per_optimizer_step"] = per_step
+    if dev.type == "cuda" and launches != expected:  # the CPU runs the plain versions
+        raise AssertionError(f"train kernel launches {launches}, expected {expected}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite losses {losses}")
+    timed = step_s[1:]
+    tokens = gas * ds_config["train_micro_batch_size_per_gpu"] * seq
+    rec["losses"] = losses
+    rec["step_seconds"] = step_s
+    rec["warmup_step_seconds"] = step_s[0]
+    rec["mean_step_seconds"] = sum(timed) / len(timed)
+    rec["tok_s"] = tokens / rec["mean_step_seconds"]
+    rec["flops_per_token"] = T.flops_per_token(cfg, seq)
+    rec["mfu"] = rec["flops_per_token"] * rec["tok_s"] / BF16_FLOPS
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    if profile:
+        rec["profile"] = device_profile(torch, {"train_step": lambda: float(
+            eng.train_batch(batch=batches[-1]))})
+    del eng
+    return rec, launches
+
+
+def device_profile(torch, fns):
+    """torch.profiler over each named callable: device time by kernel name
+    and the device's busy share of the wall time (opt-in, ``--profile``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     out = {}
-    for name, fn in (("split_step_32_decode_rows", eng.step),
-                     (f"decode_round_{steps}", lambda: eng.decode_round(steps))):
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res = fn()
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        if name.startswith("split"):
-            for uid, lg in res.items():
-                eng.scheduler.feedback(uid, int(np.argmax(lg)))
         rows = []
         for ev in prof.key_averages():
             # device-side kernel events only: op rows carry their kernels'
@@ -653,18 +1110,17 @@ def profile_engine(torch, eng, rng, vocab, steps=8):
             "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms if rows else None,
             "device_idle_share": (1 - busy_ms / (wall * 1e3)) if rows else None,
-            "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:12]],
+            "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:16]],
         }
-    for uid in list(eng.scheduler.running_uids()):
-        eng.scheduler.finish(uid)
     return out
+
 
 # ---------------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the engine phase, a torch.profiler breakdown of a split "
-                         "step and a decode round")
+                    help="torch.profiler breakdowns: a split step and a decode round after "
+                         "the engine phase, one optimizer step after the train phase")
     args = ap.parse_args(argv)
 
     import torch
@@ -702,18 +1158,37 @@ def main(argv=None):
     records = {
         "rms_norm_fwd": kernel_rms_norm(torch, dev),
         "paged_decode": kernel_paged_decode(torch, dev, seed=SEED),
+        "rms_norm_bwd": kernel_rms_norm_bwd(torch, dev),
     }
+    torch.cuda.empty_cache()
+    records.update(kernel_flash(torch, dev))
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": card, "seconds": time.perf_counter() - t0,
           "kernels": list(records.values())})
 
     t0 = time.perf_counter()
-    rec, launches = engine_phase(torch, dev, K, profile=args.profile)
+    rec, serve_launches = engine_phase(torch, dev, K, profile=args.profile)
     rec["card"] = card
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
-    if set(launches) != set(K.KERNELS) or min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec, train_launches = train_phase(torch, dev, K, profile=args.profile)
+    rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    print(f"train MFU {rec['mfu']:.4f} = flops_per_token {rec['flops_per_token']:.4g} x "
+          f"{rec['tok_s']:.1f} tok/s / {BF16_FLOPS:.4g} FLOP/s on {card}", flush=True)
+
+    # serving kernels launch in the engine phase, training kernels in the
+    # train phase, and together they are every kernel
+    missing = [n for n in SERVE_KERNELS if serve_launches[n] <= 0]
+    missing += [n for n in TRAIN_KERNELS if train_launches[n] <= 0]
+    if missing or set(SERVE_KERNELS) | set(TRAIN_KERNELS) != set(K.KERNELS):
+        raise AssertionError(
+            f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
+            f"training {train_launches}, kernels {sorted(K.KERNELS)}")
 
     kernels_line = []
     for name, k in K.KERNELS.items():
@@ -722,7 +1197,8 @@ def main(argv=None):
             "name": name, "route": "cuda",
             "source": str(k.source_path.relative_to(root)),
             "replaces": k.replaces,
-            "launches": launches[name],
+            "launches": (serve_launches if name in SERVE_KERNELS else train_launches)[name],
+            "launches_phase": "engine" if name in SERVE_KERNELS else "train",
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -6,11 +6,102 @@ mirror the JAX package so each counterpart is easy to find. Kernels that
 the JAX package wrote in Pallas are hand-written CUDA C++ for Hopper
 (``ops/kernels/csrc``), built with ``nvcc`` at first use.
 
-This slice serves: ``inference.v2.engine_v2.InferenceEngineV2`` over
-``models.transformer`` with the RMSNorm and paged-decode kernels.
+The port trains and serves the dense decoder on one device:
+
+  * train: ``initialize(model=make_loss_fn(cfg), model_parameters=params,
+    config=...)`` -> ``engine.train_batch(batch=...)``, with the flash
+    attention (forward, dq, dk/dv) and RMSNorm (forward, backward) kernels;
+  * serve: ``inference.v2.engine_v2.InferenceEngineV2`` with the RMSNorm and
+    paged-decode kernels.
+
+Parameters live where ``models.transformer.init_params`` puts them (the
+card by default; ``device="cpu"`` runs the kernels' plain versions).
 """
+
+from typing import Any, Callable, Optional, Union
 
 from deepspeed_tpu_torch.version import __version__
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
-__all__ = ["__version__", "log_dist", "logger"]
+
+def initialize(
+    args=None,
+    model: Optional[Callable] = None,
+    optimizer=None,
+    model_parameters: Any = None,
+    training_data=None,
+    lr_scheduler=None,
+    distributed_port: int = 29500,
+    mpu=None,
+    dist_init_required: Optional[bool] = None,
+    collate_fn=None,
+    config: Union[str, dict, None] = None,
+    mesh_param=None,
+    config_params=None,
+    param_specs=None,
+):
+    """Create a training engine on one device (the JAX package's
+    ``initialize``). Returns ``(engine, optimizer, dataloader,
+    lr_scheduler)``; the dataloader is None.
+
+    ``model`` is a loss function ``loss_fn(params, batch) -> loss`` and
+    ``model_parameters`` the nested dict of tensors it takes; the engine
+    runs on their device. A mesh, tensor or pipeline parallelism above 1,
+    an mpu, training data and the hybrid engine raise
+    ``NotImplementedError`` (ROADMAP queue 1, item 6)."""
+    import json
+
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.config_utils import dict_raise_error_on_duplicate_keys
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    log_dist(f"deepspeed_tpu_torch info: version={__version__}", ranks=[0])
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: model (loss function) is required")
+    if model_parameters is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: model_parameters is required")
+    config = config if config is not None else config_params
+    if config is None and args is not None and getattr(args, "deepspeed_config", None):
+        config = args.deepspeed_config
+    if isinstance(config, str):
+        with open(config) as f:
+            config = json.load(f, object_pairs_hook=dict_raise_error_on_duplicate_keys)
+    raw = config if isinstance(config, dict) else {}
+
+    def later(what):
+        return NotImplementedError(
+            f"deepspeed_tpu_torch.initialize: {what} is not ported yet "
+            "(ROADMAP queue 1, item 6: multi-GPU)"
+        )
+
+    mesh = dict(raw.get("mesh", {}) or {})
+    if mesh_param is not None:
+        mesh.update({"data": mesh_param[0], "sequence": mesh_param[1]}
+                    if isinstance(mesh_param, (tuple, list)) else dict(mesh_param))
+    big = {k: v for k, v in mesh.items() if v and int(v) > 1}
+    if big:
+        raise later(f"a mesh with axes above 1 ({big})")
+    tp = raw.get("tensor_parallel", {}) or {}
+    if max(int(tp.get("autotp_size", 0) or 0), int(tp.get("tp_size", 1) or 1)) > 1:
+        raise later("tensor parallelism > 1")
+    if int((raw.get("pipeline", {}) or {}).get("stages", 1) or 1) > 1:
+        raise later("pipeline parallelism > 1")
+    if mpu is not None or param_specs is not None:
+        raise later("an mpu / param_specs")
+    if training_data is not None or collate_fn is not None:
+        raise NotImplementedError(
+            "deepspeed_tpu_torch.initialize: training_data (the dataloader) is not ported "
+            "yet (ROADMAP queue 1, item 9); pass batches to train_batch"
+        )
+    if (raw.get("hybrid_engine", {}) or {}).get("enabled"):
+        raise NotImplementedError(
+            "deepspeed_tpu_torch.initialize: the hybrid engine is not ported yet "
+            "(ROADMAP queue 1, item 9)"
+        )
+    ds_config = DeepSpeedConfig.load(raw, dp_world_size=1)
+    engine = DeepSpeedEngine(model, model_parameters, ds_config, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler)
+    return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+__all__ = ["__version__", "initialize", "log_dist", "logger"]

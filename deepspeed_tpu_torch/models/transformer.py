@@ -8,12 +8,24 @@ weights are stacked on a leading ``[n_layers]`` dim, projections stored
 package's parameters as they are, so both packages compute on identical
 weights.
 
-This slice ports what serving needs: the norms (RMSNorm through the CUDA
-kernel on a card), RoPE with every scaling kind, projections at the model
-dtype, the dense MLP, the LM head, and a plain ``forward`` whose attention
-is ``mha_reference``. ``forward`` is the logit reference of the engine's
-tests and of ``chip_smoke.py``. The flash kernel, MoE, quantized
-projections and training are later slices and raise here.
+The port serves and trains the dense decoder: the norms (RMSNorm through
+the CUDA kernels on a card), RoPE with every scaling kind, projections at
+the model dtype, the dense MLP, the LM head, and two forwards:
+
+  * ``forward`` / ``forward_hidden``: the training path, as the JAX
+    package's. Each layer casts its weights to the compute dtype, attention
+    goes through ``ops.attention.core.attention`` (the flash kernels on a
+    card) and RMSNorm through ``rms_norm`` (the kernels forward and
+    backward on a card); ``remat`` runs each layer under
+    ``torch.utils.checkpoint``. ``make_loss_fn`` builds the causal-LM loss
+    on top.
+  * ``forward_reference``: the plain oracle on any device, with
+    ``mha_reference`` and ``rms_norm_reference``, never a kernel. The
+    serving engine's tests and ``chip_smoke.py`` hold logits and gradients
+    against it.
+
+MoE, quantized projections, ALiBi, the fused head + CE and tiled losses are
+later slices and raise ``NotImplementedError`` naming their ROADMAP items.
 """
 
 import dataclasses
@@ -24,7 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.attention.core import mha_reference
+from deepspeed_tpu_torch.ops.attention.core import attention, mha_reference
 from deepspeed_tpu_torch.ops.normalization import (
     fused_layer_norm,
     rms_norm,
@@ -638,7 +650,12 @@ def _lm_head_matrix(params, config: TransformerConfig, dtype):
 
 
 def _apply_lm_head(params, x, config: TransformerConfig):
-    logits = x @ _lm_head_matrix(params, config, x.dtype)
+    w = _lm_head_matrix(params, config, x.dtype)
+    if w.dtype != x.dtype:
+        # the JAX package's matmul promotes mixed dtypes; torch's refuses them
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    logits = x @ w
     if config.lm_head_bias and not config.tie_embeddings:
         logits = logits + params["lm_head_b"].to(logits.dtype)
     return logits
@@ -658,9 +675,12 @@ def embed_tokens(params, tokens, positions, config: TransformerConfig):
 
 
 # ---------------------------------------------------------------------------
-# plain forward (the logit reference)
+# forward: the training path and the plain oracle
 # ---------------------------------------------------------------------------
-def _attention_block(c: TransformerConfig, lp, x, positions, window_flag=None):
+def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
+                     window_flag=None, reference=False):
+    """Self-attention for one layer. x: [b, s, h]. ``reference`` takes
+    ``mha_reference``; otherwise ``attention(impl=c.attention_impl)``."""
     b, s, _ = x.shape
     nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
     q = _proj(c, x, lp["wq"])
@@ -677,63 +697,186 @@ def _attention_block(c: TransformerConfig, lp, x, positions, window_flag=None):
     if c.position == "rope":
         q = _rope(q, positions, c, s)
         k = _rope(k, positions, c, s)
-    out = mha_reference(
-        q, k, v, causal=c.attn_causal, scale=c.attn_scale, window=c.sliding_window,
-        window_flag=window_flag,
-    )
+    kw = dict(causal=c.attn_causal, segment_ids=segment_ids, scale=c.attn_scale,
+              window=c.sliding_window, window_flag=window_flag)
+    if reference:
+        out = mha_reference(q, k, v, **kw)
+    else:
+        out = attention(q, k, v, impl=c.attention_impl, **kw)
     out = _proj(c, out.transpose(1, 2).reshape(b, s, nh * d), lp["wo"])
     if c.attn_out_bias:
         out = out + lp["wo_b"]
     return out
 
 
-def forward(params: Dict[str, Any], tokens, config: TransformerConfig,
-            positions=None) -> Tuple[torch.Tensor, float]:
-    """Plain forward: tokens [b, s] → (logits [b, s, vocab], aux_loss).
-    Attention is ``mha_reference`` and RMSNorm ``rms_norm_reference``, on any
-    device; ``attention_impl`` other than "auto" or
-    "reference" raises (the flash kernel is not ported yet)."""
-    c = config
-    if c.attention_impl not in ("auto", "reference"):
-        raise NotImplementedError("flash kernel not yet ported")
+def _layer(c: TransformerConfig, lp, x, positions, segment_ids=None, local_flag=None,
+           reference=False):
+    """One decoder layer on [b, s, h]; returns (x, aux_loss). Floating
+    weights are cast to the compute dtype first, so wider params (fp32
+    masters) never promote the residual stream."""
+    dt = DTYPES[c.dtype]
+    lp = {k: w.to(dt) if w.is_floating_point() and w.dtype != dt else w for k, w in lp.items()}
+    rms = rms_norm_reference if reference else rms_norm
+
+    def norm(y, name):
+        return _norm(y, lp[name], lp.get(name + "_b"), c.norm, c.norm_eps, rms=rms)
+
+    def attn(y):
+        return _attention_block(c, lp, y, positions, segment_ids, local_flag, reference)
+
+    if c.norm_scheme == "post":
+        x = norm(x + attn(x), "attn_norm")
+        mlp_out, aux = _mlp_block(c, lp, x)
+        return norm(x + mlp_out, "mlp_norm"), aux
+    attn_out = attn(norm(x, "attn_norm"))
+    if c.parallel_block:
+        mlp_out, aux = _mlp_block(c, lp, norm(x, "mlp_norm"))
+        return x + attn_out + mlp_out, aux
+    x = x + attn_out
+    mlp_out, aux = _mlp_block(c, lp, norm(x, "mlp_norm"))
+    return x + mlp_out, aux
+
+
+def _check_forward(c: TransformerConfig):
     _check_served(c)
+    if c.attention_impl in ("splash", "flash_ring", "flash_head_sharded") or c.attn_sparsity:
+        raise NotImplementedError(
+            f"attention_impl={c.attention_impl!r} / attn_sparsity is not ported yet "
+            "(ROADMAP queue 2, item 4: splash; queue 1, item 6: multi-GPU)"
+        )
     if c.mlm_head or c.type_vocab_size > 0:
         raise NotImplementedError(
             "encoder heads (mlm_head, token types) are not ported yet (ROADMAP queue 1, item 2)"
+        )
+    if c.weight_stream:
+        raise NotImplementedError("weight_stream is not ported yet (ROADMAP queue 1, item 7)")
+
+
+def forward_hidden(params: Dict[str, Any], tokens, config: TransformerConfig, positions=None,
+                   segment_ids=None, reference: bool = False):
+    """Body forward: tokens [b, s] -> (final-norm'd hidden [b, s, h],
+    aux_loss). ``positions`` [s] or [b, s] (default arange), ``segment_ids``
+    [b, s] for packed sequences. With ``config.remat``, when autograd
+    records, each layer runs under ``torch.utils.checkpoint`` (policy
+    "nothing": only the layer input is kept); any other ``remat_policy``
+    raises then. ``reference`` selects the plain oracle path (see
+    ``forward_reference``)."""
+    c = config
+    _check_forward(c)
+    remat = c.remat and not reference and torch.is_grad_enabled()
+    if remat and c.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy={c.remat_policy!r}: the port honours only 'nothing' "
+            "(torch.utils.checkpoint per layer) or remat=False (ROADMAP queue 1, item 3)"
         )
     tokens = torch.as_tensor(tokens)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device, dtype=torch.int32)
-    dtype = DTYPES[c.dtype]
-    # the plain RMSNorm throughout, so the reference never runs a kernel
-    norm = functools.partial(_norm, rms=rms_norm_reference)
     x = embed_tokens(params, tokens, positions, c)
-    L = c.n_layers
-    for li in range(L):
-        lp = {k: w[li].to(dtype) if w.is_floating_point() else w[li]
-              for k, w in params["layers"].items()}
-        flag = None
-        if c.attn_layer_pattern is not None:
-            flag = int(c.attn_layer_pattern[li])
-        if c.norm_scheme == "post":
-            x = norm(x + _attention_block(c, lp, x, positions, flag), lp["attn_norm"],
-                     lp.get("attn_norm_b"), c.norm, c.norm_eps)
-            x = norm(x + _mlp_block(c, lp, x)[0], lp["mlp_norm"], lp.get("mlp_norm_b"),
-                     c.norm, c.norm_eps)
-            continue
-        a = norm(x, lp["attn_norm"], lp.get("attn_norm_b"), c.norm, c.norm_eps)
-        attn_out = _attention_block(c, lp, a, positions, flag)
-        if c.parallel_block:
-            m = norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"), c.norm, c.norm_eps)
-            x = x + attn_out + _mlp_block(c, lp, m)[0]
-            continue
-        x = x + attn_out
-        m = norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"), c.norm, c.norm_eps)
-        x = x + _mlp_block(c, lp, m)[0]
+    # one unbind per stacked weight: its backward stacks the L layer grads
+    # once, where indexing w[li] would give every layer's grad a full [L, ...]
+    # zero buffer to add into
+    stacked = {k: w.unbind(0) for k, w in params["layers"].items()}
+    for li in range(c.n_layers):
+        lp = {k: w[li] for k, w in stacked.items()}
+        flag = None if c.attn_layer_pattern is None else int(c.attn_layer_pattern[li])
+        layer = functools.partial(_layer, c, lp, positions=positions, segment_ids=segment_ids,
+                                  local_flag=flag, reference=reference)
+        if remat:
+            x, _ = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
+        else:
+            x, _ = layer(x)
     if c.final_norm:
-        x = norm(x, params["final_norm"], params.get("final_norm_b"), c.norm, c.norm_eps)
-    return _apply_lm_head(params, x, c), 0.0
+        x = _norm(x, params["final_norm"], params.get("final_norm_b"), c.norm, c.norm_eps,
+                  rms=rms_norm_reference if reference else rms_norm)
+    return x, 0.0
+
+
+def forward(params: Dict[str, Any], tokens, config: TransformerConfig, positions=None,
+            segment_ids=None) -> Tuple[torch.Tensor, float]:
+    """Full forward: tokens [b, s] -> (logits [b, s, vocab], aux_loss),
+    through ``attention`` and ``rms_norm`` (the kernels on a card)."""
+    x, aux = forward_hidden(params, tokens, config, positions, segment_ids)
+    return _apply_lm_head(params, x, config), aux
+
+
+def forward_reference(params: Dict[str, Any], tokens, config: TransformerConfig,
+                      positions=None, segment_ids=None) -> Tuple[torch.Tensor, float]:
+    """The plain oracle: ``forward``'s function with ``mha_reference`` and
+    ``rms_norm_reference`` on any device, never a kernel, and no remat.
+    Differentiable, so its autograd gradients are the reference of the
+    kernel path's."""
+    x, aux = forward_hidden(params, tokens, config, positions, segment_ids, reference=True)
+    return _apply_lm_head(params, x, config), aux
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def split_lm_batch(batch):
+    """Normalize a causal-LM batch dict to (inputs, labels, loss_mask,
+    positions, segment_ids); labels default to shifted input_ids."""
+    tokens = batch["input_ids"]
+    labels = batch.get("labels")
+    mask = batch.get("loss_mask")
+    if labels is None:
+        labels = tokens[:, 1:]
+        inputs = tokens[:, :-1]
+        if mask is not None and mask.shape[1] == tokens.shape[1]:
+            mask = mask[:, 1:]  # align with shifted labels
+    else:
+        inputs = tokens
+    return inputs, labels, mask, batch.get("positions"), batch.get("segment_ids")
+
+
+def _masked_nll(logits, labels, mask):
+    """Shared CE core: fp32 NLL -> (sum_loss, count), as label logit minus
+    an fp32 logsumexp."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ll = picked.float() - lse
+    mask = mask.float()
+    return (-ll * mask).sum(), mask.sum()
+
+
+def nll_loss(logits, labels, mask=None):
+    """Masked next-token NLL from full logits."""
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+    total, count = _masked_nll(logits, labels, mask)
+    return total / count.clamp_min(1.0)
+
+
+def lm_head_loss(params, x, labels, mask, config: TransformerConfig, aux=None):
+    """Final norm -> logits -> masked NLL: the model's head."""
+    c = config
+    x = _norm(x, params["final_norm"], params.get("final_norm_b"), c.norm, c.norm_eps)
+    return nll_loss(_apply_lm_head(params, x, c), labels, mask)
+
+
+def make_loss_fn(config: TransformerConfig):
+    """Causal-LM loss over a batch dict {'input_ids': [b, s] (, 'labels',
+    'loss_mask', 'segment_ids', 'positions')} of tensors: the dense head and
+    full logits. The engine's ``loss_fn(params, batch)`` contract."""
+    if config.fused_ce:
+        raise NotImplementedError(
+            "fused_ce=True (the fused LM head + CE kernel) is not ported yet "
+            "(ROADMAP queue 2, item 6)"
+        )
+    if config.loss_tiles > 1:
+        raise NotImplementedError(
+            "loss_tiles > 1 (tiled logits loss) is not ported yet (ROADMAP queue 1, item 6)"
+        )
+
+    def loss_fn(params, batch):
+        inputs, labels, mask, positions, segment_ids = split_lm_batch(batch)
+        logits, _ = forward(params, inputs, config, positions=positions,
+                            segment_ids=segment_ids)
+        return nll_loss(logits, labels, mask)
+
+    loss_fn.model_config = config
+    return loss_fn
 
 
 def num_params(params) -> int:
@@ -741,3 +884,17 @@ def num_params(params) -> int:
     for v in params.values():
         n += num_params(v) if isinstance(v, dict) else v.numel()
     return n
+
+
+def flops_per_token(config: TransformerConfig, seq_len: Optional[int] = None) -> float:
+    """Approximate training FLOPs per token (6ND rule + attention term), the
+    JAX package's formula."""
+    c = config
+    s = seq_len or c.max_seq_len
+    n_dense = (
+        c.hidden_size * (c.n_heads + 2 * c.kv_heads) * c.head_dim  # qkv
+        + c.n_heads * c.head_dim * c.hidden_size  # out proj
+        + c.hidden_size * c.ffn_dim * (3 if c.activation in ("swiglu", "geglu") else 2)
+    ) * c.n_layers + c.vocab_size * c.hidden_size
+    attn = 2 * c.n_layers * s * c.hidden_size
+    return 6.0 * (n_dense + attn / 2)

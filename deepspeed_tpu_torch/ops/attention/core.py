@@ -1,8 +1,21 @@
-"""Attention building blocks for the port.
+"""Attention dispatch for the port.
 
 Counterpart of ``deepspeed_tpu/ops/attention/core.py``: the shared
-sliding-window band convention and the plain reference attention. The
-flash kernel (``attention(impl="flash")``) is not ported in this slice.
+sliding-window band convention, the plain reference attention and the
+``attention`` seam. ``impl``:
+
+  * None / "auto": on a CUDA tensor the flash kernels
+    (``ops/attention/flash.py``), which launch or raise for a shape they do
+    not take; on a CPU tensor ``mha_reference``, as the JAX package's
+    "auto" takes its jnp reference off the TPU;
+  * "flash": ``flash_attention`` on any device (its plain versions on the
+    CPU);
+  * "reference": ``mha_reference``.
+
+ALiBi, a dense ``bias`` on the flash path, "splash", "flash_ring" and
+"flash_head_sharded" raise ``NotImplementedError`` naming their ROADMAP
+items. On a card nothing here runs the plain version unless asked for by
+"reference".
 
 Layout as in the JAX package: q [batch, heads, seq, head_dim], k/v
 [batch, kv_heads, seq, head_dim]; grouped-query attention repeats kv heads.
@@ -39,6 +52,7 @@ def mha_reference(
     k,
     v,
     causal: bool = True,
+    segment_ids: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     window: int = 0,
@@ -47,7 +61,8 @@ def mha_reference(
     """Plain attention with an fp32 softmax. q: [b, h, sq, d]; k, v:
     [b, h_kv, sk, d]. Returns [b, h, sq, d] in v's dtype. ``causal`` offsets
     the mask so the last query sees all sk keys; ``window`` adds the band
-    (requires causal)."""
+    (requires causal); ``segment_ids`` [b, s] (sq == sk) keeps attention
+    inside each packed sequence."""
     if window and not causal:
         raise ValueError("mha_reference: window > 0 requires causal=True")
     b, h, sq, d = q.shape
@@ -67,5 +82,52 @@ def mha_reference(
         if window:
             mask = mask & ~window_too_far(q_pos, k_pos, window, window_flag)
         logits = torch.where(mask[None, None], logits, torch.full_like(logits, NEG_INF))
+    if segment_ids is not None:
+        seg_mask = segment_ids[:, :, None] == segment_ids[:, None, :]
+        logits = torch.where(seg_mask[:, None], logits, torch.full_like(logits, NEG_INF))
     weights = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(f"attention: {what} is not ported yet ({item})")
+
+
+def attention(
+    q,
+    k,
+    v,
+    causal: bool = True,
+    segment_ids: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: Optional[str] = None,
+    alibi_slopes=None,
+    alibi_positions=None,
+    window: int = 0,
+    window_flag=None,
+    schedule=None,
+):
+    """Dispatching attention entry point (the JAX package's signature).
+    See the module docstring for ``impl``."""
+    if alibi_slopes is not None or alibi_positions is not None:
+        raise _unported("ALiBi", "ROADMAP queue 2, item 1: ALiBi on the flash kernel")
+    if impl == "splash" or schedule is not None:
+        raise _unported("splash (scheduled block-sparse) attention", "ROADMAP queue 2, item 4")
+    if impl in ("flash_ring", "flash_head_sharded"):
+        raise _unported(f"impl={impl!r}", "ROADMAP queue 1, item 6: multi-GPU")
+    if impl == "reference":
+        return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids, bias=bias,
+                             scale=scale, window=window, window_flag=window_flag)
+    if impl not in (None, "auto", "flash"):
+        raise ValueError(f"attention: impl={impl!r}")
+    if impl != "flash" and q.device.type == "cpu":
+        return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids, bias=bias,
+                             scale=scale, window=window, window_flag=window_flag)
+    if bias is not None:
+        raise _unported("a dense bias on the flash path",
+                        "ROADMAP queue 2, item 1: biases on the flash kernel")
+    from deepspeed_tpu_torch.ops.attention.flash import flash_attention
+
+    return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids, scale=scale,
+                           window=window, window_flag=window_flag)

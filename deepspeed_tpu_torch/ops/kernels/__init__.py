@@ -1,6 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` source exposes a plain C entry point and builds into its
+Each ``csrc/*.cu`` source exposes plain C entry points (one source may hold
+several, e.g. the two flash-backward kernels) and builds into its
 own shared library with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` at first use, into ``build/torch_kernels/`` at
 the root of the checkout (listed in ``.gitignore``). Libraries are named by
@@ -105,6 +106,33 @@ KERNELS: Dict[str, Kernel] = {
             [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _P],
             "deepspeed_tpu/ops/attention/paged_pallas.py:84",
         ),
+        Kernel(
+            "rms_norm_bwd", "rms_norm.cu", "dstt_rms_norm_bwd",
+            # x, w, g, dx, rows, h, eps, x_bf16, w_bf16, vec, stream
+            [_P] * 4 + [ctypes.c_longlong, _I, ctypes.c_float, _I, _I, _I, _P],
+            "deepspeed_tpu/ops/normalization/fused_norm.py:36",
+        ),
+        Kernel(
+            "flash_fwd", "flash_fwd.cu", "dstt_flash_fwd",
+            # q, k, v, seg, out, lse, b, h, h_kv, s, d, scale,
+            # causal, window, window_flag, stream
+            [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:69",
+        ),
+        Kernel(
+            "flash_bwd_dq", "flash_bwd.cu", "dstt_flash_bwd_dq",
+            # q, k, v, o, do, lse, seg, dq, b, h, h_kv, s, d, scale,
+            # causal, window, window_flag, stream
+            [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:152",
+        ),
+        Kernel(
+            "flash_bwd_dkv", "flash_bwd.cu", "dstt_flash_bwd_dkv",
+            # q, k, v, o, do, lse, seg, dk, dv, b, h, h_kv, s, d, scale,
+            # causal, window, window_flag, stream
+            [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:220",
+        ),
     )
 }
 
@@ -134,14 +162,17 @@ def nvcc_path() -> str:
 
 def build(kernels: Optional[Iterable[Kernel]] = None) -> List[dict]:
     """Compile each kernel's library that is not built yet, one ``nvcc``
-    per source, all started together. Returns one record per kernel:
-    name, library path, seconds (0 when it was already built) and the
-    ``-Xptxas -v`` report. Raises if any build fails."""
-    kernels = list(KERNELS.values() if kernels is None else kernels)
+    per source, all started together. Returns one record per source, named
+    by its kernels: library path, seconds (0 when it was already built) and
+    the ``-Xptxas -v`` report. Raises if any build fails."""
+    by_source: Dict[str, List[Kernel]] = {}
+    for k in KERNELS.values() if kernels is None else kernels:
+        by_source.setdefault(k.source, []).append(k)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     jobs = []
-    for k in kernels:
+    for ks in by_source.values():
+        k = ks[0]
         out = k.library_path()
         if out.exists():
             jobs.append((k, out, None, None, 0.0))
@@ -156,8 +187,9 @@ def build(kernels: Optional[Iterable[Kernel]] = None) -> List[dict]:
     records = []
     failures = []
     for k, out, tmp, proc, t0 in jobs:
+        name = "+".join(x.name for x in by_source[k.source])
         if proc is None:
-            records.append({"name": k.name, "library": str(out), "seconds": 0.0, "ptxas": ""})
+            records.append({"name": name, "library": str(out), "seconds": 0.0, "ptxas": ""})
             continue
         log, _ = proc.communicate()
         secs = time.perf_counter() - t0
@@ -165,7 +197,7 @@ def build(kernels: Optional[Iterable[Kernel]] = None) -> List[dict]:
             failures.append(f"{k.source}: nvcc exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
-        records.append({"name": k.name, "library": str(out), "seconds": secs, "ptxas": log})
+        records.append({"name": name, "library": str(out), "seconds": secs, "ptxas": log})
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return records

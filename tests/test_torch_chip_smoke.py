@@ -93,7 +93,7 @@ def test_engine_phase_runs_end_to_end_on_cpu(one_thread):
         torch, torch.device("cpu"), K, widths=widths, engine_config=engine_config
     )
     json.dumps(rec)
-    assert launches == {"rms_norm_fwd": 0, "paged_decode": 0}  # the CPU runs no kernel
+    assert launches == {name: 0 for name in K.KERNELS}  # the CPU runs no kernel
     assert rec["forward_steps"]["round"] == 64
     # every slot: its prefill row, two decode steps, 64 round steps
     assert rec["logit_rows_checked"] == {"prefill": 32, "decode": 64, "round": 32 * 64,
@@ -103,3 +103,62 @@ def test_engine_phase_runs_end_to_end_on_cpu(one_thread):
         assert rec["logit_rel_err"][k] < 1e-4, (k, rec["logit_rel_err"])
     assert rec["logit_rel_err"]["shifted"] > chip_smoke.LOGIT_RTOL
     assert rec["gen_tok_s"] > 0
+
+
+def test_train_phase_runs_end_to_end_on_cpu(one_thread):
+    """The train phase at 2 tiny layers: on CPU tensors the kernel path is
+    the kernels' plain versions ("flash" makes the model go through the
+    flash Function), so the parity leg agrees to fp32 rounding and the
+    control does not."""
+    widths = dict(hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                  vocab_size=512, dtype="float32", attention_impl="flash")
+    rec, launches = chip_smoke.train_phase(torch, torch.device("cpu"), K, widths=widths,
+                                           seq=64, layers=2, parity_layers=2)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    par = rec["parity"]
+    assert par["loss_abs_diff"] < 1e-5
+    assert max(par["grad_rel_frobenius"].values()) < 1e-4
+    assert par["control_rel_frobenius_min"] > chip_smoke.PARITY_CONTROL_MIN
+    assert par["fixed_batch_losses"][-1] < par["fixed_batch_losses"][0]
+    assert len(rec["losses"]) == 5 and rec["tok_s"] > 0
+    # exact per-step counts the card run checks: gas 2, L layers
+    assert rec["launches_per_optimizer_step"] == {
+        "flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4, "rms_norm_fwd": 10,
+        "rms_norm_bwd": 10}
+    assert set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS) == set(K.KERNELS)
+
+
+def test_tile_check_rejects_late_tiles_the_max_scaled_check_passes():
+    """A 3% error on the later half of the keys' dk (the smallest
+    gradients under a causal mask) stays inside the elementwise check whose
+    atol is scaled by the largest element; the per-tile relative Frobenius
+    check rejects it, and passes the plain version against itself."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    q, k, v, do = chip_smoke.flash_inputs(torch, torch.device("cpu"), 1, 2, 1, 1024, 64, seed=3)
+    out, lse = F.flash_fwd_reference(q, k, v, causal=True)
+    _, dk, _ = F.flash_bwd_reference(q, k, v, out, do, lse, causal=True)
+    bad = dk.float().clone()
+    bad[:, :, 512:] *= 1.03
+    bad = bad.to(dk.dtype)
+    scale = max(1.0, float(dk.float().abs().max()))
+    chip_smoke.check_close(torch, "dk", bad, dk, chip_smoke.BF16_ATOL * scale,
+                           chip_smoke.BF16_RTOL)
+    assert chip_smoke.tile_rel_err(torch, "dk", dk, dk) == 0
+    with pytest.raises(AssertionError, match="tile is off"):
+        chip_smoke.tile_rel_err(torch, "dk", bad, dk)
+    # a partial tail tile, and an all-zero reference tile that must stay zero
+    z = torch.zeros(1, 1, 70, 8)
+    assert chip_smoke.tile_rel_err(torch, "z", z, z) == 0
+    with pytest.raises(AssertionError, match="inf"):
+        chip_smoke.tile_rel_err(torch, "z", z + 1e-3, z)
+
+
+def test_flash_pairs_counts_the_visible_pairs():
+    seg = torch.tensor([[0] * 5 + [1] * 3])
+    assert chip_smoke.flash_pairs(8, True, 0, None, None) == 36
+    assert chip_smoke.flash_pairs(8, False, 0, None, None) == 64
+    assert chip_smoke.flash_pairs(8, True, 2, None, None) == 15
+    assert chip_smoke.flash_pairs(8, True, 2, 0, None) == 36
+    assert chip_smoke.flash_pairs(8, True, 0, None, seg) == 15 + 6

@@ -136,7 +136,7 @@ def test_engine_logits_match_plain_forward():
     rounds = pe.decode_round(5)
     for uid, p in enumerate(ps):
         seq = list(p) + [firsts[uid]] + [int(t) for t in rounds[uid]]
-        ref = PT.forward(pe.params, torch.as_tensor([seq]), pe._mc)[0][0]
+        ref = PT.forward_reference(pe.params, torch.as_tensor([seq]), pe._mc)[0][0]
         n = len(p)
         np.testing.assert_allclose(pl[uid], ref[n - 1].numpy(), atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
         logp = torch.log_softmax(ref[n : n + 5], dim=-1)
@@ -192,10 +192,17 @@ def test_forward_matches_jax_forward():
     pcfg = PT.TransformerConfig(**MODEL, sliding_window=12)
     toks = np.random.default_rng(6).integers(0, 256, size=(2, 30)).astype(np.int32)
     want = np.asarray(JT.forward(jp, jnp.asarray(toks), jcfg)[0])
-    got = PT.forward(params_from_numpy(jax.tree.map(np.asarray, jp)), torch.from_numpy(toks), pcfg)[0]
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    got = PT.forward_reference(tp, torch.from_numpy(toks), pcfg)[0]
     np.testing.assert_allclose(got.numpy(), want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
-    with pytest.raises(NotImplementedError, match="flash kernel not yet ported"):
-        PT.forward({}, torch.from_numpy(toks), PT.TransformerConfig(**MODEL, attention_impl="flash"))
+    # the training forward, "auto" and "flash" (the flash Function's plain
+    # versions on CPU tensors), computes the same logits
+    for impl in ("auto", "flash"):
+        cfg = PT.TransformerConfig(**MODEL, sliding_window=12, attention_impl=impl, remat=False)
+        got = PT.forward(tp, torch.from_numpy(toks), cfg)[0]
+        np.testing.assert_allclose(got.detach().numpy(), want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+    with pytest.raises(NotImplementedError, match="queue 2, item 4"):
+        PT.forward({}, torch.from_numpy(toks), PT.TransformerConfig(**MODEL, attention_impl="splash"))
 
 
 @pytest.mark.parametrize("over,match", [

@@ -28,10 +28,17 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.models.convert",
     "deepspeed_tpu_torch.models.transformer",
     "deepspeed_tpu_torch.ops.attention.core",
+    "deepspeed_tpu_torch.ops.attention.flash",
     "deepspeed_tpu_torch.ops.attention.paged",
     "deepspeed_tpu_torch.ops.kernels",
     "deepspeed_tpu_torch.ops.normalization",
+    "deepspeed_tpu_torch.runtime.config",
     "deepspeed_tpu_torch.runtime.config_utils",
+    "deepspeed_tpu_torch.runtime.engine",
+    "deepspeed_tpu_torch.runtime.fp16.loss_scaler",
+    "deepspeed_tpu_torch.runtime.lr_schedules",
+    "deepspeed_tpu_torch.runtime.optimizers",
+    "deepspeed_tpu_torch.runtime.zero.config",
     "deepspeed_tpu_torch.utils.logging",
 ]
 
@@ -128,6 +135,71 @@ def test_kernel_wrappers_never_fall_back_for_device_tensors():
         paged_decode(q, pool, pool, tables, tables[:, 0], 2)
 
 
+def test_training_wrappers_never_fall_back_for_device_tensors(monkeypatch):
+    """The flash and RMSNorm-backward wrappers, and the autograd Functions
+    over them, launch their kernel or raise for a tensor that is not on the
+    CPU: the plain versions are poisoned here, and a meta tensor (standing
+    in for a CUDA one) must reach the kernels' own checks."""
+    from deepspeed_tpu_torch.ops.attention import flash as pf
+    from deepspeed_tpu_torch.ops.normalization import fused_norm as fn
+
+    def poisoned(*a, **k):
+        raise AssertionError("a plain version ran for a device tensor")
+
+    for mod, name in ((pf, "flash_fwd_reference"), (pf, "flash_bwd_reference"),
+                      (fn, "rms_norm_reference"), (fn, "rms_norm_bwd_reference")):
+        monkeypatch.setattr(mod, name, poisoned)
+    q = torch.randn(1, 4, 64, 128, device="meta", dtype=torch.bfloat16)
+    k = torch.randn(1, 2, 64, 128, device="meta", dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 64, device="meta")
+    for call in (lambda: pf.flash_attention(q, k, k),
+                 lambda: pf.flash_fwd_cuda(q, k, k),
+                 lambda: pf.flash_bwd_dq_cuda(q, k, k, q, q, lse),
+                 lambda: pf.flash_bwd_dkv_cuda(q, k, k, q, q, lse)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    x = torch.randn(3, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fn.fused_rms_norm(x, torch.ones(8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        fn.rms_norm_bwd_cuda(x, torch.ones(8, device="meta"), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn.rms_norm_bwd_cuda(torch.randn(3, 8), torch.ones(8), torch.randn(3, 8))
+
+
+def test_auto_attention_refuses_an_unported_head_dim_on_a_device():
+    """Off the CPU, "auto" attention is the kernel or an error: head_dim 96
+    (and an fp32 input) raise instead of running ``mha_reference``."""
+    from deepspeed_tpu_torch.ops.attention.core import attention
+
+    q = torch.randn(1, 2, 64, 96, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head_dim 96"):
+        attention(q, q, q, impl="auto")
+    q = torch.randn(1, 2, 64, 128, device="meta")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        attention(q, q, q)
+
+
+def test_engine_runs_where_its_params_live():
+    """initialize() follows the params: CPU params train on the CPU, and
+    ``init_params`` puts them on the card unless asked otherwise."""
+    import inspect
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as T
+
+    assert inspect.signature(T.init_params).parameters["device"].default == "cuda"
+    cfg = T.get_config("tiny", dtype="float32", remat=False, n_layers=1)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=T.make_loss_fn(cfg), model_parameters=params,
+        config={"train_micro_batch_size_per_gpu": 1,
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}})
+    assert eng.device.type == "cpu"
+    loss = eng.train_batch(batch={"input_ids": torch.zeros(1, 9, dtype=torch.long)})
+    assert bool(torch.isfinite(loss))
+
+
 @pytest.mark.cuda
 def test_build_and_launch_counts_on_the_card():
     if not torch.cuda.is_available():
@@ -137,5 +209,6 @@ def test_build_and_launch_counts_on_the_card():
 
     K.build()
     K.reset_counts()
-    rms_norm(torch.randn(4, 64, device="cuda"), torch.ones(64, device="cuda"))
-    assert K.counts()["rms_norm_fwd"] == 1
+    x = torch.randn(4, 64, device="cuda", requires_grad=True)
+    rms_norm(x, torch.ones(64, device="cuda")).sum().backward()
+    assert K.counts()["rms_norm_fwd"] == 1 and K.counts()["rms_norm_bwd"] == 1
