@@ -14,7 +14,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 2. kernels: each kernel against its plain PyTorch version at the shapes
    the serving and training paths give it at Mistral-7B width, in bf16,
    with the tolerance stated (the flash kernels also at s 1024 with a
-   static window, the window flag at 0 and 1, and packed segments); then
+   static window, the window flag at 0 and 1, and packed segments; the
+   fused-CE kernels also at sizes that divide no tile; FusedAdam at steps 1
+   and 1000, AdamW and L2 decay, and on a leaf with a ragged tail); then
    CUDA-event times of the kernel, the plain version and one PyTorch
    library call computing the same function (a yardstick only: the port
    never calls it), beside the least time the card could take
@@ -25,7 +27,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``forward_reference``; the serving kernels' launches are counted and
    checked; then ``serving_benchmark`` prints generated tokens per second.
    With ``--profile``, a torch.profiler breakdown of a split step and a
-   decode round follows (and of one train step after phase 4).
+   decode round follows (and of one train step after each train leg).
 4. train: Mistral-7B width, bf16. Parity leg (2 layers, seq 4096, a
    batch packed into two segments with positions restarting): the loss and
    every leaf's gradient of ``make_loss_fn`` (the kernels) against autograd
@@ -35,11 +37,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``train_batch``, micro-batch 1, 2 accumulation steps, AdamW, WarmupLR,
    clipping): 1 warm-up and 4 timed steps, losses, step seconds, tok/s,
    MFU, peak memory and the training kernels' exact launch counts.
+5. train_fused: the same two legs at the fused configuration
+   (``TransformerConfig(fused_ce=True)``, ``{"optimizer": {"type":
+   "FusedAdam"}}``): the parity leg still compares with the dense head's
+   autograd, and adds one FusedAdam step against the plain Adam math on the
+   same grads and, after the 8 steps, a checkpoint save -> load -> step
+   through the sync writer (the reloaded engine's params, masters,
+   moments, count and learning rate equal the saved ones bit for bit, and
+   so does its next loss); the timed leg counts the fused-CE and
+   FusedAdam launches too.
 
-Serving kernels must launch in the engine phase and training kernels in
-the train phase, together every kernel. The line before the last lists the
-kernels; the last line is the result object. With no card, or outside a
-checkout, it exits non-zero and prints no result.
+Serving kernels must launch in the engine phase, training kernels in the
+train legs, the fused configuration's four in its leg: together every
+kernel. The line before the last lists the kernels; the last line is the
+result object. With no card, or outside a checkout, it exits non-zero and
+prints no result.
 """
 
 import argparse
@@ -683,6 +695,213 @@ def sdpa_ms(torch, world, kw):
     return time_ms(torch, lambda: f(qq, k, v, attn_mask=mask, enable_gqa=True))
 
 
+# fused LM head + CE: fp32 per-row outputs (sums of 4096 bf16 products and
+# of 32000 exponentials in fp32, in another order)
+CE_ROW_ATOL = 2e-4
+# dx and dW are bf16 roundings of fp32 sums of bf16-rounded d: a few bf16
+# units of the largest element, and per 64-row tile a relative Frobenius
+# error as for the flash gradients (d is recomputed from logits that differ
+# in the last fp32 bits, so single elements of d round the other way)
+CE_TILE_RTOL = 1e-2
+
+
+def ce_inputs(torch, dev, n, h, V, seed):
+    """x ~ N(0, 1), w ~ N(0, 1/h) (logits of order 1), random labels and a
+    per-row cotangent with zeros (masked rows; the last row as a padded
+    one)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, h, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(h, V, generator=gen, device=dev) * h ** -0.5).to(torch.bfloat16)
+    labels = torch.randint(0, V, (n,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.rand(n, generator=gen, device=dev) / n
+    g = torch.where(torch.rand(n, generator=gen, device=dev) < 0.1, torch.zeros_like(g), g)
+    g[-1] = 0.0
+    return x, w, labels, g
+
+
+def kernel_fused_ce(torch, dev, n=4096, h=4096, V=32000):
+    """The three fused-CE kernels at the train step's shape (one micro-batch
+    of 4096 rows at width 4096 against Mistral-7B's 32000-entry vocabulary)
+    and at sizes that divide no tile. Returns one record per kernel."""
+    from deepspeed_tpu_torch.ops import fused_ce as C
+
+    cases = {f"n{n}_h{h}_V{V}": (n, h, V), "n777_h1000_V3001": (777, 1000, 3001),
+             "n300_h520_V3000": (300, 520, 3000)}
+    errs = {"fused_ce_fwd": {}, "fused_ce_dx": {}, "fused_ce_dw": {}}
+    tile_errs = {"fused_ce_dx": {}, "fused_ce_dw": {}}
+    for i, (name, (nn, hh, VV)) in enumerate(cases.items()):
+        x, w, labels, g = ce_inputs(torch, dev, nn, hh, VV, seed=30 + i)
+        loss, lse = C.fused_ce_fwd_cuda(x, w, labels)
+        ref_loss, ref_lse = C.fused_ce_fwd_reference(x, w, labels)
+        errs["fused_ce_fwd"][name] = check_close(torch, f"fused_ce_fwd loss {name}", loss,
+                                                 ref_loss, CE_ROW_ATOL, FP32_RTOL)
+        errs["fused_ce_fwd"][name + "_lse"] = check_close(
+            torch, f"fused_ce_fwd lse {name}", lse, ref_lse, CE_ROW_ATOL, FP32_RTOL)
+        dense = C.fused_ce_reference(x, w, labels)
+        check_close(torch, f"fused_ce_fwd vs dense {name}", loss, dense, CE_ROW_ATOL, FP32_RTOL)
+        del ref_loss, ref_lse, dense
+        rdx, rdw = C.fused_ce_bwd_reference(x, w, labels, lse, g)
+        for kname, got, want in (
+                ("fused_ce_dx", C.fused_ce_dx_cuda(x, w, labels, lse, g), rdx),
+                ("fused_ce_dw", C.fused_ce_dw_cuda(x, w, labels, lse, g), rdw)):
+            scale = float(want.float().abs().max())
+            errs[kname][name] = check_close(torch, f"{kname} {name}", got, want,
+                                            BF16_ATOL * scale, BF16_RTOL)
+            tile_errs[kname][name] = tile_rel_err(torch, f"{kname} {name}", got[None, None],
+                                                  want[None, None], limit=CE_TILE_RTOL)
+            if kname == "fused_ce_dx" and bool(got[g == 0].float().abs().max() != 0):
+                raise AssertionError(f"fused_ce_dx {name}: a row with zero cotangent must be 0")
+        del rdx, rdw
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # times at the train step's shape
+    x, w, labels, g = ce_inputs(torch, dev, n, h, V, seed=30)
+    _, lse = C.fused_ce_fwd_cuda(x, w, labels)
+    ms = {
+        "fused_ce_fwd": time_ms(torch, lambda: C.fused_ce_fwd_cuda(x, w, labels), iters=5),
+        "fused_ce_dx": time_ms(torch, lambda: C.fused_ce_dx_cuda(x, w, labels, lse, g), iters=5),
+        "fused_ce_dw": time_ms(torch, lambda: C.fused_ce_dw_cuda(x, w, labels, lse, g), iters=5),
+    }
+    plain = {"fused_ce_fwd": time_ms(torch, lambda: C.fused_ce_fwd_reference(x, w, labels),
+                                     iters=2, warmup=1)}
+    # the plain backward computes dx and dW together: its time stands for both
+    plain["fused_ce_dx"] = plain["fused_ce_dw"] = time_ms(
+        torch, lambda: C.fused_ce_bwd_reference(x, w, labels, lse, g), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    # yardsticks: the dense head through the library's matmul and
+    # cross_entropy; its autograd backward gives dx and dW in one call
+    lib_ce = torch.nn.functional.cross_entropy
+    lbl = labels.long()
+    library = {"fused_ce_fwd": time_ms(
+        torch, lambda: lib_ce((x @ w).float(), lbl, reduction="none"), iters=5)}
+    xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    dense_loss = lib_ce((xl @ wl).float(), lbl, reduction="none")
+    library["fused_ce_dx"] = library["fused_ce_dw"] = eager_ms(
+        torch, lambda: torch.autograd.grad(dense_loss, (xl, wl), g, retain_graph=True), iters=5)
+    del dense_loss, xl, wl
+    torch.cuda.empty_cache()
+    el = x.element_size()
+    xb, wb, rows = x.numel() * el, w.numel() * el, n * 4
+    work = {  # (FLOPs, bytes: each input read once, each output written once)
+        "fused_ce_fwd": (2 * n * h * V, xb + wb + rows + 2 * rows),
+        "fused_ce_dx": (4 * n * h * V, xb + wb + 3 * rows + xb),
+        "fused_ce_dw": (4 * n * h * V, xb + wb + 3 * rows + wb),
+    }
+    records = {}
+    for name, (flops, moved) in work.items():
+        t_ops, t_bytes = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
+        records[name] = {
+            "name": name,
+            "shape": {"n": n, "h": h, "V": V},
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_case": errs[name],
+            "tolerance": {"rows_fp32": [CE_ROW_ATOL, FP32_RTOL],
+                          "bf16": [BF16_ATOL, BF16_RTOL], "scaled_by": "max|ref|",
+                          "tile_rel_frobenius": CE_TILE_RTOL if name in tile_errs else None},
+            "tile_rel_frobenius_by_case": tile_errs.get(name),
+            "ms": ms[name],
+            "plain_ms": plain[name],
+            "library_ms": library[name],
+            "library": "torch.nn.functional.cross_entropy(x @ w)" + (
+                "" if name == "fused_ce_fwd" else " autograd backward, dx + dW in one call, eager"),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops,
+            "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
+        }
+    return records
+
+
+# FusedAdam against the plain math: the kernel rounds every operation on
+# its own, in _adam_math's order; PyTorch divides by a scalar as a multiply
+# by its reciprocal, so u differs by a few units in the last place: m, v
+# and p within 4 fp32 ulp, p's error counted against |p| + |lr * u| (where
+# v is tiny the step is far larger than p)
+ADAM_RTOL = 4 * 2.0 ** -23
+ADAM_LR = 1e-3
+
+
+def check_adam_master(torch, name, got, want, before):
+    """The updated master within 4 fp32 ulp of its new value and of the step
+    taken to it; returns the largest absolute error."""
+    err = (got - want).abs()
+    bad = err > ADAM_RTOL * (want.abs() + (want - before).abs()) + 1e-12
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off "
+                             f"(max abs err {float(err.max())})")
+    return float(err.max())
+
+
+def kernel_fused_adam(torch, dev, shape=(4096, 14336)):
+    """FusedAdam on one MLP weight of Mistral-7B (4096 x 14336 fp32 master
+    with its bf16 copy) and on a leaf with a ragged tail; steps 1 and 1000,
+    AdamW and L2 decay, with and without bias correction."""
+    from deepspeed_tpu_torch.ops.adam import fused_adam as A
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+
+    def leaf(numel_or_shape):
+        p = torch.randn(numel_or_shape, generator=gen, device=dev)
+        g = torch.randn(numel_or_shape, generator=gen, device=dev) * 0.1
+        m = torch.randn(numel_or_shape, generator=gen, device=dev) * 0.1
+        v = torch.rand(numel_or_shape, generator=gen, device=dev) * 0.01
+        return p, g, m, v
+
+    errs = {}
+    for tag, shp in (("4096x14336", shape), ("tail_196611", (3 * 65536 + 3,))):
+        p, g, m, v = leaf(shp)
+        for step, adamw, bc in ((1, True, True), (1000, True, True), (1000, False, True),
+                                (7, True, False)):
+            hp = A.AdamParams(lr=ADAM_LR, weight_decay=0.01, adam_w_mode=adamw,
+                              bias_correction=bc)
+            want_p, want_m, want_v = A._adam_math(p, g, m, v, step, hp, ADAM_LR)
+            kp, km, kv = p.clone(), m.clone(), v.clone()
+            low = torch.empty(shp, device=dev, dtype=torch.bfloat16)
+            A.fused_adam_cuda(kp, g, km, kv, step, hp, ADAM_LR, param_out=low)
+            name = f"{tag}_step{step}_{'adamw' if adamw else 'l2'}{'' if bc else '_nobc'}"
+            errs[name] = check_adam_master(torch, f"fused_adam p {name}", kp, want_p, p)
+            check_close(torch, f"fused_adam m {name}", km, want_m, ADAM_RTOL, ADAM_RTOL)
+            check_close(torch, f"fused_adam v {name}", kv, want_v, ADAM_RTOL, ADAM_RTOL)
+            if not torch.equal(low, kp.to(torch.bfloat16)):
+                raise AssertionError(f"fused_adam {name}: the bf16 copy is not the rounded master")
+            del want_p, want_m, want_v, kp, km, kv, low
+        del p, g, m, v
+        torch.cuda.empty_cache()
+
+    p, g, m, v = leaf(shape)
+    low = torch.empty(shape, device=dev, dtype=torch.bfloat16)
+    hp = A.AdamParams(lr=ADAM_LR, weight_decay=0.01)
+    ms = time_ms(torch, lambda: A.fused_adam_cuda(p, g, m, v, 10, hp, ADAM_LR, param_out=low),
+                 iters=10)
+    plain_ms = time_ms(torch, lambda: A._adam_math(p, g, m, v, 10, hp, ADAM_LR), iters=3,
+                       warmup=1)
+    # yardstick: PyTorch's own fused AdamW on the same leaf (28 B per
+    # element: it keeps no half-precision copy)
+    lp = p.clone().requires_grad_(True)
+    lp.grad = g.clone()
+    opt = torch.optim.AdamW([lp], lr=ADAM_LR, weight_decay=0.01, fused=True)
+    library_ms = eager_ms(torch, opt.step, iters=10)
+    del opt, lp
+    numel = p.numel()
+    moved = numel * (4 * 4 + 3 * 4 + 2)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, 14 * numel / FP32_FLOPS
+    return {
+        "name": "fused_adam",
+        "shape": list(shape),
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_by_case": errs,
+        "tolerance": {"p": "4 fp32 ulp of |p| + |step|", "m_v": [ADAM_RTOL, ADAM_RTOL]},
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library": "torch.optim.AdamW(fused=True).step on the same leaf (eager)",
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": moved,
+        "gb_per_s": moved / (ms * 1e-3) / 1e9,
+    }
+
 
 # ---------------------------------------------------------------------------
 # phase 3: the engine at Mistral-7B width
@@ -927,6 +1146,11 @@ PARITY_GRAD_RTOL = 0.05
 PARITY_CONTROL_MIN = 0.5
 TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SERVE_KERNELS = ("rms_norm_fwd", "paged_decode")
+# the fused leg: the same configuration with TransformerConfig(fused_ce=True)
+# and FusedAdam (AdamW mode), which adds these four to the train kernels
+FUSED_KERNELS = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw", "fused_adam")
+FUSED_OPTIMIZER = {"type": "FusedAdam",
+                   "params": {"lr": 1e-4, "weight_decay": 0.01, "adam_w_mode": True}}
 
 
 def packed_batch(torch, dev, rng, b, s, vocab):
@@ -949,10 +1173,102 @@ def leaves(tree):
     return dict(_leaves(tree))
 
 
+def adam_step_check(torch, eng, grads, lr=1e-4):
+    """One step of the engine's FusedAdam on ``grads`` (a tree of fp32
+    tensors) against ``_adam_math`` on the same masters and grads: masters
+    and moments within 4 fp32 ulp (as the kernel check counts them), each
+    half-precision param the rounded master."""
+    from deepspeed_tpu_torch.ops.adam import fused_adam as A
+
+    hp = eng.optimizer.tx.fused.hp
+    before = {k: t.clone() for k, t in leaves(eng.opt_state.master).items()}
+    count = eng.opt_state.inner["count"] + 1
+    eng.opt_state = eng.optimizer.step(grads, eng.opt_state, eng.params, lr)
+    worst = 0.0
+    g = leaves(grads)
+    m, v = leaves(eng.opt_state.inner["m"]), leaves(eng.opt_state.inner["v"])
+    params = leaves(eng.params)
+    for name, p0 in before.items():
+        zero = torch.zeros_like(p0)
+        want_p, want_m, want_v = A._adam_math(p0, g[name], zero, zero, count, hp, lr)
+        got = leaves(eng.opt_state.master)[name]
+        worst = max(worst, check_adam_master(torch, f"FusedAdam master {name}", got, want_p, p0))
+        check_close(torch, f"FusedAdam m {name}", m[name], want_m, ADAM_RTOL, ADAM_RTOL)
+        check_close(torch, f"FusedAdam v {name}", v[name], want_v, ADAM_RTOL, ADAM_RTOL)
+        if not torch.equal(params[name], got.to(params[name].dtype)):
+            raise AssertionError(f"FusedAdam step: param {name} is not its rounded master")
+        del want_p, want_m, want_v, zero
+    return worst
+
+
+def checkpoint_leg(torch, dev, eng, make_engine, batch):
+    """Save ``eng`` through the sync writer, take one more step; a fresh
+    engine (other weights) loads the checkpoint and takes the same step.
+    Right after the load its whole state (params, masters, the optimizer's
+    moments and count, the learning rate, the step counters) must equal the
+    saved engine's bit for bit, and so must the two steps' losses (a forward
+    over the restored params: the backward's atomic sums come after it)."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import tree_leaves
+
+    def state_of(e):
+        """Every tensor of the engine's state, then its scalars."""
+        flat = tree_leaves(e.params) + tree_leaves(e._opt_state_payload())
+        tensors = [t for t in flat if isinstance(t, torch.Tensor)]
+        scalars = [int(t) for t in flat if not isinstance(t, torch.Tensor)]
+        return tensors, scalars + [e.get_lr(), e.global_steps, e.micro_steps, e.global_samples]
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        eng.save_checkpoint(ckpt_dir, tag="smoke")
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*") if f.is_file())
+        saved, saved_scalars = state_of(eng)
+        saved = [t.clone() for t in saved]
+        want = float(eng.train_batch(batch=batch))
+        steps = eng.global_steps
+        del eng
+        _sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        other = make_engine()
+        t0 = time.perf_counter()
+        other.load_checkpoint(ckpt_dir)
+        load_s = time.perf_counter() - t0
+        loaded, loaded_scalars = state_of(other)
+        differ = [i for i, (x, y) in enumerate(zip(saved, loaded, strict=True))
+                  if x.dtype != y.dtype or not torch.equal(x, y)]
+        if differ or loaded_scalars != saved_scalars:
+            raise AssertionError(
+                f"checkpoint: the reloaded state differs in tensors {differ} of {len(saved)} "
+                f"(params, masters, moments, in tree order); scalars {loaded_scalars} against "
+                f"{saved_scalars}")
+        n_state = len(saved)
+        del saved, loaded
+        got = float(other.train_batch(batch=batch))
+        rec = {"writer": "sync", "bytes": size, "save_seconds": save_s, "load_seconds": load_s,
+               "state_tensors_equal": n_state,
+               "state_scalars": loaded_scalars,
+               "loss_uninterrupted": want, "loss_after_reload": got,
+               "global_steps": other.global_steps}
+        if got != want or other.global_steps != steps:
+            raise AssertionError(f"checkpoint: the reloaded engine's step differs: {rec}")
+        return rec
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
-                parity_layers=PARITY_LAYERS, profile=False):
+                parity_layers=PARITY_LAYERS, profile=False, fused=False, timed_steps=4):
     """The training path, counted. ``widths``/``seq``/``layers`` shrink it
-    for a rehearsal on the CPU; the card run uses the defaults."""
+    for a rehearsal on the CPU; the card run uses the defaults. ``fused``
+    runs the fused configuration (``fused_ce=True``, FusedAdam): its parity
+    leg still compares with autograd through ``forward_reference`` and the
+    dense ``nll_loss``, and adds one optimizer step against the plain Adam
+    math and a checkpoint save -> load -> step."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -960,8 +1276,13 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
 
     widths = dict(widths or {})
     widths.setdefault("dtype", "bfloat16")
-    rec = {"phase": "train", "model": MODEL, "seq": seq, "dtype": widths["dtype"]}
+    rec = {"phase": "train_fused" if fused else "train", "model": MODEL, "seq": seq,
+           "dtype": widths["dtype"]}
     ds_config = dict(TRAIN_CONFIG)
+    if fused:
+        widths["fused_ce"] = True
+        ds_config["optimizer"] = FUSED_OPTIMIZER
+        ds_config["checkpoint"] = {"writer": "sync"}
     if widths["dtype"] != "bfloat16":  # a CPU rehearsal in the model's own dtype
         del ds_config["bf16"]
     rng = np.random.default_rng(SEED)
@@ -998,7 +1319,7 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
         control[name] = float((cg - rg).norm()) / ref_norm
         if not bool(torch.isfinite(kg).all()):
             raise AssertionError(f"train parity: non-finite kernel-path grad for {name}")
-    del k_grads, c_grads, r_grads
+    del c_grads, r_grads
     rec["parity"] = {
         "layers": parity_layers, "batch": [1, seq], "segments": 2,
         "loss_kernels": float(k_loss), "loss_reference": float(r_loss.detach()),
@@ -1022,10 +1343,31 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
     eng, *_ = deepspeed_tpu_torch.initialize(model=loss_fn, model_parameters=params,
                                              config=one)
     del params, flat
+    if fused:
+        # one FusedAdam step on the parity leg's grads against the plain math
+        from deepspeed_tpu_torch.runtime.optimizers import tree_map
+
+        it = iter(k_grads)
+        K.reset_counts()
+        rec["parity"]["adam_step_max_abs_err"] = adam_step_check(
+            torch, eng, tree_map(lambda p: next(it), eng.params))
+        big = sum(t.numel() >= (1 << 16) for t in leaves(eng.params).values())
+        rec["parity"]["adam_step_launches"] = K.counts()["fused_adam"]
+        if dev.type == "cuda" and K.counts()["fused_adam"] != big:
+            raise AssertionError(f"FusedAdam launched {K.counts()['fused_adam']} kernels for "
+                                 f"{big} leaves of at least 65536 elements")
+    del k_grads
     fit = [float(eng.train_batch(batch=batch)) for _ in range(8)]
     rec["parity"]["fixed_batch_losses"] = fit
     if not all(np.isfinite(fit)) or not fit[-1] < fit[0]:
         raise AssertionError(f"train: the loss did not fall on a fixed batch: {fit}")
+    if fused:
+        def other_engine():
+            p = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 7), dev)
+            return deepspeed_tpu_torch.initialize(model=loss_fn, model_parameters=p,
+                                                  config=one)[0]
+
+        rec["checkpoint"] = checkpoint_leg(torch, dev, eng, other_engine, batch)
     del eng
     _sync(torch, dev)
     if dev.type == "cuda":
@@ -1037,7 +1379,8 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 1), dev)
     gas = ds_config["gradient_accumulation_steps"]
     batches = [{"input_ids": torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, size=(gas, seq + 1)), device=dev)} for _ in range(5)]
+        rng.integers(0, cfg.vocab_size, size=(gas, seq + 1)), device=dev)}
+        for _ in range(1 + timed_steps)]
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     K.reset_counts()
@@ -1057,6 +1400,13 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
     per_step = {"flash_fwd": gas * layers, "flash_bwd_dq": gas * layers,
                 "flash_bwd_dkv": gas * layers, "rms_norm_fwd": gas * (2 * layers + 1),
                 "rms_norm_bwd": gas * (2 * layers + 1)}
+    if fused:
+        per_step.update({
+            "fused_ce_fwd": gas, "fused_ce_dx": gas, "fused_ce_dw": gas,
+            # one launch per leaf of at least 65536 elements; smaller
+            # leaves (the norm weights) take the plain math
+            "fused_adam": sum(t.numel() >= (1 << 16) for t in leaves(eng.params).values()),
+        })
     expected = {name: 0 for name in launches}
     expected.update({k: v * steps for k, v in per_step.items()})
     rec["launches"] = launches
@@ -1077,7 +1427,7 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
     rec["mfu"] = rec["flops_per_token"] * rec["tok_s"] / BF16_FLOPS
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
     if profile:
-        rec["profile"] = device_profile(torch, {"train_step": lambda: float(
+        rec["profile"] = device_profile(torch, {rec["phase"] + "_step": lambda: float(
             eng.train_batch(batch=batches[-1]))})
     del eng
     return rec, launches
@@ -1154,18 +1504,23 @@ def main(argv=None):
             if "ptxas info" in line and ("registers" in line or "spill" in line):
                 print(f"  [{b['name']}] {line.strip()}", flush=True)
 
-    t0 = time.perf_counter()
-    records = {
-        "rms_norm_fwd": kernel_rms_norm(torch, dev),
-        "paged_decode": kernel_paged_decode(torch, dev, seed=SEED),
-        "rms_norm_bwd": kernel_rms_norm_bwd(torch, dev),
+    groups = {
+        "rms_norm": lambda: {"rms_norm_fwd": kernel_rms_norm(torch, dev),
+                             "rms_norm_bwd": kernel_rms_norm_bwd(torch, dev)},
+        "paged": lambda: {"paged_decode": kernel_paged_decode(torch, dev, seed=SEED)},
+        "flash": lambda: kernel_flash(torch, dev),
+        "fused_ce": lambda: kernel_fused_ce(torch, dev),
+        "fused_adam": lambda: {"fused_adam": kernel_fused_adam(torch, dev)},
     }
-    torch.cuda.empty_cache()
-    records.update(kernel_flash(torch, dev))
-    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    records = {}
+    for name, run in groups.items():
+        group = run()
+        emit({"phase": "kernels", "group": name, "card": card, "kernels": list(group.values())})
+        records.update(group)
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": card, "seconds": time.perf_counter() - t0,
-          "kernels": list(records.values())})
-
+          "names": list(records)})
     t0 = time.perf_counter()
     rec, serve_launches = engine_phase(torch, dev, K, profile=args.profile)
     rec["card"] = card
@@ -1173,19 +1528,32 @@ def main(argv=None):
     emit(rec)
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    rec, train_launches = train_phase(torch, dev, K, profile=args.profile)
-    rec["card"] = card
-    rec["seconds"] = time.perf_counter() - t0
-    emit(rec)
-    print(f"train MFU {rec['mfu']:.4f} = flops_per_token {rec['flops_per_token']:.4g} x "
-          f"{rec['tok_s']:.1f} tok/s / {BF16_FLOPS:.4g} FLOP/s on {card}", flush=True)
+    # the dense-head / eager-AdamW leg first, then the fused configuration:
+    # one run prints both steps side by side. Each engine holds ~40 GB and is
+    # freed before the next.
+    train_launches = {}
+    for fused in (False, True):
+        t0 = time.perf_counter()
+        rec, launches = train_phase(torch, dev, K, profile=args.profile, fused=fused)
+        train_launches[fused] = launches
+        rec["card"] = card
+        rec["seconds"] = time.perf_counter() - t0
+        emit(rec)
+        print(f"{rec['phase']} MFU {rec['mfu']:.4f} = flops_per_token "
+              f"{rec['flops_per_token']:.4g} x {rec['tok_s']:.1f} tok/s / {BF16_FLOPS:.4g} FLOP/s "
+              f"on {card}", flush=True)
+        torch.cuda.empty_cache()
 
-    # serving kernels launch in the engine phase, training kernels in the
-    # train phase, and together they are every kernel
-    missing = [n for n in SERVE_KERNELS if serve_launches[n] <= 0]
-    missing += [n for n in TRAIN_KERNELS if train_launches[n] <= 0]
-    if missing or set(SERVE_KERNELS) | set(TRAIN_KERNELS) != set(K.KERNELS):
+    # serving kernels launch in the engine phase, training kernels in both
+    # train legs, the fused leg's four in the fused leg, and together they
+    # are every kernel
+    launched = {name: serve_launches[name] for name in SERVE_KERNELS}
+    launched.update({name: train_launches[False][name] for name in TRAIN_KERNELS
+                     if name not in SERVE_KERNELS})
+    launched.update({name: train_launches[True][name] for name in FUSED_KERNELS})
+    missing = [n for n, c in launched.items() if c <= 0]
+    missing += [n for n in TRAIN_KERNELS if train_launches[True][n] <= 0]
+    if missing or set(launched) != set(K.KERNELS):
         raise AssertionError(
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
             f"training {train_launches}, kernels {sorted(K.KERNELS)}")
@@ -1193,12 +1561,14 @@ def main(argv=None):
     kernels_line = []
     for name, k in K.KERNELS.items():
         rec = records[name]
+        phase = ("engine" if name in SERVE_KERNELS
+                 else "train_fused" if name in FUSED_KERNELS else "train")
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": str(k.source_path.relative_to(root)),
             "replaces": k.replaces,
-            "launches": (serve_launches if name in SERVE_KERNELS else train_launches)[name],
-            "launches_phase": "engine" if name in SERVE_KERNELS else "train",
+            "launches": launched[name],
+            "launches_phase": phase,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

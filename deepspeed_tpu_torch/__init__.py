@@ -9,8 +9,12 @@ the JAX package wrote in Pallas are hand-written CUDA C++ for Hopper
 The port trains and serves the dense decoder on one device:
 
   * train: ``initialize(model=make_loss_fn(cfg), model_parameters=params,
-    config=...)`` -> ``engine.train_batch(batch=...)``, with the flash
-    attention (forward, dq, dk/dv) and RMSNorm (forward, backward) kernels;
+    config=...)`` -> ``engine.train_batch(batch=...)`` (or ``forward`` /
+    ``backward`` / ``step``), with the flash attention (forward, dq, dk/dv)
+    and RMSNorm (forward, backward) kernels, and at the fused configuration
+    (``TransformerConfig(fused_ce=True)``, ``{"optimizer": {"type":
+    "FusedAdam"}}``) the fused LM head + cross-entropy (forward, dx, dW) and
+    FusedAdam kernels; npz checkpoints the JAX package reads and writes;
   * serve: ``inference.v2.engine_v2.InferenceEngineV2`` with the RMSNorm and
     paged-decode kernels.
 
@@ -42,12 +46,13 @@ def initialize(
 ):
     """Create a training engine on one device (the JAX package's
     ``initialize``). Returns ``(engine, optimizer, dataloader,
-    lr_scheduler)``; the dataloader is None.
+    lr_scheduler)``; the dataloader is a ``DeepSpeedDataLoader`` over
+    ``training_data`` (batches of ``train_batch_size`` examples), or None.
 
     ``model`` is a loss function ``loss_fn(params, batch) -> loss`` and
     ``model_parameters`` the nested dict of tensors it takes; the engine
     runs on their device. A mesh, tensor or pipeline parallelism above 1,
-    an mpu, training data and the hybrid engine raise
+    an mpu and the hybrid engine raise
     ``NotImplementedError`` (ROADMAP queue 1, item 6)."""
     import json
 
@@ -88,11 +93,6 @@ def initialize(
         raise later("pipeline parallelism > 1")
     if mpu is not None or param_specs is not None:
         raise later("an mpu / param_specs")
-    if training_data is not None or collate_fn is not None:
-        raise NotImplementedError(
-            "deepspeed_tpu_torch.initialize: training_data (the dataloader) is not ported "
-            "yet (ROADMAP queue 1, item 9); pass batches to train_batch"
-        )
     if (raw.get("hybrid_engine", {}) or {}).get("enabled"):
         raise NotImplementedError(
             "deepspeed_tpu_torch.initialize: the hybrid engine is not ported yet "
@@ -100,8 +100,9 @@ def initialize(
         )
     ds_config = DeepSpeedConfig.load(raw, dp_world_size=1)
     engine = DeepSpeedEngine(model, model_parameters, ds_config, optimizer=optimizer,
-                             lr_scheduler=lr_scheduler)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             lr_scheduler=lr_scheduler, training_data=training_data,
+                             collate_fn=collate_fn)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
 __all__ = ["__version__", "initialize", "log_dist", "logger"]

@@ -133,6 +133,31 @@ KERNELS: Dict[str, Kernel] = {
             [_P] * 9 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
             "deepspeed_tpu/ops/attention/flash_pallas.py:220",
         ),
+        Kernel(
+            "fused_ce_fwd", "fused_ce.cu", "dstt_fused_ce_fwd",
+            # x, w, labels, pm, pl, tgt, loss, lse, n, h, V, stream
+            [_P] * 8 + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/fused_ce.py:56",
+        ),
+        Kernel(
+            "fused_ce_dx", "fused_ce.cu", "dstt_fused_ce_dx",
+            # x, w, labels, lse, g, dx32, n, h, V, stream
+            [_P] * 6 + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/fused_ce.py:95",
+        ),
+        Kernel(
+            "fused_ce_dw", "fused_ce.cu", "dstt_fused_ce_dw",
+            # x, w, labels, lse, g, dw32, n, h, V, stream
+            [_P] * 6 + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/fused_ce.py:127",
+        ),
+        Kernel(
+            "fused_adam", "fused_adam.cu", "dstt_fused_adam",
+            # p, g, m, v, lowp, n, lr, b1, b2, 1-b1, 1-b2, eps, wd, c1, c2,
+            # adamw, bias_correction, lowp_kind, stream
+            [_P] * 5 + [ctypes.c_longlong] + [ctypes.c_float] * 9 + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/adam/fused_adam.py:55",
+        ),
     )
 }
 

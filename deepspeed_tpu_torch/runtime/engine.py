@@ -3,9 +3,13 @@
 Counterpart of ``deepspeed_tpu/runtime/engine.py``'s ``DeepSpeedEngine``
 for one device: precision, the optimizer and lr scheduler from the config,
 the fused ``train_batch`` (gradient accumulation, loss scaling, the grad
-epilogue, clipping, the optimizer step), ``eval_batch`` and the getters.
-The model is a loss function ``loss_fn(params, batch) -> loss`` over a
-nested dict of tensors (``models.transformer.make_loss_fn``).
+epilogue, clipping, the optimizer step), the imperative ``forward`` /
+``backward`` / ``step`` over the same pieces, ``eval_batch``, the getters,
+npz checkpoints (``save_checkpoint`` / ``load_checkpoint`` through the
+writers of ``runtime/checkpoint_engine``), the dataloader
+(``deepspeed_io``) and the wall-clock timers. The model is a loss function
+``loss_fn(params, batch) -> loss`` over a nested dict of tensors
+(``models.transformer.make_loss_fn``).
 
 How a step runs (the JAX package's ``train_step``, eagerly):
 
@@ -21,14 +25,23 @@ How a step runs (the JAX package's ``train_step``, eagerly):
   * an fp16 overflow skips the optimizer step, so params and optimizer
     state stay as they were, and the scaler adjusts.
 
+``forward`` computes one micro-batch's loss and grads in one pass and
+caches the grads, ``backward`` adds them into the fp32 buffers, ``step``
+counts the micro-step and, at the accumulation boundary, runs the same
+epilogue and update as ``train_batch``. A checkpoint holds the params, the
+optimizer state (masters, then the transform's fields in the JAX package's
+order), the scaler state and the counters, in the JAX package's archive
+layout, so each engine loads the other's.
+
 ZeRO stages 0-3 hold the same tensors on one device and train identically.
 Offload, weight streaming, ZenFlow, pipelines, curriculum learning, the
-flops profiler, monitors, checkpoints and the imperative
-``forward``/``backward``/``step`` raise ``NotImplementedError`` naming their
-ROADMAP items.
+flops profiler, monitors and the orbax checkpoint store (``checkpoint.writer``
+unset) raise ``NotImplementedError`` naming their ROADMAP items.
 """
 
+import contextlib
 import inspect
+import os
 from typing import Any, Callable
 
 import numpy as np
@@ -46,6 +59,14 @@ from deepspeed_tpu_torch.runtime.optimizers import (
     tree_map,
 )
 from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.timer import (
+    BACKWARD_GLOBAL_TIMER,
+    FORWARD_GLOBAL_TIMER,
+    STEP_GLOBAL_TIMER,
+    NoopTimer,
+    SynchronizedWallClockTimer,
+    ThroughputTimer,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -76,7 +97,6 @@ def _check_config(config: DeepSpeedConfig):
                                  config.comet, config.prometheus)),
          "monitors", "ROADMAP queue 1, item 5"),
         (config.comms_logger.enabled, "the comms logger", "ROADMAP queue 1, item 6"),
-        (config.wall_clock_breakdown, "wall_clock_breakdown timers", "ROADMAP queue 1, item 9"),
         (config.activation_checkpointing.partition_activations
          or config.activation_checkpointing.cpu_checkpointing,
          "partitioned / CPU activation checkpointing", "ROADMAP queue 1, item 6"),
@@ -104,10 +124,12 @@ def _snapshot_cast(params, dtype, device):
 
 class DeepSpeedEngine:
     def __init__(self, loss_fn: Callable, params: Any, config: DeepSpeedConfig,
-                 optimizer=None, lr_scheduler=None):
+                 optimizer=None, lr_scheduler=None, training_data=None, collate_fn=None):
         _check_config(config)
         self.config = config
         self.loss_fn = loss_fn
+        self.collate_fn = collate_fn
+        self.training_dataloader = None
         sig = inspect.signature(loss_fn).parameters if callable(loss_fn) else {}
         if len(sig) >= 3 or "rng" in sig:
             raise _later("loss functions that take an rng", "ROADMAP queue 1, item 3")
@@ -133,8 +155,25 @@ class DeepSpeedEngine:
         self.scaler_state = ls.init_state(self.scaler_cfg)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler, config)
 
+        self.micro_steps = 0
         self.global_steps = 0
+        self.global_samples = 0
         self.skipped_steps = 0
+        self._boundary_override = None
+        self._train_mode = True
+        self._pending_grads = None
+        self._acc_grads = None
+        self._ckpt_writer = None
+        self._ckpt_pending = None
+        self.wall_clock_breakdown = config.wall_clock_breakdown
+        self.timers = SynchronizedWallClockTimer() if self.wall_clock_breakdown else NoopTimer()
+        self.tput_timer = ThroughputTimer(
+            config=type("C", (), {"enabled": True})(),
+            batch_size=config.train_batch_size,
+            steps_per_output=config.steps_per_print,
+        )
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(training_data)
         self._last_loss = None
         self._last_grad_norm = None
         self._last_overflow = None
@@ -216,6 +255,33 @@ class DeepSpeedEngine:
     def module(self):
         return self.loss_fn
 
+    def is_gradient_accumulation_boundary(self):
+        if self._boundary_override is not None:
+            return self._boundary_override
+        return (self.micro_steps + 1) % self.config.gradient_accumulation_steps == 0
+
+    def set_gradient_accumulation_boundary(self, is_boundary):
+        self._boundary_override = is_boundary
+
+    @contextlib.contextmanager
+    def no_sync(self):
+        """Grads accumulate locally until a boundary step anyway; this
+        context just forces the boundary off."""
+        prev = self._boundary_override
+        self._boundary_override = False
+        try:
+            yield
+        finally:
+            self._boundary_override = prev
+
+    def train(self, mode=True):
+        self._train_mode = mode
+        return self
+
+    def eval(self):
+        self._train_mode = False
+        return self
+
     def _current_lr(self):
         if self.lr_scheduler is not None:
             try:
@@ -254,28 +320,34 @@ class DeepSpeedEngine:
         out = self.loss_fn(params, batch)
         return out[0] if isinstance(out, tuple) else out
 
-    def _train_step(self, stacked):
+    def _scale(self):
+        use_scale = self.scaler_cfg.dynamic or self.scaler_cfg.init_scale != 1.0
+        return float(self.scaler_state.scale) if use_scale else 1.0
+
+    def _micro_grads(self, mb, scale):
+        """One micro-batch: (loss, grads of loss * scale), in one pass."""
+        loss = self._loss(self.params, mb)
+        scaled = (loss * torch.tensor(scale, dtype=loss.dtype)).float()
+        grads = torch.autograd.grad(scaled, self._param_list, allow_unused=True)
+        return scaled.detach() / scale, grads
+
+    def _accumulate(self, acc, grads):
+        """Add a micro-batch's grads into the fp32 buffers (made on first use)."""
+        if acc is None:
+            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                           self.params)
+        for (_, a), g in zip(_leaves(acc), grads):
+            if g is not None:
+                a.add_(g)
+        return acc
+
+    def _grad_epilogue(self, acc, scale):
+        """Accumulated grads -> (grads, overflow, grad_norm): unscale by
+        1 / (gas * scale), check overflow, sanitize, clip."""
         gas = self.config.gradient_accumulation_steps
         clip = self.config.gradient_clipping
         check_overflow, monitor_norm = self._grad_epilogue_flags()
-        use_scale = self.scaler_cfg.dynamic or self.scaler_cfg.init_scale != 1.0
-        scale = float(self.scaler_state.scale) if use_scale else 1.0
-
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                       self.params)
         acc_list = [a for _, a in _leaves(acc)]
-        losses = []
-        for i in range(gas):
-            mb = {k: v[i] for k, v in stacked.items()}
-            loss = self._loss(self.params, mb)
-            scaled = (loss * torch.tensor(scale, dtype=loss.dtype)).float()
-            grads = torch.autograd.grad(scaled, self._param_list, allow_unused=True)
-            for a, g in zip(acc_list, grads):
-                if g is not None:
-                    a.add_(g)
-            del grads
-            losses.append(scaled.detach() / scale)
-
         with torch.no_grad():
             inv = float(np.float32(1.0) / (np.float32(gas) * np.float32(scale)))
             for a in acc_list:
@@ -290,7 +362,18 @@ class DeepSpeedEngine:
                 grad_norm = global_grad_norm(acc)
             else:
                 grad_norm = torch.full((), float("nan"))
-            return acc, overflow, grad_norm, torch.stack(losses).mean()
+        return acc, overflow, grad_norm
+
+    def _apply(self, acc, scale):
+        """The update shared by ``train_batch`` and ``step``: the lr for
+        this step, the epilogue, the optimizer step (skipped on an
+        overflow) and the scaler. Returns (grad_norm, overflow)."""
+        lr = self._lr_for_step()
+        grads, overflow, grad_norm = self._grad_epilogue(acc, scale)
+        if not overflow:
+            self.opt_state = self.optimizer.step(grads, self.opt_state, self.params, lr)
+        self.scaler_state = ls.update_state(self.scaler_cfg, self.scaler_state, overflow)
+        return grad_norm, overflow
 
     def train_batch(self, data_iter=None, batch=None):
         """Fused full step: gas micro-batches -> grads -> update. Returns the
@@ -298,14 +381,64 @@ class DeepSpeedEngine:
         if (data_iter is None) == (batch is None):
             raise ValueError("pass exactly one of data_iter/batch")
         stacked = self._stack_batch(data_iter if data_iter is not None else batch)
-        lr = self._lr_for_step()
-        grads, overflow, grad_norm, loss = self._train_step(stacked)
-        if not overflow:
-            self.opt_state = self.optimizer.step(grads, self.opt_state, self.params, lr)
-        del grads
-        self.scaler_state = ls.update_state(self.scaler_cfg, self.scaler_state, overflow)
+        self.tput_timer.start()
+        self.timers(STEP_GLOBAL_TIMER).start()
+        scale = self._scale()
+        acc, losses = None, []
+        for i in range(self.config.gradient_accumulation_steps):
+            loss, grads = self._micro_grads({k: v[i] for k, v in stacked.items()}, scale)
+            acc = self._accumulate(acc, grads)
+            del grads
+            losses.append(loss)
+        grad_norm, overflow = self._apply(acc, scale)
+        del acc
+        self.timers(STEP_GLOBAL_TIMER).stop()
+        loss = torch.stack(losses).mean()
         self._after_step(loss, grad_norm, overflow)
+        self.tput_timer.stop(global_step=True)
         return loss
+
+    # ------------------------------------------------------------------
+    # the imperative API
+    # ------------------------------------------------------------------
+    def forward(self, batch):
+        """The loss of one micro-batch; its grads are computed in the same
+        pass and cached for ``backward()`` (no second forward)."""
+        self.timers(FORWARD_GLOBAL_TIMER).start()
+        mb = {k: torch.as_tensor(v if isinstance(v, torch.Tensor) else np.asarray(v)).to(
+            self.device) for k, v in batch.items()}
+        loss, self._pending_grads = self._micro_grads(mb, self._scale())
+        self.timers(FORWARD_GLOBAL_TIMER).stop()
+        self._last_loss = loss
+        return loss
+
+    __call__ = forward
+
+    def backward(self, loss=None, retain_graph=False, scale_wrt_gas=True):
+        """Accumulate the cached grads into the fp32 buffers."""
+        if self._pending_grads is None:
+            raise RuntimeError("call forward() before backward()")
+        self.timers(BACKWARD_GLOBAL_TIMER).start()
+        grads, self._pending_grads = self._pending_grads, None
+        self._acc_grads = self._accumulate(self._acc_grads, grads)
+        self.timers(BACKWARD_GLOBAL_TIMER).stop()
+        return loss
+
+    def step(self, lr_kwargs=None):
+        """Count the micro-step; at a gradient-accumulation boundary, update."""
+        boundary = self.is_gradient_accumulation_boundary()
+        self.micro_steps += 1
+        self.global_samples += self.config.train_micro_batch_size_per_gpu
+        if not boundary:
+            return
+        if self._acc_grads is None:
+            raise RuntimeError("step() with no accumulated gradients")
+        self.timers(STEP_GLOBAL_TIMER).start()
+        acc, self._acc_grads = self._acc_grads, None
+        grad_norm, overflow = self._apply(acc, self._scale())
+        del acc
+        self.timers(STEP_GLOBAL_TIMER).stop()
+        self._after_step(self._last_loss, grad_norm, overflow)
 
     def _lr_for_step(self):
         if self.lr_scheduler is not None:
@@ -328,6 +461,9 @@ class DeepSpeedEngine:
                 + (" OVERFLOW-SKIPPED" if overflow else ""),
                 ranks=[0],
             )
+        if (self.wall_clock_breakdown and self.config.steps_per_print
+                and self.global_steps % self.config.steps_per_print == 0):
+            self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])
 
     def eval_batch(self, batch):
         """The loss of one batch (no grads, no update)."""
@@ -337,20 +473,173 @@ class DeepSpeedEngine:
             return self._loss(self.params, batch)
 
     # ------------------------------------------------------------------
-    # not in this slice
+    # dataloader
     # ------------------------------------------------------------------
-    def forward(self, *a, **k):
-        raise _later("the imperative forward/backward/step API (use train_batch)",
-                     "ROADMAP queue 1, item 3")
+    def deepspeed_io(self, dataset, batch_size=None, route="train", data_sampler=None,
+                     collate_fn=None, num_local_io_workers=None):
+        from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 
-    __call__ = forward
-    backward = forward
-    step = forward
+        return DeepSpeedDataLoader(
+            dataset,
+            batch_size=batch_size or self.config.train_batch_size,
+            collate_fn=collate_fn or self.collate_fn,
+            seed=self.config.seed,
+        )
 
-    def save_checkpoint(self, *a, **k):
-        raise _later("checkpoints", "ROADMAP queue 1, item 8")
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def _client_state(self):
+        return {
+            "micro_steps": self.micro_steps,
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if hasattr(self.lr_scheduler, "state_dict") else None),
+        }
 
-    load_checkpoint = save_checkpoint
+    def _checkpoint_writer(self):
+        writer = self.config.checkpoint.writer
+        if not writer:
+            raise _later("the orbax checkpoint store (set checkpoint.writer to 'sync', "
+                         "'async' or 'decoupled' for the npz writers)", "ROADMAP queue 1, item 8")
+        if self._ckpt_writer is None:
+            from deepspeed_tpu_torch.runtime.checkpoint_engine import create_checkpoint_engine
+
+            self._ckpt_writer = create_checkpoint_engine(writer)
+        return self._ckpt_writer
+
+    def checkpoint_commit(self):
+        """Join outstanding async checkpoint writes and publish their tag
+        (two-phase commit). A failed commit DROPS the pending tag: 'latest'
+        must never name a checkpoint that did not land."""
+        if self._ckpt_pending is None:
+            return
+        save_dir, tag, save_latest = self._ckpt_pending
+        self._ckpt_pending = None  # even on failure: never re-publish a failed tag
+        self._ckpt_writer.commit(tag)  # raises if any write failed
+        if save_latest:
+            with open(os.path.join(save_dir, "latest"), "w") as f:
+                f.write(tag)
+
+    def _opt_state_payload(self):
+        """The optimizer state as nested tuples whose leaves flatten in the
+        JAX package's order: the masters, then the transform's fields."""
+        inner = self.opt_state.inner
+        fields = getattr(self.optimizer.tx, "state_fields", tuple(inner))
+        return (self.opt_state.master, tuple(
+            inner[f] if isinstance(inner[f], (dict, torch.Tensor)) else np.int32(inner[f])
+            for f in fields))
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        tag = tag or f"global_step{self.global_steps}"
+        state = self._client_state()
+        state.update(client_state or {})
+        eng = self._checkpoint_writer()
+        # an async writer returns after the device -> host snapshot; the
+        # PREVIOUS save publishes here and a final checkpoint_commit()
+        # publishes the last one
+        self.checkpoint_commit()
+        eng.create(tag)
+        os.makedirs(save_dir, exist_ok=True)
+        sc = self.scaler_state
+        eng.save(
+            {
+                "params": self.params,
+                "opt_state": self._opt_state_payload(),
+                "scaler_state": (np.float32(sc.scale), np.int32(sc.good_steps),
+                                 np.int32(sc.hysteresis)),
+                "__meta__": state,
+            },
+            os.path.join(save_dir, tag, "state"),
+        )
+        self._ckpt_pending = (save_dir, tag, save_latest)
+        if self.config.checkpoint.writer in ("sync", "torch"):
+            self.checkpoint_commit()
+        return True
+
+    @torch.no_grad()
+    def _restore_tree(self, template, loaded, what):
+        """Order-based restore: the writer serialized leaves in tree-flatten
+        order, so copy them back into the template's tensors in place.
+        Returns the loaded values of the template's non-tensor leaves."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+            numpy_to_tensor,
+            tree_leaves,
+        )
+
+        slots = tree_leaves(template)
+        if len(slots) != len(loaded):
+            raise ValueError(f"checkpoint {what} leaf count {len(loaded)} != "
+                             f"template leaf count {len(slots)}")
+        scalars = []
+        for t, l in zip(slots, loaded):
+            if not isinstance(t, torch.Tensor):
+                scalars.append(np.asarray(l).item())
+                continue
+            if tuple(t.shape) != tuple(l.shape):
+                raise ValueError(f"checkpoint {what} leaf shape {tuple(l.shape)} != "
+                                 f"template shape {tuple(t.shape)}")
+            t.copy_(numpy_to_tensor(l))
+        return scalars
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True, load_lr_scheduler_states=True,
+                        load_module_only=False, custom_load_fn=None):
+        eng = self._checkpoint_writer()
+        self.checkpoint_commit()  # a just-written tag must be readable
+        if tag is None:
+            latest = os.path.join(load_dir, "latest")
+            if not os.path.isfile(latest):
+                return None, {}
+            with open(latest) as f:
+                tag = f.read().strip()
+        data = eng.load(os.path.join(load_dir, tag, "state"))
+        self._restore_tree(self.params, data["params"], "params")
+        if load_optimizer_states and not load_module_only and "opt_state" in data:
+            scalars = self._restore_tree(self._opt_state_payload(), data["opt_state"],
+                                         "opt_state")
+            inner = dict(self.opt_state.inner)
+            counts = [k for k in getattr(self.optimizer.tx, "state_fields", tuple(inner))
+                      if not isinstance(inner[k], (dict, torch.Tensor))]
+            inner.update({k: int(v) for k, v in zip(counts, scalars)})
+            self.opt_state = self.opt_state._replace(inner=inner)
+        if "scaler_state" in data and not load_module_only:
+            scale, good, hyst = (np.asarray(x).item() for x in data["scaler_state"])
+            self.scaler_state = ls.LossScaleState(float(scale), int(good), int(hyst))
+        client_state = data.get("__meta__", {})
+        self._restore_client_state(client_state, load_module_only, load_lr_scheduler_states)
+        return os.path.join(load_dir, tag), client_state
+
+    def _restore_client_state(self, client_state, load_module_only, load_lr_scheduler_states):
+        if load_module_only:
+            return
+        self.micro_steps = client_state.get("micro_steps", 0)
+        self.global_steps = client_state.get("global_steps", 0)
+        self.global_samples = client_state.get("global_samples", 0)
+        self.skipped_steps = client_state.get("skipped_steps", 0)
+        sched_sd = client_state.get("lr_scheduler")
+        if load_lr_scheduler_states and sched_sd and hasattr(self.lr_scheduler, "load_state_dict"):
+            self.lr_scheduler.load_state_dict(sched_sd)
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",
+                         exclude_frozen_parameters=False):
+        """Consolidated export of the params in their compute dtype: one
+        ``.npz`` with dotted names (bf16 leaves as 2-byte void entries)."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+            tensor_to_numpy,
+        )
+
+        os.makedirs(save_dir, exist_ok=True)
+        flat = {name.replace("/", "."): tensor_to_numpy(t) for name, t in _leaves(self.params)}
+        name = (save_filename.replace(".bin", ".npz") if save_filename.endswith(".bin")
+                else save_filename)
+        out = os.path.join(save_dir, name)
+        np.savez(out, **flat)
+        log_dist(f"Saved 16-bit model to {out}", ranks=[0])
+        return out
 
 
 __all__ = ["DeepSpeedEngine"]

@@ -2,27 +2,38 @@
 
 Counterpart of ``deepspeed_tpu/runtime/optimizers.py``: a
 :class:`DeepSpeedOptimizer` keeps an fp32 master copy of the (possibly
-bf16/fp16) model params and its moments; ``step`` consumes fp32 grads and
-writes new half-precision params from the masters (never a half-precision
-delta added to half-precision params).
+bf16/fp16) model params and an inner transform's state; ``step`` consumes
+fp32 grads and writes new half-precision params from the masters (never a
+half-precision delta added to half-precision params).
 
-Adam and AdamW follow the JAX package's optax chain in optax's order of
-operations, written with plain torch:
+The transforms, one class each, follow the JAX package's choices:
 
-    mu = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g^2 + b2 * nu
-    u  = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
-    u  = u + wd * master                      (AdamW's decoupled decay)
-    master = master + (-u) * lr               (scale by -1, then by lr)
+  * ``FusedAdam``: ``ops/adam/fused_adam.py`` (the CUDA kernel on a card),
+    in ``_adam_math``'s order of operations. The JAX engine forms ``master +
+    (p_new - master)``; the port writes ``p_new`` and the half-precision
+    param in the same pass, a difference of at most one fp32 ulp.
+  * Adam / AdamW / DeepSpeedCPUAdam, Lamb / FusedLamb, Lion / FusedLion,
+    Adagrad, SGD: plain torch in optax's order of operations (they are plain
+    optax in the JAX package, so no kernel). For Adam and AdamW:
 
-(``torch.optim.AdamW`` folds the decay and the lr in another order and
-rounds differently.) Adam with ``adam_w_mode=False`` adds ``wd * master`` to
-the gradient first, as ``optax.chain(add_decayed_weights, adam)``.
+        mu = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g^2 + b2 * nu
+        u  = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+        u  = u + wd * master                      (AdamW's decoupled decay)
+        master = master + (-u) * lr               (scale by -1, then by lr)
 
-The port runs eagerly, so ``step`` updates the masters, the moments and the
-params in place, one leaf at a time (no whole-model temporaries); the
+    (``torch.optim.AdamW`` folds the decay and the lr in another order and
+    rounds differently.) Adam with ``adam_w_mode=False`` adds ``wd *
+    master`` to the gradient first, as ``optax.chain(add_decayed_weights,
+    adam)``; SGD with decay likewise.
+  * Muon: ``ops/muon.py`` (Newton-Schulz on 2-D leaves, Adam elsewhere).
+
+The port runs eagerly, so ``step`` updates the masters, the inner state and
+the params in place, one leaf at a time (no whole-model temporaries); the
 engine skips it on an fp16 overflow, which leaves everything unchanged.
-FusedAdam (its Pallas kernel), Lamb, Lion, Adagrad, SGD, Muon and the 1-bit
-family raise ``NotImplementedError``.
+Each transform names its state's fields in the order the JAX package's
+state flattens (``state_fields``), which is the order of a checkpoint's
+entries. The 1-bit family and ``zenflowselectiveadam`` raise
+``NotImplementedError``.
 """
 
 from typing import Any, Dict, NamedTuple
@@ -31,16 +42,20 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.utils.tree import leaves as _leaves, tree_map
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
+FUSED_ADAM = "fusedadam"
 CPU_ADAM = "deepspeedcpuadam"
+LAMB_OPTIMIZER = "lamb"
+FUSED_LAMB = "fusedlamb"
+LION_OPTIMIZER = "lion"
+FUSED_LION = "fusedlion"
+ADAGRAD_OPTIMIZER = "adagrad"
+SGD_OPTIMIZER = "sgd"
+MUON_OPTIMIZER = "muon"
 _LATER = {
-    "fusedadam": "ROADMAP queue 2, item 7: the FusedAdam kernel",
-    "lamb": "ROADMAP queue 1, item 3", "fusedlamb": "ROADMAP queue 1, item 3",
-    "lion": "ROADMAP queue 1, item 3", "fusedlion": "ROADMAP queue 1, item 3",
-    "adagrad": "ROADMAP queue 1, item 3", "sgd": "ROADMAP queue 1, item 3",
-    "muon": "ROADMAP queue 1, item 3",
     "onebitadam": "ROADMAP queue 1, item 6", "zerooneadam": "ROADMAP queue 1, item 6",
     "onebitlamb": "ROADMAP queue 1, item 6", "zenflowselectiveadam": "ROADMAP queue 1, item 7",
 }
@@ -48,63 +63,58 @@ _LATER = {
 
 class OptState(NamedTuple):
     master: Dict[str, Any]  # fp32 master params, the params' tree
-    inner: Dict[str, Any]  # {"count": int, "mu": tree, "nu": tree}
+    inner: Dict[str, Any]  # the transform's state, e.g. {"count": int, "mu": tree, "nu": tree}
 
 
-def _leaves(tree, prefix=""):
-    """(path, tensor) pairs of a nested dict, in insertion order."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + k + "/")
-        else:
-            yield prefix + k, v
+def _bias_corrections(b1, b2, count):
+    """1 - decay ** count in fp32, as optax computes them."""
+    return (float(np.float32(1) - np.float32(b1) ** np.float32(count)),
+            float(np.float32(1) - np.float32(b2) ** np.float32(count)))
 
 
-def tree_map(fn, tree, *rest):
-    return {
-        k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-        else fn(v, *(r[k] for r in rest))
-        for k, v in tree.items()
-    }
+def _zeros(master):
+    return tree_map(torch.zeros_like, master)
 
 
-class DeepSpeedOptimizer:
-    """Adam/AdamW over fp32 masters. ``step(grads_fp32, state, params, lr)``."""
+class _Transform:
+    """An inner optimizer: ``init(master) -> state`` (a dict) and
+    ``step(grads, state, master, lr, params) -> state``, in place on the
+    masters and the state's tensors; ``params`` (the model's copies) are
+    rewritten from the masters."""
 
-    def __init__(self, name: str, defaults: dict, adamw: bool = True):
-        self.name = name
-        self.defaults = dict(defaults)
-        self.adamw = adamw
-        self._lr = defaults.get("lr", 1e-3)
+    state_fields = ()
 
-    def set_lr(self, lr):
-        self._lr = lr
+    def init(self, master):
+        raise NotImplementedError
 
-    def get_lr(self):
-        return self._lr
+    def step(self, grads, state, master, lr, params):
+        raise NotImplementedError
 
-    def init(self, params) -> OptState:
-        master = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
-        zeros = lambda m: torch.zeros_like(m)  # noqa: E731
-        return OptState(master=master, inner={"count": 0, "mu": tree_map(zeros, master),
-                                              "nu": tree_map(zeros, master)})
+    @staticmethod
+    def _write_params(master, params):
+        for (_, m), (_, p) in zip(_leaves(master), _leaves(params)):
+            if p is not m:
+                p.copy_(m)
 
-    @torch.no_grad()
-    def step(self, grads, state: OptState, params, lr) -> OptState:
-        """One update in place: masters, moments and the params (rounded
-        from the masters to their own dtype). ``grads`` fp32, the params'
-        tree."""
-        d = self.defaults
-        b1, b2 = (float(x) for x in d["betas"])
-        eps, wd = float(d["eps"]), float(d["weight_decay"])
-        count = state.inner["count"] + 1
-        # bias corrections in fp32, as optax computes 1 - decay ** count
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        lr = float(np.float32(lr))
+
+class _Adam(_Transform):
+    """optax.adamw, or optax.adam behind add_decayed_weights."""
+
+    state_fields = ("count", "mu", "nu")
+
+    def __init__(self, b1, b2, eps, wd, adamw):
+        self.b1, self.b2, self.eps, self.wd, self.adamw = b1, b2, eps, wd, adamw
+
+    def init(self, master):
+        return {"count": 0, "mu": _zeros(master), "nu": _zeros(master)}
+
+    def step(self, grads, state, master, lr, params):
+        b1, b2, eps, wd = self.b1, self.b2, self.eps, self.wd
+        count = state["count"] + 1
+        bc1, bc2 = _bias_corrections(b1, b2, count)
         for (_, m), (_, g), (_, mu), (_, nu), (_, p) in zip(
-            _leaves(state.master), _leaves(grads), _leaves(state.inner["mu"]),
-            _leaves(state.inner["nu"]), _leaves(params),
+            _leaves(master), _leaves(grads), _leaves(state["mu"]), _leaves(state["nu"]),
+            _leaves(params),
         ):
             g = g.float()
             if wd and not self.adamw:
@@ -115,13 +125,170 @@ class DeepSpeedOptimizer:
             if wd and self.adamw:
                 u.add_(m * wd)
             m.add_(u.neg_().mul_(lr))
-            p.copy_(m)
-        return OptState(master=state.master, inner=dict(state.inner, count=count))
+            if p is not m:
+                p.copy_(m)
+        return dict(state, count=count)
+
+
+class _FusedAdam(_Transform):
+    """``ops.adam.FusedAdam``: the kernel writes masters, moments and the
+    half-precision params in one pass."""
+
+    state_fields = ("m", "v", "count")
+
+    def __init__(self, fused):
+        self.fused = fused
+
+    def init(self, master):
+        return self.fused.init(master)
+
+    def step(self, grads, state, master, lr, params):
+        return self.fused.step(grads, state, master, lr, params=params)
+
+
+class _Lamb(_Transform):
+    """optax.lamb: scale_by_adam, add_decayed_weights, scale_by_trust_ratio
+    (per leaf: |param| / |update|, 1 when either norm is 0)."""
+
+    state_fields = ("count", "mu", "nu")
+
+    def __init__(self, b1, b2, eps, wd):
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, wd
+
+    init = _Adam.init
+
+    def step(self, grads, state, master, lr, params):
+        b1, b2 = self.b1, self.b2
+        count = state["count"] + 1
+        bc1, bc2 = _bias_corrections(b1, b2, count)
+        for (_, m), (_, g), (_, mu), (_, nu) in zip(
+            _leaves(master), _leaves(grads), _leaves(state["mu"]), _leaves(state["nu"]),
+        ):
+            g = g.float()
+            mu.mul_(b1).add_(g * (1 - b1))
+            nu.mul_(b2).add_(g.square() * (1 - b2))
+            u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
+            if self.wd:
+                u.add_(m * self.wd)
+            p_norm, u_norm = torch.linalg.vector_norm(m), torch.linalg.vector_norm(u)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                p_norm / u_norm)
+            m.add_(u.mul_(ratio).neg_().mul_(lr))
+        self._write_params(master, params)
+        return dict(state, count=count)
+
+
+class _Lion(_Transform):
+    """optax.lion: sign((1 - b1) g + b1 mu), then mu = (1 - b2) g + b2 mu."""
+
+    state_fields = ("count", "mu")
+
+    def __init__(self, b1, b2, wd):
+        self.b1, self.b2, self.wd = b1, b2, wd
+
+    def init(self, master):
+        return {"count": 0, "mu": _zeros(master)}
+
+    def step(self, grads, state, master, lr, params):
+        b1, b2 = self.b1, self.b2
+        for (_, m), (_, g), (_, mu) in zip(_leaves(master), _leaves(grads),
+                                           _leaves(state["mu"])):
+            g = g.float()
+            u = torch.sign((1.0 - b1) * g + b1 * mu)
+            mu.mul_(b2).add_((1 - b2) * g)
+            if self.wd:
+                u.add_(m * self.wd)
+            m.add_(u.neg_().mul_(lr))
+        self._write_params(master, params)
+        return dict(state, count=state["count"] + 1)
+
+
+class _Adagrad(_Transform):
+    """optax.adagrad: sum of squares from 0.1, update g * rsqrt(sum + eps)."""
+
+    state_fields = ("sum_of_squares",)
+
+    def __init__(self, eps, initial_accumulator_value=0.1):
+        self.eps, self.init_value = eps, initial_accumulator_value
+
+    def init(self, master):
+        return {"sum_of_squares": tree_map(lambda m: torch.full_like(m, self.init_value), master)}
+
+    def step(self, grads, state, master, lr, params):
+        for (_, m), (_, g), (_, ss) in zip(_leaves(master), _leaves(grads),
+                                           _leaves(state["sum_of_squares"])):
+            g = g.float()
+            ss.add_(g.square())
+            inv = torch.where(ss > 0, torch.rsqrt(ss + self.eps), torch.zeros_like(ss))
+            m.add_((inv * g).neg_().mul_(lr))
+        self._write_params(master, params)
+        return state
+
+
+class _SGD(_Transform):
+    """optax.sgd (a momentum trace, optionally Nesterov) behind
+    add_decayed_weights."""
+
+    def __init__(self, momentum, nesterov, wd):
+        self.momentum, self.nesterov, self.wd = momentum, nesterov, wd
+        self.state_fields = ("trace",) if momentum else ()
+
+    def init(self, master):
+        return {"trace": _zeros(master)} if self.momentum else {}
+
+    def step(self, grads, state, master, lr, params):
+        traces = _leaves(state["trace"]) if self.momentum else ((None, None) for _ in iter(int, 1))
+        for (_, m), (_, g), (_, tr) in zip(_leaves(master), _leaves(grads), traces):
+            u = g.float()
+            if self.wd:
+                u = u + self.wd * m
+            if self.momentum:
+                tr.mul_(self.momentum).add_(u)
+                u = u + self.momentum * tr if self.nesterov else tr.clone()
+            elif u is g:
+                u = u.clone()
+            m.add_(u.neg_().mul_(lr))
+        self._write_params(master, params)
+        return state
+
+
+class DeepSpeedOptimizer:
+    """An inner transform over fp32 masters.
+    ``step(grads_fp32, state, params, lr) -> state``."""
+
+    def __init__(self, tx: _Transform, name: str, defaults: dict):
+        self.tx = tx
+        self.name = name
+        self.defaults = dict(defaults)
+        self._lr = defaults.get("lr", 1e-3)
+
+    def set_lr(self, lr):
+        self._lr = lr
+
+    def get_lr(self):
+        return self._lr
+
+    @property
+    def param_groups(self):
+        return [{"lr": self._lr, **self.defaults}]
+
+    def init(self, params) -> OptState:
+        master = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
+        return OptState(master=master, inner=self.tx.init(master))
+
+    @torch.no_grad()
+    def step(self, grads, state: OptState, params, lr) -> OptState:
+        """One update in place: masters, inner state and the params
+        (rounded from the masters to their own dtype). ``grads`` fp32, the
+        params' tree."""
+        lr = float(np.float32(lr))
+        inner = self.tx.step(grads, state.inner, state.master, lr, params)
+        return OptState(master=state.master, inner=inner)
 
 
 def build_optimizer(opt_config) -> DeepSpeedOptimizer:
     """Map a DeepSpeed ``optimizer`` config section to a DeepSpeedOptimizer
-    (Adam/AdamW/DeepSpeedCPUAdam as AdamW or Adam; others raise)."""
+    (the JAX package's ``build_optimizer``; the 1-bit family raises)."""
     name = (opt_config.type or ADAMW_OPTIMIZER).lower()
     params = dict(opt_config.params or {})
     lr = params.pop("lr", 1e-3)
@@ -129,17 +296,46 @@ def build_optimizer(opt_config) -> DeepSpeedOptimizer:
     betas = tuple(params.pop("betas", (0.9, 0.999)))
     eps = params.pop("eps", 1e-8)
     adam_w_mode = params.pop("adam_w_mode", True)
+    momentum = params.pop("momentum", 0.0)
     if name in _LATER:
         raise NotImplementedError(f"optimizer {opt_config.type!r} is not ported yet ({_LATER[name]})")
-    if name not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, CPU_ADAM):
+    if name == FUSED_ADAM:
+        from deepspeed_tpu_torch.ops.adam import FusedAdam
+
+        tx = _FusedAdam(FusedAdam(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                                  adam_w_mode=adam_w_mode,
+                                  bias_correction=params.pop("bias_correction", True)))
+        canonical = "fused_adam"
+    elif name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, CPU_ADAM):
+        is_adamw = name == ADAMW_OPTIMIZER or adam_w_mode
+        tx = _Adam(float(betas[0]), float(betas[1]), float(eps), float(weight_decay), is_adamw)
+        canonical = "adamw" if is_adamw else "adam"
+    elif name in (LAMB_OPTIMIZER, FUSED_LAMB):
+        tx = _Lamb(float(betas[0]), float(betas[1]), float(eps), float(weight_decay))
+        canonical = "lamb"
+    elif name in (LION_OPTIMIZER, FUSED_LION):
+        b = betas if len(betas) == 2 else (0.9, 0.99)
+        tx = _Lion(float(b[0]), float(b[1]), float(weight_decay))
+        canonical = "lion"
+    elif name == ADAGRAD_OPTIMIZER:
+        tx = _Adagrad(max(float(eps), 1e-10))
+        canonical = "adagrad"
+    elif name == SGD_OPTIMIZER:
+        tx = _SGD(float(momentum or 0.0), bool(params.pop("nesterov", False)), float(weight_decay))
+        canonical = "sgd"
+    elif name == MUON_OPTIMIZER:
+        from deepspeed_tpu_torch.ops.muon import MuonTransform
+
+        # the JAX package pops "momentum" once (above, default 0.0) and
+        # again for Muon's beta, which therefore always takes its default
+        tx = MuonTransform(beta=params.pop("momentum", 0.95), weight_decay=weight_decay,
+                           adam_betas=betas, eps=eps)
+        canonical = "muon"
+    else:
         raise ValueError(f"Unknown optimizer type {opt_config.type}")
-    is_adamw = name == ADAMW_OPTIMIZER or adam_w_mode
-    canonical = "adamw" if is_adamw else "adam"
     logger.info(f"Using optimizer: {canonical} (lr={lr}, wd={weight_decay})")
     return DeepSpeedOptimizer(
-        canonical, {"lr": lr, "betas": betas, "eps": eps, "weight_decay": weight_decay},
-        adamw=is_adamw,
-    )
+        tx, canonical, {"lr": lr, "betas": betas, "eps": eps, "weight_decay": weight_decay})
 
 
 def global_grad_norm(grads) -> torch.Tensor:

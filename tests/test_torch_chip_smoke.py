@@ -126,7 +126,62 @@ def test_train_phase_runs_end_to_end_on_cpu(one_thread):
     assert rec["launches_per_optimizer_step"] == {
         "flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4, "rms_norm_fwd": 10,
         "rms_norm_bwd": 10}
-    assert set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS) == set(K.KERNELS)
+    assert rec["phase"] == "train" and "checkpoint" not in rec
+    assert (set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS)
+            | set(chip_smoke.FUSED_KERNELS)) == set(K.KERNELS)
+
+
+def test_train_fused_phase_runs_end_to_end_on_cpu(one_thread):
+    """The fused leg at 2 tiny layers: ``fused_ce=True`` and FusedAdam take
+    their plain versions on CPU tensors, so the parity leg (against the
+    dense head's autograd) agrees to fp32 rounding, the optimizer step is
+    the plain math, and the checkpoint reload continues bit for bit."""
+    widths = dict(hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                  vocab_size=520, dtype="float32", attention_impl="flash")
+    rec, launches = chip_smoke.train_phase(torch, torch.device("cpu"), K, widths=widths,
+                                           seq=64, layers=2, parity_layers=2, fused=True,
+                                           timed_steps=2)
+    json.dumps(rec)
+    assert rec["phase"] == "train_fused"
+    assert launches == {name: 0 for name in K.KERNELS}
+    par = rec["parity"]
+    assert par["loss_abs_diff"] < 1e-5
+    assert max(par["grad_rel_frobenius"].values()) < 1e-4
+    assert par["control_rel_frobenius_min"] > chip_smoke.PARITY_CONTROL_MIN
+    assert par["adam_step_max_abs_err"] == 0.0  # the same plain math on both sides
+    assert par["fixed_batch_losses"][-1] < par["fixed_batch_losses"][0]
+    ck = rec["checkpoint"]
+    assert ck["loss_after_reload"] == ck["loss_uninterrupted"] and ck["global_steps"] == 9
+    assert len(rec["losses"]) == 3
+    # gas 2, 2 layers; five leaves have at least 65536 elements: the
+    # embedding and the head (520 x 128) and the three stacked MLP weights
+    # (2 x 128 x 256)
+    assert rec["launches_per_optimizer_step"] == {
+        "flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4, "rms_norm_fwd": 10,
+        "rms_norm_bwd": 10, "fused_ce_fwd": 2, "fused_ce_dx": 2, "fused_ce_dw": 2,
+        "fused_adam": 5}
+
+
+def test_fused_kernel_checks_run_on_plain_inputs():
+    """The kernels phase's fused-CE inputs and its tile measure: the plain
+    backward against autograd of the dense loss passes the tile check, and a
+    3% error on a late tile of dW does not."""
+    from deepspeed_tpu_torch.ops import fused_ce as C
+
+    x, w, labels, g = chip_smoke.ce_inputs(torch, torch.device("cpu"), 200, 64, 300, seed=0)
+    assert x.dtype == w.dtype == torch.bfloat16 and float(g[-1]) == 0.0 and bool((g == 0).any())
+    xf, wf = x.float().requires_grad_(True), w.float().requires_grad_(True)
+    want = torch.autograd.grad(C.fused_ce_reference(xf, wf, labels), (xf, wf), g)
+    _, lse = C.fused_ce_fwd_reference(x, w, labels)
+    got = C.fused_ce_bwd_reference(x, w, labels, lse, g)
+    for a, b in zip(got, want):
+        chip_smoke.tile_rel_err(torch, "plain", a[None, None], b[None, None],
+                                limit=chip_smoke.CE_TILE_RTOL)
+    bad = got[1].float().clone()
+    bad[-8:] *= 1.5
+    with pytest.raises(AssertionError, match="tile"):
+        chip_smoke.tile_rel_err(torch, "dW", bad[None, None], want[1][None, None],
+                                limit=chip_smoke.CE_TILE_RTOL)
 
 
 def test_tile_check_rejects_late_tiles_the_max_scaled_check_passes():

@@ -11,8 +11,12 @@ through ``params_from_numpy``, and the same numpy batches go through both.
     ``deepspeed_tpu.initialize(...).train_batch`` with gradient
     accumulation, clipping, WarmupLR and AdamW with weight decay, in fp32,
     bf16 and fp16 (dynamic loss scaling through overflows);
+  * the fused configuration as a whole: ``fused_ce=True`` with ``FusedAdam``
+    against the JAX engine, ``loss_tiles``, the imperative ``forward`` /
+    ``backward`` / ``step`` against ``train_batch`` and against JAX, the
+    dataloader and the wall-clock timers;
   * lr schedules and ``DeepSpeedConfig.load``'s batch arithmetic, exactly;
-  * every option the slice does not run raises ``NotImplementedError``.
+  * every option the port does not run yet raises ``NotImplementedError``.
 """
 
 import copy
@@ -385,8 +389,8 @@ UNPORTED_CONFIG = {
     "curriculum": ({"curriculum_learning": {"enabled": True}}, "queue 1, item 9"),
     "flops_profiler": ({"flops_profiler": {"enabled": True}}, "queue 1, item 9"),
     "monitor": ({"tensorboard": {"enabled": True}}, "queue 1, item 5"),
-    "fused_adam": ({"optimizer": {"type": "FusedAdam", "params": {}}}, "queue 2, item 7"),
-    "lamb": ({"optimizer": {"type": "Lamb", "params": {}}}, "queue 1, item 3"),
+    "fused_adam": ({"optimizer": {"type": "FusedAdam", "params": {}}}, None),
+    "lamb": ({"optimizer": {"type": "Lamb", "params": {}}}, None),
     "onebit": ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "queue 1, item 6"),
     "mesh": ({"mesh": {"data": 2}}, "queue 1, item 6"),
     "tp": ({"tensor_parallel": {"tp_size": 2}}, "queue 1, item 6"),
@@ -396,11 +400,23 @@ UNPORTED_CONFIG = {
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_CONFIG))
 def test_unported_config_raises(name):
+    """A section the port does not run yet raises, naming its ROADMAP item.
+    The FusedAdam and Lamb types are ported (match None): they build an
+    engine that trains."""
     over, match = UNPORTED_CONFIG[name]
     jc, pc = _configs()
     _, tp = _params(jc)
     cfg = _ds_config()
     cfg.update(over)
+    if match is None:
+        pe, *_ = deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc), model_parameters=tp,
+                                                config=cfg)
+        toks = np.random.default_rng(0).integers(0, 256, size=(4, 17)).astype(np.int32)
+        first = float(pe.train_batch(batch={"input_ids": toks}))
+        for _ in range(3):
+            last = float(pe.train_batch(batch={"input_ids": toks}))
+        assert np.isfinite(first) and last < first
+        return
     with pytest.raises(NotImplementedError, match=match):
         deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc), model_parameters=tp, config=cfg)
 
@@ -410,8 +426,18 @@ def test_unported_config_raises(name):
     (dict(loss_tiles=2), "queue 1, item 6"),
 ])
 def test_unported_loss_options_raise(over, match):
-    with pytest.raises(NotImplementedError, match=match):
-        PT.make_loss_fn(_configs(**over)[1])
+    """The fused and the tiled head are ported (``match`` names the ROADMAP
+    items they used to raise with): they build, and give the dense head's
+    loss and gradients in fp32 (the same function summed in another order)."""
+    jc, pc = _configs(**over)
+    _, tp = _params(jc)
+    batch = _packed_batch(2, 32, jc.vocab_size, seed=2)
+    loss, grads = _port_value_and_grad(pc, tp, batch)
+    dense, dense_grads = _port_value_and_grad(_configs()[1], tp, batch)
+    np.testing.assert_allclose(loss, dense, rtol=LOSS_RTOL)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g, dense_grads[name], atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("over,match", [
@@ -429,11 +455,236 @@ def test_unported_model_options_raise(over, match):
 
 
 def test_unported_engine_api_raises():
+    """What the engine's API still refuses: the orbax store (no
+    ``checkpoint.writer``), and the imperative calls out of order."""
     jc, pc = _configs()
     _, tp = _params(jc)
     pe, *_ = deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc), model_parameters=tp,
                                             config=_ds_config())
-    for fn, match in ((pe.forward, "queue 1, item 3"), (pe.step, "queue 1, item 3"),
-                      (pe.save_checkpoint, "queue 1, item 8")):
-        with pytest.raises(NotImplementedError, match=match):
-            fn({})
+    for fn in (pe.save_checkpoint, pe.load_checkpoint):
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+            fn("unused-dir")
+    with pytest.raises(RuntimeError, match="forward"):
+        pe.backward()
+    pe.step()  # micro-step 1 of 2: no boundary, nothing to apply
+    with pytest.raises(RuntimeError, match="no accumulated gradients"):
+        pe.step()
+
+
+# ---------------------------------------------------------------------------
+# the fused configuration, the imperative API, data, timers
+# ---------------------------------------------------------------------------
+FUSED_ADAM = {"type": "FusedAdam", "params": {"lr": 1e-3, "weight_decay": 0.01}}
+
+
+@pytest.mark.parametrize("over", [dict(), dict(tie_embeddings=True)], ids=["untied", "tied"])
+def test_fused_ce_loss_and_grads_match_jax(over):
+    """``fused_ce=True``: on the CPU the JAX loss takes its dense branch (its
+    fused branch asks for a TPU), the port the fused Function's plain
+    versions; 2 * 29 rows pad to 256 with zero mask. A loss mask and a tied
+    head (dW lands on the embedding) ride along."""
+    jc, pc = _configs(fused_ce=True, n_kv_heads=2, **over)
+    jp, tp = _params(jc)
+    rng = np.random.default_rng(7)
+    batch = {"input_ids": rng.integers(0, 256, size=(2, 30)).astype(np.int32),
+             "loss_mask": (rng.random((2, 30)) < 0.8).astype(np.float32)}
+    jl, jg = jax.value_and_grad(JT.make_loss_fn(jc))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    pl, pg = _port_value_and_grad(pc, tp, batch)
+    np.testing.assert_allclose(pl, float(jl), rtol=LOSS_RTOL)
+    jg = _leaf_dict(jax.tree.map(np.asarray, jg))
+    assert sorted(pg) == sorted(jg) and ("lm_head" in pg) == (not over)
+    for name, g in pg.items():
+        np.testing.assert_allclose(g, jg[name], atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_loss_tiles_match_jax():
+    jc, pc = _configs(loss_tiles=4, n_kv_heads=2)
+    jp, tp = _params(jc)
+    batch = _packed_batch(2, 32, jc.vocab_size, seed=3)
+    batch["loss_mask"] = (np.random.default_rng(3).random((2, 33)) < 0.7).astype(np.float32)
+    jl, jg = jax.value_and_grad(JT.make_loss_fn(jc))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    pl, pg = _port_value_and_grad(pc, tp, batch)
+    np.testing.assert_allclose(pl, float(jl), rtol=LOSS_RTOL)
+    jg = _leaf_dict(jax.tree.map(np.asarray, jg))
+    for name, g in pg.items():
+        np.testing.assert_allclose(g, jg[name], atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_tiled_compute_and_mlp_match_jax():
+    from deepspeed_tpu.parallel.sequence import tiled as jt
+    from deepspeed_tpu_torch.parallel.sequence import tiled as pt
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 12, 8)).astype(np.float32)
+    w = rng.standard_normal((8, 8)).astype(np.float32)
+    want = np.asarray(jt.tiled_mlp(lambda t: jnp.tanh(t @ jnp.asarray(w)), jnp.asarray(x), 3))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(w)
+    got = pt.tiled_mlp(lambda t: torch.tanh(t @ wt), xt, 3)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6, rtol=1e-6)
+    (g,) = torch.autograd.grad(got.sum(), xt)
+    (g0,) = torch.autograd.grad(torch.tanh(xt @ wt).sum(), xt)
+    torch.testing.assert_close(g, g0)
+    # tiles that do not divide the axis run untiled, as in the JAX package
+    assert pt.tiled_compute(lambda t: t * 2, xt, 5).shape == xt.shape
+
+
+def _fused_engines(dtype="float32", **extra):
+    jc, pc = _configs(n_kv_heads=2, dtype=dtype, fused_ce=True)
+    jp, tp = _params(jc)
+    cfg = _ds_config(**extra)
+    cfg["optimizer"] = copy.deepcopy(FUSED_ADAM)
+    je, *_ = deepspeed_tpu.initialize(model=JT.make_loss_fn(jc), model_parameters=jp,
+                                      config=copy.deepcopy(cfg))
+    pe, *_ = deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc), model_parameters=tp,
+                                            config=copy.deepcopy(cfg))
+    return je, pe
+
+
+def test_fused_configuration_trajectory_matches_jax():
+    """The slice as a whole: ``fused_ce=True`` + ``FusedAdam`` through
+    ``train_batch`` for 4 steps against the JAX engine with the same config
+    (on the CPU the JAX loss takes its dense branch and its FusedAdam the
+    jnp math; the port takes the fused Function's and the kernel's plain
+    versions). fp32, tolerances as for AdamW above."""
+    je, pe = _fused_engines()
+    assert pe.optimizer.name == je.optimizer.name == "fused_adam"
+    rng = np.random.default_rng(1)
+    for _ in range(4):
+        batch = _packed_batch(4, 16, 256, seed=int(rng.integers(1 << 30)))
+        jl, pl = je.train_batch(batch=batch), pe.train_batch(batch=batch)
+        np.testing.assert_allclose(float(pl), float(jl), rtol=1e-5)
+        np.testing.assert_allclose(pe.get_global_grad_norm(), je.get_global_grad_norm(),
+                                   rtol=1e-5)
+        assert pe.get_lr()[0] == je.get_lr()[0]
+    jw = _leaf_dict(jax.tree.map(np.asarray, je.params))
+    for name, w in _leaf_dict(pe.params).items():
+        np.testing.assert_allclose(w.detach().numpy(), jw[name], atol=1e-4, rtol=0,
+                                   err_msg=name)
+    assert pe.opt_state.inner["count"] == int(je.opt_state.inner.count) == 4
+
+
+def test_fused_configuration_bf16_trajectory_matches_jax():
+    """bf16 params with fp32 masters: FusedAdam writes the bf16 param in the
+    same pass as its master. Tolerances of the bf16 AdamW trajectory."""
+    je, pe = _fused_engines("bfloat16", bf16={"enabled": True})
+    rng = np.random.default_rng(2)
+    for _ in range(4):
+        batch = {"input_ids": rng.integers(0, 256, size=(4, 17)).astype(np.int32)}
+        jl, pl = je.train_batch(batch=batch), pe.train_batch(batch=batch)
+        np.testing.assert_allclose(float(pl), float(jl), rtol=2e-3)
+    for (_, p), (_, m) in zip(_leaves(pe.params), _leaves(pe.opt_state.master)):
+        assert p.dtype == torch.bfloat16 and torch.equal(p, m.to(torch.bfloat16))
+
+
+def _imperative(engine, batch, gas):
+    """gas micro-batches through forward / backward / step; the losses."""
+    micro = len(batch["input_ids"]) // gas
+    losses = []
+    for i in range(gas):
+        mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+        assert engine.is_gradient_accumulation_boundary() == (i == gas - 1)
+        loss = engine.forward(mb)
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss))
+    return losses
+
+
+def test_imperative_api_equals_train_batch_and_jax():
+    """forward / backward / step over the micro-batches is train_batch: the
+    same update inside the port bit for bit, and the JAX engine's imperative
+    trajectory within the fp32 tolerances; counters as the JAX engine's."""
+    je, pe = _fused_engines()
+    _, pf = _fused_engines()
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        batch = _packed_batch(4, 16, 256, seed=int(rng.integers(1 << 30)))
+        fused_loss = float(pf.train_batch(batch=batch))
+        pl = _imperative(pe, batch, 2)
+        jl = _imperative(je, batch, 2)
+        np.testing.assert_allclose(np.mean(pl), fused_loss, rtol=1e-6)
+        np.testing.assert_allclose(pl, jl, rtol=1e-5)
+        np.testing.assert_allclose(pe.get_global_grad_norm(), je.get_global_grad_norm(),
+                                   rtol=1e-5)
+    for (name, a), (_, b) in zip(_leaves(pe.params), _leaves(pf.params)):
+        assert torch.equal(a, b), name
+    assert (pe.micro_steps, pe.global_steps) == (je.micro_steps, je.global_steps) == (6, 3)
+    # micro-batch size times the data-parallel world: 1 in the port
+    assert pe.global_samples == 12 and je.global_samples == 12 * je.topo.dp_world_size
+    assert (pf.micro_steps, pf.global_steps) == (0, 3)  # train_batch counts no micro-steps
+
+
+def test_no_sync_and_boundary_override():
+    _, pe = _fused_engines()
+    batch = _packed_batch(2, 16, 256, seed=9)
+    with pe.no_sync():
+        for _ in range(3):  # past gas = 2: the boundary is forced off
+            pe.backward(pe.forward(batch))
+            pe.step()
+    assert (pe.micro_steps, pe.global_steps) == (3, 0)
+    pe.set_gradient_accumulation_boundary(True)
+    pe.backward(pe.forward(batch))
+    pe.step()
+    assert (pe.micro_steps, pe.global_steps) == (4, 1)
+    assert pe.eval() is pe and pe.train() is pe
+
+
+def test_training_data_loader_matches_jax():
+    """``initialize(training_data=...)`` returns the loader; both packages
+    draw the same epoch-seeded order, and ``train_batch(data_iter=...)``
+    consumes gas micro-batches from it."""
+    from deepspeed_tpu.runtime.dataloader import DeepSpeedDataLoader as JLoader
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    jc, pc = _configs()
+    _, tp = _params(jc)
+    data = {"input_ids": np.random.default_rng(0).integers(0, 256, size=(10, 17)).astype(np.int32)}
+    cfg = _ds_config()
+    pe, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=PT.make_loss_fn(pc), model_parameters=tp, config=cfg, training_data=data)
+    assert loader is pe.training_dataloader and loader.batch_size == 4 and len(loader) == 2
+    want = list(JLoader(data, batch_size=4, seed=pe.config.seed))
+    got = list(loader)
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
+    # a Dataset-style object through collate_fn; micro-batches to train_batch
+    rows = [{"input_ids": r} for r in data["input_ids"]]
+    micro = pe.deepspeed_io(rows, batch_size=2)
+    it = RepeatingLoader(micro)
+    losses = [float(pe.train_batch(data_iter=it)) for _ in range(3)]  # 6 of 5 batches: repeats
+    assert all(np.isfinite(losses)) and pe.global_steps == 3
+
+
+def test_wall_clock_breakdown_timers(caplog):
+    from deepspeed_tpu.utils import timer as jt
+    from deepspeed_tpu_torch.utils import timer as pt
+
+    jc, pc = _configs()
+    _, tp = _params(jc)
+    pe, *_ = deepspeed_tpu_torch.initialize(
+        model=PT.make_loss_fn(pc), model_parameters=tp,
+        config=_ds_config(wall_clock_breakdown=True, steps_per_print=1))
+    assert isinstance(pe.timers, pt.SynchronizedWallClockTimer)
+    batch = _packed_batch(4, 16, 256, seed=1)
+    pe.train_batch(batch=batch)
+    _imperative(pe, batch, 2)
+    for name in (pt.FORWARD_GLOBAL_TIMER, pt.BACKWARD_GLOBAL_TIMER, pt.STEP_GLOBAL_TIMER):
+        assert name in pe.timers.get_timers()
+    assert pe.tput_timer.global_step_count == 1  # train_batch steps only, as in the JAX engine
+    with pytest.raises(RuntimeError, match="already been started"):
+        t = pe.timers("x")
+        t.start()
+        t.start()
+    off, *_ = deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc), model_parameters=tp,
+                                             config=_ds_config())
+    assert isinstance(off.timers, pt.NoopTimer) and off.timers("fwd").elapsed() == 0
+    data = [5.0, 1.0, 9.0, 3.0, 100.0, 2.0]
+    for pct in (0.0, 0.2, 0.5):
+        assert pt.trim_mean(data, pct) == jt.trim_mean(data, pct)
+    assert pt.trim_mean([], 0.1) == 0
+    assert (pt.FORWARD_GLOBAL_TIMER, pt.BACKWARD_GLOBAL_TIMER, pt.STEP_GLOBAL_TIMER) == (
+        jt.FORWARD_GLOBAL_TIMER, jt.BACKWARD_GLOBAL_TIMER, jt.STEP_GLOBAL_TIMER)
