@@ -16,11 +16,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    with the tolerance stated (the flash kernels also at s 1024 with a
    static window, the window flag at 0 and 1, and packed segments; the
    fused-CE kernels also at sizes that divide no tile; FusedAdam at steps 1
-   and 1000, AdamW and L2 decay, and on a leaf with a ragged tail); then
-   CUDA-event times of the kernel, the plain version and one PyTorch
-   library call computing the same function (a yardstick only: the port
-   never calls it), beside the least time the card could take
-   (``bound_ms``).
+   and 1000, AdamW and L2 decay, and on a leaf with a ragged tail; the
+   splash kernels over a LocalMask, per-head Fixed layouts, packed
+   segments, dead query blocks and the prefill form); then CUDA-event times
+   of the kernel, the plain version and one PyTorch library call computing
+   the same function (a yardstick only: the port never calls it), beside
+   the least time the card could take (``bound_ms``); the splash kernels
+   also beside the port's flash kernels with the same window.
 3. engine: ``InferenceEngineV2`` at Mistral-7B width (seeded random bf16
    weights, all 32 layers) prefills 32 prompts through ``step()`` and runs
    one fused ``decode_round(64)``; logits are held against the plain
@@ -46,9 +48,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    moments, count and learning rate equal the saved ones bit for bit, and
    so does its next loss); the timed leg counts the fused-CE and
    FusedAdam launches too.
+6. train_splash: ``attention_impl="splash"``. Parity leg as in 4 at a
+   window of 1024 (so the 4096-token schedule prunes blocks); timed leg at
+   Mistral's window of 4096 over 16384 tokens, ``remat`` with policy
+   "nothing" (the forward runs again in the backward); the flash kernels
+   must not launch.
+7. engine_per_row: the engine's per-row step with splash at all 32 layers,
+   an 8192-token context and 256-token chunks: 4 prompts of 6144-8176
+   tokens prefilled and decoded for 16 tokens; every row step takes the
+   splash prefill (launches counted exactly), logits against
+   ``forward_reference`` and against the dense per-row path fed the same
+   tokens, the kv blocks each chunk's schedule visits, prefill tok/s.
 
 Serving kernels must launch in the engine phase, training kernels in the
-train legs, the fused configuration's four in its leg: together every
+train legs, the fused configuration's four in its leg, the splash kernels
+in the splash leg (the forward also in the per-row leg): together every
 kernel. The line before the last lists the kernels; the last line is the
 result object. With no card, or outside a checkout, it exits non-zero and
 prints no result.
@@ -453,6 +467,263 @@ def sdpa_train_ms(torch, q, k, v, do):
     return {"what": "torch.nn.functional.scaled_dot_product_attention, flash backend "
                     "(backward: autograd, dq+dk+dv in one call, eager)",
             "flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms, "flash_bwd_dkv": bwd_ms}
+
+
+# splash kernels: the flash kernels' tolerances (the same mainloop and the
+# same roundings against a plain version over the schedule's token mask)
+SPLASH_KERNELS = ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv")
+# the timed leg's shape: Mistral's window over 16384 tokens in 512-blocks
+SPLASH_TIMED = dict(s=16384, window=4096, block=512)
+
+
+def splash_cases(torch, dev, s=4096, h=32):
+    """(name, schedule, segment ids or None) for the kernels phase: (a) a
+    LocalMask of 1024 in 512-blocks, (b) per-head Fixed layouts in 128-blocks
+    (causal), (c) (a) with two packed segments as runtime ids, (d) a causal
+    layout of 512-blocks with two dead query blocks."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig,
+        LocalMask,
+        schedule_from_layout,
+        schedule_from_mask,
+    )
+
+    local = schedule_from_mask(LocalMask((s, s), 1024), 512)
+    fixed = FixedSparsityConfig(num_heads=h, block=128, different_layout_per_head=True,
+                                num_different_global_patterns=4,
+                                attention="unidirectional").make_schedule(s)
+    layout = np.tril(np.ones((s // 512, s // 512), np.int32))
+    layout[2:4] = 0  # query blocks 2 and 3 keep nothing
+    dead = schedule_from_layout(layout, 512, causal=True)
+    return [("a_local1024_b512", local, None),
+            ("b_fixed_per_head_b128", fixed, None),
+            ("c_local1024_b512_segments2", local, two_segments(torch, dev, 1, s, 1500)),
+            ("d_dead_rows_b512", dead, None)]
+
+
+def splash_work(schedule, b, h, h_kv, d, segment_ids=None):
+    """(kept pairs, FLOPs fwd/dq/dkv, bytes fwd/dq/dkv) the three kernels
+    need for these inputs: 4d / 6d / 8d FLOPs per kept pair, each input
+    read once and each output written once (q, o, do, dq at h heads and k,
+    v, dk, dv at h_kv heads in bf16, lse in fp32)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.sparse_attention.splash import _status
+
+    status = _status(schedule)
+    sq, sk, bq, bk = schedule.seq_q, schedule.seq_kv, schedule.block_q, schedule.block_kv
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    pred = np.ones((sq, sk), bool)
+    if schedule.causal:
+        pred &= q >= k
+    if schedule.window:
+        pred &= (q - k) < schedule.window
+    pairs = 0
+    for hs in range(status.shape[0]):
+        st = status[hs][np.arange(sq)[:, None] // bq, np.arange(sk)[None, :] // bk]
+        keep = (st == 2) | ((st == 1) & pred)
+        if segment_ids is not None:
+            for row in segment_ids.cpu().numpy():
+                pairs += int((keep & (row[:, None] == row[None, :])).sum())
+        else:
+            pairs += int(keep.sum()) * b
+    if status.shape[0] == 1:
+        pairs *= h
+    qb = b * h * sq * d * 2
+    kvb = b * h_kv * sk * d * 2
+    lseb = b * h * sq * 4
+    flops = {"splash_fwd": 4 * pairs * d, "splash_bwd_dq": 6 * pairs * d,
+             "splash_bwd_dkv": 8 * pairs * d}
+    moved = {"splash_fwd": qb + 2 * kvb + qb + lseb,
+             "splash_bwd_dq": 3 * qb + 2 * kvb + lseb + qb,
+             "splash_bwd_dkv": 3 * qb + 2 * kvb + lseb + 2 * kvb}
+    return pairs, flops, moved
+
+
+def check_splash(torch, errs, tile_errs, name, q, k, v, do, sched, seg=None):
+    """The three splash kernels against their plain versions on these
+    inputs: out and lse, then dq, dk and dv (elementwise, scaled by the
+    reference's largest element, and per 64-row tile); records each error
+    in ``errs`` / ``tile_errs`` under ``name`` and raises on a miss.
+    Returns the kernel's (out, lse)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    out, lse = SP.splash_fwd_cuda(q, k, v, sched, segment_ids=seg)
+    ref_out, ref_lse = SP.splash_fwd_reference(q, k, v, sched, segment_ids=seg)
+    errs["splash_fwd"][name] = check_close(torch, f"splash_fwd {name}", out, ref_out,
+                                           BF16_ATOL, BF16_RTOL)
+    errs["splash_fwd"][name + "_lse"] = check_close(
+        torch, f"splash_fwd lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
+    del ref_out, ref_lse
+    dq = SP.splash_bwd_dq_cuda(q, k, v, out, do, lse, sched, segment_ids=seg)
+    dk, dv = SP.splash_bwd_dkv_cuda(q, k, v, out, do, lse, sched, segment_ids=seg)
+    rdq, rdk, rdv = SP.splash_bwd_reference(q, k, v, out, do, lse, sched, segment_ids=seg)
+    for kname, got, want, tag in (("splash_bwd_dq", dq, rdq, name),
+                                  ("splash_bwd_dkv", dk, rdk, name),
+                                  ("splash_bwd_dkv", dv, rdv, name + "_dv")):
+        scale = max(1.0, float(want.float().abs().max()))
+        errs[kname][tag] = check_close(torch, f"{kname} {tag}", got, want,
+                                       BF16_ATOL * scale, BF16_RTOL)
+        tile_errs[kname][tag] = tile_rel_err(torch, f"{kname} {tag}", got, want)
+    del dq, dk, dv, rdq, rdk, rdv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, lse
+
+
+def splash_timings(torch, dev, b, h, h_kv, d, s, window, block, seed, errs, tile_errs):
+    """The three kernels held against their plain versions on the inputs
+    they are timed on (``check_splash``, case ``timed_s{s}_w{window}``);
+    then CUDA-graph times of the kernels, their plain versions, the port's
+    flash kernels with the same static window (the same function for a
+    LocalMask) and, as a yardstick, SDPA with the boolean token mask;
+    beside each kernel its bound for these inputs."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+    from deepspeed_tpu_torch.ops.sparse_attention import LocalMask, schedule_from_mask
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    sched = schedule_from_mask(LocalMask((s, s), window), block)
+    q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed)
+    out, lse = check_splash(torch, errs, tile_errs, f"timed_s{s}_w{window}", q, k, v, do, sched)
+    args = (q, k, v, out, do, lse, sched)
+    ms = {"splash_fwd": time_ms(torch, lambda: SP.splash_fwd_cuda(q, k, v, sched), iters=10),
+          "splash_bwd_dq": time_ms(torch, lambda: SP.splash_bwd_dq_cuda(*args), iters=10),
+          "splash_bwd_dkv": time_ms(torch, lambda: SP.splash_bwd_dkv_cuda(*args), iters=10)}
+    plain = {"splash_fwd": time_ms(torch, lambda: SP.splash_fwd_reference(q, k, v, sched),
+                                   iters=2, warmup=1)}
+    # the plain backward computes dq, dk and dv together: its time stands for both
+    plain["splash_bwd_dq"] = plain["splash_bwd_dkv"] = time_ms(
+        torch, lambda: SP.splash_bwd_reference(*args), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    kw = dict(causal=True, window=window)
+    fout, flse = F.flash_fwd_cuda(q, k, v, **kw)
+    flash = {"splash_fwd": time_ms(torch, lambda: F.flash_fwd_cuda(q, k, v, **kw), iters=10),
+             "splash_bwd_dq": time_ms(
+                 torch, lambda: F.flash_bwd_dq_cuda(q, k, v, fout, do, flse, **kw), iters=10),
+             "splash_bwd_dkv": time_ms(
+                 torch, lambda: F.flash_bwd_dkv_cuda(q, k, v, fout, do, flse, **kw), iters=10)}
+    del fout, flse
+    lib = sdpa_masked_ms(torch, q, k, v, do, window)
+    pairs, flops, moved = splash_work(sched, b, h, h_kv, d)
+    rec = {}
+    for name in SPLASH_KERNELS:
+        t_ops, t_bytes = flops[name] / BF16_FLOPS, moved[name] / HBM_BYTES_PER_S
+        rec[name] = {"shape": {"b": b, "h": h, "h_kv": h_kv, "s": s, "d": d, "window": window,
+                               "block": block, "density": sched.density},
+                     "ms": ms[name], "plain_ms": plain[name], "flash_ms": flash[name],
+                     "library_ms": lib[name], "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "kept_pairs": pairs, "flops": flops[name],
+                     "tflops_per_s": flops[name] / (ms[name] * 1e-3) / 1e12}
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sdpa_masked_ms(torch, q, k, v, do, window):
+    """Yardsticks: ``scaled_dot_product_attention`` with the boolean token
+    mask of the causal window under the memory-efficient backend (kv heads
+    repeated beforehand, outside the timed region); forward timed in a CUDA
+    graph, its autograd backward (dq, dk and dv in one call) eagerly."""
+    s = q.shape[2]
+    group = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    pos = torch.arange(s, device=q.device)
+    mask = ((pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window))[None, None]
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    f = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):  # never a dense [h, s, s] fallback
+            return f(q, kr, vr, attn_mask=mask)
+
+    fwd_ms = time_ms(torch, fwd, iters=5)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, kr, vr))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = f(ql, kl, vl, attn_mask=mask)
+    bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                         retain_graph=True), iters=5)
+    del out, ql, kl, vl, kr, vr
+    torch.cuda.empty_cache()
+    return {"splash_fwd": fwd_ms, "splash_bwd_dq": bwd_ms, "splash_bwd_dkv": bwd_ms}
+
+
+def kernel_splash(torch, dev, b=1, h=32, h_kv=8, d=128, s=4096, timed=SPLASH_TIMED):
+    """The three splash kernels against their plain versions in bf16 at
+    Mistral-7B's heads (32/8 of 128): cases (a)-(d) of ``splash_cases`` at
+    s 4096 (forward, lse, dq, dk, dv; gradients also per 64-row tile), and
+    (e) the prefill form (forward) for t in {1, 8, 256} at starts {0, 3000,
+    7936} over S 8192, window 4096, 128-key blocks. Then, each on the
+    inputs it is timed on, checked as (a)-(d) and timed: (a)'s shape and
+    the timed leg's. Returns one record per kernel."""
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    errs = {n: {} for n in SPLASH_KERNELS}
+    tile_errs = {"splash_bwd_dq": {}, "splash_bwd_dkv": {}}
+    for i, (name, sched, seg) in enumerate(splash_cases(torch, dev, s, h)):
+        q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed=50 + i)
+        out, lse = check_splash(torch, errs, tile_errs, name, q, k, v, do, sched, seg)
+        if name.startswith("d_"):
+            if bool(out[:, :, 1024:2048].float().abs().max() != 0):
+                raise AssertionError("splash_fwd: the dead query blocks must give exactly 0")
+            if bool((lse[:, :, 1024:2048] != -1e30).any()):
+                raise AssertionError("splash_fwd: the dead rows' lse must be -1e30")
+        del q, k, v, do, out, lse
+
+    # (e) the prefill form: one schedule row from the chunk start
+    S, window, bk = 8192, 4096, 128
+    gen = torch.Generator(device=dev).manual_seed(60)
+    k = torch.randn(b, h_kv, S, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, h_kv, S, d, generator=gen, device=dev).to(torch.bfloat16)
+    visits = {}
+    for t in (1, 8, 256):
+        q = torch.randn(b, h, t, d, generator=gen, device=dev).to(torch.bfloat16)
+        for start in (0, 3000, 7936):
+            sched = SP.prefill_schedule(start, t, S, window, bk)
+            got, lse = SP.splash_fwd_cuda(q, k, v, sched, base=start)
+            want, ref_lse = SP.splash_fwd_reference(q, k, v, sched, base=start)
+            tag = f"e_prefill_t{t}_start{start}"
+            errs["splash_fwd"][tag] = check_close(torch, f"splash_fwd {tag}", got, want,
+                                                  BF16_ATOL, BF16_RTOL)
+            check_close(torch, f"splash_fwd lse {tag}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
+            if SP.splash_prefill_attention(q, k, v, start, window=window, block_kv=bk).ne(
+                    got).any():
+                raise AssertionError(f"splash_prefill_attention {tag}: not the kernel's output")
+            visits[tag] = sched.num_active
+    del k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # times: (a) and the timed leg's shape
+    at_a = splash_timings(torch, dev, b, h, h_kv, d, s, 1024, 512, 70, errs, tile_errs)
+    at_timed = splash_timings(torch, dev, b, h, h_kv, d, timed["s"], timed["window"],
+                              timed["block"], 71, errs, tile_errs)
+    records = {}
+    for name in SPLASH_KERNELS:
+        main = at_timed[name]
+        records[name] = {
+            "name": name,
+            "shape": main["shape"],
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_case": errs[name],
+            "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "scaled_by": "max(1, max|ref|)",
+                          "lse": [FLASH_LSE_ATOL, FP32_RTOL],
+                          "tile_rel_frobenius": FLASH_TILE_RTOL if name in tile_errs else None},
+            "tile_rel_frobenius_by_case": tile_errs.get(name),
+            "prefill_blocks_visited": visits if name == "splash_fwd" else None,
+            **{key: main[key] for key in ("ms", "plain_ms", "flash_ms", "library_ms",
+                                          "bound_ms", "bound_by", "flops", "tflops_per_s")},
+            "library": "torch.nn.functional.scaled_dot_product_attention with the boolean "
+                       "token mask, memory-efficient backend (kv heads repeated; backward: "
+                       "autograd, dq+dk+dv in one call, eager)",
+            "at_a": at_a[name],
+        }
+    return records
 
 
 class PagedWorld:
@@ -1095,6 +1366,170 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
     return rec, launches
 
 
+# the per-row leg: the engine's per-row step (_step_per_row) with
+# attention_impl="splash" at Mistral's window of 4096 over an 8192-token
+# context (64 blocks of 128), 256-token prompt chunks; 4 prompts of 6144 to
+# 8176 tokens, each then decoding 16 tokens (the context holds them)
+PER_ROW_CONFIG = {
+    "dtype": "bfloat16", "decode_steps": 1, "prompt_chunk": 256, "max_prompt_chunks": 4,
+    "kv_cache": {"block_size": 128, "num_blocks": 4 * 64, "max_blocks_per_seq": 64},
+    "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 1024,
+                      "max_ragged_sequence_count": 4, "max_context": 8192},
+}
+PER_ROW_PROMPTS = (4, 6144, 8192 - 16)  # count, shortest, longest
+PER_ROW_NEW_TOKENS = 16
+# The splash per-row path against the dense per-row path fed the same
+# tokens: both run the same bf16 projections and norms and differ only in
+# the attention's arithmetic (the kernel's online softmax against the plain
+# fp32 softmax), so their logits are held to LOGIT_RTOL row by row, and the
+# share of equal greedy tokens is reported, not gated: with random weights a
+# near-tie between the two largest logits flips under bf16 (60 of 64 agreed
+# on an H100, as the engine phase's round_argmax_agreement shows the same)
+
+
+def per_row_generate(eng, prompts, new_tokens, forced=None):
+    """Greedy decoding through ``_step_per_row`` alone: every prompt
+    submitted, then steps until each row has ``new_tokens``. ``forced``
+    ({uid: tokens}) feeds those tokens back instead of the row's own
+    argmax. Returns ({uid: own argmax tokens}, {uid: [logits rows]},
+    seconds until every prompt's first logits)."""
+    import numpy as np
+
+    for uid, p in enumerate(prompts):
+        eng.scheduler.submit(uid, p)
+    toks = {uid: [] for uid in range(len(prompts))}
+    rows = {uid: [] for uid in range(len(prompts))}
+    t0 = time.perf_counter()
+    prefill_s = None
+    while eng.scheduler.has_work():
+        res = eng._step_per_row()
+        if eng.last_scheduled_tokens == 0:
+            raise AssertionError("per-row step stalled: nothing schedulable")
+        for uid, lg in res.items():  # host logits: the step has finished
+            rows[uid].append(lg)
+            toks[uid].append(int(np.argmax(lg)))
+            if len(toks[uid]) >= new_tokens:
+                eng.scheduler.finish(uid)
+            else:
+                eng.scheduler.feedback(uid, toks[uid][-1] if forced is None
+                                       else forced[uid][len(toks[uid]) - 1])
+        if prefill_s is None and all(toks.values()):
+            prefill_s = time.perf_counter() - t0
+    return toks, rows, prefill_s
+
+
+def engine_per_row_phase(torch, dev, K, widths=None, engine_config=None,
+                         prompt_lens=PER_ROW_PROMPTS, new_tokens=PER_ROW_NEW_TOKENS):
+    """The engine's per-row step with attention_impl="splash", counted:
+    every row step's windowed prefill (and decode token) takes
+    ``splash_prefill_attention``. Holds each prompt's logits and every
+    decode step's against ``forward_reference``, and the greedy stream
+    against the same engine's dense per-row path (attention_impl="auto")
+    fed the same tokens. ``widths``/``engine_config``/``prompt_lens`` shrink
+    it for a rehearsal on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2 import engine_v2 as E
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    t0 = time.perf_counter()
+    cfg = T.get_config(MODEL, attention_impl="splash", **(widths or {}))
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+    rc = RaggedInferenceEngineConfig.from_dict(engine_config or PER_ROW_CONFIG)
+    kv = rc.kv_cache
+    S = kv.max_blocks_per_seq * kv.block_size
+    eng = E.InferenceEngineV2(cfg, params, rc, device=dev.type)
+    L = cfg.n_layers
+    rng = np.random.default_rng(SEED + 2)
+    n, lo, hi = prompt_lens
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(m)).astype(np.int32)
+               for m in rng.integers(lo, hi + 1, size=n)]
+    rec = {"phase": "engine_per_row", "model": MODEL, "n_layers": L,
+           "window": cfg.sliding_window, "context": S, "block_size": kv.block_size,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": new_tokens}
+    _sync(torch, dev)
+    rec["setup_seconds"] = time.perf_counter() - t0
+
+    # ---- the main path, counted; a spy records each layer's (start, t)
+    calls = []
+    real = E.splash_prefill_attention
+
+    def spy(q, k, v, start, **kw):
+        calls.append((int(start), q.shape[2]))
+        return real(q, k, v, start, **kw)
+
+    E.splash_prefill_attention = spy
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        toks, rows, prefill_s = per_row_generate(eng, prompts, new_tokens)
+        _sync(torch, dev)
+        rec["seconds_main_path"] = time.perf_counter() - t0
+        launches = K.counts()
+    finally:
+        E.splash_prefill_attention = real
+    row_steps = len(calls) // L
+    if len(calls) != row_steps * L or row_steps == 0:
+        raise AssertionError(f"{len(calls)} splash prefill calls for {L} layers")
+    expected = {name: 0 for name in launches}
+    expected.update({"splash_fwd": L * row_steps, "rms_norm_fwd": (2 * L + 1) * row_steps})
+    rec.update(launches=launches, launches_expected=expected, row_steps=row_steps)
+    if dev.type == "cuda" and launches != expected:  # the CPU runs the plain versions
+        raise AssertionError(f"per-row kernel launches {launches}, expected {expected}")
+    rec["prefill_seconds"] = prefill_s
+    rec["prefill_tok_s"] = sum(len(p) for p in prompts) / prefill_s
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    # kv blocks each row step's schedule visits, of the context's S / block
+    visited = {}
+    for start, t in sorted(set(calls)):
+        sched = SP.prefill_schedule(start, t, S, cfg.sliding_window, kv.block_size)
+        visited.setdefault("chunk" if t > 1 else "decode", []).append(sched.num_active)
+    rec["blocks_visited"] = {k: {"mean": float(np.mean(v)), "max": int(max(v)), "rows": len(v)}
+                             for k, v in visited.items()}
+    rec["blocks_in_context"] = S // kv.block_size
+
+    # ---- the same engine's dense per-row path, fed the splash tokens
+    dense = E.InferenceEngineV2(dataclasses.replace(cfg, attention_impl="auto"), eng.params, rc,
+                                device=dev.type)
+    d_toks, d_rows, _ = per_row_generate(dense, prompts, new_tokens, forced=toks)
+    del dense
+    agree = [a == b for u in toks for a, b in zip(toks[u], d_toks[u])]
+    rec["dense_token_agreement"] = sum(agree) / len(agree)
+    rec["dense_logit_rel_err"] = max(rows_rel_err(torch, np.stack(rows[u]), np.stack(d_rows[u]))
+                                     for u in toks)
+
+    # ---- the plain forward_reference on each prompt and its tokens
+    errs, shifted = [], []
+    for uid, p in enumerate(prompts):
+        full = np.concatenate([p, np.asarray(toks[uid][:-1], np.int32)])
+        with torch.no_grad():
+            ref = T.forward_reference(eng.params, torch.as_tensor(full, device=dev)[None]
+                                      .long(), cfg)[0][0].float()
+        if not bool(torch.isfinite(ref).all()):
+            raise AssertionError("plain forward gave non-finite logits")
+        n_p = len(p)
+        errs.append(rows_rel_err(torch, np.stack(rows[uid]), ref[n_p - 1:]))
+        shifted.append(rows_rel_err(torch, rows[uid][0], ref[n_p - 2]))
+        del ref
+    rec["logit_rel_err"] = max(errs)
+    rec["logit_rel_err_shifted"] = min(shifted)
+    rec["logit_rows_checked"] = len(prompts) * new_tokens
+    rec["logit_rtol"] = LOGIT_RTOL
+    del eng
+    if rec["logit_rel_err"] > LOGIT_RTOL or rec["dense_logit_rel_err"] > LOGIT_RTOL:
+        raise AssertionError(f"per-row logits off: {rec['logit_rel_err']} against the plain "
+                             f"forward, {rec['dense_logit_rel_err']} against the dense path")
+    if rec["logit_rel_err_shifted"] <= LOGIT_RTOL:
+        raise AssertionError("negative control passed: the logit check cannot tell positions apart")
+    return rec, launches
+
+
 def profile_engine(torch, eng, rng, vocab, steps=8):
     """torch.profiler over one split step with 32 decode rows and one fused
     round of ``steps`` tokens. Opt-in (``--profile``)."""
@@ -1149,8 +1584,18 @@ SERVE_KERNELS = ("rms_norm_fwd", "paged_decode")
 # the fused leg: the same configuration with TransformerConfig(fused_ce=True)
 # and FusedAdam (AdamW mode), which adds these four to the train kernels
 FUSED_KERNELS = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw", "fused_adam")
+# the per-row leg's kernels: the splash forward (windowed prefill and
+# decode) and RMSNorm
+PER_ROW_KERNELS = ("splash_fwd", "rms_norm_fwd")
 FUSED_OPTIMIZER = {"type": "FusedAdam",
                    "params": {"lr": 1e-4, "weight_decay": 0.01, "adam_w_mode": True}}
+# the splash leg: attention_impl="splash" with the same dense head and AdamW.
+# Its parity leg cuts Mistral's window to 1024 so that the 4096-token
+# schedule prunes blocks; its timed leg keeps the window of 4096 at seq
+# 16384 under remat (policy "nothing": each layer's forward runs again in
+# the backward, so the splash forward and the norms launch twice per layer)
+SPLASH_PARITY_WINDOW = 1024
+SPLASH_TIMED_SEQ = SPLASH_TIMED["s"]
 
 
 def packed_batch(torch, dev, rng, b, s, vocab):
@@ -1262,13 +1707,16 @@ def checkpoint_leg(torch, dev, eng, make_engine, batch):
 
 
 def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
-                parity_layers=PARITY_LAYERS, profile=False, fused=False, timed_steps=4):
+                parity_layers=PARITY_LAYERS, profile=False, fused=False, timed_steps=4,
+                splash=False, parity_window=SPLASH_PARITY_WINDOW, timed_seq=None):
     """The training path, counted. ``widths``/``seq``/``layers`` shrink it
     for a rehearsal on the CPU; the card run uses the defaults. ``fused``
     runs the fused configuration (``fused_ce=True``, FusedAdam): its parity
     leg still compares with autograd through ``forward_reference`` and the
     dense ``nll_loss``, and adds one optimizer step against the plain Adam
-    math and a checkpoint save -> load -> step."""
+    math and a checkpoint save -> load -> step. ``splash`` runs
+    ``attention_impl="splash"``: the parity leg at ``parity_window``, the
+    timed leg at ``timed_seq`` (default SPLASH_TIMED_SEQ) under remat."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -1276,20 +1724,28 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
 
     widths = dict(widths or {})
     widths.setdefault("dtype", "bfloat16")
-    rec = {"phase": "train_fused" if fused else "train", "model": MODEL, "seq": seq,
+    phase = "train_splash" if splash else "train_fused" if fused else "train"
+    timed_seq = timed_seq or (SPLASH_TIMED_SEQ if splash else seq)
+    rec = {"phase": phase, "model": MODEL, "seq": timed_seq, "parity_seq": seq,
            "dtype": widths["dtype"]}
     ds_config = dict(TRAIN_CONFIG)
     if fused:
         widths["fused_ce"] = True
         ds_config["optimizer"] = FUSED_OPTIMIZER
         ds_config["checkpoint"] = {"writer": "sync"}
+    parity_over, timed_over = {}, {"remat": False}
+    if splash:
+        widths["attention_impl"] = "splash"
+        parity_over["sliding_window"] = parity_window
+        timed_over = {"remat": True, "remat_policy": "nothing"}
     if widths["dtype"] != "bfloat16":  # a CPU rehearsal in the model's own dtype
         del ds_config["bf16"]
     rng = np.random.default_rng(SEED)
 
     # ---- parity leg: kernels against the plain oracle, one micro-batch
     t0 = time.perf_counter()
-    cfg = T.get_config(MODEL, n_layers=parity_layers, remat=False, **widths)
+    cfg = T.get_config(MODEL, n_layers=parity_layers, remat=False, **parity_over, **widths)
+    rec["parity_window"] = cfg.sliding_window
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     for t in leaves(params).values():
         t.requires_grad_(True)
@@ -1375,9 +1831,12 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
     rec["parity"]["seconds"] = time.perf_counter() - t0
 
     # ---- timed leg: initialize -> train_batch at TRAIN_LAYERS layers
-    cfg = T.get_config(MODEL, n_layers=layers, remat=False, **widths)
+    cfg = T.get_config(MODEL, n_layers=layers, **timed_over, **widths)
+    rec["window"] = cfg.sliding_window
+    rec["remat"] = cfg.remat
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 1), dev)
     gas = ds_config["gradient_accumulation_steps"]
+    seq = timed_seq
     batches = [{"input_ids": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(gas, seq + 1)), device=dev)}
         for _ in range(1 + timed_steps)]
@@ -1397,8 +1856,12 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
         step_s.append(time.perf_counter() - t1)
     launches = K.counts()
     steps = len(batches)
-    per_step = {"flash_fwd": gas * layers, "flash_bwd_dq": gas * layers,
-                "flash_bwd_dkv": gas * layers, "rms_norm_fwd": gas * (2 * layers + 1),
+    # remat runs each layer's forward again in the backward
+    fwd_runs = 2 if cfg.remat else 1
+    attn = "splash" if splash else "flash"
+    per_step = {f"{attn}_fwd": gas * layers * fwd_runs, f"{attn}_bwd_dq": gas * layers,
+                f"{attn}_bwd_dkv": gas * layers,
+                "rms_norm_fwd": gas * (2 * layers * fwd_runs + 1),
                 "rms_norm_bwd": gas * (2 * layers + 1)}
     if fused:
         per_step.update({
@@ -1511,6 +1974,7 @@ def main(argv=None):
         "flash": lambda: kernel_flash(torch, dev),
         "fused_ce": lambda: kernel_fused_ce(torch, dev),
         "fused_adam": lambda: {"fused_adam": kernel_fused_adam(torch, dev)},
+        "splash": lambda: kernel_splash(torch, dev),
     }
     t0 = time.perf_counter()
     records = {}
@@ -1528,14 +1992,15 @@ def main(argv=None):
     emit(rec)
     torch.cuda.empty_cache()
 
-    # the dense-head / eager-AdamW leg first, then the fused configuration:
-    # one run prints both steps side by side. Each engine holds ~40 GB and is
-    # freed before the next.
+    # the dense-head / eager-AdamW leg first, then the fused configuration,
+    # then the splash leg: one run prints the steps side by side. Each
+    # engine holds ~40 GB and is freed before the next.
     train_launches = {}
-    for fused in (False, True):
+    for leg in ("train", "train_fused", "train_splash"):
         t0 = time.perf_counter()
-        rec, launches = train_phase(torch, dev, K, profile=args.profile, fused=fused)
-        train_launches[fused] = launches
+        rec, launches = train_phase(torch, dev, K, profile=args.profile,
+                                    fused=leg == "train_fused", splash=leg == "train_splash")
+        train_launches[leg] = launches
         rec["card"] = card
         rec["seconds"] = time.perf_counter() - t0
         emit(rec)
@@ -1544,25 +2009,37 @@ def main(argv=None):
               f"on {card}", flush=True)
         torch.cuda.empty_cache()
 
-    # serving kernels launch in the engine phase, training kernels in both
-    # train legs, the fused leg's four in the fused leg, and together they
-    # are every kernel
+    t0 = time.perf_counter()
+    rec, per_row_launches = engine_per_row_phase(torch, dev, K)
+    rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    torch.cuda.empty_cache()
+
+    # serving kernels launch in the engine phase, training kernels in the
+    # train legs, the fused leg's four in the fused leg, the splash kernels
+    # in the splash leg (and the splash forward in the per-row leg), and
+    # together they are every kernel
     launched = {name: serve_launches[name] for name in SERVE_KERNELS}
-    launched.update({name: train_launches[False][name] for name in TRAIN_KERNELS
+    launched.update({name: train_launches["train"][name] for name in TRAIN_KERNELS
                      if name not in SERVE_KERNELS})
-    launched.update({name: train_launches[True][name] for name in FUSED_KERNELS})
+    launched.update({name: train_launches["train_fused"][name] for name in FUSED_KERNELS})
+    launched.update({name: train_launches["train_splash"][name] for name in SPLASH_KERNELS})
     missing = [n for n, c in launched.items() if c <= 0]
-    missing += [n for n in TRAIN_KERNELS if train_launches[True][n] <= 0]
+    missing += [n for n in TRAIN_KERNELS if train_launches["train_fused"][n] <= 0]
+    missing += [f"{n} (engine_per_row)" for n in PER_ROW_KERNELS if per_row_launches[n] <= 0]
     if missing or set(launched) != set(K.KERNELS):
         raise AssertionError(
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
-            f"training {train_launches}, kernels {sorted(K.KERNELS)}")
+            f"training {train_launches}, per-row {per_row_launches}, "
+            f"kernels {sorted(K.KERNELS)}")
 
     kernels_line = []
     for name, k in K.KERNELS.items():
         rec = records[name]
         phase = ("engine" if name in SERVE_KERNELS
-                 else "train_fused" if name in FUSED_KERNELS else "train")
+                 else "train_fused" if name in FUSED_KERNELS
+                 else "train_splash" if name in SPLASH_KERNELS else "train")
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": str(k.source_path.relative_to(root)),
@@ -1573,6 +2050,9 @@ def main(argv=None):
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            **({"flash_ms": rec["flash_ms"],
+                "launches_engine_per_row": per_row_launches.get(name, 0)}
+               if name in SPLASH_KERNELS else {}),
             "matched": True,  # check_close raised otherwise
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

@@ -16,7 +16,17 @@ bodies are eager PyTorch:
   * ``decode_round`` runs n_steps decode iterations with the sampled token
     fed back on the device; the round's own K/V ride in side buffers
     [L, R, n, nkv, d] as the kernel's extra columns;
-  * every norm goes through ``rms_norm`` (the CUDA RMSNorm kernel on a card).
+  * every norm goes through ``rms_norm`` (the CUDA RMSNorm kernel on a card);
+  * ``_step_per_row`` runs each scheduled sequence on its own (the JAX
+    package's round-1 execution model, kept as the baseline): its chunk,
+    padded to a bucket of ``_CHUNK_BUCKETS``, through every layer, the
+    padded tail's K/V written to the trash block, attention over the
+    sequence's gathered context of max_blocks_per_seq × block_size keys.
+    With ``attention_impl="splash"`` and a sliding window that attention is
+    ``splash_prefill_attention`` (the splash forward kernel on a card, which
+    visits only the blocks in the band); otherwise the dense masked
+    ``mha_reference``, as in the JAX package. The batched step and the
+    fused rounds are the same for every ``attention_impl``.
 
 Where the JAX package scatters new K/V into a donated buffer and reads the
 pool at its step- or round-start state, the port writes the pools in
@@ -41,12 +51,24 @@ from deepspeed_tpu_torch.inference.sampling import row_keys, sample_tokens
 from deepspeed_tpu_torch.inference.v2.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.scheduler import RaggedScheduler
 from deepspeed_tpu_torch.models import transformer as T
+from deepspeed_tpu_torch.ops.attention.core import NEG_INF, mha_reference, window_too_far
 from deepspeed_tpu_torch.ops.attention.paged import (
     paged_attention,
     paged_chunk_attention,
     resolve_impl,
 )
+from deepspeed_tpu_torch.ops.sparse_attention.splash import splash_prefill_attention
 from deepspeed_tpu_torch.utils.logging import log_dist
+
+_CHUNK_BUCKETS = (1, 8, 32, 64, 128, 256, 512)
+
+
+def _bucket(n):
+    """The per-row step's chunk length for n tokens (the JAX package's)."""
+    for b in _CHUNK_BUCKETS:
+        if n <= b:
+            return b
+    return ((n + 255) // 256) * 256
 
 
 def _later(what: str, item: str):
@@ -143,8 +165,11 @@ class InferenceEngineV2:
             raise _later("speculative decoding (spec_k > 0)", "ROADMAP queue 1, item 4")
         if int(getattr(kv, "host_tier_bytes", 0) or 0) > 0:
             raise _later("the host block tier (host_tier_bytes > 0)", "ROADMAP queue 1, item 4")
-        if c.attention_impl == "splash" or c.attn_sparsity is not None:
-            raise _later("splash attention", "ROADMAP queue 2, item 4")
+        if c.attn_sparsity is not None:
+            # the steps serve the causal (windowed) mask: a sparsity layout
+            # would be served as another mask than the one it trained with
+            raise _later("serving an attn_sparsity layout",
+                         "ROADMAP queue 2, item 9: the layout-predicate sparse kernel")
         T._check_served(c)
         from deepspeed_tpu_torch.inference.v2.kv_pool import _check_dtype
 
@@ -226,9 +251,6 @@ class InferenceEngineV2:
 
     def spec_round(self, *a, **k):
         raise _later("speculative decoding (spec_round)", "ROADMAP queue 1, item 4")
-
-    def _step_per_row(self):
-        raise _later("the per-row step (_step_per_row)", "ROADMAP queue 1, item 4")
 
     def enable_tracing(self, *a, **k):
         raise _later("engine tracing spans", "ROADMAP queue 1, item 5: observability")
@@ -598,6 +620,83 @@ class InferenceEngineV2:
             seq.seen_tokens += len(toks)
             if not chunked:  # prompt complete: last-token logits usable
                 results[uid] = (logits_chk, j, toks_chk)
+        return results
+
+    # ------------------------------------------------------------------
+    def _row_step(self, tokens, start: int, n_valid: int, table):
+        """One sequence's bucketed chunk (or decode token) through every
+        layer: the port's form of the JAX package's ``_build_row_step``.
+        tokens: [t] host int32 (the first ``n_valid`` real, the tail
+        padding); start: the first position; table: the sequence's [B]
+        block table. Writes the chunk's K/V into the pools (the padded
+        tail's into the trash block), then attends over the gathered
+        context of S = B × block_size keys. Returns the fp32 logits [vocab]
+        of the last valid token."""
+        c, kv = self._mc, self.config.kv_cache
+        nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
+        bs, B = kv.block_size, kv.max_blocks_per_seq
+        S = B * bs
+        t = len(tokens)
+        glob = start + np.arange(t, dtype=np.int32)  # global positions of the chunk
+        blk = np.where(np.arange(t) < n_valid, table[np.clip(glob // bs, 0, B - 1)],
+                       kv.num_blocks)
+        tokens_d, pos_d, blk_d, row_d, table_d = _upload(
+            self.device, tokens, glob, blk, glob % bs, table)
+        splash = c.attention_impl == "splash" and c.sliding_window > 0
+        if not splash:
+            kpos = torch.arange(S, device=self.device)
+            mask = kpos[None, :] <= pos_d[:, None]  # [t, S] causal against global positions
+            if c.sliding_window:
+                mask &= ~window_too_far(pos_d[:, None], kpos[None, :], c.sliding_window)
+            bias = torch.where(mask, 0.0, NEG_INF)[None, None]
+        k_pool, v_pool = self._pool_views()
+        x = T.embed_tokens(self.params, tokens_d, pos_d, c)
+        for li in range(c.n_layers):
+            lp = self._layer_params[li]
+            # live length (HF max(position_ids)+1) from the valid tokens only
+            q, k, v = self._layer_qkv(lp, x, pos_d, start + n_valid)
+            self._scatter_kv(li, blk_d, row_d, k, v)
+            tbl = (table_d + li * (kv.num_blocks + 1)).long()
+            k_ctx = k_pool[tbl].reshape(S, nkv, d).transpose(0, 1)[None]
+            v_ctx = v_pool[tbl].reshape(S, nkv, d).transpose(0, 1)[None]
+            qh = q.transpose(0, 1)[None]  # [1, nh, t, d]
+            if splash:
+                out = splash_prefill_attention(qh, k_ctx, v_ctx, start, window=c.sliding_window,
+                                               block_kv=bs, scale=c.attn_scale)
+            else:
+                out = mha_reference(qh, k_ctx, v_ctx, causal=False, bias=bias,
+                                    scale=c.attn_scale)
+            x = self._layer_tail(lp, x, out[0].transpose(0, 1).reshape(t, nh, d))
+        last = self._final(x[min(max(n_valid - 1, 0), t - 1)][None])
+        return T._apply_lm_head(self.params, last, c)[0].float()
+
+    def _step_per_row(self) -> Dict[int, np.ndarray]:
+        """The per-row execution model (one forward per scheduled sequence),
+        kept as the baseline the batched step is measured against. Returns
+        host fp32 logits per row whose prompt (or decode token) completed."""
+        if self._mc.attn_layer_pattern is not None:
+            raise NotImplementedError(
+                "_step_per_row: alternating layer patterns run only through "
+                "the batched step (its unrolled layer loop)"
+            )
+        batch = self.scheduler.next_batch()
+        self.last_scheduled_tokens = batch.total_tokens if batch is not None else 0
+        self.last_capped |= self.scheduler.drain_capped()
+        if batch is None:
+            return {}
+        results: Dict[int, np.ndarray] = {}
+        for uid, toks, start, chunked in zip(
+            batch.uids, batch.tokens, batch.start_positions, batch.is_prompt_chunk
+        ):
+            seq = self.state_manager.get_sequence(uid)
+            t = len(toks)
+            padded = np.zeros(_bucket(t), np.int32)
+            padded[:t] = toks
+            table = self.state_manager.block_table_array(seq)
+            logits = self._row_step(padded, int(start), t, table)
+            seq.seen_tokens += t
+            if not chunked:  # prompt complete (or decode token): logits usable
+                results[uid] = logits.cpu().numpy()
         return results
 
     # -- convenience generation loop ---------------------------------------

@@ -15,12 +15,14 @@ the model dtype, the dense MLP, the LM head, and two forwards:
   * ``forward`` / ``forward_hidden``: the training path, as the JAX
     package's. Each layer casts its weights to the compute dtype, attention
     goes through ``ops.attention.core.attention`` (the flash kernels on a
-    card) and RMSNorm through ``rms_norm`` (the kernels forward and
-    backward on a card); ``remat`` runs each layer under
-    ``torch.utils.checkpoint``. ``make_loss_fn`` builds the causal-LM loss
-    on top.
+    card; with ``attention_impl="splash"`` or ``attn_sparsity`` the splash
+    kernels over the layer's block schedule) and RMSNorm through
+    ``rms_norm`` (the kernels forward and backward on a card); ``remat``
+    runs each layer under ``torch.utils.checkpoint``. ``make_loss_fn``
+    builds the causal-LM loss on top.
   * ``forward_reference``: the plain oracle on any device, with
-    ``mha_reference`` and ``rms_norm_reference``, never a kernel. The
+    ``mha_reference`` (with ``attn_sparsity``, the splash kernels' plain
+    forward over the layout) and ``rms_norm_reference``, never a kernel. The
     serving engine's tests and ``chip_smoke.py`` hold logits and gradients
     against it.
 
@@ -45,9 +47,33 @@ from deepspeed_tpu_torch.ops.normalization import (
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
-# attn_sparsity spec kinds (the JAX package's SparsityConfig families);
-# the config checks them, the splash kernel that reads them is not ported
+# attn_sparsity spec kinds → SparsityConfig families (ops/sparse_attention)
 _SPARSITY_KINDS = ("dense", "fixed", "bigbird", "bslongformer", "variable")
+
+
+@functools.lru_cache(maxsize=32)
+def _sparsity_schedule(spec, n_heads, seq_len, block, causal):
+    """attn_sparsity spec → compacted BlockSchedule, built once per (spec,
+    seq_len) and reused by every layer and step. The model's causal flag is
+    ANDed in: a bidirectional sparsity family under a causal LM must not
+    leak future positions."""
+    from deepspeed_tpu_torch.ops.sparse_attention import config as sa_config
+    from deepspeed_tpu_torch.ops.sparse_attention.schedule import schedule_from_layout
+
+    cls = {
+        "dense": sa_config.DenseSparsityConfig,
+        "fixed": sa_config.FixedSparsityConfig,
+        "bigbird": sa_config.BigBirdSparsityConfig,
+        "bslongformer": sa_config.BSLongformerSparsityConfig,
+        "variable": sa_config.VariableSparsityConfig,
+    }[spec[0]]
+    kwargs = dict(spec[1]) if len(spec) > 1 else {}
+    cfg = cls(num_heads=n_heads, **kwargs)
+    uni = getattr(cfg, "attention", "bidirectional") == "unidirectional"
+    return schedule_from_layout(
+        cfg.make_layout(seq_len), cfg.block, causal=causal or uni,
+        block_q=block or None, block_kv=block or None,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,8 +196,8 @@ class TransformerConfig:
     # flash ring when the mesh's `context` axis is >1, else the platform
     # best; "flash_ring" / "flash_head_sharded" / "flash" / "reference"
     # force a specific path (hard error when shapes/mesh don't support it);
-    # "splash" routes through the scheduled block-sparse kernel
-    # (ops/sparse_attention/splash_pallas.py) — masked kv blocks are never
+    # "splash" routes through the scheduled block-sparse kernels
+    # (ops/sparse_attention/splash.py) — masked kv blocks are never
     # scheduled, cost scales with mask density not s²
     attention_impl: str = "auto"
     # splash mask family as a hashable spec: (kind, ((kwarg, value), ...))
@@ -677,10 +703,26 @@ def embed_tokens(params, tokens, positions, config: TransformerConfig):
 # ---------------------------------------------------------------------------
 # forward: the training path and the plain oracle
 # ---------------------------------------------------------------------------
+def _attention_schedule(c: TransformerConfig, s: int):
+    """The splash schedule a layer hands ``attention``: the attn_sparsity
+    layout's, or with attention_impl="splash" and a ``splash_block`` the
+    (causal, window) mask's at that block; else None (the seam derives one
+    at its default block)."""
+    if c.attn_sparsity is not None:
+        return _sparsity_schedule(c.attn_sparsity, c.n_heads, s, c.splash_block, c.attn_causal)
+    if c.attention_impl == "splash" and c.splash_block:
+        from deepspeed_tpu_torch.ops.attention.core import _derived_splash_schedule
+
+        return _derived_splash_schedule(s, s, c.attn_causal, c.sliding_window, c.splash_block)
+    return None
+
+
 def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
                      window_flag=None, reference=False):
-    """Self-attention for one layer. x: [b, s, h]. ``reference`` takes
-    ``mha_reference``; otherwise ``attention(impl=c.attention_impl)``."""
+    """Self-attention for one layer. x: [b, s, h]. ``reference`` takes the
+    plain ``mha_reference`` (with attn_sparsity, the splash kernels' plain
+    forward over the layout's schedule); otherwise
+    ``attention(impl=c.attention_impl, schedule=...)``."""
     b, s, _ = x.shape
     nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
     q = _proj(c, x, lp["wq"])
@@ -699,10 +741,16 @@ def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
         k = _rope(k, positions, c, s)
     kw = dict(causal=c.attn_causal, segment_ids=segment_ids, scale=c.attn_scale,
               window=c.sliding_window, window_flag=window_flag)
-    if reference:
+    schedule = _attention_schedule(c, s)
+    if reference and c.attn_sparsity is not None:
+        from deepspeed_tpu_torch.ops.sparse_attention.splash import splash_fwd_reference
+
+        out = splash_fwd_reference(q, k, v, schedule, segment_ids=segment_ids,
+                                   scale=c.attn_scale)[0]
+    elif reference:
         out = mha_reference(q, k, v, **kw)
     else:
-        out = attention(q, k, v, impl=c.attention_impl, **kw)
+        out = attention(q, k, v, impl=c.attention_impl, schedule=schedule, **kw)
     out = _proj(c, out.transpose(1, 2).reshape(b, s, nh * d), lp["wo"])
     if c.attn_out_bias:
         out = out + lp["wo_b"]
@@ -739,10 +787,10 @@ def _layer(c: TransformerConfig, lp, x, positions, segment_ids=None, local_flag=
 
 def _check_forward(c: TransformerConfig):
     _check_served(c)
-    if c.attention_impl in ("splash", "flash_ring", "flash_head_sharded") or c.attn_sparsity:
+    if c.attention_impl in ("flash_ring", "flash_head_sharded"):
         raise NotImplementedError(
-            f"attention_impl={c.attention_impl!r} / attn_sparsity is not ported yet "
-            "(ROADMAP queue 2, item 4: splash; queue 1, item 6: multi-GPU)"
+            f"attention_impl={c.attention_impl!r} is not ported yet "
+            "(ROADMAP queue 1, item 6: multi-GPU)"
         )
     if c.mlm_head or c.type_vocab_size > 0:
         raise NotImplementedError(

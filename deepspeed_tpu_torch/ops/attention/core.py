@@ -10,17 +10,25 @@ sliding-window band convention, the plain reference attention and the
     "auto" takes its jnp reference off the TPU;
   * "flash": ``flash_attention`` on any device (its plain versions on the
     CPU);
+  * "splash": the scheduled block-sparse kernels
+    (``ops/sparse_attention/splash.py``) over ``schedule`` or, absent one,
+    the schedule the (causal, window) pair compiles into (lru-cached, built
+    once per shape); None / "auto" with a ``schedule`` promotes to them and,
+    where the arguments cannot take the scheduled path (a dense bias, a
+    per-layer window flag), warns once and falls back to the dense chain;
   * "reference": ``mha_reference``.
 
-ALiBi, a dense ``bias`` on the flash path, "splash", "flash_ring" and
+ALiBi, a dense ``bias`` on the flash path, "flash_ring" and
 "flash_head_sharded" raise ``NotImplementedError`` naming their ROADMAP
-items. On a card nothing here runs the plain version unless asked for by
-"reference".
+items, and so does splash on more than one process (head sharding). On a
+card nothing here runs the plain version unless asked for by "reference".
 
 Layout as in the JAX package: q [batch, heads, seq, head_dim], k/v
 [batch, kv_heads, seq, head_dim]; grouped-query attention repeats kv heads.
 """
 
+import functools
+import os
 from typing import Optional
 
 import torch
@@ -93,6 +101,70 @@ def _unported(what: str, item: str):
     return NotImplementedError(f"attention: {what} is not ported yet ({item})")
 
 
+_warned_splash_fallback = False
+
+
+@functools.lru_cache(maxsize=64)
+def _derived_splash_schedule(sq: int, sk: int, causal: bool, window: int, block: int):
+    """Schedule of the mask implied by (causal, window) alone: the
+    impl="splash" path with no explicit mask. Cached: built once per shape,
+    never per step."""
+    from deepspeed_tpu_torch.ops.sparse_attention.mask import CausalMask, FullMask, LocalMask
+    from deepspeed_tpu_torch.ops.sparse_attention.schedule import schedule_from_mask
+
+    if window and causal:
+        mask = LocalMask((sq, sk), window)
+    elif causal:
+        mask = CausalMask((sq, sk))
+    else:
+        mask = FullMask((sq, sk))
+    return schedule_from_mask(mask, block)
+
+
+def _pick_block(s: int, target: int) -> int:
+    """The first of target, target / 2, ... (at most s) that divides s (the
+    JAX package's ``flash_pallas._pick_block``): 512 at s 4096, 384 at s
+    384."""
+    b = min(target, s)
+    while s % b:
+        b //= 2
+    return max(b, 1)
+
+
+def _splash_block(s: int) -> int:
+    return _pick_block(s, int(os.environ.get("DSTPU_SPLASH_BLOCK", 512)))
+
+
+def _splash_dispatch(q, k, v, causal, segment_ids, bias, scale, window, window_flag, schedule,
+                     strict):
+    """impl="splash" (strict) or auto promotion (a schedule was configured).
+    Returns None when the arguments cannot take the scheduled path (the
+    caller falls back to the dense chain); strict mode raises instead."""
+    from deepspeed_tpu_torch.ops.sparse_attention.splash import splash_attention
+
+    def bail(msg):
+        if strict:
+            raise ValueError(f"attention(impl='splash'): {msg}")
+        return None
+
+    if bias is not None:
+        return bail("dense bias is not supported on the scheduled path")
+    if window_flag is not None:
+        return bail("a per-layer window flag cannot alter a static schedule (use the "
+                    "dense/flash path for flag-gated local layers)")
+    sq, sk = q.shape[2], k.shape[2]
+    if schedule is None:
+        block = _splash_block(min(sq, sk))
+        if sq % block or sk % block:
+            return bail(f"seq ({sq}, {sk}) does not divide block {block}")
+        schedule = _derived_splash_schedule(sq, sk, bool(causal), int(window or 0), block)
+    if torch.distributed.is_available() and torch.distributed.is_initialized() and (
+            torch.distributed.get_world_size() > 1):
+        raise _unported("splash on more than one process (head-sharded splash)",
+                        "ROADMAP queue 1, item 6: multi-GPU")
+    return splash_attention(q, k, v, schedule, segment_ids=segment_ids, scale=scale)
+
+
 def attention(
     q,
     k,
@@ -110,10 +182,23 @@ def attention(
 ):
     """Dispatching attention entry point (the JAX package's signature).
     See the module docstring for ``impl``."""
+    if alibi_slopes is not None and (impl == "splash" or schedule is not None):
+        raise ValueError("attention: ALiBi is not supported on the splash scheduled path")
     if alibi_slopes is not None or alibi_positions is not None:
         raise _unported("ALiBi", "ROADMAP queue 2, item 1: ALiBi on the flash kernel")
-    if impl == "splash" or schedule is not None:
-        raise _unported("splash (scheduled block-sparse) attention", "ROADMAP queue 2, item 4")
+    if impl == "splash" or (impl in (None, "auto") and schedule is not None):
+        out = _splash_dispatch(q, k, v, causal, segment_ids, bias, scale, window, window_flag,
+                               schedule, strict=impl == "splash")
+        if out is not None:
+            return out
+        global _warned_splash_fallback
+        if not _warned_splash_fallback:
+            _warned_splash_fallback = True
+            from deepspeed_tpu_torch.utils.logging import logger
+
+            logger.warning(
+                "configured splash schedule fell back to the dense dispatch chain "
+                "(bias/window-flag constraints) — sparsity will be masked, not pruned")
     if impl in ("flash_ring", "flash_head_sharded"):
         raise _unported(f"impl={impl!r}", "ROADMAP queue 1, item 6: multi-GPU")
     if impl == "reference":

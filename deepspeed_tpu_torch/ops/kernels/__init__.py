@@ -134,6 +134,30 @@ KERNELS: Dict[str, Kernel] = {
             "deepspeed_tpu/ops/attention/flash_pallas.py:220",
         ),
         Kernel(
+            "splash_fwd", "splash_fwd.cu", "dstt_splash_fwd",
+            # q, k, v, seg, kv_index, step_kind, out, lse, b, h, h_kv, sq, sk,
+            # d, scale, sched_heads, nq, width, block_q, block_kv, causal,
+            # window, seg_all, base, stream
+            [_P] * 8 + [_I] * 6 + [ctypes.c_float] + [_I] * 9 + [_P],
+            "deepspeed_tpu/ops/sparse_attention/splash_pallas.py:100",
+        ),
+        Kernel(
+            "splash_bwd_dq", "splash_bwd.cu", "dstt_splash_bwd_dq",
+            # q, k, v, o, do, lse, seg, kv_index, step_kind, dq, b, h, h_kv,
+            # sq, sk, d, scale, sched_heads, nq, width, block_q, block_kv,
+            # causal, window, seg_all, stream
+            [_P] * 10 + [_I] * 6 + [ctypes.c_float] + [_I] * 8 + [_P],
+            "deepspeed_tpu/ops/sparse_attention/splash_pallas.py:169",
+        ),
+        Kernel(
+            "splash_bwd_dkv", "splash_bwd.cu", "dstt_splash_bwd_dkv",
+            # q, k, v, o, do, lse, seg, q_index, step_kind_t, dk, dv, b, h,
+            # h_kv, sq, sk, d, scale, sched_heads, nk, width_t, block_q,
+            # block_kv, causal, window, seg_all, stream
+            [_P] * 11 + [_I] * 6 + [ctypes.c_float] + [_I] * 8 + [_P],
+            "deepspeed_tpu/ops/sparse_attention/splash_pallas.py:231",
+        ),
+        Kernel(
             "fused_ce_fwd", "fused_ce.cu", "dstt_fused_ce_fwd",
             # x, w, labels, pm, pl, tgt, loss, lse, n, h, V, stream
             [_P] * 8 + [_I] * 3 + [_P],

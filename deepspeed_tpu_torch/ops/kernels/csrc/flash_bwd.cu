@@ -12,7 +12,8 @@
 //
 // Design (mma.sync as flash_fwd.cu; CTAs of 4 warps, each warp owning 16
 // rows, every product's accumulator in registers, P and dS turned into A
-// fragments without leaving registers):
+// fragments without leaving registers; the per-tile bodies are
+// flash_common.cuh's dq_tile and dkv_tile, which splash_bwd.cu runs too):
 //  * dq: one CTA per (64-query tile, b * h); walks the live key tiles of
 //    its kv head like the forward: S = Q K^T and dP = dO V^T per tile, dS in
 //    registers, dQ += dS K; scales once at the end.
@@ -30,89 +31,13 @@ namespace {
 
 using namespace dstt::flash;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
+constexpr int BQ = TILE;
+constexpr int BK = TILE;
 
 template <int D>
 constexpr size_t bwd_smem_bytes() {
   return sizeof(bf16) * (2 * BQ + 2 * BK) * (D + PAD_H) +
          sizeof(float) * 2 * BQ + sizeof(int) * (BQ + BK + 2);
-}
-
-// delta[r] = sum_c do[r, c] * o[r, c] in fp32 for the BQ rows of a tile,
-// two threads per row, 16-byte loads of o issued together (dOs is the
-// shared dO tile, ob the global o rows of this head).
-template <int D>
-__device__ __forceinline__ void row_delta(const bf16* dOs, const bf16* ob, int q0, int s,
-                                          float* delta_s) {
-  static_assert(NTHREADS == 2 * BQ, "two threads per row");
-  constexpr int LD = D + PAD_H;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  float acc = 0.f;
-  if (q0 + r < s) {
-    const bf16* orow = ob + (int64_t)(q0 + r) * D + half * (D / 2);
-    const bf16* drow = dOs + r * LD + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; c += 8) {
-      float fo[8], fd[8];
-      dstt::load_vec<8>(orow + c, fo);
-      dstt::load_vec<8>(drow + c, fd);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc += fd[j] * fo[j];
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  if (!half) delta_s[r] = acc;
-}
-
-// Two products of one 16-row block against a 64-row tile, both into 8 C
-// tiles: x = A1 B1^T and y = A2 B2^T (A rows of this warp, B tiles n-major).
-template <int D>
-__device__ __forceinline__ void two_products(float (&x)[BK / 8][4], float (&y)[BK / 8][4],
-                                             const bf16* A1, const bf16* B1, const bf16* A2,
-                                             const bf16* B2, int r0, int lane) {
-  constexpr int LD = D + PAD_H;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
-    y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a1[4], a2[4];
-    ldsm_x4(a1, a_addr<LD>(A1, r0, kk * 16, lane));
-    ldsm_x4(a2, a_addr<LD>(A2, r0, kk * 16, lane));
-#pragma unroll
-    for (int jj = 0; jj < BK / 16; ++jj) {
-      uint32_t b[4];
-      ldsm_x4(b, b_addr<LD>(B1, jj * 16, kk * 16, lane));
-      mma16816(x[2 * jj], a1, b[0], b[1]);
-      mma16816(x[2 * jj + 1], a1, b[2], b[3]);
-      ldsm_x4(b, b_addr<LD>(B2, jj * 16, kk * 16, lane));
-      mma16816(y[2 * jj], a2, b[0], b[1]);
-      mma16816(y[2 * jj + 1], a2, b[2], b[3]);
-    }
-  }
-}
-
-// acc[:, c0 .. c0 + DC) += X * T where X is 16 x 64 in C tiles (rounded to
-// bf16 into A fragments) and T a 64-row shared tile stored k-major.
-template <int D, int DC>
-__device__ __forceinline__ void accumulate(float (&acc)[DC / 8][4], const float (&x)[BK / 8][4],
-                                           const bf16* T, int c0, int lane) {
-  constexpr int LD = D + PAD_H;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    uint32_t a[4];
-    c_to_a(a, x[2 * kk], x[2 * kk + 1]);
-#pragma unroll
-    for (int dd = 0; dd < DC / 16; ++dd) {
-      uint32_t b[4];
-      ldsm_x4_t(b, a_addr<LD>(T, kk * 16, c0 + dd * 16, lane));
-      mma16816(acc[2 * dd], a, b[0], b[1]);
-      mma16816(acc[2 * dd + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -134,7 +59,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(
   int* qrange = segk + BK;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2;
   const int q0 = heavy_first_query_tile(p, gridDim.y) * BQ;
   const int bh = blockIdx.x;
   const int bi = bh / p.h, hi = bh % p.h;
@@ -166,8 +91,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(
   const int row0 = q0 + lr0, row1 = q0 + lr1;
   const int sr0 = (seg && row0 < p.s) ? segq[lr0] : 0;
   const int sr1 = (seg && row1 < p.s) ? segq[lr1] : 0;
-  const float lse0 = lse_s[lr0], lse1 = lse_s[lr1];
-  const float del0 = delta_s[lr0], del1 = delta_s[lr1];
+  const float lse_r[2] = {lse_s[lr0], lse_s[lr1]};
+  const float del_r[2] = {delta_s[lr0], delta_s[lr1]};
 
   float acc[D / 8][4];
 #pragma unroll
@@ -192,38 +117,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(
     load_tile<BK, D>(Vs, vb, k0, p.s);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T; then dS = p * (dP - delta) into ds
-    float s[BK / 8][4], ds[BK / 8][4];
-    two_products<D>(s, ds, Qs, Ks, dOs, Vs, warp * 16, lane);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1);
-        const bool upper = e < 2;
-        bool ok = visible(p, upper ? row0 : row1, k0 + c);
-        if (ok && seg) ok = segk[c] == (upper ? sr0 : sr1);
-        const float pe = ok ? expf(s[j][e] * p.scale - (upper ? lse0 : lse1)) : 0.f;
-        ds[j][e] = pe * (ds[j][e] - (upper ? del0 : del1));
-      }
-    }
-    // dQ += dS K (K stored [key][d]: k-major for this product)
-    accumulate<D, D>(acc, ds, Ks, 0, lane);
+    dq_tile<D>(acc, Qs, dOs, Ks, Vs, p.scale, lse_r, del_r, [&](int c, bool upper) {
+      const bool ok = visible(p, upper ? row0 : row1, k0 + c);
+      return seg ? ok && segk[c] == (upper ? sr0 : sr1) : ok;
+    }, warp, lane);
   }
-
-  bf16* dqb = dq + qoff;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (row0 < p.s) {
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (int64_t)row0 * D + c) =
-          __floats2bfloat162_rn(acc[j][0] * p.scale, acc[j][1] * p.scale);
-    }
-    if (row1 < p.s) {
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (int64_t)row1 * D + c) =
-          __floats2bfloat162_rn(acc[j][2] * p.scale, acc[j][3] * p.scale);
-    }
-  }
+  store_rows<D, D>(dq + qoff, acc, p.scale, row0, row1, p.s, 0, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -245,7 +144,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(
   int* krange = segk + BK;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2;
   const int k0 = blockIdx.y * BK;  // the first key tiles carry the most work
   const int bkv = blockIdx.x;
   const int bi = bkv / p.h_kv, kvh = bkv % p.h_kv;
@@ -307,64 +206,25 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(
         row_delta<D>(dOs, o + qoff, q0, p.s, delta_s);
         __syncthreads();
 
-        // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys, columns
-        // the tile's queries
-        float pt[BK / 8][4], dst[BK / 8][4];
-        two_products<D>(pt, dst, Ks, Qs, Vs, dOs, warp * 16, lane);
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = j * 8 + 2 * t + (e & 1);  // query within the tile
-            const bool upper = e < 2;
-            bool ok = visible(p, q0 + c, upper ? key0 : key1);
-            if (ok && seg) ok = segq[c] == (upper ? sk0 : sk1);
-            const float pe = ok ? expf(pt[j][e] * p.scale - lse_s[c]) : 0.f;
-            pt[j][e] = pe;
-            dst[j][e] = pe * (dst[j][e] - delta_s[c]);
-          }
-        }
-        // dV += P^T dO and dK += dS^T Q (dO and Q stored [query][d])
-        accumulate<D, DC>(dva, pt, dOs, c0, lane);
-        accumulate<D, DC>(dka, dst, Qs, c0, lane);
+        dkv_tile<D, DC>(dka, dva, Ks, Vs, Qs, dOs, lse_s, delta_s, p.scale,
+                        [&](int c, bool upper) {
+                          const bool ok = visible(p, q0 + c, upper ? key0 : key1);
+                          return seg ? ok && segq[c] == (upper ? sk0 : sk1) : ok;
+                        }, c0, warp, lane);
       }
     }
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      const int c = c0 + j * 8 + 2 * t;
-      if (key0 < p.s) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + kvoff + (int64_t)key0 * D + c) =
-            __floats2bfloat162_rn(dka[j][0] * p.scale, dka[j][1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + kvoff + (int64_t)key0 * D + c) =
-            __floats2bfloat162_rn(dva[j][0], dva[j][1]);
-      }
-      if (key1 < p.s) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + kvoff + (int64_t)key1 * D + c) =
-            __floats2bfloat162_rn(dka[j][2] * p.scale, dka[j][3] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + kvoff + (int64_t)key1 * D + c) =
-            __floats2bfloat162_rn(dva[j][2], dva[j][3]);
-      }
-    }
+    store_rows<D, DC>(dk + kvoff, dka, p.scale, key0, key1, p.s, c0, lane);
+    store_rows<D, DC>(dv + kvoff, dva, 1.f, key0, key1, p.s, c0, lane);
   }
 }
 
 // ---------------------------------------------------------------------------
-template <typename K>
-int set_smem(K kernel, size_t bytes, bool& configured) {
-  if (configured) return 0;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  configured = true;
-  return 0;
-}
-
 template <int D>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
               const float* lse, bf16* dq, const Problem& p, cudaStream_t stream) {
   const size_t bytes = bwd_smem_bytes<D>();
   static bool configured = false;
-  if (int e = set_smem(flash_dq_kernel<D>, bytes, configured)) return e;
+  if (int e = set_max_smem(flash_dq_kernel<D>, bytes, configured)) return e;
   const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.s + BQ - 1) / BQ));
   flash_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, dq, p);
   return (int)cudaGetLastError();
@@ -375,7 +235,7 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const
                const float* lse, bf16* dk, bf16* dv, const Problem& p, cudaStream_t stream) {
   const size_t bytes = bwd_smem_bytes<D>();
   static bool configured = false;
-  if (int e = set_smem(flash_dkv_kernel<D, DC>, bytes, configured)) return e;
+  if (int e = set_max_smem(flash_dkv_kernel<D, DC>, bytes, configured)) return e;
   const dim3 grid((unsigned)(p.b * p.h_kv), (unsigned)((p.s + BK - 1) / BK));
   flash_dkv_kernel<D, DC><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, dk, dv, p);
   return (int)cudaGetLastError();

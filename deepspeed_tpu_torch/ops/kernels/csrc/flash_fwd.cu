@@ -15,7 +15,8 @@
 // tile, b * h); each warp owns 16 query rows. The Q tile sits in shared
 // memory; the CTA walks the key tiles of its kv head that the causal bound
 // and the static band leave live, and skips a tile whose segment ids
-// cannot meet the query tile's. Per 64-key tile: S = Q K^T with
+// cannot meet the query tile's. Per 64-key tile (flash_common.cuh's
+// fwd_tile, which splash_fwd.cu runs too): S = Q K^T with
 // mma.m16n8k16 (bf16 in, fp32 accumulate) into registers; the running max
 // and sum in fp32 per row (a row's values sit in 4 lanes); P rounded to
 // bf16 (as the Pallas body rounds p before p @ v) straight from the S
@@ -52,7 +53,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(
   int* qrange = segk + BK;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2;
   const int q0 = heavy_first_query_tile(p, gridDim.y) * BQ;
   const int bh = blockIdx.x;
   const int bi = bh / p.h, hi = bh % p.h;
@@ -86,7 +87,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(
   float o[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   int lo, hi_k;
   key_tiles<BQ, BK>(p, q0, lo, hi_k);
@@ -109,101 +110,13 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(
     load_tile<BK, D>(Vs, vb, k0, p.s);
     __syncthreads();
 
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 C tiles
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, a_addr<LD>(Qs, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int jj = 0; jj < BK / 16; ++jj) {
-        uint32_t b[4];
-        ldsm_x4(b, b_addr<LD>(Ks, jj * 16, kk * 16, lane));
-        mma16816(s[2 * jj], a, b[0], b[1]);
-        mma16816(s[2 * jj + 1], a, b[2], b[3]);
-      }
-    }
-
-    // mask and scale, then the online softmax of rows row0 / row1
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1);
-        const bool upper = e < 2;
-        bool ok = visible(p, upper ? row0 : row1, k0 + c);
-        if (ok && seg) ok = segk[c] == (upper ? sr0 : sr1);
-        s[j][e] = ok ? s[j][e] * p.scale : -INFINITY;
-        if (upper) mx0 = fmaxf(mx0, s[j][e]);
-        else mx1 = fmaxf(mx1, s[j][e]);
-      }
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float corr0 = mn0 == -INFINITY ? 1.f : expf(m0 - mn0);
-    const float corr1 = mn1 == -INFINITY ? 1.f : expf(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool upper = e < 2;
-        const float mn = upper ? mn0 : mn1;
-        const float pe = mn == -INFINITY ? 0.f : expf(s[j][e] - mn);
-        s[j][e] = pe;
-        if (upper) rs0 += pe;
-        else rs1 += pe;
-      }
-    }
-    l0 = l0 * corr0 + quad_sum(rs0);
-    l1 = l1 * corr1 + quad_sum(rs1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= corr0;
-      o[j][1] *= corr0;
-      o[j][2] *= corr1;
-      o[j][3] *= corr1;
-    }
-
-    // O += P V, P rounded to bf16 from the S accumulators
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        ldsm_x4_t(b, a_addr<LD>(Vs, kk * 16, dd * 16, lane));
-        mma16816(o[2 * dd], a, b[0], b[1]);
-        mma16816(o[2 * dd + 1], a, b[2], b[3]);
-      }
-    }
+    fwd_tile<D>(o, m, l, Qs, Ks, Vs, p.scale, -INFINITY, [&](int c, bool upper) {
+      const bool ok = visible(p, upper ? row0 : row1, k0 + c);
+      return seg ? ok && segk[c] == (upper ? sr0 : sr1) : ok;
+    }, warp, lane);
   }
-
-  // epilogue: O / l rounded once to bf16, lse = m + log(l)
-  bf16* ob = out + ((int64_t)bh * p.s) * D;
-  const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (row0 < p.s) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row0 * D + c) =
-          __floats2bfloat162_rn(o[j][0] / ls0, o[j][1] / ls0);
-    }
-    if (row1 < p.s) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row1 * D + c) =
-          __floats2bfloat162_rn(o[j][2] / ls1, o[j][3] / ls1);
-    }
-  }
-  if (t == 0) {
-    if (row0 < p.s) lse[(int64_t)bh * p.s + row0] = m0 + logf(ls0);
-    if (row1 < p.s) lse[(int64_t)bh * p.s + row1] = m1 + logf(ls1);
-  }
+  fwd_store<D>(out + (int64_t)bh * p.s * D, lse + (int64_t)bh * p.s, o, m, l, row0, row1, p.s,
+               lane);
 }
 
 template <int D>
@@ -211,12 +124,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            const Problem& p, cudaStream_t stream) {
   const size_t bytes = fwd_smem_bytes<D>();
   static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  if (int e = set_max_smem(flash_fwd_kernel<D>, bytes, configured)) return e;
   const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.s + BQ - 1) / BQ));
   flash_fwd_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

@@ -128,7 +128,7 @@ def test_train_phase_runs_end_to_end_on_cpu(one_thread):
         "rms_norm_bwd": 10}
     assert rec["phase"] == "train" and "checkpoint" not in rec
     assert (set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS)
-            | set(chip_smoke.FUSED_KERNELS)) == set(K.KERNELS)
+            | set(chip_smoke.FUSED_KERNELS) | set(chip_smoke.SPLASH_KERNELS)) == set(K.KERNELS)
 
 
 def test_train_fused_phase_runs_end_to_end_on_cpu(one_thread):
@@ -217,3 +217,80 @@ def test_flash_pairs_counts_the_visible_pairs():
     assert chip_smoke.flash_pairs(8, True, 2, None, None) == 15
     assert chip_smoke.flash_pairs(8, True, 2, 0, None) == 36
     assert chip_smoke.flash_pairs(8, True, 0, None, seg) == 15 + 6
+
+
+def test_train_splash_phase_runs_end_to_end_on_cpu(one_thread):
+    """The splash leg at 2 tiny layers: attention_impl="splash" takes the
+    splash Function's plain versions on CPU tensors, so the parity leg
+    (window 16 over 128 tokens, two packed segments) agrees with autograd
+    through forward_reference to fp32 rounding; the timed leg runs under
+    remat, so the forward and the norms count twice per layer."""
+    widths = dict(hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                  vocab_size=512, dtype="float32")
+    rec, launches = chip_smoke.train_phase(torch, torch.device("cpu"), K, widths=widths,
+                                           seq=128, layers=2, parity_layers=2, splash=True,
+                                           parity_window=16, timed_seq=256, timed_steps=2)
+    json.dumps(rec)
+    assert rec["phase"] == "train_splash" and rec["parity_window"] == 16
+    assert rec["seq"] == 256 and rec["window"] == 4096 and rec["remat"] is True
+    assert launches == {name: 0 for name in K.KERNELS}
+    par = rec["parity"]
+    assert par["loss_abs_diff"] < 1e-5
+    assert max(par["grad_rel_frobenius"].values()) < 1e-4
+    assert par["control_rel_frobenius_min"] > chip_smoke.PARITY_CONTROL_MIN
+    assert par["fixed_batch_losses"][-1] < par["fixed_batch_losses"][0]
+    assert rec["launches_per_optimizer_step"] == {
+        "splash_fwd": 8, "splash_bwd_dq": 4, "splash_bwd_dkv": 4, "rms_norm_fwd": 18,
+        "rms_norm_bwd": 10}
+    assert set(chip_smoke.SPLASH_KERNELS) | set(chip_smoke.SERVE_KERNELS) | set(
+        chip_smoke.TRAIN_KERNELS) | set(chip_smoke.FUSED_KERNELS) == set(K.KERNELS)
+
+
+def test_engine_per_row_phase_runs_end_to_end_on_cpu(one_thread):
+    """The per-row leg at 2 tiny layers with a window of 96 over a 256-key
+    context in 16-key blocks: every row step takes the splash prefill, its
+    schedule visits fewer blocks than the context holds, and the logits
+    agree with the plain forward and the dense per-row path."""
+    widths = dict(n_layers=2, hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                  vocab_size=512, dtype="float32", sliding_window=96)
+    engine_config = {
+        "dtype": "float32", "decode_steps": 1, "prompt_chunk": 32, "max_prompt_chunks": 2,
+        "kv_cache": {"block_size": 16, "num_blocks": 64, "max_blocks_per_seq": 16},
+        "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 96,
+                          "max_ragged_sequence_count": 4, "max_context": 256},
+    }
+    rec, launches = chip_smoke.engine_per_row_phase(
+        torch, torch.device("cpu"), K, widths=widths, engine_config=engine_config,
+        prompt_lens=(3, 150, 240), new_tokens=5)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    assert rec["launches_expected"]["splash_fwd"] == 2 * rec["row_steps"] > 0
+    assert rec["logit_rows_checked"] == 15
+    assert rec["logit_rel_err"] < 1e-4 and rec["dense_logit_rel_err"] < 1e-4
+    assert rec["logit_rel_err_shifted"] > chip_smoke.LOGIT_RTOL
+    assert rec["dense_token_agreement"] == 1.0
+    # a 32-token chunk's band of 96 + 32 keys touches at most 9 of 16 blocks
+    assert rec["blocks_in_context"] == 16
+    assert 0 < rec["blocks_visited"]["chunk"]["max"] <= 9
+    assert rec["blocks_visited"]["decode"]["max"] <= 7
+
+
+def test_splash_kernel_cases_on_plain_inputs():
+    """The kernels phase's cases at s 4096 with 2 heads: the schedules are
+    the ones the card checks (the 1024-window band prunes, the Fixed layouts
+    differ by head, query blocks 2 and 3 of (d) are dead), and the plain
+    forward gives 0 with lse -1e30 on the dead rows."""
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    cases = chip_smoke.splash_cases(torch, torch.device("cpu"), s=4096, h=2)
+    assert [c[0][:2] for c in cases] == ["a_", "b_", "c_", "d_"]
+    local, fixed, dead = cases[0][1], cases[1][1], cases[3][1]
+    assert local.block_q == 512 and local.grid_width == 3 and local.density < 0.5
+    assert cases[2][1] is local and cases[2][2] is not None
+    assert fixed.num_heads == 2 and not (fixed.kv_index[0] == fixed.kv_index[1]).all()
+    assert (dead.step_kind[0, 2:4] == 0).all() and (dead.step_kind[0, 4] > 0).any()
+    q, k, v, _ = (t.float() for t in chip_smoke.flash_inputs(
+        torch, torch.device("cpu"), 1, 2, 1, 4096, 64, seed=1))
+    out, lse = SP.splash_fwd_reference(q, k, v, dead)
+    assert not out[:, :, 1024:2048].any() and bool((lse[:, :, 1024:2048] == -1e30).all())
+    assert bool(out[:, :, 2048:].abs().sum(-1).gt(0).all())

@@ -195,14 +195,13 @@ def test_forward_matches_jax_forward():
     tp = params_from_numpy(jax.tree.map(np.asarray, jp))
     got = PT.forward_reference(tp, torch.from_numpy(toks), pcfg)[0]
     np.testing.assert_allclose(got.numpy(), want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
-    # the training forward, "auto" and "flash" (the flash Function's plain
-    # versions on CPU tensors), computes the same logits
-    for impl in ("auto", "flash"):
+    # the training forward, "auto", "flash" (the flash Function's plain
+    # versions on CPU tensors) and "splash" (the splash Function's plain
+    # versions over the window's block schedule), computes the same logits
+    for impl in ("auto", "flash", "splash"):
         cfg = PT.TransformerConfig(**MODEL, sliding_window=12, attention_impl=impl, remat=False)
         got = PT.forward(tp, torch.from_numpy(toks), cfg)[0]
         np.testing.assert_allclose(got.detach().numpy(), want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
-    with pytest.raises(NotImplementedError, match="queue 2, item 4"):
-        PT.forward({}, torch.from_numpy(toks), PT.TransformerConfig(**MODEL, attention_impl="splash"))
 
 
 @pytest.mark.parametrize("over,match", [
@@ -259,3 +258,106 @@ def test_rope_params_match_jax(scaling, seq_len):
     got_f, got_a = PT.rope_params(PT.TransformerConfig(**kw), 32, seq_len)
     np.testing.assert_allclose(got_f, np.asarray(want_f), rtol=1e-6, atol=0)
     assert got_a == pytest.approx(float(want_a), rel=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the per-row step, with and without splash
+# ---------------------------------------------------------------------------
+def _per_row(eng, ps, n_new):
+    """Greedy streams through ``_step_per_row`` alone, and every row's
+    logits in order."""
+    for uid, p in enumerate(ps):
+        eng.scheduler.submit(uid, p)
+    out = {uid: [] for uid in range(len(ps))}
+    logits = []
+    while eng.scheduler.has_work():
+        for uid, lg in eng._step_per_row().items():
+            logits.append(np.asarray(lg))
+            out[uid].append(int(np.argmax(lg)))
+            if len(out[uid]) >= n_new:
+                eng.scheduler.finish(uid)
+            else:
+                eng.scheduler.feedback(uid, out[uid][-1])
+    return out, logits
+
+
+def _splash_engines(window, impl, **over):
+    """(jax engine, port engine) with ``attention_impl=impl``."""
+    jcfg, jp = _jax_params(window)
+    jcfg = JT.TransformerConfig(**MODEL, sliding_window=window, attention_impl=impl)
+    pcfg = PT.TransformerConfig(**MODEL, sliding_window=window, attention_impl=impl)
+    pp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    ec = engine_config(**over)
+    return (JaxEngine(jcfg, jp, JaxEngineConfig.from_dict(ec)),
+            InferenceEngineV2(pcfg, pp, EngineConfig.from_dict(ec), device="cpu"))
+
+
+@pytest.mark.parametrize("window,impl", [(12, "splash"), (12, "auto"), (0, "splash")])
+def test_per_row_streams_match_jax(window, impl, monkeypatch):
+    """``_step_per_row`` greedy streams token for token against the JAX
+    engine's, with every row's logits. A spy on each package's
+    ``splash_prefill_attention`` shows which rows took it: with splash and a
+    window every row step does (the JAX side traces it once per chunk
+    bucket), otherwise none (the dense masked attention)."""
+    import importlib
+
+    from deepspeed_tpu_torch.inference.v2 import engine_v2 as pe_mod
+
+    # the package (deepspeed_tpu.ops exports a function under its name)
+    jsa = importlib.import_module("deepspeed_tpu.ops.sparse_attention")
+
+    counts = {"jax": 0, "port": 0}
+
+    def spy(side, real):
+        def call(*a, **k):
+            counts[side] += 1
+            return real(*a, **k)
+        return call
+
+    monkeypatch.setattr(jsa, "splash_prefill_attention",
+                        spy("jax", jsa.splash_prefill_attention))
+    monkeypatch.setattr(pe_mod, "splash_prefill_attention",
+                        spy("port", pe_mod.splash_prefill_attention))
+    je, pe = _splash_engines(window, impl)
+    ps = prompts(5, lens=(9, 40, 23))
+    jo, jl = _per_row(je, ps, 8)
+    po, pl = _per_row(pe, ps, 8)
+    assert po == jo
+    for a, b in zip(pl, jl):
+        np.testing.assert_allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+    taken = impl == "splash" and window > 0
+    # 3 prompts in chunks of at most 32 (2, 1, 1 chunks) + 7 decode tokens
+    # each, one row step apiece, every layer
+    assert counts["port"] == (MODEL["n_layers"] * (4 + 3 * 7) if taken else 0)
+    assert (counts["jax"] > 0) == taken
+
+
+def test_per_row_logits_match_plain_forward_and_the_batched_step():
+    """The splash per-row path's prefill logits against the port's plain
+    forward, and its greedy stream against ``generate`` (the batched step
+    and fused rounds, which no attention_impl changes)."""
+    _, pe = _splash_engines(12, "splash")
+    ps = prompts(6, lens=(30, 17))
+    po, pl = _per_row(pe, ps, 6)
+    for uid, p in enumerate(ps):
+        seq = list(p) + po[uid][:-1]
+        ref = PT.forward_reference(pe.params, torch.as_tensor([seq]), pe._mc)[0][0]
+        np.testing.assert_allclose(pl[uid], ref[len(p) - 1].numpy(), atol=LOGIT_ATOL,
+                                   rtol=LOGIT_RTOL)
+    _, batched = _splash_engines(12, "splash")
+    gen = batched.generate(ps, max_new_tokens=6)
+    for uid, p in enumerate(ps):
+        np.testing.assert_array_equal(gen[uid][len(p):], po[uid])
+
+
+def test_per_row_refuses_layer_patterns_and_serving_a_sparsity_layout():
+    _, jp = _jax_params(0)
+    pp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    cfg = EngineConfig.from_dict(engine_config())
+    eng = InferenceEngineV2(PT.TransformerConfig(**MODEL, sliding_window=8,
+                                                 attn_layer_pattern=(1, 0)), pp, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="layer patterns"):
+        eng._step_per_row()
+    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
+        InferenceEngineV2(PT.TransformerConfig(**MODEL, attn_sparsity=("bigbird",)), pp, cfg,
+                          device="cpu")

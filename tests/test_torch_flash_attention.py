@@ -157,8 +157,12 @@ def test_attention_dispatch_on_cpu():
     for impl in (None, "auto", "flash"):
         got = pcore.attention(q, k, v, segment_ids=seg, window=20, impl=impl)
         torch.testing.assert_close(got, ref, atol=FP32_ATOL, rtol=FP32_RTOL)
-    for kw, match in (({"impl": "splash"}, "queue 2, item 4"),
-                      ({"impl": "flash_ring"}, "queue 1, item 6"),
+    # "splash" is ported: over the (causal, window) pair's block schedule it
+    # is the same function; a schedule with "reference" is ignored, as in JAX
+    for kw in ({"impl": "splash"}, {"impl": "reference", "schedule": object()}):
+        got = pcore.attention(q, k, v, segment_ids=seg, window=20, **kw)
+        torch.testing.assert_close(got, ref, atol=FP32_ATOL, rtol=FP32_RTOL)
+    for kw, match in (({"impl": "flash_ring"}, "queue 1, item 6"),
                       ({"alibi_slopes": torch.ones(4)}, "ALiBi"),
                       ({"impl": "flash", "bias": torch.zeros(1, 4, 64, 64)}, "bias")):
         with pytest.raises(NotImplementedError, match=match):

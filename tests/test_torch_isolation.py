@@ -45,6 +45,11 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.muon",
     "deepspeed_tpu_torch.ops.normalization",
     "deepspeed_tpu_torch.ops.normalization.fused_norm",
+    "deepspeed_tpu_torch.ops.sparse_attention",
+    "deepspeed_tpu_torch.ops.sparse_attention.config",
+    "deepspeed_tpu_torch.ops.sparse_attention.mask",
+    "deepspeed_tpu_torch.ops.sparse_attention.schedule",
+    "deepspeed_tpu_torch.ops.sparse_attention.splash",
     "deepspeed_tpu_torch.parallel",
     "deepspeed_tpu_torch.parallel.sequence",
     "deepspeed_tpu_torch.parallel.sequence.tiled",

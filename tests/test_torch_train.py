@@ -448,10 +448,19 @@ def test_unported_loss_options_raise(over, match):
     (dict(position="alibi"), "alibi"),
 ])
 def test_unported_model_options_raise(over, match):
+    """What the model still refuses. Splash is ported (``match`` names the
+    ROADMAP item it used to raise with): without a window its derived
+    schedule is the causal mask, so the forward is the dense one."""
     jc, pc = _configs(**over)
     _, tp = _params(_configs()[0])
+    tokens = torch.arange(8, dtype=torch.long)[None]
+    if over == dict(attention_impl="splash"):
+        got = PT.forward(tp, tokens, pc)[0]
+        torch.testing.assert_close(got, PT.forward(tp, tokens, _configs()[1])[0],
+                                   atol=GRAD_ATOL, rtol=GRAD_RTOL)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        PT.forward(tp, torch.zeros(1, 8, dtype=torch.long), pc)
+        PT.forward(tp, tokens, pc)
 
 
 def test_unported_engine_api_raises():
@@ -688,3 +697,86 @@ def test_wall_clock_breakdown_timers(caplog):
     assert pt.trim_mean([], 0.1) == 0
     assert (pt.FORWARD_GLOBAL_TIMER, pt.BACKWARD_GLOBAL_TIMER, pt.STEP_GLOBAL_TIMER) == (
         jt.FORWARD_GLOBAL_TIMER, jt.BACKWARD_GLOBAL_TIMER, jt.STEP_GLOBAL_TIMER)
+
+
+# ---------------------------------------------------------------------------
+# splash attention through the model and the engine
+# ---------------------------------------------------------------------------
+SPLASH_ARCHS = {
+    "splash": dict(attention_impl="splash"),
+    "splash_window": dict(attention_impl="splash", n_kv_heads=2, sliding_window=8),
+    "splash_block": dict(attention_impl="splash", n_kv_heads=2, sliding_window=12,
+                         splash_block=8),
+    "bigbird": dict(attn_sparsity=("bigbird", (("block", 8), ("num_random_blocks", 1)))),
+    "fixed_splash_per_head": dict(attention_impl="splash", attn_sparsity=(
+        "fixed", (("block", 8), ("num_local_blocks", 2), ("different_layout_per_head", True),
+                  ("num_different_global_patterns", 2)))),
+    "packed_splash_window": dict(attention_impl="splash", n_kv_heads=2, sliding_window=8),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(SPLASH_ARCHS))
+def test_splash_forward_loss_and_grads_match_jax(arch):
+    """attention_impl="splash" (with and without a window, at the default
+    and at an explicit splash_block) and attn_sparsity layouts (BigBird's
+    random blocks; per-head Fixed layouts), packed segments too: logits of
+    ``forward``, loss and every leaf's gradient of ``make_loss_fn`` against
+    the JAX model, whose attention takes its Pallas splash bodies in
+    interpret mode. ``forward_reference`` (the plain oracle) agrees."""
+    jc, pc = _configs(**SPLASH_ARCHS[arch])
+    jp, tp = _params(jc)
+    rng = np.random.default_rng(len(arch) + 40)
+    if arch.startswith("packed"):
+        batch = _packed_batch(2, 32, jc.vocab_size, seed=3)
+    else:
+        batch = {"input_ids": rng.integers(0, jc.vocab_size, size=(2, 33)).astype(np.int32)}
+    toks = batch["input_ids"][:, :-1]
+    want = np.asarray(JT.forward(jp, jnp.asarray(toks), jc)[0])
+    for fwd in (PT.forward, PT.forward_reference):
+        got = fwd(tp, torch.from_numpy(toks), pc)[0]
+        np.testing.assert_allclose(got.detach().numpy(), want, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    jl, jg = jax.value_and_grad(JT.make_loss_fn(jc))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    pl, pg = _port_value_and_grad(pc, tp, batch)
+    np.testing.assert_allclose(pl, float(jl), rtol=LOSS_RTOL)
+    jg = _leaf_dict(jax.tree.map(np.asarray, jg))
+    for name, g in pg.items():
+        np.testing.assert_allclose(g, jg[name], atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_splash_sparsity_is_not_the_dense_mask():
+    """Control: a sparsity layout changes the logits against the dense
+    causal model (so the layout cases above compare something), and the
+    layout's schedule is built once for every layer and step."""
+    _, pc = _configs(**SPLASH_ARCHS["bigbird"])
+    _, dense = _configs()
+    _, tp = _params(_configs()[0])
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 256, size=(1, 64)))
+    assert (PT.forward(tp, toks, pc)[0] - PT.forward(tp, toks, dense)[0]).abs().max() > 1e-3
+    assert PT._attention_schedule(pc, 64) is PT._attention_schedule(pc, 64)
+    assert PT._attention_schedule(pc, 64).density < 0.5
+
+
+def test_splash_engine_trajectory_matches_jax():
+    """4 train_batch steps of attention_impl="splash" with a window (gas 2,
+    packed micro-batches, AdamW, WarmupLR, clipping) against the JAX engine,
+    in fp32."""
+    over = dict(n_kv_heads=2, attention_impl="splash", sliding_window=8)
+    jc, pc = _configs(**over)
+    jp, tp = _params(jc)
+    cfg = _ds_config()
+    je, *_ = deepspeed_tpu.initialize(model=JT.make_loss_fn(jc), model_parameters=jp,
+                                      config=copy.deepcopy(cfg))
+    pe, *_ = deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc), model_parameters=tp,
+                                            config=copy.deepcopy(cfg))
+    rng = np.random.default_rng(11)
+    for _ in range(4):
+        batch = _packed_batch(4, 16, 256, seed=int(rng.integers(1 << 30)))
+        np.testing.assert_allclose(float(pe.train_batch(batch=batch)),
+                                   float(je.train_batch(batch=batch)), rtol=1e-5)
+        np.testing.assert_allclose(pe.get_global_grad_norm(), je.get_global_grad_norm(),
+                                   rtol=1e-5)
+    jw = _leaf_dict(jax.tree.map(np.asarray, je.params))
+    for name, w in _leaf_dict(pe.params).items():
+        np.testing.assert_allclose(w.detach().numpy(), jw[name], atol=1e-4, rtol=0,
+                                   err_msg=name)
