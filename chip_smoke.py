@@ -18,7 +18,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    fused-CE kernels also at sizes that divide no tile; FusedAdam at steps 1
    and 1000, AdamW and L2 decay, and on a leaf with a ragged tail; the
    splash kernels over a LocalMask, per-head Fixed layouts, packed
-   segments, dead query blocks and the prefill form); then CUDA-event times
+   segments, dead query blocks and the prefill form; the paged kernel's
+   int8 form over ``quantize_kv`` codes of seeded bf16 K/V; block_quant bit
+   for bit at the engine's write shape and at a block of 2048 over a
+   4096 x 14336 tensor, deterministic and stochastic); then CUDA-event times
    of the kernel, the plain version and one PyTorch library call computing
    the same function (a yardstick only: the port never calls it), beside
    the least time the card could take (``bound_ms``); the splash kernels
@@ -30,6 +33,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    checked; then ``serving_benchmark`` prints generated tokens per second.
    With ``--profile``, a torch.profiler breakdown of a split step and a
    decode round follows (and of one train step after each train leg).
+3b. engine_int8: the same engine and prompts with
+   ``kv_cache_dtype="int8"``: logits against ``forward_reference`` (limit
+   0.1), against the bf16 phase's rows computed from the same tokens, and
+   against the same engine forced to ``paged_attention_impl="dense"``;
+   exact counts (int8 paged decode L and block_quant 2L per forward step);
+   ``serving_benchmark``; ``kv_pool_info`` beside the bf16 phase's. Then
+   the int8 per-row check: ``_step_per_row`` at 4 layers, 2 prompts of
+   ~1000 tokens, 8 new tokens, against the batched int8 step fed the same
+   tokens, and one sequence's blocks exported and imported bit for bit.
 4. train: Mistral-7B width, bf16. Parity leg (2 layers, seq 4096, a
    batch packed into two segments with positions restarting): the loss and
    every leaf's gradient of ``make_loss_fn`` (the kernels) against autograd
@@ -60,10 +72,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``forward_reference`` and against the dense per-row path fed the same
    tokens, the kv blocks each chunk's schedule visits, prefill tok/s.
 
-Serving kernels must launch in the engine phase, training kernels in the
-train legs, the fused configuration's four in its leg, the splash kernels
-in the splash leg (the forward also in the per-row leg): together every
-kernel. The line before the last lists the kernels; the last line is the
+Serving kernels must launch in the engine phase (the int8 pool's in
+engine_int8 and its per-row check), training kernels in the train legs,
+the fused configuration's four in its leg, the splash kernels in the
+splash leg (the forward also in the per-row leg): together every kernel. The line before the last lists the kernels; the last line is the
 result object. With no card, or outside a checkout, it exits non-zero and
 prints no result.
 """
@@ -728,20 +740,38 @@ def kernel_splash(torch, dev, b=1, h=32, h_kv=8, d=128, s=4096, timed=SPLASH_TIM
 
 class PagedWorld:
     """A flat multi-layer K/V pool at the engine's layout, plus the row
-    tables the split step and the fused round hand the kernel."""
+    tables the split step and the fused round hand the kernel. ``dtype`` is
+    the compute dtype (q, extras); with ``int8`` the pool holds
+    ``quantize_kv`` codes of seeded ``dtype`` K/V and their fp32 planes."""
 
-    def __init__(self, torch, dev, dtype, L, NB, bs, nkv, d, seed):
-        self.torch, self.dev, self.dtype = torch, dev, dtype
+    def __init__(self, torch, dev, dtype, L, NB, bs, nkv, d, seed, int8=False):
+        from deepspeed_tpu_torch.ops.quantizer.block_quant import quantize_kv
+
+        self.torch, self.dev, self.dtype, self.int8 = torch, dev, dtype, int8
         self.L, self.NB, self.NBp, self.bs, self.nkv, self.d = L, NB, NB + 1, bs, nkv, d
         gen = torch.Generator(device=dev).manual_seed(seed)
         shape = (L * (NB + 1), bs, nkv, d)
-        self.k = torch.empty(shape, device=dev, dtype=dtype)
-        self.v = torch.empty(shape, device=dev, dtype=dtype)
+        pool_dtype = torch.int8 if int8 else dtype
+        self.k = torch.empty(shape, device=dev, dtype=pool_dtype)
+        self.v = torch.empty(shape, device=dev, dtype=pool_dtype)
+        self.ks = torch.empty(shape[:-1], device=dev) if int8 else None
+        self.vs = torch.empty(shape[:-1], device=dev) if int8 else None
         # fill layer by layer: one fp32 layer at a time stays small
         for li in range(L):
             sl = slice(li * (NB + 1), (li + 1) * (NB + 1))
-            self.k[sl] = torch.randn((NB + 1,) + shape[1:], generator=gen, device=dev).to(dtype)
-            self.v[sl] = torch.randn((NB + 1,) + shape[1:], generator=gen, device=dev).to(dtype)
+            for pool, plane in ((self.k, self.ks), (self.v, self.vs)):
+                x = torch.randn((NB + 1,) + shape[1:], generator=gen, device=dev).to(dtype)
+                if int8:
+                    pool[sl], plane[sl] = quantize_kv(x)
+                else:
+                    pool[sl] = x
+
+    def pool(self):
+        """The pool keyword arguments of the paged functions."""
+        kw = dict(k_cache=self.k, v_cache=self.v)
+        if self.int8:
+            kw.update(k_scale=self.ks, v_scale=self.vs)
+        return kw
 
     def tables(self, rng, R, B, ctx, layer, active):
         """Distinct random blocks covering ``ctx[r]`` tokens per active row,
@@ -829,8 +859,10 @@ def paged_cases(torch, world, rng, R, nh, B, layer, E_round):
 def paged_bytes_ops(world, kw):
     """Bytes the kernel must move and operations it must do for these
     inputs: each valid key's K and V row once (non-trash blocks inside the
-    limit/causal/window range, valid extras), q, the tables and the
-    output; 4 * d FLOPs per valid key per query head."""
+    limit/causal/window range: d bytes and a 4-byte scale per head vector
+    in an int8 pool, d elements of q's dtype otherwise; valid extras in q's
+    dtype), q, the tables and the output; 4 * d FLOPs per valid key per
+    query head."""
     import numpy as np
 
     q = kw["q"]
@@ -850,21 +882,27 @@ def paged_bytes_ops(world, kw):
         for kp in range(lo, max(lo, hi)):
             if tables[r, kp // bs] % world.NBp != world.NB:  # not the trash block
                 keys += 1
+    extras = 0
     extra = kw.get("extra_kv")
     if extra is not None:
         epos = extra[2].cpu().numpy()
         ok = (epos >= 0) & (epos <= qpos[:, None])
         if window:
             ok &= (qpos[:, None] - epos) < window
-        keys += int(ok.sum())
+        extras = int(ok.sum())
     el = q.element_size()
-    moved = keys * 2 * nkv * d * el + 2 * q.numel() * el + tables.size * 4 + R * 4 * 2
-    ops = keys * (nh // nkv) * nkv * 4 * d
+    pool_row = d + 4 if world.int8 else d * el  # one head vector of the pool
+    moved = (keys * 2 * nkv * pool_row + extras * 2 * nkv * d * el + 2 * q.numel() * el
+             + tables.size * 4 + R * 4 * 2)
+    ops = (keys + extras) * (nh // nkv) * nkv * 4 * d
     return moved, ops
 
 
 def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=8, d=128,
-                        E_round=64, seed=0):
+                        E_round=64, seed=0, int8=False):
+    """The paged-decode kernel (``int8``: its int8 form, ``paged_decode_int8``,
+    over a pool of ``quantize_kv`` codes and planes made from seeded bf16
+    K/V) against its plain version at the engine's shapes, then timed."""
     import numpy as np
 
     from deepspeed_tpu_torch.ops.attention.paged import (
@@ -872,31 +910,32 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
         paged_decode_attention_dense,
     )
 
+    name_k = "paged_decode_int8" if int8 else "paged_decode"
     rng = np.random.default_rng(seed)
     errs = {}
     # full width: the Mistral-7B flat pool (> 2^31 elements), bf16, last layer
-    world = PagedWorld(torch, dev, torch.bfloat16, L, NB, bs, nkv, d, seed)
+    world = PagedWorld(torch, dev, torch.bfloat16, L, NB, bs, nkv, d, seed, int8=int8)
     if world.k.numel() < 2 ** 31:
         raise AssertionError("the full-width pool should exceed 2^31 elements")
     cases = paged_cases(torch, world, rng, R, nh, B, L - 1, E_round)
     for name, kw in cases:
-        got = paged_decode(k_cache=world.k, v_cache=world.v, **kw)
-        want = paged_decode_attention_dense(k_cache=world.k, v_cache=world.v, **kw)
-        errs[name] = check_close(torch, f"paged_decode {name}", got, want, BF16_ATOL, BF16_RTOL)
+        got = paged_decode(**world.pool(), **kw)
+        want = paged_decode_attention_dense(**world.pool(), **kw)
+        errs[name] = check_close(torch, f"{name_k} {name}", got, want, BF16_ATOL, BF16_RTOL)
         if name == "causal_window_scale" and bool(got[0].float().abs().max() != 0):
-            raise AssertionError("paged_decode: an all-trash row must give exactly 0")
+            raise AssertionError(f"{name_k}: an all-trash row must give exactly 0")
         if name.startswith("split") and bool(got[-4:].float().abs().max() != 0):
-            raise AssertionError("paged_decode: padded slots (q_pos = -1) must give exactly 0")
+            raise AssertionError(f"{name_k}: padded slots (q_pos = -1) must give exactly 0")
     # other head dims, GQA groups and fp32, at a small pool
     for dt, dd, hh, kvh in ((torch.float32, 64, 8, 2), (torch.float32, 256, 4, 4),
                             (torch.bfloat16, 64, 32, 2), (torch.float32, 128, 12, 4)):
-        small = PagedWorld(torch, dev, dt, 2, 24, 16, kvh, dd, seed + 1)
+        small = PagedWorld(torch, dev, dt, 2, 24, 16, kvh, dd, seed + 1, int8=int8)
         tol = (FP32_ATOL, FP32_RTOL) if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
         for name, kw in paged_cases(torch, small, rng, 6, hh, 4, 1, 8):
-            got = paged_decode(k_cache=small.k, v_cache=small.v, **kw)
-            want = paged_decode_attention_dense(k_cache=small.k, v_cache=small.v, **kw)
+            got = paged_decode(**small.pool(), **kw)
+            want = paged_decode_attention_dense(**small.pool(), **kw)
             key = f"{name}_{str(dt).split('.')[-1]}_d{dd}_g{hh // kvh}"
-            errs[key] = check_close(torch, f"paged_decode {key}", got, want, *tol)
+            errs[key] = check_close(torch, f"{name_k} {key}", got, want, *tol)
         del small
     torch.cuda.synchronize()
 
@@ -911,18 +950,16 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
         kw["trash_block"] = world.trash(li)
         layer_kw.append(kw)
     it = iter(range(1 << 30))
-    ms = time_ms(torch, lambda: paged_decode(
-        k_cache=world.k, v_cache=world.v, **layer_kw[next(it) % 8]))
+    ms = time_ms(torch, lambda: paged_decode(**world.pool(), **layer_kw[next(it) % 8]))
     plain_ms = time_ms(torch, lambda: paged_decode_attention_dense(
-        k_cache=world.k, v_cache=world.v, **layer_kw[next(it) % 8]), iters=5)
+        **world.pool(), **layer_kw[next(it) % 8]), iters=5)
     library_ms = sdpa_ms(torch, world, round_kw)
-    call_ms = eager_ms(torch, lambda: paged_decode(
-        k_cache=world.k, v_cache=world.v, **layer_kw[next(it) % 8]))
+    call_ms = eager_ms(torch, lambda: paged_decode(**world.pool(), **layer_kw[next(it) % 8]))
     moved, ops = paged_bytes_ops(world, round_kw)
     split_moved, _ = paged_bytes_ops(world, cases[0][1])
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_FLOPS
     return {
-        "name": "paged_decode",
+        "name": name_k,
         "shape": {"R": R, "nh": nh, "nkv": nkv, "d": d, "bs": bs, "B": B, "E": E_round,
                   "pool": list(world.k.shape)},
         "max_abs_err": max(errs.values()),
@@ -931,7 +968,9 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
         "ms": ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
-        "library": "torch.nn.functional.scaled_dot_product_attention on the gathered context",
+        "library": "torch.nn.functional.scaled_dot_product_attention on the gathered context"
+                   + (", already dequantized to bf16 (no one PyTorch call dequantizes and "
+                      "attends)" if int8 else ""),
         "eager_call_ms": call_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -943,15 +982,22 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
 def sdpa_ms(torch, world, kw):
     """One SDPA call over the round form's gathered context (pool blocks
     then extras, with the same mask as a boolean attn_mask): a yardstick,
-    timed on pre-gathered inputs."""
+    timed on pre-gathered (and, for an int8 pool, pre-dequantized)
+    inputs."""
     q = kw["q"]
     R, nh, d = q.shape
     bs, nkv = world.bs, world.nkv
     tables = kw["block_tables"].long()
     B = tables.shape[1]
     S = B * bs
-    k = world.k[tables].permute(0, 3, 1, 2, 4).reshape(R, nkv, S, d)
-    v = world.v[tables].permute(0, 3, 1, 2, 4).reshape(R, nkv, S, d)
+
+    def gathered(pool, plane):
+        g = pool[tables]
+        if plane is not None:  # int8: dequantized before the call
+            g = (g.float() * plane[tables][..., None]).to(q.dtype)
+        return g.permute(0, 3, 1, 2, 4).reshape(R, nkv, S, d)
+
+    k, v = gathered(world.k, world.ks), gathered(world.v, world.vs)
     ke, ve, epos = kw["extra_kv"]
     k = torch.cat([k, ke.permute(0, 2, 1, 3)], dim=2).contiguous()
     v = torch.cat([v, ve.permute(0, 2, 1, 3)], dim=2).contiguous()
@@ -1174,6 +1220,104 @@ def kernel_fused_adam(torch, dev, shape=(4096, 14336)):
     }
 
 
+# the block-quant kernel: the engine's quantize-on-write at a split step's
+# shape (the K or V of 32 decode slots + 4 chunks of 256 tokens: 8448 head
+# vectors of 128) and the JAX package's default block of 2048 over a
+# 4096 x 14336 bf16 tensor (one Mistral-7B MLP weight), each in the
+# deterministic and the stochastic mode
+QUANT_WRITE_ROWS = (32 + 4 * 256) * 8
+QUANT_SEED = 1234
+
+
+def block_quant_inputs(torch, dev, rows=QUANT_WRITE_ROWS, d=128, shape=(4096, 14336)):
+    """The engine's write (bf16 [rows, d], its first head vector zero) and
+    a weight-sized bf16 tensor, from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(80)
+    x_kv = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
+    x_kv[0] = 0  # a zero head vector: scale 0, codes 0
+    x_big = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    return x_kv, x_big
+
+
+def block_quant_mismatches(torch, x_kv, x_big, block):
+    """Elements where ``block_quant`` (codes, or scales by their bits) and
+    ``quantize_kv`` / ``quantize_blockwise_kernel`` differ from their plain
+    versions, by case, in the deterministic and the stochastic mode."""
+    from deepspeed_tpu_torch.ops.quantizer import block_quant as BQ
+
+    d = x_kv.shape[1]
+    inputs = {f"kv_write_d{d}": x_kv, f"blockwise_{block}": x_big.view(-1, block),
+              f"kv_write_d{d}_fp32": x_kv.float()}
+    mismatches = {}
+    for name, x in inputs.items():
+        for stochastic in (False, True):
+            got = BQ.block_quant(x, 127.0, stochastic, QUANT_SEED)
+            want = BQ.block_quant_reference(x, 127.0, stochastic, QUANT_SEED)
+            tag = f"{name}_{'stochastic' if stochastic else 'deterministic'}"
+            mismatches[tag] = int((got[0] != want[0]).sum()) + int(
+                (got[1].view(torch.int32) != want[1].view(torch.int32)).sum())
+            if stochastic:  # every code is the floor or the ceiling of x * inv
+                scaled = x.float() * torch.where(want[1] > 0, 1 / want[1], 0)[:, None]
+                off = (got[0].float() - scaled).abs().max()
+                if float(off) >= 1:
+                    raise AssertionError(f"block_quant {tag}: a code {float(off)} from x * inv")
+            del got, want
+    # the engine's entry (a [t, nkv, d] write) and the int4 post-pass
+    q, sc = BQ.quantize_kv(x_kv.view(-1, 8, d))
+    want = BQ.block_quant_reference(x_kv, 127.0)
+    mismatches["quantize_kv"] = int((q.view(-1, d) != want[0]).sum()) + int(
+        (sc.reshape(-1) != want[1]).sum())
+    got4 = BQ.quantize_blockwise_kernel(x_big, bits=4, block_size=block)
+    want4 = BQ.quantize_blockwise_kernel_reference(x_big, bits=4, block_size=block)
+    mismatches["blockwise_int4"] = int((got4.values != want4.values).sum()) + int(
+        (got4.scales != want4.scales).sum())
+    return mismatches
+
+
+def kernel_block_quant(torch, dev, rows=QUANT_WRITE_ROWS, d=128, shape=(4096, 14336),
+                       block=2048):
+    """``block_quant`` bitwise against its plain version (codes and scales
+    equal, no tolerance), then timed at both shapes."""
+    from deepspeed_tpu_torch.ops.quantizer import block_quant as BQ
+
+    x_kv, x_big = block_quant_inputs(torch, dev, rows, d, shape)
+    mismatches = block_quant_mismatches(torch, x_kv, x_big, block)
+    if any(mismatches.values()):
+        raise AssertionError(f"block_quant differs from its plain version: {mismatches}")
+    torch.cuda.synchronize()
+
+    def timings(x, plain_iters):
+        n, blk = x.shape
+        moved = n * blk * (x.element_size() + 1) + n * 4
+        return {
+            "ms": time_ms(torch, lambda: BQ.block_quant(x, 127.0)),
+            "stochastic_ms": time_ms(torch, lambda: BQ.block_quant(x, 127.0, True, QUANT_SEED)),
+            "plain_ms": time_ms(torch, lambda: BQ.block_quant_reference(x, 127.0),
+                                iters=plain_iters),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "bytes": moved,
+        }
+
+    main = timings(x_kv, 20)
+    big = timings(x_big.view(-1, block), 5)
+    # about ten operations per element (abs, max, two products, round,
+    # clip, convert) against bytes at >= 3 per element: bytes bound it
+    return {
+        "name": "block_quant",
+        "shape": {"write": [rows, d], "blockwise": [*shape], "block": block},
+        "max_abs_err": 0.0,
+        "mismatches_by_case": mismatches,
+        "tolerance": "bitwise (codes and scales equal)",
+        **main,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library": None,
+        "library_none_because": "no single PyTorch call quantizes to int8 with one absmax "
+                                "scale per block",
+        f"blockwise_{block}": big,
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine at Mistral-7B width
 # ---------------------------------------------------------------------------
@@ -1199,6 +1343,12 @@ SEED = 0
 # units in the last place (0.027 at most over the 32 slots on an H100);
 # logits of another position differ by order 1 (0.53 at least there).
 LOGIT_RTOL = 0.05
+# the int8 pool's logits against the plain forward (which attends over
+# unquantized K/V) and against the bf16 engine's: int8 codes carry a
+# rounding error of up to absmax / 254 per head-vector element, on top of
+# the bf16 differences above; the limit was set before the first run on the
+# card, and the negative control (0.53 above) stays well outside it
+INT8_LOGIT_RTOL = 0.1
 
 
 def rows_rel_err(torch, got, want):
@@ -1214,57 +1364,30 @@ def _sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
-    """The serving path, counted. ``widths``/``engine_config`` shrink the
-    model and the engine for a rehearsal on the CPU; the card run uses
-    neither, and serves the preset at its full depth."""
+def serve_counted_path(torch, dev, eng, prompts):
+    """Drive the serving main path: every prompt through ``step()``, two
+    single decode steps, one fused ``decode_round(64)``, greedy tokens fed
+    back. Returns the host logits of the prefill rows and the decode steps,
+    the round's tokens and logits (on the device, as the engine hands them
+    to its sampler: no copy and no launch), the token streams and the
+    counts and seconds."""
     import numpy as np
 
-    from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
-    from deepspeed_tpu_torch.inference.v2.engine_v2 import (
-        InferenceEngineV2,
-        serving_benchmark,
-    )
-    from deepspeed_tpu_torch.models import transformer as T
-
-    t0 = time.perf_counter()
-    cfg = T.get_config(MODEL, **(widths or {}))
-    rec = {"phase": "engine", "model": MODEL, "n_layers": cfg.n_layers}
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = T.init_params(cfg, gen, dev)
-    rc = RaggedInferenceEngineConfig.from_dict(engine_config or ENGINE_CONFIG)
-    eng = InferenceEngineV2(cfg, params, rc, device=dev.type)
-    if dev.type == "cuda" and eng.paged_attention_impl != "kernel":
-        raise AssertionError(f"paged_attention_impl resolved to {eng.paged_attention_impl}")
-    _sync(torch, dev)
-    rec["params"] = T.num_params(eng.params)
-    rec["setup_seconds"] = time.perf_counter() - t0
-    L = cfg.n_layers
-
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(64, 512, size=32)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
-
-    # ---- the main path, counted: prefill through step(), two single
-    # decode steps, one fused round
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    K.reset_counts()
+    out = {"split_steps": 0}
     t0 = time.perf_counter()
     for uid, p in enumerate(prompts):
         eng.scheduler.submit(uid, p)
     prefill_logits = {}
-    split_steps = 0
     while eng.scheduler.has_pending():
         prefill_logits.update(eng.step())
-        split_steps += 1
+        out["split_steps"] += 1
         if eng.last_scheduled_tokens == 0:
             raise AssertionError("prefill stalled: nothing schedulable")
     _sync(torch, dev)
-    rec["prefill_seconds"] = time.perf_counter() - t0
-    rec["prefill_steps"] = split_steps
-    if sorted(prefill_logits) != list(range(32)):
-        raise AssertionError(f"prefill completed {len(prefill_logits)} of 32 prompts")
+    out["prefill_seconds"] = time.perf_counter() - t0
+    out["prefill_steps"] = out["split_steps"]
+    if sorted(prefill_logits) != list(range(len(prompts))):
+        raise AssertionError(f"prefill completed {len(prefill_logits)} of {len(prompts)} prompts")
     seqs = {uid: list(p) for uid, p in enumerate(prompts)}
     decode_logits = []
     last = prefill_logits
@@ -1274,15 +1397,12 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
             seqs[uid].append(tok)
             eng.scheduler.feedback(uid, tok)
         last = eng.step()
-        split_steps += 1
+        out["split_steps"] += 1
         decode_logits.append(last)
     for uid, lg in last.items():
         tok = int(np.argmax(lg))
         seqs[uid].append(tok)
         eng.scheduler.feedback(uid, tok)
-    # the round's logits as the engine hands them to its sampler (a
-    # reference kept, no copy and no launch), to hold every round step
-    # against the plain forward
     round_logits = []
     sample = eng._sample
 
@@ -1294,14 +1414,99 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
     t0 = time.perf_counter()
     rounds = eng.decode_round(64)
     _sync(torch, dev)
-    rec["round_seconds"] = time.perf_counter() - t0
+    out["round_seconds"] = time.perf_counter() - t0
     del eng._sample  # back to the class's method
-    rec["round_tok_s"] = 32 * 64 / rec["round_seconds"]
+    out.update(prefill_logits=prefill_logits, decode_logits=decode_logits, rounds=rounds,
+               round_logits=torch.stack(round_logits), seqs=seqs)
+    return out
+
+
+def logit_rows(torch, run, uid, row):
+    """uid's 67 logits rows of a ``serve_counted_path`` run (prefill, two
+    decode steps, 64 round steps: positions n_p - 1 ... n_p + 65) as one
+    fp32 tensor on the round's device, and the 67 + n_p - 1 tokens they
+    were computed from."""
+    dev = run["round_logits"].device
+    rows = [torch.as_tensor(run["prefill_logits"][uid], device=dev)[None]]
+    rows += [torch.as_tensor(d[uid], device=dev)[None] for d in run["decode_logits"]]
+    rows.append(run["round_logits"][:, row].float())
+    return torch.cat([r.float() for r in rows]), run["seqs"][uid] + [
+        int(t) for t in run["rounds"][uid]][:-1]
+
+
+def common_rows_rel_err(torch, mine, other, n_p):
+    """rows_rel_err over the rows two runs computed from the same tokens:
+    ``mine``/``other`` are ``logit_rows`` results of one uid. Returns
+    (error or None, rows compared)."""
+    (a, ta), (b, tb) = mine, other
+    same = 0
+    while same < min(len(ta), len(tb)) and ta[same] == tb[same]:
+        same += 1
+    n = max(0, min(same - n_p + 1, a.shape[0]))
+    if n == 0:
+        return None, 0
+    return rows_rel_err(torch, a[:n], torch.as_tensor(b[:n])), n
+
+
+def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False,
+                 kv_cache_dtype="bf16", keep=None, bf16_rows=None):
+    """The serving path, counted. ``widths``/``engine_config`` shrink the
+    model and the engine for a rehearsal on the CPU; the card run uses
+    neither, and serves the preset at its full depth. ``kv_cache_dtype=
+    "int8"`` is the engine_int8 phase: the same prompts, logits also held
+    against the bf16 phase's (``bf16_rows``, which a bf16 run fills through
+    ``keep``) and against the same engine forced to the plain gathers."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import (
+        InferenceEngineV2,
+        serving_benchmark,
+    )
+    from deepspeed_tpu_torch.models import transformer as T
+
+    int8 = kv_cache_dtype == "int8"
+    t0 = time.perf_counter()
+    cfg = T.get_config(MODEL, **(widths or {}))
+    rec = {"phase": "engine_int8" if int8 else "engine", "model": MODEL,
+           "n_layers": cfg.n_layers, "kv_cache_dtype": kv_cache_dtype}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = T.init_params(cfg, gen, dev)
+    ec = dict(engine_config or ENGINE_CONFIG)
+    ec["kv_cache"] = dict(ec["kv_cache"], kv_cache_dtype=kv_cache_dtype)
+    rc = RaggedInferenceEngineConfig.from_dict(ec)
+    eng = InferenceEngineV2(cfg, params, rc, device=dev.type)
+    if dev.type == "cuda" and eng.paged_attention_impl != "kernel":
+        raise AssertionError(f"paged_attention_impl resolved to {eng.paged_attention_impl}")
+    _sync(torch, dev)
+    rec["params"] = T.num_params(eng.params)
+    rec["setup_seconds"] = time.perf_counter() - t0
+    rec["kv_pool_info"] = eng.kv_pool_info()
+    L = cfg.n_layers
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 512, size=32)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+
+    # ---- the main path, counted: prefill through step(), two single
+    # decode steps, one fused round
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    run = serve_counted_path(torch, dev, eng, prompts)
     launches = K.counts()
+    split_steps, rounds = run["split_steps"], run["rounds"]
+    for key in ("prefill_seconds", "prefill_steps", "round_seconds"):
+        rec[key] = run[key]
+    rec["round_tok_s"] = 32 * 64 / rec["round_seconds"]
     rec["launches"] = launches
     fwd_steps = split_steps + 64
     expected = {name: 0 for name in launches}
-    expected.update({"rms_norm_fwd": (2 * L + 1) * fwd_steps, "paged_decode": L * fwd_steps})
+    expected["rms_norm_fwd"] = (2 * L + 1) * fwd_steps
+    if int8:  # quantize-on-write: K and V of every layer of every forward step
+        expected.update({"paged_decode_int8": L * fwd_steps, "block_quant": 2 * L * fwd_steps})
+    else:
+        expected["paged_decode"] = L * fwd_steps
     rec["launches_expected"] = expected
     rec["forward_steps"] = {"split": split_steps, "round": 64}
     if dev.type == "cuda" and launches != expected:  # the CPU runs the plain versions
@@ -1315,45 +1520,51 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
 
     # ---- the plain forward_reference (plain RMSNorm, dense attention: no kernel) on
     # the same tokens, for every slot
-    round_logits = torch.stack(round_logits)  # [64, R, V]; row i is the round's i-th uid
+    rtol = INT8_LOGIT_RTOL if int8 else LOGIT_RTOL
     errs = {"prefill": [], "decode": [], "round": [], "shifted": []}
     agree = []
+    rows_of = {}
     for row, uid in enumerate(rounds):
         got_tok = torch.as_tensor(np.asarray(rounds[uid], np.int64), device=dev)
-        mine = round_logits[:, row].float()  # [64, V]
-        if not bool((mine.argmax(dim=-1) == got_tok).all()):
+        mine, toks_in = logit_rows(torch, run, uid, row)  # [67, V]
+        rows_of[uid] = (mine, toks_in)
+        if not bool((mine[3:].argmax(dim=-1) == got_tok).all()):
             raise AssertionError(f"uid {uid}: round tokens are not the argmax of its logits")
-        full = seqs[uid] + [int(t) for t in rounds[uid]]
         n_p = len(prompts[uid])
-        toks = torch.as_tensor(np.asarray(full, np.int64), device=dev)[None]
+        toks = torch.as_tensor(np.asarray(toks_in + [int(rounds[uid][-1])], np.int64),
+                               device=dev)[None]
         with torch.no_grad():
             ref = T.forward_reference(eng.params, toks, cfg)[0][0].float()  # [s, V]
         if not bool(torch.isfinite(ref).all()):
             raise AssertionError("plain forward gave non-finite logits")
-        errs["prefill"].append(rows_rel_err(torch, prefill_logits[uid], ref[n_p - 1]))
-        for k, dl in enumerate(decode_logits):
-            errs["decode"].append(rows_rel_err(torch, dl[uid], ref[n_p + k]))
-        # the round: seqs[uid] ends with the round's input token
-        base = len(seqs[uid]) - 1
-        rows = ref[base : base + 64]
-        errs["round"].append(rows_rel_err(torch, mine, rows))
+        errs["prefill"].append(rows_rel_err(torch, mine[0], ref[n_p - 1]))
+        errs["decode"].append(rows_rel_err(torch, mine[1:3], ref[n_p : n_p + 2]))
+        errs["round"].append(rows_rel_err(torch, mine[3:], ref[n_p + 2 : n_p + 66]))
         # negative control: the same comparison one position off
-        errs["shifted"].append(rows_rel_err(torch, prefill_logits[uid], ref[n_p - 2]))
-        agree.append(float((rows.argmax(dim=-1) == got_tok).float().mean()))
+        errs["shifted"].append(rows_rel_err(torch, mine[0], ref[n_p - 2]))
+        agree.append(float((ref[n_p + 2 : n_p + 66].argmax(dim=-1) == got_tok).float().mean()))
     rec["logit_rel_err"] = {k: max(v) for k, v in errs.items()}
     rec["logit_rel_err"]["shifted"] = min(errs["shifted"])
-    rec["logit_rows_checked"] = {k: len(v) * (64 if k == "round" else 1) for k, v in errs.items()}
-    rec["logit_rtol"] = LOGIT_RTOL
+    rec["logit_rows_checked"] = {k: len(v) * {"round": 64, "decode": 2}.get(k, 1)
+                                 for k, v in errs.items()}
+    rec["logit_rtol"] = rtol
     # exact agreement with the reference's argmax is reported only: near-ties flip under bf16
     rec["round_argmax_agreement"] = min(agree)
     worst = max(rec["logit_rel_err"][k] for k in ("prefill", "decode", "round"))
-    if worst > LOGIT_RTOL:
+    if worst > rtol:
         raise AssertionError(f"engine logits off the plain forward: {rec['logit_rel_err']}")
-    if rec["logit_rel_err"]["shifted"] <= LOGIT_RTOL:
+    if rec["logit_rel_err"]["shifted"] <= rtol:
         raise AssertionError("negative control passed: the logit check cannot tell positions apart")
     for uid in list(eng.scheduler.running_uids()):
         eng.scheduler.finish(uid)
-    del ref, round_logits
+    del ref, run
+    if keep is not None:  # the bf16 rows on the host, for the int8 phase
+        keep.update({uid: (m.cpu(), t) for uid, (m, t) in rows_of.items()})
+        keep["prompt_lens"] = [len(p) for p in prompts]
+
+    if int8:
+        int8_checks(torch, dev, eng, prompts, rows_of, bf16_rows, rec)
+    del rows_of
 
     # ---- serving throughput (generate: prefill + fused rounds)
     t0 = time.perf_counter()
@@ -1364,6 +1575,43 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False):
     if profile:
         rec["profile"] = profile_engine(torch, eng, rng, cfg.vocab_size)
     return rec, launches
+
+
+def int8_checks(torch, dev, eng, prompts, rows_of, bf16_rows, rec):
+    """The int8 engine's logits against the bf16 phase's (``bf16_rows``:
+    the rows each computed from the same tokens) and against the same
+    engine forced to ``paged_attention_impl="dense"`` (the plain gathers
+    over its own quantized pool) on the same prompts."""
+    errs, n_rows = [], 0
+    if bf16_rows is not None:
+        for uid, mine in rows_of.items():
+            err, n = common_rows_rel_err(torch, mine, bf16_rows[uid], len(prompts[uid]))
+            if err is not None:
+                errs.append(err)
+                n_rows += n
+        rec["bf16_logit_rel_err"] = max(errs)
+        rec["bf16_rows_compared"] = n_rows
+    impl = eng._attn_impl
+    eng._attn_impl = "dense"
+    try:
+        dense = serve_counted_path(torch, dev, eng, prompts)
+    finally:
+        eng._attn_impl = impl
+    errs, n_rows = [], 0
+    for row, uid in enumerate(dense["rounds"]):
+        err, n = common_rows_rel_err(torch, rows_of[uid], logit_rows(torch, dense, uid, row),
+                                     len(prompts[uid]))
+        if err is not None:
+            errs.append(err)
+            n_rows += n
+    for uid in list(eng.scheduler.running_uids()):
+        eng.scheduler.finish(uid)
+    rec["dense_logit_rel_err"] = max(errs)
+    rec["dense_rows_compared"] = n_rows
+    rec["dense_round_seconds"] = dense["round_seconds"]
+    if rec["dense_logit_rel_err"] > LOGIT_RTOL or rec.get("bf16_logit_rel_err", 0) > INT8_LOGIT_RTOL:
+        raise AssertionError(f"int8 logits off: {rec['dense_logit_rel_err']} against the dense "
+                             f"path, {rec.get('bf16_logit_rel_err')} against the bf16 engine")
 
 
 # the per-row leg: the engine's per-row step (_step_per_row) with
@@ -1387,14 +1635,16 @@ PER_ROW_NEW_TOKENS = 16
 # on an H100, as the engine phase's round_argmax_agreement shows the same)
 
 
-def per_row_generate(eng, prompts, new_tokens, forced=None):
-    """Greedy decoding through ``_step_per_row`` alone: every prompt
-    submitted, then steps until each row has ``new_tokens``. ``forced``
-    ({uid: tokens}) feeds those tokens back instead of the row's own
-    argmax. Returns ({uid: own argmax tokens}, {uid: [logits rows]},
-    seconds until every prompt's first logits)."""
+def per_row_generate(eng, prompts, new_tokens, forced=None, step=None):
+    """Greedy decoding through ``_step_per_row`` alone (or ``step``, e.g.
+    the batched ``eng.step``): every prompt submitted, then steps until
+    each row has ``new_tokens``. ``forced`` ({uid: tokens}) feeds those
+    tokens back instead of the row's own argmax. Returns ({uid: own argmax
+    tokens}, {uid: [logits rows]}, seconds until every prompt's first
+    logits)."""
     import numpy as np
 
+    step = step or eng._step_per_row
     for uid, p in enumerate(prompts):
         eng.scheduler.submit(uid, p)
     toks = {uid: [] for uid in range(len(prompts))}
@@ -1402,7 +1652,7 @@ def per_row_generate(eng, prompts, new_tokens, forced=None):
     t0 = time.perf_counter()
     prefill_s = None
     while eng.scheduler.has_work():
-        res = eng._step_per_row()
+        res = step()
         if eng.last_scheduled_tokens == 0:
             raise AssertionError("per-row step stalled: nothing schedulable")
         for uid, lg in res.items():  # host logits: the step has finished
@@ -1530,6 +1780,99 @@ def engine_per_row_phase(torch, dev, K, widths=None, engine_config=None,
     return rec, launches
 
 
+# the int8 per-row check: 4 of Mistral-7B's layers, 2 prompts of ~1000
+# tokens in 256-token chunks, 8 new tokens each, a 2048-token context
+PER_ROW_INT8_LAYERS = 4
+PER_ROW_INT8_CONFIG = {
+    "dtype": "bfloat16", "decode_steps": 1, "prompt_chunk": 256, "max_prompt_chunks": 4,
+    "kv_cache": {"block_size": 128, "num_blocks": 64, "max_blocks_per_seq": 16,
+                 "kv_cache_dtype": "int8"},
+    "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 1024,
+                      "max_ragged_sequence_count": 4, "max_context": 2048},
+}
+PER_ROW_INT8_PROMPTS = (2, 960, 1040)
+PER_ROW_INT8_NEW_TOKENS = 8
+
+
+def engine_per_row_int8_phase(torch, dev, K, widths=None, engine_config=None,
+                              prompt_lens=PER_ROW_INT8_PROMPTS,
+                              new_tokens=PER_ROW_INT8_NEW_TOKENS):
+    """``_step_per_row`` over an int8 pool, counted: each row step attends
+    before its write (the int8 paged-decode kernel, the chunk's own K/V as
+    extra columns) and quantizes on write. Its logits against the batched
+    int8 step's fed the same tokens (a second engine on the same weights),
+    then one sequence's blocks exported from the batched engine and
+    imported into the per-row one must reproduce the planes bit for bit."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import transformer as T
+
+    cfg = T.get_config(MODEL, **(widths or {"n_layers": PER_ROW_INT8_LAYERS}))
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 3), dev)
+    rc = RaggedInferenceEngineConfig.from_dict(engine_config or PER_ROW_INT8_CONFIG)
+    eng = InferenceEngineV2(cfg, params, rc, device=dev.type)
+    L = cfg.n_layers
+    rng = np.random.default_rng(SEED + 3)
+    n, lo, hi = prompt_lens
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(m)).astype(np.int32)
+               for m in rng.integers(lo, hi + 1, size=n)]
+    rec = {"phase": "engine_per_row_int8", "model": MODEL, "n_layers": L,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": new_tokens}
+
+    calls = []
+    real = eng._row_step
+
+    def count_rows(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    eng._row_step = count_rows
+    K.reset_counts()
+    toks, rows, _ = per_row_generate(eng, prompts, new_tokens)
+    _sync(torch, dev)
+    launches = K.counts()
+    del eng._row_step
+    row_steps = len(calls)
+    expected = {name: 0 for name in launches}
+    expected.update({"paged_decode_int8": L * row_steps, "block_quant": 2 * L * row_steps,
+                     "rms_norm_fwd": (2 * L + 1) * row_steps})
+    rec.update(launches=launches, launches_expected=expected, row_steps=row_steps)
+    if dev.type == "cuda" and launches != expected:  # the CPU runs the plain versions
+        raise AssertionError(f"per-row int8 kernel launches {launches}, expected {expected}")
+
+    batched = InferenceEngineV2(cfg, eng.params, rc, device=dev.type)
+    b_toks, b_rows, _ = per_row_generate(batched, prompts, new_tokens, forced=toks,
+                                         step=batched.step)
+    agree = [a == b for u in toks for a, b in zip(toks[u], b_toks[u])]
+    rec["batched_token_agreement"] = sum(agree) / len(agree)
+    rec["batched_logit_rel_err"] = max(
+        rows_rel_err(torch, np.stack(rows[u]), np.stack(b_rows[u])) for u in toks)
+    rec["logit_rows_checked"] = sum(len(r) for r in rows.values())
+    rec["logit_rtol"] = LOGIT_RTOL
+    if rec["batched_logit_rel_err"] > LOGIT_RTOL:
+        raise AssertionError(f"per-row int8 logits {rec['batched_logit_rel_err']} off the "
+                             "batched int8 step's")
+
+    # export one sequence's blocks from the batched engine, import them
+    # into the per-row engine's (now free) blocks, read them back
+    batched.scheduler.submit(100, prompts[0])
+    while batched.scheduler.has_pending():
+        batched.step()
+    blocks = list(batched.state_manager.get_sequence(100).block_table)
+    payload = batched.export_kv_blocks(blocks)
+    eng.import_kv_blocks(list(range(len(blocks))), payload)
+    back = eng.export_kv_blocks(list(range(len(blocks))))
+    if sorted(payload) != ["k", "k_scale", "v", "v_scale"] or any(
+            payload[k].tobytes() != back[k].tobytes() for k in payload):
+        raise AssertionError("int8 KV export -> import did not reproduce the planes' bytes")
+    rec["export_blocks"] = len(blocks)
+    rec["export_bytes"] = int(sum(a.nbytes for a in payload.values()))
+    del eng, batched
+    return rec, launches
+
+
 def profile_engine(torch, eng, rng, vocab, steps=8):
     """torch.profiler over one split step with 32 decode rows and one fused
     round of ``steps`` tokens. Opt-in (``--profile``)."""
@@ -1581,6 +1924,8 @@ PARITY_GRAD_RTOL = 0.05
 PARITY_CONTROL_MIN = 0.5
 TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SERVE_KERNELS = ("rms_norm_fwd", "paged_decode")
+# the engine_int8 phase's (and the int8 per-row check's)
+INT8_KERNELS = ("paged_decode_int8", "block_quant")
 # the fused leg: the same configuration with TransformerConfig(fused_ce=True)
 # and FusedAdam (AdamW mode), which adds these four to the train kernels
 FUSED_KERNELS = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw", "fused_adam")
@@ -1897,8 +2242,9 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
 
 
 def device_profile(torch, fns):
-    """torch.profiler over each named callable: device time by kernel name
-    and the device's busy share of the wall time (opt-in, ``--profile``)."""
+    """torch.profiler over each named callable: device time by kernel name,
+    the device's busy share of the wall time, and the host operators with
+    the most self time (opt-in, ``--profile``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1919,11 +2265,15 @@ def device_profile(torch, fns):
             rows.append((ev.key, ev.self_device_time_total / 1e3, ev.count))
         rows.sort(key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows)
+        host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count)
+                       for ev in prof.key_averages() if ev.device_type == DeviceType.CPU),
+                      key=lambda r: -r[1])
         out[name] = {
             "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms if rows else None,
             "device_idle_share": (1 - busy_ms / (wall * 1e3)) if rows else None,
             "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:16]],
+            "host_top": [{"op": k[:60], "self_ms": ms, "count": n} for k, ms, n in host[:12]],
         }
     return out
 
@@ -1971,6 +2321,9 @@ def main(argv=None):
         "rms_norm": lambda: {"rms_norm_fwd": kernel_rms_norm(torch, dev),
                              "rms_norm_bwd": kernel_rms_norm_bwd(torch, dev)},
         "paged": lambda: {"paged_decode": kernel_paged_decode(torch, dev, seed=SEED)},
+        "paged_int8": lambda: {"paged_decode_int8": kernel_paged_decode(torch, dev, seed=SEED,
+                                                                        int8=True)},
+        "block_quant": lambda: {"block_quant": kernel_block_quant(torch, dev)},
         "flash": lambda: kernel_flash(torch, dev),
         "fused_ce": lambda: kernel_fused_ce(torch, dev),
         "fused_adam": lambda: {"fused_adam": kernel_fused_adam(torch, dev)},
@@ -1986,9 +2339,26 @@ def main(argv=None):
     emit({"phase": "kernels", "card": card, "seconds": time.perf_counter() - t0,
           "names": list(records)})
     t0 = time.perf_counter()
-    rec, serve_launches = engine_phase(torch, dev, K, profile=args.profile)
+    bf16_rows = {}
+    rec, serve_launches = engine_phase(torch, dev, K, profile=args.profile, keep=bf16_rows)
     rec["card"] = card
     rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    bf16_info, bf16_gen, bf16_round = rec["kv_pool_info"], rec["gen_tok_s"], rec["round_tok_s"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec, int8_launches = engine_phase(torch, dev, K, kv_cache_dtype="int8", bf16_rows=bf16_rows,
+                                      profile=args.profile)
+    rec.update(card=card, seconds=time.perf_counter() - t0, kv_pool_info_bf16=bf16_info,
+               gen_tok_s_over_bf16=rec["gen_tok_s"] / bf16_gen,
+               round_tok_s_over_bf16=rec["round_tok_s"] / bf16_round)
+    emit(rec)
+    del bf16_rows
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec, per_row_int8_launches = engine_per_row_int8_phase(torch, dev, K)
+    rec.update(card=card, seconds=time.perf_counter() - t0)
     emit(rec)
     torch.cuda.empty_cache()
 
@@ -2016,11 +2386,13 @@ def main(argv=None):
     emit(rec)
     torch.cuda.empty_cache()
 
-    # serving kernels launch in the engine phase, training kernels in the
+    # serving kernels launch in the engine phase (the int8 pool's in the
+    # engine_int8 phase and the int8 per-row check), training kernels in the
     # train legs, the fused leg's four in the fused leg, the splash kernels
     # in the splash leg (and the splash forward in the per-row leg), and
     # together they are every kernel
     launched = {name: serve_launches[name] for name in SERVE_KERNELS}
+    launched.update({name: int8_launches[name] for name in INT8_KERNELS})
     launched.update({name: train_launches["train"][name] for name in TRAIN_KERNELS
                      if name not in SERVE_KERNELS})
     launched.update({name: train_launches["train_fused"][name] for name in FUSED_KERNELS})
@@ -2028,16 +2400,21 @@ def main(argv=None):
     missing = [n for n, c in launched.items() if c <= 0]
     missing += [n for n in TRAIN_KERNELS if train_launches["train_fused"][n] <= 0]
     missing += [f"{n} (engine_per_row)" for n in PER_ROW_KERNELS if per_row_launches[n] <= 0]
+    missing += [f"{n} (engine_int8)" for n in ("rms_norm_fwd",) if int8_launches[n] <= 0]
+    missing += [f"{n} (engine_per_row_int8)" for n in INT8_KERNELS
+                if per_row_int8_launches[n] <= 0]
     if missing or set(launched) != set(K.KERNELS):
         raise AssertionError(
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
-            f"training {train_launches}, per-row {per_row_launches}, "
+            f"training {train_launches}, per-row {per_row_launches}, int8 {int8_launches}, "
+            f"per-row int8 {per_row_int8_launches}, "
             f"kernels {sorted(K.KERNELS)}")
 
     kernels_line = []
     for name, k in K.KERNELS.items():
         rec = records[name]
         phase = ("engine" if name in SERVE_KERNELS
+                 else "engine_int8" if name in INT8_KERNELS
                  else "train_fused" if name in FUSED_KERNELS
                  else "train_splash" if name in SPLASH_KERNELS else "train")
         kernels_line.append({
@@ -2053,6 +2430,8 @@ def main(argv=None):
             **({"flash_ms": rec["flash_ms"],
                 "launches_engine_per_row": per_row_launches.get(name, 0)}
                if name in SPLASH_KERNELS else {}),
+            **({"launches_engine_per_row_int8": per_row_int8_launches[name]}
+               if name in INT8_KERNELS else {}),
             "matched": True,  # check_close raised otherwise
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

@@ -8,18 +8,17 @@ Sampled draws are content-addressed like the JAX package's ``row_keys``:
 each row's key depends only on (seed, uid, position of the logits source),
 so a stream does not change with batch packing, prompt chunking or the
 decode_steps partitioning. The random bits come from a counter-based hash
-written in torch integer ops (murmur3's 32-bit finalizer, multiplications
-split so no product leaves int64), not from a device generator, so the CPU
-and a card draw the same bits. They are not JAX's threefry bits: sampled
+written in torch integer ops (``utils/counter_hash.py``), not from a device
+generator, so the CPU and a card draw the same bits. They are not JAX's threefry bits: sampled
 streams agree within the port, not with the JAX package (ROADMAP queue 1,
 item 4).
 """
 
 import torch
 
+from deepspeed_tpu_torch.utils.counter_hash import M32, fold, mix32
+
 NEG_INF = -1e30
-_M32 = 0xFFFFFFFF
-_GOLDEN = 0x9E3779B1
 
 
 def filter_logits(logits, top_k: int = 0, top_p: float = 0.0):
@@ -39,37 +38,17 @@ def filter_logits(logits, top_k: int = 0, top_p: float = 0.0):
     return logits
 
 
-def _mul32(h, c: int):
-    """(h * c) mod 2^32 for int64 tensors h in [0, 2^32): the constant is
-    split in 16-bit halves so every product stays below 2^48."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(h):
-    """murmur3 fmix32 on int64 tensors holding 32-bit words."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
-def _fold(key, word):
-    return _mix32(key ^ _mul32(torch.as_tensor(word).to(torch.int64) & _M32, _GOLDEN))
-
-
 def row_keys(seed: int, uids, positions):
     """Per-row 32-bit keys (int64 tensor [R]) from (seed, uid, position)."""
     uids = torch.as_tensor(uids).to(torch.int64)
-    base = _mix32(torch.full_like(uids, int(seed) & _M32))
-    return _fold(_fold(base, uids), positions)
+    base = mix32(torch.full_like(uids, int(seed) & M32))
+    return fold(fold(base, uids), positions)
 
 
 def uniform(keys, n: int):
     """[R, n] fp32 draws in (0, 1): one per (row key, column)."""
     cols = torch.arange(n, device=keys.device, dtype=torch.int64)
-    bits = _fold(keys[:, None], cols[None, :])
+    bits = fold(keys[:, None], cols[None, :])
     return ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 

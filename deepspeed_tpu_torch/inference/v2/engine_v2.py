@@ -9,6 +9,12 @@ bodies are eager PyTorch:
     block_size, n_kv, d] (block ``num_blocks`` is the trash block padded
     tokens write to); attention reads flat multi-layer views
     [L * NBp, bs, nkv, d] through layer-offset tables and trash ids;
+  * ``kv_cache.kv_cache_dtype="int8"``: the pools hold int8 codes beside
+    fp32 scale planes [L, num_blocks + 1, block_size, n_kv], one scale per
+    head vector. Every write quantizes (``quantize_kv``: the CUDA
+    block-quant kernel on a card); every read dequantizes (the int8 form of
+    the paged-decode kernel, or the plain gathers). A step's or round's own
+    K/V, attended as extra columns, stay in the compute dtype;
   * the split-phase step runs R decode slots and Rc prompt chunks of tq
     tokens in one pass: decode rows through ``paged_attention`` (the CUDA
     paged-decode kernel on a card) with their own K/V as one extra column,
@@ -25,8 +31,11 @@ bodies are eager PyTorch:
     With ``attention_impl="splash"`` and a sliding window that attention is
     ``splash_prefill_attention`` (the splash forward kernel on a card, which
     visits only the blocks in the band); otherwise the dense masked
-    ``mha_reference``, as in the JAX package. The batched step and the
-    fused rounds are the same for every ``attention_impl``.
+    ``mha_reference``, as in the JAX package. An int8 pool attends before
+    the chunk's write instead, through ``paged_attention`` over the pool
+    below the chunk plus the chunk's own K/V as extra columns, and never
+    takes the splash prefill. The batched step and the fused rounds are the
+    same for every ``attention_impl``.
 
 Where the JAX package scatters new K/V into a donated buffer and reads the
 pool at its step- or round-start state, the port writes the pools in
@@ -48,6 +57,7 @@ import torch
 
 from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.sampling import row_keys, sample_tokens
+from deepspeed_tpu_torch.inference.v2.kv_pool import _check_dtype, check_kv_payload, describe
 from deepspeed_tpu_torch.inference.v2.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.scheduler import RaggedScheduler
 from deepspeed_tpu_torch.models import transformer as T
@@ -57,6 +67,7 @@ from deepspeed_tpu_torch.ops.attention.paged import (
     paged_chunk_attention,
     resolve_impl,
 )
+from deepspeed_tpu_torch.ops.quantizer.block_quant import quantize_kv
 from deepspeed_tpu_torch.ops.sparse_attention.splash import splash_prefill_attention
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -118,6 +129,13 @@ def _materialize_rows(res: dict, want_tokens: bool = False) -> dict:
     return out
 
 
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    """A pool's numpy dtype in a KV payload (bf16 as its uint16 bits)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
 def _upload(device, *arrays):
     """Host int32 arrays -> device tensors through ONE copy: the step's
     small metadata arrays are packed, copied, then split into views."""
@@ -171,11 +189,8 @@ class InferenceEngineV2:
             raise _later("serving an attn_sparsity layout",
                          "ROADMAP queue 2, item 9: the layout-predicate sparse kernel")
         T._check_served(c)
-        from deepspeed_tpu_torch.inference.v2.kv_pool import _check_dtype
-
-        if _check_dtype(str(getattr(kv, "kv_cache_dtype", "bf16") or "bf16")) == "int8":
-            raise _later("int8 KV pools (kv_cache_dtype='int8')",
-                         "ROADMAP queue 2, item 3: int8 KV with quantize_kv")
+        self._kv_dtype = _check_dtype(str(getattr(kv, "kv_cache_dtype", "bf16") or "bf16"))
+        self._kv_int8 = self._kv_dtype == "int8"
         for knob, allowed in (("comm_quant", ("none", "int8")),
                               ("comm_overlap", ("none", "tiled"))):
             val = str(getattr(cfg, knob, "none") or "none")
@@ -206,8 +221,15 @@ class InferenceEngineV2:
         # +1 trash block: padded tail tokens of bucketed chunks scatter there
         # instead of corrupting block 0 (which belongs to a live sequence)
         shape = (c.n_layers, kv.num_blocks + 1, kv.block_size, c.kv_heads, c.head_dim)
-        self._k_cache = torch.zeros(shape, dtype=self._dtype, device=self.device)
-        self._v_cache = torch.zeros(shape, dtype=self._dtype, device=self.device)
+        pool_dtype = torch.int8 if self._kv_int8 else self._dtype
+        self._k_cache = torch.zeros(shape, dtype=pool_dtype, device=self.device)
+        self._v_cache = torch.zeros(shape, dtype=pool_dtype, device=self.device)
+        # int8: fp32 scale planes, one scalar per head vector (zero in the
+        # trash block until a padded token writes there)
+        self._ks_cache = self._vs_cache = None
+        if self._kv_int8:
+            self._ks_cache = torch.zeros(shape[:-1], dtype=torch.float32, device=self.device)
+            self._vs_cache = torch.zeros(shape[:-1], dtype=torch.float32, device=self.device)
         # layer offsets of the flat pool views, for the per-step tables
         self._layer_off = torch.arange(c.n_layers, device=self.device, dtype=torch.int32) * (
             kv.num_blocks + 1
@@ -219,7 +241,7 @@ class InferenceEngineV2:
         log_dist(
             f"InferenceEngineV2: {kv.num_blocks} KV blocks × {kv.block_size} tokens, "
             f"budget {cfg.state_manager.max_ragged_batch_size} tok/step, "
-            f"attn={self._attn_impl}, device={self.device}"
+            f"kv={self._kv_dtype}, attn={self._attn_impl}, device={self.device}"
             + (", prefix_cache=on" if self.state_manager.prefix_cache is not None else ""),
             ranks=[0],
         )
@@ -241,13 +263,76 @@ class InferenceEngineV2:
         """The RESOLVED decode-attention impl ("kernel" or "dense")."""
         return self._attn_impl
 
-    # -- not ported in this slice -----------------------------------------
-    def export_kv_blocks(self, *a, **k):
-        raise _later("KV block export/import", "ROADMAP queue 1, item 5: serving stack")
+    @property
+    def kv_cache_dtype(self) -> str:
+        """Pool payload dtype knob value: "bf16" (compute dtype) or "int8"."""
+        return self._kv_dtype
 
-    import_kv_blocks = import_kv_blocks_chunked = export_kv_blocks
-    export_kv_blocks_device = export_kv_blocks_windows = export_kv_blocks
-    import_kv_blocks_device = export_kv_blocks
+    def kv_pool_info(self) -> Dict:
+        """Byte-accounting snapshot (kv_pool.describe) plus the resolved
+        attention impl: the JAX engine's dict."""
+        c, kv = self._mc, self.config.kv_cache
+        info = describe(kv.num_blocks, kv.block_size, c.kv_heads, c.head_dim, c.n_layers,
+                        self._kv_dtype)
+        info["paged_attention_impl"] = self._attn_impl
+        return info
+
+    # -- host KV export/import (the prefill -> decode handoff unit) ---------
+    def _kv_pool_planes(self) -> Dict[str, torch.Tensor]:
+        planes = {"k": self._k_cache, "v": self._v_cache}
+        if self._kv_int8:
+            planes["k_scale"] = self._ks_cache
+            planes["v_scale"] = self._vs_cache
+        return planes
+
+    def _kv_payload_spec(self):
+        """plane name -> ((n_layers, *per_block_tail), numpy dtype): the
+        contract ``check_kv_payload`` validates against. numpy has no
+        bfloat16, so a bf16 pool's planes travel as their bits (uint16)."""
+        return {name: ((pool.shape[0],) + tuple(pool.shape[2:]), _np_dtype(pool.dtype))
+                for name, pool in self._kv_pool_planes().items()}
+
+    def _check_kv_payload(self, n: int, payload: Dict[str, np.ndarray],
+                          context: str = "import_kv_blocks") -> None:
+        check_kv_payload(self._kv_payload_spec(), n, payload, context=context)
+
+    def export_kv_blocks(self, block_ids) -> Dict[str, np.ndarray]:
+        """The pool planes of ``block_ids`` on the host, keyed by plane name:
+        an int8 pool's codes and fp32 scale planes verbatim, so a re-import
+        is bitwise (no requantization)."""
+        idx = torch.as_tensor(np.asarray(list(block_ids), np.int64), device=self.device)
+        out = {}
+        for name, pool in self._kv_pool_planes().items():
+            host = pool[:, idx].cpu()
+            if host.dtype == torch.bfloat16:
+                host = host.view(torch.int16)
+            out[name] = host.numpy().view(_np_dtype(pool.dtype))
+        return out
+
+    def import_kv_blocks(self, block_ids, payload: Dict[str, np.ndarray]) -> None:
+        """Write an exported payload into THIS pool at ``block_ids`` (the
+        importer's freshly allocated table slots; ids need not match the
+        exporter's), after ``check_kv_payload`` validates every plane. A
+        JAX engine's int8 or fp32 payload imports as it is; a bf16 one's
+        planes go as their bits (``plane.view(np.uint16)``)."""
+        n = len(block_ids)
+        if n == 0:
+            return
+        self._check_kv_payload(n, payload)
+        idx = torch.as_tensor(np.asarray(list(block_ids), np.int64), device=self.device)
+        for name, pool in self._kv_pool_planes().items():
+            vals = torch.from_numpy(np.ascontiguousarray(payload[name]))
+            if pool.dtype == torch.bfloat16:
+                vals = vals.view(torch.int16).view(torch.bfloat16)
+            pool[:, idx] = vals.to(self.device)
+
+    # -- not ported in this slice -----------------------------------------
+    def import_kv_blocks_chunked(self, *a, **k):
+        raise _later("chunked, device and window KV transports",
+                     "ROADMAP queue 1, item 5: serving stack")
+
+    export_kv_blocks_device = export_kv_blocks_windows = import_kv_blocks_chunked
+    import_kv_blocks_device = import_kv_blocks_chunked
 
     def spec_round(self, *a, **k):
         raise _later("speculative decoding (spec_round)", "ROADMAP queue 1, item 4")
@@ -279,6 +364,15 @@ class InferenceEngineV2:
         shape = (c.n_layers * (kv.num_blocks + 1), kv.block_size, c.kv_heads, c.head_dim)
         return self._k_cache.view(shape), self._v_cache.view(shape)
 
+    def _scale_views(self):
+        """Flat views [L*NBp, bs, nkv] of the int8 pools' scale planes (the
+        layer-offset indexing of ``_pool_views``), or (None, None)."""
+        if not self._kv_int8:
+            return None, None
+        c, kv = self._mc, self.config.kv_cache
+        shape = (c.n_layers * (kv.num_blocks + 1), kv.block_size, c.kv_heads)
+        return self._ks_cache.view(shape), self._vs_cache.view(shape)
+
     def _trash(self, li: int) -> int:
         kv = self.config.kv_cache
         return li * (kv.num_blocks + 1) + kv.num_blocks
@@ -286,13 +380,19 @@ class InferenceEngineV2:
     def _scatter_kv(self, li, blk, row, k, v):
         """Write the new tokens' K/V into the pools IN PLACE through one
         index_put on a flat slot view [L*NBp*bs, nkv, d] (the JAX package
-        scatters into a donated buffer instead). blk/row: [t] int32."""
+        scatters into a donated buffer instead). blk/row: [t] int32. An
+        int8 pool quantizes on write (``quantize_kv``, per head vector) and
+        its scales go through the same slot ids."""
         c, kv = self._mc, self.config.kv_cache
         L, NBp, bs = c.n_layers, kv.num_blocks + 1, kv.block_size
         slot = ((li * NBp + blk.long()) * bs + row.long())
         flat = (L * NBp * bs, c.kv_heads, c.head_dim)
-        self._k_cache.view(flat)[slot] = k.to(self._dtype)
-        self._v_cache.view(flat)[slot] = v.to(self._dtype)
+        if self._kv_int8:
+            (k, sk), (v, sv) = quantize_kv(k), quantize_kv(v)
+            self._ks_cache.view(flat[:2])[slot] = sk
+            self._vs_cache.view(flat[:2])[slot] = sv
+        self._k_cache.view(flat)[slot] = k.to(self._k_cache.dtype)
+        self._v_cache.view(flat)[slot] = v.to(self._v_cache.dtype)
 
     def _window(self, li: int) -> int:
         c = self._mc
@@ -357,17 +457,19 @@ class InferenceEngineV2:
         w = self._window(li)
         q, k, v = self._layer_qkv(lp, x, meta["positions"], meta["live"])
         k_pool, v_pool = self._pool_views()
+        ks_pool, vs_pool = self._scale_views()
         dec_pos = meta["dec_pos"]
         out_d = paged_attention(
             q[:R], k_pool, v_pool, meta["dec_tables"][li], dec_pos, self._trash(li),
-            impl=self._attn_impl, window=w, scale=c.attn_scale,
-            extra_kv=(k[:R, None], v[:R, None], dec_pos[:, None]), pool_limit=dec_pos,
+            impl=self._attn_impl, window=w, scale=c.attn_scale, k_scale=ks_pool,
+            v_scale=vs_pool, extra_kv=(k[:R, None], v[:R, None], dec_pos[:, None]),
+            pool_limit=dec_pos,
         )
         out_c = paged_chunk_attention(
             q[R:].reshape(Rc, tq, nh, d), k_pool, v_pool, meta["chk_tables"][li],
             meta["chk_pos"], self._trash(li), window=w, scale=c.attn_scale,
             new_kv=(k[R:].reshape(Rc, tq, nkv, d), v[R:].reshape(Rc, tq, nkv, d)),
-            pool_limit=meta["chk_start"],
+            pool_limit=meta["chk_start"], k_scale=ks_pool, v_scale=vs_pool,
         )
         self._scatter_kv(li, meta["blk"], meta["row"], k, v)
         out = torch.cat([out_d, out_c.reshape(Rc * tq, nh, d)], dim=0)
@@ -386,9 +488,11 @@ class InferenceEngineV2:
         side_k[li, :, s] = k
         side_v[li, :, s] = v
         k_pool, v_pool = self._pool_views()
+        ks_pool, vs_pool = self._scale_views()
         out = paged_attention(
             q, k_pool, v_pool, meta["tables"][li], meta["pos"], self._trash(li),
             impl=self._attn_impl, window=self._window(li), scale=c.attn_scale,
+            k_scale=ks_pool, v_scale=vs_pool,
             extra_kv=(side_k[li], side_v[li], meta["epos"]), pool_limit=meta["pos0"],
         )
         self._scatter_kv(li, meta["blk"], meta["row"], k, v)
@@ -630,8 +734,13 @@ class InferenceEngineV2:
         padding); start: the first position; table: the sequence's [B]
         block table. Writes the chunk's K/V into the pools (the padded
         tail's into the trash block), then attends over the gathered
-        context of S = B × block_size keys. Returns the fp32 logits [vocab]
-        of the last valid token."""
+        context of S = B × block_size keys. An int8 pool attends first,
+        through ``paged_attention`` (the engine's impl: the int8 kernel on a
+        card) over the pool below ``start`` with the chunk's own K/V as
+        extra columns (the padded tail's at epos -1), then quantizes and
+        writes; the JAX engine's per-row step does the same through its
+        dense impl. Returns the fp32 logits [vocab] of the last valid
+        token."""
         c, kv = self._mc, self.config.kv_cache
         nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
         bs, B = kv.block_size, kv.max_blocks_per_seq
@@ -640,21 +749,35 @@ class InferenceEngineV2:
         glob = start + np.arange(t, dtype=np.int32)  # global positions of the chunk
         blk = np.where(np.arange(t) < n_valid, table[np.clip(glob // bs, 0, B - 1)],
                        kv.num_blocks)
-        tokens_d, pos_d, blk_d, row_d, table_d = _upload(
-            self.device, tokens, glob, blk, glob % bs, table)
-        splash = c.attention_impl == "splash" and c.sliding_window > 0
-        if not splash:
+        epos = np.where(np.arange(t) < n_valid, glob, -1)
+        tokens_d, pos_d, blk_d, row_d, table_d, epos_d, start_d = _upload(
+            self.device, tokens, glob, blk, glob % bs, table, epos, np.full(t, start))
+        splash = c.attention_impl == "splash" and c.sliding_window > 0 and not self._kv_int8
+        if not splash and not self._kv_int8:
             kpos = torch.arange(S, device=self.device)
             mask = kpos[None, :] <= pos_d[:, None]  # [t, S] causal against global positions
             if c.sliding_window:
                 mask &= ~window_too_far(pos_d[:, None], kpos[None, :], c.sliding_window)
             bias = torch.where(mask, 0.0, NEG_INF)[None, None]
         k_pool, v_pool = self._pool_views()
+        ks_pool, vs_pool = self._scale_views()
         x = T.embed_tokens(self.params, tokens_d, pos_d, c)
         for li in range(c.n_layers):
             lp = self._layer_params[li]
             # live length (HF max(position_ids)+1) from the valid tokens only
             q, k, v = self._layer_qkv(lp, x, pos_d, start + n_valid)
+            if self._kv_int8:
+                tbl = (table_d + li * (kv.num_blocks + 1))[None].expand(t, B)
+                out = paged_attention(
+                    q, k_pool, v_pool, tbl, pos_d, self._trash(li), impl=self._attn_impl,
+                    window=c.sliding_window, scale=c.attn_scale, k_scale=ks_pool,
+                    v_scale=vs_pool, pool_limit=start_d,
+                    extra_kv=(k[None].expand(t, t, nkv, d), v[None].expand(t, t, nkv, d),
+                              epos_d[None].expand(t, t)),
+                )
+                self._scatter_kv(li, blk_d, row_d, k, v)
+                x = self._layer_tail(lp, x, out)
+                continue
             self._scatter_kv(li, blk_d, row_d, k, v)
             tbl = (table_d + li * (kv.num_blocks + 1)).long()
             k_ctx = k_pool[tbl].reshape(S, nkv, d).transpose(0, 1)[None]

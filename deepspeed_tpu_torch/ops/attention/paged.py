@@ -21,8 +21,13 @@ Implementations:
   * ``paged_attention(impl=...)``: the dispatch seam, with the JAX
     contract ``auto | kernel | dense | reference``.
 
-int8 pools (``k_scale``/``v_scale``) are not ported in this slice: every
-entry point raises ``NotImplementedError`` for them.
+int8 pools (``block_quant.quantize_kv`` payloads) come with ``k_scale`` /
+``v_scale`` [NB, bs, nkv] fp32 planes, one scale per head vector; every
+entry point takes them. The plain versions dequantize in their gather, in
+fp32, as the JAX package's do; the kernel's int8 form
+(``paged_decode_int8``) reads the int8 rows and their scales. Extra and new
+columns stay in q's dtype. An int8 pool without both planes, or planes
+beside a pool that is not int8, raises ``ValueError``.
 """
 
 import ctypes
@@ -37,30 +42,38 @@ NEG_INF = -1e30
 PAGED_ATTENTION_IMPLS = ("auto", "kernel", "dense", "reference")
 KERNEL_HEAD_DIMS = (64, 128, 256)
 PAGED_KERNEL = KERNELS["paged_decode"]
+PAGED_INT8_KERNEL = KERNELS["paged_decode_int8"]
 
 
-def _no_int8(k_cache, k_scale, v_scale, where):
-    if k_scale is not None or v_scale is not None or k_cache.dtype == torch.int8:
-        raise NotImplementedError(
-            f"{where}: int8 KV pools (k_scale/v_scale planes) are not ported yet "
-            "(ROADMAP queue 2, item 3: int8 KV with quantize_kv)"
+def _check_planes(k_cache, k_scale, v_scale, where):
+    """The JAX contract: scale planes iff the pool payload is int8."""
+    if k_cache.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError(f"{where}: int8 k/v pools need k_scale and v_scale planes")
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError(
+            f"{where}: k_scale/v_scale given but the pool payload is {k_cache.dtype}, not int8"
         )
 
 
-def _gather_ctx(cache, tables):
-    """cache [NB, bs, nkv, d], tables [R, B] -> fp32 context [R, nkv, B*bs, d]."""
+def _gather_ctx(cache, tables, scale=None):
+    """cache [NB, bs, nkv, d], tables [R, B] -> fp32 context [R, nkv, B*bs, d],
+    an int8 pool dequantized by its plane ``scale`` [NB, bs, nkv]."""
     R, B = tables.shape
     _, bs, nkv, d = cache.shape
-    g = cache[tables.long()]  # [R, B, bs, nkv, d]
-    return g.permute(0, 3, 1, 2, 4).reshape(R, nkv, B * bs, d).float()
+    g = cache[tables.long()].float()  # [R, B, bs, nkv, d]
+    if scale is not None:
+        g = g * scale[tables.long()][..., None]
+    return g.permute(0, 3, 1, 2, 4).reshape(R, nkv, B * bs, d)
 
 
 def paged_attention_reference(q, k_cache, v_cache, block_tables, q_pos, trash_block,
                               window: int = 0, scale=None, k_scale=None, v_scale=None):
     """Plain per-token context gather + masked softmax. Shapes as the
     module docstring; returns [T, nh, d]. Tokens go in groups of 32 so peak
-    memory is 32 context windows."""
-    _no_int8(k_cache, k_scale, v_scale, "paged_attention_reference")
+    memory is 32 context windows. ``k_scale``/``v_scale``: an int8 pool's
+    dequant planes."""
+    _check_planes(k_cache, k_scale, v_scale, "paged_attention_reference")
     T, nh, d = q.shape
     _, bs, nkv, _ = k_cache.shape
     B = block_tables.shape[1]
@@ -73,8 +86,8 @@ def paged_attention_reference(q, k_cache, v_cache, block_tables, q_pos, trash_bl
         bt = block_tables[t0 : t0 + 32]
         pos = q_pos[t0 : t0 + 32]
         n = bt.shape[0]
-        k_ctx = _gather_ctx(k_cache, bt)  # [n, nkv, S, d]
-        v_ctx = _gather_ctx(v_cache, bt)
+        k_ctx = _gather_ctx(k_cache, bt, k_scale)  # [n, nkv, S, d]
+        v_ctx = _gather_ctx(v_cache, bt, v_scale)
         blk_valid = (bt != trash_block).repeat_interleave(bs, dim=1)  # [n, S]
         mask = (kpos[None] <= pos[:, None]) & blk_valid
         if window:
@@ -97,15 +110,16 @@ def paged_decode_attention_dense(q, k_cache, v_cache, block_tables, q_pos, trash
     per row. ``extra_kv`` = (ke [R, E, nkv, d], ve, epos [R, E]): not-yet-
     cached tokens appended as extra score columns, epos = -1 invalid.
     ``pool_limit`` [R]: pool positions >= limit are masked (default
-    q_pos + 1, the causal <=)."""
-    _no_int8(k_cache, k_scale, v_scale, "paged_decode_attention_dense")
+    q_pos + 1, the causal <=). ``k_scale``/``v_scale``: an int8 pool's
+    dequant planes (the extras stay in q's dtype)."""
+    _check_planes(k_cache, k_scale, v_scale, "paged_decode_attention_dense")
     R, nh, d = q.shape
     _, bs, nkv, _ = k_cache.shape
     B = block_tables.shape[1]
     S = B * bs
     group = nh // nkv
-    k_ctx = _gather_ctx(k_cache, block_tables)
-    v_ctx = _gather_ctx(v_cache, block_tables)
+    k_ctx = _gather_ctx(k_cache, block_tables, k_scale)
+    v_ctx = _gather_ctx(v_cache, block_tables, v_scale)
     kpos = torch.arange(S, device=q.device, dtype=torch.int32)
     limit = (q_pos + 1) if pool_limit is None else pool_limit
     mask = (kpos[None] < limit[:, None]) & (block_tables != trash_block).repeat_interleave(
@@ -152,15 +166,17 @@ def paged_chunk_attention(q, k_cache, v_cache, row_tables, q_pos, trash_block,
     q_pos [Rc, tq], -1 = padding). One context gather per row, then a dense
     masked softmax; padded tokens emit exactly 0. ``new_kv`` = (ke
     [Rc, tq, nkv, d], ve): this chunk's not-yet-cached K/V, attended
-    causally, while the pool covers positions < ``pool_limit`` [Rc]."""
-    _no_int8(k_cache, k_scale, v_scale, "paged_chunk_attention")
+    causally, while the pool covers positions < ``pool_limit`` [Rc].
+    ``k_scale``/``v_scale``: an int8 pool's dequant planes (new_kv stays in
+    q's dtype)."""
+    _check_planes(k_cache, k_scale, v_scale, "paged_chunk_attention")
     Rc, tq, nh, d = q.shape
     _, bs, nkv, _ = k_cache.shape
     B = row_tables.shape[1]
     S = B * bs
     group = nh // nkv
-    k_ctx = _gather_ctx(k_cache, row_tables)  # [Rc, nkv, S, d]
-    v_ctx = _gather_ctx(v_cache, row_tables)
+    k_ctx = _gather_ctx(k_cache, row_tables, k_scale)  # [Rc, nkv, S, d]
+    v_ctx = _gather_ctx(v_cache, row_tables, v_scale)
     kpos = torch.arange(S, device=q.device, dtype=torch.int32)
     blk_valid = (row_tables != trash_block).repeat_interleave(bs, dim=1)  # [Rc, S]
     if pool_limit is None:
@@ -209,14 +225,19 @@ def _i32(t, shape, name):
 
 
 def paged_decode(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: int = 0,
-                 scale: Optional[float] = None, extra_kv=None, pool_limit=None):
-    """The paged-decode kernel's wrapper. A CPU tensor takes the plain
+                 scale: Optional[float] = None, extra_kv=None, pool_limit=None, k_scale=None,
+                 v_scale=None):
+    """The paged-decode kernels' wrapper. A CPU tensor takes the plain
     version (``paged_decode_attention_dense``); a CUDA tensor launches the
-    kernel or raises. ``trash_block`` is a Python int (or 0-d tensor)."""
+    kernel (``paged_decode``, or ``paged_decode_int8`` for an int8 pool with
+    its scale planes) or raises. ``trash_block`` is a Python int (or 0-d
+    tensor)."""
+    _check_planes(k_cache, k_scale, v_scale, "paged_decode")
     if q.device.type == "cpu":
         return paged_decode_attention_dense(
             q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window,
-            scale=scale, extra_kv=extra_kv, pool_limit=pool_limit,
+            scale=scale, extra_kv=extra_kv, pool_limit=pool_limit, k_scale=k_scale,
+            v_scale=v_scale,
         )
     T, nh, d = q.shape
     NB, bs, nkv, dk = k_cache.shape
@@ -224,10 +245,12 @@ def paged_decode(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: 
         raise ValueError(f"paged_decode: q on {q.device}; expected a CPU or CUDA tensor")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"paged_decode: {q.dtype} queries; the kernel takes bf16 or fp32")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        _no_int8(k_cache, None, None, "paged_decode")
+    int8_pool = k_cache.dtype == torch.int8
+    pool_dtype = torch.int8 if int8_pool else q.dtype
+    if k_cache.dtype != pool_dtype or v_cache.dtype != pool_dtype:
         raise ValueError(
-            f"paged_decode: pool dtype {k_cache.dtype}/{v_cache.dtype} differs from q {q.dtype}"
+            f"paged_decode: pool dtype {k_cache.dtype}/{v_cache.dtype} with q {q.dtype}; the "
+            "kernels take a pool in q's dtype, or an int8 pool for both"
         )
     if d not in KERNEL_HEAD_DIMS or dk != d or tuple(v_cache.shape) != tuple(k_cache.shape):
         raise ValueError(
@@ -236,7 +259,14 @@ def paged_decode(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: 
         )
     if nh % nkv:
         raise ValueError(f"paged_decode: nh={nh} is not a multiple of nkv={nkv}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+    dense = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache)]
+    if int8_pool:
+        dense += [("k_scale", k_scale), ("v_scale", v_scale)]
+        for name, t in dense[3:]:
+            if tuple(t.shape) != (NB, bs, nkv) or t.dtype != torch.float32:
+                raise ValueError(f"paged_decode: {name} {tuple(t.shape)} {t.dtype}, expected "
+                                 f"fp32 {(NB, bs, nkv)}")
+    for name, t in dense:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"paged_decode: {name} must be contiguous on {q.device}")
     B = block_tables.shape[1]
@@ -264,16 +294,17 @@ def paged_decode(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: 
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("paged_decode: tensors must be 16-byte aligned")
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    fn = PAGED_KERNEL.fn()
-    rc = fn(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(tables), ptr(qpos), ptr(limit),
+    kernel = PAGED_INT8_KERNEL if int8_pool else PAGED_KERNEL
+    planes = [ptr(k_scale), ptr(v_scale)] if int8_pool else []
+    rc = kernel.fn()(
+        ptr(q), ptr(k_cache), ptr(v_cache), *planes, ptr(tables), ptr(qpos), ptr(limit),
         ptr(ke), ptr(ve), ptr(epos), ptr(out),
         T, nh, nkv, d, bs, B, E, int(trash_block), int(window),
         ctypes.c_float(scale if scale is not None else d ** -0.5),
         int(q.dtype == torch.bfloat16), stream_ptr(q),
     )
-    PAGED_KERNEL.check(rc)
-    PAGED_KERNEL.launches += 1
+    kernel.check(rc)
+    kernel.launches += 1
     return out
 
 
@@ -308,8 +339,9 @@ def paged_attention(q, k_cache, v_cache, block_tables, q_pos, trash_block,
 
     ``impl``: "auto" (None) resolves as ``resolve_impl`` says; "kernel",
     "dense", "reference" force a path; anything else raises. "kernel" on a
-    CPU tensor runs the kernel's plain version."""
-    _no_int8(k_cache, k_scale, v_scale, "paged_attention")
+    CPU tensor runs the kernel's plain version. ``k_scale``/``v_scale``
+    [NB, bs, nkv] fp32: an int8 pool's dequant planes, required iff the
+    pool payload is int8 (each path checks)."""
     impl = resolve_impl(impl, q.device.type, q.shape[-1])
     if impl == "reference":
         if extra_kv is not None or pool_limit is not None:
@@ -318,14 +350,11 @@ def paged_attention(q, k_cache, v_cache, block_tables, q_pos, trash_block,
                 "(no extra_kv/pool_limit)"
             )
         return paged_attention_reference(
-            q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window, scale=scale
+            q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window, scale=scale,
+            k_scale=k_scale, v_scale=v_scale,
         )
-    if impl == "dense":
-        return paged_decode_attention_dense(
-            q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window,
-            scale=scale, extra_kv=extra_kv, pool_limit=pool_limit,
-        )
-    return paged_decode(
+    fn = paged_decode_attention_dense if impl == "dense" else paged_decode
+    return fn(
         q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window, scale=scale,
-        extra_kv=extra_kv, pool_limit=pool_limit,
+        extra_kv=extra_kv, pool_limit=pool_limit, k_scale=k_scale, v_scale=v_scale,
     )

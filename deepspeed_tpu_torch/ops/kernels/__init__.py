@@ -107,6 +107,19 @@ KERNELS: Dict[str, Kernel] = {
             "deepspeed_tpu/ops/attention/paged_pallas.py:84",
         ),
         Kernel(
+            "paged_decode_int8", "paged_decode.cu", "dstt_paged_decode_int8",
+            # q, k, v, k_scale, v_scale, tables, qpos, limit, ke, ve, epos, out,
+            # n_tok, nh, nkv, d, bs, B, E, trash, window, scale, bf16, stream
+            [_P] * 12 + [_I] * 9 + [ctypes.c_float, _I, _P],
+            "deepspeed_tpu/ops/attention/paged_pallas.py:84",
+        ),
+        Kernel(
+            "block_quant", "block_quant.cu", "dstt_block_quant",
+            # x, q, scales, rows, block, qmax, stochastic, seed, x_bf16, stream
+            [_P] * 3 + [ctypes.c_longlong, _I, ctypes.c_float, _I, ctypes.c_uint32, _I, _P],
+            "deepspeed_tpu/ops/quantizer/block_quant.py:519",
+        ),
+        Kernel(
             "rms_norm_bwd", "rms_norm.cu", "dstt_rms_norm_bwd",
             # x, w, g, dx, rows, h, eps, x_bf16, w_bf16, vec, stream
             [_P] * 4 + [ctypes.c_longlong, _I, ctypes.c_float, _I, _I, _I, _P],

@@ -1,6 +1,6 @@
 // Shared device helpers for the port's hand-written Hopper kernels:
-// bf16/fp32 <-> fp32 conversion, vector loads of N consecutive elements
-// into fp32 registers, and warp reductions. Header-only; each kernel
+// bf16/fp32/int8 -> fp32 and fp32 -> bf16/fp32 conversion, vector loads of
+// N consecutive elements into fp32 registers, and warp reductions. Header-only; each kernel
 // source includes it and builds into its own shared library.
 #pragma once
 
@@ -18,6 +18,8 @@ template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -76,6 +78,16 @@ __device__ __forceinline__ void load_vec(const float* p, float* f) {
       f[4 * i + 3] = t.w;
     }
   }
+}
+
+// 8 int8 codes (8-byte aligned) as fp32, exactly.
+template <int N>
+__device__ __forceinline__ void load_vec(const int8_t* p, float* f) {
+  static_assert(N == 8, "int8 vector of 8");
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = (float)b[i];
 }
 
 // Store 8 fp32 values as 8 consecutive elements (16-byte aligned for bf16,

@@ -11,12 +11,16 @@
 //   * extra column e is valid iff epos >= 0 && epos <= qpos (and in window);
 //   * q is scaled in fp32 (scale, else d^-0.5) before the dot product;
 //   * GQA: query head h reads kv head h / (nh / nkv);
-//   * a row with no valid key emits exactly 0.
+//   * a row with no valid key emits exactly 0;
+//   * an int8 pool (dstt_paged_decode_int8) carries fp32 scale planes
+//     [NBt, bs, nkv], one scalar per (token, kv head): key K = codes * scale
+//     and likewise V; the extras stay in q's dtype.
 //
 // Bound: memory. Per row and kv head the kernel reads the valid keys' K and
-// V once (2 * d * bytes each) and does 4 * group * d FLOPs per key: at
-// group 4 that is ~4 FLOP/byte in bf16, far below the ~295 FLOP/byte
-// ridge. The least time is the valid K/V bytes over HBM bandwidth.
+// V once (2 * d * bytes each, plus two 4-byte scales for an int8 pool) and
+// does 4 * group * d FLOPs per key: at group 4 that is ~4 FLOP/byte in
+// bf16 (~8 in int8), far below the ~295 FLOP/byte ridge. The least time is
+// the valid K/V bytes over HBM bandwidth.
 //
 // Design (simple first; split-K, TMA and wgmma come later):
 //   * one block of 128 threads per (row, kv head, chunk of <= 8 query heads
@@ -34,7 +38,18 @@
 //     sum, and every thread folds the tile's P @ V into fp32 accumulators
 //     for the head dims it owns;
 //   * all pool offsets are 64-bit: the flat pool at Mistral-7B width holds
-//     more than 2^31 elements.
+//     more than 2^31 elements;
+//   * int8 pools: the tile keeps the int8 rows in shared memory (a tile of
+//     codes is half a bf16 tile; dequantizing into fp32 would take 64 KB per
+//     tile at d 128) and loads each key's two scales (stride nkv in their
+//     planes) beside them. The K scale multiplies the key's score after the
+//     dot product, the V scale the key's probability before P @ V, and the
+//     softmax sum takes the probability unscaled: the same arithmetic as the
+//     Pallas body's dequantize-then-dot up to fp32 rounding. Pool tiles and
+//     extra-column tiles (q's dtype) share the shared memory as a union,
+//     since they take turns; each has its own 16-byte loader.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -51,27 +66,54 @@ constexpr int tile_keys() {
   return (16384 / (D * (int)sizeof(T))) < 64 ? 16384 / (D * (int)sizeof(T)) : 64;
 }
 
-template <typename T, int D>
+template <typename E, int KT, int D>
+struct Tile {
+  E k[KT * D];  // the tile's K rows
+  E v[KT * D];  // the tile's V rows
+};
+
+// T: q, extras and output; P: the pool (T, or int8 with scale planes)
+template <typename T, typename P, int D>
 struct Shared {
   static constexpr int KT = tile_keys<T, D>();
-  T k[KT * D];       // the tile's K rows
-  T v[KT * D];       // the tile's V rows
+  union {
+    Tile<T, KT, D> x;     // extra columns
+    Tile<P, KT, D> pool;  // pool keys
+  };
   float q[GB * D];   // scaled queries
-  float p[GB * KT];  // scores, then probabilities
+  float p[GB * KT];  // scores, then probabilities (times the V scale)
+  float ks[KT];      // K and V scales of the tile's keys (int8 pools)
+  float vs[KT];
   int ok[KT];        // key valid
   float m[GB];       // running max
   float l[GB];       // running sum
   float a[GB];       // rescale factor of the current tile
 };
 
-// Copy nk rows of D elements (row stride `stride` elements) into sh.k/sh.v
-// with 16-byte loads; rows of invalid keys are zero-filled (their scores are
-// masked, and P @ V must not meet NaN bit patterns).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(Shared<T, D>& sh, const T* kbase, const T* vbase,
+// the pool tile or the extras tile of the shared memory
+template <bool POOL, typename T, typename P, int D>
+__device__ __forceinline__ auto& tile_of(Shared<T, P, D>& sh) {
+  if constexpr (POOL) {
+    return sh.pool;
+  } else {
+    return sh.x;
+  }
+}
+
+// Copy nk rows of D elements (row stride `stride` elements) into the pool
+// tile (POOL) or the extras tile with 16-byte loads; rows of invalid keys
+// are zero-filled (their scores are masked, and P @ V must not meet NaN
+// bit patterns). An int8 pool tile also takes each key's K and V scale
+// (row stride `sstride` in the planes).
+template <bool POOL, typename T, typename P, int D, typename E>
+__device__ __forceinline__ void load_tile(Shared<T, P, D>& sh, const E* kbase, const E* vbase,
                                           int64_t stride, int nk, const int* epos_t, int qp,
-                                          int window) {
-  constexpr int VPR = D * (int)sizeof(T) / 16;  // 16-byte vectors per row
+                                          int window, const float* kscale, const float* vscale,
+                                          int64_t sstride) {
+  constexpr bool SCALED = POOL && std::is_same<P, int8_t>::value;
+  constexpr int KT = Shared<T, P, D>::KT;
+  constexpr int VPR = D * (int)sizeof(E) / 16;  // 16-byte vectors per row
+  auto& tile = tile_of<POOL>(sh);
   const int tid = threadIdx.x;
   for (int kk = tid; kk < nk; kk += NT) {
     bool ok = true;
@@ -80,11 +122,15 @@ __device__ __forceinline__ void load_tile(Shared<T, D>& sh, const T* kbase, cons
       ok = ep >= 0 && ep <= qp && !(window > 0 && qp - ep >= window);
     }
     sh.ok[kk] = ok;
+    if constexpr (SCALED) {
+      sh.ks[kk] = ok ? kscale[kk * sstride] : 0.f;
+      sh.vs[kk] = ok ? vscale[kk * sstride] : 0.f;
+    }
   }
   __syncthreads();
   // every load of this thread first, then every store: the loads of the
   // tile are all in flight together
-  constexpr int ITER = (Shared<T, D>::KT * VPR + NT - 1) / NT;
+  constexpr int ITER = (KT * VPR + NT - 1) / NT;
   uint4 kr[ITER], vr[ITER];
 #pragma unroll
   for (int it = 0; it < ITER; ++it) {
@@ -102,17 +148,19 @@ __device__ __forceinline__ void load_tile(Shared<T, D>& sh, const T* kbase, cons
     const int i = tid + it * NT;
     if (i < nk * VPR) {
       const int kk = i / VPR, c = i % VPR;
-      reinterpret_cast<uint4*>(sh.k + kk * D)[c] = kr[it];
-      reinterpret_cast<uint4*>(sh.v + kk * D)[c] = vr[it];
+      reinterpret_cast<uint4*>(tile.k + kk * D)[c] = kr[it];
+      reinterpret_cast<uint4*>(tile.v + kk * D)[c] = vr[it];
     }
   }
   __syncthreads();
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void run_tile(Shared<T, D>& sh, float (&acc)[GB][(D + NT - 1) / NT],
-                                         int nk, int gc) {
-  constexpr int KT = Shared<T, D>::KT;
+template <bool POOL, typename T, typename P, int D>
+__device__ __forceinline__ void run_tile(Shared<T, P, D>& sh,
+                                         float (&acc)[GB][(D + NT - 1) / NT], int nk, int gc) {
+  constexpr bool SCALED = POOL && std::is_same<P, int8_t>::value;
+  constexpr int KT = Shared<T, P, D>::KT;
+  const auto& tile = tile_of<POOL>(sh);
   constexpr int EPL = D / LPK;  // elements of a key row per lane
   constexpr int DPT = (D + NT - 1) / NT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -126,7 +174,8 @@ __device__ __forceinline__ void run_tile(Shared<T, D>& sh, float (&acc)[GB][(D +
     const bool ok = kk < nk && sh.ok[kk];
     float kf[EPL];
 #pragma unroll
-    for (int j = 0; j < EPL; j += 8) dstt::load_vec<8>(sh.k + kk * D + sub * EPL + j, kf + j);
+    for (int j = 0; j < EPL; j += 8) dstt::load_vec<8>(tile.k + kk * D + sub * EPL + j, kf + j);
+    const float kscale = SCALED && kk < nk ? sh.ks[kk] : 1.f;
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       if (g < gc) {
@@ -136,7 +185,7 @@ __device__ __forceinline__ void run_tile(Shared<T, D>& sh, float (&acc)[GB][(D +
         for (int j = 0; j < EPL; ++j) s += qg[j] * kf[j];
 #pragma unroll
         for (int o = LPK / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (sub == 0 && kk < nk) sh.p[g * KT + kk] = ok ? s : NEG_INF;
+        if (sub == 0 && kk < nk) sh.p[g * KT + kk] = ok ? s * kscale : NEG_INF;
       }
     }
   }
@@ -160,7 +209,8 @@ __device__ __forceinline__ void run_tile(Shared<T, D>& sh, float (&acc)[GB][(D +
       pr[i] = s[i] > 0.5f * NEG_INF ? expf(s[i] - m_new) : 0.f;
       sum += pr[i];
       const int j = lane + 32 * i;
-      if (j < KT) sh.p[g * KT + j] = pr[i];
+      // the V scale rides on the probability; the sum takes it unscaled
+      if (j < KT) sh.p[g * KT + j] = SCALED ? (j < nk ? pr[i] * sh.vs[j] : 0.f) : pr[i];
     }
     sum = dstt::warp_sum(sum);
     if (lane == 0) {
@@ -182,7 +232,7 @@ __device__ __forceinline__ void run_tile(Shared<T, D>& sh, float (&acc)[GB][(D +
         if (g < gc) acc[g][i] *= sh.a[g];
 #pragma unroll 4
       for (int kk = 0; kk < nk; ++kk) {
-        const float vv = dstt::to_f(sh.v[kk * D + c]);
+        const float vv = dstt::to_f(tile.v[kk * D + c]);
 #pragma unroll
         for (int g = 0; g < GB; ++g)
           if (g < gc) acc[g][i] += sh.p[g * KT + kk] * vv;
@@ -192,16 +242,17 @@ __device__ __forceinline__ void run_tile(Shared<T, D>& sh, float (&acc)[GB][(D +
   __syncthreads();
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ kpool, const T* __restrict__ vpool,
+    const T* __restrict__ q, const P* __restrict__ kpool, const P* __restrict__ vpool,
+    const float* __restrict__ kscale, const float* __restrict__ vscale,
     const int* __restrict__ tables, const int* __restrict__ qpos,
     const int* __restrict__ limit, const T* __restrict__ ke, const T* __restrict__ ve,
     const int* __restrict__ epos, T* __restrict__ out, int nh, int nkv, int bs, int B,
     int E, int trash, int window, float scale) {
-  constexpr int KT = Shared<T, D>::KT;
+  constexpr int KT = Shared<T, P, D>::KT;
   constexpr int DPT = (D + NT - 1) / NT;
-  __shared__ __align__(16) Shared<T, D> sh;
+  __shared__ __align__(16) Shared<T, P, D> sh;
   const int t = blockIdx.x, n = blockIdx.y;
   const int group = nh / nkv;
   const int g0 = blockIdx.z * GB;
@@ -235,18 +286,23 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       if (blk == trash) continue;
       const int k0 = max(lo, j * bs), k1 = min(hi, (j + 1) * bs);
       for (int kt = k0; kt < k1; kt += KT) {
-        const int64_t off = ((int64_t)blk * bs + (kt - j * bs)) * stride + (int64_t)n * D;
+        const int64_t key0 = (int64_t)blk * bs + (kt - j * bs);  // the tile's first token row
+        const int64_t off = key0 * stride + (int64_t)n * D;
+        const int64_t soff = key0 * nkv + n;
         const int nk = min(KT, k1 - kt);
-        load_tile<T, D>(sh, kpool + off, vpool + off, stride, nk, nullptr, qp, window);
-        run_tile<T, D>(sh, acc, nk, gc);
+        load_tile<true>(sh, kpool + off, vpool + off, stride, nk, nullptr, qp, window,
+                        kscale == nullptr ? nullptr : kscale + soff,
+                        vscale == nullptr ? nullptr : vscale + soff, (int64_t)nkv);
+        run_tile<true>(sh, acc, nk, gc);
       }
     }
   }
   for (int e0 = 0; e0 < E; e0 += KT) {
     const int64_t off = ((int64_t)t * E + e0) * stride + (int64_t)n * D;
     const int nk = min(KT, E - e0);
-    load_tile<T, D>(sh, ke + off, ve + off, stride, nk, epos + (int64_t)t * E + e0, qp, window);
-    run_tile<T, D>(sh, acc, nk, gc);
+    load_tile<false>(sh, ke + off, ve + off, stride, nk, epos + (int64_t)t * E + e0, qp, window,
+                     nullptr, nullptr, 0);
+    run_tile<false>(sh, acc, nk, gc);
   }
 
 #pragma unroll
@@ -265,40 +321,42 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   }
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const int* tables,
-            const int* qpos, const int* limit, const void* ke, const void* ve,
-            const int* epos, void* out, int n_tok, int nh, int nkv, int bs, int B,
-            int E, int trash, int window, float scale, cudaStream_t stream) {
+template <typename T, typename P, int D>
+void launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+            const int* tables, const int* qpos, const int* limit, const void* ke,
+            const void* ve, const int* epos, void* out, int n_tok, int nh, int nkv, int bs,
+            int B, int E, int trash, int window, float scale, cudaStream_t stream) {
   const int group = nh / nkv;
   const dim3 grid((unsigned)n_tok, (unsigned)nkv, (unsigned)((group + GB - 1) / GB));
-  paged_decode_kernel<T, D><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), tables,
-      qpos, limit, static_cast<const T*>(ke), static_cast<const T*>(ve), epos,
+  paged_decode_kernel<T, P, D><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k), static_cast<const P*>(v), ks, vs,
+      tables, qpos, limit, static_cast<const T*>(ke), static_cast<const T*>(ve), epos,
       static_cast<T*>(out), nh, nkv, bs, B, E, trash, window, scale);
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v, const int* tables,
-               const int* qpos, const int* limit, const void* ke, const void* ve,
-               const int* epos, void* out, int n_tok, int nh, int nkv, int bs, int B,
-               int E, int trash, int window, float scale, cudaStream_t s) {
-  switch (d) {
-    case 64:
-      launch<T, 64>(q, k, v, tables, qpos, limit, ke, ve, epos, out, n_tok, nh, nkv, bs, B,
-                    E, trash, window, scale, s);
-      return 0;
-    case 128:
-      launch<T, 128>(q, k, v, tables, qpos, limit, ke, ve, epos, out, n_tok, nh, nkv, bs, B,
-                     E, trash, window, scale, s);
-      return 0;
-    case 256:
-      launch<T, 256>(q, k, v, tables, qpos, limit, ke, ve, epos, out, n_tok, nh, nkv, bs, B,
-                     E, trash, window, scale, s);
-      return 0;
-    default:
-      return (int)cudaErrorInvalidValue;
+// P = T (bf16/fp32 pool) or int8_t (with scale planes)
+template <typename P>
+int dispatch(int bf16, int d, const void* q, const void* k, const void* v, const float* ks,
+             const float* vs, const int* tables, const int* qpos, const int* limit,
+             const void* ke, const void* ve, const int* epos, void* out, int n_tok, int nh,
+             int nkv, int bs, int B, int E, int trash, int window, float scale,
+             cudaStream_t s) {
+#define DSTT_PAGED_LAUNCH(T, D)                                                            \
+  launch<T, std::conditional_t<std::is_same<P, int8_t>::value, int8_t, T>, D>(             \
+      q, k, v, ks, vs, tables, qpos, limit, ke, ve, epos, out, n_tok, nh, nkv, bs, B, E,   \
+      trash, window, scale, s)
+  if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    if (d == 64) DSTT_PAGED_LAUNCH(__nv_bfloat16, 64);
+    if (d == 128) DSTT_PAGED_LAUNCH(__nv_bfloat16, 128);
+    if (d == 256) DSTT_PAGED_LAUNCH(__nv_bfloat16, 256);
+  } else {
+    if (d == 64) DSTT_PAGED_LAUNCH(float, 64);
+    if (d == 128) DSTT_PAGED_LAUNCH(float, 128);
+    if (d == 256) DSTT_PAGED_LAUNCH(float, 256);
   }
+#undef DSTT_PAGED_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -314,12 +372,21 @@ extern "C" int dstt_paged_decode(const void* q, const void* k, const void* v,
                                  const void* ke, const void* ve, const int* epos, void* out,
                                  int n_tok, int nh, int nkv, int d, int bs, int B, int E,
                                  int trash, int window, float scale, int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = bf16 ? dispatch_d<__nv_bfloat16>(d, q, k, v, tables, qpos, limit, ke, ve,
-                                                  epos, out, n_tok, nh, nkv, bs, B, E, trash,
-                                                  window, scale, s)
-                      : dispatch_d<float>(d, q, k, v, tables, qpos, limit, ke, ve, epos, out,
-                                          n_tok, nh, nkv, bs, B, E, trash, window, scale, s);
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return dispatch<void>(bf16, d, q, k, v, nullptr, nullptr, tables, qpos, limit, ke, ve, epos,
+                        out, n_tok, nh, nkv, bs, B, E, trash, window, scale,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The int8 pool form: k, v: int8 codes [NBt, bs, nkv, d]; ks, vs: fp32
+// scale planes [NBt, bs, nkv]; q, out, ke, ve in bf16 (bf16=1) or fp32.
+// Otherwise as dstt_paged_decode.
+extern "C" int dstt_paged_decode_int8(const void* q, const void* k, const void* v,
+                                      const float* ks, const float* vs, const int* tables,
+                                      const int* qpos, const int* limit, const void* ke,
+                                      const void* ve, const int* epos, void* out, int n_tok,
+                                      int nh, int nkv, int d, int bs, int B, int E, int trash,
+                                      int window, float scale, int bf16, void* stream) {
+  return dispatch<int8_t>(bf16, d, q, k, v, ks, vs, tables, qpos, limit, ke, ve, epos, out,
+                          n_tok, nh, nkv, bs, B, E, trash, window, scale,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,251 @@
+"""Symmetric block quantization (PyTorch).
+
+Counterpart of the single-device part of
+``deepspeed_tpu/ops/quantizer/block_quant.py`` (reference
+csrc/quantization/pt_binding.cpp ds_quantize, symmetric path): values are
+grouped into fixed-size blocks; each block stores int8 values (int4 packed
+two per byte) and one fp32 scale = absmax / qmax. Dequant is ``q * scale``.
+
+  * ``quantize_blockwise`` / ``dequantize_blockwise``, ``_quantize_rows`` /
+    ``_dequantize_rows``: plain torch, as the JAX package's are plain jnp.
+    Stochastic rounding draws its noise from an explicit
+    ``torch.Generator`` and raises without one.
+  * ``block_quant``: the wrapper of the hand-written CUDA kernel
+    (``ops/kernels/csrc/block_quant.cu``, replacing the Pallas
+    ``_quant_kernel``): rows [n, block] -> int8 codes [n, block] and fp32
+    scales [n]. A CPU tensor takes its plain version,
+    ``block_quant_reference``; a CUDA tensor launches the kernel or raises.
+  * ``quantize_kv`` / ``dequantize_kv``: per-head-vector int8 for the paged
+    KV pools, i.e. ``block_quant`` with a block of d (the engine's
+    quantize-on-write; on a card every write launches the kernel).
+  * ``quantize_blockwise_kernel``: the counterpart of
+    ``quantize_blockwise_pallas`` (rows padded to a multiple of 8, the int4
+    pack a torch post-pass), with its plain version
+    ``quantize_blockwise_kernel_reference`` beside it.
+
+Deterministic codes and scales equal the JAX package's, compiled as its
+engine and its Pallas kernel run them, bit for bit: the scale is absmax
+times the fp32 reciprocal of qmax (XLA's form of ``absmax / qmax``), the
+inverse ``1 / max(scale, 1e-30)`` an IEEE division (0 for a zero block),
+then ``round(x * inv)`` half to even and a clip to +-qmax. The kernels'
+stochastic mode adds ``u - 0.5`` before the rounding, where u is the top
+24 bits of a counter-based hash (``utils/counter_hash.py``) of (seed,
+element index) over 2^24: the kernel and its plain version agree bit for
+bit, but the bits are not the TPU PRNG's, so stochastic codes agree with
+the JAX package only in distribution.
+
+The qgZ/qwZ collectives (``quantized_reduce_scatter*``,
+``quantized_allreduce``, ``loco_*``, ``quantized_all_gather_along``) wait
+for the multi-GPU slice (ROADMAP queue 1, item 6); ``fp8_cast``,
+``fp_quantize`` and ``fp_pack`` for quantized projections (queue 1, item 8).
+"""
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.ops.kernels import KERNELS, stream_ptr
+from deepspeed_tpu_torch.utils.counter_hash import M32, fold, mix32
+
+_QMAX = {8: 127.0, 4: 7.0}
+QUANT_KERNEL = KERNELS["block_quant"]
+
+
+class QuantizedTensor(NamedTuple):
+    values: torch.Tensor  # int8 payload; for bits=4, two biased nibbles per byte
+    scales: torch.Tensor  # fp32 per block
+    shape: tuple  # original shape
+    bits: int
+    block_size: int
+
+
+def _pad_to(x, multiple):
+    n = x.shape[0]
+    pad = (-n) % multiple
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return x, pad
+
+
+def _pack_int4(q):
+    """[-7, 7] int values -> two biased nibbles per byte ([nb, block/2])."""
+    biased = (q + 7).to(torch.uint8)  # 0..14
+    lo, hi = biased[:, ::2], biased[:, 1::2]
+    return (lo | (hi << 4)).view(torch.int8)
+
+
+def _unpack_int4(packed):
+    u = packed.view(torch.uint8)
+    lo = (u & 0xF).float() - 7.0
+    hi = (u >> 4).float() - 7.0
+    nb, half = u.shape
+    return torch.stack([lo, hi], dim=-1).reshape(nb, half * 2)
+
+
+def _scales_and_inverse(absmax, qmax):
+    """scale = absmax * fl32(1 / qmax), as XLA compiles the JAX package's
+    ``absmax / qmax`` (a division by a constant becomes a product with its
+    fp32 reciprocal under jit, where the engine and the Pallas kernel run
+    it; JAX's eager op divides, and differs in the last bit of ~4% of the
+    scales), and its inverse 1 / max(scale, 1e-30) by IEEE division, 0
+    where the block is all zero."""
+    scales = absmax * torch.full_like(absmax, float(np.float32(1.0) / np.float32(qmax)))
+    inv = torch.where(scales > 0, torch.reciprocal(scales.clamp_min(1e-30)),
+                      torch.zeros_like(scales))
+    return scales, inv
+
+
+def quantize_blockwise(x, bits: int = 8, block_size: int = 2048, stochastic: bool = False,
+                       rng: Optional[torch.Generator] = None) -> QuantizedTensor:
+    """Symmetric per-block quantization. Flattens, pads to block_size.
+    ``stochastic`` adds uniform noise in [-0.5, 0.5) from ``rng`` before
+    rounding."""
+    qmax = _QMAX[bits]
+    flat = x.reshape(-1).float()
+    flat, _pad = _pad_to(flat, block_size)
+    blocks = flat.reshape(-1, block_size)
+    scales, inv = _scales_and_inverse(blocks.abs().amax(dim=-1, keepdim=True), qmax)
+    scaled = blocks * inv
+    if stochastic:
+        if rng is None:
+            raise ValueError("stochastic=True requires an rng generator (silent "
+                             "deterministic fallback would bias gradients)")
+        noise = torch.rand(scaled.shape, generator=rng, device=rng.device) - 0.5
+        scaled = scaled + noise.to(scaled.device)
+    q = torch.clamp(torch.round(scaled), -qmax, qmax)
+    values = _pack_int4(q) if bits == 4 else q.to(torch.int8)
+    return QuantizedTensor(values=values, scales=scales[:, 0], shape=tuple(x.shape),
+                           bits=bits, block_size=block_size)
+
+
+def dequantize_blockwise(qt: QuantizedTensor, dtype=torch.float32):
+    vals = _unpack_int4(qt.values) if qt.bits == 4 else qt.values.float()
+    flat = (vals * qt.scales[:, None]).reshape(-1)
+    n = 1
+    for d in qt.shape:
+        n *= d
+    return flat[:n].reshape(qt.shape).to(dtype)
+
+
+def _quantize_rows(rows, bits: int, block_size: int):
+    """Per-row blockwise quantization: rows [R, m] (m % block == 0) ->
+    (payload int8 [R, nb, bs or bs/2], scales fp32 [R, nb, 1])."""
+    qmax = _QMAX[bits]
+    R, m = rows.shape
+    blocks = rows.float().reshape(R, m // block_size, block_size)
+    scales, inv = _scales_and_inverse(blocks.abs().amax(dim=-1, keepdim=True), qmax)
+    q = torch.clamp(torch.round(blocks * inv), -qmax, qmax)
+    if bits == 4:
+        payload = _pack_int4(q.reshape(-1, block_size)).reshape(R, m // block_size,
+                                                                 block_size // 2)
+    else:
+        payload = q.to(torch.int8)
+    return payload, scales
+
+
+def _dequantize_rows(payload, scales, bits: int, block_size: int):
+    R, nb = payload.shape[0], payload.shape[1]
+    if bits == 4:
+        vals = _unpack_int4(payload.reshape(-1, block_size // 2)).reshape(R, nb, block_size)
+    else:
+        vals = payload.float()
+    return (vals * scales).reshape(R, nb * block_size)
+
+
+# ---------------------------------------------------------------------------
+# the block_quant kernel and its plain version
+# ---------------------------------------------------------------------------
+def stochastic_noise(n: int, block: int, seed: int, device):
+    """The kernel's rounding noise for rows [n, block]: u - 0.5 with u the
+    top 24 bits of fold(fold(mix32(seed), i >> 32), i) over 2^24, i the
+    element's index in the row-major [n, block] array."""
+    idx = torch.arange(n * block, device=device, dtype=torch.int64).view(n, block)
+    key = mix32(torch.tensor(int(seed) & M32, device=device, dtype=torch.int64))
+    bits = fold(fold(key, idx >> 32), idx)
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24)) - 0.5
+
+
+def block_quant_reference(rows, qmax: float = 127.0, stochastic: bool = False, seed: int = 0):
+    """The block_quant kernel's plain version: rows [n, block] (bf16 or
+    fp32) -> (int8 codes [n, block], fp32 scales [n])."""
+    x = rows.float()
+    scales, inv = _scales_and_inverse(x.abs().amax(dim=-1, keepdim=True), qmax)
+    scaled = x * inv
+    if stochastic:
+        scaled = scaled + stochastic_noise(x.shape[0], x.shape[1], seed, x.device)
+    q = torch.clamp(torch.round(scaled), -qmax, qmax).to(torch.int8)
+    return q, scales[:, 0]
+
+
+def block_quant(rows, qmax: float = 127.0, stochastic: bool = False, seed: int = 0):
+    """The block_quant kernel's wrapper. A CPU tensor takes the plain
+    version (``block_quant_reference``); a CUDA tensor launches the kernel
+    or raises. rows: [n, block] bf16 or fp32, block a multiple of 8."""
+    if rows.device.type == "cpu":
+        return block_quant_reference(rows, qmax, stochastic, seed)
+    if rows.device.type != "cuda":
+        raise ValueError(f"block_quant: rows on {rows.device}; expected a CPU or CUDA tensor")
+    if rows.dim() != 2 or rows.shape[1] % 8 or rows.shape[1] == 0:
+        raise ValueError(f"block_quant: rows {tuple(rows.shape)}; expected [n, block] with "
+                         "block a positive multiple of 8")
+    if rows.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"block_quant: {rows.dtype} rows; the kernel takes bf16 or fp32")
+    rows = rows.contiguous()
+    n, block = rows.shape
+    q = torch.empty((n, block), dtype=torch.int8, device=rows.device)
+    scales = torch.empty((n,), dtype=torch.float32, device=rows.device)
+    if n == 0:
+        return q, scales
+    if rows.data_ptr() % 16:
+        raise ValueError("block_quant: rows must be 16-byte aligned")
+    fn = QUANT_KERNEL.fn()
+    rc = fn(rows.data_ptr(), q.data_ptr(), scales.data_ptr(), n, block, ctypes.c_float(qmax),
+            int(bool(stochastic)), ctypes.c_uint32(int(seed) & M32),
+            int(rows.dtype == torch.bfloat16), stream_ptr(rows))
+    QUANT_KERNEL.check(rc)
+    QUANT_KERNEL.launches += 1
+    return q, scales
+
+
+def quantize_kv(x):
+    """Symmetric per-head-vector int8 quantization for paged KV-cache
+    payloads: ``x`` [..., d] -> (int8 payload [..., d], fp32 scales [...]),
+    scale = absmax/127 over each head vector's d components, dequant
+    ``q * scale``. Per-vector granularity lets quantize-on-write append a
+    token without touching its neighbours' scales. On a card: one
+    ``block_quant`` launch with a block of d."""
+    d = x.shape[-1]
+    q, scales = block_quant(x.reshape(-1, d), _QMAX[8])
+    return q.view(x.shape), scales.view(x.shape[:-1])
+
+
+def dequantize_kv(values, scales, dtype=torch.float32):
+    """Inverse of :func:`quantize_kv`: int8 payload [..., d] + fp32 scales
+    [...] -> dense [..., d] in ``dtype``."""
+    return (values.float() * scales[..., None].float()).to(dtype)
+
+
+def _blockwise(rows_fn, x, bits, block_size, stochastic, seed) -> QuantizedTensor:
+    flat, _ = _pad_to(x.reshape(-1), block_size * 8)
+    values, scales = rows_fn(flat.view(-1, block_size), _QMAX[bits], stochastic, seed)
+    if bits == 4:
+        values = _pack_int4(values.float())
+    return QuantizedTensor(values=values, scales=scales, shape=tuple(x.shape), bits=bits,
+                           block_size=block_size)
+
+
+def quantize_blockwise_kernel(x, bits: int = 8, block_size: int = 2048,
+                              stochastic: bool = False, seed: int = 0) -> QuantizedTensor:
+    """Counterpart of ``quantize_blockwise_pallas``: flattened x padded to
+    a multiple of 8 blocks, one ``block_quant`` launch on a card (int8
+    layout; the int4 pack is a torch post-pass)."""
+    return _blockwise(block_quant, x, bits, block_size, stochastic, seed)
+
+
+def quantize_blockwise_kernel_reference(x, bits: int = 8, block_size: int = 2048,
+                                        stochastic: bool = False,
+                                        seed: int = 0) -> QuantizedTensor:
+    """``quantize_blockwise_kernel``'s plain version, on any device."""
+    return _blockwise(block_quant_reference, x, bits, block_size, stochastic, seed)

@@ -70,6 +70,54 @@ def test_paged_cases_and_byte_count():
     assert ops == keys * 8 * 4 * world.d
 
 
+def test_int8_paged_cases_and_byte_count():
+    """The int8 kernel group's world on a small pool: the pool holds
+    ``quantize_kv`` codes and planes, padded slots and all-trash rows give
+    0, and the bound counts d + 4 bytes per head vector of the pool (codes
+    and a scale) and q's dtype for the extras."""
+    from deepspeed_tpu_torch.ops.attention.paged import paged_decode
+
+    world = chip_smoke.PagedWorld(torch, torch.device("cpu"), torch.float32, 2, 24, 16, 2, 64, 1,
+                                  int8=True)
+    assert world.k.dtype == torch.int8 and tuple(world.ks.shape) == (50, 16, 2)
+    rng = np.random.default_rng(0)
+    cases = dict(chip_smoke.paged_cases(torch, world, rng, 6, 8, 4, 1, 8))
+    out = paged_decode(**world.pool(), **cases["split_E1_limit"])
+    assert not out[-4:].any() and out[:-4].abs().sum() > 0
+    kw = cases["causal_window_scale"]
+    assert not paged_decode(**world.pool(), **kw)[0].any()
+    moved, ops = chip_smoke.paged_bytes_ops(world, kw)
+    pos = kw["q_pos"].numpy()
+    keys = sum(min(100, int(p) + 1) for p in pos[1:])  # row 0 is all trash
+    per_key = 2 * world.nkv * (world.d + 4)
+    assert moved - keys * per_key == 2 * kw["q"].numel() * 4 + kw["block_tables"].numel() * 4 + 6 * 8
+    # extras in q's dtype
+    kw = cases["split_E1_limit"]
+    moved_e, _ = chip_smoke.paged_bytes_ops(world, kw)
+    no_extra = dict(kw, extra_kv=None)
+    moved_n, _ = chip_smoke.paged_bytes_ops(world, no_extra)
+    assert moved_e - moved_n == 2 * 2 * 64 * 4 * 2  # 2 valid extras, K and V, nkv 2, fp32
+
+
+def test_block_quant_checks_on_plain_inputs():
+    """The kernel group's bitwise checks at a small size: on CPU tensors the
+    wrappers are their plain versions, so every case agrees, the zero head
+    vector gives scale 0, and a flipped code would be counted."""
+    x_kv, x_big = chip_smoke.block_quant_inputs(torch, torch.device("cpu"), rows=64, d=128,
+                                                shape=(16, 512))
+    mismatches = chip_smoke.block_quant_mismatches(torch, x_kv, x_big, 256)
+    assert set(mismatches) == {
+        "kv_write_d128_deterministic", "kv_write_d128_stochastic",
+        "blockwise_256_deterministic", "blockwise_256_stochastic",
+        "kv_write_d128_fp32_deterministic", "kv_write_d128_fp32_stochastic",
+        "quantize_kv", "blockwise_int4"}
+    assert not any(mismatches.values())
+    from deepspeed_tpu_torch.ops.quantizer.block_quant import quantize_kv
+
+    q, s = quantize_kv(x_kv)
+    assert float(s[0]) == 0.0 and not q[0].any() and bool((s[1:] > 0).all())
+
+
 @pytest.fixture
 def one_thread():
     """Tiny ops: a single intra-op thread avoids thread-pool hand-offs that
@@ -128,7 +176,8 @@ def test_train_phase_runs_end_to_end_on_cpu(one_thread):
         "rms_norm_bwd": 10}
     assert rec["phase"] == "train" and "checkpoint" not in rec
     assert (set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS)
-            | set(chip_smoke.FUSED_KERNELS) | set(chip_smoke.SPLASH_KERNELS)) == set(K.KERNELS)
+            | set(chip_smoke.FUSED_KERNELS) | set(chip_smoke.SPLASH_KERNELS)
+            | set(chip_smoke.INT8_KERNELS)) == set(K.KERNELS)
 
 
 def test_train_fused_phase_runs_end_to_end_on_cpu(one_thread):
@@ -243,7 +292,8 @@ def test_train_splash_phase_runs_end_to_end_on_cpu(one_thread):
         "splash_fwd": 8, "splash_bwd_dq": 4, "splash_bwd_dkv": 4, "rms_norm_fwd": 18,
         "rms_norm_bwd": 10}
     assert set(chip_smoke.SPLASH_KERNELS) | set(chip_smoke.SERVE_KERNELS) | set(
-        chip_smoke.TRAIN_KERNELS) | set(chip_smoke.FUSED_KERNELS) == set(K.KERNELS)
+        chip_smoke.TRAIN_KERNELS) | set(chip_smoke.FUSED_KERNELS) | set(
+        chip_smoke.INT8_KERNELS) == set(K.KERNELS)
 
 
 def test_engine_per_row_phase_runs_end_to_end_on_cpu(one_thread):
@@ -294,3 +344,71 @@ def test_splash_kernel_cases_on_plain_inputs():
     out, lse = SP.splash_fwd_reference(q, k, v, dead)
     assert not out[:, :, 1024:2048].any() and bool((lse[:, :, 1024:2048] == -1e30).all())
     assert bool(out[:, :, 2048:].abs().sum(-1).gt(0).all())
+
+
+def test_engine_int8_phase_runs_end_to_end_on_cpu(one_thread):
+    """The engine_int8 phase at 2 tiny layers after the bf16 phase whose
+    rows it is held against: the exact counts the card checks (paged decode
+    int8 L and block_quant 2L per forward step, the bf16 paged kernel 0),
+    logits against the plain forward within the int8 limit, the dense
+    rerun on the same engine equal to the main path (both plain on the
+    CPU), and the pool's capacity multiplier."""
+    widths = dict(n_layers=2, hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                  vocab_size=512, dtype="float32")
+    engine_config = {
+        "dtype": "float32", "decode_steps": 64, "prompt_chunk": 256, "max_prompt_chunks": 4,
+        "kv_cache": {"block_size": 16, "num_blocks": 1024, "max_blocks_per_seq": 40},
+        "state_manager": {"max_tracked_sequences": 64, "max_ragged_batch_size": 1024,
+                          "max_ragged_sequence_count": 32, "max_context": 640},
+    }
+    cpu = torch.device("cpu")
+    keep = {}
+    bf16, _ = chip_smoke.engine_phase(torch, cpu, K, widths=widths, engine_config=engine_config,
+                                      keep=keep)
+    assert len(keep) == 33 and keep[0][0].shape == (67, 512)
+    rec, launches = chip_smoke.engine_phase(torch, cpu, K, widths=widths,
+                                            engine_config=engine_config,
+                                            kv_cache_dtype="int8", bf16_rows=keep)
+    json.dumps(rec)
+    assert rec["phase"] == "engine_int8" and launches == {name: 0 for name in K.KERNELS}
+    fwd = rec["forward_steps"]["split"] + 64
+    assert rec["launches_expected"]["paged_decode_int8"] == 2 * fwd
+    assert rec["launches_expected"]["block_quant"] == 4 * fwd
+    assert rec["launches_expected"]["paged_decode"] == 0
+    assert max(rec["logit_rel_err"][k] for k in ("prefill", "decode", "round")) < (
+        chip_smoke.INT8_LOGIT_RTOL)
+    assert rec["logit_rel_err"]["shifted"] > chip_smoke.INT8_LOGIT_RTOL
+    assert rec["dense_logit_rel_err"] == 0.0 and rec["dense_rows_compared"] >= 32 * 64
+    assert rec["bf16_rows_compared"] >= 32 and rec["bf16_logit_rel_err"] < (
+        chip_smoke.INT8_LOGIT_RTOL)
+    assert rec["kv_pool_info"]["kv_cache_dtype"] == "int8"
+    assert rec["kv_pool_info"]["kv_capacity_multiplier"] == pytest.approx(2 * 32 / (32 + 4))
+    assert bf16["kv_pool_info"]["kv_capacity_multiplier"] == 1.0
+    assert rec["gen_tok_s"] > 0
+
+
+def test_engine_per_row_int8_phase_runs_end_to_end_on_cpu(one_thread):
+    """The int8 per-row check at 2 tiny layers: exact per-row-step counts,
+    logits equal to the batched int8 step's fed the same tokens (both plain
+    on the CPU), and the export -> import round trip of a sequence's
+    blocks."""
+    widths = dict(n_layers=2, hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                  vocab_size=512, dtype="float32")
+    engine_config = {
+        "dtype": "float32", "decode_steps": 1, "prompt_chunk": 32, "max_prompt_chunks": 2,
+        "kv_cache": {"block_size": 16, "num_blocks": 64, "max_blocks_per_seq": 16,
+                     "kv_cache_dtype": "int8"},
+        "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 96,
+                          "max_ragged_sequence_count": 4, "max_context": 256},
+    }
+    rec, launches = chip_smoke.engine_per_row_int8_phase(
+        torch, torch.device("cpu"), K, widths=widths, engine_config=engine_config,
+        prompt_lens=(2, 100, 150), new_tokens=5)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    steps = rec["row_steps"]
+    assert steps > 2 * 4 and rec["launches_expected"]["paged_decode_int8"] == 2 * steps
+    assert rec["launches_expected"]["block_quant"] == 4 * steps
+    assert rec["batched_token_agreement"] == 1.0 and rec["batched_logit_rel_err"] < 1e-4
+    assert rec["logit_rows_checked"] == 10
+    assert rec["export_blocks"] >= 7 and rec["export_bytes"] > 0

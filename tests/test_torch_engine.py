@@ -208,7 +208,6 @@ def test_forward_matches_jax_forward():
     ({"tp_size": 2}, "queue 1, item 6"),
     ({"quant": {"enabled": True}}, "item 8"),
     ({"spec_k": 2}, "item 4"),
-    ({"kv_cache": {"kv_cache_dtype": "int8"}}, "queue 2, item 3"),
     ({"kv_cache": {"host_tier_bytes": 1 << 20, "prefix_cache": True}}, "item 4"),
 ])
 def test_unported_engine_features_raise(over, match):
@@ -238,7 +237,7 @@ def test_engine_rejects_an_unknown_attention_impl():
                             EngineConfig.from_dict(engine_config()), device="cpu")
     assert eng.paged_attention_impl == "dense"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.export_kv_blocks([0])
+        eng.export_kv_blocks_windows([0])
 
 
 @pytest.mark.parametrize("scaling,seq_len", [

@@ -45,6 +45,8 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.muon",
     "deepspeed_tpu_torch.ops.normalization",
     "deepspeed_tpu_torch.ops.normalization.fused_norm",
+    "deepspeed_tpu_torch.ops.quantizer",
+    "deepspeed_tpu_torch.ops.quantizer.block_quant",
     "deepspeed_tpu_torch.ops.sparse_attention",
     "deepspeed_tpu_torch.ops.sparse_attention.config",
     "deepspeed_tpu_torch.ops.sparse_attention.mask",
@@ -67,6 +69,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.runtime.zero",
     "deepspeed_tpu_torch.runtime.zero.config",
     "deepspeed_tpu_torch.utils",
+    "deepspeed_tpu_torch.utils.counter_hash",
     "deepspeed_tpu_torch.utils.logging",
     "deepspeed_tpu_torch.utils.timer",
     "deepspeed_tpu_torch.utils.tree",
@@ -176,6 +179,16 @@ def test_kernel_wrappers_never_fall_back_for_device_tensors():
     tables = torch.zeros(2, 1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         paged_decode(q, pool, pool, tables, tables[:, 0], 2)
+    codes = torch.zeros(3, 8, 2, 64, device="meta", dtype=torch.int8)
+    planes = torch.ones(3, 8, 2, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        paged_decode(q, codes, codes, tables, tables[:, 0], 2, k_scale=planes, v_scale=planes)
+    from deepspeed_tpu_torch.ops.quantizer.block_quant import block_quant, quantize_kv
+
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        block_quant(torch.zeros(4, 64, device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        quantize_kv(torch.zeros(2, 2, 64, device="meta"))
 
 
 def test_training_wrappers_never_fall_back_for_device_tensors(monkeypatch):

@@ -212,8 +212,11 @@ def test_dispatch_contract():
         pt.paged_attention(*args, impl="pallas")
     with pytest.raises(ValueError, match="reference"):
         pt.paged_attention(*args, impl="reference", pool_limit=args[4])
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="not int8"):
         pt.paged_attention(*args, k_scale=torch.ones(5, 8, 2), v_scale=torch.ones(5, 8, 2))
+    int8_pool = [args[0], args[1].to(torch.int8), args[2].to(torch.int8)] + args[3:]
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        pt.paged_attention(*int8_pool, k_scale=torch.ones(5, 8, 2))
 
 
 @pytest.mark.parametrize("impl,device,d,want", [
