@@ -21,11 +21,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
    segments, dead query blocks and the prefill form; the paged kernel's
    int8 form over ``quantize_kv`` codes of seeded bf16 K/V; block_quant bit
    for bit at the engine's write shape and at a block of 2048 over a
-   4096 x 14336 tensor, deterministic and stochastic); then CUDA-event times
+   4096 x 14336 tensor, deterministic and stochastic; the layout-predicate
+   sparse kernels over Fixed 16-blocks, per-head BigBird, dead rows and the
+   dense layout at s 4096, the dense case also against the flash kernels and
+   the Fixed and BigBird cases against the splash kernels over
+   ``schedule_from_layout`` of the same layout); then CUDA-event times
    of the kernel, the plain version and one PyTorch library call computing
    the same function (a yardstick only: the port never calls it), beside
    the least time the card could take (``bound_ms``); the splash kernels
-   also beside the port's flash kernels with the same window.
+   also beside the port's flash kernels with the same window, the sparse
+   kernels beside the causal flash kernels at the same shape.
 3. engine: ``InferenceEngineV2`` at Mistral-7B width (seeded random bf16
    weights, all 32 layers) prefills 32 prompts through ``step()`` and runs
    one fused ``decode_round(64)``; logits are held against the plain
@@ -71,13 +76,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
    splash prefill (launches counted exactly), logits against
    ``forward_reference`` and against the dense per-row path fed the same
    tokens, the kv blocks each chunk's schedule visits, prefill tok/s.
+8. sparse_attn: the op-registry entry point. ``get_accelerator()
+   .create_op_builder("sparse_attn").load()`` hands out the block-sparse
+   module, whose ``SparseSelfAttention(FixedSparsityConfig(block 128, 4
+   local, 1 global, unidirectional), use_splash=False)`` runs forward and
+   backward on Mistral-7B's attention (32 query heads over 8 kv heads,
+   expanded by the module, of 128) at 16384 tokens in bf16: exactly one
+   launch of each sparse kernel and no other, out and gradients against
+   the plain versions, peak memory and seconds; then a ``key_padding_mask``
+   call at 4096 tokens (the dense biased form: no kernel) against
+   ``sparse_attention_with_bias``.
 
 Serving kernels must launch in the engine phase (the int8 pool's in
 engine_int8 and its per-row check), training kernels in the train legs,
 the fused configuration's four in its leg, the splash kernels in the
-splash leg (the forward also in the per-row leg): together every kernel. The line before the last lists the kernels; the last line is the
-result object. With no card, or outside a checkout, it exits non-zero and
-prints no result.
+splash leg (the forward also in the per-row leg), the sparse kernels in the
+sparse_attn phase: together every kernel. The line before the last lists
+the kernels; the last line is the result object. With no card, or outside a
+checkout, it exits non-zero and prints no result.
 """
 
 import argparse
@@ -330,6 +346,17 @@ def tile_rel_err(torch, name, got, want, tile=FLASH_TILE, limit=FLASH_TILE_RTOL)
     return worst
 
 
+def hold(torch, errs, tile_errs, kname, tag, got, want):
+    """``got`` against ``want`` elementwise (the bf16 tolerance scaled by
+    the reference's largest element) and, where ``tile_errs`` has the
+    kernel, per 64-row tile; records both under ``tag``, raises on a miss."""
+    scale = max(1.0, float(want.float().abs().max()))
+    errs[kname][tag] = check_close(torch, f"{kname} {tag}", got, want, BF16_ATOL * scale,
+                                   BF16_RTOL)
+    if kname in tile_errs:
+        tile_errs[kname][tag] = tile_rel_err(torch, f"{kname} {tag}", got, want)
+
+
 def flash_pairs(s, causal, window, window_flag, segment_ids):
     """Visible (query, key) pairs per (batch, head), summed over the batch:
     the work these inputs need."""
@@ -392,13 +419,10 @@ def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
         dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
         dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
         rdq, rdk, rdv = F.flash_bwd_reference(q, k, v, out, do, lse, **kw)
-        for kname, got, want in (("flash_bwd_dq", dq, rdq), ("flash_bwd_dkv", dk, rdk),
-                                 ("flash_bwd_dkv", dv, rdv)):
-            scale = max(1.0, float(want.float().abs().max()))
-            tag = name + ("_dv" if got is dv else "")
-            errs[kname][tag] = check_close(torch, f"{kname} {tag}", got, want,
-                                           BF16_ATOL * scale, BF16_RTOL)
-            tile_errs[kname][tag] = tile_rel_err(torch, f"{kname} {tag}", got, want)
+        for kname, got, want, tag in (("flash_bwd_dq", dq, rdq, name),
+                                      ("flash_bwd_dkv", dk, rdk, name),
+                                      ("flash_bwd_dkv", dv, rdv, name + "_dv")):
+            hold(torch, errs, tile_errs, kname, tag, got, want)
         del rdq, rdk, rdv, dq, dk, dv
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -576,10 +600,7 @@ def check_splash(torch, errs, tile_errs, name, q, k, v, do, sched, seg=None):
     for kname, got, want, tag in (("splash_bwd_dq", dq, rdq, name),
                                   ("splash_bwd_dkv", dk, rdk, name),
                                   ("splash_bwd_dkv", dv, rdv, name + "_dv")):
-        scale = max(1.0, float(want.float().abs().max()))
-        errs[kname][tag] = check_close(torch, f"{kname} {tag}", got, want,
-                                       BF16_ATOL * scale, BF16_RTOL)
-        tile_errs[kname][tag] = tile_rel_err(torch, f"{kname} {tag}", got, want)
+        hold(torch, errs, tile_errs, kname, tag, got, want)
     del dq, dk, dv, rdq, rdk, rdv
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -734,6 +755,305 @@ def kernel_splash(torch, dev, b=1, h=32, h_kv=8, d=128, s=4096, timed=SPLASH_TIM
                        "token mask, memory-efficient backend (kv heads repeated; backward: "
                        "autograd, dq+dk+dv in one call, eager)",
             "at_a": at_a[name],
+        }
+    return records
+
+
+# layout-predicate sparse kernels: the flash kernels' tolerances (the same
+# tile bodies and roundings, against a plain version over the layout's token
+# mask)
+SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+# the sparse_attn phase's layout: Fixed, 128-blocks, 4 local and 1 global
+# block per window, unidirectional, over Mistral-7B's attention (32 query
+# heads, 8 kv heads expanded to 32, head_dim 128, bf16) at 16384 tokens
+SPARSE_TIMED = dict(s=16384, block=128, num_local_blocks=4, num_global_blocks=1)
+
+
+def sparse_fixed(h, block=SPARSE_TIMED["block"], num_local_blocks=SPARSE_TIMED["num_local_blocks"],
+                 num_global_blocks=SPARSE_TIMED["num_global_blocks"]):
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+
+    return FixedSparsityConfig(num_heads=h, block=block, num_local_blocks=num_local_blocks,
+                               num_global_blocks=num_global_blocks, attention="unidirectional")
+
+
+def sparse_cases(h=32, s=4096):
+    """(name, layout [h, nb, nb] int32, block, causal) of the kernels group:
+    (a) Fixed in 16-blocks (a 64-row tile spans 4 x 4 layout blocks),
+    causal; (b) BigBird in 64-blocks, bidirectional, a layout per head
+    (random blocks above the diagonal); (c) a causal layout in 64-blocks
+    whose query block 1 keeps only key block 2 (its rows are dead) and whose
+    query block 5 keeps nothing; (d) the dense layout in 128-blocks,
+    bidirectional; (e) the sparse_attn phase's Fixed layout (128-blocks,
+    causal)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+
+    dead = np.tril(np.ones((h, s // 64, s // 64), np.int32))
+    dead[:, 1] = 0
+    dead[:, 1, 2] = 1
+    dead[:, 5] = 0
+    return [
+        ("a_fixed_b16_causal", sparse_fixed(h, 16, 4, 1).make_layout(s), 16, True),
+        ("b_bigbird_b64_per_head", BigBirdSparsityConfig(
+            num_heads=h, block=64, different_layout_per_head=True, num_random_blocks=2,
+            num_sliding_window_blocks=3, num_global_blocks=1, seed=1).make_layout(s), 64, False),
+        ("c_dead_rows_b64_causal", dead, 64, True),
+        ("d_dense_b128", np.ones((h, s // 128, s // 128), np.int32), 128, False),
+        ("e_fixed_b128_causal", sparse_fixed(h).make_layout(s), 128, True),
+    ]
+
+
+def sparse_work(layout, block, causal, b, h, s, d):
+    """(kept pairs, FLOPs fwd/dq/dkv, bytes fwd/dq/dkv) the three kernels
+    need for these inputs. A kept block holds block^2 pairs; when causal a
+    kept diagonal block holds block * (block + 1) / 2 and one above the
+    diagonal none. 4d / 6d / 8d FLOPs per kept pair, each input read once
+    and each output written once (q, k, v, o, do, dq, dk, dv [b, h, s, d]
+    bf16, lse fp32, the int32 layout)."""
+    import numpy as np
+
+    lay = np.asarray(layout) != 0
+    if causal:
+        nb = lay.shape[1]
+        below = np.tril(np.ones((nb, nb), bool), -1)
+        pairs = (int((lay & below).sum()) * block * block
+                 + int((lay & np.eye(nb, dtype=bool)).sum()) * block * (block + 1) // 2) * b
+    else:
+        pairs = int(lay.sum()) * block * block * b
+    t = b * h * s * d * 2
+    lseb = b * h * s * 4
+    layb = np.asarray(layout).size * 4
+    flops = {"sparse_fwd": 4 * pairs * d, "sparse_bwd_dq": 6 * pairs * d,
+             "sparse_bwd_dkv": 8 * pairs * d}
+    moved = {"sparse_fwd": 3 * t + layb + t + lseb,
+             "sparse_bwd_dq": 5 * t + lseb + layb + t,
+             "sparse_bwd_dkv": 5 * t + lseb + layb + 2 * t}
+    return pairs, flops, moved
+
+
+def check_sparse(torch, errs, tile_errs, name, q, k, v, do, layout, block, causal):
+    """The three sparse kernels against their plain versions on these
+    inputs (heads matched): out and lse, then dq, dk and dv (elementwise,
+    scaled by the reference's largest element, and per 64-row tile);
+    records each error under ``name`` and raises on a miss. Returns the
+    kernels' (out, lse, dq, dk, dv)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse as SA
+
+    out, lse = SA.sparse_fwd_cuda(q, k, v, layout, block, causal)
+    ref_out, ref_lse = SA.sparse_fwd_reference(q, k, v, layout, block, causal)
+    errs["sparse_fwd"][name] = check_close(torch, f"sparse_fwd {name}", out, ref_out,
+                                           BF16_ATOL, BF16_RTOL)
+    errs["sparse_fwd"][name + "_lse"] = check_close(
+        torch, f"sparse_fwd lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
+    del ref_out, ref_lse
+    dq = SA.sparse_bwd_dq_cuda(q, k, v, out, do, lse, layout, block, causal)
+    dk, dv = SA.sparse_bwd_dkv_cuda(q, k, v, out, do, lse, layout, block, causal)
+    rdq, rdk, rdv = SA.sparse_bwd_reference(q, k, v, out, do, lse, layout, block, causal)
+    for kname, got, want, tag in (("sparse_bwd_dq", dq, rdq, name),
+                                  ("sparse_bwd_dkv", dk, rdk, name),
+                                  ("sparse_bwd_dkv", dv, rdv, name + "_dv")):
+        hold(torch, errs, tile_errs, kname, tag, got, want)
+    del rdq, rdk, rdv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, lse, dq, dk, dv
+
+
+def splash_against_sparse(torch, errs, name, q, k, v, do, layout, block, causal, got):
+    """The splash oracle: the splash kernels over ``schedule_from_layout``
+    of the same layout, on the same inputs, held against the sparse
+    kernels' (out, lse, dq, dk, dv) ``got`` (elementwise and per tile)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import schedule_from_layout
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    sched = schedule_from_layout(layout.cpu().numpy(), block, causal=causal)
+    out, lse = SP.splash_fwd_cuda(q, k, v, sched)
+    dq = SP.splash_bwd_dq_cuda(q, k, v, out, do, lse, sched)
+    dk, dv = SP.splash_bwd_dkv_cuda(q, k, v, out, do, lse, sched)
+    tiles = {n: {} for n in SPARSE_KERNELS}
+    for kname, mine, theirs, tag in (("sparse_fwd", got[0], out, "out"),
+                                     ("sparse_bwd_dq", got[2], dq, "dq"),
+                                     ("sparse_bwd_dkv", got[3], dk, "dk"),
+                                     ("sparse_bwd_dkv", got[4], dv, "dv")):
+        hold(torch, errs, tiles, kname, f"{name}_splash_{tag}", theirs, mine)
+    check_close(torch, f"splash lse {name}", lse, got[1], FLASH_LSE_ATOL, FP32_RTOL)
+    del out, lse, dq, dk, dv
+    torch.cuda.synchronize()
+
+
+def flash_against_sparse(torch, errs, name, q, k, v, do, got):
+    """The dense layout: the port's flash kernels (non-causal) on the same
+    inputs held against the sparse kernels' outputs ``got``."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    out, lse = F.flash_fwd_cuda(q, k, v, causal=False)
+    dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, causal=False)
+    dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, causal=False)
+    tiles = {n: {} for n in SPARSE_KERNELS}
+    for kname, mine, theirs, tag in (("sparse_fwd", got[0], out, "out"),
+                                     ("sparse_bwd_dq", got[2], dq, "dq"),
+                                     ("sparse_bwd_dkv", got[3], dk, "dk"),
+                                     ("sparse_bwd_dkv", got[4], dv, "dv")):
+        hold(torch, errs, tiles, kname, f"{name}_flash_{tag}", theirs, mine)
+    check_close(torch, f"flash lse {name}", lse, got[1], FLASH_LSE_ATOL, FP32_RTOL)
+    del out, lse, dq, dk, dv
+    torch.cuda.synchronize()
+
+
+def sparse_case_checks(torch, dev, b=1, h=32, d=128, s=4096):
+    """The kernels group's checks at s 4096 (``sparse_cases``): each case
+    against the plain versions; the dead rows exactly 0 (lse -1e30, finite
+    gradients); the dense case also against the flash kernels; the Fixed
+    (128-block) and BigBird cases also against the splash kernels over the
+    same layout (the splash oracle). Returns (errs, tile_errs, oracle
+    counts)."""
+    errs = {n: {} for n in SPARSE_KERNELS}
+    tile_errs = {"sparse_bwd_dq": {}, "sparse_bwd_dkv": {}}
+    oracle = {"splash": [], "flash": []}
+    for i, (name, layout, block, causal) in enumerate(sparse_cases(h, s)):
+        lay = torch.as_tensor(layout, dtype=torch.int32, device=dev)
+        q, k, v, do = flash_inputs(torch, dev, b, h, h, s, d, seed=80 + i)
+        got = check_sparse(torch, errs, tile_errs, name, q, k, v, do, lay, block, causal)
+        if name.startswith("c_"):
+            rows = torch.cat([torch.arange(64, 128), torch.arange(320, 384)]).to(dev)
+            if bool(got[0][:, :, rows].float().abs().max() != 0):
+                raise AssertionError("sparse_fwd: the dead rows must give exactly 0")
+            if bool((got[1][:, :, rows] != -1e30).any()):
+                raise AssertionError("sparse_fwd: the dead rows' lse must be -1e30")
+            if bool(got[2][:, :, rows].float().abs().max() != 0):
+                raise AssertionError("sparse_bwd_dq: the dead rows' dq must be exactly 0")
+            if not all(bool(torch.isfinite(g).all()) for g in got[2:]):
+                raise AssertionError("sparse backward: non-finite gradients")
+        if name.startswith("d_"):
+            flash_against_sparse(torch, errs, name, q, k, v, do, got)
+            oracle["flash"].append(name)
+        if name.startswith(("b_", "e_")):
+            splash_against_sparse(torch, errs, name, q, k, v, do, lay, block, causal, got)
+            oracle["splash"].append(name)
+        del q, k, v, do, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return errs, tile_errs, oracle
+
+
+def sdpa_layout_ms(torch, q, k, v, do, mask):
+    """Yardsticks: ``scaled_dot_product_attention`` with the layout's
+    boolean token mask (``mask`` [1 or h, s, s]) under the memory-efficient
+    backend; forward timed in a CUDA graph, its autograd backward (dq, dk
+    and dv in one call) eagerly."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    f = torch.nn.functional.scaled_dot_product_attention
+    mask = mask[None]
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):  # never a dense [h, s, s] fallback
+            return f(q, k, v, attn_mask=mask)
+
+    fwd_ms = time_ms(torch, fwd, iters=5)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = f(ql, kl, vl, attn_mask=mask)
+    bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                         retain_graph=True), iters=5)
+    del out, ql, kl, vl
+    torch.cuda.empty_cache()
+    return {"sparse_fwd": fwd_ms, "sparse_bwd_dq": bwd_ms, "sparse_bwd_dkv": bwd_ms}
+
+
+def sparse_timings(torch, dev, errs, tile_errs, b=1, h=32, d=128, timed=SPARSE_TIMED,
+                   seed=90):
+    """At the sparse_attn phase's shape: the three kernels held against
+    their plain versions and against the splash kernels on the inputs they
+    are timed on; then CUDA-graph times of the kernels, their plain
+    versions, the flash kernels (causal: the dense work the layout prunes)
+    and, as a yardstick, SDPA with the layout's boolean token mask; beside
+    each kernel its bound for these inputs."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse as SA
+
+    s, block = timed["s"], timed["block"]
+    layout = sparse_fixed(h).make_layout(s)
+    lay = torch.as_tensor(layout, dtype=torch.int32, device=dev)
+    q, k, v, do = flash_inputs(torch, dev, b, h, h, s, d, seed)
+    name = f"timed_s{s}_fixed_b{block}"
+    got = check_sparse(torch, errs, tile_errs, name, q, k, v, do, lay, block, True)
+    splash_against_sparse(torch, errs, name, q, k, v, do, lay, block, True, got)
+    out, lse = got[0], got[1]
+    del got
+    args = (q, k, v, out, do, lse, lay, block, True)
+    ms = {"sparse_fwd": time_ms(torch, lambda: SA.sparse_fwd_cuda(q, k, v, lay, block, True),
+                                iters=10),
+          "sparse_bwd_dq": time_ms(torch, lambda: SA.sparse_bwd_dq_cuda(*args), iters=10),
+          "sparse_bwd_dkv": time_ms(torch, lambda: SA.sparse_bwd_dkv_cuda(*args), iters=10)}
+    plain = {"sparse_fwd": time_ms(
+        torch, lambda: SA.sparse_fwd_reference(q, k, v, lay, block, True), iters=2, warmup=1)}
+    # the plain backward computes dq, dk and dv together: its time stands for both
+    plain["sparse_bwd_dq"] = plain["sparse_bwd_dkv"] = time_ms(
+        torch, lambda: SA.sparse_bwd_reference(*args), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    fout, flse = F.flash_fwd_cuda(q, k, v, causal=True)
+    flash = {"sparse_fwd": time_ms(torch, lambda: F.flash_fwd_cuda(q, k, v, causal=True),
+                                   iters=10),
+             "sparse_bwd_dq": time_ms(
+                 torch, lambda: F.flash_bwd_dq_cuda(q, k, v, fout, do, flse, causal=True),
+                 iters=10),
+             "sparse_bwd_dkv": time_ms(
+                 torch, lambda: F.flash_bwd_dkv_cuda(q, k, v, fout, do, flse, causal=True),
+                 iters=10)}
+    del fout, flse
+    # one layout for every head here: a [1, s, s] token mask
+    tok = (lay[0] != 0).repeat_interleave(block, 0).repeat_interleave(block, 1)
+    tok &= torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    lib = sdpa_layout_ms(torch, q, k, v, do, tok[None])
+    del tok
+    pairs, flops, moved = sparse_work(layout, block, True, b, h, s, d)
+    density = float((layout != 0).mean())
+    rec = {}
+    for kname in SPARSE_KERNELS:
+        t_ops, t_bytes = flops[kname] / BF16_FLOPS, moved[kname] / HBM_BYTES_PER_S
+        rec[kname] = {"shape": {"b": b, "h": h, "s": s, "d": d, "block": block, "causal": True,
+                                "layout": "Fixed(num_local_blocks=4, num_global_blocks=1, "
+                                          "unidirectional)", "density": density},
+                      "ms": ms[kname], "plain_ms": plain[kname], "flash_ms": flash[kname],
+                      "library_ms": lib[kname], "bound_ms": max(t_ops, t_bytes) * 1e3,
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "kept_pairs": pairs, "flops": flops[kname],
+                      "tflops_per_s": flops[kname] / (ms[kname] * 1e-3) / 1e12}
+    del q, k, v, do, out, lse, lay
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kernel_sparse(torch, dev):
+    """The three layout-predicate sparse kernels against their plain
+    versions in bf16 at Mistral-7B's heads (32, kv expanded, d 128): the
+    cases of ``sparse_cases`` at s 4096 with the flash and splash oracles
+    (``sparse_case_checks``), then checked and timed at the sparse_attn
+    phase's shape (``sparse_timings``). Returns one record per kernel."""
+    errs, tile_errs, oracle = sparse_case_checks(torch, dev)
+    at_timed = sparse_timings(torch, dev, errs, tile_errs)
+    records = {}
+    for name in SPARSE_KERNELS:
+        main = at_timed[name]
+        records[name] = {
+            "name": name,
+            "shape": main["shape"],
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_case": errs[name],
+            "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "scaled_by": "max(1, max|ref|)",
+                          "lse": [FLASH_LSE_ATOL, FP32_RTOL],
+                          "tile_rel_frobenius": FLASH_TILE_RTOL if name in tile_errs else None},
+            "tile_rel_frobenius_by_case": tile_errs.get(name),
+            "held_against": {"plain": [c[0] for c in sparse_cases()], **oracle},
+            **{key: main[key] for key in ("ms", "plain_ms", "flash_ms", "library_ms",
+                                          "bound_ms", "bound_by", "kept_pairs", "flops",
+                                          "tflops_per_s")},
+            "library": "torch.nn.functional.scaled_dot_product_attention with the layout's "
+                       "boolean token mask, memory-efficient backend (backward: autograd, "
+                       "dq+dk+dv in one call, eager)",
         }
     return records
 
@@ -2241,6 +2561,123 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
     return rec, launches
 
 
+def sparse_attn_phase(torch, dev, K, h=32, h_kv=8, d=128, s=SPARSE_TIMED["s"], mask_s=4096,
+                      dtype=None, block=SPARSE_TIMED["block"]):
+    """The op-registry entry point at Mistral-7B's attention: ``get_accelerator()
+    .create_op_builder("sparse_attn").load()`` hands out the block-sparse
+    module; its ``SparseSelfAttention(Fixed(block 128, 4 local, 1 global,
+    unidirectional), use_splash=False)`` runs forward and backward at b 1,
+    ``h`` query heads over ``h_kv`` kv heads (expanded by the module), s
+    ``s``. Launches are counted exactly (one of each sparse kernel per call,
+    nothing else); out, dq, dk and dv are held against the plain versions
+    (the kv gradients summed over each kv head's group). Then a
+    ``key_padding_mask`` call at ``mask_s`` (the dense biased form: no
+    kernel launches) against ``sparse_attention_with_bias`` in fp32 on the
+    same inputs. ``h``/``s``/``dtype`` shrink it for a CPU rehearsal, where
+    nothing launches."""
+    from deepspeed_tpu_torch import get_accelerator
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse as SA
+
+    dtype = dtype or torch.bfloat16
+    t_phase = time.perf_counter()
+    accel = get_accelerator()
+    sa = accel.create_op_builder("sparse_attn").load(verbose=False)
+    cfg = sa.FixedSparsityConfig(num_heads=h, block=block,
+                                 num_local_blocks=SPARSE_TIMED["num_local_blocks"],
+                                 num_global_blocks=SPARSE_TIMED["num_global_blocks"],
+                                 attention="unidirectional")
+    attn = sa.SparseSelfAttention(cfg, use_splash=False)
+    rec = {"phase": "sparse_attn", "model": MODEL, "accelerator": accel._name,
+           "entry": "get_accelerator().create_op_builder('sparse_attn').load()"
+                    ".SparseSelfAttention(use_splash=False)",
+           "shape": {"b": 1, "h": h, "h_kv": h_kv, "d": d, "s": s, "dtype": str(dtype),
+                     "block": block, "causal": True},
+           "density": float((attn.get_layout(s) != 0).mean())}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def inputs(n):
+        q = torch.randn(1, h, n, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(1, h_kv, n, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(1, h_kv, n, d, generator=gen, device=dev).to(dtype)
+        do = torch.randn(1, h, n, d, generator=gen, device=dev).to(dtype)
+        return q, k, v, do
+
+    q, k, v, do = inputs(s)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _sync(torch, dev)
+    K.reset_counts()
+    t0 = time.perf_counter()
+    out = attn(*leaves)
+    out.backward(do)
+    _sync(torch, dev)
+    rec["first_call_s"] = time.perf_counter() - t0
+    launches = K.counts()
+    want = {n: int(on_card and n in SPARSE_KERNELS) for n in K.KERNELS}
+    if launches != want:
+        raise AssertionError(f"sparse_attn: launches {launches}, expected {want}")
+    rec["launches"] = {n: c for n, c in launches.items() if c}
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    # against the plain versions, GQA expanded as the module expands it
+    group = h // h_kv
+    ke, ve = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    lay = attn.device_layout(s, dev)
+    ref_out, ref_lse = SA.sparse_fwd_reference(q, ke, ve, lay, block, True)
+    errs = {"out": check_close(torch, "sparse_attn out", out.detach(), ref_out, BF16_ATOL,
+                               BF16_RTOL)}
+    tiles = {"out": tile_rel_err(torch, "sparse_attn out", out.detach(), ref_out)}
+    rdq, rdk, rdv = SA.sparse_bwd_reference(q, ke, ve, ref_out, do, ref_lse, lay, block, True)
+    del ref_out, ref_lse, out
+    for tag, got, want_g in (
+            ("dq", leaves[0].grad, rdq),
+            ("dk", leaves[1].grad, rdk.float().reshape(1, h_kv, group, s, d).sum(2)),
+            ("dv", leaves[2].grad, rdv.float().reshape(1, h_kv, group, s, d).sum(2))):
+        scale = max(1.0, float(want_g.float().abs().max()))
+        errs[tag] = check_close(torch, f"sparse_attn {tag}", got, want_g, BF16_ATOL * scale,
+                                BF16_RTOL)
+        tiles[tag] = tile_rel_err(torch, f"sparse_attn {tag}", got, want_g)
+    del rdq, rdk, rdv, ke, ve
+    rec["max_abs_err"], rec["tile_rel_frobenius"] = errs, tiles
+
+    # seconds of a call (eager: host work included), the mean of three
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for t in leaves:
+            t.grad = None
+        attn(*leaves).backward(do)
+    _sync(torch, dev)
+    rec["call_s"] = (time.perf_counter() - t0) / 3
+    del q, k, v, do, leaves
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the key_padding_mask call: the dense biased form, no kernel
+    q, k, v, _ = inputs(mask_s)
+    kpm = torch.zeros(1, mask_s, device=dev)
+    kpm[:, -mask_s // 8:] = -10000.0  # the last eighth of the keys padded ("add" mode)
+    K.reset_counts()
+    with torch.no_grad():
+        got = attn(q, k, v, key_padding_mask=kpm)
+    _sync(torch, dev)
+    if any(K.counts().values()):
+        raise AssertionError(f"sparse_attn: the key_padding_mask call launched {K.counts()}")
+    ke, ve = (t.repeat_interleave(group, dim=1).float() for t in (k, v))
+    ref = SA.sparse_attention_with_bias(q.float(), ke, ve, attn.device_layout(mask_s, dev),
+                                        block, causal=True, bias=kpm[:, None, None, :])
+    errs["key_padding_mask_out"] = check_close(torch, "sparse_attn key_padding_mask", got,
+                                               ref, BF16_ATOL, BF16_RTOL)
+    rec["key_padding_mask"] = {"s": mask_s, "padded_keys": mask_s // 8, "launches": 0}
+    del q, k, v, ke, ve, got, ref
+    if on_card:
+        rec["peak_mem_gb_with_mask_call"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
 def device_profile(torch, fns):
     """torch.profiler over each named callable: device time by kernel name,
     the device's busy share of the wall time, and the host operators with
@@ -2328,6 +2765,7 @@ def main(argv=None):
         "fused_ce": lambda: kernel_fused_ce(torch, dev),
         "fused_adam": lambda: {"fused_adam": kernel_fused_adam(torch, dev)},
         "splash": lambda: kernel_splash(torch, dev),
+        "sparse": lambda: kernel_sparse(torch, dev),
     }
     t0 = time.perf_counter()
     records = {}
@@ -2386,17 +2824,26 @@ def main(argv=None):
     emit(rec)
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    rec, sparse_launches = sparse_attn_phase(torch, dev, K)
+    rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    torch.cuda.empty_cache()
+
     # serving kernels launch in the engine phase (the int8 pool's in the
     # engine_int8 phase and the int8 per-row check), training kernels in the
     # train legs, the fused leg's four in the fused leg, the splash kernels
-    # in the splash leg (and the splash forward in the per-row leg), and
-    # together they are every kernel
+    # in the splash leg (and the splash forward in the per-row leg), the
+    # sparse kernels in the sparse_attn phase, and together they are every
+    # kernel
     launched = {name: serve_launches[name] for name in SERVE_KERNELS}
     launched.update({name: int8_launches[name] for name in INT8_KERNELS})
     launched.update({name: train_launches["train"][name] for name in TRAIN_KERNELS
                      if name not in SERVE_KERNELS})
     launched.update({name: train_launches["train_fused"][name] for name in FUSED_KERNELS})
     launched.update({name: train_launches["train_splash"][name] for name in SPLASH_KERNELS})
+    launched.update({name: sparse_launches[name] for name in SPARSE_KERNELS})
     missing = [n for n, c in launched.items() if c <= 0]
     missing += [n for n in TRAIN_KERNELS if train_launches["train_fused"][n] <= 0]
     missing += [f"{n} (engine_per_row)" for n in PER_ROW_KERNELS if per_row_launches[n] <= 0]
@@ -2407,7 +2854,7 @@ def main(argv=None):
         raise AssertionError(
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
             f"training {train_launches}, per-row {per_row_launches}, int8 {int8_launches}, "
-            f"per-row int8 {per_row_int8_launches}, "
+            f"per-row int8 {per_row_int8_launches}, sparse_attn {sparse_launches}, "
             f"kernels {sorted(K.KERNELS)}")
 
     kernels_line = []
@@ -2416,7 +2863,8 @@ def main(argv=None):
         phase = ("engine" if name in SERVE_KERNELS
                  else "engine_int8" if name in INT8_KERNELS
                  else "train_fused" if name in FUSED_KERNELS
-                 else "train_splash" if name in SPLASH_KERNELS else "train")
+                 else "train_splash" if name in SPLASH_KERNELS
+                 else "sparse_attn" if name in SPARSE_KERNELS else "train")
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": str(k.source_path.relative_to(root)),
@@ -2430,6 +2878,7 @@ def main(argv=None):
             **({"flash_ms": rec["flash_ms"],
                 "launches_engine_per_row": per_row_launches.get(name, 0)}
                if name in SPLASH_KERNELS else {}),
+            **({"flash_ms": rec["flash_ms"]} if name in SPARSE_KERNELS else {}),
             **({"launches_engine_per_row_int8": per_row_int8_launches[name]}
                if name in INT8_KERNELS else {}),
             "matched": True,  # check_close raised otherwise

@@ -16,7 +16,12 @@ The port trains and serves the dense decoder on one device:
     "FusedAdam"}}``) the fused LM head + cross-entropy (forward, dx, dW) and
     FusedAdam kernels; npz checkpoints the JAX package reads and writes;
   * serve: ``inference.v2.engine_v2.InferenceEngineV2`` with the RMSNorm and
-    paged-decode kernels.
+    paged-decode kernels;
+  * ops: ``get_accelerator().create_op_builder(name).load()`` hands out an op
+    of the registry (``ops/op_builder.py``; ``sparse_attn`` gives the
+    block-sparse module, ``SparseSelfAttention`` over the splash or the
+    layout-predicate kernels); ``python -m deepspeed_tpu_torch.env_report``
+    prints the stack, the card and the op table.
 
 Parameters live where ``models.transformer.init_params`` puts them (the
 card by default; ``device="cpu"`` runs the kernels' plain versions).
@@ -25,6 +30,7 @@ card by default; ``device="cpu"`` runs the kernels' plain versions).
 from typing import Any, Callable, Optional, Union
 
 from deepspeed_tpu_torch.version import __version__
+from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
@@ -105,4 +111,4 @@ def initialize(
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
-__all__ = ["__version__", "initialize", "log_dist", "logger"]
+__all__ = ["__version__", "get_accelerator", "initialize", "log_dist", "logger"]

@@ -185,9 +185,12 @@ class InferenceEngineV2:
             raise _later("the host block tier (host_tier_bytes > 0)", "ROADMAP queue 1, item 4")
         if c.attn_sparsity is not None:
             # the steps serve the causal (windowed) mask: a sparsity layout
-            # would be served as another mask than the one it trained with
-            raise _later("serving an attn_sparsity layout",
-                         "ROADMAP queue 2, item 9: the layout-predicate sparse kernel")
+            # would be served as another mask than the one it trained with,
+            # as the JAX engine serves it; no kernel lifts this refusal
+            raise NotImplementedError(
+                "InferenceEngineV2: serving an attn_sparsity layout is refused: the JAX "
+                "engine serves such a model with the dense causal mask, not its own "
+                "(ROADMAP section 3)")
         T._check_served(c)
         self._kv_dtype = _check_dtype(str(getattr(kv, "kv_cache_dtype", "bf16") or "bf16"))
         self._kv_int8 = self._kv_dtype == "int8"

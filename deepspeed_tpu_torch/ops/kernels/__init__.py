@@ -171,6 +171,27 @@ KERNELS: Dict[str, Kernel] = {
             "deepspeed_tpu/ops/sparse_attention/splash_pallas.py:231",
         ),
         Kernel(
+            "sparse_fwd", "sparse_fwd.cu", "dstt_sparse_fwd",
+            # q, k, v, layout, out, lse, b, h, s, d, scale, nb, log2(block),
+            # causal, stream
+            [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/sparse_attention/sparse_pallas.py:32",
+        ),
+        Kernel(
+            "sparse_bwd_dq", "sparse_bwd.cu", "dstt_sparse_bwd_dq",
+            # q, k, v, o, do, lse, layout, dq, b, h, s, d, scale, nb,
+            # log2(block), causal, stream
+            [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/sparse_attention/sparse_pallas.py:78",
+        ),
+        Kernel(
+            "sparse_bwd_dkv", "sparse_bwd.cu", "dstt_sparse_bwd_dkv",
+            # q, k, v, o, do, lse, layout_t, dk, dv, b, h, s, d, scale, nb,
+            # log2(block), causal, stream
+            [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/sparse_attention/sparse_pallas.py:118",
+        ),
+        Kernel(
             "fused_ce_fwd", "fused_ce.cu", "dstt_fused_ce_fwd",
             # x, w, labels, pm, pl, tgt, loss, lse, n, h, V, stream
             [_P] * 8 + [_I] * 3 + [_P],

@@ -223,8 +223,8 @@ template <int D>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
               const float* lse, bf16* dq, const Problem& p, cudaStream_t stream) {
   const size_t bytes = bwd_smem_bytes<D>();
-  static bool configured = false;
-  if (int e = set_max_smem(flash_dq_kernel<D>, bytes, configured)) return e;
+  static size_t have = 0;
+  if (int e = set_max_smem(flash_dq_kernel<D>, bytes, have)) return e;
   const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.s + BQ - 1) / BQ));
   flash_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, dq, p);
   return (int)cudaGetLastError();
@@ -234,8 +234,8 @@ template <int D, int DC>
 int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
                const float* lse, bf16* dk, bf16* dv, const Problem& p, cudaStream_t stream) {
   const size_t bytes = bwd_smem_bytes<D>();
-  static bool configured = false;
-  if (int e = set_max_smem(flash_dkv_kernel<D, DC>, bytes, configured)) return e;
+  static size_t have = 0;
+  if (int e = set_max_smem(flash_dkv_kernel<D, DC>, bytes, have)) return e;
   const dim3 grid((unsigned)(p.b * p.h_kv), (unsigned)((p.s + BK - 1) / BK));
   flash_dkv_kernel<D, DC><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, dk, dv, p);
   return (int)cudaGetLastError();

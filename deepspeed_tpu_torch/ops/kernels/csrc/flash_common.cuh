@@ -425,15 +425,17 @@ __device__ __forceinline__ void store_rows(bf16* base, const float (&acc)[DC / 8
   }
 }
 
-// Raise a kernel's dynamic shared memory limit once (``configured`` is the
-// launcher's static flag). Returns a cudaError_t.
+// Raise a kernel's dynamic shared memory limit to ``bytes`` when the limit
+// set so far (``have``, the launcher's static record) is lower: once for a
+// fixed size, again whenever a launch needs more (the sparse kernels' masks
+// grow with s). Returns a cudaError_t.
 template <typename K>
-__host__ inline int set_max_smem(K kernel, size_t bytes, bool& configured) {
-  if (configured) return 0;
+__host__ inline int set_max_smem(K kernel, size_t bytes, size_t& have) {
+  if (bytes <= have) return 0;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  configured = true;
+  have = bytes;
   return 0;
 }
 

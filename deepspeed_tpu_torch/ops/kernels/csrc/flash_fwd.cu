@@ -123,8 +123,8 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            const Problem& p, cudaStream_t stream) {
   const size_t bytes = fwd_smem_bytes<D>();
-  static bool configured = false;
-  if (int e = set_max_smem(flash_fwd_kernel<D>, bytes, configured)) return e;
+  static size_t have = 0;
+  if (int e = set_max_smem(flash_fwd_kernel<D>, bytes, have)) return e;
   const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.s + BQ - 1) / BQ));
   flash_fwd_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

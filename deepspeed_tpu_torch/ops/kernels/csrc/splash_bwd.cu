@@ -223,8 +223,8 @@ int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const 
               const float* lse, bf16* dq, const SplashProblem& p, const Schedule& sc,
               cudaStream_t stream) {
   const size_t bytes = bwd_smem_bytes<D>();
-  static bool configured = false;
-  if (int e = set_max_smem(splash_dq_kernel<D>, bytes, configured)) return e;
+  static size_t have = 0;
+  if (int e = set_max_smem(splash_dq_kernel<D>, bytes, have)) return e;
   const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.sq + TILE - 1) / TILE));
   splash_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, dq, p, sc);
   return (int)cudaGetLastError();
@@ -235,8 +235,8 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const
                const float* lse, bf16* dk, bf16* dv, const SplashProblem& p, const Schedule& st,
                cudaStream_t stream) {
   const size_t bytes = bwd_smem_bytes<D>();
-  static bool configured = false;
-  if (int e = set_max_smem(splash_dkv_kernel<D, DC>, bytes, configured)) return e;
+  static size_t have = 0;
+  if (int e = set_max_smem(splash_dkv_kernel<D, DC>, bytes, have)) return e;
   const dim3 grid((unsigned)(p.b * p.h_kv), (unsigned)((p.sk + TILE - 1) / TILE));
   splash_dkv_kernel<D, DC><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, dk, dv, p,
                                                               st);

@@ -120,8 +120,8 @@ template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
            const SplashProblem& p, const Schedule& sc, cudaStream_t stream) {
   const size_t bytes = fwd_smem_bytes<D>();
-  static bool configured = false;
-  if (int e = set_max_smem(splash_fwd_kernel<D>, bytes, configured)) return e;
+  static size_t have = 0;
+  if (int e = set_max_smem(splash_fwd_kernel<D>, bytes, have)) return e;
   const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.sq + TILE - 1) / TILE));
   splash_fwd_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, out, lse, p, sc);
   return (int)cudaGetLastError();

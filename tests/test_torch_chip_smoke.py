@@ -177,7 +177,7 @@ def test_train_phase_runs_end_to_end_on_cpu(one_thread):
     assert rec["phase"] == "train" and "checkpoint" not in rec
     assert (set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS)
             | set(chip_smoke.FUSED_KERNELS) | set(chip_smoke.SPLASH_KERNELS)
-            | set(chip_smoke.INT8_KERNELS)) == set(K.KERNELS)
+            | set(chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS)) == set(K.KERNELS)
 
 
 def test_train_fused_phase_runs_end_to_end_on_cpu(one_thread):
@@ -293,7 +293,7 @@ def test_train_splash_phase_runs_end_to_end_on_cpu(one_thread):
         "rms_norm_bwd": 10}
     assert set(chip_smoke.SPLASH_KERNELS) | set(chip_smoke.SERVE_KERNELS) | set(
         chip_smoke.TRAIN_KERNELS) | set(chip_smoke.FUSED_KERNELS) | set(
-        chip_smoke.INT8_KERNELS) == set(K.KERNELS)
+        chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS) == set(K.KERNELS)
 
 
 def test_engine_per_row_phase_runs_end_to_end_on_cpu(one_thread):
@@ -412,3 +412,84 @@ def test_engine_per_row_int8_phase_runs_end_to_end_on_cpu(one_thread):
     assert rec["batched_token_agreement"] == 1.0 and rec["batched_logit_rel_err"] < 1e-4
     assert rec["logit_rows_checked"] == 10
     assert rec["export_blocks"] >= 7 and rec["export_bytes"] > 0
+
+
+def test_sparse_attn_phase_runs_end_to_end_on_cpu(one_thread, monkeypatch):
+    """The sparse_attn phase at 4 query heads over 2, s 512: through the
+    registry on the CPU accelerator, ``SparseSelfAttention(use_splash=False)``
+    takes the plain versions (nothing launches), its output and gradients
+    equal the plain versions', and the key_padding_mask call equals the
+    biased form built by hand."""
+    from deepspeed_tpu_torch.accelerator import real_accelerator
+
+    monkeypatch.setenv("DS_ACCELERATOR", "cpu")
+    monkeypatch.setattr(real_accelerator, "_accelerator", None)
+    rec, launches = chip_smoke.sparse_attn_phase(torch, torch.device("cpu"), K, h=4, h_kv=2,
+                                                 d=64, s=512, mask_s=256, dtype=torch.float32)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    assert rec["accelerator"] == "cpu" and rec["phase"] == "sparse_attn"
+    assert set(rec["max_abs_err"]) == {"out", "dq", "dk", "dv", "key_padding_mask_out"}
+    assert max(rec["max_abs_err"].values()) < 1e-5
+    assert max(rec["tile_rel_frobenius"].values()) < 1e-5
+    # Fixed(4 local, 1 global) over 4 blocks of 128: one window, causal
+    assert rec["density"] == 10 / 16
+    assert rec["key_padding_mask"] == {"s": 256, "padded_keys": 32, "launches": 0}
+
+
+def _plain_sparse_kernels(monkeypatch):
+    """chip_smoke's sparse checks on the CPU: the sparse, splash and flash
+    kernel wrappers replaced by their plain versions, the CUDA stream calls
+    by no-ops."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse as SA
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    for mod, fwd, bwd in ((SA, "sparse_fwd", "sparse_bwd"), (SP, "splash_fwd", "splash_bwd"),
+                          (F, "flash_fwd", "flash_bwd")):
+        ref_bwd = getattr(mod, bwd + "_reference")
+        monkeypatch.setattr(mod, fwd + "_cuda", getattr(mod, fwd + "_reference"))
+        monkeypatch.setattr(mod, bwd + "_dq_cuda", lambda *a, r=ref_bwd, **kw: r(*a, **kw)[0])
+        monkeypatch.setattr(mod, bwd + "_dkv_cuda", lambda *a, r=ref_bwd, **kw: r(*a, **kw)[1:])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+
+
+def test_sparse_kernel_cases_on_plain_inputs(monkeypatch):
+    """The kernels group's cases with 2 heads at s 512, on the plain
+    versions: the layouts are the ones the card checks (16-blocks, BigBird
+    per head, dead rows, dense), the dead rows give 0, and the dense case is
+    held against flash and the Fixed and BigBird cases against splash."""
+    cases = chip_smoke.sparse_cases(h=2, s=512)
+    assert [c[0][:2] for c in cases] == ["a_", "b_", "c_", "d_", "e_"]
+    assert [c[2] for c in cases] == [16, 64, 64, 128, 128]
+    assert [c[3] for c in cases] == [True, False, True, False, True]
+    bigbird, dead = cases[1][1], cases[2][1]
+    assert not (bigbird[0] == bigbird[1]).all() and bigbird[0][0, -1] == 1  # not causal
+    assert not dead[:, 5].any() and dead[:, 1].sum() == 2 and dead[0, 1, 2] == 1
+    assert cases[3][1].all()
+    _plain_sparse_kernels(monkeypatch)
+    errs, tile_errs, oracle = chip_smoke.sparse_case_checks(torch, torch.device("cpu"), h=2,
+                                                            d=64, s=512)
+    assert oracle == {"splash": ["b_bigbird_b64_per_head", "e_fixed_b128_causal"],
+                      "flash": ["d_dense_b128"]}
+    assert "d_dense_b128_flash_dk" in errs["sparse_bwd_dkv"]
+    assert "e_fixed_b128_causal_splash_out" in errs["sparse_fwd"]
+    assert set(tile_errs["sparse_bwd_dq"]) == {c[0] for c in cases}
+
+
+def test_sparse_work_counts_kept_pairs():
+    """The bound's pair count against the layout's token mask, causal and
+    not."""
+    import numpy as np
+
+    for block, causal in ((16, True), (64, False), (128, True)):
+        layout = chip_smoke.sparse_fixed(2, block, 2, 1).make_layout(512)
+        tok = np.repeat(np.repeat(layout != 0, block, 1), block, 2)
+        if causal:
+            tok &= np.tril(np.ones((512, 512), bool))
+        pairs, flops, moved = chip_smoke.sparse_work(layout, block, causal, 3, 2, 512, 64)
+        assert pairs == 3 * int(tok.sum())
+        assert flops["sparse_bwd_dkv"] == 2 * flops["sparse_fwd"] == 8 * pairs * 64
+        t = 3 * 2 * 512 * 64 * 2
+        assert moved["sparse_fwd"] == 4 * t + 3 * 2 * 512 * 4 + layout.size * 4

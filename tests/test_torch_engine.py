@@ -357,6 +357,6 @@ def test_per_row_refuses_layer_patterns_and_serving_a_sparsity_layout():
                                                  attn_layer_pattern=(1, 0)), pp, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="layer patterns"):
         eng._step_per_row()
-    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
+    with pytest.raises(NotImplementedError, match="dense causal mask.*ROADMAP section 3"):
         InferenceEngineV2(PT.TransformerConfig(**MODEL, attn_sparsity=("bigbird",)), pp, cfg,
                           device="cpu")

@@ -19,6 +19,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "deepspeed_tpu_torch"
 SLICE_MODULES = [
     "deepspeed_tpu_torch",
+    "deepspeed_tpu_torch.accelerator",
+    "deepspeed_tpu_torch.accelerator.abstract_accelerator",
+    "deepspeed_tpu_torch.accelerator.cuda_accelerator",
+    "deepspeed_tpu_torch.accelerator.real_accelerator",
+    "deepspeed_tpu_torch.env_report",
     "deepspeed_tpu_torch.inference",
     "deepspeed_tpu_torch.inference.config",
     "deepspeed_tpu_torch.inference.sampling",
@@ -45,12 +50,14 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.muon",
     "deepspeed_tpu_torch.ops.normalization",
     "deepspeed_tpu_torch.ops.normalization.fused_norm",
+    "deepspeed_tpu_torch.ops.op_builder",
     "deepspeed_tpu_torch.ops.quantizer",
     "deepspeed_tpu_torch.ops.quantizer.block_quant",
     "deepspeed_tpu_torch.ops.sparse_attention",
     "deepspeed_tpu_torch.ops.sparse_attention.config",
     "deepspeed_tpu_torch.ops.sparse_attention.mask",
     "deepspeed_tpu_torch.ops.sparse_attention.schedule",
+    "deepspeed_tpu_torch.ops.sparse_attention.sparse",
     "deepspeed_tpu_torch.ops.sparse_attention.splash",
     "deepspeed_tpu_torch.parallel",
     "deepspeed_tpu_torch.parallel.sequence",

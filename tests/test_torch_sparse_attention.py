@@ -1,0 +1,445 @@
+"""Layout-predicate sparse attention of the PyTorch port against the JAX package.
+
+The same inputs, made from a seed with numpy, go through the port's plain
+forward and backward (``sparse_fwd_reference``/``sparse_bwd_reference``,
+the versions the CUDA kernels are held to on the card), its autograd
+``sparse_attention`` on CPU tensors and ``SparseSelfAttention`` with
+``use_splash=False``, and through the JAX package's ``sparse_attention(...,
+interpret=True)`` (the Pallas bodies in interpret mode) and its
+``jax.vjp``, as ``tests/unit/ops/test_sparse_attention.py`` runs them.
+"""
+
+import importlib
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.attention import core as jcore
+from deepspeed_tpu_torch.ops.attention import core as pcore
+from deepspeed_tpu_torch.ops.kernels import KERNELS
+from deepspeed_tpu_torch.ops.sparse_attention import sparse as psp
+from deepspeed_tpu_torch.ops.sparse_attention import splash
+
+# the packages, not the functions that each package's ``ops`` exports under
+# the same name
+jsa = importlib.import_module("deepspeed_tpu.ops.sparse_attention")
+psa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+
+# fp32 on both sides: the same products, summed in another order (the
+# Pallas body streams kv blocks with an online max; the plain version takes
+# one softmax over the row)
+FP32_ATOL = FP32_RTOL = 2e-5
+BF16_ATOL = BF16_RTOL = 2.0 ** -6
+S = 256
+
+# name: (config class, its arguments, sequence length)
+CONFIGS = {
+    "dense_b64": ("DenseSparsityConfig", dict(num_heads=4, block=64), S),
+    "fixed_b64_uni": ("FixedSparsityConfig", dict(
+        num_heads=4, block=64, num_local_blocks=2, num_global_blocks=1,
+        attention="unidirectional"), S),
+    "fixed_b64_bi": ("FixedSparsityConfig", dict(
+        num_heads=4, block=64, num_local_blocks=2, num_global_blocks=1,
+        horizontal_global_attention=True), S),
+    "bslongformer_b64": ("BSLongformerSparsityConfig", dict(
+        num_heads=4, block=64, num_sliding_window_blocks=3, global_block_indices=(0, 2)), S),
+    "bigbird_b64_per_head": ("BigBirdSparsityConfig", dict(
+        num_heads=4, block=64, num_random_blocks=2, num_sliding_window_blocks=1,
+        different_layout_per_head=True, seed=7), S),
+    "variable_b64": ("VariableSparsityConfig", dict(
+        num_heads=4, block=64, num_random_blocks=1, local_window_blocks=(1, 2),
+        global_block_indices=(0,), seed=5), S),
+    "fixed_b16_uni": ("FixedSparsityConfig", dict(
+        num_heads=2, block=16, num_local_blocks=4, num_global_blocks=1,
+        attention="unidirectional"), 128),
+    "bigbird_b16_per_head": ("BigBirdSparsityConfig", dict(
+        num_heads=2, block=16, num_random_blocks=2, num_sliding_window_blocks=3,
+        different_layout_per_head=True, seed=3), 128),
+}
+
+# name: (config, causal): every family at block 64, both directions, and
+# two 16-blocks (a kernel tile spans several layout blocks)
+CASES = {
+    "fixed_b64_causal": ("fixed_b64_uni", True),
+    "fixed_b64_bidirectional": ("fixed_b64_bi", False),
+    "bslongformer_b64_causal": ("bslongformer_b64", True),
+    "bslongformer_b64_bidirectional": ("bslongformer_b64", False),
+    "bigbird_b64_per_head_bidirectional": ("bigbird_b64_per_head", False),
+    "variable_b64_causal": ("variable_b64", True),
+    "fixed_b16_causal": ("fixed_b16_uni", True),
+    "bigbird_b16_per_head_bidirectional": ("bigbird_b16_per_head", False),
+}
+
+
+def _inputs(b, h, h_kv, s, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=sh).astype(np.float32)
+                 for sh in ((b, h, s, d), (b, h_kv, s, d), (b, h_kv, s, d), (b, h, s, d)))
+
+
+def _configs(name):
+    cls, kw, s = CONFIGS[name]
+    return getattr(jsa, cls)(**kw), getattr(psa, cls)(**kw), s
+
+
+def _dead_layout():
+    layout = np.zeros((1, 2, 2), np.int32)
+    layout[0, 0, 1] = 1  # q block 0 keeps only the future k block 1
+    layout[0, 1, :] = 1
+    return layout
+
+
+def _jax_sparse(q, k, v, do, layout, block, causal):
+    def f(q_, k_, v_):
+        return jsa.sparse_attention(q_, k_, v_, layout, block, causal=causal, interpret=True)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(a) for a in (out,) + tuple(vjp(jnp.asarray(do)))]
+
+
+def _port_all(q, k, v, do, layout, block, causal):
+    """(plain out, dq, dk, dv) and (function out, dq, dk, dv) of the port."""
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = psp.sparse_fwd_reference(tq, tk, tv, layout, block, causal)
+    plain = (out,) + psp.sparse_bwd_reference(tq, tk, tv, out, tdo, lse, layout, block, causal)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    fout = psa.sparse_attention(*leaves, layout, block, causal=causal)
+    fout.backward(tdo)
+    function = [fout.detach()] + [t.grad for t in leaves]
+    return [t.numpy() for t in plain], [t.numpy() for t in function], lse
+
+
+def _close(got, want, what):
+    for g, w, name in zip(got, want, ("out", "dq", "dk", "dv")):
+        np.testing.assert_allclose(g, w, atol=FP32_ATOL, rtol=FP32_RTOL,
+                                   err_msg=f"{what}: {name}")
+
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_make_layout_matches_jax(name):
+    """All five families (dense, Fixed, BSLongformer, BigBird, Variable),
+    BigBird's and Variable's seeded random blocks included, bit for bit at
+    the sizes these tests run."""
+    jc, pc, s = _configs(name)
+    np.testing.assert_array_equal(pc.make_layout(s), jc.make_layout(s))
+    assert pc.make_layout(s).dtype == np.int32
+
+
+# ---------------------------------------------------------------------------
+# the plain versions and the autograd function against the Pallas bodies
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_versions_and_function_match_jax(case):
+    """fp32, d 64: the plain forward and backward, and the autograd Function
+    over them (CPU tensors), against the Pallas bodies in interpret mode and
+    their vjp, on the same layout."""
+    name, causal = CASES[case]
+    jc, pc, s = _configs(name)
+    layout = pc.make_layout(s)
+    h = layout.shape[0]
+    q, k, v, do = _inputs(1, h, h, s, 64, seed=len(case))
+    want = _jax_sparse(q, k, v, do, jc.make_layout(s), pc.block, causal)
+    plain, function, _ = _port_all(q, k, v, do, layout, pc.block, causal)
+    _close(plain, want, "plain")
+    _close(function, want, "function")
+
+
+def test_causally_dead_rows_give_zero_and_finite_grads():
+    """A query block whose only kept block lies in the causal future: 0
+    out, lse -1e30, zero dq and finite gradients, as in the JAX package."""
+    q, k, v, do = _inputs(1, 1, 1, 128, 64, seed=11)
+    want = _jax_sparse(q, k, v, do, _dead_layout(), 64, True)
+    plain, function, lse = _port_all(q, k, v, do, _dead_layout(), 64, True)
+    _close(plain, want, "plain")
+    _close(function, want, "function")
+    assert not plain[0][:, :, :64].any() and not function[0][:, :, :64].any()
+    assert bool((lse[:, :, :64] == -1e30).all())
+    assert not plain[1][:, :, :64].any()
+    assert all(np.isfinite(g).all() for g in plain[1:] + function[1:])
+
+
+def test_dense_layout_is_full_attention():
+    """The dense layout against both packages' ``mha_reference`` (not
+    causal) and against the JAX kernel."""
+    jc, pc, s = _configs("dense_b64")
+    q, k, v, do = _inputs(1, 4, 4, s, 64, seed=2)
+    plain, function, _ = _port_all(q, k, v, do, pc.make_layout(s), 64, False)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    ref = pcore.mha_reference(tq, tk, tv, causal=False).numpy()
+    jref = np.asarray(jcore.mha_reference(*(jnp.asarray(a) for a in (q, k, v)), causal=False))
+    for got in (plain[0], function[0]):
+        np.testing.assert_allclose(got, ref, atol=FP32_ATOL, rtol=FP32_RTOL)
+        np.testing.assert_allclose(got, jref, atol=FP32_ATOL, rtol=FP32_RTOL)
+    _close(plain, _jax_sparse(q, k, v, do, jc.make_layout(s), 64, False), "plain")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dense_oracle_matches_jax_and_the_kernel_path(causal):
+    """``sparse_attention_reference`` (dense token mask, autograd) against
+    the JAX oracle, and against the port's kernel path on the same layout."""
+    jc, pc, s = _configs("bslongformer_b64")
+    q, k, v, do = _inputs(1, 4, 4, s, 64, seed=5)
+    layout = pc.make_layout(s)
+    want = jsa.sparse_attention_reference(*(jnp.asarray(a) for a in (q, k, v)),
+                                          jc.make_layout(s), 64, causal=causal)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = psa.sparse_attention_reference(tq, tk, tv, layout, 64, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_ATOL, rtol=FP32_RTOL)
+    kernel_path = psa.sparse_attention(tq, tk, tv, torch.from_numpy(layout), 64, causal=causal)
+    np.testing.assert_allclose(kernel_path.numpy(), got.numpy(), atol=FP32_ATOL, rtol=FP32_RTOL)
+
+
+def test_plain_versions_take_row_chunks(monkeypatch):
+    """Query rows in chunks (one row of logits at a time here) give the
+    one-chunk result, to fp32 rounding."""
+    _, pc, s = _configs("bigbird_b64_per_head")
+    layout = pc.make_layout(s)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(2, 4, 4, s, 64, seed=4))
+    whole = psp.sparse_fwd_reference(q, k, v, layout, 64, True)
+    whole_g = psp.sparse_bwd_reference(q, k, v, whole[0], do, whole[1], layout, 64, True)
+    monkeypatch.setattr(splash, "_CHUNK_ELEMS", 2 * 4 * s)
+    assert len(psp._row_chunks(2, 4, s, s)) == s
+    chunked = psp.sparse_fwd_reference(q, k, v, layout, 64, True)
+    chunked_g = psp.sparse_bwd_reference(q, k, v, whole[0], do, whole[1], layout, 64, True)
+    for a, b_ in zip(whole + whole_g, chunked + chunked_g):
+        torch.testing.assert_close(a, b_, atol=FP32_ATOL, rtol=FP32_RTOL)
+
+
+def test_plain_forward_is_differentiable_by_autograd():
+    """The plain forward under autograd gives the plain backward's
+    gradients."""
+    _, pc, s = _configs("fixed_b64_uni")
+    layout = pc.make_layout(s)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, 4, 4, s, 64, seed=6))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = psp.sparse_fwd_reference(*leaves, layout, 64, True)
+    out.backward(do)
+    want = psp.sparse_bwd_reference(q, k, v, out.detach(), do, lse.detach(), layout, 64, True)
+    for got, w in zip(leaves, want):
+        torch.testing.assert_close(got.grad, w, atol=FP32_ATOL, rtol=FP32_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# SparseSelfAttention
+# ---------------------------------------------------------------------------
+def _module_grads(jmod, pmod, q, k, v, do, **kw):
+    """(out, dq, dk, dv) of each package's SparseSelfAttention call."""
+    jkw = {key: jnp.asarray(val) for key, val in kw.items()}
+    out, vjp = jax.vjp(lambda q_, k_, v_: jmod(q_, k_, v_, **jkw),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(a) for a in (out,) + tuple(vjp(jnp.asarray(do)))]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    got = pmod(*leaves, **{key: torch.from_numpy(val) for key, val in kw.items()})
+    got.backward(torch.from_numpy(do))
+    return [got.detach().numpy()] + [t.grad.numpy() for t in leaves], want
+
+
+@pytest.mark.parametrize("attention", ["unidirectional", "bidirectional"])
+def test_sparse_self_attention_layout_kernel_path_with_gqa(attention):
+    """``use_splash=False`` with 4 query heads over 2 kv heads: the kv are
+    expanded as ``jnp.repeat(axis=1)`` expands them, ``causal`` follows the
+    config, and the kv gradients sum over each group."""
+    kw = dict(num_heads=4, block=64, num_local_blocks=2, num_global_blocks=1,
+              attention=attention)
+    jmod = jsa.SparseSelfAttention(jsa.FixedSparsityConfig(**kw), use_splash=False,
+                                   interpret=True)
+    pmod = psa.SparseSelfAttention(psa.FixedSparsityConfig(**kw), use_splash=False)
+    q, k, v, do = _inputs(1, 4, 2, S, 64, seed=9)
+    got, want = _module_grads(jmod, pmod, q, k, v, do)
+    _close(got, want, attention)
+    assert pmod.device_layout(S, "cpu") is pmod.device_layout(S, "cpu")
+
+
+RNG = np.random.default_rng(21)
+KPM = np.where(np.arange(S) < 200, 0.0, -10000.0).astype(np.float32)[None]  # [1, s] "add"
+KPM_MUL = (np.arange(S) < 200).astype(np.float32)[None]  # [1, s] "mul": 0 = masked
+BIASED = {
+    # name: (key_padding_mask_mode, attn_mask_mode, call arguments)
+    "rpe": ("add", "mul", dict(rpe=RNG.normal(size=(1, 4, S, S)).astype(np.float32))),
+    "key_padding_add": ("add", "mul", dict(key_padding_mask=KPM)),
+    "key_padding_mul": ("mul", "mul", dict(key_padding_mask=KPM_MUL)),
+    "attn_mask_add": ("add", "add", dict(attn_mask=RNG.normal(size=(S, S)).astype(np.float32))),
+    "attn_mask_mul": ("add", "mul", dict(
+        attn_mask=(RNG.uniform(size=(S, S)) < 0.7).astype(np.float32))),
+}
+
+
+@pytest.mark.parametrize("use_splash", [True, False])
+@pytest.mark.parametrize("name", sorted(BIASED))
+def test_sparse_self_attention_biased_calls_match_jax(name, use_splash):
+    """``rpe``, ``key_padding_mask`` and ``attn_mask`` in both modes build the
+    fp32 bias and take the dense biased form whatever ``use_splash`` says
+    (GQA kv expanded), forward and gradients."""
+    kpm_mode, am_mode, kw = BIASED[name]
+    cfg = dict(num_heads=4, block=64, num_sliding_window_blocks=3)
+    mods = [pkg.SparseSelfAttention(pkg.BSLongformerSparsityConfig(**cfg),
+                                    key_padding_mask_mode=kpm_mode, attn_mask_mode=am_mode,
+                                    use_splash=use_splash, **extra)
+            for pkg, extra in ((jsa, dict(interpret=True)), (psa, {}))]
+    q, k, v, do = _inputs(1, 4, 2, S, 64, seed=13)
+    got, want = _module_grads(*mods, q, k, v, do, **kw)
+    _close(got, want, name)
+
+
+def test_biased_form_matches_jax_and_keeps_the_value_dtype():
+    """``sparse_attention_with_bias`` against the JAX package's: causal with
+    a bias broadcast over heads, and in bf16 (weights rounded to v's dtype
+    before P V, rows that keep nothing zeroed)."""
+    jc, pc, s = _configs("bigbird_b64_per_head")
+    q, k, v, _ = _inputs(2, 4, 4, s, 64, seed=8)
+    bias = np.random.default_rng(1).normal(size=(2, 1, s, s)).astype(np.float32)
+    want = jsa.sparse_attention_with_bias(*(jnp.asarray(a) for a in (q, k, v)),
+                                          jc.make_layout(s), 64, causal=True,
+                                          bias=jnp.asarray(bias))
+    got = psa.sparse_attention_with_bias(*(torch.from_numpy(a) for a in (q, k, v)),
+                                         pc.make_layout(s), 64, causal=True,
+                                         bias=torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_ATOL, rtol=FP32_RTOL)
+    lay = _dead_layout()
+    qb, kb, vb = (a[:, :1, :128] for a in (q, k, v))
+    want = jsa.sparse_attention_with_bias(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (qb, kb, vb)), lay, 64, causal=True)
+    got = psa.sparse_attention_with_bias(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (qb, kb, vb)), lay, 64, causal=True)
+    assert got.dtype == torch.bfloat16 and not got[:, :, :64].any()
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# errors, raised before any work, as the JAX package raises them
+# ---------------------------------------------------------------------------
+def _both_raise(exc, jcall, pcall):
+    with pytest.raises(exc) as je:
+        jcall()
+    with pytest.raises(exc) as pe:
+        pcall()
+    assert str(pe.value) == str(je.value)
+
+
+def test_errors_match_jax():
+    q, k, v, _ = _inputs(1, 4, 2, 128, 64, seed=1)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    lay = np.ones((4, 2, 2), np.int32)
+    bias = np.zeros((1, 1, 128, 128), np.float32)
+    # a bias on the kernel path and on its oracle
+    _both_raise(NotImplementedError,
+                lambda: jsa.sparse_attention(jq, jq, jq, lay, 64, bias=jnp.asarray(bias),
+                                             interpret=True),
+                lambda: psa.sparse_attention(tq, tq, tq, lay, 64, bias=torch.from_numpy(bias)))
+    _both_raise(NotImplementedError,
+                lambda: jsa.sparse_attention_reference(jq, jq, jq, lay, 64,
+                                                       bias=jnp.asarray(bias)),
+                lambda: psa.sparse_attention_reference(tq, tq, tq, lay, 64,
+                                                       bias=torch.from_numpy(bias)))
+    # GQA not expanded
+    _both_raise(ValueError,
+                lambda: jsa.sparse_attention(jq, jk, jv, lay, 64, interpret=True),
+                lambda: psa.sparse_attention(tq, tk, tv, lay, 64))
+    # a layout of another shape
+    _both_raise(ValueError,
+                lambda: jsa.sparse_attention(jq, jq, jq, np.ones((4, 4, 4), np.int32), 64,
+                                             interpret=True),
+                lambda: psa.sparse_attention(tq, tq, tq, np.ones((4, 4, 4), np.int32), 64))
+    # SparseSelfAttention with the wrong head count
+    cfg = dict(num_heads=2, block=64)
+    _both_raise(ValueError,
+                lambda: jsa.SparseSelfAttention(jsa.FixedSparsityConfig(**cfg),
+                                                use_splash=False, interpret=True)(jq, jq, jq),
+                lambda: psa.SparseSelfAttention(psa.FixedSparsityConfig(**cfg),
+                                                use_splash=False)(tq, tq, tq))
+
+
+# ---------------------------------------------------------------------------
+# no fallback for device tensors; the kernels on the card
+# ---------------------------------------------------------------------------
+def test_wrappers_never_fall_back_for_device_tensors(monkeypatch):
+    """The plain versions are poisoned; a meta tensor (standing in for a
+    CUDA one) must reach the kernels' own checks, and what the kernels do
+    not take (fp32, head_dim 96, a block of 48 or one that does not divide
+    s) is refused, never run on the plain version."""
+    def poisoned(*a, **k):
+        raise AssertionError("a plain version ran for a device tensor")
+
+    for name in ("sparse_fwd_reference", "sparse_bwd_reference"):
+        monkeypatch.setattr(psp, name, poisoned)
+    lay = torch.ones(4, 2, 2, dtype=torch.int32)
+    q = torch.randn(1, 4, 128, 128, device="meta", dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 128, device="meta")
+    for call in (lambda: psa.sparse_attention(q, q, q, lay.to("meta"), 64),
+                 lambda: psp.sparse_fwd_cuda(q, q, q, lay, 64),
+                 lambda: psp.sparse_bwd_dq_cuda(q, q, q, q, q, lse, lay, 64),
+                 lambda: psp.sparse_bwd_dkv_cuda(q, q, q, q, q, lse, lay, 64, True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(NotImplementedError, match="bf16.*queue 2, item 1"):
+        psp.sparse_fwd_cuda(q.float(), q.float(), q.float(), lay, 64)
+    with pytest.raises(NotImplementedError, match="head_dim 96"):
+        psp.sparse_fwd_cuda(*(torch.zeros(1, 4, 128, 96, device="meta",
+                                          dtype=torch.bfloat16),) * 3, lay, 64)
+    for block, s in ((48, 96), (64, 96)):
+        qs = torch.zeros(1, 4, s, 128, device="meta", dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="blocks in"):
+            psp.sparse_fwd_cuda(qs, qs, qs, torch.ones(4, s // block, s // block), block)
+
+
+def test_kernels_are_registered_with_their_pallas_bodies():
+    """Each wrapper's kernel and the Pallas body it replaces (file:line of
+    the JAX kernel function)."""
+    root = Path(__file__).resolve().parents[1]
+    for name, fn in (("sparse_fwd", "_sparse_fwd_kernel"),
+                     ("sparse_bwd_dq", "_sparse_bwd_dq_kernel"),
+                     ("sparse_bwd_dkv", "_sparse_bwd_dkv_kernel")):
+        path, line = KERNELS[name].replaces.rsplit(":", 1)
+        assert path == "deepspeed_tpu/ops/sparse_attention/sparse_pallas.py"
+        src = (root / path).read_text().splitlines()
+        assert src[int(line) - 1].startswith(f"def {fn}(")
+
+
+CUDA_CASES = {
+    # name: (b, h, s, d, layout config, causal)
+    "fixed_b128_causal_d128": (1, 8, 1024, 128, ("FixedSparsityConfig", dict(
+        num_heads=8, block=128, num_local_blocks=4, attention="unidirectional")), True),
+    "bigbird_b64_per_head_d64": (2, 4, 512, 64, ("BigBirdSparsityConfig", dict(
+        num_heads=4, block=64, num_random_blocks=2, different_layout_per_head=True)), False),
+    "fixed_b16_causal_d256": (1, 2, 512, 256, ("FixedSparsityConfig", dict(
+        num_heads=2, block=16, num_local_blocks=4, attention="unidirectional")), True),
+    "bslongformer_b32_d128": (1, 4, 1056, 128, ("BSLongformerSparsityConfig", dict(
+        num_heads=4, block=32, num_sliding_window_blocks=3)), False),
+    "dense_b256_d64": (1, 2, 512, 64, ("DenseSparsityConfig", dict(num_heads=2, block=256)),
+                       False),
+    "bigbird_b16_causal_ragged_d64": (2, 2, 1040, 64, ("BigBirdSparsityConfig", dict(
+        num_heads=2, block=16, num_random_blocks=3, different_layout_per_head=True)), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+def test_cuda_kernels_match_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    b, h, s, d, (cls, kw), causal = CUDA_CASES[case]
+    cfg = getattr(psa, cls)(**kw)
+    lay = torch.as_tensor(cfg.make_layout(s), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    out, lse = psp.sparse_fwd_cuda(q, k, v, lay, cfg.block, causal)
+    ref, ref_lse = psp.sparse_fwd_reference(q, k, v, lay, cfg.block, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=BF16_ATOL, rtol=BF16_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=2e-5)
+    dq = psp.sparse_bwd_dq_cuda(q, k, v, out, do, lse, lay, cfg.block, causal)
+    dk, dv = psp.sparse_bwd_dkv_cuda(q, k, v, out, do, lse, lay, cfg.block, causal)
+    for got, want in zip((dq, dk, dv), psp.sparse_bwd_reference(q, k, v, out, do, lse, lay,
+                                                                 cfg.block, causal)):
+        scale = max(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL * scale,
+                                   rtol=BF16_RTOL)

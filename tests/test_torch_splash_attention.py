@@ -24,13 +24,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 from deepspeed_tpu.ops.attention import core as jcore  # noqa: E402
 from deepspeed_tpu.ops.sparse_attention import mask as jmask  # noqa: E402
-from deepspeed_tpu_torch.ops import sparse_attention as psa  # noqa: E402
 from deepspeed_tpu_torch.ops.attention import core as pcore  # noqa: E402
 from deepspeed_tpu_torch.ops.sparse_attention import mask as pmask  # noqa: E402
 from deepspeed_tpu_torch.ops.sparse_attention import splash as ps  # noqa: E402
 
-# the package, not the function that deepspeed_tpu.ops exports under its name
+# the packages, not the functions that each package's ``ops`` exports under
+# the same name
 jsa = importlib.import_module("deepspeed_tpu.ops.sparse_attention")
+psa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
 
 # fp32 on both sides: the same products, summed in another order (the
 # Pallas body streams kv blocks with an online max; the plain version
@@ -314,10 +315,18 @@ def test_sparse_self_attention_matches_jax():
     assert mod.get_schedule(S) is mod.get_schedule(S)
     with pytest.raises(ValueError, match="heads"):
         mod(*(torch.zeros(1, 2, S, 64) for _ in range(3)))
-    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
-        mod(*(torch.from_numpy(a) for a in (q, k, v)), attn_mask=torch.ones(S, S))
-    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
-        psa.SparseSelfAttention(use_splash=False)
+    # the calls the port refused before the layout kernels: an attn_mask
+    # (the dense biased form) and use_splash=False (the layout kernels)
+    mask = (np.random.default_rng(2).uniform(size=(S, S)) < 0.8).astype(np.float32)
+    want = jsa.SparseSelfAttention(jsa.BSLongformerSparsityConfig(**cfg), interpret=True)(
+        *(jnp.asarray(a) for a in (q, k, v)), attn_mask=jnp.asarray(mask))
+    got = mod(*(torch.from_numpy(a) for a in (q, k, v)), attn_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_ATOL, rtol=FP32_RTOL)
+    want = jsa.SparseSelfAttention(jsa.BSLongformerSparsityConfig(**cfg), use_splash=False,
+                                   interpret=True)(*(jnp.asarray(a) for a in (q, k, v)))
+    got = psa.SparseSelfAttention(psa.BSLongformerSparsityConfig(**cfg), use_splash=False)(
+        *(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_ATOL, rtol=FP32_RTOL)
 
 
 # ---------------------------------------------------------------------------
