@@ -25,7 +25,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    sparse kernels over Fixed 16-blocks, per-head BigBird, dead rows and the
    dense layout at s 4096, the dense case also against the flash kernels and
    the Fixed and BigBird cases against the splash kernels over
-   ``schedule_from_layout`` of the same layout); then CUDA-event times
+   ``schedule_from_layout`` of the same layout; the evoformer kernels in
+   bf16 and fp32 at d 16, 32, 64 and 128, s 100, no bias, one bias, a
+   materialized pair bias and a fully masked row, and at the evoformer
+   phase's msa_row shape); then CUDA-event times
    of the kernel, the plain version and one PyTorch library call computing
    the same function (a yardstick only: the port never calls it), beside
    the least time the card could take (``bound_ms``); the splash kernels
@@ -86,12 +89,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the plain versions, peak memory and seconds; then a ``key_padding_mask``
    call at 4096 tokens (the dense biased form: no kernel) against
    ``sparse_attention_with_bias``.
+9. evoformer: the op-registry entry point ``get_accelerator()
+   .create_op_builder("evoformer_attn").load()`` hands out
+   ``DS4Sci_EvoformerAttention``, which runs forward and backward at
+   AlphaFold2's fine-tuning widths in bf16 with AlphaFold's mask (bias1 =
+   1e9 * (mask - 1), the last rows and keys padded off) and a random pair
+   bias: msa_row (Q/K/V [1, 512, 384, 8, 32]) and triangle ([1, 384, 384,
+   4, 32]), both biases needing gradients; exactly one launch of each
+   evoformer kernel per call and no other; out, dQ, dK, dV against the
+   plain versions (elementwise and per 64-row tile), db1 and db2 as
+   relative Frobenius; peak memory and seconds; then a call whose biases
+   need no gradient, which must not ask for the dS plane.
 
 Serving kernels must launch in the engine phase (the int8 pool's in
 engine_int8 and its per-row check), training kernels in the train legs,
 the fused configuration's four in its leg, the splash kernels in the
 splash leg (the forward also in the per-row leg), the sparse kernels in the
-sparse_attn phase: together every kernel. The line before the last lists
+sparse_attn phase, the evoformer kernels in the evoformer phase: together
+every kernel. The line before the last lists
 the kernels; the last line is the result object. With no card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -2678,6 +2693,431 @@ def sparse_attn_phase(torch, dev, K, h=32, h_kv=8, d=128, s=SPARSE_TIMED["s"], m
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# evoformer attention (the op registry's evoformer_attn)
+# ---------------------------------------------------------------------------
+EVOFORMER_KERNELS = ("evoformer_fwd", "evoformer_bwd_dq", "evoformer_bwd_dkv")
+# AlphaFold2's Evoformer at its fine-tuning crop (Jumper et al. 2021, SI
+# Algorithms 7 and 13-14, Table 4): N_seq 512, N_res 384; MSA row attention
+# with pair bias (c_m 256: 8 heads x 32) and triangle attention (c_z 128: 4
+# heads x 32). Leading dims [1, n]; bias1 the per-row mask [1, n, 1, 1, s],
+# bias2 the pair bias [1, 1, h, s, s].
+EVOFORMER_SHAPES = {"msa_row": dict(n=512, s=384, h=8, d=32),
+                    "triangle": dict(n=384, s=384, h=4, d=32)}
+# AlphaFold's mask convention, bias1 = 1e9 * (mask - 1), with the last
+# residues (keys) and the last rows padded off
+EVO_PAD_KEYS = 24
+EVO_PAD_ROWS = 16
+# the dS plane (fp32 in kernel and plain version: the same fp32 products
+# summed in another order, through exp) and the fp32 kernels' outputs (FFMA
+# in another order than torch's matmuls), both scaled by the reference's
+# largest element
+EVO_DS_ATOL = 1e-5
+EVO_DS_RTOL = 1e-4
+EVO_FP32_ATOL = 2e-5
+EVO_FP32_RTOL = 2e-5
+
+
+def evo_inputs(torch, dev, n, s, h, d, dtype, seed, pad_keys=EVO_PAD_KEYS,
+               pad_rows=EVO_PAD_ROWS):
+    """Q, K, V, dO [1, n, s, h, d] in ``dtype`` and the two fp32 biases:
+    AlphaFold's mask (the last ``pad_keys`` keys and ``pad_rows`` rows off)
+    and a random pair bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(1, n, s, h, d, generator=gen, device=dev).to(dtype)
+                   for _ in range(4))
+    mask = torch.ones(1, n, 1, 1, s, device=dev)
+    mask[..., s - pad_keys:] = 0
+    mask[:, n - pad_rows:] = 0
+    b1 = 1e9 * (mask - 1)
+    b2 = torch.randn(1, 1, h, s, s, generator=gen, device=dev) * 0.5
+    return q, k, v, do, b1, b2
+
+
+def rel_frobenius(torch, name, got, want, limit=FLASH_TILE_RTOL):
+    """||got - want||_F / ||want||_F over the whole tensor; raises above
+    ``limit``."""
+    err = float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+    if not err <= limit:
+        raise AssertionError(f"{name}: off by {err} relative (Frobenius; limit {limit})")
+    return err
+
+
+def evo_hold(torch, errs, tiles, kname, tag, got, want, fp32, tile=True):
+    """A [B, s, h, d] kernel output against its plain version: elementwise
+    (bf16 or fp32 tolerance scaled by the reference's largest element) and,
+    with ``tile``, per 64-row tile of each (row, head)."""
+    scale = max(1.0, float(want.float().abs().max()))
+    atol, rtol = (EVO_FP32_ATOL, EVO_FP32_RTOL) if fp32 else (BF16_ATOL, BF16_RTOL)
+    errs[kname][tag] = check_close(torch, f"{kname} {tag}", got, want, atol * scale, rtol)
+    if tile:
+        tiles[kname][tag] = tile_rel_err(torch, f"{kname} {tag}", got.transpose(1, 2),
+                                         want.transpose(1, 2))
+
+
+def check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=None):
+    """The three evoformer kernels against their plain versions on [B, s, h,
+    d] inputs and bias operands ``ops``: out and lse, then dq, dS (when
+    there is a bias), dk and dv. ``dead_row``: a batch row whose logits are
+    all -inf, which must give exactly 0, lse -1e30 and zero dq and dS.
+    Returns the kernels' (out, lse)."""
+    from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+
+    fp32 = q.dtype == torch.float32
+    out, lse = E.evoformer_fwd_cuda(q, k, v, ops)
+    ref_out, ref_lse = E.evoformer_fwd_reference(q, k, v, ops)
+    evo_hold(torch, errs, tiles, "evoformer_fwd", name, out, ref_out, fp32, tile=False)
+    errs["evoformer_fwd"][name + "_lse"] = check_close(
+        torch, f"evoformer_fwd lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
+    del ref_out, ref_lse
+    want_ds = bool(ops)
+    dq, ds = E.evoformer_bwd_dq_cuda(q, k, v, out, do, lse, ops, want_ds=want_ds)
+    dk, dv = E.evoformer_bwd_dkv_cuda(q, k, v, out, do, lse, ops)
+    rdq, rdk, rdv, rds = E.evoformer_bwd_reference(q, k, v, out, do, lse, ops, want_ds=want_ds)
+    for kname, got, want, tag in (("evoformer_bwd_dq", dq, rdq, name),
+                                  ("evoformer_bwd_dkv", dk, rdk, name),
+                                  ("evoformer_bwd_dkv", dv, rdv, name + "_dv")):
+        evo_hold(torch, errs, tiles, kname, tag, got, want, fp32)
+    if want_ds:
+        scale = max(1.0, float(rds.abs().max()))
+        errs["evoformer_bwd_dq"][name + "_dS"] = check_close(
+            torch, f"evoformer_bwd_dq dS {name}", ds, rds, EVO_DS_ATOL * scale, EVO_DS_RTOL)
+    elif ds is not None:
+        raise AssertionError(f"evoformer_bwd_dq {name}: a dS plane with no bias")
+    if dead_row is not None:
+        r = dead_row
+        if bool(out[r].float().abs().max() != 0) or bool((lse[r] != -1e30).any()):
+            raise AssertionError(f"evoformer_fwd {name}: the dead row must give 0, lse -1e30")
+        if bool(dq[r].float().abs().max() != 0) or bool(ds[r].abs().max() != 0):
+            raise AssertionError(f"evoformer_bwd_dq {name}: the dead row's dq and dS must be 0")
+        if not all(bool(torch.isfinite(g.float()).all()) for g in (dq, dk, dv, ds)):
+            raise AssertionError(f"evoformer backward {name}: non-finite gradients")
+    del rdq, rdk, rdv, rds, dq, dk, dv, ds
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, lse
+
+
+def evoformer_cases(torch, dev):
+    """(name, [B, s, h, d] q, k, v, do, bias operands, dead row or None) of
+    the kernels group's small cases, built on demand: d 16 and 64, s 100
+    (neither a multiple of 64), no bias, one bias, a bias2 [2, 1, h, s, s]
+    under leading dims [2, n] (materialized), a fully masked row; bf16 and
+    fp32."""
+    from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+
+    specs = [  # name, leading dims, s, h, d, biases, dtype
+        ("d16_bf16", (1, 12), 128, 4, 16, "12", torch.bfloat16),
+        ("d64_fp32", (1, 6), 192, 4, 64, "12", torch.float32),
+        ("s100_bf16", (1, 10), 100, 4, 32, "12", torch.bfloat16),
+        ("s100_fp32", (1, 10), 100, 4, 32, "12", torch.float32),
+        ("no_bias_bf16", (1, 8), 256, 8, 32, "", torch.bfloat16),
+        ("one_bias_fp32", (1, 8), 256, 8, 32, "1", torch.float32),
+        ("bias2_materialized_bf16", (2, 6), 160, 4, 32, "12M", torch.bfloat16),
+        ("dead_row_bf16", (1, 8), 192, 8, 32, "12D", torch.bfloat16),
+        ("d128_fp32", (1, 4), 130, 2, 128, "2", torch.float32),
+    ]
+    for i, (name, lead, s, h, d, which, dtype) in enumerate(specs):
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        B = lead[0] * lead[1]
+        q, k, v, do = (torch.randn(B, s, h, d, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        biases = []
+        if "1" in which:
+            biases.append(torch.randn(*lead, 1, 1, s, generator=gen, device=dev) * 0.5)
+            if "D" in which:
+                biases[-1][0, 3] = float("-inf")
+        if "2" in which:
+            pair = (lead[0] if "M" in which else 1, 1, h, s, s)
+            biases.append(torch.randn(*pair, generator=gen, device=dev) * 0.5)
+        ops = E._operands(biases, lead, h, s)
+        if "M" in which and ops[1].stride(0) == 0:
+            raise AssertionError(f"{name}: bias2 should be materialized")
+        yield name, q, k, v, do, ops, 3 if "D" in which else None
+
+
+def evoformer_work(B, s, h, d, el, bias_bytes, with_ds=True):
+    """(FLOPs, bytes) per kernel for these inputs: 4d / 6d / 8d FLOPs per
+    pair (every pair is computed: no mask prunes a tile); q, k, v, o, do,
+    dq, dk, dv [B, s, h, d] at ``el`` bytes, lse fp32, the biases at the
+    bytes they occupy, the fp32 dS plane [B, h, s, s]."""
+    pairs = B * h * s * s
+    t = B * s * h * d * el
+    lseb = B * h * s * 4
+    dsb = B * h * s * s * 4 if with_ds else 0
+    flops = {"evoformer_fwd": 4 * pairs * d, "evoformer_bwd_dq": 6 * pairs * d,
+             "evoformer_bwd_dkv": 8 * pairs * d}
+    moved = {"evoformer_fwd": 3 * t + bias_bytes + t + lseb,
+             "evoformer_bwd_dq": 5 * t + lseb + bias_bytes + t + dsb,
+             "evoformer_bwd_dkv": 5 * t + lseb + bias_bytes + 2 * t}
+    return flops, moved
+
+
+def sdpa_evoformer_ms(torch, q, k, v, do, b1, b2):
+    """Yardsticks: ``scaled_dot_product_attention`` on [B, h, s, d] views
+    with the float mask b1 + b2 ([B, h, s, s] in q's dtype) under the
+    memory-efficient backend: the forward in a CUDA graph, the backward
+    (dq, dk, dv and the mask's gradient in one autograd call) eagerly. If
+    the backend refuses a mask that needs a gradient, the backward is timed
+    with one that needs none, and the record says so."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    f = torch.nn.functional.scaled_dot_product_attention
+    B, s, h, d = q.shape
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (b1 + b2).to(q.dtype).expand(B, h, s, s).contiguous()
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return f(qt, kt, vt, attn_mask=mask)
+
+    fwd_ms = time_ms(torch, fwd, iters=5)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qt, kt, vt))
+    ml = mask.clone().requires_grad_(True)
+    what = "mask gradient included"
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = f(ql, kl, vl, attn_mask=ml)
+        inputs = (ql, kl, vl, ml)
+        torch.autograd.grad(out, inputs, do.transpose(1, 2), retain_graph=True)
+    except RuntimeError as e:
+        what = f"mask gradient refused ({str(e)[:120]}); backward without it"
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = f(ql, kl, vl, attn_mask=mask)
+        inputs = (ql, kl, vl)
+    bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, inputs, do.transpose(1, 2),
+                                                         retain_graph=True), iters=5)
+    del out, ql, kl, vl, ml, mask
+    torch.cuda.empty_cache()
+    return {"evoformer_fwd": fwd_ms, "evoformer_bwd_dq": bwd_ms, "evoformer_bwd_dkv": bwd_ms,
+            "what": what}
+
+
+def evoformer_timings(torch, dev, errs, tiles, shape=EVOFORMER_SHAPES["msa_row"], seed=300):
+    """At the phase's msa_row shape, in bf16 and in fp32: the three kernels
+    held against their plain versions on the inputs they are timed on, then
+    CUDA-graph times of the kernels and of their plain versions, beside each
+    kernel its bound for these inputs; SDPA with the summed mask as the
+    library yardstick (bf16)."""
+    from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+
+    n, s, h, d = shape["n"], shape["s"], shape["h"], shape["d"]
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v, do, b1, b2 = evo_inputs(torch, dev, n, s, h, d, dtype, seed)
+        q, k, v, do = (t.reshape(n, s, h, d) for t in (q, k, v, do))
+        ops = E._operands([b1, b2], (1, n), h, s)
+        if any(o.stride(0) != 0 and o.stride(1) != 0 for o in ops):
+            raise AssertionError("evoformer: a bias operand was materialized at msa_row")
+        out, lse = check_evoformer(torch, errs, tiles, f"msa_row_{tag}", q, k, v, do, ops)
+        args = (q, k, v, out, do, lse, ops)
+        ms = {"evoformer_fwd": time_ms(torch, lambda: E.evoformer_fwd_cuda(q, k, v, ops),
+                                       iters=10),
+              "evoformer_bwd_dq": time_ms(torch, lambda: E.evoformer_bwd_dq_cuda(*args),
+                                          iters=10),
+              "evoformer_bwd_dkv": time_ms(torch, lambda: E.evoformer_bwd_dkv_cuda(*args),
+                                           iters=10)}
+        plain = {"evoformer_fwd": time_ms(
+            torch, lambda: E.evoformer_fwd_reference(q, k, v, ops), iters=2, warmup=1)}
+        # the plain backward computes dq, dS, dk and dv together: its time
+        # stands for both backward kernels
+        plain["evoformer_bwd_dq"] = plain["evoformer_bwd_dkv"] = time_ms(
+            torch, lambda: E.evoformer_bwd_reference(*args), iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        lib = sdpa_evoformer_ms(torch, q, k, v, do, b1[0], b2[0]) if tag == "bf16" else None
+        bias_bytes = (b1.numel() + b2.numel()) * 4
+        flops, moved = evoformer_work(n, s, h, d, q.element_size(), bias_bytes)
+        peak = BF16_FLOPS if tag == "bf16" else FP32_FLOPS
+        for kname in EVOFORMER_KERNELS:
+            t_ops, t_bytes = flops[kname] / peak, moved[kname] / HBM_BYTES_PER_S
+            r = rec.setdefault(kname, {})
+            r[tag] = {"ms": ms[kname], "plain_ms": plain[kname],
+                      "bound_ms": max(t_ops, t_bytes) * 1e3,
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "flops": flops[kname], "bytes": moved[kname],
+                      "tflops_per_s": flops[kname] / (ms[kname] * 1e-3) / 1e12,
+                      "gb_per_s": moved[kname] / (ms[kname] * 1e-3) / 1e9}
+            if lib is not None:
+                r[tag].update(library_ms=lib[kname], library=lib["what"])
+        del q, k, v, do, b1, b2, ops, out, lse, args
+        torch.cuda.empty_cache()
+    return rec
+
+
+def kernel_evoformer(torch, dev):
+    """The three evoformer kernels against their plain versions at the
+    small cases of ``evoformer_cases``, then checked and timed at msa_row in
+    bf16 and fp32 (``evoformer_timings``). Returns one record per kernel;
+    its ms, plain, bound and library numbers are bf16's, fp32's beside
+    them."""
+    errs = {n: {} for n in EVOFORMER_KERNELS}
+    tiles = {n: {} for n in EVOFORMER_KERNELS}
+    names = []
+    for name, q, k, v, do, ops, dead in evoformer_cases(torch, dev):
+        check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=dead)
+        names.append(name)
+        del q, k, v, do, ops
+    timed = evoformer_timings(torch, dev, errs, tiles)
+    sh = EVOFORMER_SHAPES["msa_row"]
+    records = {}
+    for kname in EVOFORMER_KERNELS:
+        bf, fp = timed[kname]["bf16"], timed[kname]["fp32"]
+        records[kname] = {
+            "name": kname,
+            "shape": {"lead": [1, sh["n"]], "s": sh["s"], "h": sh["h"], "d": sh["d"],
+                      "dtype": "bfloat16", "biases": ["mask [1, n, 1, 1, s]",
+                                                      "pair [1, 1, h, s, s]"]},
+            "max_abs_err": max(errs[kname].values()),
+            "max_abs_err_by_case": errs[kname],
+            "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "fp32": [EVO_FP32_ATOL, EVO_FP32_RTOL],
+                          "scaled_by": "max(1, max|ref|)", "lse": [FLASH_LSE_ATOL, FP32_RTOL],
+                          "dS": [EVO_DS_ATOL, EVO_DS_RTOL],
+                          "tile_rel_frobenius": FLASH_TILE_RTOL if kname != "evoformer_fwd"
+                          else None},
+            "tile_rel_frobenius_by_case": tiles[kname] or None,
+            "held_against": {"plain": names + ["msa_row_bf16", "msa_row_fp32"]},
+            **{key: bf[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "flops",
+                                        "bytes", "tflops_per_s", "gb_per_s", "library_ms",
+                                        "library")},
+            "fp32": fp,
+        }
+    return records
+
+
+def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
+    """The op-registry entry point at AlphaFold2's widths: ``get_accelerator()
+    .create_op_builder("evoformer_attn").load()`` hands out
+    ``DS4Sci_EvoformerAttention``, which runs forward and backward on the
+    msa_row and triangle shapes (``EVOFORMER_SHAPES``) in bf16 with
+    AlphaFold's mask and a random pair bias, both needing gradients.
+    Launches are counted exactly (one of each evoformer kernel per call,
+    nothing else); out, dQ, dK, dV are held against the plain versions
+    (elementwise and per 64-row tile), db1 and db2 as relative Frobenius
+    over the whole tensor. Then a call whose biases need no gradient, which
+    must not ask for the dS plane. On a card each call also records the
+    device time of its two bias-gradient reductions (dS summed to each
+    bias's shape in torch). ``shapes``/``dtype`` shrink it for a CPU
+    rehearsal, where nothing launches."""
+    from deepspeed_tpu_torch import get_accelerator
+    from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+
+    shapes = shapes or EVOFORMER_SHAPES
+    dtype = dtype or torch.bfloat16
+    t_phase = time.perf_counter()
+    accel = get_accelerator()
+    evo = accel.create_op_builder("evoformer_attn").load(verbose=False)
+    on_card = dev.type == "cuda"
+    rec = {"phase": "evoformer", "accelerator": accel._name,
+           "entry": "get_accelerator().create_op_builder('evoformer_attn').load()",
+           "dtype": str(dtype), "calls": {}}
+    total = {name: 0 for name in K.KERNELS}
+    for i, (cname, sh) in enumerate(shapes.items()):
+        n, s, h, d = sh["n"], sh["s"], sh["h"], sh["d"]
+        pad_rows, pad_keys = min(EVO_PAD_ROWS, n // 4), min(EVO_PAD_KEYS, s // 8)
+        q, k, v, do, b1, b2 = evo_inputs(torch, dev, n, s, h, d, dtype, seed + i,
+                                         pad_keys=pad_keys, pad_rows=pad_rows)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, b1, b2)]
+        c = {"shape": {"q": list(q.shape), "bias1": list(b1.shape), "bias2": list(b2.shape)},
+             "padded": {"rows": pad_rows, "keys": pad_keys}}
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        _sync(torch, dev)
+        K.reset_counts()
+        t0 = time.perf_counter()
+        out = evo(*leaves[:3], leaves[3:])
+        out.backward(do)
+        _sync(torch, dev)
+        c["first_call_s"] = time.perf_counter() - t0
+        launches = K.counts()
+        want = {name: int(on_card and name in EVOFORMER_KERNELS) for name in K.KERNELS}
+        if launches != want:
+            raise AssertionError(f"evoformer {cname}: launches {launches}, expected {want}")
+        for name, cnt in launches.items():
+            total[name] += cnt
+        if on_card:
+            c["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            c["peak_over_inputs_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        # against the plain versions
+        q4, k4, v4, do4 = (t.reshape(n, s, h, d) for t in (q, k, v, do))
+        ops = E._operands([b1, b2], (1, n), h, s)
+        ref_out, ref_lse = E.evoformer_fwd_reference(q4, k4, v4, ops)
+        rdq, rdk, rdv, rds = E.evoformer_bwd_reference(q4, k4, v4, ref_out, do4, ref_lse, ops)
+        errs, tiles = {}, {}
+        for tag, got, want_t in (("out", out.detach(), ref_out), ("dq", leaves[0].grad, rdq),
+                                 ("dk", leaves[1].grad, rdk), ("dv", leaves[2].grad, rdv)):
+            got = got.reshape(n, s, h, d)
+            scale = max(1.0, float(want_t.float().abs().max()))
+            errs[tag] = check_close(torch, f"evoformer {cname} {tag}", got, want_t,
+                                    BF16_ATOL * scale, BF16_RTOL)
+            tiles[tag] = tile_rel_err(torch, f"evoformer {cname} {tag}", got.transpose(1, 2),
+                                      want_t.transpose(1, 2))
+        del ref_out, ref_lse, out
+        for tag, leaf in (("db1", leaves[3]), ("db2", leaves[4])):
+            want_t = rds.view(1, n, h, s, s).sum_to_size(leaf.shape)
+            tiles[tag] = rel_frobenius(torch, f"evoformer {cname} {tag}", leaf.grad, want_t)
+            errs[tag] = float((leaf.grad - want_t).abs().max())
+        if on_card:
+            c["bias_grad_reduce_ms"] = eager_ms(torch, lambda: [
+                rds.view(1, n, h, s, s).sum_to_size(b.shape) for b in (b1, b2)], iters=5)
+        del rdq, rdk, rdv, rds
+        c["max_abs_err"], c["rel_frobenius"] = errs, tiles
+
+        # seconds of a call (eager: host work included), the mean of three
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for t in leaves:
+                t.grad = None
+            evo(*leaves[:3], leaves[3:]).backward(do)
+        _sync(torch, dev)
+        c["call_s"] = (time.perf_counter() - t0) / 3
+        rec["calls"][cname] = c
+        del leaves
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # biases that need no gradient: the dq kernel is not asked for dS
+    first = next(iter(shapes))
+    sh = shapes[first]
+    q, k, v, do, b1, b2 = evo_inputs(torch, dev, sh["n"], sh["s"], sh["h"], sh["d"], dtype,
+                                     seed, pad_keys=min(EVO_PAD_KEYS, sh["s"] // 8),
+                                     pad_rows=min(EVO_PAD_ROWS, sh["n"] // 4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    asked = []
+    real = E.evoformer_bwd_dq_cuda if on_card else E.evoformer_bwd_reference
+
+    def spy(*a, want_ds=True, **kw):
+        asked.append(want_ds)
+        return real(*a, want_ds=want_ds, **kw)
+
+    setattr(E, real.__name__, spy)
+    try:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_counts()
+        evo(*leaves, [b1, b2]).backward(do)
+        _sync(torch, dev)
+    finally:
+        setattr(E, real.__name__, real)
+    if asked != [False]:
+        raise AssertionError(f"evoformer: biases with no gradient asked for dS: {asked}")
+    launches = K.counts()
+    for name, cnt in launches.items():
+        total[name] += cnt
+    rec["no_bias_grad_call"] = {"shape": first, "dS_asked": False,
+                                "launches": {n_: c_ for n_, c_ in launches.items() if c_},
+                                "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                                if on_card else None)}
+    del q, k, v, do, b1, b2, leaves
+    rec["launches"] = {n_: c_ for n_, c_ in total.items() if c_}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, total
+
+
 def device_profile(torch, fns):
     """torch.profiler over each named callable: device time by kernel name,
     the device's busy share of the wall time, and the host operators with
@@ -2766,6 +3206,7 @@ def main(argv=None):
         "fused_adam": lambda: {"fused_adam": kernel_fused_adam(torch, dev)},
         "splash": lambda: kernel_splash(torch, dev),
         "sparse": lambda: kernel_sparse(torch, dev),
+        "evoformer": lambda: kernel_evoformer(torch, dev),
     }
     t0 = time.perf_counter()
     records = {}
@@ -2831,12 +3272,19 @@ def main(argv=None):
     emit(rec)
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    rec, evo_launches = evoformer_phase(torch, dev, K)
+    rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    torch.cuda.empty_cache()
+
     # serving kernels launch in the engine phase (the int8 pool's in the
     # engine_int8 phase and the int8 per-row check), training kernels in the
     # train legs, the fused leg's four in the fused leg, the splash kernels
     # in the splash leg (and the splash forward in the per-row leg), the
-    # sparse kernels in the sparse_attn phase, and together they are every
-    # kernel
+    # sparse kernels in the sparse_attn phase, the evoformer kernels in the
+    # evoformer phase, and together they are every kernel
     launched = {name: serve_launches[name] for name in SERVE_KERNELS}
     launched.update({name: int8_launches[name] for name in INT8_KERNELS})
     launched.update({name: train_launches["train"][name] for name in TRAIN_KERNELS
@@ -2844,6 +3292,7 @@ def main(argv=None):
     launched.update({name: train_launches["train_fused"][name] for name in FUSED_KERNELS})
     launched.update({name: train_launches["train_splash"][name] for name in SPLASH_KERNELS})
     launched.update({name: sparse_launches[name] for name in SPARSE_KERNELS})
+    launched.update({name: evo_launches[name] for name in EVOFORMER_KERNELS})
     missing = [n for n, c in launched.items() if c <= 0]
     missing += [n for n in TRAIN_KERNELS if train_launches["train_fused"][n] <= 0]
     missing += [f"{n} (engine_per_row)" for n in PER_ROW_KERNELS if per_row_launches[n] <= 0]
@@ -2855,7 +3304,7 @@ def main(argv=None):
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
             f"training {train_launches}, per-row {per_row_launches}, int8 {int8_launches}, "
             f"per-row int8 {per_row_int8_launches}, sparse_attn {sparse_launches}, "
-            f"kernels {sorted(K.KERNELS)}")
+            f"evoformer {evo_launches}, kernels {sorted(K.KERNELS)}")
 
     kernels_line = []
     for name, k in K.KERNELS.items():
@@ -2864,7 +3313,8 @@ def main(argv=None):
                  else "engine_int8" if name in INT8_KERNELS
                  else "train_fused" if name in FUSED_KERNELS
                  else "train_splash" if name in SPLASH_KERNELS
-                 else "sparse_attn" if name in SPARSE_KERNELS else "train")
+                 else "sparse_attn" if name in SPARSE_KERNELS
+                 else "evoformer" if name in EVOFORMER_KERNELS else "train")
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": str(k.source_path.relative_to(root)),
@@ -2879,6 +3329,9 @@ def main(argv=None):
                 "launches_engine_per_row": per_row_launches.get(name, 0)}
                if name in SPLASH_KERNELS else {}),
             **({"flash_ms": rec["flash_ms"]} if name in SPARSE_KERNELS else {}),
+            **({"fp32": {key: rec["fp32"][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                           "bound_by")}}
+               if name in EVOFORMER_KERNELS else {}),
             **({"launches_engine_per_row_int8": per_row_int8_launches[name]}
                if name in INT8_KERNELS else {}),
             "matched": True,  # check_close raised otherwise

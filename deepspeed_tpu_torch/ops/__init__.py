@@ -87,21 +87,38 @@ class FPQuantizerBuilder(CUDAOpBuilder):
 
 
 @register_op
-class EvoformerAttnBuilder(UnportedOpBuilder):
+class EvoformerAttnBuilder(CUDAOpBuilder):
     NAME = "evoformer_attn"
-    ROADMAP = "ROADMAP queue 2, item 10: the evoformer kernels"
+    KERNELS = ("evoformer_fwd", "evoformer_bwd_dq", "evoformer_bwd_dkv")
+
+    def _build(self):
+        from deepspeed_tpu_torch.ops.deepspeed4science import DS4Sci_EvoformerAttention
+
+        return DS4Sci_EvoformerAttention
 
 
 @register_op
-class SpatialInferenceBuilder(UnportedOpBuilder):
+class SpatialInferenceBuilder(OpBuilder):
+    """Plain torch (plain XLA in the JAX package): nothing to build."""
+
     NAME = "spatial_inference"
-    ROADMAP = "ROADMAP queue 1, item 9: ops/spatial"
+
+    def _build(self):
+        from deepspeed_tpu_torch.ops import spatial
+
+        return spatial
 
 
 @register_op
-class RandomLTDBuilder(UnportedOpBuilder):
+class RandomLTDBuilder(OpBuilder):
+    """Plain torch (plain XLA in the JAX package): nothing to build."""
+
     NAME = "random_ltd"
-    ROADMAP = "ROADMAP queue 1, item 9: ops/random_ltd"
+
+    def _build(self):
+        from deepspeed_tpu_torch.ops import random_ltd
+
+        return random_ltd
 
 
 @register_op

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 class Kernel:
@@ -190,6 +191,27 @@ KERNELS: Dict[str, Kernel] = {
             # log2(block), causal, stream
             [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P],
             "deepspeed_tpu/ops/sparse_attention/sparse_pallas.py:118",
+        ),
+        Kernel(
+            "evoformer_fwd", "evoformer_fwd.cu", "dstt_evoformer_fwd",
+            # q, k, v, b1, b2, out, lse, b1 strides (batch, head, row), b2
+            # strides, B, h, s, d, scale, fp32, vec, stream
+            [_P] * 7 + [_L] * 6 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
+            "deepspeed_tpu/ops/deepspeed4science/evoformer_attn.py:27",
+        ),
+        Kernel(
+            "evoformer_bwd_dq", "evoformer_bwd.cu", "dstt_evoformer_bwd_dq",
+            # q, k, v, o, do, lse, b1, b2, dq, ds (or null), b1 strides, b2
+            # strides, B, h, s, d, scale, fp32, vec, stream
+            [_P] * 10 + [_L] * 6 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
+            "deepspeed_tpu/ops/deepspeed4science/evoformer_attn.py:60",
+        ),
+        Kernel(
+            "evoformer_bwd_dkv", "evoformer_bwd.cu", "dstt_evoformer_bwd_dkv",
+            # q, k, v, o, do, lse, b1, b2, dk, dv, b1 strides, b2 strides, B,
+            # h, s, d, scale, fp32, vec, stream
+            [_P] * 10 + [_L] * 6 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
+            "deepspeed_tpu/ops/deepspeed4science/evoformer_attn.py:90",
         ),
         Kernel(
             "fused_ce_fwd", "fused_ce.cu", "dstt_fused_ce_fwd",

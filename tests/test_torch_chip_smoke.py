@@ -177,7 +177,8 @@ def test_train_phase_runs_end_to_end_on_cpu(one_thread):
     assert rec["phase"] == "train" and "checkpoint" not in rec
     assert (set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS)
             | set(chip_smoke.FUSED_KERNELS) | set(chip_smoke.SPLASH_KERNELS)
-            | set(chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS)) == set(K.KERNELS)
+            | set(chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS)
+            | set(chip_smoke.EVOFORMER_KERNELS)) == set(K.KERNELS)
 
 
 def test_train_fused_phase_runs_end_to_end_on_cpu(one_thread):
@@ -293,7 +294,8 @@ def test_train_splash_phase_runs_end_to_end_on_cpu(one_thread):
         "rms_norm_bwd": 10}
     assert set(chip_smoke.SPLASH_KERNELS) | set(chip_smoke.SERVE_KERNELS) | set(
         chip_smoke.TRAIN_KERNELS) | set(chip_smoke.FUSED_KERNELS) | set(
-        chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS) == set(K.KERNELS)
+        chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS) | set(
+        chip_smoke.EVOFORMER_KERNELS) == set(K.KERNELS)
 
 
 def test_engine_per_row_phase_runs_end_to_end_on_cpu(one_thread):
@@ -493,3 +495,82 @@ def test_sparse_work_counts_kept_pairs():
         assert flops["sparse_bwd_dkv"] == 2 * flops["sparse_fwd"] == 8 * pairs * 64
         t = 3 * 2 * 512 * 64 * 2
         assert moved["sparse_fwd"] == 4 * t + 3 * 2 * 512 * 4 + layout.size * 4
+
+
+def test_evoformer_phase_runs_end_to_end_on_cpu(one_thread, monkeypatch):
+    """The evoformer phase at n 8 / 6, s 40, 2 heads of 16 in fp32: through
+    the registry on the CPU accelerator, ``DS4Sci_EvoformerAttention`` takes
+    the plain versions (nothing launches), its output and the gradients of
+    Q, K, V and both biases equal the plain versions', and the call whose
+    biases need no gradient does not ask for dS."""
+    from deepspeed_tpu_torch.accelerator import real_accelerator
+    from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+
+    monkeypatch.setattr(real_accelerator, "_accelerator", None)
+    shapes = {"msa_row": dict(n=8, s=40, h=2, d=16), "triangle": dict(n=6, s=40, h=2, d=16)}
+    rec, launches = chip_smoke.evoformer_phase(torch, torch.device("cpu"), K, shapes=shapes,
+                                               dtype=torch.float32)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    assert rec["accelerator"] == "cpu" and set(rec["calls"]) == {"msa_row", "triangle"}
+    for c in rec["calls"].values():
+        assert set(c["max_abs_err"]) == {"out", "dq", "dk", "dv", "db1", "db2"}
+        assert max(c["max_abs_err"].values()) < 1e-5
+        assert max(c["rel_frobenius"].values()) < 1e-5
+    assert rec["calls"]["msa_row"]["shape"] == {"q": [1, 8, 40, 2, 16],
+                                                "bias1": [1, 8, 1, 1, 40],
+                                                "bias2": [1, 1, 2, 40, 40]}
+    assert [c["padded"] for c in rec["calls"].values()] == [{"rows": 2, "keys": 5},
+                                                            {"rows": 1, "keys": 5}]
+    assert rec["no_bias_grad_call"]["dS_asked"] is False
+    assert E.evoformer_bwd_reference.__name__ == "evoformer_bwd_reference"  # spy removed
+
+
+def test_evoformer_kernel_cases_on_plain_inputs(monkeypatch):
+    """The kernels group's small cases on the plain versions: the shapes
+    the card checks (d 16 to 128, s 100, no bias, one bias, a materialized
+    pair bias, a dead row), the dead row exactly 0 and every check
+    recorded."""
+    from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+
+    def dq(*a, want_ds=True, **kw):
+        r = E.evoformer_bwd_reference(*a, want_ds=want_ds, **kw)
+        return r[0], r[3]
+
+    monkeypatch.setattr(E, "evoformer_fwd_cuda", E.evoformer_fwd_reference)
+    monkeypatch.setattr(E, "evoformer_bwd_dq_cuda", dq)
+    monkeypatch.setattr(E, "evoformer_bwd_dkv_cuda",
+                        lambda *a, **kw: E.evoformer_bwd_reference(*a, want_ds=False, **kw)[1:3])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    errs = {n: {} for n in chip_smoke.EVOFORMER_KERNELS}
+    tiles = {n: {} for n in chip_smoke.EVOFORMER_KERNELS}
+    names = []
+    for name, q, k, v, do, ops, dead in chip_smoke.evoformer_cases(torch, torch.device("cpu")):
+        chip_smoke.check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=dead)
+        names.append(name)
+        assert (dead is not None) == (name == "dead_row_bf16")
+        assert len(ops) == {"no_bias_bf16": 0, "one_bias_fp32": 1, "d128_fp32": 1}.get(name, 2)
+    assert {q_.shape[-1] for _, q_, *rest in chip_smoke.evoformer_cases(
+        torch, torch.device("cpu"))} == {16, 32, 64, 128}
+    assert "dead_row_bf16_dS" in errs["evoformer_bwd_dq"]
+    assert "no_bias_bf16_dS" not in errs["evoformer_bwd_dq"]
+    assert set(tiles["evoformer_bwd_dkv"]) == {n for name in names for n in (name, name + "_dv")}
+    assert max(max(e.values()) for e in errs.values()) == 0
+
+
+def test_evoformer_work_counts_the_msa_row_bytes():
+    """The bounds' counts at msa_row: 4d / 6d / 8d FLOPs per pair, and in
+    bf16 the dS plane (2.42 GB) sets the dq kernel's bytes."""
+    sh = chip_smoke.EVOFORMER_SHAPES["msa_row"]
+    n, s, h, d = sh["n"], sh["s"], sh["h"], sh["d"]
+    bias_bytes = (n * s + h * s * s) * 4
+    flops, moved = chip_smoke.evoformer_work(n, s, h, d, 2, bias_bytes)
+    pairs = n * h * s * s
+    assert flops["evoformer_fwd"] == 4 * d * pairs and flops["evoformer_bwd_dkv"] == 8 * d * pairs
+    t = n * s * h * d * 2
+    assert t == 100663296
+    assert moved["evoformer_fwd"] == 4 * t + bias_bytes + n * h * s * 4 == 414449664
+    assert moved["evoformer_bwd_dq"] - moved["evoformer_bwd_dkv"] == pairs * 4 - t
+    _, no_ds = chip_smoke.evoformer_work(n, s, h, d, 2, bias_bytes, with_ds=False)
+    assert moved["evoformer_bwd_dq"] - no_ds["evoformer_bwd_dq"] == pairs * 4

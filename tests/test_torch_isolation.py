@@ -45,6 +45,8 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.attention.core",
     "deepspeed_tpu_torch.ops.attention.flash",
     "deepspeed_tpu_torch.ops.attention.paged",
+    "deepspeed_tpu_torch.ops.deepspeed4science",
+    "deepspeed_tpu_torch.ops.deepspeed4science.evoformer_attn",
     "deepspeed_tpu_torch.ops.fused_ce",
     "deepspeed_tpu_torch.ops.kernels",
     "deepspeed_tpu_torch.ops.muon",
@@ -53,12 +55,14 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.op_builder",
     "deepspeed_tpu_torch.ops.quantizer",
     "deepspeed_tpu_torch.ops.quantizer.block_quant",
+    "deepspeed_tpu_torch.ops.random_ltd",
     "deepspeed_tpu_torch.ops.sparse_attention",
     "deepspeed_tpu_torch.ops.sparse_attention.config",
     "deepspeed_tpu_torch.ops.sparse_attention.mask",
     "deepspeed_tpu_torch.ops.sparse_attention.schedule",
     "deepspeed_tpu_torch.ops.sparse_attention.sparse",
     "deepspeed_tpu_torch.ops.sparse_attention.splash",
+    "deepspeed_tpu_torch.ops.spatial",
     "deepspeed_tpu_torch.parallel",
     "deepspeed_tpu_torch.parallel.sequence",
     "deepspeed_tpu_torch.parallel.sequence.tiled",

@@ -28,8 +28,12 @@ from deepspeed_tpu_torch.ops import kernels as K
 from deepspeed_tpu_torch.ops.op_builder import ALL_OPS, CUDAOpBuilder, build_all_ops
 
 ROOT = Path(__file__).resolve().parents[1]
-PORTED = ("flash_attn", "fused_adam", "quantizer", "rms_norm", "sparse_attn", "fp_quantizer")
-UNPORTED = ("evoformer_attn", "spatial_inference", "random_ltd", "async_io", "cpu_adam")
+# the ops with kernels (CUDAOpBuilder) and those that are plain torch (OpBuilder)
+CUDA_OPS = ("flash_attn", "fused_adam", "quantizer", "rms_norm", "sparse_attn", "fp_quantizer",
+            "evoformer_attn")
+PLAIN_OPS = ("spatial_inference", "random_ltd")
+PORTED = CUDA_OPS + PLAIN_OPS
+UNPORTED = ("async_io", "cpu_adam")
 
 
 @pytest.fixture
@@ -58,6 +62,7 @@ def test_every_jax_op_is_registered():
 def _expected(name):
     from deepspeed_tpu_torch.ops.adam import FusedAdam
     from deepspeed_tpu_torch.ops.attention.core import attention
+    from deepspeed_tpu_torch.ops.deepspeed4science import DS4Sci_EvoformerAttention
     from deepspeed_tpu_torch.ops.normalization import rms_norm
 
     return {
@@ -67,6 +72,9 @@ def _expected(name):
         "rms_norm": rms_norm,
         "sparse_attn": importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention"),
         "fp_quantizer": importlib.import_module("deepspeed_tpu_torch.ops.quantizer.block_quant"),
+        "evoformer_attn": DS4Sci_EvoformerAttention,
+        "spatial_inference": importlib.import_module("deepspeed_tpu_torch.ops.spatial"),
+        "random_ltd": importlib.import_module("deepspeed_tpu_torch.ops.random_ltd"),
     }[name]
 
 
@@ -80,10 +88,11 @@ def test_ported_builders_load_the_ported_code(accelerator, monkeypatch, name):
     monkeypatch.setattr(K, "build", no_build)
     accel = accelerator("cpu")
     builder = accel.create_op_builder(name)
-    assert isinstance(builder, CUDAOpBuilder) and builder.is_compatible()
+    assert isinstance(builder, CUDAOpBuilder) == (name in CUDA_OPS) and builder.is_compatible()
     assert builder.load(verbose=False) is _expected(name)
     assert builder.load(verbose=False) is _expected(name)  # loaded once
-    assert all(k in K.KERNELS for k in builder.KERNELS) and builder.KERNELS
+    if name in CUDA_OPS:
+        assert all(k in K.KERNELS for k in builder.KERNELS) and builder.KERNELS
 
 
 @pytest.mark.parametrize("name", UNPORTED)
