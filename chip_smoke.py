@@ -28,7 +28,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``schedule_from_layout`` of the same layout; the evoformer kernels in
    bf16 and fp32 at d 16, 32, 64 and 128, s 100, no bias, one bias, a
    materialized pair bias and a fully masked row, and at the evoformer
-   phase's msa_row shape); then CUDA-event times
+   phase's msa_row shape; the flash carry-mode chunk kernels, forward, dq
+   and dk/dv, at Mistral-7B attention width over chunks of 4096, a
+   non-diagonal and the diagonal hop with and without two packed segments,
+   each raw (the carry it leaves) and finalized); then CUDA-event times
    of the kernel, the plain version and one PyTorch library call computing
    the same function (a yardstick only: the port never calls it), beside
    the least time the card could take (``bound_ms``); the splash kernels
@@ -101,14 +104,34 @@ Phases, each printing one JSON line (any failure exits non-zero):
    relative Frobenius; peak memory and seconds; then a call whose biases
    need no gradient, which must not ask for the dS plane.
 
+10. ring_attn: the context-parallel ring in its loopback form (one
+   process drives N = 4 context ranks: one card cannot hold an NCCL rank
+   per chunk; a line says the process form was not run) through
+   ``attention(impl="flash_ring")``, forward and backward at s 32768:
+   Llama-2-7B attention (32 heads of 128, MHA) with out, lse, dq, dk and dv
+   bit for bit against ``flash_attention`` on the same inputs, Mistral-7B-v0.2
+   attention (32 over 8 heads) with out, lse and dq bit for bit and dk/dv
+   per 64-row tile; exactly N(N + 1) / 2 = 10 launches of each chunk kernel
+   per call and no other; the call's ms against the single call's and
+   SDPA's, and the peak memory of each.
+11. train_ring: ``initialize(mpu=Topology(context=4, loopback=True))`` ->
+   ``train_batch`` with ``attention_impl="flash_ring"`` at llama-7b width
+   (8 of 32 layers, ``max_seq_len`` 16384, seq 16384 in 4 chunks of 4096,
+   remat, bf16, micro-batch 1 x gas 2, AdamW as the train leg): the first
+   step's loss and every gradient bit for bit equal to the same engine
+   with ``attention_impl="flash"`` (built after it is freed), then 1
+   warm-up and 4 timed steps: step seconds, tok/s, MFU, peak memory and
+   the exact launches per optimizer step.
+
 Serving kernels must launch in the engine phase (the int8 pool's in
 engine_int8 and its per-row check), training kernels in the train legs,
 the fused configuration's four in its leg, the splash kernels in the
 splash leg (the forward also in the per-row leg), the sparse kernels in the
-sparse_attn phase, the evoformer kernels in the evoformer phase: together
-every kernel. The line before the last lists
-the kernels; the last line is the result object. With no card, or outside a
-checkout, it exits non-zero and prints no result.
+sparse_attn phase, the evoformer kernels in the evoformer phase, the chunk
+kernels in the ring_attn and train_ring phases: together every kernel. The
+line before the last lists the kernels; the last line is the result
+object. With no card, or outside a checkout, it exits non-zero and prints
+no result.
 """
 
 import argparse
@@ -518,6 +541,224 @@ def sdpa_train_ms(torch, q, k, v, do):
     return {"what": "torch.nn.functional.scaled_dot_product_attention, flash backend "
                     "(backward: autograd, dq+dk+dv in one call, eager)",
             "flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms, "flash_bwd_dkv": bwd_ms}
+
+
+# flash carry kernels (the ring's chunk entries): each against its plain
+# version on one hop, raw carry and finalized, with the flash tolerances.
+# The raw carries: m (a max of fp32 logits) to FLASH_LSE_ATOL, l and the
+# fp32 sums per 64-row tile (both round p or ds to bf16 against different
+# running maxima).
+CARRY_KERNELS = ("flash_fwd_chunk", "flash_dq_chunk", "flash_dkv_chunk")
+
+
+def carry_case(torch, q, k, v, do, kw, errs=None, tile_errs=None, tag="case"):
+    """One hop of each chunk kernel against its plain version: the carry
+    going in is the plain version's over another seeded chunk (so the
+    kernel loads a live state), the hop compared raw and finalized.
+    ``kw``: causal (the diagonal) and segment_ids (a (query, key) pair or
+    None). Returns {kernel tag: max abs err} and fills ``errs`` /
+    ``tile_errs`` when given."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    errs = errs if errs is not None else {n: {} for n in CARRY_KERNELS}
+    tile_errs = tile_errs if tile_errs is not None else {n: {} for n in CARRY_KERNELS[1:]}
+    b, h, s, d = q.shape
+    gen = torch.Generator(device=q.device).manual_seed(s + d + int(kw["causal"]))
+    k2, v2 = (torch.randn(*k.shape, generator=gen, device=q.device).to(k.dtype) for _ in "kv")
+    q2, do2 = (torch.randn(*q.shape, generator=gen, device=q.device).to(q.dtype) for _ in "qd")
+    seg = kw["segment_ids"]
+    other = None if seg is None else (seg[0], seg[0])
+    causal = kw["causal"]
+
+    # forward: the carry of the other chunk, then this hop
+    c0 = F.flash_fwd_chunk_reference(q, k2, v2, F.flash_carry_init(b, h, s, d, q.device),
+                                     segment_ids=other)
+    want = F.flash_fwd_chunk_reference(q, k, v, c0, causal=causal, segment_ids=seg)
+    got = F.flash_fwd_chunk_cuda(q, k, v, tuple(t.clone() for t in c0), seg, causal)
+    errs["flash_fwd_chunk"][tag + "_m"] = check_close(
+        torch, f"flash_fwd_chunk {tag} m", got[0], want[0], FLASH_LSE_ATOL, FP32_RTOL)
+    errs["flash_fwd_chunk"][tag + "_l"] = check_close(
+        torch, f"flash_fwd_chunk {tag} l", got[1], want[1], BF16_ATOL, BF16_RTOL)
+    errs["flash_fwd_chunk"][tag + "_acc_tile"] = tile_rel_err(
+        torch, f"flash_fwd_chunk {tag} acc", got[2], want[2])
+    out_w, lse_w = F.flash_finalize(want, q.dtype)
+    out, lse = F.flash_fwd_chunk_cuda(q, k, v, tuple(t.clone() for t in c0), seg, causal,
+                                      final=True)
+    errs["flash_fwd_chunk"][tag + "_out"] = check_close(
+        torch, f"flash_fwd_chunk {tag} out", out, out_w, BF16_ATOL, BF16_RTOL)
+    errs["flash_fwd_chunk"][tag + "_lse"] = check_close(
+        torch, f"flash_fwd_chunk {tag} lse", lse, lse_w, FLASH_LSE_ATOL, FP32_RTOL)
+    del c0, want, got
+
+    # dq: the raw sum over the other chunk, then this hop (out and lse of
+    # this hop's finalize stand for the rows' global ones)
+    a0 = F.flash_dq_chunk_reference(q, k2, v2, out_w, do, lse_w,
+                                    torch.zeros(q.shape, device=q.device), segment_ids=other)
+    want = F.flash_dq_chunk_reference(q, k, v, out_w, do, lse_w, a0, causal=causal,
+                                      segment_ids=seg)
+    got = F.flash_dq_chunk_cuda(q, k, v, out_w, do, lse_w, a0.clone(), seg, causal)
+    hold(torch, errs, tile_errs, "flash_dq_chunk", tag + "_raw", got, want)
+    sc = q.shape[-1] ** -0.5
+    got = F.flash_dq_chunk_cuda(q, k, v, out_w, do, lse_w, a0.clone(), seg, causal, final=True)
+    hold(torch, errs, tile_errs, "flash_dq_chunk", tag, got,
+         F.flash_dq_finalize(want, sc, q.dtype))
+    del a0, want, got
+
+    # dk/dv: the home k/v; the raw sums over another visiting q chunk, then
+    # this hop's visitor (q, out, do, lse)
+    o2, l2 = F.flash_finalize(F.flash_fwd_chunk_reference(
+        q2, k, v, F.flash_carry_init(b, h, s, d, q.device), segment_ids=other), q.dtype)
+    zero = torch.zeros(k.shape, device=q.device)
+    c0 = F.flash_dkv_chunk_reference(q2, k, v, o2, do2, l2, zero, zero.clone(),
+                                     segment_ids=other)
+    want = F.flash_dkv_chunk_reference(q, k, v, out_w, do, lse_w, *c0, causal=causal,
+                                       segment_ids=seg)
+    got = F.flash_dkv_chunk_cuda(q, k, v, out_w, do, lse_w, tuple(t.clone() for t in c0), seg,
+                                 causal)
+    hold(torch, errs, tile_errs, "flash_dkv_chunk", tag + "_raw_dk", got[0], want[0])
+    hold(torch, errs, tile_errs, "flash_dkv_chunk", tag + "_raw_dv", got[1], want[1])
+    got = F.flash_dkv_chunk_cuda(q, k, v, out_w, do, lse_w, tuple(t.clone() for t in c0), seg,
+                                 causal, final=True)
+    dk_w, dv_w = F.flash_dkv_finalize(*want, sc, k.dtype)
+    hold(torch, errs, tile_errs, "flash_dkv_chunk", tag + "_dk", got[0], dk_w)
+    hold(torch, errs, tile_errs, "flash_dkv_chunk", tag + "_dv", got[1], dv_w)
+    return {f"{n} {t}": e for n, case in errs.items() for t, e in case.items()}
+
+
+def kernel_flash_carry(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128):
+    """The three chunk kernels at Mistral-7B attention width (32/8 heads of
+    128, bf16), home and visiting chunks of 4096: a non-diagonal hop and the
+    diagonal hop, each with and without two packed segments; CUDA-graph
+    times at the non-diagonal hop (a middle hop: the carry loaded and
+    stored raw) beside the plain versions and the bound. Returns one record
+    per kernel."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    errs = {n: {} for n in CARRY_KERNELS}
+    tile_errs = {n: {} for n in CARRY_KERNELS[1:]}
+    for i, (name, causal, cut) in enumerate((("offdiag", False, None),
+                                             ("offdiag_segments2", False, (1500, 2600)),
+                                             ("diag", True, None),
+                                             ("diag_segments2", True, (1500, 1500)))):
+        q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed=40 + i)
+        seg = None
+        if cut is not None:  # the home chunk's ids, the visitor's
+            seg = (two_segments(torch, dev, b, s, cut[0]), two_segments(torch, dev, b, s, cut[1]))
+        carry_case(torch, q, k, v, do, dict(causal=causal, segment_ids=seg), errs, tile_errs,
+                   name)
+        del q, k, v, do
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed=40)
+    out, lse = F.flash_fwd_reference(q, k, v, causal=False)
+    carry = F.flash_fwd_chunk_cuda(q, k, v)
+    dq_acc = F.flash_dq_chunk_cuda(q, k, v, out, do, lse)
+    dkv = F.flash_dkv_chunk_cuda(q, k, v, out, do, lse)
+    kw = dict(causal=False)
+    ms = {
+        "flash_fwd_chunk": time_ms(torch, lambda: F.flash_fwd_chunk_cuda(q, k, v, carry),
+                                   iters=10),
+        "flash_dq_chunk": time_ms(
+            torch, lambda: F.flash_dq_chunk_cuda(q, k, v, out, do, lse, dq_acc), iters=10),
+        "flash_dkv_chunk": time_ms(
+            torch, lambda: F.flash_dkv_chunk_cuda(q, k, v, out, do, lse, dkv), iters=10),
+    }
+    c0 = F.flash_carry_init(b, h, s, d, dev)
+    z = torch.zeros(k.shape, device=dev)
+    plain = {
+        "flash_fwd_chunk": time_ms(torch, lambda: F.flash_fwd_chunk_reference(q, k, v, c0, **kw),
+                                   iters=2, warmup=1),
+        "flash_dq_chunk": time_ms(torch, lambda: F.flash_dq_chunk_reference(
+            q, k, v, out, do, lse, dq_acc, **kw), iters=2, warmup=1),
+        "flash_dkv_chunk": time_ms(torch, lambda: F.flash_dkv_chunk_reference(
+            q, k, v, out, do, lse, z, z, **kw), iters=2, warmup=1),
+    }
+    pairs = b * h * s * s
+    el = q.element_size()
+    qb, kvb, lseb = q.numel() * el, k.numel() * el, b * h * s * 4
+    acc, kv_acc = q.numel() * 4, k.numel() * 4
+    work = {  # (FLOPs, bytes: inputs read once, outputs written once, carries both)
+        "flash_fwd_chunk": (4 * pairs * d, qb + 2 * kvb + 2 * (acc + 2 * lseb)),
+        "flash_dq_chunk": (6 * pairs * d, 3 * qb + 2 * kvb + lseb + 2 * acc),
+        "flash_dkv_chunk": (8 * pairs * d, 3 * qb + 2 * kvb + lseb + 2 * 2 * kv_acc),
+    }
+    records = {}
+    for name, (flops, moved) in work.items():
+        t_ops, t_bytes = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
+        records[name] = {
+            "name": name,
+            "shape": {"b": b, "h": h, "h_kv": h_kv, "chunk": s, "d": d, "hop": "non-diagonal",
+                      "carry": "loaded and stored raw"},
+            "max_abs_err": max(v for t, v in errs[name].items() if not t.endswith("_tile")),
+            "max_abs_err_by_case": errs[name],
+            "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "scaled_by": "max(1, max|ref|)",
+                          "m_and_lse": [FLASH_LSE_ATOL, FP32_RTOL],
+                          "tile_rel_frobenius": FLASH_TILE_RTOL},
+            "tile_rel_frobenius_by_case": tile_errs.get(name),
+            "ms": ms[name],
+            "plain_ms": plain[name],
+            "library_ms": None,
+            "library": "none: no one PyTorch call carries a raw softmax state or raw "
+                       "gradient sums from chunk to chunk",
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops,
+            "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
+        }
+    return records
+
+
+def ring_against_flash(torch, q, k, v, do, gqa):
+    """``attention(impl="flash_ring")`` forward and backward on the current
+    (loopback) topology against the single flash call on the same inputs.
+    On a card out, lse, dq and (MHA) dk, dv must be the single kernels' bits
+    and every carry kernel launches exactly N(N + 1) / 2 times in the ring
+    call, nothing else; GQA dk/dv are held per 64-row tile. On the CPU (a
+    rehearsal: plain versions on both sides) fp32 tolerances stand in for
+    bits. Returns the verdicts and the ring call's launch counts."""
+    from deepspeed_tpu_torch.ops import kernels as K
+    from deepspeed_tpu_torch.ops.attention import flash as F
+    from deepspeed_tpu_torch.ops.attention import sharded as S
+    from deepspeed_tpu_torch.ops.attention.core import attention
+    from deepspeed_tpu_torch.parallel.topology import get_topology
+
+    dev = q.device
+    exact = dev.type == "cuda"
+    n = get_topology().context_parallel_size
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    single = F.flash_attention(*leaves)
+    s_grads = torch.autograd.grad(single, leaves, do)
+    s_lse = (F.flash_fwd_cuda if exact else F.flash_fwd_reference)(q, k, v)[1]
+    _sync(torch, dev)
+    K.reset_counts()
+    ring = attention(*leaves, impl="flash_ring")
+    r_grads = torch.autograd.grad(ring, leaves, do)
+    _sync(torch, dev)
+    launches = {name: c for name, c in K.counts().items() if c}
+    ring_obj = S.loopback_ring(n)
+    r_lse = torch.cat(S.ring_forward(ring_obj, *(list(x.chunk(n, 2)) for x in (q, k, v)),
+                                     [None] * n, None)[1], dim=2)
+    res = {"n": n, "launches": launches}
+    pairs = (("out", ring, single), ("lse", r_lse, s_lse), ("dq", r_grads[0], s_grads[0]),
+             ("dk", r_grads[1], s_grads[1]), ("dv", r_grads[2], s_grads[2]))
+    for what, got, want in pairs:
+        got, want = got.detach(), want.detach()
+        same = bool(torch.equal(got, want))
+        res[f"{what}_bitwise"] = same
+        res[f"{what}_max_abs_err"] = float((got.float() - want.float()).abs().max())
+        if what in ("dk", "dv") and gqa:
+            res[f"{what}_tile_rel_frobenius"] = tile_rel_err(torch, f"ring {what}", got, want)
+        elif exact and not same:
+            raise AssertionError(f"ring {what} is not the single flash kernel's bits: {res}")
+        elif not exact:
+            check_close(torch, f"ring {what}", got, want, FP32_ATOL, FP32_RTOL)
+    if exact:
+        hops = n * (n + 1) // 2
+        want_launches = {name: hops for name in CARRY_KERNELS}
+        if launches != want_launches:
+            raise AssertionError(f"ring call launches {launches}, expected {want_launches}")
+    return res
 
 
 # splash kernels: the flash kernels' tolerances (the same mainloop and the
@@ -2576,6 +2817,212 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# the context-parallel ring: loopback form, N = 4 context ranks on one card
+# ---------------------------------------------------------------------------
+RING_N = 4
+# (a) Llama-2-7B attention (32 heads of 128, MHA) and (b) Mistral-7B-v0.2
+# attention (32 query heads over 8 kv heads of 128; v0.2 has no sliding
+# window and a 32k context), both at s 32768, b 1, bf16
+RING_CASES = {"llama2_7b_mha": dict(h=32, h_kv=32), "mistral_7b_v02_gqa": dict(h=32, h_kv=8)}
+RING_SEQ = 32768
+# the ring's training leg: llama-7b width (h 4096, 32 heads of 128, MHA,
+# ffn 11008, vocab 32000) at 8 of 32 layers (full depth is ~135 GB of
+# params and optimizer state at 20 B a parameter), max_seq_len raised to
+# 16384 and 4 chunks of 4096, remat with policy "nothing"
+RING_MODEL = "llama-7b"
+RING_TRAIN_SEQ = 16384
+
+
+def ring_attn_phase(torch, dev, K, cases=None, seq=RING_SEQ, n=RING_N, d=128, seed=SEED):
+    """``attention(impl="flash_ring")`` on a loopback ``Topology(context=N)``
+    at each case's width: fwd + bwd bit for bit against ``flash_attention``
+    in the same run (``ring_against_flash``), exact carry-kernel launches,
+    the ring call's wall ms against the single call's and against SDPA at
+    the same s (a yardstick), and the peak memory of each."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+    from deepspeed_tpu_torch.ops.attention.core import attention
+    from deepspeed_tpu_torch.parallel.topology import Topology, reset_topology, set_topology
+
+    cases = cases or RING_CASES
+    rec = {"phase": "ring_attn", "n": n, "seq": seq, "form": "loopback", "cases": {}}
+    set_topology(Topology(context=n, loopback=True))
+    try:
+        for i, (name, c) in enumerate(cases.items()):
+            q, k, v, do = flash_inputs(torch, dev, 1, c["h"], c["h_kv"], seq, d, seed=seed + 60 + i)
+            if dev.type != "cuda":
+                q, k, v, do = (t.float() for t in (q, k, v, do))
+            res = ring_against_flash(torch, q, k, v, do, gqa=c["h"] != c["h_kv"])
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+            def fwd_bwd(fn):
+                out = fn()
+                torch.autograd.grad(out, leaves, do)
+
+            timed = {"ring": lambda: fwd_bwd(lambda: attention(*leaves, impl="flash_ring")),
+                     "single": lambda: fwd_bwd(lambda: F.flash_attention(*leaves))}
+            if dev.type == "cuda":
+                from torch.nn.attention import SDPBackend, sdpa_kernel
+
+                def sdpa():
+                    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                        return torch.nn.functional.scaled_dot_product_attention(
+                            *leaves, is_causal=True, enable_gqa=True)
+
+                timed["sdpa"] = lambda: fwd_bwd(sdpa)
+            for what, fn in timed.items():
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    res[f"{what}_ms"] = eager_ms(torch, fn, iters=3, warmup=1)
+                    res[f"{what}_peak_extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                else:
+                    fn()
+            if dev.type == "cuda":
+                res["ring_over_single"] = res["ring_ms"] / res["single_ms"]
+            res.update(h=c["h"], h_kv=c["h_kv"], d=d)
+            rec["cases"][name] = res
+            del q, k, v, do, leaves
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        reset_topology()
+    launches = {name: rec["cases"][next(iter(cases))]["launches"].get(name, 0)
+                for name in CARRY_KERNELS}
+    return rec, launches
+
+
+def train_ring_phase(torch, dev, K, widths=None, seq=RING_TRAIN_SEQ, layers=TRAIN_LAYERS, n=RING_N,
+                     timed_steps=4, profile=False):
+    """``initialize(mpu=Topology(context=N, loopback=True))`` ->
+    ``train_batch`` with ``attention_impl="flash_ring"`` at llama-7b width.
+    Parity first: on the same params and batch, the first step's loss and
+    every gradient (the engine's ``forward`` / ``backward`` over the gas
+    micro-batches, summed in its fp32 buffers) must equal those of the same
+    engine with ``attention_impl="flash"`` bit for bit on a card (MHA makes
+    the whole step bitwise; the engines are built one after the other).
+    Then ``step``, 1 warm-up and ``timed_steps`` timed ``train_batch``
+    steps: losses, step seconds, tok/s, MFU, peak memory and the exact
+    launches per optimizer step (remat runs each layer's ring forward
+    again in the backward)."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.parallel.topology import Topology, reset_topology, set_topology
+
+    widths = dict(widths or {})
+    widths.setdefault("dtype", "bfloat16")
+    widths.setdefault("max_seq_len", seq)
+    ds_config = dict(TRAIN_CONFIG)
+    if widths["dtype"] != "bfloat16":  # a CPU rehearsal in the model's own dtype
+        del ds_config["bf16"]
+    gas = ds_config["gradient_accumulation_steps"]
+    rec = {"phase": "train_ring", "model": RING_MODEL, "seq": seq, "n": n, "form": "loopback",
+           "dtype": widths["dtype"], "layers": layers}
+    rng = np.random.default_rng(SEED)
+    batches = [{"input_ids": torch.as_tensor(
+        rng.integers(0, T.get_config(RING_MODEL, **widths).vocab_size, size=(gas, seq + 1)),
+        device=dev)} for _ in range(2 + timed_steps)]
+    exact = dev.type == "cuda"
+
+    def first_step(impl):
+        """(engine, loss, grads on the host) of the first step's micro-batches."""
+        cfg = T.get_config(RING_MODEL, n_layers=layers, attention_impl=impl, remat=True,
+                           remat_policy="nothing", **widths)
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=T.make_loss_fn(cfg), model_parameters=params, config=ds_config,
+            mpu=Topology(context=n, loopback=True) if impl == "flash_ring" else None)
+        del params
+        losses = []
+        for i in range(gas):
+            if i:
+                eng.step()  # a micro-step: counts, no update before the boundary
+            losses.append(eng.forward({k: v[i:i + 1] for k, v in batches[0].items()}))
+            eng.backward(losses[-1])
+        grads = {name: g.cpu() for name, g in leaves(eng._acc_grads).items()}
+        return eng, torch.stack(losses).mean(), grads, cfg
+
+    t0 = time.perf_counter()
+    try:
+        eng, f_loss, f_grads, _ = first_step("flash")
+        del eng
+        _sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_counts()
+        eng, r_loss, r_grads, cfg = first_step("flash_ring")
+        first_launches = K.counts()
+        diff = {name: float((r_grads[name] - g).abs().max()) for name, g in f_grads.items()}
+        same = {name: bool(torch.equal(r_grads[name], g)) for name, g in f_grads.items()}
+        rec["parity"] = {
+            "loss_ring": float(r_loss), "loss_flash": float(f_loss),
+            "loss_bitwise": bool(torch.equal(r_loss, f_loss)),
+            "grads_bitwise": all(same.values()), "grad_leaves": len(same),
+            "grad_max_abs_diff": max(diff.values()),
+            "seconds": time.perf_counter() - t0,
+        }
+        if exact and not (rec["parity"]["loss_bitwise"] and rec["parity"]["grads_bitwise"]):
+            off = [name for name, ok in same.items() if not ok]
+            raise AssertionError(f"train_ring: the first step is not the flash engine's bits: "
+                                 f"{rec['parity']}, leaves off {off}")
+        if not exact and (abs(float(r_loss) - float(f_loss)) > 1e-5 or max(diff.values()) > 1e-4):
+            raise AssertionError(f"train_ring rehearsal: ring and flash differ: {rec['parity']}")
+        del f_grads, r_grads
+        eng.step()  # the boundary: the first update
+        if eng.global_steps != 1:
+            raise AssertionError(f"train_ring: {eng.global_steps} optimizer steps after the first")
+
+        K.reset_counts()
+        losses, step_s = [], []
+        for b in batches[1:]:
+            t1 = time.perf_counter()
+            losses.append(float(eng.train_batch(batch=b)))
+            _sync(torch, dev)
+            step_s.append(time.perf_counter() - t1)
+        launches = K.counts()
+    finally:
+        reset_topology()
+    steps = len(batches) - 1
+    hops = n * (n + 1) // 2
+    per_step = {"flash_fwd_chunk": gas * layers * 2 * hops, "flash_dq_chunk": gas * layers * hops,
+                "flash_dkv_chunk": gas * layers * hops,
+                "rms_norm_fwd": gas * (2 * layers * 2 + 1), "rms_norm_bwd": gas * (2 * layers + 1)}
+    expected = {name: 0 for name in launches}
+    expected.update({k: v * steps for k, v in per_step.items()})
+    rec["launches"] = launches
+    rec["launches_expected"] = expected
+    rec["launches_per_optimizer_step"] = per_step
+    rec["launches_first_step_micro_batches"] = {k: v for k, v in first_launches.items() if v}
+    if exact and launches != expected:
+        raise AssertionError(f"train_ring kernel launches {launches}, expected {expected}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_ring: non-finite losses {losses}")
+    timed = step_s[1:]
+    tokens = gas * ds_config["train_micro_batch_size_per_gpu"] * seq
+    rec["params"] = sum(t.numel() for t in leaves(eng.params).values())
+    rec["losses"] = losses
+    rec["step_seconds"] = step_s
+    rec["warmup_step_seconds"] = step_s[0]
+    rec["mean_step_seconds"] = sum(timed) / len(timed)
+    rec["tok_s"] = tokens / rec["mean_step_seconds"]
+    rec["flops_per_token"] = T.flops_per_token(cfg, seq)
+    rec["mfu"] = rec["flops_per_token"] * rec["tok_s"] / BF16_FLOPS
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    if profile:
+        set_topology(Topology(context=n, loopback=True))
+        try:
+            rec["profile"] = device_profile(torch, {"train_ring_step": lambda: float(
+                eng.train_batch(batch=batches[-1]))})
+        finally:
+            reset_topology()
+    del eng
+    return rec, launches
+
+
 def sparse_attn_phase(torch, dev, K, h=32, h_kv=8, d=128, s=SPARSE_TIMED["s"], mask_s=4096,
                       dtype=None, block=SPARSE_TIMED["block"]):
     """The op-registry entry point at Mistral-7B's attention: ``get_accelerator()
@@ -3207,6 +3654,7 @@ def main(argv=None):
         "splash": lambda: kernel_splash(torch, dev),
         "sparse": lambda: kernel_sparse(torch, dev),
         "evoformer": lambda: kernel_evoformer(torch, dev),
+        "flash_carry": lambda: kernel_flash_carry(torch, dev),
     }
     t0 = time.perf_counter()
     records = {}
@@ -3279,6 +3727,25 @@ def main(argv=None):
     emit(rec)
     torch.cuda.empty_cache()
 
+    print("ring: the loopback form (one process drives the N context ranks) runs here; the "
+          "process form over NCCL (one rank per card) was not run: this machine has "
+          f"{torch.cuda.device_count()} card(s)", flush=True)
+    t0 = time.perf_counter()
+    rec, ring_launches = ring_attn_phase(torch, dev, K)
+    rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec, train_ring_launches = train_ring_phase(torch, dev, K, profile=args.profile)
+    rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    print(f"train_ring MFU {rec['mfu']:.4f} = flops_per_token {rec['flops_per_token']:.4g} x "
+          f"{rec['tok_s']:.1f} tok/s / {BF16_FLOPS:.4g} FLOP/s on {card}", flush=True)
+    torch.cuda.empty_cache()
+
     # serving kernels launch in the engine phase (the int8 pool's in the
     # engine_int8 phase and the int8 per-row check), training kernels in the
     # train legs, the fused leg's four in the fused leg, the splash kernels
@@ -3293,7 +3760,9 @@ def main(argv=None):
     launched.update({name: train_launches["train_splash"][name] for name in SPLASH_KERNELS})
     launched.update({name: sparse_launches[name] for name in SPARSE_KERNELS})
     launched.update({name: evo_launches[name] for name in EVOFORMER_KERNELS})
+    launched.update({name: train_ring_launches[name] for name in CARRY_KERNELS})
     missing = [n for n, c in launched.items() if c <= 0]
+    missing += [f"{n} (ring_attn)" for n in CARRY_KERNELS if ring_launches[n] <= 0]
     missing += [n for n in TRAIN_KERNELS if train_launches["train_fused"][n] <= 0]
     missing += [f"{n} (engine_per_row)" for n in PER_ROW_KERNELS if per_row_launches[n] <= 0]
     missing += [f"{n} (engine_int8)" for n in ("rms_norm_fwd",) if int8_launches[n] <= 0]
@@ -3304,7 +3773,8 @@ def main(argv=None):
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
             f"training {train_launches}, per-row {per_row_launches}, int8 {int8_launches}, "
             f"per-row int8 {per_row_int8_launches}, sparse_attn {sparse_launches}, "
-            f"evoformer {evo_launches}, kernels {sorted(K.KERNELS)}")
+            f"evoformer {evo_launches}, ring_attn {ring_launches}, train_ring "
+            f"{train_ring_launches}, kernels {sorted(K.KERNELS)}")
 
     kernels_line = []
     for name, k in K.KERNELS.items():
@@ -3314,7 +3784,8 @@ def main(argv=None):
                  else "train_fused" if name in FUSED_KERNELS
                  else "train_splash" if name in SPLASH_KERNELS
                  else "sparse_attn" if name in SPARSE_KERNELS
-                 else "evoformer" if name in EVOFORMER_KERNELS else "train")
+                 else "evoformer" if name in EVOFORMER_KERNELS
+                 else "train_ring" if name in CARRY_KERNELS else "train")
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": str(k.source_path.relative_to(root)),
@@ -3334,6 +3805,7 @@ def main(argv=None):
                if name in EVOFORMER_KERNELS else {}),
             **({"launches_engine_per_row_int8": per_row_int8_launches[name]}
                if name in INT8_KERNELS else {}),
+            **({"launches_ring_attn_call": ring_launches[name]} if name in CARRY_KERNELS else {}),
             "matched": True,  # check_close raised otherwise
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

@@ -6,7 +6,8 @@ mirror the JAX package so each counterpart is easy to find. Kernels that
 the JAX package wrote in Pallas are hand-written CUDA C++ for Hopper
 (``ops/kernels/csrc``), built with ``nvcc`` at first use.
 
-The port trains and serves the dense decoder on one device:
+The port trains and serves the dense decoder on one device, and trains it
+data x context parallel over processes (``Topology``, ``comm``):
 
   * train: ``initialize(model=make_loss_fn(cfg), model_parameters=params,
     config=...)`` -> ``engine.train_batch(batch=...)`` (or ``forward`` /
@@ -57,11 +58,27 @@ def initialize(
 
     ``model`` is a loss function ``loss_fn(params, batch) -> loss`` and
     ``model_parameters`` the nested dict of tensors it takes; the engine
-    runs on their device. A mesh, tensor or pipeline parallelism above 1,
-    an mpu and the hybrid engine raise
-    ``NotImplementedError`` (ROADMAP queue 1, item 6)."""
-    import json
+    runs on their device.
 
+    The grid: ``mpu`` (a ``parallel.topology.Topology``, e.g. the loopback
+    form ``Topology(context=4, loopback=True)``) or the config's ``mesh``
+    section (``data`` and ``context``; one rank per process, so the default
+    process group must hold their product of processes: it is initialized
+    here from ``RANK`` / ``WORLD_SIZE`` when those name more than one) sets
+    the topology; with neither, the current one stays. The batch arithmetic
+    uses the grid's data size. Other mesh axes, tensor and pipeline
+    parallelism, ``param_specs`` and the hybrid engine raise
+    ``NotImplementedError`` naming their ROADMAP items."""
+    import json
+    import os
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.topology import (
+        PORTED_AXES,
+        Topology,
+        get_topology,
+        set_topology,
+    )
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.config_utils import dict_raise_error_on_duplicate_keys
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
@@ -89,22 +106,31 @@ def initialize(
     if mesh_param is not None:
         mesh.update({"data": mesh_param[0], "sequence": mesh_param[1]}
                     if isinstance(mesh_param, (tuple, list)) else dict(mesh_param))
-    big = {k: v for k, v in mesh.items() if v and int(v) > 1}
+    big = {k: v for k, v in mesh.items() if k not in PORTED_AXES and v and int(v) > 1}
     if big:
-        raise later(f"a mesh with axes above 1 ({big})")
+        raise later(f"a mesh with axes other than data and context above 1 ({big})")
     tp = raw.get("tensor_parallel", {}) or {}
     if max(int(tp.get("autotp_size", 0) or 0), int(tp.get("tp_size", 1) or 1)) > 1:
         raise later("tensor parallelism > 1")
     if int((raw.get("pipeline", {}) or {}).get("stages", 1) or 1) > 1:
         raise later("pipeline parallelism > 1")
-    if mpu is not None or param_specs is not None:
-        raise later("an mpu / param_specs")
+    if param_specs is not None:
+        raise later("param_specs")
+    if mpu is not None and not isinstance(mpu, Topology):
+        raise later(f"an mpu of type {type(mpu).__name__} (pass a parallel.topology.Topology)")
     if (raw.get("hybrid_engine", {}) or {}).get("enabled"):
         raise NotImplementedError(
             "deepspeed_tpu_torch.initialize: the hybrid engine is not ported yet "
             "(ROADMAP queue 1, item 9)"
         )
-    ds_config = DeepSpeedConfig.load(raw, dp_world_size=1)
+    if mpu is not None:
+        set_topology(mpu)
+    elif any(v for v in mesh.values()):
+        if not comm.is_initialized() and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+            comm.init_distributed(distributed_port=distributed_port)
+        set_topology(Topology(**{k: int(v) for k, v in mesh.items() if v}))
+    topo = get_topology()
+    ds_config = DeepSpeedConfig.load(raw, dp_world_size=topo.dp_world_size)
     engine = DeepSpeedEngine(model, model_parameters, ds_config, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, training_data=training_data,
                              collate_fn=collate_fn)

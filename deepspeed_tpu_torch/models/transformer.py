@@ -19,7 +19,11 @@ the model dtype, the dense MLP, the LM head, and two forwards:
     kernels over the layer's block schedule) and RMSNorm through
     ``rms_norm`` (the kernels forward and backward on a card); ``remat``
     runs each layer under ``torch.utils.checkpoint``. ``make_loss_fn``
-    builds the causal-LM loss on top.
+    builds the causal-LM loss on top. ``attention_impl="flash_ring"`` (or
+    "auto" on a topology whose ``context`` axis is above 1) takes the
+    context-parallel ring (``ops/attention/sharded.py``); in the process
+    form the model holds this rank's chunk of the sequence, with global
+    positions and RoPE over the global length.
   * ``forward_reference``: the plain oracle on any device, with
     ``mha_reference`` (with ``attn_sparsity``, the splash kernels' plain
     forward over the layout) and ``rms_norm_reference``, never a kernel. The
@@ -717,6 +721,41 @@ def _attention_schedule(c: TransformerConfig, s: int):
     return None
 
 
+def _attention_impl(c: TransformerConfig):
+    """The layer's ``attention`` impl: "auto" becomes "flash_ring" on a
+    topology whose context axis is above 1, and the ring's refusals (the
+    JAX package's) raise here."""
+    from deepspeed_tpu_torch.parallel.topology import get_topology
+
+    topo = get_topology()
+    impl = c.attention_impl
+    if impl == "auto" and topo.context_parallel_size > 1:
+        impl = "flash_ring"
+    if impl == "flash_ring":
+        if topo.sequence_parallel_size > 1:
+            raise NotImplementedError(
+                "ring context parallelism combined with sequence parallelism (Ulysses within "
+                "a context shard) is not ported yet (ROADMAP queue 1, item 6)")
+        if not c.attn_causal:
+            raise NotImplementedError(
+                "ring context parallelism is causal-only (the ring schedule streams the "
+                "causal triangle)")
+        if c.sliding_window:
+            raise NotImplementedError(
+                "sliding_window under ring context parallelism is not supported (band masks "
+                "are global-position)")
+    return impl
+
+
+def _seq_len(c: TransformerConfig, s: int) -> int:
+    """The sequence length RoPE sees: the global one. In the process form
+    of a context ring the model holds s / N tokens of it."""
+    from deepspeed_tpu_torch.parallel.topology import get_topology
+
+    topo = get_topology()
+    return s * topo.context_parallel_size if topo.distributed else s
+
+
 def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
                      window_flag=None, reference=False):
     """Self-attention for one layer. x: [b, s, h]. ``reference`` takes the
@@ -724,6 +763,7 @@ def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
     forward over the layout's schedule); otherwise
     ``attention(impl=c.attention_impl, schedule=...)``."""
     b, s, _ = x.shape
+    impl = None if reference else _attention_impl(c)
     nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
     q = _proj(c, x, lp["wq"])
     k = _proj(c, x, lp["wk"])
@@ -737,8 +777,8 @@ def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
         q = qk_norm_apply(c, q, lp["q_norm"], head_axis=1, b=lp.get("q_norm_b"))
         k = qk_norm_apply(c, k, lp["k_norm"], head_axis=1, b=lp.get("k_norm_b"))
     if c.position == "rope":
-        q = _rope(q, positions, c, s)
-        k = _rope(k, positions, c, s)
+        q = _rope(q, positions, c, _seq_len(c, s))
+        k = _rope(k, positions, c, _seq_len(c, s))
     kw = dict(causal=c.attn_causal, segment_ids=segment_ids, scale=c.attn_scale,
               window=c.sliding_window, window_flag=window_flag)
     schedule = _attention_schedule(c, s)
@@ -750,7 +790,7 @@ def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
     elif reference:
         out = mha_reference(q, k, v, **kw)
     else:
-        out = attention(q, k, v, impl=c.attention_impl, schedule=schedule, **kw)
+        out = attention(q, k, v, impl=impl, schedule=schedule, **kw)
     out = _proj(c, out.transpose(1, 2).reshape(b, s, nh * d), lp["wo"])
     if c.attn_out_bias:
         out = out + lp["wo_b"]
@@ -787,11 +827,6 @@ def _layer(c: TransformerConfig, lp, x, positions, segment_ids=None, local_flag=
 
 def _check_forward(c: TransformerConfig):
     _check_served(c)
-    if c.attention_impl in ("flash_ring", "flash_head_sharded"):
-        raise NotImplementedError(
-            f"attention_impl={c.attention_impl!r} is not ported yet "
-            "(ROADMAP queue 1, item 6: multi-GPU)"
-        )
     if c.mlm_head or c.type_vocab_size > 0:
         raise NotImplementedError(
             "encoder heads (mlm_head, token types) are not ported yet (ROADMAP queue 1, item 2)"
@@ -935,12 +970,30 @@ def make_loss_fn(config: TransformerConfig):
     plain versions on the CPU: the JAX branch also asks for a TPU, the port
     takes it on any device), ``loss_tiles > 1`` (the tiled logits loss),
     else the dense head over full logits. A biased head falls through to
-    the dense path."""
+    the dense path.
+
+    On a topology that spans processes (``Topology.distributed``) the batch
+    is this data rank's rows, split into inputs and labels first and then
+    cut to this rank's context chunk (positions global), and the loss is
+    this rank's share of the global masked mean: the local mean times the
+    local token count over the count summed over data x context. Summed
+    over those ranks, the losses and gradients are the global mean's."""
     fused = config.fused_ce and not config.lm_head_bias and not config.mlm_head
     tiled = config.loss_tiles > 1 and not config.lm_head_bias and not config.mlm_head
 
     def loss_fn(params, batch):
         inputs, labels, mask, positions, segment_ids = split_lm_batch(batch)
+        from deepspeed_tpu_torch.parallel.topology import get_topology
+
+        topo = get_topology()
+        if not topo.distributed:
+            return head_loss(params, inputs, labels, mask, positions, segment_ids)
+        inputs, labels, mask, positions, segment_ids = _context_chunk(
+            topo, inputs, labels, mask, positions, segment_ids)
+        share = _global_share(topo, labels, mask)
+        return head_loss(params, inputs, labels, mask, positions, segment_ids) * share
+
+    def head_loss(params, inputs, labels, mask, positions, segment_ids):
         if fused or tiled:
             x, _ = forward_hidden(params, inputs, config, positions=positions,
                                   segment_ids=segment_ids)
@@ -960,6 +1013,43 @@ def make_loss_fn(config: TransformerConfig):
 
     loss_fn.model_config = config
     return loss_fn
+
+
+def _context_chunk(topo, inputs, labels, mask, positions, segment_ids):
+    """This rank's chunk of a [b, s] batch along the context axis, with
+    global positions (the given ones cut, or the chunk's arange)."""
+    from deepspeed_tpu_torch.parallel.topology import CONTEXT_AXIS
+
+    n = topo.context_parallel_size
+    b, s = inputs.shape
+    if n == 1:
+        return inputs, labels, mask, positions, segment_ids
+    if s % n:
+        raise ValueError(f"make_loss_fn: sequence {s} does not divide over context {n}")
+    sc = s // n
+    lo = topo.axis_index(CONTEXT_AXIS) * sc
+
+    def cut(t):
+        return None if t is None else t[..., lo:lo + sc]
+
+    if positions is None:
+        positions = torch.arange(lo, lo + sc, device=inputs.device, dtype=torch.int32)
+    else:
+        positions = cut(positions)
+    return cut(inputs), cut(labels), cut(mask), positions, cut(segment_ids)
+
+
+def _global_share(topo, labels, mask):
+    """Local token count over the count summed over data x context (0
+    when no rank has a token): the factor that turns this rank's masked
+    mean into its share of the global one."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.topology import PORTED_AXES
+
+    count = (mask.float().sum() if mask is not None else
+             torch.tensor(float(labels.numel()), device=labels.device))
+    total = comm.all_reduce(count.clone(), axis=PORTED_AXES)
+    return count / total.clamp_min(1.0)
 
 
 def num_params(params) -> int:

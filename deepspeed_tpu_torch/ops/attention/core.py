@@ -16,12 +16,21 @@ sliding-window band convention, the plain reference attention and the
     once per shape); None / "auto" with a ``schedule`` promotes to them and,
     where the arguments cannot take the scheduled path (a dense bias, a
     per-layer window flag), warns once and falls back to the dense chain;
-  * "reference": ``mha_reference``.
+  * "reference": ``mha_reference``;
+  * "flash_ring": the context-parallel ring over the topology's
+    ``context`` axis (``ops/attention/sharded.py``): the carry-mode chunk
+    kernels on a card, their plain versions on the CPU (so the CPU runs the
+    ring's schedule, not ``mha_reference``); None / "auto" promotes to it
+    when the context axis is above 1 and the shapes fit (``_ring_eligible``:
+    causal, no bias or window, head_dim 64/128/256, chunks of a multiple of
+    128 rows, as in the JAX package);
+  * "flash_head_sharded": flash over the batch rows this process holds
+    (model and sequence are 1 in the port).
 
-ALiBi, a dense ``bias`` on the flash path, "flash_ring" and
-"flash_head_sharded" raise ``NotImplementedError`` naming their ROADMAP
-items, and so does splash on more than one process (head sharding). On a
-card nothing here runs the plain version unless asked for by "reference".
+ALiBi and a dense ``bias`` on the flash paths raise
+``NotImplementedError`` naming their ROADMAP items, and so does splash on
+more than one process (head sharding). On a card nothing here runs the
+plain version unless asked for by "reference".
 
 Layout as in the JAX package: q [batch, heads, seq, head_dim], k/v
 [batch, kv_heads, seq, head_dim]; grouped-query attention repeats kv heads.
@@ -165,6 +174,28 @@ def _splash_dispatch(q, k, v, causal, segment_ids, bias, scale, window, window_f
     return splash_attention(q, k, v, schedule, segment_ids=segment_ids, scale=scale)
 
 
+def _ring_eligible(q, k, bias, causal, window):
+    """Whether "auto" may take the ring: the topology's context axis is
+    above 1 and the call fits the ring's contract (the JAX package's rule:
+    causal, no bias or window, one s for queries and keys, head_dim
+    64/128/256, chunks of a multiple of 128 rows, shapes dividing the grid).
+    In the process form q is this rank's chunk already."""
+    from deepspeed_tpu_torch.parallel.topology import get_topology
+
+    topo = get_topology()
+    n = topo.context_parallel_size
+    if n <= 1 or bias is not None or not causal or window:
+        return False
+    b, h, s, d = q.shape
+    if s != k.shape[2] or d not in (64, 128, 256):
+        return False
+    if topo.distributed:
+        return s % 128 == 0
+    from deepspeed_tpu_torch.ops.attention.sharded import _divisible
+
+    return s % n == 0 and (s // n) % 128 == 0 and _divisible(topo, b, h, k.shape[1], s=s)
+
+
 def attention(
     q,
     k,
@@ -199,11 +230,22 @@ def attention(
             logger.warning(
                 "configured splash schedule fell back to the dense dispatch chain "
                 "(bias/window-flag constraints) — sparsity will be masked, not pruned")
-    if impl in ("flash_ring", "flash_head_sharded"):
-        raise _unported(f"impl={impl!r}", "ROADMAP queue 1, item 6: multi-GPU")
     if impl == "reference":
         return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids, bias=bias,
                              scale=scale, window=window, window_flag=window_flag)
+    if impl in ("flash_ring", "flash_head_sharded") or (
+            impl in (None, "auto") and _ring_eligible(q, k, bias, causal, window)):
+        from deepspeed_tpu_torch.ops.attention import sharded
+
+        if bias is not None:
+            raise _unported(f"a dense bias on impl={impl!r}",
+                            "ROADMAP queue 2, item 1: biases on the flash kernel")
+        if impl == "flash_head_sharded":
+            return sharded.head_sharded_flash(q, k, v, causal=causal, segment_ids=segment_ids,
+                                              scale=scale, window=window,
+                                              window_flag=window_flag)
+        return sharded.ring_flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                                            scale=scale, window=window)
     if impl not in (None, "auto", "flash"):
         raise ValueError(f"attention: impl={impl!r}")
     if impl != "flash" and q.device.type == "cpu":

@@ -148,6 +148,27 @@ KERNELS: Dict[str, Kernel] = {
             "deepspeed_tpu/ops/attention/flash_pallas.py:220",
         ),
         Kernel(
+            "flash_fwd_chunk", "flash_chunk.cu", "dstt_flash_fwd_chunk",
+            # q, k, v, seg_q, seg_k, m, l, acc, out, lse, b, h, h_kv, s, d,
+            # scale, causal, flags, stream
+            [_P] * 10 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:694",
+        ),
+        Kernel(
+            "flash_dq_chunk", "flash_chunk.cu", "dstt_flash_dq_chunk",
+            # q, k, v, o, do, lse, seg_q, seg_k, dq_c, dq, b, h, h_kv, s, d,
+            # scale, causal, flags, stream
+            [_P] * 10 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:775",
+        ),
+        Kernel(
+            "flash_dkv_chunk", "flash_chunk.cu", "dstt_flash_dkv_chunk",
+            # q, k, v, o, do, lse, seg_q, seg_k, dk_c, dv_c, dk, dv, b, h,
+            # h_kv, s, d, scale, causal, flags, stream
+            [_P] * 12 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:835",
+        ),
+        Kernel(
             "splash_fwd", "splash_fwd.cu", "dstt_splash_fwd",
             # q, k, v, seg, kv_index, step_kind, out, lse, b, h, h_kv, sq, sk,
             # d, scale, sched_heads, nq, width, block_q, block_kv, causal,

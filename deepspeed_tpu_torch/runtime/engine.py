@@ -34,6 +34,17 @@ order), the scaler state and the counters, in the JAX package's archive
 layout, so each engine loads the other's.
 
 ZeRO stages 0-3 hold the same tensors on one device and train identically.
+
+Over processes (a ``Topology`` whose ``process_count`` is above 1: data x
+context, one rank per process) every rank is given the global batch, as
+the JAX engine's ``train_batch`` is, and takes its data rank's rows of
+each micro-batch; the loss function takes its context chunk
+(``models.transformer.make_loss_fn``) and returns its share of the global
+mean. Gradients are summed over data x context before the epilogue, so
+the overflow check, the clip norm and the update are the same on every
+rank, and the reported loss is the global mean. There ZeRO stages above 0
+and checkpoints raise (ROADMAP queue 1, item 6). The loopback form is one
+process: nothing is reduced and every stage behaves as on one device.
 Offload, weight streaming, ZenFlow, pipelines, curriculum learning, the
 flops profiler, monitors and the orbax checkpoint store (``checkpoint.writer``
 unset) raise ``NotImplementedError`` naming their ROADMAP items.
@@ -47,6 +58,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.parallel.topology import DATA_AXIS, PORTED_AXES, get_topology
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as ls
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_scheduler
@@ -138,6 +151,10 @@ class DeepSpeedEngine:
         self.compute_dtype = DTYPES[config.precision_dtype]
         self.fp16_enabled = config.fp16.enabled
         self.zero_stage = config.zero_optimization.stage
+        self.topology = get_topology()
+        if self.topology.distributed and self.zero_stage > 0:
+            raise _later(f"ZeRO stage {self.zero_stage} across processes (ZeRO sharded across "
+                         "ranks)", "ROADMAP queue 1, item 6")
 
         # the engine runs where the params live (numpy params: the card)
         first = next(v for _, v in _leaves(params))
@@ -307,7 +324,31 @@ class DeepSpeedEngine:
             for k, x in batch_or_iter.items():
                 x = torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x))
                 stacked[k] = x.reshape((gas, -1) + tuple(x.shape[1:]))
-        return {k: v.to(self.device) for k, v in stacked.items()}
+        return {k: self._data_rows(v, 1).to(self.device) for k, v in stacked.items()}
+
+    def _data_rows(self, x, dim):
+        """This data rank's equal share of the rows of a global batch
+        (dimension ``dim``) over processes; the whole batch otherwise."""
+        topo = self.topology
+        n = topo.axis_size(DATA_AXIS)
+        if not topo.distributed or n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"DeepSpeedEngine: {x.shape[dim]} batch rows do not divide over "
+                             f"{n} data ranks")
+        return x.chunk(n, dim=dim)[topo.axis_index(DATA_AXIS)]
+
+    def _local_batch(self, batch):
+        return {k: self._data_rows(torch.as_tensor(
+            v if isinstance(v, torch.Tensor) else np.asarray(v)), 0).to(self.device)
+            for k, v in batch.items()}
+
+    def _global_loss(self, loss):
+        """The sum of the ranks' shares over data x context: the global
+        mean (the loss itself on one process)."""
+        if self.topology.distributed:
+            loss = comm.all_reduce(loss.detach().clone(), axis=PORTED_AXES)
+        return loss
 
     def _grad_epilogue_flags(self):
         cfg = self.config
@@ -369,6 +410,9 @@ class DeepSpeedEngine:
         this step, the epilogue, the optimizer step (skipped on an
         overflow) and the scaler. Returns (grad_norm, overflow)."""
         lr = self._lr_for_step()
+        if self.topology.distributed:
+            for _, a in _leaves(acc):
+                comm.all_reduce(a, axis=PORTED_AXES)
         grads, overflow, grad_norm = self._grad_epilogue(acc, scale)
         if not overflow:
             self.opt_state = self.optimizer.step(grads, self.opt_state, self.params, lr)
@@ -393,7 +437,7 @@ class DeepSpeedEngine:
         grad_norm, overflow = self._apply(acc, scale)
         del acc
         self.timers(STEP_GLOBAL_TIMER).stop()
-        loss = torch.stack(losses).mean()
+        loss = self._global_loss(torch.stack(losses).mean())
         self._after_step(loss, grad_norm, overflow)
         self.tput_timer.stop(global_step=True)
         return loss
@@ -405,9 +449,8 @@ class DeepSpeedEngine:
         """The loss of one micro-batch; its grads are computed in the same
         pass and cached for ``backward()`` (no second forward)."""
         self.timers(FORWARD_GLOBAL_TIMER).start()
-        mb = {k: torch.as_tensor(v if isinstance(v, torch.Tensor) else np.asarray(v)).to(
-            self.device) for k, v in batch.items()}
-        loss, self._pending_grads = self._micro_grads(mb, self._scale())
+        loss, self._pending_grads = self._micro_grads(self._local_batch(batch), self._scale())
+        loss = self._global_loss(loss)
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         self._last_loss = loss
         return loss
@@ -467,10 +510,9 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch):
         """The loss of one batch (no grads, no update)."""
-        batch = {k: torch.as_tensor(v if isinstance(v, torch.Tensor) else np.asarray(v)).to(
-            self.device) for k, v in batch.items()}
+        batch = self._local_batch(batch)
         with torch.no_grad():
-            return self._loss(self.params, batch)
+            return self._global_loss(self._loss(self.params, batch))
 
     # ------------------------------------------------------------------
     # dataloader
@@ -532,8 +574,13 @@ class DeepSpeedEngine:
             inner[f] if isinstance(inner[f], (dict, torch.Tensor)) else np.int32(inner[f])
             for f in fields))
 
+    def _no_checkpoint_across_processes(self):
+        if self.topology.distributed:
+            raise _later("checkpoints across processes", "ROADMAP queue 1, item 6")
+
     def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
                         exclude_frozen_parameters=False):
+        self._no_checkpoint_across_processes()
         tag = tag or f"global_step{self.global_steps}"
         state = self._client_state()
         state.update(client_state or {})
@@ -588,6 +635,7 @@ class DeepSpeedEngine:
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True, load_lr_scheduler_states=True,
                         load_module_only=False, custom_load_fn=None):
+        self._no_checkpoint_across_processes()
         eng = self._checkpoint_writer()
         self.checkpoint_commit()  # a just-written tag must be readable
         if tag is None:

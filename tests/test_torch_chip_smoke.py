@@ -178,7 +178,7 @@ def test_train_phase_runs_end_to_end_on_cpu(one_thread):
     assert (set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS)
             | set(chip_smoke.FUSED_KERNELS) | set(chip_smoke.SPLASH_KERNELS)
             | set(chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS)
-            | set(chip_smoke.EVOFORMER_KERNELS)) == set(K.KERNELS)
+            | set(chip_smoke.EVOFORMER_KERNELS) | set(chip_smoke.CARRY_KERNELS)) == set(K.KERNELS)
 
 
 def test_train_fused_phase_runs_end_to_end_on_cpu(one_thread):
@@ -295,7 +295,7 @@ def test_train_splash_phase_runs_end_to_end_on_cpu(one_thread):
     assert set(chip_smoke.SPLASH_KERNELS) | set(chip_smoke.SERVE_KERNELS) | set(
         chip_smoke.TRAIN_KERNELS) | set(chip_smoke.FUSED_KERNELS) | set(
         chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS) | set(
-        chip_smoke.EVOFORMER_KERNELS) == set(K.KERNELS)
+        chip_smoke.EVOFORMER_KERNELS) | set(chip_smoke.CARRY_KERNELS) == set(K.KERNELS)
 
 
 def test_engine_per_row_phase_runs_end_to_end_on_cpu(one_thread):
@@ -574,3 +574,74 @@ def test_evoformer_work_counts_the_msa_row_bytes():
     assert moved["evoformer_bwd_dq"] - moved["evoformer_bwd_dkv"] == pairs * 4 - t
     _, no_ds = chip_smoke.evoformer_work(n, s, h, d, 2, bias_bytes, with_ds=False)
     assert moved["evoformer_bwd_dq"] - no_ds["evoformer_bwd_dq"] == pairs * 4
+
+
+def test_ring_attn_phase_runs_end_to_end_on_cpu(one_thread):
+    """The ring_attn phase at a tiny width (fp32, N 4, chunks of 64): the
+    loopback ring through ``attention(impl="flash_ring")`` and the single
+    flash Function both run their plain versions here, so they agree to
+    fp32 rounding (the card holds them to bits); the CPU launches nothing."""
+    cases = {"mha": dict(h=4, h_kv=4), "gqa": dict(h=4, h_kv=2)}
+    rec, launches = chip_smoke.ring_attn_phase(torch, torch.device("cpu"), K, cases=cases,
+                                               seq=256, d=64)
+    json.dumps(rec)
+    assert rec["phase"] == "ring_attn" and rec["n"] == 4 and set(rec["cases"]) == set(cases)
+    assert launches == {name: 0 for name in chip_smoke.CARRY_KERNELS}
+    for case in rec["cases"].values():
+        assert case["out_max_abs_err"] < 1e-5 and case["dq_max_abs_err"] < 1e-5
+    assert "dk_tile_rel_frobenius" in rec["cases"]["gqa"]
+    assert "dk_tile_rel_frobenius" not in rec["cases"]["mha"]
+
+
+def test_train_ring_phase_runs_end_to_end_on_cpu(one_thread):
+    """The train_ring leg at 2 tiny MHA layers, fp32, seq 256 over 4
+    loopback context ranks: the ring engine's first step agrees with the
+    flash engine's (plain versions on both sides), the optimizer steps
+    run, and the per-step launch counts the card checks are those of the
+    ring under remat (N(N + 1) / 2 = 10 hops of each carry kernel per
+    layer and micro-batch, the forward twice)."""
+    widths = dict(hidden_size=128, n_heads=4, ffn_hidden_size=256, vocab_size=512,
+                  dtype="float32")
+    rec, launches = chip_smoke.train_ring_phase(torch, torch.device("cpu"), K, widths=widths,
+                                                seq=256, layers=2, timed_steps=2)
+    json.dumps(rec)
+    assert rec["phase"] == "train_ring" and rec["n"] == 4
+    assert launches == {name: 0 for name in K.KERNELS}
+    par = rec["parity"]
+    assert abs(par["loss_ring"] - par["loss_flash"]) < 1e-5 and par["grad_leaves"] > 0
+    assert len(rec["losses"]) == 3 and all(np.isfinite(rec["losses"])) and rec["tok_s"] > 0
+    assert rec["launches_per_optimizer_step"] == {
+        "flash_fwd_chunk": 80, "flash_dq_chunk": 40, "flash_dkv_chunk": 40,
+        "rms_norm_fwd": 18, "rms_norm_bwd": 10}
+
+
+def test_carry_kernel_checks_on_plain_inputs(monkeypatch):
+    """The flash_carry group's per-hop check at a small size: with the CUDA
+    wrappers standing in for their plain versions (the CPU has no kernel),
+    every comparison of the hop holds and each kernel gets its raw and
+    finalized records."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    def plain_fwd(q, k, v, carry=None, segment_ids=None, causal=False, scale=None, final=False):
+        return F.flash_fwd_chunk(q, k, v, carry, segment_ids, causal, scale, final)
+
+    def plain_dq(q, k, v, out, do, lse, dq_acc=None, segment_ids=None, causal=False, scale=None,
+                 final=False):
+        return F.flash_dq_chunk(q, k, v, out, do, lse, dq_acc, segment_ids, causal, scale, final)
+
+    def plain_dkv(q, k, v, out, do, lse, carry=None, segment_ids=None, causal=False, scale=None,
+                  final=False):
+        return F.flash_dkv_chunk(q, k, v, out, do, lse, carry, segment_ids, causal, scale, final)
+
+    monkeypatch.setattr(F, "flash_fwd_chunk_cuda", plain_fwd)
+    monkeypatch.setattr(F, "flash_dq_chunk_cuda", plain_dq)
+    monkeypatch.setattr(F, "flash_dkv_chunk_cuda", plain_dkv)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(*sh, generator=gen) for sh in
+                   ((1, 4, 128, 64), (1, 2, 128, 64), (1, 2, 128, 64), (1, 4, 128, 64)))
+    seg = (torch.zeros(1, 128, dtype=torch.int32), torch.zeros(1, 128, dtype=torch.int32))
+    seg[0][:, 50:] = 1
+    seg[1][:, 90:] = 1
+    for causal in (False, True):
+        errs = chip_smoke.carry_case(torch, q, k, v, do, dict(causal=causal, segment_ids=seg))
+        assert len(errs) == 11 and max(errs.values()) < 1e-5

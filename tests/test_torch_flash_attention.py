@@ -162,7 +162,12 @@ def test_attention_dispatch_on_cpu():
     for kw in ({"impl": "splash"}, {"impl": "reference", "schedule": object()}):
         got = pcore.attention(q, k, v, segment_ids=seg, window=20, **kw)
         torch.testing.assert_close(got, ref, atol=FP32_ATOL, rtol=FP32_RTOL)
-    for kw, match in (({"impl": "flash_ring"}, "queue 1, item 6"),
+    # "flash_ring" is ported: with no context axis it is the flash call;
+    # what the ring cannot do raises
+    got = pcore.attention(q, k, v, segment_ids=seg, impl="flash_ring")
+    torch.testing.assert_close(got, pcore.attention(q, k, v, segment_ids=seg, impl="reference"),
+                               atol=FP32_ATOL, rtol=FP32_RTOL)
+    for kw, match in (({"impl": "flash_ring", "causal": False}, "causal=False"),
                       ({"alibi_slopes": torch.ones(4)}, "ALiBi"),
                       ({"impl": "flash", "bias": torch.zeros(1, 4, 64, 64)}, "bias")):
         with pytest.raises(NotImplementedError, match=match):

@@ -23,6 +23,8 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.accelerator.abstract_accelerator",
     "deepspeed_tpu_torch.accelerator.cuda_accelerator",
     "deepspeed_tpu_torch.accelerator.real_accelerator",
+    "deepspeed_tpu_torch.comm",
+    "deepspeed_tpu_torch.comm.comm",
     "deepspeed_tpu_torch.env_report",
     "deepspeed_tpu_torch.inference",
     "deepspeed_tpu_torch.inference.config",
@@ -45,6 +47,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.attention.core",
     "deepspeed_tpu_torch.ops.attention.flash",
     "deepspeed_tpu_torch.ops.attention.paged",
+    "deepspeed_tpu_torch.ops.attention.sharded",
     "deepspeed_tpu_torch.ops.deepspeed4science",
     "deepspeed_tpu_torch.ops.deepspeed4science.evoformer_attn",
     "deepspeed_tpu_torch.ops.fused_ce",
@@ -66,6 +69,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.parallel",
     "deepspeed_tpu_torch.parallel.sequence",
     "deepspeed_tpu_torch.parallel.sequence.tiled",
+    "deepspeed_tpu_torch.parallel.topology",
     "deepspeed_tpu_torch.runtime",
     "deepspeed_tpu_torch.runtime.checkpoint_engine",
     "deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine",
@@ -81,6 +85,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.runtime.zero.config",
     "deepspeed_tpu_torch.utils",
     "deepspeed_tpu_torch.utils.counter_hash",
+    "deepspeed_tpu_torch.utils.groups",
     "deepspeed_tpu_torch.utils.logging",
     "deepspeed_tpu_torch.utils.timer",
     "deepspeed_tpu_torch.utils.tree",
@@ -232,6 +237,36 @@ def test_training_wrappers_never_fall_back_for_device_tensors(monkeypatch):
         fn.rms_norm_bwd_cuda(x, torch.ones(8, device="meta"), x)
     with pytest.raises(ValueError, match="CUDA"):
         fn.rms_norm_bwd_cuda(torch.randn(3, 8), torch.ones(8), torch.randn(3, 8))
+
+
+def test_carry_wrappers_never_fall_back_for_device_tensors(monkeypatch):
+    """The ring's chunk entries launch their kernel or raise for a tensor
+    that is not on the CPU: their plain versions are poisoned, and meta
+    tensors (standing in for CUDA ones) must reach the kernels' checks,
+    also through the loopback ring."""
+    from deepspeed_tpu_torch.ops.attention import flash as pf
+    from deepspeed_tpu_torch.ops.attention.core import attention
+    from deepspeed_tpu_torch.parallel.topology import Topology, reset_topology, set_topology
+
+    def poisoned(*a, **k):
+        raise AssertionError("a plain version ran for a device tensor")
+
+    for name in ("flash_fwd_chunk_reference", "flash_dq_chunk_reference",
+                 "flash_dkv_chunk_reference", "flash_fwd_reference"):
+        monkeypatch.setattr(pf, name, poisoned)
+    q = torch.randn(1, 4, 128, 128, device="meta", dtype=torch.bfloat16)
+    k = torch.randn(1, 2, 128, 128, device="meta", dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 128, device="meta")
+    set_topology(Topology(context=2, loopback=True))
+    try:
+        for call in (lambda: pf.flash_fwd_chunk(q, k, k),
+                     lambda: pf.flash_dq_chunk(q, k, k, q, q, lse),
+                     lambda: pf.flash_dkv_chunk(q, k, k, q, q, lse, final=True),
+                     lambda: attention(q, k, k, impl="flash_ring")):
+            with pytest.raises(ValueError, match="CUDA"):
+                call()
+    finally:
+        reset_topology()
 
 
 def test_auto_attention_refuses_an_unported_head_dim_on_a_device():

@@ -392,7 +392,7 @@ UNPORTED_CONFIG = {
     "fused_adam": ({"optimizer": {"type": "FusedAdam", "params": {}}}, None),
     "lamb": ({"optimizer": {"type": "Lamb", "params": {}}}, None),
     "onebit": ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "queue 1, item 6"),
-    "mesh": ({"mesh": {"data": 2}}, "queue 1, item 6"),
+    "mesh": ({"mesh": {"model": 2}}, "queue 1, item 6"),
     "tp": ({"tensor_parallel": {"tp_size": 2}}, "queue 1, item 6"),
     "pipeline": ({"pipeline": {"stages": 2}}, "queue 1, item 6"),
 }
