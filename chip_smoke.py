@@ -1612,6 +1612,84 @@ def ce_inputs(torch, dev, n, h, V, seed):
     return x, w, labels, g
 
 
+# fused_ce_bwd.cu's SPAN: the vocabulary columns of a dx CTA, the rows of a
+# dW CTA
+CE_BWD_SPAN = 512
+CE_BWD_DESIGN = ("wgmma (m64n256k16 logits, m64n128k16 gradient product, fp32 accumulators in "
+                 "registers) on 128B-swizzled tiles brought by TMA into a 3-stage ring; 1 "
+                 "producer thread, 2 consumer warpgroups (setmaxnreg); d resident in shared "
+                 "memory as a wgmma operand; red.global.add.v2.f32 into the zeroed fp32 plane, "
+                 "overlapped with the next chunk's products")
+
+
+def ce_bwd_fields(n, h, V):
+    """The fp32 elements each backward kernel adds into its plane at (n, h,
+    V), its span and its design: dx adds each of its [n, h8] elements once
+    per vocabulary span, dW each of its [h8, V8] once per row span (h8, V8:
+    h and V padded to multiples of 8)."""
+    h8, V8, span = -(-h // 8) * 8, -(-V // 8) * 8, CE_BWD_SPAN
+    return {
+        "fused_ce_dx": {"reduced_elements": n * h8 * -(-V // span),
+                        "span": {"Vs": span}, "design": CE_BWD_DESIGN},
+        "fused_ce_dw": {"reduced_elements": h8 * V8 * -(-n // span),
+                        "span": {"Rs": span}, "design": CE_BWD_DESIGN},
+    }
+
+
+def ce_head_forms(torch):
+    """The LM head as a training step runs it, forward then the backward
+    for x and w, in two forms: the fused kernels through ``fused_ce_loss``
+    (no [n, V] logits kept) and the library's dense form (``cross_entropy``
+    of ``x @ w``, whose autograd keeps the logits). Each returns (loss, dx,
+    dW)."""
+    from deepspeed_tpu_torch.ops import fused_ce as C
+
+    def fused(x, w, labels, g):
+        loss = C.fused_ce_loss(x, w, labels)
+        return (loss,) + tuple(torch.autograd.grad(loss, (x, w), g))
+
+    def library(x, w, labels, g):
+        loss = torch.nn.functional.cross_entropy((x @ w).float(), labels.long(), reduction="none")
+        return (loss,) + tuple(torch.autograd.grad(loss, (x, w), g))
+
+    return {"fused": fused, "library": library}
+
+
+def peak_bytes_above(torch, fn):
+    """Device memory a call of ``fn`` holds at its peak above what was
+    allocated before it (its result included)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - before
+
+
+def fused_ce_head(torch, x, w, labels, g, kernel_ms, library_ms, call_ms, peak_bytes):
+    """The whole head, fused against the library: the three kernels' summed
+    times beside the library's forward and backward, each form's eager call
+    (``call_ms(fn)``) and the memory it holds above its inputs
+    (``peak_bytes(fn)``)."""
+    forms = ce_head_forms(torch)
+    xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    kernels = {k: kernel_ms[k] for k in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")}
+    lib = {"fwd": library_ms["fused_ce_fwd"], "bwd": library_ms["fused_ce_dx"]}
+    return {
+        "name": "fused_ce_head",
+        "shape": {"n": x.shape[0], "h": x.shape[1], "V": w.shape[1]},
+        "kernels_ms": dict(kernels, sum=sum(kernels.values())),
+        "library_ms": dict(lib, sum=lib["fwd"] + lib["bwd"],
+                           call="torch.nn.functional.cross_entropy(x @ w), autograd backward"),
+        "call_ms": {name: call_ms(lambda f=f: f(xl, wl, labels, g)) for name, f in forms.items()},
+        "peak_bytes_above_inputs": {name: peak_bytes(lambda f=f: f(xl, wl, labels, g))
+                                    for name, f in forms.items()},
+        "holds": {"fused": "fp32 dx [n, h] and dW [h, V] planes and their bf16 roundings",
+                  "library": "the [n, V] logits (bf16 and fp32) and their gradient"},
+    }
+
+
 def kernel_fused_ce(torch, dev, n=4096, h=4096, V=32000):
     """The three fused-CE kernels at the train step's shape (one micro-batch
     of 4096 rows at width 4096 against Mistral-7B's 32000-entry vocabulary)
@@ -1681,6 +1759,11 @@ def kernel_fused_ce(torch, dev, n=4096, h=4096, V=32000):
         "fused_ce_dx": (4 * n * h * V, xb + wb + 3 * rows + xb),
         "fused_ce_dw": (4 * n * h * V, xb + wb + 3 * rows + wb),
     }
+    emit(fused_ce_head(torch, x, w, labels, g, ms, library,
+                       lambda fn: eager_ms(torch, fn, iters=3, warmup=1),
+                       lambda fn: peak_bytes_above(torch, fn)))
+    torch.cuda.empty_cache()
+    bwd = ce_bwd_fields(n, h, V)
     records = {}
     for name, (flops, moved) in work.items():
         t_ops, t_bytes = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
@@ -1702,6 +1785,7 @@ def kernel_fused_ce(torch, dev, n=4096, h=4096, V=32000):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops,
             "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
+            **bwd.get(name, {}),
         }
     return records
 

@@ -5,15 +5,16 @@ Counterpart of ``deepspeed_tpu/ops/fused_ce.py``. For hidden rows ``x``
 
     loss_i = logsumexp_v (x w)_iv - (x w)_i[label_i]
 
-without the [n, V] logits ever reaching device memory. Three kernels in
-``ops/kernels/csrc/fused_ce.cu``:
+without the [n, V] logits ever reaching device memory. Three kernels:
 
-  * ``fused_ce_fwd`` replaces ``_fwd_kernel``: per-row loss and the fp32
-    log-sum-exp the backward recomputes from;
-  * ``fused_ce_dx``  replaces ``_bwd_dx_kernel``: ``d = (exp(logits - lse) -
-    onehot) * g`` rounded to the operand type, ``dx = d w^T`` summed in fp32;
-  * ``fused_ce_dw``  replaces ``_bwd_dw_kernel``: ``dW = x^T d`` summed in
-    fp32.
+  * ``fused_ce_fwd`` (``ops/kernels/csrc/fused_ce.cu``) replaces
+    ``_fwd_kernel``: per-row loss and the fp32 log-sum-exp the backward
+    recomputes from;
+  * ``fused_ce_dx`` (``fused_ce_bwd.cu``, wgmma fed by TMA) replaces
+    ``_bwd_dx_kernel``: ``d = (exp(logits - lse) - onehot) * g`` rounded to
+    the operand type, ``dx = d w^T`` summed in fp32;
+  * ``fused_ce_dw`` (``fused_ce_bwd.cu``) replaces ``_bwd_dw_kernel``:
+    ``dW = x^T d`` summed in fp32.
 
 ``fused_ce_loss`` is a ``torch.autograd.Function`` over them that saves
 ``(x, w, labels, lse)``. Beside the kernels stand their plain versions
@@ -26,7 +27,12 @@ what they do not take (a dtype other than bf16). Nothing falls back.
 transposed view of the embedding: the wrapper then makes one contiguous
 copy, knowingly (one pass over the matrix); the Function returns dW in
 ``w``'s shape and autograd carries it through the transpose onto the
-embedding.
+embedding. The backward kernels read x and w through TMA, which wants row
+lengths that are multiples of 8 elements (16 bytes) and 16-byte aligned
+bases: where h or V is not a multiple of 8 (GPT-2's vocabulary of 50257),
+``pad8`` makes zero-padded copies x [n, h8] and w [h8, V8] once per call
+(zeros change no sum; the kernels mask d past the true V), and the
+outputs are cut back to [n, h] and [h, V].
 
 dx and dW are summed with fp32 atomic adds, in whatever order the card
 runs the CTAs: on a CUDA tensor their last bits change from launch to
@@ -128,28 +134,54 @@ def fused_ce_fwd_cuda(x, w, labels):
     return loss, lse
 
 
+def round8(k):
+    """The next multiple of 8 (a 16-byte row of bf16) at or above k."""
+    return -(-k // 8) * 8
+
+
+def _aligned(t):
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def pad8(x, w):
+    """x [n, h8] and w [h8, V8] for the backward kernels (h8, V8 = h, V
+    rounded up to multiples of 8): the tensors themselves where they already
+    fit, else zero-padded copies; each base 16-byte aligned."""
+    h, V = w.shape
+    h8, V8 = round8(h), round8(V)
+    if h8 != h:
+        x = torch.nn.functional.pad(x, (0, h8 - h))
+    if (h8, V8) != (h, V):
+        w = torch.nn.functional.pad(w, (0, V8 - V, 0, h8 - h))
+    return _aligned(x), _aligned(w)
+
+
+def _bwd_cuda(kernel, where, x, w, labels, lse, g):
+    """Launch one backward kernel on the padded operands. Returns its fp32
+    plane (dx [n, h8], dW [h8, V8]), zeroed and then summed into."""
+    (x, w, labels, lse, g), (n, h, V) = _kernel_args(where, x, w, labels, lse, g)
+    xp, wp = pad8(x, w)
+    shape = (n, xp.shape[1]) if kernel is DX_KERNEL else tuple(wp.shape)
+    out = torch.zeros(shape, device=x.device, dtype=torch.float32)
+    rc = kernel.fn()(xp.data_ptr(), wp.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                     g.data_ptr(), out.data_ptr(), n, h, V, stream_ptr(x))
+    kernel.check(rc)
+    kernel.launches += 1
+    return out
+
+
 def fused_ce_dx_cuda(x, w, labels, lse, g):
     """Launch the dx kernel. Returns dx (bf16, x's shape): fp32 sums in a
-    zeroed [n, h] plane, rounded once."""
-    (x, w, labels, lse, g), (n, h, V) = _kernel_args("fused_ce_dx_cuda", x, w, labels, lse, g)
-    dx32 = torch.zeros((n, h), device=x.device, dtype=torch.float32)
-    rc = DX_KERNEL.fn()(x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                        g.data_ptr(), dx32.data_ptr(), n, h, V, stream_ptr(x))
-    DX_KERNEL.check(rc)
-    DX_KERNEL.launches += 1
-    return dx32.to(x.dtype)
+    zeroed plane, rounded once."""
+    out = _bwd_cuda(DX_KERNEL, "fused_ce_dx_cuda", x, w, labels, lse, g)
+    return out[:, :x.shape[1]].to(x.dtype)
 
 
 def fused_ce_dw_cuda(x, w, labels, lse, g):
     """Launch the dW kernel. Returns dW (bf16, [h, V]): fp32 sums in a
-    zeroed [h, V] plane, rounded once."""
-    (x, w, labels, lse, g), (n, h, V) = _kernel_args("fused_ce_dw_cuda", x, w, labels, lse, g)
-    dw32 = torch.zeros((h, V), device=x.device, dtype=torch.float32)
-    rc = DW_KERNEL.fn()(x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                        g.data_ptr(), dw32.data_ptr(), n, h, V, stream_ptr(x))
-    DW_KERNEL.check(rc)
-    DW_KERNEL.launches += 1
-    return dw32.to(w.dtype)
+    zeroed plane, rounded once."""
+    out = _bwd_cuda(DW_KERNEL, "fused_ce_dw_cuda", x, w, labels, lse, g)
+    return out[:w.shape[0], :w.shape[1]].to(w.dtype)
 
 
 class FusedCrossEntropy(torch.autograd.Function):
@@ -188,4 +220,5 @@ def fused_ce_loss(x, w, labels):
 
 
 __all__ = ["fused_ce_bwd_reference", "fused_ce_dw_cuda", "fused_ce_dx_cuda",
-           "fused_ce_fwd_cuda", "fused_ce_fwd_reference", "fused_ce_loss", "fused_ce_reference"]
+           "fused_ce_fwd_cuda", "fused_ce_fwd_reference", "fused_ce_loss", "fused_ce_reference",
+           "pad8"]

@@ -241,13 +241,13 @@ KERNELS: Dict[str, Kernel] = {
             "deepspeed_tpu/ops/fused_ce.py:56",
         ),
         Kernel(
-            "fused_ce_dx", "fused_ce.cu", "dstt_fused_ce_dx",
+            "fused_ce_dx", "fused_ce_bwd.cu", "dstt_fused_ce_dx",
             # x, w, labels, lse, g, dx32, n, h, V, stream
             [_P] * 6 + [_I] * 3 + [_P],
             "deepspeed_tpu/ops/fused_ce.py:95",
         ),
         Kernel(
-            "fused_ce_dw", "fused_ce.cu", "dstt_fused_ce_dw",
+            "fused_ce_dw", "fused_ce_bwd.cu", "dstt_fused_ce_dw",
             # x, w, labels, lse, g, dw32, n, h, V, stream
             [_P] * 6 + [_I] * 3 + [_P],
             "deepspeed_tpu/ops/fused_ce.py:127",

@@ -1,58 +1,41 @@
-// Fused LM head + cross-entropy for Hopper (sm_90a): forward, dx and dW.
+// Fused LM head + cross-entropy forward for Hopper (sm_90a).
 //
-// Replaces: deepspeed_tpu/ops/fused_ce.py::_fwd_kernel, _bwd_dx_kernel and
-// _bwd_dw_kernel (the three pallas_calls of _ce_call and _ce_bwd). For
-// x [n, h], w [h, V] (both bf16, row-major) and labels [n]:
+// Replaces: deepspeed_tpu/ops/fused_ce.py::_fwd_kernel (the pallas_call of
+// _ce_call). For x [n, h], w [h, V] (both bf16, row-major) and labels [n]:
 //
-//   fwd:  logits = x w (fp32 sums), lse_i = logsumexp_v logits_iv,
-//         loss_i = lse_i - logits_i[label_i]
-//   dx:   d_iv = (exp(logits_iv - lse_i) - [v == label_i]) g_i, rounded to
-//         bf16; dx = d w^T summed in fp32 over the vocabulary
-//   dW:   the same d; dW = x^T d summed in fp32 over the rows
+//   logits = x w (fp32 sums), lse_i = logsumexp_v logits_iv,
+//   loss_i = lse_i - logits_i[label_i]
 //
-// The [n, V] logits never reach device memory: every kernel recomputes the
-// 128 x 128 tile it needs from x and w.
+// The [n, V] logits never reach device memory. (The backward kernels, dx
+// and dW, are fused_ce_bwd.cu's.)
 //
-// Bound: operations. 2 n h V FLOPs forward, 4 n h V for dx and for dW
-// (the logits product again plus the gradient product), against x, w and
-// one output read or written once: hundreds of FLOPs per byte at n = h =
-// 4096, V = 32000, above the card's ridge.
+// Bound: operations. 2 n h V FLOPs against x, w and the per-row outputs
+// read or written once: hundreds of FLOPs per byte at n = h = 4096, V =
+// 32000, above the card's ridge.
 //
 // Design (mma.sync m16n8k16, cp.async; no TMA or wgmma yet). The TPU grid
-// walks (rows, vocabulary) in order and keeps its running state, and the
-// whole [rows, h] or [h, vocab-tile] fp32 accumulator, resident. A CTA
-// here holds neither, and CTAs run in no order, so the work is cut by the
-// tile of d, which is computed exactly once:
+// walks (rows, vocabulary) in order and keeps its running state resident. A
+// CTA here does not, and CTAs run in no order, so:
 //
 //  * One mainloop, logits_tile(): a 128 x 128 tile of x w, contraction
 //    over h streamed through a 3-stage cp.async ring of [128 x 32] x tiles
 //    and [32 x 128] w tiles; 8 warps, each a 64 x 32 piece in registers
 //    (a fourth stage changed nothing: the loads are already covered).
-//  * fwd: one CTA per (row tile, vocabulary tile). It reduces its tile to
-//    a per-row (max, sum-exp) pair, written to a [tiles, n] partial plane,
+//  * One CTA per (row tile, vocabulary tile). It reduces its tile to a
+//    per-row (max, sum-exp) pair, written to a [tiles, n] partial plane,
 //    and the CTA whose tile holds a row's label writes that logit. A second
 //    small kernel merges the partials per row: lse = M + log(max(L,
 //    1e-30)), loss = lse - target. A masked column (past V) is -inf before
 //    the max and adds exactly 0; no exp(-inf + inf) is formed.
-//  * dx: one CTA per (row tile, VT vocabulary tiles). It forms d for its
-//    tiles once, rounds it to bf16 into shared memory, then walks the
-//    128-column chunks of h: each chunk's [128 x 128] product d w^T over
-//    the CTA's vocabulary columns is added into an fp32 [n, h] plane with
-//    vector atomics. No product is repeated (factor 1); the price is
-//    n h V / (128 VT) atomic adds.
-//  * dW: one CTA per (RT row tiles, vocabulary tile); the same with the
-//    roles turned: x^T d over the CTA's rows, added into an fp32 [h, V]
-//    plane. h V n / (128 RT) atomic adds.
-//  The wrapper zeroes the fp32 planes and rounds them once to bf16.
 //
-// Tails: rows past n and columns past V are zero-filled on load and masked
-// in d; h need not divide 32 or 128. When h or V is not a multiple of 8
-// (16-byte rows) a tile is loaded element by element instead of cp.async.
+// Tails: rows past n and columns past V are zero-filled on load and masked;
+// h need not divide 32 or 128. When h or V is not a multiple of 8 (16-byte
+// rows) a tile is loaded element by element instead of cp.async.
 #include "flash_common.cuh"
 
 namespace {
 
-using namespace dstt::flash;  // bf16, ldsm_x4(_t), mma16816, a_addr, b_addr, pack_bf16
+using namespace dstt::flash;  // bf16, ldsm_x4(_t), mma16816, a_addr, quad_max, quad_sum
 
 constexpr int BM = 128;  // rows of a logits tile
 constexpr int BN = 128;  // vocabulary columns of a logits tile
@@ -71,11 +54,6 @@ constexpr int MT = WM / 16;       // its 16-row fragment tiles
 constexpr int NT = WN / 8;        // its 8-col fragment tiles
 using Acc = float[MT][NT][4];
 constexpr int STAGES = 3;
-// logits tiles a backward CTA turns into d before its second product: more
-// tiles, fewer atomic adds, more shared memory. Measured at 1, 2 and 4 the
-// times lay within a few percent of each other: the atomics do not set them.
-constexpr int VT = 4;  // vocabulary tiles of a dx CTA
-constexpr int RT = 1;  // row tiles of a dW CTA
 constexpr int LDK = BK + 8;   // row stride of a [128][32] tile (rows m or n, cols k)
 constexpr int LDN = BN + 8;   // row stride of a [32][128] tile (rows k, cols n or m)
 constexpr int STAGE_ELEMS = BM * LDK + BK * LDN;
@@ -205,10 +183,7 @@ __device__ __forceinline__ void logits_tile(Acc& acc, bf16* stages, const Head& 
       });
 }
 
-// Element e of acc[mt][nt] sits at local (row, col):
-__device__ __forceinline__ int frag_row(const Lane& L, int mt, int e) {
-  return L.wm * WM + mt * 16 + L.g + (e >> 1) * 8;
-}
+// Element e of acc[mt][nt] sits at local column:
 __device__ __forceinline__ int frag_col(const Lane& L, int nt, int e) {
   return L.wn * WN + nt * 8 + 2 * L.t + (e & 1);
 }
@@ -293,188 +268,6 @@ __global__ void ce_fwd_merge_kernel(const float* __restrict__ pm, const float* _
   loss[row] = v - tgt[row];
 }
 
-// ---------------------------------------------------------------------------
-// backward: d for one logits tile, rounded to bf16 into shared memory
-// ---------------------------------------------------------------------------
-// ds points at the tile's first element inside a resident plane of row
-// stride LDD; rows past n and columns past V give 0.
-template <int LDD>
-__device__ __forceinline__ void store_d(bf16* ds, const Acc& acc, const Head& p,
-                                        const float* __restrict__ lse,
-                                        const float* __restrict__ g, int m0, int n0,
-                                        const Lane& L) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int lr = L.wm * WM + mt * 16 + L.g + half * 8;
-      const int row = m0 + lr;
-      const bool live = row < p.n;
-      const float ls = live ? lse[row] : 0.f;
-      const float gr = live ? g[row] : 0.f;
-      const int lbl = live ? p.labels[row] : -1;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float d[2];
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int col = n0 + frag_col(L, nt, e2);
-          const float pr = expf(acc[mt][nt][half * 2 + e2] - ls) - (col == lbl ? 1.f : 0.f);
-          d[e2] = (live && col < p.V) ? pr * gr : 0.f;
-        }
-        *reinterpret_cast<uint32_t*>(ds + lr * LDD + frag_col(L, nt, 0)) = pack_bf16(d[0], d[1]);
-      }
-    }
-  }
-}
-
-// out[(r0 + row) * ld + c0 + col] += acc, for this warp's piece of a
-// [128 x 128] tile, rows below R and cols below C only.
-__device__ __forceinline__ void atomic_tile(float* out, const Acc& acc, int r0, int c0,
-                                            int R, int C, const Lane& L) {
-  const bool pair = (C & 1) == 0;  // even row length: 8-byte aligned pairs
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + frag_row(L, mt, half * 2);
-      if (row >= R) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = c0 + frag_col(L, nt, 0);
-        float* dst = out + (int64_t)row * C + col;
-        const float v0 = acc[mt][nt][half * 2], v1 = acc[mt][nt][half * 2 + 1];
-#if defined(__CUDACC_VER_MAJOR__) && (__CUDACC_VER_MAJOR__ * 100 + __CUDACC_VER_MINOR__ >= 1201)
-        if (pair && col + 1 < C) {
-          atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v0, v1));
-          continue;
-        }
-#endif
-        if (col < C) atomicAdd(dst, v0);
-        if (col + 1 < C) atomicAdd(dst + 1, v1);
-      }
-    }
-  }
-}
-
-// dx: CTA (row tile, VT vocabulary tiles). d [128][VT * 128] resident.
-__global__ void __launch_bounds__(THREADS)
-ce_dx_kernel(Head p, const float* __restrict__ lse, const float* __restrict__ g,
-             float* __restrict__ dx32) {
-  constexpr int LDD = VT * BN + 8;
-  constexpr int KS = VT * BN / BK;  // contraction steps per chunk of h
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stages = reinterpret_cast<bf16*>(smem);
-  bf16* ds = stages + STAGES * STAGE_ELEMS;
-  const Lane L;
-  const int m0 = blockIdx.x * BM, v0 = blockIdx.y * VT * BN;
-
-  Acc acc;
-  for (int vt = 0; vt < VT; ++vt) {
-    const int n0 = v0 + vt * BN;
-    if (n0 < p.V) logits_tile(acc, stages, p, m0, n0, L);
-    else zero_acc(acc);  // past the vocabulary: the column mask gives d = 0
-    store_d<LDD>(ds + vt * BN, acc, p, lse, g, m0, n0, L);
-  }
-  __syncthreads();
-
-  // dx[rows, chunk] += d[rows, v] w[chunk, v]^T: A = d (resident, row-major),
-  // B = w rows (n-major [128 h-rows][32 v]) streamed
-  const int chunks = (p.h + BN - 1) / BN;
-  zero_acc(acc);
-  pipeline(
-      chunks * KS,
-      [&](int step, int st) {
-        const int c = step / KS, kq = step % KS;
-        load_tile_async<BN, BK, LDK>(stages + st * STAGE_ELEMS, p.w, c * BN, v0 + kq * BK, p.h,
-                                     p.V, p.w_vec);
-      },
-      [&](int step, int st) {
-        const int c = step / KS, kq = step % KS;
-        const bf16* ws = stages + st * STAGE_ELEMS;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            ldsm_x4(a[mt], a_addr<LDD>(ds, L.wm * WM + mt * 16, kq * BK + kk, L.lane));
-#pragma unroll
-          for (int np = 0; np < NT / 2; ++np) {
-            uint32_t b[4];
-            ldsm_x4(b, b_addr<LDK>(ws, L.wn * WN + np * 16, kk, L.lane));
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma16816(acc[mt][2 * np], a[mt], b[0], b[1]);
-              mma16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-            }
-          }
-        }
-        if (kq == KS - 1) {
-          atomic_tile(dx32, acc, m0, c * BN, p.n, p.h, L);
-          zero_acc(acc);
-        }
-      });
-}
-
-// dW: CTA (RT row tiles, vocabulary tile). d [RT * 128][128] resident.
-__global__ void __launch_bounds__(THREADS)
-ce_dw_kernel(Head p, const float* __restrict__ lse, const float* __restrict__ g,
-             float* __restrict__ dw32) {
-  constexpr int LDD = BN + 8;
-  constexpr int KS = RT * BM / BK;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stages = reinterpret_cast<bf16*>(smem);
-  bf16* ds = stages + STAGES * STAGE_ELEMS;
-  const Lane L;
-  const int r0 = blockIdx.x * RT * BM, n0 = blockIdx.y * BN;
-
-  Acc acc;
-  for (int rt = 0; rt < RT; ++rt) {
-    const int m0 = r0 + rt * BM;
-    if (m0 < p.n) logits_tile(acc, stages, p, m0, n0, L);
-    else zero_acc(acc);  // past the rows: the row mask gives d = 0
-    store_d<LDD>(ds + rt * BM * LDD, acc, p, lse, g, m0, n0, L);
-  }
-  __syncthreads();
-
-  // dW[chunk, cols] += x[rows, chunk]^T d[rows, cols]: A = x^T (k-major
-  // [32 rows][128 h-cols], streamed), B = d (resident, k-major)
-  const int chunks = (p.h + BM - 1) / BM;
-  zero_acc(acc);
-  pipeline(
-      chunks * KS,
-      [&](int step, int st) {
-        const int c = step / KS, kq = step % KS;
-        load_tile_async<BK, BM, LDN>(stages + st * STAGE_ELEMS, p.x, r0 + kq * BK, c * BM, p.n,
-                                     p.h, p.x_vec);
-      },
-      [&](int step, int st) {
-        const int c = step / KS, kq = step % KS;
-        const bf16* xs = stages + st * STAGE_ELEMS;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            ldsm_x4_t(a[mt], b_addr<LDN>(xs, kk, L.wm * WM + mt * 16, L.lane));
-#pragma unroll
-          for (int np = 0; np < NT / 2; ++np) {
-            uint32_t b[4];
-            ldsm_x4_t(b, a_addr<LDD>(ds, kq * BK + kk, L.wn * WN + np * 16, L.lane));
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma16816(acc[mt][2 * np], a[mt], b[0], b[1]);
-              mma16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-            }
-          }
-        }
-        if (kq == KS - 1) {
-          atomic_tile(dw32, acc, c * BM, n0, p.h, p.V, L);
-          zero_acc(acc);
-        }
-      });
-}
-
 template <typename K>
 int allow_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -491,24 +284,6 @@ Head make_problem(const void* x, const void* w, const void* labels, int n, int h
   p.x_vec = (h % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   p.w_vec = (V % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
   return p;
-}
-
-int launch_dx(const Head& p, const float* lse, const float* g, float* dx32, cudaStream_t st) {
-  const size_t bytes = stage_bytes() + sizeof(bf16) * BM * (VT * BN + 8);
-  int e = allow_smem(ce_dx_kernel, bytes);
-  if (e) return e;
-  const dim3 grid((unsigned)((p.n + BM - 1) / BM), (unsigned)((p.V + VT * BN - 1) / (VT * BN)));
-  ce_dx_kernel<<<grid, THREADS, bytes, st>>>(p, lse, g, dx32);
-  return (int)cudaGetLastError();
-}
-
-int launch_dw(const Head& p, const float* lse, const float* g, float* dw32, cudaStream_t st) {
-  const size_t bytes = stage_bytes() + sizeof(bf16) * RT * BM * (BN + 8);
-  int e = allow_smem(ce_dw_kernel, bytes);
-  if (e) return e;
-  const dim3 grid((unsigned)((p.n + RT * BM - 1) / (RT * BM)), (unsigned)((p.V + BN - 1) / BN));
-  ce_dw_kernel<<<grid, THREADS, bytes, st>>>(p, lse, g, dw32);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -534,24 +309,4 @@ extern "C" int dstt_fused_ce_fwd(const void* x, const void* w, const void* label
       static_cast<const float*>(tgt), static_cast<float*>(loss), static_cast<float*>(lse), n,
       tiles);
   return (int)cudaGetLastError();
-}
-
-// lse, g [n] fp32; dx32 [n, h] fp32, zeroed by the caller, summed into.
-extern "C" int dstt_fused_ce_dx(const void* x, const void* w, const void* labels, const void* lse,
-                                const void* g, void* dx32, int n, int h, int V,
-                                void* stream) {
-  const Head p = make_problem(x, w, labels, n, h, V);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_dx(p, static_cast<const float*>(lse), static_cast<const float*>(g),
-                   static_cast<float*>(dx32), st);
-}
-
-// dw32 [h, V] fp32, zeroed by the caller, summed into.
-extern "C" int dstt_fused_ce_dw(const void* x, const void* w, const void* labels, const void* lse,
-                                const void* g, void* dw32, int n, int h, int V,
-                                void* stream) {
-  const Head p = make_problem(x, w, labels, n, h, V);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_dw(p, static_cast<const float*>(lse), static_cast<const float*>(g),
-                   static_cast<float*>(dw32), st);
 }

@@ -1,0 +1,306 @@
+// Hopper (sm_90a) primitives shared by the port's kernels that run on the
+// tensor memory accelerator (TMA) and warpgroup matrix multiplies (wgmma):
+//
+//  * mbarriers: init, arrive, arrive with an expected byte count, parity wait;
+//  * a 2-D TMA tile load from a CUtensorMap passed as a __grid_constant__
+//    kernel parameter, written into shared memory with the 128-byte swizzle,
+//    completing on an mbarrier; the host side encodes such a map
+//    (encode_tma_2d) through cuTensorMapEncodeTiled, reached with
+//    cudaGetDriverEntryPoint so that the build needs no -lcuda;
+//  * wgmma shared-memory matrix descriptors for 128-byte-swizzled bf16
+//    operands, K-major and MN-major, and wgmma.mma_async m64n128k16 /
+//    m64n256k16 (bf16 in, fp32 accumulators in registers) with its fence,
+//    commit and wait;
+//  * setmaxnreg, named barriers, the generic-to-async proxy fence;
+//  * red.global.add.v2.f32 of an accumulator fragment into an fp32 plane
+//    (the cross-CTA reduction; tools/torch_fused_ce_ab.py --reduce measures
+//    such reductions against the TMA unit's bulk reduce-add).
+//
+// Layouts. A TMA box of {64, R} bf16 (64 elements = 128 bytes inner) lands
+// as R rows of 128 bytes, the 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8): the 128-byte swizzle, in atoms of 8 rows = 1024 bytes (tile
+// bases are 1024-byte aligned). A wgmma operand in such tiles is described
+// by its start address, the layout (128B swizzle), and two strides:
+//  - K-major (K contiguous, one tile per 64 K): 8-row atoms SBO = 1024
+//    bytes apart along M/N; LBO unused. The k-th 16-wide K step starts 32 k
+//    bytes into the tile.
+//  - MN-major (M or N contiguous, tiles of 64 M/N by R K-rows): 8-K-row
+//    atoms SBO = 1024 bytes apart along K, 64-wide M/N blocks LBO bytes
+//    apart (the size of one such tile); the k-th 16-deep K step starts
+//    2048 k bytes into the tile.
+// store_swizzled() writes a bf16 pair from registers at the position TMA
+// would have put it, so a tile computed in registers (fused_ce_bwd.cu's d)
+// feeds wgmma exactly as a loaded one does.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dstt {
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival, and `bytes` more to come from TMA before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+// box at element coordinates (c0 inner, c1 outer) of the map's tensor into
+// shared memory at dst; completes `bar`'s transaction count by the box's
+// bytes (elements out of bounds arrive as zeros)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// generic-proxy writes to shared memory (st.shared) become visible to the
+// async proxy (wgmma operand reads, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+// descriptor of a 128-byte-swizzled bf16 operand (see the note at the top)
+__device__ __forceinline__ uint64_t desc_b128(const void* start, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  const uint64_t a = smem_u32(start);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo_bytes & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across an
+// in-flight wgmma
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 in, fp32 accumulators in
+// registers; TA / TB: 0 = K-major, 1 = MN-major (transposed) operand.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], bf16 in, fp32 accumulators in
+// registers; TA / TB: 0 = K-major, 1 = MN-major (transposed) operand.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// registers, barriers
+// ---------------------------------------------------------------------------
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// accumulator fragments
+// ---------------------------------------------------------------------------
+// Element i of an m64nN accumulator of thread t of the warpgroup sits at
+//   row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2),
+//   col 8 (i / 4) + 2 (t % 4) + i % 2.
+
+// bf16 pair (lo, hi) at (row, col) (col even) of a 128-byte-swizzled tile
+// of 64-wide rows: the 4 bytes TMA would have written there
+__device__ __forceinline__ void store_swizzled(unsigned char* tile, int row, int col, float lo,
+                                               float hi) {
+  const int chunk = (col >> 3) ^ (row & 7);
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  *reinterpret_cast<__nv_bfloat162*>(tile + row * 128 + chunk * 16 + (col & 7) * 2) = v;
+}
+
+// p[0] += a, p[1] += b where `pred` holds (predicated, no branch)
+__device__ __forceinline__ void red_add_v2(float* p, float a, float b, bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %3, 0;\n@q red.global.add.v2.f32 [%0], {%1, %2};\n}\n" ::"l"(p),
+      "f"(a), "f"(b), "r"((int)pred)
+      : "memory");
+}
+
+// out[r0 + row, c0 + col] += acc for the 8-column groups [J0, J1) of an
+// m64nN fragment (R_ registers; row stride ld floats), rows below R and
+// columns below C only: one 8-byte reduction per accumulator pair. C and ld
+// are even and out is 8-byte aligned, so a pair is all in or all out.
+// (Four-wide reductions would need a shuffle per pair to gather four
+// columns in one lane; they measured no faster, and the shuffled copies
+// cost the registers the accumulators need.)
+template <int R_, int J0 = 0, int J1 = R_ / 4>
+__device__ __forceinline__ void red_fragment(float* out, const float (&acc)[R_], int r0, int c0,
+                                             int R, int C, int64_t ld, int t) {
+  const int row = r0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  const int col = c0 + 2 * (t & 3);
+  float* p0 = out + (int64_t)row * ld + col;
+  float* p1 = p0 + 8 * ld;
+  const bool live0 = row < R, live1 = row + 8 < R;
+#pragma unroll
+  for (int j = J0; j < J1; ++j) {
+    const bool in_c = col + 8 * j < C;
+    red_add_v2(p0 + 8 * j, acc[4 * j], acc[4 * j + 1], live0 && in_c);
+    red_add_v2(p1 + 8 * j, acc[4 * j + 2], acc[4 * j + 3], live1 && in_c);
+  }
+}
+
+}  // namespace hopper
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+// A map of a row-major [outer, inner] bf16 matrix (row stride `ld`
+// elements, a multiple of 8; base 16-byte aligned) read in boxes of
+// {64, box_outer} with the 128-byte swizzle; out-of-bounds elements read as
+// zero. Returns a cudaError_t-compatible code (0 on success).
+inline int encode_tma_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+                         uint64_t ld, uint32_t box_outer) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return (int)e;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {ld * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace dstt

@@ -234,6 +234,42 @@ def test_fused_kernel_checks_run_on_plain_inputs():
                                 limit=chip_smoke.CE_TILE_RTOL)
 
 
+def test_fused_ce_head_record_and_backward_fields_on_cpu():
+    """The fused_ce_head record at a tiny size on CPU tensors (the fused
+    form takes the plain versions): both forms give the same loss and
+    gradients, each form's call is timed and its memory asked for, the
+    summed kernel and library times add up; and the dx / dW records' new
+    fields count what the kernels add into their planes."""
+    x, w, labels, g = chip_smoke.ce_inputs(torch, torch.device("cpu"), 40, 24, 300, seed=1)
+    x, w = x.float(), w.float()
+    forms = chip_smoke.ce_head_forms(torch)
+    fused = forms["fused"](x.requires_grad_(True), w.requires_grad_(True), labels, g)
+    library = forms["library"](x, w, labels, g)
+    for a, b in zip(fused, library):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    calls = []
+    kernel_ms = {"fused_ce_fwd": 1.0, "fused_ce_dx": 2.0, "fused_ce_dw": 3.0}
+    library_ms = {"fused_ce_fwd": 0.5, "fused_ce_dx": 0.75, "fused_ce_dw": 0.75}
+    rec = chip_smoke.fused_ce_head(torch, x, w, labels, g, kernel_ms, library_ms,
+                                   lambda fn: calls.append(fn()) or 7.0,
+                                   lambda fn: calls.append(fn()) or 123)
+    json.dumps(rec)
+    assert rec["name"] == "fused_ce_head" and rec["shape"] == {"n": 40, "h": 24, "V": 300}
+    assert rec["kernels_ms"]["sum"] == 6.0 and rec["library_ms"]["sum"] == 1.25
+    assert rec["call_ms"] == {"fused": 7.0, "library": 7.0}
+    assert rec["peak_bytes_above_inputs"] == {"fused": 123, "library": 123}
+    assert len(calls) == 4 and all(len(c) == 3 for c in calls)  # (loss, dx, dW) each
+    f = chip_smoke.ce_bwd_fields(4096, 4096, 32000)
+    assert f["fused_ce_dx"]["reduced_elements"] == 4096 * 4096 * 63  # 1.06e9: a span of 512
+    assert f["fused_ce_dw"]["reduced_elements"] == 4096 * 32000 * 8  # 1.05e9: 8 row spans
+    assert f["fused_ce_dx"]["span"] == {"Vs": 512} and f["fused_ce_dw"]["span"] == {"Rs": 512}
+    assert "wgmma" in f["fused_ce_dx"]["design"] and "TMA" in f["fused_ce_dw"]["design"]
+    # the padded widths: h 1000 -> 1000, V 3001 -> 3008; n 777 -> 2 row spans
+    f = chip_smoke.ce_bwd_fields(777, 1000, 3001)
+    assert f["fused_ce_dx"]["reduced_elements"] == 777 * 1000 * 6
+    assert f["fused_ce_dw"]["reduced_elements"] == 1000 * 3008 * 2
+
+
 def test_tile_check_rejects_late_tiles_the_max_scaled_check_passes():
     """A 3% error on the later half of the keys' dk (the smallest
     gradients under a causal mask) stays inside the elementwise check whose

@@ -9,6 +9,8 @@ another order) and bf16 (one rounding of d and of each output, at other
 places in XLA and torch). Card-only cases carry the ``cuda`` marker.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,8 +136,68 @@ def test_a_cuda_tensor_never_takes_the_plain_version():
         pce.fused_ce_dx_cuda(x.bfloat16(), w.bfloat16(), labels, g, g)
 
 
+def test_pad8_copies_keep_the_plain_backward():
+    """The backward kernels' host arithmetic on CPU tensors: ``pad8`` pads x
+    and w with zeros to rows of multiples of 8 (TMA's 16-byte strides) and
+    leaves tensors that fit alone; the kernels' arithmetic on the padded
+    copies (d masked past the true V, the planes cut back to [n, h] and
+    [h, V]) equals the plain backward on the unpadded ones (fp32: the same
+    products, plus exact zeros)."""
+    for n, h, V in ((40, 20, 37), (24, 8, 515), (16, 13, 24)):
+        x, w, labels, g = (torch.from_numpy(a) for a in _data(n, h, V, seed=8))
+        xp, wp = pce.pad8(x, w)
+        h8, V8 = pce.round8(h), pce.round8(V)
+        assert xp.shape == (n, h8) and wp.shape == (h8, V8)
+        assert xp.data_ptr() % 16 == 0 and wp.data_ptr() % 16 == 0
+        assert torch.equal(xp[:, :h], x) and not xp[:, h:].any()
+        assert torch.equal(wp[:h, :V], w) and not wp[h:].any() and not wp[:, V:].any()
+        _, lse = pce.fused_ce_fwd_reference(x, w, labels)
+        onehot = torch.arange(V8)[None, :] == labels.long()[:, None]
+        d = (torch.exp(xp @ wp - lse[:, None]) - onehot.float()) * g[:, None]
+        d[:, V:] = 0.0  # the kernels' column mask
+        got = ((d @ wp.t())[:, :h], (xp.t() @ d)[:h, :V])
+        for a, b in zip(got, pce.fused_ce_bwd_reference(x, w, labels, lse, g)):
+            torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-5)
+    # rows that already fit are passed on as they are; a misaligned base is copied
+    x, w = torch.zeros(16, 64, dtype=torch.bfloat16), torch.zeros(64, 128, dtype=torch.bfloat16)
+    xp, wp = pce.pad8(x, w)
+    assert xp.data_ptr() == x.data_ptr() and wp.data_ptr() == w.data_ptr()
+    odd = torch.zeros(16 * 64 + 1, dtype=torch.bfloat16)[1:].view(16, 64)
+    assert odd.data_ptr() % 16 != 0
+    xp, _ = pce.pad8(odd, w)
+    assert xp.data_ptr() % 16 == 0 and torch.equal(xp, odd)
+    assert [pce.round8(k) for k in (1, 8, 9, 50257)] == [8, 8, 16, 50264]
+
+
+def test_backward_kernels_are_the_wgmma_source():
+    """The registry's dx and dW entries name ``fused_ce_bwd.cu`` and keep
+    their JAX origins; that source runs wgmma on tiles brought by TMA (the
+    shared ``hopper_common.cuh``) and holds none of the Ampere path, and the
+    forward's source no longer defines the backward entry points."""
+    from deepspeed_tpu_torch.ops.kernels import CSRC, KERNELS
+
+    root = Path(__file__).resolve().parents[1]
+    for name, body in (("fused_ce_dx", "_bwd_dx_kernel"), ("fused_ce_dw", "_bwd_dw_kernel")):
+        k = KERNELS[name]
+        assert k.source == "fused_ce_bwd.cu" and k.source_path.is_file()
+        path, line = k.replaces.rsplit(":", 1)
+        assert path == "deepspeed_tpu/ops/fused_ce.py"
+        assert (root / path).read_text().splitlines()[int(line) - 1].startswith(f"def {body}(")
+    assert KERNELS["fused_ce_fwd"].source == "fused_ce.cu"
+    bwd = (CSRC / "fused_ce_bwd.cu").read_text()
+    hopper = (CSRC / "hopper_common.cuh").read_text()
+    assert '#include "hopper_common.cuh"' in bwd and "flash_common" not in bwd
+    assert "wgmma_m64n" in bwd and "tma_load_2d" in bwd
+    assert "wgmma.mma_async" in hopper and "cp.async.bulk.tensor" in hopper
+    for src in (bwd, hopper):
+        assert "mma.sync" not in src and "cp.async.cg" not in src
+    fwd = (CSRC / "fused_ce.cu").read_text()
+    assert "dstt_fused_ce_dx" not in fwd and "dstt_fused_ce_dw" not in fwd
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 128, 1000), (130, 72, 515)])
+@pytest.mark.parametrize("shape", [(256, 128, 1000), (130, 72, 515), (777, 1000, 3001),
+                                   (100, 64, 700)])
 def test_cuda_kernels_match_plain(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
@@ -159,3 +221,26 @@ def test_cuda_kernels_match_plain(shape):
     # (atomic adds sum in an order that changes from launch to launch)
     torch.testing.assert_close(de.float(), rdw.float().t(), rtol=BF16_GRAD_RTOL,
                                atol=BF16_GRAD_RTOL * float(rdw.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", ["w", "x"])
+def test_cuda_backward_launches_only_the_gradient_asked_for(frozen):
+    """A frozen w launches dx alone, a frozen x dW alone (the launch
+    counters), and the one gradient still matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from deepspeed_tpu_torch.ops import kernels as K
+
+    x, w, labels, g = (torch.from_numpy(a).cuda() for a in _data(300, 520, 3000, seed=9))
+    x, w = x.bfloat16().requires_grad_(frozen != "x"), w.bfloat16().requires_grad_(frozen != "w")
+    loss = pce.fused_ce_loss(x, w, labels)
+    K.reset_counts()
+    (got,) = torch.autograd.grad(loss, (w if frozen == "x" else x), g)
+    counts = K.counts()
+    assert counts["fused_ce_dx"] == (frozen == "w") and counts["fused_ce_dw"] == (frozen == "x")
+    _, lse = pce.fused_ce_fwd_reference(x.detach(), w.detach(), labels)
+    rdx, rdw = pce.fused_ce_bwd_reference(x.detach(), w.detach(), labels, lse, g)
+    want = rdw if frozen == "x" else rdx
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_GRAD_RTOL,
+                               atol=BF16_GRAD_RTOL * float(want.float().abs().max()))
