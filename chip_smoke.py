@@ -18,8 +18,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    fused-CE kernels also at sizes that divide no tile; FusedAdam at steps 1
    and 1000, AdamW and L2 decay, and on a leaf with a ragged tail; the
    splash kernels over a LocalMask, per-head Fixed layouts, packed
-   segments, dead query blocks and the prefill form; the paged kernel's
-   int8 form over ``quantize_kv`` codes of seeded bf16 K/V; block_quant bit
+   segments, dead query blocks and the prefill form; the paged kernels at
+   the split, round and causal forms, over shared-prefix tables and in the
+   per-row form (256 queries over one table, stride-0 extras), also per
+   (row, head) as a relative Frobenius error, the int8 form over
+   ``quantize_kv`` codes of seeded bf16 K/V; block_quant bit
    for bit at the engine's write shape and at a block of 2048 over a
    4096 x 14336 tensor, deterministic and stochastic; the layout-predicate
    sparse kernels over Fixed 16-blocks, per-head BigBird, dead rows and the
@@ -1429,7 +1432,82 @@ def paged_cases(torch, world, rng, R, nh, B, layer, E_round):
         q=q, block_tables=tables, q_pos=torch.as_tensor(pos, device=dev),
         trash_block=world.trash(layer), window=100, scale=0.05,
     )))
+
+    # shared prefix (prefix caching): every row's first blocks are row 0's,
+    # then blocks of its own; the split form (E = 1, pool limit)
+    n_pre = max(1, B // 2)
+    pos = rng.integers(n_pre * world.bs, max_ctx - 1, size=R).astype(np.int32)
+    tables = world.tables(rng, R, B, pos + 1, layer, np.ones(R, bool))
+    tables[:, :n_pre] = tables[0, :n_pre]
+    q = torch.randn(R, nh, d, generator=gen, device=dev).to(dtype)
+    ke = torch.randn(R, 1, nkv, d, generator=gen, device=dev).to(dtype)
+    ve = torch.randn(R, 1, nkv, d, generator=gen, device=dev).to(dtype)
+    p = torch.as_tensor(pos, device=dev)
+    cases.append(("shared_prefix", dict(
+        q=q, block_tables=tables, q_pos=p, trash_block=world.trash(layer),
+        extra_kv=(ke, ve, p[:, None]), pool_limit=p,
+    )))
+
+    # the per-row step (``_step_per_row`` over an int8 pool): a chunk of t
+    # queries shares one row's table, the pool below the chunk start, the
+    # chunk's own K/V as extras through stride-0 expand views with causal
+    # epos (a padded tail at -1)
+    t = 256 if max_ctx >= 512 else 16
+    start = max_ctx // 2 + 3
+    table = world.tables(rng, 1, B, np.array([start]), layer, np.ones(1, bool))
+    i = np.arange(t)
+    epos = torch.as_tensor(np.where(i < t - 5, start + i, -1).astype(np.int32), device=dev)
+    chunk_k = torch.randn(t, nkv, d, generator=gen, device=dev).to(dtype)
+    chunk_v = torch.randn(t, nkv, d, generator=gen, device=dev).to(dtype)
+    cases.append((f"per_row_t{t}", dict(
+        q=torch.randn(t, nh, d, generator=gen, device=dev).to(dtype),
+        block_tables=table.expand(t, B),
+        q_pos=torch.as_tensor((start + i).astype(np.int32), device=dev),
+        trash_block=world.trash(layer),
+        extra_kv=(chunk_k[None].expand(t, t, nkv, d), chunk_v[None].expand(t, t, nkv, d),
+                  epos[None].expand(t, t)),
+        pool_limit=torch.full((t,), start, dtype=torch.int32, device=dev),
+    )))
     return cases
+
+
+# per (row, query head) relative Frobenius error of the paged kernels
+# against their plain version: a dropped or doubled split moves a row by
+# far more (tests/test_torch_paged_attention.py)
+PAGED_ROW_RTOL = {"bf16": 1e-2, "fp32": 1e-4}
+PAGED_DESIGN = ("split-key decoding: grid (row, kv head x 16-head chunk, key split), splits of "
+                "split_keys keys (>= 2 tiles) from the row's first valid key, the extras in "
+                "splits of their own; a 2-stage ring of cp.async.cg 16-byte copies (masked keys "
+                "zero-filled, int8 scales by 4-byte cp.async); each warp 16 keys of a tile with "
+                "its own online softmax, S and P V on mma.sync m16n8k16 (int8 codes converted "
+                "to bf16 in registers; fp32 on FFMA); warps merged in shared memory, splits "
+                "merged in fp32 by a second kernel")
+
+
+def check_rows(torch, name, got, want, rtol):
+    """Relative Frobenius error of each (row, head) vector [..., d]; a
+    vector that is exactly 0 in ``want`` must be exactly 0 in ``got``.
+    Returns the largest error."""
+    g, w = got.float(), want.float()
+    num = (g - w).norm(dim=-1)
+    den = w.norm(dim=-1)
+    zero = den == 0
+    if bool((num[zero] != 0).any()):
+        raise AssertionError(f"{name}: {int((num[zero] != 0).sum())} rows must be exactly 0")
+    rel = num[~zero] / den[~zero]
+    worst = float(rel.max()) if rel.numel() else 0.0
+    if worst > rtol:
+        raise AssertionError(f"{name}: a (row, head) is off by {worst} relative (limit {rtol})")
+    return worst
+
+
+def paged_plan(world, kw):
+    """The kernel's split plan for a call form: splits, launches per call."""
+    from deepspeed_tpu_torch.ops.attention.paged import paged_decode_args
+
+    a = paged_decode_args(**world.pool(), **kw)
+    return {"splits": a.splits, "pool_splits": a.pool_splits, "extra_splits": a.extra_splits,
+            "split_keys": a.split_keys, "launches_per_call": a.launches_per_call}
 
 
 def paged_bytes_ops(world, kw):
@@ -1494,14 +1572,33 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
     if world.k.numel() < 2 ** 31:
         raise AssertionError("the full-width pool should exceed 2^31 elements")
     cases = paged_cases(torch, world, rng, R, nh, B, L - 1, E_round)
+    row_errs = {}
     for name, kw in cases:
         got = paged_decode(**world.pool(), **kw)
         want = paged_decode_attention_dense(**world.pool(), **kw)
         errs[name] = check_close(torch, f"{name_k} {name}", got, want, BF16_ATOL, BF16_RTOL)
+        row_errs[name] = check_rows(torch, f"{name_k} {name}", got, want, PAGED_ROW_RTOL["bf16"])
         if name == "causal_window_scale" and bool(got[0].float().abs().max() != 0):
             raise AssertionError(f"{name_k}: an all-trash row must give exactly 0")
         if name.startswith("split") and bool(got[-4:].float().abs().max() != 0):
             raise AssertionError(f"{name_k}: padded slots (q_pos = -1) must give exactly 0")
+    # the round forms again under a finer plan (5 pool splits of 128 keys
+    # and the extras split): more partials to merge, the window ending
+    # inside a split
+    from deepspeed_tpu_torch.ops.attention import paged as paged_mod
+
+    coarse = paged_mod.SPLIT_TARGET_CTAS
+    paged_mod.SPLIT_TARGET_CTAS = 4096
+    try:
+        for name, kw in cases[1:3]:
+            got = paged_decode(**world.pool(), **kw)
+            want = paged_decode_attention_dense(**world.pool(), **kw)
+            key = f"{name}_splits{paged_plan(world, kw)['splits']}"
+            errs[key] = check_close(torch, f"{name_k} {key}", got, want, BF16_ATOL, BF16_RTOL)
+            row_errs[key] = check_rows(torch, f"{name_k} {key}", got, want,
+                                       PAGED_ROW_RTOL["bf16"])
+    finally:
+        paged_mod.SPLIT_TARGET_CTAS = coarse
     # other head dims, GQA groups and fp32, at a small pool
     for dt, dd, hh, kvh in ((torch.float32, 64, 8, 2), (torch.float32, 256, 4, 4),
                             (torch.bfloat16, 64, 32, 2), (torch.float32, 128, 12, 4)):
@@ -1512,21 +1609,31 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
             want = paged_decode_attention_dense(**small.pool(), **kw)
             key = f"{name}_{str(dt).split('.')[-1]}_d{dd}_g{hh // kvh}"
             errs[key] = check_close(torch, f"{name_k} {key}", got, want, *tol)
+            row_errs[key] = check_rows(torch, f"{name_k} {key}", got, want,
+                                       PAGED_ROW_RTOL["fp32" if dt == torch.float32 else "bf16"])
         del small
     torch.cuda.synchronize()
 
-    # times at the round form (E = n_steps), rotating over 8 layers so each
-    # launch reads its K/V from device memory
+    # times at the round form (E = n_steps) and the split form (E = 1),
+    # rotating over 8 layers so each launch reads its K/V from device memory
+    _, split_kw = cases[0]
     _, round_kw = cases[1]
-    layer_kw = []
-    for li in range(8):
-        kw = dict(round_kw)
-        off = (li - (L - 1)) * world.NBp
-        kw["block_tables"] = round_kw["block_tables"] + off
-        kw["trash_block"] = world.trash(li)
-        layer_kw.append(kw)
+
+    def by_layer(form_kw):
+        layer_kw = []
+        for li in range(8):
+            kw = dict(form_kw)
+            off = (li - (L - 1)) * world.NBp
+            kw["block_tables"] = form_kw["block_tables"] + off
+            kw["trash_block"] = world.trash(li)
+            layer_kw.append(kw)
+        return layer_kw
+
+    layer_kw, split_layer_kw = by_layer(round_kw), by_layer(split_kw)
     it = iter(range(1 << 30))
     ms = time_ms(torch, lambda: paged_decode(**world.pool(), **layer_kw[next(it) % 8]))
+    split_ms = time_ms(torch, lambda: paged_decode(**world.pool(),
+                                                   **split_layer_kw[next(it) % 8]))
     plain_ms = time_ms(torch, lambda: paged_decode_attention_dense(
         **world.pool(), **layer_kw[next(it) % 8]), iters=5)
     library_ms = sdpa_ms(torch, world, round_kw)
@@ -1540,8 +1647,14 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
                   "pool": list(world.k.shape)},
         "max_abs_err": max(errs.values()),
         "max_abs_err_by_case": errs,
-        "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "fp32": [FP32_ATOL, FP32_RTOL]},
+        "row_rel_frobenius_by_case": row_errs,
+        "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "fp32": [FP32_ATOL, FP32_RTOL],
+                      "row_rel_frobenius": PAGED_ROW_RTOL},
         "ms": ms,
+        "split_ms": split_ms,
+        **paged_plan(world, round_kw),
+        "split_form": paged_plan(world, split_kw),
+        "design": PAGED_DESIGN,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "library": "torch.nn.functional.scaled_dot_product_attention on the gathered context"
@@ -2550,8 +2663,10 @@ def profile_engine(torch, eng, rng, vocab, steps=8):
         for uid, lg in eng.step().items():
             eng.scheduler.feedback(uid, int(np.argmax(lg)))
 
+    # the paged kernels' two launches of a call: split, then merge
     out = device_profile(torch, {"split_step_32_decode_rows": split_step,
-                                 f"decode_round_{steps}": lambda: eng.decode_round(steps)})
+                                 f"decode_round_{steps}": lambda: eng.decode_round(steps)},
+                         sums=("paged_split_kernel", "paged_merge_kernel"))
     for uid in list(eng.scheduler.running_uids()):
         eng.scheduler.finish(uid)
     return out
@@ -3649,10 +3764,11 @@ def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
     return rec, total
 
 
-def device_profile(torch, fns):
+def device_profile(torch, fns, sums=()):
     """torch.profiler over each named callable: device time by kernel name,
     the device's busy share of the wall time, and the host operators with
-    the most self time (opt-in, ``--profile``)."""
+    the most self time (opt-in, ``--profile``); ``sums``: substrings of
+    kernel names whose device ms and launches are also summed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3676,11 +3792,26 @@ def device_profile(torch, fns):
         host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count)
                        for ev in prof.key_averages() if ev.device_type == DeviceType.CPU),
                       key=lambda r: -r[1])
+        counts = {}
+        for ev in prof.key_averages():
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
         out[name] = {
             "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms if rows else None,
             "device_idle_share": (1 - busy_ms / (wall * 1e3)) if rows else None,
+            # host-to-device copies (from pageable memory each waits for
+            # the host) and the runtime's synchronizing calls, the closing
+            # synchronize included
+            "h2d_copies": sum(n for k, n in counts.items() if k.startswith("Memcpy HtoD")),
+            "pageable_h2d_copies": sum(n for k, n in counts.items()
+                                       if k.startswith("Memcpy HtoD (Pageable")),
+            "d2h_copies": sum(n for k, n in counts.items() if k.startswith("Memcpy DtoH")),
+            "syncs": sum(counts.get(k, 0) for k in ("cudaStreamSynchronize",
+                                                    "cudaDeviceSynchronize",
+                                                    "cudaEventSynchronize")),
             "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:16]],
+            "sums": {pat: {"ms": sum(r[1] for r in rows if pat in r[0]),
+                           "count": sum(r[2] for r in rows if pat in r[0])} for pat in sums},
             "host_top": [{"op": k[:60], "self_ms": ms, "count": n} for k, ms, n in host[:12]],
         }
     return out

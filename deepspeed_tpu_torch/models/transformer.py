@@ -582,6 +582,27 @@ def rope_params(c: TransformerConfig, rot: int, seq_len: Optional[int] = None):
     return (long if (seq_len or 0) > old_len else short).astype(np.float32), float(attn)
 
 
+def _rope_freqs_uncached(c: TransformerConfig, rot: int, seq_len: Optional[int],
+                         device: torch.device):
+    inv_freq, attn_factor = rope_params(c, rot, seq_len)
+    return torch.as_tensor(inv_freq, device=device), attn_factor
+
+
+_rope_freqs_cached = functools.lru_cache(maxsize=64)(_rope_freqs_uncached)
+
+
+def _rope_freqs(c: TransformerConfig, rot: int, seq_len: Optional[int], device: torch.device):
+    """``rope_params`` as a tensor on ``device``, built once per (config,
+    rot, seq_len, device): a step's RoPE calls then copy nothing from the
+    host (``seq_len`` is None unless the scaling depends on it). A config
+    that cannot be hashed (lists inside ``rope_scaling``) builds them per
+    call."""
+    try:
+        return _rope_freqs_cached(c, rot, seq_len, device)
+    except TypeError:
+        return _rope_freqs_uncached(c, rot, seq_len, device)
+
+
 def _rope(x, positions, c: TransformerConfig, seq_len: Optional[int] = None):
     """Rotary embedding on [b, h, s, d] given positions [b, s] or [s]
     (rope_frac < 1: only the first frac*d dims rotate)."""
@@ -593,8 +614,7 @@ def _rope(x, positions, c: TransformerConfig, seq_len: Optional[int] = None):
         x, tail = x[..., :rot], x[..., rot:]
     seq_dependent = c.rope_scaling is not None and dict(c.rope_scaling)["rope_type"] in (
         "dynamic", "longrope")
-    inv_freq, attn_factor = rope_params(c, rot, seq_len if seq_dependent else None)
-    freqs = torch.as_tensor(inv_freq, device=x.device)
+    freqs, attn_factor = _rope_freqs(c, rot, seq_len if seq_dependent else None, x.device)
     if positions.ndim == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs  # [b, s, rot/2]

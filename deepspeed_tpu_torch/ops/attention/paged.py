@@ -31,6 +31,7 @@ beside a pool that is not int8, raises ``ValueError``.
 """
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
@@ -224,25 +225,120 @@ def _i32(t, shape, name):
     return t.to(torch.int32).contiguous()
 
 
-def paged_decode(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: int = 0,
-                 scale: Optional[float] = None, extra_kv=None, pool_limit=None, k_scale=None,
-                 v_scale=None):
-    """The paged-decode kernels' wrapper. A CPU tensor takes the plain
-    version (``paged_decode_attention_dense``); a CUDA tensor launches the
-    kernel (``paged_decode``, or ``paged_decode_int8`` for an int8 pool with
-    its scale planes) or raises. ``trash_block`` is a Python int (or 0-d
-    tensor)."""
+def kernel_tile_keys(d: int) -> int:
+    """Keys per tile of the paged-decode kernel (``paged_decode.cu``
+    ``tile_keys``): 64, and 32 at d 256."""
+    return 32 if d == 256 else 64
+
+
+# the split plan aims at this many CTAs (about two waves of the 3 CTAs each
+# of the H100's 132 SMs holds) and cuts a row's keys into at most
+# MAX_SPLITS splits. Measured at the round form (R 32, 32/8 heads of 128,
+# 640-token tables, E 64; chip_smoke's shapes): 384-768 CTAs beat 1024-2048
+# by 7-20%; each CTA pays a fixed cost (its table lookups, queries, warp
+# merge and partial) that short splits cannot amortize
+SPLIT_TARGET_CTAS = 512
+MAX_SPLITS = 32
+
+
+def decode_span(B: int, bs: int, window: int, has_limit: bool) -> int:
+    """Pool keys one row's valid range can span: B * bs, or the window when
+    there is no pool limit (the causal bound then keeps hi - lo <= window)."""
+    return min(B * bs, window) if window and not has_limit else B * bs
+
+
+def decode_splits(n_rows: int, nkv: int, group: int, span: int, E: int, d: int):
+    """The kernel's split plan: (split_keys, pool_splits, extra_splits).
+    split_keys is a multiple of the tile and at least two tiles, sized so
+    that n_rows * nkv * ceil(group / 16) CTAs per split times the splits
+    come near SPLIT_TARGET_CTAS; a row's pool range is cut into pool_splits
+    splits of split_keys keys, its E extras into extra_splits."""
+    kt = kernel_tile_keys(d)
+    ctas = max(1, n_rows * nkv * -(-group // 16))
+    want = max(1, min(MAX_SPLITS, -(-SPLIT_TARGET_CTAS // ctas)))
+    sk = max(2 * kt, -(-span // want))
+    sk = -(-sk // kt) * kt
+    return sk, -(-span // sk), -(-E // sk)
+
+
+def _rows_view(t, shape, name):
+    """An extras operand of ``shape`` [T, ...] as the kernel reads it: the
+    tensor itself, with its row stride in elements, when its inner dims are
+    contiguous (a stride-0 ``expand`` over the rows included); otherwise a
+    contiguous copy."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"paged_decode: {name} {tuple(t.shape)}, expected {tuple(shape)}")
+    inner, n = [], 1
+    for size in reversed(shape[1:]):
+        inner.insert(0, n)
+        n *= size
+    if n > 1 and list(t.stride()[1:]) != inner:
+        t = t.contiguous()
+    return t, (int(t.stride(0)) if shape[0] > 1 else 0)
+
+
+@dataclasses.dataclass
+class PagedDecodeArgs:
+    """What ``paged_decode`` hands the kernel: its tensors (no copy of a
+    view the kernel can read by its row stride) and its integers."""
+
+    q: torch.Tensor
+    k_cache: torch.Tensor
+    v_cache: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
+    tables: torch.Tensor
+    qpos: torch.Tensor
+    limit: Optional[torch.Tensor]
+    ke: Optional[torch.Tensor]
+    ve: Optional[torch.Tensor]
+    epos: Optional[torch.Tensor]
+    T: int
+    nh: int
+    nkv: int
+    d: int
+    bs: int
+    B: int
+    E: int
+    x_stride: int  # elements between the extras of rows t and t + 1 (0: one row for all)
+    e_stride: int  # the same for epos
+    trash: int
+    window: int
+    scale: float
+    split_keys: int
+    pool_splits: int
+    extra_splits: int
+
+    @property
+    def int8(self) -> bool:
+        return self.k_cache.dtype == torch.int8
+
+    @property
+    def splits(self) -> int:
+        return self.pool_splits + self.extra_splits
+
+    @property
+    def launches_per_call(self) -> int:
+        """Kernels one call launches: the split kernel, and the merge
+        kernel when there is more than one split."""
+        return 1 if self.splits == 1 else 2
+
+
+def paged_decode_args(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: int = 0,
+                      scale: Optional[float] = None, extra_kv=None, pool_limit=None,
+                      k_scale=None, v_scale=None) -> PagedDecodeArgs:
+    """Check what the kernel takes and build its arguments, on any device
+    (a pure function: nothing is launched). Raises on what the kernel does
+    not take: q in bf16 or fp32, a pool in q's dtype or int8 with its fp32
+    planes, d in ``KERNEL_HEAD_DIMS``, contiguous q and pools, 16-byte
+    aligned data. The extras ``ke``/``ve`` [T, E, nkv, d] are passed by
+    their row stride when their inner three dims are contiguous (a
+    stride-0 ``expand`` view over the rows reaches the kernel as it is);
+    any other layout is copied to a contiguous tensor first. ``epos`` [T,
+    E] likewise."""
     _check_planes(k_cache, k_scale, v_scale, "paged_decode")
-    if q.device.type == "cpu":
-        return paged_decode_attention_dense(
-            q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window,
-            scale=scale, extra_kv=extra_kv, pool_limit=pool_limit, k_scale=k_scale,
-            v_scale=v_scale,
-        )
     T, nh, d = q.shape
     NB, bs, nkv, dk = k_cache.shape
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode: q on {q.device}; expected a CPU or CUDA tensor")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"paged_decode: {q.dtype} queries; the kernel takes bf16 or fp32")
     int8_pool = k_cache.dtype == torch.int8
@@ -273,39 +369,169 @@ def paged_decode(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: 
     tables = _i32(block_tables, (T, B), "block_tables")
     qpos = _i32(q_pos, (T,), "q_pos")
     limit = None if pool_limit is None else _i32(pool_limit, (T,), "pool_limit")
-    E = 0
+    E = x_stride = e_stride = 0
     ke = ve = epos = None
     if extra_kv is not None:
         ke, ve, epos = extra_kv
         E = int(ke.shape[1])
-        if tuple(ke.shape) != (T, E, nkv, d) or tuple(ve.shape) != (T, E, nkv, d):
-            raise ValueError(
-                f"paged_decode: extras {tuple(ke.shape)}/{tuple(ve.shape)}, expected "
-                f"{(T, E, nkv, d)}"
-            )
+        ke, xs_k = _rows_view(ke, (T, E, nkv, d), "extra K")
+        ve, xs_v = _rows_view(ve, (T, E, nkv, d), "extra V")
+        if xs_k != xs_v:  # one stride for both operands
+            ke, ve = ke.contiguous(), ve.contiguous()
+            xs_k = E * nkv * d if T > 1 else 0
+        x_stride = xs_k
         if ke.dtype != q.dtype or ve.dtype != q.dtype:
             raise ValueError("paged_decode: extra K/V must be in q's dtype")
-        ke, ve = ke.contiguous(), ve.contiguous()
-        epos = _i32(epos, (T, E), "epos")
-    out = torch.empty_like(q)
-    if T == 0:
-        return out
-    tensors = [q, k_cache, v_cache, out] + ([ke, ve] if E else [])
-    if any(t.data_ptr() % 16 for t in tensors):
+        if ke.device != q.device or ve.device != q.device:
+            raise ValueError(f"paged_decode: extra K/V must be on {q.device}")
+        epos = torch.as_tensor(epos)
+        epos, e_stride = _rows_view(epos.to(torch.int32), (T, E), "epos")
+    tensors = [q, k_cache, v_cache] + ([ke, ve] if E else [])
+    if any(t.data_ptr() % 16 for t in tensors) or (x_stride * q.element_size()) % 16:
         raise ValueError("paged_decode: tensors must be 16-byte aligned")
+    span = decode_span(B, bs, int(window), limit is not None)
+    split_keys, pool_splits, extra_splits = decode_splits(T, nkv, nh // nkv, span, E, d)
+    return PagedDecodeArgs(
+        q=q, k_cache=k_cache, v_cache=v_cache, k_scale=k_scale, v_scale=v_scale,
+        tables=tables, qpos=qpos, limit=limit, ke=ke, ve=ve, epos=epos,
+        T=T, nh=nh, nkv=nkv, d=d, bs=bs, B=B, E=E, x_stride=x_stride, e_stride=e_stride,
+        trash=int(trash_block), window=int(window),
+        scale=float(scale if scale is not None else d ** -0.5),
+        split_keys=split_keys, pool_splits=pool_splits, extra_splits=extra_splits,
+    )
+
+
+def paged_decode(q, k_cache, v_cache, block_tables, q_pos, trash_block, window: int = 0,
+                 scale: Optional[float] = None, extra_kv=None, pool_limit=None, k_scale=None,
+                 v_scale=None):
+    """The paged-decode kernels' wrapper. A CPU tensor takes the plain
+    version (``paged_decode_attention_dense``); a CUDA tensor launches the
+    kernel (``paged_decode``, or ``paged_decode_int8`` for an int8 pool with
+    its scale planes) or raises. ``trash_block`` is a Python int (or 0-d
+    tensor). One call launches the split kernel and, when the plan has
+    more than one split, the merge kernel (``PagedDecodeArgs.
+    launches_per_call``); the count rises by one per call. Arguments as
+    ``paged_decode_args`` builds them (extras by their row stride)."""
+    _check_planes(k_cache, k_scale, v_scale, "paged_decode")
+    if q.device.type == "cpu":
+        return paged_decode_attention_dense(
+            q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window,
+            scale=scale, extra_kv=extra_kv, pool_limit=pool_limit, k_scale=k_scale,
+            v_scale=v_scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode: q on {q.device}; expected a CPU or CUDA tensor")
+    a = paged_decode_args(q, k_cache, v_cache, block_tables, q_pos, trash_block, window=window,
+                          scale=scale, extra_kv=extra_kv, pool_limit=pool_limit,
+                          k_scale=k_scale, v_scale=v_scale)
+    out = torch.empty_like(q)
+    if a.T == 0:
+        return out
+    part_acc = part_ml = None
+    if a.splits > 1:  # fp32 partials, merged by the second kernel of the call
+        part_acc = torch.empty(a.T, a.nh, a.splits, a.d, device=q.device, dtype=torch.float32)
+        part_ml = torch.empty(a.T, a.nh, a.splits, 2, device=q.device, dtype=torch.float32)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    kernel = PAGED_INT8_KERNEL if int8_pool else PAGED_KERNEL
-    planes = [ptr(k_scale), ptr(v_scale)] if int8_pool else []
+    kernel = PAGED_INT8_KERNEL if a.int8 else PAGED_KERNEL
+    planes = [ptr(a.k_scale), ptr(a.v_scale)] if a.int8 else []
     rc = kernel.fn()(
-        ptr(q), ptr(k_cache), ptr(v_cache), *planes, ptr(tables), ptr(qpos), ptr(limit),
-        ptr(ke), ptr(ve), ptr(epos), ptr(out),
-        T, nh, nkv, d, bs, B, E, int(trash_block), int(window),
-        ctypes.c_float(scale if scale is not None else d ** -0.5),
+        ptr(q), ptr(a.k_cache), ptr(a.v_cache), *planes, ptr(a.tables), ptr(a.qpos),
+        ptr(a.limit), ptr(a.ke), ptr(a.ve), ptr(a.epos), ptr(out), ptr(part_acc), ptr(part_ml),
+        a.T, a.nh, a.nkv, a.d, a.bs, a.B, a.E, a.x_stride, a.e_stride, a.trash, a.window,
+        a.split_keys, a.pool_splits, a.extra_splits, ctypes.c_float(a.scale),
         int(q.dtype == torch.bfloat16), stream_ptr(q),
     )
     kernel.check(rc)
     kernel.launches += 1
     return out
+
+
+def _split_partial(qg, k, v, valid):
+    """One split's fp32 softmax state: qg [R, nkv, G, d] (scaled), k/v [R,
+    SK, nkv, d], valid [R, SK] -> (m [R, nkv, G], l, acc [R, nkv, G, d]);
+    an empty split gives m = NEG_INF, l = 0, acc = 0."""
+    s = torch.einsum("rngd,rknd->rngk", qg, k)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(valid[:, None, None], torch.exp(s - m[..., None]), torch.zeros_like(s))
+    return m, p.sum(dim=-1), torch.einsum("rngk,rknd->rngd", p, v)
+
+
+def merge_partials(parts):
+    """Merge split states [(m, l, acc), ...] as the kernel's merge does:
+    m = max m_s, weights e^(m_s - m) for the non-empty splits only, out =
+    sum w acc / max(sum w l, 1e-30), exactly 0 where no split saw a key."""
+    M = torch.stack([p[0] for p in parts]).amax(dim=0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(m > 0.5 * NEG_INF, torch.exp(m - M), torch.zeros_like(m))
+        L = L + w * l
+        A = A + w[..., None] * acc
+    out = A / L.clamp(min=1e-30)[..., None]
+    return torch.where((M > 0.5 * NEG_INF)[..., None], out, torch.zeros_like(out))
+
+
+def paged_decode_split_merge(q, k_cache, v_cache, block_tables, q_pos, trash_block,
+                             window: int = 0, scale: Optional[float] = None, extra_kv=None,
+                             pool_limit=None, k_scale=None, v_scale=None,
+                             split_keys: Optional[int] = None, return_partials: bool = False):
+    """A plain model of the kernel's split-and-merge (tests only; the main
+    path never calls it): a row's pool range [lo, hi) cut into splits of
+    ``split_keys`` keys from lo (default: the kernel's plan,
+    ``decode_splits``), the extras into splits of the same size, each
+    split's fp32 state from its keys alone, then ``merge_partials``.
+    Arguments as ``paged_decode_attention_dense``; returns [R, nh, d] in
+    q's dtype, and with ``return_partials`` also the splits' states."""
+    _check_planes(k_cache, k_scale, v_scale, "paged_decode_split_merge")
+    R, nh, d = q.shape
+    _, bs, nkv, _ = k_cache.shape
+    B = block_tables.shape[1]
+    G = nh // nkv
+    E = int(extra_kv[0].shape[1]) if extra_kv is not None else 0
+    span = decode_span(B, bs, window, pool_limit is not None)
+    if split_keys is None:
+        split_keys, n_pool, n_extra = decode_splits(R, nkv, G, span, E, d)
+    else:
+        n_pool, n_extra = max(1, -(-span // split_keys)), -(-E // split_keys)
+    dev = q.device
+    qg = q.reshape(R, nkv, G, d).float() * (scale if scale is not None else d ** -0.5)
+    qp = q_pos.long().to(dev)
+    if pool_limit is None:
+        hi = qp + 1
+    else:
+        hi = torch.where(qp >= 0, pool_limit.long().to(dev), torch.zeros_like(qp))
+    hi = hi.clamp(max=B * bs)
+    lo = (qp - window + 1).clamp(min=0) if window else torch.zeros_like(qp)
+    tables = block_tables.long().to(dev)
+    ar = torch.arange(split_keys, device=dev)
+    k_rows, v_rows = k_cache.reshape(-1, nkv, d), v_cache.reshape(-1, nkv, d)
+    parts = []
+    for s in range(n_pool):
+        k0 = lo + s * split_keys
+        kpos = k0[:, None] + ar[None]  # [R, SK]
+        kc = kpos.clamp(0, B * bs - 1)
+        blk = tables.gather(1, kc // bs)
+        valid = (kpos < torch.minimum(hi, k0 + split_keys)[:, None]) & (blk != trash_block)
+        rows = blk * bs + kc % bs
+        kf, vf = k_rows[rows].float(), v_rows[rows].float()  # [R, SK, nkv, d]
+        if k_scale is not None:
+            kf = kf * k_scale.reshape(-1, nkv)[rows][..., None]
+            vf = vf * v_scale.reshape(-1, nkv)[rows][..., None]
+        parts.append(_split_partial(qg, kf, vf, valid))
+    if n_extra:
+        ke, ve, epos = extra_kv
+        epos = epos.long().to(dev)
+        for s in range(n_extra):
+            e = s * split_keys + ar
+            ec = e.clamp(max=E - 1)
+            ep = epos[:, ec]
+            valid = (e < E)[None] & (ep >= 0) & (ep <= qp[:, None])
+            if window:
+                valid = valid & ~window_too_far(qp[:, None], ep, window)
+            parts.append(_split_partial(qg, ke[:, ec].float(), ve[:, ec].float(), valid))
+    out = merge_partials(parts).reshape(R, nh, d).to(q.dtype)
+    return (out, parts) if return_partials else out
 
 
 def resolve_impl(impl: Optional[str], device_type: str, head_dim: int) -> str:

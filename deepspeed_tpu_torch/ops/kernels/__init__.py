@@ -102,16 +102,17 @@ KERNELS: Dict[str, Kernel] = {
         ),
         Kernel(
             "paged_decode", "paged_decode.cu", "dstt_paged_decode",
-            # q, k, v, tables, qpos, limit, ke, ve, epos, out,
-            # n_tok, nh, nkv, d, bs, B, E, trash, window, scale, bf16, stream
-            [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _P],
+            # q, k, v, tables, qpos, limit, ke, ve, epos, out, part_acc, part_ml,
+            # n_tok, nh, nkv, d, bs, B, E, x_stride, e_stride, trash, window,
+            # split_keys, pool_splits, extra_splits, scale, bf16, stream
+            [_P] * 12 + [_I] * 7 + [_L] * 2 + [_I] * 5 + [ctypes.c_float, _I, _P],
             "deepspeed_tpu/ops/attention/paged_pallas.py:84",
         ),
         Kernel(
             "paged_decode_int8", "paged_decode.cu", "dstt_paged_decode_int8",
             # q, k, v, k_scale, v_scale, tables, qpos, limit, ke, ve, epos, out,
-            # n_tok, nh, nkv, d, bs, B, E, trash, window, scale, bf16, stream
-            [_P] * 12 + [_I] * 9 + [ctypes.c_float, _I, _P],
+            # part_acc, part_ml, then as paged_decode
+            [_P] * 14 + [_I] * 7 + [_L] * 2 + [_I] * 5 + [ctypes.c_float, _I, _P],
             "deepspeed_tpu/ops/attention/paged_pallas.py:84",
         ),
         Kernel(

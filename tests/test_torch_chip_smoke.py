@@ -56,7 +56,7 @@ def test_paged_cases_and_byte_count():
     rng = np.random.default_rng(0)
     cases = dict(chip_smoke.paged_cases(torch, world, rng, 6, 8, 4, 1, 8))
     assert set(cases) == {"split_E1_limit", "round_E8_limit", "round_E8_limit_window",
-                          "causal_window_scale"}
+                          "causal_window_scale", "shared_prefix", "per_row_t16"}
     out = paged_decode(k_cache=world.k, v_cache=world.v, **cases["split_E1_limit"])
     assert not out[-4:].any()
     out = paged_decode(k_cache=world.k, v_cache=world.v, **cases["causal_window_scale"])
@@ -68,6 +68,63 @@ def test_paged_cases_and_byte_count():
     per_key = 2 * world.nkv * world.d * 4
     assert moved - keys * per_key == 2 * kw["q"].numel() * 4 + kw["block_tables"].numel() * 4 + 6 * 8
     assert ops == keys * 8 * 4 * world.d
+
+
+def test_paged_shared_prefix_and_per_row_cases():
+    """The forms the split kernel makes risky: rows whose tables share
+    their first blocks, and the per-row step's chunk of queries over one
+    table with the chunk's K/V as stride-0 extras (the wrapper passes their
+    row stride, 0, and copies nothing); both agree with the split-and-merge
+    model, and the per-(row, head) check passes them."""
+    from deepspeed_tpu_torch.ops.attention import paged as pt
+
+    for int8 in (False, True):
+        world = chip_smoke.PagedWorld(torch, torch.device("cpu"), torch.float32, 2, 24, 16, 2, 64,
+                                      1, int8=int8)
+        rng = np.random.default_rng(0)
+        cases = dict(chip_smoke.paged_cases(torch, world, rng, 6, 8, 4, 1, 8))
+        kw = cases["shared_prefix"]
+        tables = kw["block_tables"]
+        assert bool((tables[:, :2] == tables[0, :2]).all()) and len(set(tables[:, 2:].flatten()
+                                                                         .tolist())) > 4
+        kw = cases["per_row_t16"]
+        ke, ve, epos = kw["extra_kv"]
+        assert ke.stride(0) == 0 and epos.stride(0) == 0 and ke.shape[:2] == (16, 16)
+        assert bool((kw["block_tables"] == kw["block_tables"][0]).all())
+        a = pt.paged_decode_args(**world.pool(), **kw)
+        assert (a.x_stride, a.e_stride) == (0, 0) and a.ke.data_ptr() == ke.data_ptr()
+        for name in ("shared_prefix", "per_row_t16"):
+            want = pt.paged_decode(**world.pool(), **cases[name])
+            got = pt.paged_decode_split_merge(**world.pool(), **cases[name], split_keys=8)
+            err = chip_smoke.check_rows(torch, name, got, want, chip_smoke.PAGED_ROW_RTOL["fp32"])
+            assert err < 1e-5
+
+
+def test_paged_record_fields_and_row_check():
+    """The kernel record's plan fields at the timed shape (2 pool splits of
+    320 keys and 1 extras split: 768 CTAs, two launches a call), computed
+    on the CPU from the same arguments; and the per-(row, head) check
+    rejects a row that is off or one that should be exactly 0."""
+    world = chip_smoke.PagedWorld(torch, torch.device("cpu"), torch.bfloat16, 1, 160, 128, 8, 128,
+                                  1)
+    rng = np.random.default_rng(0)
+    cases = dict(chip_smoke.paged_cases(torch, world, rng, 32, 32, 5, 0, 64))
+    plan = chip_smoke.paged_plan(world, cases["round_E64_limit"])
+    assert plan == {"splits": 3, "pool_splits": 2, "extra_splits": 1, "split_keys": 320,
+                    "launches_per_call": 2}
+    assert chip_smoke.paged_plan(world, cases["split_E1_limit"])["splits"] == 3
+    assert "cp.async" in chip_smoke.PAGED_DESIGN and "mma.sync" in chip_smoke.PAGED_DESIGN
+    want = torch.randn(4, 8, 16)
+    want[1, 3] = 0
+    assert chip_smoke.check_rows(torch, "ok", want.clone(), want, 1e-4) == 0.0
+    off = want.clone()
+    off[2, 5] *= 1.05
+    with pytest.raises(AssertionError, match="relative"):
+        chip_smoke.check_rows(torch, "off", off, want, 1e-2)
+    nonzero = want.clone()
+    nonzero[1, 3, 0] = 1e-6
+    with pytest.raises(AssertionError, match="exactly 0"):
+        chip_smoke.check_rows(torch, "zero", nonzero, want, 1e-2)
 
 
 def test_int8_paged_cases_and_byte_count():

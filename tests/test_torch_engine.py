@@ -259,6 +259,54 @@ def test_rope_params_match_jax(scaling, seq_len):
     assert got_a == pytest.approx(float(want_a), rel=1e-7)
 
 
+def test_rope_frequencies_are_built_once_per_device(monkeypatch):
+    """``_rope`` keeps its inverse frequencies on the device per (config,
+    rot, seq_len, device): two calls build them once and give the bits of
+    the per-call copy they replace."""
+    cfg = PT.TransformerConfig(**MODEL)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 4, 7, 32)).astype(np.float32))
+    pos = torch.arange(5, 12)
+    built = []
+    real = PT.rope_params
+
+    def counting(*a, **k):
+        built.append(a[1:])
+        return real(*a, **k)
+
+    monkeypatch.setattr(PT, "rope_params", counting)
+    PT._rope_freqs_cached.cache_clear()
+    first, second = PT._rope(x, pos, cfg), PT._rope(x, pos, cfg)
+    assert torch.equal(first, second) and len(built) == 1
+    inv_freq, attn = real(cfg, 32, None)
+    angles = pos[None, :, None].float() * torch.as_tensor(inv_freq)
+    cos, sin = torch.cos(angles)[:, None] * attn, torch.sin(angles)[:, None] * attn
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    assert torch.equal(first, torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1))
+    # a scaling that depends on the live length keys the cache by it
+    dyn = PT.TransformerConfig(**MODEL, rope_scaling=(("rope_type", "dynamic"), ("factor", 2.0)))
+    PT._rope(x, pos, dyn, 300), PT._rope(x, pos, dyn, 300), PT._rope(x, pos, dyn, 400)
+    assert len(built) == 3
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_prefix_cache_hits_and_streams_match_jax(kv_dtype):
+    """Automatic prefix caching: a second prompt that shares a 32-token
+    prefix (4 blocks of 8) with the first hits those 4 blocks in both
+    engines, and the greedy streams agree token for token."""
+    kv = dict(engine_config()["kv_cache"], prefix_cache=True, kv_cache_dtype=kv_dtype)
+    je, pe = engines(kv_cache=kv)
+    rng = np.random.default_rng(17)
+    prefix = rng.integers(0, MODEL["vocab_size"], size=32).astype(np.int32)
+    ps = [np.concatenate([prefix, rng.integers(0, MODEL["vocab_size"], size=n)]).astype(np.int32)
+          for n in (5, 9)]
+    for p in ps:
+        np.testing.assert_array_equal(pe.generate([p], max_new_tokens=6)[0],
+                                      je.generate([p], max_new_tokens=6)[0])
+    jc, pc = je.prefix_cache, pe.state_manager.prefix_cache
+    assert jc.hits == pc.hits == 1
+    assert jc.hit_blocks == pc.hit_blocks == 4
+
+
 # ---------------------------------------------------------------------------
 # the per-row step, with and without splash
 # ---------------------------------------------------------------------------

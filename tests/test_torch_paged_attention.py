@@ -247,12 +247,180 @@ def test_auto_refuses_an_unported_head_dim_on_the_card():
         pt.paged_attention(q, pool, pool, tables, tables[:, 0], 2)
 
 
+# ---------------------------------------------------------------------------
+# the kernel's split-and-merge (a plain model of it) and its argument builder
+# ---------------------------------------------------------------------------
+def _torch_world(w, epos=None, limit=None):
+    """The paged functions' keyword arguments for a numpy world."""
+    kw = dict(q=torch.from_numpy(w["q"]), k_cache=torch.from_numpy(w["k"]),
+              v_cache=torch.from_numpy(w["v"]), block_tables=torch.from_numpy(w["tables"]),
+              q_pos=torch.from_numpy(w["pos"]), trash_block=w["trash"])
+    if epos is not None:
+        kw["extra_kv"] = (torch.from_numpy(w["ke"]), torch.from_numpy(w["ve"]),
+                          torch.from_numpy(epos))
+    if limit is not None:
+        kw["pool_limit"] = torch.from_numpy(limit)
+    return kw
+
+
+def _rel_frobenius(got, want):
+    """||got - want|| / ||want|| per (row, head); rows that are exactly 0 in
+    ``want`` must be exactly 0 in ``got`` (reported as 0 or inf)."""
+    num = (got.float() - want.float()).flatten(2).norm(dim=-1)
+    den = want.float().flatten(2).norm(dim=-1)
+    return torch.where(den > 0, num / den.clamp(min=1e-30),
+                       torch.where(num > 0, torch.full_like(num, float("inf")), num))
+
+
+# a pool limit, two extras, a window: the round form at a tiny size (the
+# pool span is B * bs = 32 keys: 32, 16 and 5 keys per split give 1, 2 and 7
+# pool splits; the extras take one split of their own)
+@pytest.mark.parametrize("split_keys,n_pool", [(32, 1), (16, 2), (5, 7)])
+def test_split_merge_matches_dense(split_keys, n_pool):
+    w, rng = _world(20 + n_pool, T=7, nh=8, nkv=2, d=16, bs=8, NB=16, B=4, E=2)
+    limit = np.maximum(w["pos"] - rng.integers(0, 4, size=7), 0).astype(np.int32)
+    epos = np.stack([limit, w["pos"]], axis=1).astype(np.int32)
+    for window in (0, 11):
+        kw = _torch_world(w, epos, limit)
+        want = pt.paged_decode_attention_dense(**kw, window=window)
+        got, parts = pt.paged_decode_split_merge(**kw, window=window, split_keys=split_keys,
+                                                 return_partials=True)
+        assert len(parts) == n_pool + 1
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    # the kernel's own plan at this size: one pool split, one extras split
+    got = pt.paged_decode_split_merge(**kw)
+    torch.testing.assert_close(got, pt.paged_decode_attention_dense(**kw), atol=ATOL, rtol=RTOL)
+
+
+def test_split_merge_masked_splits_and_empty_rows():
+    """A split that is wholly masked leaves an empty state (m = -1e30, l = 0)
+    that the merge skips; a window that cuts splits in their middle; an
+    all-trash row and a padded slot give exactly 0, as the dense version."""
+    w, _ = _world(31, T=5, nh=4, nkv=2, d=16, bs=8, NB=16, B=4, E=1)
+    w["pos"][:] = [30, 29, 17, 31, -1]
+    w["tables"][2] = w["trash"]  # an all-trash row (its extra is invalid too)
+    w["tables"][1, 1] = w["trash"]  # a trash block inside row 1's range
+    limit = np.array([28, 29, 17, 31, -1], np.int32)
+    epos = np.array([[30], [29], [-1], [31], [-1]], np.int32)
+    kw = _torch_world(w, epos, limit)
+    for window in (0, 13):
+        want = pt.paged_decode_attention_dense(**kw, window=window)
+        got, parts = pt.paged_decode_split_merge(**kw, window=window, split_keys=6,
+                                                 return_partials=True)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        for r in (2, 4):
+            assert not got[r].any() and not want[r].any()
+        m = torch.stack([p[0] for p in parts])  # [splits, R, nkv, G]
+        ls = torch.stack([p[1] for p in parts])
+        empty = m <= 0.5 * pt.NEG_INF
+        assert bool((ls[empty] == 0).all())
+        # row 1 (lo = 0 without a window): its second split lies on the
+        # trash block; with the window the last splits lie past hi
+        assert bool(empty[:, 1].all(dim=(1, 2)).any())
+        assert bool(empty[:, 2].all()) and bool(empty[:, 4].all())
+
+
+@pytest.mark.parametrize("fault", ["drop", "double"])
+def test_a_dropped_or_doubled_split_fails_the_check(fault):
+    """The per-(row, head) relative Frobenius check the kernels are held to
+    (1e-2 in bf16) sees one split too few or too many."""
+    w, _ = _world(41, T=6, nh=8, nkv=2, d=16, bs=8, NB=16, B=4)
+    w["pos"][:] = 31
+    kw = _torch_world(w)
+    want = pt.paged_decode_attention_dense(**kw)
+    _, parts = pt.paged_decode_split_merge(**kw, split_keys=8, return_partials=True)
+    assert len(parts) == 4
+    torch.testing.assert_close(pt.merge_partials(parts).reshape(want.shape), want,
+                               atol=ATOL, rtol=RTOL)
+    bad = parts[:1] + parts[2:] if fault == "drop" else parts + parts[1:2]
+    err = _rel_frobenius(pt.merge_partials(bad).reshape(want.shape), want)
+    assert float(err.max()) > 1e-2
+
+
+def test_decode_splits_plan():
+    # the round form at Mistral-7B width: R 32, 8 kv heads, group 4, a
+    # 640-token pool span, 64 extras: 2 pool splits of 320 keys and 1 extra
+    # (768 CTAs)
+    assert pt.decode_splits(32, 8, 4, 640, 64, 128) == (320, 2, 1)
+    # few rows: more splits, each at least two tiles
+    assert pt.decode_splits(2, 8, 4, 640, 1, 128) == (128, 5, 1)
+    # the per-row form (256 queries of one row) fills the card in one split
+    sk, n_pool, n_extra = pt.decode_splits(256, 8, 4, 1024, 256, 128)
+    assert (n_pool, n_extra) == (1, 1) and sk >= 1024
+    # at least two tiles a split, a multiple of the tile (32 keys at d 256)
+    sk, n_pool, _ = pt.decode_splits(1, 1, 1, 40, 0, 256)
+    assert sk == 64 and n_pool == 1
+    assert pt.decode_span(5, 128, 200, has_limit=False) == 200
+    assert pt.decode_span(5, 128, 200, has_limit=True) == 640
+
+
+def _stride_world():
+    """The per-row form at a tiny size: T queries sharing one row's table,
+    the chunk's own K/V as extras through a stride-0 expand view."""
+    rng = np.random.default_rng(51)
+    T, nh, nkv, d, bs, NB, B = 5, 4, 2, 64, 8, 6, 3
+    q = torch.from_numpy(rng.normal(size=(T, nh, d)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(NB + 1, bs, nkv, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(NB + 1, bs, nkv, d)).astype(np.float32))
+    chunk_k = torch.from_numpy(rng.normal(size=(T, nkv, d)).astype(np.float32))
+    chunk_v = torch.from_numpy(rng.normal(size=(T, nkv, d)).astype(np.float32))
+    start = 11
+    pos = torch.arange(start, start + T, dtype=torch.int32)
+    epos = pos.clone()
+    epos[-1] = -1  # a padded tail column
+    tables = torch.tensor([[2, 0, 5]], dtype=torch.int32).expand(T, B)
+    kw = dict(q=q, k_cache=k, v_cache=v, block_tables=tables, q_pos=pos, trash_block=NB,
+              pool_limit=torch.full((T,), start, dtype=torch.int32))
+    view = (chunk_k[None].expand(T, T, nkv, d), chunk_v[None].expand(T, T, nkv, d),
+            epos[None].expand(T, T))
+    return kw, view
+
+
+def test_stride0_extras_match_their_copy_on_the_cpu():
+    kw, view = _stride_world()
+    got = pt.paged_decode(**kw, extra_kv=view)
+    want = pt.paged_decode(**kw, extra_kv=tuple(t.contiguous() for t in view))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(pt.paged_decode_split_merge(**kw, extra_kv=view), want,
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_args_pass_the_views_stride_without_a_copy():
+    kw, view = _stride_world()
+    a = pt.paged_decode_args(**kw, extra_kv=view)
+    assert (a.x_stride, a.e_stride) == (0, 0)
+    assert a.ke.data_ptr() == view[0].data_ptr() and a.ve.data_ptr() == view[1].data_ptr()
+    assert a.epos.data_ptr() == view[2].data_ptr()
+    assert a.E == 5 and a.splits == a.pool_splits + a.extra_splits
+    # a contiguous extras tensor: its row stride
+    dense = tuple(t.contiguous() for t in view)
+    a = pt.paged_decode_args(**kw, extra_kv=dense)
+    assert a.x_stride == 5 * 2 * 64 and a.e_stride == 5
+    assert a.ke.data_ptr() == dense[0].data_ptr()
+
+
+def test_args_copy_a_view_whose_inner_dims_are_not_contiguous():
+    kw, (ke, ve, epos) = _stride_world()
+    odd = ke.contiguous().transpose(2, 3).contiguous().transpose(2, 3)  # [T, E, nkv, d], d strided
+    assert not odd.is_contiguous() and odd.stride(3) != 1
+    a = pt.paged_decode_args(**kw, extra_kv=(odd, ve, epos))
+    assert a.ke.is_contiguous() and a.ke.data_ptr() != odd.data_ptr()
+    assert torch.equal(a.ke, odd) and a.x_stride == 5 * 2 * 64
+    assert a.ve.stride(0) == a.x_stride  # one row stride for both operands
+    torch.testing.assert_close(pt.paged_decode(**kw, extra_kv=(odd, ve, epos)),
+                               pt.paged_decode(**kw, extra_kv=(ke.contiguous(), ve, epos)),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="extra V"):
+        pt.paged_decode_args(**kw, extra_kv=(ke[:, :3], ve, epos))
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     for d in pt.KERNEL_HEAD_DIMS:
         w, rng = _world(d, T=6, nh=8, nkv=2, d=d, bs=16, NB=12, B=3, E=3)
+        w["tables"][1, 0] = w["tables"][3, 0] = w["tables"][0, 0]  # a shared block
         epos = np.stack([w["pos"] - 1, w["pos"], -np.ones(6, np.int32)], 1).astype(np.int32)
         limit = np.maximum(w["pos"] - 1, 0).astype(np.int32)
         cu = {k: torch.as_tensor(v).cuda() for k, v in w.items() if k != "trash"}
@@ -264,3 +432,15 @@ def test_cuda_kernel_matches_plain():
         assert pt.PAGED_KERNEL.launches == before + 1
         torch.testing.assert_close(got, pt.paged_decode_attention_dense(*args, **kw),
                                    atol=ATOL, rtol=RTOL)
+    # stride-0 extras (the per-row form), fp32 and bf16
+    kw, view = _stride_world()
+    for dt, tol in ((torch.float32, ATOL), (torch.bfloat16, 2.0 ** -6)):
+        ck = {k: (v.cuda().to(dt) if v.dtype == torch.float32 else v.cuda())
+              if torch.is_tensor(v) else v for k, v in kw.items()}
+        cv = tuple(t[0].cuda()[None].expand(t.shape) for t in view)  # stride 0 on the card
+        cv = (cv[0].to(dt), cv[1].to(dt), cv[2])
+        cv = tuple(t[0][None].expand(t.shape) for t in cv)
+        assert pt.paged_decode_args(**ck, extra_kv=cv).x_stride == 0
+        got = pt.paged_decode(**ck, extra_kv=cv)
+        want = pt.paged_decode_attention_dense(**ck, extra_kv=cv)
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
