@@ -14,7 +14,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 2. kernels: each kernel against its plain PyTorch version at the shapes
    the serving and training paths give it at Mistral-7B width, in bf16,
    with the tolerance stated (the flash kernels also at s 1024 with a
-   static window, the window flag at 0 and 1, and packed segments; the
+   static window, the window flag at 0 and 1, and packed segments with and
+   without the window, at head dims 64 and 256, and at s 200 non-causal,
+   the forward also timed at head dims 64 and 256; the
    fused-CE kernels also at sizes that divide no tile; FusedAdam at steps 1
    and 1000, AdamW and L2 decay, and on a leaf with a ragged tail; the
    splash kernels over a LocalMask, per-head Fixed layouts, packed
@@ -34,7 +36,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    phase's msa_row shape; the flash carry-mode chunk kernels, forward, dq
    and dk/dv, at Mistral-7B attention width over chunks of 4096, a
    non-diagonal and the diagonal hop with and without two packed segments,
-   each raw (the carry it leaves) and finalized); then CUDA-event times
+   and at head dims 64 and 256 over chunks of 1024, each raw (the carry it
+   leaves) and finalized); then CUDA-event times
    of the kernel, the plain version and one PyTorch library call computing
    the same function (a yardstick only: the port never calls it), beside
    the least time the card could take (``bound_ms``); the splash kernels
@@ -431,41 +434,81 @@ def two_segments(torch, dev, b, s, cut):
     return seg
 
 
-def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
-    """The three flash kernels at the train step's shape (Mistral-7B: 32/8
-    heads of 128, causal, static window 4096 = seq), and at s 1024 with a
-    static window of 256, the window flag at 0 and 1, and two packed
-    segments. Returns one record per kernel."""
+def flash_cases(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096, short=1024):
+    """The flash kernels' cases, name -> dict(b, h, h_kv, s, d, causal, window,
+    window_flag, seg): the train step's shape (causal, static window =
+    seq), then at ``short`` tokens a static window of 256 (no flag, the
+    flag at 0 and 1), two packed segments with and without the window,
+    head dims 64 and 256 (the forward's other tile shapes), and s 200
+    non-causal (a tail that is no whole tile of any width)."""
+    base = dict(b=b, h=h, h_kv=h_kv, d=d, causal=True, window=0, window_flag=None, seg=None)
+    cut = short * 389 // 1024
+    cases = {f"s{s}_causal_window{window}": dict(base, s=s, window=window)}
+    for tag, flag in (("", None), ("_flag0", 0), ("_flag1", 1)):
+        cases[f"s{short}_window256{tag}"] = dict(base, s=short, window=256, window_flag=flag)
+    cases[f"s{short}_window256_segments2"] = dict(base, s=short, window=256,
+                                                  seg=two_segments(torch, dev, b, short, cut))
+    cases[f"s{short}_causal_segments2"] = dict(base, s=short,
+                                               seg=two_segments(torch, dev, b, short, cut))
+    for width in (64, 256):
+        cases[f"d{width}_s{short}_causal"] = dict(base, s=short, d=width)
+    cases["s200_noncausal"] = dict(base, b=2, s=200, causal=False)
+    return cases
+
+
+def check_flash_case(torch, dev, errs, tile_errs, name, c, seed):
+    """One case through the three flash kernels against their plain
+    versions: out and lse, then dq, dk and dv from the kernel's out and lse
+    (elementwise and, for the gradients, per 64-row tile)."""
     from deepspeed_tpu_torch.ops.attention import flash as F
 
-    cases = {"s4096_causal_window4096": dict(s=s, window=window, window_flag=None, seg=None)}
-    for name, flag in (("s1024_window256", None), ("s1024_window256_flag0", 0),
-                       ("s1024_window256_flag1", 1)):
-        cases[name] = dict(s=1024, window=256, window_flag=flag, seg=None)
-    cases["s1024_window256_segments2"] = dict(s=1024, window=256, window_flag=None,
-                                              seg=two_segments(torch, dev, b, 1024, 389))
+    q, k, v, do = flash_inputs(torch, dev, c["b"], c["h"], c["h_kv"], c["s"], c["d"], seed=seed)
+    kw = dict(causal=c["causal"], segment_ids=c["seg"], window=c["window"],
+              window_flag=c["window_flag"])
+    out, lse = F.flash_fwd_cuda(q, k, v, **kw)
+    ref_out, ref_lse = F.flash_fwd_reference(q, k, v, **kw)
+    errs["flash_fwd"][name] = check_close(torch, f"flash_fwd {name}", out, ref_out, BF16_ATOL,
+                                          BF16_RTOL)
+    errs["flash_fwd"][name + "_lse"] = check_close(
+        torch, f"flash_fwd lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
+    del ref_out, ref_lse
+    dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+    dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
+    rdq, rdk, rdv = F.flash_bwd_reference(q, k, v, out, do, lse, **kw)
+    for kname, got, want, tag in (("flash_bwd_dq", dq, rdq, name),
+                                  ("flash_bwd_dkv", dk, rdk, name),
+                                  ("flash_bwd_dkv", dv, rdv, name + "_dv")):
+        hold(torch, errs, tile_errs, kname, tag, got, want)
+
+
+def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
+    """The three flash kernels at the train step's shape (Mistral-7B: 32/8
+    heads of 128, causal, static window 4096 = seq) and at the other cases
+    of ``flash_cases``; the forward also timed at head dims 64 and 256 (its
+    other tile shapes) at the train step's s. Returns one record per
+    kernel."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
     errs = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     tile_errs = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
-    for i, (name, c) in enumerate(cases.items()):
-        q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, c["s"], d, seed=10 + i)
-        kw = dict(causal=True, segment_ids=c["seg"], window=c["window"],
-                  window_flag=c["window_flag"])
-        out, lse = F.flash_fwd_cuda(q, k, v, **kw)
-        ref_out, ref_lse = F.flash_fwd_reference(q, k, v, **kw)
-        errs["flash_fwd"][name] = check_close(torch, f"flash_fwd {name}", out, ref_out,
-                                              BF16_ATOL, BF16_RTOL)
-        errs["flash_fwd"][name + "_lse"] = check_close(
-            torch, f"flash_fwd lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
-        del ref_out, ref_lse
-        dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
-        dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
-        rdq, rdk, rdv = F.flash_bwd_reference(q, k, v, out, do, lse, **kw)
-        for kname, got, want, tag in (("flash_bwd_dq", dq, rdq, name),
-                                      ("flash_bwd_dkv", dk, rdk, name),
-                                      ("flash_bwd_dkv", dv, rdv, name + "_dv")):
-            hold(torch, errs, tile_errs, kname, tag, got, want)
-        del rdq, rdk, rdv, dq, dk, dv
+    for i, (name, c) in enumerate(flash_cases(torch, dev, b, h, h_kv, s, d, window).items()):
+        check_flash_case(torch, dev, errs, tile_errs, name, c, seed=10 + i)
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # the forward at its other widths (same heads, s, mask)
+    by_width = {}
+    for width in (64, 256):
+        q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, width, seed=20 + width)
+        kw = dict(causal=True, window=window)
+        t = time_ms(torch, lambda: F.flash_fwd_cuda(q, k, v, **kw), iters=10)
+        flops = 4 * b * h * flash_pairs(s, True, window, None, None) * width
+        moved = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * h * s * 4
+        by_width[width] = {
+            "ms": t, "tflops_per_s": flops / (t * 1e-3) / 1e12,
+            "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
+            "library_ms": sdpa_fwd_ms(torch, q, k, v), "tiles": F.FWD_TILES[width]}
+        del q, k, v, do
         torch.cuda.empty_cache()
 
     # times at the train step's shape
@@ -519,7 +562,26 @@ def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
             "flops": flops,
             "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
         }
+    records["flash_fwd"].update(tiles=F.FWD_TILES[d], by_width=by_width)
     return records
+
+
+def sdpa_fwd_ms(torch, q, k, v):
+    """``scaled_dot_product_attention``'s causal GQA forward under the
+    flash backend in a CUDA graph, or None where that backend refuses the
+    head dim (a yardstick only)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True)
+
+    try:
+        fwd()
+    except RuntimeError:
+        return None
+    return time_ms(torch, fwd, iters=10)
 
 
 def sdpa_train_ms(torch, q, k, v, do):
@@ -533,12 +595,7 @@ def sdpa_train_ms(torch, q, k, v, do):
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         out = f(ql, kl, vl, is_causal=True, enable_gqa=True)
-
-    def fwd():
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            f(q, k, v, is_causal=True, enable_gqa=True)
-
-    fwd_ms = time_ms(torch, fwd, iters=10)
+    fwd_ms = sdpa_fwd_ms(torch, q, k, v)
     bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (ql, kl, vl), do,
                                                          retain_graph=True), iters=10)
     return {"what": "torch.nn.functional.scaled_dot_product_attention, flash backend "
@@ -631,7 +688,9 @@ def carry_case(torch, q, k, v, do, kw, errs=None, tile_errs=None, tag="case"):
 def kernel_flash_carry(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128):
     """The three chunk kernels at Mistral-7B attention width (32/8 heads of
     128, bf16), home and visiting chunks of 4096: a non-diagonal hop and the
-    diagonal hop, each with and without two packed segments; CUDA-graph
+    diagonal hop, each with and without two packed segments; both hops at
+    head dims 64 and 256 over chunks of 1024 (the forward's other tile
+    shapes), with and without segments; CUDA-graph
     times at the non-diagonal hop (a middle hop: the carry loaded and
     stored raw) beside the plain versions and the bound. Returns one record
     per kernel."""
@@ -647,6 +706,20 @@ def kernel_flash_carry(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128):
         seg = None
         if cut is not None:  # the home chunk's ids, the visitor's
             seg = (two_segments(torch, dev, b, s, cut[0]), two_segments(torch, dev, b, s, cut[1]))
+        carry_case(torch, q, k, v, do, dict(causal=causal, segment_ids=seg), errs, tile_errs,
+                   name)
+        del q, k, v, do
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    # the forward's other tile shapes: head dims 64 and 256, chunks of 1024
+    for i, (width, causal, cut) in enumerate(((64, False, (300, 700)), (64, True, None),
+                                             (256, False, None), (256, True, (300, 300)))):
+        q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, 1024, width, seed=50 + i)
+        seg = None
+        if cut is not None:
+            seg = (two_segments(torch, dev, b, 1024, cut[0]),
+                   two_segments(torch, dev, b, 1024, cut[1]))
+        name = f"d{width}_{'diag' if causal else 'offdiag'}{'_segments2' if cut else ''}"
         carry_case(torch, q, k, v, do, dict(causal=causal, segment_ids=seg), errs, tile_errs,
                    name)
         del q, k, v, do
@@ -709,6 +782,7 @@ def kernel_flash_carry(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128):
             "flops": flops,
             "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
         }
+    records["flash_fwd_chunk"]["tiles"] = F.FWD_TILES[d]
     return records
 
 
@@ -729,6 +803,10 @@ def ring_against_flash(torch, q, k, v, do, gqa):
     dev = q.device
     exact = dev.type == "cuda"
     n = get_topology().context_parallel_size
+    chunk, d = q.shape[2] // n, q.shape[3]
+    if exact and not S.ring_matches_flash(chunk, d):
+        raise AssertionError(f"ring chunks of {chunk} rows at d {d} straddle the kernels' "
+                             f"tiles: the ring promises no bits there")
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     single = F.flash_attention(*leaves)
     s_grads = torch.autograd.grad(single, leaves, do)
@@ -3853,7 +3931,8 @@ def main(argv=None):
           "seconds": time.perf_counter() - t0})
     for b in builds:
         for line in b["ptxas"].splitlines():
-            if "ptxas info" in line and ("registers" in line or "spill" in line):
+            if "ptxas info" in line and ("registers" in line or "spill" in line
+                                         or "(C75" in line):
                 print(f"  [{b['name']}] {line.strip()}", flush=True)
 
     groups = {

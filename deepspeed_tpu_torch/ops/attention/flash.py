@@ -4,7 +4,9 @@ Counterpart of ``deepspeed_tpu/ops/attention/flash_pallas.py`` (the
 single-device entry ``flash_attention`` and its ``custom_vjp``). Three
 kernels, in ``ops/kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu``:
 
-  * ``flash_fwd``     replaces ``_fwd_kernel``: out and an fp32 LSE [b, h, s];
+  * ``flash_fwd``     replaces ``_fwd_kernel``: out and an fp32 LSE [b, h, s]
+    (wgmma fed by TMA on ``flash_hopper.cuh``'s CTA body, tiles per head
+    dim in ``FWD_TILES``);
   * ``flash_bwd_dq``  replaces ``_bwd_dq_kernel``: dq by recompute;
   * ``flash_bwd_dkv`` replaces ``_bwd_dkv_kernel``: dk, dv by recompute,
     summed over the GQA group inside the kernel.
@@ -42,6 +44,14 @@ FWD_KERNEL = KERNELS["flash_fwd"]
 DQ_KERNEL = KERNELS["flash_bwd_dq"]
 DKV_KERNEL = KERNELS["flash_bwd_dkv"]
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# The forward kernels' tiles per head dim (``csrc/flash_hopper.cuh``
+# ``FwdTiles``): query rows a CTA, key rows a tile, stages of the K/V ring.
+# A row's result depends on where its key tiles start, so the ring matches
+# the single kernel only over chunks of whole key tiles (sharded.py).
+FWD_TILES = {64: dict(bq=128, bk=128, stages=2), 128: dict(bq=128, bk=128, stages=2),
+             256: dict(bq=128, bk=64, stages=2)}
+# The backward kernels' query and key tiles (``csrc/flash_common.cuh`` TILE).
+BWD_TILE = 64
 
 
 def _scale(q, scale):

@@ -31,9 +31,16 @@ Schedule (``sharded.py:266-432`` in the JAX package):
   * a hop whose chunk the causal mask hides launches nothing; every hop
     still rotates (collectives stay uniform across the ring).
 
-Arrival in ascending global order is the single kernel's streaming order,
-so with chunks that are whole 64-row tiles the ring's out, lse, dq and
-(with h == h_kv) dk, dv are the single flash kernels' bits. The chunk
+Arrival in ascending global order is the single kernel's streaming order.
+The forward runs the single forward's CTA body, whose rows depend on where
+their key tiles start (``FWD_TILES[d]["bk"]``: 128 keys at d 64 and 128, 64
+at d 256), and the backward the single backward's 64-row tiles
+(``BWD_TILE``). So with chunks that are whole tiles of both
+(``ring_matches_flash``: chunks of a multiple of 128 rows at every d) the
+ring's out, lse, dq and (with h == h_kv) dk, dv are the single flash
+kernels' bits; other chunks give the same function rounded differently
+(an fp32 rescale falls elsewhere). "auto" promotes to the ring only at
+chunks of a multiple of 128 rows (``core._ring_eligible``). The chunk
 kernels finalize on a row's last hop, through the single kernels'
 epilogues. Causal only, no window, no ALiBi, s divisible by N: each other
 case raises.
@@ -42,12 +49,21 @@ case raises.
 import torch
 
 from deepspeed_tpu_torch.ops.attention.flash import (
+    BWD_TILE,
+    FWD_TILES,
     flash_attention,
     flash_dkv_chunk,
     flash_dq_chunk,
     flash_fwd_chunk,
 )
 from deepspeed_tpu_torch.parallel.topology import CONTEXT_AXIS, get_topology
+
+
+def ring_matches_flash(chunk, d):
+    """Whether the ring over chunks of ``chunk`` rows at head dim ``d``
+    gives the single flash kernels' bits on a card: no forward key tile
+    and no backward tile straddles a chunk boundary."""
+    return chunk % FWD_TILES[d]["bk"] == 0 and chunk % BWD_TILE == 0
 
 
 def _divisible(topo, b, h, h_kv, s=None):

@@ -14,29 +14,37 @@
 // [b, h_kv, s, d] fp32; updated in place. ``flags``: LOAD reads the carry
 // (else it is seeded as the single kernel seeds it: m = -inf, l = 0, acc
 // = 0), FINAL writes the outputs instead of the raw carry, through the
-// single kernels' own epilogues (fwd_store: o / max(l, 1e-30) in bf16 and
-// m + log(max(l, 1e-30)); store_rows: dq * scale, dk * scale, dv in bf16).
+// single kernels' own epilogues (flash_hopper.cuh's store_out: o / max(l,
+// 1e-30) in bf16 and m + log(max(l, 1e-30)); store_rows: dq * scale, dk *
+// scale, dv in bf16).
 //
 // Bound: operations, as the single kernels (4, 6 and 8 * d FLOPs per
 // visible pair), plus the carry: acc [s, d] and m, l read and written in
 // fp32 per hop (about 2 x 4 bytes per element of a [s, d] head, small
 // beside the pairs' work at chunks of thousands of rows).
 //
-// Design: the single kernels' CTAs (flash_fwd.cu, flash_bwd.cu: 4 warps,
-// 64-row tiles, mma.sync, flash_common.cuh's fwd_tile / dq_tile /
-// dkv_tile and the same tile ranges, pruning and visiting order), with the
-// accumulators loaded from and stored to the carry in their fragment
-// layout. The ring hands chunks over in ascending global order (fwd and
-// dq: keys 0 .. i, the diagonal last; dkv: queries i .. N-1, the diagonal
-// first), so every accumulator sees the same tiles in the same order as
-// in the single kernel and the results are its bits, for dk/dv when h ==
-// h_kv. With GQA the single dk/dv kernel sums group head by group head
-// over the whole sequence; the ring sums chunk by chunk, group inside,
-// which rounds differently. A non-diagonal chunk is called non-causal
-// (every pair visible), the diagonal causal in local positions, so the
-// tiles that run are the single kernel's. Segment ids come as two planes,
-// the home chunk's and the visitor's.
+// Design. The forward runs flash_hopper.cuh's CTA body, the single
+// forward's (flash_fwd.cu): wgmma fed by TMA, 128-query tiles, key tiles
+// of FwdTiles<d>::BK, the same pruning and visiting order, with the state
+// seeded from the carry (m, l per row; acc in the wgmma accumulator
+// layout, fp32, so nothing rounds between hops) and stored back to it.
+// dq and dk/dv are the single backward kernels' CTAs (flash_bwd.cu: 4
+// warps, 64-row tiles, mma.sync, flash_common.cuh's dq_tile / dkv_tile and
+// the same tile ranges, pruning and visiting order), with the accumulators
+// loaded from and stored to the carry in their fragment layout. The ring
+// hands chunks over in ascending global order (fwd and dq: keys 0 .. i,
+// the diagonal last; dkv: queries i .. N-1, the diagonal first), so every
+// accumulator sees the same tiles in the same order as in the single
+// kernel and the results are its bits, for dk/dv when h == h_kv, when the
+// chunks are whole tiles of each (sharded.py). With GQA the single dk/dv
+// kernel sums group head by group head over the whole sequence; the ring
+// sums chunk by chunk, group inside, which rounds differently. A
+// non-diagonal chunk is called non-causal (every pair visible), the
+// diagonal causal in local positions, so the tiles that run are the single
+// kernel's. Segment ids come as two planes, the home chunk's and the
+// visitor's.
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -55,11 +63,6 @@ struct Chunk {
   const int* seg_k;  // [b, s] key ids (the visitor for fwd/dq) or null
   int flags;
 };
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(bf16) * (BQ + 2 * BK) * (D + PAD_H) + sizeof(int) * (BQ + BK + 2);
-}
 
 template <int D>
 constexpr size_t bwd_smem_bytes() {
@@ -126,97 +129,40 @@ __device__ __forceinline__ void tile_ids(const int* seg, int r0, int s, int* ids
 }
 
 // ---------------------------------------------------------------------------
+namespace fh = dstt::flash_hopper;
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_chunk_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    float* m_c, float* l_c, float* acc_c, bf16* __restrict__ out, float* __restrict__ lse,
-    Chunk c) {
-  constexpr int LD = D + PAD_H;
+__global__ void __launch_bounds__(fh::THREADS, 1)
+    flash_fwd_chunk_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, float* m_c, float* l_c,
+                           float* acc_c, bf16* __restrict__ out, float* __restrict__ lse,
+                           Chunk c) {
+  extern __shared__ unsigned char smem_raw[];
   const Problem& p = c.p;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  int* segq = reinterpret_cast<int*>(Vs + BK * LD);
-  int* segk = segq + BQ;
-  int* qrange = segk + BK;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = heavy_first_query_tile(p, gridDim.y) * BQ;
-  const int bh = blockIdx.x;
-  const int bi = bh / p.h, hi = bh % p.h;
-  const int kvh = hi / (p.h / p.h_kv);
-  const int64_t rows = (int64_t)bh * p.s;
-  const bf16* kb = k + ((int64_t)bi * p.h_kv + kvh) * p.s * D;
-  const bf16* vb = v + ((int64_t)bi * p.h_kv + kvh) * p.s * D;
-  const int* sq = c.seg_q ? c.seg_q + (int64_t)bi * p.s : nullptr;
-  const int* sk = c.seg_k ? c.seg_k + (int64_t)bi * p.s : nullptr;
-  const bool seg = sq != nullptr;
-
-  load_tile<BQ, D>(Qs, q + rows * D, q0, p.s);
-  tile_ids(sq, q0, p.s, segq, qrange);
-  const int qmin = qrange[0], qmax = qrange[1];
-
-  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
-  const int row0 = q0 + lr0, row1 = q0 + lr1;
-  const int sr0 = (seg && row0 < p.s) ? segq[lr0] : 0;
-  const int sr1 = (seg && row1 < p.s) ? segq[lr1] : 0;
-
-  float o[D / 8][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  if (c.flags & LOAD) {
-    carry_load<D, D>(o, acc_c + rows * D, row0, row1, p.s, 0, lane);
-    if (row0 < p.s) {
-      m[0] = m_c[rows + row0];
-      l[0] = l_c[rows + row0];
-    }
-    if (row1 < p.s) {
-      m[1] = m_c[rows + row1];
-      l[1] = l_c[rows + row1];
-    }
-  } else {
-    zero(o);
-  }
-
-  int lo, hi_k;
-  key_tiles<BQ, BK>(p, q0, lo, hi_k);
-  for (int k0 = lo; k0 < hi_k; k0 += BK) {
-    // segment pruning as in flash_fwd.cu, against the visitor's key ids
-    int mine = 1, sv = 0;
-    if (seg) {
-      mine = 0;
-      if (tid < BK && k0 + tid < p.s) {
-        sv = sk[k0 + tid];
-        mine = sv >= qmin && sv <= qmax;
-      }
-    }
-    if (!__syncthreads_or(mine)) continue;
-    if (seg && tid < BK) segk[tid] = sv;
-    load_tile<BK, D>(Ks, kb, k0, p.s);
-    load_tile<BK, D>(Vs, vb, k0, p.s);
-    __syncthreads();
-
-    fwd_tile<D>(o, m, l, Qs, Ks, Vs, p.scale, -INFINITY, [&](int col, bool upper) {
-      const bool ok = visible(p, upper ? row0 : row1, k0 + col);
-      return seg ? ok && segk[col] == (upper ? sr0 : sr1) : ok;
-    }, warp, lane);
-  }
-  if (c.flags & FINAL) {
-    fwd_store<D>(out + rows * D, lse + rows, o, m, l, row0, row1, p.s, lane);
-    return;
-  }
-  carry_store<D, D>(acc_c + rows * D, o, row0, row1, p.s, 0, lane);
-  if (t == 0) {  // m and l are equal across the 4 lanes of a row
-    if (row0 < p.s) {
-      m_c[rows + row0] = m[0];
-      l_c[rows + row0] = l[0];
-    }
-    if (row1 < p.s) {
-      m_c[rows + row1] = m[1];
-      l_c[rows + row1] = l[1];
-    }
-  }
+  const fh::Tile tile = fh::make_tile<D>(p, c.seg_q, c.seg_k);
+  const int64_t rows = (int64_t)tile.bh * p.s;
+  fh::fwd_cta<D>(
+      smem_raw, &qmap, &kmap, &vmap, p, tile,
+      [&](auto& o, auto& m, auto& l, int row0, int row1, int tq) {
+        if (c.flags & LOAD) {
+          fh::carry_load<D>(o, m, l, m_c + rows, l_c + rows, acc_c + rows * D, row0, row1, p.s,
+                            tq);
+        } else {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+          m[0] = m[1] = -INFINITY;
+          l[0] = l[1] = 0.f;
+        }
+      },
+      [&](const auto& o, const auto& m, const auto& l, int row0, int row1, int tq) {
+        if (c.flags & FINAL) {
+          fh::store_out<D>(out + rows * D, lse + rows, o, m, l, row0, row1, p.s, tq);
+        } else {
+          fh::carry_store<D>(m_c + rows, l_c + rows, acc_c + rows * D, o, m, l, row0, row1, p.s,
+                             tq);
+        }
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -412,14 +358,16 @@ Chunk make_chunk(int b, int h, int h_kv, int s, float scale, int causal, const v
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* m, void* l, void* acc,
                void* out, void* lse, const Chunk& c, cudaStream_t stream) {
-  const size_t bytes = fwd_smem_bytes<D>();
+  CUtensorMap maps[3];
+  if (int e = fh::encode_maps<D>(maps, q, k, v, c.p)) return e;
+  constexpr int bytes = fh::Smem<D>::BYTES;
   static size_t have = 0;
   if (int e = set_max_smem(flash_fwd_chunk_kernel<D>, bytes, have)) return e;
-  const dim3 grid((unsigned)(c.p.b * c.p.h), (unsigned)((c.p.s + BQ - 1) / BQ));
-  flash_fwd_chunk_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
-      static_cast<bf16*>(out), static_cast<float*>(lse), c);
+  constexpr int BQF = fh::FwdTiles<D>::BQ;
+  const dim3 grid((unsigned)(c.p.b * c.p.h), (unsigned)((c.p.s + BQF - 1) / BQF));
+  flash_fwd_chunk_kernel<D><<<grid, fh::THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(m), static_cast<float*>(l),
+      static_cast<float*>(acc), static_cast<bf16*>(out), static_cast<float*>(lse), c);
   return (int)cudaGetLastError();
 }
 
@@ -460,12 +408,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o, const
 // acc [b, h, s, d] fp32, read under LOAD (flags & 1) and written unless
 // FINAL (flags & 2); out [b, h, s, d] bf16 and lse [b, h, s] fp32 written
 // under FINAL. causal: the diagonal chunk. All contiguous, 16-byte aligned;
-// d in {64, 128, 256}. Returns cudaGetLastError().
+// d in {64, 128, 256}; scale > 0. Returns cudaGetLastError().
 extern "C" int dstt_flash_fwd_chunk(const void* q, const void* k, const void* v,
                                     const void* seg_q, const void* seg_k, void* m, void* l,
                                     void* acc, void* out, void* lse, int b, int h, int h_kv,
                                     int s, int d, float scale, int causal, int flags,
                                     void* stream) {
+  if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
   const Chunk c = make_chunk(b, h, h_kv, s, scale, causal, seg_q, seg_k, flags);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {

@@ -1,14 +1,18 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
-// and the splash kernels built on the same mainloop (splash_fwd.cu,
-// splash_bwd.cu): the problem description, the visibility rule of a (query,
-// key) pair, tile loads into padded shared memory, the range of key tiles a
-// query tile needs (and of query tiles a key tile needs), the tensor-core
-// primitives (ldmatrix loads of 16x16 bf16 fragments from shared memory and
-// mma.sync m16n8k16, bf16 in, fp32 accumulate), the backward's pieces (the
-// per-row delta, two products into C tiles, a C-tile product accumulated
-// against a shared tile), and the per-tile bodies both families run: the
-// forward's tile and epilogue, the dq tile, the dk/dv tile, each taking the
-// family's rule for a kept pair.
+// Shared pieces of the flash-attention kernels and the splash and sparse
+// kernels built on the same mainloop: the problem description, the
+// visibility rule of a (query, key) pair, the range of key tiles a query
+// tile needs (and of query tiles a key tile needs) and the causal order of
+// query tiles, which the wgmma forward (flash_hopper.cuh: flash_fwd.cu and
+// the ring's forward in flash_chunk.cu) shares too; and for the mma.sync
+// kernels (the flash backward flash_bwd.cu and the ring's dq and dk/dv,
+// splash_fwd.cu, splash_bwd.cu, sparse_fwd.cu, sparse_bwd.cu): tile loads
+// into padded shared memory, the tensor-core primitives (ldmatrix loads of
+// 16x16 bf16 fragments from shared memory and mma.sync m16n8k16, bf16 in,
+// fp32 accumulate), the backward's pieces (the per-row delta, two products
+// into C tiles, a C-tile product accumulated against a shared tile), and
+// the per-tile bodies: the forward's tile and epilogue (splash and sparse
+// only), the dq tile, the dk/dv tile, each taking the family's rule for a
+// kept pair.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA), lane = 4 * g + t:
 //   A 16x16: a[0] = (row g,   cols 2t, 2t+1)   a[1] = (row g+8, cols 2t, 2t+1)

@@ -12,7 +12,7 @@
 // few hundred keys per query the arithmetic intensity is far above the
 // card's ~295 FLOP/byte ridge.
 //
-// Design: the flash and splash kernels' grid and per-tile body
+// Design: the splash forward's grid and per-tile body
 // (flash_common.cuh's fwd_tile: one CTA of 4 warps per (64-query tile, b *
 // h), each warp owning 16 query rows; S = Q K^T with mma.m16n8k16 into
 // registers, the running max and sum in fp32, P rounded to bf16 straight from

@@ -15,8 +15,8 @@
 // intensity is far above the card's ~295 FLOP/byte ridge whenever a query
 // keeps more than a few hundred keys.
 //
-// Design: flash_fwd.cu's grid and per-tile body (flash_common.cuh's
-// fwd_tile: one CTA of 4 warps per (64-query tile, b * h), each warp owning
+// Design: flash_common.cuh's grid and per-tile body (fwd_tile, which the
+// sparse forward runs too: one CTA of 4 warps per (64-query tile, b * h), each warp owning
 // 16 query rows; S = Q K^T with mma.m16n8k16 into registers, the running max
 // and sum in fp32, P rounded to bf16 straight from the S accumulators into A
 // fragments, O += P V in fp32 registers) with splash's rule for a kept pair,

@@ -441,6 +441,33 @@ def test_splash_kernel_cases_on_plain_inputs():
     assert bool(out[:, :, 2048:].abs().sum(-1).gt(0).all())
 
 
+def test_flash_kernel_cases_on_plain_inputs(monkeypatch):
+    """The kernels phase's flash cases at a small size: every forward tile
+    shape (head dims 64, 128 and 256), s 200 non-causal (no whole tile at
+    any width), packed segments with and without the window; with the CUDA
+    wrappers standing in for their plain versions, every comparison of each
+    case holds and each case gets its records."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    monkeypatch.setattr(F, "flash_fwd_cuda", F.flash_fwd_reference)
+    monkeypatch.setattr(F, "flash_bwd_dq_cuda",
+                        lambda *a, **kw: F.flash_bwd_reference(*a, **kw)[0])
+    monkeypatch.setattr(F, "flash_bwd_dkv_cuda",
+                        lambda *a, **kw: F.flash_bwd_reference(*a, **kw)[1:])
+    cpu = torch.device("cpu")
+    cases = chip_smoke.flash_cases(torch, cpu, h=2, h_kv=1, s=512, window=512, short=256)
+    assert {c["d"] for c in cases.values()} == set(F.FWD_TILES)
+    tail = cases["s200_noncausal"]
+    assert not tail["causal"] and all(tail["s"] % t["bk"] for t in F.FWD_TILES.values())
+    assert [c["window"] for c in cases.values() if c["seg"] is not None] == [256, 0]
+    errs = {name: {} for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    tile_errs = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for i, (name, c) in enumerate(cases.items()):
+        chip_smoke.check_flash_case(torch, cpu, errs, tile_errs, name, c, seed=i)
+    assert len(errs["flash_fwd"]) == 2 * len(cases) and len(errs["flash_bwd_dkv"]) == 2 * len(cases)
+    assert max(v for e in errs.values() for v in e.values()) == 0.0
+
+
 def test_engine_int8_phase_runs_end_to_end_on_cpu(one_thread):
     """The engine_int8 phase at 2 tiny layers after the bf16 phase whose
     rows it is held against: the exact counts the card checks (paged decode

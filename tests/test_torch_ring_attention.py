@@ -14,6 +14,7 @@ kernels against the plain versions and the ring against the single flash
 kernels bit for bit.
 """
 
+import re
 import sys
 from pathlib import Path
 
@@ -30,6 +31,7 @@ from deepspeed_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from deepspeed_tpu_torch.ops.attention import core as pcore  # noqa: E402
 from deepspeed_tpu_torch.ops.attention import flash as pf  # noqa: E402
 from deepspeed_tpu_torch.ops.attention import sharded as ps  # noqa: E402
+from deepspeed_tpu_torch.ops.kernels import CSRC  # noqa: E402
 from deepspeed_tpu_torch.parallel.topology import (  # noqa: E402
     Topology,
     reset_topology,
@@ -319,6 +321,66 @@ def test_model_ring_refusals(loopback):
         params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         with pytest.raises(NotImplementedError, match=match):
             T.make_loss_fn(cfg)(params, {"input_ids": toks})
+
+
+def test_forward_tiles_are_the_kernel_sources():
+    """The tiles ``sharded.py``'s bit contract cites are the kernels': the
+    forward's per head dim (``flash.FWD_TILES``) are the ``FwdTiles``
+    specialisations of ``csrc/flash_hopper.cuh`` and the backward's
+    (``flash.BWD_TILE``) is ``flash_common.cuh``'s TILE, both read from the
+    files; ``ring_matches_flash`` holds exactly at chunks of whole tiles of
+    both."""
+    src = (CSRC / "flash_hopper.cuh").read_text()
+    found = {int(d): dict(bq=int(bq), bk=int(bk), stages=int(st)) for d, bq, bk, st in re.findall(
+        r"struct FwdTiles<(\d+)> \{\s*static constexpr int BQ = (\d+), BK = (\d+), "
+        r"STAGES = (\d+);", src)}
+    assert found == pf.FWD_TILES
+    bwd = re.search(r"constexpr int TILE = (\d+);", (CSRC / "flash_common.cuh").read_text())
+    assert int(bwd.group(1)) == pf.BWD_TILE
+    for d, tiles in pf.FWD_TILES.items():
+        whole = max(tiles["bk"], pf.BWD_TILE)
+        assert all(ps.ring_matches_flash(m * whole, d) for m in (1, 2, 3, 32))
+        assert not any(ps.ring_matches_flash(c, d) for c in (whole - 32, whole + 32))
+    # a chunk of 192 rows: whole backward tiles, but not whole 128-key tiles
+    assert not ps.ring_matches_flash(192, 128) and ps.ring_matches_flash(192, 256)
+
+
+@pytest.mark.parametrize("d", sorted(pf.FWD_TILES))
+def test_ring_over_whole_key_tiles_streams_as_one(d):
+    """The kernels' tile schedule on the plain chunk version: each query
+    tile of the forward's key-tile width streamed over the key tiles (the
+    diagonal one causal), its fp32 carry stored and reloaded at every hop of
+    a ring of N chunks of whole tiles, visiting chunks in ascending order,
+    equals one long stream over the whole sequence bit for bit; and the long
+    stream is the plain flash forward in fp32."""
+    tile = pf.FWD_TILES[d]["bk"]
+    n, chunk = 4, 2 * tile
+    s = n * chunk
+    assert ps.ring_matches_flash(chunk, d)
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 4, 2, s, d, seed=d))
+
+    def fold(carry, qi, k0, k1):
+        for kj in range(k0, min(k1, qi + tile), tile):
+            carry = pf.flash_fwd_chunk_reference(
+                q[:, :, qi:qi + tile], k[:, :, kj:kj + tile], v[:, :, kj:kj + tile], carry,
+                causal=kj == qi)
+        return carry
+
+    fresh = lambda: pf.flash_carry_init(1, 4, tile, d)  # noqa: E731
+    one = {qi: fold(fresh(), qi, 0, s) for qi in range(0, s, tile)}
+    ring = {qi: fresh() for qi in range(0, s, tile)}
+    for home in range(n):
+        for visitor in range(home + 1):
+            for qi in range(home * chunk, (home + 1) * chunk, tile):
+                stored = tuple(t.clone() for t in ring[qi])
+                ring[qi] = fold(stored, qi, visitor * chunk, (visitor + 1) * chunk)
+    for qi in one:
+        assert all(torch.equal(a, b) for a, b in zip(one[qi], ring[qi])), qi
+    out = torch.cat([pf.flash_finalize(one[qi], torch.float32)[0] for qi in sorted(one)], dim=2)
+    lse = torch.cat([pf.flash_finalize(one[qi], torch.float32)[1] for qi in sorted(one)], dim=2)
+    want_out, want_lse = pf.flash_fwd_reference(q, k, v)
+    torch.testing.assert_close(out, want_out, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, want_lse, atol=ATOL, rtol=RTOL)
 
 
 # ---------------------------------------------------------------------------
