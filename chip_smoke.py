@@ -16,7 +16,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    with the tolerance stated (the flash kernels also at s 1024 with a
    static window, the window flag at 0 and 1, and packed segments with and
    without the window, at head dims 64 and 256, and at s 200 non-causal,
-   the forward also timed at head dims 64 and 256; the
+   all three also timed at head dims 64 and 256; the
    fused-CE kernels also at sizes that divide no tile; FusedAdam at steps 1
    and 1000, AdamW and L2 decay, and on a leaf with a ragged tail; the
    splash kernels over a LocalMask, per-head Fixed layouts, packed
@@ -115,9 +115,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    per chunk; a line says the process form was not run) through
    ``attention(impl="flash_ring")``, forward and backward at s 32768:
    Llama-2-7B attention (32 heads of 128, MHA) with out, lse, dq, dk and dv
-   bit for bit against ``flash_attention`` on the same inputs, Mistral-7B-v0.2
-   attention (32 over 8 heads) with out, lse and dq bit for bit and dk/dv
-   per 64-row tile; exactly N(N + 1) / 2 = 10 launches of each chunk kernel
+   bit for bit against ``flash_attention`` on the same inputs, and
+   Mistral-7B-v0.2 attention (32 over 8 heads) with all five bit for bit
+   too; exactly N(N + 1) / 2 = 10 launches of each chunk kernel
    per call and no other; the call's ms against the single call's and
    SDPA's, and the peak memory of each.
 11. train_ring: ``initialize(mpu=Topology(context=4, loopback=True))`` ->
@@ -142,6 +142,7 @@ no result.
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -439,7 +440,7 @@ def flash_cases(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096, short
     window_flag, seg): the train step's shape (causal, static window =
     seq), then at ``short`` tokens a static window of 256 (no flag, the
     flag at 0 and 1), two packed segments with and without the window,
-    head dims 64 and 256 (the forward's other tile shapes), and s 200
+    head dims 64 and 256 (the kernels' other tile shapes), and s 200
     non-causal (a tail that is no whole tile of any width)."""
     base = dict(b=b, h=h, h_kv=h_kv, d=d, causal=True, window=0, window_flag=None, seg=None)
     cut = short * 389 // 1024
@@ -484,9 +485,9 @@ def check_flash_case(torch, dev, errs, tile_errs, name, c, seed):
 def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
     """The three flash kernels at the train step's shape (Mistral-7B: 32/8
     heads of 128, causal, static window 4096 = seq) and at the other cases
-    of ``flash_cases``; the forward also timed at head dims 64 and 256 (its
-    other tile shapes) at the train step's s. Returns one record per
-    kernel."""
+    of ``flash_cases``; each also timed at head dims 64 and 256 (their
+    other tile shapes) at the train step's s, beside SDPA's forward or
+    backward at that width. Returns one record per kernel."""
     from deepspeed_tpu_torch.ops.attention import flash as F
 
     errs = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
@@ -496,19 +497,34 @@ def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
-    # the forward at its other widths (same heads, s, mask)
-    by_width = {}
+    # the three kernels at their other widths (same heads, s, mask)
+    by_width = {name: {} for name in errs}
     for width in (64, 256):
         q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, width, seed=20 + width)
         kw = dict(causal=True, window=window)
-        t = time_ms(torch, lambda: F.flash_fwd_cuda(q, k, v, **kw), iters=10)
-        flops = 4 * b * h * flash_pairs(s, True, window, None, None) * width
-        moved = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * h * s * 4
-        by_width[width] = {
-            "ms": t, "tflops_per_s": flops / (t * 1e-3) / 1e12,
-            "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
-            "library_ms": sdpa_fwd_ms(torch, q, k, v), "tiles": F.FWD_TILES[width]}
-        del q, k, v, do
+        out, lse = F.flash_fwd_cuda(q, k, v, **kw)
+        pairs = b * h * flash_pairs(s, True, window, None, None)
+        el = q.element_size()
+        qb, kvb, lseb = q.numel() * el, k.numel() * el, b * h * s * 4
+        library_bwd = sdpa_bwd_ms(torch, q, k, v, do)
+        forms = {  # (call, FLOPs, bytes, library ms, tiles)
+            "flash_fwd": (lambda: F.flash_fwd_cuda(q, k, v, **kw), 4 * pairs * width,
+                          2 * qb + 2 * kvb + lseb, sdpa_fwd_ms(torch, q, k, v),
+                          F.FWD_TILES[width]),
+            "flash_bwd_dq": (lambda: F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw),
+                             6 * pairs * width, 4 * qb + 2 * kvb + lseb, library_bwd,
+                             F.BWD_TILES[width]),
+            "flash_bwd_dkv": (lambda: F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw),
+                              8 * pairs * width, 3 * qb + 4 * kvb + lseb, library_bwd,
+                              F.BWD_TILES[width]),
+        }
+        for name, (fn, flops, moved, library_ms, tiles) in forms.items():
+            t = time_ms(torch, fn, iters=10)
+            by_width[name][width] = {
+                "ms": t, "tflops_per_s": flops / (t * 1e-3) / 1e12,
+                "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
+                "library_ms": library_ms, "tiles": tiles}
+        del q, k, v, do, out, lse
         torch.cuda.empty_cache()
 
     # times at the train step's shape
@@ -562,7 +578,9 @@ def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
             "flops": flops,
             "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
         }
-    records["flash_fwd"].update(tiles=F.FWD_TILES[d], by_width=by_width)
+    records["flash_fwd"].update(tiles=F.FWD_TILES[d], by_width=by_width["flash_fwd"])
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        records[name].update(tiles=F.BWD_TILES[d], by_width=by_width[name])
     return records
 
 
@@ -584,23 +602,37 @@ def sdpa_fwd_ms(torch, q, k, v):
     return time_ms(torch, fwd, iters=10)
 
 
+def sdpa_bwd_ms(torch, q, k, v, do):
+    """The autograd backward (dq, dk and dv in one call, eager) of
+    ``scaled_dot_product_attention``'s causal GQA forward under the flash
+    backend, or None where that backend refuses the inputs (a yardstick
+    only)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                                   enable_gqa=True)
+        torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+    except RuntimeError:
+        return None
+    return eager_ms(torch, lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
+                    iters=10)
+
+
 def sdpa_train_ms(torch, q, k, v, do):
     """Yardsticks: ``scaled_dot_product_attention`` (causal, GQA) under the
     flash backend (an error if that backend refuses the inputs); its
     forward timed in a CUDA graph, its autograd backward (dq, dk and dv in
     one call) timed eagerly."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    f = torch.nn.functional.scaled_dot_product_attention
-    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        out = f(ql, kl, vl, is_causal=True, enable_gqa=True)
-    fwd_ms = sdpa_fwd_ms(torch, q, k, v)
-    bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (ql, kl, vl), do,
-                                                         retain_graph=True), iters=10)
+    bwd_ms = sdpa_bwd_ms(torch, q, k, v, do)
+    if bwd_ms is None:
+        raise RuntimeError("the SDPA flash backend refuses the train shape's inputs")
     return {"what": "torch.nn.functional.scaled_dot_product_attention, flash backend "
                     "(backward: autograd, dq+dk+dv in one call, eager)",
-            "flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms, "flash_bwd_dkv": bwd_ms}
+            "flash_fwd": sdpa_fwd_ms(torch, q, k, v), "flash_bwd_dq": bwd_ms,
+            "flash_bwd_dkv": bwd_ms}
 
 
 # flash carry kernels (the ring's chunk entries): each against its plain
@@ -689,7 +721,7 @@ def kernel_flash_carry(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128):
     """The three chunk kernels at Mistral-7B attention width (32/8 heads of
     128, bf16), home and visiting chunks of 4096: a non-diagonal hop and the
     diagonal hop, each with and without two packed segments; both hops at
-    head dims 64 and 256 over chunks of 1024 (the forward's other tile
+    head dims 64 and 256 over chunks of 1024 (the kernels' other tile
     shapes), with and without segments; CUDA-graph
     times at the non-diagonal hop (a middle hop: the carry loaded and
     stored raw) beside the plain versions and the bound. Returns one record
@@ -711,7 +743,7 @@ def kernel_flash_carry(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128):
         del q, k, v, do
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    # the forward's other tile shapes: head dims 64 and 256, chunks of 1024
+    # the kernels' other tile shapes: head dims 64 and 256, chunks of 1024
     for i, (width, causal, cut) in enumerate(((64, False, (300, 700)), (64, True, None),
                                              (256, False, None), (256, True, (300, 300)))):
         q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, 1024, width, seed=50 + i)
@@ -783,17 +815,19 @@ def kernel_flash_carry(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128):
             "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
         }
     records["flash_fwd_chunk"]["tiles"] = F.FWD_TILES[d]
+    records["flash_dq_chunk"]["tiles"] = records["flash_dkv_chunk"]["tiles"] = F.BWD_TILES[d]
     return records
 
 
-def ring_against_flash(torch, q, k, v, do, gqa):
+def ring_against_flash(torch, q, k, v, do):
     """``attention(impl="flash_ring")`` forward and backward on the current
     (loopback) topology against the single flash call on the same inputs.
-    On a card out, lse, dq and (MHA) dk, dv must be the single kernels' bits
-    and every carry kernel launches exactly N(N + 1) / 2 times in the ring
-    call, nothing else; GQA dk/dv are held per 64-row tile. On the CPU (a
-    rehearsal: plain versions on both sides) fp32 tolerances stand in for
-    bits. Returns the verdicts and the ring call's launch counts."""
+    On a card out, lse, dq, dk and dv (with GQA too: dk/dv walk query tiles
+    outer and the group's heads inner in both forms) must be the single
+    kernels' bits and every carry kernel launches exactly N(N + 1) / 2 times
+    in the ring call, nothing else. On the CPU (a rehearsal: plain versions
+    on both sides) fp32 tolerances stand in for bits. Returns the verdicts
+    and the ring call's launch counts."""
     from deepspeed_tpu_torch.ops import kernels as K
     from deepspeed_tpu_torch.ops.attention import flash as F
     from deepspeed_tpu_torch.ops.attention import sharded as S
@@ -828,9 +862,7 @@ def ring_against_flash(torch, q, k, v, do, gqa):
         same = bool(torch.equal(got, want))
         res[f"{what}_bitwise"] = same
         res[f"{what}_max_abs_err"] = float((got.float() - want.float()).abs().max())
-        if what in ("dk", "dv") and gqa:
-            res[f"{what}_tile_rel_frobenius"] = tile_rel_err(torch, f"ring {what}", got, want)
-        elif exact and not same:
+        if exact and not same:
             raise AssertionError(f"ring {what} is not the single flash kernel's bits: {res}")
         elif not exact:
             check_close(torch, f"ring {what}", got, want, FP32_ATOL, FP32_RTOL)
@@ -3129,7 +3161,7 @@ def ring_attn_phase(torch, dev, K, cases=None, seq=RING_SEQ, n=RING_N, d=128, se
             q, k, v, do = flash_inputs(torch, dev, 1, c["h"], c["h_kv"], seq, d, seed=seed + 60 + i)
             if dev.type != "cuda":
                 q, k, v, do = (t.float() for t in (q, k, v, do))
-            res = ring_against_flash(torch, q, k, v, do, gqa=c["h"] != c["h_kv"])
+            res = ring_against_flash(torch, q, k, v, do)
             leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
 
             def fwd_bwd(fn):
@@ -3925,14 +3957,25 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     builds = K.build()
+    # ptxas's -v report: spills (a "bytes spill" count above 0) and wgmma
+    # serialisation (the C75xx performance notes) are counted per build
+    # (0 and 0 when the library was already built: no report then)
+    spill = re.compile(r"\b[1-9]\d* bytes spill")
+
+    def ptxas_flags(b):
+        lines = b["ptxas"].splitlines()
+        return {"spill_lines": sum(bool(spill.search(ln)) for ln in lines),
+                "c75_lines": sum("(C75" in ln for ln in lines)}
+
     emit({"phase": "setup", "card": card, "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "builds": [{k: b[k] for k in ("name", "seconds")} for b in builds],
+          "builds": [dict({k: b[k] for k in ("name", "seconds")}, **ptxas_flags(b))
+                     for b in builds],
           "seconds": time.perf_counter() - t0})
     for b in builds:
         for line in b["ptxas"].splitlines():
-            if "ptxas info" in line and ("registers" in line or "spill" in line
-                                         or "(C75" in line):
+            if ("(C75" in line or spill.search(line)
+                    or ("ptxas info" in line and "registers" in line)):
                 print(f"  [{b['name']}] {line.strip()}", flush=True)
 
     groups = {

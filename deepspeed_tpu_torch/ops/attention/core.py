@@ -179,7 +179,10 @@ def _ring_eligible(q, k, bias, causal, window):
     above 1 and the call fits the ring's contract (the JAX package's rule:
     causal, no bias or window, one s for queries and keys, head_dim
     64/128/256, chunks of a multiple of 128 rows, shapes dividing the grid).
-    In the process form q is this rank's chunk already."""
+    Such chunks are whole tiles of every flash kernel at every head dim
+    (``sharded.ring_matches_flash``), so the ring it takes gives the single
+    kernels' bits. In the process form q is this rank's chunk already."""
+    from deepspeed_tpu_torch.ops.attention.sharded import _divisible, ring_matches_flash
     from deepspeed_tpu_torch.parallel.topology import get_topology
 
     topo = get_topology()
@@ -190,10 +193,12 @@ def _ring_eligible(q, k, bias, causal, window):
     if s != k.shape[2] or d not in (64, 128, 256):
         return False
     if topo.distributed:
-        return s % 128 == 0
-    from deepspeed_tpu_torch.ops.attention.sharded import _divisible
-
-    return s % n == 0 and (s // n) % 128 == 0 and _divisible(topo, b, h, k.shape[1], s=s)
+        chunk = s
+    elif s % n or not _divisible(topo, b, h, k.shape[1], s=s):
+        return False
+    else:
+        chunk = s // n
+    return chunk % 128 == 0 and ring_matches_flash(chunk, d)
 
 
 def attention(

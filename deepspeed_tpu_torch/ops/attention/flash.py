@@ -9,7 +9,9 @@ kernels, in ``ops/kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu``:
     dim in ``FWD_TILES``);
   * ``flash_bwd_dq``  replaces ``_bwd_dq_kernel``: dq by recompute;
   * ``flash_bwd_dkv`` replaces ``_bwd_dkv_kernel``: dk, dv by recompute,
-    summed over the GQA group inside the kernel.
+    summed over the GQA group inside the kernel
+    (both on ``flash_hopper_bwd.cuh``'s CTA bodies, wgmma fed by TMA, tiles
+    per head dim in ``BWD_TILES``).
 
 Three more, in ``flash_chunk.cu``, are the same bodies in carry mode for the
 context-parallel ring (``ops/attention/sharded.py``): ``flash_fwd_chunk``,
@@ -50,8 +52,15 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 # the single kernel only over chunks of whole key tiles (sharded.py).
 FWD_TILES = {64: dict(bq=128, bk=128, stages=2), 128: dict(bq=128, bk=128, stages=2),
              256: dict(bq=128, bk=64, stages=2)}
-# The backward kernels' query and key tiles (``csrc/flash_common.cuh`` TILE).
-BWD_TILE = 64
+# The backward kernels' tiles per head dim (``csrc/flash_hopper_bwd.cuh``
+# ``BwdTiles``): dq's query rows a CTA (bq) and key rows a stage (bk), dk/dv's
+# key rows a CTA (kv_bk) and query rows a stage (kv_bq), the stages of each
+# ring. dq's rows depend on where its key tiles start and dk/dv's on where
+# its query tiles start (the GQA group's heads inner), so the ring matches
+# the single kernels only over chunks of whole tiles of both (sharded.py).
+BWD_TILES = {64: dict(bq=128, bk=64, kv_bk=128, kv_bq=64, stages=3, kv_stages=3),
+             128: dict(bq=128, bk=64, kv_bk=128, kv_bq=64, stages=3, kv_stages=3),
+             256: dict(bq=128, bk=32, kv_bk=64, kv_bq=64, stages=3, kv_stages=1)}
 
 
 def _scale(q, scale):

@@ -34,13 +34,16 @@ Schedule (``sharded.py:266-432`` in the JAX package):
 Arrival in ascending global order is the single kernel's streaming order.
 The forward runs the single forward's CTA body, whose rows depend on where
 their key tiles start (``FWD_TILES[d]["bk"]``: 128 keys at d 64 and 128, 64
-at d 256), and the backward the single backward's 64-row tiles
-(``BWD_TILE``). So with chunks that are whole tiles of both
+at d 256), and the backward the single backward's bodies, dq's rows on where
+its key tiles start (``BWD_TILES[d]["bk"]``: 64, 32 at d 256) and dk/dv's on
+where its query tiles start (``BWD_TILES[d]["kv_bq"]``: 64), the GQA group's
+heads inner in both forms. So with chunks that are whole tiles of all three
 (``ring_matches_flash``: chunks of a multiple of 128 rows at every d) the
-ring's out, lse, dq and (with h == h_kv) dk, dv are the single flash
-kernels' bits; other chunks give the same function rounded differently
-(an fp32 rescale falls elsewhere). "auto" promotes to the ring only at
-chunks of a multiple of 128 rows (``core._ring_eligible``). The chunk
+ring's out, lse, dq, dk and dv (GQA too) are the single flash kernels' bits;
+other chunks give the same function rounded differently (an fp32 rescale
+or a partial sum falls elsewhere). "auto" promotes to the ring only at
+chunks of a multiple of 128 rows (``core._ring_eligible``), the JAX
+package's rule, where the bits hold at every d. The chunk
 kernels finalize on a row's last hop, through the single kernels'
 epilogues. Causal only, no window, no ALiBi, s divisible by N: each other
 case raises.
@@ -49,7 +52,7 @@ case raises.
 import torch
 
 from deepspeed_tpu_torch.ops.attention.flash import (
-    BWD_TILE,
+    BWD_TILES,
     FWD_TILES,
     flash_attention,
     flash_dkv_chunk,
@@ -61,9 +64,10 @@ from deepspeed_tpu_torch.parallel.topology import CONTEXT_AXIS, get_topology
 
 def ring_matches_flash(chunk, d):
     """Whether the ring over chunks of ``chunk`` rows at head dim ``d``
-    gives the single flash kernels' bits on a card: no forward key tile
-    and no backward tile straddles a chunk boundary."""
-    return chunk % FWD_TILES[d]["bk"] == 0 and chunk % BWD_TILE == 0
+    gives the single flash kernels' bits on a card: no forward key tile,
+    no dq key tile and no dk/dv query tile straddles a chunk boundary."""
+    tiles = (FWD_TILES[d]["bk"], BWD_TILES[d]["bk"], BWD_TILES[d]["kv_bq"])
+    return all(chunk % t == 0 for t in tiles)
 
 
 def _divisible(topo, b, h, h_kv, s=None):

@@ -15,43 +15,35 @@
 // (else it is seeded as the single kernel seeds it: m = -inf, l = 0, acc
 // = 0), FINAL writes the outputs instead of the raw carry, through the
 // single kernels' own epilogues (flash_hopper.cuh's store_out: o / max(l,
-// 1e-30) in bf16 and m + log(max(l, 1e-30)); store_rows: dq * scale, dk *
-// scale, dv in bf16).
+// 1e-30) in bf16 and m + log(max(l, 1e-30)); flash_hopper_bwd.cuh's
+// acc_store_bf16: dq * scale, dk * scale, dv in bf16).
 //
 // Bound: operations, as the single kernels (4, 6 and 8 * d FLOPs per
 // visible pair), plus the carry: acc [s, d] and m, l read and written in
 // fp32 per hop (about 2 x 4 bytes per element of a [s, d] head, small
 // beside the pairs' work at chunks of thousands of rows).
 //
-// Design. The forward runs flash_hopper.cuh's CTA body, the single
-// forward's (flash_fwd.cu): wgmma fed by TMA, 128-query tiles, key tiles
-// of FwdTiles<d>::BK, the same pruning and visiting order, with the state
-// seeded from the carry (m, l per row; acc in the wgmma accumulator
-// layout, fp32, so nothing rounds between hops) and stored back to it.
-// dq and dk/dv are the single backward kernels' CTAs (flash_bwd.cu: 4
-// warps, 64-row tiles, mma.sync, flash_common.cuh's dq_tile / dkv_tile and
-// the same tile ranges, pruning and visiting order), with the accumulators
-// loaded from and stored to the carry in their fragment layout. The ring
-// hands chunks over in ascending global order (fwd and dq: keys 0 .. i,
-// the diagonal last; dkv: queries i .. N-1, the diagonal first), so every
-// accumulator sees the same tiles in the same order as in the single
-// kernel and the results are its bits, for dk/dv when h == h_kv, when the
-// chunks are whole tiles of each (sharded.py). With GQA the single dk/dv
-// kernel sums group head by group head over the whole sequence; the ring
-// sums chunk by chunk, group inside, which rounds differently. A
-// non-diagonal chunk is called non-causal (every pair visible), the
-// diagonal causal in local positions, so the tiles that run are the single
-// kernel's. Segment ids come as two planes, the home chunk's and the
-// visitor's.
-#include "flash_common.cuh"
-#include "flash_hopper.cuh"
+// Design. Each kernel runs its single kernel's CTA body: the forward
+// flash_hopper.cuh's (flash_fwd.cu), dq and dk/dv flash_hopper_bwd.cuh's
+// (flash_bwd.cu): wgmma fed by TMA, the same tiles per d, pruning and
+// visiting order, with the sums seeded from the carry (m, l per row; acc,
+// dq, dk, dv in the wgmma accumulator layout, fp32, so nothing rounds
+// between hops) and stored back to it. The ring hands chunks over in
+// ascending global order (fwd and dq: keys 0 .. i, the diagonal last; dkv:
+// queries i .. N-1, the diagonal first), and dk/dv walks query tiles outer
+// and the GQA group's heads inner in both forms, so every accumulator sees
+// the same tiles in the same order as in the single kernel and the results
+// are its bits (dk/dv with GQA too) when the chunks are whole tiles of each
+// (sharded.py). A non-diagonal chunk is called non-causal (every pair
+// visible), the diagonal causal in local positions, so the tiles that run
+// are the single kernel's. Segment ids come as two planes, the home
+// chunk's and the visitor's.
+#include "flash_hopper_bwd.cuh"
 
 namespace {
 
 using namespace dstt::flash;
 
-constexpr int BQ = TILE;
-constexpr int BK = TILE;
 constexpr int LOAD = 1;
 constexpr int FINAL = 2;
 
@@ -63,70 +55,6 @@ struct Chunk {
   const int* seg_k;  // [b, s] key ids (the visitor for fwd/dq) or null
   int flags;
 };
-
-template <int D>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(bf16) * (2 * BQ + 2 * BK) * (D + PAD_H) +
-         sizeof(float) * 2 * BQ + sizeof(int) * (BQ + BK + 2);
-}
-
-// The lane's rows row0 / row1 of an fp32 [s, D] carry, columns c0 .. c0 +
-// DC, into C-tile accumulators (zeros past s) and back.
-template <int D, int DC>
-__device__ __forceinline__ void carry_load(float (&acc)[DC / 8][4], const float* base, int row0,
-                                           int row1, int s, int c0, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j) {
-    const int c = c0 + j * 8 + 2 * t;
-    const float2 a = row0 < s ? *reinterpret_cast<const float2*>(base + (int64_t)row0 * D + c)
-                              : make_float2(0.f, 0.f);
-    const float2 b = row1 < s ? *reinterpret_cast<const float2*>(base + (int64_t)row1 * D + c)
-                              : make_float2(0.f, 0.f);
-    acc[j][0] = a.x;
-    acc[j][1] = a.y;
-    acc[j][2] = b.x;
-    acc[j][3] = b.y;
-  }
-}
-
-template <int D, int DC>
-__device__ __forceinline__ void carry_store(float* base, const float (&acc)[DC / 8][4], int row0,
-                                            int row1, int s, int c0, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j) {
-    const int c = c0 + j * 8 + 2 * t;
-    if (row0 < s)
-      *reinterpret_cast<float2*>(base + (int64_t)row0 * D + c) = make_float2(acc[j][0], acc[j][1]);
-    if (row1 < s)
-      *reinterpret_cast<float2*>(base + (int64_t)row1 * D + c) = make_float2(acc[j][2], acc[j][3]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-}
-
-// The ids of a 64-row tile of one plane into shared memory and their
-// [min, max] into range (when seg is set); ends with a barrier.
-__device__ __forceinline__ void tile_ids(const int* seg, int r0, int s, int* ids, int* range) {
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    range[0] = 0x7fffffff;
-    range[1] = -0x7fffffff - 1;
-  }
-  __syncthreads();
-  if (seg && tid < TILE && r0 + tid < s) {
-    const int sv = seg[r0 + tid];
-    ids[tid] = sv;
-    atomicMin(&range[0], sv);
-    atomicMax(&range[1], sv);
-  }
-  __syncthreads();
-}
 
 // ---------------------------------------------------------------------------
 namespace fh = dstt::flash_hopper;
@@ -140,7 +68,7 @@ __global__ void __launch_bounds__(fh::THREADS, 1)
                            Chunk c) {
   extern __shared__ unsigned char smem_raw[];
   const Problem& p = c.p;
-  const fh::Tile tile = fh::make_tile<D>(p, c.seg_q, c.seg_k);
+  const fh::Tile tile = fh::make_tile<fh::FwdTiles<D>::BQ>(p, c.seg_q, c.seg_k);
   const int64_t rows = (int64_t)tile.bh * p.s;
   fh::fwd_cta<D>(
       smem_raw, &qmap, &kmap, &vmap, p, tile,
@@ -166,175 +94,76 @@ __global__ void __launch_bounds__(fh::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// maps: q, dO, k, v (fh::encode_dq_maps)
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_dq_chunk_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    float* dq_c, bf16* __restrict__ dq, Chunk c) {
-  constexpr int LD = D + PAD_H;
+__global__ void __launch_bounds__(fh::THREADS, 1)
+    flash_dq_chunk_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ o,
+                          const bf16* __restrict__ dout, const float* __restrict__ lse,
+                          float* dq_c, bf16* __restrict__ dq, Chunk c) {
+  extern __shared__ unsigned char smem_raw[];
   const Problem& p = c.p;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + BK * LD);
-  float* delta_s = lse_s + BQ;
-  int* segq = reinterpret_cast<int*>(delta_s + BQ);
-  int* segk = segq + BQ;
-  int* qrange = segk + BK;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  const int q0 = heavy_first_query_tile(p, gridDim.y) * BQ;
-  const int bh = blockIdx.x;
-  const int bi = bh / p.h, hi = bh % p.h;
-  const int kvh = hi / (p.h / p.h_kv);
-  const int64_t qoff = (int64_t)bh * p.s * D;
-  const bf16* kb = k + ((int64_t)bi * p.h_kv + kvh) * p.s * D;
-  const bf16* vb = v + ((int64_t)bi * p.h_kv + kvh) * p.s * D;
-  const int* sq = c.seg_q ? c.seg_q + (int64_t)bi * p.s : nullptr;
-  const int* sk = c.seg_k ? c.seg_k + (int64_t)bi * p.s : nullptr;
-  const bool seg = sq != nullptr;
-
-  load_tile<BQ, D>(Qs, q + qoff, q0, p.s);
-  load_tile<BQ, D>(dOs, dout + qoff, q0, p.s);
-  if (tid < BQ) lse_s[tid] = q0 + tid < p.s ? lse[(int64_t)bh * p.s + q0 + tid] : 0.f;
-  tile_ids(sq, q0, p.s, segq, qrange);
-  row_delta<D>(dOs, o + qoff, q0, p.s, delta_s);
-  __syncthreads();
-  const int qmin = qrange[0], qmax = qrange[1];
-
-  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
-  const int row0 = q0 + lr0, row1 = q0 + lr1;
-  const int sr0 = (seg && row0 < p.s) ? segq[lr0] : 0;
-  const int sr1 = (seg && row1 < p.s) ? segq[lr1] : 0;
-  const float lse_r[2] = {lse_s[lr0], lse_s[lr1]};
-  const float del_r[2] = {delta_s[lr0], delta_s[lr1]};
-
-  float acc[D / 8][4];
-  if (c.flags & LOAD) {
-    carry_load<D, D>(acc, dq_c + qoff, row0, row1, p.s, 0, lane);
-  } else {
-    zero(acc);
-  }
-
-  int lo, hi_k;
-  key_tiles<BQ, BK>(p, q0, lo, hi_k);
-  for (int k0 = lo; k0 < hi_k; k0 += BK) {
-    int mine = 1, sv = 0;
-    if (seg) {
-      mine = 0;
-      if (tid < BK && k0 + tid < p.s) {
-        sv = sk[k0 + tid];
-        mine = sv >= qmin && sv <= qmax;
-      }
-    }
-    if (!__syncthreads_or(mine)) continue;
-    if (seg && tid < BK) segk[tid] = sv;
-    load_tile<BK, D>(Ks, kb, k0, p.s);
-    load_tile<BK, D>(Vs, vb, k0, p.s);
-    __syncthreads();
-
-    dq_tile<D>(acc, Qs, dOs, Ks, Vs, p.scale, lse_r, del_r, [&](int col, bool upper) {
-      const bool ok = visible(p, upper ? row0 : row1, k0 + col);
-      return seg ? ok && segk[col] == (upper ? sr0 : sr1) : ok;
-    }, warp, lane);
-  }
-  if (c.flags & FINAL) {
-    store_rows<D, D>(dq + qoff, acc, p.scale, row0, row1, p.s, 0, lane);
-  } else {
-    carry_store<D, D>(dq_c + qoff, acc, row0, row1, p.s, 0, lane);
-  }
+  const CUtensorMap* maps[4] = {&qmap, &domap, &kmap, &vmap};
+  const fh::Tile tile = fh::make_tile<fh::BwdTiles<D>::BQ>(p, c.seg_q, c.seg_k);
+  const int64_t head = (int64_t)tile.bh * p.s;
+  fh::dq_cta<D>(
+      smem_raw, maps, p, tile, o + head * D, dout + head * D, lse + head,
+      [&](auto& acc, int row0, int row1, int tq) {
+        const int64_t at = (int64_t)blockIdx.x * p.s * D;  // the CTA's (batch, head)
+        if (c.flags & LOAD) fh::acc_load<D>(acc, dq_c + at, row0, row1, p.s, 0, D, tq);
+        else fh::acc_zero(acc);
+      },
+      [&](const auto& acc, int row0, int row1, int tq) {
+        const int64_t at = (int64_t)blockIdx.x * p.s * D;
+        if (c.flags & FINAL) {
+          fh::acc_store_bf16<D>(dq + at, acc, p.scale, row0, row1, p.s, 0, D, tq);
+        } else {
+          fh::acc_store<D>(dq_c + at, acc, row0, row1, p.s, 0, D, tq);
+        }
+      });
 }
 
 // ---------------------------------------------------------------------------
-template <int D, int DC>
-__global__ void __launch_bounds__(NTHREADS) flash_dkv_chunk_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    float* dk_c, float* dv_c, bf16* __restrict__ dk, bf16* __restrict__ dv, Chunk c) {
-  constexpr int LD = D + PAD_H;
+// maps: k, v, q, dO, o (fh::encode_dkv_maps)
+template <int D>
+__global__ void __launch_bounds__(fh::THREADS, 1)
+    flash_dkv_chunk_kernel(const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const __grid_constant__ CUtensorMap omap, const float* __restrict__ lse,
+                           float* dk_c, float* dv_c, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, Chunk c) {
+  extern __shared__ unsigned char smem_raw[];
   const Problem& p = c.p;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + BK * LD);
-  float* delta_s = lse_s + BQ;
-  int* segq = reinterpret_cast<int*>(delta_s + BQ);
-  int* segk = segq + BQ;
-  int* krange = segk + BK;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  const int k0 = blockIdx.y * BK;
-  const int bkv = blockIdx.x;
-  const int bi = bkv / p.h_kv, kvh = bkv % p.h_kv;
-  const int group = p.h / p.h_kv;
-  const int64_t kvoff = (int64_t)bkv * p.s * D;
-  const int* sq = c.seg_q ? c.seg_q + (int64_t)bi * p.s : nullptr;  // the visitor's
-  const int* sk = c.seg_k ? c.seg_k + (int64_t)bi * p.s : nullptr;  // the home keys'
-  const bool seg = sq != nullptr;
-
-  load_tile<BK, D>(Ks, k + kvoff, k0, p.s);
-  load_tile<BK, D>(Vs, v + kvoff, k0, p.s);
-  tile_ids(sk, k0, p.s, segk, krange);
-  const int kmin = krange[0], kmax = krange[1];
-
-  const int lk0 = warp * 16 + g, lk1 = lk0 + 8;
-  const int key0 = k0 + lk0, key1 = k0 + lk1;
-  const int sk0 = (seg && key0 < p.s) ? segk[lk0] : 0;
-  const int sk1 = (seg && key1 < p.s) ? segk[lk1] : 0;
-
-  int lo, hi_q;
-  query_tiles<BQ, BK>(p, k0, lo, hi_q);
-  for (int c0 = 0; c0 < D; c0 += DC) {
-    float dka[DC / 8][4], dva[DC / 8][4];
-    if (c.flags & LOAD) {
-      carry_load<D, DC>(dka, dk_c + kvoff, key0, key1, p.s, c0, lane);
-      carry_load<D, DC>(dva, dv_c + kvoff, key0, key1, p.s, c0, lane);
-    } else {
-      zero(dka);
-      zero(dva);
-    }
-    for (int gq = 0; gq < group; ++gq) {
-      const int64_t qoff = ((int64_t)bi * p.h + kvh * group + gq) * p.s * D;
-      const float* lseb = lse + ((int64_t)bi * p.h + kvh * group + gq) * p.s;
-      for (int q0 = lo; q0 < hi_q; q0 += BQ) {
-        int mine = 1, sv = 0;
-        if (seg) {
-          mine = 0;
-          if (tid < BQ && q0 + tid < p.s) {
-            sv = sq[q0 + tid];
-            mine = sv >= kmin && sv <= kmax;
-          }
+  const CUtensorMap* maps[5] = {&kmap, &vmap, &qmap, &domap, &omap};
+  const fh::KvTile kt = fh::make_kv_tile<D>(p, c.seg_q, c.seg_k);
+  fh::dkv_cta<D>(
+      smem_raw, maps, p, kt, lse,
+      [&](auto& dka, auto& dva, int key0, int key1, int c0, int tq) {
+        constexpr int DC = 2 * (int)(sizeof(dka) / sizeof(float));
+        const int64_t at = (int64_t)blockIdx.x * p.s * D;  // the CTA's (batch, kv head)
+        if (c.flags & LOAD) {
+          fh::acc_load<DC>(dka, dk_c + at, key0, key1, p.s, c0, D, tq);
+          fh::acc_load<DC>(dva, dv_c + at, key0, key1, p.s, c0, D, tq);
+        } else {
+          fh::acc_zero(dka);
+          fh::acc_zero(dva);
         }
-        if (!__syncthreads_or(mine)) continue;
-        if (seg && tid < BQ) segq[tid] = sv;
-        load_tile<BQ, D>(Qs, q + qoff, q0, p.s);
-        load_tile<BQ, D>(dOs, dout + qoff, q0, p.s);
-        if (tid < BQ) lse_s[tid] = q0 + tid < p.s ? lseb[q0 + tid] : 0.f;
-        __syncthreads();
-        row_delta<D>(dOs, o + qoff, q0, p.s, delta_s);
-        __syncthreads();
-
-        dkv_tile<D, DC>(dka, dva, Ks, Vs, Qs, dOs, lse_s, delta_s, p.scale,
-                        [&](int col, bool upper) {
-                          const bool ok = visible(p, q0 + col, upper ? key0 : key1);
-                          return seg ? ok && segq[col] == (upper ? sk0 : sk1) : ok;
-                        }, c0, warp, lane);
-      }
-    }
-    if (c.flags & FINAL) {
-      store_rows<D, DC>(dk + kvoff, dka, p.scale, key0, key1, p.s, c0, lane);
-      store_rows<D, DC>(dv + kvoff, dva, 1.f, key0, key1, p.s, c0, lane);
-    } else {
-      carry_store<D, DC>(dk_c + kvoff, dka, key0, key1, p.s, c0, lane);
-      carry_store<D, DC>(dv_c + kvoff, dva, key0, key1, p.s, c0, lane);
-    }
-  }
+      },
+      [&](const auto& dka, const auto& dva, int key0, int key1, int c0, int tq) {
+        constexpr int DC = 2 * (int)(sizeof(dka) / sizeof(float));
+        const int64_t at = (int64_t)blockIdx.x * p.s * D;
+        if (c.flags & FINAL) {
+          fh::acc_store_bf16<DC>(dk + at, dka, p.scale, key0, key1, p.s, c0, D, tq);
+          fh::acc_store_bf16<DC>(dv + at, dva, 1.f, key0, key1, p.s, c0, D, tq);
+        } else {
+          fh::acc_store<DC>(dk_c + at, dka, key0, key1, p.s, c0, D, tq);
+          fh::acc_store<DC>(dv_c + at, dva, key0, key1, p.s, c0, D, tq);
+        }
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -374,30 +203,31 @@ int launch_fwd(const void* q, const void* k, const void* v, void* m, void* l, vo
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* dq_c, void* dq, const Chunk& c, cudaStream_t stream) {
-  const size_t bytes = bwd_smem_bytes<D>();
+  CUtensorMap maps[4];
+  if (int e = fh::encode_dq_maps<D>(maps, q, dout, k, v, c.p)) return e;
+  constexpr int bytes = fh::DqSmem<D>::BYTES;
   static size_t have = 0;
   if (int e = set_max_smem(flash_dq_chunk_kernel<D>, bytes, have)) return e;
-  const dim3 grid((unsigned)(c.p.b * c.p.h), (unsigned)((c.p.s + BQ - 1) / BQ));
-  flash_dq_chunk_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dq_c), static_cast<bf16*>(dq), c);
+  flash_dq_chunk_kernel<D><<<fh::dq_grid<D>(c.p), fh::THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<float*>(dq_c),
+      static_cast<bf16*>(dq), c);
   return (int)cudaGetLastError();
 }
 
-template <int D, int DC>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const void* lse, void* dk_c, void* dv_c, void* dk, void* dv, const Chunk& c,
                cudaStream_t stream) {
-  const size_t bytes = bwd_smem_bytes<D>();
+  CUtensorMap maps[5];
+  if (int e = fh::encode_dkv_maps<D>(maps, q, dout, o, k, v, c.p)) return e;
+  constexpr int bytes = fh::DkvSmem<D>::BYTES;
   static size_t have = 0;
-  if (int e = set_max_smem(flash_dkv_chunk_kernel<D, DC>, bytes, have)) return e;
-  const dim3 grid((unsigned)(c.p.b * c.p.h_kv), (unsigned)((c.p.s + BK - 1) / BK));
-  flash_dkv_chunk_kernel<D, DC><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dk_c), static_cast<float*>(dv_c),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), c);
+  if (int e = set_max_smem(flash_dkv_chunk_kernel<D>, bytes, have)) return e;
+  flash_dkv_chunk_kernel<D><<<fh::dkv_grid<D>(c.p), fh::THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const float*>(lse),
+      static_cast<float*>(dk_c), static_cast<float*>(dv_c), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), c);
   return (int)cudaGetLastError();
 }
 
@@ -455,9 +285,9 @@ extern "C" int dstt_flash_dkv_chunk(const void* q, const void* k, const void* v,
   const Chunk c = make_chunk(b, h, h_kv, s, scale, causal, seg_q, seg_k, flags);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch_dkv<64, 64>(q, k, v, o, dout, lse, dk_c, dv_c, dk, dv, c, st);
-    case 128: return launch_dkv<128, 128>(q, k, v, o, dout, lse, dk_c, dv_c, dk, dv, c, st);
-    case 256: return launch_dkv<256, 128>(q, k, v, o, dout, lse, dk_c, dv_c, dk, dv, c, st);
+    case 64: return launch_dkv<64>(q, k, v, o, dout, lse, dk_c, dv_c, dk, dv, c, st);
+    case 128: return launch_dkv<128>(q, k, v, o, dout, lse, dk_c, dv_c, dk, dv, c, st);
+    case 256: return launch_dkv<256>(q, k, v, o, dout, lse, dk_c, dv_c, dk, dv, c, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

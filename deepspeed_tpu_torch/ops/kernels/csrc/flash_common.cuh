@@ -2,17 +2,16 @@
 // kernels built on the same mainloop: the problem description, the
 // visibility rule of a (query, key) pair, the range of key tiles a query
 // tile needs (and of query tiles a key tile needs) and the causal order of
-// query tiles, which the wgmma forward (flash_hopper.cuh: flash_fwd.cu and
-// the ring's forward in flash_chunk.cu) shares too; and for the mma.sync
-// kernels (the flash backward flash_bwd.cu and the ring's dq and dk/dv,
-// splash_fwd.cu, splash_bwd.cu, sparse_fwd.cu, sparse_bwd.cu): tile loads
-// into padded shared memory, the tensor-core primitives (ldmatrix loads of
-// 16x16 bf16 fragments from shared memory and mma.sync m16n8k16, bf16 in,
-// fp32 accumulate), the backward's pieces (the per-row delta, two products
-// into C tiles, a C-tile product accumulated against a shared tile), and
-// the per-tile bodies: the forward's tile and epilogue (splash and sparse
-// only), the dq tile, the dk/dv tile, each taking the family's rule for a
-// kept pair.
+// query tiles, which the wgmma flash kernels (flash_hopper.cuh and
+// flash_hopper_bwd.cuh: flash_fwd.cu, flash_bwd.cu and the ring's
+// flash_chunk.cu) share too; and for the mma.sync kernels (splash_fwd.cu,
+// splash_bwd.cu, sparse_fwd.cu, sparse_bwd.cu): tile loads into padded
+// shared memory, the tensor-core primitives (ldmatrix loads of 16x16 bf16
+// fragments from shared memory and mma.sync m16n8k16, bf16 in, fp32
+// accumulate), the backward's pieces (the per-row delta, two products into
+// C tiles, a C-tile product accumulated against a shared tile), and the
+// per-tile bodies: the forward's tile and epilogue, the dq tile, the dk/dv
+// tile, each taking the family's rule for a kept pair.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA), lane = 4 * g + t:
 //   A 16x16: a[0] = (row g,   cols 2t, 2t+1)   a[1] = (row g+8, cols 2t, 2t+1)
@@ -35,7 +34,7 @@ namespace flash {
 
 using bf16 = __nv_bfloat16;
 
-// query and key tiles of every flash and splash kernel: 64 rows, 16 per warp
+// query and key tiles of the mma.sync kernels: 64 rows, 16 per warp
 constexpr int TILE = 64;
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
@@ -180,7 +179,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// backward pieces (flash_bwd.cu, splash_bwd.cu)
+// backward pieces (splash_bwd.cu, sparse_bwd.cu)
 // delta[r] = sum_c do[r, c] * o[r, c] in fp32 for the TILE rows of a tile,
 // two threads per row, 16-byte loads of o issued together (dOs is the
 // shared dO tile, ob the global o rows of this head).

@@ -36,7 +36,7 @@ __global__ void __launch_bounds__(fh::THREADS, 1)
                      const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
                      float* __restrict__ lse, Problem p) {
   extern __shared__ unsigned char smem_raw[];
-  const fh::Tile tile = fh::make_tile<D>(p, p.seg, p.seg);
+  const fh::Tile tile = fh::make_tile<fh::FwdTiles<D>::BQ>(p, p.seg, p.seg);
   bf16* ob = out + (int64_t)tile.bh * p.s * D;
   float* lseb = lse + (int64_t)tile.bh * p.s;
   fh::fwd_cta<D>(

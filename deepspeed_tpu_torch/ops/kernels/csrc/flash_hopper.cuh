@@ -129,21 +129,22 @@ struct Smem {
   __device__ unsigned char* v(int st) const { return k(st) + KV_BYTES; }
 };
 
-// Where a CTA sits: its (batch, head) and first query row, its kv head,
-// and the id planes of its batch row (queries, keys; null without ids).
+// Where a CTA of BQ query rows sits: its (batch, head) and first query row,
+// its kv head, and the id planes of its batch row (queries, keys; null
+// without ids). Query tiles go heaviest first under a causal mask.
 struct Tile {
   int bh, bkv, q0;
   const int* segq;
   const int* segk;
 };
 
-template <int D>
+template <int BQ>
 __device__ __forceinline__ Tile make_tile(const Problem& p, const int* seg_q, const int* seg_k) {
   Tile t;
   t.bh = blockIdx.x;
   const int bi = t.bh / p.h, hi = t.bh % p.h;
   t.bkv = bi * p.h_kv + hi / (p.h / p.h_kv);
-  t.q0 = dstt::flash::heavy_first_query_tile(p, gridDim.y) * FwdTiles<D>::BQ;
+  t.q0 = dstt::flash::heavy_first_query_tile(p, gridDim.y) * BQ;
   t.segq = seg_q ? seg_q + (int64_t)bi * p.s : nullptr;
   t.segk = seg_k ? seg_k + (int64_t)bi * p.s : nullptr;
   return t;
@@ -198,6 +199,62 @@ __device__ __forceinline__ void store_out(bf16* ob, float* lseb, const float (&o
   }
 }
 
+// An m64nN accumulator (N / 2 registers) against rows row0 / row1 and
+// columns c0 + 8 j + 2 tq (+1) of a [s, ld] matrix: fp32 in (zeros past s),
+// fp32 out, or times mul rounded to bf16 out (rows below s).
+template <int N>
+__device__ __forceinline__ void acc_load(float (&a)[N / 2], const float* base, int row0, int row1,
+                                         int s, int c0, int ld, int tq) {
+  const int rows[2] = {row0, row1};
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const bool in = rows[u] < s;
+    const float* r = base + (int64_t)rows[u] * ld + c0 + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float2 v = in ? *reinterpret_cast<const float2*>(r + 8 * j) : make_float2(0.f, 0.f);
+      a[4 * j + 2 * u] = v.x;
+      a[4 * j + 2 * u + 1] = v.y;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void acc_store(float* base, const float (&a)[N / 2], int row0,
+                                          int row1, int s, int c0, int ld, int tq) {
+  const int rows[2] = {row0, row1};
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (rows[u] >= s) continue;
+    float* r = base + (int64_t)rows[u] * ld + c0 + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(r + 8 * j) = make_float2(a[4 * j + 2 * u], a[4 * j + 2 * u + 1]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void acc_store_bf16(bf16* base, const float (&a)[N / 2], float mul,
+                                               int row0, int row1, int s, int c0, int ld,
+                                               int tq) {
+  const int rows[2] = {row0, row1};
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (rows[u] >= s) continue;
+    bf16* r = base + (int64_t)rows[u] * ld + c0 + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) =
+          __floats2bfloat162_rn(a[4 * j + 2 * u] * mul, a[4 * j + 2 * u + 1] * mul);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void acc_zero(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
+}
+
 // The raw fp32 state of rows row0 / row1 (m, l [s]; acc [s, D]) into the
 // registers (m -inf, l 0, O 0 past s) and back (rows below s).
 template <int D>
@@ -210,14 +267,8 @@ __device__ __forceinline__ void carry_load(float (&o)[D / 2], float (&m)[2], flo
     const bool in = rows[u] < s;
     m[u] = in ? mb[rows[u]] : -INFINITY;
     l[u] = in ? lb[rows[u]] : 0.f;
-    const float* arow = accb + (int64_t)rows[u] * D + 2 * tq;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float2 a = in ? *reinterpret_cast<const float2*>(arow + 8 * j) : make_float2(0.f, 0.f);
-      o[4 * j + 2 * u] = a.x;
-      o[4 * j + 2 * u + 1] = a.y;
-    }
   }
+  acc_load<D>(o, accb, row0, row1, s, 0, D, tq);
 }
 
 template <int D>
@@ -225,18 +276,15 @@ __device__ __forceinline__ void carry_store(float* mb, float* lb, float* accb,
                                             const float (&o)[D / 2], const float (&m)[2],
                                             const float (&l)[2], int row0, int row1, int s,
                                             int tq) {
-  const int rows[2] = {row0, row1};
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    if (rows[u] >= s) continue;
-    float* arow = accb + (int64_t)rows[u] * D + 2 * tq;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(arow + 8 * j) = make_float2(o[4 * j + 2 * u], o[4 * j + 2 * u + 1]);
+  acc_store<D>(accb, o, row0, row1, s, 0, D, tq);
+  if (tq == 0) {  // m and l are equal across the 4 lanes of a row
+    if (row0 < s) {
+      mb[row0] = m[0];
+      lb[row0] = l[0];
     }
-    if (tq == 0) {  // m and l are equal across the 4 lanes of a row
-      mb[rows[u]] = m[u];
-      lb[rows[u]] = l[u];
+    if (row1 < s) {
+      mb[row1] = m[1];
+      lb[row1] = l[1];
     }
   }
 }

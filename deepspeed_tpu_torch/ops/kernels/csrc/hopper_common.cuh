@@ -10,10 +10,10 @@
 //    cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint so that
 //    the build needs no -lcuda;
 //  * wgmma shared-memory matrix descriptors for 128-byte-swizzled bf16
-//    operands, K-major and MN-major, and wgmma.mma_async m64n64k16 /
-//    m64n128k16 / m64n256k16 (bf16 in, fp32 accumulators in registers),
-//    with A from shared memory or (the _rs forms) from registers, and its
-//    fence, commit and wait;
+//    operands, K-major and MN-major, and wgmma.mma_async m64n32k16 /
+//    m64n64k16 / m64n128k16 / m64n256k16 (bf16 in, fp32 accumulators in
+//    registers), with A from shared memory or (the _rs forms of n64 and up)
+//    from registers, and its fence, commit and wait;
 //  * setmaxnreg, named barriers (sync and arrive), the generic-to-async
 //    proxy fence;
 //  * red.global.add.v2.f32 of an accumulator fragment into an fp32 plane
@@ -212,6 +212,21 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], both from shared memory (as
+// wgmma_m64n128k16)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a, uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
@@ -425,20 +440,39 @@ inline TmaEncode tma_encoder(int* err) {
   return encode;
 }
 
-inline int encode_tma_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
-                         uint64_t ld, uint32_t box_outer) {
+// cuTensorMapEncodeTiled with the 128-byte swizzle and zero fill. It needs a
+// current context on the calling thread, and a thread that has made no CUDA
+// call yet has none (PyTorch's autograd thread when a kernel here is its
+// first CUDA work, or any new thread): on a failure the context of the
+// device that holds `base` is made current and the encode tried once more.
+inline int encode_tiled(CUtensorMap* map, cuuint32_t rank, const void* base,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box, const cuuint32_t* elem) {
   int err = 0;
   const TmaEncode encode = tma_encoder(&err);
   if (encode == nullptr) return err;
+  for (int attempt = 0; attempt < 2; ++attempt) {
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r == CUDA_SUCCESS) return 0;
+    cudaPointerAttributes a;
+    if (attempt > 0 || cudaPointerGetAttributes(&a, base) != cudaSuccess ||
+        cudaSetDevice(a.device) != cudaSuccess) {
+      break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+inline int encode_tma_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+                         uint64_t ld, uint32_t box_outer) {
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {ld * sizeof(__nv_bfloat16)};
   const cuuint32_t box[2] = {64, box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_tiled(map, 2, base, dims, strides, box, elem);
 }
 
 // A map of `mats` row-major [rows, 64 * k] bf16 matrices stored one after
@@ -447,19 +481,12 @@ inline int encode_tma_2d(CUtensorMap* map, const void* base, uint64_t inner, uin
 // past a matrix's last row read as zero, not as the next matrix's rows.
 inline int encode_tma_3d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t rows,
                          uint64_t mats, uint32_t box_rows) {
-  int err = 0;
-  const TmaEncode encode = tma_encoder(&err);
-  if (encode == nullptr) return err;
   const cuuint64_t dims[3] = {inner, rows, mats};
   const cuuint64_t strides[2] = {inner * sizeof(__nv_bfloat16),
                                  rows * inner * sizeof(__nv_bfloat16)};
   const cuuint32_t box[3] = {64, box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_tiled(map, 3, base, dims, strides, box, elem);
 }
 
 }  // namespace dstt

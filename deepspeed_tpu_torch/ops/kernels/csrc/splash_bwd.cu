@@ -12,10 +12,10 @@
 // pair (q k^T, do v^T, ds k), dk/dv 4 (q k^T, do v^T, p^T do, ds^T q); the
 // bytes are a few reads of q, k, v, o, do.
 //
-// Design (flash_bwd.cu's grids and per-tile bodies, flash_common.cuh's
-// dq_tile and dkv_tile, with splash's rule for a kept pair; CTAs of 4 warps,
-// each warp owning 16 rows, every accumulator in registers, P and dS turned
-// into A fragments without leaving registers):
+// Design (flash_common.cuh's per-tile bodies dq_tile and dkv_tile, with
+// splash's rule for a kept pair; CTAs of 4 warps, each warp owning 16 rows,
+// every accumulator in registers, P and dS turned into A fragments without
+// leaving registers):
 //  * dq: one CTA per (64-query tile, b * h); walks the kv blocks of its
 //    schedule row (kind-0 steps skipped, each block as 64-key tiles);
 //    dQ += dS K; scaled once at the end.

@@ -459,6 +459,7 @@ def test_flash_kernel_cases_on_plain_inputs(monkeypatch):
     assert {c["d"] for c in cases.values()} == set(F.FWD_TILES)
     tail = cases["s200_noncausal"]
     assert not tail["causal"] and all(tail["s"] % t["bk"] for t in F.FWD_TILES.values())
+    assert all(tail["s"] % t[key] for t in F.BWD_TILES.values() for key in ("bk", "kv_bq"))
     assert [c["window"] for c in cases.values() if c["seg"] is not None] == [256, 0]
     errs = {name: {} for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     tile_errs = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
@@ -700,7 +701,8 @@ def test_ring_attn_phase_runs_end_to_end_on_cpu(one_thread):
     """The ring_attn phase at a tiny width (fp32, N 4, chunks of 64): the
     loopback ring through ``attention(impl="flash_ring")`` and the single
     flash Function both run their plain versions here, so they agree to
-    fp32 rounding (the card holds them to bits); the CPU launches nothing."""
+    fp32 rounding (the card holds them to bits, GQA dk/dv too); the CPU
+    launches nothing."""
     cases = {"mha": dict(h=4, h_kv=4), "gqa": dict(h=4, h_kv=2)}
     rec, launches = chip_smoke.ring_attn_phase(torch, torch.device("cpu"), K, cases=cases,
                                                seq=256, d=64)
@@ -708,9 +710,8 @@ def test_ring_attn_phase_runs_end_to_end_on_cpu(one_thread):
     assert rec["phase"] == "ring_attn" and rec["n"] == 4 and set(rec["cases"]) == set(cases)
     assert launches == {name: 0 for name in chip_smoke.CARRY_KERNELS}
     for case in rec["cases"].values():
-        assert case["out_max_abs_err"] < 1e-5 and case["dq_max_abs_err"] < 1e-5
-    assert "dk_tile_rel_frobenius" in rec["cases"]["gqa"]
-    assert "dk_tile_rel_frobenius" not in rec["cases"]["mha"]
+        assert all(case[f"{what}_max_abs_err"] < 1e-5 for what in ("out", "dq", "dk", "dv"))
+        assert not any(key.endswith("_tile_rel_frobenius") for key in case)
 
 
 def test_train_ring_phase_runs_end_to_end_on_cpu(one_thread):

@@ -210,3 +210,40 @@ def test_cuda_kernels_match_plain(case):
         # the max-scaled atol is loose for the small late rows: each 64-row
         # tile is also held to its own relative Frobenius error
         chip_smoke.tile_rel_err(torch, what, got, w)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_from_a_fresh_thread():
+    """The flash kernels launched first on this thread, then from a new
+    thread that has made no CUDA call yet (as PyTorch's autograd thread is
+    when a flash backward is its first work): the TMA maps need a current
+    context there, and every launch gives the main thread's bits."""
+    import threading
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, do = (torch.randn(1, 8, 512, 128, generator=gen, device="cuda").bfloat16() for _ in "qd")
+    k, v = (torch.randn(1, 2, 512, 128, generator=gen, device="cuda").bfloat16() for _ in "kv")
+
+    def run():
+        out, lse = pf.flash_fwd_cuda(q, k, v)
+        dq = pf.flash_bwd_dq_cuda(q, k, v, out, do, lse)
+        dk, dv = pf.flash_bwd_dkv_cuda(q, k, v, out, do, lse)
+        carry = pf.flash_fwd_chunk_cuda(q, k, v)
+        dq_acc = pf.flash_dq_chunk_cuda(q, k, v, out, do, lse)
+        dkv_acc = pf.flash_dkv_chunk_cuda(q, k, v, out, do, lse)
+        torch.cuda.synchronize()
+        return (out, lse, dq, dk, dv, *carry, dq_acc, *dkv_acc)
+
+    main = run()
+    got = []
+    th = threading.Thread(target=lambda: got.append(run()))
+    th.start()
+    th.join()
+    assert len(got) == 1, "a launch from the new thread raised"
+    assert all(torch.equal(a, b) for a, b in zip(main, got[0]))
+    # and through autograd, whose backward runs on the device's own thread
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(pf.flash_attention(*leaves), leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, main[2:5]))

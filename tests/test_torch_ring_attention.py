@@ -327,22 +327,100 @@ def test_forward_tiles_are_the_kernel_sources():
     """The tiles ``sharded.py``'s bit contract cites are the kernels': the
     forward's per head dim (``flash.FWD_TILES``) are the ``FwdTiles``
     specialisations of ``csrc/flash_hopper.cuh`` and the backward's
-    (``flash.BWD_TILE``) is ``flash_common.cuh``'s TILE, both read from the
-    files; ``ring_matches_flash`` holds exactly at chunks of whole tiles of
-    both."""
+    (``flash.BWD_TILES``) the ``BwdTiles`` ones of ``flash_hopper_bwd.cuh``,
+    both read from the files; ``ring_matches_flash`` holds exactly at chunks
+    of whole tiles of the forward's keys, dq's keys and dk/dv's queries."""
     src = (CSRC / "flash_hopper.cuh").read_text()
     found = {int(d): dict(bq=int(bq), bk=int(bk), stages=int(st)) for d, bq, bk, st in re.findall(
         r"struct FwdTiles<(\d+)> \{\s*static constexpr int BQ = (\d+), BK = (\d+), "
         r"STAGES = (\d+);", src)}
     assert found == pf.FWD_TILES
-    bwd = re.search(r"constexpr int TILE = (\d+);", (CSRC / "flash_common.cuh").read_text())
-    assert int(bwd.group(1)) == pf.BWD_TILE
+    src = (CSRC / "flash_hopper_bwd.cuh").read_text()
+    found = {int(d): dict(bq=int(bq), bk=int(bk), kv_bk=int(kbk), kv_bq=int(kbq), stages=int(st),
+                          kv_stages=int(kst))
+             for d, bq, bk, kbk, kbq, st, kst in re.findall(
+                 r"struct BwdTiles<(\d+)> \{\s*static constexpr int BQ = (\d+), BK = (\d+), "
+                 r"KV_BK = (\d+), KV_BQ = (\d+), STAGES = (\d+), KV_STAGES = (\d+);", src)}
+    assert found == pf.BWD_TILES
+    assert set(pf.BWD_TILES) == set(pf.FWD_TILES)
     for d, tiles in pf.FWD_TILES.items():
-        whole = max(tiles["bk"], pf.BWD_TILE)
+        bwd = pf.BWD_TILES[d]
+        whole = int(np.lcm.reduce([tiles["bk"], bwd["bk"], bwd["kv_bq"]]))
         assert all(ps.ring_matches_flash(m * whole, d) for m in (1, 2, 3, 32))
-        assert not any(ps.ring_matches_flash(c, d) for c in (whole - 32, whole + 32))
-    # a chunk of 192 rows: whole backward tiles, but not whole 128-key tiles
+        assert not any(ps.ring_matches_flash(c, d) for c in (whole - 16, whole + 16))
+        # "auto" promotes at multiples of 128 rows: whole tiles at every d
+        assert 128 % whole == 0 and ps.ring_matches_flash(128, d)
+    # a chunk of 192 rows: whole tiles at d 256 (64-key forward tiles), not
+    # of the 128-key forward tiles at d 128
     assert not ps.ring_matches_flash(192, 128) and ps.ring_matches_flash(192, 256)
+
+
+@pytest.mark.parametrize("d", sorted(pf.BWD_TILES))
+@pytest.mark.parametrize("h_kv", [4, 2])
+def test_backward_ring_over_whole_tiles_streams_as_one(d, h_kv):
+    """The backward kernels' tile schedule on the plain chunk versions, in
+    fp32: each query tile of dq's key-tile width streamed over the key tiles
+    (the diagonal one causal), and each key tile of dk/dv streamed over the
+    query tiles of its width, query tile outer and the GQA group's heads
+    inner, their raw fp32 carries stored and reloaded at every hop of a ring
+    of N chunks of whole tiles (dq: key chunks 0 .. i; dk/dv: query chunks
+    i .. N-1), equal one long stream over the whole sequence bit for bit,
+    with h_kv < h too; and the long streams finalized are the plain flash
+    backward."""
+    tiles = pf.BWD_TILES[d]
+    bk, bq = tiles["bk"], tiles["kv_bq"]
+    n, chunk = 4, 128
+    s, h = n * chunk, 4
+    group = h // h_kv
+    assert ps.ring_matches_flash(chunk, d)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, h, h_kv, s, d, seed=d + h_kv))
+    out, lse = pf.flash_fwd_reference(q, k, v)
+
+    def fold_dq(acc, qi, k0, k1):  # query tile [qi, qi + bk) over key tiles in [k0, k1)
+        rows = slice(qi, qi + bk)
+        for kj in range(k0, min(k1, qi + bk), bk):
+            keys = slice(kj, kj + bk)
+            acc = pf.flash_dq_chunk_reference(
+                q[:, :, rows], k[:, :, keys], v[:, :, keys], out[:, :, rows], do[:, :, rows],
+                lse[:, :, rows], acc, causal=kj == qi)
+        return acc
+
+    def fold_dkv(acc, kj, q0, q1):  # key tile [kj, kj + bq) over query tiles in [q0, q1)
+        keys = slice(kj, kj + bq)
+        for qi in range(max(q0, kj), q1, bq):
+            rows = slice(qi, qi + bq)
+            for g in range(group):  # the group's heads inner
+                heads = [kv * group + g for kv in range(h_kv)]
+                acc = pf.flash_dkv_chunk_reference(
+                    q[:, heads, rows], k[:, :, keys], v[:, :, keys], out[:, heads, rows],
+                    do[:, heads, rows], lse[:, heads, rows], *acc, causal=qi == kj)
+        return acc
+
+    fresh_dq = lambda: torch.zeros(1, h, bk, d)  # noqa: E731
+    fresh_dkv = lambda: (torch.zeros(1, h_kv, bq, d), torch.zeros(1, h_kv, bq, d))  # noqa: E731
+    one_dq = {qi: fold_dq(fresh_dq(), qi, 0, s) for qi in range(0, s, bk)}
+    one_dkv = {kj: fold_dkv(fresh_dkv(), kj, 0, s) for kj in range(0, s, bq)}
+    ring_dq = {qi: fresh_dq() for qi in one_dq}
+    ring_dkv = {kj: fresh_dkv() for kj in one_dkv}
+    for home in range(n):
+        for visitor in range(home + 1):  # ring A: key chunks 0 .. home, the diagonal last
+            for qi in range(home * chunk, (home + 1) * chunk, bk):
+                ring_dq[qi] = fold_dq(ring_dq[qi].clone(), qi, visitor * chunk,
+                                      (visitor + 1) * chunk)
+        for visitor in range(home, n):  # ring B: query chunks home .. N-1, the diagonal first
+            for kj in range(home * chunk, (home + 1) * chunk, bq):
+                ring_dkv[kj] = fold_dkv(tuple(t.clone() for t in ring_dkv[kj]), kj,
+                                        visitor * chunk, (visitor + 1) * chunk)
+    for qi in one_dq:
+        assert torch.equal(one_dq[qi], ring_dq[qi]), qi
+    for kj in one_dkv:
+        assert all(torch.equal(a, b) for a, b in zip(one_dkv[kj], ring_dkv[kj])), kj
+    sc = d ** -0.5
+    dq = torch.cat([one_dq[qi] for qi in sorted(one_dq)], dim=2) * sc
+    dk = torch.cat([one_dkv[kj][0] for kj in sorted(one_dkv)], dim=2) * sc
+    dv = torch.cat([one_dkv[kj][1] for kj in sorted(one_dkv)], dim=2)
+    for got, want in zip((dq, dk, dv), pf.flash_bwd_reference(q, k, v, out, do, lse)):
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("d", sorted(pf.FWD_TILES))
@@ -421,10 +499,34 @@ def test_cuda_chunk_kernels_match_plain(causal, with_seg):
 @pytest.mark.parametrize("h_kv", [8, 2])
 def test_cuda_ring_is_the_single_kernel_bit_for_bit(h_kv, loopback):
     """The loopback ring (N 4, chunks of 128) against the single flash
-    kernels: out, lse and dq bit for bit; dk/dv too when h == h_kv, else
-    under the 64-row tile gate."""
+    kernels: out, lse, dq, dk and dv bit for bit, with GQA (h_kv 2) too."""
     _card()
     q, k, v, do = _cuda_inputs(1, 8, h_kv, 512, 128, seed=3)
     loopback(4)
-    res = chip_smoke.ring_against_flash(torch, q, k, v, do, gqa=h_kv != 8)
-    assert res["out_bitwise"] and res["lse_bitwise"] and res["dq_bitwise"]
+    res = chip_smoke.ring_against_flash(torch, q, k, v, do)
+    assert all(res[f"{what}_bitwise"] for what in ("out", "lse", "dq", "dk", "dv")), res
+
+
+def test_bwd_tiles_tool_rewrites_one_specialisation():
+    """``tools/torch_flash_bwd_tiles.py`` (the card's timing of other
+    backward tiles) rewrites exactly the fields it is given of one
+    ``BwdTiles`` specialisation of the real header, or of its register
+    split, and its default variants name existing head dims and fields."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import torch_flash_bwd_tiles as tool
+
+    text = (CSRC / "flash_hopper_bwd.cuh").read_text()
+    out = tool.rewrite_tiles(text, 256, {"KV_BQ": 32, "KV_STAGES": 3})
+    assert out != text and len(out.splitlines()) == len(text.splitlines())
+    changed = [(a, b) for a, b in zip(text.splitlines(), out.splitlines()) if a != b]
+    assert len(changed) == 1 and "KV_BQ = 32" in changed[0][1] and "KV_STAGES = 3" in changed[0][1]
+    assert "BK = 32, KV_BK = 64" in changed[0][1]
+    assert tool.rewrite_tiles(text, 128, {}) == text
+    regs = tool.rewrite_tiles(text, 128, {"CONSUMER_REGS": 240, "PRODUCER_REGS": 24})
+    changed = [b for a, b in zip(text.splitlines(), regs.splitlines()) if a != b]
+    assert changed == ["constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;"]
+    for spec in tool.DEFAULT:
+        name, d, over = tool.parse(spec)
+        assert d in pf.BWD_TILES and over and tool.rewrite_tiles(text, d, over) != text
+    with pytest.raises(SystemExit):
+        tool.parse("x=128:TILE=3")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The port's flash forward kernels of several checkouts, timed in turns on
-one card, and the train steps they run in.
+"""The port's flash kernels of several checkouts, timed in turns on one
+card, and the train steps they run in.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -10,12 +10,13 @@ Each OTHER_ROOT is another checkout of the repo (e.g. the parent commit
 unpacked with ``git archive``). Each round times, once in a fresh process
 per checkout, in turns (the others, this one, this one again, the others in
 reverse; each builds its own kernels into its own ``build/``):
-``flash_fwd`` at ``chip_smoke.py``'s train shape (b 1, 32/8 heads of 128,
-s 4096, causal, window 4096) and at head dims 64 and 256 (same heads and
-mask), and ``flash_fwd_chunk`` at the non-diagonal hop of 4096 with the
-carry loaded and stored (``chip_smoke.py``'s inputs and CUDA-graph
+``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at ``chip_smoke.py``'s
+train shape (b 1, 32/8 heads of 128, s 4096, causal, window 4096) and at
+head dims 64 and 256 (same heads and mask), and ``flash_fwd_chunk``,
+``flash_dq_chunk`` and ``flash_dkv_chunk`` at the non-diagonal hop of 4096
+with the carry loaded and stored (``chip_smoke.py``'s inputs and CUDA-graph
 ``time_ms``); each kernel's first output is held against its plain version
-(max abs err printed).
+(max abs err printed; the carries relative to their largest element).
 
 ``--profile`` then runs, in one fresh process per checkout (this one, then
 the others), the ``train_fused`` timed leg (Mistral-7B width, 8 layers, seq
@@ -24,8 +25,9 @@ the others), the ``train_fused`` timed leg (Mistral-7B width, 8 layers, seq
 ``initialize`` -> 1 warm-up and 3 timed ``train_batch`` steps each (step
 seconds), then one more step under torch.profiler (``chip_smoke.
 device_profile``: wall and device ms, the idle share, the device time of
-each kernel, the flash kernels summed by name). Prints the card's name and
-power limit first, and one JSON object per measurement.
+each kernel, the flash kernels summed by name, and the flash backward's
+ms and share of the step's device time). Prints the card's name and power
+limit first, and one JSON object per measurement.
 """
 
 import argparse
@@ -40,31 +42,62 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke as C
 from deepspeed_tpu_torch.ops import kernels as K
 from deepspeed_tpu_torch.ops.attention import flash as F
-K.build([K.KERNELS[n] for n in ("flash_fwd", "flash_fwd_chunk")])
+K.build([K.KERNELS[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_fwd_chunk")])
 dev = torch.device("cuda", 0)
 ms, err, tflops = {}, {}, {}
+
+def rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
 for d in (128, 64, 256):
-    q, k, v, _ = C.flash_inputs(torch, dev, 1, 32, 8, 4096, d, seed=10)
+    q, k, v, do = C.flash_inputs(torch, dev, 1, 32, 8, 4096, d, seed=10)
     kw = dict(causal=True, window=4096)
     out, lse = F.flash_fwd_cuda(q, k, v, **kw)
     ref_out, ref_lse = F.flash_fwd_reference(q, k, v, **kw)
-    name = f"flash_fwd_d{d}"
-    err[name] = max(float((out.float() - ref_out.float()).abs().max()),
-                    float((lse - ref_lse).abs().max()))
+    err[f"flash_fwd_d{d}"] = max(float((out.float() - ref_out.float()).abs().max()),
+                                 float((lse - ref_lse).abs().max()))
     del ref_out, ref_lse
-    ms[name] = C.time_ms(torch, lambda: F.flash_fwd_cuda(q, k, v, **kw), iters=10)
-    tflops[name] = 4 * 32 * C.flash_pairs(4096, True, 4096, None, None) * d / (ms[name] * 1e-3) / 1e12
-q, k, v, _ = C.flash_inputs(torch, dev, 1, 32, 8, 4096, 128, seed=40)
+    dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+    dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
+    rdq, rdk, rdv = F.flash_bwd_reference(q, k, v, out, do, lse, **kw)
+    err[f"flash_bwd_dq_d{d}"] = rel(dq, rdq)
+    err[f"flash_bwd_dkv_d{d}"] = max(rel(dk, rdk), rel(dv, rdv))
+    del dq, dk, dv, rdq, rdk, rdv
+    torch.cuda.empty_cache()
+    pairs = 32 * C.flash_pairs(4096, True, 4096, None, None)
+    for name, fn, per_pair in (
+            ("flash_fwd", lambda: F.flash_fwd_cuda(q, k, v, **kw), 4),
+            ("flash_bwd_dq", lambda: F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw), 6),
+            ("flash_bwd_dkv", lambda: F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw), 8)):
+        key = f"{name}_d{d}"
+        ms[key] = C.time_ms(torch, fn, iters=10)
+        tflops[key] = per_pair * pairs * d / (ms[key] * 1e-3) / 1e12
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+q, k, v, do = C.flash_inputs(torch, dev, 1, 32, 8, 4096, 128, seed=40)
 c0 = F.flash_carry_init(1, 32, 4096, 128, dev)
 got = F.flash_fwd_chunk_cuda(q, k, v, tuple(t.clone() for t in c0))
-want = F.flash_fwd_chunk_reference(q, k, v, c0)
-err["flash_fwd_chunk"] = float((got[2] - want[2]).abs().max() / want[2].abs().max())
-del want
+err["flash_fwd_chunk"] = rel(got[2], F.flash_fwd_chunk_reference(q, k, v, c0)[2])
+out, lse = F.flash_fwd_reference(q, k, v, causal=False)
+zq = torch.zeros(q.shape, device=dev)
+zk = torch.zeros(k.shape, device=dev)
+got = F.flash_dq_chunk_cuda(q, k, v, out, do, lse, zq.clone())
+err["flash_dq_chunk"] = rel(got, F.flash_dq_chunk_reference(q, k, v, out, do, lse, zq))
+got = F.flash_dkv_chunk_cuda(q, k, v, out, do, lse, (zk.clone(), zk.clone()))
+want = F.flash_dkv_chunk_reference(q, k, v, out, do, lse, zk, zk)
+err["flash_dkv_chunk"] = max(rel(got[0], want[0]), rel(got[1], want[1]))
+del got, want
 carry = F.flash_fwd_chunk_cuda(q, k, v)
-ms["flash_fwd_chunk"] = C.time_ms(torch, lambda: F.flash_fwd_chunk_cuda(q, k, v, carry), iters=10)
-tflops["flash_fwd_chunk"] = 4 * 32 * 4096 * 4096 * 128 / (ms["flash_fwd_chunk"] * 1e-3) / 1e12
-print(json.dumps({"root": sys.argv[1], "ms": ms, "tflops_per_s": tflops,
-                  "max_abs_err": err, "max_abs_err_note": "flash_fwd_chunk: acc relative to its max"}))
+dq_acc = F.flash_dq_chunk_cuda(q, k, v, out, do, lse)
+dkv = F.flash_dkv_chunk_cuda(q, k, v, out, do, lse)
+for name, fn, per_pair in (
+        ("flash_fwd_chunk", lambda: F.flash_fwd_chunk_cuda(q, k, v, carry), 4),
+        ("flash_dq_chunk", lambda: F.flash_dq_chunk_cuda(q, k, v, out, do, lse, dq_acc), 6),
+        ("flash_dkv_chunk", lambda: F.flash_dkv_chunk_cuda(q, k, v, out, do, lse, dkv), 8)):
+    ms[name] = C.time_ms(torch, fn, iters=10)
+    tflops[name] = per_pair * 32 * 4096 * 4096 * 128 / (ms[name] * 1e-3) / 1e12
+print(json.dumps({"root": sys.argv[1], "ms": ms, "tflops_per_s": tflops, "max_abs_err": err,
+                  "max_abs_err_note": "backward and chunks: relative to the largest element"}))
 """
 
 PROFILE_CHILD = r"""
@@ -99,7 +132,10 @@ def leg(name, model, seq, over, config, mpu=None):
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         prof = C.device_profile(torch, {name + "_step": lambda: float(eng.train_batch(batch=batches[4]))},
-                                sums=SUMS)
+                                sums=SUMS)[name + "_step"]
+        bwd = sum(v["ms"] for k, v in prof["sums"].items() if "_dq_" in k or "_dkv_" in k)
+        prof["flash_bwd_ms"] = bwd
+        prof["flash_bwd_share_of_device"] = bwd / prof["device_busy_ms"]
     finally:
         if mpu is not None:
             reset_topology()
@@ -107,7 +143,7 @@ def leg(name, model, seq, over, config, mpu=None):
     torch.cuda.empty_cache()
     timed = step_s[1:]
     return {"leg": name, "step_seconds": step_s, "mean_step_seconds": sum(timed) / len(timed),
-            "profile": prof[name + "_step"]}
+            "profile": prof}
 
 fused_config = dict(C.TRAIN_CONFIG, optimizer=C.FUSED_OPTIMIZER)
 out = [leg("train_fused", C.MODEL, C.SEQ, {"fused_ce": True, "remat": False}, fused_config)]
