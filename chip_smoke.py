@@ -1859,6 +1859,22 @@ def ce_bwd_fields(n, h, V):
     }
 
 
+CE_FWD_DESIGN = ("wgmma (m64n256k16 logits: the pass dx and dW recompute, fused_ce_hopper.cuh; "
+                 "fp32 accumulators in registers) on 128B-swizzled tiles brought by TMA into a "
+                 "4-stage ring; 1 producer thread, 2 consumer warpgroups (setmaxnreg); per 256-column "
+                 "pass an online (max, sum-exp) in registers, drained then reduced; per span a "
+                 "(max, sum) pair per row into a [spans, n] fp32 plane, folded in span order by a "
+                 "merge kernel; no atomics")
+
+
+def ce_fwd_fields(n, V, span):
+    """The forward's span (vocabulary columns of a CTA), its CTAs and the
+    fp32 partials its merge folds at (n, V), and its design."""
+    spans = -(-V // span)
+    return {"span": {"Vs": span}, "ctas": -(-n // 128) * spans, "partials": 2 * spans * n,
+            "design": CE_FWD_DESIGN}
+
+
 def ce_head_forms(torch):
     """The LM head as a training step runs it, forward then the backward
     for x and w, in two forms: the fused kernels through ``fused_ce_loss``
@@ -1916,7 +1932,8 @@ def fused_ce_head(torch, x, w, labels, g, kernel_ms, library_ms, call_ms, peak_b
 def kernel_fused_ce(torch, dev, n=4096, h=4096, V=32000):
     """The three fused-CE kernels at the train step's shape (one micro-batch
     of 4096 rows at width 4096 against Mistral-7B's 32000-entry vocabulary)
-    and at sizes that divide no tile. Returns one record per kernel."""
+    and at sizes that divide no tile; in every case two forward launches
+    must give the same loss and lse bits. Returns one record per kernel."""
     from deepspeed_tpu_torch.ops import fused_ce as C
 
     cases = {f"n{n}_h{h}_V{V}": (n, h, V), "n777_h1000_V3001": (777, 1000, 3001),
@@ -1926,6 +1943,10 @@ def kernel_fused_ce(torch, dev, n=4096, h=4096, V=32000):
     for i, (name, (nn, hh, VV)) in enumerate(cases.items()):
         x, w, labels, g = ce_inputs(torch, dev, nn, hh, VV, seed=30 + i)
         loss, lse = C.fused_ce_fwd_cuda(x, w, labels)
+        again = C.fused_ce_fwd_cuda(x, w, labels)
+        if not (torch.equal(loss, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"fused_ce_fwd {name}: two launches gave other bits")
+        del again
         ref_loss, ref_lse = C.fused_ce_fwd_reference(x, w, labels)
         errs["fused_ce_fwd"][name] = check_close(torch, f"fused_ce_fwd loss {name}", loss,
                                                  ref_loss, CE_ROW_ATOL, FP32_RTOL)
@@ -1986,7 +2007,8 @@ def kernel_fused_ce(torch, dev, n=4096, h=4096, V=32000):
                        lambda fn: eager_ms(torch, fn, iters=3, warmup=1),
                        lambda fn: peak_bytes_above(torch, fn)))
     torch.cuda.empty_cache()
-    bwd = ce_bwd_fields(n, h, V)
+    fields = dict(ce_bwd_fields(n, h, V), fused_ce_fwd=dict(
+        ce_fwd_fields(n, V, C.FWD_SPAN), repeats_bits=list(cases)))
     records = {}
     for name, (flops, moved) in work.items():
         t_ops, t_bytes = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
@@ -2008,7 +2030,7 @@ def kernel_fused_ce(torch, dev, n=4096, h=4096, V=32000):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops,
             "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
-            **bwd.get(name, {}),
+            **fields[name],
         }
     return records
 

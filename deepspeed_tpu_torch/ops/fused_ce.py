@@ -5,11 +5,16 @@ Counterpart of ``deepspeed_tpu/ops/fused_ce.py``. For hidden rows ``x``
 
     loss_i = logsumexp_v (x w)_iv - (x w)_i[label_i]
 
-without the [n, V] logits ever reaching device memory. Three kernels:
+without the [n, V] logits ever reaching device memory. Three kernels, all
+on one logits pass (``ops/kernels/csrc/fused_ce_hopper.cuh``: wgmma fed by
+TMA), so the forward's logits are the ones the backward recomputes, bit
+for bit:
 
-  * ``fused_ce_fwd`` (``ops/kernels/csrc/fused_ce.cu``) replaces
-    ``_fwd_kernel``: per-row loss and the fp32 log-sum-exp the backward
-    recomputes from;
+  * ``fused_ce_fwd`` (``fused_ce.cu``) replaces ``_fwd_kernel``: per-row
+    loss and the fp32 log-sum-exp the backward recomputes from. A CTA
+    reduces 128 rows x a span of ``FWD_SPAN`` vocabulary columns to a
+    per-row (max, sum-exp) pair in a [spans, n] fp32 plane, and a second
+    kernel of the same call folds the spans in a fixed order;
   * ``fused_ce_dx`` (``fused_ce_bwd.cu``, wgmma fed by TMA) replaces
     ``_bwd_dx_kernel``: ``d = (exp(logits - lse) - onehot) * g`` rounded to
     the operand type, ``dx = d w^T`` summed in fp32;
@@ -27,7 +32,7 @@ what they do not take (a dtype other than bf16). Nothing falls back.
 transposed view of the embedding: the wrapper then makes one contiguous
 copy, knowingly (one pass over the matrix); the Function returns dW in
 ``w``'s shape and autograd carries it through the transpose onto the
-embedding. The backward kernels read x and w through TMA, which wants row
+embedding. The kernels read x and w through TMA, which wants row
 lengths that are multiples of 8 elements (16 bytes) and 16-byte aligned
 bases: where h or V is not a multiple of 8 (GPT-2's vocabulary of 50257),
 ``pad8`` makes zero-padded copies x [n, h8] and w [h8, V8] once per call
@@ -36,8 +41,8 @@ outputs are cut back to [n, h] and [h, V].
 
 dx and dW are summed with fp32 atomic adds, in whatever order the card
 runs the CTAs: on a CUDA tensor their last bits change from launch to
-launch (the forward does not: loss and lse repeat bit for bit). The CPU
-path and the dense head are deterministic.
+launch (the forward does not: it uses no atomics, so loss and lse repeat
+bit for bit). The CPU path and the dense head are deterministic.
 """
 
 import torch
@@ -47,7 +52,9 @@ from deepspeed_tpu_torch.ops.kernels import KERNELS, stream_ptr
 FWD_KERNEL = KERNELS["fused_ce_fwd"]
 DX_KERNEL = KERNELS["fused_ce_dx"]
 DW_KERNEL = KERNELS["fused_ce_dw"]
-_TILE = 128  # the kernels' vocabulary tile (fused_ce.cu: BN)
+# vocabulary columns of a forward CTA (a multiple of fused_ce_hopper.cuh's
+# 256-column pass); tools/torch_fused_ce_ab.py --sweep times others
+FWD_SPAN = 1024
 
 
 def fused_ce_reference(x, w, labels):
@@ -118,17 +125,18 @@ def _kernel_args(where, x, w, labels, *rows):
     return out, (n, h, V)
 
 
-def fused_ce_fwd_cuda(x, w, labels):
-    """Launch the forward kernel. Returns (loss [n], lse [n]), fp32."""
+def fused_ce_fwd_cuda(x, w, labels, span=FWD_SPAN):
+    """Launch the forward kernels (the span kernel and the merge) on the
+    padded operands. Returns (loss [n], lse [n]), fp32."""
     (x, w, labels), (n, h, V) = _kernel_args("fused_ce_fwd_cuda", x, w, labels)
-    tiles = -(-V // _TILE)
-    part = torch.empty((2, tiles, n), device=x.device, dtype=torch.float32)
-    tgt = torch.zeros(n, device=x.device, dtype=torch.float32)
-    loss = torch.empty(n, device=x.device, dtype=torch.float32)
-    lse = torch.empty(n, device=x.device, dtype=torch.float32)
-    rc = FWD_KERNEL.fn()(x.data_ptr(), w.data_ptr(), labels.data_ptr(), part[0].data_ptr(),
+    if span <= 0 or span % 256:
+        raise ValueError(f"fused_ce_fwd_cuda: span {span} is not a positive multiple of 256")
+    xp, wp = pad8(x, w)
+    part = torch.empty((2, -(-V // span), n), device=x.device, dtype=torch.float32)
+    tgt, loss, lse = (torch.empty(n, device=x.device, dtype=torch.float32) for _ in range(3))
+    rc = FWD_KERNEL.fn()(xp.data_ptr(), wp.data_ptr(), labels.data_ptr(), part[0].data_ptr(),
                          part[1].data_ptr(), tgt.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-                         n, h, V, stream_ptr(x))
+                         n, h, V, span, stream_ptr(x))
     FWD_KERNEL.check(rc)
     FWD_KERNEL.launches += 1
     return loss, lse
@@ -144,7 +152,7 @@ def _aligned(t):
 
 
 def pad8(x, w):
-    """x [n, h8] and w [h8, V8] for the backward kernels (h8, V8 = h, V
+    """x [n, h8] and w [h8, V8] for the kernels (h8, V8 = h, V
     rounded up to multiples of 8): the tensors themselves where they already
     fit, else zero-padded copies; each base 16-byte aligned."""
     h, V = w.shape

@@ -237,8 +237,8 @@ KERNELS: Dict[str, Kernel] = {
         ),
         Kernel(
             "fused_ce_fwd", "fused_ce.cu", "dstt_fused_ce_fwd",
-            # x, w, labels, pm, pl, tgt, loss, lse, n, h, V, stream
-            [_P] * 8 + [_I] * 3 + [_P],
+            # x, w, labels, pm, pl, tgt, loss, lse, n, h, V, span, stream
+            [_P] * 8 + [_I] * 4 + [_P],
             "deepspeed_tpu/ops/fused_ce.py:56",
         ),
         Kernel(

@@ -27,9 +27,10 @@
 //    thread of warpgroup 2 produces (TMA loads into a three-stage ring with
 //    full/empty mbarriers; lowered to 40 registers).
 //  * Logits, two passes of 256 span columns, contraction over h in 64-deep
-//    steps: each consumer one m64n256k16 per 16 of h, dx as x (K-major) .
-//    w (MN-major), dW transposed as w^T (MN-major) . x^T (K-major), so both
-//    kernels hold [128 tile x 256 span] accumulators. The consumers turn
+//    steps (fused_ce_hopper.cuh, the forward's logits pass too): each
+//    consumer one m64n256k16 per 16 of h, dx as x (K-major) . w (MN-major),
+//    dW transposed as w^T (MN-major) . x^T (K-major), so both kernels hold
+//    [128 tile x 256 span] accumulators. The consumers turn
 //    them into d and store it as bf16 in the 128-byte-swizzled layout that
 //    TMA would give, [8 blocks][128 tile][64 span]: a K-major operand.
 //  * Gradient product, chunks of 128 of h: dx[128 rows x 128 h] += d (A) .
@@ -67,99 +68,44 @@
 // columns, its d rows or its output rows are masked); d masks the columns
 // past the true V and the rows past n.
 #include "common.cuh"
+#include "fused_ce_hopper.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
 using namespace dstt::hopper;
+using namespace dstt::fused_ce;  // BK, BOX64, TILE, PASS, the ring, the logits pass
 
-constexpr int BK = 64;            // a TMA box's inner width: 64 bf16 = 128 bytes
-constexpr int BOX64 = 64 * 128;   // bytes of a [64 x 64] box
-constexpr int TILE = 128;         // the CTA's M: dx rows, dW vocabulary columns
 constexpr int SPAN = 512;         // the CTA's K2: dx vocabulary columns, dW rows
 constexpr int BLOCK = TILE * 128; // bytes of a [128 x 64] block of the resident d
 constexpr int D_BYTES = SPAN / BK * BLOCK;  // 128 KB
-constexpr int PASS = 256;         // logits of the span per pass (N of m64n256k16)
 constexpr int PASS_BYTES = PASS / BK * BLOCK;  // a pass's share of d: 64 KB
 constexpr int CHUNK = 128;        // h per chunk of the gradient product (N of m64n128k16)
 constexpr int S = 3;              // stages of the ring
-constexpr int LOGITS_STAGE = 48 * 1024;  // x and w boxes of one 64-deep h step
 constexpr int GRAD_STAGE = 32 * 1024;    // two 64-deep K2 steps of a chunk
 constexpr int RING_BYTES = 2 * LOGITS_STAGE;  // = S * GRAD_STAGE
-constexpr int THREADS = 384;      // consumers: warpgroups 0-1; producer: warpgroup 2
-constexpr int GROUP = 8;          // tiles walked together
 constexpr int SMEM = 1024 + D_BYTES + RING_BYTES + 256;  // 1024: alignment slack
 static_assert(RING_BYTES == S * GRAD_STAGE && PASS_BYTES >= LOGITS_STAGE && SMEM <= 232448,
               "shared memory");
 
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// The ring: load `it` goes to stage it % S, with full / empty mbarriers.
-// In the logits phase two stages are 48 KB slots of the ring region and the
-// third is the resident d's share of the pass the load belongs to (free
-// until that pass's d is written, after its last product); in the gradient
-// phase the three are 32 KB slots of the ring region (the producer enters
-// that phase only once every logits stage is released).
-struct Ring {
+// The ring: load `it` goes to stage it % S. In the logits phase two stages
+// are 48 KB slots of the ring region and the third is the resident d's
+// share of the pass the load belongs to (free until that pass's d is
+// written, after its last product); in the gradient phase the three are
+// 32 KB slots of the ring region (the producer enters that phase only once
+// every logits stage is released).
+struct Ring : Barriers<S> {
   unsigned char* dsm;
   unsigned char* base;
-  uint64_t* full;
-  uint64_t* empty;
 
-  __device__ explicit Ring(unsigned char* d) : dsm(d), base(d + D_BYTES) {
-    full = reinterpret_cast<uint64_t*>(base + RING_BYTES);
-    empty = full + S;
-  }
-  __device__ void init() {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 256);  // every consumer thread releases
-    }
-    mbar_init_fence();
-  }
+  __device__ explicit Ring(unsigned char* d)
+      : Barriers<S>(d + D_BYTES + RING_BYTES), dsm(d), base(d + D_BYTES) {}
   __device__ unsigned char* logits_slot(int it, int pass) const {
     const int s = it % S;
     return s < 2 ? base + s * LOGITS_STAGE : dsm + pass * PASS_BYTES;
   }
   __device__ unsigned char* grad_slot(int it) const { return base + (it % S) * GRAD_STAGE; }
-  // producer: wait until stage it % S is free, announce `bytes`
-  __device__ void acquire(int it, uint32_t bytes) {
-    mbar_wait(&empty[it % S], ((it / S) & 1) ^ 1);
-    mbar_arrive_expect_tx(&full[it % S], bytes);
-  }
-  // producer: wait until loads it - S .. it - 1 are all released
-  __device__ void wait_released(int it) {
-    for (int i = it; i < it + S; ++i) mbar_wait(&empty[i % S], ((i / S) & 1) ^ 1);
-  }
-  // consumer: wait until load `it` has landed
-  __device__ void ready(int it) { mbar_wait(&full[it % S], (it / S) & 1); }
-  __device__ void release(int it) { mbar_arrive(&empty[it % S]); }
 };
-
-// A consumer's in-flight bookkeeping: the wgmma group of step `it` is
-// committed; the one before it is waited for and its stage released, so
-// one group stays in flight while the next stage is awaited.
-struct Consumer {
-  Ring& ring;
-  int held = -1;
-  __device__ explicit Consumer(Ring& r) : ring(r) {}
-  __device__ void step_done(int it) {
-    wgmma_commit();
-    wgmma_wait<1>();
-    if (held >= 0) ring.release(held);
-    held = it;
-  }
-  __device__ void drain() {
-    wgmma_wait<0>();
-    if (held >= 0) ring.release(held);
-    held = -1;
-  }
-};
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                          ~uintptr_t(1023));
-}
 
 struct RowIn {
   const int* labels;
@@ -257,7 +203,7 @@ __device__ __forceinline__ void grad_stage(float (&acc)[64], const unsigned char
 // while this chunk's products run.
 template <bool DW>
 __device__ __forceinline__ void grad_chunk(float (&acc)[64], float (&prev)[64], int c,
-                                           Ring& ring, Consumer& cons, int& it,
+                                           Ring& ring, Consumer<Ring>& cons, int& it,
                                            const unsigned char* dsm, int kv, float* out, int m0,
                                            int wg, const RowIn& in, int h8, int t) {
   const int pairs = kv / 2;
@@ -293,14 +239,10 @@ ce_bwd_kernel(const __grid_constant__ CUtensorMap a1_map,  // dx: x {64, 128}; d
   unsigned char* dsm = aligned_smem(smem_raw);
   Ring ring(dsm);
 
-  // (tile, span): groups of GROUP tiles, tiles fastest, so the CTAs in
-  // flight share their tiles' slabs of the fp32 plane in L2
-  const int per_group = GROUP * spans;
-  const int grp = blockIdx.x / per_group;
-  const int local = blockIdx.x - grp * per_group;
-  const int in_group = min(GROUP, tiles - grp * GROUP);
-  const int m0 = (grp * GROUP + local % in_group) * TILE;
-  const int k0 = (local / in_group) * SPAN;
+  // (tile, span): the CTAs in flight share their tiles' slabs of the fp32
+  // plane in L2
+  const TileSpan ts(tiles, spans, SPAN);
+  const int m0 = ts.m0, k0 = ts.k0;
   const int V = in.V, V8 = (V + 7) & ~7;
   const int kspan = min(SPAN, (DW ? in.n : V) - k0);
   const int passes = cdiv(kspan, PASS);
@@ -320,24 +262,8 @@ ce_bwd_kernel(const __grid_constant__ CUtensorMap a1_map,  // dx: x {64, 128}; d
       tma_prefetch_desc(&g2_map);
       int it = 0;
       for (int p = 0; p < passes; ++p) {
-        const int c0 = k0 + p * PASS;
-        // boxes wholly past the padded vocabulary are not loaded: their
-        // logits are masked
-        const int vboxes = DW ? min(2, cdiv(V8 - m0, BK)) : min(4, cdiv(V8 - c0, BK));
-        for (int k = 0; k < ksteps; ++k, ++it) {
-          uint64_t* bar = &ring.full[it % S];
-          unsigned char* st = ring.logits_slot(it, p);
-          if constexpr (DW) {
-            ring.acquire(it, vboxes * BOX64 + PASS * 128);
-            for (int j = 0; j < vboxes; ++j) tma_load_2d(st + j * BOX64, &a1_map, bar, m0 + j * BK, k * BK);
-            tma_load_2d(st + 2 * BOX64, &b1_map, bar, k * BK, c0);
-          } else {
-            ring.acquire(it, TILE * 128 + vboxes * BOX64);
-            tma_load_2d(st, &a1_map, bar, k * BK, m0);
-            for (int j = 0; j < vboxes; ++j)
-              tma_load_2d(st + 2 * BOX64 + j * BOX64, &b1_map, bar, c0 + j * BK, k * BK);
-          }
-        }
+        load_logits_pass<DW>(ring, [&](int i) { return ring.logits_slot(i, p); }, &a1_map,
+                             &b1_map, m0, k0 + p * PASS, V8, ksteps, it);
       }
       ring.wait_released(it);  // the gradient slots overlap the logits slots
       for (int c = 0; c < chunks; ++c) {
@@ -363,31 +289,13 @@ ce_bwd_kernel(const __grid_constant__ CUtensorMap a1_map,  // dx: x {64, 128}; d
     setmaxnreg_inc<232>();  // 128 x 40 + 256 x 232 <= 65536
     const int t = threadIdx.x % 128;
     const int lr = 16 * (t >> 5) + ((t & 31) >> 2);  // this thread's accumulator rows lr, lr + 8
-    Consumer cons(ring);
+    Consumer<Ring> cons(ring);
     int it = 0;
     {
       float acc[128];
       for (int p = 0; p < passes; ++p) {
-        for (int k = 0; k < ksteps; ++k, ++it) {
-          ring.ready(it);
-          const unsigned char* st = ring.logits_slot(it, p);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk) {
-            if constexpr (DW) {
-              const uint64_t a = desc_b128(st + wg * BOX64 + kk * 2048, BOX64, 1024);
-              const uint64_t b = desc_b128(st + 2 * BOX64 + kk * 32, 16, 1024);
-              wgmma_m64n256k16<1, 0>(acc, a, b, (k | kk) != 0);
-            } else {
-              const uint64_t a = desc_b128(st + wg * BOX64 + kk * 32, 16, 1024);
-              const uint64_t b = desc_b128(st + 2 * BOX64 + kk * 2048, BOX64, 1024);
-              wgmma_m64n256k16<0, 1>(acc, a, b, (k | kk) != 0);
-            }
-          }
-          cons.step_done(it);
-        }
-        cons.drain();
-        fence_acc(acc);
+        logits_pass<DW>(acc, cons, [&](int i) { return ring.logits_slot(i, p); }, ksteps, it,
+                        wg);
         // the pass's third stage lies in the d about to be written: both
         // warpgroups' products must be done with it
         named_sync(3, 256);

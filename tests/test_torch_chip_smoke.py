@@ -327,6 +327,22 @@ def test_fused_ce_head_record_and_backward_fields_on_cpu():
     assert f["fused_ce_dw"]["reduced_elements"] == 1000 * 3008 * 2
 
 
+def test_fused_ce_forward_fields_count_its_spans():
+    """The forward record's fields: its span, its CTAs (row tiles x spans)
+    and the fp32 partials the merge folds (m and l per row and span), at the
+    train step's shape and at one that divides no span."""
+    from deepspeed_tpu_torch.ops import fused_ce as C
+
+    f = chip_smoke.ce_fwd_fields(4096, 32000, 1024)
+    assert f["span"] == {"Vs": 1024} and f["ctas"] == 32 * 32
+    assert f["partials"] == 2 * 32 * 4096
+    assert "wgmma" in f["design"] and "no atomics" in f["design"]
+    f = chip_smoke.ce_fwd_fields(777, 3001, C.FWD_SPAN)
+    spans = -(-3001 // C.FWD_SPAN)
+    assert f["ctas"] == 7 * spans and f["partials"] == 2 * spans * 777
+    json.dumps(f)
+
+
 def test_tile_check_rejects_late_tiles_the_max_scaled_check_passes():
     """A 3% error on the later half of the keys' dk (the smallest
     gradients under a causal mask) stays inside the elementwise check whose

@@ -169,44 +169,116 @@ def test_pad8_copies_keep_the_plain_backward():
     assert [pce.round8(k) for k in (1, 8, 9, 50257)] == [8, 8, 16, 50264]
 
 
+def _span_forward(x, w, labels, span):
+    """The forward kernels' arithmetic on the CPU in fp32: the ``pad8``
+    copies, logits at or past the true V set to -inf, per span of ``span``
+    columns an online (max, sum-exp) over passes of 256 columns into a
+    [spans, n] plane, the spans folded in order; the label's logit (none
+    for a label outside [0, V))."""
+    n, V = x.shape[0], w.shape[1]
+    xp, wp = pce.pad8(x, w)
+    logits = xp @ wp
+    assert logits.shape[1] == pce.round8(V)
+    logits[:, V:] = float("-inf")
+    spans = -(-V // span)
+    pm, pl = torch.empty(spans, n), torch.empty(spans, n)
+    for j in range(spans):
+        m, l = torch.full((n,), float("-inf")), torch.zeros(n)
+        for c0 in range(j * span, min((j + 1) * span, V), 256):
+            s = logits[:, c0:c0 + 256]
+            mn = torch.maximum(m, s.max(dim=1).values)
+            assert torch.isfinite(mn).all()  # a pass holds a live column
+            l = l * torch.exp(m - mn) + torch.exp(s - mn[:, None]).sum(dim=1)
+            m = mn
+        pm[j], pl[j] = m, l
+    M = pm.max(dim=0).values
+    lse = M + torch.log((pl * torch.exp(pm - M)).sum(dim=0).clamp_min(1e-30))
+    lbl = labels.long()
+    ok = (lbl >= 0) & (lbl < V)
+    tgt = torch.gather(logits, 1, lbl.clamp(0, V - 1)[:, None])[:, 0]
+    return lse - torch.where(ok, tgt, torch.zeros_like(tgt)), lse
+
+
+def test_span_partials_on_padded_copies_keep_the_plain_forward():
+    """The forward kernels' host and merge arithmetic on CPU tensors: spans
+    that do not divide V, -inf past the true V (the pad8 columns included),
+    labels -100 and V among the inputs. Loss and lse equal the plain forward,
+    and the loss equals the JAX kernel's (interpret mode), in fp32."""
+    for (n, h, V), span in (((40, 20, 37), 256), ((24, 8, 515), 256), ((33, 24, 130), 512),
+                            ((16, 13, 1300), 512), ((8, 64, 2100), 1024)):
+        x, w, labels, _ = _data(n, h, V, seed=11)
+        labels[0], labels[-1] = -100, V
+        xt, wt, lt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(labels)
+        loss, lse = _span_forward(xt, wt, lt, span)
+        want_loss, want_lse = pce.fused_ce_fwd_reference(xt, wt, lt)
+        torch.testing.assert_close(loss, want_loss, atol=FP32_ATOL, rtol=FP32_RTOL)
+        torch.testing.assert_close(lse, want_lse, atol=FP32_ATOL, rtol=FP32_RTOL)
+        assert loss[0] == lse[0] and loss[-1] == lse[-1]  # no logit for -100 or V
+        jl = jce.fused_ce_loss(jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels), interpret=True)
+        np.testing.assert_allclose(loss.numpy(), np.asarray(jl), atol=FP32_ATOL, rtol=FP32_RTOL)
+    assert pce.FWD_SPAN % 256 == 0
+
+
 def test_backward_kernels_are_the_wgmma_source():
-    """The registry's dx and dW entries name ``fused_ce_bwd.cu`` and keep
-    their JAX origins; that source runs wgmma on tiles brought by TMA (the
-    shared ``hopper_common.cuh``) and holds none of the Ampere path, and the
-    forward's source no longer defines the backward entry points."""
+    """The registry's forward, dx and dW entries name ``fused_ce.cu`` and
+    ``fused_ce_bwd.cu`` and keep their JAX origins; both sources run wgmma on
+    tiles brought by TMA (the shared ``hopper_common.cuh``) through one
+    logits pass (``fused_ce_hopper.cuh``) and hold none of the Ampere path,
+    and neither defines the other's entry points."""
     from deepspeed_tpu_torch.ops.kernels import CSRC, KERNELS
 
     root = Path(__file__).resolve().parents[1]
-    for name, body in (("fused_ce_dx", "_bwd_dx_kernel"), ("fused_ce_dw", "_bwd_dw_kernel")):
+    for name, src, body in (("fused_ce_fwd", "fused_ce.cu", "_fwd_kernel"),
+                            ("fused_ce_dx", "fused_ce_bwd.cu", "_bwd_dx_kernel"),
+                            ("fused_ce_dw", "fused_ce_bwd.cu", "_bwd_dw_kernel")):
         k = KERNELS[name]
-        assert k.source == "fused_ce_bwd.cu" and k.source_path.is_file()
+        assert k.source == src and k.source_path.is_file()
         path, line = k.replaces.rsplit(":", 1)
         assert path == "deepspeed_tpu/ops/fused_ce.py"
         assert (root / path).read_text().splitlines()[int(line) - 1].startswith(f"def {body}(")
-    assert KERNELS["fused_ce_fwd"].source == "fused_ce.cu"
     bwd = (CSRC / "fused_ce_bwd.cu").read_text()
-    hopper = (CSRC / "hopper_common.cuh").read_text()
-    assert '#include "hopper_common.cuh"' in bwd and "flash_common" not in bwd
-    assert "wgmma_m64n" in bwd and "tma_load_2d" in bwd
-    assert "wgmma.mma_async" in hopper and "cp.async.bulk.tensor" in hopper
-    for src in (bwd, hopper):
-        assert "mma.sync" not in src and "cp.async.cg" not in src
     fwd = (CSRC / "fused_ce.cu").read_text()
+    logits = (CSRC / "fused_ce_hopper.cuh").read_text()
+    hopper = (CSRC / "hopper_common.cuh").read_text()
+    for src in (bwd, fwd):
+        assert '#include "hopper_common.cuh"' in src and '#include "fused_ce_hopper.cuh"' in src
+        assert "flash_common" not in src
+        # the shared logits pass, loaded by TMA and multiplied by wgmma
+        assert "load_logits_pass<" in src and "logits_pass<" in src
+        assert "wgmma_m64n" in src + logits and "tma_load_2d" in src + logits
+    assert '#include "hopper_common.cuh"' in logits
+    assert "wgmma_m64n256k16" in logits and "tma_load_2d" in logits
+    assert "wgmma.mma_async" in hopper and "cp.async.bulk.tensor" in hopper
+    for src in (bwd, fwd, logits, hopper):
+        assert "mma.sync" not in src and "cp.async.cg" not in src
     assert "dstt_fused_ce_dx" not in fwd and "dstt_fused_ce_dw" not in fwd
+    assert "dstt_fused_ce_fwd" not in bwd
+    # the forward merges its spans without atomics: loss and lse repeat
+    assert not any(op in fwd for op in ("atomicAdd", "atomicMax", "red_add", "red_fragment"))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(256, 128, 1000), (130, 72, 515), (777, 1000, 3001),
-                                   (100, 64, 700)])
+                                   (100, 64, 700), (33, 24, 130), (1, 8, 5)])
 def test_cuda_kernels_match_plain(shape):
+    """Loss and gradients against the plain versions, from shapes smaller
+    than one tile and one span up; labels -100 and V contribute no logit;
+    two forward launches give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     n, h, V = shape
     x, w, labels, g = (torch.from_numpy(a).cuda() for a in _data(n, h, V, seed=7))
+    labels[0] = -100
+    if n > 1:
+        labels[-1] = V
     x, w = x.bfloat16().requires_grad_(True), w.bfloat16().requires_grad_(True)
     loss = pce.fused_ce_loss(x, w, labels)
     dx, dw = torch.autograd.grad(loss, (x, w), g)
     ref_loss, lse = pce.fused_ce_fwd_reference(x.detach(), w.detach(), labels)
+    loss_a, lse_a = pce.fused_ce_fwd_cuda(x.detach(), w.detach(), labels)
+    loss_b, lse_b = pce.fused_ce_fwd_cuda(x.detach(), w.detach(), labels)
+    assert torch.equal(loss_a, loss_b) and torch.equal(lse_a, lse_b) and torch.equal(loss_a, loss)
+    torch.testing.assert_close(lse_a, lse, atol=BF16_LOSS_ATOL, rtol=FP32_RTOL)
     rdx, rdw = pce.fused_ce_bwd_reference(x.detach(), w.detach(), labels, lse, g)
     torch.testing.assert_close(loss, ref_loss, atol=BF16_LOSS_ATOL, rtol=FP32_RTOL)
     for got, want in ((dx, rdx), (dw, rdw)):
