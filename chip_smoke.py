@@ -33,7 +33,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``schedule_from_layout`` of the same layout; the evoformer kernels in
    bf16 and fp32 at d 16, 32, 64 and 128, s 100, no bias, one bias, a
    materialized pair bias and a fully masked row, and at the evoformer
-   phase's msa_row shape; the flash carry-mode chunk kernels, forward, dq
+   phase's msa_row shape, the bias gradients both as the dS plane and
+   reduced (dq's partials folded by the merge kernel, which is also held
+   against its plain version on them, bit for bit across two calls); the flash carry-mode chunk kernels, forward, dq
    and dk/dv, at Mistral-7B attention width over chunks of 4096, a
    non-diagonal and the diagonal hop with and without two packed segments,
    and at head dims 64 and 256 over chunks of 1024, each raw (the carry it
@@ -105,10 +107,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    1e9 * (mask - 1), the last rows and keys padded off) and a random pair
    bias: msa_row (Q/K/V [1, 512, 384, 8, 32]) and triangle ([1, 384, 384,
    4, 32]), both biases needing gradients; exactly one launch of each
-   evoformer kernel per call and no other; out, dQ, dK, dV against the
-   plain versions (elementwise and per 64-row tile), db1 and db2 as
-   relative Frobenius; peak memory and seconds; then a call whose biases
-   need no gradient, which must not ask for the dS plane.
+   evoformer kernel per call (the bias-gradient merge included) and no
+   other; out, dQ, dK, dV against the plain versions (elementwise and per
+   64-row tile), db1 and db2 as relative Frobenius and bit for bit across
+   two calls; peak memory above the inputs (below the [B, h, s, s] fp32
+   plane's size: none is allocated), the merge's device time and seconds;
+   then a call whose biases need no gradient, which must ask for neither
+   the dS plane nor its partials.
 
 10. ring_attn: the context-parallel ring in its loopback form (one
    process drives N = 4 context ranks: one card cannot hold an NCCL rank
@@ -3474,7 +3479,8 @@ def sparse_attn_phase(torch, dev, K, h=32, h_kv=8, d=128, s=SPARSE_TIMED["s"], m
 # ---------------------------------------------------------------------------
 # evoformer attention (the op registry's evoformer_attn)
 # ---------------------------------------------------------------------------
-EVOFORMER_KERNELS = ("evoformer_fwd", "evoformer_bwd_dq", "evoformer_bwd_dkv")
+EVOFORMER_KERNELS = ("evoformer_fwd", "evoformer_bwd_dq", "evoformer_bwd_dkv",
+                     "evoformer_bias_grad_merge")
 # AlphaFold2's Evoformer at its fine-tuning crop (Jumper et al. 2021, SI
 # Algorithms 7 and 13-14, Table 4): N_seq 512, N_res 384; MSA row attention
 # with pair bias (c_m 256: 8 heads x 32) and triangle attention (c_z 128: 4
@@ -3533,12 +3539,15 @@ def evo_hold(torch, errs, tiles, kname, tag, got, want, fp32, tile=True):
                                          want.transpose(1, 2))
 
 
-def check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=None):
-    """The three evoformer kernels against their plain versions on [B, s, h,
-    d] inputs and bias operands ``ops``: out and lse, then dq, dS (when
-    there is a bias), dk and dv. ``dead_row``: a batch row whose logits are
-    all -inf, which must give exactly 0, lse -1e30 and zero dq and dS.
-    Returns the kernels' (out, lse)."""
+def check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=None, plan=None):
+    """The evoformer kernels against their plain versions on [B, s, h, d]
+    inputs and bias operands ``ops``: out and lse, then dq, dk and dv, the dS
+    plane (when there is a bias) and, when ``plan`` (``bias_grad_plan``) is
+    the reduced form, the bias gradients from dq's partials and the merge
+    (against the plain backward's sums; the merge also against its plain
+    version on the same partials; two calls the same bits). ``dead_row``: a
+    batch row whose logits are all -inf, which must give exactly 0, lse
+    -1e30 and zero dq and dS. Returns the kernels' (out, lse)."""
     from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
 
     fp32 = q.dtype == torch.float32
@@ -3549,9 +3558,11 @@ def check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=None):
         torch, f"evoformer_fwd lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
     del ref_out, ref_lse
     want_ds = bool(ops)
-    dq, ds = E.evoformer_bwd_dq_cuda(q, k, v, out, do, lse, ops, want_ds=want_ds)
-    dk, dv = E.evoformer_bwd_dkv_cuda(q, k, v, out, do, lse, ops)
-    rdq, rdk, rdv, rds = E.evoformer_bwd_reference(q, k, v, out, do, lse, ops, want_ds=want_ds)
+    reduced = plan is not None and plan.form == "reduced"
+    dq, delta, ds, _ = E.evoformer_bwd_dq_cuda(q, k, v, out, do, lse, ops, want_ds=want_ds)
+    dk, dv, _ = E.evoformer_bwd_dkv_cuda(q, k, v, do, lse, delta, ops)
+    rdq, rdk, rdv, rds, rsums = E.evoformer_bwd_reference(
+        q, k, v, out, do, lse, ops, want_ds=want_ds, sums=plan.dims if reduced else ())
     for kname, got, want, tag in (("evoformer_bwd_dq", dq, rdq, name),
                                   ("evoformer_bwd_dkv", dk, rdk, name),
                                   ("evoformer_bwd_dkv", dv, rdv, name + "_dv")):
@@ -3562,6 +3573,37 @@ def check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=None):
             torch, f"evoformer_bwd_dq dS {name}", ds, rds, EVO_DS_ATOL * scale, EVO_DS_RTOL)
     elif ds is not None:
         raise AssertionError(f"evoformer_bwd_dq {name}: a dS plane with no bias")
+    if reduced:
+        dims = [dm for dm in plan.dims if dm is not None]
+        runs = []
+        for _ in range(2):
+            rdq2, delta2, _, rp = E.evoformer_bwd_dq_cuda(q, k, v, out, do, lse, ops,
+                                                          rows=plan.rows)
+            rdk2, rdv2, cp = E.evoformer_bwd_dkv_cuda(q, k, v, do, lse, delta2, ops,
+                                                      cols=plan.cols)
+            jobs = [(rp if 2 not in dm else cp, E.merge_flags(dm)) for dm in dims]
+            runs.append(((rdq2, rdk2, rdv2), E.evoformer_bias_grad_merge_cuda(jobs), jobs))
+        (grads2, sums, jobs), (grads3, sums2, _) = runs
+        if not (all(torch.equal(a, b) and torch.equal(a, c)
+                    for a, b, c in zip((dq, dk, dv), grads2, grads3))
+                and all(torch.equal(a, b) for a, b in zip(sums, sums2))):
+            raise AssertionError(f"evoformer {name}: the reduced form's dq, dk, dv or bias "
+                                 "gradients differ between calls (or from the plane form's)")
+        want_sums = [x for x in rsums if x is not None]
+        if dead_row is not None and any(2 in dm and 0 not in dm and bool(g[dead_row].any())
+                                        for dm, g in zip(dims, sums)):
+            raise AssertionError(f"evoformer {name}: the dead row must add exactly 0")
+        for i, (got, want, (src, flags)) in enumerate(zip(sums, want_sums, jobs)):
+            scale = max(1.0, float(want.abs().max()))
+            errs["evoformer_bwd_dq"][f"{name}_db{i + 1}"] = check_close(
+                torch, f"evoformer bias gradient {name} {i + 1}", got, want,
+                EVO_DS_ATOL * scale, EVO_DS_RTOL)
+            plain = E.evoformer_bias_grad_merge_reference(src, flags)
+            scale = max(1.0, float(plain.abs().max()))
+            errs["evoformer_bias_grad_merge"][f"{name}_{i + 1}"] = check_close(
+                torch, f"evoformer_bias_grad_merge {name} {i + 1}", got, plain,
+                EVO_DS_ATOL * scale, EVO_DS_RTOL)
+        del runs, sums, sums2, jobs, grads2, grads3
     if dead_row is not None:
         r = dead_row
         if bool(out[r].float().abs().max() != 0) or bool((lse[r] != -1e30).any()):
@@ -3570,18 +3612,20 @@ def check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=None):
             raise AssertionError(f"evoformer_bwd_dq {name}: the dead row's dq and dS must be 0")
         if not all(bool(torch.isfinite(g.float()).all()) for g in (dq, dk, dv, ds)):
             raise AssertionError(f"evoformer backward {name}: non-finite gradients")
-    del rdq, rdk, rdv, rds, dq, dk, dv, ds
+    del rdq, rdk, rdv, rds, rsums, dq, dk, dv, ds
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out, lse
 
 
 def evoformer_cases(torch, dev):
-    """(name, [B, s, h, d] q, k, v, do, bias operands, dead row or None) of
-    the kernels group's small cases, built on demand: d 16 and 64, s 100
+    """(name, [B, s, h, d] q, k, v, do, bias operands, dead row or None,
+    ``bias_grad_plan`` with every bias needing a gradient) of the kernels
+    group's small cases, built on demand: d 16, 64 and 128, s 100 and 130
     (neither a multiple of 64), no bias, one bias, a bias2 [2, 1, h, s, s]
-    under leading dims [2, n] (materialized), a fully masked row; bf16 and
-    fp32."""
+    under leading dims [2, n] (materialized: the plane form), a fully masked
+    row; bf16 and fp32. Every case with a mask or a pair bias [1, 1, h, s, s]
+    takes the reduced form too."""
     from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
 
     specs = [  # name, leading dims, s, h, d, biases, dtype
@@ -3594,6 +3638,7 @@ def evoformer_cases(torch, dev):
         ("bias2_materialized_bf16", (2, 6), 160, 4, 32, "12M", torch.bfloat16),
         ("dead_row_bf16", (1, 8), 192, 8, 32, "12D", torch.bfloat16),
         ("d128_fp32", (1, 4), 130, 2, 128, "2", torch.float32),
+        ("d128_s100_bf16", (1, 6), 100, 2, 128, "12", torch.bfloat16),
     ]
     for i, (name, lead, s, h, d, which, dtype) in enumerate(specs):
         gen = torch.Generator(device=dev).manual_seed(200 + i)
@@ -3611,23 +3656,30 @@ def evoformer_cases(torch, dev):
         ops = E._operands(biases, lead, h, s)
         if "M" in which and ops[1].stride(0) == 0:
             raise AssertionError(f"{name}: bias2 should be materialized")
-        yield name, q, k, v, do, ops, 3 if "D" in which else None
+        plan = E.bias_grad_plan([b.shape for b in biases], ops, lead, h, s, [True] * len(biases))
+        yield name, q, k, v, do, ops, 3 if "D" in which else None, plan
 
 
-def evoformer_work(B, s, h, d, el, bias_bytes, with_ds=True):
+def evoformer_work(B, s, h, d, el, bias_bytes, grad_bytes, col_bytes=0, merged_bytes=0):
     """(FLOPs, bytes) per kernel for these inputs: 4d / 6d / 8d FLOPs per
     pair (every pair is computed: no mask prunes a tile); q, k, v, o, do,
-    dq, dk, dv [B, s, h, d] at ``el`` bytes, lse fp32, the biases at the
-    bytes they occupy, the fp32 dS plane [B, h, s, s]."""
+    dq, dk, dv [B, s, h, d] at ``el`` bytes, lse and delta fp32 [B, h, s],
+    the biases at the bytes they occupy; ``grad_bytes`` what dq writes of
+    the bias gradient (the fp32 dS plane [B, h, s, s], or the reduced form's
+    row partials), ``col_bytes`` what dk/dv writes of it (the reduced form's
+    column partials); the merge reads both once (an add per element) to
+    write ``merged_bytes`` of bias gradients. dk/dv reads dq's delta, not
+    o."""
     pairs = B * h * s * s
     t = B * s * h * d * el
     lseb = B * h * s * 4
-    dsb = B * h * s * s * 4 if with_ds else 0
     flops = {"evoformer_fwd": 4 * pairs * d, "evoformer_bwd_dq": 6 * pairs * d,
-             "evoformer_bwd_dkv": 8 * pairs * d}
+             "evoformer_bwd_dkv": 8 * pairs * d,
+             "evoformer_bias_grad_merge": (grad_bytes + col_bytes) // 4}
     moved = {"evoformer_fwd": 3 * t + bias_bytes + t + lseb,
-             "evoformer_bwd_dq": 5 * t + lseb + bias_bytes + t + dsb,
-             "evoformer_bwd_dkv": 5 * t + lseb + bias_bytes + 2 * t}
+             "evoformer_bwd_dq": 5 * t + lseb + bias_bytes + t + lseb + grad_bytes,
+             "evoformer_bwd_dkv": 4 * t + 2 * lseb + bias_bytes + 2 * t + col_bytes,
+             "evoformer_bias_grad_merge": grad_bytes + col_bytes + merged_bytes}
     return flops, moved
 
 
@@ -3671,12 +3723,20 @@ def sdpa_evoformer_ms(torch, q, k, v, do, b1, b2):
             "what": what}
 
 
+def evoformer_bound(flops, moved, peak):
+    t_ops, t_bytes = flops / peak, moved / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def evoformer_timings(torch, dev, errs, tiles, shape=EVOFORMER_SHAPES["msa_row"], seed=300):
-    """At the phase's msa_row shape, in bf16 and in fp32: the three kernels
-    held against their plain versions on the inputs they are timed on, then
-    CUDA-graph times of the kernels and of their plain versions, beside each
-    kernel its bound for these inputs; SDPA with the summed mask as the
-    library yardstick (bf16)."""
+    """At the phase's msa_row shape, in bf16 and in fp32: the kernels held
+    against their plain versions on the inputs they are timed on, then
+    CUDA-graph times of the kernels in the form the op call runs (dq writing
+    the reduced form's partials, the merge folding them) and of their plain
+    versions, beside each kernel its bound for these inputs; dq in the plane
+    form beside it with its own bound; SDPA with the summed mask as the
+    library yardstick of the others (bf16), a torch sum of the partials as
+    the merge's."""
     from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
 
     n, s, h, d = shape["n"], shape["s"], shape["h"], shape["d"]
@@ -3688,52 +3748,86 @@ def evoformer_timings(torch, dev, errs, tiles, shape=EVOFORMER_SHAPES["msa_row"]
         ops = E._operands([b1, b2], (1, n), h, s)
         if any(o.stride(0) != 0 and o.stride(1) != 0 for o in ops):
             raise AssertionError("evoformer: a bias operand was materialized at msa_row")
-        out, lse = check_evoformer(torch, errs, tiles, f"msa_row_{tag}", q, k, v, do, ops)
+        plan = E.bias_grad_plan([b1.shape, b2.shape], ops, (1, n), h, s, (True, True))
+        if plan.form != "reduced":
+            raise AssertionError(f"evoformer: msa_row's bias gradients take the {plan.form} form")
+        out, lse = check_evoformer(torch, errs, tiles, f"msa_row_{tag}", q, k, v, do, ops,
+                                   plan=plan)
         args = (q, k, v, out, do, lse, ops)
+
+        def dq_reduced():
+            return E.evoformer_bwd_dq_cuda(*args, rows=plan.rows)
+
+        def dkv_reduced():
+            return E.evoformer_bwd_dkv_cuda(q, k, v, do, lse, delta, ops, cols=plan.cols)
+
+        _, delta, _, rp = dq_reduced()
+        cp = dkv_reduced()[2]
+        jobs = [(rp if 2 not in dm else cp, E.merge_flags(dm)) for dm in plan.dims]
+
+        def torch_merge():
+            return [E.evoformer_bias_grad_merge_reference(src, flags) for src, flags in jobs]
+
         ms = {"evoformer_fwd": time_ms(torch, lambda: E.evoformer_fwd_cuda(q, k, v, ops),
                                        iters=10),
-              "evoformer_bwd_dq": time_ms(torch, lambda: E.evoformer_bwd_dq_cuda(*args),
-                                          iters=10),
-              "evoformer_bwd_dkv": time_ms(torch, lambda: E.evoformer_bwd_dkv_cuda(*args),
-                                           iters=10)}
+              "evoformer_bwd_dq": time_ms(torch, dq_reduced, iters=10),
+              "evoformer_bwd_dkv": time_ms(torch, dkv_reduced, iters=10),
+              "evoformer_bias_grad_merge": time_ms(
+                  torch, lambda: E.evoformer_bias_grad_merge_cuda(jobs), iters=10)}
+        plane_ms = time_ms(torch, lambda: E.evoformer_bwd_dq_cuda(*args, want_ds=True), iters=3)
         plain = {"evoformer_fwd": time_ms(
             torch, lambda: E.evoformer_fwd_reference(q, k, v, ops), iters=2, warmup=1)}
-        # the plain backward computes dq, dS, dk and dv together: its time
-        # stands for both backward kernels
+        # the plain backward computes dq, dk, dv and the reduced gradients
+        # together: its time stands for both backward kernels
         plain["evoformer_bwd_dq"] = plain["evoformer_bwd_dkv"] = time_ms(
-            torch, lambda: E.evoformer_bwd_reference(*args), iters=2, warmup=1)
+            torch, lambda: E.evoformer_bwd_reference(*args, want_ds=False, sums=plan.dims),
+            iters=2, warmup=1)
+        plain["evoformer_bias_grad_merge"] = time_ms(torch, torch_merge, iters=10)
         torch.cuda.empty_cache()
         lib = sdpa_evoformer_ms(torch, q, k, v, do, b1[0], b2[0]) if tag == "bf16" else None
+        if lib is not None:  # the merge's library call: a torch sum of each partial
+            lib["evoformer_bias_grad_merge"] = time_ms(torch, torch_merge, iters=10)
         bias_bytes = (b1.numel() + b2.numel()) * 4
-        flops, moved = evoformer_work(n, s, h, d, q.element_size(), bias_bytes)
+        flops, moved = evoformer_work(n, s, h, d, q.element_size(), bias_bytes, rp.numel() * 4,
+                                      col_bytes=cp.numel() * 4, merged_bytes=bias_bytes)
+        pflops, pmoved = evoformer_work(n, s, h, d, q.element_size(), bias_bytes,
+                                        n * h * s * s * 4)
         peak = BF16_FLOPS if tag == "bf16" else FP32_FLOPS
         for kname in EVOFORMER_KERNELS:
-            t_ops, t_bytes = flops[kname] / peak, moved[kname] / HBM_BYTES_PER_S
+            kpeak = FP32_FLOPS if kname == "evoformer_bias_grad_merge" else peak
+            bound_ms, bound_by = evoformer_bound(flops[kname], moved[kname], kpeak)
             r = rec.setdefault(kname, {})
-            r[tag] = {"ms": ms[kname], "plain_ms": plain[kname],
-                      "bound_ms": max(t_ops, t_bytes) * 1e3,
-                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                      "flops": flops[kname], "bytes": moved[kname],
+            r[tag] = {"ms": ms[kname], "plain_ms": plain[kname], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "flops": flops[kname], "bytes": moved[kname],
                       "tflops_per_s": flops[kname] / (ms[kname] * 1e-3) / 1e12,
                       "gb_per_s": moved[kname] / (ms[kname] * 1e-3) / 1e9}
             if lib is not None:
-                r[tag].update(library_ms=lib[kname], library=lib["what"])
-        del q, k, v, do, b1, b2, ops, out, lse, args
+                r[tag].update(library_ms=lib[kname],
+                              library=("torch sum of each partial (the plain version's call)"
+                                       if kname == "evoformer_bias_grad_merge" else lib["what"]))
+        bound_ms, bound_by = evoformer_bound(pflops["evoformer_bwd_dq"],
+                                             pmoved["evoformer_bwd_dq"], peak)
+        rec["evoformer_bwd_dq"][tag]["plane_form"] = {
+            "ms": plane_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": pmoved["evoformer_bwd_dq"]}
+        rec["evoformer_bwd_dq"][tag]["partial_bytes"] = rp.numel() * 4
+        rec["evoformer_bwd_dkv"][tag]["partial_bytes"] = cp.numel() * 4
+        del q, k, v, do, b1, b2, ops, out, lse, args, delta, rp, cp, jobs
         torch.cuda.empty_cache()
     return rec
 
 
 def kernel_evoformer(torch, dev):
-    """The three evoformer kernels against their plain versions at the
-    small cases of ``evoformer_cases``, then checked and timed at msa_row in
-    bf16 and fp32 (``evoformer_timings``). Returns one record per kernel;
-    its ms, plain, bound and library numbers are bf16's, fp32's beside
-    them."""
+    """The evoformer kernels against their plain versions at the small
+    cases of ``evoformer_cases`` (both bias-gradient forms where the plan is
+    reduced), then checked and timed at msa_row in bf16 and fp32
+    (``evoformer_timings``). Returns one record per kernel; its ms, plain,
+    bound and library numbers are bf16's, fp32's beside them."""
     errs = {n: {} for n in EVOFORMER_KERNELS}
     tiles = {n: {} for n in EVOFORMER_KERNELS}
     names = []
-    for name, q, k, v, do, ops, dead in evoformer_cases(torch, dev):
-        check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=dead)
+    for name, q, k, v, do, ops, dead, plan in evoformer_cases(torch, dev):
+        check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=dead, plan=plan)
         names.append(name)
         del q, k, v, do, ops
     timed = evoformer_timings(torch, dev, errs, tiles)
@@ -3751,13 +3845,17 @@ def kernel_evoformer(torch, dev):
             "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "fp32": [EVO_FP32_ATOL, EVO_FP32_RTOL],
                           "scaled_by": "max(1, max|ref|)", "lse": [FLASH_LSE_ATOL, FP32_RTOL],
                           "dS": [EVO_DS_ATOL, EVO_DS_RTOL],
-                          "tile_rel_frobenius": FLASH_TILE_RTOL if kname != "evoformer_fwd"
-                          else None},
+                          "bias_gradients_and_merge": [EVO_DS_ATOL, EVO_DS_RTOL],
+                          "tile_rel_frobenius": FLASH_TILE_RTOL
+                          if kname in ("evoformer_bwd_dq", "evoformer_bwd_dkv") else None},
             "tile_rel_frobenius_by_case": tiles[kname] or None,
             "held_against": {"plain": names + ["msa_row_bf16", "msa_row_fp32"]},
             **{key: bf[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "flops",
                                         "bytes", "tflops_per_s", "gb_per_s", "library_ms",
                                         "library")},
+            **({"plane_form": bf["plane_form"]} if kname == "evoformer_bwd_dq" else {}),
+            **({"partial_bytes": bf["partial_bytes"]}
+               if kname in ("evoformer_bwd_dq", "evoformer_bwd_dkv") else {}),
             "fp32": fp,
         }
     return records
@@ -3769,14 +3867,16 @@ def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
     ``DS4Sci_EvoformerAttention``, which runs forward and backward on the
     msa_row and triangle shapes (``EVOFORMER_SHAPES``) in bf16 with
     AlphaFold's mask and a random pair bias, both needing gradients.
-    Launches are counted exactly (one of each evoformer kernel per call,
-    nothing else); out, dQ, dK, dV are held against the plain versions
-    (elementwise and per 64-row tile), db1 and db2 as relative Frobenius
-    over the whole tensor. Then a call whose biases need no gradient, which
-    must not ask for the dS plane. On a card each call also records the
-    device time of its two bias-gradient reductions (dS summed to each
-    bias's shape in torch). ``shapes``/``dtype`` shrink it for a CPU
-    rehearsal, where nothing launches."""
+    Launches are counted exactly (one of each evoformer kernel per call, the
+    bias-gradient merge included, nothing else); out, dQ, dK, dV are held
+    against the plain versions (elementwise and per 64-row tile), db1 and
+    db2 as relative Frobenius over the whole tensor and bit for bit against
+    a second call. On a card each call also records its peak memory above
+    its inputs, which must stay below the [B, h, s, s] fp32 plane's size
+    (the reduced form allocates none), and the merge's device time on the
+    call's partials. Then a call whose biases need no gradient, which must
+    ask for neither the dS plane nor its partials. ``shapes``/``dtype``
+    shrink it for a CPU rehearsal, where nothing launches."""
     from deepspeed_tpu_torch import get_accelerator
     from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
 
@@ -3816,14 +3916,23 @@ def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
         for name, cnt in launches.items():
             total[name] += cnt
         if on_card:
+            plane_gb = n * h * s * s * 4 / 1e9
             c["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
             c["peak_over_inputs_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            c["plane_gb"] = plane_gb
+            if not c["peak_over_inputs_gb"] < plane_gb:
+                raise AssertionError(f"evoformer {cname}: {c['peak_over_inputs_gb']} GB above the "
+                                     f"inputs, not below the {plane_gb} GB dS plane")
+        grads = [t.grad.clone() for t in leaves]
 
         # against the plain versions
         q4, k4, v4, do4 = (t.reshape(n, s, h, d) for t in (q, k, v, do))
         ops = E._operands([b1, b2], (1, n), h, s)
+        plan = E.bias_grad_plan([b1.shape, b2.shape], ops, (1, n), h, s, (True, True))
+        c["bias_grad_form"] = plan.form
         ref_out, ref_lse = E.evoformer_fwd_reference(q4, k4, v4, ops)
-        rdq, rdk, rdv, rds = E.evoformer_bwd_reference(q4, k4, v4, ref_out, do4, ref_lse, ops)
+        rdq, rdk, rdv, _, rsums = E.evoformer_bwd_reference(
+            q4, k4, v4, ref_out, do4, ref_lse, ops, want_ds=False, sums=plan.dims)
         errs, tiles = {}, {}
         for tag, got, want_t in (("out", out.detach(), ref_out), ("dq", leaves[0].grad, rdq),
                                  ("dk", leaves[1].grad, rdk), ("dv", leaves[2].grad, rdv)):
@@ -3833,18 +3942,16 @@ def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
                                     BF16_ATOL * scale, BF16_RTOL)
             tiles[tag] = tile_rel_err(torch, f"evoformer {cname} {tag}", got.transpose(1, 2),
                                       want_t.transpose(1, 2))
-        del ref_out, ref_lse, out
-        for tag, leaf in (("db1", leaves[3]), ("db2", leaves[4])):
-            want_t = rds.view(1, n, h, s, s).sum_to_size(leaf.shape)
+        del ref_out, ref_lse, out, rdq, rdk, rdv
+        for tag, leaf, want_t in (("db1", leaves[3], rsums[0]), ("db2", leaves[4], rsums[1])):
+            want_t = want_t.reshape(leaf.shape)
             tiles[tag] = rel_frobenius(torch, f"evoformer {cname} {tag}", leaf.grad, want_t)
             errs[tag] = float((leaf.grad - want_t).abs().max())
-        if on_card:
-            c["bias_grad_reduce_ms"] = eager_ms(torch, lambda: [
-                rds.view(1, n, h, s, s).sum_to_size(b.shape) for b in (b1, b2)], iters=5)
-        del rdq, rdk, rdv, rds
+        del rsums
         c["max_abs_err"], c["rel_frobenius"] = errs, tiles
 
-        # seconds of a call (eager: host work included), the mean of three
+        # seconds of a call (eager: host work included), the mean of three;
+        # every call's gradients the first's bits
         t0 = time.perf_counter()
         for _ in range(3):
             for t in leaves:
@@ -3852,12 +3959,27 @@ def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
             evo(*leaves[:3], leaves[3:]).backward(do)
         _sync(torch, dev)
         c["call_s"] = (time.perf_counter() - t0) / 3
+        same = [bool(torch.equal(t.grad, g)) for t, g in zip(leaves, grads)]
+        if not all(same):
+            raise AssertionError(f"evoformer {cname}: gradients of dq, dk, dv, db1, db2 repeat "
+                                 f"bit for bit: {same}")
+        c["grads_repeat_bit_for_bit"] = True
+        if on_card:  # the merge's device time on this call's partials
+            out, lse = E.evoformer_fwd_cuda(q4, k4, v4, ops)
+            _, delta, _, rp = E.evoformer_bwd_dq_cuda(q4, k4, v4, out, do4, lse, ops,
+                                                      rows=plan.rows)
+            cp = E.evoformer_bwd_dkv_cuda(q4, k4, v4, do4, lse, delta, ops, cols=plan.cols)[2]
+            jobs = [(rp if 2 not in dm else cp, E.merge_flags(dm)) for dm in plan.dims]
+            c["merge_ms"] = time_ms(torch, lambda: E.evoformer_bias_grad_merge_cuda(jobs),
+                                    iters=10)
+            del out, lse, delta, rp, cp, jobs
         rec["calls"][cname] = c
-        del leaves
+        del leaves, grads
         if on_card:
             torch.cuda.empty_cache()
 
-    # biases that need no gradient: the dq kernel is not asked for dS
+    # biases that need no gradient: dq is asked for neither the plane nor
+    # its partials, and no merge launches
     first = next(iter(shapes))
     sh = shapes[first]
     q, k, v, do, b1, b2 = evo_inputs(torch, dev, sh["n"], sh["s"], sh["h"], sh["d"], dtype,
@@ -3865,11 +3987,18 @@ def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
                                      pad_rows=min(EVO_PAD_ROWS, sh["n"] // 4))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     asked = []
-    real = E.evoformer_bwd_dq_cuda if on_card else E.evoformer_bwd_reference
+    if on_card:
+        real = E.evoformer_bwd_dq_cuda
 
-    def spy(*a, want_ds=True, **kw):
-        asked.append(want_ds)
-        return real(*a, want_ds=want_ds, **kw)
+        def spy(*a, want_ds=False, rows=False, **kw):
+            asked.append(bool(want_ds or rows))
+            return real(*a, want_ds=want_ds, rows=rows, **kw)
+    else:
+        real = E.evoformer_bwd_reference
+
+        def spy(*a, want_ds=True, sums=(), **kw):
+            asked.append(bool(want_ds or sums))
+            return real(*a, want_ds=want_ds, sums=sums, **kw)
 
     setattr(E, real.__name__, spy)
     try:
@@ -3882,8 +4011,11 @@ def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
     finally:
         setattr(E, real.__name__, real)
     if asked != [False]:
-        raise AssertionError(f"evoformer: biases with no gradient asked for dS: {asked}")
+        raise AssertionError(f"evoformer: biases with no gradient asked for a bias gradient: "
+                             f"{asked}")
     launches = K.counts()
+    if launches.get("evoformer_bias_grad_merge"):
+        raise AssertionError("evoformer: biases with no gradient launched the merge")
     for name, cnt in launches.items():
         total[name] += cnt
     rec["no_bias_grad_call"] = {"shape": first, "dS_asked": False,

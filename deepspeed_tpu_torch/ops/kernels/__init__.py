@@ -223,17 +223,28 @@ KERNELS: Dict[str, Kernel] = {
         ),
         Kernel(
             "evoformer_bwd_dq", "evoformer_bwd.cu", "dstt_evoformer_bwd_dq",
-            # q, k, v, o, do, lse, b1, b2, dq, ds (or null), b1 strides, b2
-            # strides, B, h, s, d, scale, fp32, vec, stream
-            [_P] * 10 + [_L] * 6 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
+            # q, k, v, o, do, lse, b1, b2, dq, delta, ds, row partials (each of
+            # the last two or null), b1 strides, b2 strides, B, h, s, d, scale,
+            # fp32, vec, group, stream
+            [_P] * 12 + [_L] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P],
             "deepspeed_tpu/ops/deepspeed4science/evoformer_attn.py:60",
         ),
         Kernel(
             "evoformer_bwd_dkv", "evoformer_bwd.cu", "dstt_evoformer_bwd_dkv",
-            # q, k, v, o, do, lse, b1, b2, dk, dv, b1 strides, b2 strides, B,
-            # h, s, d, scale, fp32, vec, stream
-            [_P] * 10 + [_L] * 6 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
+            # q, k, v, do, lse, delta, b1, b2, dk, dv, column partials (or
+            # null), b1 strides, b2 strides, B, h, s, d, scale, fp32, vec,
+            # group, stream
+            [_P] * 11 + [_L] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P],
             "deepspeed_tpu/ops/deepspeed4science/evoformer_attn.py:90",
+        ),
+        Kernel(
+            # the second pass of _bwd_dq_kernel's bias gradient (its dS plane
+            # is summed to each bias's shape in XLA)
+            "evoformer_bias_grad_merge", "evoformer_bwd.cu", "dstt_evoformer_bias_grad_merge",
+            # src0, dst0, a0, a1, a2, n, flags0, src1, dst1, c0, c1, c2, m,
+            # flags1, jobs, stream
+            [_P] * 2 + [_I] * 5 + [_P] * 2 + [_I] * 6 + [_P],
+            "deepspeed_tpu/ops/deepspeed4science/evoformer_attn.py:60",
         ),
         Kernel(
             "fused_ce_fwd", "fused_ce.cu", "dstt_fused_ce_fwd",

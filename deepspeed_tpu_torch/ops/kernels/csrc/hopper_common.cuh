@@ -9,11 +9,11 @@
 //    ragged boxes fill with zeros, not the next matrix's rows) through
 //    cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint so that
 //    the build needs no -lcuda;
-//  * wgmma shared-memory matrix descriptors for 128-byte-swizzled bf16
-//    operands, K-major and MN-major, and wgmma.mma_async m64n32k16 /
+//  * wgmma shared-memory matrix descriptors for 128- and 64-byte-swizzled
+//    bf16 operands, K-major and MN-major, and wgmma.mma_async m64n32k16 /
 //    m64n64k16 / m64n128k16 / m64n256k16 (bf16 in, fp32 accumulators in
-//    registers), with A from shared memory or (the _rs forms of n64 and up)
-//    from registers, and its fence, commit and wait;
+//    registers), with A from shared memory or (the _rs forms) from
+//    registers, and its fence, commit and wait;
 //  * setmaxnreg, named barriers (sync and arrive), the generic-to-async
 //    proxy fence;
 //  * red.global.add.v2.f32 of an accumulator fragment into an fp32 plane
@@ -136,6 +136,19 @@ __device__ __forceinline__ uint64_t desc_b128(const void* start, uint32_t lbo_by
          ((uint64_t)((sbo_bytes & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
 
+// the same for a 64-byte-swizzled operand: rows of 64 bytes (32 bf16), the
+// 16-byte chunk c of row r at chunk c ^ ((r / 2) % 4), atoms of 8 rows =
+// 512 bytes (bases 512-byte aligned). K-major: SBO = 512 between 8-row
+// atoms, the k-th 16-wide K step 32 k bytes into the row. MN-major (32 M/N
+// a row): SBO = 512 between 8-K-row atoms, LBO between 32-wide M/N blocks,
+// the k-th 16-deep K step 1024 k bytes into the tile.
+__device__ __forceinline__ uint64_t desc_b64(const void* start, uint32_t lbo_bytes,
+                                             uint32_t sbo_bytes) {
+  const uint64_t a = smem_u32(start);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo_bytes & 0x3FFFF) >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -246,6 +259,21 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32] with A from registers (as
+// wgmma_m64n64k16_rs)
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64] with A from registers (four bf16

@@ -663,54 +663,99 @@ def test_evoformer_phase_runs_end_to_end_on_cpu(one_thread, monkeypatch):
     assert E.evoformer_bwd_reference.__name__ == "evoformer_bwd_reference"  # spy removed
 
 
+def _plain_evoformer_kernels(monkeypatch, E):
+    """The evoformer wrappers replaced by plain models on CPU tensors: the
+    partials are the plain dS plane summed over each group of batch rows
+    (``rows_per_cta``: dq's) or over the queries (dk/dv's), and the merge is
+    its plain version, so a reduced case checks the chain partials -> merge
+    -> bias gradient."""
+
+    def dq(q, k, v, out, do, lse, ops, want_ds=False, rows=False, **kw):
+        r = E.evoformer_bwd_reference(q, k, v, out, do, lse, ops, want_ds=True)
+        ds = r[3]
+        B, h, s, _ = ds.shape
+        g = E.rows_per_cta(B, h, s)
+        rp = (torch.stack([ds[b0:b0 + g].sum(0) for b0 in range(0, B, g)]) if rows else None)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        return r[0], delta, ds if want_ds else None, rp
+
+    def dkv(q, k, v, do, lse, delta, ops, cols=False, **kw):
+        out, _ = E.evoformer_fwd_reference(q, k, v, ops)
+        r = E.evoformer_bwd_reference(q, k, v, out, do, lse, ops, want_ds=True)
+        return r[1], r[2], r[3].sum(2, keepdim=True) if cols else None
+
+    monkeypatch.setattr(E, "evoformer_fwd_cuda", E.evoformer_fwd_reference)
+    monkeypatch.setattr(E, "evoformer_bwd_dq_cuda", dq)
+    monkeypatch.setattr(E, "evoformer_bwd_dkv_cuda", dkv)
+    monkeypatch.setattr(E, "evoformer_bias_grad_merge_cuda", lambda jobs: [
+        E.evoformer_bias_grad_merge_reference(src, flags) for src, flags in jobs])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+
+
 def test_evoformer_kernel_cases_on_plain_inputs(monkeypatch):
     """The kernels group's small cases on the plain versions: the shapes
     the card checks (d 16 to 128, s 100, no bias, one bias, a materialized
     pair bias, a dead row), the dead row exactly 0 and every check
-    recorded."""
+    recorded; the cases with a mask or a pair bias [1, 1, h, s, s] also in
+    the reduced form, the materialized one only in the plane form."""
     from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
 
-    def dq(*a, want_ds=True, **kw):
-        r = E.evoformer_bwd_reference(*a, want_ds=want_ds, **kw)
-        return r[0], r[3]
-
-    monkeypatch.setattr(E, "evoformer_fwd_cuda", E.evoformer_fwd_reference)
-    monkeypatch.setattr(E, "evoformer_bwd_dq_cuda", dq)
-    monkeypatch.setattr(E, "evoformer_bwd_dkv_cuda",
-                        lambda *a, **kw: E.evoformer_bwd_reference(*a, want_ds=False, **kw)[1:3])
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    _plain_evoformer_kernels(monkeypatch, E)
     errs = {n: {} for n in chip_smoke.EVOFORMER_KERNELS}
     tiles = {n: {} for n in chip_smoke.EVOFORMER_KERNELS}
-    names = []
-    for name, q, k, v, do, ops, dead in chip_smoke.evoformer_cases(torch, torch.device("cpu")):
-        chip_smoke.check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=dead)
+    names, forms = [], {}
+    for name, q, k, v, do, ops, dead, plan in chip_smoke.evoformer_cases(
+            torch, torch.device("cpu")):
+        chip_smoke.check_evoformer(torch, errs, tiles, name, q, k, v, do, ops, dead_row=dead,
+                                   plan=plan)
         names.append(name)
+        forms[name] = plan.form
         assert (dead is not None) == (name == "dead_row_bf16")
         assert len(ops) == {"no_bias_bf16": 0, "one_bias_fp32": 1, "d128_fp32": 1}.get(name, 2)
     assert {q_.shape[-1] for _, q_, *rest in chip_smoke.evoformer_cases(
         torch, torch.device("cpu"))} == {16, 32, 64, 128}
+    assert forms == {n: {"no_bias_bf16": "none", "bias2_materialized_bf16": "plane"}.get(
+        n, "reduced") for n in names}
     assert "dead_row_bf16_dS" in errs["evoformer_bwd_dq"]
     assert "no_bias_bf16_dS" not in errs["evoformer_bwd_dq"]
+    assert {"d16_bf16_db2", "d128_fp32_db1", "one_bias_fp32_db1"} <= set(errs["evoformer_bwd_dq"])
+    assert "bias2_materialized_bf16_db1" not in errs["evoformer_bwd_dq"]
+    assert set(errs["evoformer_bias_grad_merge"]) == {
+        f"{n}_{i}" for n in names if forms[n] == "reduced"
+        for i in range(1, 2 + (n not in ("one_bias_fp32", "d128_fp32")))}
     assert set(tiles["evoformer_bwd_dkv"]) == {n for name in names for n in (name, name + "_dv")}
-    assert max(max(e.values()) for e in errs.values()) == 0
+    # the kernels' plain models are the plain versions: equal, but for the
+    # bias gradients, summed from the partials in another order
+    assert max(v for e in errs.values() for key, v in e.items() if "_db" not in key) == 0
+    assert max(v for key, v in errs["evoformer_bwd_dq"].items() if "_db" in key) < 1e-5
 
 
 def test_evoformer_work_counts_the_msa_row_bytes():
-    """The bounds' counts at msa_row: 4d / 6d / 8d FLOPs per pair, and in
-    bf16 the dS plane (2.42 GB) sets the dq kernel's bytes."""
+    """The bounds' counts at msa_row: 4d / 6d / 8d FLOPs per pair; each
+    backward kernel's bytes hold what it writes of the bias gradient: in
+    bf16 dq's dS plane (2.42 GB) sets them, the reduced form's partials are
+    a small part, dq's row partials counted in dq and the column partials in
+    dk/dv, the merge reading both; dk/dv reads dq's delta, not o."""
     sh = chip_smoke.EVOFORMER_SHAPES["msa_row"]
     n, s, h, d = sh["n"], sh["s"], sh["h"], sh["d"]
     bias_bytes = (n * s + h * s * s) * 4
-    flops, moved = chip_smoke.evoformer_work(n, s, h, d, 2, bias_bytes)
     pairs = n * h * s * s
+    flops, moved = chip_smoke.evoformer_work(n, s, h, d, 2, bias_bytes, pairs * 4)
     assert flops["evoformer_fwd"] == 4 * d * pairs and flops["evoformer_bwd_dkv"] == 8 * d * pairs
     t = n * s * h * d * 2
     assert t == 100663296
     assert moved["evoformer_fwd"] == 4 * t + bias_bytes + n * h * s * 4 == 414449664
-    assert moved["evoformer_bwd_dq"] - moved["evoformer_bwd_dkv"] == pairs * 4 - t
-    _, no_ds = chip_smoke.evoformer_work(n, s, h, d, 2, bias_bytes, with_ds=False)
-    assert moved["evoformer_bwd_dq"] - no_ds["evoformer_bwd_dq"] == pairs * 4
+    assert moved["evoformer_bwd_dq"] - moved["evoformer_bwd_dkv"] == pairs * 4
+    assert moved["evoformer_bwd_dkv"] == 6 * t + 2 * n * h * s * 4 + bias_bytes
+    groups = -(-n // 16)
+    rows, cols = groups * h * s * s * 4, n * h * s * 4
+    _, reduced = chip_smoke.evoformer_work(n, s, h, d, 2, bias_bytes, rows, col_bytes=cols,
+                                           merged_bytes=bias_bytes)
+    assert moved["evoformer_bwd_dq"] - reduced["evoformer_bwd_dq"] == pairs * 4 - rows
+    assert reduced["evoformer_bwd_dkv"] - moved["evoformer_bwd_dkv"] == cols
+    assert reduced["evoformer_bias_grad_merge"] == rows + cols + bias_bytes
+    assert rows + cols < pairs * 4 / 10
 
 
 def test_ring_attn_phase_runs_end_to_end_on_cpu(one_thread):

@@ -8,7 +8,10 @@ contract's 2e-4, the gradients of Q, K, V and both biases within its 5e-4,
 bf16 within one bf16 unit at 1.0 (the JAX kernel keeps the softmax weights
 in fp32, as the port's plain versions do). The plain forward and backward
 are also held against torch autograd through the dense oracle, and the
-kernels (``cuda`` marker) against the plain versions on a card.
+kernels (``cuda`` marker) against the plain versions on a card. The bias
+gradients take the reduced form (dq's partials folded by the merge, no
+[B, h, s, s] plane) for broadcast biases and the plane form otherwise
+(``bias_grad_plan``); both are held here.
 """
 
 import functools
@@ -31,6 +34,7 @@ BF16_TOL = 1e-2
 # same products summed in another order
 PLAIN_TOL = 2e-5
 EVO_KERNELS = ("evoformer_fwd", "evoformer_bwd_dq", "evoformer_bwd_dkv")
+ALL_EVO_KERNELS = EVO_KERNELS + ("evoformer_bias_grad_merge",)
 
 # name: (leading dims, s, h, d, which biases: "1" padding mask, "2" pair bias)
 CASES = {
@@ -159,7 +163,8 @@ def test_plain_versions_match_autograd_of_the_dense_oracle(name):
     out, lse = pevo.evoformer_fwd_reference(q, k, v, ops)
     torch.testing.assert_close(out.reshape(ref.shape), ref.detach(), rtol=PLAIN_TOL,
                                atol=PLAIN_TOL)
-    dq, dk, dv, ds = pevo.evoformer_bwd_reference(q, k, v, out, do.reshape(B, s, h, d), lse, ops)
+    dq, dk, dv, ds, _ = pevo.evoformer_bwd_reference(q, k, v, out, do.reshape(B, s, h, d), lse,
+                                                     ops)
     for got, want in zip((dq, dk, dv), grads[:3]):
         torch.testing.assert_close(got.reshape(want.shape), want, rtol=PLAIN_TOL,
                                    atol=PLAIN_TOL)
@@ -211,18 +216,112 @@ def test_three_biases_and_bias_dtypes_get_their_own_gradients():
 
 
 def test_no_dS_plane_without_a_bias_that_needs_a_gradient(monkeypatch):
+    """No bias needing a gradient: neither the plane nor a reduced sum is
+    asked for. The pair bias [1, 1, h, s, s] under [1, 2] that needs one is
+    reduced over the batch, with no plane."""
     seen = []
     real = pevo.evoformer_bwd_reference
 
-    def spy(*a, want_ds=True, **kw):
-        seen.append(want_ds)
-        return real(*a, want_ds=want_ds, **kw)
+    def spy(*a, want_ds=True, sums=(), **kw):
+        seen.append((want_ds, tuple(sums)))
+        return real(*a, want_ds=want_ds, sums=sums, **kw)
 
     monkeypatch.setattr(pevo, "evoformer_bwd_reference", spy)
     (Q, K, V), (b1, b2) = _flat((1, 2), 16, 2, 16, "12", seed=8, dtype=torch.float32)
     pevo.DS4Sci_EvoformerAttention(Q, K, V, [b1.detach(), b2.detach()]).sum().backward()
     pevo.DS4Sci_EvoformerAttention(Q, K, V, [b1.detach(), b2]).sum().backward()
-    assert seen == [False, True] and b2.grad is not None and b1.grad is None
+    assert seen == [(False, ()), (False, (None, (0,)))]
+    assert b2.grad is not None and b1.grad is None
+
+
+# ---------------------------------------------------------------------------
+# the bias gradients' forms
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("lead", [(1, 5), (2, 3)])
+def test_reduced_bias_grads_equal_the_plane_summed(lead):
+    """The plain backward's reduced gradients (dS summed over each bias's
+    broadcast dims, no plane) equal its plane summed with ``sum_to_size``,
+    for AlphaFold's mask [*lead, 1, 1, s] and pair bias [1, 1, h, s, s], at
+    fp32 tolerances (the same products summed in another order)."""
+    s, h, d = 40, 3, 16
+    (Q, K, V), (mask,) = _inputs(lead, s, h, d, "1", seed=11)
+    pair = np.random.default_rng(12).standard_normal((1, 1, h, s, s)).astype(np.float32)
+    B = int(np.prod(lead))
+    q, k, v = (torch.tensor(x).reshape(B, s, h, d) for x in (Q, K, V))
+    biases = [torch.tensor(mask), torch.tensor(pair)]
+    ops = pevo._operands(biases, lead, h, s)
+    plan = pevo.bias_grad_plan([b.shape for b in biases], ops, lead, h, s, (True, True))
+    assert plan == pevo.BiasGradPlan("reduced", ((1, 2), (0,)), True, True)
+    out, lse = pevo.evoformer_fwd_reference(q, k, v, ops)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(13))
+    *_, ds, sums = pevo.evoformer_bwd_reference(q, k, v, out, do, lse, ops, sums=plan.dims)
+    for b, got in zip(biases, sums):
+        torch.testing.assert_close(got.reshape(b.shape),
+                                   ds.view(*lead, h, s, s).sum_to_size(b.shape),
+                                   rtol=PLAIN_TOL, atol=PLAIN_TOL)
+
+
+def _plain_partials(ds, group):
+    """The partials as the kernels write them, from the plane: dS summed over
+    each group of batch rows (dq), and over all queries (dk/dv)."""
+    B = ds.shape[0]
+    rows = torch.stack([ds[b0:b0 + group].sum(0) for b0 in range(0, B, group)])
+    return rows, ds.sum(2, keepdim=True)
+
+
+def test_merge_of_the_partials_gives_the_reduced_gradients():
+    """The merge's plain version over the partials the kernels write (row
+    sums per group of batch rows, column sums over the queries), with each
+    bias's ``merge_flags``, gives the reduced gradients, for biases broadcast
+    over the batch, the heads, the queries and combinations of them."""
+    gen = torch.Generator().manual_seed(14)
+    ds = torch.randn(7, 3, 70, 70, generator=gen, dtype=torch.float64)
+    rows, cols = _plain_partials(ds, group=3)
+    assert rows.shape == (3, 3, 70, 70) and cols.shape == (7, 3, 1, 70)
+    for dims in [(0,), (0, 1), (1, 2), (2,), (0, 2), (0, 1, 2)]:
+        src = rows if 2 not in dims else cols
+        got = pevo.evoformer_bias_grad_merge_reference(src, pevo.merge_flags(dims))
+        torch.testing.assert_close(got, ds.sum(dim=list(dims), keepdim=True))
+
+
+def test_bias_grad_plan_takes_the_plane_only_for_what_it_cannot_reduce(monkeypatch):
+    """A spy on the plain backward: the mask and the pair bias broadcast over
+    the batch take the reduced form (no plane); a materialized pair bias
+    ([2, 1, h, s, s] under [2, n]), a third bias (folded into the second
+    operand), a bias broadcast over heads only and a bias that is itself an
+    expanded view take the plane form; every gradient still matches
+    autograd through the dense oracle."""
+    seen = []
+    real = pevo.evoformer_bwd_reference
+
+    def spy(*a, want_ds=True, sums=(), **kw):
+        seen.append("plane" if want_ds else "reduced" if sums else "none")
+        return real(*a, want_ds=want_ds, sums=sums, **kw)
+
+    monkeypatch.setattr(pevo, "evoformer_bwd_reference", spy)
+    s, h, d = 24, 2, 16
+    rng = np.random.default_rng(15)
+
+    def run(lead, shapes, expand=None):
+        (Q, K, V), _ = _inputs(lead, s, h, d, "", seed=16)
+        qkv = [torch.tensor(x, requires_grad=True) for x in (Q, K, V)]
+        bs = [torch.tensor(rng.standard_normal(sh).astype(np.float32) * 0.5,
+                           requires_grad=True) for sh in shapes]
+        used = [b.expand(expand) if expand and i == 0 else b for i, b in enumerate(bs)]
+        got = torch.autograd.grad(pevo.DS4Sci_EvoformerAttention(*qkv, used).square().sum(),
+                                  bs)
+        want = torch.autograd.grad(pevo.evoformer_reference(*qkv, used).square().sum(), bs)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        return seen.pop()
+
+    assert run((1, 3), [(1, 3, 1, 1, s), (1, 1, h, s, s)]) == "reduced"
+    assert run((2, 3), [(2, 3, 1, 1, s), (1, 1, h, s, s)]) == "reduced"
+    assert run((2, 3), [(2, 3, 1, 1, s), (2, 1, h, s, s)]) == "plane"
+    assert run((1, 3), [(1, 3, 1, 1, s), (1, 1, h, s, s), (1, 1, 1, s, s)]) == "plane"
+    assert run((1, 3), [(1, 3, 1, s, s)]) == "plane"
+    assert run((1, 3), [(1, 3, 1, 1, s)], expand=(1, 3, h, 1, s)) == "plane"
+    assert not seen
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +342,8 @@ def test_wrappers_never_fall_back_for_device_tensors(monkeypatch):
     for call in (lambda: pevo.DS4Sci_EvoformerAttention(q, q, q),
                  lambda: pevo.evoformer_fwd_cuda(q, q, q),
                  lambda: pevo.evoformer_bwd_dq_cuda(q, q, q, q, q, lse),
-                 lambda: pevo.evoformer_bwd_dkv_cuda(q, q, q, q, q, lse),
+                 lambda: pevo.evoformer_bwd_dkv_cuda(q, q, q, q, lse, lse),
+                 lambda: pevo.evoformer_bias_grad_merge_cuda([(lse[None], 1)]),
                  lambda: pevo.evoformer_fwd_cuda(q, q, q, [torch.zeros(2, 1, 1, 64)])):
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -264,6 +364,14 @@ def test_kernels_are_registered_with_their_pallas_bodies():
         src = (root / path).read_text().splitlines()
         assert src[int(line) - 1].startswith(f"def {fn}(")
         assert KERNELS[name].source in ("evoformer_fwd.cu", "evoformer_bwd.cu")
+
+
+def test_merge_kernel_finishes_the_dq_kernels_bias_gradient():
+    """The merge has no Pallas body of its own: it is the second pass of
+    ``_bwd_dq_kernel``'s bias gradient (XLA sums that kernel's dS plane in the
+    JAX package), built from the dq kernel's source."""
+    merge, dq = KERNELS["evoformer_bias_grad_merge"], KERNELS["evoformer_bwd_dq"]
+    assert merge.replaces == dq.replaces and merge.source == dq.source == "evoformer_bwd.cu"
 
 
 CUDA_CASES = {
@@ -297,10 +405,10 @@ def test_cuda_kernels_match_plain(case):
     tol = 2.0 ** -6 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=2e-5)
-    dq, ds = pevo.evoformer_bwd_dq_cuda(q, k, v, out, do, lse, ops, want_ds=bool(ops))
-    dk, dv = pevo.evoformer_bwd_dkv_cuda(q, k, v, out, do, lse, ops)
-    rdq, rdk, rdv, rds = pevo.evoformer_bwd_reference(q, k, v, out, do, lse, ops,
-                                                      want_ds=bool(ops))
+    dq, delta, ds, _ = pevo.evoformer_bwd_dq_cuda(q, k, v, out, do, lse, ops, want_ds=bool(ops))
+    dk, dv, _ = pevo.evoformer_bwd_dkv_cuda(q, k, v, do, lse, delta, ops)
+    rdq, rdk, rdv, rds, _ = pevo.evoformer_bwd_reference(q, k, v, out, do, lse, ops,
+                                                         want_ds=bool(ops))
     for got, want in ((dq, rdq), (dk, rdk), (dv, rdv), (ds, rds)):
         if want is None:
             assert got is None
@@ -315,8 +423,9 @@ def test_cuda_kernels_match_plain(case):
 @pytest.mark.cuda
 def test_evoformer_op_on_the_card(monkeypatch):
     """Through the registry on a card: the evoformer sources build, and a
-    call launches each evoformer kernel once per forward and backward, and
-    no other kernel."""
+    call whose biases both need gradients launches each evoformer kernel
+    once per forward and backward (the merge of the bias gradients
+    included), and no other kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     import deepspeed_tpu_torch
@@ -332,5 +441,93 @@ def test_evoformer_op_on_the_card(monkeypatch):
     K.reset_counts()
     evo(*ts, bs).float().square().sum().backward()
     torch.cuda.synchronize()
-    assert K.counts() == {n: int(n in EVO_KERNELS) for n in K.KERNELS}
+    assert K.counts() == {n: int(n in ALL_EVO_KERNELS) for n in K.KERNELS}
     assert bs[0].grad.shape == bs[0].shape and bs[1].grad.shape == bs[1].shape
+
+
+def _cuda_case(lead, s, h, d, which, dtype, seed):
+    (Q, K, V), biases = _inputs(lead, s, h, d, which, seed=seed)
+    B = int(np.prod(lead))
+    q, k, v = (torch.tensor(x).reshape(B, s, h, d).to("cuda", dtype) for x in (Q, K, V))
+    bs = [torch.tensor(b, device="cuda") for b in biases]
+    ops = pevo._operands(bs, lead, h, s)
+    plan = pevo.bias_grad_plan([b.shape for b in bs], ops, lead, h, s, [True] * len(bs))
+    do = torch.randn(q.shape, device="cuda").to(dtype)
+    out, lse = pevo.evoformer_fwd_cuda(q, k, v, ops)
+    return q, k, v, do, out, lse, ops, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_cuda_reduced_bias_grads_match_plain_and_repeat(d, dtype):
+    """The reduced form on the card (dq's partials, then the merge) against
+    the plain backward's sums at every head dim, mask and pair bias at s
+    100; dq, dk, dv and both bias gradients the same bits in two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    q, k, v, do, out, lse, ops, plan = _cuda_case((1, 6), 100, 2, d, "12", dtype, seed=d)
+    assert plan.form == "reduced"
+    first = pevo.evoformer_bwd_cuda(q, k, v, out, do, lse, ops, None, plan)
+    again = pevo.evoformer_bwd_cuda(q, k, v, out, do, lse, ops, None, plan)
+    torch.cuda.synchronize()
+    rdq, rdk, rdv, _, rsums = pevo.evoformer_bwd_reference(q, k, v, out, do, lse, ops,
+                                                           want_ds=False, sums=plan.dims)
+    for a, b in zip(first[:3] + tuple(first[4]), again[:3] + tuple(again[4])):
+        assert torch.equal(a, b)
+    assert first[3] is None
+    for got, want in zip(first[4], rsums):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, atol=2e-5 * scale, rtol=1e-4)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 2e-5
+    for got, want in zip(first[:3], (rdq, rdk, rdv)):
+        scale = max(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_form_allocates_no_plane():
+    """Broadcast biases on the card: the call's peak memory above its inputs
+    stays below the [B, h, s, s] fp32 plane the plane form would allocate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    lead, s, h, d = (1, 64), 256, 4, 32
+    (Q, K, V), (b1, b2) = _inputs(lead, s, h, d, "12", seed=17)
+    ts = [torch.tensor(x, device="cuda").bfloat16().requires_grad_(True) for x in (Q, K, V)]
+    bs = [torch.tensor(b, device="cuda").requires_grad_(True) for b in (b1, b2)]
+    do = torch.randn(ts[0].shape, device="cuda").bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pevo.DS4Sci_EvoformerAttention(*ts, bs).backward(do)
+    torch.cuda.synchronize()
+    plane = int(np.prod(lead)) * h * s * s * 4
+    assert torch.cuda.max_memory_allocated() - base < plane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 9])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_cuda_unpaired_last_row_matches_plain(n, dtype):
+    """An odd count of batch rows in a CTA's group leaves its last row
+    without a pair partner (B 7: one group of 7; B 9: groups of 8 and 1).
+    Both bias-gradient forms match the plain backward there, and give the
+    same dq, dk and dv bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    q, k, v, do, out, lse, ops, plan = _cuda_case((1, n), 130, 2, 32, "12", dtype, seed=18)
+    assert plan.form == "reduced" and pevo.rows_per_cta(n, 2, 130) == min(n, 8)
+    plane = pevo.evoformer_bwd_cuda(q, k, v, out, do, lse, ops, None,
+                                    pevo.BiasGradPlan("plane", (None, None)))
+    reduced = pevo.evoformer_bwd_cuda(q, k, v, out, do, lse, ops, None, plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(plane[:3], reduced[:3]))
+    rdq, rdk, rdv, rds, rsums = pevo.evoformer_bwd_reference(q, k, v, out, do, lse, ops,
+                                                             sums=plan.dims)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 2e-5
+    for got, want in zip(plane[:3], (rdq, rdk, rdv)):
+        scale = max(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=tol * scale, rtol=tol)
+    for got, want in [(plane[3], rds)] + list(zip(reduced[4], rsums)):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, atol=2e-5 * scale, rtol=1e-4)

@@ -3,17 +3,30 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 tools/torch_evoformer_ab.py OTHER_ROOT [OTHER_ROOT ...] [--rounds 1]
+    python3 tools/torch_evoformer_ab.py [OTHER_ROOT ...] [--rounds 1] [--call] [--sweep]
 
 Each OTHER_ROOT is another checkout of the repo (e.g. the parent commit
-unpacked with ``git archive``). Each round runs ``chip_smoke.py``'s
-``evoformer_timings`` (the three kernels held against their plain versions
-at the evoformer phase's msa_row shape, then CUDA-graph times in bf16 and
-fp32, beside their bounds) once in a fresh process per checkout, in turns:
-the others, this one, this one again, the others in reverse (each builds
-its own kernels into its own ``build/``). Prints the card's name and power
-limit, then one JSON object per process and a summary of the kernel ms by
-checkout.
+unpacked with ``git archive``). Each round runs, once in a fresh process per
+checkout, in turns (the others, this one, this one again, the others in
+reverse; each builds its own kernels into its own ``build/``):
+
+  * by default ``chip_smoke.py``'s ``evoformer_timings`` (the kernels held
+    against their plain versions at the evoformer phase's msa_row shape, then
+    CUDA-graph times in bf16 and fp32, beside their bounds);
+  * with ``--call`` instead the op call a user makes: ``DS4Sci_EvoformerAttention``
+    forward + backward at msa_row and triangle in bf16, AlphaFold's mask and a
+    pair bias both needing gradients (``evo_inputs``), its time (CUDA events
+    around eager calls, host work included), its peak device memory above
+    its inputs, and a digest of the forward kernel's out and lse on those
+    inputs (the summary says whether the checkouts' forwards give the same
+    bits). This compares like with like across checkouts whatever their
+    backward kernels' signatures (the parent's dq writes the dS plane).
+
+``--sweep`` (this checkout only, after the turns) times the backward kernels
+at msa_row in the reduced form over the batch rows a CTA walks (G, which
+``evoformer_attn.rows_per_cta`` picks for a call; the sweep sets it in its
+own process). Prints the card's name and power limit, then one JSON object
+per process and a summary by checkout.
 """
 
 import argparse
@@ -37,12 +50,96 @@ print(json.dumps({"root": sys.argv[1], "timings": rec,
                   "max_abs_err": {n: max(e.values()) for n, e in errs.items()}}))
 """
 
+CALL_CHILD = r"""
+import hashlib, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from deepspeed_tpu_torch.ops import kernels as K
+from deepspeed_tpu_torch.ops.deepspeed4science import DS4Sci_EvoformerAttention as evo
+from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+K.build([K.KERNELS[n] for n in chip_smoke.EVOFORMER_KERNELS])
+dev = torch.device("cuda", 0)
+res = {}
+for name, sh in chip_smoke.EVOFORMER_SHAPES.items():
+    q, k, v, do, b1, b2 = chip_smoke.evo_inputs(torch, dev, sh["n"], sh["s"], sh["h"], sh["d"],
+                                                torch.bfloat16, 300)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, b1, b2)]
+
+    def call():
+        for t in leaves:
+            t.grad = None
+        evo(*leaves[:3], leaves[3:]).backward(do)
+
+    call()
+    for t in leaves:
+        t.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    n, s, h, d = sh["n"], sh["s"], sh["h"], sh["d"]
+    ops = E._operands([b1, b2], (1, n), h, s)
+    out, lse = E.evoformer_fwd_cuda(*(t.reshape(n, s, h, d) for t in (q, k, v)), ops)
+    digest = hashlib.sha256(out.contiguous().view(torch.int16).cpu().numpy().tobytes()
+                            + lse.cpu().numpy().tobytes()).hexdigest()
+    res[name] = {"call_ms": chip_smoke.eager_ms(torch, call, iters=10),
+                 "peak_over_inputs_gb": peak, "fwd_sha256": digest}
+    del ops, out, lse
+    del q, k, v, do, b1, b2, leaves
+    torch.cuda.empty_cache()
+print(json.dumps({"root": sys.argv[1], "call": res}))
+"""
+
+SWEEP_CHILD = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from deepspeed_tpu_torch.ops import kernels as K
+from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+K.build([K.KERNELS[n] for n in chip_smoke.EVOFORMER_KERNELS])
+dev = torch.device("cuda", 0)
+sh = chip_smoke.EVOFORMER_SHAPES["msa_row"]
+n, s, h, d = sh["n"], sh["s"], sh["h"], sh["d"]
+q, k, v, do, b1, b2 = chip_smoke.evo_inputs(torch, dev, n, s, h, d, torch.bfloat16, 300)
+q, k, v, do = (t.reshape(n, s, h, d) for t in (q, k, v, do))
+ops = E._operands([b1, b2], (1, n), h, s)
+out, lse = E.evoformer_fwd_cuda(q, k, v, ops)
+_, delta, _, _ = E.evoformer_bwd_dq_cuda(q, k, v, out, do, lse, ops)
+res = {"default_group": E.rows_per_cta(n, h, s), "dq": {}, "dkv": {}}
+for group in (4, 8, 16, 24, 32, 64):
+    E.rows_per_cta = lambda B, h, s: min(B, group)
+    key = f"group {group}"
+    res["dq"][key] = chip_smoke.time_ms(torch, lambda: E.evoformer_bwd_dq_cuda(
+        q, k, v, out, do, lse, ops, rows=True), iters=5)
+    res["dkv"][key] = chip_smoke.time_ms(torch, lambda: E.evoformer_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, ops, cols=True), iters=5)
+print(json.dumps({"root": sys.argv[1], "sweep": res}))
+"""
+
+
+def run(child, root):
+    out = subprocess.run([sys.executable, "-c", child, root], cwd=root, capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(1)
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    print(json.dumps(rec), flush=True)
+    return rec
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("others", nargs="+", help="roots of the other checkouts")
+    ap.add_argument("others", nargs="*", help="roots of the other checkouts")
     ap.add_argument("--rounds", type=int, default=1,
                     help="each round runs the others, this twice, the others in reverse")
+    ap.add_argument("--call", action="store_true",
+                    help="time the op call (forward + backward) instead of the kernels")
+    ap.add_argument("--sweep", action="store_true",
+                    help="then time this checkout's backward kernels over the rows a CTA walks")
     args = ap.parse_args(argv)
 
     import torch
@@ -56,17 +153,22 @@ def main(argv=None):
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
     ms = {root: [] for root in [this] + others}
-    for _ in range(args.rounds):
+    for _ in range(args.rounds if others or not args.sweep else 0):
         for root in others + [this, this] + others[::-1]:
-            out = subprocess.run([sys.executable, "-c", CHILD, root], cwd=root,
-                                 capture_output=True, text=True, timeout=900)
-            if out.returncode != 0:
-                print(out.stderr[-4000:], file=sys.stderr)
-                return 1
-            rec = json.loads(out.stdout.strip().splitlines()[-1])
-            print(json.dumps(rec), flush=True)
-            ms[root].append({k: {dt: r[dt]["ms"] for dt in r} for k, r in rec["timings"].items()})
-    print(json.dumps({"card": card, "ms": ms}), flush=True)
+            rec = run(CALL_CHILD if args.call else CHILD, root)
+            if args.call:
+                ms[root].append(rec["call"])
+            else:
+                ms[root].append({k: {dt: r[dt]["ms"] for dt in r}
+                                 for k, r in rec["timings"].items()})
+    summary = {"card": card, "ms": ms}
+    if args.call and ms[this]:
+        summary["fwd_same_bits"] = all(
+            run[name]["fwd_sha256"] == ms[this][0][name]["fwd_sha256"]
+            for runs in ms.values() for run in runs for name in run)
+    if args.sweep:
+        summary["sweep"] = run(SWEEP_CHILD, this)["sweep"]
+    print(json.dumps(summary), flush=True)
     return 0
 
 
