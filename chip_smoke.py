@@ -890,7 +890,10 @@ def splash_cases(torch, dev, s=4096, h=32):
     """(name, schedule, segment ids or None) for the kernels phase: (a) a
     LocalMask of 1024 in 512-blocks, (b) per-head Fixed layouts in 128-blocks
     (causal), (c) (a) with two packed segments as runtime ids, (d) a causal
-    layout of 512-blocks with two dead query blocks."""
+    layout of 512-blocks with two dead query blocks, (f) (a)'s mask in
+    64-blocks (a 128-key dk/dv CTA spans two kv blocks), (g) (b) in
+    64-blocks (a dk/dv CTA merges two blocks of each of its GQA group's
+    heads)."""
     import numpy as np
 
     from deepspeed_tpu_torch.ops.sparse_attention import (
@@ -907,10 +910,15 @@ def splash_cases(torch, dev, s=4096, h=32):
     layout = np.tril(np.ones((s // 512, s // 512), np.int32))
     layout[2:4] = 0  # query blocks 2 and 3 keep nothing
     dead = schedule_from_layout(layout, 512, causal=True)
+    fixed64 = FixedSparsityConfig(num_heads=h, block=64, different_layout_per_head=True,
+                                  num_different_global_patterns=4,
+                                  attention="unidirectional").make_schedule(s)
     return [("a_local1024_b512", local, None),
             ("b_fixed_per_head_b128", fixed, None),
             ("c_local1024_b512_segments2", local, two_segments(torch, dev, 1, s, 1500)),
-            ("d_dead_rows_b512", dead, None)]
+            ("d_dead_rows_b512", dead, None),
+            ("f_local1024_b64", schedule_from_mask(LocalMask((s, s), 1024), 64), None),
+            ("g_fixed_per_head_b64", fixed64, None)]
 
 
 def splash_work(schedule, b, h, h_kv, d, segment_ids=None):
@@ -981,6 +989,26 @@ def check_splash(torch, errs, tile_errs, name, q, k, v, do, sched, seg=None):
     return out, lse
 
 
+def splash_dkv_against_flash(torch, q, k, v, out, do, lse, sched, window):
+    """Splash dk/dv over a LocalMask schedule shared by every head against
+    the flash dk/dv kernel with the same causal window, both fed the same
+    out, lse and dO: equal as values (the splash walk visits a superset of
+    flash's query tiles in flash's order, and a tile the mask leaves dead
+    adds exactly 0). Raises on any element that differs."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    dk, dv = SP.splash_bwd_dkv_cuda(q, k, v, out, do, lse, sched)
+    fdk, fdv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, causal=True, window=window)
+    for name, got, want in (("dk", dk, fdk), ("dv", dv, fdv)):
+        differ = int((got != want).sum())
+        if differ:
+            raise AssertionError(f"splash_bwd_dkv {name}: {differ} elements differ from flash "
+                                 f"dk/dv with the same window {window}")
+    del dk, dv, fdk, fdv
+    return {"dk": "equal", "dv": "equal", "window": window}
+
+
 def splash_timings(torch, dev, b, h, h_kv, d, s, window, block, seed, errs, tile_errs):
     """The three kernels held against their plain versions on the inputs
     they are timed on (``check_splash``, case ``timed_s{s}_w{window}``);
@@ -995,6 +1023,7 @@ def splash_timings(torch, dev, b, h, h_kv, d, s, window, block, seed, errs, tile
     sched = schedule_from_mask(LocalMask((s, s), window), block)
     q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed)
     out, lse = check_splash(torch, errs, tile_errs, f"timed_s{s}_w{window}", q, k, v, do, sched)
+    against_flash = splash_dkv_against_flash(torch, q, k, v, out, do, lse, sched, window)
     args = (q, k, v, out, do, lse, sched)
     ms = {"splash_fwd": time_ms(torch, lambda: SP.splash_fwd_cuda(q, k, v, sched), iters=10),
           "splash_bwd_dq": time_ms(torch, lambda: SP.splash_bwd_dq_cuda(*args), iters=10),
@@ -1025,6 +1054,7 @@ def splash_timings(torch, dev, b, h, h_kv, d, s, window, block, seed, errs, tile
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "kept_pairs": pairs, "flops": flops[name],
                      "tflops_per_s": flops[name] / (ms[name] * 1e-3) / 1e12}
+    rec["splash_bwd_dkv"]["against_flash_dkv"] = against_flash
     del q, k, v, do, out, lse
     torch.cuda.empty_cache()
     return rec
@@ -1062,12 +1092,15 @@ def sdpa_masked_ms(torch, q, k, v, do, window):
 
 def kernel_splash(torch, dev, b=1, h=32, h_kv=8, d=128, s=4096, timed=SPLASH_TIMED):
     """The three splash kernels against their plain versions in bf16 at
-    Mistral-7B's heads (32/8 of 128): cases (a)-(d) of ``splash_cases`` at
-    s 4096 (forward, lse, dq, dk, dv; gradients also per 64-row tile), and
+    Mistral-7B's heads (32/8 of 128): cases (a)-(d), (f) and (g) of
+    ``splash_cases`` at s 4096 (forward, lse, dq, dk, dv; gradients also per
+    64-row tile), and
     (e) the prefill form (forward) for t in {1, 8, 256} at starts {0, 3000,
     7936} over S 8192, window 4096, 128-key blocks. Then, each on the
     inputs it is timed on, checked as (a)-(d) and timed: (a)'s shape and
-    the timed leg's. Returns one record per kernel."""
+    the timed leg's; at both, dk/dv also against the flash dk/dv kernel
+    with the same window, as values (``splash_dkv_against_flash``). Returns
+    one record per kernel."""
     from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
 
     errs = {n: {} for n in SPLASH_KERNELS}
@@ -1130,6 +1163,8 @@ def kernel_splash(torch, dev, b=1, h=32, h_kv=8, d=128, s=4096, timed=SPLASH_TIM
                        "autograd, dq+dk+dv in one call, eager)",
             "at_a": at_a[name],
         }
+    records["splash_bwd_dkv"]["against_flash_dkv"] = at_timed["splash_bwd_dkv"][
+        "against_flash_dkv"]
     return records
 
 

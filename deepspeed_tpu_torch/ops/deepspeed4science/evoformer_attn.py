@@ -130,10 +130,11 @@ def _n_tiles(s):
 
 
 def rows_per_cta(B, h, s):
-    """Batch rows a backward CTA walks: ~BWD_CTAS CTAs a call, and at least
-    8 (all B when fewer), so dq's row partials stay within an eighth of the
-    [B, h, s, s] plane. More rows a CTA make fewer, smaller row partials;
-    fewer make more CTAs."""
+    """Batch rows a CTA of any of the three kernels walks: ~BWD_CTAS CTAs a
+    call, and at least 8 (all B when fewer), so dq's row partials stay
+    within an eighth of the [B, h, s, s] plane. More rows a CTA make fewer,
+    smaller row partials, and let the forward read a bias that is the same
+    for every batch row once for more rows; fewer make more CTAs."""
     return min(B, max(8, -(-B * h * _n_tiles(s) // BWD_CTAS)))
 
 
@@ -366,7 +367,8 @@ def _tail(q, d, scale, vec, *more):
 
 
 def evoformer_fwd_cuda(q, k, v, biases=(), scale=None):
-    """Launch the forward kernel. q, k, v: [B, s, h, d] on one card.
+    """Launch the forward kernel (a CTA per group of ``rows_per_cta`` batch
+    rows, head and 64-query tile). q, k, v: [B, s, h, d] on one card.
     Returns (out in q's dtype and shape, lse fp32 [B, h, s])."""
     (q, k, v), ops, d = _kernel_args("evoformer_fwd_cuda", q, k, v, biases)
     B, s, h, _ = q.shape
@@ -375,7 +377,8 @@ def evoformer_fwd_cuda(q, k, v, biases=(), scale=None):
     if q.numel():
         ptrs, strides, vec = _bias_args(ops)
         rc = FWD_KERNEL.fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(),
-                             lse.data_ptr(), *strides, *_tail(q, d, scale, vec))
+                             lse.data_ptr(), *strides,
+                             *_tail(q, d, scale, vec, rows_per_cta(B, h, s)))
         FWD_KERNEL.check(rc)
         FWD_KERNEL.launches += 1
     return out[..., :d].contiguous() if out.shape[-1] != d else out, lse

@@ -217,8 +217,8 @@ KERNELS: Dict[str, Kernel] = {
         Kernel(
             "evoformer_fwd", "evoformer_fwd.cu", "dstt_evoformer_fwd",
             # q, k, v, b1, b2, out, lse, b1 strides (batch, head, row), b2
-            # strides, B, h, s, d, scale, fp32, vec, stream
-            [_P] * 7 + [_L] * 6 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
+            # strides, B, h, s, d, scale, fp32, vec, group, stream
+            [_P] * 7 + [_L] * 6 + [_I] * 4 + [ctypes.c_float, _I, _I, _I, _P],
             "deepspeed_tpu/ops/deepspeed4science/evoformer_attn.py:27",
         ),
         Kernel(

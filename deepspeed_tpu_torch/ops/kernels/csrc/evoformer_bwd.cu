@@ -81,94 +81,14 @@
 // code is one; its tiles are rows of d + 4 floats and its dk/dv takes d 128
 // in two 64-column passes (accumulators in registers).
 #include "evoformer_common.cuh"
-#include "hopper_common.cuh"
 
 namespace {
 
 using namespace dstt::evo;
-namespace hp = dstt::hopper;
 
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a CTA may have
 constexpr int DQ_BLD = 72;          // row stride (floats) of a staged bias tile: dq
 constexpr int DKV_BLD = 68;         // dk/dv (read transposed: no bank conflict)
 constexpr int AUX = 1024;           // 64 lse and 64 delta, and a row bias region
-
-// ---------------------------------------------------------------------------
-// cp.async
-// ---------------------------------------------------------------------------
-// 16 bytes to dst: the first `bytes` from src, the rest zeros
-__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hp::smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-// 4 bytes, or zeros
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hp::smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------------------
-// shared memory
-// ---------------------------------------------------------------------------
-// One [64, D] operand tile. bf16 as wgmma reads it (hopper_common.cuh): up
-// to d 32 rows of 64 bytes in the 64-byte swizzle (d 16 zero-padded to 32
-// columns), at d 64 and 128 blocks of [64 rows][128 bytes] in the 128-byte
-// swizzle; fp32 in rows of D + 4 floats.
-template <typename T, int D>
-__host__ __device__ constexpr int tile_bytes() {
-  return is_bf16<T>() ? (D <= 32 ? 4096 : 8192 * (D / 64)) : TILE * (D + 4) * 4;
-}
-
-// byte offset of the 16-byte chunk ch of row r of a tile
-template <typename T, int D>
-__device__ __forceinline__ int tile_off(int r, int ch) {
-  if constexpr (!is_bf16<T>()) {
-    return r * (D + 4) * 4 + ch * 16;
-  } else if constexpr (D <= 32) {
-    return r * 64 + (((ch ^ (r >> 1)) & 3) << 4);
-  } else {
-    return (ch >> 3) * 8192 + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
-  }
-}
-
-// columns of a bf16 product of width d (dQ, dK, dV): d, at least 32
-template <int D>
-__host__ __device__ constexpr int nq() {
-  return D <= 32 ? 32 : D;
-}
-
-// wgmma descriptors of a tile: the kk-th 16-wide K step of it as a K-major
-// operand (its rows the M or N dimension), and the kk-th 16-row K step of
-// it as an MN-major B operand (its rows the K dimension, its D columns N)
-template <int D>
-__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk) {
-  if constexpr (D <= 32) {
-    return hp::desc_b64(tile + kk * 32, 16, 512);
-  } else {
-    return hp::desc_b128(tile + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
-  }
-}
-template <int D>
-__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
-  if constexpr (D <= 32) {
-    return hp::desc_b64(tile + kk * 1024, 4096, 512);
-  } else {
-    return hp::desc_b128(tile + kk * 2048, 8192, 1024);
-  }
-}
-
-// a bias operand: 0 absent, 1 one row of keys (query stride 0), 2 a tile
-__host__ __device__ inline int bias_kind(const Bias& b) {
-  return b.p == nullptr ? 0 : (b.sq == 0 ? 1 : 2);
-}
 
 // an absent operand keeps a region of zeros (never copied into), read as a
 // row: the summed bias is b1 + b2 with no branch per pair
@@ -206,48 +126,6 @@ __host__ __device__ inline Layout make_layout(bool dq, int k1, int k2, int res_s
   return L;
 }
 
-__device__ __forceinline__ unsigned char* aligned_base(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
-// rows [row0, row0 + 64) of one head (src: its row 0, rows `stride`
-// elements apart) into a tile; rows at or past s arrive as zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_async(unsigned char* dst, const T* src, int row0, int s,
-                                                int64_t stride) {
-  constexpr int CH = D * (int)sizeof(T) / 16, EPC = 16 / (int)sizeof(T);
-  for (int i = threadIdx.x; i < TILE * CH; i += NTHREADS) {
-    const int r = i / CH, ch = i % CH;
-    const bool ok = row0 + r < s;
-    cp16(dst + tile_off<T, D>(r, ch), src + (ok ? (int64_t)(row0 + r) * stride + ch * EPC : 0),
-         ok ? 16 : 0);
-  }
-}
-
-// The bias operand's region for queries [q0, q0 + 64) x keys [k0, k0 + 64)
-// of one (batch row, head) (`plane`, null when absent): a tile of row
-// stride ld, or (ld 0) the one row of an operand with query stride 0; zeros
-// past s. vec: 16-byte copies (the wrapper checked the alignment).
-__device__ __forceinline__ void load_bias_async(float* dst, int ld, const float* plane,
-                                                long long sq, int q0, int k0, int s, bool vec) {
-  if (plane == nullptr) return;
-  const int rows = ld ? TILE : 1;
-  if (vec) {
-    for (int i = threadIdx.x; i < rows * 16; i += NTHREADS) {
-      const int r = i >> 4, c = (i & 15) * 4, qp = q0 + r, kp = k0 + c;
-      const int n = qp < s ? max(0, min(4, s - kp)) : 0;
-      cp16(dst + r * ld + c, plane + (n ? qp * sq + kp : 0), n * 4);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * TILE; i += NTHREADS) {
-      const int r = i >> 6, c = i & 63, qp = q0 + r, kp = k0 + c;
-      const bool ok = qp < s && kp < s;
-      cp4(dst + r * ld + c, plane + (ok ? qp * sq + kp : 0), ok);
-    }
-  }
-}
-
 // sum over half `half` of the columns of row r of dO * O (two resident
 // tiles), in order, fp32
 template <typename T, int D>
@@ -279,57 +157,6 @@ __device__ __forceinline__ float tile_row_dot(const unsigned char* a, const unsi
     }
   }
   return acc;
-}
-
-// ---------------------------------------------------------------------------
-// products (bf16: wgmma)
-// ---------------------------------------------------------------------------
-template <int R>
-__device__ __forceinline__ float (&flat(float (&x)[R / 4][4]))[R] {
-  return reinterpret_cast<float(&)[R]>(x);
-}
-
-// acc = A B^T over D (two [64, D] tiles, K-major), queued on the open
-// commit group
-template <int D>
-__device__ __forceinline__ void ss_product(float (&acc)[32], const unsigned char* a,
-                                           const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    hp::wgmma_m64n64k16<0, 0>(acc, desc_k<D>(a, kk), desc_k<D>(b, kk), kk != 0);
-}
-
-// acc[64, nq] += X T with X the 64 x 64 fragments of the warpgroup (rounded
-// to bf16 A fragments) and T a [64, D] tile as the MN-major B operand
-template <int D>
-__device__ __forceinline__ void rs_product(float (&acc)[nq<D>() / 2],
-                                           const uint32_t (&a)[TILE / 16][4],
-                                           const unsigned char* tile) {
-#pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk) {
-    const uint64_t b = desc_mn<D>(tile, kk);
-    if constexpr (nq<D>() == 32) {
-      hp::wgmma_m64n32k16_rs<1>(acc, a[kk], b, 1);
-    } else if constexpr (nq<D>() == 64) {
-      hp::wgmma_m64n64k16_rs<1>(acc, a[kk], b, 1);
-    } else {
-      hp::wgmma_m64n128k16_rs<1>(acc, a[kk], b, 1);
-    }
-  }
-}
-
-__device__ __forceinline__ void to_a(uint32_t (&a)[TILE / 16][4], const float (&x)[TILE / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk) dstt::flash::c_to_a(a[kk], x[2 * kk], x[2 * kk + 1]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float a, float b) {
-  if constexpr (is_bf16<T>()) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
 }
 
 // The row sums of a dq CTA live in its own slice of the row partials
@@ -439,9 +266,9 @@ __global__ void __launch_bounds__(NTHREADS, (min_blocks<T, D, true>()))
     const int bi = b0 + bl;
     const int64_t off = head_offset(bi, hi, p, D);
     unsigned char* r = sm + (bl % RS) * L.res;
-    load_tile_async<T, D>(r, static_cast<const T*>(x.q) + off, q0, p.s, stride);
-    load_tile_async<T, D>(r + TB, static_cast<const T*>(x.dout) + off, q0, p.s, stride);
-    load_tile_async<T, D>(r + 2 * TB, static_cast<const T*>(x.o) + off, q0, p.s, stride);
+    load_tile_async<T, D>(r, static_cast<const T*>(x.q) + off, q0, p.s, stride, tid);
+    load_tile_async<T, D>(r + TB, static_cast<const T*>(x.dout) + off, q0, p.s, stride, tid);
+    load_tile_async<T, D>(r + 2 * TB, static_cast<const T*>(x.o) + off, q0, p.s, stride, tid);
     if (tid < TILE) {
       const bool ok = q0 + tid < p.s;
       cp4(reinterpret_cast<float*>(r + L.aux) + tid,
@@ -478,12 +305,13 @@ __global__ void __launch_bounds__(NTHREADS, (min_blocks<T, D, true>()))
     const int bi = b0 + bl;
     const int64_t off = head_offset(bi, hi, p, D);
     if (kt == 0) load_resident(bl);
-    load_tile_async<T, D>(stg, static_cast<const T*>(x.k) + off, kt * TILE, p.s, stride);
-    load_tile_async<T, D>(stg + TB, static_cast<const T*>(x.v) + off, kt * TILE, p.s, stride);
+    load_tile_async<T, D>(stg, static_cast<const T*>(x.k) + off, kt * TILE, p.s, stride, tid);
+    load_tile_async<T, D>(stg + TB, static_cast<const T*>(x.v) + off, kt * TILE, p.s, stride,
+                          tid);
     load_bias_async(reinterpret_cast<float*>(stg + L.bias1), L.ld1, bias_plane(p.b1, bi, hi),
-                    p.b1.sq, q0, kt * TILE, p.s, p.vec);
+                    p.b1.sq, q0, kt * TILE, p.s, p.vec, tid);
     load_bias_async(reinterpret_cast<float*>(stg + L.bias2), L.ld2, bias_plane(p.b2, bi, hi),
-                    p.b2.sq, q0, kt * TILE, p.s, p.vec);
+                    p.b2.sq, q0, kt * TILE, p.s, p.vec, tid);
     cp_commit();
   };
 
@@ -690,8 +518,8 @@ __global__ void __launch_bounds__(NTHREADS, (min_blocks<T, D, false>()))
   auto load_resident = [&](int bl) {
     const int64_t off = head_offset(b0 + bl, hi, p, D);
     unsigned char* r = sm + (bl % RS) * L.res;
-    load_tile_async<T, D>(r, static_cast<const T*>(x.k) + off, k0, p.s, stride);
-    load_tile_async<T, D>(r + TB, static_cast<const T*>(x.v) + off, k0, p.s, stride);
+    load_tile_async<T, D>(r, static_cast<const T*>(x.k) + off, k0, p.s, stride, tid);
+    load_tile_async<T, D>(r + TB, static_cast<const T*>(x.v) + off, k0, p.s, stride, tid);
   };
   unsigned char* const stg = sm + RS * L.res;  // the stage
   auto issue = [&](int j) {  // as in dq
@@ -699,8 +527,8 @@ __global__ void __launch_bounds__(NTHREADS, (min_blocks<T, D, false>()))
     const int q0 = (rem % nt) * TILE;
     const int64_t off = head_offset(bi, hi, p, D);
     if (rem == 0) load_resident(bl);
-    load_tile_async<T, D>(stg, static_cast<const T*>(x.q) + off, q0, p.s, stride);
-    load_tile_async<T, D>(stg + TB, static_cast<const T*>(x.dout) + off, q0, p.s, stride);
+    load_tile_async<T, D>(stg, static_cast<const T*>(x.q) + off, q0, p.s, stride, tid);
+    load_tile_async<T, D>(stg + TB, static_cast<const T*>(x.dout) + off, q0, p.s, stride, tid);
     if (tid < 2 * TILE) {  // lse, then delta
       const int c = tid & 63;
       const bool ok = q0 + c < p.s;
@@ -709,9 +537,9 @@ __global__ void __launch_bounds__(NTHREADS, (min_blocks<T, D, false>()))
           src + ((int64_t)bi * p.h + hi) * p.s + (ok ? q0 + c : 0), ok);
     }
     load_bias_async(reinterpret_cast<float*>(stg + L.bias1), L.ld1, bias_plane(p.b1, bi, hi),
-                    p.b1.sq, q0, k0, p.s, p.vec);
+                    p.b1.sq, q0, k0, p.s, p.vec, tid);
     load_bias_async(reinterpret_cast<float*>(stg + L.bias2), L.ld2, bias_plane(p.b2, bi, hi),
-                    p.b2.sq, q0, k0, p.s, p.vec);
+                    p.b2.sq, q0, k0, p.s, p.vec, tid);
     cp_commit();
   };
 

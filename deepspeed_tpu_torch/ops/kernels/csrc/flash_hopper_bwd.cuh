@@ -432,7 +432,7 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem_raw, const CUtensorMa
 // mbarriers (K/V; full, info, aux and empty per stage), each stage's query
 // position and (batch, head) row, its query ids, delta and lse log2 e, the
 // key tile's id range.
-template <int D>
+template <int D, bool KINDS = false>
 struct DkvSmem {
   using T = BwdTiles<D>;
   static constexpr int S = T::KV_STAGES;
@@ -440,7 +440,8 @@ struct DkvSmem {
   static constexpr int Q_BYTES = T::KV_BQ * D * 2;
   static constexpr int STAGE = 3 * Q_BYTES;
   static constexpr int TILES = 2 * KV_BYTES + S * STAGE;
-  static constexpr int BYTES = 1024 + TILES + (4 * S + 1) * 8 + S * 4 * (2 + 3 * T::KV_BQ) + 8;
+  static constexpr int BYTES = 1024 + TILES + (4 * S + 1) * 8 + S * 4 * (2 + 3 * T::KV_BQ) + 8 +
+                               (KINDS ? S * 2 * 4 : 0);
 
   unsigned char* k;
   unsigned char* v;
@@ -456,6 +457,7 @@ struct DkvSmem {
   float* delta;
   float* lse2;
   int* krange;
+  int* kinds;  // KINDS: each stage's step kind per 64-key half of the CTA's keys
 
   __device__ explicit DkvSmem(unsigned char* raw) {
     k = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
@@ -473,10 +475,23 @@ struct DkvSmem {
     delta = reinterpret_cast<float*>(ids + S * T::KV_BQ);
     lse2 = delta + S * T::KV_BQ;
     krange = reinterpret_cast<int*>(lse2 + S * T::KV_BQ);
+    kinds = krange + 2;
   }
   __device__ unsigned char* q(int st) const { return ring + st * STAGE; }
   __device__ unsigned char* dout(int st) const { return q(st) + Q_BYTES; }
   __device__ unsigned char* o(int st) const { return dout(st) + Q_BYTES; }
+};
+
+// The walk of a dk/dv CTA: which (query tile, head) stages its producer
+// hands over, and the rule for a kept pair. FlashWalk (SCHEDULED false):
+// the query tiles of query_tiles, the band and the segment ids, and
+// flash_common.cuh's `visible`. A scheduled walk (splash_bwd.cu) brings
+// its own producer walk (produce: the stages it issued), the step kind of
+// each stage per 64-key half of the CTA's keys, the rule for a kept pair
+// of a step of that kind (keep, and whole: a stage that needs no
+// predicate), and its query length sq (queries and keys may differ).
+struct FlashWalk {
+  static constexpr bool SCHEDULED = false;
 };
 
 // Where a dk/dv CTA sits: its (batch, kv head) row, batch and kv head, its
@@ -504,9 +519,10 @@ __device__ __forceinline__ KvTile make_kv_tile(const Problem& p, const int* seg_
 
 // maps: k, v [b h_kv, s, D] in boxes of KV_BK rows; q, dO, O [b h, s, D]
 // in boxes of KV_BQ rows
-template <int D>
-__device__ __forceinline__ void dkv_produce(const DkvSmem<D>& sm, const CUtensorMap* const* maps,
-                                            const Problem& p, const KvTile& kt, int lane) {
+template <int D, class W>
+__device__ __forceinline__ void dkv_produce(const DkvSmem<D, W::SCHEDULED>& sm,
+                                            const CUtensorMap* const* maps, const Problem& p,
+                                            const KvTile& kt, int lane, const W& walk) {
   using T = BwdTiles<D>;
   constexpr int BQ = T::KV_BQ, S = T::KV_STAGES, IDS = BQ / 32;
   if (lane == 0) {
@@ -518,47 +534,53 @@ __device__ __forceinline__ void dkv_produce(const DkvSmem<D>& sm, const CUtensor
       hp::tma_load_3d(sm.v + c * T::KV_BK * 128, maps[1], sm.kvbar, 64 * c, kt.k0, kt.bkv);
     }
   }
-  const int kmin = sm.krange[0], kmax = sm.krange[1];
-  const int group = p.h / p.h_kv;
-  const int head0 = kt.bi * p.h + kt.kvh * group;
-  int lo, hi;
-  dstt::flash::query_tiles<BQ, T::KV_BK>(p, kt.k0, lo, hi);
   int it = 0;
-  for (int q0 = lo; q0 < hi; q0 += BQ) {
-    int ids[IDS];
-    if (kt.segq) {
-      bool mine = false;
-#pragma unroll
-      for (int j = 0; j < IDS; ++j) {
-        const int qpos = q0 + lane * IDS + j;
-        ids[j] = qpos < p.s ? kt.segq[qpos] : 0;
-        mine |= qpos < p.s && ids[j] >= kmin && ids[j] <= kmax;
-      }
-      if (!__any_sync(0xffffffffu, mine)) continue;
-    }
-    for (int gq = 0; gq < group; ++gq) {
-      const int st = it % S;
-      hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
+  if constexpr (W::SCHEDULED) {
+    it = walk.template produce<D>(sm, maps, p, kt, lane);
+  } else {
+    const int kmin = sm.krange[0], kmax = sm.krange[1];
+    const int group = p.h / p.h_kv;
+    const int head0 = kt.bi * p.h + kt.kvh * group;
+    int lo, hi;
+    dstt::flash::query_tiles<BQ, T::KV_BK>(p, kt.k0, lo, hi);
+    for (int q0 = lo; q0 < hi; q0 += BQ) {
+      int ids[IDS];
       if (kt.segq) {
+        bool mine = false;
 #pragma unroll
-        for (int j = 0; j < IDS; ++j) sm.ids[st * BQ + lane * IDS + j] = ids[j];
-      }
-      if (lane == 0) {
-        sm.q0s[st] = q0;
-        sm.heads[st] = head0 + gq;
-        hp::mbar_arrive(&sm.info[st]);
-        hp::mbar_arrive_expect_tx(&sm.full[st], DkvSmem<D>::STAGE);
-#pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          hp::tma_load_3d(sm.q(st) + c * BQ * 128, maps[2], &sm.full[st], 64 * c, q0, head0 + gq);
-          hp::tma_load_3d(sm.dout(st) + c * BQ * 128, maps[3], &sm.full[st], 64 * c, q0,
-                          head0 + gq);
-          hp::tma_load_3d(sm.o(st) + c * BQ * 128, maps[4], &sm.full[st], 64 * c, q0, head0 + gq);
+        for (int j = 0; j < IDS; ++j) {
+          const int qpos = q0 + lane * IDS + j;
+          ids[j] = qpos < p.s ? kt.segq[qpos] : 0;
+          mine |= qpos < p.s && ids[j] >= kmin && ids[j] <= kmax;
         }
-      } else {
-        hp::mbar_arrive(&sm.full[st]);  // after this lane's ids
+        if (!__any_sync(0xffffffffu, mine)) continue;
       }
-      ++it;
+      for (int gq = 0; gq < group; ++gq) {
+        const int st = it % S;
+        hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
+        if (kt.segq) {
+#pragma unroll
+          for (int j = 0; j < IDS; ++j) sm.ids[st * BQ + lane * IDS + j] = ids[j];
+        }
+        if (lane == 0) {
+          sm.q0s[st] = q0;
+          sm.heads[st] = head0 + gq;
+          hp::mbar_arrive(&sm.info[st]);
+          hp::mbar_arrive_expect_tx(&sm.full[st], DkvSmem<D>::STAGE);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            hp::tma_load_3d(sm.q(st) + c * BQ * 128, maps[2], &sm.full[st], 64 * c, q0,
+                            head0 + gq);
+            hp::tma_load_3d(sm.dout(st) + c * BQ * 128, maps[3], &sm.full[st], 64 * c, q0,
+                            head0 + gq);
+            hp::tma_load_3d(sm.o(st) + c * BQ * 128, maps[4], &sm.full[st], 64 * c, q0,
+                            head0 + gq);
+          }
+        } else {
+          hp::mbar_arrive(&sm.full[st]);  // after this lane's ids
+        }
+        ++it;
+      }
     }
   }
   const int st = it % S;
@@ -577,19 +599,25 @@ __device__ __forceinline__ void dkv_produce(const DkvSmem<D>& sm, const CUtensor
 // conflict), and lse log2 e from device memory (lse [b h, s]), read as
 // soon as the producer names the stage's (batch, head) row and query tile,
 // before its copies land; 0 past s.
-template <int D>
-__device__ __forceinline__ void dkv_delta(const DkvSmem<D>& sm, const Problem& p,
-                                          const float* lse, int r) {
+template <int D, class W>
+__device__ __forceinline__ void dkv_delta(const DkvSmem<D, W::SCHEDULED>& sm, const Problem& p,
+                                          const float* lse, int r, const W& walk) {
   using T = BwdTiles<D>;
   constexpr int BQ = T::KV_BQ, S = T::KV_STAGES;
+  int sq;  // query rows
+  if constexpr (W::SCHEDULED) {
+    sq = walk.sq;
+  } else {
+    sq = p.s;
+  }
   for (int it = 0;; ++it) {
     const int st = it % S;
     const uint32_t ph = (it / S) & 1;
     hp::mbar_wait(&sm.info[st], ph);
     const int q0 = sm.q0s[st];
     if (q0 < 0) break;
-    const bool in = q0 + r < p.s;
-    const float l2 = in ? lse[(int64_t)sm.heads[st] * p.s + q0 + r] * LOG2E : 0.f;
+    const bool in = q0 + r < sq;
+    const float l2 = in ? lse[(int64_t)sm.heads[st] * sq + q0 + r] * LOG2E : 0.f;
     hp::mbar_wait(&sm.full[st], ph);
     const unsigned char* a = sm.dout(st) + r * 128;
     const unsigned char* b = sm.o(st) + r * 128;
@@ -618,10 +646,10 @@ __device__ __forceinline__ void dkv_delta(const DkvSmem<D>& sm, const Problem& p
 // (its DC columns of dK and dV) against every (query tile, head) the
 // producer hands over. init(dk, dv, key0, key1, c0, tq) seeds the sums,
 // store(dk, dv, key0, key1, c0, tq) finishes them.
-template <int D, typename Init, typename Store>
-__device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Problem& p,
+template <int D, class W, typename Init, typename Store>
+__device__ __forceinline__ void dkv_consume(const DkvSmem<D, W::SCHEDULED>& sm, const Problem& p,
                                             const KvTile& kt, int wg, int t, Init init,
-                                            Store store) {
+                                            Store store, const W& walk) {
   using T = BwdTiles<D>;
   constexpr int BQ = T::KV_BQ, KV_BK = T::KV_BK, S = T::KV_STAGES;
   // SPLIT: both warpgroups on the CTA's 64 keys, half the columns each
@@ -681,9 +709,15 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Problem&
     hp::fence_acc(pacc);
 
     // p^T and dS^T (rows: keys; columns: the tile's queries)
-    const bool whole = !seg && (!p.causal || k_hi <= q0) &&
-                       (!p.window || q0 + BQ - 1 - k_lo < p.window) && q0 + BQ <= p.s &&
-                       k_hi < p.s;
+    bool whole;
+    int kind = 0;  // scheduled: the stage's step kind for this warpgroup's keys
+    if constexpr (W::SCHEDULED) {
+      kind = sm.kinds[2 * st + (SPLIT ? 0 : wg)];
+      whole = walk.whole(kind, q0, q0 + BQ, k_lo, k_hi, p.s);
+    } else {
+      whole = !seg && (!p.causal || k_hi <= q0) &&
+              (!p.window || q0 + BQ - 1 - k_lo < p.window) && q0 + BQ <= p.s && k_hi < p.s;
+    }
     // p^T first (the tile's lse), then dS^T (its delta): the barrier keeps
     // the compiler from holding all 32 of those values beside the 192
     // accumulator registers at once
@@ -694,8 +728,13 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Problem&
       const int u = (i >> 1) & 1, c = 8 * (i >> 2) + 2 * tq + (i & 1);
       float pe = ex2(fmaf(sacc[i], sl2, -l2[c]));
       if (!whole) {
-        bool ok = dstt::flash::visible(p, q0 + c, keys[u]);
-        if (seg) ok = ok && sm.ids[st * BQ + c] == sk[u];
+        bool ok;
+        if constexpr (W::SCHEDULED) {
+          ok = walk.keep(kind, q0 + c, keys[u], seg ? sm.ids[st * BQ + c] : 0, sk[u], p.s);
+        } else {
+          ok = dstt::flash::visible(p, q0 + c, keys[u]);
+          if (seg) ok = ok && sm.ids[st * BQ + c] == sk[u];
+        }
         pe = ok ? pe : 0.f;
       }
       sacc[i] = pe;
@@ -737,14 +776,14 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Problem&
 }
 
 // The dk/dv CTA: barriers and the key tile's id range, then the roles (lse
-// [b h, s] for the delta threads). The caller's kernel must end with this
-// call.
-template <int D, typename Init, typename Store>
+// [b h, s] for the delta threads) over `walk`'s stages. The caller's kernel
+// must end with this call.
+template <int D, typename Init, typename Store, class W = FlashWalk>
 __device__ __forceinline__ void dkv_cta(unsigned char* smem_raw, const CUtensorMap* const* maps,
                                         const Problem& p, const KvTile& kt, const float* lse,
-                                        Init init, Store store) {
+                                        Init init, Store store, const W& walk = W()) {
   using T = BwdTiles<D>;
-  const DkvSmem<D> sm(smem_raw);
+  const DkvSmem<D, W::SCHEDULED> sm(smem_raw);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int st = 0; st < T::KV_STAGES; ++st) {
@@ -769,11 +808,11 @@ __device__ __forceinline__ void dkv_cta(unsigned char* smem_raw, const CUtensorM
   if (wg == 2) {
     hp::setmaxnreg_dec<PRODUCER_REGS>();
     const int w = (tid >> 5) & 3;
-    if (w == 0) dkv_produce<D>(sm, maps, p, kt, tid & 31);
-    else if (w <= T::KV_BQ / 32) dkv_delta<D>(sm, p, lse, tid - 256 - 32);
+    if (w == 0) dkv_produce<D>(sm, maps, p, kt, tid & 31, walk);
+    else if (w <= T::KV_BQ / 32) dkv_delta<D>(sm, p, lse, tid - 256 - 32, walk);
   } else {
     hp::setmaxnreg_inc<CONSUMER_REGS>();
-    dkv_consume<D>(sm, p, kt, wg, tid & 127, init, store);
+    dkv_consume<D>(sm, p, kt, wg, tid & 127, init, store, walk);
   }
 }
 
@@ -792,17 +831,19 @@ __host__ inline int encode_dq_maps(CUtensorMap* maps, const void* q, const void*
   return e;
 }
 
+// (sq: the query length where it differs from the keys' p.s)
 template <int D>
 __host__ inline int encode_dkv_maps(CUtensorMap* maps, const void* q, const void* dout,
                                     const void* o, const void* k, const void* v,
-                                    const Problem& p) {
+                                    const Problem& p, int sq = -1) {
   using T = BwdTiles<D>;
   const uint64_t bh = (uint64_t)p.b * p.h, bkv = (uint64_t)p.b * p.h_kv;
+  const int qs = sq < 0 ? p.s : sq;
   int e = dstt::encode_tma_3d(&maps[0], k, D, p.s, bkv, T::KV_BK);
   if (!e) e = dstt::encode_tma_3d(&maps[1], v, D, p.s, bkv, T::KV_BK);
-  if (!e) e = dstt::encode_tma_3d(&maps[2], q, D, p.s, bh, T::KV_BQ);
-  if (!e) e = dstt::encode_tma_3d(&maps[3], dout, D, p.s, bh, T::KV_BQ);
-  if (!e) e = dstt::encode_tma_3d(&maps[4], o, D, p.s, bh, T::KV_BQ);
+  if (!e) e = dstt::encode_tma_3d(&maps[2], q, D, qs, bh, T::KV_BQ);
+  if (!e) e = dstt::encode_tma_3d(&maps[3], dout, D, qs, bh, T::KV_BQ);
+  if (!e) e = dstt::encode_tma_3d(&maps[4], o, D, qs, bh, T::KV_BQ);
   return e;
 }
 

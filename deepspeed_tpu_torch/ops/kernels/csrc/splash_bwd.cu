@@ -12,21 +12,33 @@
 // pair (q k^T, do v^T, ds k), dk/dv 4 (q k^T, do v^T, p^T do, ds^T q); the
 // bytes are a few reads of q, k, v, o, do.
 //
-// Design (flash_common.cuh's per-tile bodies dq_tile and dkv_tile, with
-// splash's rule for a kept pair; CTAs of 4 warps, each warp owning 16 rows,
-// every accumulator in registers, P and dS turned into A fragments without
-// leaving registers):
-//  * dq: one CTA per (64-query tile, b * h); walks the kv blocks of its
-//    schedule row (kind-0 steps skipped, each block as 64-key tiles);
-//    dQ += dS K; scaled once at the end.
-//  * dk/dv: one CTA per (64-key tile, b * h_kv); walks every query head of
-//    its GQA group, each through its own row of the transposed schedule
-//    (q_index, step_kind_t at the tile's kv block), and each listed query
-//    block as 64-query tiles, on the transposed products (S^T = K Q^T, dP^T =
-//    V dO^T): dV += P^T dO, dK += dS^T Q, summed over the group in fp32 and
-//    rounded once. (The Pallas path writes per-query-head [b, h, sk, d]
-//    planes and sums them afterwards.) At d = 256 the accumulators are taken
-//    in two 128-column halves, each its own pass.
+// Design:
+//  * dq (flash_common.cuh's per-tile body dq_tile with splash's rule for a
+//    kept pair; CTAs of 4 warps on mma.sync, each warp owning 16 rows): one
+//    CTA per (64-query tile, b * h); walks the kv blocks of its schedule row
+//    (kind-0 steps skipped, each block as 64-key tiles); dQ += dS K; scaled
+//    once at the end.
+//  * dk/dv: the flash dk/dv CTA body (flash_hopper_bwd.cuh's dkv_cta: a
+//    producer warp's TMA loads into a ring of query-tile stages, two warps
+//    taking delta per stage, two consumer warpgroups on wgmma summing dV +=
+//    P^T dO and dK += dS^T Q over the GQA group in fp32, rounded once) on a
+//    scheduled walk (SplashWalk below): one CTA per (KV_BK keys, b * h_kv)
+//    walks, query tile outer and the group's heads inner as flash does, the
+//    query blocks its rows of the transposed schedule (q_index,
+//    step_kind_t) list, each as 64-row tiles in ascending order. The kv
+//    block of each 64-key half of the CTA's keys has its own rows (blocks of
+//    64 keys put two in a 128-key CTA), a per-head schedule one row per
+//    head: the producer warp merges them, a lane a row, and hands over each
+//    (tile, head) some row lists with the step kind of each half. Kind-0
+//    steps, and PARTIAL tiles the causal bound or the band leave empty, are
+//    dropped before any copy; a head whose rows skip the tile skips it. The
+//    consumers apply the kept-pair rule (splash_common.cuh's kept) only on
+//    PARTIAL steps and for runtime segment ids; a FULL step has no
+//    predicate. Over a schedule shared by the heads, the walk visits a
+//    superset of flash's query tiles for the same window, in flash's order,
+//    and a tile the mask leaves dead adds exactly 0: dk and dv equal flash
+//    dk/dv's. The flash kernels instantiate the same body with FlashWalk.
+#include "flash_hopper_bwd.cuh"
 #include "splash_common.cuh"
 
 namespace {
@@ -128,93 +140,165 @@ __global__ void __launch_bounds__(NTHREADS, D <= 128 ? 3 : 1) splash_dq_kernel(
 }
 
 // ---------------------------------------------------------------------------
-template <int D, int DC>
-__global__ void __launch_bounds__(NTHREADS) splash_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, SplashProblem p, Schedule st) {
-  constexpr int LD = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + TILE * LD;
-  bf16* Ks = dOs + TILE * LD;
-  bf16* Vs = Ks + TILE * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + TILE * LD);
-  float* delta_s = lse_s + TILE;
-  int* segq = reinterpret_cast<int*>(delta_s + TILE);
-  int* segk = segq + TILE;
+namespace fh = dstt::flash_hopper;
+namespace hp = dstt::hopper;
+using dstt::splash::FULL;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  const int k0 = blockIdx.y * TILE;
-  const int bkv = blockIdx.x;
-  const int bi = bkv / p.h_kv, kvh = bkv % p.h_kv;
-  const int group = p.h / p.h_kv;
-  const int64_t kvoff = (int64_t)bkv * p.sk * D;
-  const int* seg = p.seg ? p.seg + (int64_t)bi * p.sq : nullptr;
-  const int kblock = k0 / st.bk;  // this tile's row of the transposed schedule
+// The scheduled walk of a dk/dv CTA (flash_hopper_bwd.cuh's FlashWalk
+// describes the interface). A stage's kind per 64-key half: SKIP (the half
+// keeps no pair: every p is 0), PARTIAL or FULL.
+struct SplashWalk {
+  static constexpr bool SCHEDULED = true;
+  const int* index;  // q_index [heads, nk, width]
+  const int* kind;   // step_kind_t [heads, nk, width]
+  int heads, nk, width, bq, bk;
+  int sq;            // query rows (the keys are the problem's s)
+  int causal, window;
+  int seg, seg_all;  // segment ids present; they mask every step (else PARTIAL steps)
 
-  load_tile<TILE, D>(Ks, k + kvoff, k0, p.sk);
-  load_tile<TILE, D>(Vs, v + kvoff, k0, p.sk);
-  if (seg && tid < TILE) segk[tid] = k0 + tid < p.sk ? seg[k0 + tid] : 0;
-  __syncthreads();
+  // a PARTIAL tile of queries [q_lo, q_hi] x keys [k_lo, k_hi] that keeps
+  // no pair (splash_common.cuh's tile_dropped at base 0)
+  __device__ __forceinline__ bool dropped(int q_lo, int q_hi, int k_lo, int k_hi) const {
+    return (causal && k_lo > q_hi) || (window && q_lo - k_hi >= window);
+  }
 
-  // this lane's two keys (fragment rows g and g + 8 of the warp's 16)
-  const int lk0 = warp * 16 + g, lk1 = lk0 + 8;
-  const int key0 = k0 + lk0, key1 = k0 + lk1;
-  const int sk0 = seg ? segk[lk0] : 0, sk1 = seg ? segk[lk1] : 0;
-  const int k_last = min(k0 + TILE, p.sk) - 1;
+  // is every pair of a stage of this kind, queries [q0, q_end) x keys
+  // [k_lo, k_hi], kept? (a FULL step inside the sequence; a PARTIAL one
+  // whose tile the causal bound and the band keep whole, as flash's rule)
+  __device__ __forceinline__ bool whole(int knd, int q0, int q_end, int k_lo, int k_hi,
+                                        int sk) const {
+    if (knd == SKIP || (seg && (seg_all || knd == PARTIAL)) || q_end > sq || k_hi >= sk)
+      return false;
+    return knd == FULL || ((!causal || k_hi <= q0) && (!window || q_end - 1 - k_lo < window));
+  }
 
-  for (int c0 = 0; c0 < D; c0 += DC) {
-    float dka[DC / 8][4], dva[DC / 8][4];
+  // is the pair (query q, key k) of a step of this kind kept?
+  __device__ __forceinline__ bool keep(int knd, int q, int k, int q_id, int k_id, int sk) const {
+    if (knd == SKIP || q >= sq || k >= sk) return false;
+    if (knd == PARTIAL && ((causal && k > q) || (window && q - k >= window))) return false;
+    return !(seg && (seg_all || knd == PARTIAL) && q_id != k_id);
+  }
+
+  // The producer warp's walk: lane c < rows keeps a cursor over row c of
+  // the transposed schedule (the block of half c / nh, head c % nh); the
+  // smallest query block any cursor points at is next, walked as 64-row
+  // tiles, the group's heads inner; the cursors at it move on. Returns the
+  // stages issued.
+  template <int D>
+  __device__ __forceinline__ int produce(const fh::DkvSmem<D, true>& sm,
+                                         const CUtensorMap* const* maps, const Problem& p,
+                                         const fh::KvTile& kt, int lane) const {
+    using T = fh::BwdTiles<D>;
+    constexpr int BQ = T::KV_BQ, S = T::KV_STAGES, IDS = BQ / 32, HALVES = T::KV_BK / 64;
+    constexpr int NONE = 0x7fffffff;
+    const int group = p.h / p.h_kv, head0 = kt.bi * p.h + kt.kvh * group;
+    const int nh = heads == 1 ? 1 : group;
+    int kb[HALVES];  // the kv block of each half's keys (-1: past the keys)
 #pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
-      dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+    for (int a = 0; a < HALVES; ++a) {
+      const int key = kt.k0 + 64 * a;
+      kb[a] = key < p.s ? (nk == 1 ? 0 : key / bk) : -1;
     }
-    for (int gq = 0; gq < group; ++gq) {
-      const int hq = kvh * group + gq;
-      const int hs = st.heads == 1 ? 0 : hq;
-      const int64_t row = ((int64_t)hs * st.rows + kblock) * st.width;
-      const int* idx = st.index + row;
-      const int* knd = st.kind + row;
-      const int64_t qoff = ((int64_t)bi * p.h + hq) * p.sq * D;
-      const float* lseb = lse + ((int64_t)bi * p.h + hq) * p.sq;
-      for (int step = 0; step < st.width; ++step) {
-        const int kind = knd[step];
-        if (kind == SKIP) continue;
-        const int q_lo = idx[step] * st.bq;
-        const int q_hi = min(q_lo + st.bq, p.sq);
-        for (int q0 = q_lo; q0 < q_hi; q0 += TILE) {
-          if (kind == PARTIAL && dstt::splash::tile_dropped(p, p.base + q0,
-                                                            p.base + min(q0 + TILE, q_hi) - 1,
-                                                            k0, k_last)) {
-            continue;  // a partial block's tile that keeps no pair
+    const int nkb = HALVES == 2 && kb[HALVES - 1] >= 0 && kb[HALVES - 1] != kb[0] ? 2 : 1;
+    const int a = lane / nh, hs = lane - a * nh;
+    const bool mine = lane < nkb * nh;
+    const int64_t row =
+        mine ? ((int64_t)(heads == 1 ? 0 : kt.kvh * group + hs) * nk + kb[a]) * width : 0;
+    auto block_at = [&](int j) {
+      return mine && j < width && kind[row + j] != SKIP ? index[row + j] : NONE;
+    };
+    int pos = 0, cur = block_at(0);
+    const int kmin = sm.krange[0], kmax = sm.krange[1];
+    int it = 0;
+    for (;;) {
+      const int qb = __reduce_min_sync(0xffffffffu, cur);
+      if (qb == NONE) break;
+      const int mk = cur == qb ? kind[row + pos] : SKIP;  // this row's kind at block qb
+      const int q_lo = qb * bq, q_end = min(q_lo + bq, sq);
+      for (int q0 = q_lo; q0 < q_end; q0 += BQ) {
+        int ids[IDS];
+        if (seg) {
+          bool hit = false;
+#pragma unroll
+          for (int j = 0; j < IDS; ++j) {
+            const int qpos = q0 + lane * IDS + j;
+            ids[j] = qpos < sq ? kt.segq[qpos] : 0;
+            hit |= qpos < sq && ids[j] >= kmin && ids[j] <= kmax;
           }
-          __syncthreads();  // the previous tile's readers are done
-          if (tid < TILE) {
-            lse_s[tid] = q0 + tid < p.sq ? lseb[q0 + tid] : 0.f;
-            if (seg) segq[tid] = q0 + tid < p.sq ? seg[q0 + tid] : 0;
+          if (seg_all && !__any_sync(0xffffffffu, hit)) continue;  // no id of the keys'
+        }
+        const int q_last = min(q0 + BQ, q_end) - 1;
+        for (int gq = 0; gq < group; ++gq) {
+          const int c = nh == 1 ? 0 : gq;
+          int kd[HALVES];
+#pragma unroll
+          for (int h2 = 0; h2 < HALVES; ++h2) {
+            const int k_lo = kt.k0 + 64 * h2;
+            kd[h2] = __shfl_sync(0xffffffffu, mk, (h2 && nkb == 2 ? nh : 0) + c);
+            if (kb[h2] < 0 ||
+                (kd[h2] == PARTIAL && dropped(q0, q_last, k_lo, min(k_lo + 64, p.s) - 1)))
+              kd[h2] = SKIP;
           }
-          load_tile<TILE, D>(Qs, q + qoff, q0, p.sq);
-          load_tile<TILE, D>(dOs, dout + qoff, q0, p.sq);
-          __syncthreads();
-          row_delta<D>(dOs, o + qoff, q0, p.sq, delta_s);
-          __syncthreads();
-
-          dkv_tile<D, DC>(dka, dva, Ks, Vs, Qs, dOs, lse_s, delta_s, p.scale,
-                          [&](int c, bool upper) {
-                            const int key = upper ? key0 : key1;
-                            return q0 + c < q_hi && key < p.sk &&
-                                   dstt::splash::kept(p, kind, p.base + q0 + c, key, segq[c],
-                                                      upper ? sk0 : sk1);
-                          }, c0, warp, lane);
+          if (kd[0] == SKIP && kd[HALVES - 1] == SKIP) continue;
+          const int st = it % S;
+          hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
+          if (seg) {
+#pragma unroll
+            for (int j = 0; j < IDS; ++j) sm.ids[st * BQ + lane * IDS + j] = ids[j];
+          }
+          if (lane == 0) {
+            sm.q0s[st] = q0;
+            sm.heads[st] = head0 + gq;
+            sm.kinds[2 * st] = kd[0];
+            sm.kinds[2 * st + 1] = kd[HALVES - 1];
+            hp::mbar_arrive(&sm.info[st]);
+            hp::mbar_arrive_expect_tx(&sm.full[st], fh::DkvSmem<D, true>::STAGE);
+#pragma unroll
+            for (int cb = 0; cb < D / 64; ++cb) {
+              hp::tma_load_3d(sm.q(st) + cb * BQ * 128, maps[2], &sm.full[st], 64 * cb, q0,
+                              head0 + gq);
+              hp::tma_load_3d(sm.dout(st) + cb * BQ * 128, maps[3], &sm.full[st], 64 * cb, q0,
+                              head0 + gq);
+              hp::tma_load_3d(sm.o(st) + cb * BQ * 128, maps[4], &sm.full[st], 64 * cb, q0,
+                              head0 + gq);
+            }
+          } else {
+            hp::mbar_arrive(&sm.full[st]);  // after this lane's ids
+          }
+          ++it;
         }
       }
+      if (cur == qb) cur = block_at(++pos);
     }
-    store_rows<D, DC>(dk + kvoff, dka, p.scale, key0, key1, p.sk, c0, lane);
-    store_rows<D, DC>(dv + kvoff, dva, 1.f, key0, key1, p.sk, c0, lane);
+    return it;
   }
+};
+
+// maps: k, v, q, dO, o (fh::encode_dkv_maps)
+template <int D>
+__global__ void __launch_bounds__(fh::THREADS, 1)
+    splash_dkv_kernel(const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const __grid_constant__ CUtensorMap omap, const float* __restrict__ lse,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, Problem p, SplashWalk walk) {
+  extern __shared__ unsigned char smem_raw[];
+  const CUtensorMap* maps[5] = {&kmap, &vmap, &qmap, &domap, &omap};
+  const fh::KvTile kt = fh::make_kv_tile<D>(p, p.seg, p.seg);
+  fh::dkv_cta<D>(
+      smem_raw, maps, p, kt, lse,
+      [&](auto& dka, auto& dva, int, int, int, int) {
+        fh::acc_zero(dka);
+        fh::acc_zero(dva);
+      },
+      [&](const auto& dka, const auto& dva, int key0, int key1, int c0, int tq) {
+        constexpr int DC = 2 * (int)(sizeof(dka) / sizeof(float));
+        const int64_t at = (int64_t)blockIdx.x * p.s * D;  // the CTA's (batch, kv head)
+        fh::acc_store_bf16<DC>(dk + at, dka, p.scale, key0, key1, p.s, c0, D, tq);
+        fh::acc_store_bf16<DC>(dv + at, dva, 1.f, key0, key1, p.s, c0, D, tq);
+      },
+      walk);
 }
 
 // ---------------------------------------------------------------------------
@@ -230,16 +314,27 @@ int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const 
   return (int)cudaGetLastError();
 }
 
-template <int D, int DC>
-int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
-               const float* lse, bf16* dk, bf16* dv, const SplashProblem& p, const Schedule& st,
+// Rows of the transposed schedule a dk/dv CTA's producer merges, a lane
+// each: the kv blocks of its 64-key halves times the schedule's heads of a
+// GQA group.
+int walk_rows(int d, const SplashWalk& w, int group) {
+  const int kv_bk = d == 256 ? 64 : 128;
+  const int blocks = kv_bk == 128 && w.nk > 1 && w.bk % kv_bk ? 2 : 1;
+  return blocks * (w.heads == 1 ? 1 : group);
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, void* dk, void* dv, const Problem& p, const SplashWalk& w,
                cudaStream_t stream) {
-  const size_t bytes = bwd_smem_bytes<D>();
+  CUtensorMap maps[5];
+  if (int e = fh::encode_dkv_maps<D>(maps, q, dout, o, k, v, p, w.sq)) return e;
+  constexpr int bytes = fh::DkvSmem<D, true>::BYTES;
   static size_t have = 0;
-  if (int e = set_max_smem(splash_dkv_kernel<D, DC>, bytes, have)) return e;
-  const dim3 grid((unsigned)(p.b * p.h_kv), (unsigned)((p.sk + TILE - 1) / TILE));
-  splash_dkv_kernel<D, DC><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, dk, dv, p,
-                                                              st);
+  if (int e = set_max_smem(splash_dkv_kernel<D>, bytes, have)) return e;
+  splash_dkv_kernel<D><<<fh::dkv_grid<D>(p), fh::THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), p, w);
   return (int)cudaGetLastError();
 }
 
@@ -277,8 +372,9 @@ extern "C" int dstt_splash_bwd_dq(const void* q, const void* k, const void* v, c
 
 // dk, dv: [b, h_kv, sk, d] bf16, each the sum over the kv head's GQA group;
 // q_index, step_kind_t: [sched_heads, nk, width_t] int32 (the transposed
-// schedule); block_kv a multiple of 64 or nk == 1; the rest as
-// dstt_splash_bwd_dq.
+// schedule); block_kv a multiple of 64 or nk == 1; at most 32 rows of the
+// transposed schedule a CTA (walk_rows); q, k, v, o, do 16-byte aligned
+// with rows of d elements (TMA); the rest as dstt_splash_bwd_dq.
 extern "C" int dstt_splash_bwd_dkv(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, const void* seg,
                                    const void* q_index, const void* step_kind_t, void* dk,
@@ -286,21 +382,27 @@ extern "C" int dstt_splash_bwd_dkv(const void* q, const void* k, const void* v, 
                                    float scale, int sched_heads, int nk, int width_t,
                                    int block_q, int block_kv, int causal, int window,
                                    int seg_all, void* stream) {
-  if (!dstt::splash::blocks_ok(block_kv, nk)) return (int)cudaErrorInvalidValue;
-  SplashProblem p{b, h, h_kv, sq, sk, scale, causal, window,
-                  static_cast<const int*>(seg), seg_all, 0};
-  Schedule sc{static_cast<const int*>(q_index), static_cast<const int*>(step_kind_t),
-              sched_heads, nk, width_t, block_q, block_kv};
-  auto Q = static_cast<const bf16*>(q), K = static_cast<const bf16*>(k),
-       V = static_cast<const bf16*>(v), O = static_cast<const bf16*>(o),
-       dO = static_cast<const bf16*>(dout);
-  auto L = static_cast<const float*>(lse);
-  auto dK = static_cast<bf16*>(dk), dV = static_cast<bf16*>(dv);
+  if (!dstt::splash::blocks_ok(block_kv, nk) || !(scale > 0.f))
+    return (int)cudaErrorInvalidValue;
+  Problem p;
+  p.b = b;
+  p.h = h;
+  p.h_kv = h_kv;
+  p.s = sk;
+  p.scale = scale;
+  p.causal = causal;
+  p.window = window;
+  p.seg = static_cast<const int*>(seg);
+  const SplashWalk w{static_cast<const int*>(q_index), static_cast<const int*>(step_kind_t),
+                     sched_heads, nk, width_t, block_q, block_kv, sq, causal, window,
+                     seg != nullptr, seg_all};
+  if (walk_rows(d, w, h / h_kv) > 32) return (int)cudaErrorInvalidValue;
+  const float* L = static_cast<const float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch_dkv<64, 64>(Q, K, V, O, dO, L, dK, dV, p, sc, st);
-    case 128: return launch_dkv<128, 128>(Q, K, V, O, dO, L, dK, dV, p, sc, st);
-    case 256: return launch_dkv<256, 128>(Q, K, V, O, dO, L, dK, dV, p, sc, st);
+    case 64: return launch_dkv<64>(q, k, v, o, dout, L, dk, dv, p, w, st);
+    case 128: return launch_dkv<128>(q, k, v, o, dout, L, dk, dv, p, w, st);
+    case 256: return launch_dkv<256>(q, k, v, o, dout, L, dk, dv, p, w, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

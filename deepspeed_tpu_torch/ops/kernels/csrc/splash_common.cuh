@@ -29,6 +29,7 @@ using flash::bf16;
 constexpr float NEG_INF = -1e30f;
 constexpr int SKIP = 0;
 constexpr int PARTIAL = 1;
+constexpr int FULL = 2;
 
 struct Problem {
   int b, h, h_kv, sq, sk;

@@ -12,7 +12,9 @@ those blocks and no others. Three kernels, in
   * ``splash_bwd_dq``  replaces ``_splash_bwd_dq_kernel``: dq over the row
     schedule;
   * ``splash_bwd_dkv`` replaces ``_splash_bwd_dkv_kernel``: dk, dv over the
-    transposed schedule, summed over the GQA group inside the kernel.
+    transposed schedule, summed over the GQA group inside the kernel; the
+    flash dk/dv kernel's body on a scheduled walk (``dkv_walk`` is its
+    plain model).
 
 A kept pair: every pair of a FULL step; on a PARTIAL step the pairs that
 pass the analytic predicate (causal ``q >= k``, window ``q - k < w``, and
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention.core import NEG_INF, _repeat_kv
+from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES
 from deepspeed_tpu_torch.ops.kernels import KERNELS, stream_ptr
 from deepspeed_tpu_torch.ops.sparse_attention.mask import FULL, PARTIAL
 from deepspeed_tpu_torch.ops.sparse_attention.schedule import (
@@ -210,6 +213,79 @@ def splash_bwd_reference(q, k, v, out, do, lse, schedule: BlockSchedule, segment
 
 
 # ---------------------------------------------------------------------------
+# the dk/dv kernel's walk
+# ---------------------------------------------------------------------------
+def dkv_walk_rows(schedule: BlockSchedule, h: int, h_kv: int, d: int) -> int:
+    """Rows of the transposed schedule one dk/dv CTA merges (its producer
+    warp keeps a cursor on each, a lane a row, so at most 32): the kv
+    blocks of its 64-key halves (two where a block does not hold the CTA's
+    ``kv_bk`` keys) times the schedule's heads of a GQA group."""
+    kv_bk = BWD_TILES[d]["kv_bk"]
+    blocks = 2 if kv_bk == 128 and schedule.nk > 1 and schedule.block_kv % kv_bk else 1
+    return blocks * (1 if schedule.num_heads == 1 else h // h_kv)
+
+
+def dkv_walk(schedule: BlockSchedule, h: int, h_kv: int, d: int, kvh: int, k0: int,
+             seg=None, seg_all: bool = False):
+    """The stages the dk/dv kernel's CTA of kv head ``kvh`` and keys ``k0 ..
+    k0 + kv_bk`` walks, as ``splash_bwd.cu``'s ``SplashWalk.produce`` does:
+    a list of (query tile start, query head, (step kind of each 64-key
+    half)). Query blocks in ascending order, each as 64-row tiles, the GQA
+    group's heads inner; a half's kind is its kv block's in the head's row
+    of the transposed schedule (0 for a block the row does not list, or for
+    a PARTIAL tile the causal bound or the band leaves empty); a (tile,
+    head) whose halves are all 0 is not walked. ``seg``: one batch row's
+    segment ids [s] (numpy), which with ``seg_all`` (runtime ids) also drop
+    a tile none of whose ids falls in the range of the keys' ids."""
+    kv_bk = BWD_TILES[d]["kv_bk"]
+    sq, sk = schedule.seq_q, schedule.seq_kv
+    bq, bk, nk = schedule.block_q, schedule.block_kv, schedule.nk
+    group = h // h_kv
+    halves = kv_bk // 64
+    kb = [(0 if nk == 1 else (k0 + 64 * a) // bk) if k0 + 64 * a < sk else -1
+          for a in range(halves)]
+    heads = [0] if schedule.num_heads == 1 else [kvh * group + g for g in range(group)]
+
+    def kind_of(hs, block, qb):
+        row_q = schedule.q_index[hs, block]
+        row_k = schedule.step_kind_t[hs, block]
+        hit = (row_k != 0) & (row_q == qb)
+        return int(row_k[hit][0]) if hit.any() else 0
+
+    def dropped(q_lo, q_hi, k_lo, k_hi):
+        return bool((schedule.causal and k_lo > q_hi)
+                    or (schedule.window and q_lo - k_hi >= schedule.window))
+
+    listed = sorted({int(qb) for hs in heads for b in set(kb) if b >= 0
+                     for qb, kd in zip(schedule.q_index[hs, b], schedule.step_kind_t[hs, b])
+                     if kd != 0})
+    if seg is not None:
+        kids = seg[k0:min(k0 + kv_bk, sk)]
+        kmin, kmax = int(kids.min()), int(kids.max())
+    stages = []
+    for qb in listed:
+        q_end = min(qb * bq + bq, sq)
+        for q0 in range(qb * bq, q_end, 64):
+            if seg is not None and seg_all:
+                qids = seg[q0:min(q0 + 64, sq)]
+                if not ((qids >= kmin) & (qids <= kmax)).any():
+                    continue
+            q_last = min(q0 + 64, q_end) - 1
+            for g in range(group):
+                hs = heads[0 if len(heads) == 1 else g]
+                kinds = []
+                for a in range(halves):
+                    kd = kind_of(hs, kb[a], qb) if kb[a] >= 0 else 0
+                    k_lo = k0 + 64 * a
+                    if kd == PARTIAL and dropped(q0, q_last, k_lo, min(k_lo + 64, sk) - 1):
+                        kd = 0
+                    kinds.append(kd)
+                if any(kinds):
+                    stages.append((q0, kvh * group + g, tuple(kinds)))
+    return stages
+
+
+# ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 def _aligned(t):
@@ -317,6 +393,12 @@ def splash_bwd_dkv_cuda(q, k, v, out, do, lse, schedule: BlockSchedule, segment_
     (q, k, v, out, do, lse), seg, seg_all = _kernel_args(
         "splash_bwd_dkv_cuda", q, k, v, schedule, segment_ids, out, do.to(q.dtype),
         lse.float(), backward=True)
+    b, h, _, d = q.shape
+    if dkv_walk_rows(schedule, h, k.shape[1], d) > 32:
+        raise NotImplementedError(
+            f"splash_bwd_dkv_cuda: {dkv_walk_rows(schedule, h, k.shape[1], d)} rows of the "
+            "transposed schedule a CTA; the kernel's walk merges at most 32 (a per-head "
+            "schedule with at most 16 query heads a kv head)")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:

@@ -439,12 +439,14 @@ def test_engine_per_row_phase_runs_end_to_end_on_cpu(one_thread):
 def test_splash_kernel_cases_on_plain_inputs():
     """The kernels phase's cases at s 4096 with 2 heads: the schedules are
     the ones the card checks (the 1024-window band prunes, the Fixed layouts
-    differ by head, query blocks 2 and 3 of (d) are dead), and the plain
-    forward gives 0 with lse -1e30 on the dead rows."""
+    differ by head, query blocks 2 and 3 of (d) are dead, (f) and (g) take
+    64-key blocks), and the plain forward gives 0 with lse -1e30 on the dead
+    rows."""
     from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
 
     cases = chip_smoke.splash_cases(torch, torch.device("cpu"), s=4096, h=2)
-    assert [c[0][:2] for c in cases] == ["a_", "b_", "c_", "d_"]
+    assert [c[0][:2] for c in cases] == ["a_", "b_", "c_", "d_", "f_", "g_"]
+    assert cases[4][1].block_kv == cases[5][1].block_kv == 64 and cases[5][1].num_heads == 2
     local, fixed, dead = cases[0][1], cases[1][1], cases[3][1]
     assert local.block_q == 512 and local.grid_width == 3 and local.density < 0.5
     assert cases[2][1] is local and cases[2][2] is not None
@@ -827,3 +829,39 @@ def test_carry_kernel_checks_on_plain_inputs(monkeypatch):
     for causal in (False, True):
         errs = chip_smoke.carry_case(torch, q, k, v, do, dict(causal=causal, segment_ids=seg))
         assert len(errs) == 11 and max(errs.values()) < 1e-5
+
+
+@pytest.mark.parametrize("ulp", [0, 1])
+def test_chip_smoke_splash_dkv_against_flash_holds_every_bit(monkeypatch, ulp):
+    """splash_dkv_against_flash (the kernels phase's gate at both timed
+    LocalMask shapes): splash dk/dv must equal flash dk/dv with the same
+    window on the same out, lse and dO; with the wrappers standing in for
+    their plain versions both sides agree, and one element of dk one bf16
+    ulp off fails the gate."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+    from deepspeed_tpu_torch.ops.sparse_attention import LocalMask, schedule_from_mask
+    from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
+
+    s, window = 256, 96
+    plain_dkv = lambda *a, **kw: SP.splash_bwd_reference(*a, **kw)[1:]  # noqa: E731
+
+    def skewed(*a, **kw):
+        dk, dv = plain_dkv(*a, **kw)
+        if ulp:
+            dk = dk.clone()
+            flat = dk.view(-1).view(torch.int16)
+            flat[1234] += ulp  # the next bf16 value of one element
+        return dk, dv
+
+    monkeypatch.setattr(SP, "splash_bwd_dkv_cuda", skewed)
+    sched = schedule_from_mask(LocalMask((s, s), window), 64)
+    monkeypatch.setattr(F, "flash_bwd_dkv_cuda", lambda *a, causal, window: plain_dkv(
+        *a, sched))
+    q, k, v, do = chip_smoke.flash_inputs(torch, torch.device("cpu"), 1, 4, 2, s, 64, seed=5)
+    out, lse = SP.splash_fwd_reference(q, k, v, sched)
+    if ulp:
+        with pytest.raises(AssertionError, match="splash_bwd_dkv dk: 1 elements differ"):
+            chip_smoke.splash_dkv_against_flash(torch, q, k, v, out, do, lse, sched, window)
+        return
+    rec = chip_smoke.splash_dkv_against_flash(torch, q, k, v, out, do, lse, sched, window)
+    assert rec == {"dk": "equal", "dv": "equal", "window": window}

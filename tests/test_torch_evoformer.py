@@ -531,3 +531,52 @@ def test_cuda_unpaired_last_row_matches_plain(n, dtype):
     for got, want in [(plane[3], rds)] + list(zip(reduced[4], rsums)):
         scale = max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got, want, atol=2e-5 * scale, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,h,s,want", [
+    (512, 8, 384, 16),   # msa_row: 32 groups x 8 heads x 6 query tiles = 1536 CTAs
+    (384, 4, 384, 8),    # triangle: 48 x 4 x 6 = 1152 CTAs
+    (5, 8, 384, 5),      # an odd batch below 8: one group walks every row
+    (999, 8, 384, 31),   # an odd batch: 33 groups, the last of 7 rows
+])
+def test_forward_and_backward_walk_the_same_row_groups(B, h, s, want):
+    """The forward kernel's CTAs walk groups of ``rows_per_cta`` batch rows
+    (as the backward's): the batch-invariant pair bias is read once a group.
+    The groups cover every batch row exactly once, and the last may be
+    short."""
+    G = pevo.rows_per_cta(B, h, s)
+    assert G == want
+    groups = [list(range(b0, min(B, b0 + G))) for b0 in range(0, B, G)]
+    assert sorted(r for g in groups for r in g) == list(range(B))
+    assert len(groups) == -(-B // G) and 0 < len(groups[-1]) <= G
+
+
+# d, dtype, s (130: the pair bias's query stride is no multiple of 4, so
+# the bias regions copy 4 bytes at a time; 192: 16-byte copies)
+FWD_CUDA_CASES = [(d, dt, s) for d in (16, 32, 64, 128)
+                  for dt in (torch.bfloat16, torch.float32) for s in (130, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,s", FWD_CUDA_CASES)
+def test_cuda_forward_matches_plain_by_head_dim(d, dtype, s):
+    """The forward kernel against its plain version at every head dim, both
+    dtypes and both bias copy widths, over an odd batch (warpgroups with
+    unequal rows): a per-row mask and a pair bias shared by the batch (the
+    slab staged once a CTA), then the pair bias materialized per row (a
+    tile per step)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 2e-5
+    for lead, mat in (((1, 21), False), ((3, 5), True)):
+        (Q, K, V), biases = _inputs(lead, s, 2, d, "12", seed=s + d)
+        if mat:
+            biases[1] = np.broadcast_to(biases[1], (*lead, 2, s, s)).copy()
+        B = int(np.prod(lead))
+        q, k, v = (torch.tensor(x).reshape(B, s, 2, d).to("cuda", dtype) for x in (Q, K, V))
+        ops = pevo._operands([torch.tensor(b, device="cuda") for b in biases], lead, 2, s)
+        assert (ops[1].stride(0) != 0) == mat
+        out, lse = pevo.evoformer_fwd_cuda(q, k, v, ops)
+        ref, ref_lse = pevo.evoformer_fwd_reference(q, k, v, ops)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=2e-5)

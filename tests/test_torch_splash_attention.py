@@ -581,3 +581,201 @@ def test_chip_smoke_check_splash_holds_every_output(monkeypatch, off_by):
     assert set(errs["splash_fwd"]) == {"x", "x_lse"} and set(errs["splash_bwd_dkv"]) == {
         "x", "x_dv"}
     assert all(e == 0.0 for e in tile_errs["splash_bwd_dq"].values())
+
+
+# ---------------------------------------------------------------------------
+# the dk/dv kernel's walk (its plain model, ``splash.dkv_walk``)
+# ---------------------------------------------------------------------------
+def _both_configs(cls, kw):
+    return getattr(psa, cls)(**kw), getattr(jsa, cls)(**kw)
+
+
+WALK_CASES = {
+    # name: (h, h_kv, s, d, (port schedule, JAX schedule) builder, runtime segments)
+    "local_b64_two_blocks_a_cta": (8, 2, 512, 128, lambda s: (
+        psa.schedule_from_mask(psa.LocalMask((s, s), 160), 64),
+        jsa.schedule_from_mask(jmask.LocalMask((s, s), 160), 64)), False),
+    "local_b64_d256": (8, 2, 512, 256, lambda s: (
+        psa.schedule_from_mask(psa.LocalMask((s, s), 160), 64),
+        jsa.schedule_from_mask(jmask.LocalMask((s, s), 160), 64)), False),
+    "local_b512_train_splash": (8, 2, 2048, 128, lambda s: (
+        psa.schedule_from_mask(psa.LocalMask((s, s), 512), 512),
+        jsa.schedule_from_mask(jmask.LocalMask((s, s), 512), 512)), False),
+    "per_head_fixed_b64": (8, 2, 512, 128, lambda s: tuple(
+        c.make_schedule(s) for c in _both_configs("FixedSparsityConfig", dict(
+            num_heads=8, block=64, different_layout_per_head=True,
+            num_different_global_patterns=4, attention="unidirectional"))), False),
+    "per_head_bigbird_b64_d64": (4, 4, 512, 64, lambda s: tuple(
+        c.make_schedule(s) for c in _both_configs("BigBirdSparsityConfig", dict(
+            num_heads=4, block=64, num_random_blocks=2, different_layout_per_head=True,
+            seed=7))), False),
+    "causal_b128": (4, 1, 512, 128, lambda s: (
+        psa.schedule_from_mask(psa.CausalMask((s, s)), 128),
+        jsa.schedule_from_mask(jmask.CausalMask((s, s)), 128)), False),
+    "dead_rows_b64": (2, 2, 256, 128, lambda s: (
+        psa.schedule_from_layout(_dead_layout(), 64),
+        jsa.schedule_from_layout(_dead_layout(), 64)), False),
+    "document_static_ids_b64": (4, 2, 256, 128, lambda s: tuple(
+        m & c for m, c in zip(_both("DocumentMask", [0] * 100 + [1] * 60 + [2] * 96),
+                              _both("CausalMask", (S, S)))), False),
+    "local_b64_runtime_segments": (8, 2, 512, 128, lambda s: (
+        psa.schedule_from_mask(psa.LocalMask((s, s), 160), 64),
+        jsa.schedule_from_mask(jmask.LocalMask((s, s), 160), 64)), True),
+}
+
+
+def _walk_schedules(case):
+    h, h_kv, s, d, build, segmented = WALK_CASES[case]
+    port, jax_ = build(s)
+    if not hasattr(port, "q_index"):  # masks (the document case): compile both
+        port, jax_ = psa.schedule_from_mask(port, 64), jsa.schedule_from_mask(jax_, 64)
+    seg = None
+    if segmented:
+        seg = np.zeros(s, np.int32)
+        seg[150:] = 1
+        seg[380:] = 2
+    return h, h_kv, s, d, port, jax_, seg
+
+
+def _kept_tokens(sched, hs, seg, seg_all):
+    """[sq, sk] the pairs a head row keeps (the plain versions' rule)."""
+    status = ps._status(sched)[hs]
+    q = np.arange(sched.seq_q)[:, None]
+    k = np.arange(sched.seq_kv)[None, :]
+    st = status[q // sched.block_q, k // sched.block_kv]
+    pred = np.ones_like(st, bool)
+    if sched.causal:
+        pred &= q >= k
+    if sched.window:
+        pred &= (q - k) < sched.window
+    ids = seg if seg is not None else sched.segment_ids
+    same = np.ones_like(pred) if ids is None else ids[:, None] == ids[None, :]
+    if seg_all:
+        return ((st == 2) | ((st == 1) & pred)) & same
+    return (st == 2) | ((st == 1) & pred & same)
+
+
+def _ctas(sched, h_kv, d):
+    kv_bk = ps.BWD_TILES[d]["kv_bk"]
+    return [(kvh, k0) for kvh in range(h_kv) for k0 in range(0, sched.seq_kv, kv_bk)]
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_dkv_walk_lists_the_query_tiles_with_kept_pairs_in_order(case):
+    """Per dk/dv CTA (kv head, KV_BK keys) the walk lists (query tile,
+    head) stages in flash's order (query tile outer, the GQA group's heads
+    inner, ascending), each with the step kind of its two 64-key halves.
+    Without segment ids: exactly the stages whose tile holds a kept pair,
+    and a half's kind is nonzero exactly where it holds one. With ids (a
+    document schedule's static ids, or runtime ids): every such stage, and
+    an extra one only where ids could match (runtime ids prune a tile none
+    of whose ids is in the keys' range)."""
+    h, h_kv, s, d, sched, _, seg = _walk_schedules(case)
+    seg_all = seg is not None
+    ids = seg if seg is not None else sched.segment_ids
+    group = h // h_kv
+    kv_bk = ps.BWD_TILES[d]["kv_bk"]
+    kept = [_kept_tokens(sched, hs, seg, seg_all) for hs in range(sched.num_heads)]
+    status = ps._status(sched)
+    for kvh, k0 in _ctas(sched, h_kv, d):
+        walk = ps.dkv_walk(sched, h, h_kv, d, kvh, k0, seg=seg, seg_all=seg_all)
+        order = [(q0, hq) for q0, hq, _ in walk]
+        assert order == sorted(order), (kvh, k0)
+        assert len(set(order)) == len(order)
+        got = {(q0, hq): kinds for q0, hq, kinds in walk}
+        want = {}
+        for q0 in range(0, s, 64):
+            for g in range(group):
+                hq = kvh * group + g
+                hs = 0 if sched.num_heads == 1 else hq
+                kinds = []
+                for a in range(kv_bk // 64):
+                    k_lo = k0 + 64 * a
+                    block = kept[hs][q0:q0 + 64, k_lo:min(k_lo + 64, s)]
+                    kinds.append(int(status[hs, q0 // sched.block_q, k_lo // sched.block_kv])
+                                 if block.any() else 0)
+                if any(kinds):
+                    want[(q0, hq)] = tuple(kinds)
+        if ids is None:
+            assert got == want, (kvh, k0)
+            continue
+        for key, kinds in want.items():
+            assert key in got, (kvh, k0, key)
+            assert all(k == w for k, w in zip(got[key], kinds) if w), (kvh, k0, key)
+        kids = ids[k0:k0 + kv_bk]
+        for (q0, hq) in set(got) - set(want):
+            qids = ids[q0:q0 + 64]
+            assert ((qids >= kids.min()) & (qids <= kids.max())).any() or not seg_all
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_dkv_walk_reads_the_jax_schedule_alike(case):
+    """The walk reads only the transposed schedule and its blocks: over the
+    JAX package's schedule (compiled from the same mask or layout) it lists
+    the same stages for every CTA."""
+    h, h_kv, s, d, port, jax_, seg = _walk_schedules(case)
+    _same_schedule(port, jax_)
+    for kvh, k0 in _ctas(port, h_kv, d):
+        assert ps.dkv_walk(port, h, h_kv, d, kvh, k0, seg=seg, seg_all=seg is not None) == \
+            ps.dkv_walk(jax_, h, h_kv, d, kvh, k0, seg=seg, seg_all=seg is not None)
+
+
+def test_dkv_walk_rows_bound_the_producer_lanes():
+    """A CTA's producer warp merges its schedule rows a lane each: two kv
+    blocks a 128-key CTA at 64-key blocks, times the group's heads of a
+    per-head schedule; 64-key CTAs (d 256) and blocks of 128 or more keys
+    take one block; more than 32 rows is refused on a card."""
+    local64 = psa.schedule_from_mask(psa.LocalMask((512, 512), 160), 64)
+    local128 = psa.schedule_from_mask(psa.LocalMask((512, 512), 160), 128)
+    per_head = psa.FixedSparsityConfig(num_heads=8, block=64, different_layout_per_head=True,
+                                       num_different_global_patterns=4).make_schedule(512)
+    assert ps.dkv_walk_rows(local64, 32, 8, 128) == 2
+    assert ps.dkv_walk_rows(local64, 32, 8, 256) == 1
+    assert ps.dkv_walk_rows(local128, 32, 8, 128) == 1
+    assert ps.dkv_walk_rows(per_head, 8, 2, 128) == 8
+    assert ps.dkv_walk_rows(per_head, 8, 1, 64) == 16
+    assert ps.dkv_walk_rows(per_head, 8, 8, 256) == 1
+
+
+CUDA_DKV_CASES = {
+    # name: (b, h, h_kv, s, d, schedule builder, segments)
+    "local_b64_gqa": (1, 8, 2, 1024, 128, lambda s: psa.schedule_from_mask(
+        psa.LocalMask((s, s), 300), 64), False),
+    "per_head_fixed_b64_gqa": (1, 8, 2, 512, 64, lambda s: psa.FixedSparsityConfig(
+        num_heads=8, block=64, different_layout_per_head=True, num_different_global_patterns=4,
+        attention="unidirectional").make_schedule(s), False),
+    "local_b128_d256": (1, 4, 2, 1024, 256, lambda s: psa.schedule_from_mask(
+        psa.LocalMask((s, s), 300), 128), False),
+    "local_b64_d256_segments": (2, 4, 2, 512, 256, lambda s: psa.schedule_from_mask(
+        psa.LocalMask((s, s), 200), 64), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_DKV_CASES))
+def test_cuda_dkv_matches_plain_on_the_walks(case):
+    """The wgmma dk/dv kernel against the plain backward where its walk
+    merges rows: 64-key blocks (two a CTA), per-head schedules over a GQA
+    group, d 256 (64-key CTAs), runtime segment ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    b, h, h_kv, s, d, build, segmented = CUDA_DKV_CASES[case]
+    sched = build(s)
+    gen = torch.Generator(device="cuda").manual_seed(s + d + 1)
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, h_kv, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, h_kv, s, d, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    seg = None
+    if segmented:
+        seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        seg[0, 150:] = 1
+        seg[-1, 380:] = 2
+    out, lse = ps.splash_fwd_cuda(q, k, v, sched, segment_ids=seg)
+    dk, dv = ps.splash_bwd_dkv_cuda(q, k, v, out, do, lse, sched, segment_ids=seg)
+    _, rdk, rdv = ps.splash_bwd_reference(q, k, v, out, do, lse, sched, segment_ids=seg)
+    for got, w, what in ((dk, rdk, "dk"), (dv, rdv, "dv")):
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(got.float(), w.float(), atol=BF16_ATOL * scale,
+                                   rtol=BF16_RTOL)
+        chip_smoke.tile_rel_err(torch, what, got, w)

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 tools/torch_evoformer_ab.py [OTHER_ROOT ...] [--rounds 1] [--call] [--sweep]
+    python3 tools/torch_evoformer_ab.py [OTHER_ROOT ...] [--rounds 1] [--fwd] [--call] [--sweep]
 
 Each OTHER_ROOT is another checkout of the repo (e.g. the parent commit
 unpacked with ``git archive``). Each round runs, once in a fresh process per
@@ -13,6 +13,11 @@ reverse; each builds its own kernels into its own ``build/``):
   * by default ``chip_smoke.py``'s ``evoformer_timings`` (the kernels held
     against their plain versions at the evoformer phase's msa_row shape, then
     CUDA-graph times in bf16 and fp32, beside their bounds);
+  * with ``--fwd`` instead the forward kernel alone at msa_row and
+    triangle (``evo_inputs``: AlphaFold's mask and a pair bias) in bf16 and
+    fp32, CUDA-graph times beside SDPA's forward with the summed mask on
+    the same inputs (bf16; memory-efficient backend) in the same process,
+    and a digest of out and lse;
   * with ``--call`` instead the op call a user makes: ``DS4Sci_EvoformerAttention``
     forward + backward at msa_row and triangle in bf16, AlphaFold's mask and a
     pair bias both needing gradients (``evo_inputs``), its time (CUDA events
@@ -93,6 +98,45 @@ for name, sh in chip_smoke.EVOFORMER_SHAPES.items():
 print(json.dumps({"root": sys.argv[1], "call": res}))
 """
 
+FWD_CHILD = r"""
+import hashlib, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from deepspeed_tpu_torch.ops import kernels as K
+from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as E
+from torch.nn.attention import SDPBackend, sdpa_kernel
+K.build([K.KERNELS["evoformer_fwd"]])
+dev = torch.device("cuda", 0)
+res = {}
+for name, sh in chip_smoke.EVOFORMER_SHAPES.items():
+    n, s, h, d = sh["n"], sh["s"], sh["h"], sh["d"]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+        q, k, v, do, b1, b2 = chip_smoke.evo_inputs(torch, dev, n, s, h, d, dtype, 300)
+        q, k, v = (t.reshape(n, s, h, d) for t in (q, k, v))
+        ops = E._operands([b1, b2], (1, n), h, s)
+        out, lse = E.evoformer_fwd_cuda(q, k, v, ops)
+        r = {"ms": chip_smoke.time_ms(torch, lambda: E.evoformer_fwd_cuda(q, k, v, ops),
+                                      iters=10),
+             "sha256": hashlib.sha256(out.contiguous().view(torch.int8).cpu().numpy().tobytes()
+                                      + lse.cpu().numpy().tobytes()).hexdigest()}
+        if dtype == torch.bfloat16:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = (b1[0] + b2[0]).to(dtype).expand(n, h, s, s).contiguous()
+
+            def sdpa():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                            attn_mask=mask)
+
+            r["sdpa_ms"] = chip_smoke.time_ms(torch, sdpa, iters=10)
+            del mask
+        res[tag] = r
+        del q, k, v, do, b1, b2, ops, out, lse
+        torch.cuda.empty_cache()
+print(json.dumps({"root": sys.argv[1], "fwd": res}))
+"""
+
 SWEEP_CHILD = r"""
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
@@ -136,6 +180,8 @@ def main(argv=None):
     ap.add_argument("others", nargs="*", help="roots of the other checkouts")
     ap.add_argument("--rounds", type=int, default=1,
                     help="each round runs the others, this twice, the others in reverse")
+    ap.add_argument("--fwd", action="store_true",
+                    help="time the forward kernel alone (and SDPA's forward) instead")
     ap.add_argument("--call", action="store_true",
                     help="time the op call (forward + backward) instead of the kernels")
     ap.add_argument("--sweep", action="store_true",
@@ -155,13 +201,19 @@ def main(argv=None):
     ms = {root: [] for root in [this] + others}
     for _ in range(args.rounds if others or not args.sweep else 0):
         for root in others + [this, this] + others[::-1]:
-            rec = run(CALL_CHILD if args.call else CHILD, root)
-            if args.call:
+            rec = run(FWD_CHILD if args.fwd else CALL_CHILD if args.call else CHILD, root)
+            if args.fwd:
+                ms[root].append(rec["fwd"])
+            elif args.call:
                 ms[root].append(rec["call"])
             else:
                 ms[root].append({k: {dt: r[dt]["ms"] for dt in r}
                                  for k, r in rec["timings"].items()})
     summary = {"card": card, "ms": ms}
+    if args.fwd and ms[this]:
+        summary["fwd_same_bits"] = {
+            tag: len({run[tag]["sha256"] for runs in ms.values() for run in runs}) == 1
+            for tag in ms[this][0]}
     if args.call and ms[this]:
         summary["fwd_same_bits"] = all(
             run[name]["fwd_sha256"] == ms[this][0][name]["fwd_sha256"]
