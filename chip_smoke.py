@@ -19,8 +19,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    all three also timed at head dims 64 and 256; the
    fused-CE kernels also at sizes that divide no tile; FusedAdam at steps 1
    and 1000, AdamW and L2 decay, and on a leaf with a ragged tail; the
-   splash kernels over a LocalMask, per-head Fixed layouts, packed
-   segments, dead query blocks and the prefill form; the paged kernels at
+   splash kernels over a LocalMask, per-head Fixed layouts (at 64-blocks
+   also over one kv head: 64 schedule rows a dk/dv CTA), packed segments,
+   dead query blocks and the prefill form, and at two LocalMask shapes
+   equal to the flash kernels with the same window; the flash kernels'
+   outputs also as digests, equal to the recorded ones; the paged kernels at
    the split, round and causal forms, over shared-prefix tables and in the
    per-row form (256 queries over one table, stride-0 extras), also per
    (row, head) as a relative Frobenius error, the int8 form over
@@ -440,6 +443,49 @@ def two_segments(torch, dev, b, s, cut):
     return seg
 
 
+# the flash kernels' outputs on fixed inputs, as digests to compare across
+# checkouts (their CTA bodies are shared with the splash kernels): per case
+# (head dim, s, causal, window, segment cut or None), b 1, 8/2 heads
+FLASH_DIGEST_CASES = ((128, 1000, True, 300, None), (128, 768, True, 0, 300),
+                      (64, 512, False, 0, None), (256, 640, True, 200, None))
+# ``flash_digests`` as the wgmma flash kernels give them (NVIDIA H100 80GB
+# HBM3; the same before and after their CTA bodies took the splash walks as
+# a policy). The kernels phase fails on any other: a change that moves the
+# flash kernels' bits on purpose records its new digests here.
+FLASH_DIGESTS = {"d128_s1000_causal1_w300_segNone": "aae60a2ffd5058df",
+                 "d128_s768_causal1_w0_seg300": "f347c19b569c38ff",
+                 "d64_s512_causal0_w0_segNone": "ffa3c8250fe5f428",
+                 "d256_s640_causal1_w200_segNone": "c057366d7e6fa449"}
+
+
+def flash_digests(torch, dev, F=None):
+    """sha256 (16 hex digits) of out, lse, dq, dk and dv of the flash
+    kernels (``F``: a checkout's ``ops.attention.flash``, this one's by
+    default) on ``FLASH_DIGEST_CASES``; the inputs come from numpy's seeded
+    generator, so every torch build makes the same ones."""
+    import hashlib
+
+    import numpy as np
+
+    if F is None:
+        from deepspeed_tpu_torch.ops.attention import flash as F
+    digests = {}
+    for i, (d, s, causal, window, cut) in enumerate(FLASH_DIGEST_CASES):
+        rng = np.random.default_rng(1000 + i)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((1, n, s, d), np.float32)).to(
+            dev, torch.bfloat16) for n in (8, 2, 2, 8))
+        kw = dict(causal=causal, window=window,
+                  segment_ids=None if cut is None else two_segments(torch, dev, 1, s, cut))
+        out, lse = F.flash_fwd_cuda(q, k, v, **kw)
+        dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+        dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
+        h = hashlib.sha256()
+        for t in (out, lse, dq, dk, dv):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digests[f"d{d}_s{s}_causal{int(causal)}_w{window}_seg{cut}"] = h.hexdigest()[:16]
+    return digests
+
+
 def flash_cases(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096, short=1024):
     """The flash kernels' cases, name -> dict(b, h, h_kv, s, d, causal, window,
     window_flag, seg): the train step's shape (causal, static window =
@@ -586,6 +632,11 @@ def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
     records["flash_fwd"].update(tiles=F.FWD_TILES[d], by_width=by_width["flash_fwd"])
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         records[name].update(tiles=F.BWD_TILES[d], by_width=by_width[name])
+    digests = flash_digests(torch, dev)
+    if digests != FLASH_DIGESTS:
+        raise AssertionError(f"flash kernels' digests {digests}, recorded {FLASH_DIGESTS}")
+    for name in records:
+        records[name]["digests"] = "equal to FLASH_DIGESTS"
     return records
 
 
@@ -886,14 +937,17 @@ SPLASH_KERNELS = ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv")
 SPLASH_TIMED = dict(s=16384, window=4096, block=512)
 
 
-def splash_cases(torch, dev, s=4096, h=32):
-    """(name, schedule, segment ids or None) for the kernels phase: (a) a
-    LocalMask of 1024 in 512-blocks, (b) per-head Fixed layouts in 128-blocks
-    (causal), (c) (a) with two packed segments as runtime ids, (d) a causal
-    layout of 512-blocks with two dead query blocks, (f) (a)'s mask in
-    64-blocks (a 128-key dk/dv CTA spans two kv blocks), (g) (b) in
-    64-blocks (a dk/dv CTA merges two blocks of each of its GQA group's
-    heads)."""
+def splash_cases(torch, dev, s=4096, h=32, h_kv=8):
+    """(name, schedule, segment ids or None, kv heads) for the kernels
+    phase: (a) a LocalMask of 1024 in 512-blocks, (b) per-head Fixed layouts
+    in 128-blocks (causal), (c) (a) with two packed segments as runtime ids,
+    (d) a causal layout of 512-blocks with two dead query blocks, (f) (a)'s
+    mask in 64-blocks (a 128-key tile spans two kv blocks; each consumer
+    warpgroup of a 128-row forward or dq CTA reads its own schedule row),
+    (g) (b) in 64-blocks (a dk/dv CTA merges two blocks of each of its GQA
+    group's heads), (h) (g)'s schedule over one kv head (h rows a GQA
+    group: at h 32 a dk/dv CTA merges 64 rows of the transposed schedule).
+    All at ``h_kv`` kv heads but (h)."""
     import numpy as np
 
     from deepspeed_tpu_torch.ops.sparse_attention import (
@@ -913,12 +967,13 @@ def splash_cases(torch, dev, s=4096, h=32):
     fixed64 = FixedSparsityConfig(num_heads=h, block=64, different_layout_per_head=True,
                                   num_different_global_patterns=4,
                                   attention="unidirectional").make_schedule(s)
-    return [("a_local1024_b512", local, None),
-            ("b_fixed_per_head_b128", fixed, None),
-            ("c_local1024_b512_segments2", local, two_segments(torch, dev, 1, s, 1500)),
-            ("d_dead_rows_b512", dead, None),
-            ("f_local1024_b64", schedule_from_mask(LocalMask((s, s), 1024), 64), None),
-            ("g_fixed_per_head_b64", fixed64, None)]
+    return [("a_local1024_b512", local, None, h_kv),
+            ("b_fixed_per_head_b128", fixed, None, h_kv),
+            ("c_local1024_b512_segments2", local, two_segments(torch, dev, 1, s, 1500), h_kv),
+            ("d_dead_rows_b512", dead, None, h_kv),
+            ("f_local1024_b64", schedule_from_mask(LocalMask((s, s), 1024), 64), None, h_kv),
+            ("g_fixed_per_head_b64", fixed64, None, h_kv),
+            ("h_fixed_per_head_b64_kv1", fixed64, None, 1)]
 
 
 def splash_work(schedule, b, h, h_kv, d, segment_ids=None):
@@ -989,24 +1044,36 @@ def check_splash(torch, errs, tile_errs, name, q, k, v, do, sched, seg=None):
     return out, lse
 
 
-def splash_dkv_against_flash(torch, q, k, v, out, do, lse, sched, window):
-    """Splash dk/dv over a LocalMask schedule shared by every head against
-    the flash dk/dv kernel with the same causal window, both fed the same
-    out, lse and dO: equal as values (the splash walk visits a superset of
-    flash's query tiles in flash's order, and a tile the mask leaves dead
-    adds exactly 0). Raises on any element that differs."""
+def splash_against_flash(torch, q, k, v, out, do, lse, sched, window):
+    """The three splash kernels over a LocalMask schedule shared by every
+    head against the flash kernels with the same causal window: ``out`` and
+    ``lse`` (splash's) against the flash forward's on the same q, k, v;
+    splash dq, dk and dv against flash dq and dk/dv, all fed splash's out,
+    lse and the same dO. Equal as values: the splash walks visit flash's key
+    tiles (forward, dq) and a superset of its query tiles (dk/dv, whose
+    extra tiles add exactly 0), in flash's order, with the same arithmetic.
+    Raises on any element that differs."""
     from deepspeed_tpu_torch.ops.attention import flash as F
     from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
 
+    kw = dict(causal=True, window=window)
+    fout, flse = F.flash_fwd_cuda(q, k, v, **kw)
+    dq = SP.splash_bwd_dq_cuda(q, k, v, out, do, lse, sched)
+    fdq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
     dk, dv = SP.splash_bwd_dkv_cuda(q, k, v, out, do, lse, sched)
-    fdk, fdv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, causal=True, window=window)
-    for name, got, want in (("dk", dk, fdk), ("dv", dv, fdv)):
+    fdk, fdv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
+    for kname, name, got, want in (("splash_fwd", "out", out, fout),
+                                   ("splash_fwd", "lse", lse, flse),
+                                   ("splash_bwd_dq", "dq", dq, fdq),
+                                   ("splash_bwd_dkv", "dk", dk, fdk),
+                                   ("splash_bwd_dkv", "dv", dv, fdv)):
         differ = int((got != want).sum())
         if differ:
-            raise AssertionError(f"splash_bwd_dkv {name}: {differ} elements differ from flash "
-                                 f"dk/dv with the same window {window}")
-    del dk, dv, fdk, fdv
-    return {"dk": "equal", "dv": "equal", "window": window}
+            raise AssertionError(f"{kname} {name}: {differ} elements differ from flash "
+                                 f"with the same window {window}")
+    del fout, flse, dq, fdq, dk, dv, fdk, fdv
+    return {"out": "equal", "lse": "equal", "dq": "equal", "dk": "equal", "dv": "equal",
+            "window": window}
 
 
 def splash_timings(torch, dev, b, h, h_kv, d, s, window, block, seed, errs, tile_errs):
@@ -1023,7 +1090,7 @@ def splash_timings(torch, dev, b, h, h_kv, d, s, window, block, seed, errs, tile
     sched = schedule_from_mask(LocalMask((s, s), window), block)
     q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed)
     out, lse = check_splash(torch, errs, tile_errs, f"timed_s{s}_w{window}", q, k, v, do, sched)
-    against_flash = splash_dkv_against_flash(torch, q, k, v, out, do, lse, sched, window)
+    against_flash = splash_against_flash(torch, q, k, v, out, do, lse, sched, window)
     args = (q, k, v, out, do, lse, sched)
     ms = {"splash_fwd": time_ms(torch, lambda: SP.splash_fwd_cuda(q, k, v, sched), iters=10),
           "splash_bwd_dq": time_ms(torch, lambda: SP.splash_bwd_dq_cuda(*args), iters=10),
@@ -1053,8 +1120,8 @@ def splash_timings(torch, dev, b, h, h_kv, d, s, window, block, seed, errs, tile
                      "library_ms": lib[name], "bound_ms": max(t_ops, t_bytes) * 1e3,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "kept_pairs": pairs, "flops": flops[name],
-                     "tflops_per_s": flops[name] / (ms[name] * 1e-3) / 1e12}
-    rec["splash_bwd_dkv"]["against_flash_dkv"] = against_flash
+                     "tflops_per_s": flops[name] / (ms[name] * 1e-3) / 1e12,
+                     "against_flash": against_flash}
     del q, k, v, do, out, lse
     torch.cuda.empty_cache()
     return rec
@@ -1092,21 +1159,23 @@ def sdpa_masked_ms(torch, q, k, v, do, window):
 
 def kernel_splash(torch, dev, b=1, h=32, h_kv=8, d=128, s=4096, timed=SPLASH_TIMED):
     """The three splash kernels against their plain versions in bf16 at
-    Mistral-7B's heads (32/8 of 128): cases (a)-(d), (f) and (g) of
+    Mistral-7B's heads (32/8 of 128): cases (a)-(d) and (f)-(h) of
     ``splash_cases`` at s 4096 (forward, lse, dq, dk, dv; gradients also per
     64-row tile), and
     (e) the prefill form (forward) for t in {1, 8, 256} at starts {0, 3000,
-    7936} over S 8192, window 4096, 128-key blocks. Then, each on the
-    inputs it is timed on, checked as (a)-(d) and timed: (a)'s shape and
-    the timed leg's; at both, dk/dv also against the flash dk/dv kernel
-    with the same window, as values (``splash_dkv_against_flash``). Returns
-    one record per kernel."""
+    7936} over S 8192, window 4096, 128-key blocks (a 128-row CTA over a
+    chunk of 1 or 8 rows: its query map reads zeros past them, and a row
+    stored past t would land in the next head's rows, which are held too).
+    Then, each on the inputs it is timed on, checked as (a)-(d) and timed:
+    (a)'s shape and the timed leg's; at both, out, lse, dq, dk and dv also
+    against the flash kernels with the same window, as values
+    (``splash_against_flash``). Returns one record per kernel."""
     from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
 
     errs = {n: {} for n in SPLASH_KERNELS}
     tile_errs = {"splash_bwd_dq": {}, "splash_bwd_dkv": {}}
-    for i, (name, sched, seg) in enumerate(splash_cases(torch, dev, s, h)):
-        q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed=50 + i)
+    for i, (name, sched, seg, kv_heads) in enumerate(splash_cases(torch, dev, s, h, h_kv)):
+        q, k, v, do = flash_inputs(torch, dev, b, h, kv_heads, s, d, seed=50 + i)
         out, lse = check_splash(torch, errs, tile_errs, name, q, k, v, do, sched, seg)
         if name.startswith("d_"):
             if bool(out[:, :, 1024:2048].float().abs().max() != 0):
@@ -1162,9 +1231,8 @@ def kernel_splash(torch, dev, b=1, h=32, h_kv=8, d=128, s=4096, timed=SPLASH_TIM
                        "token mask, memory-efficient backend (kv heads repeated; backward: "
                        "autograd, dq+dk+dv in one call, eager)",
             "at_a": at_a[name],
+            "against_flash": at_timed[name]["against_flash"],
         }
-    records["splash_bwd_dkv"]["against_flash_dkv"] = at_timed["splash_bwd_dkv"][
-        "against_flash_dkv"]
     return records
 
 
@@ -4322,7 +4390,7 @@ def main(argv=None):
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
-            **({"flash_ms": rec["flash_ms"],
+            **({"flash_ms": rec["flash_ms"], "against_flash": rec["against_flash"],
                 "launches_engine_per_row": per_row_launches.get(name, 0)}
                if name in SPLASH_KERNELS else {}),
             **({"flash_ms": rec["flash_ms"]} if name in SPARSE_KERNELS else {}),

@@ -1,11 +1,11 @@
-// Shared pieces of the flash-attention kernels and the splash and sparse
-// kernels built on the same mainloop: the problem description, the
+// Shared pieces of the flash-attention kernels and the kernels built on
+// them (splash, sparse): the problem description, the
 // visibility rule of a (query, key) pair, the range of key tiles a query
 // tile needs (and of query tiles a key tile needs) and the causal order of
 // query tiles, which the wgmma flash kernels (flash_hopper.cuh and
 // flash_hopper_bwd.cuh: flash_fwd.cu, flash_bwd.cu and the ring's
-// flash_chunk.cu) share too; and for the mma.sync kernels (splash_fwd.cu,
-// splash_bwd.cu, sparse_fwd.cu, sparse_bwd.cu): tile loads into padded
+// flash_chunk.cu) share too; and for the mma.sync kernels (the
+// layout-predicate sparse_fwd.cu, sparse_bwd.cu): tile loads into padded
 // shared memory, the tensor-core primitives (ldmatrix loads of 16x16 bf16
 // fragments from shared memory and mma.sync m16n8k16, bf16 in, fp32
 // accumulate), the backward's pieces (the per-row delta, two products into
@@ -179,7 +179,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// backward pieces (splash_bwd.cu, sparse_bwd.cu)
+// backward pieces (sparse_bwd.cu)
 // delta[r] = sum_c do[r, c] * o[r, c] in fp32 for the TILE rows of a tile,
 // two threads per row, 16-byte loads of o issued together (dOs is the
 // shared dO tile, ob the global o rows of this head).
@@ -257,11 +257,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[DC / 8][4], const float 
 }
 
 // ---------------------------------------------------------------------------
-// Per-tile bodies of the flash and splash kernels. The two families differ
-// only in which 64-row tiles they visit (a causal/band range or a schedule)
-// and in which (query, key) pairs of a tile they keep: keep(c, upper) says
-// whether tile column c is kept for the lane's upper (fragment row g) or
-// lower (g + 8) row. A dropped logit is `neg` (flash: -inf; splash: the
+// Per-tile bodies of the mma.sync kernels. A kernel picks the 64-row tiles
+// it visits and which (query, key) pairs of a tile it keeps: keep(c, upper)
+// says whether tile column c is kept for the lane's upper (fragment row g)
+// or lower (g + 8) row. A dropped logit is `neg` (the sparse kernels': the
 // Pallas bodies' -1e30) and, like any logit at or below neg / 2,
 // contributes exactly 0, also to a row that has seen nothing else.
 

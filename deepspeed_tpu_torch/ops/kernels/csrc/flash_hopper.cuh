@@ -57,6 +57,15 @@
 // Tails: the maps are 3-D (d, s, matrices), so rows of a box past s arrive
 // as zeros, never as the next head's rows; such keys are masked, such
 // queries never stored.
+//
+// The walk is a template policy. FlashWalk (SCHEDULED false) is the above:
+// the producer's key tiles of key_tiles and the segment ids, and
+// flash_common.cuh's `visible`. A scheduled walk (splash_fwd.cu) brings
+// its own producer walk (produce: the stages it issued) and its rule for a
+// kept pair (keep); each K stage's word then packs the tile's first key
+// with a code per consumer warpgroup (SCHEDULED_COLUMNS below), read with
+// the key, and p.s is the query length (the walk knows the keys').
+// FlashWalk compiles to the same code as before the policy existed.
 #pragma once
 
 #include "flash_common.cuh"
@@ -88,18 +97,33 @@ constexpr int THREADS = 384;  // consumers: warpgroups 0-1; producer: warpgroup 
 constexpr int TURN = 1;       // named barriers TURN + w: warpgroup w's turn at the tensor cores
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The flash kernels' walk (see the header); the dq and dk/dv bodies
+// (flash_hopper_bwd.cuh) take the same tag.
+struct FlashWalk {
+  static constexpr bool SCHEDULED = false;
+};
+
+// A scheduled walk's stage word (forward and dq): (k0 / BK) << 6 | code of
+// warpgroup 0 | code of warpgroup 1 << 3, where a code is one step kind
+// for every key column of the tile (0 skip, 1 partial, 2 full),
+// SCHEDULED_COLUMNS (each column's kind in the stage's kinds bytes) or
+// SCHEDULED_WHOLE (every pair of the warpgroup's rows kept: no predicate).
+constexpr int SCHEDULED_COLUMNS = 3, SCHEDULED_WHOLE = 4;
+
 // Dynamic shared memory: Q [D/64 blocks][BQ rows][128 bytes]; each stage
 // K then V, [D/64][BK][128] each; then the mbarriers (full and empty of K
 // and of V per stage; Q), each stage's first key position, each stage's
-// key ids, the query tile's id range.
-template <int D>
+// key ids, the query tile's id range; KINDS (a scheduled walk): each
+// stage's step kind per (consumer warpgroup, key column), a byte each.
+template <int D, bool KINDS = false>
 struct Smem {
   using T = FwdTiles<D>;
   static constexpr int Q_BYTES = T::BQ * D * 2;
   static constexpr int KV_BYTES = T::BK * D * 2;
   static constexpr int TILES = Q_BYTES + T::STAGES * 2 * KV_BYTES;
-  static constexpr int BYTES =
-      1024 + TILES + (4 * T::STAGES + 1) * 8 + T::STAGES * 4 * (1 + T::BK) + 8;
+  static constexpr int BYTES = 1024 + TILES + (4 * T::STAGES + 1) * 8 +
+                               T::STAGES * 4 * (1 + T::BK) + 8 +
+                               (KINDS ? T::STAGES * 2 * T::BK : 0);
 
   unsigned char* q;
   unsigned char* ring;
@@ -111,6 +135,7 @@ struct Smem {
   int* k0s;
   int* ids;
   int* qrange;
+  unsigned char* kinds;  // KINDS: [STAGES][2][BK]
 
   __device__ explicit Smem(unsigned char* raw) {
     q = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
@@ -124,6 +149,7 @@ struct Smem {
     k0s = reinterpret_cast<int*>(qbar + 1);
     ids = k0s + T::STAGES;
     qrange = ids + T::STAGES * T::BK;
+    kinds = reinterpret_cast<unsigned char*>(qrange + 2);
   }
   __device__ unsigned char* k(int st) const { return ring + st * 2 * KV_BYTES; }
   __device__ unsigned char* v(int st) const { return k(st) + KV_BYTES; }
@@ -290,12 +316,13 @@ __device__ __forceinline__ void carry_store(float* mb, float* lb, float* accb,
 }
 
 // ---------------------------------------------------------------------------
-// The producer warp: Q once, then the live key tiles into the ring, then
-// the end marker.
-template <int D>
-__device__ __forceinline__ void produce(const Smem<D>& sm, const CUtensorMap* qmap,
+// The producer warp: Q once, then the live key tiles into the ring (the
+// walk's), then the end marker.
+template <int D, class W>
+__device__ __forceinline__ void produce(const Smem<D, W::SCHEDULED>& sm, const CUtensorMap* qmap,
                                         const CUtensorMap* kmap, const CUtensorMap* vmap,
-                                        const Problem& p, const Tile& tile, int lane) {
+                                        const Problem& p, const Tile& tile, int lane,
+                                        const W& walk) {
   using T = FwdTiles<D>;
   constexpr int BK = T::BK, S = T::STAGES, IDS = BK / 32;
   if (lane == 0) {
@@ -307,46 +334,50 @@ __device__ __forceinline__ void produce(const Smem<D>& sm, const CUtensorMap* qm
     for (int c = 0; c < D / 64; ++c)
       hp::tma_load_3d(sm.q + c * T::BQ * 128, qmap, sm.qbar, 64 * c, tile.q0, tile.bh);
   }
-  const int qmin = sm.qrange[0], qmax = sm.qrange[1];
-  int lo, hi;
-  dstt::flash::key_tiles<T::BQ, BK>(p, tile.q0, lo, hi);
   int it = 0;
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    int ids[IDS];
-    if (tile.segk) {
-      bool mine = false;
+  if constexpr (W::SCHEDULED) {
+    it = walk.template produce<D>(sm, kmap, vmap, p, tile, lane);
+  } else {
+    const int qmin = sm.qrange[0], qmax = sm.qrange[1];
+    int lo, hi;
+    dstt::flash::key_tiles<T::BQ, BK>(p, tile.q0, lo, hi);
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      int ids[IDS];
+      if (tile.segk) {
+        bool mine = false;
 #pragma unroll
-      for (int j = 0; j < IDS; ++j) {
-        const int kpos = k0 + lane * IDS + j;
-        ids[j] = kpos < p.s ? tile.segk[kpos] : 0;
-        mine |= kpos < p.s && ids[j] >= qmin && ids[j] <= qmax;
+        for (int j = 0; j < IDS; ++j) {
+          const int kpos = k0 + lane * IDS + j;
+          ids[j] = kpos < p.s ? tile.segk[kpos] : 0;
+          mine |= kpos < p.s && ids[j] >= qmin && ids[j] <= qmax;
+        }
+        if (!__any_sync(0xffffffffu, mine)) continue;
       }
-      if (!__any_sync(0xffffffffu, mine)) continue;
-    }
-    const int st = it % S;
-    const uint32_t free = ((it / S) & 1) ^ 1;
-    hp::mbar_wait(&sm.empty_k[st], free);
-    if (tile.segk) {
+      const int st = it % S;
+      const uint32_t free = ((it / S) & 1) ^ 1;
+      hp::mbar_wait(&sm.empty_k[st], free);
+      if (tile.segk) {
 #pragma unroll
-      for (int j = 0; j < IDS; ++j) sm.ids[st * BK + lane * IDS + j] = ids[j];
-    }
-    if (lane == 0) {
-      sm.k0s[st] = k0;
-      hp::mbar_arrive_expect_tx(&sm.full_k[st], Smem<D>::KV_BYTES);
+        for (int j = 0; j < IDS; ++j) sm.ids[st * BK + lane * IDS + j] = ids[j];
+      }
+      if (lane == 0) {
+        sm.k0s[st] = k0;
+        hp::mbar_arrive_expect_tx(&sm.full_k[st], Smem<D>::KV_BYTES);
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c)
-        hp::tma_load_3d(sm.k(st) + c * BK * 128, kmap, &sm.full_k[st], 64 * c, k0, tile.bkv);
-    } else {
-      hp::mbar_arrive(&sm.full_k[st]);  // after this lane's ids
-    }
-    hp::mbar_wait(&sm.empty_v[st], free);
-    if (lane == 0) {
-      hp::mbar_arrive_expect_tx(&sm.full_v[st], Smem<D>::KV_BYTES);
+        for (int c = 0; c < D / 64; ++c)
+          hp::tma_load_3d(sm.k(st) + c * BK * 128, kmap, &sm.full_k[st], 64 * c, k0, tile.bkv);
+      } else {
+        hp::mbar_arrive(&sm.full_k[st]);  // after this lane's ids
+      }
+      hp::mbar_wait(&sm.empty_v[st], free);
+      if (lane == 0) {
+        hp::mbar_arrive_expect_tx(&sm.full_v[st], Smem<D>::KV_BYTES);
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c)
-        hp::tma_load_3d(sm.v(st) + c * BK * 128, vmap, &sm.full_v[st], 64 * c, k0, tile.bkv);
+        for (int c = 0; c < D / 64; ++c)
+          hp::tma_load_3d(sm.v(st) + c * BK * 128, vmap, &sm.full_v[st], 64 * c, k0, tile.bkv);
+      }
+      ++it;
     }
-    ++it;
   }
   const int st = it % S;
   hp::mbar_wait(&sm.empty_k[st], ((it / S) & 1) ^ 1);
@@ -357,9 +388,10 @@ __device__ __forceinline__ void produce(const Smem<D>& sm, const CUtensorMap* qm
 // One consumer warpgroup (wg 0 or 1, thread t of 128): its 64 rows against
 // every tile the producer hands over. init(o, m, l, row0, row1, tq) seeds
 // the state, store(o, m, l, row0, row1, tq) finishes it.
-template <int D, typename Init, typename Store>
-__device__ __forceinline__ void consume(const Smem<D>& sm, const Problem& p, const Tile& tile,
-                                        int wg, int t, Init init, Store store) {
+template <int D, class W, typename Init, typename Store>
+__device__ __forceinline__ void consume(const Smem<D, W::SCHEDULED>& sm, const Problem& p,
+                                        const Tile& tile, int wg, int t, Init init, Store store,
+                                        const W& walk) {
   using T = FwdTiles<D>;
   constexpr int BQ = T::BQ, BK = T::BK, S = T::STAGES;
   const int warp = t >> 5, lane = t & 31, tq = lane & 3;
@@ -408,15 +440,32 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Problem& p, con
   // in sacc, m and l updated, the correction of O into corr
   auto softmax = [&](int st, int k0, float (&corr)[2]) {
     hp::fence_acc(sacc);
-    // every pair visible: no mask
-    const bool whole = !tile.segk && (!p.causal || k0 + BK - 1 <= r_lo) &&
-                       (!p.window || r_hi - k0 < p.window) && k0 + BK <= p.s && r_hi < p.s;
+    // every pair visible: no mask (a scheduled walk's producer decides:
+    // k0 is its stage word, broadcast by next_tile)
+    bool whole;
+    int code = 0;
+    if constexpr (W::SCHEDULED) {
+      code = (k0 >> (3 * wg)) & 7;
+      k0 = (k0 >> 6) * BK;
+      whole = code == SCHEDULED_WHOLE;
+    } else {
+      whole = !tile.segk && (!p.causal || k0 + BK - 1 <= r_lo) &&
+              (!p.window || r_hi - k0 < p.window) && k0 + BK <= p.s && r_hi < p.s;
+    }
     if (!whole) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         const int u = (i >> 1) & 1, c = 8 * (i >> 2) + 2 * tq + (i & 1);
-        bool ok = dstt::flash::visible(p, rows[u], k0 + c);
-        if (tile.segk) ok = ok && sm.ids[st * BK + c] == sr[u];
+        bool ok;
+        if constexpr (W::SCHEDULED) {
+          // both loads unconditional (shared memory; an id is unused without
+          // ids): a load under a condition costs a branch region a pair
+          const int col = sm.kinds[(2 * st + wg) * BK + c], id = sm.ids[st * BK + c];
+          ok = walk.keep(code == SCHEDULED_COLUMNS ? col : code, rows[u], k0 + c, sr[u], id);
+        } else {
+          ok = dstt::flash::visible(p, rows[u], k0 + c);
+          if (tile.segk) ok = ok && sm.ids[st * BK + c] == sr[u];
+        }
         if (!ok) sacc[i] = -INFINITY;
       }
     }
@@ -499,15 +548,16 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Problem& p, con
   store(o, m, l, row0, row1, tq);
 }
 
-// The CTA: barriers and the query tile's id range, then the roles. The
-// caller's kernel must end with this call (the roles never reconverge).
-template <int D, typename Init, typename Store>
+// The CTA: barriers and the query tile's id range, then the roles over
+// `walk`'s stages. The caller's kernel must end with this call (the roles
+// never reconverge).
+template <int D, typename Init, typename Store, class W = FlashWalk>
 __device__ __forceinline__ void fwd_cta(unsigned char* smem_raw, const CUtensorMap* qmap,
                                         const CUtensorMap* kmap, const CUtensorMap* vmap,
                                         const Problem& p, const Tile& tile, Init init,
-                                        Store store) {
+                                        Store store, const W& walk = W()) {
   using T = FwdTiles<D>;
-  const Smem<D> sm(smem_raw);
+  const Smem<D, W::SCHEDULED> sm(smem_raw);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int st = 0; st < T::STAGES; ++st) {
@@ -531,20 +581,22 @@ __device__ __forceinline__ void fwd_cta(unsigned char* smem_raw, const CUtensorM
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);  // uniform to the compiler
   if (wg == 2) {
     hp::setmaxnreg_dec<40>();
-    if (tid < 256 + 32) produce<D>(sm, qmap, kmap, vmap, p, tile, tid & 31);
+    if (tid < 256 + 32) produce<D>(sm, qmap, kmap, vmap, p, tile, tid & 31, walk);
   } else {
     hp::setmaxnreg_inc<232>();
-    consume<D>(sm, p, tile, wg, tid & 127, init, store);
+    consume<D>(sm, p, tile, wg, tid & 127, init, store, walk);
   }
 }
 
-// The three maps of a launch: q [b h, s, D], k and v [b h_kv, s, D].
+// The three maps of a launch: q [b h, s, D], k and v [b h_kv, s, D] (sk:
+// the keys' length where it differs from the queries' p.s).
 template <int D>
 __host__ inline int encode_maps(CUtensorMap* maps, const void* q, const void* k, const void* v,
-                                const Problem& p) {
+                                const Problem& p, int sk = -1) {
+  const int ks = sk < 0 ? p.s : sk;
   int e = dstt::encode_tma_3d(&maps[0], q, D, p.s, (uint64_t)p.b * p.h, FwdTiles<D>::BQ);
-  if (!e) e = dstt::encode_tma_3d(&maps[1], k, D, p.s, (uint64_t)p.b * p.h_kv, FwdTiles<D>::BK);
-  if (!e) e = dstt::encode_tma_3d(&maps[2], v, D, p.s, (uint64_t)p.b * p.h_kv, FwdTiles<D>::BK);
+  if (!e) e = dstt::encode_tma_3d(&maps[1], k, D, ks, (uint64_t)p.b * p.h_kv, FwdTiles<D>::BK);
+  if (!e) e = dstt::encode_tma_3d(&maps[2], v, D, ks, (uint64_t)p.b * p.h_kv, FwdTiles<D>::BK);
   return e;
 }
 

@@ -59,6 +59,14 @@
 // exits on values broadcast across the warp (flash_hopper.cuh's pitfalls:
 // otherwise ptxas serialises every wgmma of the kernel).
 //
+// Both bodies take the walk as a template policy, as the forward does:
+// FlashWalk (the flash kernels; flash_hopper.cuh) or a scheduled walk
+// (splash_bwd.cu), which brings its producer walk and its rule for a kept
+// pair. dq's scheduled walk packs each K/V stage's first key with a code
+// per consumer warpgroup (flash_hopper.cuh's SCHEDULED_COLUMNS); p.s is
+// then the query length. dk/dv's hands over a step kind per 64-key half
+// of the CTA's keys; p.s is then the key length.
+//
 // Tiles per head dim (BwdTiles; ops/attention/flash.py BWD_TILES mirrors
 // them): dq BQ 128 query rows a CTA and BK key rows a stage (64; 32 at d
 // 256, where Q, dO and stages of 64-key K and V would not fit in shared
@@ -134,16 +142,18 @@ __device__ __forceinline__ float dot_row(const bf16* a, const bf16* b) {
 // Dynamic shared memory: Q and dO [D/64 blocks][BQ rows][128 bytes] each;
 // each stage K then V, [D/64][BK][128] each; then the mbarriers (full and
 // empty per stage; Q), each stage's first key position, each stage's key
-// ids, the query tile's id range.
-template <int D>
+// ids, the query tile's id range; KINDS (a scheduled walk): each stage's
+// step kind per (consumer warpgroup, key column), a byte each.
+template <int D, bool KINDS = false>
 struct DqSmem {
   using T = BwdTiles<D>;
   static constexpr int Q_BYTES = T::BQ * D * 2;
   static constexpr int KV_BYTES = T::BK * D * 2;
   static constexpr int STAGE = 2 * KV_BYTES;
   static constexpr int TILES = 2 * Q_BYTES + T::STAGES * STAGE;
-  static constexpr int BYTES =
-      1024 + TILES + (2 * T::STAGES + 1) * 8 + T::STAGES * 4 * (1 + T::BK) + 8;
+  static constexpr int BYTES = 1024 + TILES + (2 * T::STAGES + 1) * 8 +
+                               T::STAGES * 4 * (1 + T::BK) + 8 +
+                               (KINDS ? T::STAGES * 2 * T::BK : 0);
 
   unsigned char* q;
   unsigned char* dout;
@@ -154,6 +164,7 @@ struct DqSmem {
   int* k0s;
   int* ids;
   int* qrange;
+  unsigned char* kinds;  // KINDS: [STAGES][2][BK]
 
   __device__ explicit DqSmem(unsigned char* raw) {
     q = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
@@ -166,6 +177,7 @@ struct DqSmem {
     k0s = reinterpret_cast<int*>(qbar + 1);
     ids = k0s + T::STAGES;
     qrange = ids + T::STAGES * T::BK;
+    kinds = reinterpret_cast<unsigned char*>(qrange + 2);
   }
   __device__ unsigned char* k(int st) const { return ring + st * STAGE; }
   __device__ unsigned char* v(int st) const { return k(st) + KV_BYTES; }
@@ -173,9 +185,10 @@ struct DqSmem {
 
 // maps: q, dO [b h, s, D] in boxes of BQ rows; k, v [b h_kv, s, D] in
 // boxes of BK rows
-template <int D>
-__device__ __forceinline__ void dq_produce(const DqSmem<D>& sm, const CUtensorMap* const* maps,
-                                           const Problem& p, const Tile& tile, int lane) {
+template <int D, class W>
+__device__ __forceinline__ void dq_produce(const DqSmem<D, W::SCHEDULED>& sm,
+                                           const CUtensorMap* const* maps, const Problem& p,
+                                           const Tile& tile, int lane, const W& walk) {
   using T = BwdTiles<D>;
   constexpr int BK = T::BK, S = T::STAGES, IDS = BK / 32;
   if (lane == 0) {
@@ -187,40 +200,44 @@ __device__ __forceinline__ void dq_produce(const DqSmem<D>& sm, const CUtensorMa
       hp::tma_load_3d(sm.dout + c * T::BQ * 128, maps[1], sm.qbar, 64 * c, tile.q0, tile.bh);
     }
   }
-  const int qmin = sm.qrange[0], qmax = sm.qrange[1];
-  int lo, hi;
-  dstt::flash::key_tiles<T::BQ, BK>(p, tile.q0, lo, hi);
   int it = 0;
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    int ids[IDS];
-    if (tile.segk) {
-      bool mine = false;
+  if constexpr (W::SCHEDULED) {
+    it = walk.template produce<D>(sm, maps, p, tile, lane);
+  } else {
+    const int qmin = sm.qrange[0], qmax = sm.qrange[1];
+    int lo, hi;
+    dstt::flash::key_tiles<T::BQ, BK>(p, tile.q0, lo, hi);
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      int ids[IDS];
+      if (tile.segk) {
+        bool mine = false;
 #pragma unroll
-      for (int j = 0; j < IDS; ++j) {
-        const int kpos = k0 + lane * IDS + j;
-        ids[j] = kpos < p.s ? tile.segk[kpos] : 0;
-        mine |= kpos < p.s && ids[j] >= qmin && ids[j] <= qmax;
+        for (int j = 0; j < IDS; ++j) {
+          const int kpos = k0 + lane * IDS + j;
+          ids[j] = kpos < p.s ? tile.segk[kpos] : 0;
+          mine |= kpos < p.s && ids[j] >= qmin && ids[j] <= qmax;
+        }
+        if (!__any_sync(0xffffffffu, mine)) continue;
       }
-      if (!__any_sync(0xffffffffu, mine)) continue;
-    }
-    const int st = it % S;
-    hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
-    if (tile.segk) {
+      const int st = it % S;
+      hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
+      if (tile.segk) {
 #pragma unroll
-      for (int j = 0; j < IDS; ++j) sm.ids[st * BK + lane * IDS + j] = ids[j];
-    }
-    if (lane == 0) {
-      sm.k0s[st] = k0;
-      hp::mbar_arrive_expect_tx(&sm.full[st], DqSmem<D>::STAGE);
-#pragma unroll
-      for (int c = 0; c < D / 64; ++c) {
-        hp::tma_load_3d(sm.k(st) + c * BK * 128, maps[2], &sm.full[st], 64 * c, k0, tile.bkv);
-        hp::tma_load_3d(sm.v(st) + c * BK * 128, maps[3], &sm.full[st], 64 * c, k0, tile.bkv);
+        for (int j = 0; j < IDS; ++j) sm.ids[st * BK + lane * IDS + j] = ids[j];
       }
-    } else {
-      hp::mbar_arrive(&sm.full[st]);  // after this lane's ids
+      if (lane == 0) {
+        sm.k0s[st] = k0;
+        hp::mbar_arrive_expect_tx(&sm.full[st], DqSmem<D>::STAGE);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          hp::tma_load_3d(sm.k(st) + c * BK * 128, maps[2], &sm.full[st], 64 * c, k0, tile.bkv);
+          hp::tma_load_3d(sm.v(st) + c * BK * 128, maps[3], &sm.full[st], 64 * c, k0, tile.bkv);
+        }
+      } else {
+        hp::mbar_arrive(&sm.full[st]);  // after this lane's ids
+      }
+      ++it;
     }
-    ++it;
   }
   const int st = it % S;
   hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
@@ -234,11 +251,11 @@ __device__ __forceinline__ void dq_produce(const DqSmem<D>& sm, const CUtensorMa
 // store(acc, row0, row1, tq) finishes it (both derive their row offsets
 // from blockIdx: a value held across the walk costs a register the
 // consumers do not have).
-template <int D, typename Init, typename Store>
-__device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Problem& p,
+template <int D, class W, typename Init, typename Store>
+__device__ __forceinline__ void dq_consume(const DqSmem<D, W::SCHEDULED>& sm, const Problem& p,
                                            const Tile& tile, const bf16* ob, const bf16* dob,
                                            const float* lseb, int wg, int t, Init init,
-                                           Store store) {
+                                           Store store, const W& walk) {
   using T = BwdTiles<D>;
   constexpr int BQ = T::BQ, BK = T::BK, S = T::STAGES;
   const int warp = t >> 5, lane = t & 31, tq = lane & 3;
@@ -301,16 +318,32 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Problem& p
   auto grad = [&](int st, int k0) {
     hp::fence_acc(sacc);
     hp::fence_acc(pacc);
-    const bool whole = !tile.segk && (!p.causal || k0 + BK - 1 <= r_lo) &&
-                       (!p.window || r_hi - k0 < p.window) && k0 + BK <= p.s && r_hi < p.s;
+    bool whole;  // a scheduled walk's producer decides (k0: its stage word)
+    int code = 0;
+    if constexpr (W::SCHEDULED) {
+      code = (k0 >> (3 * wg)) & 7;
+      k0 = (k0 >> 6) * BK;
+      whole = code == SCHEDULED_WHOLE;
+    } else {
+      whole = !tile.segk && (!p.causal || k0 + BK - 1 <= r_lo) &&
+              (!p.window || r_hi - k0 < p.window) && k0 + BK <= p.s && r_hi < p.s;
+    }
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int u = (i >> 1) & 1;
       float pe = ex2(fmaf(sacc[i], sl2, -lse2[u]));
       if (!whole) {
         const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
-        bool ok = dstt::flash::visible(p, rows[u], k0 + c);
-        if (tile.segk) ok = ok && sm.ids[st * BK + c] == sr[u];
+        bool ok;
+        if constexpr (W::SCHEDULED) {
+          // both loads unconditional (shared memory; an id is unused without
+          // ids): a load under a condition costs a branch region a pair
+          const int col = sm.kinds[(2 * st + wg) * BK + c], id = sm.ids[st * BK + c];
+          ok = walk.keep(code == SCHEDULED_COLUMNS ? col : code, rows[u], k0 + c, sr[u], id);
+        } else {
+          ok = dstt::flash::visible(p, rows[u], k0 + c);
+          if (tile.segk) ok = ok && sm.ids[st * BK + c] == sr[u];
+        }
         pe = ok ? pe : 0.f;
       }
       pacc[i] = pe * (pacc[i] - delta[u]);
@@ -387,15 +420,16 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Problem& p
   store(dq, row0, row1, tq);
 }
 
-// The dq CTA: barriers and the query tile's id range, then the roles. The
-// caller's kernel must end with this call (the roles never reconverge).
-template <int D, typename Init, typename Store>
+// The dq CTA: barriers and the query tile's id range, then the roles over
+// `walk`'s stages. The caller's kernel must end with this call (the roles
+// never reconverge).
+template <int D, typename Init, typename Store, class W = FlashWalk>
 __device__ __forceinline__ void dq_cta(unsigned char* smem_raw, const CUtensorMap* const* maps,
                                        const Problem& p, const Tile& tile, const bf16* ob,
                                        const bf16* dob, const float* lseb, Init init,
-                                       Store store) {
+                                       Store store, const W& walk = W()) {
   using T = BwdTiles<D>;
-  const DqSmem<D> sm(smem_raw);
+  const DqSmem<D, W::SCHEDULED> sm(smem_raw);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int st = 0; st < T::STAGES; ++st) {
@@ -417,10 +451,10 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem_raw, const CUtensorMa
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);  // uniform to the compiler
   if (wg == 2) {
     hp::setmaxnreg_dec<PRODUCER_REGS>();
-    if (tid < 256 + 32) dq_produce<D>(sm, maps, p, tile, tid & 31);
+    if (tid < 256 + 32) dq_produce<D>(sm, maps, p, tile, tid & 31, walk);
   } else {
     hp::setmaxnreg_inc<CONSUMER_REGS>();
-    dq_consume<D>(sm, p, tile, ob, dob, lseb, wg, tid & 127, init, store);
+    dq_consume<D>(sm, p, tile, ob, dob, lseb, wg, tid & 127, init, store, walk);
   }
 }
 
@@ -457,7 +491,8 @@ struct DkvSmem {
   float* delta;
   float* lse2;
   int* krange;
-  int* kinds;  // KINDS: each stage's step kind per 64-key half of the CTA's keys
+  int* kinds;    // KINDS: each stage's step kind per 64-key half of the CTA's keys
+  int* cursors;  // KINDS: the scheduled walk's cursors (their bytes added at launch)
 
   __device__ explicit DkvSmem(unsigned char* raw) {
     k = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
@@ -476,6 +511,7 @@ struct DkvSmem {
     lse2 = delta + S * T::KV_BQ;
     krange = reinterpret_cast<int*>(lse2 + S * T::KV_BQ);
     kinds = krange + 2;
+    cursors = kinds + 2 * S;
   }
   __device__ unsigned char* q(int st) const { return ring + st * STAGE; }
   __device__ unsigned char* dout(int st) const { return q(st) + Q_BYTES; }
@@ -489,10 +525,9 @@ struct DkvSmem {
 // its own producer walk (produce: the stages it issued), the step kind of
 // each stage per 64-key half of the CTA's keys, the rule for a kept pair
 // of a step of that kind (keep, and whole: a stage that needs no
-// predicate), and its query length sq (queries and keys may differ).
-struct FlashWalk {
-  static constexpr bool SCHEDULED = false;
-};
+// predicate), and its query length sq (queries and keys may differ). Its
+// producer keeps its cursors in shared memory past the kinds (`cursors`:
+// the launch adds their bytes to BYTES).
 
 // Where a dk/dv CTA sits: its (batch, kv head) row, batch and kv head, its
 // first key row, and the id planes of its batch row (queries, keys).
@@ -816,18 +851,20 @@ __device__ __forceinline__ void dkv_cta(unsigned char* smem_raw, const CUtensorM
   }
 }
 
-// The four maps of a dq launch (q, dO in boxes of BQ rows; k, v of BK) or
-// the five of a dk/dv launch (k, v in boxes of KV_BK rows; q, dO, o of
-// KV_BQ).
+// The four maps of a dq launch (q, dO in boxes of BQ rows; k, v of BK;
+// sk: the keys' length where it differs from the queries' p.s) or the five
+// of a dk/dv launch (k, v in boxes of KV_BK rows; q, dO, o of KV_BQ).
 template <int D>
 __host__ inline int encode_dq_maps(CUtensorMap* maps, const void* q, const void* dout,
-                                   const void* k, const void* v, const Problem& p) {
+                                   const void* k, const void* v, const Problem& p,
+                                   int sk = -1) {
   using T = BwdTiles<D>;
   const uint64_t bh = (uint64_t)p.b * p.h, bkv = (uint64_t)p.b * p.h_kv;
+  const int ks = sk < 0 ? p.s : sk;
   int e = dstt::encode_tma_3d(&maps[0], q, D, p.s, bh, T::BQ);
   if (!e) e = dstt::encode_tma_3d(&maps[1], dout, D, p.s, bh, T::BQ);
-  if (!e) e = dstt::encode_tma_3d(&maps[2], k, D, p.s, bkv, T::BK);
-  if (!e) e = dstt::encode_tma_3d(&maps[3], v, D, p.s, bkv, T::BK);
+  if (!e) e = dstt::encode_tma_3d(&maps[2], k, D, ks, bkv, T::BK);
+  if (!e) e = dstt::encode_tma_3d(&maps[3], v, D, ks, bkv, T::BK);
   return e;
 }
 

@@ -14,9 +14,9 @@
 // pair (q k^T, do v^T, ds k), dk/dv 4 (q k^T, do v^T, p^T do, ds^T q); the
 // bytes are a few reads of q, k, v, o, do.
 //
-// Design (the flash and splash kernels' grids and per-tile bodies,
-// flash_common.cuh's dq_tile and dkv_tile, with the layout's rule for a kept
-// pair from sparse_common.cuh; CTAs of 4 warps, each warp owning 16 rows,
+// Design (flash_common.cuh's mma.sync grids and per-tile bodies, dq_tile
+// and dkv_tile, with the layout's rule for a kept pair from
+// sparse_common.cuh; CTAs of 4 warps, each warp owning 16 rows,
 // every accumulator in registers, P and dS turned into A fragments without
 // leaving registers):
 //  * dq: one CTA per (64-query tile, b * h); folds its layout rows into a
@@ -42,8 +42,7 @@ constexpr size_t bwd_tile_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// At d <= 128 the register cap of 3 CTAs per SM (168 a thread), as the
-// splash dq kernel.
+// At d <= 128 the register cap of 3 CTAs per SM (168 a thread).
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, D <= 128 ? 3 : 1) sparse_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,

@@ -12,12 +12,12 @@
 // few hundred keys per query the arithmetic intensity is far above the
 // card's ~295 FLOP/byte ridge.
 //
-// Design: the splash forward's grid and per-tile body
-// (flash_common.cuh's fwd_tile: one CTA of 4 warps per (64-query tile, b *
-// h), each warp owning 16 query rows; S = Q K^T with mma.m16n8k16 into
-// registers, the running max and sum in fp32, P rounded to bf16 straight from
-// the S accumulators, O += P V in fp32 registers) with the layout's rule for
-// a kept pair (sparse_common.cuh). The Pallas body walks every key block
+// Design: flash_common.cuh's mma.sync grid and per-tile body (fwd_tile:
+// one CTA of 4 warps per (64-query tile, b * h), each warp owning 16 query
+// rows; S = Q K^T with mma.m16n8k16 into registers, the running max and sum
+// in fp32, P rounded to bf16 straight from the S accumulators, O += P V in
+// fp32 registers) with the layout's rule for a kept pair
+// (sparse_common.cuh). The Pallas body walks every key block
 // under a cond (and keeps K and V whole in VMEM); here the CTA first folds
 // its layout rows into one mask per 64-key tile, then walks the key tiles
 // and skips, before any load, those the layout drops and, when causal, those
@@ -37,8 +37,7 @@ constexpr size_t fwd_tile_bytes() {
   return sizeof(bf16) * 3 * TILE * (D + PAD_H);
 }
 
-// At d <= 128 the register cap of 3 CTAs per SM (168 a thread), as the
-// splash forward.
+// At d <= 128 the register cap of 3 CTAs per SM (168 a thread).
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, D <= 128 ? 3 : 1) sparse_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,

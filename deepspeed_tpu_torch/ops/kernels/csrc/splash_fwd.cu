@@ -1,4 +1,5 @@
-// Splash (scheduled block-sparse) attention forward for Hopper (sm_90a).
+// Splash (scheduled block-sparse) attention forward for Hopper (sm_90a):
+// wgmma fed by TMA.
 //
 // Replaces: deepspeed_tpu/ops/sparse_attention/splash_pallas.py::
 // _splash_fwd_kernel (the pallas_call in _splash_fwd_call), for both of its
@@ -15,115 +16,132 @@
 // intensity is far above the card's ~295 FLOP/byte ridge whenever a query
 // keeps more than a few hundred keys.
 //
-// Design: flash_common.cuh's grid and per-tile body (fwd_tile, which the
-// sparse forward runs too: one CTA of 4 warps per (64-query tile, b * h), each warp owning
-// 16 query rows; S = Q K^T with mma.m16n8k16 into registers, the running max
-// and sum in fp32, P rounded to bf16 straight from the S accumulators into A
-// fragments, O += P V in fp32 registers) with splash's rule for a kept pair,
-// and the key range taken from the schedule instead of the causal bound: the CTA
-// reads its schedule row (q0 / bq, head row 0 or h), skips kind-0 steps
-// without loading anything, and walks each listed block as 64-key tiles. The
-// tile's loads are synchronous; several CTAs per SM hide them.
+// Design: the flash forward's CTA body (flash_hopper.cuh's fwd_cta, which
+// flash_fwd.cu and the ring's flash_chunk.cu run with FlashWalk) on a
+// scheduled walk, SplashFwdWalk (splash_common.cuh's RowWalk): a CTA per
+// (128-query tile, b * h), a producer warp issuing TMA loads of the key
+// tiles the CTA's two schedule rows list (merged in ascending key order)
+// into a two-stage mbarrier ring, each K stage's word carrying a code per
+// consumer warpgroup (one kind for the tile, per-column kinds, or whole);
+// two consumer warpgroups of 64 query rows each, S = Q K^T and O += P V on
+// wgmma, the online softmax on the accumulators, the kept-pair rule only
+// where a tile is not whole. A warpgroup whose columns are all SKIP
+// for a tile masks every score and adds exactly 0, taking its turn as
+// usual. The query map covers sq rows and the key maps sk rows (3-D maps:
+// a 128-row box over a chunk of t < 128 rows reads zeros past them; rows
+// past sq are never stored). A row that keeps nothing (l = 0) is stored as
+// O = 0 and lse = -1e30. Over a LocalMask schedule in 512-blocks the walk
+// visits flash's key tiles in flash's order with the same arithmetic: out
+// and lse equal the flash forward's with the same window.
 #include "splash_common.cuh"
 
 namespace {
 
-using namespace dstt::flash;
-using dstt::splash::NEG_INF;
-using SplashProblem = dstt::splash::Problem;
-using dstt::splash::Schedule;
-using dstt::splash::PARTIAL;
-using dstt::splash::SKIP;
+namespace fh = dstt::flash_hopper;
+namespace hp = dstt::hopper;
+namespace sp = dstt::splash;
+using dstt::flash::Problem;
+using bf16 = __nv_bfloat16;
 
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(bf16) * 3 * TILE * (D + PAD_H) + sizeof(int) * 2 * TILE;
-}
-
-// At d <= 128 the register cap of 3 CTAs per SM (168 a thread) keeps three
-// tiles' loads in flight on each SM, as flash_fwd.cu's 166 do by themselves.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, D <= 128 ? 3 : 1) splash_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, float* __restrict__ lse, SplashProblem p, Schedule sc) {
-  constexpr int LD = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + TILE * LD;
-  bf16* Vs = Ks + TILE * LD;
-  int* segq = reinterpret_cast<int*>(Vs + TILE * LD);
-  int* segk = segq + TILE;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  // later query tiles first: under a causal schedule they list the most blocks
-  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * TILE;
-  const int bh = blockIdx.x;
-  const int bi = bh / p.h, hi = bh % p.h;
-  const int kvh = hi / (p.h / p.h_kv);
-  const bf16* qb = q + (int64_t)bh * p.sq * D;
-  const bf16* kb = k + ((int64_t)bi * p.h_kv + kvh) * p.sk * D;
-  const bf16* vb = v + ((int64_t)bi * p.h_kv + kvh) * p.sk * D;
-  const int* seg = p.seg ? p.seg + (int64_t)bi * p.sq : nullptr;
-
-  // this CTA's schedule row
-  const int hs = sc.heads == 1 ? 0 : hi;
-  const int64_t row = ((int64_t)hs * sc.rows + q0 / sc.bq) * sc.width;
-  const int* idx = sc.index + row;
-  const int* knd = sc.kind + row;
-
-  load_tile<TILE, D>(Qs, qb, q0, p.sq);
-  if (seg && tid < TILE) segq[tid] = q0 + tid < p.sq ? seg[q0 + tid] : 0;
-  __syncthreads();
-
-  // this lane's two rows (fragment rows g and g + 8 of the warp's 16)
-  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
-  const int row0 = q0 + lr0, row1 = q0 + lr1;
-  const int sr0 = seg ? segq[lr0] : 0, sr1 = seg ? segq[lr1] : 0;
-
-  float o[D / 8][4];
+struct SplashFwdWalk : sp::RowWalk {
+  // The producer's stages (flash_hopper.cuh's produce calls this after the
+  // Q load): each tile's word, ids and (per column) kinds, and K by TMA;
+  // its V once the next tile is walked.
+  template <int D>
+  __device__ __forceinline__ int produce(const fh::Smem<D, true>& sm, const CUtensorMap* kmap,
+                                         const CUtensorMap* vmap, const Problem& p,
+                                         const fh::Tile& tile, int lane) const {
+    using T = fh::FwdTiles<D>;
+    constexpr int BK = T::BK, S = T::STAGES, IDS = BK / 32;
+    return walk<BK>(
+        tile.bh % p.h, tile.q0, tile.segk, sm.qrange[0], sm.qrange[1], lane,
+        [&](int it, int word, const auto& kc, const auto& ids) {
+          const int st = it % S;
+          hp::mbar_wait(&sm.empty_k[st], ((it / S) & 1) ^ 1);
+          if (seg) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  const int q_last = min(q0 + TILE, p.sq) - 1;
-
-  for (int step = 0; step < sc.width; ++step) {
-    const int kind = knd[step];
-    if (kind == SKIP) continue;  // the same for every thread of the CTA
-    const int k_lo = idx[step] * sc.bk;
-    const int k_hi = min(k_lo + sc.bk, p.sk);
-    for (int k0 = k_lo; k0 < k_hi; k0 += TILE) {
-      if (kind == PARTIAL && dstt::splash::tile_dropped(p, p.base + q0, p.base + q_last, k0,
-                                                        min(k0 + TILE, k_hi) - 1)) {
-        continue;  // a partial block's tile that keeps no pair
-      }
-      __syncthreads();  // the previous tile's readers of Ks, Vs and segk are done
-      if (seg && tid < TILE) segk[tid] = k0 + tid < p.sk ? seg[k0 + tid] : 0;
-      load_tile<TILE, D>(Ks, kb, k0, p.sk);
-      load_tile<TILE, D>(Vs, vb, k0, p.sk);
-      __syncthreads();
-
-      fwd_tile<D>(o, m, l, Qs, Ks, Vs, p.scale, NEG_INF, [&](int c, bool upper) {
-        const int r = upper ? row0 : row1;
-        return r < p.sq && k0 + c < k_hi &&
-               dstt::splash::kept(p, kind, p.base + r, k0 + c, upper ? sr0 : sr1,
-                                  seg ? segk[c] : 0);
-      }, warp, lane);
-    }
+            for (int j = 0; j < IDS; ++j) sm.ids[st * BK + lane * IDS + j] = ids[j];
+          }
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            if (((word >> (3 * w)) & 7) == fh::SCHEDULED_COLUMNS)
+              sp::store_kinds<IDS>(sm.kinds + (2 * st + w) * BK + lane * IDS, kc[w]);
+          }
+          if (lane == 0) {
+            sm.k0s[st] = word;
+            hp::mbar_arrive_expect_tx(&sm.full_k[st], fh::Smem<D>::KV_BYTES);
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c)
+              hp::tma_load_3d(sm.k(st) + c * BK * 128, kmap, &sm.full_k[st], 64 * c,
+                              (word >> 6) * BK, tile.bkv);
+          } else {
+            hp::mbar_arrive(&sm.full_k[st]);  // after this lane's ids and kinds
+          }
+        },
+        [&](int it, int k0) {
+          const int st = it % S;
+          hp::mbar_wait(&sm.empty_v[st], ((it / S) & 1) ^ 1);
+          if (lane == 0) {
+            hp::mbar_arrive_expect_tx(&sm.full_v[st], fh::Smem<D>::KV_BYTES);
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c)
+              hp::tma_load_3d(sm.v(st) + c * BK * 128, vmap, &sm.full_v[st], 64 * c, k0,
+                              tile.bkv);
+          }
+        });
   }
-  // a row that kept nothing: O = 0, lse = -1e30 + log(1e-30)
-  fwd_store<D>(out + (int64_t)bh * p.sq * D, lse + (int64_t)bh * p.sq, o, m, l, row0, row1, p.sq,
-               lane);
+};
+
+template <int D>
+__global__ void __launch_bounds__(fh::THREADS, 1)
+    splash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
+                      float* __restrict__ lse, Problem p, SplashFwdWalk walk) {
+  extern __shared__ unsigned char smem_raw[];
+  const fh::Tile tile = sp::make_tile<fh::FwdTiles<D>::BQ>(p, walk.sk);
+  bf16* ob = out + (int64_t)tile.bh * p.s * D;
+  float* lseb = lse + (int64_t)tile.bh * p.s;
+  fh::fwd_cta<D>(
+      smem_raw, &qmap, &kmap, &vmap, p, tile,
+      [&](auto& o, auto& m, auto& l, int, int, int) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        m[0] = m[1] = -INFINITY;
+        l[0] = l[1] = 0.f;
+      },
+      // flash_hopper.cuh's store_out, with a row that kept nothing at lse
+      // -1e30 (its O is 0 / 1e-30 = 0)
+      [&](const auto& o, const auto& m, const auto& l, int row0, int row1, int tq) {
+        const float ls[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+        const int rows[2] = {row0, row1};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (rows[u] >= p.s) continue;
+          bf16* orow = ob + (int64_t)rows[u] * D + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+                __floats2bfloat162_rn(o[4 * j + 2 * u] / ls[u], o[4 * j + 2 * u + 1] / ls[u]);
+          }
+          if (tq == 0) lseb[rows[u]] = l[u] > 0.f ? m[u] + logf(ls[u]) : sp::NEG_INF;
+        }
+      },
+      walk);
 }
 
 template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
-           const SplashProblem& p, const Schedule& sc, cudaStream_t stream) {
-  const size_t bytes = fwd_smem_bytes<D>();
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, const Problem& p,
+           const SplashFwdWalk& w, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  if (int e = fh::encode_maps<D>(maps, q, k, v, p, w.sk)) return e;
+  constexpr int bytes = fh::Smem<D, true>::BYTES;
   static size_t have = 0;
-  if (int e = set_max_smem(splash_fwd_kernel<D>, bytes, have)) return e;
-  const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.sq + TILE - 1) / TILE));
-  splash_fwd_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, out, lse, p, sc);
+  if (int e = dstt::flash::set_max_smem(splash_fwd_kernel<D>, bytes, have)) return e;
+  constexpr int BQ = fh::FwdTiles<D>::BQ;
+  const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.s + BQ - 1) / BQ));
+  splash_fwd_kernel<D><<<grid, fh::THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), lse, p, w);
   return (int)cudaGetLastError();
 }
 
@@ -133,26 +151,46 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
 // fp32; seg: [b, s] int32 (square attention) or null; kv_index, step_kind:
 // [sched_heads, nq, width] int32 with sched_heads 1 or h; all contiguous,
 // the bf16 tensors 16-byte aligned. d in {64, 128, 256}; h % h_kv == 0;
-// block_q a multiple of 64 or nq == 1. Returns cudaGetLastError().
+// scale > 0; block_q a multiple of 64 or nq == 1; block_kv any size.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for what the kernel
+// does not take).
 extern "C" int dstt_splash_fwd(const void* q, const void* k, const void* v, const void* seg,
                                const void* kv_index, const void* step_kind, void* out, void* lse,
                                int b, int h, int h_kv, int sq, int sk, int d, float scale,
                                int sched_heads, int nq, int width, int block_q, int block_kv,
                                int causal, int window, int seg_all, int base, void* stream) {
-  if (!dstt::splash::blocks_ok(block_q, nq)) return (int)cudaErrorInvalidValue;
-  SplashProblem p{b, h, h_kv, sq, sk, scale, causal, window,
-                  static_cast<const int*>(seg), seg_all, base};
-  Schedule sc{static_cast<const int*>(kv_index), static_cast<const int*>(step_kind),
-              sched_heads, nq, width, block_q, block_kv};
-  auto Q = static_cast<const bf16*>(q), K = static_cast<const bf16*>(k),
-       V = static_cast<const bf16*>(v);
-  auto O = static_cast<bf16*>(out);
-  auto L = static_cast<float*>(lse);
+  if (!sp::blocks_ok(block_q, nq) || !(scale > 0.f) || h % h_kv)
+    return (int)cudaErrorInvalidValue;
+  Problem p;
+  p.b = b;
+  p.h = h;
+  p.h_kv = h_kv;
+  p.s = sq;
+  p.scale = scale;
+  p.causal = causal;
+  p.window = window;
+  p.seg = static_cast<const int*>(seg);
+  SplashFwdWalk w;
+  w.index = static_cast<const int*>(kv_index);
+  w.kind = static_cast<const int*>(step_kind);
+  w.heads = sched_heads;
+  w.nq = nq;
+  w.width = width;
+  w.bq = block_q;
+  w.bk = block_kv;
+  w.sq = sq;
+  w.sk = sk;
+  w.base = base;
+  w.causal = causal;
+  w.window = window;
+  w.seg = seg != nullptr;
+  w.seg_all = seg_all;
+  float* L = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch<64>(Q, K, V, O, L, p, sc, st);
-    case 128: return launch<128>(Q, K, V, O, L, p, sc, st);
-    case 256: return launch<256>(Q, K, V, O, L, p, sc, st);
+    case 64: return launch<64>(q, k, v, out, L, p, w, st);
+    case 128: return launch<128>(q, k, v, out, L, p, w, st);
+    case 256: return launch<256>(q, k, v, out, L, p, w, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,16 +5,18 @@ Counterpart of ``deepspeed_tpu/ops/sparse_attention/splash_pallas.py``.
 A ``BlockSchedule`` (schedule.py) lists, per query block, the kv blocks to
 visit with a kind per step (0 skip, 1 partial, 2 full); the kernels visit
 those blocks and no others. Three kernels, in
-``ops/kernels/csrc/splash_fwd.cu`` and ``splash_bwd.cu``:
+``ops/kernels/csrc/splash_fwd.cu`` and ``splash_bwd.cu``, each the flash
+kernel's CTA body (wgmma fed by TMA) on a scheduled walk:
 
   * ``splash_fwd``     replaces ``_splash_fwd_kernel``: out and an fp32 LSE
     [b, h, sq];
   * ``splash_bwd_dq``  replaces ``_splash_bwd_dq_kernel``: dq over the row
-    schedule;
+    schedule (``row_walk`` is the plain model of both kernels' walk: the
+    key tiles a CTA of 128 query rows visits, with a kind per key column
+    and consumer warpgroup);
   * ``splash_bwd_dkv`` replaces ``_splash_bwd_dkv_kernel``: dk, dv over the
-    transposed schedule, summed over the GQA group inside the kernel; the
-    flash dk/dv kernel's body on a scheduled walk (``dkv_walk`` is its
-    plain model).
+    transposed schedule, summed over the GQA group inside the kernel
+    (``dkv_walk`` is its walk's plain model).
 
 A kept pair: every pair of a FULL step; on a PARTIAL step the pairs that
 pass the analytic predicate (causal ``q >= k``, window ``q - k < w``, and
@@ -29,7 +31,8 @@ over the schedule's token mask, taken in chunks of query rows so that no
 [h, s, s] tensor is ever formed. A CPU tensor takes the plain versions; a
 CUDA tensor launches the kernels or raises for what they do not take (a
 dtype other than bf16, a head_dim outside 64/128/256, a schedule block that
-is neither a multiple of 64 nor its axis's only block). Nothing falls back.
+is neither a multiple of 64 nor its axis's only block; in the backward the
+key block too). Nothing falls back.
 
 ``splash_attention`` is the differentiable entry (``SplashAttention``, an
 autograd Function saving q, k, v, out and lse); ``splash_prefill_attention``
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention.core import NEG_INF, _repeat_kv
-from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES
+from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES, FWD_TILES
 from deepspeed_tpu_torch.ops.kernels import KERNELS, stream_ptr
 from deepspeed_tpu_torch.ops.sparse_attention.mask import FULL, PARTIAL
 from deepspeed_tpu_torch.ops.sparse_attention.schedule import (
@@ -213,13 +216,96 @@ def splash_bwd_reference(q, k, v, out, do, lse, schedule: BlockSchedule, segment
 
 
 # ---------------------------------------------------------------------------
-# the dk/dv kernel's walk
+# the kernels' walks
 # ---------------------------------------------------------------------------
+def row_walk(schedule: BlockSchedule, d: int, head: int, q0: int, *, kernel: str = "fwd",
+             seg=None, seg_all: bool = False, base: int = 0):
+    """The key tiles the forward (``kernel="fwd"``) or dq (``"dq"``)
+    kernel's CTA of query rows ``q0 .. q0 + 127`` of query head ``head``
+    walks, as ``splash_common.cuh``'s ``RowWalk.walk`` does: a list of
+    (k0, (kinds of warpgroup 0, of warpgroup 1), (whole 0, whole 1)).
+
+    Warpgroup w owns rows q0 + 64 w .. + 63 and reads the schedule row of
+    their query block. The two rows' blocks are merged in ascending key
+    order as aligned tiles of the kernel's key tile (``FWD_TILES[d]["bk"]``
+    or ``BWD_TILES[d]["bk"]`` keys): the next tile starts at the least key
+    still listed, rounded down. A column's kind is its block's kind in the
+    warpgroup's row (0 where the row lists no block, or where a PARTIAL
+    step's causal bound or band leaves the column dead for every row of
+    the warpgroup). A tile with no live column, or (runtime ids, ``seg``
+    one batch row's ids [sq] with ``seg_all``) none of whose ids falls in
+    the range of the query tile's ids, is not walked. ``whole``: every pair
+    of the warpgroup's rows and the tile's columns is kept without a
+    predicate. Query row i sits at position ``base + i``. (Where one block
+    holds all of a tile's keys the kernel hands the warpgroup one code, the
+    block's kind, for every column: the columns listed 0 here as dead for
+    every row are then dropped by its predicate instead.)"""
+    tile = (FWD_TILES if kernel == "fwd" else BWD_TILES)[d]["bk"]
+    sq, sk = schedule.seq_q, schedule.seq_kv
+    bq, bk, nq = schedule.block_q, schedule.block_kv, schedule.nq
+    causal, window = schedule.causal, schedule.window
+    hs = 0 if schedule.num_heads == 1 else head
+    rows = []
+    for w in (0, 1):
+        first = q0 + 64 * w
+        entries = []
+        if first < sq:
+            r = 0 if nq == 1 else first // bq
+            for idx, kd in zip(schedule.kv_index[hs, r], schedule.step_kind[hs, r]):
+                if kd == 0:
+                    break  # padding: compacted left
+                entries.append((int(idx) * bk, min(int(idx) * bk + bk, sk), int(kd)))
+        rows.append(entries)
+    if seg is not None:
+        qids = np.asarray(seg)[q0:min(q0 + 128, sq)]
+        qmin, qmax = int(qids.min()), int(qids.max())
+    pos, nxt, tiles = [0, 0], 0, []
+    while True:
+        starts = [max(rows[w][pos[w]][0], nxt) for w in (0, 1) if pos[w] < len(rows[w])]
+        if not starts:
+            return tiles
+        k0 = min(starts) // tile * tile
+        k_end = k0 + tile
+        kinds = []
+        for w in (0, 1):
+            r_lo, r_hi = base + q0 + 64 * w, base + min(q0 + 64 * w + 63, sq - 1)
+            cols = [0] * tile
+            for ks, ke, kd in rows[w][pos[w]:]:
+                if ks >= k_end:
+                    break
+                for key in range(max(ks, k0), min(ke, k_end)):
+                    if not (kd == PARTIAL and ((causal and key > r_hi)
+                                               or (window and r_lo - key >= window))):
+                        cols[key - k0] = kd
+            kinds.append(tuple(cols))
+        nxt = k_end
+        for w in (0, 1):
+            while pos[w] < len(rows[w]) and rows[w][pos[w]][1] <= nxt:
+                pos[w] += 1
+        if not any(any(cols) for cols in kinds):
+            continue
+        if seg is not None and seg_all:
+            kids = np.asarray(seg)[k0:min(k_end, sk)]
+            if not ((kids >= qmin) & (kids <= qmax)).any():
+                continue
+        wholes = []
+        for w in (0, 1):
+            r_lo = base + q0 + 64 * w
+            ok = q0 + 64 * w + 64 <= sq and k_end <= sk and all(
+                kd == FULL or (kd == PARTIAL and (not causal or k0 + c <= r_lo)
+                               and (not window or r_lo + 63 - (k0 + c) < window))
+                for c, kd in enumerate(kinds[w]))
+            partial = PARTIAL in kinds[w]
+            wholes.append(bool(ok and not (seg is not None and (seg_all or partial))))
+        tiles.append((k0, tuple(kinds), tuple(wholes)))
+
+
 def dkv_walk_rows(schedule: BlockSchedule, h: int, h_kv: int, d: int) -> int:
     """Rows of the transposed schedule one dk/dv CTA merges (its producer
-    warp keeps a cursor on each, a lane a row, so at most 32): the kv
-    blocks of its 64-key halves (two where a block does not hold the CTA's
-    ``kv_bk`` keys) times the schedule's heads of a GQA group."""
+    warp keeps a cursor on each in shared memory, 12 bytes a row, lane l
+    owning rows l, l + 32, ...): the kv blocks of its 64-key halves (two
+    where a block does not hold the CTA's ``kv_bk`` keys) times the
+    schedule's heads of a GQA group."""
     kv_bk = BWD_TILES[d]["kv_bk"]
     blocks = 2 if kv_bk == 128 and schedule.nk > 1 and schedule.block_kv % kv_bk else 1
     return blocks * (1 if schedule.num_heads == 1 else h // h_kv)
@@ -393,12 +479,6 @@ def splash_bwd_dkv_cuda(q, k, v, out, do, lse, schedule: BlockSchedule, segment_
     (q, k, v, out, do, lse), seg, seg_all = _kernel_args(
         "splash_bwd_dkv_cuda", q, k, v, schedule, segment_ids, out, do.to(q.dtype),
         lse.float(), backward=True)
-    b, h, _, d = q.shape
-    if dkv_walk_rows(schedule, h, k.shape[1], d) > 32:
-        raise NotImplementedError(
-            f"splash_bwd_dkv_cuda: {dkv_walk_rows(schedule, h, k.shape[1], d)} rows of the "
-            "transposed schedule a CTA; the kernel's walk merges at most 32 (a per-head "
-            "schedule with at most 16 query heads a kv head)")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:

@@ -439,14 +439,17 @@ def test_engine_per_row_phase_runs_end_to_end_on_cpu(one_thread):
 def test_splash_kernel_cases_on_plain_inputs():
     """The kernels phase's cases at s 4096 with 2 heads: the schedules are
     the ones the card checks (the 1024-window band prunes, the Fixed layouts
-    differ by head, query blocks 2 and 3 of (d) are dead, (f) and (g) take
-    64-key blocks), and the plain forward gives 0 with lse -1e30 on the dead
-    rows."""
+    differ by head, query blocks 2 and 3 of (d) are dead, (f) to (h) take
+    64-key blocks, (h) over one kv head), and the plain forward gives 0 with
+    lse -1e30 on the dead rows."""
     from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
 
     cases = chip_smoke.splash_cases(torch, torch.device("cpu"), s=4096, h=2)
-    assert [c[0][:2] for c in cases] == ["a_", "b_", "c_", "d_", "f_", "g_"]
+    assert [c[0][:2] for c in cases] == ["a_", "b_", "c_", "d_", "f_", "g_", "h_"]
     assert cases[4][1].block_kv == cases[5][1].block_kv == 64 and cases[5][1].num_heads == 2
+    # (h): (g)'s schedule over one kv head, the other cases over 8
+    assert cases[6][1] is cases[5][1] and cases[6][3] == 1 and {c[3] for c in cases[:6]} == {8}
+    assert SP.dkv_walk_rows(cases[6][1], 2, 1, 128) == 4
     local, fixed, dead = cases[0][1], cases[1][1], cases[3][1]
     assert local.block_q == 512 and local.grid_width == 3 and local.density < 0.5
     assert cases[2][1] is local and cases[2][2] is not None
@@ -831,37 +834,85 @@ def test_carry_kernel_checks_on_plain_inputs(monkeypatch):
         assert len(errs) == 11 and max(errs.values()) < 1e-5
 
 
-@pytest.mark.parametrize("ulp", [0, 1])
-def test_chip_smoke_splash_dkv_against_flash_holds_every_bit(monkeypatch, ulp):
-    """splash_dkv_against_flash (the kernels phase's gate at both timed
-    LocalMask shapes): splash dk/dv must equal flash dk/dv with the same
-    window on the same out, lse and dO; with the wrappers standing in for
-    their plain versions both sides agree, and one element of dk one bf16
-    ulp off fails the gate."""
+def _flash_stands_in_for_splash(monkeypatch, sched, skew=None):
+    """The flash and splash kernel wrappers replaced by the splash plain
+    versions over ``sched`` (the flash ones with the same window see the
+    same pairs); ``skew(name, tensor)`` may alter a splash output."""
     from deepspeed_tpu_torch.ops.attention import flash as F
-    from deepspeed_tpu_torch.ops.sparse_attention import LocalMask, schedule_from_mask
     from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
 
+    skew = skew or (lambda name, t: t)
+    fwd = lambda q, k, v, *a, **kw: SP.splash_fwd_reference(q, k, v, sched)  # noqa: E731
+    bwd = lambda q, k, v, o, do, lse, *a, **kw: SP.splash_bwd_reference(  # noqa: E731
+        q, k, v, o, do, lse, sched)
+    monkeypatch.setattr(F, "flash_fwd_cuda", fwd)
+    monkeypatch.setattr(F, "flash_bwd_dq_cuda", lambda *a, **kw: bwd(*a)[0])
+    monkeypatch.setattr(F, "flash_bwd_dkv_cuda", lambda *a, **kw: bwd(*a)[1:])
+    monkeypatch.setattr(SP, "splash_bwd_dq_cuda", lambda *a, **kw: skew("dq", bwd(*a)[0]))
+    monkeypatch.setattr(SP, "splash_bwd_dkv_cuda", lambda *a, **kw: tuple(
+        skew(n, t) for n, t in zip(("dk", "dv"), bwd(*a)[1:])))
+    return fwd
+
+
+def _one_ulp(t):
+    t = t.clone()
+    flat = t.view(-1).view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    flat[flat.numel() // 3] += 1  # the next representable value of one element
+    return t
+
+
+@pytest.mark.parametrize("ulp", [0, 1])
+def test_chip_smoke_splash_dkv_against_flash_holds_every_bit(monkeypatch, ulp):
+    """splash_against_flash (the kernels phase's gate at both timed
+    LocalMask shapes, which holds dk/dv as it holds out, lse and dq):
+    splash dk/dv must equal flash dk/dv with the same window on the same
+    out, lse and dO; with the wrappers standing in for their plain versions
+    both sides agree, and one element of dk one bf16 ulp off fails the
+    gate."""
+    from deepspeed_tpu_torch.ops.sparse_attention import LocalMask, schedule_from_mask
+
     s, window = 256, 96
-    plain_dkv = lambda *a, **kw: SP.splash_bwd_reference(*a, **kw)[1:]  # noqa: E731
-
-    def skewed(*a, **kw):
-        dk, dv = plain_dkv(*a, **kw)
-        if ulp:
-            dk = dk.clone()
-            flat = dk.view(-1).view(torch.int16)
-            flat[1234] += ulp  # the next bf16 value of one element
-        return dk, dv
-
-    monkeypatch.setattr(SP, "splash_bwd_dkv_cuda", skewed)
     sched = schedule_from_mask(LocalMask((s, s), window), 64)
-    monkeypatch.setattr(F, "flash_bwd_dkv_cuda", lambda *a, causal, window: plain_dkv(
-        *a, sched))
+    fwd = _flash_stands_in_for_splash(
+        monkeypatch, sched, lambda name, t: _one_ulp(t) if ulp and name == "dk" else t)
     q, k, v, do = chip_smoke.flash_inputs(torch, torch.device("cpu"), 1, 4, 2, s, 64, seed=5)
-    out, lse = SP.splash_fwd_reference(q, k, v, sched)
+    out, lse = fwd(q, k, v)
     if ulp:
         with pytest.raises(AssertionError, match="splash_bwd_dkv dk: 1 elements differ"):
-            chip_smoke.splash_dkv_against_flash(torch, q, k, v, out, do, lse, sched, window)
+            chip_smoke.splash_against_flash(torch, q, k, v, out, do, lse, sched, window)
         return
-    rec = chip_smoke.splash_dkv_against_flash(torch, q, k, v, out, do, lse, sched, window)
-    assert rec == {"dk": "equal", "dv": "equal", "window": window}
+    rec = chip_smoke.splash_against_flash(torch, q, k, v, out, do, lse, sched, window)
+    assert rec == {"out": "equal", "lse": "equal", "dq": "equal", "dk": "equal",
+                   "dv": "equal", "window": window}
+
+
+@pytest.mark.parametrize("which", ["out", "lse", "dq", "dv"])
+def test_chip_smoke_splash_against_flash_holds_out_lse_and_dq(monkeypatch, which):
+    """The same gate on the forward's out and lse and on dq (and dv): one
+    element one ulp off in any of them fails it, naming the kernel."""
+    from deepspeed_tpu_torch.ops.sparse_attention import LocalMask, schedule_from_mask
+
+    s, window = 256, 96
+    sched = schedule_from_mask(LocalMask((s, s), window), 64)
+    fwd = _flash_stands_in_for_splash(
+        monkeypatch, sched, lambda name, t: _one_ulp(t) if name == which else t)
+    q, k, v, do = chip_smoke.flash_inputs(torch, torch.device("cpu"), 1, 4, 2, s, 64, seed=5)
+    out, lse = fwd(q, k, v)
+    if which == "out":
+        out = _one_ulp(out)
+    elif which == "lse":
+        lse = _one_ulp(lse)
+    kname = {"out": "splash_fwd", "lse": "splash_fwd", "dq": "splash_bwd_dq",
+             "dv": "splash_bwd_dkv"}[which]
+    with pytest.raises(AssertionError, match=f"{kname} {which}: 1 elements differ"):
+        chip_smoke.splash_against_flash(torch, q, k, v, out, do, lse, sched, window)
+
+
+def test_chip_smoke_records_the_flash_digests():
+    """The flash kernels' recorded digests (``FLASH_DIGESTS``, held by the
+    kernels phase) name every case of ``FLASH_DIGEST_CASES``; the splash
+    tests pin the same bits."""
+    names = {f"d{d}_s{s}_causal{int(c)}_w{w}_seg{cut}"
+             for d, s, c, w, cut in chip_smoke.FLASH_DIGEST_CASES}
+    assert set(chip_smoke.FLASH_DIGESTS) == names
+    assert all(len(v) == 16 for v in chip_smoke.FLASH_DIGESTS.values())

@@ -523,6 +523,64 @@ def test_cuda_prefill_matches_plain(t):
                                        rtol=BF16_RTOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["per_head_fixed", "local"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_fwd_dq_match_plain_on_64_blocks_with_runtime_segments(d, layout):
+    """The wgmma forward and dq kernels against the plain versions at
+    64-row blocks (each consumer warpgroup of a 128-row CTA on its own
+    schedule row; two kv blocks a 128-key forward tile), per head or
+    shared, with runtime segment ids, at every head dim."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    b, h, h_kv, s = 2, 4, 2, 512
+    if layout == "local":
+        sched = psa.schedule_from_mask(psa.LocalMask((s, s), 200), 64)
+    else:
+        sched = psa.FixedSparsityConfig(num_heads=h, block=64, different_layout_per_head=True,
+                                        num_different_global_patterns=4,
+                                        attention="unidirectional").make_schedule(s)
+    gen = torch.Generator(device="cuda").manual_seed(d + 7)
+    q = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, h_kv, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, h_kv, s, d, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    seg[0, 150:] = 1
+    seg[-1, 380:] = 2
+    out, lse = ps.splash_fwd_cuda(q, k, v, sched, segment_ids=seg)
+    ref_out, ref_lse = ps.splash_fwd_reference(q, k, v, sched, segment_ids=seg)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=BF16_ATOL, rtol=BF16_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    dq = ps.splash_bwd_dq_cuda(q, k, v, out, do, lse, sched, segment_ids=seg)
+    want = ps.splash_bwd_reference(q, k, v, out, do, lse, sched, segment_ids=seg)[0]
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(dq.float(), want.float(), atol=BF16_ATOL * scale, rtol=BF16_RTOL)
+    chip_smoke.tile_rel_err(torch, "dq", dq, want)
+
+
+# chip_smoke.flash_digests of the flash kernels as built before their CTA
+# bodies took a walk policy (flash_fwd.cu, flash_bwd.cu on an NVIDIA H100
+# 80GB HBM3): the policy's FlashWalk must compile to the same bits
+FLASH_DIGESTS_BEFORE = {"d128_s1000_causal1_w300_segNone": "aae60a2ffd5058df",
+                        "d128_s768_causal1_w0_seg300": "f347c19b569c38ff",
+                        "d64_s512_causal0_w0_segNone": "ffa3c8250fe5f428",
+                        "d256_s640_causal1_w200_segNone": "c057366d7e6fa449"}
+
+
+def test_flash_digests_before_the_policy_are_chip_smokes():
+    """chip_smoke's kernels phase holds the flash kernels to the same
+    digests as the cuda test below."""
+    assert chip_smoke.FLASH_DIGESTS == FLASH_DIGESTS_BEFORE
+
+
+@pytest.mark.cuda
+def test_cuda_flash_outputs_are_the_bits_before_the_walk_policy():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    assert chip_smoke.flash_digests(torch, torch.device("cuda")) == FLASH_DIGESTS_BEFORE
+
+
 def test_chip_smoke_splash_work_counts_kept_pairs():
     """The bound's pair count: the LocalMask's band (every query keeps
     min(q + 1, w) keys) and a dead layout's kept blocks."""
@@ -621,6 +679,11 @@ WALK_CASES = {
     "local_b64_runtime_segments": (8, 2, 512, 128, lambda s: (
         psa.schedule_from_mask(psa.LocalMask((s, s), 160), 64),
         jsa.schedule_from_mask(jmask.LocalMask((s, s), 160), 64)), True),
+    # 32 query heads a kv head, two kv blocks a CTA: 64 rows, two cursors a lane
+    "per_head_fixed_b64_h32_kv1": (32, 1, 512, 128, lambda s: tuple(
+        c.make_schedule(s) for c in _both_configs("FixedSparsityConfig", dict(
+            num_heads=32, block=64, different_layout_per_head=True,
+            num_different_global_patterns=4, attention="unidirectional"))), False),
 }
 
 
@@ -637,17 +700,18 @@ def _walk_schedules(case):
     return h, h_kv, s, d, port, jax_, seg
 
 
-def _kept_tokens(sched, hs, seg, seg_all):
-    """[sq, sk] the pairs a head row keeps (the plain versions' rule)."""
+def _kept_tokens(sched, hs, seg, seg_all, base=0):
+    """[sq, sk] the pairs a head row keeps (the plain versions' rule; query
+    row i at position base + i)."""
     status = ps._status(sched)[hs]
     q = np.arange(sched.seq_q)[:, None]
     k = np.arange(sched.seq_kv)[None, :]
     st = status[q // sched.block_q, k // sched.block_kv]
     pred = np.ones_like(st, bool)
     if sched.causal:
-        pred &= q >= k
+        pred &= q + base >= k
     if sched.window:
-        pred &= (q - k) < sched.window
+        pred &= (q + base - k) < sched.window
     ids = seg if seg is not None else sched.segment_ids
     same = np.ones_like(pred) if ids is None else ids[:, None] == ids[None, :]
     if seg_all:
@@ -721,10 +785,11 @@ def test_dkv_walk_reads_the_jax_schedule_alike(case):
 
 
 def test_dkv_walk_rows_bound_the_producer_lanes():
-    """A CTA's producer warp merges its schedule rows a lane each: two kv
-    blocks a 128-key CTA at 64-key blocks, times the group's heads of a
-    per-head schedule; 64-key CTAs (d 256) and blocks of 128 or more keys
-    take one block; more than 32 rows is refused on a card."""
+    """A CTA's producer warp merges its schedule rows, every 32nd a lane:
+    two kv blocks a 128-key CTA at 64-key blocks, times the group's heads
+    of a per-head schedule; 64-key CTAs (d 256) and blocks of 128 or more
+    keys take one block. Any count is taken (its cursors live in shared
+    memory)."""
     local64 = psa.schedule_from_mask(psa.LocalMask((512, 512), 160), 64)
     local128 = psa.schedule_from_mask(psa.LocalMask((512, 512), 160), 128)
     per_head = psa.FixedSparsityConfig(num_heads=8, block=64, different_layout_per_head=True,
@@ -735,6 +800,9 @@ def test_dkv_walk_rows_bound_the_producer_lanes():
     assert ps.dkv_walk_rows(per_head, 8, 2, 128) == 8
     assert ps.dkv_walk_rows(per_head, 8, 1, 64) == 16
     assert ps.dkv_walk_rows(per_head, 8, 8, 256) == 1
+    per_head32 = psa.FixedSparsityConfig(num_heads=32, block=64, different_layout_per_head=True,
+                                         num_different_global_patterns=4).make_schedule(512)
+    assert ps.dkv_walk_rows(per_head32, 32, 1, 128) == 64
 
 
 CUDA_DKV_CASES = {
@@ -748,6 +816,11 @@ CUDA_DKV_CASES = {
         psa.LocalMask((s, s), 300), 128), False),
     "local_b64_d256_segments": (2, 4, 2, 512, 256, lambda s: psa.schedule_from_mask(
         psa.LocalMask((s, s), 200), 64), True),
+    # 64 rows of the transposed schedule a CTA (refused before the cursors
+    # moved to shared memory)
+    "per_head_fixed_b64_h32_kv1": (1, 32, 1, 512, 128, lambda s: psa.FixedSparsityConfig(
+        num_heads=32, block=64, different_layout_per_head=True,
+        num_different_global_patterns=4, attention="unidirectional").make_schedule(s), False),
 }
 
 
@@ -756,7 +829,8 @@ CUDA_DKV_CASES = {
 def test_cuda_dkv_matches_plain_on_the_walks(case):
     """The wgmma dk/dv kernel against the plain backward where its walk
     merges rows: 64-key blocks (two a CTA), per-head schedules over a GQA
-    group, d 256 (64-key CTAs), runtime segment ids."""
+    group (32 heads a kv head: 64 rows), d 256 (64-key CTAs), runtime
+    segment ids."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     b, h, h_kv, s, d, build, segmented = CUDA_DKV_CASES[case]
@@ -779,3 +853,168 @@ def test_cuda_dkv_matches_plain_on_the_walks(case):
         torch.testing.assert_close(got.float(), w.float(), atol=BF16_ATOL * scale,
                                    rtol=BF16_RTOL)
         chip_smoke.tile_rel_err(torch, what, got, w)
+
+
+# ---------------------------------------------------------------------------
+# the forward and dq kernels' walk (its plain model, ``splash.row_walk``)
+# ---------------------------------------------------------------------------
+ROW_WALK_CASES = {
+    # name: (h, s, d, (port schedule, JAX schedule) builder, runtime segments)
+    "local_b64_two_rows_a_cta": (2, 512, 128, lambda s: (
+        psa.schedule_from_mask(psa.LocalMask((s, s), 160), 64),
+        jsa.schedule_from_mask(jmask.LocalMask((s, s), 160), 64)), False),
+    "local_b512_shared": (2, 2048, 128, lambda s: (
+        psa.schedule_from_mask(psa.LocalMask((s, s), 700), 512),
+        jsa.schedule_from_mask(jmask.LocalMask((s, s), 700), 512)), False),
+    "per_head_fixed_b64_d64": (4, 512, 64, lambda s: tuple(
+        c.make_schedule(s) for c in _both_configs("FixedSparsityConfig", dict(
+            num_heads=4, block=64, different_layout_per_head=True,
+            num_different_global_patterns=4, attention="unidirectional"))), False),
+    "per_head_bigbird_b64_d256": (4, 512, 256, lambda s: tuple(
+        c.make_schedule(s) for c in _both_configs("BigBirdSparsityConfig", dict(
+            num_heads=4, block=64, num_random_blocks=2, different_layout_per_head=True,
+            seed=7))), False),
+    "causal_b192": (1, 768, 128, lambda s: (
+        psa.schedule_from_mask(psa.CausalMask((s, s)), 192),
+        jsa.schedule_from_mask(jmask.CausalMask((s, s)), 192)), False),
+    "dead_rows_b64": (1, 256, 128, lambda s: (
+        psa.schedule_from_layout(_dead_layout(), 64),
+        jsa.schedule_from_layout(_dead_layout(), 64)), False),
+    "document_static_ids_b64": (1, 256, 128, lambda s: tuple(
+        m & c for m, c in zip(_both("DocumentMask", [0] * 100 + [1] * 60 + [2] * 96),
+                              _both("CausalMask", (S, S)))), False),
+    "local_b64_runtime_segments": (2, 512, 128, lambda s: (
+        psa.schedule_from_mask(psa.LocalMask((s, s), 160), 64),
+        jsa.schedule_from_mask(jmask.LocalMask((s, s), 160), 64)), True),
+    # key blocks of 48 under 64-row query blocks (forward only)
+    "local_q64_k48": (1, 384, 128, lambda s: (
+        psa.schedule_from_mask(psa.LocalMask((s, s), 100), 64, 48),
+        jsa.schedule_from_mask(jmask.LocalMask((s, s), 100), 64, 48)), False),
+}
+
+
+def _row_walk_schedules(case):
+    h, s, d, build, segmented = ROW_WALK_CASES[case]
+    port, jax_ = build(s)
+    if not hasattr(port, "q_index"):  # masks (the document case): compile both
+        port, jax_ = psa.schedule_from_mask(port, 64), jsa.schedule_from_mask(jax_, 64)
+    seg = None
+    if segmented:
+        seg = np.zeros(s, np.int32)
+        seg[150:] = 1
+        seg[380:] = 2
+    return h, d, port, jax_, seg
+
+
+def _hold_row_walk(sched, h, d, kernel, seg=None, seg_all=False, base=0):
+    """Every CTA's walk against the schedule's token mask: tiles ascending
+    and never twice; every kept pair in a walked tile with its block's kind;
+    a nonzero kind only where the block has it; no walked tile without a
+    live column, no live PARTIAL column that the causal bound and the band
+    leave dead for all of its warpgroup's rows, no kind past the keys; a
+    whole flag only over 64 full rows and a full tile whose pairs are all
+    kept."""
+    tile = (ps.FWD_TILES if kernel == "fwd" else ps.BWD_TILES)[d]["bk"]
+    sq, sk = sched.seq_q, sched.seq_kv
+    ids = seg if seg is not None else sched.segment_ids
+    status = ps._status(sched)
+    kept = [_kept_tokens(sched, hs, seg, seg_all, base) for hs in range(sched.num_heads)]
+    visits = 0
+    for head in range(h):
+        hs = 0 if sched.num_heads == 1 else head
+        for q0 in range(0, sq, 128):
+            n_rows = min(128, sq - q0)
+            walk = ps.row_walk(sched, d, head, q0, kernel=kernel, seg=ids, seg_all=seg_all,
+                               base=base)
+            k0s = [k0 for k0, _, _ in walk]
+            assert k0s == sorted(set(k0s)) and all(k0 % tile == 0 for k0 in k0s), (head, q0)
+            covered = np.zeros((n_rows, sk), np.int64)
+            for k0, kinds, wholes in walk:
+                assert any(any(cols) for cols in kinds), (head, q0, k0)
+                n = min(tile, sk - k0)
+                for w in (0, 1):
+                    r0, r1 = 64 * w, min(64 * w + 64, n_rows)
+                    cols = np.asarray(kinds[w])
+                    assert not cols[n:].any()
+                    if r0 >= r1:
+                        assert not cols.any() and not wholes[w]
+                        continue
+                    covered[r0:r1, k0:k0 + n] = cols[:n]
+                    qpos = base + q0 + np.arange(r0, r1)[:, None]
+                    kpos = k0 + np.arange(n)[None, :]
+                    pred = np.ones((r1 - r0, n), bool)
+                    if sched.causal:
+                        pred &= qpos >= kpos
+                    if sched.window:
+                        pred &= qpos - kpos < sched.window
+                    assert pred.any(axis=0)[cols[:n] == pmask.PARTIAL].all(), (head, q0, k0, w)
+                    if wholes[w]:
+                        assert r1 - r0 == 64 and n == tile
+                        assert kept[hs][q0 + r0:q0 + r1, k0:k0 + n].all(), (head, q0, k0, w)
+                visits += 1
+            q = np.arange(q0, q0 + n_rows)
+            want = status[hs][(q // sched.block_q)[:, None], (np.arange(sk) // sched.block_kv)]
+            rows_kept = kept[hs][q0:q0 + n_rows]
+            assert (covered[rows_kept] == want[rows_kept]).all(), (head, q0)
+            assert ((covered == 0) | (covered == want)).all(), (head, q0)
+    assert visits
+
+
+# the backward takes key blocks of multiples of 64 only: dq has no 48-key case
+@pytest.mark.parametrize("case,kernel", [
+    (c, k) for c in sorted(ROW_WALK_CASES) for k in ("fwd", "dq")
+    if (c, k) != ("local_q64_k48", "dq")])
+def test_row_walk_covers_every_kept_pair_with_its_kind(case, kernel):
+    """Per forward / dq CTA (128 query rows of one head, two consumer
+    warpgroups, each on its own schedule row at 64-row blocks) the walk
+    hands over ascending key tiles with a kind per (warpgroup, key column):
+    every kept pair of the schedule's token mask lies in a walked tile with
+    its block's kind, and a column is live only where its warpgroup can
+    keep a pair."""
+    h, d, sched, _, seg = _row_walk_schedules(case)
+    _hold_row_walk(sched, h, d, kernel, seg, seg_all=seg is not None)
+
+
+@pytest.mark.parametrize("case", sorted(ROW_WALK_CASES))
+def test_row_walk_reads_the_jax_schedule_alike(case):
+    """The walk reads only the row schedule and its blocks: over the JAX
+    package's schedule (compiled from the same mask or layout) it lists the
+    same tiles, kinds and flags for every CTA, forward and dq."""
+    h, d, port, jax_, seg = _row_walk_schedules(case)
+    _same_schedule(port, jax_)
+    ids = seg if seg is not None else port.segment_ids
+    for kernel in ("fwd", "dq"):
+        for head in range(h):
+            for q0 in range(0, port.seq_q, 128):
+                kw = dict(kernel=kernel, seg=ids, seg_all=seg is not None)
+                assert ps.row_walk(port, d, head, q0, **kw) == ps.row_walk(jax_, d, head, q0,
+                                                                           **kw)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("kernel", ["fwd", "dq"])
+def test_row_walk_is_the_flash_walk_over_a_shared_local_mask(kernel, d):
+    """Over a LocalMask in 512-blocks (one schedule row shared by the heads)
+    each CTA walks exactly the flash kernel's key tiles for the same causal
+    window (flash_common.cuh's key_tiles), in its order: so out, lse and dq
+    equal flash's as values on a card."""
+    s, window = 2048, 700
+    sched = psa.schedule_from_mask(psa.LocalMask((s, s), window), 512)
+    tile = (ps.FWD_TILES if kernel == "fwd" else ps.BWD_TILES)[d]["bk"]
+    for q0 in range(0, s, 128):
+        lo = max(0, q0 - window + 1) // tile * tile
+        assert [k0 for k0, _, _ in ps.row_walk(sched, d, 0, q0, kernel=kernel)] == list(
+            range(lo, min(s, q0 + 128), tile)), q0
+
+
+@pytest.mark.parametrize("block_kv", [16, 48, 128])
+@pytest.mark.parametrize("t", [1, 8, 256])
+def test_row_walk_of_the_prefill_form(t, block_kv):
+    """The prefill's one schedule row (a chunk of t query rows at global
+    positions start + i over S keys; a 128-row CTA past t rows, key blocks
+    that are not multiples of 64): the forward's walk covers every kept
+    pair, for chunk starts 0, inside the window and at the context's end."""
+    S, window = 1536, 400
+    for start in (0, 333, S - t):
+        sched = ps.prefill_schedule(start, t, S, window, block_kv)
+        _hold_row_walk(sched, 1, 128, "fwd", base=start)
