@@ -1341,7 +1341,11 @@ def check_sparse(torch, errs, tile_errs, name, q, k, v, do, layout, block, causa
 def splash_against_sparse(torch, errs, name, q, k, v, do, layout, block, causal, got):
     """The splash oracle: the splash kernels over ``schedule_from_layout``
     of the same layout, on the same inputs, held against the sparse
-    kernels' (out, lse, dq, dk, dv) ``got`` (elementwise and per tile)."""
+    kernels' (out, lse, dq, dk, dv) ``got`` (elementwise and per tile).
+    The two backward runs share the flash CTA bodies, so for dq, dk and dv
+    this holds two walks (a schedule's, the layout's) over one body; the
+    body itself is held by each kernel's plain version and the flash
+    digests."""
     from deepspeed_tpu_torch.ops.sparse_attention import schedule_from_layout
     from deepspeed_tpu_torch.ops.sparse_attention import splash as SP
 

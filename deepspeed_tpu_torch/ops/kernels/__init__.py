@@ -210,8 +210,8 @@ KERNELS: Dict[str, Kernel] = {
         Kernel(
             "sparse_bwd_dkv", "sparse_bwd.cu", "dstt_sparse_bwd_dkv",
             # q, k, v, o, do, lse, layout_t, dk, dv, b, h, s, d, scale, nb,
-            # log2(block), causal, stream
-            [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P],
+            # log2(block), causal, cta_clock, stream
+            [_P] * 9 + [_I] * 4 + [ctypes.c_float] + [_I] * 3 + [_P, _P],
             "deepspeed_tpu/ops/sparse_attention/sparse_pallas.py:118",
         ),
         Kernel(

@@ -5,13 +5,12 @@
 // query tiles, which the wgmma flash kernels (flash_hopper.cuh and
 // flash_hopper_bwd.cuh: flash_fwd.cu, flash_bwd.cu and the ring's
 // flash_chunk.cu) share too; and for the mma.sync kernels (the
-// layout-predicate sparse_fwd.cu, sparse_bwd.cu): tile loads into padded
-// shared memory, the tensor-core primitives (ldmatrix loads of 16x16 bf16
-// fragments from shared memory and mma.sync m16n8k16, bf16 in, fp32
-// accumulate), the backward's pieces (the per-row delta, two products into
-// C tiles, a C-tile product accumulated against a shared tile), and the
-// per-tile bodies: the forward's tile and epilogue, the dq tile, the dk/dv
-// tile, each taking the family's rule for a kept pair.
+// layout-predicate sparse_fwd.cu; paged_decode.cu and the evoformer take
+// some primitives): tile loads into padded shared memory, the tensor-core
+// primitives (ldmatrix loads of 16x16 bf16 fragments from shared memory and
+// mma.sync m16n8k16, bf16 in, fp32 accumulate), a C-tile product
+// accumulated against a shared tile, and the forward's per-tile body and
+// epilogue, taking the family's rule for a kept pair.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA), lane = 4 * g + t:
 //   A 16x16: a[0] = (row g,   cols 2t, 2t+1)   a[1] = (row g+8, cols 2t, 2t+1)
@@ -19,8 +18,8 @@
 //   B 16x8:  b[0] = (rows 2t, 2t+1, col g)      b[1] = (rows 2t+8, +9, col g)
 //   C 16x8:  c[0], c[1] = (row g, cols 2t, 2t+1); c[2], c[3] = (row g+8, same)
 // so the accumulators of two adjacent 8-column C tiles, rounded to bf16 and
-// packed in pairs, are exactly the A fragment of the next product: P and dS
-// never leave registers.
+// packed in pairs, are exactly the A fragment of the next product: P never
+// leaves registers.
 //
 // Layout as in the JAX package: q/out [b, h, s, d], k/v [b, h_kv, s, d],
 // contiguous bf16; lse [b, h, s] fp32; segment ids [b, s] int32 or null.
@@ -178,64 +177,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// ---------------------------------------------------------------------------
-// backward pieces (sparse_bwd.cu)
-// delta[r] = sum_c do[r, c] * o[r, c] in fp32 for the TILE rows of a tile,
-// two threads per row, 16-byte loads of o issued together (dOs is the
-// shared dO tile, ob the global o rows of this head).
-template <int D>
-__device__ __forceinline__ void row_delta(const bf16* dOs, const bf16* ob, int q0, int s,
-                                          float* delta_s) {
-  static_assert(NTHREADS == 2 * TILE, "two threads per row");
-  constexpr int LD = D + PAD_H;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  float acc = 0.f;
-  if (q0 + r < s) {
-    const bf16* orow = ob + (int64_t)(q0 + r) * D + half * (D / 2);
-    const bf16* drow = dOs + r * LD + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; c += 8) {
-      float fo[8], fd[8];
-      dstt::load_vec<8>(orow + c, fo);
-      dstt::load_vec<8>(drow + c, fd);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc += fd[j] * fo[j];
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  if (!half) delta_s[r] = acc;
-}
-
-// Two products of one 16-row block against a 64-row tile, both into 8 C
-// tiles: x = A1 B1^T and y = A2 B2^T (A rows of this warp, B tiles n-major).
-template <int D>
-__device__ __forceinline__ void two_products(float (&x)[TILE / 8][4], float (&y)[TILE / 8][4],
-                                             const bf16* A1, const bf16* B1, const bf16* A2,
-                                             const bf16* B2, int r0, int lane) {
-  constexpr int LD = D + PAD_H;
-#pragma unroll
-  for (int j = 0; j < TILE / 8; ++j) {
-    x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
-    y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a1[4], a2[4];
-    ldsm_x4(a1, a_addr<LD>(A1, r0, kk * 16, lane));
-    ldsm_x4(a2, a_addr<LD>(A2, r0, kk * 16, lane));
-#pragma unroll
-    for (int jj = 0; jj < TILE / 16; ++jj) {
-      uint32_t b[4];
-      ldsm_x4(b, b_addr<LD>(B1, jj * 16, kk * 16, lane));
-      mma16816(x[2 * jj], a1, b[0], b[1]);
-      mma16816(x[2 * jj + 1], a1, b[2], b[3]);
-      ldsm_x4(b, b_addr<LD>(B2, jj * 16, kk * 16, lane));
-      mma16816(y[2 * jj], a2, b[0], b[1]);
-      mma16816(y[2 * jj + 1], a2, b[2], b[3]);
-    }
-  }
-}
-
 // acc[:, c0 .. c0 + DC) += X * T where X is 16 x 64 in C tiles (rounded to
 // bf16 into A fragments) and T a 64-row shared tile stored k-major.
 template <int D, int DC>
@@ -257,11 +198,11 @@ __device__ __forceinline__ void accumulate(float (&acc)[DC / 8][4], const float 
 }
 
 // ---------------------------------------------------------------------------
-// Per-tile bodies of the mma.sync kernels. A kernel picks the 64-row tiles
-// it visits and which (query, key) pairs of a tile it keeps: keep(c, upper)
+// The forward's per-tile body (sparse_fwd.cu). A kernel picks the 64-row
+// tiles it visits and which (query, key) pairs of a tile it keeps: keep(c, upper)
 // says whether tile column c is kept for the lane's upper (fragment row g)
-// or lower (g + 8) row. A dropped logit is `neg` (the sparse kernels': the
-// Pallas bodies' -1e30) and, like any logit at or below neg / 2,
+// or lower (g + 8) row. A dropped logit is `neg` (the sparse forward's: the
+// Pallas body's -1e30) and, like any logit at or below neg / 2,
 // contributes exactly 0, also to a row that has seen nothing else.
 
 // Forward: S = Q K^T for the warp's 16 query rows against a key tile, keep
@@ -353,77 +294,6 @@ __device__ __forceinline__ void fwd_store(bf16* ob, float* lseb, const float (&o
   if (t == 0) {
     if (row0 < s) lseb[row0] = m[0] + logf(ls0);
     if (row1 < s) lseb[row1] = m[1] + logf(ls1);
-  }
-}
-
-// dq: S = Q K^T and dP = dO V^T for the warp's 16 query rows against a key
-// tile; on the kept pairs p = exp(S * scale - lse), dS = p * (dP - delta)
-// (lse, delta: the lane's upper and lower rows); dQ += dS K.
-template <int D, typename Keep>
-__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const bf16* Qs, const bf16* dOs,
-                                        const bf16* Ks, const bf16* Vs, float scale,
-                                        const float (&lse)[2], const float (&delta)[2],
-                                        Keep keep, int warp, int lane) {
-  const int t = lane & 3;
-  float s[TILE / 8][4], ds[TILE / 8][4];
-  two_products<D>(s, ds, Qs, Ks, dOs, Vs, warp * 16, lane);
-#pragma unroll
-  for (int j = 0; j < TILE / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int u = e >> 1;
-      const float pe =
-          keep(j * 8 + 2 * t + (e & 1), u == 0) ? expf(s[j][e] * scale - lse[u]) : 0.f;
-      ds[j][e] = pe * (ds[j][e] - delta[u]);
-    }
-  }
-  accumulate<D, D>(acc, ds, Ks, 0, lane);  // K stored [key][d]: k-major here
-}
-
-// dk/dv: S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys against a
-// query tile (columns are queries; their lse and delta in shared memory);
-// on the kept pairs P^T and dS^T as in dq_tile; dV += P^T dO and dK += dS^T
-// Q over columns c0 .. c0 + DC (dO and Q stored [query][d]).
-template <int D, int DC, typename Keep>
-__device__ __forceinline__ void dkv_tile(float (&dka)[DC / 8][4], float (&dva)[DC / 8][4],
-                                         const bf16* Ks, const bf16* Vs, const bf16* Qs,
-                                         const bf16* dOs, const float* lse_s,
-                                         const float* delta_s, float scale, Keep keep, int c0,
-                                         int warp, int lane) {
-  const int t = lane & 3;
-  float pt[TILE / 8][4], dst[TILE / 8][4];
-  two_products<D>(pt, dst, Ks, Qs, Vs, dOs, warp * 16, lane);
-#pragma unroll
-  for (int j = 0; j < TILE / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = j * 8 + 2 * t + (e & 1);  // query within the tile
-      const float pe = keep(c, e < 2) ? expf(pt[j][e] * scale - lse_s[c]) : 0.f;
-      pt[j][e] = pe;
-      dst[j][e] = pe * (dst[j][e] - delta_s[c]);
-    }
-  }
-  accumulate<D, DC>(dva, pt, dOs, c0, lane);
-  accumulate<D, DC>(dka, dst, Qs, c0, lane);
-}
-
-// The lane's rows row0 / row1 (those below s) of a [s, D] bf16 matrix,
-// columns c0 .. c0 + DC, from C-tile accumulators times mul.
-template <int D, int DC>
-__device__ __forceinline__ void store_rows(bf16* base, const float (&acc)[DC / 8][4], float mul,
-                                           int row0, int row1, int s, int c0, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j) {
-    const int c = c0 + j * 8 + 2 * t;
-    if (row0 < s) {
-      *reinterpret_cast<__nv_bfloat162*>(base + (int64_t)row0 * D + c) =
-          __floats2bfloat162_rn(acc[j][0] * mul, acc[j][1] * mul);
-    }
-    if (row1 < s) {
-      *reinterpret_cast<__nv_bfloat162*>(base + (int64_t)row1 * D + c) =
-          __floats2bfloat162_rn(acc[j][2] * mul, acc[j][3] * mul);
-    }
   }
 }
 

@@ -60,12 +60,13 @@
 // otherwise ptxas serialises every wgmma of the kernel).
 //
 // Both bodies take the walk as a template policy, as the forward does:
-// FlashWalk (the flash kernels; flash_hopper.cuh) or a scheduled walk
-// (splash_bwd.cu), which brings its producer walk and its rule for a kept
-// pair. dq's scheduled walk packs each K/V stage's first key with a code
-// per consumer warpgroup (flash_hopper.cuh's SCHEDULED_COLUMNS); p.s is
-// then the query length. dk/dv's hands over a step kind per 64-key half
-// of the CTA's keys; p.s is then the key length.
+// FlashWalk (the flash kernels; flash_hopper.cuh) or a scheduled walk (the
+// splash kernels' over a schedule, splash_bwd.cu; the sparse kernels' over
+// the int32 layout, sparse_common.cuh), which brings its producer walk and
+// its rule for a kept pair. dq's scheduled walk packs each K/V stage's
+// first key with a code per consumer warpgroup (flash_hopper.cuh's
+// SCHEDULED_COLUMNS); p.s is then the query length. dk/dv's hands over a
+// step kind per 64-key half of the CTA's keys; p.s is then the key length.
 //
 // Tiles per head dim (BwdTiles; ops/attention/flash.py BWD_TILES mirrors
 // them): dq BQ 128 query rows a CTA and BK key rows a stage (64; 32 at d
@@ -521,13 +522,13 @@ struct DkvSmem {
 // The walk of a dk/dv CTA: which (query tile, head) stages its producer
 // hands over, and the rule for a kept pair. FlashWalk (SCHEDULED false):
 // the query tiles of query_tiles, the band and the segment ids, and
-// flash_common.cuh's `visible`. A scheduled walk (splash_bwd.cu) brings
-// its own producer walk (produce: the stages it issued), the step kind of
-// each stage per 64-key half of the CTA's keys, the rule for a kept pair
-// of a step of that kind (keep, and whole: a stage that needs no
-// predicate), and its query length sq (queries and keys may differ). Its
-// producer keeps its cursors in shared memory past the kinds (`cursors`:
-// the launch adds their bytes to BYTES).
+// flash_common.cuh's `visible`. A scheduled walk (splash_bwd.cu,
+// sparse_common.cuh) brings its own producer walk (produce: the stages it
+// issued), the step kind of each stage per 64-key half of the CTA's keys,
+// the rule for a kept pair of a step of that kind (keep, and whole: a
+// stage that needs no predicate), and its query length sq (queries and
+// keys may differ). Splash's producer keeps its cursors in shared memory
+// past the kinds (`cursors`: its launch adds their bytes to BYTES).
 
 // Where a dk/dv CTA sits: its (batch, kv head) row, batch and kv head, its
 // first key row, and the id planes of its batch row (queries, keys).

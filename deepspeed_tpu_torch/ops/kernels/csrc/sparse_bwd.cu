@@ -1,204 +1,170 @@
 // Layout-predicate block-sparse attention backward for Hopper (sm_90a): two
-// kernels, dq and dk/dv.
+// kernels, dq and dk/dv, on wgmma fed by TMA.
 //
 // Replaces: deepspeed_tpu/ops/sparse_attention/sparse_pallas.py::
 // _sparse_bwd_dq_kernel and ::_sparse_bwd_dkv_kernel (the two pallas_calls
 // in _sparse_bwd). Both recompute p = exp(q k^T * scale - lse) from the
 // forward's fp32 log-sum-exp over the pairs the layout keeps (and, when
 // causal, q >= k), and take delta = sum(do * o) in the kernel; ds = p * (do
-// v^T - delta) is rounded to bf16 before its products. A row that kept
-// nothing (lse -1e30) has no kept pair, so its p, dq and its share of dk, dv
-// are exactly 0.
+// v^T - delta) is rounded to bf16 before its products; dq and dk are scaled
+// once. A row that kept nothing (lse -1e30) has no kept pair, so its p, dq
+// and its share of dk, dv are exactly 0.
 //
 // Bound: operations. dq does 3 products of 2 * d FLOPs per kept (query, key)
 // pair (q k^T, do v^T, ds k), dk/dv 4 (q k^T, do v^T, p^T do, ds^T q); the
 // bytes are a few reads of q, k, v, o, do.
 //
-// Design (flash_common.cuh's mma.sync grids and per-tile bodies, dq_tile
-// and dkv_tile, with the layout's rule for a kept pair from
-// sparse_common.cuh; CTAs of 4 warps, each warp owning 16 rows,
-// every accumulator in registers, P and dS turned into A fragments without
-// leaving registers):
-//  * dq: one CTA per (64-query tile, b * h); folds its layout rows into a
-//    mask per key tile and walks the key tiles the layout keeps (when
-//    causal, none past its last query); dQ += dS K; scaled once at the end.
-//  * dk/dv: one CTA per (64-key tile, b * h); reads the transposed layout
-//    (the Pallas path's ``layout_t``), so its masks are per query tile, and
-//    walks the query tiles that keep any of its keys (when causal, none
-//    before its first key), on the transposed products (S^T = K Q^T, dP^T =
-//    V dO^T): dV += P^T dO, dK += dS^T Q in fp32, rounded once. At d = 256
-//    the accumulators are taken in two 128-column halves, each its own pass.
+// Design: the flash backward's two CTA bodies (flash_hopper_bwd.cuh, which
+// the flash and splash kernels run too) on walks that read the int32 layout
+// (sparse_common.cuh), with h_kv = h (the caller expands GQA, so a GQA group
+// is one head):
+//  * dq (dq_cta on LayoutDqWalk): a CTA per (128-query tile, b * h), later
+//    query tiles first; the producer warp loads Q and dO once, then the key
+//    tiles (BK 64; 32 at d 256) its layout rows keep (when causal, none past
+//    its last row), in ascending order, into a three-stage ring, each
+//    stage's word carrying a code per consumer warpgroup (skip, whole, or
+//    the layout's bits); two consumer warpgroups take delta, then S = Q K^T,
+//    dP = dO V^T, dS in registers, dQ += dS K.
+//  * dk/dv (dkv_cta on LayoutDkvWalk): a CTA per (KV_BK keys: 128; 64 at d
+//    256, b * h) in the natural order, whose first key tiles carry the most
+//    work under a causal layout (a global key block is seen by every later
+//    query block); the producer warp loads K and V once, then the query
+//    tiles of 64 rows its rows of the transposed layout keep (when causal,
+//    none before its first key), in ascending order, Q, dO and O of each
+//    into the ring with a kind per 64-key half; two warps take each stage's
+//    delta; two consumer warpgroups sum dV += P^T dO and dK += dS^T Q in
+//    fp32, rounded once. At d 256 both warpgroups take the CTA's 64 keys
+//    (half the columns each) and both recompute S^T and dP^T.
+// A tile the layout leaves whole for a warpgroup needs no predicate; a
+// tile that keeps no pair is never loaded.
+//
+// ``cta_clock`` (dk/dv; null in use): where set, each CTA writes its start
+// and end (%globaltimer, ns) and its SM, for the measurement of the grid's
+// tail (tools/torch_sparse_ab.py).
 #include "sparse_common.cuh"
 
 namespace {
 
-using namespace dstt::flash;
-using SparseProblem = dstt::sparse::Problem;
+namespace fh = dstt::flash_hopper;
 namespace sp = dstt::sparse;
+using dstt::flash::Problem;
+using dstt::flash::set_max_smem;
+using bf16 = __nv_bfloat16;
 
-template <int D>
-constexpr size_t bwd_tile_bytes() {
-  return sizeof(bf16) * 4 * TILE * (D + PAD_H) + sizeof(float) * 2 * TILE;
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
-// ---------------------------------------------------------------------------
-// At d <= 128 the register cap of 3 CTAs per SM (168 a thread).
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, D <= 128 ? 3 : 1) sparse_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const int* __restrict__ layout, bf16* __restrict__ dq, SparseProblem p) {
-  constexpr int LD = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + TILE * LD;
-  bf16* Ks = dOs + TILE * LD;
-  bf16* Vs = Ks + TILE * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + TILE * LD);
-  float* delta_s = lse_s + TILE;
-  uint16_t* masks = reinterpret_cast<uint16_t*>(delta_s + TILE);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * TILE;
-  const int bh = blockIdx.x;
-  const int hi = bh % p.h;
-  const int64_t off = (int64_t)bh * p.s * D;
-
-  sp::build_masks(masks, layout + (int64_t)hi * p.nb * p.nb, p, q0);
-  load_tile<TILE, D>(Qs, q + off, q0, p.s);
-  load_tile<TILE, D>(dOs, dout + off, q0, p.s);
-  if (tid < TILE) lse_s[tid] = q0 + tid < p.s ? lse[(int64_t)bh * p.s + q0 + tid] : 0.f;
-  __syncthreads();
-  row_delta<D>(dOs, o + off, q0, p.s, delta_s);
-  __syncthreads();
-
-  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
-  const int row0 = q0 + lr0, row1 = q0 + lr1;
-  const float lse_r[2] = {lse_s[lr0], lse_s[lr1]};
-  const float del_r[2] = {delta_s[lr0], delta_s[lr1]};
-  const int q_last = min(q0 + TILE, p.s) - 1;
-  const int kt_end = p.causal ? q_last / TILE + 1 : sp::n_tiles(p.s);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const uint32_t mask = masks[kt];
-    if (mask == 0) continue;
-    const int k0 = kt * TILE;
-    __syncthreads();  // the previous tile's readers of Ks and Vs are done
-    load_tile<TILE, D>(Ks, k + off, k0, p.s);
-    load_tile<TILE, D>(Vs, v + off, k0, p.s);
-    __syncthreads();
-
-    const uint32_t bits0 = sp::row_bits(mask, p, lr0), bits1 = sp::row_bits(mask, p, lr1);
-    dq_tile<D>(acc, Qs, dOs, Ks, Vs, p.scale, lse_r, del_r, [&](int c, bool upper) {
-      const int r = upper ? row0 : row1;
-      const int kp = k0 + c;
-      return r < p.s && kp < p.s && sp::col_kept(upper ? bits0 : bits1, p, c) &&
-             (!p.causal || kp <= r);
-    }, warp, lane);
-  }
-  store_rows<D, D>(dq + off, acc, p.scale, row0, row1, p.s, 0, lane);
+__device__ __forceinline__ int sm_id() {
+  int id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
 }
 
-// ---------------------------------------------------------------------------
-template <int D, int DC>
-__global__ void __launch_bounds__(NTHREADS) sparse_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const int* __restrict__ layout_t, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    SparseProblem p) {
-  constexpr int LD = D + PAD_H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + TILE * LD;
-  bf16* Ks = dOs + TILE * LD;
-  bf16* Vs = Ks + TILE * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + TILE * LD);
-  float* delta_s = lse_s + TILE;
-  uint16_t* masks = reinterpret_cast<uint16_t*>(delta_s + TILE);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;
-  const int k0 = blockIdx.y * TILE;
-  const int bh = blockIdx.x;
-  const int hi = bh % p.h;
-  const int64_t off = (int64_t)bh * p.s * D;
-  const float* lseb = lse + (int64_t)bh * p.s;
-
-  // masks per query tile, from this key tile's rows of the transposed layout
-  sp::build_masks(masks, layout_t + (int64_t)hi * p.nb * p.nb, p, k0);
-  load_tile<TILE, D>(Ks, k + off, k0, p.s);
-  load_tile<TILE, D>(Vs, v + off, k0, p.s);
-  __syncthreads();
-
-  // this lane's two keys (fragment rows g and g + 8 of the warp's 16)
-  const int lk0 = warp * 16 + g, lk1 = lk0 + 8;
-  const int key0 = k0 + lk0, key1 = k0 + lk1;
-  const int qt_begin = p.causal ? k0 / TILE : 0;
-  const int nt = sp::n_tiles(p.s);
-
-  for (int c0 = 0; c0 < D; c0 += DC) {
-    float dka[DC / 8][4], dva[DC / 8][4];
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
-      dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
-    }
-    for (int qt = qt_begin; qt < nt; ++qt) {
-      const uint32_t mask = masks[qt];
-      if (mask == 0) continue;
-      const int q0 = qt * TILE;
-      __syncthreads();  // the previous tile's readers are done
-      if (tid < TILE) lse_s[tid] = q0 + tid < p.s ? lseb[q0 + tid] : 0.f;
-      load_tile<TILE, D>(Qs, q + off, q0, p.s);
-      load_tile<TILE, D>(dOs, dout + off, q0, p.s);
-      __syncthreads();
-      row_delta<D>(dOs, o + off, q0, p.s, delta_s);
-      __syncthreads();
-
-      const uint32_t bits0 = sp::row_bits(mask, p, lk0), bits1 = sp::row_bits(mask, p, lk1);
-      dkv_tile<D, DC>(dka, dva, Ks, Vs, Qs, dOs, lse_s, delta_s, p.scale,
-                      [&](int c, bool upper) {
-                        const int key = upper ? key0 : key1;
-                        const int qp = q0 + c;
-                        return qp < p.s && key < p.s &&
-                               sp::col_kept(upper ? bits0 : bits1, p, c) &&
-                               (!p.causal || key <= qp);
-                      }, c0, warp, lane);
-    }
-    store_rows<D, DC>(dk + off, dka, p.scale, key0, key1, p.s, c0, lane);
-    store_rows<D, DC>(dv + off, dva, 1.f, key0, key1, p.s, c0, lane);
-  }
+// maps: q, dO, k, v (fh::encode_dq_maps)
+template <int D>
+__global__ void __launch_bounds__(fh::THREADS, 1)
+    sparse_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap domap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ o,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse,
+                     bf16* __restrict__ dq, Problem p, sp::LayoutDqWalk walk) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int BQ = fh::BwdTiles<D>::BQ;
+  const CUtensorMap* maps[4] = {&qmap, &domap, &kmap, &vmap};
+  fh::Tile tile = fh::make_tile<BQ>(p, nullptr, nullptr);
+  tile.q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * BQ;  // later query tiles first
+  const int64_t head = (int64_t)tile.bh * p.s;
+  fh::dq_cta<D>(
+      smem_raw, maps, p, tile, o + head * D, dout + head * D, lse + head,
+      [&](auto& acc, int, int, int) { fh::acc_zero(acc); },
+      [&](const auto& acc, int row0, int row1, int tq) {
+        const int64_t at = (int64_t)blockIdx.x * p.s * D;  // the CTA's (batch, head)
+        fh::acc_store_bf16<D>(dq + at, acc, p.scale, row0, row1, p.s, 0, D, tq);
+      },
+      walk);
 }
 
-// ---------------------------------------------------------------------------
+// maps: k, v, q, dO, o (fh::encode_dkv_maps)
 template <int D>
-int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
-              const float* lse, const int* layout, bf16* dq, const SparseProblem& p,
+__global__ void __launch_bounds__(fh::THREADS, 1)
+    sparse_dkv_kernel(const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const __grid_constant__ CUtensorMap omap, const float* __restrict__ lse,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, long long* __restrict__ clock,
+                      Problem p, sp::LayoutDkvWalk walk) {
+  extern __shared__ unsigned char smem_raw[];
+  const CUtensorMap* maps[5] = {&kmap, &vmap, &qmap, &domap, &omap};
+  // the CTA's record, in launch order (recomputed where used: a value held
+  // across the walk costs the consumers a register)
+  auto record = [&]() { return clock + 3 * ((int64_t)blockIdx.y * gridDim.x + blockIdx.x); };
+  if (clock != nullptr && threadIdx.x == 0) record()[0] = global_ns();
+  const fh::KvTile kt = fh::make_kv_tile<D>(p, nullptr, nullptr);
+  fh::dkv_cta<D>(
+      smem_raw, maps, p, kt, lse,
+      [&](auto& dka, auto& dva, int, int, int, int) {
+        fh::acc_zero(dka);
+        fh::acc_zero(dva);
+      },
+      [&](const auto& dka, const auto& dva, int key0, int key1, int c0, int tq) {
+        constexpr int DC = 2 * (int)(sizeof(dka) / sizeof(float));
+        const int64_t at = (int64_t)blockIdx.x * p.s * D;  // the CTA's (batch, head)
+        fh::acc_store_bf16<DC>(dk + at, dka, p.scale, key0, key1, p.s, c0, D, tq);
+        fh::acc_store_bf16<DC>(dv + at, dva, 1.f, key0, key1, p.s, c0, D, tq);
+        if (clock != nullptr && threadIdx.x == 0) {  // warpgroup 0, which finishes last
+          record()[1] = global_ns();
+          record()[2] = sm_id();
+        }
+      },
+      walk);
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const float* lse, void* dq, const Problem& p, const sp::LayoutDqWalk& w,
               cudaStream_t stream) {
-  const size_t bytes = bwd_tile_bytes<D>() + sp::mask_bytes(p.s);
+  CUtensorMap maps[4];
+  if (int e = fh::encode_dq_maps<D>(maps, q, dout, k, v, p)) return e;
+  constexpr int bytes = fh::DqSmem<D, true>::BYTES;
   static size_t have = 0;
   if (int e = set_max_smem(sparse_dq_kernel<D>, bytes, have)) return e;
-  const dim3 grid((unsigned)(p.b * p.h), (unsigned)sp::n_tiles(p.s));
-  sparse_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, layout, dq, p);
+  sparse_dq_kernel<D><<<fh::dq_grid<D>(p), fh::THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), p, w);
   return (int)cudaGetLastError();
 }
 
-template <int D, int DC>
-int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
-               const float* lse, const int* layout_t, bf16* dk, bf16* dv,
-               const SparseProblem& p, cudaStream_t stream) {
-  const size_t bytes = bwd_tile_bytes<D>() + sp::mask_bytes(p.s);
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, void* dk, void* dv, long long* clock, const Problem& p,
+               const sp::LayoutDkvWalk& w, cudaStream_t stream) {
+  CUtensorMap maps[5];
+  if (int e = fh::encode_dkv_maps<D>(maps, q, dout, o, k, v, p)) return e;
+  constexpr int bytes = fh::DkvSmem<D, true>::BYTES;
   static size_t have = 0;
-  if (int e = set_max_smem(sparse_dkv_kernel<D, DC>, bytes, have)) return e;
-  const dim3 grid((unsigned)(p.b * p.h), (unsigned)sp::n_tiles(p.s));
-  sparse_dkv_kernel<D, DC><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, dout, lse, layout_t,
-                                                              dk, dv, p);
+  if (int e = set_max_smem(sparse_dkv_kernel<D>, bytes, have)) return e;
+  sparse_dkv_kernel<D><<<fh::dkv_grid<D>(p), fh::THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), clock, p, w);
   return (int)cudaGetLastError();
+}
+
+Problem problem(int b, int h, int s, float scale, int causal) {
+  Problem p;
+  p.b = b;
+  p.h = h;
+  p.h_kv = h;
+  p.s = s;
+  p.scale = scale;
+  p.causal = causal;
+  p.window = 0;
+  p.seg = nullptr;
+  return p;
 }
 
 }  // namespace
@@ -206,47 +172,44 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const
 // q, k, v, o, do, dq: [b, h, s, d] bf16; lse: [b, h, s] fp32 from
 // dstt_sparse_fwd; layout: [h, nb, nb] int32 with nb * block == s, block =
 // 2^lg in 16..256; all contiguous, the bf16 tensors 16-byte aligned. d in
-// {64, 128, 256}. Returns cudaGetLastError().
+// {64, 128, 256}. Returns cudaGetLastError() (cudaErrorInvalidValue for what
+// the kernel does not take).
 extern "C" int dstt_sparse_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, const void* lse, const void* layout,
                                   void* dq, int b, int h, int s, int d, float scale, int nb,
                                   int lg, int causal, void* stream) {
   if (!sp::problem_ok(s, nb, lg)) return (int)cudaErrorInvalidValue;
-  SparseProblem p{b, h, s, scale, causal, nb, lg};
-  auto Q = static_cast<const bf16*>(q), K = static_cast<const bf16*>(k),
-       V = static_cast<const bf16*>(v), O = static_cast<const bf16*>(o),
-       dO = static_cast<const bf16*>(dout);
-  auto L = static_cast<const float*>(lse);
-  auto Lay = static_cast<const int*>(layout);
-  auto dQ = static_cast<bf16*>(dq);
+  const Problem p = problem(b, h, s, scale, causal);
+  const sp::LayoutDqWalk w{static_cast<const int*>(layout), nb, lg, s, causal};
+  const float* L = static_cast<const float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch_dq<64>(Q, K, V, O, dO, L, Lay, dQ, p, st);
-    case 128: return launch_dq<128>(Q, K, V, O, dO, L, Lay, dQ, p, st);
-    case 256: return launch_dq<256>(Q, K, V, O, dO, L, Lay, dQ, p, st);
+    case 64: return launch_dq<64>(q, k, v, o, dout, L, dq, p, w, st);
+    case 128: return launch_dq<128>(q, k, v, o, dout, L, dq, p, w, st);
+    case 256: return launch_dq<256>(q, k, v, o, dout, L, dq, p, w, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // dk, dv: [b, h, s, d] bf16; layout_t: the layout transposed, [h, nb, nb]
-// int32 with rows = key blocks (contiguous); the rest as dstt_sparse_bwd_dq.
+// int32 with rows = key blocks (contiguous); cta_clock: null, or int64 [b h
+// * key tiles of KV_BK, 3] (start ns, end ns, SM per CTA, in launch order);
+// the rest as dstt_sparse_bwd_dq.
 extern "C" int dstt_sparse_bwd_dkv(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, const void* layout_t,
                                    void* dk, void* dv, int b, int h, int s, int d, float scale,
-                                   int nb, int lg, int causal, void* stream) {
+                                   int nb, int lg, int causal, void* cta_clock, void* stream) {
   if (!sp::problem_ok(s, nb, lg)) return (int)cudaErrorInvalidValue;
-  SparseProblem p{b, h, s, scale, causal, nb, lg};
-  auto Q = static_cast<const bf16*>(q), K = static_cast<const bf16*>(k),
-       V = static_cast<const bf16*>(v), O = static_cast<const bf16*>(o),
-       dO = static_cast<const bf16*>(dout);
-  auto L = static_cast<const float*>(lse);
-  auto LayT = static_cast<const int*>(layout_t);
-  auto dK = static_cast<bf16*>(dk), dV = static_cast<bf16*>(dv);
+  const Problem p = problem(b, h, s, scale, causal);
+  const sp::LayoutDkvWalk w{static_cast<const int*>(layout_t), nb, lg, lg < 6 ? 6 - lg : 0, s,
+                            causal};
+  const float* L = static_cast<const float*>(lse);
+  long long* clock = static_cast<long long*>(cta_clock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch_dkv<64, 64>(Q, K, V, O, dO, L, LayT, dK, dV, p, st);
-    case 128: return launch_dkv<128, 128>(Q, K, V, O, dO, L, LayT, dK, dV, p, st);
-    case 256: return launch_dkv<256, 128>(Q, K, V, O, dO, L, LayT, dK, dV, p, st);
+    case 64: return launch_dkv<64>(q, k, v, o, dout, L, dk, dv, clock, p, w, st);
+    case 128: return launch_dkv<128>(q, k, v, o, dout, L, dk, dv, clock, p, w, st);
+    case 256: return launch_dkv<256>(q, k, v, o, dout, L, dk, dv, clock, p, w, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,15 +10,24 @@ block, key block) pair the layout marks 0 is skipped, ``causal`` masks
 ``sparse_bwd.cu``:
 
   * ``sparse_fwd``     replaces ``_sparse_fwd_kernel``: out and an fp32 LSE
-    [b, h, s];
+    [b, h, s] (mma.sync);
   * ``sparse_bwd_dq``  replaces ``_sparse_bwd_dq_kernel``: dq over the
-    layout's row;
+    layout's row, on the flash dq CTA body (wgmma fed by TMA) with a walk
+    that reads the layout (``layout_walk`` is its plain model: the key
+    tiles a CTA of 128 query rows visits, with a code per consumer
+    warpgroup);
   * ``sparse_bwd_dkv`` replaces ``_sparse_bwd_dkv_kernel``: dk, dv over the
-    layout's column (the kernel reads the transposed layout).
+    layout's column, on the flash dk/dv CTA body with a walk over the
+    transposed layout (``layout_dkv_walk``).
 
-They read the layout itself, never a splash schedule, so that they can
-stand as the splash kernels' independent oracle. Head counts must match:
-the caller expands GQA first (``SparseSelfAttention`` does).
+The kernels read the layout itself, never a splash schedule: their choice
+of tiles and their rule for a kept pair are their own. Their backward runs
+on the same CTA bodies as the flash and splash kernels', so beside the
+splash kernels over ``schedule_from_layout`` (``chip_smoke.py``'s
+``splash_against_sparse``) they check two walks over one body; the body is
+held by each kernel's plain version and by the flash kernels' digests.
+Head counts must match: the caller expands GQA first
+(``SparseSelfAttention`` does).
 
 Beside the kernels are their plain versions, ``sparse_fwd_reference`` and
 ``sparse_bwd_reference``: the same function as masked softmax attention
@@ -39,9 +48,11 @@ is plain XLA in the JAX package).
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention.core import NEG_INF
+from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES
 from deepspeed_tpu_torch.ops.kernels import KERNELS, stream_ptr
 # tensor helpers only: the plain versions' row chunks, the default scale and
 # the kernels' 16-byte alignment (the sparse kernels never read a schedule)
@@ -52,6 +63,12 @@ DQ_KERNEL = KERNELS["sparse_bwd_dq"]
 DKV_KERNEL = KERNELS["sparse_bwd_dkv"]
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_BLOCKS = (16, 32, 64, 128, 256)
+# the dq walk's codes per consumer warpgroup (``flash_hopper.cuh``'s
+# SCHEDULED_COLUMNS and SCHEDULED_WHOLE; 0 skip, 1 the layout's bit) and the
+# dk/dv walk's flag on a stage kind that keeps every pair
+WALK_COLUMNS = 3
+WALK_WHOLE = 4
+DKV_WHOLE = 1 << 16
 
 
 def _reject_bias(bias, where):
@@ -187,6 +204,124 @@ def sparse_attention_with_bias(q, k, v, layout, block, causal=False, scale=None,
 
 
 # ---------------------------------------------------------------------------
+# the backward kernels' walks
+# ---------------------------------------------------------------------------
+def walk_keep(knd, q, k, block: int, causal: bool, s: int):
+    """``LayoutDqWalk.keep``: is the pair (query q, key k) kept under the
+    code or column bitmask ``knd``? Bit i of ``knd``: the warpgroup's i-th
+    row block of its 64 (the 0-th for blocks of 64 and more). Broadcasts
+    over numpy arrays."""
+    lg = block.bit_length() - 1
+    on = ((np.asarray(knd) >> ((np.asarray(q) & 63) >> lg)) & 1) != 0
+    return on & (q < s) & (k < s) & ((not causal) | (k <= q))
+
+
+def dkv_walk_keep(kind, q, k, block: int, causal: bool, s: int):
+    """``LayoutDkvWalk.keep``: is the pair (query q, key k) of a stage of
+    this kind kept? Bit (i << sub) + j of ``kind``: the query tile's i-th
+    block keeps the 64 keys' j-th block (sub = log2 of the blocks per 64,
+    0 for blocks of 64 and more). Broadcasts over numpy arrays."""
+    lg = block.bit_length() - 1
+    sub = max(0, 6 - lg)
+    at = (((np.asarray(q) & 63) >> lg) << sub) + ((np.asarray(k) & 63) >> lg)
+    on = ((np.asarray(kind) >> at) & 1) != 0
+    return on & (q < s) & (k < s) & ((not causal) | (k <= q))
+
+
+def layout_walk(layout, block: int, causal: bool, s: int, d: int, head: int, q0: int):
+    """The key tiles the dq kernel's CTA of query rows ``q0 .. q0 + 127``
+    of head ``head`` walks, as ``sparse_common.cuh``'s ``LayoutDqWalk``
+    does: a list of (k0, (code of warpgroup 0, of 1), (column bitmasks of
+    warpgroup 0, of 1)), in ascending order, tiles of ``BWD_TILES[d]["bk"]``
+    keys (when causal, none past the CTA's last row).
+
+    Warpgroup w owns rows q0 + 64 w .. + 63. A code is 0 (no pair kept), 1
+    (blocks of 64 and more: its one row block keeps the tile's one key
+    block; the causal bound applies), ``WALK_WHOLE`` (every pair kept) or
+    ``WALK_COLUMNS`` (blocks of 16 and 32): then each column has a bitmask,
+    bit i set where the warpgroup's i-th row block keeps the column's block
+    and the block's last row is not before the key (when causal), else
+    None. A tile whose codes are both 0 is not walked."""
+    lay = np.asarray(layout)[head] != 0
+    nb = lay.shape[0]
+    lg = block.bit_length() - 1
+    bk = BWD_TILES[d]["bk"]
+    k_end = min(q0 + 128, s) if causal else s
+    tiles = []
+    for t in range(-(-k_end // bk)):
+        k0 = t * bk
+        codes, cols = [], []
+        for w in (0, 1):
+            r_lo = q0 + 64 * w
+            if lg >= 6:
+                on = bool(r_lo < s and lay[r_lo >> lg, k0 >> lg]
+                          and (not causal or k0 <= r_lo + 63))
+                whole = not causal or k0 + bk - 1 <= r_lo
+                codes.append((WALK_WHOLE if whole else 1) if on else 0)
+                cols.append(None)
+                continue
+            rows = 64 >> lg
+            col = [0] * bk
+            for c in range(bk):
+                key = k0 + c
+                if r_lo >= s or key >= s:
+                    continue
+                for i in range(rows):
+                    rb = (r_lo >> lg) + i
+                    if rb < nb and lay[rb, key >> lg] and (not causal or key >> lg <= rb):
+                        col[c] |= 1 << i
+            every = (r_lo + 64 <= s and k0 + bk <= s and (not causal or k0 + bk - 1 <= r_lo)
+                     and all(m == (1 << rows) - 1 for m in col))
+            code = 0 if not any(col) else WALK_WHOLE if every else WALK_COLUMNS
+            codes.append(code)
+            cols.append(tuple(col) if code == WALK_COLUMNS else None)
+        if any(codes):
+            tiles.append((k0, tuple(codes), tuple(cols)))
+    return tiles
+
+
+def layout_dkv_walk(layout, block: int, causal: bool, s: int, d: int, head: int, k0: int):
+    """The stages the dk/dv kernel's CTA of keys ``k0 .. k0 + kv_bk`` of
+    head ``head`` walks, as ``sparse_common.cuh``'s ``LayoutDkvWalk`` does
+    (over the transposed layout): a list of (query tile start, (kind of
+    each 64-key half)), query tiles of 64 rows in ascending order (when
+    causal, none before k0). A kind is a bitmask (``dkv_walk_keep``) with
+    ``DKV_WHOLE`` set where every pair of the tile and the half is kept; 0
+    where none is; a bit is set only where its query block's last row is not
+    before its key block's first key (when causal). A tile whose kinds are
+    all 0 is not walked."""
+    lay = np.asarray(layout)[head] != 0
+    nb = lay.shape[0]
+    lg = block.bit_length() - 1
+    sub = max(0, 6 - lg)
+    halves = BWD_TILES[d]["kv_bk"] // 64
+
+    def half_kind(q0, k_lo):
+        if k_lo >= s:
+            return 0
+        every = (not causal or k_lo + 63 <= q0) and q0 + 64 <= s and k_lo + 64 <= s
+        if lg >= 6:
+            on = lay[q0 >> lg, k_lo >> lg] and (not causal or k_lo <= q0 + 63)
+            return (1 | DKV_WHOLE if every else 1) if on else 0
+        n = 1 << sub
+        m = 0
+        for j in range(n):
+            kb = (k_lo >> lg) + j
+            for i in range(n):
+                qb = (q0 >> lg) + i
+                if kb < nb and qb < nb and lay[qb, kb] and (not causal or kb <= qb):
+                    m |= 1 << ((i << sub) + j)
+        return m | DKV_WHOLE if m == (1 << (n * n)) - 1 and every else m
+
+    stages = []
+    for t in range(k0 // 64 if causal else 0, -(-s // 64)):
+        kinds = tuple(half_kind(t * 64, k0 + 64 * a) for a in range(halves))
+        if any(kinds):
+            stages.append((t * 64, kinds))
+    return stages
+
+
+# ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 def _kernel_args(where, q, k, v, layout, block, *more):
@@ -262,23 +397,42 @@ def sparse_bwd_dq_cuda(q, k, v, out, do, lse, layout, block: int, causal: bool =
 
 
 def sparse_bwd_dkv_cuda(q, k, v, out, do, lse, layout, block: int, causal: bool = False,
-                        scale=None):
+                        scale=None, cta_clock=None):
     """Launch the dk/dv kernel (walks the layout's column: it reads the
     transposed layout, as the JAX package's ``layout_t``). Returns (dk,
-    dv), bf16 in k's shape."""
+    dv), bf16 in k's shape. ``cta_clock``: None, or an int64 tensor of
+    ``dkv_ctas(...)`` rows x 3 on q's device, into which each CTA writes
+    its start and end (ns, the card's global timer) and its SM, in launch
+    order (a measurement hook; None costs nothing)."""
     q, k, v, out, do, lse, lay = _kernel_args("sparse_bwd_dkv_cuda", q, k, v, layout, block,
                                               out, do.to(q.dtype), lse.float())
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
+    clock = None
+    if cta_clock is not None:
+        b, h, s, d = q.shape
+        if (cta_clock.dtype != torch.int64 or cta_clock.device != q.device
+                or tuple(cta_clock.shape) != (dkv_ctas(b, h, s, d), 3)
+                or not cta_clock.is_contiguous()):
+            raise ValueError("sparse_bwd_dkv_cuda: cta_clock must be a contiguous int64 "
+                             f"[{dkv_ctas(b, h, s, d)}, 3] tensor on {q.device}")
+        clock = cta_clock.data_ptr()
     lay_t = lay.transpose(1, 2).contiguous()
     rc = DKV_KERNEL.fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                          do.data_ptr(), lse.data_ptr(), lay_t.data_ptr(), dk.data_ptr(),
-                         dv.data_ptr(), *_tail(q, block, scale, causal))
+                         dv.data_ptr(), *_tail(q, block, scale, causal)[:-1], clock,
+                         stream_ptr(q))
     DKV_KERNEL.check(rc)
     DKV_KERNEL.launches += 1
     return dk, dv
+
+
+def dkv_ctas(b: int, h: int, s: int, d: int) -> int:
+    """CTAs of a dk/dv launch: (b h) x key tiles of ``BWD_TILES[d]["kv_bk"]``."""
+    kv_bk = BWD_TILES[d]["kv_bk"]
+    return b * h * (-(-s // kv_bk))
 
 
 class SparseAttention(torch.autograd.Function):

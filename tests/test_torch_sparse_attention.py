@@ -10,6 +10,7 @@ interpret=True)`` (the Pallas bodies in interpret mode) and its
 """
 
 import importlib
+import sys
 from pathlib import Path
 
 import jax
@@ -19,7 +20,9 @@ import pytest
 import torch
 
 from deepspeed_tpu.ops.attention import core as jcore
+from deepspeed_tpu.ops.sparse_attention import sparse_pallas as jsp
 from deepspeed_tpu_torch.ops.attention import core as pcore
+from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES
 from deepspeed_tpu_torch.ops.kernels import KERNELS
 from deepspeed_tpu_torch.ops.sparse_attention import sparse as psp
 from deepspeed_tpu_torch.ops.sparse_attention import splash
@@ -418,6 +421,13 @@ CUDA_CASES = {
                        False),
     "bigbird_b16_causal_ragged_d64": (2, 2, 1040, 64, ("BigBirdSparsityConfig", dict(
         num_heads=2, block=16, num_random_blocks=3, different_layout_per_head=True)), True),
+    "bslongformer_b32_causal_ragged_d64": (1, 2, 544, 64, ("BSLongformerSparsityConfig", dict(
+        num_heads=2, block=32, num_sliding_window_blocks=3)), True),
+    "fixed_b32_d256": (1, 2, 512, 256, ("FixedSparsityConfig", dict(
+        num_heads=2, block=32, num_local_blocks=4, horizontal_global_attention=True)), False),
+    # 512 dq CTAs and 512 dk/dv CTAs: several waves over the card's 132 SMs
+    "fixed_b128_causal_waves_d128": (2, 8, 4096, 128, ("FixedSparsityConfig", dict(
+        num_heads=8, block=128, num_local_blocks=4, attention="unidirectional")), True),
 }
 
 
@@ -443,3 +453,142 @@ def test_cuda_kernels_match_plain(case):
         scale = max(1.0, float(want.float().abs().max()))
         torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL * scale,
                                    rtol=BF16_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' walks (plain models of sparse_common.cuh's
+# LayoutDqWalk and LayoutDkvWalk)
+# ---------------------------------------------------------------------------
+def _walk_layouts():
+    """name: (layout, block, causal): each layout of ``CUDA_CASES`` at s
+    min(s, 512 + s % 64) (ragged where the case is), and ``chip_smoke.py``'s
+    ``sparse_cases`` (a)-(e) at 2 heads, s 512."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    out = {}
+    for name, (_, _, s, _, (cls, kw), causal) in CUDA_CASES.items():
+        cfg = getattr(psa, cls)(**kw)
+        out[name] = (cfg.make_layout(min(s, 512 + s % 64)), cfg.block, causal)
+    for name, layout, block, causal in chip_smoke.sparse_cases(2, 512):
+        out[f"chip_smoke_{name}"] = (np.asarray(layout, np.int32), block, causal)
+    return out
+
+
+WALK_LAYOUTS = sorted(_walk_layouts())
+
+
+def _dq_walk_count(layout, block, causal, s, d):
+    """[h, s + 128, s + 128] visits of each pair that ``layout_walk``'s
+    tiles keep, with its checks of each CTA's walk."""
+    h, bk = layout.shape[0], BWD_TILES[d]["bk"]
+    count = np.zeros((h, s + 128, s + 128), np.int32)
+    for head in range(h):
+        for q0 in range(0, s, 128):
+            tiles = psp.layout_walk(layout, block, causal, s, d, head, q0)
+            assert [t[0] for t in tiles] == sorted({t[0] for t in tiles}), "ascending, once"
+            for k0, codes, cols in tiles:
+                kept_any = False
+                for w in (0, 1):
+                    rows = np.arange(q0 + 64 * w, q0 + 64 * w + 64)[:, None]
+                    keys = np.arange(k0, k0 + bk)[None, :]
+                    if block >= 64:
+                        assert codes[w] != psp.WALK_COLUMNS, "blocks of 64+: one code a tile"
+                    if codes[w] == psp.WALK_WHOLE:
+                        keep = np.ones((64, bk), bool)
+                    else:
+                        knd = np.asarray(cols[w])[None] if codes[w] == psp.WALK_COLUMNS else codes[w]
+                        keep = psp.walk_keep(knd, rows, keys, block, causal, s) & np.ones(
+                            (64, bk), bool)
+                    count[head, q0 + 64 * w:q0 + 64 * w + 64, k0:k0 + bk] += keep
+                    kept_any |= bool(keep.any())
+                assert kept_any, f"tile {k0} of CTA {q0} keeps no pair"
+    return count
+
+
+def _dkv_walk_count(layout, block, causal, s, d):
+    """The same for ``layout_dkv_walk``'s stages."""
+    h, kv_bk = layout.shape[0], BWD_TILES[d]["kv_bk"]
+    count = np.zeros((h, s + 128, s + 128), np.int32)
+    for head in range(h):
+        for k0 in range(0, s, kv_bk):
+            stages = psp.layout_dkv_walk(layout, block, causal, s, d, head, k0)
+            assert [t[0] for t in stages] == sorted({t[0] for t in stages}), "ascending, once"
+            for q0, kinds in stages:
+                kept_any = False
+                for a, kind in enumerate(kinds):
+                    rows = np.arange(q0, q0 + 64)[:, None]
+                    keys = np.arange(k0 + 64 * a, k0 + 64 * a + 64)[None, :]
+                    if kind & psp.DKV_WHOLE:
+                        keep = np.ones((64, 64), bool)
+                    else:
+                        keep = psp.dkv_walk_keep(kind, rows, keys, block, causal, s) & np.ones(
+                            (64, 64), bool)
+                    if block >= 64:
+                        assert kind & ~psp.DKV_WHOLE in (0, 1), "blocks of 64+: one bit a half"
+                    count[head, q0:q0 + 64, k0 + 64 * a:k0 + 64 * a + 64] += keep
+                    kept_any |= bool(keep.any())
+                assert kept_any, f"query tile {q0} of CTA {k0} keeps no pair"
+    return count
+
+
+def _jax_token_mask(layout, block, causal, s):
+    """[h, s, s] the pairs the JAX package's ``_sparse_dense`` attends: its
+    softmax weights with q = k = 0 (every kept logit 0, every other -1e30)
+    read through v = the identity."""
+    h = layout.shape[0]
+    zeros = jnp.zeros((1, h, s, 1), jnp.float32)
+    eye = jnp.broadcast_to(jnp.eye(s, dtype=jnp.float32), (1, h, s, s))
+    w = jsp._sparse_dense(zeros, zeros, eye, jnp.asarray(layout), block, causal, None, None)
+    return np.asarray(w)[0] > 0
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("walk", ["dq", "dkv"])
+@pytest.mark.parametrize("name", WALK_LAYOUTS)
+def test_walks_keep_exactly_the_layout_pairs(name, walk, d):
+    """Each walk's tiles, with their codes and bit predicate, visit every
+    pair ``_kept`` keeps exactly once and no other; each CTA's tiles come in
+    ascending order, every tile handed over keeps a pair, and blocks of 64
+    and more never take the per-column form. d 128 and 256 differ in the
+    tiles (dq 64 / 32 keys, dk/dv 128 / 64 keys a CTA); d 64 has d 128's."""
+    layout, block, causal = _walk_layouts()[name]
+    s = layout.shape[1] * block
+    count = (_dq_walk_count if walk == "dq" else _dkv_walk_count)(layout, block, causal, s, d)
+    assert not count[:, s:].any() and not count[:, :, s:].any()
+    want = psp._kept(torch.from_numpy(layout), block, causal, 0, s, s)[0].numpy()
+    np.testing.assert_array_equal(count[:, :s, :s], want.astype(np.int32))
+
+
+@pytest.mark.parametrize("name", WALK_LAYOUTS)
+def test_kept_pairs_are_the_jax_token_mask(name):
+    """The pairs the walks are held to (``_kept``) are the token mask of
+    the JAX package's ``_sparse_dense`` over the same layout."""
+    layout, block, causal = _walk_layouts()[name]
+    s = layout.shape[1] * block
+    want = _jax_token_mask(layout, block, causal, s)
+    got = psp._kept(torch.from_numpy(layout), block, causal, 0, s, s)[0].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dkv_ctas_is_the_dkv_grid():
+    """``dkv_ctas`` (the rows of the dk/dv kernel's ``cta_clock``) is the
+    dk/dv grid: (b h) x key tiles of ``BWD_TILES[d]["kv_bk"]``, the last
+    one ragged."""
+    assert psp.dkv_ctas(1, 32, 16384, 128) == 32 * 128
+    assert psp.dkv_ctas(2, 2, 1040, 64) == 4 * 9
+    assert psp.dkv_ctas(2, 2, 1040, 256) == 4 * 17
+
+
+def test_ab_tool_parses_and_needs_a_card(monkeypatch):
+    """``tools/torch_sparse_ab.py``: its per-checkout program compiles, and
+    without a card it refuses (exit 2) before starting any process."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import torch_sparse_ab
+
+    compile(torch_sparse_ab.CHILD, "torch_sparse_ab.CHILD", "exec")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch_sparse_ab.subprocess, "run", lambda *a, **k: pytest.fail("ran"))
+    assert torch_sparse_ab.main([]) == 2
