@@ -59,7 +59,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``kv_cache_dtype="int8"``: logits against ``forward_reference`` (limit
    0.1), against the bf16 phase's rows computed from the same tokens, and
    against the same engine forced to ``paged_attention_impl="dense"``;
-   exact counts (int8 paged decode L and block_quant 2L per forward step);
+   exact counts (int8 paged decode L and block_quant L per forward step:
+   K and V of a layer's write in one launch);
    ``serving_benchmark``; ``kv_pool_info`` beside the bf16 phase's. Then
    the int8 per-row check: ``_step_per_row`` at 4 layers, 2 prompts of
    ~1000 tokens, 8 new tokens, against the batched int8 step fed the same
@@ -1262,7 +1263,9 @@ def sparse_cases(h=32, s=4096):
     whose query block 1 keeps only key block 2 (its rows are dead) and whose
     query block 5 keeps nothing; (d) the dense layout in 128-blocks,
     bidirectional; (e) the sparse_attn phase's Fixed layout (128-blocks,
-    causal)."""
+    causal); (f) the causal triangle in 128-blocks (every block on and
+    below the diagonal). At d 128 the forward's 128-key tiles take the
+    per-column form over (a)-(c), the scalar one over (d)-(f)."""
     import numpy as np
 
     from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
@@ -1279,6 +1282,7 @@ def sparse_cases(h=32, s=4096):
         ("c_dead_rows_b64_causal", dead, 64, True),
         ("d_dense_b128", np.ones((h, s // 128, s // 128), np.int32), 128, False),
         ("e_fixed_b128_causal", sparse_fixed(h).make_layout(s), 128, True),
+        ("f_tril_b128_causal", np.tril(np.ones((h, s // 128, s // 128), np.int32)), 128, True),
     ]
 
 
@@ -1312,16 +1316,17 @@ def sparse_work(layout, block, causal, b, h, s, d):
 
 def check_sparse(torch, errs, tile_errs, name, q, k, v, do, layout, block, causal):
     """The three sparse kernels against their plain versions on these
-    inputs (heads matched): out and lse, then dq, dk and dv (elementwise,
-    scaled by the reference's largest element, and per 64-row tile);
-    records each error under ``name`` and raises on a miss. Returns the
-    kernels' (out, lse, dq, dk, dv)."""
+    inputs (heads matched): out (elementwise and per 64-row tile) and lse,
+    then dq, dk and dv (elementwise, scaled by the reference's largest
+    element, and per 64-row tile); records each error under ``name`` and
+    raises on a miss. Returns the kernels' (out, lse, dq, dk, dv)."""
     from deepspeed_tpu_torch.ops.sparse_attention import sparse as SA
 
     out, lse = SA.sparse_fwd_cuda(q, k, v, layout, block, causal)
     ref_out, ref_lse = SA.sparse_fwd_reference(q, k, v, layout, block, causal)
     errs["sparse_fwd"][name] = check_close(torch, f"sparse_fwd {name}", out, ref_out,
                                            BF16_ATOL, BF16_RTOL)
+    tile_errs["sparse_fwd"][name] = tile_rel_err(torch, f"sparse_fwd {name}", out, ref_out)
     errs["sparse_fwd"][name + "_lse"] = check_close(
         torch, f"sparse_fwd lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
     del ref_out, ref_lse
@@ -1364,35 +1369,45 @@ def splash_against_sparse(torch, errs, name, q, k, v, do, layout, block, causal,
     torch.cuda.synchronize()
 
 
-def flash_against_sparse(torch, errs, name, q, k, v, do, got):
-    """The dense layout: the port's flash kernels (non-causal) on the same
-    inputs held against the sparse kernels' outputs ``got``."""
+def flash_against_sparse(torch, errs, name, q, k, v, do, got, causal):
+    """A layout that keeps every block (the dense one, or the causal
+    triangle): the port's flash kernels on the same inputs held against the
+    sparse kernels' outputs ``got``; on a card the sparse forward's out and
+    lse must equal the flash forward's as values (the same tiles in the
+    same order through the same body; the plain versions on the CPU differ
+    in their arithmetic). Returns whether that was held."""
     from deepspeed_tpu_torch.ops.attention import flash as F
 
-    out, lse = F.flash_fwd_cuda(q, k, v, causal=False)
-    dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, causal=False)
-    dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, causal=False)
+    out, lse = F.flash_fwd_cuda(q, k, v, causal=causal)
+    check_close(torch, f"flash lse {name}", lse, got[1], FLASH_LSE_ATOL, FP32_RTOL)
+    if q.is_cuda and not (torch.equal(got[0], out) and torch.equal(got[1], lse)):
+        raise AssertionError(f"sparse_fwd {name}: out and lse must equal the flash forward's "
+                             f"(out differs at {int((got[0] != out).sum())} elements, lse at "
+                             f"{int((got[1] != lse).sum())} rows)")
+    dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, causal=causal)
+    dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, causal=causal)
     tiles = {n: {} for n in SPARSE_KERNELS}
     for kname, mine, theirs, tag in (("sparse_fwd", got[0], out, "out"),
                                      ("sparse_bwd_dq", got[2], dq, "dq"),
                                      ("sparse_bwd_dkv", got[3], dk, "dk"),
                                      ("sparse_bwd_dkv", got[4], dv, "dv")):
         hold(torch, errs, tiles, kname, f"{name}_flash_{tag}", theirs, mine)
-    check_close(torch, f"flash lse {name}", lse, got[1], FLASH_LSE_ATOL, FP32_RTOL)
     del out, lse, dq, dk, dv
     torch.cuda.synchronize()
+    return q.is_cuda
 
 
 def sparse_case_checks(torch, dev, b=1, h=32, d=128, s=4096):
     """The kernels group's checks at s 4096 (``sparse_cases``): each case
     against the plain versions; the dead rows exactly 0 (lse -1e30, finite
-    gradients); the dense case also against the flash kernels; the Fixed
+    gradients); the dense and the causal-triangle cases also against the
+    flash kernels, the forward's out and lse equal to flash's; the Fixed
     (128-block) and BigBird cases also against the splash kernels over the
     same layout (the splash oracle). Returns (errs, tile_errs, oracle
     counts)."""
     errs = {n: {} for n in SPARSE_KERNELS}
-    tile_errs = {"sparse_bwd_dq": {}, "sparse_bwd_dkv": {}}
-    oracle = {"splash": [], "flash": []}
+    tile_errs = {n: {} for n in SPARSE_KERNELS}
+    oracle = {"splash": [], "flash": [], "fwd_equal_flash": []}
     for i, (name, layout, block, causal) in enumerate(sparse_cases(h, s)):
         lay = torch.as_tensor(layout, dtype=torch.int32, device=dev)
         q, k, v, do = flash_inputs(torch, dev, b, h, h, s, d, seed=80 + i)
@@ -1407,8 +1422,9 @@ def sparse_case_checks(torch, dev, b=1, h=32, d=128, s=4096):
                 raise AssertionError("sparse_bwd_dq: the dead rows' dq must be exactly 0")
             if not all(bool(torch.isfinite(g).all()) for g in got[2:]):
                 raise AssertionError("sparse backward: non-finite gradients")
-        if name.startswith("d_"):
-            flash_against_sparse(torch, errs, name, q, k, v, do, got)
+        if name.startswith(("d_", "f_")):
+            if flash_against_sparse(torch, errs, name, q, k, v, do, got, causal):
+                oracle["fwd_equal_flash"].append(name)
             oracle["flash"].append(name)
         if name.startswith(("b_", "e_")):
             splash_against_sparse(torch, errs, name, q, k, v, do, lay, block, causal, got)
@@ -2238,31 +2254,39 @@ def kernel_fused_adam(torch, dev, shape=(4096, 14336)):
 
 
 # the block-quant kernel: the engine's quantize-on-write at a split step's
-# shape (the K or V of 32 decode slots + 4 chunks of 256 tokens: 8448 head
-# vectors of 128) and the JAX package's default block of 2048 over a
-# 4096 x 14336 bf16 tensor (one Mistral-7B MLP weight), each in the
-# deterministic and the stochastic mode
+# shape (the K and the V of 32 decode slots + 4 chunks of 256 tokens: 8448
+# head vectors of 128 each, one launch for the pair) and the JAX package's
+# default block of 2048 over a 4096 x 14336 bf16 tensor (one Mistral-7B MLP
+# weight), each in the deterministic and the stochastic mode
 QUANT_WRITE_ROWS = (32 + 4 * 256) * 8
 QUANT_SEED = 1234
 
 
 def block_quant_inputs(torch, dev, rows=QUANT_WRITE_ROWS, d=128, shape=(4096, 14336)):
-    """The engine's write (bf16 [rows, d], its first head vector zero) and
-    a weight-sized bf16 tensor, from a seed."""
+    """The engine's write (bf16 K and V [rows, d], K's first head vector
+    zero) and a weight-sized bf16 tensor, from a seed."""
     gen = torch.Generator(device=dev).manual_seed(80)
     x_kv = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
     x_kv[0] = 0  # a zero head vector: scale 0, codes 0
     x_big = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
-    return x_kv, x_big
+    v_kv = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
+    return (x_kv, v_kv), x_big
 
 
-def block_quant_mismatches(torch, x_kv, x_big, block):
-    """Elements where ``block_quant`` (codes, or scales by their bits) and
-    ``quantize_kv`` / ``quantize_blockwise_kernel`` differ from their plain
-    versions, by case, in the deterministic and the stochastic mode."""
+def block_quant_mismatches(torch, kv, x_big, block):
+    """Elements where ``block_quant`` and ``block_quant_pair`` (codes, or
+    scales by their bits) and ``quantize_kv_pair`` /
+    ``quantize_blockwise_kernel`` differ from their plain versions, by
+    case, in the deterministic and the stochastic mode."""
     from deepspeed_tpu_torch.ops.quantizer import block_quant as BQ
 
+    x_kv, v_kv = kv
     d = x_kv.shape[1]
+
+    def count(got, want):
+        return int((got[0] != want[0]).sum()) + int(
+            (got[1].view(torch.int32) != want[1].view(torch.int32)).sum())
+
     inputs = {f"kv_write_d{d}": x_kv, f"blockwise_{block}": x_big.view(-1, block),
               f"kv_write_d{d}_fp32": x_kv.float()}
     mismatches = {}
@@ -2271,19 +2295,32 @@ def block_quant_mismatches(torch, x_kv, x_big, block):
             got = BQ.block_quant(x, 127.0, stochastic, QUANT_SEED)
             want = BQ.block_quant_reference(x, 127.0, stochastic, QUANT_SEED)
             tag = f"{name}_{'stochastic' if stochastic else 'deterministic'}"
-            mismatches[tag] = int((got[0] != want[0]).sum()) + int(
-                (got[1].view(torch.int32) != want[1].view(torch.int32)).sum())
+            mismatches[tag] = count(got, want)
             if stochastic:  # every code is the floor or the ceiling of x * inv
                 scaled = x.float() * torch.where(want[1] > 0, 1 / want[1], 0)[:, None]
                 off = (got[0].float() - scaled).abs().max()
                 if float(off) >= 1:
                     raise AssertionError(f"block_quant {tag}: a code {float(off)} from x * inv")
             del got, want
-    # the engine's entry (a [t, nkv, d] write) and the int4 post-pass
+    # the pair (one launch over K and V), each plane as a call of its own
+    for dtype in (torch.bfloat16, torch.float32):
+        a, b = x_kv.to(dtype), v_kv.to(dtype)
+        for stochastic in (False, True):
+            got = BQ.block_quant_pair(a, b, 127.0, stochastic, QUANT_SEED)
+            tag = (f"pair_d{d}{'_fp32' if dtype == torch.float32 else ''}_"
+                   f"{'stochastic' if stochastic else 'deterministic'}")
+            mismatches[tag] = sum(
+                count(g, BQ.block_quant_reference(x, 127.0, stochastic, QUANT_SEED))
+                for g, x in zip(got, (a, b)))
+    # the engine's entry (a [t, nkv, d] write, one plane and the pair) and
+    # the int4 post-pass
     q, sc = BQ.quantize_kv(x_kv.view(-1, 8, d))
-    want = BQ.block_quant_reference(x_kv, 127.0)
-    mismatches["quantize_kv"] = int((q.view(-1, d) != want[0]).sum()) + int(
-        (sc.reshape(-1) != want[1]).sum())
+    mismatches["quantize_kv"] = count((q.view(-1, d), sc.reshape(-1)),
+                                      BQ.block_quant_reference(x_kv, 127.0))
+    (qk, sk), (qv, sv) = BQ.quantize_kv_pair(x_kv.view(-1, 8, d), v_kv.view(-1, 8, d))
+    mismatches["quantize_kv_pair"] = sum(
+        count((q.view(-1, d), sc.reshape(-1)), BQ.block_quant_reference(x, 127.0))
+        for q, sc, x in ((qk, sk, x_kv), (qv, sv, v_kv)))
     got4 = BQ.quantize_blockwise_kernel(x_big, bits=4, block_size=block)
     want4 = BQ.quantize_blockwise_kernel_reference(x_big, bits=4, block_size=block)
     mismatches["blockwise_int4"] = int((got4.values != want4.values).sum()) + int(
@@ -2294,43 +2331,58 @@ def block_quant_mismatches(torch, x_kv, x_big, block):
 def kernel_block_quant(torch, dev, rows=QUANT_WRITE_ROWS, d=128, shape=(4096, 14336),
                        block=2048):
     """``block_quant`` bitwise against its plain version (codes and scales
-    equal, no tolerance), then timed at both shapes."""
+    equal, no tolerance), then timed: the engine's pair (K and V of a write
+    in one launch, the main record), one plane alone and as two launches,
+    and the block of 2048."""
     from deepspeed_tpu_torch.ops.quantizer import block_quant as BQ
 
-    x_kv, x_big = block_quant_inputs(torch, dev, rows, d, shape)
-    mismatches = block_quant_mismatches(torch, x_kv, x_big, block)
+    (x_kv, v_kv), x_big = block_quant_inputs(torch, dev, rows, d, shape)
+    mismatches = block_quant_mismatches(torch, (x_kv, v_kv), x_big, block)
     if any(mismatches.values()):
         raise AssertionError(f"block_quant differs from its plain version: {mismatches}")
     torch.cuda.synchronize()
 
-    def timings(x, plain_iters):
-        n, blk = x.shape
-        moved = n * blk * (x.element_size() + 1) + n * 4
+    def moved(planes):
+        n, blk = planes[0].shape
+        return len(planes) * (n * blk * (planes[0].element_size() + 1) + n * 4)
+
+    def timings(planes, plain_iters):
+        if len(planes) == 2:
+            fn = lambda stochastic=False, seed=0: BQ.block_quant_pair(*planes, 127.0,
+                                                                     stochastic, seed)
+            plain = lambda: [BQ.block_quant_reference(x, 127.0) for x in planes]
+        else:
+            fn = lambda stochastic=False, seed=0: BQ.block_quant(planes[0], 127.0, stochastic,
+                                                                 seed)
+            plain = lambda: BQ.block_quant_reference(planes[0], 127.0)
         return {
-            "ms": time_ms(torch, lambda: BQ.block_quant(x, 127.0)),
-            "stochastic_ms": time_ms(torch, lambda: BQ.block_quant(x, 127.0, True, QUANT_SEED)),
-            "plain_ms": time_ms(torch, lambda: BQ.block_quant_reference(x, 127.0),
-                                iters=plain_iters),
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-            "bytes": moved,
+            "ms": time_ms(torch, fn),
+            "stochastic_ms": time_ms(torch, lambda: fn(True, QUANT_SEED)),
+            "plain_ms": time_ms(torch, plain, iters=plain_iters),
+            "bound_ms": moved(planes) / HBM_BYTES_PER_S * 1e3,
+            "bytes": moved(planes),
         }
 
-    main = timings(x_kv, 20)
-    big = timings(x_big.view(-1, block), 5)
+    pair = timings((x_kv, v_kv), 20)
+    single = timings((x_kv,), 20)
+    single["two_launches_ms"] = time_ms(
+        torch, lambda: (BQ.block_quant(x_kv, 127.0), BQ.block_quant(v_kv, 127.0)))
+    big = timings((x_big.view(-1, block),), 5)
     # about ten operations per element (abs, max, two products, round,
     # clip, convert) against bytes at >= 3 per element: bytes bound it
     return {
         "name": "block_quant",
-        "shape": {"write": [rows, d], "blockwise": [*shape], "block": block},
+        "shape": {"write": [rows, d], "planes": 2, "blockwise": [*shape], "block": block},
         "max_abs_err": 0.0,
         "mismatches_by_case": mismatches,
         "tolerance": "bitwise (codes and scales equal)",
-        **main,
+        **pair,
         "bound_by": "bytes",
         "library_ms": None,
         "library": None,
         "library_none_because": "no single PyTorch call quantizes to int8 with one absmax "
                                 "scale per block",
+        "one_plane": single,
         f"blockwise_{block}": big,
     }
 
@@ -2520,8 +2572,8 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False,
     fwd_steps = split_steps + 64
     expected = {name: 0 for name in launches}
     expected["rms_norm_fwd"] = (2 * L + 1) * fwd_steps
-    if int8:  # quantize-on-write: K and V of every layer of every forward step
-        expected.update({"paged_decode_int8": L * fwd_steps, "block_quant": 2 * L * fwd_steps})
+    if int8:  # quantize-on-write: K and V of every layer of every forward step, one launch
+        expected.update({"paged_decode_int8": L * fwd_steps, "block_quant": L * fwd_steps})
     else:
         expected["paged_decode"] = L * fwd_steps
     rec["launches_expected"] = expected
@@ -2853,7 +2905,7 @@ def engine_per_row_int8_phase(torch, dev, K, widths=None, engine_config=None,
     del eng._row_step
     row_steps = len(calls)
     expected = {name: 0 for name in launches}
-    expected.update({"paged_decode_int8": L * row_steps, "block_quant": 2 * L * row_steps,
+    expected.update({"paged_decode_int8": L * row_steps, "block_quant": L * row_steps,
                      "rms_norm_fwd": (2 * L + 1) * row_steps})
     rec.update(launches=launches, launches_expected=expected, row_steps=row_steps)
     if dev.type == "cuda" and launches != expected:  # the CPU runs the plain versions

@@ -11,8 +11,9 @@ bodies are eager PyTorch:
     [L * NBp, bs, nkv, d] through layer-offset tables and trash ids;
   * ``kv_cache.kv_cache_dtype="int8"``: the pools hold int8 codes beside
     fp32 scale planes [L, num_blocks + 1, block_size, n_kv], one scale per
-    head vector. Every write quantizes (``quantize_kv``: the CUDA
-    block-quant kernel on a card); every read dequantizes (the int8 form of
+    head vector. Every write quantizes K and V together
+    (``quantize_kv_pair``: one launch of the CUDA block-quant kernel on a
+    card); every read dequantizes (the int8 form of
     the paged-decode kernel, or the plain gathers). A step's or round's own
     K/V, attended as extra columns, stay in the compute dtype;
   * the split-phase step runs R decode slots and Rc prompt chunks of tq
@@ -67,7 +68,7 @@ from deepspeed_tpu_torch.ops.attention.paged import (
     paged_chunk_attention,
     resolve_impl,
 )
-from deepspeed_tpu_torch.ops.quantizer.block_quant import quantize_kv
+from deepspeed_tpu_torch.ops.quantizer.block_quant import quantize_kv_pair
 from deepspeed_tpu_torch.ops.sparse_attention.splash import splash_prefill_attention
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -384,14 +385,15 @@ class InferenceEngineV2:
         """Write the new tokens' K/V into the pools IN PLACE through one
         index_put on a flat slot view [L*NBp*bs, nkv, d] (the JAX package
         scatters into a donated buffer instead). blk/row: [t] int32. An
-        int8 pool quantizes on write (``quantize_kv``, per head vector) and
-        its scales go through the same slot ids."""
+        int8 pool quantizes on write (``quantize_kv_pair``, per head vector,
+        K and V in one launch) and its scales go through the same slot
+        ids."""
         c, kv = self._mc, self.config.kv_cache
         L, NBp, bs = c.n_layers, kv.num_blocks + 1, kv.block_size
         slot = ((li * NBp + blk.long()) * bs + row.long())
         flat = (L * NBp * bs, c.kv_heads, c.head_dim)
         if self._kv_int8:
-            (k, sk), (v, sv) = quantize_kv(k), quantize_kv(v)
+            (k, sk), (v, sv) = quantize_kv_pair(k, v)
             self._ks_cache.view(flat[:2])[slot] = sk
             self._vs_cache.view(flat[:2])[slot] = sv
         self._k_cache.view(flat)[slot] = k.to(self._k_cache.dtype)

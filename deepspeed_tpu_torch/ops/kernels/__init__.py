@@ -117,8 +117,9 @@ KERNELS: Dict[str, Kernel] = {
         ),
         Kernel(
             "block_quant", "block_quant.cu", "dstt_block_quant",
-            # x, q, scales, rows, block, qmax, stochastic, seed, x_bf16, stream
-            [_P] * 3 + [ctypes.c_longlong, _I, ctypes.c_float, _I, ctypes.c_uint32, _I, _P],
+            # x, q, scales, x2, q2, scales2 (a second plane, or null), rows,
+            # block, qmax, stochastic, seed, x_bf16, stream
+            [_P] * 6 + [ctypes.c_longlong, _I, ctypes.c_float, _I, ctypes.c_uint32, _I, _P],
             "deepspeed_tpu/ops/quantizer/block_quant.py:519",
         ),
         Kernel(

@@ -154,19 +154,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o, const
   return (int)cudaGetLastError();
 }
 
-Problem problem(int b, int h, int s, float scale, int causal) {
-  Problem p;
-  p.b = b;
-  p.h = h;
-  p.h_kv = h;
-  p.s = s;
-  p.scale = scale;
-  p.causal = causal;
-  p.window = 0;
-  p.seg = nullptr;
-  return p;
-}
-
 }  // namespace
 
 // q, k, v, o, do, dq: [b, h, s, d] bf16; lse: [b, h, s] fp32 from
@@ -179,8 +166,13 @@ extern "C" int dstt_sparse_bwd_dq(const void* q, const void* k, const void* v, c
                                   void* dq, int b, int h, int s, int d, float scale, int nb,
                                   int lg, int causal, void* stream) {
   if (!sp::problem_ok(s, nb, lg)) return (int)cudaErrorInvalidValue;
-  const Problem p = problem(b, h, s, scale, causal);
-  const sp::LayoutDqWalk w{static_cast<const int*>(layout), nb, lg, s, causal};
+  const Problem p = sp::problem(b, h, s, scale, causal);
+  sp::LayoutDqWalk w;
+  w.layout = static_cast<const int*>(layout);
+  w.nb = nb;
+  w.lg = lg;
+  w.s = s;
+  w.causal = causal;
   const float* L = static_cast<const float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
@@ -200,7 +192,7 @@ extern "C" int dstt_sparse_bwd_dkv(const void* q, const void* k, const void* v, 
                                    void* dk, void* dv, int b, int h, int s, int d, float scale,
                                    int nb, int lg, int causal, void* cta_clock, void* stream) {
   if (!sp::problem_ok(s, nb, lg)) return (int)cudaErrorInvalidValue;
-  const Problem p = problem(b, h, s, scale, causal);
+  const Problem p = sp::problem(b, h, s, scale, causal);
   const sp::LayoutDkvWalk w{static_cast<const int*>(layout_t), nb, lg, lg < 6 ? 6 - lg : 0, s,
                             causal};
   const float* L = static_cast<const float*>(lse);

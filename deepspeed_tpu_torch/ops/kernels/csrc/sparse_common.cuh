@@ -1,8 +1,8 @@
 // Shared pieces of the layout-predicate sparse kernels (sparse_fwd.cu,
-// sparse_bwd.cu): the problem description, the forward's per-CTA masks
-// built from the int32 layout and its rule for a kept pair, and the
-// backward's two walks, policies of flash_hopper_bwd.cuh's dq and dk/dv
-// CTA bodies that read the layout itself (never a splash schedule).
+// sparse_bwd.cu): the problem's checks and its flash description, and the
+// walks that read the int32 layout itself (never a splash schedule):
+// policies of flash_hopper.cuh's forward CTA body and flash_hopper_bwd.cuh's
+// dq and dk/dv CTA bodies.
 //
 // The layout is int32 [h, nb, nb] with nb = s / block and block in {16, 32,
 // 64, 128, 256} (log2 ``lg``): layout[h, i, j] != 0 keeps every pair of row
@@ -11,109 +11,67 @@
 // A pair is kept iff its blocks' entry is set and, when causal, the key is
 // not after the query.
 //
-// Forward (mma.sync): a CTA owns one 64-row tile of one (batch, head) and
-// walks the 64-column tiles of the other axis. At its start it folds the
-// layout rows its tile overlaps into one 16-bit mask per column tile: with
-// sub = max(1, 64 / block) layout blocks per tile side, bit (i * sub + j)
-// is the layout entry of the tile's i-th row block and the column tile's
-// j-th column block. A column tile whose mask is 0 is skipped before any
-// load; inside a visited tile a pair is kept iff its bit is set (and, when
-// causal, the key is not after the query). Blocks of 64 and more give one
-// bit per tile.
+// Each walk hands its CTA body's consumer warpgroups, with every tile, a
+// code per warpgroup: skip (no pair of the warpgroup's rows is kept), whole
+// (every pair is: no predicate) or a predicate, whose bits say which of the
+// warpgroup's layout blocks keep the tile's. A tile that keeps no pair for
+// either warpgroup is dropped before any copy, and a bit is set only where
+// its blocks keep at least one pair under the causal bound, so every tile
+// handed over keeps a pair. The forward and dq walks share one scan of the
+// layout's rows (LayoutRowWalk) and differ only in how a stage is issued
+// and in the tile's width. ops/sparse_attention/sparse.py's
+// ``layout_walk`` and ``layout_dkv_walk`` are the walks' plain models.
 //
-// Backward (LayoutDqWalk, LayoutDkvWalk below): each walk hands its CTA
-// body's consumer warpgroups, with every tile, a code per warpgroup: skip
-// (no pair of the warpgroup's rows is kept), whole (every pair is: no
-// predicate) or a predicate, whose bits say which of the warpgroup's layout
-// blocks keep the tile's. A tile that keeps no pair for either warpgroup is
-// dropped before any copy, and a bit is set only where its blocks keep at
-// least one pair under the causal bound, so every tile handed over keeps a
-// pair. ops/sparse_attention/sparse.py's ``layout_walk`` and
-// ``layout_dkv_walk`` are the walks' plain models.
-//
-// Masked logits are -1e30 (the Pallas bodies' NEG_INF) and exp() of a logit
-// at or below -5e29 is taken as 0, so a row that keeps no key gives O = 0,
-// lse = -1e30 + log(1e-30) (-1e30 in fp32), and zero gradients.
+// Masked logits contribute exactly 0, so a row that keeps no key gives O =
+// 0, lse = -1e30 (the Pallas bodies' NEG_INF) and zero gradients.
 #pragma once
 
 #include "flash_hopper_bwd.cuh"
+#include "splash_common.cuh"
 
 namespace dstt {
 namespace sparse {
 
 constexpr float NEG_INF = -1e30f;
 
-struct Problem {
-  int b, h, s;
-  float scale;
-  int causal;
-  int nb;  // layout blocks per axis (s / block)
-  int lg;  // log2(block)
-};
-
-// layout blocks per side of a 64-row tile (1 for blocks of 64 and more)
-__host__ __device__ inline int sub_blocks(int lg) { return lg < 6 ? (flash::TILE >> lg) : 1; }
-
-__host__ __device__ inline int n_tiles(int s) { return (s + flash::TILE - 1) / flash::TILE; }
-
-// masks[ct] for every column tile ct of the CTA whose tile starts at row r0;
-// lay is this head's [nb, nb] plane (rows on the CTA's axis).
-__device__ __forceinline__ void build_masks(uint16_t* masks, const int* __restrict__ lay,
-                                            const Problem& p, int r0) {
-  const int sub = sub_blocks(p.lg);
-  const int rb0 = r0 >> p.lg;
-  const int nt = n_tiles(p.s);
-  for (int ct = threadIdx.x; ct < nt; ct += flash::NTHREADS) {
-    const int cb0 = (ct * flash::TILE) >> p.lg;
-    uint32_t m = 0;
-    for (int i = 0; i < sub && rb0 + i < p.nb; ++i) {
-      const int* row = lay + (int64_t)(rb0 + i) * p.nb;
-      for (int j = 0; j < sub && cb0 + j < p.nb; ++j) {
-        if (row[cb0 + j] != 0) m |= 1u << (i * sub + j);
-      }
-    }
-    masks[ct] = (uint16_t)m;
-  }
-}
-
-// The bits of one row (local row lr of the CTA's tile) within a column
-// tile's mask: bit j is the row's j-th column block.
-__device__ __forceinline__ uint32_t row_bits(uint32_t mask, const Problem& p, int lr) {
-  const int sub = sub_blocks(p.lg);
-  return (mask >> ((lr >> p.lg) * sub)) & ((1u << sub) - 1u);
-}
-
-// Is local column lc (of a visited tile) kept for a row with these bits?
-__device__ __forceinline__ bool col_kept(uint32_t bits, const Problem& p, int lc) {
-  return (bits >> (lc >> p.lg)) & 1u;
-}
-
-// Bytes of the masks, rounded up to 16.
-__host__ inline size_t mask_bytes(int s) {
-  return ((size_t)n_tiles(s) * sizeof(uint16_t) + 15) / 16 * 16;
-}
-
 // Does the kernel take this problem? (the wrapper checks first)
 __host__ inline bool problem_ok(int s, int nb, int lg) {
   return lg >= 4 && lg <= 8 && nb > 0 && (nb << lg) == s;
 }
 
-// ---------------------------------------------------------------------------
-// The backward's walks. A code's or kind's bits are over the layout blocks
-// of 64 rows (or keys): the x-th row of a 64-aligned group lies in its
-// (x & 63) >> lg-th block, the 0-th for blocks of 64 and more.
+// The flash bodies' problem: heads matched (the caller expands GQA), no
+// band, no segment ids.
+__host__ inline flash::Problem problem(int b, int h, int s, float scale, int causal) {
+  flash::Problem p;
+  p.b = b;
+  p.h = h;
+  p.h_kv = h;
+  p.s = s;
+  p.scale = scale;
+  p.causal = causal;
+  p.window = 0;
+  p.seg = nullptr;
+  return p;
+}
 
-// dq: a walk of flash_hopper_bwd.cuh's dq CTA (BQ 128 query rows, two
-// consumer warpgroups of 64, key tiles of BK) over the CTA's layout rows.
-// Each stage's word is (k0 / BK) << 6 | code 0 | code 1 << 3 with a code
-// per warpgroup (flash_hopper.cuh): 0 skip, 1 kept under the causal bound,
-// SCHEDULED_WHOLE, or SCHEDULED_COLUMNS, where the stage's kinds bytes hold
-// a bitmask per key column: bit i says whether the warpgroup's i-th row
-// block keeps the column's block. Blocks of 64 and more put a warpgroup's
-// rows in one block and a key tile in one block: scalar codes, one tile a
-// lane, 32 tiles at once. Blocks of 16 and 32 (4 or 2 row blocks a
-// warpgroup) take the per-column form, a tile at a time.
-struct LayoutDqWalk {
+// ---------------------------------------------------------------------------
+// A code's or kind's bits are over the layout blocks of 64 rows (or keys):
+// the x-th row of a 64-aligned group lies in its (x & 63) >> lg-th block,
+// the 0-th for blocks of 64 and more.
+
+// The forward's and dq's walk over a CTA's layout rows (128 query rows, two
+// consumer warpgroups of 64, key tiles of BK: the forward's 128, 64 at d
+// 256; dq's 64, 32 at d 256). Each stage's word is (k0 / BK) << 6 | code 0
+// | code 1 << 3 with a code per warpgroup (flash_hopper.cuh): 0 skip, 1
+// kept under the causal bound, SCHEDULED_WHOLE, or SCHEDULED_COLUMNS, where
+// the stage's kinds bytes hold a bitmask per key column: bit i says whether
+// the warpgroup's i-th row block keeps the column's block (and the block's
+// last row sees the key, when causal). Blocks of at least 64 and of BK put
+// a warpgroup's rows in one block and a key tile in one block: scalar
+// codes, one tile a lane, 32 tiles at once. Smaller blocks (16 and 32: 4
+// or 2 row blocks a warpgroup; 64 under the forward's 128-key tiles: two
+// key blocks a tile) take the per-column form, a tile at a time.
+struct LayoutRowWalk {
   static constexpr bool SCHEDULED = true;
   const int* layout;  // [h, nb, nb], rows = query blocks
   int nb, lg, s, causal;
@@ -125,50 +83,30 @@ struct LayoutDqWalk {
     return on & (q < s) & (k < s) & (!causal | (k <= q));
   }
 
-  // The producer warp's walk over the key tiles (when causal, none past the
-  // CTA's last row), in ascending order. Returns the stages issued.
-  template <int D>
-  __device__ __forceinline__ int produce(const flash_hopper::DqSmem<D, true>& sm,
-                                         const CUtensorMap* const* maps,
-                                         const flash::Problem& p, const flash_hopper::Tile& tile,
-                                         int lane) const {
-    namespace fh = flash_hopper;
-    namespace hp = hopper;
-    using T = fh::BwdTiles<D>;
-    constexpr int BK = T::BK, S = T::STAGES, IDS = BK / 32;
-    constexpr int COLUMNS = fh::SCHEDULED_COLUMNS, WHOLE = fh::SCHEDULED_WHOLE;
-    const int* lay = layout + (int64_t)(tile.bh % p.h) * nb * nb;
-    const int q0 = tile.q0;
-    const int nt = ((causal ? min(q0 + fh::BwdTiles<D>::BQ, s) : s) + BK - 1) / BK;
-    int it = 0;
-    // hands tile `word` over: its column bitmasks (kc[w], this lane's IDS
-    // bytes) where its code is SCHEDULED_COLUMNS, then K and V by TMA
-    auto issue = [&](int word, const uint32_t(&kc)[2]) {
-      const int st = it % S, k0 = (word >> 6) * BK;
-      hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        if (((word >> (3 * w)) & 7) != COLUMNS) continue;
-        unsigned char* at = sm.kinds + (2 * st + w) * BK + lane * IDS;
-        if constexpr (IDS == 2) *reinterpret_cast<uint16_t*>(at) = (uint16_t)kc[w];
-        else *at = (unsigned char)kc[w];
-      }
-      if (lane == 0) {
-        sm.k0s[st] = word;
-        hp::mbar_arrive_expect_tx(&sm.full[st], fh::DqSmem<D>::STAGE);
-#pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          hp::tma_load_3d(sm.k(st) + c * BK * 128, maps[2], &sm.full[st], 64 * c, k0, tile.bkv);
-          hp::tma_load_3d(sm.v(st) + c * BK * 128, maps[3], &sm.full[st], 64 * c, k0, tile.bkv);
-        }
-      } else {
-        hp::mbar_arrive(&sm.full[st]);  // after this lane's column bytes
-      }
-      ++it;
+  // Walks the key tiles of the CTA of query rows [q0, q0 + 128) of head hi
+  // (when causal, none past its last row) in ascending order and calls
+  // issue(n, word, kinds) for the n-th tile handed over (kinds[w]: this
+  // lane's BK / 32 column bitmasks of warpgroup w, a byte each, lowest
+  // column first, where its code is SCHEDULED_COLUMNS); then(n, k0) follows
+  // once the next tile is walked (or the walk ends), as splash's RowWalk
+  // does for the forward's V. Returns the tiles handed over.
+  template <int BK, class Issue, class Then>
+  __device__ __forceinline__ int walk(int hi, int q0, int lane, Issue issue, Then then) const {
+    constexpr int IDS = BK / 32;
+    constexpr int COLUMNS = flash_hopper::SCHEDULED_COLUMNS, WHOLE = flash_hopper::SCHEDULED_WHOLE;
+    const int* lay = layout + (int64_t)hi * nb * nb;
+    const int nt = ((causal ? min(q0 + 128, s) : s) + BK - 1) / BK;
+    int n = 0, last = 0;
+    auto hand_over = [&](int word, const uint32_t(&kc)[2]) {
+      if (n > 0) then(n - 1, last);
+      issue(n, word, kc);
+      last = (word >> 6) * BK;
+      ++n;
     };
-    if (lg >= 6) {
+    if ((1 << lg) >= max(64, BK)) {
       // a warpgroup's rows lie in one block, all below s or all past it (s
-      // is a multiple of the block); lane j takes tile t0 + j
+      // is a multiple of the block), and a tile in one block; lane j takes
+      // tile t0 + j
       int row[2];
 #pragma unroll
       for (int w = 0; w < 2; ++w) row[w] = q0 + 64 * w < s ? ((q0 + 64 * w) >> lg) * nb : -1;
@@ -186,12 +124,13 @@ struct LayoutDqWalk {
         }
         for (uint32_t live = __ballot_sync(0xffffffffu, (word & 63) != 0); live;
              live &= live - 1)
-          issue(__shfl_sync(0xffffffffu, word, __ffs(live) - 1), none);
+          hand_over(__shfl_sync(0xffffffffu, word, __ffs(live) - 1), none);
       }
     } else {
       // per column: bit i of a column's byte is row block i of the
-      // warpgroup's 64 >> lg (kept where the block's last row sees the key)
-      const int R = 64 >> lg;
+      // warpgroup's max(1, 64 >> lg) (kept where the block's last row sees
+      // the key)
+      const int R = lg < 6 ? 64 >> lg : 1;
       for (int t = 0; t < nt; ++t) {
         const int k0 = t * BK;
         uint32_t kc[2] = {0u, 0u};
@@ -215,10 +154,53 @@ struct LayoutDqWalk {
           all = __all_sync(0xffffffffu, all);
           word |= (!any ? 0 : all ? WHOLE : COLUMNS) << (3 * w);
         }
-        if (word & 63) issue(word, kc);
+        if (word & 63) hand_over(word, kc);
       }
     }
-    return it;
+    if (n > 0) then(n - 1, last);
+    return n;
+  }
+};
+
+// dq (flash_hopper_bwd.cuh's dq CTA): K and V of each tile on one barrier.
+struct LayoutDqWalk : LayoutRowWalk {
+  // The producer warp's stages. Returns the stages issued.
+  template <int D>
+  __device__ __forceinline__ int produce(const flash_hopper::DqSmem<D, true>& sm,
+                                         const CUtensorMap* const* maps,
+                                         const flash::Problem& p, const flash_hopper::Tile& tile,
+                                         int lane) const {
+    namespace fh = flash_hopper;
+    namespace hp = hopper;
+    using T = fh::BwdTiles<D>;
+    constexpr int BK = T::BK, S = T::STAGES, IDS = BK / 32;
+    // tile `word`: its column bitmasks where its code is SCHEDULED_COLUMNS,
+    // then K and V by TMA
+    return walk<BK>(
+        tile.bh % p.h, tile.q0, lane,
+        [&](int it, int word, const uint32_t(&kc)[2]) {
+          const int st = it % S, k0 = (word >> 6) * BK;
+          hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            if (((word >> (3 * w)) & 7) == fh::SCHEDULED_COLUMNS)
+              splash::store_kinds<IDS>(sm.kinds + (2 * st + w) * BK + lane * IDS, kc[w]);
+          }
+          if (lane == 0) {
+            sm.k0s[st] = word;
+            hp::mbar_arrive_expect_tx(&sm.full[st], fh::DqSmem<D>::STAGE);
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c) {
+              hp::tma_load_3d(sm.k(st) + c * BK * 128, maps[2], &sm.full[st], 64 * c, k0,
+                              tile.bkv);
+              hp::tma_load_3d(sm.v(st) + c * BK * 128, maps[3], &sm.full[st], 64 * c, k0,
+                              tile.bkv);
+            }
+          } else {
+            hp::mbar_arrive(&sm.full[st]);  // after this lane's column bytes
+          }
+        },
+        [](int, int) {});
   }
 };
 

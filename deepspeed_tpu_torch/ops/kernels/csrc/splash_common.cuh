@@ -257,6 +257,36 @@ struct RowWalk {
   }
 };
 
+// The forward's state at the start of a CTA's walk (O 0, m -inf, l 0).
+template <int N>
+__device__ __forceinline__ void init_empty(float (&o)[N], float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] = 0.f;
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+}
+
+// flash_hopper.cuh's store_out, with a row that kept nothing (l = 0) at lse
+// -1e30 (its O is 0 / 1e-30 = 0): the Pallas bodies' dead-row result.
+template <int D>
+__device__ __forceinline__ void store_out(bf16* ob, float* lseb, const float (&o)[D / 2],
+                                          const float (&m)[2], const float (&l)[2], int row0,
+                                          int row1, int s, int tq) {
+  const float ls[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  const int rows[2] = {row0, row1};
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (rows[u] >= s) continue;
+    bf16* orow = ob + (int64_t)rows[u] * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * u] / ls[u], o[4 * j + 2 * u + 1] / ls[u]);
+    }
+    if (tq == 0) lseb[rows[u]] = l[u] > 0.f ? m[u] + logf(ls[u]) : NEG_INF;
+  }
+}
+
 // This lane's BK / 32 column kinds of one warpgroup into a stage's row of
 // BK bytes (lane * IDS is a multiple of IDS bytes: one aligned store)
 template <int IDS>

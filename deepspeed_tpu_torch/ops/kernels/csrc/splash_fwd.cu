@@ -104,28 +104,9 @@ __global__ void __launch_bounds__(fh::THREADS, 1)
   float* lseb = lse + (int64_t)tile.bh * p.s;
   fh::fwd_cta<D>(
       smem_raw, &qmap, &kmap, &vmap, p, tile,
-      [&](auto& o, auto& m, auto& l, int, int, int) {
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-        m[0] = m[1] = -INFINITY;
-        l[0] = l[1] = 0.f;
-      },
-      // flash_hopper.cuh's store_out, with a row that kept nothing at lse
-      // -1e30 (its O is 0 / 1e-30 = 0)
+      [](auto& o, auto& m, auto& l, int, int, int) { sp::init_empty(o, m, l); },
       [&](const auto& o, const auto& m, const auto& l, int row0, int row1, int tq) {
-        const float ls[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
-        const int rows[2] = {row0, row1};
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (rows[u] >= p.s) continue;
-          bf16* orow = ob + (int64_t)rows[u] * D + 2 * tq;
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-                __floats2bfloat162_rn(o[4 * j + 2 * u] / ls[u], o[4 * j + 2 * u + 1] / ls[u]);
-          }
-          if (tq == 0) lseb[rows[u]] = l[u] > 0.f ? m[u] + logf(ls[u]) : sp::NEG_INF;
-        }
+        sp::store_out<D>(ob, lseb, o, m, l, row0, row1, p.s, tq);
       },
       walk);
 }

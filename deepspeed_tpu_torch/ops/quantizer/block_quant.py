@@ -15,9 +15,12 @@ two per byte) and one fp32 scale = absmax / qmax. Dequant is ``q * scale``.
     ``_quant_kernel``): rows [n, block] -> int8 codes [n, block] and fp32
     scales [n]. A CPU tensor takes its plain version,
     ``block_quant_reference``; a CUDA tensor launches the kernel or raises.
+  * ``block_quant_pair``: two planes of one shape (the K and the V of one
+    write) in one launch, each as ``block_quant`` of it.
   * ``quantize_kv`` / ``dequantize_kv``: per-head-vector int8 for the paged
-    KV pools, i.e. ``block_quant`` with a block of d (the engine's
-    quantize-on-write; on a card every write launches the kernel).
+    KV pools, i.e. ``block_quant`` with a block of d; ``quantize_kv_pair``
+    quantizes K and V of one write in one launch (the engine's
+    quantize-on-write: on a card every write launches the kernel once).
   * ``quantize_blockwise_kernel``: the counterpart of
     ``quantize_blockwise_pallas`` (rows padded to a multiple of 8, the int4
     pack a torch post-pass), with its plain version
@@ -179,34 +182,63 @@ def block_quant_reference(rows, qmax: float = 127.0, stochastic: bool = False, s
     return q, scales[:, 0]
 
 
+def _kernel_rows(rows, where):
+    """Check what the kernel takes; return the rows contiguous."""
+    if rows.device.type != "cuda":
+        raise ValueError(f"{where}: rows on {rows.device}; expected a CPU or CUDA tensor")
+    if rows.dim() != 2 or rows.shape[1] % 8 or rows.shape[1] == 0:
+        raise ValueError(f"{where}: rows {tuple(rows.shape)}; expected [n, block] with "
+                         "block a positive multiple of 8")
+    if rows.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"{where}: {rows.dtype} rows; the kernel takes bf16 or fp32")
+    rows = rows.contiguous()
+    if rows.numel() and rows.data_ptr() % 16:
+        raise ValueError(f"{where}: rows must be 16-byte aligned")
+    return rows
+
+
+def _launch(planes, qmax, stochastic, seed):
+    """One launch of the kernel over one or two planes of one shape and
+    dtype; returns [(codes, scales)] a plane."""
+    n, block = planes[0].shape
+    out = [(torch.empty((n, block), dtype=torch.int8, device=x.device),
+            torch.empty((n,), dtype=torch.float32, device=x.device)) for x in planes]
+    if n == 0:
+        return out
+    ptrs = [(x.data_ptr(), q.data_ptr(), sc.data_ptr()) for x, (q, sc) in zip(planes, out)]
+    second = ptrs[1] if len(ptrs) == 2 else (None, None, None)
+    rc = QUANT_KERNEL.fn()(*ptrs[0], *second, n, block, ctypes.c_float(qmax),
+                           int(bool(stochastic)), ctypes.c_uint32(int(seed) & M32),
+                           int(planes[0].dtype == torch.bfloat16), stream_ptr(planes[0]))
+    QUANT_KERNEL.check(rc)
+    QUANT_KERNEL.launches += 1
+    return out
+
+
 def block_quant(rows, qmax: float = 127.0, stochastic: bool = False, seed: int = 0):
     """The block_quant kernel's wrapper. A CPU tensor takes the plain
     version (``block_quant_reference``); a CUDA tensor launches the kernel
     or raises. rows: [n, block] bf16 or fp32, block a multiple of 8."""
     if rows.device.type == "cpu":
         return block_quant_reference(rows, qmax, stochastic, seed)
-    if rows.device.type != "cuda":
-        raise ValueError(f"block_quant: rows on {rows.device}; expected a CPU or CUDA tensor")
-    if rows.dim() != 2 or rows.shape[1] % 8 or rows.shape[1] == 0:
-        raise ValueError(f"block_quant: rows {tuple(rows.shape)}; expected [n, block] with "
-                         "block a positive multiple of 8")
-    if rows.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"block_quant: {rows.dtype} rows; the kernel takes bf16 or fp32")
-    rows = rows.contiguous()
-    n, block = rows.shape
-    q = torch.empty((n, block), dtype=torch.int8, device=rows.device)
-    scales = torch.empty((n,), dtype=torch.float32, device=rows.device)
-    if n == 0:
-        return q, scales
-    if rows.data_ptr() % 16:
-        raise ValueError("block_quant: rows must be 16-byte aligned")
-    fn = QUANT_KERNEL.fn()
-    rc = fn(rows.data_ptr(), q.data_ptr(), scales.data_ptr(), n, block, ctypes.c_float(qmax),
-            int(bool(stochastic)), ctypes.c_uint32(int(seed) & M32),
-            int(rows.dtype == torch.bfloat16), stream_ptr(rows))
-    QUANT_KERNEL.check(rc)
-    QUANT_KERNEL.launches += 1
-    return q, scales
+    return _launch([_kernel_rows(rows, "block_quant")], qmax, stochastic, seed)[0]
+
+
+def block_quant_pair(a, b, qmax: float = 127.0, stochastic: bool = False, seed: int = 0):
+    """Two planes of rows of one shape and dtype (the K and the V of one
+    write) in one launch: ((codes, scales) of a, of b), each what
+    ``block_quant`` of it gives (stochastic noise indexed within each
+    plane). CPU tensors take the plain version, ``block_quant_reference``
+    of each; CUDA tensors launch the kernel once or raise."""
+    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+        raise ValueError(f"block_quant_pair: planes {tuple(a.shape)} {a.dtype} {a.device} and "
+                         f"{tuple(b.shape)} {b.dtype} {b.device}; expected one shape, dtype "
+                         "and device")
+    if a.device.type == "cpu":
+        return (block_quant_reference(a, qmax, stochastic, seed),
+                block_quant_reference(b, qmax, stochastic, seed))
+    planes = [_kernel_rows(x, "block_quant_pair") for x in (a, b)]
+    return tuple(_launch(planes, qmax, stochastic, seed))
 
 
 def quantize_kv(x):
@@ -219,6 +251,15 @@ def quantize_kv(x):
     d = x.shape[-1]
     q, scales = block_quant(x.reshape(-1, d), _QMAX[8])
     return q.view(x.shape), scales.view(x.shape[:-1])
+
+
+def quantize_kv_pair(k, v):
+    """``quantize_kv`` of K and of V of one write (one shape): ((k payload,
+    k scales), (v payload, v scales)). On a card: one ``block_quant``
+    launch over both planes (the engine's quantize-on-write)."""
+    d = k.shape[-1]
+    (qk, sk), (qv, sv) = block_quant_pair(k.reshape(-1, d), v.reshape(-1, d), _QMAX[8])
+    return (qk.view(k.shape), sk.view(k.shape[:-1])), (qv.view(v.shape), sv.view(v.shape[:-1]))
 
 
 def dequantize_kv(values, scales, dtype=torch.float32):

@@ -10,22 +10,25 @@ block, key block) pair the layout marks 0 is skipped, ``causal`` masks
 ``sparse_bwd.cu``:
 
   * ``sparse_fwd``     replaces ``_sparse_fwd_kernel``: out and an fp32 LSE
-    [b, h, s] (mma.sync);
+    [b, h, s] over the layout's row, on the flash forward's CTA body
+    (wgmma fed by TMA) with a walk that reads the layout
+    (``layout_fwd_walk`` is its plain model: the key tiles a CTA of 128
+    query rows visits, with a code per consumer warpgroup);
   * ``sparse_bwd_dq``  replaces ``_sparse_bwd_dq_kernel``: dq over the
-    layout's row, on the flash dq CTA body (wgmma fed by TMA) with a walk
-    that reads the layout (``layout_walk`` is its plain model: the key
-    tiles a CTA of 128 query rows visits, with a code per consumer
-    warpgroup);
+    layout's row, on the flash dq CTA body with the same scan of the layout
+    over dq's narrower key tiles (``layout_walk``);
   * ``sparse_bwd_dkv`` replaces ``_sparse_bwd_dkv_kernel``: dk, dv over the
     layout's column, on the flash dk/dv CTA body with a walk over the
     transposed layout (``layout_dkv_walk``).
 
 The kernels read the layout itself, never a splash schedule: their choice
-of tiles and their rule for a kept pair are their own. Their backward runs
-on the same CTA bodies as the flash and splash kernels', so beside the
-splash kernels over ``schedule_from_layout`` (``chip_smoke.py``'s
-``splash_against_sparse``) they check two walks over one body; the body is
-held by each kernel's plain version and by the flash kernels' digests.
+of tiles and their rule for a kept pair are their own. They run on the same
+CTA bodies as the flash and splash kernels, so beside the splash kernels
+over ``schedule_from_layout`` (``chip_smoke.py``'s ``splash_against_sparse``)
+they check two walks over one body; the body is held by each kernel's plain
+version and by the flash kernels' digests, and over a layout that keeps
+every block (dense, or the causal triangle in blocks of the forward's tile
+or more) the forward's out and lse equal the flash forward's.
 Head counts must match: the caller expands GQA first
 (``SparseSelfAttention`` does).
 
@@ -35,8 +38,8 @@ over the layout's token mask, in chunks of query rows so that no [h, s, s]
 tensor is formed. A CPU tensor takes the plain versions (any float dtype,
 any block); a CUDA tensor launches the kernels or raises for what they do
 not take (a dtype other than bf16, a head_dim outside 64/128/256, a block
-outside 16/32/64/128/256 or one that does not divide s). Nothing falls
-back.
+outside 16/32/64/128/256 or one that does not divide s; the forward also a
+scale that is not positive). Nothing falls back.
 
 ``sparse_attention`` is the differentiable entry (``SparseAttention``, an
 autograd Function saving q, k, v, out and lse); the dense oracle
@@ -52,7 +55,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.attention.core import NEG_INF
-from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES
+from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES, FWD_TILES
 from deepspeed_tpu_torch.ops.kernels import KERNELS, stream_ptr
 # tensor helpers only: the plain versions' row chunks, the default scale and
 # the kernels' 16-byte alignment (the sparse kernels never read a schedule)
@@ -63,7 +66,7 @@ DQ_KERNEL = KERNELS["sparse_bwd_dq"]
 DKV_KERNEL = KERNELS["sparse_bwd_dkv"]
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_BLOCKS = (16, 32, 64, 128, 256)
-# the dq walk's codes per consumer warpgroup (``flash_hopper.cuh``'s
+# the forward and dq walks' codes per consumer warpgroup (``flash_hopper.cuh``'s
 # SCHEDULED_COLUMNS and SCHEDULED_WHOLE; 0 skip, 1 the layout's bit) and the
 # dk/dv walk's flag on a stage kind that keeps every pair
 WALK_COLUMNS = 3
@@ -204,10 +207,10 @@ def sparse_attention_with_bias(q, k, v, layout, block, causal=False, scale=None,
 
 
 # ---------------------------------------------------------------------------
-# the backward kernels' walks
+# the kernels' walks
 # ---------------------------------------------------------------------------
 def walk_keep(knd, q, k, block: int, causal: bool, s: int):
-    """``LayoutDqWalk.keep``: is the pair (query q, key k) kept under the
+    """``LayoutRowWalk.keep`` (the forward's and dq's): is the pair (query q, key k) kept under the
     code or column bitmask ``knd``? Bit i of ``knd``: the warpgroup's i-th
     row block of its 64 (the 0-th for blocks of 64 and more). Broadcasts
     over numpy arrays."""
@@ -228,24 +231,27 @@ def dkv_walk_keep(kind, q, k, block: int, causal: bool, s: int):
     return on & (q < s) & (k < s) & ((not causal) | (k <= q))
 
 
-def layout_walk(layout, block: int, causal: bool, s: int, d: int, head: int, q0: int):
+def layout_walk(layout, block: int, causal: bool, s: int, d: int, head: int, q0: int,
+                bk: Optional[int] = None):
     """The key tiles the dq kernel's CTA of query rows ``q0 .. q0 + 127``
-    of head ``head`` walks, as ``sparse_common.cuh``'s ``LayoutDqWalk``
+    of head ``head`` walks, as ``sparse_common.cuh``'s ``LayoutRowWalk``
     does: a list of (k0, (code of warpgroup 0, of 1), (column bitmasks of
-    warpgroup 0, of 1)), in ascending order, tiles of ``BWD_TILES[d]["bk"]``
-    keys (when causal, none past the CTA's last row).
+    warpgroup 0, of 1)), in ascending order, tiles of ``bk`` keys (dq's
+    ``BWD_TILES[d]["bk"]`` unless given; when causal, none past the CTA's
+    last row).
 
     Warpgroup w owns rows q0 + 64 w .. + 63. A code is 0 (no pair kept), 1
-    (blocks of 64 and more: its one row block keeps the tile's one key
-    block; the causal bound applies), ``WALK_WHOLE`` (every pair kept) or
-    ``WALK_COLUMNS`` (blocks of 16 and 32): then each column has a bitmask,
-    bit i set where the warpgroup's i-th row block keeps the column's block
-    and the block's last row is not before the key (when causal), else
-    None. A tile whose codes are both 0 is not walked."""
+    (blocks of at least 64 and of the tile: its one row block keeps the
+    tile's one key block; the causal bound applies), ``WALK_WHOLE`` (every
+    pair kept) or ``WALK_COLUMNS`` (smaller blocks): then each column has a
+    bitmask, bit i set where the warpgroup's i-th row block (of max(1, 64 /
+    block)) keeps the column's block and the block's last row is not before
+    the key (when causal), else None. A tile whose codes are both 0 is not
+    walked."""
     lay = np.asarray(layout)[head] != 0
     nb = lay.shape[0]
     lg = block.bit_length() - 1
-    bk = BWD_TILES[d]["bk"]
+    bk = BWD_TILES[d]["bk"] if bk is None else bk
     k_end = min(q0 + 128, s) if causal else s
     tiles = []
     for t in range(-(-k_end // bk)):
@@ -253,14 +259,14 @@ def layout_walk(layout, block: int, causal: bool, s: int, d: int, head: int, q0:
         codes, cols = [], []
         for w in (0, 1):
             r_lo = q0 + 64 * w
-            if lg >= 6:
+            if block >= max(64, bk):
                 on = bool(r_lo < s and lay[r_lo >> lg, k0 >> lg]
                           and (not causal or k0 <= r_lo + 63))
                 whole = not causal or k0 + bk - 1 <= r_lo
                 codes.append((WALK_WHOLE if whole else 1) if on else 0)
                 cols.append(None)
                 continue
-            rows = 64 >> lg
+            rows = max(1, 64 >> lg)
             col = [0] * bk
             for c in range(bk):
                 key = k0 + c
@@ -278,6 +284,14 @@ def layout_walk(layout, block: int, causal: bool, s: int, d: int, head: int, q0:
         if any(codes):
             tiles.append((k0, tuple(codes), tuple(cols)))
     return tiles
+
+
+def layout_fwd_walk(layout, block: int, causal: bool, s: int, d: int, head: int, q0: int):
+    """The key tiles the forward kernel's CTA of query rows ``q0 .. q0 +
+    127`` walks: ``layout_walk`` over the forward's tiles of
+    ``FWD_TILES[d]["bk"]`` keys (128; 64 at d 256), so blocks of 64 take the
+    per-column form at d 64 and 128."""
+    return layout_walk(layout, block, causal, s, d, head, q0, bk=FWD_TILES[d]["bk"])
 
 
 def layout_dkv_walk(layout, block: int, causal: bool, s: int, d: int, head: int, k0: int):
@@ -367,6 +381,10 @@ def sparse_fwd_cuda(q, k, v, layout, block: int, causal: bool = False, scale=Non
     """Launch the forward kernel. Returns (out bf16 [b, h, s, d], lse fp32
     [b, h, s])."""
     q, k, v, lay = _kernel_args("sparse_fwd_cuda", q, k, v, layout, block)
+    if not _scale(q, scale) > 0:
+        raise NotImplementedError(f"sparse_fwd_cuda: scale {_scale(q, scale)}; the kernel "
+                                  "takes a positive scale (its running max is taken before "
+                                  "the scale)")
     b, h, s, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)

@@ -1,7 +1,7 @@
 """The port's block quantizer against the JAX package's, on the CPU.
 
 The same inputs, made from a seed with numpy, go through the port's
-quantizers (a CPU tensor: the ``block_quant`` kernel's plain version, which
+quantizers (one plane, and the engine's pair of K and V) (a CPU tensor: the ``block_quant`` kernel's plain version, which
 the CUDA kernel is held to bit for bit on the card) and the JAX package's:
 ``quantize_kv`` and ``quantize_blockwise`` as its engine and its training
 paths run them, under ``jax.jit`` (XLA turns ``absmax / qmax`` into a
@@ -86,6 +86,47 @@ def test_quantize_kv_matches_jax_bitwise(shape, dtype):
     # dequant: the same product on both sides
     np.testing.assert_array_equal(pbq.dequantize_kv(got_q, got_s).numpy(),
                                   np.asarray(jbq.dequantize_kv(want_q, want_s)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 3, 64), (40, 128), (7, 2, 256)])
+def test_quantize_kv_pair_is_quantize_kv_of_each_plane(shape, dtype):
+    """The engine's pair form (K and V of one write, one launch on a card)
+    equals ``quantize_kv`` of each plane and the JAX package's
+    ``quantize_kv`` of each, bit for bit; ``block_quant_pair`` equals
+    ``block_quant`` of each plane in the stochastic mode too (the noise is
+    indexed within each plane)."""
+    k = _kv_inputs(len(shape) * 10 + shape[-1], shape)
+    v = _kv_inputs(len(shape) * 10 + shape[-1] + 1, shape)
+    jk, jv = (jnp.asarray(x).astype(dtype) for x in (k, v))
+    pk, pv = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(getattr(torch, dtype))
+              for x in (jk, jv))
+    (qk, sk), (qv, sv) = pbq.quantize_kv_pair(pk, pv)
+    for (q, sc), px, jx in (((qk, sk), pk, jk), ((qv, sv), pv, jv)):
+        assert q.dtype == torch.int8 and tuple(q.shape) == shape
+        assert tuple(sc.shape) == shape[:-1]
+        one_q, one_s = pbq.quantize_kv(px)
+        assert torch.equal(q, one_q) and torch.equal(sc.view(torch.int32),
+                                                     one_s.view(torch.int32))
+        want_q, want_s = _jit_kv(jx)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+        np.testing.assert_array_equal(sc.numpy(), np.asarray(want_s))
+    rows_k, rows_v = pk.reshape(-1, shape[-1]), pv.reshape(-1, shape[-1])
+    for stochastic in (False, True):
+        pair = pbq.block_quant_pair(rows_k, rows_v, 127.0, stochastic, seed=5)
+        for got, rows in zip(pair, (rows_k, rows_v)):
+            want = pbq.block_quant(rows, 127.0, stochastic, seed=5)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_block_quant_pair_wants_one_shape_and_a_device():
+    x = torch.zeros(4, 64)
+    with pytest.raises(ValueError, match="one shape"):
+        pbq.block_quant_pair(x, torch.zeros(4, 128))
+    with pytest.raises(ValueError, match="one shape"):
+        pbq.block_quant_pair(x, x.double())
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        pbq.block_quant_pair(x.to("meta"), x.to("meta"))
 
 
 def test_ties_round_half_to_even():
@@ -225,10 +266,32 @@ def test_cuda_block_quant_matches_plain_bitwise():
                 wq, ws = pbq.block_quant_reference(x, 127.0, stochastic, seed=9)
                 assert torch.equal(q, wq)
                 assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
+    # the pair (K and V of one write in one launch) at the head dims, with a
+    # row count that fills no CTA (CTAs of 32 / 16 / 8 rows) and one that
+    # fills one wave of a split step's write
+    for rows, d in ((1037, 64), (8448, 128), (13, 128), (299, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            a = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+            b = torch.randn(rows, d, generator=gen, device="cuda").to(dtype) * 3
+            a[1] = 0
+            for stochastic in (False, True):
+                before = pbq.QUANT_KERNEL.launches
+                pair = pbq.block_quant_pair(a, b, 127.0, stochastic, seed=11)
+                assert pbq.QUANT_KERNEL.launches == before + 1
+                for (q, s), x in zip(pair, (a, b)):
+                    wq, ws = pbq.block_quant_reference(x, 127.0, stochastic, seed=11)
+                    assert torch.equal(q, wq)
+                    assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
     x = torch.randn(3, 5, 128, generator=gen, device="cuda").to(torch.bfloat16)
     q, s = pbq.quantize_kv(x)
     wq, ws = pbq.block_quant_reference(x.reshape(-1, 128), 127.0)
     assert torch.equal(q.reshape(-1, 128), wq) and torch.equal(s.reshape(-1), ws)
+    K.reset_counts()
+    (qk, sk), (qv, sv) = pbq.quantize_kv_pair(x, x * 2)
+    assert K.counts()["block_quant"] == 1
+    assert torch.equal(qk, q) and torch.equal(sk, s)
+    wq, ws = pbq.block_quant_reference((x * 2).reshape(-1, 128), 127.0)
+    assert torch.equal(qv.reshape(-1, 128), wq) and torch.equal(sv.reshape(-1), ws)
     K.reset_counts()
     pbq.quantize_blockwise_kernel(x, bits=4, block_size=64)
     assert K.counts()["block_quant"] == 1

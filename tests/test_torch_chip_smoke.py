@@ -167,11 +167,13 @@ def test_block_quant_checks_on_plain_inputs():
         "kv_write_d128_deterministic", "kv_write_d128_stochastic",
         "blockwise_256_deterministic", "blockwise_256_stochastic",
         "kv_write_d128_fp32_deterministic", "kv_write_d128_fp32_stochastic",
-        "quantize_kv", "blockwise_int4"}
+        "pair_d128_deterministic", "pair_d128_stochastic",
+        "pair_d128_fp32_deterministic", "pair_d128_fp32_stochastic",
+        "quantize_kv", "quantize_kv_pair", "blockwise_int4"}
     assert not any(mismatches.values())
     from deepspeed_tpu_torch.ops.quantizer.block_quant import quantize_kv
 
-    q, s = quantize_kv(x_kv)
+    q, s = quantize_kv(x_kv[0])
     assert float(s[0]) == 0.0 and not q[0].any() and bool((s[1:] > 0).all())
 
 
@@ -493,7 +495,7 @@ def test_flash_kernel_cases_on_plain_inputs(monkeypatch):
 def test_engine_int8_phase_runs_end_to_end_on_cpu(one_thread):
     """The engine_int8 phase at 2 tiny layers after the bf16 phase whose
     rows it is held against: the exact counts the card checks (paged decode
-    int8 L and block_quant 2L per forward step, the bf16 paged kernel 0),
+    int8 L and block_quant L per forward step, the bf16 paged kernel 0),
     logits against the plain forward within the int8 limit, the dense
     rerun on the same engine equal to the main path (both plain on the
     CPU), and the pool's capacity multiplier."""
@@ -517,7 +519,7 @@ def test_engine_int8_phase_runs_end_to_end_on_cpu(one_thread):
     assert rec["phase"] == "engine_int8" and launches == {name: 0 for name in K.KERNELS}
     fwd = rec["forward_steps"]["split"] + 64
     assert rec["launches_expected"]["paged_decode_int8"] == 2 * fwd
-    assert rec["launches_expected"]["block_quant"] == 4 * fwd
+    assert rec["launches_expected"]["block_quant"] == 2 * fwd
     assert rec["launches_expected"]["paged_decode"] == 0
     assert max(rec["logit_rel_err"][k] for k in ("prefill", "decode", "round")) < (
         chip_smoke.INT8_LOGIT_RTOL)
@@ -552,7 +554,7 @@ def test_engine_per_row_int8_phase_runs_end_to_end_on_cpu(one_thread):
     assert launches == {name: 0 for name in K.KERNELS}
     steps = rec["row_steps"]
     assert steps > 2 * 4 and rec["launches_expected"]["paged_decode_int8"] == 2 * steps
-    assert rec["launches_expected"]["block_quant"] == 4 * steps
+    assert rec["launches_expected"]["block_quant"] == 2 * steps
     assert rec["batched_token_agreement"] == 1.0 and rec["batched_logit_rel_err"] < 1e-4
     assert rec["logit_rows_checked"] == 10
     assert rec["export_blocks"] >= 7 and rec["export_bytes"] > 0
@@ -602,12 +604,15 @@ def _plain_sparse_kernels(monkeypatch):
 def test_sparse_kernel_cases_on_plain_inputs(monkeypatch):
     """The kernels group's cases with 2 heads at s 512, on the plain
     versions: the layouts are the ones the card checks (16-blocks, BigBird
-    per head, dead rows, dense), the dead rows give 0, and the dense case is
-    held against flash and the Fixed and BigBird cases against splash."""
+    per head, dead rows, dense, Fixed, the causal triangle), the dead rows
+    give 0, the dense and triangle cases are held against flash (equal as
+    values only on a card: the plain versions' arithmetic differs) and the
+    Fixed and BigBird cases against splash, the forward also per tile."""
     cases = chip_smoke.sparse_cases(h=2, s=512)
-    assert [c[0][:2] for c in cases] == ["a_", "b_", "c_", "d_", "e_"]
-    assert [c[2] for c in cases] == [16, 64, 64, 128, 128]
-    assert [c[3] for c in cases] == [True, False, True, False, True]
+    assert [c[0][:2] for c in cases] == ["a_", "b_", "c_", "d_", "e_", "f_"]
+    assert [c[2] for c in cases] == [16, 64, 64, 128, 128, 128]
+    assert [c[3] for c in cases] == [True, False, True, False, True, True]
+    assert (cases[5][1] == np.tril(np.ones((4, 4), np.int32))).all()
     bigbird, dead = cases[1][1], cases[2][1]
     assert not (bigbird[0] == bigbird[1]).all() and bigbird[0][0, -1] == 1  # not causal
     assert not dead[:, 5].any() and dead[:, 1].sum() == 2 and dead[0, 1, 2] == 1
@@ -616,10 +621,12 @@ def test_sparse_kernel_cases_on_plain_inputs(monkeypatch):
     errs, tile_errs, oracle = chip_smoke.sparse_case_checks(torch, torch.device("cpu"), h=2,
                                                             d=64, s=512)
     assert oracle == {"splash": ["b_bigbird_b64_per_head", "e_fixed_b128_causal"],
-                      "flash": ["d_dense_b128"]}
+                      "flash": ["d_dense_b128", "f_tril_b128_causal"], "fwd_equal_flash": []}
     assert "d_dense_b128_flash_dk" in errs["sparse_bwd_dkv"]
+    assert "f_tril_b128_causal_flash_out" in errs["sparse_fwd"]
     assert "e_fixed_b128_causal_splash_out" in errs["sparse_fwd"]
     assert set(tile_errs["sparse_bwd_dq"]) == {c[0] for c in cases}
+    assert set(tile_errs["sparse_fwd"]) == {c[0] for c in cases}
 
 
 def test_sparse_work_counts_kept_pairs():

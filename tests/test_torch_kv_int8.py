@@ -468,3 +468,20 @@ def test_cuda_int8_engine_matches_dense_impl():
         assert (counts["paged_decode_int8"] > 0) == (impl == "auto")
     for a, b in zip(outs["auto"], outs["dense"]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_serve_ab_tool_needs_a_card(monkeypatch):
+    """``tools/torch_serve_ab.py``: without a card it refuses (exit 2)
+    before it builds an engine or starts a process, also when it is given
+    other checkouts to run in turns."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import torch_serve_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: pytest.fail("ran"))
+    assert torch_serve_ab.main([]) == 2
+    assert torch_serve_ab.main(["../other", "--pairs", "1"]) == 2

@@ -22,7 +22,7 @@ import torch
 from deepspeed_tpu.ops.attention import core as jcore
 from deepspeed_tpu.ops.sparse_attention import sparse_pallas as jsp
 from deepspeed_tpu_torch.ops.attention import core as pcore
-from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES
+from deepspeed_tpu_torch.ops.attention.flash import BWD_TILES, FWD_TILES
 from deepspeed_tpu_torch.ops.kernels import KERNELS
 from deepspeed_tpu_torch.ops.sparse_attention import sparse as psp
 from deepspeed_tpu_torch.ops.sparse_attention import splash
@@ -428,6 +428,10 @@ CUDA_CASES = {
     # 512 dq CTAs and 512 dk/dv CTAs: several waves over the card's 132 SMs
     "fixed_b128_causal_waves_d128": (2, 8, 4096, 128, ("FixedSparsityConfig", dict(
         num_heads=8, block=128, num_local_blocks=4, attention="unidirectional")), True),
+    # 64-blocks under the forward's 128-key tiles: its per-column form at d
+    # 128 (dq's 64-key tiles take the scalar one), the last tile half past s
+    "bigbird_b64_causal_ragged_d128": (1, 4, 1088, 128, ("BigBirdSparsityConfig", dict(
+        num_heads=4, block=64, num_random_blocks=2, different_layout_per_head=True)), True),
 }
 
 
@@ -456,13 +460,13 @@ def test_cuda_kernels_match_plain(case):
 
 
 # ---------------------------------------------------------------------------
-# the backward kernels' walks (plain models of sparse_common.cuh's
-# LayoutDqWalk and LayoutDkvWalk)
+# the kernels' walks (plain models of sparse_common.cuh's LayoutRowWalk, over
+# the forward's and dq's key tiles, and LayoutDkvWalk)
 # ---------------------------------------------------------------------------
 def _walk_layouts():
     """name: (layout, block, causal): each layout of ``CUDA_CASES`` at s
     min(s, 512 + s % 64) (ragged where the case is), and ``chip_smoke.py``'s
-    ``sparse_cases`` (a)-(e) at 2 heads, s 512."""
+    ``sparse_cases`` (a)-(f) at 2 heads, s 512."""
     root = str(Path(__file__).resolve().parents[1])
     if root not in sys.path:
         sys.path.insert(0, root)
@@ -480,22 +484,25 @@ def _walk_layouts():
 WALK_LAYOUTS = sorted(_walk_layouts())
 
 
-def _dq_walk_count(layout, block, causal, s, d):
+def _row_walk_count(layout, block, causal, s, d, fwd=False):
     """[h, s + 128, s + 128] visits of each pair that ``layout_walk``'s
-    tiles keep, with its checks of each CTA's walk."""
-    h, bk = layout.shape[0], BWD_TILES[d]["bk"]
+    tiles keep (``layout_fwd_walk``'s with ``fwd``), with its checks of
+    each CTA's walk."""
+    h = layout.shape[0]
+    bk = (FWD_TILES if fwd else BWD_TILES)[d]["bk"]
+    walk = psp.layout_fwd_walk if fwd else psp.layout_walk
     count = np.zeros((h, s + 128, s + 128), np.int32)
     for head in range(h):
         for q0 in range(0, s, 128):
-            tiles = psp.layout_walk(layout, block, causal, s, d, head, q0)
+            tiles = walk(layout, block, causal, s, d, head, q0)
             assert [t[0] for t in tiles] == sorted({t[0] for t in tiles}), "ascending, once"
             for k0, codes, cols in tiles:
                 kept_any = False
                 for w in (0, 1):
                     rows = np.arange(q0 + 64 * w, q0 + 64 * w + 64)[:, None]
                     keys = np.arange(k0, k0 + bk)[None, :]
-                    if block >= 64:
-                        assert codes[w] != psp.WALK_COLUMNS, "blocks of 64+: one code a tile"
+                    if block >= max(64, bk):
+                        assert codes[w] != psp.WALK_COLUMNS, "blocks of the tile: one code"
                     if codes[w] == psp.WALK_WHOLE:
                         keep = np.ones((64, bk), bool)
                     else:
@@ -546,20 +553,45 @@ def _jax_token_mask(layout, block, causal, s):
 
 
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("walk", ["dq", "dkv"])
+@pytest.mark.parametrize("walk", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("name", WALK_LAYOUTS)
 def test_walks_keep_exactly_the_layout_pairs(name, walk, d):
     """Each walk's tiles, with their codes and bit predicate, visit every
     pair ``_kept`` keeps exactly once and no other; each CTA's tiles come in
-    ascending order, every tile handed over keeps a pair, and blocks of 64
-    and more never take the per-column form. d 128 and 256 differ in the
-    tiles (dq 64 / 32 keys, dk/dv 128 / 64 keys a CTA); d 64 has d 128's."""
+    ascending order, every tile handed over keeps a pair, and blocks of at
+    least 64 and of the tile never take the per-column form. d 128 and 256
+    differ in the tiles (fwd 128 / 64 keys, dq 64 / 32, dk/dv 128 / 64 keys
+    a CTA); d 64 has d 128's."""
     layout, block, causal = _walk_layouts()[name]
     s = layout.shape[1] * block
-    count = (_dq_walk_count if walk == "dq" else _dkv_walk_count)(layout, block, causal, s, d)
+    if walk == "dkv":
+        count = _dkv_walk_count(layout, block, causal, s, d)
+    else:
+        count = _row_walk_count(layout, block, causal, s, d, fwd=walk == "fwd")
     assert not count[:, s:].any() and not count[:, :, s:].any()
     want = psp._kept(torch.from_numpy(layout), block, causal, 0, s, s)[0].numpy()
     np.testing.assert_array_equal(count[:, :s, :s], want.astype(np.int32))
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_forward_walk_takes_the_per_column_form_below_its_tile(d):
+    """The forward's walk over ``chip_smoke.sparse_cases``' 64-block layouts
+    (b), (c): per-column codes under the 128-key tiles of d 128, scalar
+    codes under the 64-key tiles of d 256 (and dq's 64 / 32 at both); the
+    128-block layouts (d)-(f) scalar at both."""
+    layouts = _walk_layouts()
+
+    def forms(name, walk):
+        layout, block, causal = layouts[f"chip_smoke_{name}"]
+        s = layout.shape[1] * block
+        return {c for q0 in range(0, s, 128) for head in range(layout.shape[0])
+                for _, codes, _ in walk(layout, block, causal, s, d, head, q0) for c in codes}
+
+    for name in ("b_bigbird_b64_per_head", "c_dead_rows_b64_causal"):
+        assert (psp.WALK_COLUMNS in forms(name, psp.layout_fwd_walk)) == (d == 128)
+        assert psp.WALK_COLUMNS not in forms(name, psp.layout_walk)
+    for name in ("d_dense_b128", "e_fixed_b128_causal", "f_tril_b128_causal"):
+        assert psp.WALK_COLUMNS not in forms(name, psp.layout_fwd_walk)
 
 
 @pytest.mark.parametrize("name", WALK_LAYOUTS)

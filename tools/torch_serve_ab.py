@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 tools/torch_serve_ab.py [--pairs 3] [--steps 16]
+    python3 tools/torch_serve_ab.py [OTHER_ROOT ...] [--pairs 3] [--steps 16]
 
 Builds two ``InferenceEngineV2`` at Mistral-7B width (all 32 layers, seeded
 random bf16 weights shared by both, ``chip_smoke.py``'s engine config), one
@@ -11,10 +11,17 @@ per pool dtype. Each engine first runs one short warm round; then, for each
 pair, both engines prefill the same 32 prompts and time one
 ``decode_round(steps)``, alternating which goes first. Then one 2-step round
 of each under ``torch.cuda.set_sync_debug_mode("warn")`` counts the
-operations that synchronize the host with the card, by source line, and the
+operations that synchronize the host with the card, by source line, the
 host time of one layer's K/V write (``_scatter_kv``) is timed eagerly for
-both pools. Prints one JSON object per part, and the card's name and power
-limit first.
+both pools, and the int8 write's quantization of a split step's K and V
+([1056, 8, 128] bf16 each) in a CUDA graph (``quantize_kv_pair`` where the
+checkout has it, else ``quantize_kv`` of each). Prints one JSON object per
+part, and the card's name and power limit first.
+
+Each OTHER_ROOT is another checkout of the repo (e.g. the parent commit
+unpacked with ``git archive``): then each checkout runs the above in a
+fresh process of its own, in turns (the others, this one, this one again,
+the others in reverse), and a summary by checkout follows.
 """
 
 import argparse
@@ -25,10 +32,43 @@ import warnings
 from pathlib import Path
 
 
+def in_turns(others, args):
+    """Runs this tool once per checkout in a fresh process, in turns;
+    prints each part and a summary of the round and write times by
+    checkout."""
+    import subprocess
+
+    this = str(Path(__file__).resolve().parents[1])
+    roots = [str(Path(o).resolve()) for o in others]
+    runs = {root: [] for root in [this] + roots}
+    for root in roots + [this, this] + roots[::-1]:
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--root", root,
+                              "--pairs", str(args.pairs), "--steps", str(args.steps)],
+                             cwd=root, capture_output=True, text=True, timeout=1800)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        lines = out.stdout.strip().splitlines()
+        print(f"[{root}]", *lines, sep="\n", flush=True)
+        # the parts (the engines' log lines share stdout)
+        parts = {rec.pop("part"): rec
+                 for rec in map(json.loads, (ln for ln in lines if ln.startswith("{")))}
+        runs[root].append(parts)
+    print(json.dumps({"card": lines[0], "by_checkout": {
+        root: {"median_tok_s": [r["rounds"]["median_tok_s"] for r in recs],
+               "kv_write_quantize_ms": [r["kv_write_quantize"]["ms"] for r in recs],
+               "scatter_kv_host_us": [r["scatter_kv_host_us"] for r in recs]}
+        for root, recs in runs.items()}}), flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("others", nargs="*", help="roots of the other checkouts")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--root", help="the checkout whose package this process runs "
+                                   "(default: this one)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -37,7 +77,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("torch_serve_ab: no CUDA device", file=sys.stderr)
         return 2
-    root = Path(__file__).resolve().parents[1]
+    if args.others:
+        return in_turns(args.others, args)
+    root = Path(args.root).resolve() if args.root else Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(root))
     import chip_smoke as C
     from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
@@ -128,6 +170,21 @@ def main(argv=None):
     print(json.dumps({"part": "scatter_kv_host_us", **{
         name: us_per_call(lambda e=eng: e._scatter_kv(3, blk, row, k, k))
         for name, eng in engines.items()}}), flush=True)
+
+    # the int8 write's quantization at a split step's K and V (32 decode
+    # slots + 4 chunks of 256 tokens), on the card
+    from deepspeed_tpu_torch.ops.quantizer import block_quant as BQ
+
+    gen = torch.Generator(device=dev).manual_seed(C.SEED)
+    kv = [torch.randn(32 + 4 * 256, cfg.kv_heads, cfg.head_dim, generator=gen, device=dev,
+                      dtype=torch.bfloat16) for _ in range(2)]
+    pair = getattr(BQ, "quantize_kv_pair", None)
+    write = (lambda: pair(*kv)) if pair else (lambda: [BQ.quantize_kv(x) for x in kv])
+    K.reset_counts()
+    write()
+    print(json.dumps({"part": "kv_write_quantize", "form": "pair" if pair else "two calls",
+                      "launches": K.counts()["block_quant"], "ms": C.time_ms(torch, write)}),
+          flush=True)
     return 0
 
 
