@@ -24,9 +24,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    dead query blocks and the prefill form, and at two LocalMask shapes
    equal to the flash kernels with the same window; the flash kernels'
    outputs also as digests, equal to the recorded ones; the paged kernels at
-   the split, round and causal forms, over shared-prefix tables and in the
-   per-row form (256 queries over one table, stride-0 extras), also per
-   (row, head) as a relative Frobenius error, the int8 form over
+   the split, round and causal forms, over shared-prefix tables, in the
+   per-row form (256 queries over one table, stride-0 extras) and in the
+   verify form of speculative decoding (R 32, k 4: 160 query rows, 5
+   extras each; also timed, its bound counted as the kernel reads the pool
+   and once per table), also per (row, head) as a relative Frobenius error, the int8 form over
    ``quantize_kv`` codes of seeded bf16 K/V; block_quant bit
    for bit at the engine's write shape and at a block of 2048 over a
    4096 x 14336 tensor, deterministic and stochastic; the layout-predicate
@@ -55,6 +57,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
    checked; then ``serving_benchmark`` prints generated tokens per second.
    With ``--profile``, a torch.profiler breakdown of a split step and a
    decode round follows (and of one train step after each train leg).
+3a. engine_spec, host_tier, inference_v1, on the engine phase's engine and
+   weights. engine_spec: the same 32 prompts prefilled, then
+   ``spec_round(4)`` with oracle drafts (the engine phase's own greedy
+   stream), junk drafts (all rejected: one token a row), no drafts and
+   oracle drafts again, then a plain ``decode_round(5)``: every emitted
+   token the argmax of the verify step's logits at its slot, the verify
+   logits against ``forward_reference`` on the same tokens (limit 0.05,
+   int8 0.1), exact launches a verify step (paged decode L, RMSNorm 2L + 1;
+   int8: block_quant L), the oracle tokens accepted, the verify step's ms
+   and spec tokens/s against the plain round's. host_tier: an engine with
+   the prefix cache and a host tier over a 64-block pool; a second batch
+   of 8 prompts evicts the first batch's cached blocks (spilled), the first
+   batch resubmitted readmits them: the prefill charges only the tails,
+   each readmitted block's planes equal the spilled payload bit for bit,
+   logits against ``forward_reference``, the chunked import's GB/s.
+   inference_v1: ``init_inference`` at 4 prompts of 512 tokens, 16 greedy
+   tokens at decode_steps 1 and 4 (equal streams), the first token's logits
+   against ``forward_reference``, exactly 2L + 1 RMSNorm launches a forward
+   step and no other kernel (its cached attention is ``mha_reference``).
 3b. engine_int8: the same engine and prompts with
    ``kv_cache_dtype="int8"``: logits against ``forward_reference`` (limit
    0.1), against the bf16 phase's rows computed from the same tokens, and
@@ -65,6 +86,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the int8 per-row check: ``_step_per_row`` at 4 layers, 2 prompts of
    ~1000 tokens, 8 new tokens, against the batched int8 step fed the same
    tokens, and one sequence's blocks exported and imported bit for bit.
+   engine_spec_int8 (between the two): engine_spec on the int8 engine.
 4. train: Mistral-7B width, bf16. Parity leg (2 layers, seq 4096, a
    batch packed into two segments with positions restarting): the loss and
    every leaf's gradient of ``make_loss_fn`` (the kernels) against autograd
@@ -139,7 +161,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the exact launches per optimizer step.
 
 Serving kernels must launch in the engine phase (the int8 pool's in
-engine_int8 and its per-row check), training kernels in the train legs,
+engine_int8 and its per-row check) and in a verify step (engine_spec,
+engine_spec_int8), training kernels in the train legs,
 the fused configuration's four in its leg, the splash kernels in the
 splash leg (the forward also in the per-row leg), the sparse kernels in the
 sparse_attn phase, the evoformer kernels in the evoformer phase, the chunk
@@ -170,6 +193,8 @@ BF16_RTOL = 2.0 ** -6
 # fp32 results: fp32 sums in another order
 FP32_ATOL = 2e-5
 FP32_RTOL = 2e-5
+# draft slots of the speculative decoding phases and of the verify form
+SPEC_K = 4
 
 
 def emit(obj):
@@ -1610,12 +1635,13 @@ class PagedWorld:
         return layer * self.NBp + self.NB
 
 
-def paged_cases(torch, world, rng, R, nh, B, layer, E_round):
+def paged_cases(torch, world, rng, R, nh, B, layer, E_round, k_verify=SPEC_K):
     """The kernel's call forms on the serving path: the split step's decode
     rows (E = 1, pool limit, padded slots at q_pos = -1) and a fused round's
     step (E = n_steps, pool limit at the round start, in-round extras,
     inactive rows with all-trash tables); plus the causal form with a
-    window and a scale override, and a window on the round form."""
+    window and a scale override, and a window on the round form; the last
+    case is speculative decoding's verify form (``verify_case``)."""
     import numpy as np
 
     dev, dtype, d, nkv = world.dev, world.dtype, world.d, world.nkv
@@ -1706,7 +1732,63 @@ def paged_cases(torch, world, rng, R, nh, B, layer, E_round):
                   epos[None].expand(t, t)),
         pool_limit=torch.full((t,), start, dtype=torch.int32, device=dev),
     )))
+    cases.append(verify_case(torch, world, rng, R, nh, B, layer, k_verify, gen))
     return cases
+
+
+def verify_case(torch, world, rng, R, nh, B, layer, k, gen):
+    """The verify form (``paged.verify_kwargs``, the engine's
+    ``_verify_layer``): R rows of K1 = k + 1 tokens as R * K1 query rows,
+    each with its row's table and write cursor (the pool limit) and its
+    row's K1 fresh K/V as extras at the in-chunk causal positions; row 1
+    carries one draft (its last K1 - 2 slots padded, q_pos -1), row 2 is
+    inactive on trash tables. Returns (name, kwargs)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.attention.paged import verify_kwargs
+
+    dev, dtype, d, nkv = world.dev, world.dtype, world.d, world.nkv
+    K1 = k + 1
+    max_ctx = B * world.bs
+    active = np.ones(R, bool)
+    active[2 % R] = False
+    pos0 = rng.integers(min(64, max_ctx // 4), max_ctx - K1, size=R)
+    n_in = np.full(R, K1)
+    n_in[1 % R] = 2
+    j = np.arange(K1)
+    qpos = np.where((j[None] < n_in[:, None]) & active[:, None], pos0[:, None] + j[None], -1)
+    tables = world.tables(rng, R, B, np.where(active, pos0 + K1, 0), layer, active)
+    q = torch.randn(R * K1, nh, d, generator=gen, device=dev).to(dtype)
+    k_new = torch.randn(R * K1, nkv, d, generator=gen, device=dev).to(dtype)
+    v_new = torch.randn(R * K1, nkv, d, generator=gen, device=dev).to(dtype)
+    kw = verify_kwargs(q, k_new, v_new, tables,
+                       torch.as_tensor(qpos.astype(np.int32), device=dev),
+                       torch.as_tensor(np.where(active, pos0, 0).astype(np.int32), device=dev),
+                       world.trash(layer))
+    return f"verify_k{k}", kw
+
+
+def verify_bytes_once(world, kw, K1):
+    """Bytes the verify form must move at the least: each row's pool keys
+    (below its write cursor, non-trash) and its valid fresh K/V read once,
+    not once per query row as the kernel reads them; q, the output and the
+    row tables. (``paged_bytes_ops`` counts them as the kernel reads them.)"""
+    q = kw["q"]
+    T, nh, d = q.shape
+    nkv, bs = world.nkv, world.bs
+    tables = kw["block_tables"].cpu().numpy()[::K1]
+    limit = kw["pool_limit"].cpu().numpy()[::K1]
+    qpos = kw["q_pos"].cpu().numpy().reshape(-1, K1)
+    keys = 0
+    for r in range(len(limit)):
+        for kp in range(min(int(limit[r]), tables.shape[1] * bs)):
+            if tables[r, kp // bs] % world.NBp != world.NB:
+                keys += 1
+    el = q.element_size()
+    pool_row = d + 4 if world.int8 else d * el
+    fresh = int((qpos >= 0).sum())
+    return (keys * 2 * nkv * pool_row + fresh * 2 * nkv * d * el + 2 * q.numel() * el
+            + tables.size * 4)
 
 
 # per (row, query head) relative Frobenius error of the paged kernels
@@ -1820,6 +1902,9 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
             raise AssertionError(f"{name_k}: an all-trash row must give exactly 0")
         if name.startswith("split") and bool(got[-4:].float().abs().max() != 0):
             raise AssertionError(f"{name_k}: padded slots (q_pos = -1) must give exactly 0")
+        if name.startswith("verify") and bool(got[kw["q_pos"] < 0].float().abs().max() != 0):
+            raise AssertionError(f"{name_k}: the verify form's padded slots and inactive row "
+                                 "must give exactly 0")
     # the round forms again under a finer plan (5 pool splits of 128 keys
     # and the extras split): more partials to merge, the window ending
     # inside a split
@@ -1872,6 +1957,29 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
     ms = time_ms(torch, lambda: paged_decode(**world.pool(), **layer_kw[next(it) % 8]))
     split_ms = time_ms(torch, lambda: paged_decode(**world.pool(),
                                                    **split_layer_kw[next(it) % 8]))
+    verify_name, verify_kw = cases[-1]
+    verify_layer_kw = by_layer(verify_kw)
+    K1 = SPEC_K + 1
+    verify = {
+        "form": verify_name, "rows": R, "K1": K1, "query_rows": R * K1,
+        "ms": time_ms(torch, lambda: paged_decode(**world.pool(),
+                                                  **verify_layer_kw[next(it) % 8])),
+        "plain_ms": time_ms(torch, lambda: paged_decode_attention_dense(
+            **world.pool(), **verify_layer_kw[next(it) % 8]), iters=5),
+        "library_ms": sdpa_ms(torch, world, verify_kw),
+        **paged_plan(world, verify_kw),
+        "max_abs_err": errs[verify_name],
+        "row_rel_frobenius": row_errs[verify_name],
+        # the extras' contiguous copy a layer (verify_extras): K and V
+        "extras_copy_bytes": 2 * R * K1 * K1 * nkv * d * 2,
+    }
+    v_read, v_ops = paged_bytes_ops(world, verify_kw)
+    v_once = verify_bytes_once(world, verify_kw, K1)
+    t_ops = v_ops / BF16_FLOPS
+    verify.update(bytes_as_read=v_read, bytes_once=v_once,
+                  bound_ms_as_read=max(v_read / HBM_BYTES_PER_S, t_ops) * 1e3,
+                  bound_ms=max(v_once / HBM_BYTES_PER_S, t_ops) * 1e3,
+                  bound_by="bytes" if v_once / HBM_BYTES_PER_S >= t_ops else "operations")
     plain_ms = time_ms(torch, lambda: paged_decode_attention_dense(
         **world.pool(), **layer_kw[next(it) % 8]), iters=5)
     library_ms = sdpa_ms(torch, world, round_kw)
@@ -1903,6 +2011,7 @@ def kernel_paged_decode(torch, dev, L=32, NB=512, bs=128, B=5, R=32, nh=32, nkv=
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": moved,
         "split_step_bound_ms": split_moved / HBM_BYTES_PER_S * 1e3,
+        "verify_form": verify,
     }
 
 
@@ -2518,13 +2627,16 @@ def common_rows_rel_err(torch, mine, other, n_p):
 
 
 def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False,
-                 kv_cache_dtype="bf16", keep=None, bf16_rows=None):
+                 kv_cache_dtype="bf16", keep=None, bf16_rows=None, hold=None):
     """The serving path, counted. ``widths``/``engine_config`` shrink the
     model and the engine for a rehearsal on the CPU; the card run uses
     neither, and serves the preset at its full depth. ``kv_cache_dtype=
     "int8"`` is the engine_int8 phase: the same prompts, logits also held
     against the bf16 phase's (``bf16_rows``, which a bf16 run fills through
-    ``keep``) and against the same engine forced to the plain gathers."""
+    ``keep``) and against the same engine forced to the plain gathers.
+    ``hold`` receives the engine, its prompts and each prompt's plain
+    greedy stream (the prefill token, two decode steps, the 64-step round)
+    for the phases that run on the same engine and weights."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
@@ -2626,6 +2738,10 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False,
         raise AssertionError("negative control passed: the logit check cannot tell positions apart")
     for uid in list(eng.scheduler.running_uids()):
         eng.scheduler.finish(uid)
+    if hold is not None:
+        hold.update(engine=eng, cfg=cfg, prompts=prompts, plain={
+            uid: [int(t) for t in run["seqs"][uid][len(prompts[uid]):]]
+            + [int(t) for t in run["rounds"][uid]] for uid in run["rounds"]})
     del ref, run
     if keep is not None:  # the bf16 rows on the host, for the int8 phase
         keep.update({uid: (m.cpu(), t) for uid, (m, t) in rows_of.items()})
@@ -2681,6 +2797,411 @@ def int8_checks(torch, dev, eng, prompts, rows_of, bf16_rows, rec):
     if rec["dense_logit_rel_err"] > LOGIT_RTOL or rec.get("bf16_logit_rel_err", 0) > INT8_LOGIT_RTOL:
         raise AssertionError(f"int8 logits off: {rec['dense_logit_rel_err']} against the dense "
                              f"path, {rec.get('bf16_logit_rel_err')} against the bf16 engine")
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding, the host block tier, the v1 engine
+# ---------------------------------------------------------------------------
+# the verify rows whose logits are held against forward_reference in each
+# spec round (the oracle round holds all of them)
+SPEC_REF_ROWS = 8
+SPEC_TIMED_ROUNDS = 5  # timed spec rounds, and as many plain fused rounds
+
+
+def fmt_spread(d):
+    return f"{d['median']:.2f} [{d['min']:.2f}, {d['max']:.2f}]"
+
+
+def spread(xs):
+    """Median, min and max of a list of samples."""
+    ys = sorted(xs)
+    mid = len(ys) // 2
+    med = ys[mid] if len(ys) % 2 else (ys[mid - 1] + ys[mid]) / 2
+    return {"median": med, "min": ys[0], "max": ys[-1], "n": len(ys)}
+
+
+def spec_expected(names, L, int8):
+    """A verify step's exact launches: paged decode (its int8 form on an
+    int8 pool) L calls, RMSNorm 2L + 1, block_quant L on an int8 pool
+    (K and V of each layer's write in one launch), nothing else."""
+    expected = {name: 0 for name in names}
+    expected["rms_norm_fwd"] = 2 * L + 1
+    if int8:
+        expected.update({"paged_decode_int8": L, "block_quant": L})
+    else:
+        expected["paged_decode"] = L
+    return expected
+
+
+def engine_spec_phase(torch, dev, K, eng, prompts, plain, int8=False):
+    """Speculative decoding on the engine phase's engine (its weights, its
+    prompts): prefill through ``step_tokens``, then ``spec_round(4)`` with
+    oracle drafts (the tokens the engine phase's plain decode emitted for
+    the same sequences), junk drafts (those tokens shifted by one: all
+    rejected, one token a row), no drafts, oracle drafts again; then a plain
+    ``decode_round(5)``. In each round every emitted token is the argmax of
+    the verify step's own logits at its slot, and the verify logits of
+    every valid slot are held against ``forward_reference`` over the same
+    tokens (every row in the oracle rounds, ``SPEC_REF_ROWS`` otherwise);
+    the first round's launches are counted exactly. Greedy streams are
+    compared token for token on the CPU only (the tests): on a card the
+    R * (k + 1)-row products may round otherwise than the R-row ones, so a
+    near-tie can flip a token, and the oracle tokens accepted are printed
+    instead."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    sched, cfg = eng.scheduler, eng._mc
+    L, V, K1 = cfg.n_layers, cfg.vocab_size, SPEC_K + 1
+    rtol = INT8_LOGIT_RTOL if int8 else LOGIT_RTOL
+    rec = {"phase": "engine_spec_int8" if int8 else "engine_spec", "k": SPEC_K,
+           "n_layers": L, "rows": len(prompts), "logit_rtol": rtol}
+    for uid, p in enumerate(prompts):
+        sched.submit(uid, p)
+    hist = {uid: [int(t) for t in p] for uid, p in enumerate(prompts)}
+    first = {}
+    while sched.has_pending():
+        first.update(eng.step_tokens())
+    for uid, tok in first.items():
+        hist[uid].append(tok)
+        sched.feedback(uid, tok)
+
+    def oracle(uid):
+        gen = hist[uid][len(prompts[uid]):]
+        if gen != plain[uid][: len(gen)]:
+            return None  # the stream left the plain one (a near-tie flipped)
+        return plain[uid][len(gen) : len(gen) + SPEC_K]
+
+    def spec(kind, counted=False, ref_rows=SPEC_REF_ROWS):
+        if kind == "oracle":
+            drafts = {uid: oracle(uid) or [] for uid in sched.running_uids()}
+        elif kind == "junk":
+            drafts = {uid: [(t + 1) % V for t in (oracle(uid) or hist[uid][-SPEC_K:])]
+                      for uid in sched.running_uids()}
+        else:
+            drafts = {}
+        before = {uid: list(h) for uid, h in hist.items()}
+        seen = []
+        sample = eng._sample
+
+        def keep(logits, *a, **k):
+            seen.append(logits)
+            return sample(logits, *a, **k)
+
+        eng._sample = keep
+        try:
+            if counted:
+                K.reset_counts()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            res = eng.spec_round(SPEC_K, drafts=drafts)
+            _sync(torch, dev)
+            seconds = time.perf_counter() - t0
+            launches = K.counts() if counted else None
+        finally:
+            del eng._sample  # back to the class's method
+        logits = seen[0].float()  # [R * K1, V]
+        out = {"kind": kind, "seconds": seconds, "drafted": eng.last_spec["drafted"],
+               "accepted": eng.last_spec["accepted"],
+               "emitted": sum(len(g) for g in res.values()), "launches": launches}
+        errs, shifted = [], []
+        for i, (uid, gen) in enumerate(res.items()):
+            rows = logits[i * K1 : i * K1 + len(gen)]
+            if not bool((rows.argmax(dim=-1).cpu() == torch.as_tensor(
+                    np.asarray(gen, np.int64))).all()):
+                raise AssertionError(f"{kind} round, uid {uid}: emitted tokens are not the "
+                                     "argmax of the verify step's logits")
+            if kind == "junk" and len(gen) != 1:
+                raise AssertionError(f"junk drafts accepted for uid {uid}: {len(gen) - 1}")
+            if i < ref_rows:
+                n_in = 1 + len(drafts.get(uid) or [])
+                toks = torch.as_tensor(np.asarray(before[uid] + list(drafts.get(uid) or []),
+                                                  np.int64), device=dev)[None]
+                with torch.no_grad():
+                    ref = T.forward_reference(eng.params, toks, cfg)[0][0].float()
+                p = len(before[uid]) - 1
+                errs.append(rows_rel_err(torch, logits[i * K1 : i * K1 + n_in], ref[p : p + n_in]))
+                shifted.append(rows_rel_err(torch, logits[i * K1], ref[p - 1]))
+            hist[uid].extend(int(t) for t in gen)
+        out["rows_checked"] = len(errs)
+        if not errs:
+            return out
+        out["logit_rel_err"] = max(errs)
+        out["logit_rel_err_shifted"] = min(shifted)
+        if out["logit_rel_err"] > rtol:
+            raise AssertionError(f"{kind} round: verify logits off forward_reference: "
+                                 f"{out['logit_rel_err']} (limit {rtol})")
+        if out["logit_rel_err_shifted"] <= rtol:
+            raise AssertionError("negative control passed: the verify logit check cannot tell "
+                                 "positions apart")
+        return out
+
+    rounds = [spec("oracle", counted=True, ref_rows=len(prompts)), spec("junk"), spec("none"),
+              spec("oracle", ref_rows=len(prompts))]
+    launches = rounds[0]["launches"]
+    expected = spec_expected(launches, L, int8)
+    if dev.type == "cuda" and launches != expected:  # the CPU runs the plain versions
+        raise AssertionError(f"verify step launches {launches}, expected {expected}")
+    rec.update(launches=launches, launches_expected=expected, rounds=rounds)
+    if rounds[2]["emitted"] != rounds[2]["drafted"] + len(prompts) or rounds[2]["drafted"]:
+        raise AssertionError("a round with no drafts must emit one token a row")
+    oracle_drafted = sum(r["drafted"] for r in rounds if r["kind"] == "oracle")
+    oracle_accepted = sum(r["accepted"] for r in rounds if r["kind"] == "oracle")
+    if oracle_accepted == 0:
+        raise AssertionError("no oracle draft was accepted")
+    rec.update(oracle_drafted=oracle_drafted, oracle_accepted=oracle_accepted,
+               oracle_acceptance=oracle_accepted / max(1, oracle_drafted))
+    # timing: SPEC_TIMED_ROUNDS more oracle rounds (argmax-checked, no
+    # reference), then as many plain fused rounds of k + 1 tokens a row on
+    # the same engine and rows; each round on the host clock around a sync,
+    # reported as median, min and max over the rounds
+    timed = [spec("oracle", ref_rows=0) for _ in range(SPEC_TIMED_ROUNDS)]
+    verify_ms = [r["seconds"] * 1e3 for r in timed]
+    spec_tok_s = [r["emitted"] / r["seconds"] for r in timed]
+    plain_ms, plain_tok_s, plain_tokens = [], [], []
+    for _ in range(SPEC_TIMED_ROUNDS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        res = eng.decode_round(K1)
+        _sync(torch, dev)
+        dt = time.perf_counter() - t0
+        n_tok = sum(len(g) for g in res.values())
+        plain_ms.append(dt * 1e3)
+        plain_tok_s.append(n_tok / dt)
+        plain_tokens.append(n_tok)
+    rec.update(timed_rounds=SPEC_TIMED_ROUNDS,
+               timed_oracle_drafted=sum(r["drafted"] for r in timed),
+               timed_oracle_accepted=sum(r["accepted"] for r in timed),
+               verify_ms=spread(verify_ms), spec_tok_s=spread(spec_tok_s),
+               plain_round_tokens=plain_tokens, plain_round_ms=spread(plain_ms),
+               plain_round_tok_s=spread(plain_tok_s))
+    rec["spec_over_plain_tok_s"] = (rec["spec_tok_s"]["median"]
+                                    / rec["plain_round_tok_s"]["median"])
+    for uid in list(sched.running_uids()):
+        sched.finish(uid)
+    rec["seconds_in_phase"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
+# the host-tier leg: 8 prompts of five 128-token blocks and a tail; a pool
+# of 64 blocks holds one batch's 48, so a second batch evicts the first
+# batch's cached blocks (spilled to the host tier), and resubmitting the
+# first batch readmits them in windows of 2 blocks
+HOST_TIER_CONFIG = {
+    "dtype": "bfloat16", "decode_steps": 1, "prompt_chunk": 256, "max_prompt_chunks": 4,
+    "kv_cache": {"block_size": 128, "num_blocks": 64, "max_blocks_per_seq": 8,
+                 "prefix_cache": True, "host_tier_bytes": 8 << 30,
+                 "host_tier_chunk_blocks": 2},
+    "state_manager": {"max_tracked_sequences": 16, "max_ragged_batch_size": 1024,
+                      "max_ragged_sequence_count": 8, "max_context": 1024},
+}
+HOST_TIER_PROMPTS = (8, 5, 17)  # prompts a batch, cached blocks a prompt, tail tokens
+
+
+def host_tier_phase(torch, dev, K, cfg, params, engine_config=None, shape=HOST_TIER_PROMPTS,
+                    kv_cache_dtype="bf16"):
+    """The host block tier on the engine phase's weights: batch 1 served
+    (its full prompt blocks cached), batch 2 evicts them (spilled), batch 1
+    resubmitted readmits them through ``import_kv_blocks_chunked``. Checks:
+    spills and readmits > 0, the resubmission's prefill schedules only the
+    tails, each readmitted block's exported planes equal the spilled
+    payload bit for bit, and the resubmitted prompts' logits are within the
+    engine's tolerance of ``forward_reference``. Prints the chunked
+    import's GB/s (staging into pinned memory, the windows' copies and
+    scatters, on the host clock around each import) and the share of it
+    the staging takes (on the host clock around ``_stage_windows``)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.host_tier import chain_hashes
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    ec = dict(engine_config or HOST_TIER_CONFIG)
+    ec["kv_cache"] = dict(ec["kv_cache"], kv_cache_dtype=kv_cache_dtype)
+    eng = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig.from_dict(ec),
+                            device=dev.type)
+    bs = eng.config.kv_cache.block_size
+    n, nblk, tail = shape
+    rng = np.random.default_rng(SEED + 2)
+    batches = [[rng.integers(0, cfg.vocab_size, size=nblk * bs + tail).astype(np.int32)
+                for _ in range(n)] for _ in range(2)]
+    store = eng.host_tier
+    spilled, fetched = {}, []
+    put, get = store.put, store.get
+
+    def put_copy(key, payload, **kw):
+        spilled[key] = {name: np.array(p) for name, p in payload.items()}
+        return put(key, payload, **kw)
+
+    def get_noted(key):
+        fetched.append(key)
+        return get(key)
+
+    store.put, store.get = put_copy, get_noted
+    imports = {"seconds": 0.0, "stage_seconds": 0.0, "bytes": 0, "calls": 0, "blocks": 0}
+    chunked, stage = eng.import_kv_blocks_chunked, eng._stage_windows
+
+    def timed_stage(*a, **kw):
+        t0 = time.perf_counter()
+        out = stage(*a, **kw)
+        imports["stage_seconds"] += time.perf_counter() - t0
+        return out
+
+    def timed_import(block_ids, payload, chunk_blocks=0):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        chunked(block_ids, payload, chunk_blocks)
+        _sync(torch, dev)
+        imports["seconds"] += time.perf_counter() - t0
+        imports["bytes"] += sum(p.nbytes for p in payload.values())
+        imports["calls"] += 1
+        imports["blocks"] += len(block_ids)
+
+    eng.import_kv_blocks_chunked, eng._stage_windows = timed_import, timed_stage
+    rec = {"phase": "host_tier", "kv_cache_dtype": kv_cache_dtype, "n_layers": cfg.n_layers,
+           "prompts": [n, nblk * bs + tail], "num_blocks": eng.config.kv_cache.num_blocks}
+    try:
+        for b in batches:
+            eng.generate(b, max_new_tokens=4)
+        rec["spills_before_resubmit"] = store.stats()["spills"]
+        sched = eng.scheduler
+        for uid, p in enumerate(batches[0]):
+            sched.submit(uid, p)
+        scheduled, logits = 0, {}
+        while sched.has_pending():
+            logits.update(eng.step())
+            scheduled += eng.last_scheduled_tokens
+        st = store.stats()
+        # the trie and the tier may cover every full block but the last
+        # token's: the tails
+        tails = sum(len(p) - (len(p) - 1) // bs * bs for p in batches[0])
+        rec.update(spills=st["spills"], readmits=st["readmits"], prefill_tokens=scheduled,
+                   prefill_tokens_tails=tails, store_blocks=st["blocks"],
+                   store_bytes=st["bytes"])
+        if not (st["spills"] > 0 and st["readmits"] > 0):
+            raise AssertionError(f"the cycle spilled {st['spills']}, readmitted "
+                                 f"{st['readmits']}: it tested nothing")
+        if scheduled != tails:
+            raise AssertionError(f"the resubmission prefilled {scheduled} tokens, expected "
+                                 f"only the tails' {tails}")
+        checked = 0
+        for uid, p in enumerate(batches[0]):
+            seq = eng.state_manager.get_sequence(uid)
+            for i, key in enumerate(chain_hashes(p, bs, (len(p) - 1) // bs)):
+                if key not in fetched:
+                    continue
+                got = eng.export_kv_blocks([seq.block_table[i]])
+                for name, plane in got.items():
+                    if not np.array_equal(plane[:, 0], spilled[key][name]):
+                        raise AssertionError(f"uid {uid} block {i}: readmitted {name} plane "
+                                             "differs from the spilled payload")
+                checked += 1
+        if checked != st["readmits"]:
+            raise AssertionError(f"{checked} readmitted blocks checked of {st['readmits']}")
+        rec["blocks_checked_bitwise"] = checked
+        errs, shifted = [], []
+        for uid, p in enumerate(batches[0]):
+            toks = torch.as_tensor(p.astype(np.int64), device=dev)[None]
+            with torch.no_grad():
+                ref = T.forward_reference(eng.params, toks, cfg)[0][0].float()
+            errs.append(rows_rel_err(torch, torch.as_tensor(logits[uid]), ref[-1].cpu()))
+            shifted.append(rows_rel_err(torch, torch.as_tensor(logits[uid]), ref[-2].cpu()))
+        rtol = INT8_LOGIT_RTOL if kv_cache_dtype == "int8" else LOGIT_RTOL
+        rec.update(logit_rel_err=max(errs), logit_rel_err_shifted=min(shifted), logit_rtol=rtol)
+        if rec["logit_rel_err"] > rtol or rec["logit_rel_err_shifted"] <= rtol:
+            raise AssertionError(f"readmitted prompts' logits: {rec['logit_rel_err']} against "
+                                 f"forward_reference, control {rec['logit_rel_err_shifted']}")
+        for uid in list(sched.running_uids()):
+            sched.finish(uid)
+    finally:
+        store.put, store.get = put, get
+    rec["chunked_import"] = dict(imports, gb_s=imports["bytes"] / max(imports["seconds"], 1e-9)
+                                 / 1e9, stage_share=imports["stage_seconds"]
+                                 / max(imports["seconds"], 1e-9))
+    rec["seconds_in_phase"] = time.perf_counter() - t_phase
+    return rec
+
+
+V1_PROMPTS = (4, 512)  # batch, prompt tokens
+V1_NEW_TOKENS = 16
+V1_NOTE = ("inference_v1: the v1 engine's cached decode attends with a dense bias, which the "
+           "flash kernels do not take, so it calls mha_reference on a card too: no attention "
+           "kernel launches; its norms are the RMSNorm kernel")
+
+
+def inference_v1_phase(torch, dev, K, cfg, params, shape=V1_PROMPTS, new=V1_NEW_TOKENS):
+    """The v1 engine through ``init_inference`` on the engine phase's
+    weights: 4 prompts of 512 tokens, 16 greedy tokens, at decode_steps 1
+    and 4. Checks: the first token's logits (the prefill's last row) against
+    ``forward_reference``, equal streams at both settings, exactly 2L + 1
+    RMSNorm launches a forward step and no other kernel."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import engine as v1
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    b, s = shape
+    L = cfg.n_layers
+    toks = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, size=(b, s)).astype(
+        np.int32)
+    rec = {"phase": "inference_v1", "n_layers": L, "prompts": [b, s], "new_tokens": new,
+           "runs": {}}
+    firsts = []
+    draw = v1.sample_step
+
+    def keep(logits, seed, step, *a, **k):
+        if step == -1:
+            firsts.append(logits)
+        return draw(logits, seed, step, *a, **k)
+
+    v1.sample_step = keep
+    outs = {}
+    try:
+        for ds in (1, 4):
+            eng = deepspeed_tpu_torch.init_inference(
+                (cfg, params), {"dtype": cfg.dtype, "decode_steps": ds, "max_tokens": 1024},
+                device=dev.type)
+            K.reset_counts()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            outs[ds] = eng.generate(toks, max_new_tokens=new)
+            _sync(torch, dev)
+            dt = time.perf_counter() - t0
+            launches = K.counts()
+            steps = 1 + -(-(new - 1) // ds) * ds  # the prefill and the decode steps run
+            expected = {name: 0 for name in launches}
+            expected["rms_norm_fwd"] = (2 * L + 1) * steps
+            if dev.type == "cuda" and launches != expected:
+                raise AssertionError(f"v1 decode_steps {ds}: launches {launches}, expected "
+                                     f"{expected}")
+            rec["runs"][ds] = {"seconds": dt, "tok_s": b * new / dt, "forward_steps": steps,
+                               "launches": launches, "launches_expected": expected}
+            del eng
+    finally:
+        v1.sample_step = draw
+    if not np.array_equal(outs[1], outs[4]):
+        raise AssertionError("decode_steps 4 gave another stream than decode_steps 1")
+    with torch.no_grad():
+        ref = T.forward_reference(params, torch.as_tensor(toks.astype(np.int64), device=dev),
+                                  cfg)[0].float()
+    rec["logit_rel_err"] = rows_rel_err(torch, firsts[0], ref[:, -1])
+    rec["logit_rel_err_shifted"] = rows_rel_err(torch, firsts[0], ref[:, -2])
+    rec["first_token_agreement"] = float((ref[:, -1].argmax(-1).cpu().numpy()
+                                          == outs[1][:, s]).mean())
+    if rec["logit_rel_err"] > LOGIT_RTOL or rec["logit_rel_err_shifted"] <= LOGIT_RTOL:
+        raise AssertionError(f"v1 first-token logits: {rec['logit_rel_err']} against "
+                             f"forward_reference, control {rec['logit_rel_err_shifted']}")
+    for t in outs[1][:, s:].reshape(-1):
+        if not 0 <= int(t) < cfg.vocab_size:
+            raise AssertionError("the v1 engine gave a token outside the vocabulary")
+    rec["seconds_in_phase"] = time.perf_counter() - t_phase
+    return rec
 
 
 # the per-row leg: the engine's per-row step (_step_per_row) with
@@ -4316,22 +4837,58 @@ def main(argv=None):
     emit({"phase": "kernels", "card": card, "seconds": time.perf_counter() - t0,
           "names": list(records)})
     t0 = time.perf_counter()
-    bf16_rows = {}
-    rec, serve_launches = engine_phase(torch, dev, K, profile=args.profile, keep=bf16_rows)
+    bf16_rows, held = {}, {}
+    rec, serve_launches = engine_phase(torch, dev, K, profile=args.profile, keep=bf16_rows,
+                                       hold=held)
     rec["card"] = card
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     bf16_info, bf16_gen, bf16_round = rec["kv_pool_info"], rec["gen_tok_s"], rec["round_tok_s"]
     torch.cuda.empty_cache()
 
+    # speculative decoding, the host tier and the v1 engine on the engine
+    # phase's engine and weights
+    spec_launches = {}
+    t0 = time.perf_counter()
+    rec, spec_launches["bf16"] = engine_spec_phase(torch, dev, K, held["engine"],
+                                                   held["prompts"], held["plain"])
+    rec.update(card=card, seconds=time.perf_counter() - t0)
+    emit(rec)
+    print(f"engine_spec: oracle drafts accepted {rec['oracle_accepted']} of "
+          f"{rec['oracle_drafted']}; over {SPEC_TIMED_ROUNDS} rounds each (median [min, max]): "
+          f"verify step {fmt_spread(rec['verify_ms'])} ms; spec "
+          f"{fmt_spread(rec['spec_tok_s'])} tok/s against plain decode_round "
+          f"{fmt_spread(rec['plain_round_tok_s'])} tok/s on {card}", flush=True)
+    t0 = time.perf_counter()
+    rec = host_tier_phase(torch, dev, K, held["cfg"], held["engine"].params)
+    rec.update(card=card, seconds=time.perf_counter() - t0)
+    emit(rec)
+    print(f"host_tier: {rec['readmits']} blocks readmitted, chunked import "
+          f"{rec['chunked_import']['gb_s']:.2f} GB/s, of its time "
+          f"{100 * rec['chunked_import']['stage_share']:.0f}% staging into pinned memory, "
+          f"on {card}", flush=True)
+    print(V1_NOTE, flush=True)
+    t0 = time.perf_counter()
+    rec = inference_v1_phase(torch, dev, K, held["cfg"], held["engine"].params)
+    rec.update(card=card, seconds=time.perf_counter() - t0)
+    emit(rec)
+    held.clear()
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     rec, int8_launches = engine_phase(torch, dev, K, kv_cache_dtype="int8", bf16_rows=bf16_rows,
-                                      profile=args.profile)
+                                      profile=args.profile, hold=held)
     rec.update(card=card, seconds=time.perf_counter() - t0, kv_pool_info_bf16=bf16_info,
                gen_tok_s_over_bf16=rec["gen_tok_s"] / bf16_gen,
                round_tok_s_over_bf16=rec["round_tok_s"] / bf16_round)
     emit(rec)
     del bf16_rows
+    t0 = time.perf_counter()
+    rec, spec_launches["int8"] = engine_spec_phase(torch, dev, K, held["engine"],
+                                                   held["prompts"], held["plain"], int8=True)
+    rec.update(card=card, seconds=time.perf_counter() - t0)
+    emit(rec)
+    held.clear()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     rec, per_row_int8_launches = engine_per_row_int8_phase(torch, dev, K)
@@ -4418,6 +4975,9 @@ def main(argv=None):
     missing += [f"{n} (engine_int8)" for n in ("rms_norm_fwd",) if int8_launches[n] <= 0]
     missing += [f"{n} (engine_per_row_int8)" for n in INT8_KERNELS
                 if per_row_int8_launches[n] <= 0]
+    missing += [f"{n} (engine_spec)" for n in SERVE_KERNELS if spec_launches["bf16"][n] <= 0]
+    missing += [f"{n} (engine_spec_int8)" for n in INT8_KERNELS + ("rms_norm_fwd",)
+                if spec_launches["int8"][n] <= 0]
     if missing or set(launched) != set(K.KERNELS):
         raise AssertionError(
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
@@ -4455,6 +5015,12 @@ def main(argv=None):
                if name in EVOFORMER_KERNELS else {}),
             **({"launches_engine_per_row_int8": per_row_int8_launches[name]}
                if name in INT8_KERNELS else {}),
+            **({"launches_verify_step": spec_launches["int8" if name in INT8_KERNELS
+                                                      else "bf16"][name]}
+               if name in SERVE_KERNELS + INT8_KERNELS else {}),
+            **({"verify_form": {key: rec["verify_form"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_ms_as_read",
+                "max_abs_err", "launches_per_call")}} if "verify_form" in rec else {}),
             **({"launches_ring_attn_call": ring_launches[name]} if name in CARRY_KERNELS else {}),
             "matched": True,  # check_close raised otherwise
         })

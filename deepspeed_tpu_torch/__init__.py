@@ -16,8 +16,10 @@ data x context parallel over processes (``Topology``, ``comm``):
     (``TransformerConfig(fused_ce=True)``, ``{"optimizer": {"type":
     "FusedAdam"}}``) the fused LM head + cross-entropy (forward, dx, dW) and
     FusedAdam kernels; npz checkpoints the JAX package reads and writes;
-  * serve: ``inference.v2.engine_v2.InferenceEngineV2`` with the RMSNorm and
-    paged-decode kernels;
+  * serve: ``inference.v2.engine_v2.InferenceEngineV2`` with the RMSNorm,
+    paged-decode and (int8 pools) block-quant kernels, speculative
+    decoding (``spec_round``) and the host block tier; the v1 engine
+    through ``init_inference``;
   * ops: ``get_accelerator().create_op_builder(name).load()`` hands out an op
     of the registry (``ops/op_builder.py``; ``sparse_attn`` gives the
     block-sparse module, ``SparseSelfAttention`` over the splash or the
@@ -137,4 +139,20 @@ def initialize(
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
-__all__ = ["__version__", "get_accelerator", "initialize", "log_dist", "logger"]
+def init_inference(model=None, config=None, device="cuda", **kwargs):
+    """Reference ``init_inference`` (__init__.py:302): the v1
+    ``InferenceEngine`` over ``model`` = (TransformerConfig, params).
+    ``config`` is a dict or a ``DeepSpeedInferenceConfig``; without one the
+    keyword arguments are its fields. The engine runs on ``device``."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+
+    if isinstance(config, dict):
+        config = DeepSpeedInferenceConfig.from_dict(config)
+    elif config is None:
+        config = DeepSpeedInferenceConfig.from_dict(kwargs)
+    return InferenceEngine(model, config, device=device)
+
+
+__all__ = ["__version__", "get_accelerator", "init_inference", "initialize", "log_dist",
+           "logger"]

@@ -1,10 +1,11 @@
-"""Inference configs for the v2 engine.
+"""Inference configs for the v1 and v2 engines.
 
-Copy of ``deepspeed_tpu/inference/config.py``: ``QuantConfig``,
-``KVCacheConfig``, ``StateManagerConfig`` and
+Copy of ``deepspeed_tpu/inference/config.py``: ``TPConfig`` and
+``DeepSpeedInferenceConfig`` (reference inference/config.py, the v1
+engine's), ``QuantConfig``, ``KVCacheConfig``, ``StateManagerConfig`` and
 ``RaggedInferenceEngineConfig`` (reference inference/v2/config_v2.py).
 Field names and defaults are the JAX package's, so one config dict drives
-either engine.
+either package's engine.
 """
 
 from dataclasses import dataclass
@@ -14,12 +15,51 @@ from deepspeed_tpu_torch.runtime.config_utils import DSConfigModel, submodel
 
 
 @dataclass
+class TPConfig(DSConfigModel):
+    tp_size: int = 1
+    enabled: bool = True
+
+
+@dataclass
 class QuantConfig(DSConfigModel):
     """Weight-only quantized inference (reference inference/quantization/)."""
 
     enabled: bool = False
     bits: int = 8  # 8 | 4 (packed)
     group_size: int = 128
+
+
+@dataclass
+class DeepSpeedInferenceConfig(DSConfigModel):
+    """v1 engine config (reference inference/config.py)."""
+
+    dtype: str = "bfloat16"
+    tensor_parallel: Optional[TPConfig] = submodel(TPConfig)
+    quant: QuantConfig = submodel(QuantConfig)
+    max_out_tokens: int = 1024
+    min_out_tokens: int = 1
+    max_tokens: int = 4096  # prompt + generation budget
+    replace_with_kernel_inject: bool = True  # the kernels are always on
+    enable_cuda_graph: bool = False  # accepted, not used
+    checkpoint: Optional[str] = None
+    zero_inference: bool = False
+    temperature: float = 1.0
+    top_k: int = 0
+    greedy: bool = True
+    # > 1: generate() runs this many decode iterations per round with the
+    # sampled token fed back on the device (the v2 engine's decode_steps);
+    # the streams equal per-step decoding's
+    decode_steps: int = 1
+
+    @classmethod
+    def from_dict(cls, d=None, strict: bool = False):
+        d = dict(d or {})
+        tp = d.get("tensor_parallel")
+        if isinstance(tp, int):  # convenience: tensor_parallel: 4
+            d["tensor_parallel"] = {"tp_size": tp}
+        if "dtype" in d and not isinstance(d["dtype"], str):
+            d["dtype"] = str(d["dtype"]).replace("torch.", "").replace("jnp.", "")
+        return super().from_dict(d, strict=strict)
 
 
 @dataclass

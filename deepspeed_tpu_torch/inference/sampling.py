@@ -12,6 +12,11 @@ written in torch integer ops (``utils/counter_hash.py``), not from a device
 generator, so the CPU and a card draw the same bits. They are not JAX's threefry bits: sampled
 streams agree within the port, not with the JAX package (ROADMAP queue 1,
 item 4).
+
+The v1 engine (``inference/engine.py``) draws a whole batch per step, as
+the JAX package's ``_sample`` does with one key per step: its rows' keys
+come from (seed, absolute decode step, batch row), ``step_keys``, so its
+fused rounds draw what its per-step loop draws.
 """
 
 import torch
@@ -45,6 +50,13 @@ def row_keys(seed: int, uids, positions):
     return fold(fold(base, uids), positions)
 
 
+def step_keys(seed: int, step: int, batch: int, device=None):
+    """The v1 engine's per-row keys (int64 [batch]) for the draw after
+    decode step ``step`` (-1: the prefill's draw), from (seed, step, row)."""
+    rows = torch.arange(batch, device=device, dtype=torch.int64)
+    return row_keys(seed, rows, torch.full_like(rows, int(step)))
+
+
 def uniform(keys, n: int):
     """[R, n] fp32 draws in (0, 1): one per (row key, column)."""
     cols = torch.arange(n, device=keys.device, dtype=torch.int64)
@@ -71,3 +83,11 @@ def sample_tokens(logits, keys=None, temperature=1.0, greedy: bool = True,
         return toks
     logp = torch.log_softmax(dist, dim=-1)
     return toks, logp.gather(-1, toks.long()[:, None])[:, 0]
+
+
+def sample_step(logits, seed: int, step: int, temperature=1.0, greedy: bool = True):
+    """The v1 engine's draw (the JAX package's ``inference/engine._sample``):
+    argmax when greedy, else Gumbel-max over logits / max(temperature,
+    1e-4) with ``step_keys(seed, step, rows)``. logits: [b, vocab]."""
+    keys = None if greedy else step_keys(seed, step, logits.shape[0], logits.device)
+    return sample_tokens(logits, keys, temperature=temperature, greedy=greedy)

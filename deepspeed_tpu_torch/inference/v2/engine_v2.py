@@ -45,19 +45,39 @@ layer's attention reads only its own layer's region, and the pool limit
 (the step's decode positions, the chunk starts, the round's start
 positions) masks every position the step or round has written.
 
+Speculative decoding (``spec_round``) verifies each row's pending token
+and up to k drafts in one forward of R x (k + 1) query rows: the verify
+form of ``paged_attention`` (``paged.verify_kwargs``: each query row
+carries its row's table and write cursor, and the row's k + 1 fresh K/V as
+extra columns with the in-chunk causal mask), then the layer's write, the
+same write-after-read order as the split step. The targets are drawn with
+the keys plain decode would use, so spec-on streams equal spec-off ones.
+
+The host block tier (``kv_cache.host_tier_bytes``) spills blocks the
+prefix trie evicts to a byte-budgeted host store and readmits them through
+``import_kv_blocks_chunked`` (fixed windows: the payload staged once in
+pinned memory, each window's copy on a side stream while the previous
+window's scatter runs).
+
+The port compiles no programs: eager PyTorch builds nothing per step
+shape, so ``trace_signature`` is the set of kernel libraries this process
+has built or loaded, the one cost a first use pays at admission (ROADMAP
+queue 1, item 4).
+
 The engine runs on ``device`` ("cuda" unless the caller passes "cpu"), and
 raises when asked for a card that is not there. Features of the JAX engine
 that later slices port raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.sampling import row_keys, sample_tokens
+from deepspeed_tpu_torch.inference.v2.host_tier import HostBlockStore, chain_hashes
 from deepspeed_tpu_torch.inference.v2.kv_pool import _check_dtype, check_kv_payload, describe
 from deepspeed_tpu_torch.inference.v2.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.scheduler import RaggedScheduler
@@ -67,9 +87,13 @@ from deepspeed_tpu_torch.ops.attention.paged import (
     paged_attention,
     paged_chunk_attention,
     resolve_impl,
+    verify_extras,
+    verify_rows,
 )
+from deepspeed_tpu_torch.ops.kernels import KERNELS
 from deepspeed_tpu_torch.ops.quantizer.block_quant import quantize_kv_pair
 from deepspeed_tpu_torch.ops.sparse_attention.splash import splash_prefill_attention
+from deepspeed_tpu_torch.serving.resilience.faults import InjectedFault, get_fault_injector
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _CHUNK_BUCKETS = (1, 8, 32, 64, 128, 256, 512)
@@ -180,10 +204,6 @@ class InferenceEngineV2:
         if getattr(cfg, "quant", None) is not None and cfg.quant.enabled:
             raise _later("weight-only quantized inference (quant)",
                          "ROADMAP queue 1, item 8")
-        if int(getattr(cfg, "spec_k", 0) or 0) > 0:
-            raise _later("speculative decoding (spec_k > 0)", "ROADMAP queue 1, item 4")
-        if int(getattr(kv, "host_tier_bytes", 0) or 0) > 0:
-            raise _later("the host block tier (host_tier_bytes > 0)", "ROADMAP queue 1, item 4")
         if c.attn_sparsity is not None:
             # the steps serve the causal (windowed) mask: a sparsity layout
             # would be served as another mask than the one it trained with,
@@ -238,7 +258,24 @@ class InferenceEngineV2:
         self._layer_off = torch.arange(c.n_layers, device=self.device, dtype=torch.int32) * (
             kv.num_blocks + 1
         )
+        # the host block tier: LRU-evicted prefix-trie blocks demote their
+        # K/V to a byte-budgeted host store; a trie miss the store covers
+        # re-imports instead of re-prefilling (streams equal tier on or off)
+        self._host_tier = None
+        htb = int(getattr(kv, "host_tier_bytes", 0) or 0)
+        if htb > 0:
+            if self.state_manager.prefix_cache is None:
+                raise ValueError(
+                    "kv_cache.host_tier_bytes requires kv_cache.prefix_cache: "
+                    "the host tier spills and readmits through the prefix trie"
+                )
+            self._host_tier = HostBlockStore(htb, validate=self._check_tier_entry)
+            self.state_manager.prefix_cache.spill_fn = self._spill_block
+            self.state_manager.host_readmit = self._host_readmit
         self._seed = int(getattr(cfg, "seed", 0) or 0)
+        self._copy_stream = None  # import_kv_blocks_chunked's side stream, made on first use
+        self._spec_rr = 0  # rotation cursor for budget-capped spec rounds
+        self.last_spec = {"drafted": 0, "accepted": 0, "per_uid": {}}
         self.last_logprobs: Dict[int, np.ndarray] = {}
         self.last_scheduled_tokens = 0
         self.last_capped = set()
@@ -246,7 +283,8 @@ class InferenceEngineV2:
             f"InferenceEngineV2: {kv.num_blocks} KV blocks × {kv.block_size} tokens, "
             f"budget {cfg.state_manager.max_ragged_batch_size} tok/step, "
             f"kv={self._kv_dtype}, attn={self._attn_impl}, device={self.device}"
-            + (", prefix_cache=on" if self.state_manager.prefix_cache is not None else ""),
+            + (", prefix_cache=on" if self.state_manager.prefix_cache is not None else "")
+            + (f", host_tier={htb}B" if self._host_tier is not None else ""),
             ranks=[0],
         )
 
@@ -330,16 +368,354 @@ class InferenceEngineV2:
                 vals = vals.view(torch.int16).view(torch.bfloat16)
             pool[:, idx] = vals.to(self.device)
 
-    # -- not ported in this slice -----------------------------------------
-    def import_kv_blocks_chunked(self, *a, **k):
-        raise _later("chunked, device and window KV transports",
-                     "ROADMAP queue 1, item 5: serving stack")
+    # -- chunked and device-resident transports ----------------------------
+    def _window_index(self, block_ids, chunk: int, skip: int = 0) -> np.ndarray:
+        """Destination block ids padded to whole windows of ``chunk`` with
+        the trash block (``num_blocks``); the first ``skip`` also trash."""
+        trash = self.config.kv_cache.num_blocks
+        n = len(block_ids)
+        idx = np.full(-(-n // chunk) * chunk, trash, np.int64)
+        idx[:n] = np.asarray(list(block_ids), np.int64)
+        idx[: max(0, int(skip))] = trash
+        return idx
 
-    export_kv_blocks_device = export_kv_blocks_windows = import_kv_blocks_chunked
-    import_kv_blocks_device = import_kv_blocks_chunked
+    def _chunk_blocks(self, chunk_blocks: int) -> int:
+        kv = self.config.kv_cache
+        return int(chunk_blocks) or int(getattr(kv, "host_tier_chunk_blocks", 8) or 8)
 
-    def spec_round(self, *a, **k):
-        raise _later("speculative decoding (spec_round)", "ROADMAP queue 1, item 4")
+    def _stage_windows(self, payload: Dict[str, np.ndarray], n: int,
+                       chunk: int) -> Dict[str, torch.Tensor]:
+        """The payload's planes copied once into host tensors laid out
+        window by window ([n_win, L, chunk, *tail], so each window is one
+        contiguous run), the tail window zero-filled; in pinned memory when
+        the pool is on a card, so each window's copy to it is asynchronous."""
+        n_win = -(-n // chunk)
+        pin = self.device.type == "cuda"
+        host = {}
+        for name, pool in self._kv_pool_planes().items():
+            src = torch.from_numpy(np.ascontiguousarray(payload[name]))
+            if pool.dtype == torch.bfloat16:
+                src = src.view(torch.int16).view(torch.bfloat16)
+            t = torch.empty((n_win, pool.shape[0], chunk) + tuple(pool.shape[2:]),
+                            dtype=pool.dtype, pin_memory=pin)
+            for w in range(n_win):
+                lo, hi = w * chunk, min((w + 1) * chunk, n)
+                t[w, :, : hi - lo].copy_(src[:, lo:hi])
+                t[w, :, hi - lo :].zero_()
+            host[name] = t
+        return host
+
+    def import_kv_blocks_chunked(self, block_ids, payload: Dict[str, np.ndarray],
+                                 chunk_blocks: int = 0) -> None:
+        """``import_kv_blocks`` in fixed windows of ``chunk_blocks`` blocks
+        (default ``kv_cache.host_tier_chunk_blocks``): the tail window's ids
+        are padded with the trash block and its values zero-filled, so every
+        window has one shape. Each window is one ``index_copy_`` per plane
+        along the block axis. On a card the payload is staged once in
+        pinned memory (``_stage_windows``) and the windows' copies run on a
+        side stream into two device buffers, so window w + 1's copy runs
+        while window w's scatter does (the double buffer); each scatter
+        waits on its window's copy, each copy on the scatter that last read
+        its buffer. Every plane moves, an int8 pool's scale planes too. With
+        ``chunk_blocks`` 0, a payload of one window or less goes through
+        ``import_kv_blocks``. The payload is validated first."""
+        n = len(block_ids)
+        if n == 0:
+            return
+        self._check_kv_payload(n, payload)
+        chunk = self._chunk_blocks(chunk_blocks)
+        if n <= chunk and chunk_blocks == 0:
+            return self.import_kv_blocks(block_ids, payload)
+        idx_dev = torch.from_numpy(self._window_index(block_ids, chunk)).to(self.device)
+        planes = self._kv_pool_planes()
+        host = self._stage_windows(payload, n, chunk)
+        n_win = -(-n // chunk)
+        if self.device.type != "cuda":
+            for w in range(n_win):
+                idx = idx_dev[w * chunk : (w + 1) * chunk]
+                for name, pool in planes.items():
+                    pool.index_copy_(1, idx, host[name][w])
+            return
+        main = torch.cuda.current_stream(self.device)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        side = self._copy_stream
+        # the buffers come from the main stream's pool: the side stream
+        # starts after the main stream's earlier work, and the main stream
+        # waits on every copy, so later reuse of the buffers is ordered
+        bufs = [{name: torch.empty_like(host[name][0], device=self.device) for name in planes}
+                for _ in range(2)]
+        read = [None, None]  # the event after the last scatter that read a buffer
+        side.wait_stream(main)
+
+        def issue(w):
+            slot = bufs[w % 2]
+            with torch.cuda.stream(side):
+                if read[w % 2] is not None:
+                    side.wait_event(read[w % 2])
+                for name in planes:
+                    slot[name].copy_(host[name][w], non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(side)
+            return copied
+
+        copied = issue(0)
+        for w in range(n_win):
+            nxt = issue(w + 1) if w + 1 < n_win else None
+            main.wait_event(copied)
+            idx = idx_dev[w * chunk : (w + 1) * chunk]
+            for name, pool in planes.items():
+                pool.index_copy_(1, idx, bufs[w % 2][name])
+            read[w % 2] = torch.cuda.Event()
+            read[w % 2].record(main)
+            copied = nxt
+
+    def export_kv_blocks_device(self, block_ids) -> Dict[str, torch.Tensor]:
+        """``export_kv_blocks`` without the host copy: the pool planes of
+        ``block_ids`` as tensors on the engine's device, which own their
+        storage (the source's blocks may be freed and rewritten while the
+        payload is in flight)."""
+        idx = torch.as_tensor(np.asarray(list(block_ids), np.int64), device=self.device)
+        return {name: pool.index_select(1, idx) for name, pool in self._kv_pool_planes().items()}
+
+    def export_kv_blocks_windows(self, block_ids, chunk_blocks: int = 0):
+        """The windowed device export, the dual of
+        ``import_kv_blocks_chunked``: returns (windows, chunk), each window
+        {plane: tensor of exactly ``chunk`` block columns}, the tail's ids
+        padded with the trash block. Every gather is issued up front."""
+        chunk = self._chunk_blocks(chunk_blocks)
+        n = len(block_ids)
+        if n == 0:
+            return [], chunk
+        idx_dev = torch.from_numpy(self._window_index(block_ids, chunk)).to(self.device)
+        planes = self._kv_pool_planes()
+        return [{name: pool.index_select(1, idx_dev[w : w + chunk])
+                 for name, pool in planes.items()}
+                for w in range(0, len(idx_dev), chunk)], chunk
+
+    def _check_device_window(self, n: int, win: Dict[str, torch.Tensor]) -> None:
+        """``check_kv_payload``'s contract for a device window: the pool's
+        planes, each [L, n, *tail] in the pool's dtype on its device."""
+        planes = self._kv_pool_planes()
+        if set(win) != set(planes):
+            raise ValueError(
+                f"import_kv_blocks_device: payload planes {sorted(win)} do not match the "
+                f"pool's {sorted(planes)}")
+        for name, pool in planes.items():
+            t = win[name]
+            want = (pool.shape[0], n) + tuple(pool.shape[2:])
+            if tuple(t.shape) != want or t.dtype != pool.dtype or t.device != pool.device:
+                raise ValueError(
+                    f"import_kv_blocks_device: payload[{name!r}] {tuple(t.shape)} {t.dtype} "
+                    f"on {t.device}, expected {want} {pool.dtype} on {pool.device}")
+
+    def import_kv_blocks_device(self, block_ids, windows, chunk_blocks: int,
+                                skip_blocks: int = 0) -> int:
+        """Scatter a windowed device export into THIS pool at ``block_ids``
+        (the whole destination table, in the exporter's column order) with
+        no host copy. The first ``skip_blocks`` destinations (a prefix this
+        engine already holds) and the padded tail go to the trash block;
+        windows wholly below ``skip_blocks`` are not touched. Returns the
+        number of block columns written."""
+        n = len(block_ids)
+        chunk = int(chunk_blocks)
+        if n == 0 or not windows:
+            return 0
+        if chunk <= 0:
+            raise ValueError(f"import_kv_blocks_device: chunk_blocks={chunk_blocks} must be "
+                             "positive (the exporter's window size)")
+        n_win = -(-n // chunk)
+        if len(windows) != n_win:
+            raise ValueError(f"import_kv_blocks_device: {len(windows)} windows != {n_win} "
+                             f"expected for {n} blocks at chunk {chunk}")
+        for win in windows:
+            self._check_device_window(chunk, win)
+        trash = self.config.kv_cache.num_blocks
+        idx_host = self._window_index(block_ids, chunk, skip_blocks)
+        idx_dev = torch.from_numpy(idx_host).to(self.device)
+        planes = self._kv_pool_planes()
+        copied = 0
+        for w in range(max(0, int(skip_blocks)) // chunk, n_win):
+            idx = idx_dev[w * chunk : (w + 1) * chunk]
+            for name, pool in planes.items():
+                pool.index_copy_(1, idx, windows[w][name])
+            copied += int(np.sum(idx_host[w * chunk : (w + 1) * chunk] != trash))
+        return copied
+
+    # -- host block tier ---------------------------------------------------
+    @property
+    def prefix_cache(self):
+        """The pool's automatic prefix cache (None when kv_cache.prefix_cache
+        is off). A cache-seeded sequence enters prefill with shared blocks
+        and a nonzero start; the split step's chunk rows read them below the
+        chunk start like any other context."""
+        return self.state_manager.prefix_cache
+
+    @property
+    def host_tier(self):
+        """The host block tier (None when kv_cache.host_tier_bytes is 0)."""
+        return self._host_tier
+
+    def _check_tier_entry(self, payload: Dict[str, np.ndarray]) -> None:
+        """A host-tier entry is one block's column of the export payload
+        ([L, block_size, kv_heads(, head_dim)] per plane): the block axis
+        restored, it is held to the same contract as an import."""
+        self._check_kv_payload(1, {name: p[:, None] for name, p in payload.items()},
+                               context="host_tier.put")
+
+    def _spill_block(self, hkey: bytes, block: int) -> None:
+        """The prefix trie's eviction hook: one idle cached block's K/V to
+        the host tier before its pool block returns to the free list."""
+        store = self._host_tier
+        if store is None:
+            return
+        payload = self.export_kv_blocks([block])
+        store.put(hkey, {name: plane[:, 0] for name, plane in payload.items()})
+
+    def _host_readmit(self, seq, prompt_tokens, n_cached: int) -> int:
+        """``seed_from_cache``'s continuation: after the trie covered
+        ``n_cached`` prompt tokens, cover the next run of full blocks from
+        the host tier (fresh pool blocks, the stored payloads through
+        ``import_kv_blocks_chunked``, the prefix registered in the trie
+        again). Returns the new cached-token count; prefill then charges
+        only the tail. A ``host_tier.readmit`` fault, or a pool too tight,
+        degrades to re-prefilling, with the same stream."""
+        store = self._host_tier
+        cache = self.state_manager.prefix_cache
+        if store is None or cache is None or len(store) == 0:
+            return n_cached
+        faults = get_fault_injector()
+        if faults.enabled:
+            try:
+                faults.check("host_tier.readmit", replica=getattr(self, "_trace_name", None))
+            except InjectedFault:
+                return n_cached  # before extend(): the pool is untouched
+        toks = np.asarray(prompt_tokens).reshape(-1)
+        bs = cache.block_size
+        matchable = cache._matchable_blocks(len(toks))
+        start = n_cached // bs
+        if start >= matchable:
+            return n_cached
+        keys = chain_hashes(toks, bs, matchable)
+        run = store.match(keys, start)
+        if run == 0:
+            return n_cached
+        # payloads before allocating: extend() may evict, spill and drop
+        # matched store entries
+        payloads = []
+        for key in keys[start : start + run]:
+            entry = store.get(key)
+            if entry is None:
+                break
+            payloads.append(entry)
+        run = len(payloads)
+        if run == 0:
+            return n_cached
+        if not self.state_manager.extend(seq, run * bs):
+            return n_cached
+        stacked = {name: np.stack([p[name] for p in payloads], axis=1) for name in payloads[0]}
+        self.import_kv_blocks_chunked(seq.block_table[start:], stacked)
+        seq.seen_tokens = n_cached + run * bs
+        store.note_readmits(run)
+        cache.insert(toks[: seq.seen_tokens], seq.block_table)
+        return seq.seen_tokens
+
+    # -- warm spares ---------------------------------------------------------
+    def trace_signature(self) -> Dict[str, int]:
+        """What stands for a compile in the port: every kernel library this
+        process has built or loaded (``kernel[name]``: 1). Eager PyTorch
+        builds nothing per step shape, so shapes are not counted. Two
+        snapshots that differ mean a kernel's first build or load at
+        admission; on the CPU, where no kernel loads, it stays empty."""
+        return {f"kernel[{name}]": 1 for name, k in KERNELS.items() if k.loaded}
+
+    def warm_trace(self, decode_steps: int = 1, spec_k: int = 0,
+                   uid: int = (1 << 30) + 7) -> Dict[str, int]:
+        """Drive every step kind the serving loop will use before serving,
+        so every kernel it launches is built or loaded, as the JAX engine's
+        warm_trace compiles its programs: the split step at both chunk buckets
+        (128 and ``prompt_chunk``), the fused round at ``decode_steps``, the
+        verify step at ``spec_k``, the chunked import at a window and a
+        padded tail, and the windowed device export and import. The throwaway
+        sequences are finished and the prefix trie cleared afterwards (its
+        spill hook is off meanwhile); sampling keys are content-addressed,
+        so later streams are those of a cold engine. Returns the
+        ``trace_signature``. Call after the final ``set_sampling``."""
+        sched = self.scheduler
+        vocab = int(getattr(self._mc, "vocab_size", 0) or 2)
+        cache = self.state_manager.prefix_cache
+        spill = getattr(cache, "spill_fn", None) if cache is not None else None
+        if cache is not None:
+            cache.spill_fn = None
+        lens = [8]
+        pc = int(sched.prompt_chunk)
+        if pc > 128 and int(self.config.state_manager.max_context) > pc + 8:
+            lens.append(pc)
+        try:
+            for i, length in enumerate(lens):
+                wuid = uid + i
+                toks = (np.arange(length, dtype=np.int32) % max(1, vocab - 1)) + 1
+                sched.submit(wuid, toks)
+                try:
+                    tok = None
+                    for _ in range(8 + length // max(1, pc)):
+                        out = self.step_tokens()
+                        if wuid in out:
+                            tok = out[wuid]
+                            break
+                    if tok is None:
+                        raise RuntimeError(
+                            f"warm_trace: prefill of {length} tokens never produced a first "
+                            "token")
+                    sched.feedback(wuid, tok)
+                    if i == 0:
+                        if decode_steps > 1:
+                            self.decode_round(int(decode_steps))
+                        if spec_k > 0:
+                            self.spec_round(int(spec_k), drafts={wuid: [1] * int(spec_k)})
+                finally:
+                    sched.finish(wuid)
+            kv = self.config.kv_cache
+            chunk = self._chunk_blocks(0)
+            n = min(chunk + 1, int(kv.num_blocks))
+            if n > chunk:
+                blocks = list(range(n))
+                self.import_kv_blocks_chunked(blocks, self.export_kv_blocks(blocks),
+                                              chunk_blocks=chunk)
+                wins, ch = self.export_kv_blocks_windows(blocks, chunk_blocks=chunk)
+                self.import_kv_blocks_device(blocks, wins, ch)
+        finally:
+            if cache is not None:
+                try:
+                    cache.clear()  # warm prefixes must never serve a hit
+                finally:
+                    cache.spill_fn = spill
+        return self.trace_signature()
+
+    # -- sampling ------------------------------------------------------------
+    def set_sampling(self, greedy=None, temperature=None, top_k=None, top_p=None, seed=None):
+        """Update the sampling knobs; ``seed`` restarts the counter-hash
+        keys. Nothing is rebuilt: the knobs are arguments of the draw, not of
+        a compiled program as in the JAX engine."""
+        cfg = self.config
+        if greedy is not None:
+            cfg.greedy = bool(greedy)
+        if temperature is not None:
+            cfg.temperature = float(temperature)
+        if top_k is not None:
+            cfg.top_k = int(top_k)
+        if top_p is not None:
+            cfg.top_p = float(top_p)
+        if seed is not None:
+            self._seed = int(seed)
+
+    def _sampling_kw(self):
+        cfg = self.config
+        return dict(
+            greedy=bool(getattr(cfg, "greedy", True)),
+            top_k=int(getattr(cfg, "top_k", 0) or 0),
+            top_p=float(getattr(cfg, "top_p", 0.0) or 0.0),
+        )
 
     def enable_tracing(self, *a, **k):
         raise _later("engine tracing spans", "ROADMAP queue 1, item 5: observability")
@@ -348,16 +724,12 @@ class InferenceEngineV2:
     def _sample(self, logits, uids, positions, return_logprobs=False):
         """Next tokens for [R, vocab] logits, keyed on (seed, uid, position
         of the logits source) like the JAX package's row_keys."""
-        cfg = self.config
-        greedy = bool(getattr(cfg, "greedy", True))
-        keys = None if greedy else row_keys(self._seed, uids, positions)
+        kw = self._sampling_kw()
+        keys = None if kw["greedy"] else row_keys(self._seed, uids, positions)
         return sample_tokens(
             logits.float(), keys,
-            temperature=float(getattr(cfg, "temperature", 1.0) or 1.0),
-            greedy=greedy,
-            top_k=int(getattr(cfg, "top_k", 0) or 0),
-            top_p=float(getattr(cfg, "top_p", 0.0) or 0.0),
-            return_logprobs=return_logprobs,
+            temperature=float(getattr(self.config, "temperature", 1.0) or 1.0),
+            return_logprobs=return_logprobs, **kw,
         )
 
     # ------------------------------------------------------------------
@@ -593,6 +965,160 @@ class InferenceEngineV2:
         return results
 
     # ------------------------------------------------------------------
+    def _verify_layer(self, li, x, meta):
+        """One layer of the speculative verify step: R rows of K1 tokens
+        each, flattened to R * K1 query rows. Attention is the verify form
+        of ``paged_attention`` (``paged.verify_rows`` / ``verify_extras``):
+        each query row reads its row's pool below the row's write cursor
+        and the row's K1 fresh K/V as extras, whose positions make the
+        in-chunk causal mask (a padded slot, at -1, sees nothing). The
+        pools are written after attention."""
+        c = self._mc
+        lp = self._layer_params[li]
+        q, k, v = self._layer_qkv(lp, x, meta["pos"], meta["live"])
+        k_pool, v_pool = self._pool_views()
+        ks_pool, vs_pool = self._scale_views()
+        ke, ve = verify_extras(k, v, meta["K1"])
+        out = paged_attention(
+            q, k_pool, v_pool, meta["tables"][li], meta["qpos"], self._trash(li),
+            impl=self._attn_impl, window=self._window(li), scale=c.attn_scale,
+            k_scale=ks_pool, v_scale=vs_pool, extra_kv=(ke, ve, meta["epos"]),
+            pool_limit=meta["limit"],
+        )
+        self._scatter_kv(li, meta["blk"], meta["row"], k, v)
+        return self._layer_tail(lp, x, out)
+
+    def _verify_step(self, k: int, tokens, positions0, tables, uids, active, n_input):
+        """The speculative verify step (the JAX engine's
+        ``_build_verify_step``): every active row scores its pending token
+        and up to k drafts (tokens [R, K1], K1 = k + 1, at positions
+        p..p+k; padded slots at qpos -1 write to the trash block) in one
+        forward, draws the TARGET token at every position with the key
+        plain decode would use (``row_keys(seed, uid, position)``), and
+        accepts the longest draft prefix equal to the targets. Returns host
+        (targets [R, K1], n_emit [R] = accepted + 1 (0 for inactive rows),
+        logprobs [R, K1])."""
+        c, kv = self._mc, self.config.kv_cache
+        R, K1 = tokens.shape
+        B, bs, trash = kv.max_blocks_per_seq, kv.block_size, kv.num_blocks
+        j = np.arange(K1, dtype=np.int32)
+        pos = positions0[:, None] + j[None]  # [R, K1]
+        valid = (j[None] < n_input[:, None]) & active[:, None]
+        qpos = np.where(valid, pos, -1).astype(np.int32)
+        tok_tables = np.where(active[:, None], tables, trash).astype(np.int32)
+        blk = np.take_along_axis(tok_tables, np.clip(pos // bs, 0, B - 1), axis=1)
+        blk = np.where(valid, blk, trash).astype(np.int32)
+        (tokens_d, pos_d, qpos_d, tables_d, lim_d, blk_d, row_d, uids_d, n_in_d,
+         act_d) = _upload(self.device, tokens, pos, qpos, tok_tables,
+                          np.where(active, positions0, 0), blk, pos % bs, uids, n_input, active)
+        rep_tables, qpos_flat, rep_lim, epos = verify_rows(tables_d, qpos_d, lim_d)
+        meta = {
+            "K1": K1, "pos": pos_d.reshape(R * K1), "qpos": qpos_flat, "limit": rep_lim,
+            "epos": epos, "tables": rep_tables[None] + self._layer_off[:, None, None],
+            "blk": blk_d.reshape(R * K1), "row": row_d.reshape(R * K1),
+            # rope's live length from valid positions only: padded slots
+            # would flip a longrope switch early
+            "live": int(np.max(np.where(valid, pos, 0))) + 1,
+        }
+        x = T.embed_tokens(self.params, tokens_d.reshape(R * K1), meta["pos"], c)
+        for li in range(c.n_layers):
+            x = self._verify_layer(li, x, meta)
+        logits = T._apply_lm_head(self.params, self._final(x), c)  # [R * K1, vocab]
+        tgt, logp = self._sample(logits, uids_d.repeat_interleave(K1), qpos_flat,
+                                 return_logprobs=True)
+        tgt = tgt.reshape(R, K1)
+        jj = torch.arange(k, device=self.device)
+        match = (tokens_d[:, 1:] == tgt[:, :k]) & (jj[None] < (n_in_d - 1)[:, None])
+        n_acc = torch.cumprod(match.int(), dim=1).sum(dim=1)
+        n_emit = torch.where(act_d.bool(), n_acc + 1, torch.zeros_like(n_acc))
+        host = torch.cat([tgt, n_emit[:, None].to(torch.int32)], dim=1).cpu().numpy()
+        return host[:, :K1], host[:, K1], logp.reshape(R, K1).cpu().numpy()
+
+    def spec_round(self, k: Optional[int] = None, drafts=None) -> Dict[int, np.ndarray]:
+        """One speculative draft-and-verify round over the eligible RUNNING
+        rows (the JAX engine's ``spec_round``). ``drafts``: {uid: proposed
+        next tokens (<= k)}; a row without one verifies zero drafts, a
+        plain one-token decode in the same step. Returns {uid: emitted
+        tokens (1..k+1), those plain decode emits}; ``last_spec`` holds the
+        round's drafted and accepted counts. Eligibility is
+        ``decode_round``'s (the context limit, the block cap, blocks for
+        the row's own draft); rejected drafts' blocks are rolled back by
+        ``scheduler.apply_spec_round``. At most budget // (k + 1) rows run,
+        from a start that rotates so a capped round starves no uid."""
+        k = int(k if k is not None else getattr(self.config, "spec_k", 0) or 0)
+        if k < 1:
+            raise ValueError(f"spec_round needs k >= 1 draft slots, got {k}")
+        drafts = drafts or {}
+        sched = self.scheduler
+        if sched.has_pending():
+            raise RuntimeError(
+                "spec_round: prompt chunks are still pending — drive step() "
+                "until prefill completes before speculative decode"
+            )
+        sm = self.config.state_manager
+        R, K1 = sm.max_ragged_sequence_count, k + 1
+        max_rows = min(R, max(1, sm.max_ragged_batch_size // K1))
+        run = sched.running_uids()
+        if len(run) > max_rows:
+            off = self._spec_rr % len(run)
+            run = run[off:] + run[:off]
+            self._spec_rr += max_rows
+        uids, row_drafts = [], []
+        pre_blocks: Dict[int, int] = {}
+        for uid in run:
+            if len(uids) >= max_rows:
+                break
+            seq = self.state_manager.get_sequence(uid)
+            d = [int(t) for t in drafts.get(uid, ())][:k]
+            n = len(d) + 1
+            if seq.seen_tokens + n > sm.max_context:
+                continue
+            if self.state_manager.seq_capped(seq, n):
+                continue
+            pre = len(seq.block_table)
+            if not self.state_manager.extend(seq, n):
+                continue
+            uids.append(uid)
+            row_drafts.append(d)
+            pre_blocks[uid] = pre
+        if not uids:
+            return {}
+        kv = self.config.kv_cache
+        tokens = np.zeros((R, K1), np.int32)
+        positions = np.zeros(R, np.int32)
+        tables = np.full((R, kv.max_blocks_per_seq), kv.num_blocks, np.int32)
+        uid_arr = np.zeros(R, np.int32)
+        active = np.zeros(R, bool)
+        n_input = np.ones(R, np.int32)
+        for i, (uid, d) in enumerate(zip(uids, row_drafts)):
+            seq = self.state_manager.get_sequence(uid)
+            tokens[i, 0] = sched.peek_next_token(uid)
+            tokens[i, 1 : 1 + len(d)] = d
+            positions[i] = seq.seen_tokens
+            tables[i, : len(seq.block_table)] = seq.block_table
+            uid_arr[i] = uid
+            active[i] = True
+            n_input[i] = 1 + len(d)
+        tgt, n_emit, logp = self._verify_step(k, tokens, positions, tables, uid_arr, active,
+                                              n_input)
+        results: Dict[int, np.ndarray] = {}
+        self.last_logprobs = {}
+        drafted_total = accepted_total = 0
+        per_uid: Dict[int, Tuple[int, int]] = {}
+        for i, uid in enumerate(uids):
+            n = int(n_emit[i])
+            gen = tgt[i, :n].astype(np.int32)
+            sched.apply_spec_round(uid, gen, pre_blocks[uid])
+            results[uid] = gen
+            self.last_logprobs[uid] = logp[i, :n]
+            d, a = int(n_input[i]) - 1, n - 1
+            drafted_total += d
+            accepted_total += a
+            per_uid[uid] = (d, a)
+        self.last_spec = {"drafted": drafted_total, "accepted": accepted_total,
+                          "per_uid": per_uid}
+        return results
+
     def put(self, batch_uids, batch_tokens) -> Dict[int, np.ndarray]:
         """Submit new sequences (reference put :107) and run ONE engine step.
         Returns {uid: logits} for sequences whose scheduled tokens completed a

@@ -30,7 +30,10 @@ the model dtype, the dense MLP, the LM head, and two forwards:
     serving engine's tests and ``chip_smoke.py`` hold logits and gradients
     against it.
 
-MoE, quantized projections, ALiBi, the fused head + CE and tiled losses are
+``decode_step`` / ``init_kv_cache`` are the v1 inference engine's cached
+decode over contiguous KV caches (``inference/engine.py``).
+
+MoE, quantized projections, ALiBi, weight streaming and tiled losses are
 later slices and raise ``NotImplementedError`` naming their ROADMAP items.
 """
 
@@ -776,14 +779,45 @@ def _seq_len(c: TransformerConfig, s: int) -> int:
     return s * topo.context_parallel_size if topo.distributed else s
 
 
+def _cached_attention(c: TransformerConfig, q, k, v, kv_cache, local_flag):
+    """The cached-decode branch of the JAX package's attention block: the
+    new block's K/V written into the contiguous cache at its fill length
+    (in place; the start clamps so the block fits, as
+    ``dynamic_update_slice`` does), then attention over the whole cache
+    with a dense bias: causal against global positions and bounded by the
+    fill (query i at clen + i sees keys at positions <= clen + i), plus the
+    window band (off for a global layer: ``local_flag`` 0). The flash
+    kernels take no bias, and the JAX package's auto rule sends such a call
+    to its plain reference, so this calls ``mha_reference`` on every
+    device, as the v2 engine's dense decode does. Returns (out, new fill
+    length)."""
+    from deepspeed_tpu_torch.ops.attention.core import NEG_INF, window_too_far
+
+    ck, cv, clen = kv_cache  # [b, nkv, S, d] x 2, a Python int
+    s, S = q.shape[2], ck.shape[2]
+    at = max(0, min(int(clen), S - s))
+    ck[:, :, at : at + s] = k.to(ck.dtype)
+    cv[:, :, at : at + s] = v.to(cv.dtype)
+    q_glob = int(clen) + torch.arange(s, device=q.device)
+    kpos = torch.arange(S, device=q.device)
+    bias = torch.where(kpos[None, :] <= q_glob[:, None], 0.0, NEG_INF).float()
+    if c.sliding_window > 0:
+        far = window_too_far(q_glob[:, None], kpos[None, :], c.sliding_window, local_flag)
+        bias = bias + torch.where(far, NEG_INF, 0.0).float()
+    out = mha_reference(q, ck, cv, causal=False, bias=bias[None, None], scale=c.attn_scale)
+    return out, int(clen) + s
+
+
 def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
-                     window_flag=None, reference=False):
+                     window_flag=None, reference=False, kv_cache=None):
     """Self-attention for one layer. x: [b, s, h]. ``reference`` takes the
     plain ``mha_reference`` (with attn_sparsity, the splash kernels' plain
     forward over the layout's schedule); otherwise
-    ``attention(impl=c.attention_impl, schedule=...)``."""
+    ``attention(impl=c.attention_impl, schedule=...)``. ``kv_cache`` =
+    (k [b, nkv, S, d], v, fill length): the cached decode
+    (``_cached_attention``); returns (out, new fill length) then."""
     b, s, _ = x.shape
-    impl = None if reference else _attention_impl(c)
+    impl = None if (reference or kv_cache is not None) else _attention_impl(c)
     nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
     q = _proj(c, x, lp["wq"])
     k = _proj(c, x, lp["wk"])
@@ -797,8 +831,17 @@ def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
         q = qk_norm_apply(c, q, lp["q_norm"], head_axis=1, b=lp.get("q_norm_b"))
         k = qk_norm_apply(c, k, lp["k_norm"], head_axis=1, b=lp.get("k_norm_b"))
     if c.position == "rope":
-        q = _rope(q, positions, c, _seq_len(c, s))
-        k = _rope(k, positions, c, _seq_len(c, s))
+        # the live sequence length (HF's max(position_ids)+1): in a cached
+        # decode the cache's fill plus this block
+        live = int(kv_cache[2]) + s if kv_cache is not None else _seq_len(c, s)
+        q = _rope(q, positions, c, live)
+        k = _rope(k, positions, c, live)
+    if kv_cache is not None:
+        out, clen = _cached_attention(c, q, k, v, kv_cache, window_flag)
+        out = _proj(c, out.transpose(1, 2).reshape(b, s, nh * d), lp["wo"])
+        if c.attn_out_bias:
+            out = out + lp["wo_b"]
+        return out, clen
     kw = dict(causal=c.attn_causal, segment_ids=segment_ids, scale=c.attn_scale,
               window=c.sliding_window, window_flag=window_flag)
     schedule = _attention_schedule(c, s)
@@ -912,6 +955,63 @@ def forward_reference(params: Dict[str, Any], tokens, config: TransformerConfig,
     kernel path's."""
     x, aux = forward_hidden(params, tokens, config, positions, segment_ids, reference=True)
     return _apply_lm_head(params, x, config), aux
+
+
+# ---------------------------------------------------------------------------
+# cached decode (the v1 inference engine's path)
+# ---------------------------------------------------------------------------
+def decode_step(params, tokens, config: TransformerConfig, kv_caches, positions):
+    """One decode step with contiguous KV caches, the JAX package's
+    ``decode_step``: tokens [b, t] new tokens at ``positions`` [b, t];
+    ``kv_caches`` = ``init_kv_cache``'s (k, v, lens), written in place.
+    Returns (logits [b, t, vocab], new caches). Pre-norm layers (with
+    ``parallel_block``), ``embed_norm`` and the per-layer window of
+    ``attn_layer_pattern`` as in the JAX package; norms through
+    ``rms_norm`` (the kernel on a card), attention through ``mha_reference``
+    with a dense bias, on a card too."""
+    c = config
+    if not c.attn_causal:
+        raise ValueError(
+            "decode_step: bidirectional encoder models (attn_causal=False) "
+            "do not autoregressively decode — call forward() instead"
+        )
+    _check_forward(c)
+    tokens = torch.as_tensor(tokens)
+    dt = DTYPES[c.dtype]
+    ck, cv, lens = kv_caches
+    x = embed_tokens(params, tokens, positions, c)
+    new_lens = lens.clone()
+    for li in range(c.n_layers):
+        lp = {k: w[li] for k, w in params["layers"].items()}
+        lp = {k: w.to(dt) if w.is_floating_point() and w.dtype != dt else w
+              for k, w in lp.items()}
+        flag = None if c.attn_layer_pattern is None else int(c.attn_layer_pattern[li])
+        a = _norm(x, lp["attn_norm"], lp.get("attn_norm_b"), c.norm, c.norm_eps)
+        attn_out, new_lens[li] = _attention_block(
+            c, lp, a, positions, window_flag=flag, kv_cache=(ck[li], cv[li], int(lens[li])))
+        if c.parallel_block:
+            m = _norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"), c.norm, c.norm_eps)
+            x = x + attn_out + _mlp_block(c, lp, m)[0]
+            continue
+        x = x + attn_out
+        m = _norm(x, lp["mlp_norm"], lp.get("mlp_norm_b"), c.norm, c.norm_eps)
+        x = x + _mlp_block(c, lp, m)[0]
+    if c.final_norm:
+        x = _norm(x, params["final_norm"], params.get("final_norm_b"), c.norm, c.norm_eps)
+    return _apply_lm_head(params, x, c), (ck, cv, new_lens)
+
+
+def init_kv_cache(config: TransformerConfig, batch: int, max_len: int, device="cuda"):
+    """Stacked per-layer KV caches for ``decode_step``: k and v [L, batch,
+    kv_heads, max_len, head_dim] at the model dtype on ``device``, and the
+    fill lengths [L] as an int32 CPU tensor (host values: the step writes at
+    them without a device read)."""
+    c = config
+    shape = (c.n_layers, batch, c.kv_heads, max_len, c.head_dim)
+    dt = DTYPES[c.dtype]
+    return (torch.zeros(shape, dtype=dt, device=device),
+            torch.zeros(shape, dtype=dt, device=device),
+            torch.zeros((c.n_layers,), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -534,6 +534,47 @@ def paged_decode_split_merge(q, k_cache, v_cache, block_tables, q_pos, trash_blo
     return (out, parts) if return_partials else out
 
 
+def verify_rows(tables, qpos, pool_limit):
+    """The per-query-row arguments of the verify form (speculative
+    decoding's verify step, the JAX engine's flattened kernel call): R rows
+    of K1 = k + 1 tokens each become R * K1 query rows. tables [R, B] ->
+    [R * K1, B] (each row's table repeated), qpos [R, K1] (-1 = a padded
+    slot) -> [R * K1], pool_limit [R] -> [R * K1], and the extras' positions
+    [R * K1, K1]: query row (r, i) sees row r's K1 fresh keys at qpos[r],
+    so the extras mask (0 <= epos <= q_pos) is the in-chunk causal mask and
+    a padded slot sees nothing."""
+    R, K1 = qpos.shape
+    epos = qpos[:, None, :].expand(R, K1, K1).reshape(R * K1, K1)
+    return (tables.repeat_interleave(K1, dim=0), qpos.reshape(R * K1),
+            pool_limit.repeat_interleave(K1), epos)
+
+
+def verify_extras(k, v, K1: int):
+    """The verify form's extras: each row's K1 fresh K/V [R * K1, nkv, d]
+    handed to each of its K1 query rows, [R * K1, K1, nkv, d]. The kernel
+    reads extras by one row stride, which cannot say "the same K1 columns
+    for K1 consecutive rows", so this is a contiguous copy (R * K1 * K1 *
+    nkv * d elements per operand)."""
+    T, nkv, d = k.shape
+    R = T // K1
+
+    def rep(t):
+        return t.reshape(R, 1, K1, nkv, d).expand(R, K1, K1, nkv, d).reshape(T, K1, nkv, d)
+
+    return rep(k), rep(v)
+
+
+def verify_kwargs(q, k, v, tables, qpos, pool_limit, trash_block):
+    """The whole verify-form call of ``paged_decode`` / ``paged_attention``
+    (without the pools): q [R * K1, nh, d] and the rows' fresh k/v [R * K1,
+    nkv, d], tables [R, B], qpos [R, K1], pool_limit [R] (each row's write
+    cursor: the pool below it)."""
+    rep_tables, q_pos, limit, epos = verify_rows(tables, qpos, pool_limit)
+    ke, ve = verify_extras(k, v, qpos.shape[1])
+    return dict(q=q, block_tables=rep_tables, q_pos=q_pos, trash_block=trash_block,
+                extra_kv=(ke, ve, epos), pool_limit=limit)
+
+
 def resolve_impl(impl: Optional[str], device_type: str, head_dim: int) -> str:
     """What ``impl`` ("auto" or None, "kernel", "dense", "reference") runs
     on a ``device_type`` tensor. "auto" is the CUDA kernel on a card and the

@@ -58,6 +58,12 @@ class Kernel:
     def source_path(self) -> Path:
         return CSRC / self.source
 
+    @property
+    def loaded(self) -> bool:
+        """Whether this process has built or loaded the library and bound
+        the entry point (the first ``fn()`` does)."""
+        return self._fn is not None
+
     def library_path(self) -> Path:
         h = hashlib.sha256()
         for p in [self.source_path, *sorted(CSRC.glob("*.cuh"))]:

@@ -56,7 +56,7 @@ def test_paged_cases_and_byte_count():
     rng = np.random.default_rng(0)
     cases = dict(chip_smoke.paged_cases(torch, world, rng, 6, 8, 4, 1, 8))
     assert set(cases) == {"split_E1_limit", "round_E8_limit", "round_E8_limit_window",
-                          "causal_window_scale", "shared_prefix", "per_row_t16"}
+                          "causal_window_scale", "shared_prefix", "per_row_t16", "verify_k4"}
     out = paged_decode(k_cache=world.k, v_cache=world.v, **cases["split_E1_limit"])
     assert not out[-4:].any()
     out = paged_decode(k_cache=world.k, v_cache=world.v, **cases["causal_window_scale"])
@@ -923,3 +923,111 @@ def test_chip_smoke_records_the_flash_digests():
              for d, s, c, w, cut in chip_smoke.FLASH_DIGEST_CASES}
     assert set(chip_smoke.FLASH_DIGESTS) == names
     assert all(len(v) == 16 for v in chip_smoke.FLASH_DIGESTS.values())
+
+def test_paged_verify_case_and_its_two_bounds():
+    """The verify form (R 6, k 4: 30 query rows): each row's table and
+    limit repeated over its 5 query rows, the extras a contiguous [30, 5]
+    copy with the in-chunk causal positions; row 1's padded slots and row
+    2 (inactive, all trash) give exactly 0; the bytes as the kernel reads
+    them exceed the once-per-table count by about the pool bytes x (K1 -
+    1), and the operations are the same."""
+    from deepspeed_tpu_torch.ops.attention import paged as pt
+
+    for int8 in (False, True):
+        world = chip_smoke.PagedWorld(torch, torch.device("cpu"), torch.float32, 2, 24, 16, 2, 64,
+                                      1, int8=int8)
+        name, kw = chip_smoke.paged_cases(torch, world, np.random.default_rng(0), 6, 8, 4, 1,
+                                          8)[-1]
+        assert name == "verify_k4" and kw["q"].shape[0] == 30
+        ke, ve, epos = kw["extra_kv"]
+        assert ke.shape == (30, 5, 2, 64) and ke.is_contiguous()
+        qpos = kw["q_pos"].reshape(6, 5)
+        assert bool((epos.reshape(6, 5, 5) == qpos[:, None, :]).all())
+        assert int((qpos[1] >= 0).sum()) == 2 and bool((qpos[2] < 0).all())
+        assert bool((kw["block_tables"].reshape(6, 5, -1) == kw["block_tables"][::5, None]).all())
+        out = pt.paged_decode(**world.pool(), **kw)
+        assert not out[kw["q_pos"] < 0].any()
+        read, ops = chip_smoke.paged_bytes_ops(world, kw)
+        once = chip_smoke.verify_bytes_once(world, kw, 5)
+        pool_row = 64 + 4 if int8 else 64 * 4
+        limit = kw["pool_limit"][::5].numpy()
+        keys = int(limit.sum())
+        assert once < read
+        assert read - once >= keys * 2 * 2 * pool_row * 4 - 30 * 5 * 2 * 2 * 64 * 4
+        assert ops > 0
+
+
+def _tiny_engine_run(kv_cache_dtype):
+    widths = dict(n_layers=2, hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                  vocab_size=512, dtype="float32")
+    engine_config = {
+        "dtype": "float32", "decode_steps": 64, "prompt_chunk": 256, "max_prompt_chunks": 4,
+        "kv_cache": {"block_size": 16, "num_blocks": 1024, "max_blocks_per_seq": 40},
+        "state_manager": {"max_tracked_sequences": 64, "max_ragged_batch_size": 1024,
+                          "max_ragged_sequence_count": 32, "max_context": 640},
+    }
+    held = {}
+    chip_smoke.engine_phase(torch, torch.device("cpu"), K, widths=widths,
+                            engine_config=engine_config, kv_cache_dtype=kv_cache_dtype, hold=held)
+    return held
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["bf16", "int8"])
+def test_engine_spec_phase_runs_end_to_end_on_cpu(one_thread, kv_cache_dtype):
+    """engine_spec on the engine phase's engine at 2 tiny layers: oracle
+    drafts (the engine phase's own stream) all accepted, junk all rejected,
+    no drafts one token a row; verify logits against the plain forward
+    (fp32: sums in another order only), the exact counts the card checks."""
+    held = _tiny_engine_run(kv_cache_dtype)
+    assert len(held["plain"][0]) == 3 + 64
+    int8 = kv_cache_dtype == "int8"
+    rec, launches = chip_smoke.engine_spec_phase(torch, torch.device("cpu"), K, held["engine"],
+                                                 held["prompts"], held["plain"], int8=int8)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    assert rec["launches_expected"] == chip_smoke.spec_expected(K.KERNELS, 2, int8)
+    assert rec["launches_expected"]["rms_norm_fwd"] == 5
+    # an int8 pool's plain stream came from a fused round, whose own tokens
+    # are attended unquantized (side buffers) where the verify step reads
+    # earlier rounds' tokens from the quantized pool: a near-tie may differ
+    assert rec["oracle_acceptance"] >= (0.9 if int8 else 1.0)
+    assert rec["oracle_drafted"] >= 2 * 32 * 4 * (0.9 if int8 else 1.0)
+    kinds = [r["kind"] for r in rec["rounds"]]
+    assert kinds == ["oracle", "junk", "none", "oracle"]
+    assert rec["rounds"][1]["accepted"] == 0 and rec["rounds"][1]["emitted"] == 32
+    assert rec["rounds"][0]["emitted"] == 32 + rec["rounds"][0]["accepted"]
+    assert rec["rounds"][0]["rows_checked"] == 32
+    for r in rec["rounds"]:
+        # fp32 sums in another order; int8 pools also carry their rounding
+        assert r["logit_rel_err"] < (rec["logit_rtol"] if int8 else 1e-4)
+        assert r["logit_rel_err_shifted"] > rec["logit_rtol"]
+    n = chip_smoke.SPEC_TIMED_ROUNDS
+    assert rec["plain_round_tokens"] == [32 * 5] * n and rec["timed_oracle_accepted"] > 0
+    for key in ("verify_ms", "spec_tok_s", "plain_round_ms", "plain_round_tok_s"):
+        d = rec[key]
+        assert d["n"] == n and 0 < d["min"] <= d["median"] <= d["max"]
+    assert held["engine"].scheduler.running_uids() == []
+
+
+def test_host_tier_and_inference_v1_phases_run_end_to_end_on_cpu(one_thread):
+    """The host_tier phase (16-token blocks, prompts of five blocks and a
+    7-token tail) spills, readmits every resubmitted block bit for bit and
+    prefills only the tails; the inference_v1 phase gives one stream at
+    decode_steps 1 and 4 and counts 16 and 17 forward steps."""
+    held = _tiny_engine_run("bf16")
+    cfg = dict(chip_smoke.HOST_TIER_CONFIG, dtype="float32")
+    cfg["kv_cache"] = dict(cfg["kv_cache"], block_size=16)
+    rec = chip_smoke.host_tier_phase(torch, torch.device("cpu"), K, held["cfg"],
+                                     held["engine"].params, engine_config=cfg, shape=(8, 5, 7))
+    json.dumps(rec)
+    assert rec["spills_before_resubmit"] > 0 and rec["readmits"] == rec["blocks_checked_bitwise"]
+    assert rec["readmits"] > 0 and rec["prefill_tokens"] == rec["prefill_tokens_tails"] == 8 * 7
+    assert rec["chunked_import"]["blocks"] == rec["readmits"]
+    assert 0 < rec["chunked_import"]["stage_share"] <= 1
+    assert rec["logit_rel_err"] < 1e-4
+    rec = chip_smoke.inference_v1_phase(torch, torch.device("cpu"), K, held["cfg"],
+                                        held["engine"].params, shape=(4, 64), new=16)
+    json.dumps(rec)
+    assert [rec["runs"][ds]["forward_steps"] for ds in (1, 4)] == [16, 17]
+    assert rec["runs"][4]["launches_expected"]["rms_norm_fwd"] == 5 * 17
+    assert rec["logit_rel_err"] < 1e-4 and rec["first_token_agreement"] == 1.0

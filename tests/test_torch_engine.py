@@ -204,18 +204,24 @@ def test_forward_matches_jax_forward():
         np.testing.assert_allclose(got.detach().numpy(), want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
 
 
-@pytest.mark.parametrize("over,match", [
-    ({"tp_size": 2}, "queue 1, item 6"),
-    ({"quant": {"enabled": True}}, "item 8"),
-    ({"spec_k": 2}, "item 4"),
-    ({"kv_cache": {"host_tier_bytes": 1 << 20, "prefix_cache": True}}, "item 4"),
+@pytest.mark.parametrize("over,model_over,call,match", [
+    ({"tp_size": 2}, {}, None, "queue 1, item 6"),
+    ({"quant": {"enabled": True}}, {}, None, "item 8"),
+    # speculative decoding and the host tier are ported; what stays refused
+    # beside them: the engine's tracing spans, serving a sparsity layout
+    ({"spec_k": 2, "kv_cache": {"host_tier_bytes": 1 << 20, "prefix_cache": True}}, {},
+     "enable_tracing", "queue 1, item 5"),
+    ({"spec_k": 2}, {"attn_sparsity": ("fixed", (("num_local_blocks", 2),))}, None,
+     "ROADMAP section 3"),
 ])
-def test_unported_engine_features_raise(over, match):
+def test_unported_engine_features_raise(over, model_over, call, match):
     _, jp = _jax_params(0)
     pp = params_from_numpy(jax.tree.map(np.asarray, jp))
     cfg = EngineConfig.from_dict(engine_config(**over))
     with pytest.raises(NotImplementedError, match=match):
-        InferenceEngineV2(PT.TransformerConfig(**MODEL), pp, cfg, device="cpu")
+        eng = InferenceEngineV2(PT.TransformerConfig(**MODEL, **model_over), pp, cfg,
+                                device="cpu")
+        getattr(eng, call)()
 
 
 @pytest.mark.parametrize("model_over", [
@@ -236,8 +242,10 @@ def test_engine_rejects_an_unknown_attention_impl():
     eng = InferenceEngineV2(PT.TransformerConfig(**MODEL), pp,
                             EngineConfig.from_dict(engine_config()), device="cpu")
     assert eng.paged_attention_impl == "dense"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.export_kv_blocks_windows([0])
+    # the window transport is ported: one window of host_tier_chunk_blocks
+    # columns, the tail padded with the trash block
+    wins, chunk = eng.export_kv_blocks_windows([0])
+    assert chunk == 8 and len(wins) == 1 and wins[0]["k"].shape[1] == 8
 
 
 @pytest.mark.parametrize("scaling,seq_len", [

@@ -28,6 +28,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.env_report",
     "deepspeed_tpu_torch.inference",
     "deepspeed_tpu_torch.inference.config",
+    "deepspeed_tpu_torch.inference.engine",
     "deepspeed_tpu_torch.inference.sampling",
     "deepspeed_tpu_torch.inference.v2",
     "deepspeed_tpu_torch.inference.v2.blocked_allocator",
@@ -83,6 +84,9 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.runtime.optimizers",
     "deepspeed_tpu_torch.runtime.zero",
     "deepspeed_tpu_torch.runtime.zero.config",
+    "deepspeed_tpu_torch.serving",
+    "deepspeed_tpu_torch.serving.resilience",
+    "deepspeed_tpu_torch.serving.resilience.faults",
     "deepspeed_tpu_torch.utils",
     "deepspeed_tpu_torch.utils.counter_hash",
     "deepspeed_tpu_torch.utils.groups",

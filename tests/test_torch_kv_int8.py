@@ -411,11 +411,31 @@ def test_bad_kv_cache_dtype_raises():
 
 
 def test_unported_transports_still_raise():
+    """The chunked, device and window transports are ported (they raised
+    before): on an int8 pool they move the codes and both scale planes
+    verbatim, as ``import_kv_blocks`` does, and a malformed payload still
+    raises before any write."""
     pe = port_engine()
-    for fn in ("import_kv_blocks_chunked", "export_kv_blocks_device",
-               "export_kv_blocks_windows", "import_kv_blocks_device"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            getattr(pe, fn)([0])
+    ids, dst = [1, 2, 3], [7, 8, 9]
+    for name, pool in pe._kv_pool_planes().items():
+        g = torch.Generator().manual_seed(len(name))
+        if pool.dtype == torch.int8:
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=g, dtype=torch.int8))
+        else:
+            pool.copy_(torch.rand(pool.shape, generator=g) + 0.5)
+    payload = pe.export_kv_blocks(ids)
+    assert set(payload) == {"k", "v", "k_scale", "v_scale"}
+    pe.import_kv_blocks_chunked(dst, payload, chunk_blocks=2)
+    for name, plane in pe.export_kv_blocks(dst).items():
+        np.testing.assert_array_equal(plane, payload[name])
+    wins, chunk = pe.export_kv_blocks_windows(ids, chunk_blocks=2)
+    assert pe.import_kv_blocks_device([10, 11, 12], wins, chunk) == 3
+    dev = pe.export_kv_blocks_device([10, 11, 12])
+    for name, plane in dev.items():
+        np.testing.assert_array_equal(plane.numpy(), payload[name])
+    with pytest.raises(ValueError, match="missing"):
+        pe.import_kv_blocks_chunked(dst, {"k": payload["k"], "v": payload["v"]},
+                                    chunk_blocks=2)
 
 
 # ---------------------------------------------------------------------------
