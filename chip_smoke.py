@@ -16,7 +16,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    with the tolerance stated (the flash kernels also at s 1024 with a
    static window, the window flag at 0 and 1, and packed segments with and
    without the window, at head dims 64 and 256, and at s 200 non-causal,
-   all three also timed at head dims 64 and 256; the
+   all three also timed at head dims 64 and 256; their ALiBi forms with
+   BLOOM's slopes at the train shape (32/8 heads of 128, s 4096, causal),
+   over packed segments whose positions restart, at head dims 64 and 256
+   and at s 200 non-causal, timed beside the no-ALiBi kernels on the same
+   inputs and SDPA with a materialized bias; the
    fused-CE kernels also at sizes that divide no tile; FusedAdam at steps 1
    and 1000, AdamW and L2 decay, and on a leaf with a ragged tail; the
    splash kernels over a LocalMask, per-head Fixed layouts (at 64-blocks
@@ -110,6 +114,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
    Mistral's window of 4096 over 16384 tokens, ``remat`` with policy
    "nothing" (the forward runs again in the backward); the flash kernels
    must not launch.
+6a. the rest of the model, at published widths with the depth cut:
+   train_alibi (bigscience/bloom-7b1, 2 layers, seq 2048: ALiBi on the
+   flash kernels' ALiBi forms; the parity leg over a packed batch whose
+   positions restart against ``forward_reference``, one v1 ``decode_step``
+   after a 64-token prefill against the full forward, then 1 warm-up and 3
+   ``train_batch`` steps with the ALiBi kernels' launches counted exactly),
+   train_moe (mistralai/Mixtral-8x7B-v0.1, 1 layer, seq 4096: top-2 MoE
+   with its aux loss; the rows whose top-2 set differs between the kernels'
+   path and the plain one are counted and left out of the parity losses;
+   then the steps, RMSNorm and flash launches counted), engine_moe
+   (Mixtral at 4 layers in ``InferenceEngineV2``: 8 prompts through
+   ``step()`` and ``decode_round(64)``, its logits held against
+   ``forward_reference`` under the engine's routing, and each row routed
+   otherwise than by the reference only where the reference's gate margin
+   is within rounding; then capacity factor 1.25, where choices drop),
+   train_mlm (bert-large-uncased at its 24 layers, seq 512: the MLM loss
+   through the non-causal flash kernels at d 64 against
+   ``forward_reference``; the gradients at 2 layers against it, at 2, 6,
+   12 and 24 layers against the fp32 reference beside the kernels' plain
+   versions; then the steps). Each prints its depth, its
+   parameters and the bytes they take, and its peak memory.
 7. engine_per_row: the engine's per-row step with splash at all 32 layers,
    an 8192-token context and 256-token chunks: 4 prompts of 6144-8176
    tokens prefilled and decoded for 16 tokens; every row step takes the
@@ -166,13 +191,15 @@ engine_spec_int8), training kernels in the train legs,
 the fused configuration's four in its leg, the splash kernels in the
 splash leg (the forward also in the per-row leg), the sparse kernels in the
 sparse_attn phase, the evoformer kernels in the evoformer phase, the chunk
-kernels in the ring_attn and train_ring phases: together every kernel. The
-line before the last lists the kernels; the last line is the result
+kernels in the ring_attn and train_ring phases, the ALiBi kernels in
+train_alibi: together every kernel (train_moe and train_mlm must launch the
+flash kernels too, engine_moe the serving kernels). The line before the last lists the kernels; the last line is the result
 object. With no card, or outside a checkout, it exits non-zero and prints
 no result.
 """
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -663,6 +690,179 @@ def kernel_flash(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, window=4096):
         raise AssertionError(f"flash kernels' digests {digests}, recorded {FLASH_DIGESTS}")
     for name in records:
         records[name]["digests"] = "equal to FLASH_DIGESTS"
+    return records
+
+
+# the flash kernels' ALiBi forms (BLOOM's rank-1 bias inside the same CTA
+# bodies): each against its plain version with the flash tolerances
+FLASH_ALIBI_KERNELS = ("flash_fwd_alibi", "flash_bwd_dq_alibi", "flash_bwd_dkv_alibi")
+
+
+def alibi_cases(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128, short=1024, train_s=None):
+    """The ALiBi forms' cases, name -> dict(b, h, h_kv, s, d, causal, seg,
+    pos): the timed shape (causal, BLOOM's slopes for h heads, positions
+    arange), two packed segments whose positions restart at the cut, head
+    dims 64 and 256, s 200 non-causal over two rows with positions of
+    their own (the second offset by 37), and train_alibi's MHA shape."""
+    base = dict(b=b, h=h, h_kv=h_kv, d=d, causal=True, seg=None, pos=None)
+    cut = short * 389 // 1024
+    restart = torch.cat([torch.arange(cut), torch.arange(short - cut)]).to(dev, torch.int32)
+    cases = {f"s{s}_causal": dict(base, s=s),
+             f"s{short}_segments2_positions_restart": dict(
+                 base, s=short, seg=two_segments(torch, dev, b, short, cut),
+                 pos=restart[None].expand(b, short))}
+    for width in (64, 256):
+        cases[f"d{width}_s{short}_causal"] = dict(base, s=short, d=width)
+    rows = torch.arange(200, dtype=torch.int32, device=dev)
+    cases["s200_noncausal"] = dict(base, b=2, s=200, causal=False,
+                                   pos=torch.stack([rows, rows + 37]))
+    # train_alibi's own shape: BLOOM-7b1's MHA (group 1) at its seq, packed
+    # as ``packed_batch`` packs it (the cut at 3/8, positions restarting)
+    ts = train_s or ALIBI_SEQ
+    tcut = ts * 3 // 8
+    tpos = torch.cat([torch.arange(tcut), torch.arange(ts - tcut)]).to(dev, torch.int32)
+    cases[f"train_alibi_mha_s{ts}_packed"] = dict(
+        base, b=1, h=h, h_kv=h, s=ts, seg=two_segments(torch, dev, 1, ts, tcut), pos=tpos[None])
+    return cases
+
+
+def check_alibi_case(torch, dev, errs, tile_errs, name, c, slopes, seed):
+    """One case through the three ALiBi kernels against their plain
+    versions, as ``check_flash_case``."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    q, k, v, do = flash_inputs(torch, dev, c["b"], c["h"], c["h_kv"], c["s"], c["d"], seed=seed)
+    alibi = F.alibi_operand(slopes, c["pos"], c["b"], c["h"], c["s"], dev)
+    kw = dict(causal=c["causal"], segment_ids=c["seg"], alibi=alibi)
+    out, lse = F.flash_fwd_cuda(q, k, v, **kw)
+    ref_out, ref_lse = F.flash_fwd_reference(q, k, v, **kw)
+    errs["flash_fwd_alibi"][name] = check_close(torch, f"flash_fwd_alibi {name}", out, ref_out,
+                                                BF16_ATOL, BF16_RTOL)
+    # lse is ~ slope * position here (thousands): FP32_RTOL of it is the
+    # spacing of fp32 numbers of that size
+    errs["flash_fwd_alibi"][name + "_lse"] = check_close(
+        torch, f"flash_fwd_alibi lse {name}", lse, ref_lse, FLASH_LSE_ATOL, FP32_RTOL)
+    del ref_out, ref_lse
+    dq = F.flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
+    dk, dv = F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
+    rdq, rdk, rdv = F.flash_bwd_reference(q, k, v, out, do, lse, **kw)
+    for kname, got, want, tag in (("flash_bwd_dq_alibi", dq, rdq, name),
+                                  ("flash_bwd_dkv_alibi", dk, rdk, name),
+                                  ("flash_bwd_dkv_alibi", dv, rdv, name + "_dv")):
+        hold(torch, errs, tile_errs, kname, tag, got, want)
+
+
+def sdpa_bias_ms(torch, q, k, v, do, bias):
+    """Yardsticks: ``scaled_dot_product_attention`` with a materialized
+    float bias (ALiBi plus the causal mask, [1, h, s, s] in q's dtype)
+    under the memory-efficient backend, kv heads repeated beforehand; the
+    forward timed in a CUDA graph, its autograd backward (dq, dk and dv in
+    one call) eagerly."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    f = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return f(q, kr, vr, attn_mask=bias)
+
+    fwd_ms = time_ms(torch, fwd, iters=5)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, kr, vr))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = f(ql, kl, vl, attn_mask=bias)
+    bwd_ms = eager_ms(torch, lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                         retain_graph=True), iters=5)
+    del out, ql, kl, vl, kr, vr
+    torch.cuda.empty_cache()
+    return {"flash_fwd_alibi": fwd_ms, "flash_bwd_dq_alibi": bwd_ms,
+            "flash_bwd_dkv_alibi": bwd_ms}
+
+
+def kernel_flash_alibi(torch, dev, b=1, h=32, h_kv=8, s=4096, d=128):
+    """The three ALiBi kernels on ``alibi_cases`` (BLOOM's slopes for h
+    heads), then timed at the first case's shape beside the no-ALiBi
+    kernels on the same inputs, their plain versions and SDPA with a
+    materialized float bias. The bound is the no-ALiBi kernels' (the term
+    adds a multiply-add a pair). Returns one record per kernel."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    slopes = torch.from_numpy(alibi_slopes(h)).to(dev)
+    errs = {name: {} for name in FLASH_ALIBI_KERNELS}
+    tile_errs = {"flash_bwd_dq_alibi": {}, "flash_bwd_dkv_alibi": {}}
+    for i, (name, c) in enumerate(alibi_cases(torch, dev, b, h, h_kv, s, d).items()):
+        check_alibi_case(torch, dev, errs, tile_errs, name, c, slopes, seed=60 + i)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    q, k, v, do = flash_inputs(torch, dev, b, h, h_kv, s, d, seed=60)
+    alibi = F.alibi_operand(slopes, None, b, h, s, dev)
+    kw = dict(causal=True)
+    out, lse = F.flash_fwd_cuda(q, k, v, alibi=alibi, **kw)
+    out0, lse0 = F.flash_fwd_cuda(q, k, v, **kw)
+    calls = {
+        "flash_fwd_alibi": (lambda: F.flash_fwd_cuda(q, k, v, alibi=alibi, **kw),
+                            lambda: F.flash_fwd_cuda(q, k, v, **kw)),
+        "flash_bwd_dq_alibi": (
+            lambda: F.flash_bwd_dq_cuda(q, k, v, out, do, lse, alibi=alibi, **kw),
+            lambda: F.flash_bwd_dq_cuda(q, k, v, out0, do, lse0, **kw)),
+        "flash_bwd_dkv_alibi": (
+            lambda: F.flash_bwd_dkv_cuda(q, k, v, out, do, lse, alibi=alibi, **kw),
+            lambda: F.flash_bwd_dkv_cuda(q, k, v, out0, do, lse0, **kw)),
+    }
+    ms, no_alibi_ms = {}, {}
+    for name, (fn, fn0) in calls.items():  # in turns: ALiBi, none, ALiBi, none
+        t = [time_ms(torch, f, iters=10) for f in (fn, fn0, fn, fn0)]
+        ms[name], no_alibi_ms[name] = min(t[0], t[2]), min(t[1], t[3])
+    plain = {"flash_fwd_alibi": time_ms(
+        torch, lambda: F.flash_fwd_reference(q, k, v, alibi=alibi, **kw), iters=2, warmup=1)}
+    plain["flash_bwd_dq_alibi"] = plain["flash_bwd_dkv_alibi"] = time_ms(
+        torch, lambda: F.flash_bwd_reference(q, k, v, out, do, lse, alibi=alibi, **kw),
+        iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    pos = torch.arange(s, device=dev)
+    bias = torch.where(pos[:, None] >= pos[None, :], slopes[:, None, None] * pos.float(),
+                       float("-inf"))[None].to(q.dtype)
+    library = sdpa_bias_ms(torch, q, k, v, do, bias)
+    del bias
+    torch.cuda.empty_cache()
+    pairs = b * h * flash_pairs(s, True, 0, None, None)
+    el = q.element_size()
+    qb, kvb, lseb = q.numel() * el, k.numel() * el, b * h * s * 4
+    ab = h * 4 + b * s * 4  # slopes and positions
+    work = {
+        "flash_fwd_alibi": (4 * pairs * d, qb + 2 * kvb + ab + qb + lseb),
+        "flash_bwd_dq_alibi": (6 * pairs * d, 3 * qb + 2 * kvb + lseb + ab + qb),
+        "flash_bwd_dkv_alibi": (8 * pairs * d, 3 * qb + 2 * kvb + lseb + ab + 2 * kvb),
+    }
+    records = {}
+    for name, (flops, moved) in work.items():
+        t_ops, t_bytes = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
+        records[name] = {
+            "name": name,
+            "shape": {"b": b, "h": h, "h_kv": h_kv, "s": s, "d": d, "causal": True,
+                      "slopes": f"BLOOM's for {h} heads"},
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_case": errs[name],
+            "tolerance": {"bf16": [BF16_ATOL, BF16_RTOL], "scaled_by": "max(1, max|ref|)",
+                          "lse": [FLASH_LSE_ATOL, FP32_RTOL],
+                          "tile_rel_frobenius": FLASH_TILE_RTOL if name in tile_errs else None},
+            "tile_rel_frobenius_by_case": tile_errs.get(name),
+            "ms": ms[name],
+            "no_alibi_ms": no_alibi_ms[name],
+            "plain_ms": plain[name],
+            "library_ms": library[name],
+            "library": "torch.nn.functional.scaled_dot_product_attention with a materialized "
+                       "[1, h, s, s] bf16 bias, memory-efficient backend (backward: autograd, "
+                       "dq+dk+dv in one call, eager)",
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops,
+            "tflops_per_s": flops / (ms[name] * 1e-3) / 1e12,
+        }
     return records
 
 
@@ -3514,6 +3714,12 @@ TRAIN_CONFIG = {
 PARITY_LOSS_ATOL = 0.02
 PARITY_GRAD_RTOL = 0.05
 PARITY_CONTROL_MIN = 0.5
+# the control over all gradients together (``train_parity(control_by="all")``):
+# a random model's tied head and norms get a large batch-independent
+# gradient, so two batches' gradients sit ~0.45 apart over all leaves
+# (train_alibi at BLOOM-7b1 width on an H100, in this repo's runs); four
+# times the gradient tolerance still tells them apart from a miss
+PARITY_CONTROL_ALL_MIN = 4 * PARITY_GRAD_RTOL
 TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SERVE_KERNELS = ("rms_norm_fwd", "paged_decode")
 # the engine_int8 phase's (and the int8 per-row check's)
@@ -3643,6 +3849,89 @@ def checkpoint_leg(torch, dev, eng, make_engine, batch):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# leaves whose gradient is zero in exact arithmetic: a key bias shifts every
+# logit of a query's row by the same q . b, which the softmax cancels; both
+# paths give rounding noise there, whose relative difference means nothing
+ZERO_GRAD_LEAVES = ("layers/wk_b",)
+
+
+def train_parity(torch, cfg, params, loss_fn, batch, other, reference_loss=None,
+                 control_by="leaf"):
+    """The loss and every leaf's gradient of ``loss_fn`` (the kernels) on
+    ``batch`` against autograd through ``forward_reference`` and the dense
+    ``nll_loss`` (``reference_loss(params, batch)`` when given), and a
+    control: the kernel path's gradients of ``other``. Raises outside
+    PARITY_LOSS_ATOL / PARITY_GRAD_RTOL or when the control is closer than
+    PARITY_CONTROL_MIN: for every leaf (``control_by="leaf"``), or over all
+    gradients together ("all": the LayerNorm weights and biases of a random
+    BLOOM or BERT get nearly the same gradient from any batch, so a
+    per-leaf control cannot tell batches apart there). Returns (record, the
+    kernel path's fp32 grads)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    for t in leaves(params).values():
+        t.requires_grad_(True)
+    names = list(leaves(params))
+    flat = list(leaves(params).values())
+
+    def kernel_grads(b):
+        loss = loss_fn(params, b)
+        return loss.detach(), [g.float() for g in torch.autograd.grad(loss, flat)]
+
+    if reference_loss is None:
+        def reference_loss(p, b):
+            inputs, labels, mask, positions, segment_ids = T.split_lm_batch(b)
+            logits, _ = T.forward_reference(p, inputs, cfg, positions=positions,
+                                            segment_ids=segment_ids)
+            return T.nll_loss(logits, labels, mask)
+
+    k_loss, k_grads = kernel_grads(batch)
+    _, c_grads = kernel_grads(other)
+    r_loss = reference_loss(params, batch)
+    r_grads = [g.float() for g in torch.autograd.grad(r_loss, flat)]
+    rel = {}
+    control = {}
+    zero = {}
+    diff_sq = ref_sq = 0.0
+    for name, kg, cg, rg in zip(names, k_grads, c_grads, r_grads):
+        if not bool(torch.isfinite(kg).all()):
+            raise AssertionError(f"train parity: non-finite kernel-path grad for {name}")
+        if name in ZERO_GRAD_LEAVES:
+            zero[name] = {"kernels_norm": float(kg.norm()), "reference_norm": float(rg.norm())}
+            continue
+        ref_norm = float(rg.norm())
+        rel[name] = float((kg - rg).norm()) / ref_norm
+        control[name] = float((cg - rg).norm()) / ref_norm
+        diff_sq += float((cg - rg).norm()) ** 2
+        ref_sq += ref_norm ** 2
+    del c_grads, r_grads
+    control_min = PARITY_CONTROL_MIN
+    if control_by == "all":
+        control = {"all leaves": (diff_sq / ref_sq) ** 0.5}
+        control_min = PARITY_CONTROL_ALL_MIN
+    for t in flat:
+        t.requires_grad_(False)
+    rec = {
+        "loss_kernels": float(k_loss), "loss_reference": float(r_loss.detach()),
+        "loss_abs_diff": abs(float(k_loss) - float(r_loss.detach())),
+        "loss_atol": PARITY_LOSS_ATOL,
+        "grad_rel_frobenius": rel, "grad_rtol": PARITY_GRAD_RTOL,
+        "control_rel_frobenius_min": min(control.values()),
+        "control_min_required": control_min,
+    }
+    if zero:
+        rec["zero_in_exact_arithmetic"] = zero
+    if not np.isfinite(float(k_loss)) or rec["loss_abs_diff"] > PARITY_LOSS_ATOL:
+        raise AssertionError(f"train parity: loss {rec}")
+    if max(rel.values()) > PARITY_GRAD_RTOL:
+        raise AssertionError(f"train parity: gradients off the plain oracle: {rel}")
+    if min(control.values()) < control_min:
+        raise AssertionError(f"train parity: the control is too close: {control}")
+    return rec, k_grads
+
+
 def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
                 parity_layers=PARITY_LAYERS, profile=False, fused=False, timed_steps=4,
                 splash=False, parity_window=SPLASH_PARITY_WINDOW, timed_seq=None):
@@ -3684,50 +3973,12 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
     cfg = T.get_config(MODEL, n_layers=parity_layers, remat=False, **parity_over, **widths)
     rec["parity_window"] = cfg.sliding_window
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
-    for t in leaves(params).values():
-        t.requires_grad_(True)
-    names = list(leaves(params))
-    flat = list(leaves(params).values())
     batch = packed_batch(torch, dev, rng, 1, seq, cfg.vocab_size)
     other = packed_batch(torch, dev, rng, 1, seq, cfg.vocab_size)
     loss_fn = T.make_loss_fn(cfg)
-
-    def kernel_grads(b):
-        loss = loss_fn(params, b)
-        return loss.detach(), [g.float() for g in torch.autograd.grad(loss, flat)]
-
-    k_loss, k_grads = kernel_grads(batch)
-    _, c_grads = kernel_grads(other)
-    inputs, labels, mask, positions, segment_ids = T.split_lm_batch(batch)
-    logits, _ = T.forward_reference(params, inputs, cfg, positions=positions,
-                                    segment_ids=segment_ids)
-    r_loss = T.nll_loss(logits, labels, mask)
-    r_grads = [g.float() for g in torch.autograd.grad(r_loss, flat)]
-    del logits
-    rel = {}
-    control = {}
-    for name, kg, cg, rg in zip(names, k_grads, c_grads, r_grads):
-        ref_norm = float(rg.norm())
-        rel[name] = float((kg - rg).norm()) / ref_norm
-        control[name] = float((cg - rg).norm()) / ref_norm
-        if not bool(torch.isfinite(kg).all()):
-            raise AssertionError(f"train parity: non-finite kernel-path grad for {name}")
-    del c_grads, r_grads
-    rec["parity"] = {
-        "layers": parity_layers, "batch": [1, seq], "segments": 2,
-        "loss_kernels": float(k_loss), "loss_reference": float(r_loss.detach()),
-        "loss_abs_diff": abs(float(k_loss) - float(r_loss.detach())),
-        "loss_atol": PARITY_LOSS_ATOL,
-        "grad_rel_frobenius": rel, "grad_rtol": PARITY_GRAD_RTOL,
-        "control_rel_frobenius_min": min(control.values()),
-        "control_min_required": PARITY_CONTROL_MIN,
-    }
-    if not np.isfinite(float(k_loss)) or rec["parity"]["loss_abs_diff"] > PARITY_LOSS_ATOL:
-        raise AssertionError(f"train parity: loss {rec['parity']}")
-    if max(rel.values()) > PARITY_GRAD_RTOL:
-        raise AssertionError(f"train parity: gradients off the plain oracle: {rel}")
-    if min(control.values()) < PARITY_CONTROL_MIN:
-        raise AssertionError(f"train parity: the control is too close: {control}")
+    rec["parity"], k_grads = train_parity(torch, cfg, params, loss_fn, batch, other)
+    rec["parity"].update(layers=parity_layers, batch=[1, seq], segments=2)
+    flat = list(leaves(params).values())
 
     # 8 engine steps on that batch: the loss must fall
     for t in flat:
@@ -3830,6 +4081,724 @@ def train_phase(torch, dev, K, widths=None, seq=SEQ, layers=TRAIN_LAYERS,
         rec["profile"] = device_profile(torch, {rec["phase"] + "_step": lambda: float(
             eng.train_batch(batch=batches[-1]))})
     del eng
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model: ALiBi (BLOOM), top-k MoE (Mixtral), the encoder
+# heads (BERT), at their published widths; depth cut to fit one card
+# ---------------------------------------------------------------------------
+# train_alibi: bigscience/bloom-7b1 at 2 of its 30 layers, seq 2048 (its
+# seq_length): 1.43 B params (the 1.03 B of the tied 250880-row embedding
+# among them), ~20 bytes each in training (bf16 param, fp32 master, Adam's
+# m and v, fp32 and bf16 gradients): ~29 GB
+ALIBI_MODEL, ALIBI_LAYERS, ALIBI_SEQ = "bloom-7b1", 2, 2048
+# train_moe: mistralai/Mixtral-8x7B-v0.1 at 1 of its 32 layers (1.45 B
+# params a layer: ~29 GB in training, so 2 layers would not leave room for
+# the activations under 70 GB), seq 4096
+MOE_MODEL, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = "mixtral-8x7b", 1, 4096
+# engine_moe: 4 layers (5.9 B params, ~12 GB in bf16), 8 prompts of 64 to
+# 511 tokens, at the mapping's capacity factor E/k = 4 (capacity = the
+# call's tokens: nothing dropped, so logits compare with forward_reference)
+# and again at the config default 1.25 (choices dropped)
+MOE_ENGINE_LAYERS, MOE_ENGINE_PROMPTS = 4, 8
+MOE_DROP_CF = 1.25
+# train_mlm: bert-large-uncased at its full 24 layers, seq 512 (its
+# max_position_embeddings), micro-batch 8: 15% of the positions masked
+MLM_MODEL, MLM_SEQ, MLM_MICRO, MLM_MASKED = "bert-large", 512, 8, 0.15
+TRAIN_BYTES_PER_PARAM = 20  # bf16 param, fp32 master, m, v, fp32 + bf16 grads
+
+
+def routes_spy(torch):
+    """Records the top-k expert set of every row of every MoE gating call
+    (``sharded_moe.topkgating``), each row's gate margin (its k-th router
+    logit less its (k+1)-th, over the RMS of its logits), and the rows'
+    (token, position) pairs of the last ``embed_tokens`` call before it.
+    Returns (calls, undo)."""
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.parallel.moe import sharded_moe as M
+
+    calls, rows = [], {}
+    gate, embed = M.topkgating, T.embed_tokens
+
+    def gating(logits, k, *a, **kw):
+        res = gate(logits, k, *a, **kw)
+        top = torch.sort(M._top_k(torch.softmax(logits.float(), -1), k)[1], -1).values
+        lf = logits.float()
+        ranked = torch.sort(lf, -1, descending=True).values
+        margin = (ranked[:, k - 1] - ranked[:, k]) / lf.pow(2).mean(-1).sqrt().clamp_min(1e-30)
+        calls.append({"top": top.cpu().numpy(), "rows": rows.get("last"),
+                      "kept": int(res[2].sum()), "chosen": logits.shape[0] * k,
+                      "margin": margin.cpu().numpy()})
+        return res
+
+    def embedding(params, tokens, positions, config, **kw):
+        if torch.as_tensor(tokens).dim() == 1:
+            rows["last"] = (torch.as_tensor(tokens).cpu().numpy(),
+                            torch.as_tensor(positions).cpu().numpy())
+        return embed(params, tokens, positions, config, **kw)
+
+    M.topkgating, T.embed_tokens = gating, embedding
+
+    def undo():
+        M.topkgating, T.embed_tokens = gate, embed
+
+    return calls, undo
+
+
+def timed_train(torch, dev, K, cfg, ds_config, batches, per_step, rec):
+    """``initialize`` -> ``train_batch`` over ``batches`` (the first a
+    warm-up), on freshly seeded weights: losses, step seconds, tok/s, MFU,
+    peak memory and the exact kernel launches (``per_step`` an optimizer
+    step; every other kernel 0) into ``rec``. Returns the launches."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as T
+
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 1), dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    eng, *_ = deepspeed_tpu_torch.initialize(model=T.make_loss_fn(cfg), model_parameters=params,
+                                             config=ds_config)
+    del params
+    rec["params"] = sum(t.numel() for t in leaves(eng.params).values())
+    rec["reckoned_train_gb"] = rec["params"] * TRAIN_BYTES_PER_PARAM / 1e9
+    losses, step_s = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch=b)))
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t1)
+    launches = K.counts()
+    expected = {name: 0 for name in launches}
+    expected.update({k: v * len(batches) for k, v in per_step.items()})
+    rec.update(launches=launches, launches_expected=expected,
+               launches_per_optimizer_step=per_step)
+    if dev.type == "cuda" and launches != expected:
+        raise AssertionError(f"{rec['phase']} kernel launches {launches}, expected {expected}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{rec['phase']}: non-finite losses {losses}")
+    first = batches[0]["input_ids"]
+    tokens = first.shape[0] * (first.shape[1] - ("labels" not in batches[0]))
+    timed = step_s[1:]
+    rec.update(losses=losses, step_seconds=step_s, mean_step_seconds=sum(timed) / len(timed))
+    rec["tok_s"] = tokens / rec["mean_step_seconds"]
+    # the JAX package's formula: an MoE layer counts as one expert's MLP,
+    # where a token runs k (so MFU is understated there)
+    rec["flops_per_token"] = T.flops_per_token(cfg, first.shape[1])
+    rec["mfu"] = rec["flops_per_token"] * rec["tok_s"] / BF16_FLOPS
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    del eng
+    return launches
+
+
+def remat_check(torch, K, cfg, params, batch, fwd_kernel):
+    """Every ``remat_policy`` on one micro-batch of ``cfg`` with
+    ``params``: the loss and the gradients against ``remat=False``'s (a
+    policy changes memory and recompute, never values) and the launches of
+    ``fwd_kernel``, the flash forward: L, or 2L where the backward
+    recomputes it ("nothing" and the dots policies). The loss and every
+    leaf but the embedding must be equal bit for bit; the embedding's
+    gradient is summed by atomic adds in the gather's backward, so it is
+    held to four times the relative difference between two remat=False
+    runs (or 2^-8). Raises on a miss."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    names = list(leaves(params))
+    flat = list(leaves(params).values())
+    for t in flat:
+        t.requires_grad_(True)
+
+    def run(c):
+        K.reset_counts()
+        loss = T.make_loss_fn(c)(params, batch)
+        grads = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), dict(zip(names, grads)), K.counts()[fwd_kernel]
+
+    def embed_rel(a, b):
+        return float((a["embed"].float() - b["embed"].float()).norm() / b["embed"].float().norm())
+
+    plain = dataclasses.replace(cfg, remat=False)
+    base_loss, base, base_n = run(plain)
+    floor = embed_rel(run(plain)[1], base)
+    limit = max(4 * floor, 2.0 ** -8)
+    out = {"remat_false_launches": base_n, "embed_rel_between_plain_runs": floor,
+           "embed_rel_limit": limit, "policies": {}}
+    L = cfg.n_layers
+    for policy in T.REMAT_POLICIES:
+        loss, grads, n = run(dataclasses.replace(cfg, remat=True, remat_policy=policy))
+        unequal = [k for k in names if k != "embed" and not torch.equal(grads[k], base[k])]
+        want = 2 * L if policy in ("nothing", "dots", "dots_with_no_batch_dims") else L
+        out["policies"][policy] = {"launches": n, "expected": want,
+                                   "loss_equal": loss == base_loss,
+                                   "leaves_unequal": unequal,
+                                   "embed_rel": embed_rel(grads, base)}
+        if (n != want or loss != base_loss or unequal
+                or out["policies"][policy]["embed_rel"] > limit):
+            raise AssertionError(f"remat_policy {policy!r}: {out['policies'][policy]}")
+        del grads
+    for t in flat:
+        t.requires_grad_(False)
+    return out
+
+
+def train_alibi_phase(torch, dev, K, widths=None, layers=ALIBI_LAYERS, seq=ALIBI_SEQ,
+                      timed_steps=3):
+    """BLOOM-7b1's width with ALiBi on the flash kernels' ALiBi forms: the
+    parity leg (a batch packed into two segments whose positions, and so
+    ALiBi's key positions, restart) against ``forward_reference``; on a
+    card every ``remat_policy`` on that batch (``remat_check``); the v1
+    engine's cached decode (``decode_step``: a 64-token prefill and one
+    step, ALiBi as a dense term over the cache) against the full forward;
+    then ``train_batch`` steps with the ALiBi kernels' launches counted
+    exactly."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    widths = dict(widths or {})
+    widths.setdefault("dtype", "bfloat16")
+    cfg = T.get_config(ALIBI_MODEL, n_layers=layers, remat=False, **widths)
+    rec = {"phase": "train_alibi", "model": ALIBI_MODEL, "n_layers": layers, "seq": seq,
+           "dtype": cfg.dtype}
+    ds_config = dict(TRAIN_CONFIG)
+    if cfg.dtype != "bfloat16":
+        del ds_config["bf16"]
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = packed_batch(torch, dev, rng, 1, seq, cfg.vocab_size)
+    other = packed_batch(torch, dev, rng, 1, seq, cfg.vocab_size)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    rec["parity"], grads = train_parity(torch, cfg, params, T.make_loss_fn(cfg), batch, other,
+                                        control_by="all")
+    del grads
+    rec["parity"].update(batch=[1, seq], segments=2, launches=K.counts(),
+                         seconds=time.perf_counter() - t0)
+    if dev.type == "cuda":
+        rec["remat"] = remat_check(torch, K, cfg, params, batch, "flash_fwd_alibi")
+
+    # v1's cached decode: prefill 64 tokens, then one token, each against
+    # the full forward's rows
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 65)), device=dev)
+    caches = T.init_kv_cache(cfg, 1, 128, device=dev)
+    with torch.no_grad():
+        pre, caches = T.decode_step(params, toks[:, :64], cfg, caches,
+                                    torch.arange(64, device=dev)[None])
+        one, caches = T.decode_step(params, toks[:, 64:], cfg, caches,
+                                    torch.tensor([[64]], device=dev))
+        ref = T.forward_reference(params, toks, cfg)[0][0].float()
+    got = torch.cat([pre[0], one[0]]).float()
+    rec["decode"] = {"prefill": 64, "steps": 1,
+                     "logit_rel_err": rows_rel_err(torch, got, ref),
+                     "logit_rel_err_shifted": rows_rel_err(torch, got[1:], ref[:-1]),
+                     "logit_rtol": LOGIT_RTOL}
+    if (rec["decode"]["logit_rel_err"] > LOGIT_RTOL
+            or rec["decode"]["logit_rel_err_shifted"] <= LOGIT_RTOL):
+        raise AssertionError(f"train_alibi: decode_step logits {rec['decode']}")
+    del params, ref, caches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    gas = ds_config["gradient_accumulation_steps"]
+    batches = [{"input_ids": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(gas, seq + 1)),
+                                             device=dev)} for _ in range(1 + timed_steps)]
+    per_step = {"flash_fwd_alibi": gas * layers, "flash_bwd_dq_alibi": gas * layers,
+                "flash_bwd_dkv_alibi": gas * layers}
+    launches = timed_train(torch, dev, K, cfg, ds_config, batches, per_step, rec)
+    return rec, launches
+
+
+@contextlib.contextmanager
+def forced_routes(torch, routes):
+    """MoE gating inside takes the given top-k sets: ``routes[li]`` [rows,
+    k] for the li-th gating call (a layer of one forward), the values the
+    gates at those experts, in descending order."""
+    from deepspeed_tpu_torch.parallel.moe import sharded_moe as M
+
+    real = M._top_k
+    calls = iter(routes)
+
+    def top_k(gates, k):
+        idx = torch.as_tensor(next(calls), device=gates.device).long()
+        vals = gates.gather(-1, idx)
+        order = vals.argsort(dim=-1, descending=True, stable=True)
+        return vals.gather(-1, order), idx.gather(-1, order)
+
+    M._top_k = top_k
+    try:
+        yield
+    finally:
+        M._top_k = real
+
+
+# a row may take another top-k set than forward_reference's own only where
+# the reference's gate margin there (relative to the RMS of the row's router
+# logits) is within the rounding a bf16 kernel path puts on those logits:
+# twice the logits tolerance the engine is held to, so about a tenth of the
+# ~0.45 RMS that separates the 2nd and 3rd of 8 random logits
+ROUTE_MARGIN_RTOL = 2 * LOGIT_RTOL
+
+
+def route_flip_gate(natural, engine, margins):
+    """Holds one sequence's engine routes against forward_reference's own,
+    each a list over layers of [rows, k] sorted expert sets, ``margins`` the
+    reference's [rows] gate margins per layer. A flip at (layer li, row p)
+    is first where every row up to p took the reference's experts at every
+    layer before li: only rounding then separates the two router inputs, so
+    its margin must be within ``ROUTE_MARGIN_RTOL``. A later flip sees an
+    input that another choice of experts moved, and is counted alone.
+    Returns (first, later, largest first margin, largest margin of all)."""
+    import numpy as np
+
+    diff = np.stack([(e != n).any(-1) for e, n in zip(engine, natural)])  # [layers, rows]
+    upstream = np.zeros_like(diff)
+    upstream[1:] = np.logical_or.accumulate(np.logical_or.accumulate(diff, axis=0)[:-1], axis=1)
+    first = diff & ~upstream
+    mg = np.stack(margins)
+    largest_first = float(mg[first].max()) if first.any() else 0.0
+    if largest_first > ROUTE_MARGIN_RTOL:
+        li, p = (int(i[0]) for i in np.nonzero(first & (mg > ROUTE_MARGIN_RTOL)))
+        raise AssertionError(
+            f"engine_moe: row {p} took experts {engine[li][p].tolist()} at layer {li} where "
+            f"forward_reference took {natural[li][p].tolist()} with a gate margin of "
+            f"{float(mg[li, p])} of its logits' RMS (> {ROUTE_MARGIN_RTOL})")
+    return (int(first.sum()), int((diff & upstream).sum()), largest_first,
+            float(mg[diff].max()) if diff.any() else 0.0)
+
+
+def moe_flips(calls_a, calls_b):
+    """Rows whose top-k expert set differs between two runs' gating calls
+    over the same rows, per call: (count, a [rows] bool of flipped)."""
+    flipped = None
+    for a, b in zip(calls_a, calls_b):
+        diff = (a["top"] != b["top"]).any(-1)
+        flipped = diff if flipped is None else flipped | diff
+    return int(flipped.sum()), flipped
+
+
+def train_moe_phase(torch, dev, K, widths=None, layers=MOE_TRAIN_LAYERS, seq=MOE_TRAIN_SEQ,
+                    timed_steps=3):
+    """Mixtral-8x7B's width: the parity leg (the kernels path's loss, the
+    aux loss included, and gradients against ``forward_reference``'s). A
+    near-tie in routing may pick other experts under the kernels than under
+    the plain path: the rows whose top-2 set differs are counted (a forward
+    of each path with the gating recorded) and left out of both losses'
+    masks, so the comparison holds the rows routed alike. Then
+    ``train_batch`` steps with the RMSNorm and flash launches counted."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    widths = dict(widths or {})
+    widths.setdefault("dtype", "bfloat16")
+    cfg = T.get_config(MOE_MODEL, n_layers=layers, remat=False, **widths)
+    rec = {"phase": "train_moe", "model": MOE_MODEL, "n_layers": layers, "seq": seq,
+           "dtype": cfg.dtype, "capacity_factor": cfg.moe_capacity_factor}
+    ds_config = dict(TRAIN_CONFIG)
+    if cfg.dtype != "bfloat16":
+        del ds_config["bf16"]
+    rng = np.random.default_rng(SEED + 30)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = packed_batch(torch, dev, rng, 1, seq, cfg.vocab_size)
+    other = packed_batch(torch, dev, rng, 1, seq, cfg.vocab_size)
+    inputs, labels, _, positions, segment_ids = T.split_lm_batch(batch)
+    calls, undo = routes_spy(torch)
+    try:
+        with torch.no_grad():
+            T.forward(params, inputs, cfg, positions=positions, segment_ids=segment_ids)
+            n_kernel = len(calls)
+            T.forward_reference(params, inputs, cfg, positions=positions, segment_ids=segment_ids)
+    finally:
+        undo()
+    flips, flipped = moe_flips(calls[:n_kernel], calls[n_kernel:])
+    mask = torch.as_tensor(~flipped.reshape(labels.shape), device=dev, dtype=torch.float32)
+    batch = dict(batch, loss_mask=torch.cat([mask[:, :1], mask], dim=1))
+    loss_fn = T.make_loss_fn(cfg)
+
+    def reference_loss(p, b):
+        inp, lab, msk, pos, seg = T.split_lm_batch(b)
+        logits, aux = T.forward_reference(p, inp, cfg, positions=pos, segment_ids=seg)
+        return T.nll_loss(logits, lab, msk) + cfg.moe_aux_loss_coef * aux
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rec["parity"], grads = train_parity(torch, cfg, params, loss_fn, batch, other,
+                                        reference_loss=reference_loss, control_by="all")
+    del grads, params
+    rec["parity"].update(batch=[1, seq], segments=2, routing_flips=flips,
+                         rows_held=int(mask.sum()), seconds=time.perf_counter() - t0,
+                         peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                      if dev.type == "cuda" else None))
+    print(f"train_moe: {flips} of {labels.numel()} tokens routed to another top-2 set under "
+          "the kernels than under forward_reference (left out of the parity losses)", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    gas = ds_config["gradient_accumulation_steps"]
+    batches = [{"input_ids": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(gas, seq + 1)),
+                                             device=dev)} for _ in range(1 + timed_steps)]
+    per_step = {"flash_fwd": gas * layers, "flash_bwd_dq": gas * layers,
+                "flash_bwd_dkv": gas * layers, "rms_norm_fwd": gas * (2 * layers + 1),
+                "rms_norm_bwd": gas * (2 * layers + 1)}
+    launches = timed_train(torch, dev, K, cfg, ds_config, batches, per_step, rec)
+    return rec, launches
+
+
+def engine_moe_phase(torch, dev, K, widths=None, engine_config=None, layers=MOE_ENGINE_LAYERS,
+                     n_prompts=MOE_ENGINE_PROMPTS):
+    """``InferenceEngineV2`` at Mixtral-8x7B's width (the MoE block through
+    the engine's ``_layer_tail``): 8 prompts prefilled through ``step()``,
+    two single steps and ``decode_round(64)``, launches counted exactly.
+    The rows' routing is recorded in the engine and in ``forward_reference``
+    over each sequence: bf16 rounding moves near-tied tokens to another
+    top-2 set, and a moved token also changes later rows through
+    attention. The rows whose own token moved are counted; every row's
+    logits are held against ``forward_reference`` run again under the
+    engine's routing (the kernels' numerics alone), and the rows routed
+    alike against the plain reference (reported). Then the same prompts on
+    an engine at capacity factor 1.25, where choices are dropped: finite
+    logits, tokens in the vocabulary, the same launches."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = T.get_config(MOE_MODEL, n_layers=layers, **(widths or {}))
+    rec = {"phase": "engine_moe", "model": MOE_MODEL, "n_layers": layers,
+           "capacity_factor": cfg.moe_capacity_factor}
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    rc = RaggedInferenceEngineConfig.from_dict(engine_config or ENGINE_CONFIG)
+    rng = np.random.default_rng(SEED + 40)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(64, 512, size=n_prompts)]
+    rec["params"] = T.num_params(params)
+    rec["reckoned_weights_gb"] = rec["params"] * 2 / 1e9
+    L = cfg.n_layers
+
+    def serve(c):
+        eng = InferenceEngineV2(c, params, rc, device=dev.type)
+        rec.setdefault("kv_pool_info", eng.kv_pool_info())
+        K.reset_counts()
+        calls, undo = routes_spy(torch)
+        try:
+            run = serve_counted_path(torch, dev, eng, prompts)
+        finally:
+            undo()
+        launches = K.counts()
+        expected = {name: 0 for name in launches}
+        fwd_steps = run["split_steps"] + 64
+        expected.update({"rms_norm_fwd": (2 * L + 1) * fwd_steps, "paged_decode": L * fwd_steps})
+        if dev.type == "cuda" and launches != expected:
+            raise AssertionError(f"engine_moe kernel launches {launches}, expected {expected}")
+        for uid in list(eng.scheduler.running_uids()):
+            eng.scheduler.finish(uid)
+        del eng
+        return run, calls, launches, expected
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    run, calls, launches, expected = serve(cfg)
+    rec.update(launches=launches, launches_expected=expected, prefill_steps=run["prefill_steps"],
+               round_seconds=run["round_seconds"], prefill_seconds=run["prefill_seconds"])
+    # the engine's route of every (token, position) row it ran, per layer
+    seen = {}
+    for i in range(0, len(calls), L):
+        toks, pos = calls[i]["rows"]
+        for r in range(len(toks)):
+            seen.setdefault((int(toks[r]), int(pos[r])), []).append(
+                [calls[i + li]["top"][r] for li in range(L)])
+    errs, errs_own, shifted, flips, rows, unresolved = [], [], [], 0, 0, 0
+    gate_flips = {"first": 0, "later": 0, "largest_first_margin": 0.0, "largest_margin": 0.0,
+                  "margin_rtol": ROUTE_MARGIN_RTOL}
+    for row, uid in enumerate(run["rounds"]):
+        mine, toks_in = logit_rows(torch, run, uid, row)
+        n_p = len(prompts[uid])
+        full = toks_in + [int(run["rounds"][uid][-1])]
+        toks = torch.as_tensor(np.asarray(full, np.int64), device=dev)[None]
+        ref_calls, undo = routes_spy(torch)
+        try:
+            with torch.no_grad():
+                ref = T.forward_reference(params, toks, cfg)[0][0].float()
+        finally:
+            undo()
+        # the engine's routes of this sequence's rows (a position it never
+        # ran, the last token, keeps the reference's own)
+        # A (token, position) pair the engine ran more than once with other
+        # routes (another sequence's row, a padded row at (0, 0)) is this
+        # sequence's when one of them is the reference's own; where none is,
+        # its route is unknown and rows from there on are not held.
+        natural_routes = [np.array(ref_calls[li]["top"]) for li in range(L)]
+        routes = [r.copy() for r in natural_routes]
+        own = np.zeros(len(full), bool)  # the row's own token routed alike
+        unknown_from = len(full)
+        for p in range(len(full)):
+            natural = [routes[li][p].copy() for li in range(L)]
+            distinct = []
+            for r in seen.get((full[p], p), []):
+                if not any(all(np.array_equal(r[li], d[li]) for li in range(L)) for d in distinct):
+                    distinct.append(r)
+            same = any(all(np.array_equal(d[li], natural[li]) for li in range(L))
+                       for d in distinct)
+            own[p] = same or not distinct
+            if len(distinct) == 1:
+                for li in range(L):
+                    routes[li][p] = distinct[0][li]
+            elif distinct and not same:
+                unknown_from = min(unknown_from, p)
+        first, later, top_first, top_all = route_flip_gate(
+            natural_routes, routes, [ref_calls[li]["margin"] for li in range(L)])
+        gate_flips["first"] += first
+        gate_flips["later"] += later
+        gate_flips["largest_first_margin"] = max(gate_flips["largest_first_margin"], top_first)
+        gate_flips["largest_margin"] = max(gate_flips["largest_margin"], top_all)
+        # the reference again under the engine's routing: the kernels'
+        # numerics alone against the plain path's, on every row
+        with torch.no_grad(), forced_routes(torch, routes):
+            forced = T.forward_reference(params, toks, cfg)[0][0].float()
+        if not bool(torch.isfinite(ref).all() and torch.isfinite(forced).all()):
+            raise AssertionError("engine_moe: non-finite reference logits")
+        n_rows = max(0, min(mine.shape[0], unknown_from - (n_p - 1)))
+        unresolved += mine.shape[0] - n_rows
+        if n_rows:
+            idx = n_p - 1 + torch.arange(n_rows, device=mine.device)
+            errs.append(rows_rel_err(torch, mine[:n_rows], forced[idx]))
+        keep = torch.as_tensor(np.flatnonzero(own[n_p - 1:n_p - 1 + mine.shape[0]]),
+                               device=mine.device)
+        if len(keep):
+            errs_own.append(rows_rel_err(torch, mine[keep], ref[n_p - 1 + keep]))
+        flips += int((~own[n_p - 1:n_p - 1 + mine.shape[0]]).sum())
+        rows += mine.shape[0]
+        shifted.append(rows_rel_err(torch, mine[0], forced[n_p - 2]))
+    rec["routing_flips"] = flips
+    rec["route_flips_by_layer_row"] = gate_flips
+    rec["rows"] = rows
+    rec["rows_route_unknown"] = unresolved
+    rec["logit_rel_err"] = max(errs)
+    rec["logit_rel_err_own_routing"] = max(errs_own)
+    rec["logit_rel_err_shifted"] = min(shifted)
+    rec["logit_rtol"] = LOGIT_RTOL
+    print(f"engine_moe: {flips} of {rows} logits rows had their token routed to another top-2 "
+          f"set in the engine than in forward_reference; {rows - unresolved} rows held against "
+          "the reference under the engine's routing", flush=True)
+    print(f"engine_moe: {gate_flips['first']} (layer, row) flips with the same experts "
+          f"upstream, largest gate margin {gate_flips['largest_first_margin']} of the logits' "
+          f"RMS (bound {ROUTE_MARGIN_RTOL}); {gate_flips['later']} after another flip, largest "
+          f"margin of all flips {gate_flips['largest_margin']}", flush=True)
+    if rec["logit_rel_err"] > LOGIT_RTOL or rec["logit_rel_err_shifted"] <= LOGIT_RTOL:
+        raise AssertionError(f"engine_moe logits: {rec['logit_rel_err']} against "
+                             f"forward_reference, control {rec['logit_rel_err_shifted']}")
+    del run, calls, seen
+
+    # capacity factor 1.25: the same prompts, choices dropped
+    drop_cfg = T.get_config(MOE_MODEL, n_layers=layers, moe_capacity_factor=MOE_DROP_CF,
+                            **(widths or {}))
+    run, calls, launches, _ = serve(drop_cfg)
+    logits = torch.cat([torch.as_tensor(v, device=dev).float().reshape(-1, cfg.vocab_size)
+                        for v in run["prefill_logits"].values()]
+                       + [run["round_logits"].float().reshape(-1, cfg.vocab_size)])
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("engine_moe at capacity factor 1.25: non-finite logits")
+    if not all(0 <= int(t) < cfg.vocab_size for g in run["rounds"].values() for t in g):
+        raise AssertionError("engine_moe at capacity factor 1.25: a token outside the vocabulary")
+    rec["drop_run"] = {"capacity_factor": MOE_DROP_CF, "launches": launches,
+                       "gating_calls": len(calls),
+                       "calls_dropping": sum(c["kept"] < c["chosen"] for c in calls),
+                       "choices_dropped": sum(c["chosen"] - c["kept"] for c in calls),
+                       "round_seconds": run["round_seconds"]}
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    rec["seconds_in_phase"] = time.perf_counter() - t0
+    del params
+    return rec, launches
+
+
+def mlm_batch(torch, dev, rng, b, s, vocab):
+    """A masked-LM batch: input_ids [b, s], labels = the ids, loss_mask on
+    MLM_MASKED of the positions."""
+    toks = rng.integers(0, vocab, size=(b, s))
+    mask = (rng.random((b, s)) < MLM_MASKED).astype("float32")
+    return {"input_ids": torch.as_tensor(toks, device=dev),
+            "labels": torch.as_tensor(toks, device=dev),
+            "loss_mask": torch.as_tensor(mask, device=dev)}
+
+
+# train_mlm's gradient witness: the depths it reads (and the model's full
+# depth), and how much farther from the fp32 reference than the flash
+# Function's plain versions (the kernels' arithmetic) the kernel path may
+# sit, where that is more than PARITY_GRAD_RTOL
+MLM_WITNESS_DEPTHS, MLM_WITNESS_RATIO = (2, 6, 12), 1.25
+
+
+@contextlib.contextmanager
+def plain_flash(delta_fp32=False):
+    """The flash Function's CUDA wrappers replaced by their plain versions
+    (the kernels' arithmetic, nothing launched). With ``delta_fp32`` the
+    backward's delta is sum(dO * O) over an fp32 O (P unrounded), which is
+    sum(P * dP), in place of the bf16 O the kernels read."""
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    real = F.flash_fwd_cuda, F.flash_bwd_dq_cuda, F.flash_bwd_dkv_cuda
+
+    def bwd(q, k, v, out, do, lse, **kw):
+        if delta_fp32:
+            out = F.flash_fwd_reference(q.float(), k.float(), v.float(), **kw)[0]
+        return F.flash_bwd_reference(q, k, v, out, do, lse, **kw)
+
+    F.flash_fwd_cuda = F.flash_fwd_reference
+    F.flash_bwd_dq_cuda = lambda *a, **kw: bwd(*a, **kw)[0]
+    F.flash_bwd_dkv_cuda = lambda *a, **kw: bwd(*a, **kw)[1:]
+    try:
+        yield
+    finally:
+        F.flash_fwd_cuda, F.flash_bwd_dq_cuda, F.flash_bwd_dkv_cuda = real
+
+
+def mlm_rounding_witness(torch, dev, widths, batch, full_depth):
+    """Every gradient of the MLM loss at BERT-large's widths, at each of
+    ``MLM_WITNESS_DEPTHS`` below ``full_depth`` and at ``full_depth``, on
+    the same bf16 weights through: the kernels (``make_loss_fn``), the
+    flash Function's plain versions, those with delta over an fp32 O
+    (``plain_flash``), ``forward_reference`` in bf16, and the truth:
+    ``forward_reference`` in fp32 on the weights widened. Per path the
+    relative Frobenius gap to the truth, per leaf; raises where the
+    kernels' gap exceeds both PARITY_GRAD_RTOL and ``MLM_WITNESS_RATIO``
+    times the plain versions'. Returns {depth: record}."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.utils.tree import tree_map
+
+    inputs, labels, mask, _, _ = T.split_lm_batch(batch)
+
+    def grads(cfg, params, loss):
+        flat = list(leaves(params).values())
+        for t in flat:
+            t.requires_grad_(True)
+        out = [g.float() for g in torch.autograd.grad(loss(cfg, params), flat)]
+        for t in flat:
+            t.requires_grad_(False)
+        return out
+
+    def reference(cfg, params):
+        return T.nll_loss(T.forward_reference(params, inputs, cfg)[0], labels, mask)
+
+    def model(cfg, params):
+        return T.make_loss_fn(cfg)(params, batch)
+
+    out = {}
+    for depth in sorted({d for d in MLM_WITNESS_DEPTHS if d < full_depth} | {full_depth}):
+        c16 = T.get_config(MLM_MODEL, remat=False, **dict(widths, n_layers=depth))
+        p16 = T.init_params(c16, torch.Generator(device=dev).manual_seed(SEED), dev)
+        names = [n for n in leaves(p16) if n not in ZERO_GRAD_LEAVES]
+        truth = grads(dataclasses.replace(c16, dtype="float32"),
+                      tree_map(lambda t: t.float(), p16), reference)
+        paths = {"kernels": grads(c16, p16, model)}
+        with plain_flash():
+            paths["flash_plain"] = grads(c16, p16, model)
+        with plain_flash(delta_fp32=True):
+            paths["flash_plain_delta_fp32"] = grads(c16, p16, model)
+        paths["bf16_reference"] = grads(c16, p16, reference)
+        gaps = {}
+        for path, g in paths.items():
+            gaps[path] = {n: float((a - t).norm()) / float(t.norm())
+                          for n, a, t in zip(leaves(p16), g, truth) if n in names}
+        del p16, truth, paths
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        for n in names:
+            kb, pb = gaps["kernels"][n], gaps["flash_plain"][n]
+            if kb > max(MLM_WITNESS_RATIO * pb, PARITY_GRAD_RTOL):
+                raise AssertionError(
+                    f"train_mlm at {depth} layers: the kernels' {n} gradient sits {kb} from "
+                    f"the fp32 reference's, the flash plain versions' {pb}")
+        out[depth] = {"max_vs_fp32": {p: max(v.values()) for p, v in gaps.items()},
+                      "wq_vs_fp32": {p: v.get("layers/wq") for p, v in gaps.items()},
+                      "ratio_bound": MLM_WITNESS_RATIO}
+    return out
+
+
+def train_mlm_phase(torch, dev, K, widths=None, layers=None, seq=MLM_SEQ, micro=MLM_MICRO,
+                    timed_steps=3, parity_layers=PARITY_LAYERS):
+    """BERT-large through the non-causal flash kernels at d 64: the three
+    kernels at its attention shape (micro-batch 8, 16 heads, s 512) against
+    their plain versions; the parity leg at ``parity_layers`` layers, as
+    the train phase's (the MLM loss and every gradient against
+    ``forward_reference``'s: deeper, the flash backward's delta, summed
+    over the bf16 O, moves the wq/wk gradients by more); the MLM
+    loss at its full depth against ``forward_reference``'s; every gradient
+    at 2, 6, 12 and 24 layers against ``forward_reference`` in fp32, the
+    kernels held to their plain versions' gap (``mlm_rounding_witness``);
+    then
+    ``train_batch`` steps with the flash launches counted exactly
+    (LayerNorm is plain: no RMSNorm kernel)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    widths = dict(widths or {})
+    widths.setdefault("dtype", "bfloat16")
+    if layers is not None:
+        widths["n_layers"] = layers
+    cfg = T.get_config(MLM_MODEL, remat=False, **widths)
+    rec = {"phase": "train_mlm", "model": MLM_MODEL, "n_layers": cfg.n_layers, "seq": seq,
+           "micro_batch": micro, "dtype": cfg.dtype}
+    ds_config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro)
+    if cfg.dtype != "bfloat16":
+        del ds_config["bf16"]
+    rng = np.random.default_rng(SEED + 50)
+    t0 = time.perf_counter()
+
+    # the kernels at BERT's attention shape, non-causal
+    if cfg.dtype == "bfloat16" and dev.type == "cuda":
+        errs = {name: {} for name in TRAIN_KERNELS[2:]}
+        tile_errs = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+        c = dict(b=micro, h=cfg.n_heads, h_kv=cfg.kv_heads, s=seq, d=cfg.head_dim,
+                 causal=False, window=0, window_flag=None, seg=None)
+        check_flash_case(torch, dev, errs, tile_errs, "bert", c, seed=SEED + 51)
+        rec["kernels_at_shape"] = {"shape": {k: c[k] for k in ("b", "h", "s", "d", "causal")},
+                                   "max_abs_err": errs, "tile_rel_frobenius": tile_errs}
+
+    small = T.get_config(MLM_MODEL, remat=False, **dict(widths, n_layers=parity_layers))
+    params = T.init_params(small, torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = mlm_batch(torch, dev, rng, micro, seq, cfg.vocab_size)
+    other = mlm_batch(torch, dev, rng, micro, seq, cfg.vocab_size)
+    rec["parity"], grads = train_parity(torch, small, params, T.make_loss_fn(small), batch,
+                                        other, control_by="all")
+    del grads, params
+    rec["parity"].update(layers=parity_layers, batch=[micro, seq],
+                         seconds=time.perf_counter() - t0)
+
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    with torch.no_grad():
+        k_loss = float(T.make_loss_fn(cfg)(params, batch))
+        logits, _ = T.forward_reference(params, batch["input_ids"], cfg)
+        r_loss = float(T.nll_loss(logits, batch["labels"], batch["loss_mask"]))
+    del logits, params
+    rec["full_depth_loss"] = {"kernels": k_loss, "reference": r_loss,
+                              "abs_diff": abs(k_loss - r_loss), "atol": PARITY_LOSS_ATOL}
+    if not np.isfinite(k_loss) or abs(k_loss - r_loss) > PARITY_LOSS_ATOL:
+        raise AssertionError(f"train_mlm: the full-depth loss {rec['full_depth_loss']}")
+    rec["rounding_witness"] = mlm_rounding_witness(torch, dev, widths, batch, cfg.n_layers)
+    for depth, w in rec["rounding_witness"].items():
+        print(f"train_mlm gradients at {depth} layers, largest gap to the fp32 reference: "
+              + ", ".join(f"{p} {g}" for p, g in w["max_vs_fp32"].items()), flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    gas = ds_config["gradient_accumulation_steps"]
+    batches = [mlm_batch(torch, dev, rng, gas * micro, seq, cfg.vocab_size)
+               for _ in range(1 + timed_steps)]
+    L = cfg.n_layers
+    per_step = {"flash_fwd": gas * L, "flash_bwd_dq": gas * L, "flash_bwd_dkv": gas * L}
+    launches = timed_train(torch, dev, K, cfg, ds_config, batches, per_step, rec)
     return rec, launches
 
 
@@ -4820,6 +5789,7 @@ def main(argv=None):
                                                                         int8=True)},
         "block_quant": lambda: {"block_quant": kernel_block_quant(torch, dev)},
         "flash": lambda: kernel_flash(torch, dev),
+        "flash_alibi": lambda: kernel_flash_alibi(torch, dev),
         "fused_ce": lambda: kernel_fused_ce(torch, dev),
         "fused_adam": lambda: {"fused_adam": kernel_fused_adam(torch, dev)},
         "splash": lambda: kernel_splash(torch, dev),
@@ -4913,6 +5883,21 @@ def main(argv=None):
               f"on {card}", flush=True)
         torch.cuda.empty_cache()
 
+    # the rest of the model at the published widths: BLOOM's ALiBi, Mixtral's
+    # MoE in training and serving, BERT's encoder heads
+    model_launches = {}
+    for name, run_phase in (("train_alibi", train_alibi_phase), ("train_moe", train_moe_phase),
+                            ("engine_moe", engine_moe_phase), ("train_mlm", train_mlm_phase)):
+        t0 = time.perf_counter()
+        rec, model_launches[name] = run_phase(torch, dev, K)
+        rec.update(card=card, seconds=time.perf_counter() - t0)
+        emit(rec)
+        reckoned = rec.get("reckoned_train_gb", rec.get("reckoned_weights_gb"))
+        print(f"{name}: {rec['n_layers']} layers of {rec['model']}, params {rec['params']} "
+              f"(reckoned {reckoned:.1f} GB), peak {rec['peak_mem_gb']:.1f} GB on {card}",
+              flush=True)
+        torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     rec, per_row_launches = engine_per_row_phase(torch, dev, K)
     rec["card"] = card
@@ -4968,7 +5953,13 @@ def main(argv=None):
     launched.update({name: sparse_launches[name] for name in SPARSE_KERNELS})
     launched.update({name: evo_launches[name] for name in EVOFORMER_KERNELS})
     launched.update({name: train_ring_launches[name] for name in CARRY_KERNELS})
+    launched.update({name: model_launches["train_alibi"][name] for name in FLASH_ALIBI_KERNELS})
     missing = [n for n, c in launched.items() if c <= 0]
+    missing += [f"{n} (train_moe)" for n in TRAIN_KERNELS if model_launches["train_moe"][n] <= 0]
+    missing += [f"{n} (engine_moe)" for n in SERVE_KERNELS
+                if model_launches["engine_moe"][n] <= 0]
+    missing += [f"{n} (train_mlm)" for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                if model_launches["train_mlm"][n] <= 0]
     missing += [f"{n} (ring_attn)" for n in CARRY_KERNELS if ring_launches[n] <= 0]
     missing += [n for n in TRAIN_KERNELS if train_launches["train_fused"][n] <= 0]
     missing += [f"{n} (engine_per_row)" for n in PER_ROW_KERNELS if per_row_launches[n] <= 0]
@@ -4984,7 +5975,7 @@ def main(argv=None):
             f"training {train_launches}, per-row {per_row_launches}, int8 {int8_launches}, "
             f"per-row int8 {per_row_int8_launches}, sparse_attn {sparse_launches}, "
             f"evoformer {evo_launches}, ring_attn {ring_launches}, train_ring "
-            f"{train_ring_launches}, kernels {sorted(K.KERNELS)}")
+            f"{train_ring_launches}, model {model_launches}, kernels {sorted(K.KERNELS)}")
 
     kernels_line = []
     for name, k in K.KERNELS.items():
@@ -4995,7 +5986,8 @@ def main(argv=None):
                  else "train_splash" if name in SPLASH_KERNELS
                  else "sparse_attn" if name in SPARSE_KERNELS
                  else "evoformer" if name in EVOFORMER_KERNELS
-                 else "train_ring" if name in CARRY_KERNELS else "train")
+                 else "train_ring" if name in CARRY_KERNELS
+                 else "train_alibi" if name in FLASH_ALIBI_KERNELS else "train")
         kernels_line.append({
             "name": name, "route": "cuda",
             "source": str(k.source_path.relative_to(root)),
@@ -5022,6 +6014,7 @@ def main(argv=None):
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_ms_as_read",
                 "max_abs_err", "launches_per_call")}} if "verify_form" in rec else {}),
             **({"launches_ring_attn_call": ring_launches[name]} if name in CARRY_KERNELS else {}),
+            **({"no_alibi_ms": rec["no_alibi_ms"]} if name in FLASH_ALIBI_KERNELS else {}),
             "matched": True,  # check_close raised otherwise
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

@@ -3,7 +3,9 @@
 ``params_from_numpy`` turns the JAX package's parameter pytree, taken to
 the host as numpy (``jax.tree.map(np.asarray, params)``), into the port's
 parameters: the same nested dict of the same shapes and layout, as torch
-tensors on ``device``. Both packages then compute on identical weights.
+tensors on ``device``, every family's leaves included (the MoE router and
+[L, E, h, f] experts, residual and shared experts, ``type_embed``, the
+``mlm_*`` head). Both packages then compute on identical weights.
 ``opt_state_from_numpy`` does the same for an optimizer state (masters,
 moments, count), so a trajectory can continue in the port from where the
 JAX engine stands.

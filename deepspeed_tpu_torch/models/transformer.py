@@ -8,9 +8,13 @@ weights are stacked on a leading ``[n_layers]`` dim, projections stored
 package's parameters as they are, so both packages compute on identical
 weights.
 
-The port serves and trains the dense decoder: the norms (RMSNorm through
-the CUDA kernels on a card), RoPE with every scaling kind, projections at
-the model dtype, the dense MLP, the LM head, and two forwards:
+The port serves and trains every position scheme, MLP form and head of the
+JAX model: the norms (RMSNorm through the CUDA kernels on a card), RoPE with
+every scaling kind, learned positions and ALiBi (BLOOM: the flash kernels'
+ALiBi form in training, a dense bias in the cached decode), projections at
+the model dtype, the dense MLP and top-k MoE (``parallel/moe``: its aux
+loss summed over the layers into the loss), the LM head and BERT's token
+types and masked-LM head, and two forwards:
 
   * ``forward`` / ``forward_hidden``: the training path, as the JAX
     package's. Each layer casts its weights to the compute dtype, attention
@@ -18,7 +22,8 @@ the model dtype, the dense MLP, the LM head, and two forwards:
     card; with ``attention_impl="splash"`` or ``attn_sparsity`` the splash
     kernels over the layer's block schedule) and RMSNorm through
     ``rms_norm`` (the kernels forward and backward on a card); ``remat``
-    runs each layer under ``torch.utils.checkpoint``. ``make_loss_fn``
+    checkpoints each layer by ``remat_policy`` (``REMAT_POLICIES``).
+    ``make_loss_fn``
     builds the causal-LM loss on top. ``attention_impl="flash_ring"`` (or
     "auto" on a topology whose ``context`` axis is above 1) takes the
     context-parallel ring (``ops/attention/sharded.py``); in the process
@@ -33,8 +38,8 @@ the model dtype, the dense MLP, the LM head, and two forwards:
 ``decode_step`` / ``init_kv_cache`` are the v1 inference engine's cached
 decode over contiguous KV caches (``inference/engine.py``).
 
-MoE, quantized projections, ALiBi, weight streaming and tiled losses are
-later slices and raise ``NotImplementedError`` naming their ROADMAP items.
+Quantized projections and weight streaming are later slices and raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 
 import dataclasses
@@ -45,7 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.attention.core import attention, mha_reference
+from deepspeed_tpu_torch.ops.attention.core import alibi_bias, attention, mha_reference
 from deepspeed_tpu_torch.ops.normalization import (
     fused_layer_norm,
     rms_norm,
@@ -381,6 +386,37 @@ PRESETS: Dict[str, Dict[str, Any]] = {
         ffn_hidden_size=14336, max_seq_len=32768, rope_theta=10000.0, norm_eps=1e-5,
         sliding_window=4096,
     ),
+    # bigscience/bloom-7b1 config.json (the mapping of deepspeed_tpu/models/
+    # hf.py config_from_hf): 30 layers, 32 heads of 128, ffn 4h, vocab
+    # 250880, LayerNorm eps 1e-5, tanh GELU, ALiBi, tied embeddings, the
+    # embedding LayerNorm, biased qkv/out/MLP projections
+    "bloom-7b1": dict(
+        vocab_size=250880, hidden_size=4096, n_layers=30, n_heads=32, ffn_hidden_size=16384,
+        max_seq_len=2048, norm="layernorm", activation="gelu", position="alibi",
+        norm_eps=1e-5, tie_embeddings=True, embed_norm=True, attn_qkv_bias=True,
+        attn_out_bias=True, mlp_bias=True,
+    ),
+    # mistralai/Mixtral-8x7B-v0.1 config.json (the same mapping): 32 layers,
+    # GQA 32/8 heads of 128, SwiGLU ffn 14336 in 8 experts, top-2 renormalized,
+    # rope_theta 1e6, rms eps 1e-5, router aux coef 0.02, capacity factor E/k
+    # (capacity = tokens: HF never drops)
+    "mixtral-8x7b": dict(
+        vocab_size=32000, hidden_size=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        ffn_hidden_size=14336, max_seq_len=32768, rope_theta=1e6, norm_eps=1e-5,
+        n_experts=8, moe_top_k=2, moe_norm_topk_prob=True, moe_capacity_factor=4.0,
+        moe_aux_loss_coef=0.02,
+    ),
+    # bert-large-uncased config.json (the same mapping): 24 layers, 16 heads
+    # of 64, ffn 4096, vocab 30522, 512 positions, 2 token types, post-norm
+    # LayerNorm eps 1e-12, exact GELU, bidirectional, the embedding
+    # LayerNorm, the MLM head over tied embeddings, no final norm
+    "bert-large": dict(
+        vocab_size=30522, hidden_size=1024, n_layers=24, n_heads=16, ffn_hidden_size=4096,
+        max_seq_len=512, norm="layernorm", activation="gelu_exact", position="learned",
+        norm_eps=1e-12, tie_embeddings=True, attn_qkv_bias=True, attn_out_bias=True,
+        mlp_bias=True, attn_causal=False, norm_scheme="post", embed_norm=True,
+        type_vocab_size=2, final_norm=False, mlm_head=True,
+    ),
 }
 
 
@@ -392,14 +428,10 @@ def get_config(preset: str = "tiny", **overrides) -> TransformerConfig:
 
 def _check_served(c: TransformerConfig) -> None:
     """Raise for features whose ops are not ported in this slice."""
-    if c.n_experts > 0:
-        raise NotImplementedError("MoE (n_experts > 0) is not ported yet (ROADMAP queue 1, item 2)")
     if c.matmul_precision != "default":
         raise NotImplementedError(
             f"matmul_precision={c.matmul_precision!r} is not ported yet (ROADMAP queue 1, item 8)"
         )
-    if c.position == "alibi":
-        raise NotImplementedError("alibi attention is not ported yet (ROADMAP queue 1, item 2)")
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +468,7 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
 
     # rmsnorm_1p's effective scale is (1 + w): identity init is zeros there
     one = 0.0 if c.norm == "rmsnorm_1p" else 1.0
+    gated = c.activation in ("swiglu", "geglu")
     layers: Dict[str, Any] = {
         "attn_norm": const((L, h), one),
         "wq": dense((L, h, nh * d), h),
@@ -443,11 +476,32 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
         "wv": dense((L, h, nkv * d), h),
         "wo": dense((L, nh * d, h), nh * d),
         "mlp_norm": const((L, h), one),
-        "w_up": dense((L, h, ffn), h),
-        "w_down": dense((L, ffn, h), ffn),
     }
-    if c.activation in ("swiglu", "geglu"):
-        layers["w_gate"] = dense((L, h, ffn), h)
+    if c.n_experts > 0:
+        E = c.n_experts
+        layers["router"] = dense((L, h, E), h)
+        layers["w_up"] = dense((L, E, h, ffn), h)
+        layers["w_down"] = dense((L, E, ffn, h), ffn)
+        if gated:
+            layers["w_gate"] = dense((L, E, h, ffn), h)
+        if c.moe_residual:
+            layers["res_up"] = dense((L, h, ffn), h)
+            layers["res_down"] = dense((L, ffn, h), ffn)
+            if gated:
+                layers["res_gate"] = dense((L, h, ffn), h)
+            layers["res_coef"] = dense((L, h, 2), h)
+        if c.moe_shared_expert_dim > 0:
+            sd = c.moe_shared_expert_dim
+            layers["shared_up"] = dense((L, h, sd), h)
+            layers["shared_down"] = dense((L, sd, h), sd)
+            if gated:
+                layers["shared_gate"] = dense((L, h, sd), h)
+            layers["shared_gate_proj"] = dense((L, h, 1), h)
+    else:
+        layers["w_up"] = dense((L, h, ffn), h)
+        layers["w_down"] = dense((L, ffn, h), ffn)
+        if gated:
+            layers["w_gate"] = dense((L, h, ffn), h)
     if c.norm == "layernorm":
         layers["attn_norm_b"] = const((L, h), 0.0)
         layers["mlp_norm_b"] = const((L, h), 0.0)
@@ -467,10 +521,10 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
                 layers["k_norm_b"] = const((L, d), 0.0)
     if c.attn_out_bias:
         layers["wo_b"] = const((L, h), 0.0)
-    if c.mlp_bias:
+    if c.mlp_bias and c.n_experts == 0:
         layers["w_up_b"] = const((L, ffn), 0.0)
         layers["w_down_b"] = const((L, h), 0.0)
-        if c.activation in ("swiglu", "geglu"):
+        if gated:
             layers["w_gate_b"] = const((L, ffn), 0.0)
     params: Dict[str, Any] = {"embed": normal((c.vocab_size, h), 0.02), "layers": layers}
     if c.final_norm:
@@ -479,9 +533,17 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
             params["final_norm_b"] = const((h,), 0.0)
     if c.position == "learned":
         params["pos_embed"] = normal((c.max_seq_len, h), 0.02)
+    if c.type_vocab_size > 0:
+        params["type_embed"] = normal((c.type_vocab_size, h), 0.02)
     if c.embed_norm:
         params["embed_norm"] = const((h,), 1.0)
         params["embed_norm_b"] = const((h,), 0.0)
+    if c.mlm_head:
+        params["mlm_dense"] = dense((1, h, h), h)[0]
+        params["mlm_dense_b"] = const((h,), 0.0)
+        params["mlm_norm"] = const((h,), 1.0)
+        params["mlm_norm_b"] = const((h,), 0.0)
+        params["mlm_bias"] = const((c.vocab_size,), 0.0)
     if not c.tie_embeddings:
         params["lm_head"] = dense((h, c.vocab_size), h)
         if c.lm_head_bias:
@@ -585,6 +647,26 @@ def rope_params(c: TransformerConfig, rot: int, seq_len: Optional[int] = None):
     return (long if (seq_len or 0) > old_len else short).astype(np.float32), float(attn)
 
 
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes (HF ``build_alibi_tensor``'s formula, with its
+    interpolation for a head count that is no power of 2), fp32 [n_heads],
+    as the JAX package's."""
+    closest = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = base ** np.arange(1, closest + 1, dtype=np.float32)
+    if closest != n_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        extra = extra_base ** np.arange(1, 2 * (n_heads - closest) + 1, 2, dtype=np.float32)
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _alibi_slopes_on(n_heads: int, device: torch.device):
+    """``alibi_slopes`` as an fp32 tensor on ``device``, copied once."""
+    return torch.as_tensor(alibi_slopes(n_heads), device=device)
+
+
 def _rope_freqs_uncached(c: TransformerConfig, rot: int, seq_len: Optional[int],
                          device: torch.device):
     inv_freq, attn_factor = rope_params(c, rot, seq_len)
@@ -676,7 +758,13 @@ def _activation(c: TransformerConfig, up, gate=None):
 
 
 def _mlp_block(c: TransformerConfig, lp, x):
-    """Dense MLP; returns (out, aux_loss) like the JAX package's."""
+    """The dense MLP, or with ``n_experts`` the MoE block
+    (``parallel.moe.moe_mlp``: x [b, s, h] or the engine's [t, h]);
+    returns (out, aux_loss) like the JAX package's."""
+    if c.n_experts > 0:
+        from deepspeed_tpu_torch.parallel.moe import moe_mlp
+
+        return moe_mlp(c, lp, x)
     up = _proj(c, x, lp["w_up"])
     if c.mlp_bias:
         up = up + lp["w_up_b"]
@@ -714,14 +802,19 @@ def _apply_lm_head(params, x, config: TransformerConfig):
     return logits
 
 
-def embed_tokens(params, tokens, positions, config: TransformerConfig):
-    """Token (+ learned position) embedding at the model dtype, the stem
-    shared by ``forward`` and the engine's steps."""
+def embed_tokens(params, tokens, positions, config: TransformerConfig, token_type_ids=None):
+    """Token (+ learned position, + token type) embedding at the model
+    dtype, the stem shared by ``forward`` and the engine's steps. With
+    ``type_vocab_size`` the type embedding of ``token_type_ids`` (type 0
+    when omitted, HF's default) is added before BLOOM's embedding norm."""
     c = config
     dtype = DTYPES[c.dtype]
     x = _scale_embed(params["embed"].to(dtype)[tokens.long()], c, dtype)
     if c.position == "learned":
         x = x + params["pos_embed"][positions.long().clamp(0, c.max_seq_len - 1)]
+    if c.type_vocab_size > 0:
+        te = params["type_embed"].to(x.dtype)
+        x = x + (te[0] if token_type_ids is None else te[torch.as_tensor(token_type_ids).long()])
     if c.embed_norm:
         x = _embed_norm(params, c, x)
     return x
@@ -786,7 +879,8 @@ def _cached_attention(c: TransformerConfig, q, k, v, kv_cache, local_flag):
     ``dynamic_update_slice`` does), then attention over the whole cache
     with a dense bias: causal against global positions and bounded by the
     fill (query i at clen + i sees keys at positions <= clen + i), plus the
-    window band (off for a global layer: ``local_flag`` 0). The flash
+    window band (off for a global layer: ``local_flag`` 0), plus ALiBi's
+    ``slope_h * key_position`` over the cache's positions. The flash
     kernels take no bias, and the JAX package's auto rule sends such a call
     to its plain reference, so this calls ``mha_reference`` on every
     device, as the v2 engine's dense decode does. Returns (out, new fill
@@ -804,7 +898,10 @@ def _cached_attention(c: TransformerConfig, q, k, v, kv_cache, local_flag):
     if c.sliding_window > 0:
         far = window_too_far(q_glob[:, None], kpos[None, :], c.sliding_window, local_flag)
         bias = bias + torch.where(far, NEG_INF, 0.0).float()
-    out = mha_reference(q, ck, cv, causal=False, bias=bias[None, None], scale=c.attn_scale)
+    bias = bias[None, None]
+    if c.position == "alibi":
+        bias = bias + alibi_bias(_alibi_slopes_on(c.n_heads, q.device), kpos, S, q.device)
+    out = mha_reference(q, ck, cv, causal=False, bias=bias, scale=c.attn_scale)
     return out, int(clen) + s
 
 
@@ -844,16 +941,23 @@ def _attention_block(c: TransformerConfig, lp, x, positions, segment_ids=None,
         return out, clen
     kw = dict(causal=c.attn_causal, segment_ids=segment_ids, scale=c.attn_scale,
               window=c.sliding_window, window_flag=window_flag)
-    schedule = _attention_schedule(c, s)
-    if reference and c.attn_sparsity is not None:
+    if c.position == "alibi":
+        # the rank-1 form rides the flash kernels' ALiBi form (slope *
+        # key_position added in the kernel), causal as in the JAX package;
+        # the config refuses a window or a scale beside it
+        kw = dict(causal=True, segment_ids=segment_ids,
+                  alibi_slopes=_alibi_slopes_on(nh, q.device),
+                  alibi_positions=positions)
+        out = mha_reference(q, k, v, **kw) if reference else attention(q, k, v, impl=impl, **kw)
+    elif reference and c.attn_sparsity is not None:
         from deepspeed_tpu_torch.ops.sparse_attention.splash import splash_fwd_reference
 
-        out = splash_fwd_reference(q, k, v, schedule, segment_ids=segment_ids,
+        out = splash_fwd_reference(q, k, v, _attention_schedule(c, s), segment_ids=segment_ids,
                                    scale=c.attn_scale)[0]
     elif reference:
         out = mha_reference(q, k, v, **kw)
     else:
-        out = attention(q, k, v, impl=impl, schedule=schedule, **kw)
+        out = attention(q, k, v, impl=impl, schedule=_attention_schedule(c, s), **kw)
     out = _proj(c, out.transpose(1, 2).reshape(b, s, nh * d), lp["wo"])
     if c.attn_out_bias:
         out = out + lp["wo_b"]
@@ -890,71 +994,154 @@ def _layer(c: TransformerConfig, lp, x, positions, segment_ids=None, local_flag=
 
 def _check_forward(c: TransformerConfig):
     _check_served(c)
-    if c.mlm_head or c.type_vocab_size > 0:
-        raise NotImplementedError(
-            "encoder heads (mlm_head, token types) are not ported yet (ROADMAP queue 1, item 2)"
-        )
     if c.weight_stream:
         raise NotImplementedError("weight_stream is not ported yet (ROADMAP queue 1, item 7)")
 
 
+# The JAX package's remat policies (``remat_policy``), cheapest memory
+# first. The port's forms:
+#   * "nothing": the layer under ``torch.utils.checkpoint``, only its input
+#     kept; the backward runs it again;
+#   * "flash" / "flash_qkv": as "nothing", but the flash forward's out and
+#     lse of the first pass are kept and handed to the recompute
+#     (``ops.attention.flash.flash_stash``), so the backward never launches
+#     the flash forward kernel again. The JAX package saves the roped q/k/v
+#     too under "flash_qkv", sparing the projections' recompute; torch's
+#     checkpoint re-runs the layer's code either way, so "flash_qkv" is
+#     "flash" here (same memory, same recompute);
+#   * "dots_with_no_batch_dims" / "dots": selective checkpointing that keeps
+#     the outputs of the matrix products without (``aten.mm``,
+#     ``aten.addmm``) or also with (``aten.bmm``, ``aten.baddbmm``) batch
+#     dims and recomputes the rest;
+#   * "everything": nothing recomputed (the layer runs as with remat off).
+# A policy changes memory and recompute, never values.
+REMAT_POLICIES = ("nothing", "flash", "flash_qkv", "dots_with_no_batch_dims", "dots",
+                  "everything")
+
+
+def remat_policy(name: str) -> str:
+    """Check a remat policy name (``REMAT_POLICIES``); an unknown one
+    raises ValueError, as in the JAX package."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {sorted(REMAT_POLICIES)}, got {name!r}")
+    return name
+
+
+def _dot_saver(batched: bool):
+    """Selective-checkpoint contexts that keep the matrix products'
+    outputs (with batch dims too when ``batched``) and recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    aten = torch.ops.aten
+    keep = {aten.mm.default, aten.addmm.default}
+    if batched:
+        keep |= {aten.bmm.default, aten.baddbmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _remat_layer(policy: str, layer, x):
+    """One layer ``layer(x) -> (x, aux)`` under the remat policy."""
+    checkpoint = functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
+    if policy == "everything":
+        return layer(x)
+    if policy in ("dots", "dots_with_no_batch_dims"):
+        return checkpoint(layer, x, context_fn=_dot_saver(policy == "dots"))
+    if policy == "nothing":
+        return checkpoint(layer, x)
+    from deepspeed_tpu_torch.ops.attention.flash import FlashStash, flash_stash
+
+    stash = FlashStash()
+
+    def run(y):
+        stash.rewind()
+        with flash_stash(stash):
+            return layer(y)
+
+    out = checkpoint(run, x)
+    stash.replay = True  # the recompute takes the first pass's out and lse
+    return out
+
+
 def forward_hidden(params: Dict[str, Any], tokens, config: TransformerConfig, positions=None,
-                   segment_ids=None, reference: bool = False):
+                   segment_ids=None, token_type_ids=None, reference: bool = False):
     """Body forward: tokens [b, s] -> (final-norm'd hidden [b, s, h],
-    aux_loss). ``positions`` [s] or [b, s] (default arange), ``segment_ids``
-    [b, s] for packed sequences. With ``config.remat``, when autograd
-    records, each layer runs under ``torch.utils.checkpoint`` (policy
-    "nothing": only the layer input is kept); any other ``remat_policy``
-    raises then. ``reference`` selects the plain oracle path (see
-    ``forward_reference``)."""
+    aux_loss: the MoE layers' load-balancing losses summed, 0.0 without
+    MoE). ``positions`` [s] or [b, s] (default arange), ``segment_ids``
+    [b, s] for packed sequences, ``token_type_ids`` [b, s] (BERT; type 0
+    when omitted). With ``config.remat``, when autograd records, each layer
+    runs under ``config.remat_policy`` (``REMAT_POLICIES``; an unknown name
+    raises ValueError whenever remat is on). ``reference`` selects the plain
+    oracle path (see ``forward_reference``)."""
     c = config
     _check_forward(c)
+    if c.remat:
+        remat_policy(c.remat_policy)
     remat = c.remat and not reference and torch.is_grad_enabled()
-    if remat and c.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy={c.remat_policy!r}: the port honours only 'nothing' "
-            "(torch.utils.checkpoint per layer) or remat=False (ROADMAP queue 1, item 3)"
-        )
     tokens = torch.as_tensor(tokens)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device, dtype=torch.int32)
-    x = embed_tokens(params, tokens, positions, c)
+    x = embed_tokens(params, tokens, positions, c, token_type_ids=token_type_ids)
     # one unbind per stacked weight: its backward stacks the L layer grads
     # once, where indexing w[li] would give every layer's grad a full [L, ...]
     # zero buffer to add into
     stacked = {k: w.unbind(0) for k, w in params["layers"].items()}
+    aux_total = 0.0
     for li in range(c.n_layers):
         lp = {k: w[li] for k, w in stacked.items()}
         flag = None if c.attn_layer_pattern is None else int(c.attn_layer_pattern[li])
         layer = functools.partial(_layer, c, lp, positions=positions, segment_ids=segment_ids,
                                   local_flag=flag, reference=reference)
-        if remat:
-            x, _ = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False)
-        else:
-            x, _ = layer(x)
+        x, aux = _remat_layer(c.remat_policy, layer, x) if remat else layer(x)
+        aux_total = aux_total + aux
     if c.final_norm:
         x = _norm(x, params["final_norm"], params.get("final_norm_b"), c.norm, c.norm_eps,
                   rms=rms_norm_reference if reference else rms_norm)
-    return x, 0.0
+    return x, aux_total
+
+
+def _mlm_transform(params, x, c: TransformerConfig):
+    """BertForMaskedLM's cls.predictions transform: dense + the config's
+    activation + LayerNorm (the tied decoder and its vocabulary bias
+    follow)."""
+    t = x @ params["mlm_dense"].to(x.dtype) + params["mlm_dense_b"].to(x.dtype)
+    F = torch.nn.functional
+    t = F.relu(t) if c.activation == "relu" else F.gelu(
+        t, approximate="none" if c.activation == "gelu_exact" else "tanh")
+    return _norm(t, params["mlm_norm"], params["mlm_norm_b"], "layernorm", c.norm_eps)
+
+
+def _head(params, x, c: TransformerConfig):
+    """Hidden -> logits: the LM head, or with ``mlm_head`` the MLM
+    transform, the tied decoder and the vocabulary bias."""
+    if c.mlm_head:
+        return (_apply_lm_head(params, _mlm_transform(params, x, c), c)
+                + params["mlm_bias"].to(x.dtype))
+    return _apply_lm_head(params, x, c)
 
 
 def forward(params: Dict[str, Any], tokens, config: TransformerConfig, positions=None,
-            segment_ids=None) -> Tuple[torch.Tensor, float]:
+            segment_ids=None, token_type_ids=None) -> Tuple[torch.Tensor, Any]:
     """Full forward: tokens [b, s] -> (logits [b, s, vocab], aux_loss),
     through ``attention`` and ``rms_norm`` (the kernels on a card)."""
-    x, aux = forward_hidden(params, tokens, config, positions, segment_ids)
-    return _apply_lm_head(params, x, config), aux
+    x, aux = forward_hidden(params, tokens, config, positions, segment_ids, token_type_ids)
+    return _head(params, x, config), aux
 
 
 def forward_reference(params: Dict[str, Any], tokens, config: TransformerConfig,
-                      positions=None, segment_ids=None) -> Tuple[torch.Tensor, float]:
+                      positions=None, segment_ids=None,
+                      token_type_ids=None) -> Tuple[torch.Tensor, Any]:
     """The plain oracle: ``forward``'s function with ``mha_reference`` and
     ``rms_norm_reference`` on any device, never a kernel, and no remat.
     Differentiable, so its autograd gradients are the reference of the
     kernel path's."""
-    x, aux = forward_hidden(params, tokens, config, positions, segment_ids, reference=True)
-    return _apply_lm_head(params, x, config), aux
+    x, aux = forward_hidden(params, tokens, config, positions, segment_ids, token_type_ids,
+                            reference=True)
+    return _head(params, x, config), aux
 
 
 # ---------------------------------------------------------------------------
@@ -1052,10 +1239,14 @@ def nll_loss(logits, labels, mask=None):
 
 
 def lm_head_loss(params, x, labels, mask, config: TransformerConfig, aux=None):
-    """Final norm -> logits -> masked NLL: the model's head."""
+    """Final norm -> logits -> masked NLL (+ the MoE aux loss times its
+    coefficient): the model's head."""
     c = config
     x = _norm(x, params["final_norm"], params.get("final_norm_b"), c.norm, c.norm_eps)
-    return nll_loss(_apply_lm_head(params, x, c), labels, mask)
+    loss = nll_loss(_apply_lm_head(params, x, c), labels, mask)
+    if c.n_experts > 0 and aux is not None:
+        loss = loss + c.moe_aux_loss_coef * aux
+    return loss
 
 
 def _fused_ce_head_loss(params, x, labels, mask, config: TransformerConfig):
@@ -1089,8 +1280,10 @@ def make_loss_fn(config: TransformerConfig):
     package: ``fused_ce`` (the fused head + CE kernels on a card, their
     plain versions on the CPU: the JAX branch also asks for a TPU, the port
     takes it on any device), ``loss_tiles > 1`` (the tiled logits loss),
-    else the dense head over full logits. A biased head falls through to
-    the dense path.
+    else the dense head over full logits. A biased head, and the MLM head
+    (its transform is in no fused kernel), fall through to the dense path.
+    With ``n_experts`` the layers' aux loss times ``moe_aux_loss_coef`` is
+    added, as in the JAX package.
 
     On a topology that spans processes (``Topology.distributed``) the batch
     is this data rank's rows, split into inputs and labels first and then
@@ -1114,11 +1307,15 @@ def make_loss_fn(config: TransformerConfig):
         return head_loss(params, inputs, labels, mask, positions, segment_ids) * share
 
     def head_loss(params, inputs, labels, mask, positions, segment_ids):
+        loss, aux = head_nll(params, inputs, labels, mask, positions, segment_ids)
+        return loss + config.moe_aux_loss_coef * aux if config.n_experts > 0 else loss
+
+    def head_nll(params, inputs, labels, mask, positions, segment_ids):
         if fused or tiled:
-            x, _ = forward_hidden(params, inputs, config, positions=positions,
-                                  segment_ids=segment_ids)
+            x, aux = forward_hidden(params, inputs, config, positions=positions,
+                                    segment_ids=segment_ids)
             if fused:
-                return _fused_ce_head_loss(params, x, labels, mask, config)
+                return _fused_ce_head_loss(params, x, labels, mask, config), aux
             from deepspeed_tpu_torch.parallel.sequence.tiled import tiled_logits_loss
 
             w = _lm_head_matrix(params, config, x.dtype)
@@ -1126,10 +1323,10 @@ def make_loss_fn(config: TransformerConfig):
                 dt = torch.promote_types(x.dtype, w.dtype)
                 x, w = x.to(dt), w.to(dt)
             return tiled_logits_loss(_masked_nll, x, w, labels, num_tiles=config.loss_tiles,
-                                     mask=mask)
-        logits, _ = forward(params, inputs, config, positions=positions,
-                            segment_ids=segment_ids)
-        return nll_loss(logits, labels, mask)
+                                     mask=mask), aux
+        logits, aux = forward(params, inputs, config, positions=positions,
+                              segment_ids=segment_ids)
+        return nll_loss(logits, labels, mask), aux
 
     loss_fn.model_config = config
     return loss_fn

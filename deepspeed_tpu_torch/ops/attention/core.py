@@ -27,10 +27,14 @@ sliding-window band convention, the plain reference attention and the
   * "flash_head_sharded": flash over the batch rows this process holds
     (model and sequence are 1 in the port).
 
-ALiBi and a dense ``bias`` on the flash paths raise
-``NotImplementedError`` naming their ROADMAP items, and so does splash on
-more than one process (head sharding). On a card nothing here runs the
-plain version unless asked for by "reference".
+ALiBi (``alibi_slopes`` [h], ``alibi_positions`` [s] or [b, s]) goes to
+the flash kernels' ALiBi form on a card and to ``mha_reference``'s dense
+``slope * key_position`` term on a CPU tensor; splash and schedules refuse
+it, and so do the ring and the head-sharded form (ROADMAP queue 2, item
+1). A dense ``bias`` on the flash paths raises ``NotImplementedError``
+naming its ROADMAP item, and so does splash on more than one process (head
+sharding). On a card nothing here runs the plain version unless asked for
+by "reference".
 
 Layout as in the JAX package: q [batch, heads, seq, head_dim], k/v
 [batch, kv_heads, seq, head_dim]; grouped-query attention repeats kv heads.
@@ -56,6 +60,18 @@ def window_too_far(q_pos, k_pos, window: int, window_flag=None):
     return far
 
 
+def alibi_bias(alibi_slopes, alibi_positions, sk: int, device):
+    """ALiBi's ``slope_h * key_position`` as an fp32 [1|b, h, 1, sk] bias:
+    BLOOM's absolute key positions, ``alibi_positions`` [sk] or [b, sk]
+    (default arange(sk))."""
+    kp = (torch.arange(sk, device=device) if alibi_positions is None
+          else torch.as_tensor(alibi_positions, device=device)).float()
+    if kp.ndim == 1:
+        kp = kp[None]
+    slopes = torch.as_tensor(alibi_slopes, device=device).float()
+    return slopes[None, :, None, None] * kp[:, None, None, :]
+
+
 def _repeat_kv(k, n_rep: int):
     """[b, h_kv, s, d] -> [b, h_kv * n_rep, s, d] for grouped-query attention."""
     if n_rep == 1:
@@ -74,12 +90,16 @@ def mha_reference(
     scale: Optional[float] = None,
     window: int = 0,
     window_flag=None,
+    alibi_slopes=None,
+    alibi_positions=None,
 ):
     """Plain attention with an fp32 softmax. q: [b, h, sq, d]; k, v:
     [b, h_kv, sk, d]. Returns [b, h, sq, d] in v's dtype. ``causal`` offsets
     the mask so the last query sees all sk keys; ``window`` adds the band
     (requires causal); ``segment_ids`` [b, s] (sq == sk) keeps attention
-    inside each packed sequence."""
+    inside each packed sequence. ``alibi_slopes`` [h] adds ``slope_h *
+    key_position`` to the logits (BLOOM's absolute-position ALiBi; the
+    positions ``alibi_positions`` [sk] or [b, sk], default arange(sk))."""
     if window and not causal:
         raise ValueError("mha_reference: window > 0 requires causal=True")
     b, h, sq, d = q.shape
@@ -90,6 +110,8 @@ def mha_reference(
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         logits = logits + bias.float()
+    if alibi_slopes is not None:
+        logits = logits + alibi_bias(alibi_slopes, alibi_positions, k.shape[2], q.device)
     sk = k.shape[2]
     if causal:
         dev = q.device
@@ -220,8 +242,7 @@ def attention(
     See the module docstring for ``impl``."""
     if alibi_slopes is not None and (impl == "splash" or schedule is not None):
         raise ValueError("attention: ALiBi is not supported on the splash scheduled path")
-    if alibi_slopes is not None or alibi_positions is not None:
-        raise _unported("ALiBi", "ROADMAP queue 2, item 1: ALiBi on the flash kernel")
+    alibi = dict(alibi_slopes=alibi_slopes, alibi_positions=alibi_positions)
     if impl == "splash" or (impl in (None, "auto") and schedule is not None):
         out = _splash_dispatch(q, k, v, causal, segment_ids, bias, scale, window, window_flag,
                                schedule, strict=impl == "splash")
@@ -237,7 +258,7 @@ def attention(
                 "(bias/window-flag constraints) — sparsity will be masked, not pruned")
     if impl == "reference":
         return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids, bias=bias,
-                             scale=scale, window=window, window_flag=window_flag)
+                             scale=scale, window=window, window_flag=window_flag, **alibi)
     if impl in ("flash_ring", "flash_head_sharded") or (
             impl in (None, "auto") and _ring_eligible(q, k, bias, causal, window)):
         from deepspeed_tpu_torch.ops.attention import sharded
@@ -248,18 +269,19 @@ def attention(
         if impl == "flash_head_sharded":
             return sharded.head_sharded_flash(q, k, v, causal=causal, segment_ids=segment_ids,
                                               scale=scale, window=window,
-                                              window_flag=window_flag)
+                                              window_flag=window_flag, **alibi)
         return sharded.ring_flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
-                                            scale=scale, window=window)
+                                            scale=scale, window=window,
+                                            alibi_slopes=alibi_slopes)
     if impl not in (None, "auto", "flash"):
         raise ValueError(f"attention: impl={impl!r}")
     if impl != "flash" and q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids, bias=bias,
-                             scale=scale, window=window, window_flag=window_flag)
+                             scale=scale, window=window, window_flag=window_flag, **alibi)
     if bias is not None:
         raise _unported("a dense bias on the flash path",
                         "ROADMAP queue 2, item 1: biases on the flash kernel")
     from deepspeed_tpu_torch.ops.attention.flash import flash_attention
 
     return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids, scale=scale,
-                           window=window, window_flag=window_flag)
+                           window=window, window_flag=window_flag, **alibi)

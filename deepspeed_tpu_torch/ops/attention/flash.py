@@ -13,14 +13,22 @@ kernels, in ``ops/kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu``:
     (both on ``flash_hopper_bwd.cuh``'s CTA bodies, wgmma fed by TMA, tiles
     per head dim in ``BWD_TILES``).
 
+Each has an ALiBi form (``flash_fwd_alibi``, ``flash_bwd_dq_alibi``,
+``flash_bwd_dkv_alibi``, the same sources): the Pallas bodies'
+``_alibi_term``, ``slope_h * float(key_position)`` added to every scaled
+score before the masks, with the slopes [h] fp32 and the key positions
+[b, s] int32 (``alibi_operand``). They are separate instantiations of the
+CTA bodies (``csrc/flash_hopper.cuh``'s ``AlibiWalk``); the slopes and
+positions get no gradient.
+
 Three more, in ``flash_chunk.cu``, are the same bodies in carry mode for the
 context-parallel ring (``ops/attention/sharded.py``): ``flash_fwd_chunk``,
 ``flash_dq_chunk`` and ``flash_dkv_chunk`` replace the JAX package's chunk
 entries of the same names (see the section below).
 
 ``flash_attention`` is a ``torch.autograd.Function`` over them. It saves q,
-k, v, out and the LSE, and returns no gradient for segment ids or the
-window flag. Beside the kernels are their plain versions,
+k, v, out and the LSE, and returns no gradient for segment ids, the window
+flag or the ALiBi operand. Beside the kernels are their plain versions,
 ``flash_fwd_reference`` and ``flash_bwd_reference`` (written from the
 recompute formulas, not through autograd, so each backward kernel has its
 own counterpart). A CPU tensor takes the plain versions; a CUDA tensor
@@ -34,17 +42,21 @@ requires causal; ``window_flag`` 0 switches it off for a global layer, as
 ``attn_layer_pattern`` does) and packed segments (equal ids only).
 """
 
+import contextlib
 import ctypes
 from typing import Optional
 
 import torch
 
-from deepspeed_tpu_torch.ops.attention.core import _repeat_kv, window_too_far
+from deepspeed_tpu_torch.ops.attention.core import _repeat_kv, alibi_bias, window_too_far
 from deepspeed_tpu_torch.ops.kernels import KERNELS, stream_ptr
 
 FWD_KERNEL = KERNELS["flash_fwd"]
 DQ_KERNEL = KERNELS["flash_bwd_dq"]
 DKV_KERNEL = KERNELS["flash_bwd_dkv"]
+FWD_ALIBI_KERNEL = KERNELS["flash_fwd_alibi"]
+DQ_ALIBI_KERNEL = KERNELS["flash_bwd_dq_alibi"]
+DKV_ALIBI_KERNEL = KERNELS["flash_bwd_dkv_alibi"]
 KERNEL_HEAD_DIMS = (64, 128, 256)
 # The forward kernels' tiles per head dim (``csrc/flash_hopper.cuh``
 # ``FwdTiles``): query rows a CTA, key rows a tile, stages of the K/V ring.
@@ -90,18 +102,41 @@ def _check_window(causal, window):
         raise ValueError("flash_attention: window > 0 requires causal=True")
 
 
+def alibi_operand(alibi_slopes, alibi_positions, b, h, s, device):
+    """The kernels' ALiBi operand (the JAX package's
+    ``build_alibi_operand``): slopes [h] fp32 and key positions [b, s]
+    int32 on ``device``, the positions arange(s) by default and broadcast
+    over the batch when given as [s]."""
+    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=device)
+    if tuple(slopes.shape) != (h,):
+        raise ValueError(f"flash_attention: alibi_slopes {tuple(slopes.shape)}, expected {(h,)}")
+    if alibi_positions is None:
+        pos = torch.arange(s, dtype=torch.int32, device=device)
+    else:
+        pos = torch.as_tensor(alibi_positions, device=device).to(torch.int32)
+    if pos.dim() == 1:
+        pos = pos[None].expand(b, s)
+    if tuple(pos.shape) != (b, s):
+        raise ValueError(f"flash_attention: alibi_positions {tuple(pos.shape)}, expected "
+                         f"{(s,)} or {(b, s)}")
+    return slopes.contiguous(), pos.contiguous()
+
+
 def flash_fwd_reference(q, k, v, causal=True, segment_ids=None, scale=None, window=0,
-                        window_flag=None):
-    """Plain forward with the kernel's arithmetic: fp32 logits * scale,
-    masked keys out, p = exp(logits - max) rounded to v's dtype before p @ v,
-    divided by the fp32 sum. Returns (out [b, h, s, d] in q's dtype,
-    lse [b, h, s] fp32)."""
+                        window_flag=None, alibi=None):
+    """Plain forward with the kernel's arithmetic: fp32 logits * scale
+    (+ the ALiBi term of ``alibi``, an ``alibi_operand`` pair), masked keys
+    out, p = exp(logits - max) rounded to v's dtype before p @ v, divided
+    by the fp32 sum. Returns (out [b, h, s, d] in q's dtype, lse [b, h, s]
+    fp32)."""
     _check_window(causal, window)
     b, h, s, d = q.shape
     group = h // k.shape[1]
     kr = _repeat_kv(k, group).float()
     vr = _repeat_kv(v, group).float()
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * _scale(q, scale)
+    if alibi is not None:
+        logits = logits + alibi_bias(*alibi, s, q.device)
     mask = visible_mask(s, causal, window, window_flag, segment_ids, q.device)
     logits = logits.masked_fill(~mask, float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
@@ -113,9 +148,9 @@ def flash_fwd_reference(q, k, v, causal=True, segment_ids=None, scale=None, wind
 
 
 def flash_bwd_reference(q, k, v, out, do, lse, causal=True, segment_ids=None, scale=None,
-                        window=0, window_flag=None):
+                        window=0, window_flag=None, alibi=None):
     """Plain backward from the recompute formulas, with the kernels'
-    arithmetic: p = exp(q k^T * scale - lse), delta = sum(do * o),
+    arithmetic: p = exp(q k^T * scale (+ the ALiBi term) - lse), delta = sum(do * o),
     ds = p * (do v^T - delta) rounded to q's dtype before its products, p
     rounded before p^T do; dk and dv summed over the GQA group in fp32 and
     rounded once. Returns (dq, dk, dv)."""
@@ -128,6 +163,8 @@ def flash_bwd_reference(q, k, v, out, do, lse, causal=True, segment_ids=None, sc
     kr = _repeat_kv(k, group).float()
     vr = _repeat_kv(v, group).float()
     logits = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * sc
+    if alibi is not None:
+        logits = logits + alibi_bias(*alibi, s, q.device)
     mask = visible_mask(s, causal, window, window_flag, segment_ids, q.device)
     p = torch.where(mask, torch.exp(logits - lse.float()[..., None]), torch.zeros_like(logits))
     del logits
@@ -187,6 +224,14 @@ def _kernel_args(where, q, k, v, segment_ids, causal, window, *more):
     return [_aligned(t) for t in tensors], seg, (b, h, h_kv, s, d)
 
 
+def _form(kernel, alibi_kernel, alibi):
+    """The kernel to launch and its extra pointers: none, or the ALiBi
+    form's slopes and key positions (they follow the segment plane)."""
+    if not alibi:
+        return kernel, ()
+    return alibi_kernel, tuple(t.data_ptr() for t in alibi)
+
+
 def _tail(shape, scale, causal, window, window_flag, stream):
     b, h, h_kv, s, d = shape
     flag = _flag(window_flag)
@@ -195,101 +240,160 @@ def _tail(shape, scale, causal, window, window_flag, stream):
 
 
 def flash_fwd_cuda(q, k, v, causal=True, segment_ids=None, scale=None, window=0,
-                   window_flag=None):
-    """Launch the forward kernel. Returns (out bf16 [b, h, s, d], lse fp32
-    [b, h, s])."""
-    (q, k, v), seg, shape = _kernel_args("flash_fwd_cuda", q, k, v, segment_ids, causal, window)
+                   window_flag=None, alibi=None):
+    """Launch the forward kernel (its ALiBi form with an ``alibi_operand``
+    pair). Returns (out bf16 [b, h, s, d], lse fp32 [b, h, s])."""
+    (q, k, v, *alibi), seg, shape = _kernel_args("flash_fwd_cuda", q, k, v, segment_ids, causal,
+                                                 window, *(alibi or ()))
     b, h, h_kv, s, d = shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     if q.numel() == 0:
         return out, lse
-    rc = FWD_KERNEL.fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if seg is None else seg.data_ptr(),
-        out.data_ptr(), lse.data_ptr(),
-        *_tail(shape, _scale(q, scale), causal, window, window_flag, stream_ptr(q)),
-    )
-    FWD_KERNEL.check(rc)
-    FWD_KERNEL.launches += 1
+    seg_ptr = None if seg is None else seg.data_ptr()
+    tail = _tail(shape, _scale(q, scale), causal, window, window_flag, stream_ptr(q))
+    kernel, extra = _form(FWD_KERNEL, FWD_ALIBI_KERNEL, alibi)
+    rc = kernel.fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, *extra, out.data_ptr(),
+                     lse.data_ptr(), *tail)
+    kernel.check(rc)
+    kernel.launches += 1
     return out, lse
 
 
 def flash_bwd_dq_cuda(q, k, v, out, do, lse, causal=True, segment_ids=None, scale=None,
-                      window=0, window_flag=None):
-    """Launch the dq kernel. Returns dq (bf16, q's shape)."""
-    (q, k, v, out, do, lse), seg, shape = _kernel_args(
+                      window=0, window_flag=None, alibi=None):
+    """Launch the dq kernel (its ALiBi form with an ``alibi_operand``
+    pair). Returns dq (bf16, q's shape)."""
+    (q, k, v, out, do, lse, *alibi), seg, shape = _kernel_args(
         "flash_bwd_dq_cuda", q, k, v, segment_ids, causal, window, out, do.to(q.dtype),
-        lse.float())
+        lse.float(), *(alibi or ()))
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
-    rc = DQ_KERNEL.fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), None if seg is None else seg.data_ptr(), dq.data_ptr(),
-        *_tail(shape, _scale(q, scale), causal, window, window_flag, stream_ptr(q)),
-    )
-    DQ_KERNEL.check(rc)
-    DQ_KERNEL.launches += 1
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), None if seg is None else seg.data_ptr())
+    tail = _tail(shape, _scale(q, scale), causal, window, window_flag, stream_ptr(q))
+    kernel, extra = _form(DQ_KERNEL, DQ_ALIBI_KERNEL, alibi)
+    rc = kernel.fn()(*head, *extra, dq.data_ptr(), *tail)
+    kernel.check(rc)
+    kernel.launches += 1
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, out, do, lse, causal=True, segment_ids=None, scale=None,
-                       window=0, window_flag=None):
-    """Launch the dk/dv kernel. Returns (dk, dv), bf16 in k's shape, each
-    summed over the kv head's GQA group."""
-    (q, k, v, out, do, lse), seg, shape = _kernel_args(
+                       window=0, window_flag=None, alibi=None):
+    """Launch the dk/dv kernel (its ALiBi form with an ``alibi_operand``
+    pair). Returns (dk, dv), bf16 in k's shape, each summed over the kv
+    head's GQA group."""
+    (q, k, v, out, do, lse, *alibi), seg, shape = _kernel_args(
         "flash_bwd_dkv_cuda", q, k, v, segment_ids, causal, window, out, do.to(q.dtype),
-        lse.float())
+        lse.float(), *(alibi or ()))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
-    rc = DKV_KERNEL.fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), None if seg is None else seg.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_tail(shape, _scale(q, scale), causal, window, window_flag, stream_ptr(q)),
-    )
-    DKV_KERNEL.check(rc)
-    DKV_KERNEL.launches += 1
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), None if seg is None else seg.data_ptr())
+    tail = _tail(shape, _scale(q, scale), causal, window, window_flag, stream_ptr(q))
+    kernel, extra = _form(DKV_KERNEL, DKV_ALIBI_KERNEL, alibi)
+    rc = kernel.fn()(*head, *extra, dk.data_ptr(), dv.data_ptr(), *tail)
+    kernel.check(rc)
+    kernel.launches += 1
     return dk, dv
+
+
+class FlashStash:
+    """The flash forward's (out, lse) of one checkpointed region, kept from
+    its first pass for its recompute (the "flash" remat policies of
+    ``models/transformer.py``): while ``replay`` is off each
+    ``FlashAttention`` call inside ``flash_stash(stash)`` records its
+    outputs; once it is on, the calls take them back in order and launch
+    nothing. ``rewind`` restarts the order (a region may be recomputed more
+    than once)."""
+
+    def __init__(self):
+        self.saved = []
+        self.replay = False
+        self._next = 0
+
+    def rewind(self):
+        self._next = 0
+
+    def take(self):
+        out, lse = self.saved[self._next]
+        self._next += 1
+        return out.detach(), lse.detach()
+
+
+_STASH = None
+
+
+@contextlib.contextmanager
+def flash_stash(stash: FlashStash):
+    """Route the ``FlashAttention`` calls made inside to ``stash``."""
+    global _STASH
+    prev, _STASH = _STASH, stash
+    try:
+        yield stash
+    finally:
+        _STASH = prev
 
 
 class FlashAttention(torch.autograd.Function):
     """The kernels (CUDA tensors) or their plain versions (CPU tensors)
-    under one autograd node; saves q, k, v, out and the fp32 LSE."""
+    under one autograd node; saves q, k, v, out and the fp32 LSE. Inside
+    ``flash_stash`` the forward records its outputs, or in replay takes
+    them back without computing."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, segment_ids, scale, window, window_flag):
+    def forward(ctx, q, k, v, causal, segment_ids, scale, window, window_flag, slopes=None,
+                positions=None):
+        alibi = None if slopes is None else (slopes, positions)
         kw = dict(causal=causal, segment_ids=segment_ids, scale=scale, window=window,
-                  window_flag=window_flag)
-        if q.device.type == "cpu":
-            out, lse = flash_fwd_reference(q, k, v, **kw)
+                  window_flag=window_flag, alibi=alibi)
+        stash = _STASH
+        if stash is not None and stash.replay:
+            out, lse = stash.take()
         else:
-            out, lse = flash_fwd_cuda(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
-        ctx.kw = dict(kw, segment_ids=None)
+            if q.device.type == "cpu":
+                out, lse = flash_fwd_reference(q, k, v, **kw)
+            else:
+                out, lse = flash_fwd_cuda(q, k, v, **kw)
+            if stash is not None:
+                stash.saved.append((out.detach(), lse))
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids, slopes, positions)
+        ctx.kw = dict(kw, segment_ids=None, alibi=None)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse, segment_ids = ctx.saved_tensors
-        kw = dict(ctx.kw, segment_ids=segment_ids)
+        q, k, v, out, lse, segment_ids, slopes, positions = ctx.saved_tensors
+        alibi = None if slopes is None else (slopes, positions)
+        kw = dict(ctx.kw, segment_ids=segment_ids, alibi=alibi)
         if q.device.type == "cpu":
             dq, dk, dv = flash_bwd_reference(q, k, v, out, do, lse, **kw)
         else:
             dq = flash_bwd_dq_cuda(q, k, v, out, do, lse, **kw)
             dk, dv = flash_bwd_dkv_cuda(q, k, v, out, do, lse, **kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, segment_ids=None, scale=None,
-                    window: int = 0, window_flag=None):
+                    window: int = 0, window_flag=None, alibi_slopes=None, alibi_positions=None):
     """Flash attention. q: [b, h, s, d]; k, v: [b, h_kv, s, d] -> [b, h, s, d].
     ``segment_ids`` [b, s] masks packed sequences; ``window`` is the static
     sliding window (requires causal) and ``window_flag`` (an int, 0 or 1)
-    switches it per layer."""
+    switches it per layer. ``alibi_slopes`` [h] adds ``slope_h *
+    key_position`` to the scaled scores (BLOOM's ALiBi), the positions
+    ``alibi_positions`` ([s] or [b, s], default arange(s))."""
+    slopes = positions = None
+    if alibi_slopes is not None:
+        b, h, s, _ = q.shape
+        slopes, positions = alibi_operand(alibi_slopes, alibi_positions, b, h, s, q.device)
+    elif alibi_positions is not None:
+        raise ValueError("flash_attention: alibi_positions without alibi_slopes")
     return FlashAttention.apply(q, k, v, causal, segment_ids, scale, int(window or 0),
-                                _flag(window_flag))
+                                _flag(window_flag), slopes, positions)
 
 
 # ---------------------------------------------------------------------------

@@ -87,7 +87,8 @@ def _divisible(topo, b, h, h_kv, s=None):
 def _no_alibi(where, alibi_slopes):
     if alibi_slopes is not None:
         raise NotImplementedError(
-            f"{where}: ALiBi on the flash kernels is not ported yet (ROADMAP queue 2, item 1)")
+            f"{where}: ALiBi through the chunk kernels and the head-sharded form is not "
+            "ported yet (ROADMAP queue 2, item 1)")
 
 
 def head_sharded_flash(q, k, v, causal=True, segment_ids=None, scale=None, alibi_slopes=None,

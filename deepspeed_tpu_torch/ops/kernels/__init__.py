@@ -156,6 +156,27 @@ KERNELS: Dict[str, Kernel] = {
             "deepspeed_tpu/ops/attention/flash_pallas.py:220",
         ),
         Kernel(
+            "flash_fwd_alibi", "flash_fwd.cu", "dstt_flash_fwd_alibi",
+            # q, k, v, seg, slopes, kpos, out, lse, b, h, h_kv, s, d, scale,
+            # causal, window, window_flag, stream
+            [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:69",
+        ),
+        Kernel(
+            "flash_bwd_dq_alibi", "flash_bwd.cu", "dstt_flash_bwd_dq_alibi",
+            # q, k, v, o, do, lse, seg, slopes, kpos, dq, b, h, h_kv, s, d,
+            # scale, causal, window, window_flag, stream
+            [_P] * 10 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:152",
+        ),
+        Kernel(
+            "flash_bwd_dkv_alibi", "flash_bwd.cu", "dstt_flash_bwd_dkv_alibi",
+            # q, k, v, o, do, lse, seg, slopes, kpos, dk, dv, b, h, h_kv, s, d,
+            # scale, causal, window, window_flag, stream
+            [_P] * 11 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+            "deepspeed_tpu/ops/attention/flash_pallas.py:220",
+        ),
+        Kernel(
             "flash_fwd_chunk", "flash_chunk.cu", "dstt_flash_fwd_chunk",
             # q, k, v, seg_q, seg_k, m, l, acc, out, lse, b, h, h_kv, s, d,
             # scale, causal, flags, stream

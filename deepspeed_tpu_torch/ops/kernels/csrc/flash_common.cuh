@@ -49,6 +49,21 @@ __host__ __device__ inline int effective_window(int window, int window_flag) {
   return (window > 0 && window_flag != 0) ? window : 0;
 }
 
+// The Problem of a C entry's arguments (host side).
+inline Problem make_problem(int b, int h, int h_kv, int s, float scale, int causal, int window,
+                            int window_flag, const void* seg) {
+  Problem p;
+  p.b = b;
+  p.h = h;
+  p.h_kv = h_kv;
+  p.s = s;
+  p.scale = scale;
+  p.causal = causal;
+  p.window = effective_window(window, window_flag);
+  p.seg = static_cast<const int*>(seg);
+  return p;
+}
+
 // Is key kpos visible to query qpos? (segment equality is checked by the
 // caller from its shared copies)
 __device__ __forceinline__ bool visible(const Problem& p, int qpos, int kpos) {

@@ -21,11 +21,16 @@
 // under the next tile's softmax. Tiles per d in FwdTiles. Query tiles are
 // handed out heaviest first under a causal mask (flash_common.cuh's
 // heavy_first_query_tile); a persistent grid was not tried.
+//
+// ALiBi (the Pallas body with its alibi operand, _alibi_term): the entry
+// dstt_flash_fwd_alibi, the same body on flash_hopper.cuh's AlibiWalk, a
+// kernel of its own, so the entry above keeps its code.
 #include "flash_hopper.cuh"
 
 namespace {
 
 namespace fh = dstt::flash_hopper;
+using dstt::flash::make_problem;
 using dstt::flash::Problem;
 using bf16 = __nv_bfloat16;
 
@@ -53,6 +58,30 @@ __global__ void __launch_bounds__(fh::THREADS, 1)
 }
 
 template <int D>
+__global__ void __launch_bounds__(fh::THREADS, 1)
+    flash_fwd_alibi_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
+                           float* __restrict__ lse, Problem p, fh::AlibiWalk walk) {
+  extern __shared__ unsigned char smem_raw[];
+  const fh::Tile tile = fh::make_tile<fh::FwdTiles<D>::BQ>(p, p.seg, p.seg);
+  bf16* ob = out + (int64_t)tile.bh * p.s * D;
+  float* lseb = lse + (int64_t)tile.bh * p.s;
+  fh::fwd_cta<D>(
+      smem_raw, &qmap, &kmap, &vmap, p, tile,
+      [&](auto& o, auto& m, auto& l, int, int, int) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        m[0] = m[1] = -INFINITY;
+        l[0] = l[1] = 0.f;
+      },
+      [&](const auto& o, const auto& m, const auto& l, int row0, int row1, int tq) {
+        fh::store_out<D>(ob, lseb, o, m, l, row0, row1, p.s, tq);
+      },
+      walk);
+}
+
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            const Problem& p, cudaStream_t stream) {
   CUtensorMap maps[3];
@@ -64,6 +93,21 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.s + BQ - 1) / BQ));
   flash_fwd_kernel<D><<<grid, fh::THREADS, bytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(out), lse, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_alibi(const void* q, const void* k, const void* v, void* out, float* lse,
+                 const Problem& p, const fh::AlibiWalk& walk, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  if (int e = fh::encode_maps<D>(maps, q, k, v, p)) return e;
+  constexpr int bytes = fh::Smem<D, false, true>::BYTES;
+  static size_t have = 0;
+  if (int e = dstt::flash::set_max_smem(flash_fwd_alibi_kernel<D>, bytes, have)) return e;
+  constexpr int BQ = fh::FwdTiles<D>::BQ;
+  const dim3 grid((unsigned)(p.b * p.h), (unsigned)((p.s + BQ - 1) / BQ));
+  flash_fwd_alibi_kernel<D><<<grid, fh::THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), lse, p, walk);
   return (int)cudaGetLastError();
 }
 
@@ -80,21 +124,33 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, const
                               float scale, int causal, int window, int window_flag,
                               void* stream) {
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
-  Problem p;
-  p.b = b;
-  p.h = h;
-  p.h_kv = h_kv;
-  p.s = s;
-  p.scale = scale;
-  p.causal = causal;
-  p.window = dstt::flash::effective_window(window, window_flag);
-  p.seg = static_cast<const int*>(seg);
+  const Problem p = make_problem(b, h, h_kv, s, scale, causal, window, window_flag, seg);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (d) {
     case 64: return launch<64>(q, k, v, out, l, p, st);
     case 128: return launch<128>(q, k, v, out, l, p, st);
     case 256: return launch<256>(q, k, v, out, l, p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dstt_flash_fwd with ALiBi: slope_h * float(kpos[b, key]) added to every
+// scaled score before the masks. slopes: [h] fp32; kpos: [b, s] int32;
+// both contiguous.
+extern "C" int dstt_flash_fwd_alibi(const void* q, const void* k, const void* v, const void* seg,
+                                    const void* slopes, const void* kpos, void* out, void* lse,
+                                    int b, int h, int h_kv, int s, int d, float scale,
+                                    int causal, int window, int window_flag, void* stream) {
+  if (!(scale > 0.f) || !slopes || !kpos) return (int)cudaErrorInvalidValue;
+  const Problem p = make_problem(b, h, h_kv, s, scale, causal, window, window_flag, seg);
+  const fh::AlibiWalk walk{static_cast<const float*>(slopes), static_cast<const int*>(kpos)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (d) {
+    case 64: return launch_alibi<64>(q, k, v, out, l, p, walk, st);
+    case 128: return launch_alibi<128>(q, k, v, out, l, p, walk, st);
+    case 256: return launch_alibi<256>(q, k, v, out, l, p, walk, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -66,7 +66,19 @@
 // with a code per consumer warpgroup (SCHEDULED_COLUMNS below), read with
 // the key, and p.s is the query length (the walk knows the keys').
 // FlashWalk compiles to the same code as before the policy existed.
+//
+// ALiBi (the Pallas bodies' _alibi_term, flash_pallas.py:47) is the walk
+// AlibiWalk: FlashWalk's tiles and masks, plus the rank-1 term slope_h *
+// float(kpos[b, key]) added to every scaled score before the masks. It is
+// a separate instantiation (flash_fwd.cu's and flash_bwd.cu's *_alibi
+// entries), so FlashWalk's code is untouched. The producer hands each
+// stage's terms over with the tile (`bias`, as it does the ids); the
+// scores are then kept scaled, logits = fmaf(S, scale, term), and the
+// running max is taken over them (FlashWalk takes max(raw S) * scale,
+// right only without a per-column term): p = 2^(logits log2 e - m log2 e).
 #pragma once
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -103,6 +115,21 @@ struct FlashWalk {
   static constexpr bool SCHEDULED = false;
 };
 
+// FlashWalk with ALiBi (see the header): slopes [h] fp32, the key positions
+// kpos [b, s] int32.
+struct AlibiWalk {
+  static constexpr bool SCHEDULED = false, ALIBI = true;
+  const float* slopes;
+  const int* kpos;
+};
+
+// Whether a walk adds the ALiBi term (a walk without an ALIBI member does
+// not).
+template <class W, class = void>
+struct IsAlibi : std::false_type {};
+template <class W>
+struct IsAlibi<W, std::void_t<decltype(W::ALIBI)>> : std::bool_constant<W::ALIBI> {};
+
 // A scheduled walk's stage word (forward and dq): (k0 / BK) << 6 | code of
 // warpgroup 0 | code of warpgroup 1 << 3, where a code is one step kind
 // for every key column of the tile (0 skip, 1 partial, 2 full),
@@ -114,8 +141,9 @@ constexpr int SCHEDULED_COLUMNS = 3, SCHEDULED_WHOLE = 4;
 // K then V, [D/64][BK][128] each; then the mbarriers (full and empty of K
 // and of V per stage; Q), each stage's first key position, each stage's
 // key ids, the query tile's id range; KINDS (a scheduled walk): each
-// stage's step kind per (consumer warpgroup, key column), a byte each.
-template <int D, bool KINDS = false>
+// stage's step kind per (consumer warpgroup, key column), a byte each;
+// ALIBI: each stage's ALiBi term per key column, fp32.
+template <int D, bool KINDS = false, bool ALIBI = false>
 struct Smem {
   using T = FwdTiles<D>;
   static constexpr int Q_BYTES = T::BQ * D * 2;
@@ -123,7 +151,8 @@ struct Smem {
   static constexpr int TILES = Q_BYTES + T::STAGES * 2 * KV_BYTES;
   static constexpr int BYTES = 1024 + TILES + (4 * T::STAGES + 1) * 8 +
                                T::STAGES * 4 * (1 + T::BK) + 8 +
-                               (KINDS ? T::STAGES * 2 * T::BK : 0);
+                               (KINDS ? T::STAGES * 2 * T::BK : 0) +
+                               (ALIBI ? 16 + T::STAGES * 4 * T::BK : 0);
 
   unsigned char* q;
   unsigned char* ring;
@@ -136,6 +165,7 @@ struct Smem {
   int* ids;
   int* qrange;
   unsigned char* kinds;  // KINDS: [STAGES][2][BK]
+  float* bias;           // ALIBI: [STAGES][BK]
 
   __device__ explicit Smem(unsigned char* raw) {
     q = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
@@ -150,6 +180,10 @@ struct Smem {
     ids = k0s + T::STAGES;
     qrange = ids + T::STAGES * T::BK;
     kinds = reinterpret_cast<unsigned char*>(qrange + 2);
+    // 16-byte aligned: the consumers read the terms in pairs
+    bias = reinterpret_cast<float*>(
+        (reinterpret_cast<uintptr_t>(kinds + (KINDS ? T::STAGES * 2 * T::BK : 0)) + 15) &
+        ~uintptr_t(15));
   }
   __device__ unsigned char* k(int st) const { return ring + st * 2 * KV_BYTES; }
   __device__ unsigned char* v(int st) const { return k(st) + KV_BYTES; }
@@ -315,11 +349,36 @@ __device__ __forceinline__ void carry_store(float* mb, float* lb, float* accb,
   }
 }
 
+// The ALiBi terms slope_h * float(kpos) of key columns k0 .. k0 + BK - 1 of
+// a CTA's (batch, head) row (0 past s), BK / 32 a producer lane: read from
+// device memory before the stage is free (alibi_terms), written into it
+// after (store_terms), as the ids are, so the reads' latency stays off the
+// copies' path.
+template <int BK>
+__device__ __forceinline__ void alibi_terms(float (&terms)[BK / 32], const AlibiWalk& walk,
+                                            const Problem& p, const Tile& tile, int k0,
+                                            int lane) {
+  const float slope = walk.slopes[tile.bh % p.h];
+  const int* kpos = walk.kpos + (int64_t)(tile.bh / p.h) * p.s;
+#pragma unroll
+  for (int j = 0; j < BK / 32; ++j) {
+    const int c = k0 + lane * (BK / 32) + j;
+    terms[j] = c < p.s ? slope * (float)kpos[c] : 0.f;
+  }
+}
+
+template <int BK>
+__device__ __forceinline__ void store_terms(float* dst, const float (&terms)[BK / 32], int lane) {
+#pragma unroll
+  for (int j = 0; j < BK / 32; ++j) dst[lane * (BK / 32) + j] = terms[j];
+}
+
 // ---------------------------------------------------------------------------
 // The producer warp: Q once, then the live key tiles into the ring (the
 // walk's), then the end marker.
 template <int D, class W>
-__device__ __forceinline__ void produce(const Smem<D, W::SCHEDULED>& sm, const CUtensorMap* qmap,
+__device__ __forceinline__ void produce(const Smem<D, W::SCHEDULED, IsAlibi<W>::value>& sm,
+                                        const CUtensorMap* qmap,
                                         const CUtensorMap* kmap, const CUtensorMap* vmap,
                                         const Problem& p, const Tile& tile, int lane,
                                         const W& walk) {
@@ -353,6 +412,8 @@ __device__ __forceinline__ void produce(const Smem<D, W::SCHEDULED>& sm, const C
         }
         if (!__any_sync(0xffffffffu, mine)) continue;
       }
+      float terms[IDS];
+      if constexpr (IsAlibi<W>::value) alibi_terms<BK>(terms, walk, p, tile, k0, lane);
       const int st = it % S;
       const uint32_t free = ((it / S) & 1) ^ 1;
       hp::mbar_wait(&sm.empty_k[st], free);
@@ -360,6 +421,7 @@ __device__ __forceinline__ void produce(const Smem<D, W::SCHEDULED>& sm, const C
 #pragma unroll
         for (int j = 0; j < IDS; ++j) sm.ids[st * BK + lane * IDS + j] = ids[j];
       }
+      if constexpr (IsAlibi<W>::value) store_terms<BK>(sm.bias + st * BK, terms, lane);
       if (lane == 0) {
         sm.k0s[st] = k0;
         hp::mbar_arrive_expect_tx(&sm.full_k[st], Smem<D>::KV_BYTES);
@@ -389,7 +451,8 @@ __device__ __forceinline__ void produce(const Smem<D, W::SCHEDULED>& sm, const C
 // every tile the producer hands over. init(o, m, l, row0, row1, tq) seeds
 // the state, store(o, m, l, row0, row1, tq) finishes it.
 template <int D, class W, typename Init, typename Store>
-__device__ __forceinline__ void consume(const Smem<D, W::SCHEDULED>& sm, const Problem& p,
+__device__ __forceinline__ void consume(const Smem<D, W::SCHEDULED, IsAlibi<W>::value>& sm,
+                                        const Problem& p,
                                         const Tile& tile, int wg, int t, Init init, Store store,
                                         const W& walk) {
   using T = FwdTiles<D>;
@@ -403,7 +466,10 @@ __device__ __forceinline__ void consume(const Smem<D, W::SCHEDULED>& sm, const P
     sr[0] = row0 < p.s ? tile.segq[row0] : 0;
     sr[1] = row1 < p.s ? tile.segq[row1] : 0;
   }
-  const float sl2 = p.scale * LOG2E;
+  constexpr bool ALIBI = IsAlibi<W>::value;
+  // ALiBi keeps the scores scaled (the term is added to them): the softmax
+  // then takes them times log2 e alone
+  const float sl2 = ALIBI ? LOG2E : p.scale * LOG2E;
 
   float o[D / 2], m[2], l[2];
   init(o, m, l, row0, row1, tq);
@@ -452,6 +518,15 @@ __device__ __forceinline__ void consume(const Smem<D, W::SCHEDULED>& sm, const P
       whole = !tile.segk && (!p.causal || k0 + BK - 1 <= r_lo) &&
               (!p.window || r_hi - k0 < p.window) && k0 + BK <= p.s && r_hi < p.s;
     }
+    if constexpr (ALIBI) {  // logits = S scale + the term, before the masks (whole too)
+      const float* bs = sm.bias + st * BK;
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 2) {
+        const float2 b = *reinterpret_cast<const float2*>(bs + 8 * (i >> 2) + 2 * tq);
+        sacc[i] = fmaf(sacc[i], p.scale, b.x);
+        sacc[i + 1] = fmaf(sacc[i + 1], p.scale, b.y);
+      }
+    }
     if (!whole) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
@@ -474,7 +549,7 @@ __device__ __forceinline__ void consume(const Smem<D, W::SCHEDULED>& sm, const P
     for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const float mn = fmaxf(m[u], dstt::flash::quad_max(mx[u]) * p.scale);
+      const float mn = fmaxf(m[u], dstt::flash::quad_max(mx[u]) * (ALIBI ? 1.f : p.scale));
       corr[u] = m[u] == mn ? 1.f : ex2((m[u] - mn) * LOG2E);
       m[u] = mn;
       nb[u] = -mn * LOG2E;
@@ -557,7 +632,7 @@ __device__ __forceinline__ void fwd_cta(unsigned char* smem_raw, const CUtensorM
                                         const Problem& p, const Tile& tile, Init init,
                                         Store store, const W& walk = W()) {
   using T = FwdTiles<D>;
-  const Smem<D, W::SCHEDULED> sm(smem_raw);
+  const Smem<D, W::SCHEDULED, IsAlibi<W>::value> sm(smem_raw);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int st = 0; st < T::STAGES; ++st) {

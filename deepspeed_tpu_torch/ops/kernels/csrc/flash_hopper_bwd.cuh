@@ -68,6 +68,13 @@
 // SCHEDULED_COLUMNS); p.s is then the query length. dk/dv's hands over a
 // step kind per 64-key half of the CTA's keys; p.s is then the key length.
 //
+// ALiBi (AlibiWalk, flash_hopper.cuh): dq's producer hands each stage's
+// terms over with the tile, as the forward's; dk/dv's CTA holds its keys'
+// positions and the producer hands over each stage's slope, since under GQA
+// the stage's query head, and with it the slope, changes stage by stage.
+// Both then take p = 2^(fmaf(S, scale, term) log2 e - lse log2 e), the
+// forward's logits.
+//
 // Tiles per head dim (BwdTiles; ops/attention/flash.py BWD_TILES mirrors
 // them): dq BQ 128 query rows a CTA and BK key rows a stage (64; 32 at d
 // 256, where Q, dO and stages of 64-key K and V would not fit in shared
@@ -144,8 +151,9 @@ __device__ __forceinline__ float dot_row(const bf16* a, const bf16* b) {
 // each stage K then V, [D/64][BK][128] each; then the mbarriers (full and
 // empty per stage; Q), each stage's first key position, each stage's key
 // ids, the query tile's id range; KINDS (a scheduled walk): each stage's
-// step kind per (consumer warpgroup, key column), a byte each.
-template <int D, bool KINDS = false>
+// step kind per (consumer warpgroup, key column), a byte each; ALIBI: each
+// stage's ALiBi term per key column, fp32.
+template <int D, bool KINDS = false, bool ALIBI = false>
 struct DqSmem {
   using T = BwdTiles<D>;
   static constexpr int Q_BYTES = T::BQ * D * 2;
@@ -154,7 +162,8 @@ struct DqSmem {
   static constexpr int TILES = 2 * Q_BYTES + T::STAGES * STAGE;
   static constexpr int BYTES = 1024 + TILES + (2 * T::STAGES + 1) * 8 +
                                T::STAGES * 4 * (1 + T::BK) + 8 +
-                               (KINDS ? T::STAGES * 2 * T::BK : 0);
+                               (KINDS ? T::STAGES * 2 * T::BK : 0) +
+                               (ALIBI ? 16 + T::STAGES * 4 * T::BK : 0);
 
   unsigned char* q;
   unsigned char* dout;
@@ -166,6 +175,7 @@ struct DqSmem {
   int* ids;
   int* qrange;
   unsigned char* kinds;  // KINDS: [STAGES][2][BK]
+  float* bias;           // ALIBI: [STAGES][BK]
 
   __device__ explicit DqSmem(unsigned char* raw) {
     q = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
@@ -179,6 +189,10 @@ struct DqSmem {
     ids = k0s + T::STAGES;
     qrange = ids + T::STAGES * T::BK;
     kinds = reinterpret_cast<unsigned char*>(qrange + 2);
+    // 16-byte aligned: the consumers read the terms in pairs
+    bias = reinterpret_cast<float*>(
+        (reinterpret_cast<uintptr_t>(kinds + (KINDS ? T::STAGES * 2 * T::BK : 0)) + 15) &
+        ~uintptr_t(15));
   }
   __device__ unsigned char* k(int st) const { return ring + st * STAGE; }
   __device__ unsigned char* v(int st) const { return k(st) + KV_BYTES; }
@@ -187,7 +201,7 @@ struct DqSmem {
 // maps: q, dO [b h, s, D] in boxes of BQ rows; k, v [b h_kv, s, D] in
 // boxes of BK rows
 template <int D, class W>
-__device__ __forceinline__ void dq_produce(const DqSmem<D, W::SCHEDULED>& sm,
+__device__ __forceinline__ void dq_produce(const DqSmem<D, W::SCHEDULED, IsAlibi<W>::value>& sm,
                                            const CUtensorMap* const* maps, const Problem& p,
                                            const Tile& tile, int lane, const W& walk) {
   using T = BwdTiles<D>;
@@ -220,12 +234,15 @@ __device__ __forceinline__ void dq_produce(const DqSmem<D, W::SCHEDULED>& sm,
         }
         if (!__any_sync(0xffffffffu, mine)) continue;
       }
+      float terms[IDS];
+      if constexpr (IsAlibi<W>::value) alibi_terms<BK>(terms, walk, p, tile, k0, lane);
       const int st = it % S;
       hp::mbar_wait(&sm.empty[st], ((it / S) & 1) ^ 1);
       if (tile.segk) {
 #pragma unroll
         for (int j = 0; j < IDS; ++j) sm.ids[st * BK + lane * IDS + j] = ids[j];
       }
+      if constexpr (IsAlibi<W>::value) store_terms<BK>(sm.bias + st * BK, terms, lane);
       if (lane == 0) {
         sm.k0s[st] = k0;
         hp::mbar_arrive_expect_tx(&sm.full[st], DqSmem<D>::STAGE);
@@ -253,7 +270,8 @@ __device__ __forceinline__ void dq_produce(const DqSmem<D, W::SCHEDULED>& sm,
 // from blockIdx: a value held across the walk costs a register the
 // consumers do not have).
 template <int D, class W, typename Init, typename Store>
-__device__ __forceinline__ void dq_consume(const DqSmem<D, W::SCHEDULED>& sm, const Problem& p,
+__device__ __forceinline__ void dq_consume(const DqSmem<D, W::SCHEDULED, IsAlibi<W>::value>& sm,
+                                           const Problem& p,
                                            const Tile& tile, const bf16* ob, const bf16* dob,
                                            const float* lseb, int wg, int t, Init init,
                                            Store store, const W& walk) {
@@ -273,7 +291,9 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D, W::SCHEDULED>& sm, co
     const int64_t at = (int64_t)rows[u] * D + tq * (D / 4);
     delta[u] = dstt::flash::quad_sum(in ? dot_row<D / 4, D / 32>(dob + at, ob + at) : 0.f);
   }
-  const float sl2 = p.scale * LOG2E;
+  // ALiBi keeps the scores scaled (the term is added to them), as the
+  // forward does
+  const float sl2 = IsAlibi<W>::value ? LOG2E : p.scale * LOG2E;
 
   float dq[D / 2];
   init(dq, row0, row1, tq);
@@ -328,6 +348,15 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D, W::SCHEDULED>& sm, co
     } else {
       whole = !tile.segk && (!p.causal || k0 + BK - 1 <= r_lo) &&
               (!p.window || r_hi - k0 < p.window) && k0 + BK <= p.s && r_hi < p.s;
+    }
+    if constexpr (IsAlibi<W>::value) {  // logits = S scale + the term, the forward's
+      const float* bs = sm.bias + st * BK;
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 2) {
+        const float2 b = *reinterpret_cast<const float2*>(bs + 8 * (i >> 2) + 2 * tq);
+        sacc[i] = fmaf(sacc[i], p.scale, b.x);
+        sacc[i + 1] = fmaf(sacc[i + 1], p.scale, b.y);
+      }
     }
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
@@ -430,7 +459,7 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem_raw, const CUtensorMa
                                        const bf16* dob, const float* lseb, Init init,
                                        Store store, const W& walk = W()) {
   using T = BwdTiles<D>;
-  const DqSmem<D, W::SCHEDULED> sm(smem_raw);
+  const DqSmem<D, W::SCHEDULED, IsAlibi<W>::value> sm(smem_raw);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int st = 0; st < T::STAGES; ++st) {
@@ -466,8 +495,8 @@ __device__ __forceinline__ void dq_cta(unsigned char* smem_raw, const CUtensorMa
 // each; each stage Q, dO, then O, [D/64][KV_BQ][128] each; then the
 // mbarriers (K/V; full, info, aux and empty per stage), each stage's query
 // position and (batch, head) row, its query ids, delta and lse log2 e, the
-// key tile's id range.
-template <int D, bool KINDS = false>
+// key tile's id range; ALIBI: each stage's slope.
+template <int D, bool KINDS = false, bool ALIBI = false>
 struct DkvSmem {
   using T = BwdTiles<D>;
   static constexpr int S = T::KV_STAGES;
@@ -476,7 +505,7 @@ struct DkvSmem {
   static constexpr int STAGE = 3 * Q_BYTES;
   static constexpr int TILES = 2 * KV_BYTES + S * STAGE;
   static constexpr int BYTES = 1024 + TILES + (4 * S + 1) * 8 + S * 4 * (2 + 3 * T::KV_BQ) + 8 +
-                               (KINDS ? S * 2 * 4 : 0);
+                               (KINDS ? S * 2 * 4 : 0) + (ALIBI ? S * 4 : 0);
 
   unsigned char* k;
   unsigned char* v;
@@ -494,6 +523,7 @@ struct DkvSmem {
   int* krange;
   int* kinds;    // KINDS: each stage's step kind per 64-key half of the CTA's keys
   int* cursors;  // KINDS: the scheduled walk's cursors (their bytes added at launch)
+  float* slope;  // ALIBI: [S]
 
   __device__ explicit DkvSmem(unsigned char* raw) {
     k = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
@@ -513,6 +543,7 @@ struct DkvSmem {
     krange = reinterpret_cast<int*>(lse2 + S * T::KV_BQ);
     kinds = krange + 2;
     cursors = kinds + 2 * S;
+    slope = reinterpret_cast<float*>(kinds + (KINDS ? 2 * S : 0));
   }
   __device__ unsigned char* q(int st) const { return ring + st * STAGE; }
   __device__ unsigned char* dout(int st) const { return q(st) + Q_BYTES; }
@@ -556,7 +587,7 @@ __device__ __forceinline__ KvTile make_kv_tile(const Problem& p, const int* seg_
 // maps: k, v [b h_kv, s, D] in boxes of KV_BK rows; q, dO, O [b h, s, D]
 // in boxes of KV_BQ rows
 template <int D, class W>
-__device__ __forceinline__ void dkv_produce(const DkvSmem<D, W::SCHEDULED>& sm,
+__device__ __forceinline__ void dkv_produce(const DkvSmem<D, W::SCHEDULED, IsAlibi<W>::value>& sm,
                                             const CUtensorMap* const* maps, const Problem& p,
                                             const KvTile& kt, int lane, const W& walk) {
   using T = BwdTiles<D>;
@@ -601,6 +632,7 @@ __device__ __forceinline__ void dkv_produce(const DkvSmem<D, W::SCHEDULED>& sm,
         if (lane == 0) {
           sm.q0s[st] = q0;
           sm.heads[st] = head0 + gq;
+          if constexpr (IsAlibi<W>::value) sm.slope[st] = walk.slopes[kt.kvh * group + gq];
           hp::mbar_arrive(&sm.info[st]);
           hp::mbar_arrive_expect_tx(&sm.full[st], DkvSmem<D>::STAGE);
 #pragma unroll
@@ -636,7 +668,8 @@ __device__ __forceinline__ void dkv_produce(const DkvSmem<D, W::SCHEDULED>& sm,
 // soon as the producer names the stage's (batch, head) row and query tile,
 // before its copies land; 0 past s.
 template <int D, class W>
-__device__ __forceinline__ void dkv_delta(const DkvSmem<D, W::SCHEDULED>& sm, const Problem& p,
+__device__ __forceinline__ void dkv_delta(const DkvSmem<D, W::SCHEDULED, IsAlibi<W>::value>& sm,
+                                          const Problem& p,
                                           const float* lse, int r, const W& walk) {
   using T = BwdTiles<D>;
   constexpr int BQ = T::KV_BQ, S = T::KV_STAGES;
@@ -683,7 +716,8 @@ __device__ __forceinline__ void dkv_delta(const DkvSmem<D, W::SCHEDULED>& sm, co
 // producer hands over. init(dk, dv, key0, key1, c0, tq) seeds the sums,
 // store(dk, dv, key0, key1, c0, tq) finishes them.
 template <int D, class W, typename Init, typename Store>
-__device__ __forceinline__ void dkv_consume(const DkvSmem<D, W::SCHEDULED>& sm, const Problem& p,
+__device__ __forceinline__ void dkv_consume(const DkvSmem<D, W::SCHEDULED, IsAlibi<W>::value>& sm,
+                                            const Problem& p,
                                             const KvTile& kt, int wg, int t, Init init,
                                             Store store, const W& walk) {
   using T = BwdTiles<D>;
@@ -704,6 +738,12 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D, W::SCHEDULED>& sm, 
   }
   const bool seg = kt.segq != nullptr;
   const float sl2 = p.scale * LOG2E;
+  float kf[2] = {0.f, 0.f};  // ALiBi: the keys' positions
+  if constexpr (IsAlibi<W>::value) {
+    const int* kpos = walk.kpos + (int64_t)kt.bi * p.s;
+    kf[0] = key0 < p.s ? (float)kpos[key0] : 0.f;
+    kf[1] = key1 < p.s ? (float)kpos[key1] : 0.f;
+  }
 
   float dk[DC / 2], dv[DC / 2];
   init(dk, dv, key0, key1, c0, tq);
@@ -759,10 +799,21 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D, W::SCHEDULED>& sm, 
     // accumulator registers at once
     const float* dl = sm.delta + st * BQ;
     const float* l2 = sm.lse2 + st * BQ;
+    float bias[2];  // ALiBi: the stage's slope times the keys' positions
+    if constexpr (IsAlibi<W>::value) {
+      const float sl = sm.slope[st];
+      bias[0] = sl * kf[0];
+      bias[1] = sl * kf[1];
+    }
 #pragma unroll
     for (int i = 0; i < BQ / 2; ++i) {
       const int u = (i >> 1) & 1, c = 8 * (i >> 2) + 2 * tq + (i & 1);
-      float pe = ex2(fmaf(sacc[i], sl2, -l2[c]));
+      float pe;
+      if constexpr (IsAlibi<W>::value) {
+        pe = ex2(fmaf(fmaf(sacc[i], p.scale, bias[u]), LOG2E, -l2[c]));
+      } else {
+        pe = ex2(fmaf(sacc[i], sl2, -l2[c]));
+      }
       if (!whole) {
         bool ok;
         if constexpr (W::SCHEDULED) {
@@ -819,7 +870,7 @@ __device__ __forceinline__ void dkv_cta(unsigned char* smem_raw, const CUtensorM
                                         const Problem& p, const KvTile& kt, const float* lse,
                                         Init init, Store store, const W& walk = W()) {
   using T = BwdTiles<D>;
-  const DkvSmem<D, W::SCHEDULED> sm(smem_raw);
+  const DkvSmem<D, W::SCHEDULED, IsAlibi<W>::value> sm(smem_raw);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int st = 0; st < T::KV_STAGES; ++st) {

@@ -237,7 +237,8 @@ def test_train_phase_runs_end_to_end_on_cpu(one_thread):
     assert (set(chip_smoke.SERVE_KERNELS) | set(chip_smoke.TRAIN_KERNELS)
             | set(chip_smoke.FUSED_KERNELS) | set(chip_smoke.SPLASH_KERNELS)
             | set(chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS)
-            | set(chip_smoke.EVOFORMER_KERNELS) | set(chip_smoke.CARRY_KERNELS)) == set(K.KERNELS)
+            | set(chip_smoke.EVOFORMER_KERNELS) | set(chip_smoke.CARRY_KERNELS)
+            | set(chip_smoke.FLASH_ALIBI_KERNELS)) == set(K.KERNELS)
 
 
 def test_train_fused_phase_runs_end_to_end_on_cpu(one_thread):
@@ -406,7 +407,8 @@ def test_train_splash_phase_runs_end_to_end_on_cpu(one_thread):
     assert set(chip_smoke.SPLASH_KERNELS) | set(chip_smoke.SERVE_KERNELS) | set(
         chip_smoke.TRAIN_KERNELS) | set(chip_smoke.FUSED_KERNELS) | set(
         chip_smoke.INT8_KERNELS) | set(chip_smoke.SPARSE_KERNELS) | set(
-        chip_smoke.EVOFORMER_KERNELS) | set(chip_smoke.CARRY_KERNELS) == set(K.KERNELS)
+        chip_smoke.EVOFORMER_KERNELS) | set(chip_smoke.CARRY_KERNELS) | set(
+        chip_smoke.FLASH_ALIBI_KERNELS) == set(K.KERNELS)
 
 
 def test_engine_per_row_phase_runs_end_to_end_on_cpu(one_thread):
@@ -1031,3 +1033,170 @@ def test_host_tier_and_inference_v1_phases_run_end_to_end_on_cpu(one_thread):
     assert [rec["runs"][ds]["forward_steps"] for ds in (1, 4)] == [16, 17]
     assert rec["runs"][4]["launches_expected"]["rms_norm_fwd"] == 5 * 17
     assert rec["logit_rel_err"] < 1e-4 and rec["first_token_agreement"] == 1.0
+
+
+def test_alibi_kernel_cases_on_plain_inputs(monkeypatch, one_thread):
+    """The kernels phase's ALiBi cases at a small size (every head dim,
+    packed segments with restarting positions, s 200 non-causal over rows
+    with positions of their own, train_alibi's MHA form packed as
+    ``packed_batch`` packs it): with the CUDA wrappers standing in for
+    their plain versions every comparison holds, and each case gets its
+    records."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    monkeypatch.setattr(F, "flash_fwd_cuda", F.flash_fwd_reference)
+    monkeypatch.setattr(F, "flash_bwd_dq_cuda",
+                        lambda *a, **kw: F.flash_bwd_reference(*a, **kw)[0])
+    monkeypatch.setattr(F, "flash_bwd_dkv_cuda",
+                        lambda *a, **kw: F.flash_bwd_reference(*a, **kw)[1:])
+    cpu = torch.device("cpu")
+    cases = chip_smoke.alibi_cases(torch, cpu, h=4, h_kv=2, s=256, short=256, train_s=128)
+    assert {c["d"] for c in cases.values()} == set(F.FWD_TILES)
+    packed = cases["s256_segments2_positions_restart"]
+    assert int(packed["pos"][0, 0]) == 0 and int(packed["pos"][0, 97]) == 0
+    mha = cases["train_alibi_mha_s128_packed"]
+    assert mha["h_kv"] == mha["h"] == 4 and mha["causal"]
+    assert int(mha["pos"][0, 48]) == 0 and int(mha["seg"][0, 48]) == 1
+    assert not cases["s200_noncausal"]["causal"]
+    slopes = torch.from_numpy(alibi_slopes(4))
+    errs = {name: {} for name in chip_smoke.FLASH_ALIBI_KERNELS}
+    tile_errs = {"flash_bwd_dq_alibi": {}, "flash_bwd_dkv_alibi": {}}
+    for i, (name, c) in enumerate(cases.items()):
+        chip_smoke.check_alibi_case(torch, cpu, errs, tile_errs, name, c, slopes, seed=i)
+    assert len(errs["flash_fwd_alibi"]) == 2 * len(cases)
+    assert max(v for e in errs.values() for v in e.values()) == 0.0
+
+
+TINY = dict(hidden_size=128, n_heads=4, ffn_hidden_size=256, vocab_size=512, dtype="float32",
+            max_seq_len=256)
+
+
+def test_train_alibi_phase_runs_end_to_end_on_cpu(one_thread):
+    """BLOOM's configuration at tiny widths through the flash Function's
+    plain ALiBi versions: the parity leg agrees to fp32 rounding, the
+    decode check holds and its control does not, the per-step counts are
+    the ALiBi kernels' alone."""
+    rec, launches = chip_smoke.train_alibi_phase(
+        torch, torch.device("cpu"), K, widths=dict(TINY, attention_impl="flash"), seq=64,
+        timed_steps=1)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    assert rec["parity"]["loss_abs_diff"] < 1e-5
+    assert max(rec["parity"]["grad_rel_frobenius"].values()) < 1e-4
+    assert rec["decode"]["logit_rel_err"] < 1e-4
+    assert rec["decode"]["logit_rel_err_shifted"] > chip_smoke.LOGIT_RTOL
+    assert rec["launches_per_optimizer_step"] == {name: 4 for name in
+                                                  chip_smoke.FLASH_ALIBI_KERNELS}
+    assert len(rec["losses"]) == 2 and rec["tok_s"] > 0
+
+
+def test_remat_check_counts_the_flash_forward_on_cpu(one_thread, monkeypatch):
+    """The on-card remat check, with the flash Function's plain versions
+    counted as launches: every policy gives remat=False's loss and
+    gradients bit for bit, the forward runs 2L times under "nothing" and
+    the dots policies and L times under the rest."""
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops.attention import flash as F
+
+    real = F.flash_fwd_reference
+
+    def counted(*a, **kw):
+        K.KERNELS["flash_fwd_alibi"].launches += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(F, "flash_fwd_reference", counted)
+    cfg = T.get_config(chip_smoke.ALIBI_MODEL, n_layers=2, attention_impl="flash",
+                       **dict(TINY))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = chip_smoke.packed_batch(torch, torch.device("cpu"), rng, 1, 64, cfg.vocab_size)
+    out = chip_smoke.remat_check(torch, K, cfg, params, batch, "flash_fwd_alibi")
+    assert out["remat_false_launches"] == 2 and out["embed_rel_between_plain_runs"] == 0.0
+    assert {p: r["launches"] for p, r in out["policies"].items()} == {
+        "nothing": 4, "flash": 2, "flash_qkv": 2, "dots_with_no_batch_dims": 4, "dots": 4,
+        "everything": 2}
+    assert all(r["embed_rel"] == 0.0 and not r["leaves_unequal"]
+               for r in out["policies"].values())
+
+
+def test_train_moe_phase_runs_end_to_end_on_cpu(one_thread):
+    """Mixtral's configuration at tiny widths: the routing of both paths is
+    recorded (equal in fp32 on the CPU: no flip), the parity leg agrees to
+    fp32 rounding with the aux loss in both losses."""
+    rec, launches = chip_smoke.train_moe_phase(
+        torch, torch.device("cpu"), K, widths=dict(TINY, n_kv_heads=2, n_experts=4), layers=2,
+        seq=64, timed_steps=1)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    assert rec["parity"]["routing_flips"] == 0 and rec["parity"]["rows_held"] == 64
+    assert rec["parity"]["loss_abs_diff"] < 1e-5
+    assert max(rec["parity"]["grad_rel_frobenius"].values()) < 1e-4
+    assert rec["launches_per_optimizer_step"]["rms_norm_fwd"] == 10
+
+
+def test_engine_moe_phase_runs_end_to_end_on_cpu(one_thread):
+    """The MoE engine at tiny widths: every logits row routed as in
+    forward_reference (fp32), held against the reference under the
+    engine's routing and under its own (sums in another order), the
+    control off; the capacity-factor-1.25 engine drops choices."""
+    engine_config = {
+        "dtype": "float32", "decode_steps": 64, "prompt_chunk": 256, "max_prompt_chunks": 4,
+        "kv_cache": {"block_size": 16, "num_blocks": 512, "max_blocks_per_seq": 40},
+        "state_manager": {"max_tracked_sequences": 16, "max_ragged_batch_size": 1024,
+                          "max_ragged_sequence_count": 8, "max_context": 640},
+    }
+    rec, launches = chip_smoke.engine_moe_phase(
+        torch, torch.device("cpu"), K, widths=dict(TINY, n_kv_heads=2, n_experts=4),
+        engine_config=engine_config, layers=2, n_prompts=4)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    assert rec["routing_flips"] == 0 and rec["rows"] == 4 * 67
+    assert rec["logit_rel_err"] < 1e-4 < chip_smoke.LOGIT_RTOL < rec["logit_rel_err_shifted"]
+    assert rec["logit_rel_err_own_routing"] < 1e-4 and rec["rows_route_unknown"] == 0
+    assert rec["drop_run"]["calls_dropping"] > 0
+
+
+def test_route_flip_gate_holds_first_flips_to_the_margin():
+    """engine_moe's routing gate: a flip with the same experts upstream
+    passes only within the margin bound; a flip below or after another
+    (a later row, a later layer) is counted and not held."""
+    top = np.array([[0, 1]] * 4)
+    other = np.array([0, 2])
+    low = chip_smoke.ROUTE_MARGIN_RTOL / 2
+    margins = [np.full(4, 0.4), np.full(4, 0.4)]
+
+    def routes(*flips):
+        eng = [top.copy(), top.copy()]
+        for li, p in flips:
+            eng[li][p] = other
+        return eng
+
+    assert chip_smoke.route_flip_gate([top, top], routes(), margins) == (0, 0, 0.0, 0.0)
+    near = [np.array([0.4, low, 0.4, 0.4]), np.full(4, 0.4)]
+    # a rounding-sized first flip at layer 0, row 1; then layer 1 at rows
+    # 1 and 3 and layer 0 at row 2 follow it or sit beside it
+    got = chip_smoke.route_flip_gate([top, top], routes((0, 1), (1, 1), (1, 3)), near)
+    assert got == (1, 2, low, 0.4)
+    with pytest.raises(AssertionError, match="gate margin"):
+        chip_smoke.route_flip_gate([top, top], routes((0, 1), (0, 2)), near)
+    with pytest.raises(AssertionError, match="layer 1"):
+        chip_smoke.route_flip_gate([top, top], routes((1, 0)), margins)
+
+
+def test_train_mlm_phase_runs_end_to_end_on_cpu(one_thread):
+    """BERT's configuration at tiny widths through the flash Function's
+    non-causal plain versions: the MLM parity leg agrees to fp32 rounding;
+    the per-step counts are the flash kernels' alone."""
+    rec, launches = chip_smoke.train_mlm_phase(
+        torch, torch.device("cpu"), K, widths=dict(TINY, attention_impl="flash"), layers=2,
+        seq=64, micro=2, timed_steps=1)
+    json.dumps(rec)
+    assert launches == {name: 0 for name in K.KERNELS}
+    assert rec["parity"]["loss_abs_diff"] < 1e-5
+    assert max(rec["parity"]["grad_rel_frobenius"].values()) < 1e-4
+    assert rec["launches_per_optimizer_step"] == {"flash_fwd": 4, "flash_bwd_dq": 4,
+                                                  "flash_bwd_dkv": 4}
+    # fp32 weights: the witness's three paths are one function to rounding
+    witness = rec["rounding_witness"]
+    assert list(witness) == [2] and max(witness[2]["max_vs_fp32"].values()) < 1e-4

@@ -228,9 +228,23 @@ def test_unported_engine_features_raise(over, model_over, call, match):
     {"n_experts": 2}, {"matmul_precision": "fp8"}, {"position": "alibi"},
 ])
 def test_unported_model_features_raise(model_over):
-    with pytest.raises(NotImplementedError):
-        InferenceEngineV2(PT.TransformerConfig(**{**MODEL, **model_over}), {},
-                          EngineConfig.from_dict(engine_config()), device="cpu")
+    """fp8 projections and ALiBi (the paged kernel takes no bias, as in the
+    JAX engine) still raise. MoE is served: the engine builds on the JAX
+    package's MoE weights and its greedy stream equals the JAX engine's
+    (tests/test_torch_moe.py holds the step kinds)."""
+    cfg = PT.TransformerConfig(**{**MODEL, **model_over})
+    if not model_over.get("n_experts"):
+        with pytest.raises(NotImplementedError):
+            InferenceEngineV2(cfg, {}, EngineConfig.from_dict(engine_config()), device="cpu")
+        return
+    jcfg = JT.TransformerConfig(**{**MODEL, **model_over})
+    jp = JT.init_params(jcfg, jax.random.key(0))
+    eng = InferenceEngineV2(cfg, params_from_numpy(jax.tree.map(np.asarray, jp)),
+                            EngineConfig.from_dict(engine_config()), device="cpu")
+    prompt = [np.arange(1, 12, dtype=np.int32)]
+    want = JaxEngine(jcfg, jp, JaxEngineConfig.from_dict(engine_config())).generate(
+        prompt, max_new_tokens=4)
+    np.testing.assert_array_equal(eng.generate(prompt, max_new_tokens=4)[0], want[0])
 
 
 def test_engine_rejects_an_unknown_attention_impl():

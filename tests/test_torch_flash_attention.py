@@ -168,7 +168,7 @@ def test_attention_dispatch_on_cpu():
     torch.testing.assert_close(got, pcore.attention(q, k, v, segment_ids=seg, impl="reference"),
                                atol=FP32_ATOL, rtol=FP32_RTOL)
     for kw, match in (({"impl": "flash_ring", "causal": False}, "causal=False"),
-                      ({"alibi_slopes": torch.ones(4)}, "ALiBi"),
+                      ({"impl": "flash_ring", "alibi_slopes": torch.ones(4)}, "ALiBi"),
                       ({"impl": "flash", "bias": torch.zeros(1, 4, 64, 64)}, "bias")):
         with pytest.raises(NotImplementedError, match=match):
             pcore.attention(q, k, v, **kw)

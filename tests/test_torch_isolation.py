@@ -53,6 +53,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.deepspeed4science.evoformer_attn",
     "deepspeed_tpu_torch.ops.fused_ce",
     "deepspeed_tpu_torch.ops.kernels",
+    "deepspeed_tpu_torch.ops.moe_gemm",
     "deepspeed_tpu_torch.ops.muon",
     "deepspeed_tpu_torch.ops.normalization",
     "deepspeed_tpu_torch.ops.normalization.fused_norm",
@@ -68,6 +69,9 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.sparse_attention.splash",
     "deepspeed_tpu_torch.ops.spatial",
     "deepspeed_tpu_torch.parallel",
+    "deepspeed_tpu_torch.parallel.moe",
+    "deepspeed_tpu_torch.parallel.moe.mappings",
+    "deepspeed_tpu_torch.parallel.moe.sharded_moe",
     "deepspeed_tpu_torch.parallel.sequence",
     "deepspeed_tpu_torch.parallel.sequence.tiled",
     "deepspeed_tpu_torch.parallel.topology",

@@ -254,6 +254,17 @@ def test_ring_contract_raises(loopback):
         ps.ring_flash_attention(q[:, :, :254], k[:, :, :254], v[:, :, :254])
 
 
+def test_auto_alibi_on_a_context_axis_raises(loopback):
+    """A ring-eligible "auto" call with ALiBi takes the ring, as the JAX
+    rule sends it, and the ring refuses ALiBi: it never falls through to
+    the single-device kernel over this rank's keys alone."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 256, D, seed=0))
+    loopback(2)  # chunks of 128 rows: whole tiles, so "auto" takes the ring
+    for impl in (None, "auto"):
+        with pytest.raises(NotImplementedError, match="queue 2, item 1"):
+            pcore.attention(q, k, v, impl=impl, alibi_slopes=torch.ones(4))
+
+
 def test_context_one_takes_the_single_path(monkeypatch):
     """With a context axis of 1 the ring is the single flash call: the
     Function is never applied and the result is flash_attention's."""

@@ -448,19 +448,77 @@ def test_unported_loss_options_raise(over, match):
     (dict(position="alibi"), "alibi"),
 ])
 def test_unported_model_options_raise(over, match):
-    """What the model still refuses. Splash is ported (``match`` names the
-    ROADMAP item it used to raise with): without a window its derived
-    schedule is the causal mask, so the forward is the dense one."""
+    """Options the model once refused (``match`` names the refusal) are
+    ported. Splash: without a window its derived schedule is the causal
+    mask, so the forward is the dense one. The remat policies, MoE and
+    ALiBi: the forward is the JAX model's on the same weights."""
     jc, pc = _configs(**over)
-    _, tp = _params(_configs()[0])
     tokens = torch.arange(8, dtype=torch.long)[None]
     if over == dict(attention_impl="splash"):
+        _, tp = _params(_configs()[0])
         got = PT.forward(tp, tokens, pc)[0]
         torch.testing.assert_close(got, PT.forward(tp, tokens, _configs()[1])[0],
                                    atol=GRAD_ATOL, rtol=GRAD_RTOL)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        PT.forward(tp, tokens, pc)
+    jp, tp = _params(jc)
+    want = np.asarray(JT.forward(jp, jnp.asarray(tokens.numpy()), jc)[0])
+    got = PT.forward(tp, tokens, pc)[0].detach().numpy()
+    np.testing.assert_allclose(got, want, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the tiny models below (the suite runs in
+    several worker processes at once)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+@pytest.mark.parametrize("policy", PT.REMAT_POLICIES)
+def test_remat_policies_match_no_remat(policy, impl, monkeypatch, one_thread):
+    """Every remat policy gives remat=False's loss and gradients bit for
+    bit (a policy changes memory and recompute, never values). With the
+    flash Function ("flash", its plain versions here) the flash forward
+    runs once a layer in the forward, again in the backward under
+    "nothing" and the dots policies, and not again under "flash",
+    "flash_qkv" and "everything"."""
+    from deepspeed_tpu_torch.ops.attention import flash as pf
+
+    calls = []
+    real = pf.flash_fwd_reference
+    monkeypatch.setattr(pf, "flash_fwd_reference", lambda *a, **k: calls.append(1) or real(*a, **k))
+    jc, pc = _configs(n_kv_heads=2, attention_impl=impl, remat=True, remat_policy=policy)
+    _, tp = _params(jc)
+    batch = _packed_batch(2, 32, jc.vocab_size, seed=4)
+    loss, grads = _port_value_and_grad(pc, tp, batch)
+    n_remat = len(calls)
+    del calls[:]
+    plain_loss, plain_grads = _port_value_and_grad(_configs(n_kv_heads=2, attention_impl=impl)[1],
+                                                   tp, batch)
+    assert loss == plain_loss
+    for name, g in grads.items():
+        np.testing.assert_array_equal(g, plain_grads[name], err_msg=name)
+    if impl == "flash":
+        layers = pc.n_layers
+        assert len(calls) == layers
+        again = policy in ("nothing", "dots", "dots_with_no_batch_dims")
+        assert n_remat == layers * (2 if again else 1)
+
+
+def test_unknown_remat_policy_raises():
+    """An unknown remat_policy raises ValueError in both packages (the
+    port also under no_grad, as the JAX model checks it whenever remat is
+    on)."""
+    jc, pc = _configs(remat=True, remat_policy="offload")
+    jp, tp = _params(_configs()[0])
+    with pytest.raises(ValueError, match="remat_policy"):
+        JT.forward(jp, jnp.arange(8)[None], jc)
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad), pytest.raises(ValueError, match="remat_policy"):
+            PT.forward(tp, torch.arange(8)[None], pc)
 
 
 def test_unported_engine_api_raises():
