@@ -185,6 +185,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
    warm-up and 4 timed steps: step seconds, tok/s, MFU, peak memory and
    the exact launches per optimizer step.
 
+12. hf_import, train_import, graft_entry: the path from a HuggingFace
+   checkpoint directory. hf_import: Mistral-7B-v0.1's published
+   ``config.json`` (MistralForCausalLM, hidden 4096, 32/8 heads of 128,
+   intermediate 14336, vocab 32000, rms eps 1e-5, rope theta 1e4, sliding
+   window 4096) with ``num_hidden_layers`` cut from 32 to 4 and seeded
+   random bf16 weights in HF names and layout (1.13 B parameters), written
+   by the port's safetensors writer as 2 shards with an index under the
+   checkout's ``build/``, loaded through ``build_hf_engine`` on the card
+   (every leaf bit for bit against the written tensors, transposed and
+   stacked; seconds, GB/s, peak memory), then 4 prompts prefilled through
+   ``step()`` and decoded greedily (two steps and ``decode_round(64)``):
+   last-prefill logits against ``forward_reference`` on the loaded params
+   (limit 0.05), RMSNorm 2L + 1 and paged decode L launches per forward
+   step. train_import: a 2-layer cut of that directory through
+   ``load_hf_model`` into ``initialize`` with a client ``torch.optim.AdamW``
+   and ``grad_accum_dtype`` "bf16", 2 ``train_batch`` steps (flash and
+   RMSNorm launches exact, the loss falling), a save with
+   ``checkpoint.writer`` unset and a load into a fresh engine (bit for bit),
+   and ``zero_to_fp32`` on that archive equal to the engine's fp32 masters.
+   graft_entry: ``graft_entry.entry()`` on the card, its logits against
+   ``forward_reference``. The directories are removed afterwards.
+
 Serving kernels must launch in the engine phase (the int8 pool's in
 engine_int8 and its per-row check) and in a verify step (engine_spec,
 engine_spec_int8), training kernels in the train legs,
@@ -193,7 +215,9 @@ splash leg (the forward also in the per-row leg), the sparse kernels in the
 sparse_attn phase, the evoformer kernels in the evoformer phase, the chunk
 kernels in the ring_attn and train_ring phases, the ALiBi kernels in
 train_alibi: together every kernel (train_moe and train_mlm must launch the
-flash kernels too, engine_moe the serving kernels). The line before the last lists the kernels; the last line is the result
+flash kernels too, engine_moe and hf_import the serving kernels,
+train_import the training kernels, graft_entry RMSNorm and the flash
+forward). The line before the last lists the kernels; the last line is the result
 object. With no card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -5677,6 +5701,381 @@ def evoformer_phase(torch, dev, K, shapes=None, dtype=None, seed=SEED):
     return rec, total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: a HuggingFace checkpoint directory into both engines
+# ---------------------------------------------------------------------------
+# mistralai/Mistral-7B-v0.1 config.json, as published, but num_hidden_layers
+# (32 there) cut to 4 (``HF_REDUCED``); the weights are random
+HF_CONFIG = {
+    "architectures": ["MistralForCausalLM"], "model_type": "mistral", "hidden_act": "silu",
+    "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_hidden_layers": 4, "vocab_size": 32000,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+    "sliding_window": 4096, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "bos_token_id": 1, "eos_token_id": 2, "initializer_range": 0.02,
+}
+HF_REDUCED = {"num_hidden_layers": [32, 4]}
+HF_SHARDS = 2
+# the serving engine for hf_import: 4 prompts of 64-511 tokens, 128-token
+# blocks, contexts of up to 640 (prefill, 2 decode steps, a 64-step round)
+HF_ENGINE_CONFIG = {
+    "dtype": "bfloat16", "decode_steps": 64, "prompt_chunk": 256, "max_prompt_chunks": 4,
+    "kv_cache": {"block_size": 128, "num_blocks": 32, "max_blocks_per_seq": 5},
+    "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 1024,
+                      "max_ragged_sequence_count": 4, "max_context": 640},
+}
+HF_PROMPTS = 4
+# train_import: a 2-layer cut of the same directory, a client torch AdamW,
+# grads accumulated in bf16
+IMPORT_TRAIN_LAYERS = 2
+IMPORT_TRAIN_SEQ = 1024
+IMPORT_TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
+    "bf16": {"enabled": True}, "data_types": {"grad_accum_dtype": "bf16"},
+    "gradient_clipping": 1.0, "steps_per_print": 1000,
+}
+
+
+def hf_layout_weights(torch, hf_cfg, dev, seed=SEED):
+    """Seeded random bf16 weights of a Mistral-layout HF checkpoint, in HF
+    names and the ``[out, in]`` layout of its Linears: normal / sqrt(fan
+    in) for projections, 0.02 for the embeddings, norms near 1."""
+    h, f, V = hf_cfg["hidden_size"], hf_cfg["intermediate_size"], hf_cfg["vocab_size"]
+    d = h // hf_cfg["num_attention_heads"]
+    kv = hf_cfg["num_key_value_heads"] * d
+    shapes = {"model.embed_tokens.weight": ((V, h), 0.02), "model.norm.weight": ((h,), None),
+              "lm_head.weight": ((V, h), h ** -0.5)}
+    for i in range(hf_cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        shapes.update({
+            f"{p}.input_layernorm.weight": ((h,), None),
+            f"{p}.post_attention_layernorm.weight": ((h,), None),
+            f"{p}.self_attn.q_proj.weight": ((h, h), h ** -0.5),
+            f"{p}.self_attn.k_proj.weight": ((kv, h), h ** -0.5),
+            f"{p}.self_attn.v_proj.weight": ((kv, h), h ** -0.5),
+            f"{p}.self_attn.o_proj.weight": ((h, h), h ** -0.5),
+            f"{p}.mlp.gate_proj.weight": ((f, h), h ** -0.5),
+            f"{p}.mlp.up_proj.weight": ((f, h), h ** -0.5),
+            f"{p}.mlp.down_proj.weight": ((h, f), f ** -0.5),
+        })
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name in sorted(shapes):
+        shape, std = shapes[name]
+        x = torch.randn(shape, generator=gen, device=dev)
+        out[name] = (1.0 + 0.1 * x if std is None else x * std).to(torch.bfloat16)
+    return out
+
+
+def expected_hf_params(torch, hf, n_layers):
+    """The port's layout of a Mistral-layout state dict: the leaves that
+    ``load_hf_model`` must give, bit for bit (projections transposed to
+    ``[in, out]``, layers stacked)."""
+    per_layer = {"attn_norm": ("input_layernorm", False),
+                 "mlp_norm": ("post_attention_layernorm", False),
+                 "wq": ("self_attn.q_proj", True), "wk": ("self_attn.k_proj", True),
+                 "wv": ("self_attn.v_proj", True), "wo": ("self_attn.o_proj", True),
+                 "w_gate": ("mlp.gate_proj", True), "w_up": ("mlp.up_proj", True),
+                 "w_down": ("mlp.down_proj", True)}
+    layers = {}
+    for key, (name, linear) in per_layer.items():
+        ws = [hf[f"model.layers.{i}.{name}.weight"] for i in range(n_layers)]
+        layers[key] = torch.stack([w.t() if linear else w for w in ws])
+    return {"embed": hf["model.embed_tokens.weight"], "final_norm": hf["model.norm.weight"],
+            "lm_head": hf["lm_head.weight"].t(), "layers": layers}
+
+
+def bits_mismatches(torch, got, want):
+    """Leaves whose shape, dtype or bits differ (and leaves missing on
+    either side)."""
+    got, want = leaves(got), leaves(want)
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = got[k], want[k].to(got[k].device)
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
+                a.contiguous().view(torch.int16), b.contiguous().view(torch.int16)):
+            bad.append(k)
+    return sorted(bad)
+
+
+def write_hf_checkpoint(torch, path, hf_cfg, tensors, shards=HF_SHARDS):
+    """The port's writer: ``config.json`` and ``shards`` safetensors files
+    with their index. Returns (seconds, bytes)."""
+    from deepspeed_tpu_torch.models import safetensors_io
+
+    t0 = time.perf_counter()
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(hf_cfg, indent=1))
+    files = safetensors_io.save_sharded(tensors, str(path), shards=shards,
+                                        metadata={"format": "pt"})
+    return time.perf_counter() - t0, sum(Path(f).stat().st_size for f in files)
+
+
+def hf_import_phase(torch, dev, K, work, hf_config=None, engine_config=None,
+                    n_prompts=HF_PROMPTS, prompt_lens=(64, 512)):
+    """A HF checkpoint directory through ``build_hf_engine``: written by the
+    port's safetensors writer (sharded, with an index), loaded on ``dev``
+    with every leaf checked bit for bit, then prefill and a greedy decode
+    through the engine's ``step()`` and ``decode_round``, logits against
+    ``forward_reference`` on the loaded params, launches counted. Returns
+    (record, launches); the checkpoint stays in ``work / "hf"``."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_hf_engine
+    from deepspeed_tpu_torch.models import transformer as T
+
+    hf_cfg = dict(hf_config or HF_CONFIG)
+    L = hf_cfg["num_hidden_layers"]
+    rec = {"phase": "hf_import", "model": "mistralai/Mistral-7B-v0.1", "n_layers": L,
+           "reduced": HF_REDUCED if hf_config is None else "rehearsal widths"}
+    t0 = time.perf_counter()
+    hf = hf_layout_weights(torch, hf_cfg, dev)
+    rec["params"] = sum(t.numel() for t in hf.values())
+    _sync(torch, dev)
+    rec["generate_seconds"] = time.perf_counter() - t0
+    path = Path(work) / "hf"
+    rec["write_seconds"], rec["checkpoint_bytes"] = write_hf_checkpoint(torch, path, hf_cfg, hf)
+    rec["shards"] = len(list(path.glob("*.safetensors")))
+    if rec["shards"] < 2 or not (path / "model.safetensors.index.json").is_file():
+        raise AssertionError("hf_import: the checkpoint is not sharded with an index")
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_hf_engine(str(path), dict(engine_config or HF_ENGINE_CONFIG), device=dev.type)
+    _sync(torch, dev)
+    rec["load_seconds"] = time.perf_counter() - t0
+    rec["load_gb_s"] = rec["checkpoint_bytes"] / 1e9 / rec["load_seconds"]
+    rec["peak_mem_gb_load"] = (torch.cuda.max_memory_allocated() / 1e9
+                               if dev.type == "cuda" else None)
+    cfg = eng._mc
+    if dev.type == "cuda" and eng.paged_attention_impl != "kernel":
+        raise AssertionError(f"paged_attention_impl resolved to {eng.paged_attention_impl}")
+    bad = bits_mismatches(torch, eng.params, expected_hf_params(torch, hf, L))
+    rec["leaves_checked"] = len(leaves(eng.params))
+    if bad:
+        raise AssertionError(f"hf_import: leaves differ from the written checkpoint: {bad}")
+    del hf
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(*prompt_lens, size=n_prompts)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+    K.reset_counts()
+    run = serve_counted_path(torch, dev, eng, prompts)
+    launches = K.counts()
+    fwd_steps = run["split_steps"] + 64
+    expected = {name: 0 for name in launches}
+    expected.update(rms_norm_fwd=(2 * L + 1) * fwd_steps, paged_decode=L * fwd_steps)
+    rec.update(launches=launches, launches_expected=expected,
+               forward_steps={"split": run["split_steps"], "round": 64},
+               prefill_seconds=run["prefill_seconds"], round_seconds=run["round_seconds"],
+               round_tok_s=n_prompts * 64 / run["round_seconds"])
+    if dev.type == "cuda" and launches != expected:
+        raise AssertionError(f"hf_import kernel launches {launches}, expected {expected}")
+    errs, shifted = [], []
+    for row, uid in enumerate(run["rounds"]):
+        mine, toks_in = logit_rows(torch, run, uid, row)
+        got_tok = torch.as_tensor(np.asarray(run["rounds"][uid], np.int64), device=dev)
+        if not bool((mine[3:].argmax(dim=-1) == got_tok).all()):
+            raise AssertionError(f"hf_import uid {uid}: round tokens are not the argmax")
+        n_p = len(prompts[uid])
+        with torch.no_grad():
+            ref = T.forward_reference(eng.params, torch.as_tensor(
+                np.asarray(toks_in[:n_p], np.int64), device=dev)[None], cfg)[0][0].float()
+        if not bool(torch.isfinite(ref).all()):
+            raise AssertionError("hf_import: plain forward gave non-finite logits")
+        errs.append(rows_rel_err(torch, mine[0], ref[n_p - 1]))
+        shifted.append(rows_rel_err(torch, mine[0], ref[n_p - 2]))
+    rec["prefill_logit_rel_err"] = max(errs)
+    rec["shifted_logit_rel_err"] = min(shifted)
+    rec["logit_rtol"] = LOGIT_RTOL
+    if rec["prefill_logit_rel_err"] > LOGIT_RTOL:
+        raise AssertionError(f"hf_import: prefill logits off the plain forward: {errs}")
+    if rec["shifted_logit_rel_err"] <= LOGIT_RTOL:
+        raise AssertionError("hf_import: negative control passed: positions not told apart")
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    return rec, launches
+
+
+def train_import_phase(torch, dev, K, work, layers=IMPORT_TRAIN_LAYERS, seq=IMPORT_TRAIN_SEQ,
+                       steps=2, lr=1e-4):
+    """A cut of ``work / "hf"`` to ``layers`` layers (its own config.json,
+    the same shards) through ``load_hf_model`` into ``initialize`` with a
+    client ``torch.optim.AdamW`` (``lr``: a tiny rehearsal's bf16 weights
+    need a larger one to move) and bf16 gradient accumulation: ``steps``
+    ``train_batch`` steps on one batch (flash and RMSNorm launches counted
+    exactly, the loss must fall), a save with ``checkpoint.writer`` unset,
+    a load into a fresh engine (params, masters and the client's state bit
+    for bit), and ``zero_to_fp32`` on that archive against the masters.
+    Returns (record, launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint.zero_to_fp32 import (
+        get_fp32_state_dict_from_zero_checkpoint,
+    )
+    from deepspeed_tpu_torch.models import load_hf_model
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+        tree_leaves,
+        tree_paths,
+    )
+
+    src, cut = Path(work) / "hf", Path(work) / "hf_cut"
+    cut.mkdir()
+    hf_cfg = json.loads((src / "config.json").read_text())
+    hf_cfg["num_hidden_layers"] = layers
+    (cut / "config.json").write_text(json.dumps(hf_cfg))
+    for f in src.iterdir():
+        if f.name != "config.json":
+            (cut / f.name).symlink_to(f)
+    rec = {"phase": "train_import", "model": "mistralai/Mistral-7B-v0.1", "n_layers": layers,
+           "seq": seq, "optimizer": "torch.optim.AdamW", "grad_accum_dtype": "bf16"}
+    t0 = time.perf_counter()
+    cfg, params = load_hf_model(str(cut), dtype="bfloat16", device=dev)
+    cfg = dataclasses.replace(cfg, remat=False)
+    rec["load_seconds"] = time.perf_counter() - t0
+    rec["params"] = sum(t.numel() for t in leaves(params).values())
+
+    def engine():
+        opt = torch.optim.AdamW(list(leaves(params).values()), lr=lr, weight_decay=0.01)
+        return deepspeed_tpu_torch.initialize(model=T.make_loss_fn(cfg), model_parameters=params,
+                                              optimizer=opt, config=dict(IMPORT_TRAIN_CONFIG))[0]
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    gas = IMPORT_TRAIN_CONFIG["gradient_accumulation_steps"]
+    rows = gas * IMPORT_TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    rng = np.random.default_rng(SEED + 2)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, size=(rows, seq + 1))
+             .astype(np.int32)}
+    K.reset_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch=batch)))
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t1)
+    launches = K.counts()
+    per_step = {"flash_fwd": gas * layers, "flash_bwd_dq": gas * layers,
+                "flash_bwd_dkv": gas * layers, "rms_norm_fwd": gas * (2 * layers + 1),
+                "rms_norm_bwd": gas * (2 * layers + 1)}
+    expected = {name: 0 for name in launches}
+    expected.update({k: v * steps for k, v in per_step.items()})
+    rec.update(losses=losses, step_seconds=step_s, launches=launches,
+               launches_expected=expected)
+    if dev.type == "cuda" and launches != expected:
+        raise AssertionError(f"train_import kernel launches {launches}, expected {expected}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_import: losses {losses} (finite and falling expected)")
+    if eng.grad_accum_dtype != torch.bfloat16:
+        raise AssertionError("train_import: gradients did not accumulate in bf16")
+
+    ckpt = Path(work) / "ckpt"
+    t0 = time.perf_counter()
+    eng.save_checkpoint(str(ckpt))
+    rec["save_seconds"] = time.perf_counter() - t0
+    rec["checkpoint_bytes"] = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    if eng.config.checkpoint.writer is not None or not (ckpt / "zero_to_fp32.py").is_file():
+        raise AssertionError("train_import: not the default store, or no recovery script")
+    fresh = engine()
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(str(ckpt))
+    _sync(torch, dev)
+    rec["restore_seconds"] = time.perf_counter() - t0
+    bad = bits_mismatches(torch, fresh.params, eng.params)
+    bad += [f"master/{k}" for k in bits_mismatches(torch, fresh.opt_state.master,
+                                                   eng.opt_state.master)]
+    want, got = (e.optimizer.optimizer.state_dict()["state"] for e in (eng, fresh))
+    bad += [f"state/{i}/{k}" for i in want for k in want[i]
+            if want[i][k].device != got[i][k].device or not torch.equal(want[i][k], got[i][k])]
+    if bad or sorted(want) != sorted(got) or fresh.global_steps != eng.global_steps:
+        raise AssertionError(f"train_import: the reloaded engine differs: {bad[:8]}")
+    del fresh
+    t0 = time.perf_counter()
+    fp32 = get_fp32_state_dict_from_zero_checkpoint(str(ckpt))
+    rec["zero_to_fp32_seconds"] = time.perf_counter() - t0
+    masters = dict(zip(tree_paths(eng.opt_state.master), tree_leaves(eng.opt_state.master)))
+    off = [n for n, m in masters.items()
+           if n not in fp32 or not np.array_equal(fp32[n], m.detach().cpu().numpy())]
+    if off or sorted(fp32) != sorted(masters):
+        raise AssertionError(f"train_import: zero_to_fp32 differs from the masters: {off[:8]}")
+    rec["zero_to_fp32_tensors"] = len(fp32)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    return rec, launches
+
+
+def graft_entry_phase(torch, dev, K):
+    """``graft_entry.entry()`` on ``dev``: one forward through the kernels,
+    its logits against ``forward_reference`` on the same params."""
+    from deepspeed_tpu_torch.graft_entry import entry
+    from deepspeed_tpu_torch.models import transformer as T
+
+    fn, (params, tokens) = entry(device=dev.type)
+    K.reset_counts()
+    with torch.no_grad():
+        logits = fn(params, tokens)
+        _sync(torch, dev)
+        launches = K.counts()
+        ref = T.forward_reference(params, tokens, fn.config)[0]
+    c = fn.config
+    rec = {"phase": "graft_entry", "model": "tiny", "n_layers": c.n_layers,
+           "heads": [c.n_heads, c.head_dim], "shape": list(logits.shape), "launches": launches}
+    if tuple(logits.shape) != (2, 128, c.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"graft_entry: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    rec["logit_rel_err"] = rows_rel_err(torch, logits[0], ref[0])
+    rec["logit_rtol"] = LOGIT_RTOL
+    if rec["logit_rel_err"] > LOGIT_RTOL:
+        raise AssertionError(f"graft_entry: logits off the plain forward: {rec['logit_rel_err']}")
+    expected = {name: 0 for name in launches}
+    expected.update(rms_norm_fwd=2 * c.n_layers + 1, flash_fwd=c.n_layers)
+    rec["launches_expected"] = expected
+    if dev.type == "cuda" and launches != expected:
+        raise AssertionError(f"graft_entry kernel launches {launches}, expected {expected}")
+    return rec, launches
+
+
+def import_phases(torch, dev, K, root, card, hf_kw=None, train_kw=None):
+    """hf_import, train_import and graft_entry, each emitted with its
+    seconds; the checkpoints they write are removed. ``hf_kw`` / ``train_kw``
+    shrink the first two for a rehearsal on the CPU. Returns the launches
+    of each phase."""
+    import shutil
+    import tempfile
+
+    # under the checkout's build/, which git ignores
+    (Path(root) / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=Path(root) / "build"))
+    launches = {}
+    try:
+        free = shutil.disk_usage(work).free
+        for name, run in (("hf_import", lambda: hf_import_phase(torch, dev, K, work,
+                                                                **(hf_kw or {}))),
+                          ("train_import", lambda: train_import_phase(torch, dev, K, work,
+                                                                      **(train_kw or {}))),
+                          ("graft_entry", lambda: graft_entry_phase(torch, dev, K))):
+            t0 = time.perf_counter()
+            rec, launches[name] = run()
+            rec.update(card=card, seconds=time.perf_counter() - t0)
+            if name == "hf_import":
+                rec["disk_free_gb"] = free / 1e9
+                peak = rec["peak_mem_gb"]
+                print(f"hf_import: {rec['checkpoint_bytes'] / 1e9:.2f} GB in {rec['shards']} "
+                      f"shards loaded through build_hf_engine in {rec['load_seconds']:.2f} s "
+                      f"({rec['load_gb_s']:.2f} GB/s), peak "
+                      f"{'not measured' if peak is None else f'{peak:.1f} GB'}, on {card}",
+                      flush=True)
+            emit(rec)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def device_profile(torch, fns, sums=()):
     """torch.profiler over each named callable: device time by kernel name,
     the device's busy share of the wall time, and the host operators with
@@ -5938,6 +6337,12 @@ def main(argv=None):
           f"{rec['tok_s']:.1f} tok/s / {BF16_FLOPS:.4g} FLOP/s on {card}", flush=True)
     torch.cuda.empty_cache()
 
+    # a HuggingFace checkpoint directory into both engines, and the graft entry
+    t0 = time.perf_counter()
+    import_launches = import_phases(torch, dev, K, root, card)
+    print(f"hf_import + train_import + graft_entry: {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+
     # serving kernels launch in the engine phase (the int8 pool's in the
     # engine_int8 phase and the int8 per-row check), training kernels in the
     # train legs, the fused leg's four in the fused leg, the splash kernels
@@ -5969,13 +6374,20 @@ def main(argv=None):
     missing += [f"{n} (engine_spec)" for n in SERVE_KERNELS if spec_launches["bf16"][n] <= 0]
     missing += [f"{n} (engine_spec_int8)" for n in INT8_KERNELS + ("rms_norm_fwd",)
                 if spec_launches["int8"][n] <= 0]
+    missing += [f"{n} (hf_import)" for n in SERVE_KERNELS
+                if import_launches["hf_import"][n] <= 0]
+    missing += [f"{n} (train_import)" for n in TRAIN_KERNELS
+                if import_launches["train_import"][n] <= 0]
+    missing += [f"{n} (graft_entry)" for n in ("rms_norm_fwd", "flash_fwd")
+                if import_launches["graft_entry"][n] <= 0]
     if missing or set(launched) != set(K.KERNELS):
         raise AssertionError(
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
             f"training {train_launches}, per-row {per_row_launches}, int8 {int8_launches}, "
             f"per-row int8 {per_row_int8_launches}, sparse_attn {sparse_launches}, "
             f"evoformer {evo_launches}, ring_attn {ring_launches}, train_ring "
-            f"{train_ring_launches}, model {model_launches}, kernels {sorted(K.KERNELS)}")
+            f"{train_ring_launches}, model {model_launches}, import {import_launches}, "
+            f"kernels {sorted(K.KERNELS)}")
 
     kernels_line = []
     for name, k in K.KERNELS.items():
@@ -6015,6 +6427,8 @@ def main(argv=None):
                 "max_abs_err", "launches_per_call")}} if "verify_form" in rec else {}),
             **({"launches_ring_attn_call": ring_launches[name]} if name in CARRY_KERNELS else {}),
             **({"no_alibi_ms": rec["no_alibi_ms"]} if name in FLASH_ALIBI_KERNELS else {}),
+            **{f"launches_{phase_name}": n.get(name, 0)
+               for phase_name, n in import_launches.items()},
             "matched": True,  # check_close raised otherwise
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

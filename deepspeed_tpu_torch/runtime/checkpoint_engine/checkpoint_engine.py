@@ -10,14 +10,21 @@ and a ``.meta.json`` beside it. The async writers snapshot tensors to host
 numpy first (the copy is the only part that must happen before the next
 step updates them in place) and write in a background thread; ``commit()``
 joins outstanding writes, and only then may the ``latest`` marker be
-written (two-phase save/commit).
+written (two-phase save/commit). Beside the archive each writer also puts
+``.names.json``: every section's leaves as dotted paths, in archive order
+(``tree_paths``), which ``checkpoint/zero_to_fp32.py`` reads; the JAX
+package neither writes nor needs it.
 """
 
+import io
 import json
+import mmap
 import os
 import queue
+import struct
 import threading
 import zipfile
+import zlib
 from abc import ABC, abstractmethod
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -62,21 +69,27 @@ _BF16_NPY = np.dtype("V2")
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of a tensor; bf16 as 2-byte void elements."""
-    t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(_BF16_NPY).copy()
-    return t.numpy().copy()
+    """A host copy of a tensor (one copy: a device tensor's transfer is
+    it); bf16 as 2-byte void elements."""
+    src = t.detach()
+    host = src.cpu().contiguous()
+    if host.numel() and host.data_ptr() == src.data_ptr():
+        host = host.clone()
+    if host.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(_BF16_NPY)
+    return host.numpy()
 
 
 def numpy_to_tensor(a: np.ndarray) -> torch.Tensor:
     """The inverse: 2-byte void (or ml_dtypes bfloat16) arrays become bf16
-    tensors through their bits."""
+    tensors through their bits. A writable contiguous array is shared, not
+    copied (the archive reader hands out private mappings of the file)."""
     a = np.asarray(a)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a)
     if a.dtype == _BF16_NPY or a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.uint16).astype(np.int16)
-        return torch.from_numpy(bits).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a))
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _snapshot_leaf(x):
@@ -97,6 +110,21 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_paths(tree, prefix="") -> list:
+    """Dotted paths of ``tree_leaves(tree)``, in the same order: dict keys,
+    and sequence indices as the JAX package's ``zero_to_fp32._flatten``
+    writes them."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], f"{prefix}.{k}" if prefix else str(k))]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, f"{prefix}.{i}" if prefix else str(i))]
+    return [prefix]
 
 
 def _iter_named_leaves(state_dict: Dict[str, Any]) -> Iterator[Tuple[str, Any]]:
@@ -126,10 +154,17 @@ class _NpzStreamWriter:
         self._zf.close()
 
 
-def _write_meta(base: str, meta):
+def _write_meta(base: str, meta, names=None):
     if meta is not None:
         with open(base + ".meta.json", "w") as f:  # read side strips .npz too
             json.dump(meta, f, default=_json_safe)
+    if names is not None:
+        with open(base + ".names.json", "w") as f:
+            json.dump(names, f)
+
+
+def _section_paths(state_dict: Dict[str, Any]) -> Dict[str, list]:
+    return {k: tree_paths(v) for k, v in state_dict.items() if k != "__meta__"}
 
 
 def _json_safe(obj):
@@ -154,24 +189,60 @@ def _write_npz_streaming(state_dict: Dict[str, Any], path: str):
             w.write(name, _snapshot_leaf(leaf))
     finally:
         w.close()
-    _write_meta(base, state_dict.get("__meta__"))
+    _write_meta(base, state_dict.get("__meta__"), _section_paths(state_dict))
+
+
+def _stored_array(mm, info: zipfile.ZipInfo) -> Optional[np.ndarray]:
+    """A stored (uncompressed) ``.npy`` entry of a mapped archive as an
+    array over the mapping itself, its CRC checked: no copy. None for a
+    compressed entry."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    off = info.header_offset
+    name_len, extra_len = struct.unpack("<HH", mm[off + 26:off + 30])
+    start = off + 30 + name_len + extra_len
+    if zlib.crc32(memoryview(mm)[start:start + info.file_size]) != info.CRC:
+        raise zipfile.BadZipFile(f"bad CRC in {info.filename}: the archive is damaged")
+    head = io.BytesIO(mm[start:start + min(info.file_size, 1 << 17)])
+    version = np.lib.format.read_magic(head)
+    read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                   else np.lib.format.read_array_header_2_0)
+    shape, fortran, dtype = read_header(head)
+    if dtype.hasobject:
+        raise ValueError(f"{info.filename}: object arrays are not loaded")
+    count = int(np.prod(shape, dtype=np.int64))
+    arr = np.frombuffer(mm, dtype=dtype, count=count, offset=start + head.tell())
+    return arr.reshape(shape, order="F" if fortran else "C")
 
 
 def _read_npz(path: str) -> Dict[str, Any]:
-    """Returns {section: [leaves in flatten order], '__meta__': dict}."""
+    """Returns {section: [leaves in flatten order], '__meta__': dict,
+    '__names__': {section: [dotted paths]}} (the last two when written).
+    Stored entries (as both packages write them) are arrays over a private
+    mapping of the file: pages are read when touched, once."""
     base = path[: -len(".npz")] if path.endswith(".npz") else path
     path = base + ".npz"
-    data = np.load(path, allow_pickle=False)
+    with open(path, "rb") as f:
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
     sections: Dict[str, list] = {}
-    for key in data.files:
-        section, idx = key.split("::", 1)
-        sections.setdefault(section, []).append((int(idx), data[key]))
+    with zipfile.ZipFile(path) as zf:
+        for info in zf.infolist():
+            arr = _stored_array(mm, info)
+            if arr is None:
+                with zf.open(info) as member:
+                    arr = np.lib.format.read_array(member, allow_pickle=False)
+            key = info.filename[:-len(".npy")] if info.filename.endswith(".npy") else info.filename
+            section, idx = key.split("::", 1)
+            sections.setdefault(section, []).append((int(idx), arr))
     out: Dict[str, Any] = {
         k: [a for _, a in sorted(v)] for k, v in sections.items()
     }
     meta_path = base + ".meta.json"  # written next to base, not base.npz
     if os.path.isfile(meta_path):
         out["__meta__"] = json.load(open(meta_path))
+    if os.path.isfile(base + ".names.json"):
+        with open(base + ".names.json") as f:
+            out["__names__"] = json.load(f)
     return out
 
 
@@ -208,6 +279,7 @@ class AsyncCheckpointEngine(CheckpointEngine):
     def save(self, state_dict, path):
         base = path[: -len(".npz")] if path.endswith(".npz") else path
         meta = state_dict.get("__meta__")
+        names = _section_paths(state_dict)
         q: "queue.Queue" = queue.Queue(maxsize=self.QUEUE_DEPTH)
 
         def write():
@@ -234,7 +306,7 @@ class AsyncCheckpointEngine(CheckpointEngine):
                     # valid checkpoint — remove it and record the abort
                     os.unlink(base + ".npz")
                     raise RuntimeError("save aborted: snapshot failed mid-tree")
-                _write_meta(base, meta)
+                _write_meta(base, meta, names)
             except BaseException as e:  # surfaced at commit
                 self._errors.append(e)
                 # unblock the producer — but ONLY until the sentinel; if the

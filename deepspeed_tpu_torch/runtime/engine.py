@@ -9,16 +9,27 @@ npz checkpoints (``save_checkpoint`` / ``load_checkpoint`` through the
 writers of ``runtime/checkpoint_engine``), the dataloader
 (``deepspeed_io``) and the wall-clock timers. The model is a loss function
 ``loss_fn(params, batch) -> loss`` over a nested dict of tensors
-(``models.transformer.make_loss_fn``).
+(``models.transformer.make_loss_fn``), or ``loss_fn(params, batch, rng)``,
+whose third argument is a ``torch.Generator`` on the engine's device,
+seeded per (config seed, step, micro-batch) through ``utils/counter_hash.py``
+(its draws differ from the JAX engine's ``fold_in`` stream).
+
+The optimizer is the config's, a ``DeepSpeedOptimizer``, or the client's
+``torch.optim.Optimizer`` (built over the tensors passed as
+``model_parameters``, or a callable ``params -> Optimizer``): the engine
+re-points it at its fp32 masters and drives its ``param_groups``' lr with
+its LR schedule (``runtime/optimizers.TorchOptimizer``).
 
 How a step runs (the JAX package's ``train_step``, eagerly):
 
   * params are snapshot-cast to the compute dtype once, at construction;
     the optimizer keeps fp32 masters and writes new params from them;
   * each micro-batch's grads come from ``torch.autograd.grad`` of the loss
-    times the loss scale and are added into fp32 buffers (the
-    ``grad_accum_dtype``; others raise); nothing accumulates in ``.grad``;
-  * the epilogue multiplies by ``1 / (gas * scale)``; when the overflow
+    times the loss scale, are cast to the ``grad_accum_dtype`` (fp32 by
+    default; bf16 or fp16) and added into buffers of that dtype; nothing
+    accumulates in ``.grad``;
+  * the epilogue casts the buffers to fp32 and multiplies by ``1 / (gas *
+    scale)``; when the overflow
     check runs (fp16, or ``check_grad_overflow``) or clipping is on,
     non-finite elements are zeroed first; the grad norm is NaN when nothing
     computed it;
@@ -31,7 +42,9 @@ counts the micro-step and, at the accumulation boundary, runs the same
 epilogue and update as ``train_batch``. A checkpoint holds the params, the
 optimizer state (masters, then the transform's fields in the JAX package's
 order), the scaler state and the counters, in the JAX package's archive
-layout, so each engine loads the other's.
+layout, so each engine loads the other's. With ``checkpoint.writer`` unset
+the store is the sync writer's archive (``checkpoint/engine.py``); every
+save also ships ``zero_to_fp32.py``.
 
 ZeRO stages 0-3 hold the same tensors on one device and train identically.
 
@@ -46,8 +59,8 @@ rank, and the reported loss is the global mean. There ZeRO stages above 0
 and checkpoints raise (ROADMAP queue 1, item 6). The loopback form is one
 process: nothing is reduced and every stage behaves as on one device.
 Offload, weight streaming, ZenFlow, pipelines, curriculum learning, the
-flops profiler, monitors and the orbax checkpoint store (``checkpoint.writer``
-unset) raise ``NotImplementedError`` naming their ROADMAP items.
+flops profiler and monitors raise ``NotImplementedError`` naming their
+ROADMAP items, and so does loading the JAX package's orbax store.
 """
 
 import contextlib
@@ -65,12 +78,14 @@ from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as ls
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_scheduler
 from deepspeed_tpu_torch.runtime.optimizers import (
     DeepSpeedOptimizer,
+    TorchOptimizer,
     _leaves,
     build_optimizer,
     clip_by_global_norm,
     global_grad_norm,
     tree_map,
 )
+from deepspeed_tpu_torch.utils import counter_hash
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.timer import (
     BACKWARD_GLOBAL_TIMER,
@@ -82,6 +97,8 @@ from deepspeed_tpu_torch.utils.timer import (
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16,
+                "fp16": torch.float16}
 
 
 def _later(what: str, item: str):
@@ -115,8 +132,6 @@ def _check_config(config: DeepSpeedConfig):
          "partitioned / CPU activation checkpointing", "ROADMAP queue 1, item 6"),
         (config.comm_quant != "none" or config.comm_overlap != "none",
          "quantized / tiled collectives", "ROADMAP queue 1, item 6"),
-        (config.data_types.grad_accum_dtype not in (None, "fp32"),
-         "grad_accum_dtype other than fp32", "ROADMAP queue 1, item 3"),
     ]
     for bad, what, item in checks:
         if bad:
@@ -143,12 +158,11 @@ class DeepSpeedEngine:
         self.loss_fn = loss_fn
         self.collate_fn = collate_fn
         self.training_dataloader = None
-        sig = inspect.signature(loss_fn).parameters if callable(loss_fn) else {}
-        if len(sig) >= 3 or "rng" in sig:
-            raise _later("loss functions that take an rng", "ROADMAP queue 1, item 3")
+        self._loss_takes_rng = self._detect_rng_arg(loss_fn)
 
-        # precision (grads accumulate in fp32: _check_config refuses others)
+        # precision
         self.compute_dtype = DTYPES[config.precision_dtype]
+        self.grad_accum_dtype = ACCUM_DTYPES[config.data_types.grad_accum_dtype]
         self.fp16_enabled = config.fp16.enabled
         self.zero_stage = config.zero_optimization.stage
         self.topology = get_topology()
@@ -165,7 +179,7 @@ class DeepSpeedEngine:
             if p.is_floating_point():
                 p.requires_grad_(True)
 
-        self.optimizer = self._configure_optimizer(optimizer, config)
+        self.optimizer = self._configure_optimizer(optimizer, config, params)
         self.opt_state = self.optimizer.init(self.params)
 
         self.scaler_cfg = ls.make_config(config.fp16) if self.fp16_enabled else ls.STATIC_UNIT
@@ -206,12 +220,28 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # configuration
     # ------------------------------------------------------------------
-    def _configure_optimizer(self, client_optimizer, config) -> DeepSpeedOptimizer:
+    @staticmethod
+    def _detect_rng_arg(loss_fn):
+        try:
+            sig = inspect.signature(loss_fn).parameters
+        except (TypeError, ValueError):
+            return False
+        return len(sig) >= 3 or "rng" in sig
+
+    def _configure_optimizer(self, client_optimizer, config,
+                             model_parameters) -> DeepSpeedOptimizer:
+        """The client's optimizer wins, else the config's. A client
+        ``torch.optim.Optimizer`` must be built over leaves of
+        ``model_parameters`` (or, from a callable, of the engine's params)."""
         if client_optimizer is not None:
             if isinstance(client_optimizer, DeepSpeedOptimizer):
                 return client_optimizer
-            raise _later(f"client optimizer {type(client_optimizer).__name__}",
-                         "ROADMAP queue 1, item 3")
+            if isinstance(client_optimizer, torch.optim.Optimizer):
+                return TorchOptimizer(client_optimizer, [model_parameters, self.params])
+            if callable(client_optimizer):
+                return self._configure_optimizer(client_optimizer(self.params), config,
+                                                 model_parameters)
+            raise TypeError(f"Unsupported client optimizer {type(client_optimizer)}")
         if config.optimizer.type is None:
             raise ValueError(
                 "No optimizer: pass `optimizer=` to initialize() or set the config "
@@ -357,29 +387,41 @@ class DeepSpeedEngine:
         monitor_norm = bool(cfg.monitor_grad_norm)
         return check_overflow, monitor_norm
 
-    def _loss(self, params, batch):
-        out = self.loss_fn(params, batch)
+    def _rng(self, step, micro):
+        """The generator handed to a loss that takes an rng: seeded by the
+        counter hash of (config seed, step, micro-batch)."""
+        h = counter_hash.mix32(torch.tensor(self.config.seed & counter_hash.M32))
+        for word in (step, micro):
+            h = counter_hash.fold(h, word)
+        return torch.Generator(device=self.device).manual_seed(int(h))
+
+    def _loss(self, params, batch, micro=0):
+        if self._loss_takes_rng:
+            out = self.loss_fn(params, batch, self._rng(self.global_steps, micro))
+        else:
+            out = self.loss_fn(params, batch)
         return out[0] if isinstance(out, tuple) else out
 
     def _scale(self):
         use_scale = self.scaler_cfg.dynamic or self.scaler_cfg.init_scale != 1.0
         return float(self.scaler_state.scale) if use_scale else 1.0
 
-    def _micro_grads(self, mb, scale):
+    def _micro_grads(self, mb, scale, micro=0):
         """One micro-batch: (loss, grads of loss * scale), in one pass."""
-        loss = self._loss(self.params, mb)
+        loss = self._loss(self.params, mb, micro)
         scaled = (loss * torch.tensor(scale, dtype=loss.dtype)).float()
         grads = torch.autograd.grad(scaled, self._param_list, allow_unused=True)
         return scaled.detach() / scale, grads
 
     def _accumulate(self, acc, grads):
-        """Add a micro-batch's grads into the fp32 buffers (made on first use)."""
+        """Add a micro-batch's grads, cast to the ``grad_accum_dtype``, into
+        buffers of that dtype (made on first use)."""
         if acc is None:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                           self.params)
+            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=self.grad_accum_dtype,
+                                                 device=p.device), self.params)
         for (_, a), g in zip(_leaves(acc), grads):
             if g is not None:
-                a.add_(g)
+                a.add_(g.to(a.dtype))
         return acc
 
     def _grad_epilogue(self, acc, scale):
@@ -388,6 +430,8 @@ class DeepSpeedEngine:
         gas = self.config.gradient_accumulation_steps
         clip = self.config.gradient_clipping
         check_overflow, monitor_norm = self._grad_epilogue_flags()
+        if self.grad_accum_dtype != torch.float32:
+            acc = tree_map(lambda a: a.float(), acc)
         acc_list = [a for _, a in _leaves(acc)]
         with torch.no_grad():
             inv = float(np.float32(1.0) / (np.float32(gas) * np.float32(scale)))
@@ -430,7 +474,7 @@ class DeepSpeedEngine:
         scale = self._scale()
         acc, losses = None, []
         for i in range(self.config.gradient_accumulation_steps):
-            loss, grads = self._micro_grads({k: v[i] for k, v in stacked.items()}, scale)
+            loss, grads = self._micro_grads({k: v[i] for k, v in stacked.items()}, scale, i)
             acc = self._accumulate(acc, grads)
             del grads
             losses.append(loss)
@@ -449,7 +493,9 @@ class DeepSpeedEngine:
         """The loss of one micro-batch; its grads are computed in the same
         pass and cached for ``backward()`` (no second forward)."""
         self.timers(FORWARD_GLOBAL_TIMER).start()
-        loss, self._pending_grads = self._micro_grads(self._local_batch(batch), self._scale())
+        micro = self.micro_steps % self.config.gradient_accumulation_steps
+        loss, self._pending_grads = self._micro_grads(self._local_batch(batch), self._scale(),
+                                                      micro)
         loss = self._global_loss(loss)
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         self._last_loss = loss
@@ -541,15 +587,16 @@ class DeepSpeedEngine:
                              if hasattr(self.lr_scheduler, "state_dict") else None),
         }
 
+    def _writer_name(self):
+        from deepspeed_tpu_torch.checkpoint.engine import DEFAULT_WRITER
+
+        return self.config.checkpoint.writer or DEFAULT_WRITER
+
     def _checkpoint_writer(self):
-        writer = self.config.checkpoint.writer
-        if not writer:
-            raise _later("the orbax checkpoint store (set checkpoint.writer to 'sync', "
-                         "'async' or 'decoupled' for the npz writers)", "ROADMAP queue 1, item 8")
         if self._ckpt_writer is None:
             from deepspeed_tpu_torch.runtime.checkpoint_engine import create_checkpoint_engine
 
-            self._ckpt_writer = create_checkpoint_engine(writer)
+            self._ckpt_writer = create_checkpoint_engine(self._writer_name())
         return self._ckpt_writer
 
     def checkpoint_commit(self):
@@ -568,6 +615,8 @@ class DeepSpeedEngine:
     def _opt_state_payload(self):
         """The optimizer state as nested tuples whose leaves flatten in the
         JAX package's order: the masters, then the transform's fields."""
+        if isinstance(self.optimizer, TorchOptimizer):
+            return (self.opt_state.master, {"state": self.optimizer.state_tree()})
         inner = self.opt_state.inner
         fields = getattr(self.optimizer.tx, "state_fields", tuple(inner))
         return (self.opt_state.master, tuple(
@@ -591,6 +640,9 @@ class DeepSpeedEngine:
         self.checkpoint_commit()
         eng.create(tag)
         os.makedirs(save_dir, exist_ok=True)
+        from deepspeed_tpu_torch.checkpoint.engine import copy_recovery_script
+
+        copy_recovery_script(save_dir)
         sc = self.scaler_state
         eng.save(
             {
@@ -603,7 +655,7 @@ class DeepSpeedEngine:
             os.path.join(save_dir, tag, "state"),
         )
         self._ckpt_pending = (save_dir, tag, save_latest)
-        if self.config.checkpoint.writer in ("sync", "torch"):
+        if self._writer_name() in ("sync", "torch"):
             self.checkpoint_commit()
         return True
 
@@ -644,9 +696,16 @@ class DeepSpeedEngine:
                 return None, {}
             with open(latest) as f:
                 tag = f.read().strip()
-        data = eng.load(os.path.join(load_dir, tag, "state"))
+        from deepspeed_tpu_torch.checkpoint.engine import check_loadable
+
+        state_path = os.path.join(load_dir, tag, "state")
+        check_loadable(state_path)
+        data = eng.load(state_path)
         self._restore_tree(self.params, data["params"], "params")
-        if load_optimizer_states and not load_module_only and "opt_state" in data:
+        if (load_optimizer_states and not load_module_only and "opt_state" in data
+                and isinstance(self.optimizer, TorchOptimizer)):
+            self._restore_torch_optimizer(data)
+        elif load_optimizer_states and not load_module_only and "opt_state" in data:
             scalars = self._restore_tree(self._opt_state_payload(), data["opt_state"],
                                          "opt_state")
             inner = dict(self.opt_state.inner)
@@ -660,6 +719,30 @@ class DeepSpeedEngine:
         client_state = data.get("__meta__", {})
         self._restore_client_state(client_state, load_module_only, load_lr_scheduler_states)
         return os.path.join(load_dir, tag), client_state
+
+    @torch.no_grad()
+    def _restore_torch_optimizer(self, data):
+        """The masters in order, then the client optimizer's state by the
+        archive's leaf names (``1.state.<param index>.<name>``)."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+            numpy_to_tensor,
+            tree_leaves,
+        )
+
+        names = (data.get("__names__") or {}).get("opt_state")
+        if names is None:
+            raise ValueError("checkpoint has no leaf names (.names.json): a client torch "
+                             "optimizer's state cannot be restored from it")
+        n = len(tree_leaves(self.opt_state.master))
+        self._restore_tree(self.opt_state.master, data["opt_state"][:n], "opt_state masters")
+        tree = {}
+        for path, leaf in zip(names[n:], data["opt_state"][n:]):
+            _, _, idx, key = path.split(".", 3)
+            # host tensors: the optimizer's load_state_dict places each state
+            # as its own policy says (moments beside their params, AdamW's
+            # step count on the host)
+            tree.setdefault(idx, {})[key] = numpy_to_tensor(leaf)
+        self.optimizer.load_state_tree(tree)
 
     def _restore_client_state(self, client_state, load_module_only, load_lr_scheduler_states):
         if load_module_only:
@@ -676,18 +759,9 @@ class DeepSpeedEngine:
                          exclude_frozen_parameters=False):
         """Consolidated export of the params in their compute dtype: one
         ``.npz`` with dotted names (bf16 leaves as 2-byte void entries)."""
-        from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
-            tensor_to_numpy,
-        )
+        from deepspeed_tpu_torch.checkpoint.engine import save_16bit_model
 
-        os.makedirs(save_dir, exist_ok=True)
-        flat = {name.replace("/", "."): tensor_to_numpy(t) for name, t in _leaves(self.params)}
-        name = (save_filename.replace(".bin", ".npz") if save_filename.endswith(".bin")
-                else save_filename)
-        out = os.path.join(save_dir, name)
-        np.savez(out, **flat)
-        log_dist(f"Saved 16-bit model to {out}", ranks=[0])
-        return out
+        return save_16bit_model(save_dir, save_filename, self.params)
 
 
 __all__ = ["DeepSpeedEngine"]

@@ -34,6 +34,11 @@ Each transform names its state's fields in the order the JAX package's
 state flattens (``state_fields``), which is the order of a checkpoint's
 entries. The 1-bit family and ``zenflowselectiveadam`` raise
 ``NotImplementedError``.
+
+``TorchOptimizer`` takes a client's ``torch.optim.Optimizer`` (the JAX
+package takes a raw optax transform there): its params are re-pointed at
+the fp32 masters, so it steps them with torch's own math, and the engine's
+learning rate drives its ``param_groups``.
 """
 
 from typing import Any, Dict, NamedTuple
@@ -286,6 +291,87 @@ class DeepSpeedOptimizer:
         return OptState(master=state.master, inner=inner)
 
 
+class TorchOptimizer(DeepSpeedOptimizer):
+    """A client ``torch.optim.Optimizer`` over the engine's fp32 masters.
+
+    The optimizer must be built over leaves of one of ``trees`` (the
+    ``model_parameters`` the engine was given, or the engine's own params);
+    ``init`` swaps each of them in ``param_groups`` for the master of the
+    same leaf, so the user's tensors are never written. Leaves it does not
+    hold stay frozen. ``step`` sets each group's lr to the engine's lr times
+    the group's lr over the first group's at construction (so groups keep
+    their ratios and, without a schedule, their own lr), hands the fp32
+    grads over as ``.grad``, steps, and writes the params from the masters.
+    Its state (``state_tree``) goes into a checkpoint after the masters."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, trees):
+        if optimizer.state:
+            raise ValueError("TorchOptimizer: the client optimizer has stepped already; "
+                             "pass a fresh one")
+        self.optimizer = optimizer
+        self.name = type(optimizer).__name__.lower()
+        self.defaults = dict(optimizer.defaults)
+        self.tx = None
+        base = float(optimizer.param_groups[0]["lr"])
+        self._lr = base
+        self._ratios = [float(g["lr"]) / base if base else 1.0 for g in optimizer.param_groups]
+        paths = {}
+        for tree in trees:
+            for path, leaf in _leaves(tree):
+                paths.setdefault(id(leaf), path)
+        self._paths = []
+        for g in optimizer.param_groups:
+            for p in g["params"]:
+                if id(p) not in paths:
+                    raise ValueError("TorchOptimizer: the client optimizer holds a tensor that "
+                                     "is not one of model_parameters")
+                self._paths.append(paths[id(p)])
+        self._held = set(self._paths)
+
+    def get_lr(self):
+        return self._lr
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    def init(self, params) -> OptState:
+        state = OptState(master=tree_map(lambda p: p.detach().to(torch.float32, copy=True),
+                                         params), inner={})
+        masters = dict(_leaves(state.master))
+        it = iter(self._paths)
+        for g in self.optimizer.param_groups:
+            g["params"] = [masters[next(it)] for _ in g["params"]]
+        return state
+
+    @torch.no_grad()
+    def step(self, grads, state: OptState, params, lr) -> OptState:
+        self._lr = float(lr)
+        for g, ratio in zip(self.optimizer.param_groups, self._ratios):
+            g["lr"] = self._lr * ratio
+        pairs = [(path, m, g, p) for (path, m), (_, g), (_, p) in
+                 zip(_leaves(state.master), _leaves(grads), _leaves(params))
+                 if path in self._held]
+        for _, m, g, _ in pairs:
+            m.grad = g if g.dtype == m.dtype else g.to(m.dtype)
+        self.optimizer.step()
+        for _, m, _, p in pairs:
+            m.grad = None
+            if p is not m:
+                p.copy_(m)
+        return state
+
+    def state_tree(self):
+        """The torch optimizer's per-param state, keyed by param index (as
+        ``state_dict()`` numbers them) and state name."""
+        return {str(i): dict(st) for i, st in self.optimizer.state_dict()["state"].items()}
+
+    def load_state_tree(self, tree):
+        sd = self.optimizer.state_dict()
+        sd["state"] = {int(i): st for i, st in tree.items()}
+        self.optimizer.load_state_dict(sd)
+
+
 def build_optimizer(opt_config) -> DeepSpeedOptimizer:
     """Map a DeepSpeed ``optimizer`` config section to a DeepSpeedOptimizer
     (the JAX package's ``build_optimizer``; the 1-bit family raises)."""
@@ -360,6 +446,6 @@ def clip_by_global_norm(grads, max_norm, norm=None):
 
 
 __all__ = [
-    "DeepSpeedOptimizer", "OptState", "build_optimizer", "clip_by_global_norm",
-    "global_grad_norm", "tree_map",
+    "DeepSpeedOptimizer", "OptState", "TorchOptimizer", "build_optimizer",
+    "clip_by_global_norm", "global_grad_norm", "tree_map",
 ]

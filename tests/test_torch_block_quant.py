@@ -22,6 +22,17 @@ from deepspeed_tpu.ops.quantizer import block_quant as jbq
 from deepspeed_tpu_torch.ops import kernels as K
 from deepspeed_tpu_torch.ops.quantizer import block_quant as pbq
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _jit_kv = jax.jit(jbq.quantize_kv)
 
 

@@ -28,6 +28,17 @@ from deepspeed_tpu_torch.runtime import checkpoint_engine as pce
 from deepspeed_tpu_torch.runtime.checkpoint_engine import checkpoint_engine as pce_mod
 from deepspeed_tpu_torch.runtime.optimizers import _leaves
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BASE = dict(vocab_size=256, hidden_size=64, n_layers=2, n_heads=4, n_kv_heads=2, max_seq_len=64,
             remat=False)
 OPTIMIZERS = {

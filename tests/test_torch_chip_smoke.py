@@ -177,10 +177,11 @@ def test_block_quant_checks_on_plain_inputs():
     assert float(s[0]) == 0.0 and not q[0].any() and bool((s[1:] > 0).all())
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def one_thread():
     """Tiny ops: a single intra-op thread avoids thread-pool hand-offs that
-    dominate at this size (and contention with the other test workers)."""
+    dominate at this size (and contention with the other test workers), for
+    every test of the file."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -1200,3 +1201,70 @@ def test_train_mlm_phase_runs_end_to_end_on_cpu(one_thread):
     # fp32 weights: the witness's three paths are one function to rounding
     witness = rec["rounding_witness"]
     assert list(witness) == [2] and max(witness[2]["max_vs_fp32"].values()) < 1e-4
+
+
+# the new phases' HF checkpoint at tiny widths (Mistral's layout and names)
+HF_TINY = dict(chip_smoke.HF_CONFIG, hidden_size=128, intermediate_size=256,
+               num_attention_heads=4, num_key_value_heads=2, num_hidden_layers=2,
+               vocab_size=512)
+HF_TINY_ENGINE = {
+    "dtype": "bfloat16", "decode_steps": 64, "prompt_chunk": 32, "max_prompt_chunks": 4,
+    "kv_cache": {"block_size": 16, "num_blocks": 64, "max_blocks_per_seq": 8},
+    "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 256,
+                      "max_ragged_sequence_count": 4, "max_context": 128},
+}
+
+
+def test_hf_layout_writer_and_the_bit_check(tmp_path, one_thread):
+    """The phase's checkpoint is an HF checkpoint: ``transformers`` loads
+    it as MistralForCausalLM with the written tensors; ``load_hf_model``
+    gives the expected leaves bit for bit, and one flipped bit is caught."""
+    transformers = pytest.importorskip("transformers")
+    from deepspeed_tpu_torch.models import load_hf_model
+
+    cpu = torch.device("cpu")
+    hf = chip_smoke.hf_layout_weights(torch, HF_TINY, cpu)
+    seconds, size = chip_smoke.write_hf_checkpoint(torch, tmp_path / "hf", HF_TINY, hf)
+    assert size > sum(t.numel() * 2 for t in hf.values()) and seconds > 0
+    assert len(list((tmp_path / "hf").glob("*.safetensors"))) == chip_smoke.HF_SHARDS
+    model = transformers.MistralForCausalLM.from_pretrained(str(tmp_path / "hf"),
+                                                            torch_dtype=torch.bfloat16)
+    sd = model.state_dict()
+    for name, t in hf.items():
+        assert torch.equal(sd[name], t), name
+    cfg, params = load_hf_model(str(tmp_path / "hf"), dtype="bfloat16", device="cpu")
+    assert cfg.n_layers == 2 and cfg.sliding_window == 4096
+    want = chip_smoke.expected_hf_params(torch, hf, 2)
+    assert chip_smoke.bits_mismatches(torch, params, want) == []
+    flipped = params["layers"]["wk"].clone()
+    flipped.view(torch.int16)[1, 3, 5] ^= 1
+    params["layers"]["wk"] = flipped
+    assert chip_smoke.bits_mismatches(torch, params, want) == ["layers/wk"]
+
+
+def test_import_phases_run_end_to_end_on_cpu(tmp_path, one_thread, capsys):
+    """hf_import, train_import (the default-store round trip and
+    zero_to_fp32 included) and graft_entry at tiny widths: through
+    ``import_phases`` (its records printed, its directory removed), then
+    each phase's record."""
+    cpu = torch.device("cpu")
+    hf_kw = dict(hf_config=HF_TINY, engine_config=HF_TINY_ENGINE, prompt_lens=(8, 40))
+    train_kw = dict(layers=1, seq=32, lr=1e-2)
+    launches = chip_smoke.import_phases(torch, cpu, K, tmp_path, "cpu", hf_kw, train_kw)
+    assert sorted(launches) == ["graft_entry", "hf_import", "train_import"]
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert [r["phase"] for r in lines] == ["hf_import", "train_import", "graft_entry"]
+    assert all(r["seconds"] > 0 and r["card"] == "cpu" for r in lines)
+    assert lines[0]["disk_free_gb"] > 0 and list((tmp_path / "build").iterdir()) == []
+    rec, launches = chip_smoke.hf_import_phase(torch, cpu, K, tmp_path, **hf_kw)
+    assert rec["shards"] == 2 and rec["leaves_checked"] == 12
+    assert rec["prefill_logit_rel_err"] <= rec["logit_rtol"] < rec["shifted_logit_rel_err"]
+    assert rec["launches_expected"]["paged_decode"] == 2 * (rec["forward_steps"]["split"] + 64)
+    rec, launches = chip_smoke.train_import_phase(torch, cpu, K, tmp_path, **train_kw)
+    assert rec["losses"][1] < rec["losses"][0] and rec["zero_to_fp32_tensors"] == 12
+    assert rec["launches_expected"]["flash_fwd"] == 2 * 2 and rec["n_layers"] == 1
+    assert os.path.islink(tmp_path / "hf_cut" / "model.safetensors.index.json")
+    assert (tmp_path / "ckpt" / "zero_to_fp32.py").is_file()
+    rec, launches = chip_smoke.graft_entry_phase(torch, cpu, K)
+    assert rec["shape"] == [2, 128, 512] and rec["heads"] == [2, 64]
+    assert rec["logit_rel_err"] <= rec["logit_rtol"]

@@ -25,6 +25,17 @@ from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
 from deepspeed_tpu_torch.models import transformer as PT
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODEL = dict(vocab_size=256, hidden_size=128, n_layers=2, n_heads=4, n_kv_heads=2,
              max_seq_len=256, dtype="float32")
 # fp32 logits of a 2-layer model: matmuls and softmaxes summed in another

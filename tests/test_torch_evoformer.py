@@ -27,6 +27,17 @@ from deepspeed_tpu.ops.deepspeed4science import evoformer_attn as jevo
 from deepspeed_tpu_torch.ops.deepspeed4science import evoformer_attn as pevo
 from deepspeed_tpu_torch.ops.kernels import KERNELS
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FWD_TOL = 2e-4
 GRAD_TOL = 5e-4
 BF16_TOL = 1e-2

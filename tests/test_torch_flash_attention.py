@@ -26,6 +26,17 @@ from deepspeed_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from deepspeed_tpu_torch.ops.attention import core as pcore  # noqa: E402
 from deepspeed_tpu_torch.ops.attention import flash as pf  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 on both sides: the same products, summed in another order (the
 # Pallas body streams kv blocks with an online max; the plain version
 # takes one softmax over the row)
@@ -240,7 +251,8 @@ def test_cuda_kernels_launch_from_a_fresh_thread():
     got = []
     th = threading.Thread(target=lambda: got.append(run()))
     th.start()
-    th.join()
+    th.join(timeout=300)
+    assert not th.is_alive(), "the launches from the new thread did not finish in 300 s"
     assert len(got) == 1, "a launch from the new thread raised"
     assert all(torch.equal(a, b) for a, b in zip(main, got[0]))
     # and through autograd, whose backward runs on the device's own thread

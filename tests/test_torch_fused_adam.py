@@ -30,6 +30,17 @@ from deepspeed_tpu_torch.ops.adam import fused_adam as pfa
 from deepspeed_tpu_torch.ops.muon import newton_schulz_orthogonalize as p_newton_schulz
 from deepspeed_tpu_torch.runtime.optimizers import _leaves
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 elementwise chains: XLA contracts multiply-adds and computes b^t with
 # its own pow; a few units in the last place per step
 RTOL = 2e-6

@@ -20,6 +20,17 @@ import torch
 from deepspeed_tpu.ops import fused_ce as jce
 from deepspeed_tpu_torch.ops import fused_ce as pce
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32: sums of h products and V exponentials in another order
 FP32_ATOL = FP32_RTOL = 2e-5
 # bf16 operands: logits are fp32 sums of exact products on both sides, so

@@ -18,6 +18,17 @@ from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.ops.normalization import fused_norm as port
 from deepspeed_tpu_torch.ops.normalization import rms_norm
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 in, fp32 statistics on both sides: only the order of the row sum
 # differs, a few fp32 units in the last place of O(1) outputs
 FP32_ATOL = FP32_RTOL = 1e-5

@@ -15,6 +15,17 @@ from pathlib import Path
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "deepspeed_tpu_torch"
 SLICE_MODULES = [
@@ -23,15 +34,21 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.accelerator.abstract_accelerator",
     "deepspeed_tpu_torch.accelerator.cuda_accelerator",
     "deepspeed_tpu_torch.accelerator.real_accelerator",
+    "deepspeed_tpu_torch.checkpoint",
+    "deepspeed_tpu_torch.checkpoint.engine",
+    "deepspeed_tpu_torch.checkpoint.zero_to_fp32",
     "deepspeed_tpu_torch.comm",
     "deepspeed_tpu_torch.comm.comm",
     "deepspeed_tpu_torch.env_report",
+    "deepspeed_tpu_torch.graft_entry",
     "deepspeed_tpu_torch.inference",
+    "deepspeed_tpu_torch.inference.cli",
     "deepspeed_tpu_torch.inference.config",
     "deepspeed_tpu_torch.inference.engine",
     "deepspeed_tpu_torch.inference.sampling",
     "deepspeed_tpu_torch.inference.v2",
     "deepspeed_tpu_torch.inference.v2.blocked_allocator",
+    "deepspeed_tpu_torch.inference.v2.engine_factory",
     "deepspeed_tpu_torch.inference.v2.engine_v2",
     "deepspeed_tpu_torch.inference.v2.host_tier",
     "deepspeed_tpu_torch.inference.v2.kv_pool",
@@ -39,7 +56,10 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.inference.v2.ragged_manager",
     "deepspeed_tpu_torch.inference.v2.scheduler",
     "deepspeed_tpu_torch.models",
+    "deepspeed_tpu_torch.models.adapters",
     "deepspeed_tpu_torch.models.convert",
+    "deepspeed_tpu_torch.models.hf",
+    "deepspeed_tpu_torch.models.safetensors_io",
     "deepspeed_tpu_torch.models.transformer",
     "deepspeed_tpu_torch.ops",
     "deepspeed_tpu_torch.ops.adam",
@@ -91,6 +111,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.serving",
     "deepspeed_tpu_torch.serving.resilience",
     "deepspeed_tpu_torch.serving.resilience.faults",
+    "deepspeed_tpu_torch.tokenizer",
     "deepspeed_tpu_torch.utils",
     "deepspeed_tpu_torch.utils.counter_hash",
     "deepspeed_tpu_torch.utils.groups",
@@ -117,6 +138,36 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_importing_the_port_loads_no_hf_package():
+    """The card's machine has no ``transformers``, ``safetensors`` or
+    ``tokenizers``: importing every module of the port loads none of them
+    (the tokenizer imports ``tokenizers`` when one is built)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "      if m.split('.')[0] in ('transformers', 'safetensors', 'tokenizers'))))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_card_path_sources_import_no_hf_package():
+    """No source of the port or ``chip_smoke.py`` names ``transformers`` or
+    ``safetensors`` in an import; ``tokenizers`` only inside the tokenizer's
+    constructor."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [(str(f.relative_to(ROOT)), root) for f in files for root in _imported_roots(f)
+           if root in ("transformers", "safetensors")
+           or (root == "tokenizers" and f.name != "tokenizer.py")]
+    assert bad == []
 
 
 def _imported_roots(path: Path):

@@ -31,6 +31,17 @@ from deepspeed_tpu_torch.models import transformer as PT
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.ops.attention import paged as pt
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 everywhere: the same dequantized values (code * scale, one product
 # on both sides), then fp32 scores and softmaxes summed in another order
 ATOL = RTOL = 1e-5

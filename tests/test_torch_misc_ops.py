@@ -22,6 +22,17 @@ from deepspeed_tpu.ops import spatial as jsp
 from deepspeed_tpu_torch.ops import random_ltd as pltd
 from deepspeed_tpu_torch.ops import spatial as psp
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FP32_TOL = 2e-6
 GN_TOL = 2e-5  # fp32 means and variances summed in another order
 

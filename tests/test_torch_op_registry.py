@@ -27,6 +27,17 @@ from deepspeed_tpu_torch.accelerator.cuda_accelerator import CPU_Accelerator, CU
 from deepspeed_tpu_torch.ops import kernels as K
 from deepspeed_tpu_torch.ops.op_builder import ALL_OPS, CUDAOpBuilder, build_all_ops
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 # the ops with kernels (CUDAOpBuilder) and those that are plain torch (OpBuilder)
 CUDA_OPS = ("flash_attn", "fused_adam", "quantizer", "rms_norm", "sparse_attn", "fp_quantizer",

@@ -17,6 +17,17 @@ import jax.numpy as jnp
 from deepspeed_tpu.ops.attention import paged_pallas as jx
 from deepspeed_tpu_torch.ops.attention import paged as pt
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 everywhere: fp32 scores and online vs one-shot softmax differ only
 # in summation order (a few fp32 units in the last place of O(1) outputs)
 ATOL = RTOL = 2e-5

@@ -38,6 +38,17 @@ from deepspeed_tpu_torch.parallel.topology import (  # noqa: E402
     set_topology,
 )
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # fp32 on both sides: the same products summed in another order (the
 # Pallas bodies stream 128-row blocks with an online max, the plain
 # versions take one softmax over a chunk's row)

@@ -27,6 +27,17 @@ from deepspeed_tpu_torch.ops.kernels import KERNELS
 from deepspeed_tpu_torch.ops.sparse_attention import sparse as psp
 from deepspeed_tpu_torch.ops.sparse_attention import splash
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the packages, not the functions that each package's ``ops`` exports under
 # the same name
 jsa = importlib.import_module("deepspeed_tpu.ops.sparse_attention")

@@ -28,6 +28,17 @@ from deepspeed_tpu_torch.ops.attention import core as pcore  # noqa: E402
 from deepspeed_tpu_torch.ops.sparse_attention import mask as pmask  # noqa: E402
 from deepspeed_tpu_torch.ops.sparse_attention import splash as ps  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the CPU tests run in parallel workers, and tiny
+    ops gain nothing from a thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the packages, not the functions that each package's ``ops`` exports under
 # the same name
 jsa = importlib.import_module("deepspeed_tpu.ops.sparse_attention")

@@ -521,16 +521,20 @@ def test_unknown_remat_policy_raises():
             PT.forward(tp, torch.arange(8)[None], pc)
 
 
-def test_unported_engine_api_raises():
-    """What the engine's API still refuses: the orbax store (no
-    ``checkpoint.writer``), and the imperative calls out of order."""
+def test_unported_engine_api_raises(tmp_path):
+    """What the engine's API still refuses: a tag that holds only the JAX
+    package's orbax store (with no ``checkpoint.writer`` the port saves and
+    loads the npz archive), and the imperative calls out of order."""
     jc, pc = _configs()
     _, tp = _params(jc)
     pe, *_ = deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc), model_parameters=tp,
                                             config=_ds_config())
-    for fn in (pe.save_checkpoint, pe.load_checkpoint):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            fn("unused-dir")
+    assert pe.save_checkpoint(str(tmp_path / "npz"))
+    assert pe.load_checkpoint(str(tmp_path / "npz"))[0].endswith("global_step0")
+    (tmp_path / "orbax" / "t" / "state").mkdir(parents=True)
+    (tmp_path / "orbax" / "latest").write_text("t")
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        pe.load_checkpoint(str(tmp_path / "orbax"))
     with pytest.raises(RuntimeError, match="forward"):
         pe.backward()
     pe.step()  # micro-step 1 of 2: no boundary, nothing to apply
