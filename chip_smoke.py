@@ -207,6 +207,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
    graft_entry: ``graft_entry.entry()`` on the card, its logits against
    ``forward_reference``. The directories are removed afterwards.
 
+13. quantization. qmatmul: ``ops/qmatmul.py`` at one ``train_fused``
+   micro-batch through w_up (x [4096, 4096] bf16 @ w [4096, 14336]) and at
+   8 decode rows (``_int_mm`` takes more than 16 rows: padded to 24;
+   ``_scaled_mm`` to 16), each mode's forward against its plain version
+   (int8 modes bit for bit: the int32 product and the rescaled output; fp8
+   relative Frobenius 1e-3 against the plain fp32 product of the same
+   codes, its bf16 output within 2^-6 of the largest element), the backward
+   bit for bit against the wide vjp (dx also against
+   autograd of ``x @ w``), the cast, product and call times beside ``x @
+   w`` in bf16. train_qmm: ``train_batch`` at Mistral-7B width, 2 layers,
+   seq 4096, gas 2, FusedAdam (AdamW mode) at a constant lr on one batch, for
+   ``matmul_precision`` default, int8 and fp8: the first loss within 0.02
+   of default's, the losses finite and falling over 1 + 3 steps, step
+   seconds and tok/s, the flash, RMSNorm and FusedAdam launches exactly the
+   default's.
+   serve_wq8 / serve_wq4: the engine phase at ``quant: {enabled, bits 8 |
+   4, group_size 128}`` on the same weights: ``model_memory_bytes``
+   against the wide weights', logits against ``forward_reference`` over
+   the same weights dequantized (limit 0.05), the prefill logits'
+   correlation with the bf16 engine phase's (int8 at least 0.99; int4 at
+   least 0.5, see QUANT_CORR_MIN), launches as in the engine phase, gen and
+   round tok/s against the bf16 engine's, peak memory, and the ms the steps
+   spend widening the weights. fp_quantizer: the registry's
+   ``fp_quantizer`` at [4096, 14336] on the card, codes, scales and packed
+   bytes equal to the host's bit for bit. lora: ``optimized_linear`` 4096
+   -> 14336, r 64, int8 base, forward and backward: gradients reach the
+   adapters only, ``merge_lora``'s product within bf16's bound of the call.
+   These phases launch no kernel of their own: the quantized models' paths
+   launch the serving and training kernels, counted.
+
 Serving kernels must launch in the engine phase (the int8 pool's in
 engine_int8 and its per-row check) and in a verify step (engine_spec,
 engine_spec_int8), training kernels in the train legs,
@@ -217,9 +247,10 @@ kernels in the ring_attn and train_ring phases, the ALiBi kernels in
 train_alibi: together every kernel (train_moe and train_mlm must launch the
 flash kernels too, engine_moe and hf_import the serving kernels,
 train_import the training kernels, graft_entry RMSNorm and the flash
-forward). The line before the last lists the kernels; the last line is the result
-object. With no card, or outside a checkout, it exits non-zero and prints
-no result.
+forward; train_qmm the training kernels at every precision, serve_wq8 and
+serve_wq4 the serving kernels). The line before the last lists the
+kernels; the last line is the result object. With no card, or outside a
+checkout, it exits non-zero and prints no result.
 """
 
 import argparse
@@ -2851,7 +2882,8 @@ def common_rows_rel_err(torch, mine, other, n_p):
 
 
 def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False,
-                 kv_cache_dtype="bf16", keep=None, bf16_rows=None, hold=None):
+                 kv_cache_dtype="bf16", keep=None, bf16_rows=None, hold=None, quant_bits=None,
+                 bf16=None, bench_repeats=2):
     """The serving path, counted. ``widths``/``engine_config`` shrink the
     model and the engine for a rehearsal on the CPU; the card run uses
     neither, and serves the preset at its full depth. ``kv_cache_dtype=
@@ -2860,10 +2892,16 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False,
     ``keep``) and against the same engine forced to the plain gathers.
     ``hold`` receives the engine, its prompts and each prompt's plain
     greedy stream (the prefill token, two decode steps, the 64-step round)
-    for the phases that run on the same engine and weights."""
+    for the phases that run on the same engine and weights. ``quant_bits``
+    8 or 4 is the serve_wq8 / serve_wq4 phase: the same weights served with
+    ``quant.enabled`` (group ``QUANT_GROUP``), its logits held against
+    ``forward_reference`` over the same weights dequantized, and
+    ``quant_checks`` against the bf16 engine's ``bf16`` record (its
+    prefill rows, gen and round tok/s)."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.quantization import model_memory_bytes
     from deepspeed_tpu_torch.inference.v2.engine_v2 import (
         InferenceEngineV2,
         serving_benchmark,
@@ -2873,20 +2911,37 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False,
     int8 = kv_cache_dtype == "int8"
     t0 = time.perf_counter()
     cfg = T.get_config(MODEL, **(widths or {}))
-    rec = {"phase": "engine_int8" if int8 else "engine", "model": MODEL,
-           "n_layers": cfg.n_layers, "kv_cache_dtype": kv_cache_dtype}
+    phase = (f"serve_wq{quant_bits}" + ("_int8" if int8 else "") if quant_bits
+             else "engine_int8" if int8 else "engine")
+    rec = {"phase": phase, "model": MODEL, "n_layers": cfg.n_layers,
+           "kv_cache_dtype": kv_cache_dtype}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = T.init_params(cfg, gen, dev)
+    wide_bytes = model_memory_bytes(params)
     ec = dict(engine_config or ENGINE_CONFIG)
     ec["kv_cache"] = dict(ec["kv_cache"], kv_cache_dtype=kv_cache_dtype)
+    if quant_bits:
+        ec["quant"] = {"enabled": True, "bits": quant_bits, "group_size": QUANT_GROUP}
     rc = RaggedInferenceEngineConfig.from_dict(ec)
+    # serve_wq: layer 0's and the head's wide weights, for quant_weight_check
+    wide = None
+    if quant_bits:
+        wide = {k: w[0].clone() for k, w in params["layers"].items()}
+        wide.update({k: params[k].clone() for k in ("lm_head",) if k in params})
     eng = InferenceEngineV2(cfg, params, rc, device=dev.type)
+    del params  # a quantized engine's wide weights go with it
     if dev.type == "cuda" and eng.paged_attention_impl != "kernel":
         raise AssertionError(f"paged_attention_impl resolved to {eng.paged_attention_impl}")
     _sync(torch, dev)
     rec["params"] = T.num_params(eng.params)
     rec["setup_seconds"] = time.perf_counter() - t0
     rec["kv_pool_info"] = eng.kv_pool_info()
+    if quant_bits:
+        rec.update(quant=ec["quant"], model_memory_bytes=model_memory_bytes(eng.params),
+                   wide_model_memory_bytes=wide_bytes)
+        rec["memory_over_wide"] = rec["model_memory_bytes"] / wide_bytes
+        quant_weight_check(torch, eng, wide, rec)
+        del wide
     L = cfg.n_layers
 
     rng = np.random.default_rng(SEED)
@@ -2973,14 +3028,19 @@ def engine_phase(torch, dev, K, widths=None, engine_config=None, profile=False,
 
     if int8:
         int8_checks(torch, dev, eng, prompts, rows_of, bf16_rows, rec)
+    if quant_bits:
+        quant_checks(torch, dev, eng, rows_of, bf16, rec)
     del rows_of
 
     # ---- serving throughput (generate: prefill + fused rounds)
     t0 = time.perf_counter()
-    rec["gen_tok_s"] = serving_benchmark(eng, n_seq=32, max_new=64, repeats=2)
+    rec["gen_tok_s"] = serving_benchmark(eng, n_seq=32, max_new=64, repeats=bench_repeats)
     rec["serving_seconds"] = time.perf_counter() - t0
     rec["peak_mem_gb_serving"] = (torch.cuda.max_memory_allocated() / 1e9
                                    if dev.type == "cuda" else None)
+    if quant_bits and bf16 is not None:
+        rec["gen_tok_s_over_bf16"] = rec["gen_tok_s"] / bf16["gen_tok_s"]
+        rec["round_tok_s_over_bf16"] = rec["round_tok_s"] / bf16["round_tok_s"]
     if profile:
         rec["profile"] = profile_engine(torch, eng, rng, cfg.vocab_size)
     return rec, launches
@@ -3021,6 +3081,123 @@ def int8_checks(torch, dev, eng, prompts, rows_of, bf16_rows, rec):
     if rec["dense_logit_rel_err"] > LOGIT_RTOL or rec.get("bf16_logit_rel_err", 0) > INT8_LOGIT_RTOL:
         raise AssertionError(f"int8 logits off: {rec['dense_logit_rel_err']} against the dense "
                              f"path, {rec.get('bf16_logit_rel_err')} against the bf16 engine")
+
+
+# weight-only quantized serving (serve_wq8 / serve_wq4): the group of the
+# fp32 block scales along each weight's last dim
+QUANT_GROUP = 128
+# serve_wq8_int8: weight-only int8 over an int8 KV pool (block_quant on
+# every K/V write, the int8 paged decode), at Mistral-7B width and 2 of its
+# layers: the launches and the logits, not the throughput
+QUANT_INT8_POOL_LAYERS = 2
+# the quantized engine's prefill logits against the bf16 engine's over the
+# same prompts: their correlation. int8 is gated as the JAX package's
+# test_forward_close_to_wide gates its (int8) engine: 0.999 there at fp32
+# and a tiny width, 0.99 here for bf16 at Mistral-7B width. That JAX test
+# gates no int4 model: random weights are Gaussian, and 4 bits over a
+# block of 128 of them (a step of absmax / 7, ~0.37 sigma) leave ~11% noise
+# on every weight, so an int4 model's logits correlate well below 0.99 with
+# the wide model's (0.787 in serve_wq4 on an H100); int4 is held only above
+# 0.5, where a wrong dequantization (correlation ~0) fails
+QUANT_CORR_MIN = {8: 0.99, 4: 0.5}
+
+
+# the widened weights against the wide ones they were quantized from,
+# relative Frobenius: rounding to a step of absmax / qmax over blocks of
+# 128 Gaussian values, then once to bf16, gives 0.0068 (int8) and 0.1174
+# (int4) on the host's draws (512 x 4096 and 512 x 14336 at std 0.02); a
+# code offset or a scale from the wrong block moves a weight by a step
+QUANT_WEIGHT_RTOL = {8: 0.0075, 4: 0.125}
+
+
+def _host_dequant(torch, qw, dtype):
+    """A plain dequantization of ``qw``'s codes and scales on the host, in
+    numpy, written apart from ``dequantize_leaf``: int4 bytes split by
+    hand (low nibble first, less 7), fp32 products with the block scales,
+    one cast to ``dtype``."""
+    import numpy as np
+
+    q = qw.q.cpu().numpy()
+    if qw.bits == 4:
+        u = q.view(np.uint8)
+        codes = np.empty(u.shape[:-1] + (2 * u.shape[-1],), np.float32)
+        codes[..., 0::2] = (u & 0xF).astype(np.float32) - 7.0
+        codes[..., 1::2] = (u >> 4).astype(np.float32) - 7.0
+    else:
+        codes = q.astype(np.float32)
+    s = qw.s.cpu().numpy().astype(np.float32)
+    blocks = codes.reshape(codes.shape[:-1] + (-1, qw.group)) * s[..., None]
+    return torch.from_numpy(blocks.reshape(codes.shape)).to(dtype)
+
+
+def quant_weight_check(torch, eng, wide, rec):
+    """serve_wq8 / serve_wq4's weights at the source: layer 0's and the
+    head's quantized leaves, widened on the card by the engine's own path
+    (``_lp``, the head's ``_dequant_tree``), equal bit for bit to
+    ``_host_dequant`` of the same codes and scales, and within
+    QUANT_WEIGHT_RTOL (relative Frobenius) of ``wide``, the weights they
+    were quantized from."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    bits = rec["quant"]["bits"]
+    stored, widened = dict(eng._layer_params[0]), dict(eng._lp(0))
+    if "lm_head" in eng.params:
+        stored["lm_head"] = eng.params["lm_head"]
+        widened["lm_head"] = T._dequant_tree(eng.params["lm_head"], eng._dtype)
+    out = {}
+    for name, qw in stored.items():
+        if not isinstance(qw, T.QuantizedWeight):
+            continue
+        got = widened[name]
+        out[name] = {"mismatches": _bits_mismatch(torch, got, _host_dequant(torch, qw, got.dtype)),
+                     "rel_frobenius": _rel_fro(torch, got, wide[name].to(got.dtype))}
+    rec["weight_check"] = {"leaves": out, "rtol": QUANT_WEIGHT_RTOL[bits],
+                           "max_rel_frobenius": max(r["rel_frobenius"] for r in out.values())}
+    if (not out or any(r["mismatches"] for r in out.values())
+            or rec["weight_check"]["max_rel_frobenius"] > QUANT_WEIGHT_RTOL[bits]):
+        raise AssertionError(f"{rec['phase']}: widened weights off: {rec['weight_check']}")
+
+
+def quant_checks(torch, dev, eng, rows_of, bf16, rec):
+    """serve_wq8 / serve_wq4: the prefill logits' correlation with the bf16
+    engine's on the same prompts (``bf16["prefill"]``: uid -> row), and
+    the time the steps spend widening weights (every layer's and the
+    head's, plain torch, timed with CUDA events: eager, as the steps run
+    it)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    if bf16 is not None:
+        mine = np.concatenate([rows_of[u][0][0].float().cpu().numpy() for u in sorted(bf16["prefill"])])
+        wide = np.concatenate([np.asarray(bf16["prefill"][u], np.float32)
+                               for u in sorted(bf16["prefill"])])
+        rec["bf16_prefill_corr"] = float(np.corrcoef(mine, wide)[0, 1])
+        rec["bf16_prefill_rel_err"] = max(
+            rows_rel_err(torch, rows_of[u][0][0], bf16["prefill"][u]) for u in bf16["prefill"])
+        rec["bf16_prefill_corr_min"] = QUANT_CORR_MIN[rec["quant"]["bits"]]
+        if rec["bf16_prefill_corr"] < rec["bf16_prefill_corr_min"]:
+            raise AssertionError(f"{rec['phase']}: prefill logits' correlation with the bf16 "
+                                 f"engine's {rec['bf16_prefill_corr']} < "
+                                 f"{rec['bf16_prefill_corr_min']}")
+    L = eng._mc.n_layers
+
+    def widen_layers():
+        for li in range(L):
+            eng._lp(li)
+
+    def widen_head():
+        T._dequant_tree(eng.params["lm_head"], eng._dtype)
+
+    if dev.type == "cuda":
+        rec["dequant_layers_ms"] = eager_ms(torch, widen_layers, iters=3, warmup=1)
+        rec["dequant_head_ms"] = eager_ms(torch, widen_head, iters=3, warmup=1)
+        # a split or round step widens every layer once and the head once
+        # (the split step's head twice: decode and chunk rows)
+        rec["dequant_ms_per_round_step"] = rec["dequant_layers_ms"] + rec["dequant_head_ms"]
+        rec["round_ms_per_step"] = rec["round_seconds"] / 64 * 1e3
+        rec["dequant_share_of_round_step"] = (rec["dequant_ms_per_round_step"]
+                                              / rec["round_ms_per_step"])
 
 
 # ---------------------------------------------------------------------------
@@ -4170,11 +4347,14 @@ def routes_spy(torch):
     return calls, undo
 
 
-def timed_train(torch, dev, K, cfg, ds_config, batches, per_step, rec):
+def timed_train(torch, dev, K, cfg, ds_config, batches, per_step, rec, profile=False):
     """``initialize`` -> ``train_batch`` over ``batches`` (the first a
     warm-up), on freshly seeded weights: losses, step seconds, tok/s, MFU,
     peak memory and the exact kernel launches (``per_step`` an optimizer
-    step; every other kernel 0) into ``rec``. Returns the launches."""
+    step, where a "fused_adam" of None counts the leaves of at least 65536
+    elements, one launch each; every other kernel 0) into ``rec``. With
+    ``profile`` (a card), one more step under ``device_profile`` after the
+    counted ones. Returns the launches."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -4187,6 +4367,9 @@ def timed_train(torch, dev, K, cfg, ds_config, batches, per_step, rec):
     eng, *_ = deepspeed_tpu_torch.initialize(model=T.make_loss_fn(cfg), model_parameters=params,
                                              config=ds_config)
     del params
+    if per_step.get("fused_adam", 0) is None:
+        per_step = dict(per_step, fused_adam=sum(
+            t.numel() >= (1 << 16) for t in leaves(eng.params).values()))
     rec["params"] = sum(t.numel() for t in leaves(eng.params).values())
     rec["reckoned_train_gb"] = rec["params"] * TRAIN_BYTES_PER_PARAM / 1e9
     losses, step_s = [], []
@@ -4214,6 +4397,10 @@ def timed_train(torch, dev, K, cfg, ds_config, batches, per_step, rec):
     rec["flops_per_token"] = T.flops_per_token(cfg, first.shape[1])
     rec["mfu"] = rec["flops_per_token"] * rec["tok_s"] / BF16_FLOPS
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    if profile and dev.type == "cuda":
+        rec["profile"] = device_profile(
+            torch, {rec["phase"] + "_step": lambda: float(eng.train_batch(batch=batches[-1]))},
+            sums=QMM_PROFILE_SUMS)
     del eng
     return launches
 
@@ -6076,11 +6263,360 @@ def import_phases(torch, dev, K, root, card, hf_kw=None, train_kw=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# quantization: the quantized-forward products, matmul_precision through
+# training, weight-only int8 / int4 serving, the FP quantizer, LoRA
+# ---------------------------------------------------------------------------
+# qmatmul at one train_fused micro-batch through w_up, and at a decode
+# step's 8 rows through the same weight
+QMM_SHAPES = {"train_w_up": (4096, 4096, 14336), "decode_w_up": (8, 4096, 14336)}
+# fp8: the library's product (fp32 out) against the plain fp32 product of
+# the same codes, relative Frobenius (fp32 sums in another order); the
+# call's bf16 output within 2^-6 of the largest element of the plain one
+QMM_FP8_RTOL = 1e-3
+# the card's int8 and fp8 tensor-core peaks (H100 SXM data sheet, dense)
+INT8_OPS = FP8_FLOPS = 1979e12
+# train_qmm: 2 of Mistral-7B's layers at seq 4096, gas 2, FusedAdam (AdamW
+# mode) at a constant lr on one batch; the first step's loss within 0.02 of
+# the default precision's (the parity legs' loss tolerance)
+QMM_TRAIN_LAYERS = 2
+QMM_TRAIN_STEPS = 3
+QMM_TRAIN_LR = 3e-4
+QMM_LOSS_ATOL = PARITY_LOSS_ATOL
+QMM_TRAIN_MODES = ("default", "int8", "fp8")
+# train_qmm --profile: kernel-name substrings whose device time is summed
+# (cuBLAS names its products by operand types: f32 the fp32 ones, bf16,
+# s8/i8 the int8 ones, e4m3 the fp8 ones)
+QMM_PROFILE_SUMS = ("gemm", "nvjet", "f32f32", "sgemm", "bf16", "s8", "i8", "e4m3",
+                    "elementwise", "reduce")
+# the FP quantizer at one w_up's shape; LoRA over the same projection
+FPQ_SHAPE = (4096, 14336)
+LORA_SHAPE = dict(in_f=4096, out_f=14336, r=64, tokens=4096)
+
+
+def _bits_mismatch(torch, a, b):
+    """Elements whose bits differ (same shape and dtype; any device)."""
+    a, b = a.detach(), b.detach().to(a.device)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{tuple(a.shape)} {a.dtype} against {tuple(b.shape)} {b.dtype}")
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return int((a.contiguous().view(view) != b.contiguous().view(view)).sum())
+
+
+def _rel_fro(torch, got, want):
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def qmatmul_phase(torch, dev, K, shapes=None, seed=SEED):
+    """``ops/qmatmul.py`` at the shapes the training and serving paths give
+    it: for each mode, the forward against its plain version (int8 modes
+    bit for bit: the int32 products and the rescaled outputs; fp8 relative
+    Frobenius against the plain fp32 product of the same codes), the
+    backward bit for bit against the wide vjp's formula (dx also against
+    autograd of ``x @ w``), and CUDA-graph times of the cast, the product
+    and the whole call beside ``x @ w`` in bf16. The library products pad
+    rows (``_int_mm``: more than 16; ``_scaled_mm``: a multiple of 16)."""
+    from deepspeed_tpu_torch.ops import qmatmul as Q
+
+    cuda = dev.type == "cuda"
+    rec = {"phase": "qmatmul", "shapes": {}}
+    for name, (m, k, n) in (shapes or QMM_SHAPES).items():
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        w = (torch.randn(k, n, generator=g, device=dev) * k ** -0.5).bfloat16()
+        gy = torch.randn(m, n, generator=g, device=dev).bfloat16()
+        out = {"m": m, "k": k, "n": n, "modes": {},
+               "int8_rows_padded_to": max(Q._up(m, 8), 24), "fp8_rows_padded_to": Q._up(m, 16),
+               "bf16_ms": time_ms(torch, lambda: x @ w) if cuda else None,
+               "bf16_bound_ms": max(2 * (m * k + k * n + m * n) / HBM_BYTES_PER_S,
+                                    2 * m * k * n / BF16_FLOPS) * 1e3}
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        adx, adw = torch.autograd.grad(xr @ wr, (xr, wr), gy)
+        for mode in Q.MODES:
+            r = {}
+            got = Q.qmatmul_forward(x, w, mode)
+            if mode == "fp8":
+                (xq, sx), (wq, sw) = Q._cast_fp8(x), Q._cast_fp8(w)
+                plain32 = Q.fp8_product_reference(xq, wq, sx, sw, torch.float32)
+                r["rel_frobenius"] = _rel_fro(
+                    torch, Q.fp8_product(xq, wq, sx, sw, torch.float32), plain32)
+                # the call's bf16 output: the library rounds its fp32 sums
+                # (summed in another order) once, so last bits differ
+                want = plain32.to(x.dtype)
+                r["bf16_out_rel_frobenius"] = _rel_fro(torch, got, want)
+                r["bf16_out_mismatches"] = _bits_mismatch(torch, got, want)
+                r["bf16_out_max_abs_err"] = float((got.float() - want.float()).abs().max())
+                r["bf16_out_bound"] = BF16_ATOL * float(want.float().abs().max())
+                if (r["rel_frobenius"] > QMM_FP8_RTOL
+                        or r["bf16_out_max_abs_err"] > r["bf16_out_bound"]):
+                    raise AssertionError(f"qmatmul fp8 {name}: {r}")
+
+                def product():
+                    return Q.fp8_product(xq, wq, sx, sw, x.dtype)
+
+                def library():
+                    return Q._fp8_library(xq, wq, sx, sw, x.dtype)
+
+                def cast():
+                    return Q._cast_fp8(x), Q._cast_fp8(w)
+            else:
+                dims = (-1, 0) if mode == "int8" else (None, None)
+                (xq, sx), (wq, sw) = Q._cast_i8(x, dims[0]), Q._cast_i8(w, dims[1])
+                prod = Q.int8_product(xq, wq)
+                plain = Q.int8_product_reference(xq, wq)
+                if mode == "int8":
+                    want = (plain.float() * sx * sw).to(x.dtype)
+                else:
+                    want = (plain.float() * (sx * sw)).to(x.dtype)
+                r["int32_mismatches"] = _bits_mismatch(torch, prod, plain)
+                r["mismatches"] = _bits_mismatch(torch, got, want)
+                if r["int32_mismatches"] or r["mismatches"]:
+                    raise AssertionError(f"qmatmul {mode} {name}: {r}")
+
+                def product():
+                    p = Q.int8_product(xq, wq).float()
+                    return (p * sx * sw if mode == "int8" else p * (sx * sw)).to(x.dtype)
+
+                def library():
+                    return Q._int8_library(xq, wq)
+
+                def cast():
+                    return Q._cast_i8(x, dims[0]), Q._cast_i8(w, dims[1])
+            r["max_abs_err_vs_bf16_product"] = float((got.float() - (x @ w).float()).abs().max())
+            r["rel_frobenius_vs_bf16_product"] = _rel_fro(torch, got, x @ w)
+            dx, dw = torch.autograd.grad(Q.qmatmul(xr, wr, mode), (xr, wr), gy)
+            wdx, wdw = Q.qmatmul_vjp(x, w, gy)
+            r["dx_mismatches"] = _bits_mismatch(torch, dx, wdx)
+            r["dw_mismatches"] = _bits_mismatch(torch, dw, wdw)
+            r["dx_mismatches_vs_autograd"] = _bits_mismatch(torch, dx, adx)
+            # autograd's dw is a bf16 product; the vjp's sums in fp32, then casts
+            r["dw_mismatch_share_vs_autograd"] = _bits_mismatch(torch, dw, adw) / dw.numel()
+            if r["dx_mismatches"] or r["dw_mismatches"] or r["dx_mismatches_vs_autograd"]:
+                raise AssertionError(f"qmatmul {mode} {name} backward: {r}")
+            if cuda:
+                r["ms"] = time_ms(torch, lambda: Q.qmatmul_forward(x, w, mode))
+                r["quantize_ms"] = time_ms(torch, cast)
+                r["product_ms"] = time_ms(torch, product)
+                # the library call alone (its layout copy included; int8:
+                # before the int32 -> fp32 rescale)
+                r["library_ms"] = time_ms(torch, library)
+                r["bf16_ms_over_ms"] = out["bf16_ms"] / r["ms"]
+                r["bf16_ms_over_product_ms"] = out["bf16_ms"] / r["product_ms"]
+            r["product_bound_ms"] = max((m * k + k * n + 2 * m * n) / HBM_BYTES_PER_S,
+                                        2 * m * k * n / INT8_OPS) * 1e3
+            out["modes"][mode] = r
+        rec["shapes"][name] = out
+        del x, w, gy, xr, wr, adx, adw
+    return rec, K.counts()
+
+
+def train_qmm_phase(torch, dev, K, widths=None, layers=QMM_TRAIN_LAYERS, seq=SEQ,
+                    steps=QMM_TRAIN_STEPS, modes=QMM_TRAIN_MODES, profile=False):
+    """``matmul_precision`` through ``initialize`` -> ``train_batch``: the
+    same weights and one batch (gas 2 x seq tokens) for each mode, FusedAdam
+    in AdamW mode at a constant lr, 1 warm-up and ``steps`` timed steps; the
+    first loss within QMM_LOSS_ATOL of the default precision's, the losses
+    finite and falling, the flash, RMSNorm and FusedAdam launches per step
+    exactly the default's. ``profile``: each mode's step under
+    ``device_profile``, its kernels summed by QMM_PROFILE_SUMS."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    widths = dict(widths or {})
+    widths.setdefault("dtype", "bfloat16")
+    ds_config = {k: v for k, v in TRAIN_CONFIG.items() if k != "scheduler"}
+    ds_config["optimizer"] = dict(FUSED_OPTIMIZER,
+                                  params=dict(FUSED_OPTIMIZER["params"], lr=QMM_TRAIN_LR))
+    if widths["dtype"] != "bfloat16":
+        del ds_config["bf16"]
+    gas = ds_config["gradient_accumulation_steps"]
+    rng = np.random.default_rng(SEED)
+    cfg = T.get_config(MODEL, n_layers=layers, remat=False, **widths)
+    batch = {"input_ids": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(gas, seq + 1)),
+                                          device=dev)}
+    per_step = {"rms_norm_fwd": gas * (2 * layers + 1), "rms_norm_bwd": gas * (2 * layers + 1),
+                "flash_fwd": gas * layers, "flash_bwd_dq": gas * layers,
+                "flash_bwd_dkv": gas * layers, "fused_adam": None}
+    rec = {"phase": "train_qmm", "model": MODEL, "n_layers": layers, "seq": seq, "gas": gas,
+           "lr": QMM_TRAIN_LR, "modes": {}}
+    launches = {}
+    for mode in modes:
+        cfg = T.get_config(MODEL, n_layers=layers, remat=False, matmul_precision=mode, **widths)
+        sub = {"phase": f"train_qmm[{mode}]"}
+        launches[mode] = timed_train(torch, dev, K, cfg, ds_config, [batch] * (1 + steps),
+                                     per_step, sub, profile=profile)
+        rec["modes"][mode] = {k: sub[k] for k in (
+            "losses", "step_seconds", "mean_step_seconds", "tok_s", "mfu", "peak_mem_gb",
+            "launches_per_optimizer_step", "profile") if k in sub}
+        losses = sub["losses"]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train_qmm {mode}: the loss did not fall: {losses}")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    first = rec["modes"]["default"]["losses"][0]
+    rec["first_loss_diff"] = {m: abs(r["losses"][0] - first) for m, r in rec["modes"].items()}
+    if max(rec["first_loss_diff"].values()) > QMM_LOSS_ATOL:
+        raise AssertionError(f"train_qmm: first losses off the default's: {rec['first_loss_diff']}")
+    if any(launches[m] != launches["default"] for m in modes):
+        raise AssertionError(f"train_qmm: launches differ between precisions: {launches}")
+    rec["launches"] = launches["default"]
+    return rec, launches
+
+
+def fp_quantizer_phase(torch, dev, K, shape=FPQ_SHAPE, seed=SEED):
+    """The op registry's ``fp_quantizer``: ``fp8_cast``, ``fp_quantize``
+    (fp6, fp8, fp12, groups of 128), ``fp_pack`` and ``fp_unpack`` on the
+    card at one w_up's shape; codes, scales and packed bytes equal the same
+    functions' on the host's copy bit for bit, and the bytes unpack to the
+    values. Times are CUDA-event times of eager calls."""
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+
+    op = get_accelerator().create_op_builder("fp_quantizer").load()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev) * 3.0
+    xc = x.cpu()
+    rec = {"phase": "fp_quantizer", "shape": list(shape), "formats": {}}
+    v, s = op.fp8_cast(x)
+    vc, sc = op.fp8_cast(xc)
+    rec["fp8_cast"] = {"mismatches": _bits_mismatch(torch, v, vc),
+                       "scale_equal": float(s) == float(sc)}
+    if dev.type == "cuda":
+        rec["fp8_cast"]["ms"] = eager_ms(torch, lambda: op.fp8_cast(x), iters=5, warmup=1)
+    bad = rec["fp8_cast"]["mismatches"] or not rec["fp8_cast"]["scale_equal"]
+    for q_bits in (6, 8, 12):
+        q, sq, shp = op.fp_quantize(x, q_bits=q_bits, group_size=128)
+        qc, sqc, _ = op.fp_quantize(xc, q_bits=q_bits, group_size=128)
+        p, pc = op.fp_pack(q, q_bits), op.fp_pack(qc, q_bits)
+        r = {"value_mismatches": _bits_mismatch(torch, q, qc),
+             "scale_mismatches": _bits_mismatch(torch, sq, sqc),
+             "byte_mismatches": _bits_mismatch(torch, p, pc), "bytes": p.numel(),
+             # by value: the codes keep no sign for a zero (q holds -0.0 for x < 0)
+             "unpack_mismatches": int((op.fp_unpack(p, q.numel(), q_bits)
+                                       != q.reshape(-1)).sum())}
+        if dev.type == "cuda":
+            r["quantize_pack_ms"] = eager_ms(
+                torch, lambda: op.fp_pack(op.fp_quantize(x, q_bits, 128)[0], q_bits),
+                iters=5, warmup=1)
+        rec["formats"][f"fp{q_bits}"] = r
+        bad = bad or any(v for k, v in r.items() if k.endswith("mismatches"))
+        del q, qc, p, pc
+    if bad:
+        raise AssertionError(f"fp_quantizer: the card's codes differ from the host's: {rec}")
+    return rec, K.counts()
+
+
+def lora_phase(torch, dev, K, in_f=LORA_SHAPE["in_f"], out_f=LORA_SHAPE["out_f"],
+               r=LORA_SHAPE["r"], tokens=LORA_SHAPE["tokens"], seed=SEED):
+    """``optimized_linear`` with an int8 base (``quantize_blockwise``,
+    blocks of 512) and rank-r adapters in bf16, forward and backward on the
+    card: gradients reach ``lora_a`` and ``lora_b`` only; ``x @
+    merge_lora(...)`` equals the call within bf16's bound (2^-6 of the
+    largest element); the int8 base's error against the wide weight, the
+    call's ms and peak memory."""
+    from deepspeed_tpu_torch.linear import (
+        LoRAConfig,
+        QuantizationConfig,
+        init_optimized_linear,
+        lora_trainable_mask,
+        merge_lora,
+        optimized_linear,
+    )
+    from deepspeed_tpu_torch.linear.optimized_linear import _base_weight
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lora, quant = LoRAConfig(lora_r=r, lora_alpha=16.0), QuantizationConfig(q_bits=8)
+    wide = (torch.randn(in_f, out_f, generator=g, device=dev) * in_f ** -0.5).bfloat16()
+    p = init_optimized_linear(g, in_f, out_f, lora, quant, dtype=torch.bfloat16,
+                              base_weight=wide)
+    p["lora_b"] = (torch.randn(r, out_f, generator=g, device=dev) * 0.02).bfloat16()
+    x = torch.randn(tokens, in_f, generator=g, device=dev).bfloat16()
+    gy = torch.randn(tokens, out_f, generator=g, device=dev).bfloat16()
+    a, b = p["lora_a"].requires_grad_(True), p["lora_b"].requires_grad_(True)
+    scales = p["base"]["scales"].requires_grad_(True)
+    rec = {"phase": "lora", "in": in_f, "out": out_f, "r": r, "tokens": tokens,
+           "base_bits": quant.q_bits, "base_block": quant.group_size,
+           "mask": lora_trainable_mask(p)}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    y = optimized_linear(p, x, lora, quant)
+    ga, gb, gs = torch.autograd.grad(y, (a, b, scales), gy, allow_unused=True)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    rec["base_grad"] = gs is not None
+    rec["lora_grad_norms"] = [float(ga.float().norm()), float(gb.float().norm())]
+    with torch.no_grad():
+        merged = merge_lora(p, lora, quant)
+        ym = x @ merged
+        rec["merge_max_abs_err"] = float((ym.float() - y.float()).abs().max())
+        rec["merge_bound"] = BF16_ATOL * float(y.float().abs().max())
+        rec["base_rel_frobenius"] = _rel_fro(
+            torch, _base_weight(p, quant, (in_f, out_f), torch.float32), wide)
+    if dev.type == "cuda":
+        def call():
+            yy = optimized_linear(p, x, lora, quant)
+            torch.autograd.grad(yy, (a, b), gy)
+
+        rec["fwd_bwd_ms"] = eager_ms(torch, call, iters=5, warmup=1)
+        rec["dense_fwd_bwd_ms"] = eager_ms(
+            torch, lambda: torch.autograd.grad(x @ wide.requires_grad_(True), wide, gy),
+            iters=5, warmup=1)
+    if (gs is not None or not all(t > 0 and t == t for t in rec["lora_grad_norms"])
+            or rec["merge_max_abs_err"] > rec["merge_bound"]):
+        raise AssertionError(f"lora: {rec}")
+    return rec, K.counts()
+
+
+def quant_phases(torch, dev, K, card, bf16=None, profile=False, serve_kw=None, qmm_kw=None,
+                 train_kw=None, fpq_kw=None, lora_kw=None):
+    """qmatmul, train_qmm, serve_wq8, serve_wq4, serve_wq8_int8, fp_quantizer
+    and lora, each emitted with its seconds and launches (counted from 0 just before
+    it). ``bf16``: the bf16 engine's prefill rows and tok/s for the serving
+    phases; the ``*_kw`` shrink the phases for a rehearsal on the CPU.
+    Returns the launches of each phase."""
+    launches = {}
+    pool_kw = dict(serve_kw or {})
+    pool_kw["widths"] = dict(pool_kw.get("widths") or {}, n_layers=QUANT_INT8_POOL_LAYERS)
+    runs = (
+        ("qmatmul", lambda: qmatmul_phase(torch, dev, K, **(qmm_kw or {}))),
+        ("train_qmm", lambda: train_qmm_phase(torch, dev, K, profile=profile,
+                                              **(train_kw or {}))),
+        ("serve_wq8", lambda: engine_phase(torch, dev, K, quant_bits=8, bf16=bf16,
+                                           profile=profile, bench_repeats=1,
+                                           **(serve_kw or {}))),
+        ("serve_wq4", lambda: engine_phase(torch, dev, K, quant_bits=4, bf16=bf16,
+                                           profile=profile, bench_repeats=1,
+                                           **(serve_kw or {}))),
+        ("serve_wq8_int8", lambda: engine_phase(torch, dev, K, quant_bits=8,
+                                                kv_cache_dtype="int8", bench_repeats=1,
+                                                **pool_kw)),
+        ("fp_quantizer", lambda: fp_quantizer_phase(torch, dev, K, **(fpq_kw or {}))),
+        ("lora", lambda: lora_phase(torch, dev, K, **(lora_kw or {}))),
+    )
+    for name, run in runs:
+        t0 = time.perf_counter()
+        K.reset_counts()
+        rec, launches[name] = run()
+        rec.update(card=card, seconds=time.perf_counter() - t0)
+        emit(rec)
+        if name.startswith("serve_wq"):
+            print(f"{name}: weights {rec['model_memory_bytes'] / 1e9:.3f} GB against "
+                  f"{rec['wide_model_memory_bytes'] / 1e9:.3f} GB wide "
+                  f"({rec['memory_over_wide']:.3f}x), gen {rec['gen_tok_s']:.1f} tok/s, round "
+                  f"{rec['round_tok_s']:.1f} tok/s, widening "
+                  f"{rec.get('dequant_ms_per_round_step', float('nan')):.2f} ms a step, on {card}",
+                  flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return launches
+
+
 def device_profile(torch, fns, sums=()):
-    """torch.profiler over each named callable: device time by kernel name,
-    the device's busy share of the wall time, and the host operators with
-    the most self time (opt-in, ``--profile``); ``sums``: substrings of
-    kernel names whose device ms and launches are also summed."""
+    """torch.profiler over each named callable: device time by kernel name
+    (the 24 kernels with the most), the device's busy share of the wall
+    time, and the host operators with the most self time (opt-in,
+    ``--profile``); ``sums``: substrings of kernel names whose device ms and
+    launches are also summed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -6121,7 +6657,7 @@ def device_profile(torch, fns, sums=()):
             "syncs": sum(counts.get(k, 0) for k in ("cudaStreamSynchronize",
                                                     "cudaDeviceSynchronize",
                                                     "cudaEventSynchronize")),
-            "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:16]],
+            "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:24]],
             "sums": {pat: {"ms": sum(r[1] for r in rows if pat in r[0]),
                            "count": sum(r[2] for r in rows if pat in r[0])} for pat in sums},
             "host_top": [{"op": k[:60], "self_ms": ms, "count": n} for k, ms, n in host[:12]],
@@ -6213,6 +6749,9 @@ def main(argv=None):
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     bf16_info, bf16_gen, bf16_round = rec["kv_pool_info"], rec["gen_tok_s"], rec["round_tok_s"]
+    # the serve_wq phases hold their prefill logits against these rows
+    bf16 = {"gen_tok_s": bf16_gen, "round_tok_s": bf16_round,
+            "prefill": {u: v[0][0].clone() for u, v in bf16_rows.items() if isinstance(u, int)}}
     torch.cuda.empty_cache()
 
     # speculative decoding, the host tier and the v1 engine on the engine
@@ -6343,6 +6882,13 @@ def main(argv=None):
     print(f"hf_import + train_import + graft_entry: {time.perf_counter() - t0:.1f} s on {card}",
           flush=True)
 
+    # quantization: qmatmul, matmul_precision through training, weight-only
+    # int8 / int4 serving on the engine phase's weights, the FP quantizer, LoRA
+    t0 = time.perf_counter()
+    quant_launches = quant_phases(torch, dev, K, card, bf16=bf16, profile=args.profile)
+    print(f"qmatmul + train_qmm + serve_wq8 + serve_wq4 + serve_wq8_int8 + fp_quantizer + "
+          f"lora: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
     # serving kernels launch in the engine phase (the int8 pool's in the
     # engine_int8 phase and the int8 per-row check), training kernels in the
     # train legs, the fused leg's four in the fused leg, the splash kernels
@@ -6380,6 +6926,13 @@ def main(argv=None):
                 if import_launches["train_import"][n] <= 0]
     missing += [f"{n} (graft_entry)" for n in ("rms_norm_fwd", "flash_fwd")
                 if import_launches["graft_entry"][n] <= 0]
+    missing += [f"{n} (train_qmm {mode})" for mode, n in
+                ((m, n) for m in QMM_TRAIN_MODES for n in TRAIN_KERNELS + ("fused_adam",))
+                if quant_launches["train_qmm"][mode][n] <= 0]
+    missing += [f"{n} ({phase})" for phase in ("serve_wq8", "serve_wq4") for n in SERVE_KERNELS
+                if quant_launches[phase][n] <= 0]
+    missing += [f"{n} (serve_wq8_int8)" for n in ("rms_norm_fwd",) + INT8_KERNELS
+                if quant_launches["serve_wq8_int8"][n] <= 0]
     if missing or set(launched) != set(K.KERNELS):
         raise AssertionError(
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
@@ -6429,6 +6982,10 @@ def main(argv=None):
             **({"no_alibi_ms": rec["no_alibi_ms"]} if name in FLASH_ALIBI_KERNELS else {}),
             **{f"launches_{phase_name}": n.get(name, 0)
                for phase_name, n in import_launches.items()},
+            **{f"launches_{phase_name}": quant_launches[phase_name].get(name, 0)
+               for phase_name in ("serve_wq8", "serve_wq4", "serve_wq8_int8")},
+            **{f"launches_train_qmm_{mode}": quant_launches["train_qmm"][mode].get(name, 0)
+               for mode in QMM_TRAIN_MODES},
             "matched": True,  # check_close raised otherwise
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

@@ -19,9 +19,11 @@ Counterpart of ``deepspeed_tpu/inference/engine.py``, eager PyTorch:
     draws (ROADMAP queue 1, item 4); greedy streams agree with it.
 
 The engine runs on ``device`` ("cuda" unless the caller passes "cpu") and
-raises when asked for a card that is not there. Tensor parallelism and
-weight-only quantization raise ``NotImplementedError`` naming their ROADMAP
-items.
+raises when asked for a card that is not there. ``quant.enabled`` stores
+the matmul weights int8 / int4 (``inference/quantization``), quantized
+after the dtype cast; each layer widens as it runs. Tensor parallelism
+raises ``NotImplementedError`` naming its ROADMAP item (with ``quant`` too,
+which the JAX package refuses with tensor parallelism).
 """
 
 from typing import Any, Optional
@@ -69,9 +71,11 @@ class InferenceEngine:
             raise ValueError(f"InferenceEngine: device {device!r} (expected cuda or cpu)")
         tp = config.tensor_parallel.tp_size if config.tensor_parallel else 1
         if tp > 1 or (topology is not None and topology.model_parallel_size > 1):
+            if getattr(config, "quant", None) is not None and config.quant.enabled:
+                # as the JAX engine: its placement specs describe the wide tree
+                raise NotImplementedError(
+                    "quantized inference with tensor parallelism is unsupported")
             raise _later("tensor_parallel.tp_size > 1", "ROADMAP queue 1, item 6: multi-GPU")
-        if getattr(config, "quant", None) is not None and config.quant.enabled:
-            raise _later("weight-only quantized inference (quant)", "ROADMAP queue 1, item 8")
         T._check_forward(self.model_config)
         dtype = T.DTYPES.get(config.dtype, torch.bfloat16)
 
@@ -87,6 +91,11 @@ class InferenceEngine:
             return out
 
         self.params = place(params)
+        if getattr(config, "quant", None) is not None and config.quant.enabled:
+            from deepspeed_tpu_torch.inference.quantization import quantize_inference_params
+
+            self.params = quantize_inference_params(self.params, bits=config.quant.bits,
+                                                    group_size=config.quant.group_size)
         self._mc = self.model_config
         self._decode_steps = int(getattr(config, "decode_steps", 1) or 1)
         log_dist(f"InferenceEngine: dtype={config.dtype} max_tokens={config.max_tokens} "

@@ -45,6 +45,14 @@ layer's attention reads only its own layer's region, and the pool limit
 (the step's decode positions, the chunk starts, the round's start
 positions) masks every position the step or round has written.
 
+``quant.enabled`` (weight-only quantized serving, ``inference/
+quantization``): the matmul weights are quantized after the dtype cast and
+held int8 / packed int4 with fp32 block scales; every step body widens its
+layer's weights at its top (``_lp``) and the head's in ``_apply_lm_head``,
+in plain torch, so the wide copy is one layer's. The KV pools, the
+transports and the host tier move K/V, not weights, and work as they do
+for a wide model.
+
 Speculative decoding (``spec_round``) verifies each row's pending token
 and up to k drafts in one forward of R x (k + 1) query rows: the verify
 form of ``paged_attention`` (``paged.verify_kwargs``: each query row
@@ -201,9 +209,6 @@ class InferenceEngineV2:
         kv = cfg.kv_cache
         if int(getattr(cfg, "tp_size", 1) or 1) > 1:
             raise _later("tp_size > 1", "ROADMAP queue 1, item 6: multi-GPU")
-        if getattr(cfg, "quant", None) is not None and cfg.quant.enabled:
-            raise _later("weight-only quantized inference (quant)",
-                         "ROADMAP queue 1, item 8")
         if c.attn_sparsity is not None:
             # the steps serve the causal (windowed) mask: a sparsity layout
             # would be served as another mask than the one it trained with,
@@ -212,7 +217,6 @@ class InferenceEngineV2:
                 "InferenceEngineV2: serving an attn_sparsity layout is refused: the JAX "
                 "engine serves such a model with the dense causal mask, not its own "
                 "(ROADMAP section 3)")
-        T._check_served(c)
         self._kv_dtype = _check_dtype(str(getattr(kv, "kv_cache_dtype", "bf16") or "bf16"))
         self._kv_int8 = self._kv_dtype == "int8"
         for knob, allowed in (("comm_quant", ("none", "int8")),
@@ -232,6 +236,16 @@ class InferenceEngineV2:
 
         self._dtype = T.DTYPES.get(cfg.dtype, torch.bfloat16)
         self.params = self._place(params)
+        if getattr(cfg, "quant", None) is not None and cfg.quant.enabled:
+            # after the dtype cast: the codes come from the served values
+            from deepspeed_tpu_torch.inference.quantization import quantize_inference_params
+
+            self.params = quantize_inference_params(self.params, bits=cfg.quant.bits,
+                                                    group_size=cfg.quant.group_size)
+        # one layer's slices (a quantized weight's too); each step body
+        # widens them through _lp as it runs the layer, decided here once
+        self._quantized = any(isinstance(w, T.QuantizedWeight)
+                              for w in self.params["layers"].values())
         self._layer_params = [
             {k: w[li] for k, w in self.params["layers"].items()} for li in range(c.n_layers)
         ]
@@ -777,6 +791,13 @@ class InferenceEngineV2:
             return int(c.sliding_window or 0)
         return int(c.sliding_window or 0) if c.attn_layer_pattern[li] else 0
 
+    def _lp(self, li: int):
+        """Layer ``li``'s params at the engine dtype: a quantized model's
+        weights dequantized for this step (one layer wide at a time)."""
+        if self._quantized:
+            return T._dequant_tree(self._layer_params[li], self._dtype)
+        return self._layer_params[li]
+
     def _layer_qkv(self, lp, x, positions, live: int):
         """Shared per-layer prologue: pre-norm → QKV projections (+ biases)
         → qk-norm → rope. x: [t, h]; returns [t, nh|nkv, d] heads."""
@@ -828,7 +849,7 @@ class InferenceEngineV2:
         over the chunk's fresh K/V plus the pool below the chunk start).
         The pools are written after attention."""
         c = self._mc
-        lp = self._layer_params[li]
+        lp = self._lp(li)
         nh, nkv, d = c.n_heads, c.kv_heads, c.head_dim
         R, Rc, tq = meta["R"], meta["Rc"], meta["tq"]
         w = self._window(li)
@@ -859,7 +880,7 @@ class InferenceEngineV2:
         buffers [L, R, n, nkv, d] (written in place before attention: the
         query sees itself)."""
         c = self._mc
-        lp = self._layer_params[li]
+        lp = self._lp(li)
         q, k, v = self._layer_qkv(lp, x, meta["pos"], meta["live"])
         s = meta["s"]
         side_k[li, :, s] = k
@@ -974,7 +995,7 @@ class InferenceEngineV2:
         in-chunk causal mask (a padded slot, at -1, sees nothing). The
         pools are written after attention."""
         c = self._mc
-        lp = self._layer_params[li]
+        lp = self._lp(li)
         q, k, v = self._layer_qkv(lp, x, meta["pos"], meta["live"])
         k_pool, v_pool = self._pool_views()
         ks_pool, vs_pool = self._scale_views()
@@ -1294,7 +1315,7 @@ class InferenceEngineV2:
         ks_pool, vs_pool = self._scale_views()
         x = T.embed_tokens(self.params, tokens_d, pos_d, c)
         for li in range(c.n_layers):
-            lp = self._layer_params[li]
+            lp = self._lp(li)
             # live length (HF max(position_ids)+1) from the valid tokens only
             q, k, v = self._layer_qkv(lp, x, pos_d, start + n_valid)
             if self._kv_int8:

@@ -5,7 +5,9 @@ the host as numpy (``jax.tree.map(np.asarray, params)``), into the port's
 parameters: the same nested dict of the same shapes and layout, as torch
 tensors on ``device``, every family's leaves included (the MoE router and
 [L, E, h, f] experts, residual and shared experts, ``type_embed``, the
-``mlm_*`` head). Both packages then compute on identical weights.
+``mlm_*`` head), and the JAX package's weight-only quantized leaves
+(``QuantizedWeight``: its int8 payload, fp32 scales, bits and group) as the
+port's ``QuantizedWeight``. Both packages then compute on identical weights.
 ``opt_state_from_numpy`` does the same for an optimizer state (masters,
 moments, count), so a trajectory can continue in the port from where the
 JAX engine stands.
@@ -21,6 +23,7 @@ _NUMPY_TO_TORCH = {
     np.dtype(np.float16): torch.float16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
+    np.dtype(np.int8): torch.int8,
 }
 
 
@@ -38,13 +41,33 @@ def _leaf(a, device, dtype):
     return t.to(device)
 
 
+def quantized_from_numpy(node, device="cpu"):
+    """A JAX ``QuantizedWeight`` holding numpy arrays (``q`` int8, ``s``
+    fp32, ``bits``, ``group``) -> the port's ``QuantizedWeight`` with the
+    same payload and scales, bit for bit."""
+    from deepspeed_tpu_torch.inference.quantization.quantize import QuantizedWeight
+
+    return QuantizedWeight(_leaf(node.q, device, None), _leaf(node.s, device, None),
+                           int(node.bits), int(node.group))
+
+
+def _is_quantized(v) -> bool:
+    return all(hasattr(v, a) for a in ("q", "s", "bits", "group"))
+
+
 def params_from_numpy(tree: Dict[str, Any], device="cpu",
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> the same dict of torch tensors on
-    ``device``; floating leaves cast to ``dtype`` when given."""
+    ``device``; floating leaves cast to ``dtype`` when given. Quantized
+    leaves cross as they are (``quantized_from_numpy``)."""
     out = {}
     for k, v in tree.items():
-        out[k] = params_from_numpy(v, device, dtype) if isinstance(v, dict) else _leaf(v, device, dtype)
+        if isinstance(v, dict):
+            out[k] = params_from_numpy(v, device, dtype)
+        elif _is_quantized(v):
+            out[k] = quantized_from_numpy(v, device)
+        else:
+            out[k] = _leaf(v, device, dtype)
     return out
 
 

@@ -50,6 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.inference.quantization.quantize import QuantizedWeight, maybe_dequantize
 from deepspeed_tpu_torch.ops.attention.core import alibi_bias, attention, mha_reference
 from deepspeed_tpu_torch.ops.normalization import (
     fused_layer_norm,
@@ -426,14 +427,6 @@ def get_config(preset: str = "tiny", **overrides) -> TransformerConfig:
     return TransformerConfig(**kw)
 
 
-def _check_served(c: TransformerConfig) -> None:
-    """Raise for features whose ops are not ported in this slice."""
-    if c.matmul_precision != "default":
-        raise NotImplementedError(
-            f"matmul_precision={c.matmul_precision!r} is not ported yet (ROADMAP queue 1, item 8)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
@@ -446,7 +439,6 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
     for the same seed; tests that compare the two load the JAX parameters
     through ``models.convert.params_from_numpy``."""
     c = config
-    _check_served(c)
     dtype = DTYPES[c.dtype]
     dev = torch.device(device)
     h, d, nh, nkv = c.hidden_size, c.head_dim, c.n_heads, c.kv_heads
@@ -721,9 +713,14 @@ def _scale_embed(x, c: TransformerConfig, dtype):
 
 
 def _proj(c: TransformerConfig, x, w):
-    """Layer projection at the model dtype (matmul_precision "default"; the
-    quantized precisions raise in ``_check_served``)."""
-    return x @ w
+    """Layer projection honoring ``matmul_precision``: "default" is ``x @
+    w``; "int8", "int8_tensor" and "fp8" run the forward on quantized
+    operands and the backward as the exact wide vjp (``ops/qmatmul.py``)."""
+    if c.matmul_precision == "default":
+        return x @ w
+    from deepspeed_tpu_torch.ops.qmatmul import qmatmul
+
+    return qmatmul(x, w, c.matmul_precision)
 
 
 def qk_norm_apply(c: TransformerConfig, x, w, head_axis: int, b=None):
@@ -784,10 +781,21 @@ def _embed_norm(params, c: TransformerConfig, x):
     return _norm(x, params["embed_norm"], params["embed_norm_b"], "layernorm", c.norm_eps)
 
 
+def _dequant_tree(lp, dtype):
+    """Weight-only quantized inference: ``QuantizedWeight`` leaves of one
+    layer's params (a dict, or one leaf) widen to ``dtype`` here, as the
+    layer runs, so the wide copy is one layer's weights, never the model's."""
+    if not isinstance(lp, dict):
+        return maybe_dequantize(lp, dtype)
+    if not any(isinstance(w, QuantizedWeight) for w in lp.values()):
+        return lp
+    return {k: maybe_dequantize(w, dtype) for k, w in lp.items()}
+
+
 def _lm_head_matrix(params, config: TransformerConfig, dtype):
     if config.tie_embeddings:
         return params["embed"].to(dtype).t()
-    return params["lm_head"]
+    return _dequant_tree(params["lm_head"], dtype)
 
 
 def _apply_lm_head(params, x, config: TransformerConfig):
@@ -970,6 +978,7 @@ def _layer(c: TransformerConfig, lp, x, positions, segment_ids=None, local_flag=
     weights are cast to the compute dtype first, so wider params (fp32
     masters) never promote the residual stream."""
     dt = DTYPES[c.dtype]
+    lp = _dequant_tree(lp, dt)
     lp = {k: w.to(dt) if w.is_floating_point() and w.dtype != dt else w for k, w in lp.items()}
     rms = rms_norm_reference if reference else rms_norm
 
@@ -993,7 +1002,6 @@ def _layer(c: TransformerConfig, lp, x, positions, segment_ids=None, local_flag=
 
 
 def _check_forward(c: TransformerConfig):
-    _check_served(c)
     if c.weight_stream:
         raise NotImplementedError("weight_stream is not ported yet (ROADMAP queue 1, item 7)")
 
@@ -1088,8 +1096,9 @@ def forward_hidden(params: Dict[str, Any], tokens, config: TransformerConfig, po
     x = embed_tokens(params, tokens, positions, c, token_type_ids=token_type_ids)
     # one unbind per stacked weight: its backward stacks the L layer grads
     # once, where indexing w[li] would give every layer's grad a full [L, ...]
-    # zero buffer to add into
-    stacked = {k: w.unbind(0) for k, w in params["layers"].items()}
+    # zero buffer to add into (a quantized weight is sliced per layer)
+    stacked = {k: w.unbind(0) if isinstance(w, torch.Tensor) else w
+               for k, w in params["layers"].items()}
     aux_total = 0.0
     for li in range(c.n_layers):
         lp = {k: w[li] for k, w in stacked.items()}
@@ -1169,7 +1178,7 @@ def decode_step(params, tokens, config: TransformerConfig, kv_caches, positions)
     x = embed_tokens(params, tokens, positions, c)
     new_lens = lens.clone()
     for li in range(c.n_layers):
-        lp = {k: w[li] for k, w in params["layers"].items()}
+        lp = _dequant_tree({k: w[li] for k, w in params["layers"].items()}, dt)
         lp = {k: w.to(dt) if w.is_floating_point() and w.dtype != dt else w
               for k, w in lp.items()}
         flag = None if c.attn_layer_pattern is None else int(c.attn_layer_pattern[li])
@@ -1370,9 +1379,10 @@ def _global_share(topo, labels, mask):
 
 
 def num_params(params) -> int:
+    """Parameters of a tree (a quantized weight counts its wide shape)."""
     n = 0
     for v in params.values():
-        n += num_params(v) if isinstance(v, dict) else v.numel()
+        n += num_params(v) if isinstance(v, dict) else math.prod(v.shape)
     return n
 
 

@@ -39,8 +39,17 @@ the JAX package only in distribution.
 
 The qgZ/qwZ collectives (``quantized_reduce_scatter*``,
 ``quantized_allreduce``, ``loco_*``, ``quantized_all_gather_along``) wait
-for the multi-GPU slice (ROADMAP queue 1, item 6); ``fp8_cast``,
-``fp_quantize`` and ``fp_pack`` for quantized projections (queue 1, item 8).
+for the multi-GPU slice (ROADMAP queue 1, item 6).
+
+The FP quantizer (the reference's csrc/fp_quantizer, plain XLA in the JAX
+package, plain torch here): ``fp8_cast`` / ``fp8_uncast`` (tensor-scaled
+casts to torch's ``float8_e4m3fn``), ``fp_quantize`` / ``fp_dequantize``
+(group-scaled rounding to fp6 e3m2, fp8 e4m3 or fp12 e4m7, simulated in
+fp32) and ``fp_pack`` / ``fp_unpack`` (the codes packed to bytes: fp6 four
+codes in three bytes, fp12 two in three). Scales divide as the JAX
+package's eager ops do (``absmax / max``). Exponents and powers of two are
+exact (``frexp``, the exponent field), so the codes are the same on every
+device.
 """
 
 import ctypes
@@ -290,3 +299,147 @@ def quantize_blockwise_kernel_reference(x, bits: int = 8, block_size: int = 2048
                                         seed: int = 0) -> QuantizedTensor:
     """``quantize_blockwise_kernel``'s plain version, on any device."""
     return _blockwise(block_quant_reference, x, bits, block_size, stochastic, seed)
+
+
+# ---------------------------------------------------------------------------
+# fp8 scaled casts and low-bit float quantization (reference csrc/fp_quantizer)
+# ---------------------------------------------------------------------------
+def true_div(a, c: float):
+    """a / c by IEEE division on every device. CUDA computes a division by
+    a Python scalar as a product with its reciprocal (and so does XLA
+    under jit); a tensor divisor keeps the division the JAX package's
+    eager ops do, so a card's scales equal the host's."""
+    return a / torch.full_like(a, c)
+
+
+def fp8_cast(x, dtype=torch.float8_e4m3fn):
+    """Tensor-scaled fp8 cast: returns (fp8 values, fp32 scale). x is
+    scaled into the format's range first: torch saturates an out-of-range
+    cast where the JAX package gives NaN, and inside the range the two
+    casts agree."""
+    xf = x.float()
+    absmax = xf.abs().amax()
+    scale = torch.where(absmax > 0, true_div(absmax, torch.finfo(dtype).max),
+                        torch.ones_like(absmax))
+    return (xf / scale).to(dtype), scale
+
+
+def fp8_uncast(values, scale, dtype=torch.float32):
+    return (values.float() * scale).to(dtype)
+
+
+_FP_FORMATS = {6: (3, 2), 8: (4, 3), 12: (4, 7)}  # bits -> (exp_bits, man_bits)
+
+
+def _floor_log2(ax):
+    """floor(log2(ax)) of positive values, exactly (frexp's exponent - 1),
+    as a float tensor; below 1e-38 the exponent of 1e-38."""
+    return (torch.frexp(ax.clamp_min(1e-38)).exponent - 1).to(ax.dtype)
+
+
+def _pow2(e):
+    """2^e for integral e in fp32's normal range, exactly: the exponent
+    field written directly (exp2 may be off by an ulp on some devices, as
+    XLA's CPU exp2 is at integers beyond +-12)."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def _round_to_fp(x, exp_bits, man_bits):
+    """Round |x| to the nearest representable e{exp_bits}m{man_bits} value
+    (half to even on the mantissa grid), flushing values below half the
+    smallest subnormal to zero and saturating at the format max."""
+    bias = (1 << (exp_bits - 1)) - 1
+    emin = 1 - bias  # smallest normal exponent
+    emax = bias  # the reference formats are finite: no inf/nan codes
+    ax = x.abs()
+    e = _floor_log2(ax).clamp(emin, emax)
+    step = _pow2(e - man_bits)
+    q = torch.round(ax / step) * step
+    q = q.clamp_max(2.0 ** emax * (2.0 - 2.0 ** -man_bits))
+    q = torch.where(ax < 2.0 ** (emin - man_bits) / 2, torch.zeros_like(q), q)
+    return torch.sign(x) * q
+
+
+def fp_quantize(x, q_bits: int = 6, group_size: int = 128):
+    """Group-scaled low-bit float quantization (reference
+    FP_Quantize.quantize): per-group absmax scaling into the format's
+    range, then e/m rounding. Returns (values fp32 [groups, group_size]
+    simulated in the format, scales fp32 [groups, 1], the original shape);
+    the memory-format pack lives in ``fp_pack``."""
+    if q_bits not in _FP_FORMATS:
+        raise ValueError(f"q_bits must be one of {sorted(_FP_FORMATS)}, got {q_bits}")
+    exp_bits, man_bits = _FP_FORMATS[q_bits]
+    orig_shape = tuple(x.shape)
+    flat, _ = _pad_to(x.float().reshape(-1), group_size)
+    groups = flat.reshape(-1, group_size)
+    bias = (1 << (exp_bits - 1)) - 1
+    fmt_max = 2.0 ** bias * (2.0 - 2.0 ** (-man_bits))
+    absmax = groups.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0, true_div(absmax, fmt_max), torch.ones_like(absmax))
+    return _round_to_fp(groups / scale, exp_bits, man_bits), scale, orig_shape
+
+
+def fp_dequantize(q, scale, orig_shape, dtype=torch.float32):
+    n = 1
+    for s in orig_shape:
+        n *= s
+    return (q * scale).reshape(-1)[:n].reshape(orig_shape).to(dtype)
+
+
+def fp_pack(q, q_bits: int, exp_bits: int = None, man_bits: int = None):
+    """Encode format-rounded values into integer codes and pack them to
+    uint8: fp6 packs 4 codes into 3 bytes, fp12 packs 2 codes into 3 bytes,
+    fp8 one code a byte (the reference's packing, csrc/fp_quantizer)."""
+    if exp_bits is None:
+        exp_bits, man_bits = _FP_FORMATS[q_bits]
+    bias = (1 << (exp_bits - 1)) - 1
+    sign = (q < 0).to(torch.int64)
+    ax = q.abs()
+    e = _floor_log2(ax).clamp(1 - bias, bias)
+    # subnormals: values below 2^emin encode with biased exponent 0
+    is_sub = ax < 2.0 ** (1 - bias)
+    man = torch.where(is_sub, ax * 2.0 ** (bias - 1 + man_bits),
+                      (ax / _pow2(e) - 1.0) * 2.0 ** man_bits)
+    man = torch.round(man).clamp(0, (1 << man_bits) - 1).to(torch.int64)
+    biased = torch.where(is_sub, torch.zeros_like(man), (e + bias).to(torch.int64))
+    flat = ((sign << (exp_bits + man_bits)) | (biased << man_bits) | man).reshape(-1)
+    if q_bits == 6:
+        flat = _pad_to(flat, 4)[0].reshape(-1, 4)
+        b0 = flat[:, 0] | ((flat[:, 1] & 0x3) << 6)
+        b1 = (flat[:, 1] >> 2) | ((flat[:, 2] & 0xF) << 4)
+        b2 = (flat[:, 2] >> 4) | (flat[:, 3] << 2)
+        return (torch.stack([b0, b1, b2], -1) & 0xFF).to(torch.uint8).reshape(-1)
+    if q_bits == 12:
+        flat = _pad_to(flat, 2)[0].reshape(-1, 2)
+        b0 = flat[:, 0] & 0xFF
+        b1 = (flat[:, 0] >> 8) | ((flat[:, 1] & 0xF) << 4)
+        b2 = flat[:, 1] >> 4
+        return (torch.stack([b0, b1, b2], -1) & 0xFF).to(torch.uint8).reshape(-1)
+    return (flat & 0xFF).to(torch.uint8)
+
+
+def fp_unpack(packed, n: int, q_bits: int):
+    """Inverse of ``fp_pack`` -> fp32 values (before the scale)."""
+    exp_bits, man_bits = _FP_FORMATS[q_bits]
+    bias = (1 << (exp_bits - 1)) - 1
+    trip = packed.to(torch.int64)
+    if q_bits == 6:
+        trip = trip.reshape(-1, 3)
+        c0 = trip[:, 0] & 0x3F
+        c1 = ((trip[:, 0] >> 6) | (trip[:, 1] << 2)) & 0x3F
+        c2 = ((trip[:, 1] >> 4) | (trip[:, 2] << 4)) & 0x3F
+        c3 = (trip[:, 2] >> 2) & 0x3F
+        codes = torch.stack([c0, c1, c2, c3], -1).reshape(-1)[:n]
+    elif q_bits == 12:
+        trip = trip.reshape(-1, 3)
+        c0 = trip[:, 0] | ((trip[:, 1] & 0xF) << 8)
+        c1 = (trip[:, 1] >> 4) | (trip[:, 2] << 4)
+        codes = torch.stack([c0, c1], -1).reshape(-1)[:n]
+    else:
+        codes = trip[:n]
+    sign = torch.where(((codes >> (exp_bits + man_bits)) & 1).bool(), -1.0, 1.0)
+    biased = (codes >> man_bits) & ((1 << exp_bits) - 1)
+    man = (codes & ((1 << man_bits) - 1)).float()
+    mag = torch.where(biased == 0, man * 2.0 ** (1 - bias - man_bits),
+                      (1.0 + man * 2.0 ** (-man_bits)) * _pow2(biased - bias))
+    return sign * mag

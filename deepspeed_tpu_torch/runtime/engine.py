@@ -122,7 +122,6 @@ def _check_config(config: DeepSpeedConfig):
          or bool((config.data_efficiency or {}).get("enabled")),
          "curriculum learning / data efficiency", "ROADMAP queue 1, item 9"),
         (config.flops_profiler.enabled, "the flops profiler", "ROADMAP queue 1, item 9"),
-        (config.eigenvalue.enabled, "eigenvalue", "ROADMAP queue 1, item 9"),
         (any(m.enabled for m in (config.tensorboard, config.wandb, config.csv_monitor,
                                  config.comet, config.prometheus)),
          "monitors", "ROADMAP queue 1, item 5"),
@@ -136,6 +135,11 @@ def _check_config(config: DeepSpeedConfig):
     for bad, what, item in checks:
         if bad:
             raise _later(what, item)
+    if config.eigenvalue.enabled:
+        raise NotImplementedError(
+            "DeepSpeedEngine: the eigenvalue section drives nothing in the engine (the JAX "
+            "engine never reads it); compute eigenvalues with deepspeed_tpu_torch.runtime."
+            "eigenvalue.Eigenvalue on a loss that runs the plain path")
 
 
 def _snapshot_cast(params, dtype, device):

@@ -23,6 +23,13 @@ def tree_map(fn, tree, *rest):
     }
 
 
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(key path, leaf)`` over the leaves of a nested dict; the path is
+    the tuple of keys (``utils.pytree.path_str`` renders it)."""
+    return {k: tree_map_with_path(fn, v, path + (k,)) if isinstance(v, dict)
+            else fn(path + (k,), v) for k, v in tree.items()}
+
+
 def walk(tree, *rest):
     """Tuples of the leaves of ``tree`` and of ``rest``, in step."""
     for k, v in tree.items():

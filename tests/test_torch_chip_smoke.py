@@ -1268,3 +1268,92 @@ def test_import_phases_run_end_to_end_on_cpu(tmp_path, one_thread, capsys):
     rec, launches = chip_smoke.graft_entry_phase(torch, cpu, K)
     assert rec["shape"] == [2, 128, 512] and rec["heads"] == [2, 64]
     assert rec["logit_rel_err"] <= rec["logit_rtol"]
+
+
+QUANT_WIDTHS = dict(n_layers=2, hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                    vocab_size=512, dtype="float32")
+QUANT_ENGINE = {
+    "dtype": "float32", "decode_steps": 64, "prompt_chunk": 256, "max_prompt_chunks": 4,
+    "kv_cache": {"block_size": 16, "num_blocks": 1024, "max_blocks_per_seq": 40},
+    "state_manager": {"max_tracked_sequences": 64, "max_ragged_batch_size": 1024,
+                      "max_ragged_sequence_count": 32, "max_context": 640},
+}
+
+
+def test_quant_phases_run_end_to_end_on_cpu(one_thread, capsys, monkeypatch):
+    """qmatmul, train_qmm, serve_wq8, serve_wq4, fp_quantizer and lora at
+    tiny widths through ``quant_phases`` (each record printed with its
+    seconds). The bf16 engine's prefill rows are stood in for by the
+    plain forward over the same wide weights and prompts; the throughput
+    runs are cut to 4 sequences of 8 tokens."""
+    from deepspeed_tpu_torch.inference.v2 import engine_v2
+    from deepspeed_tpu_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    monkeypatch.setenv("DS_ACCELERATOR", "cpu")
+    from deepspeed_tpu_torch.accelerator import real_accelerator
+
+    monkeypatch.setattr(real_accelerator, "_accelerator", None)
+    bench = engine_v2.serving_benchmark
+    monkeypatch.setattr(engine_v2, "serving_benchmark",
+                        lambda eng, **kw: bench(eng, **dict(kw, n_seq=4, max_new=8)))
+    cfg = T.get_config(chip_smoke.MODEL, **QUANT_WIDTHS)
+    params = T.init_params(cfg, torch.Generator().manual_seed(chip_smoke.SEED), "cpu")
+    rng = np.random.default_rng(chip_smoke.SEED)
+    lens = rng.integers(64, 512, size=32)
+    prefill = {}
+    with torch.no_grad():
+        for uid, n in enumerate(lens):
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=int(n)))[None]
+            prefill[uid] = T.forward_reference(params, toks, cfg)[0][0, -1]
+    bf16 = {"gen_tok_s": 1.0, "round_tok_s": 1.0, "prefill": prefill}
+    launches = chip_smoke.quant_phases(
+        torch, cpu, K, "cpu", bf16=bf16,
+        serve_kw=dict(widths=QUANT_WIDTHS, engine_config=QUANT_ENGINE),
+        qmm_kw=dict(shapes={"train": (64, 128, 96), "decode": (8, 128, 96)}),
+        train_kw=dict(widths={k: v for k, v in QUANT_WIDTHS.items() if k != "n_layers"},
+                      layers=2, seq=32),
+        fpq_kw=dict(shape=(64, 96)), lora_kw=dict(in_f=64, out_f=96, r=8, tokens=16))
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    names = ["qmatmul", "train_qmm", "serve_wq8", "serve_wq4", "serve_wq8_int8", "fp_quantizer",
+             "lora"]
+    assert [r["phase"] for r in lines[-7:]] == names and sorted(launches) == sorted(names)
+    assert all(r["seconds"] > 0 and r["card"] == "cpu" for r in lines[-7:])
+    rec = {r["phase"]: r for r in lines[-7:]}
+    q = rec["qmatmul"]["shapes"]["decode"]
+    assert q["int8_rows_padded_to"] == 24 and q["fp8_rows_padded_to"] == 16
+    for mode in ("int8", "int8_tensor"):
+        assert q["modes"][mode]["mismatches"] == 0 and q["modes"][mode]["dx_mismatches"] == 0
+    assert q["modes"]["fp8"]["rel_frobenius"] <= chip_smoke.QMM_FP8_RTOL
+    assert q["modes"]["fp8"]["bf16_out_max_abs_err"] <= q["modes"]["fp8"]["bf16_out_bound"]
+    t = rec["train_qmm"]
+    assert sorted(t["modes"]) == sorted(chip_smoke.QMM_TRAIN_MODES)
+    assert max(t["first_loss_diff"].values()) <= chip_smoke.QMM_LOSS_ATOL
+    assert t["first_loss_diff"]["int8"] > 0  # the quantized forward ran
+    assert launches["train_qmm"]["default"] == {name: 0 for name in K.KERNELS}
+    # FusedAdam launches a kernel per leaf of at least 65536 elements (5 here)
+    big = sum(w.numel() >= 1 << 16 for w in chip_smoke.leaves(params).values())
+    assert t["modes"]["int8"]["launches_per_optimizer_step"]["fused_adam"] == big == 5
+    for bits, ratio in ((8, 0.55), (4, 0.4)):
+        s = rec[f"serve_wq{bits}"]
+        assert s["quant"]["bits"] == bits and s["memory_over_wide"] < ratio
+        assert s["logit_rel_err"]["prefill"] <= s["logit_rtol"] < s["logit_rel_err"]["shifted"]
+        assert s["bf16_prefill_corr"] >= chip_smoke.QUANT_CORR_MIN[bits]
+        wc = s["weight_check"]
+        # wk and wv stay wide at this width: their 64 columns are not a group
+        assert {"wq", "wo", "w_up", "w_gate", "w_down", "lm_head"} == set(wc["leaves"])
+        assert all(r["mismatches"] == 0 for r in wc["leaves"].values())
+        assert wc["max_rel_frobenius"] <= chip_smoke.QUANT_WEIGHT_RTOL[bits]
+        assert s["gen_tok_s_over_bf16"] > 0
+    assert rec["serve_wq4"]["bf16_prefill_rel_err"] > rec["serve_wq8"]["bf16_prefill_rel_err"]
+    # weight-only int8 over the int8 pool: at 2 layers, held to the int8 engine's bounds
+    p = rec["serve_wq8_int8"]
+    assert p["n_layers"] == 2 and p["kv_cache_dtype"] == "int8" and p["quant"]["bits"] == 8
+    assert p["logit_rel_err"]["prefill"] <= p["logit_rtol"] == chip_smoke.INT8_LOGIT_RTOL
+    assert p["dense_logit_rel_err"] <= chip_smoke.LOGIT_RTOL
+    assert p["launches_expected"]["block_quant"] == 2 * sum(p["forward_steps"].values())
+    f = rec["fp_quantizer"]
+    assert f["fp8_cast"]["mismatches"] == 0 and f["formats"]["fp6"]["bytes"] == 64 * 96 // 4 * 3
+    lo = rec["lora"]
+    assert lo["base_grad"] is False and lo["merge_max_abs_err"] <= lo["merge_bound"]
+    assert lo["base_rel_frobenius"] < 0.01

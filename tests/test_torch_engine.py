@@ -217,7 +217,9 @@ def test_forward_matches_jax_forward():
 
 @pytest.mark.parametrize("over,model_over,call,match", [
     ({"tp_size": 2}, {}, None, "queue 1, item 6"),
-    ({"quant": {"enabled": True}}, {}, None, "item 8"),
+    # weight-only quantization is served (tests/test_torch_inference_quant.py);
+    # with tensor parallelism it stays refused
+    ({"tp_size": 2, "quant": {"enabled": True}}, {}, None, "queue 1, item 6"),
     # speculative decoding and the host tier are ported; what stays refused
     # beside them: the engine's tracing spans, serving a sparsity layout
     ({"spec_k": 2, "kv_cache": {"host_tier_bytes": 1 << 20, "prefix_cache": True}}, {},
@@ -239,12 +241,12 @@ def test_unported_engine_features_raise(over, model_over, call, match):
     {"n_experts": 2}, {"matmul_precision": "fp8"}, {"position": "alibi"},
 ])
 def test_unported_model_features_raise(model_over):
-    """fp8 projections and ALiBi (the paged kernel takes no bias, as in the
-    JAX engine) still raise. MoE is served: the engine builds on the JAX
-    package's MoE weights and its greedy stream equals the JAX engine's
-    (tests/test_torch_moe.py holds the step kinds)."""
+    """ALiBi (the paged kernel takes no bias, as in the JAX engine) still
+    raises. MoE and fp8 projections are served: the engine builds on the JAX
+    package's weights and its greedy stream equals the JAX engine's
+    (tests/test_torch_moe.py holds MoE's step kinds)."""
     cfg = PT.TransformerConfig(**{**MODEL, **model_over})
-    if not model_over.get("n_experts"):
+    if model_over.get("position") == "alibi":
         with pytest.raises(NotImplementedError):
             InferenceEngineV2(cfg, {}, EngineConfig.from_dict(engine_config()), device="cpu")
         return

@@ -151,9 +151,15 @@ def test_init_inference_returns_the_v1_engine():
     assert eng._config.max_tokens == 64 and eng.module is pcfg
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         deepspeed_tpu_torch.init_inference((pcfg, pp), {"tensor_parallel": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        deepspeed_tpu_torch.init_inference((pcfg, pp), {"quant": {"enabled": True}},
-                                           device="cpu")
+    # weight-only quantization is served (tests/test_torch_inference_quant.py);
+    # with tensor parallelism it is refused, as in the JAX package
+    eng = deepspeed_tpu_torch.init_inference(
+        (pcfg, pp), {"dtype": "float32", "quant": {"enabled": True, "group_size": 32}},
+        device="cpu")
+    assert eng.params["layers"]["wq"].bits == 8
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        deepspeed_tpu_torch.init_inference(
+            (pcfg, pp), {"tensor_parallel": 2, "quant": {"enabled": True}}, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             deepspeed_tpu_torch.init_inference((pcfg, pp))

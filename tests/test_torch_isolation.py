@@ -39,12 +39,18 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.checkpoint.zero_to_fp32",
     "deepspeed_tpu_torch.comm",
     "deepspeed_tpu_torch.comm.comm",
+    "deepspeed_tpu_torch.compression",
+    "deepspeed_tpu_torch.compression.compress",
+    "deepspeed_tpu_torch.compression.scheduler",
+    "deepspeed_tpu_torch.compression.transforms",
     "deepspeed_tpu_torch.env_report",
     "deepspeed_tpu_torch.graft_entry",
     "deepspeed_tpu_torch.inference",
     "deepspeed_tpu_torch.inference.cli",
     "deepspeed_tpu_torch.inference.config",
     "deepspeed_tpu_torch.inference.engine",
+    "deepspeed_tpu_torch.inference.quantization",
+    "deepspeed_tpu_torch.inference.quantization.quantize",
     "deepspeed_tpu_torch.inference.sampling",
     "deepspeed_tpu_torch.inference.v2",
     "deepspeed_tpu_torch.inference.v2.blocked_allocator",
@@ -55,6 +61,8 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.inference.v2.prefix_cache",
     "deepspeed_tpu_torch.inference.v2.ragged_manager",
     "deepspeed_tpu_torch.inference.v2.scheduler",
+    "deepspeed_tpu_torch.linear",
+    "deepspeed_tpu_torch.linear.optimized_linear",
     "deepspeed_tpu_torch.models",
     "deepspeed_tpu_torch.models.adapters",
     "deepspeed_tpu_torch.models.convert",
@@ -78,6 +86,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.normalization",
     "deepspeed_tpu_torch.ops.normalization.fused_norm",
     "deepspeed_tpu_torch.ops.op_builder",
+    "deepspeed_tpu_torch.ops.qmatmul",
     "deepspeed_tpu_torch.ops.quantizer",
     "deepspeed_tpu_torch.ops.quantizer.block_quant",
     "deepspeed_tpu_torch.ops.random_ltd",
@@ -101,11 +110,13 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.runtime.config",
     "deepspeed_tpu_torch.runtime.config_utils",
     "deepspeed_tpu_torch.runtime.dataloader",
+    "deepspeed_tpu_torch.runtime.eigenvalue",
     "deepspeed_tpu_torch.runtime.engine",
     "deepspeed_tpu_torch.runtime.fp16",
     "deepspeed_tpu_torch.runtime.fp16.loss_scaler",
     "deepspeed_tpu_torch.runtime.lr_schedules",
     "deepspeed_tpu_torch.runtime.optimizers",
+    "deepspeed_tpu_torch.runtime.quantize",
     "deepspeed_tpu_torch.runtime.zero",
     "deepspeed_tpu_torch.runtime.zero.config",
     "deepspeed_tpu_torch.serving",
@@ -116,6 +127,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.utils.counter_hash",
     "deepspeed_tpu_torch.utils.groups",
     "deepspeed_tpu_torch.utils.logging",
+    "deepspeed_tpu_torch.utils.pytree",
     "deepspeed_tpu_torch.utils.timer",
     "deepspeed_tpu_torch.utils.tree",
     "deepspeed_tpu_torch.version",
