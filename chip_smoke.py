@@ -80,7 +80,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
    tokens at decode_steps 1 and 4 (equal streams), the first token's logits
    against ``forward_reference``, exactly 2L + 1 RMSNorm launches a forward
    step and no other kernel (its cached attention is ``mha_reference``).
-3b. engine_int8: the same engine and prompts with
+3b. serving (after inference_v1, on the engine phase's engine): the
+   serving stack as a user runs it. A ``ServingDriver`` (``decode_steps``
+   64) behind ``start_server(port=0)``; 32 client threads POST
+   ``/generate`` at once, every other one streamed, prompts of 128-600
+   tokens (every 4th a 16-token motif repeated), 32 new tokens each. The
+   driver's schedule (each prompt's submission and each engine call) is
+   recorded and replayed on the engine with no driver, server or thread:
+   every client's stream must equal the replay token for token
+   (``replay_schedule``). Each stream is also held against greedy
+   ``engine.generate()`` on the same prompts, whose batches hold other
+   rows: equal, or leaving it only at a near-tie, every served token
+   within 0.04 of the plain forward's largest logit on its served context
+   (``compare_streams``). ``/health`` shows every block free once idle,
+   ``/metrics`` parses as Prometheus text. Passes: timed (TTFT and TPOT p50
+   / p99, tok/s), profiled (the same mix under torch.profiler's CUDA
+   activity: the device's idle share), traced (``/debug/trace``: a valid
+   Chrome trace with the engine's dispatch and device-wait spans and one
+   tree per request), speculative (``NgramProposer``, k 4) and planted (a
+   driver fault fed back: both checks must catch it). Each pass counts the
+   served kernels' launches (RMSNorm, paged decode), and none of their
+   plain versions may run. serving_int8 (after engine_spec_int8): the
+   timed, profiled and planted passes over the int8 engine (paged decode
+   int8, block_quant).
+3c. engine_int8: the same engine and prompts with
    ``kv_cache_dtype="int8"``: logits against ``forward_reference`` (limit
    0.1), against the bf16 phase's rows computed from the same tokens, and
    against the same engine forced to ``paged_attention_impl="dense"``;
@@ -198,7 +221,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``step()`` and decoded greedily (two steps and ``decode_round(64)``):
    last-prefill logits against ``forward_reference`` on the loaded params
    (limit 0.05), RMSNorm 2L + 1 and paged decode L launches per forward
-   step. train_import: a 2-layer cut of that directory through
+   step. serve_cli: ``python -m deepspeed_tpu_torch.inference.cli serve
+   --model <that directory> --port 0`` as a subprocess (killed in every
+   case): once it prints its address, two ``tokens`` requests, one after
+   the other, each equal to ``build_hf_engine``'s ``generate`` with the
+   engine config its flags make. train_import: a 2-layer cut of that directory through
    ``load_hf_model`` into ``initialize`` with a client ``torch.optim.AdamW``
    and ``grad_accum_dtype`` "bf16", 2 ``train_batch`` steps (flash and
    RMSNorm launches exact, the loss falling), a save with
@@ -238,8 +265,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    launch the serving and training kernels, counted.
 
 Serving kernels must launch in the engine phase (the int8 pool's in
-engine_int8 and its per-row check) and in a verify step (engine_spec,
-engine_spec_int8), training kernels in the train legs,
+engine_int8 and its per-row check), in a verify step (engine_spec,
+engine_spec_int8) and from the serving driver's thread (serving,
+serving_int8), training kernels in the train legs,
 the fused configuration's four in its leg, the splash kernels in the
 splash leg (the forward also in the per-row leg), the sparse kernels in the
 sparse_attn phase, the evoformer kernels in the evoformer phase, the chunk
@@ -255,7 +283,9 @@ checkout, it exits non-zero and prints no result.
 
 import argparse
 import contextlib
+import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3605,6 +3635,640 @@ def inference_v1_phase(torch, dev, K, cfg, params, shape=V1_PROMPTS, new=V1_NEW_
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: the serving stack (driver, HTTP server, tracing) on the engine
+# phase's engine
+# ---------------------------------------------------------------------------
+# 32 clients at once, every other one streamed; prompts of 128-600 tokens,
+# every 4th a 16-token motif repeated (the n-gram proposer drafts there),
+# 32 new tokens each (600 + 32 fits the 640-token context)
+SERVE_CLIENTS = 32
+SERVE_PROMPT_LENS = (128, 600)
+SERVE_NEW_TOKENS = 32
+SERVE_MOTIF_EVERY = 4
+SERVE_WAIT_S = 120
+# each served token's logit under the plain forward, below the row's
+# largest, relative to the row's largest magnitude (``compare_streams``).
+# Sound passes on an H100 read 0.0137-0.0189 over 1024 tokens, bf16 and
+# int8 pools alike (the int8 codes' rounding does not show at this
+# margin); the planted feedback fault (``feedback_fault``) reads 0.63 on
+# both. The limit sits between: twice the largest sound reading.
+SERVE_MARGIN_RTOL = 0.04
+# the plain versions of the served kernels: none may run on the card
+PLAIN_VERSIONS = (
+    ("deepspeed_tpu_torch.ops.normalization.fused_norm", "rms_norm_reference"),
+    ("deepspeed_tpu_torch.ops.attention.paged", "paged_decode_attention_dense"),
+    ("deepspeed_tpu_torch.ops.attention.paged", "paged_attention_reference"),
+    ("deepspeed_tpu_torch.ops.quantizer.block_quant", "block_quant_reference"),
+)
+# the dstpu serve subprocess on hf_import's checkpoint: its flags, two
+# requests of this many tokens, and how long it may take to listen
+SERVE_CLI_FLAGS = ("--num-blocks", "64", "--max-blocks-per-seq", "5", "--max-context", "640",
+                   "--max-concurrent", "8")
+SERVE_CLI_NEW = 16
+SERVE_CLI_WAIT_S = 300
+
+
+def serve_prompts(vocab, n=SERVE_CLIENTS, lens=SERVE_PROMPT_LENS, seed=SEED + 5):
+    """The serving phase's prompts: lengths in ``lens``, every
+    ``SERVE_MOTIF_EVERY``-th a 16-token motif repeated."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        length = int(rng.integers(lens[0], lens[1] + 1))
+        if i % SERVE_MOTIF_EVERY == 0:
+            p = np.resize(rng.integers(0, vocab, size=16), length)
+        else:
+            p = rng.integers(0, vocab, size=length)
+        out.append(p.astype(np.int32))
+    return out
+
+
+def percentiles(xs, qs=(50, 99)):
+    """{"p50": ..., "p99": ...} of ``xs`` (linear interpolation), None for
+    an empty list."""
+    import numpy as np
+
+    xs = [float(x) for x in xs if x is not None]
+    return {f"p{q}": (float(np.percentile(xs, q)) if xs else None) for q in qs}
+
+
+def idle_share(busy_ms, wall_ms):
+    """The share of ``wall_ms`` in which no kernel ran (None when the
+    profiler saw no device time)."""
+    if busy_ms is None or not wall_ms:
+        return None
+    return max(0.0, 1.0 - busy_ms / wall_ms)
+
+
+def first_divergence(got, want):
+    """Index of the first token where two streams differ (a shorter one
+    differs where it ends); None when equal."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if int(a) != int(b):
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def compare_streams(torch, eng, prompts, got, want, rtol):
+    """Served streams ``got`` against ``engine.generate()``'s ``want``, and
+    every served token against the plain ``forward_reference`` on its
+    prompt and the tokens served before it: the token's logit must be
+    within ``rtol`` of the row's largest logit, relative to the row's
+    largest magnitude (a greedy pick up to rounding). A batch of another
+    composition sums in another order, so a bf16 stream may leave
+    ``generate()``'s where two tokens are that close; each such first
+    divergence is reported with the two tokens' margin. Returns {"equal":
+    streams equal to generate()'s, "near_tie_flips": [...],
+    "tokens_checked", "max_margin"}; raises on a token past the limit
+    (``rtol`` None: reads the margins and raises on none) or a stream of
+    another length."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    out = {"equal": 0, "near_tie_flips": [], "tokens_checked": 0, "max_margin": 0.0}
+    for uid, (p, g, w) in enumerate(zip(prompts, got, want)):
+        if len(g) != len(w):
+            raise AssertionError(f"served stream {uid}: {len(g)} tokens, generate() {len(w)}")
+        seq = np.concatenate([p, np.asarray(g[:-1], np.int32)]).astype(np.int64)
+        with torch.no_grad():
+            rows = T.forward_reference(eng.params, torch.as_tensor(seq, device=eng.device)[None],
+                                       eng._mc)[0][0, len(p) - 1:].float()  # [len(g), V]
+        idx = torch.as_tensor(np.asarray(g, np.int64), device=rows.device)
+        scale = rows.abs().amax(-1)
+        margins = (rows.amax(-1) - rows.gather(1, idx[:, None])[:, 0]) / scale
+        worst = float(margins.max())
+        out["tokens_checked"] += len(g)
+        out["max_margin"] = max(out["max_margin"], worst)
+        if rtol is not None and worst > rtol:
+            i = int(margins.argmax())
+            raise AssertionError(f"served stream {uid}: token {i} ({int(g[i])}) is {worst:.4f} "
+                                 f"below the plain forward's largest logit (limit {rtol})")
+        d = first_divergence(g, w)
+        if d is None:
+            out["equal"] += 1
+            continue
+        flip = float((rows[d, int(w[d])] - rows[d, int(g[d])]).abs() / scale[d])
+        out["near_tie_flips"].append({"uid": uid, "at": d, "margin": flip})
+    return out
+
+
+@contextlib.contextmanager
+def recorded_schedule(eng):
+    """Records what the serving loop asks of ``eng`` while the block runs,
+    in order: each prompt handed to its scheduler ("submit", (uid,
+    tokens)) and each engine call: a split step ("step", None), a fused
+    round ("round", n_steps), a verify round ("spec", (k, drafts)). The
+    engine's own methods are back in place after."""
+    import numpy as np
+
+    log, sched = [], eng.scheduler
+    submit, step, round_, spec = sched.submit, eng.step_tokens, eng.decode_round, eng.spec_round
+
+    def rec_submit(uid, tokens):
+        log.append(("submit", (int(uid), np.asarray(tokens, np.int32).reshape(-1).copy())))
+        return submit(uid, tokens)
+
+    def rec_step():
+        log.append(("step", None))
+        return step()
+
+    def rec_round(n_steps=None):
+        log.append(("round", n_steps))
+        return round_(n_steps)
+
+    def rec_spec(k=None, drafts=None):
+        log.append(("spec", (k, {u: list(d) for u, d in (drafts or {}).items()})))
+        return spec(k, drafts=drafts)
+
+    sched.submit, eng.step_tokens, eng.decode_round, eng.spec_round = (
+        rec_submit, rec_step, rec_round, rec_spec)
+    try:
+        yield log
+    finally:
+        del sched.submit, eng.step_tokens, eng.decode_round, eng.spec_round
+
+
+def replay_schedule(torch, eng, log, new_tokens):
+    """The engine's own steps on a recorded serving schedule, with no
+    driver, server or thread: every prompt submitted where the loop
+    submitted it and every call made as the loop made it, so each batch
+    holds the rows the driver's did; the tokens are fed back, and a
+    sequence finished at ``new_tokens``, here. Returns {prompt tuple:
+    tokens}."""
+    sched, out, prompt_of = eng.scheduler, {}, {}
+
+    def take(uid, toks, feedback):
+        got = out[uid]
+        for t in toks:
+            got.append(int(t))
+            if len(got) == new_tokens:
+                sched.finish(uid)
+                return
+        if feedback:
+            sched.feedback(uid, got[-1])
+
+    with torch.no_grad():
+        for kind, arg in log:
+            if kind == "submit":
+                uid, prompt = arg
+                sched.submit(uid, prompt)
+                out[uid], prompt_of[uid] = [], tuple(int(t) for t in prompt)
+            elif kind == "step":
+                for uid, tok in eng.step_tokens().items():
+                    take(uid, [tok], True)
+            elif kind == "round":
+                for uid, toks in eng.decode_round(arg).items():
+                    take(uid, toks, False)
+            else:
+                for uid, toks in eng.spec_round(arg[0], drafts=arg[1]).items():
+                    take(uid, toks, False)
+    if sched.has_work():
+        raise AssertionError("replayed schedule: sequences left in the scheduler")
+    return {prompt_of[uid]: toks for uid, toks in out.items()}
+
+
+def compare_replay(prompts, got, replayed):
+    """Each client's stream against the engine's steps replayed on the
+    driver's schedule (``replay_schedule``): token for token. Returns
+    {"equal": streams equal, "diverged": [{"client", "at"}, ...]}."""
+    out = {"equal": 0, "diverged": []}
+    for i, (p, g) in enumerate(zip(prompts, got)):
+        want = replayed.get(tuple(int(t) for t in p))
+        d = 0 if want is None else first_divergence(g, want)
+        if d is None:
+            out["equal"] += 1
+        else:
+            out["diverged"].append({"client": i, "at": d})
+    return out
+
+
+@contextlib.contextmanager
+def feedback_fault(vocab):
+    """A planted driver fault, the serving checks' negative control: while
+    the block runs, the driver streams each split-step token as computed
+    but feeds the scheduler the next id in the vocabulary, so the engine
+    goes on from a context the client never saw."""
+    from deepspeed_tpu_torch.serving.driver import ServingDriver
+
+    deliver = ServingDriver._deliver
+
+    def faulty(self, req, token, feedback=True):
+        if not feedback:
+            return deliver(self, req, token, feedback=False)
+        sched = self.engine.scheduler
+        real = sched.feedback
+        sched.feedback = lambda uid, tok: real(uid, (int(tok) + 1) % vocab)
+        try:
+            return deliver(self, req, token, feedback=True)
+        finally:
+            del sched.feedback
+
+    ServingDriver._deliver = faulty
+    try:
+        yield
+    finally:
+        ServingDriver._deliver = deliver
+
+
+@contextlib.contextmanager
+def plain_version_calls():
+    """Counts calls of the served kernels' plain versions while the block
+    runs (each module attribute wrapped, then restored)."""
+    import importlib
+
+    calls, saved = {}, []
+    for mod_name, attr in PLAIN_VERSIONS:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr)
+        calls[attr] = 0
+
+        def counted(*a, _fn=fn, _attr=attr, **k):
+            calls[_attr] += 1
+            return _fn(*a, **k)
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, counted)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def parse_prometheus(text):
+    """Exposition text -> {name{labels}: value}; raises on a malformed line."""
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^}]*\})?) (\S+)$')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# TYPE "):
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise AssertionError(f"/metrics: not Prometheus text: {line!r}")
+        out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def _http(url, body=None, timeout=SERVE_WAIT_S):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def http_clients(base, prompts, new_tokens, timeout=SERVE_WAIT_S):
+    """One client thread per prompt, all POSTing ``/generate`` at once,
+    every other one streamed. Returns each client's tokens."""
+    import threading
+
+    out = [None] * len(prompts)
+    errors = []
+
+    def client(i):
+        try:
+            body = _http(f"{base}/generate", {"tokens": [int(t) for t in prompts[i]],
+                                              "max_new_tokens": new_tokens, "ignore_eos": True,
+                                              "stream": i % 2 == 1}, timeout)
+            if i % 2:
+                out[i] = [json.loads(line)["token"] for line in body.splitlines() if line]
+            else:
+                reply = json.loads(body)
+                if reply["finish_reason"] != "max_tokens":
+                    raise AssertionError(f"client {i}: {reply}")
+                out[i] = reply["tokens"]
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serving clients failed: {errors[:4]}")
+    return out
+
+
+def device_busy_ms(torch, fn):
+    """``fn()`` under torch.profiler with the CUDA activity alone (no host
+    operator records): (its wall ms, the ms in which any device activity
+    ran, None when the profiler saw none). The union of the device events'
+    intervals is taken from the profiler's raw events: building its
+    per-operator tables for a serving pass's ~10^5 kernels takes minutes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((ev.start_ns(), ev.end_ns()) for ev in prof.profiler.kineto_results.events()
+                   if ev.device_type() == DeviceType.CUDA and ev.end_ns() > ev.start_ns())
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return wall, (busy / 1e6 if busy > 0 else None)
+
+
+def served_pass(torch, dev, K, eng, prompts, new_tokens, decode_steps, spec_k=0, trace=False,
+                profile=False, record=False, fault=False):
+    """One pass of the serving stack: a ``ServingDriver`` over ``eng``
+    behind ``start_server(port=0)``, every prompt from its own client
+    thread at once; the driver and the server are shut down in every case.
+    Returns the clients' tokens, the requests' TTFT / TPOT, the kernel
+    launches (counted from the driver's start), the plain versions' calls,
+    the wall seconds, /health once idle, /metrics parsed, with ``trace``
+    the /debug/trace Chrome document, and with ``record`` the schedule the
+    loop ran (``recorded_schedule``). ``fault`` plants ``feedback_fault``."""
+    from deepspeed_tpu_torch.observability import configure_tracing
+    from deepspeed_tpu_torch.serving import ServingDriver
+    from deepspeed_tpu_torch.serving.server import start_server
+
+    out = {}
+    if trace:
+        configure_tracing(enabled=True, max_events=1 << 18, capture="all")
+    driver = ServingDriver(eng, decode_steps=decode_steps, spec_k=spec_k,
+                           max_queue=2 * len(prompts))
+    reqs = []
+    submit = driver.submit
+
+    def recorded(*a, **k):
+        req = submit(*a, **k)
+        reqs.append(req)
+        return req
+
+    driver.submit = recorded
+    server = None
+    with contextlib.ExitStack() as planted:
+        log = planted.enter_context(recorded_schedule(eng)) if record else None
+        if fault:
+            planted.enter_context(feedback_fault(eng._mc.vocab_size))
+        try:
+            with plain_version_calls() as plain:
+                K.reset_counts()
+                driver.start()
+                server = start_server(driver, host="127.0.0.1", port=0)
+                base = "http://%s:%d" % server.server_address[:2]
+                run = lambda: out.__setitem__("tokens", http_clients(base, prompts, new_tokens))  # noqa: E731
+                t0 = time.perf_counter()
+                if profile and dev.type == "cuda":
+                    out["profiled_wall_ms"], out["device_busy_ms"] = device_busy_ms(torch, run)
+                else:
+                    run()
+                out["seconds"] = time.perf_counter() - t0
+                out["launches"] = K.counts()
+            out["plain_calls"] = dict(plain)
+            deadline = time.monotonic() + SERVE_WAIT_S
+            while True:
+                health = json.loads(_http(f"{base}/health"))
+                if health["active_requests"] == 0 and health["queue_depth"] == 0:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"the driver never went idle: {health}")
+                time.sleep(0.01)
+            out["health"] = health
+            out["metrics"] = parse_prometheus(_http(f"{base}/metrics").decode())
+            if trace:
+                out["trace"] = json.loads(_http(f"{base}/debug/trace?format=chrome"))
+        finally:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+            driver.shutdown(drain=False, timeout=60)
+            if trace:
+                configure_tracing(enabled=False)
+    out["schedule"] = log
+    out["snapshot"] = driver.metrics.snapshot()
+    out["ttft_s"] = [r.ttft_s for r in reqs]
+    out["tpot_s"] = [r.tpot_s for r in reqs]
+    out["generated"] = sum(len(r.generated) for r in reqs)
+    return out
+
+
+def trace_summary(doc, n_requests):
+    """The /debug/trace document's engine spans and request trees: the
+    dispatch and device-wait spans (count, ms) on the engine track and the
+    requests with a tree (their root span ``request``)."""
+    from deepspeed_tpu_torch.observability import validate_chrome_trace
+
+    errs = validate_chrome_trace(doc)
+    if errs:
+        raise AssertionError(f"/debug/trace: not a valid Chrome trace: {errs[:4]}")
+    xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    out = {"events": len(doc["traceEvents"])}
+    for name in ("engine.dispatch", "engine.device_wait", "step.split", "round.fused",
+                 "round.verify"):
+        spans = [e for e in xs if e["name"] == name and e["pid"] == 2]
+        out[name] = {"count": len(spans), "ms": sum(e["dur"] for e in spans) / 1e3}
+    roots = {e["tid"] for e in xs if e["pid"] == 1 and e["name"] == "request"}
+    out["request_trees"] = len(roots)
+    if not out["engine.dispatch"]["count"] or not out["engine.device_wait"]["count"]:
+        raise AssertionError(f"/debug/trace holds no engine.dispatch / device_wait spans: {out}")
+    if out["request_trees"] != n_requests:
+        raise AssertionError(f"/debug/trace: {out['request_trees']} request trees for "
+                             f"{n_requests} requests")
+    wait = out["engine.device_wait"]["ms"]
+    out["device_wait_share"] = wait / (wait + out["engine.dispatch"]["ms"])
+    return out
+
+
+def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE_NEW_TOKENS,
+                  spec_k=SPEC_K):
+    """The serving stack at the engine phase's engine (bf16 pool; ``int8``:
+    the engine_int8 phase's): the requests' streams against
+    ``engine.generate()`` on the same prompts (``compare_streams``), a timed
+    pass (TTFT, TPOT, tok/s), a profiled pass (the device's idle share),
+    a traced pass (/debug/trace valid, dispatch and device-wait spans, one
+    tree per request), a speculative pass (``NgramProposer``, k ``spec_k``)
+    and a planted pass (``feedback_fault``). The timed, speculative and
+    planted passes record the driver's schedule and replay it on the
+    engine (``replay_schedule``): the sound passes' streams must equal the
+    replay token for token, the planted pass's must leave it and pass the
+    margin limit. The int8 engine runs the timed, profiled and planted
+    passes. Launches of the served kernels are counted in each pass; the
+    plain versions must not run on a card. Returns (record, launches of
+    the timed pass)."""
+    ds = int(eng.config.decode_steps)
+    prompts = prompts if prompts is not None else serve_prompts(eng._mc.vocab_size)
+    rtol = SERVE_MARGIN_RTOL
+    nb = eng.config.kv_cache.num_blocks
+    rec = {"phase": "serving_int8" if int8 else "serving", "clients": len(prompts),
+           "streamed": len(prompts) // 2, "new_tokens": new_tokens, "decode_steps": ds,
+           "prompt_lens": [min(len(p) for p in prompts), max(len(p) for p in prompts)],
+           "logit_rtol": rtol}
+    t0 = time.perf_counter()
+    want = [[int(t) for t in o[len(p):]]
+            for o, p in zip(eng.generate(prompts, max_new_tokens=new_tokens), prompts)]
+    _sync(torch, dev)
+    rec["generate_seconds"] = time.perf_counter() - t0
+    served = (SERVE_KERNELS if not int8 else ("rms_norm_fwd",) + INT8_KERNELS)
+    passes = [("timed", dict(record=True)), ("profiled", dict(profile=True))]
+    if not int8:
+        passes += [("traced", dict(trace=True)), ("spec", dict(spec_k=spec_k, record=True))]
+    passes += [("planted", dict(record=True, fault=True))]
+    launches = None
+    for name, kw in passes:
+        run = served_pass(torch, dev, K, eng, prompts, new_tokens, ds, **kw)
+        # the pass's driver and server sit in reference cycles (the handler
+        # class closes over the driver, the driver over the engine): collect
+        # them, so the engine's memory goes with the caller's last reference
+        gc.collect()
+        planted = kw.get("fault", False)
+        p = {"seconds": run["seconds"], "launches": {k: run["launches"][k] for k in served},
+             "plain_calls": run["plain_calls"],
+             "streams": compare_streams(torch, eng, prompts, run["tokens"], want,
+                                        None if planted else rtol)}
+        if run["schedule"] is not None:
+            t1 = time.perf_counter()
+            replayed = replay_schedule(torch, eng, run["schedule"], new_tokens)
+            p["replay"] = compare_replay(prompts, run["tokens"], replayed)
+            p["replay"]["seconds"] = time.perf_counter() - t1
+            if not planted and p["replay"]["equal"] != len(prompts):
+                raise AssertionError(f"serving {name} pass: served streams leave the engine's "
+                                     f"steps on the driver's schedule: {p['replay']['diverged']}")
+        if planted:
+            caught = {"replay": p["replay"]["equal"] < len(prompts),
+                      "margin": p["streams"]["max_margin"] > rtol}
+            p["caught"] = caught
+            if not all(caught.values()):
+                raise AssertionError(f"serving planted pass: the fault went unseen by {caught} "
+                                     f"(largest margin {p['streams']['max_margin']}, limit {rtol})")
+        if dev.type == "cuda":
+            missing = [k for k in served if run["launches"][k] <= 0]
+            if missing or any(run["plain_calls"].values()):
+                raise AssertionError(f"serving {name} pass: kernels {run['launches']} "
+                                     f"(none of {missing}), plain versions {run['plain_calls']}")
+        h = run["health"]
+        if not (h["kv_free_blocks"] == h["kv_total_blocks"] == nb):
+            raise AssertionError(f"serving {name} pass: /health once idle {h}")
+        finished = run["metrics"].get("dstpu_serving_requests_finished_total")
+        if finished != len(prompts):
+            raise AssertionError(f"serving {name} pass: /metrics finished {finished}")
+        p["metrics_samples"] = len(run["metrics"])
+        if name == "timed":
+            launches = run["launches"]
+            p.update(ttft_s=percentiles(run["ttft_s"]), tpot_s=percentiles(run["tpot_s"]),
+                     tok_s=run["generated"] / run["seconds"], generated=run["generated"])
+        if name == "profiled":
+            p["device_busy_ms"] = run.get("device_busy_ms")
+            p["wall_ms"] = run.get("profiled_wall_ms")
+            p["idle_share"] = idle_share(p["device_busy_ms"], p["wall_ms"])
+        if name == "traced":
+            p["trace"] = trace_summary(run["trace"], len(prompts))
+        if name == "spec":
+            snap = run["snapshot"]
+            p["spec"] = {k: snap[k] for k in ("spec_rounds_total", "spec_draft_tokens_total",
+                                              "spec_accepted_tokens_total")}
+            if p["spec"]["spec_rounds_total"] <= 0:
+                raise AssertionError("serving spec pass: no verify round ran")
+        rec[name] = p
+    return rec, launches
+
+
+def serving_note(rec, card):
+    """The serving phase's line: TTFT and TPOT (p50 / p99), tok/s and the
+    device's idle share, beside the card."""
+    t = rec["timed"]
+    idle = rec["profiled"]["idle_share"]
+    ms = lambda d: "/".join("n/a" if v is None else f"{1e3 * v:.1f}" for v in d.values())  # noqa: E731
+    return (f"{rec['phase']}: {rec['clients']} HTTP clients x {rec['new_tokens']} tokens: TTFT "
+            f"p50/p99 {ms(t['ttft_s'])} ms, TPOT p50/p99 {ms(t['tpot_s'])} ms, "
+            f"{t['tok_s']:.1f} tok/s, device idle share "
+            f"{'not measured' if idle is None else f'{idle:.3f}'} (profiled pass), "
+            f"streams equal to the engine's steps on the driver's schedule "
+            f"{t['replay']['equal']}/{rec['clients']}, to generate() {t['streams']['equal']}/"
+            f"{rec['clients']} (the rest leave it at near-ties; every served token within "
+            f"{t['streams']['max_margin']:.4f} of the plain forward's largest logit, limit "
+            f"{rec['logit_rtol']}; a planted feedback fault reads "
+            f"{rec['planted']['streams']['max_margin']:.4f}), on {card}")
+
+
+def serve_cli_phase(torch, dev, K, work, root, new_tokens=SERVE_CLI_NEW, prompt_lens=(64, 512),
+                    flags=SERVE_CLI_FLAGS):
+    """``python -m deepspeed_tpu_torch.inference.cli serve --model
+    work/hf --port 0`` as a subprocess (killed in every case): its address
+    read from its "listening on" line, then two ``tokens`` requests, one
+    after the other, each equal to ``build_hf_engine``'s ``generate`` on the
+    directory with the engine config those flags make. Returns (record,
+    None: the subprocess's launches are its own)."""
+    import queue
+    import threading
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference import cli
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_hf_engine
+
+    path = Path(work) / "hf"
+    argv = ["serve", "--model", str(path), "--port", "0", "--device", dev.type, *flags]
+    rec = {"phase": "serve_cli", "argv": ["python", "-m", "deepspeed_tpu_torch.inference.cli"]
+           + argv[:2] + ["<hf_import dir>"] + argv[3:]}
+    rng = np.random.default_rng(SEED + 7)
+    cfg = json.loads((path / "config.json").read_text())
+    prompts = [rng.integers(0, cfg["vocab_size"], size=int(n)).astype(np.int32)
+               for n in rng.integers(*prompt_lens, size=2)]
+    t0 = time.perf_counter()
+    repo = Path(__file__).resolve().parent  # the checkout whose package is served
+    proc = subprocess.Popen([sys.executable, "-m", "deepspeed_tpu_torch.inference.cli", *argv],
+                            cwd=str(root), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True, env=dict(os.environ, PYTHONPATH=str(repo)))
+    lines, tail = queue.Queue(), []
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stderr],
+                     daemon=True).start()
+    got = []
+    try:
+        base, deadline = None, time.monotonic() + SERVE_CLI_WAIT_S
+        while base is None:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None and lines.empty():
+                    raise AssertionError(f"serve_cli exited {proc.returncode}: "
+                                         f"{''.join(tail[-20:])}")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"serve_cli: no address in {SERVE_CLI_WAIT_S} s: "
+                                         f"{''.join(tail[-20:])}")
+                continue
+            tail.append(line)
+            m = re.search(r"listening on (http://[0-9.]+:[0-9]+)", line)
+            base = m.group(1) if m else None
+        rec["listening_seconds"] = time.perf_counter() - t0
+        for p in prompts:
+            t1 = time.perf_counter()
+            reply = json.loads(_http(f"{base}/generate", {
+                "tokens": [int(t) for t in p], "max_new_tokens": new_tokens,
+                "ignore_eos": True}))
+            got.append(reply["tokens"])
+            rec.setdefault("request_seconds", []).append(time.perf_counter() - t1)
+        health = json.loads(_http(f"{base}/health"))
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    args = cli.serve_parse_args(argv[1:])
+    eng = build_hf_engine(str(path), cli.engine_config_from_args(args, None), device=dev.type)
+    want = [[int(t) for t in eng.generate([p], max_new_tokens=new_tokens)[0][len(p):]]
+            for p in prompts]
+    rec.update(prompt_lens=[len(p) for p in prompts], new_tokens=new_tokens,
+               kv_total_blocks=health["kv_total_blocks"], equal=got == want)
+    if got != want:
+        raise AssertionError(f"serve_cli: served {got} against generate() {want}")
+    return rec, None
+
+
 # the per-row leg: the engine's per-row step (_step_per_row) with
 # attention_impl="splash" at Mistral's window of 4096 over an 8192-token
 # context (64 blocks of 128), 256-token prompt chunks; 4 prompts of 6144 to
@@ -6227,10 +6891,11 @@ def graft_entry_phase(torch, dev, K):
 
 
 def import_phases(torch, dev, K, root, card, hf_kw=None, train_kw=None):
-    """hf_import, train_import and graft_entry, each emitted with its
+    """hf_import, serve_cli (``dstpu serve`` on hf_import's directory, in a
+    subprocess), train_import and graft_entry, each emitted with its
     seconds; the checkpoints they write are removed. ``hf_kw`` / ``train_kw``
-    shrink the first two for a rehearsal on the CPU. Returns the launches
-    of each phase."""
+    shrink hf_import and train_import for a rehearsal on the CPU. Returns
+    the launches of each phase of this process."""
     import shutil
     import tempfile
 
@@ -6242,11 +6907,14 @@ def import_phases(torch, dev, K, root, card, hf_kw=None, train_kw=None):
         free = shutil.disk_usage(work).free
         for name, run in (("hf_import", lambda: hf_import_phase(torch, dev, K, work,
                                                                 **(hf_kw or {}))),
+                          ("serve_cli", lambda: serve_cli_phase(torch, dev, K, work, root)),
                           ("train_import", lambda: train_import_phase(torch, dev, K, work,
                                                                       **(train_kw or {}))),
                           ("graft_entry", lambda: graft_entry_phase(torch, dev, K))):
             t0 = time.perf_counter()
-            rec, launches[name] = run()
+            rec, counted = run()
+            if counted is not None:
+                launches[name] = counted
             rec.update(card=card, seconds=time.perf_counter() - t0)
             if name == "hf_import":
                 rec["disk_free_gb"] = free / 1e9
@@ -6255,6 +6923,10 @@ def import_phases(torch, dev, K, root, card, hf_kw=None, train_kw=None):
                       f"shards loaded through build_hf_engine in {rec['load_seconds']:.2f} s "
                       f"({rec['load_gb_s']:.2f} GB/s), peak "
                       f"{'not measured' if peak is None else f'{peak:.1f} GB'}, on {card}",
+                      flush=True)
+            if name == "serve_cli":
+                print(f"serve_cli: listening after {rec['listening_seconds']:.1f} s, two "
+                      f"requests of {rec['new_tokens']} tokens equal to generate(), on {card}",
                       flush=True)
             emit(rec)
             torch.cuda.empty_cache()
@@ -6780,6 +7452,13 @@ def main(argv=None):
     rec = inference_v1_phase(torch, dev, K, held["cfg"], held["engine"].params)
     rec.update(card=card, seconds=time.perf_counter() - t0)
     emit(rec)
+    # the serving stack (driver, HTTP server, tracing, spec) on the same engine
+    serving_launches = {}
+    t0 = time.perf_counter()
+    rec, serving_launches["serving"] = serving_phase(torch, dev, K, held["engine"])
+    rec.update(card=card, seconds=time.perf_counter() - t0)
+    emit(rec)
+    print(serving_note(rec, card), flush=True)
     held.clear()
     torch.cuda.empty_cache()
 
@@ -6796,6 +7475,12 @@ def main(argv=None):
                                                    held["prompts"], held["plain"], int8=True)
     rec.update(card=card, seconds=time.perf_counter() - t0)
     emit(rec)
+    t0 = time.perf_counter()
+    rec, serving_launches["serving_int8"] = serving_phase(torch, dev, K, held["engine"],
+                                                          int8=True)
+    rec.update(card=card, seconds=time.perf_counter() - t0)
+    emit(rec)
+    print(serving_note(rec, card), flush=True)
     held.clear()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6922,6 +7607,10 @@ def main(argv=None):
                 if spec_launches["int8"][n] <= 0]
     missing += [f"{n} (hf_import)" for n in SERVE_KERNELS
                 if import_launches["hf_import"][n] <= 0]
+    missing += [f"{n} (serving)" for n in SERVE_KERNELS
+                if serving_launches["serving"][n] <= 0]
+    missing += [f"{n} (serving_int8)" for n in ("rms_norm_fwd",) + INT8_KERNELS
+                if serving_launches["serving_int8"][n] <= 0]
     missing += [f"{n} (train_import)" for n in TRAIN_KERNELS
                 if import_launches["train_import"][n] <= 0]
     missing += [f"{n} (graft_entry)" for n in ("rms_norm_fwd", "flash_fwd")
@@ -6982,6 +7671,8 @@ def main(argv=None):
             **({"no_alibi_ms": rec["no_alibi_ms"]} if name in FLASH_ALIBI_KERNELS else {}),
             **{f"launches_{phase_name}": n.get(name, 0)
                for phase_name, n in import_launches.items()},
+            **{f"launches_{phase_name}": n.get(name, 0)
+               for phase_name, n in serving_launches.items()},
             **{f"launches_{phase_name}": quant_launches[phase_name].get(name, 0)
                for phase_name in ("serve_wq8", "serve_wq4", "serve_wq8_int8")},
             **{f"launches_train_qmm_{mode}": quant_launches["train_qmm"][mode].get(name, 0)

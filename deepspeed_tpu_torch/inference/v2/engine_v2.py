@@ -72,6 +72,14 @@ shape, so ``trace_signature`` is the set of kernel libraries this process
 has built or loaded, the one cost a first use pays at admission (ROADMAP
 queue 1, item 4).
 
+With tracing on (``observability.configure_tracing``), every step, fused
+round and verify round writes an ``engine.dispatch`` span (host staging
+and the kernel launches) and an ``engine.device_wait`` span (a
+synchronization of the current stream until the step's outputs are
+ready) on the engine's track, and the host tier writes ``host_tier.spill``
+(instant) and ``host_tier.readmit`` (span), as the JAX engine does. With
+tracing off nothing is added to a step.
+
 The engine runs on ``device`` ("cuda" unless the caller passes "cpu"), and
 raises when asked for a card that is not there. Features of the JAX engine
 that later slices port raise ``NotImplementedError`` naming their ROADMAP
@@ -90,6 +98,7 @@ from deepspeed_tpu_torch.inference.v2.kv_pool import _check_dtype, check_kv_payl
 from deepspeed_tpu_torch.inference.v2.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.scheduler import RaggedScheduler
 from deepspeed_tpu_torch.models import transformer as T
+from deepspeed_tpu_torch.observability.tracing import get_tracer
 from deepspeed_tpu_torch.ops.attention.core import NEG_INF, mha_reference, window_too_far
 from deepspeed_tpu_torch.ops.attention.paged import (
     paged_attention,
@@ -162,6 +171,26 @@ def _materialize_rows(res: dict, want_tokens: bool = False) -> dict:
     return out
 
 
+def _device_wait(device: torch.device) -> None:
+    """Block until the work queued so far on ``device``'s current stream
+    has run (the outputs of the step just dispatched): the boundary of the
+    ``engine.device_wait`` span. Nothing to wait for on the CPU."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        ev.synchronize()
+
+
+def _trace_dispatch(tr, track: str, t0: float, device: torch.device, args: dict) -> None:
+    """Close the ``engine.dispatch`` span opened at ``t0``, wait for the
+    device, and write the ``engine.device_wait`` span (the JAX engine's
+    pair, on the engine's track)."""
+    tr.complete("engine.dispatch", t0, track=track, args=args)
+    t1 = tr.now()
+    _device_wait(device)
+    tr.complete("engine.device_wait", t1, track=track)
+
+
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
     """A pool's numpy dtype in a KV payload (bf16 as its uint16 bits)."""
     if dtype == torch.bfloat16:
@@ -188,6 +217,9 @@ class InferenceEngineV2:
         self.config = config or RaggedInferenceEngineConfig()
         self._mc = c = model_config
         self.device = torch.device(device)
+        # the serving replica that owns this engine (``EngineCore`` names
+        # it): its trace track and its fault-injection key; None alone
+        self.replica_name: Optional[str] = None
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "InferenceEngineV2: no CUDA device is available; pass device='cpu' "
@@ -313,6 +345,12 @@ class InferenceEngineV2:
                 dt = self._dtype if v.is_floating_point() else v.dtype
                 out[k] = v.to(device=self.device, dtype=dt).contiguous()
         return out
+
+    @property
+    def trace_track(self) -> str:
+        """The timeline track of this engine's spans: its replica's name,
+        or "engine"."""
+        return self.replica_name or "engine"
 
     @property
     def paged_attention_impl(self) -> str:
@@ -583,6 +621,10 @@ class InferenceEngineV2:
         store = self._host_tier
         if store is None:
             return
+        tr = get_tracer()
+        if tr.enabled:
+            tr.instant("host_tier.spill", track=self.trace_track,
+                       args={"block": int(block)})
         payload = self.export_kv_blocks([block])
         store.put(hkey, {name: plane[:, 0] for name, plane in payload.items()})
 
@@ -601,7 +643,7 @@ class InferenceEngineV2:
         faults = get_fault_injector()
         if faults.enabled:
             try:
-                faults.check("host_tier.readmit", replica=getattr(self, "_trace_name", None))
+                faults.check("host_tier.readmit", replica=self.replica_name)
             except InjectedFault:
                 return n_cached  # before extend(): the pool is untouched
         toks = np.asarray(prompt_tokens).reshape(-1)
@@ -628,7 +670,10 @@ class InferenceEngineV2:
         if not self.state_manager.extend(seq, run * bs):
             return n_cached
         stacked = {name: np.stack([p[name] for p in payloads], axis=1) for name in payloads[0]}
-        self.import_kv_blocks_chunked(seq.block_table[start:], stacked)
+        tr = get_tracer()
+        with tr.span("host_tier.readmit", track=self.trace_track,
+                     args={"blocks": run} if tr.enabled else None):
+            self.import_kv_blocks_chunked(seq.block_table[start:], stacked)
         seq.seen_tokens = n_cached + run * bs
         store.note_readmits(run)
         cache.insert(toks[: seq.seen_tokens], seq.block_table)
@@ -730,9 +775,6 @@ class InferenceEngineV2:
             top_k=int(getattr(cfg, "top_k", 0) or 0),
             top_p=float(getattr(cfg, "top_p", 0.0) or 0.0),
         )
-
-    def enable_tracing(self, *a, **k):
-        raise _later("engine tracing spans", "ROADMAP queue 1, item 5: observability")
 
     # ------------------------------------------------------------------
     def _sample(self, logits, uids, positions, return_logprobs=False):
@@ -928,6 +970,8 @@ class InferenceEngineV2:
             uids.append(uid)
         if not uids:
             return {}
+        tr = get_tracer()
+        t0 = tr.now() if tr.enabled else 0.0
         kv = self.config.kv_cache
         B, bs, trash = kv.max_blocks_per_seq, kv.block_size, kv.num_blocks
         tokens = np.zeros(R, np.int32)
@@ -974,6 +1018,9 @@ class InferenceEngineV2:
             toks = torch.where(act_d, nxt, toks)  # inactive rows freeze
             toks_out.append(toks)
             logps_out.append(logp)
+        if tr.enabled:
+            _trace_dispatch(tr, self.trace_track, t0, self.device,
+                            {"rows": len(uids), "steps": n})
         toks_h = torch.stack(toks_out).cpu().numpy()  # [n, R]
         logps_h = torch.stack(logps_out).cpu().numpy()
         results: Dict[int, np.ndarray] = {}
@@ -1016,9 +1063,10 @@ class InferenceEngineV2:
         p..p+k; padded slots at qpos -1 write to the trash block) in one
         forward, draws the TARGET token at every position with the key
         plain decode would use (``row_keys(seed, uid, position)``), and
-        accepts the longest draft prefix equal to the targets. Returns host
-        (targets [R, K1], n_emit [R] = accepted + 1 (0 for inactive rows),
-        logprobs [R, K1])."""
+        accepts the longest draft prefix equal to the targets. Returns device
+        tensors (targets and n_emit as one int32 [R, K1 + 1]: n_emit =
+        accepted + 1, 0 for inactive rows, in the last column; logprobs
+        [R, K1]), copied to the host by ``spec_round``."""
         c, kv = self._mc, self.config.kv_cache
         R, K1 = tokens.shape
         B, bs, trash = kv.max_blocks_per_seq, kv.block_size, kv.num_blocks
@@ -1052,8 +1100,7 @@ class InferenceEngineV2:
         match = (tokens_d[:, 1:] == tgt[:, :k]) & (jj[None] < (n_in_d - 1)[:, None])
         n_acc = torch.cumprod(match.int(), dim=1).sum(dim=1)
         n_emit = torch.where(act_d.bool(), n_acc + 1, torch.zeros_like(n_acc))
-        host = torch.cat([tgt, n_emit[:, None].to(torch.int32)], dim=1).cpu().numpy()
-        return host[:, :K1], host[:, K1], logp.reshape(R, K1).cpu().numpy()
+        return torch.cat([tgt, n_emit[:, None].to(torch.int32)], dim=1), logp.reshape(R, K1)
 
     def spec_round(self, k: Optional[int] = None, drafts=None) -> Dict[int, np.ndarray]:
         """One speculative draft-and-verify round over the eligible RUNNING
@@ -1120,8 +1167,14 @@ class InferenceEngineV2:
             uid_arr[i] = uid
             active[i] = True
             n_input[i] = 1 + len(d)
-        tgt, n_emit, logp = self._verify_step(k, tokens, positions, tables, uid_arr, active,
-                                              n_input)
+        tr = get_tracer()
+        t0 = tr.now() if tr.enabled else 0.0
+        out, logp = self._verify_step(k, tokens, positions, tables, uid_arr, active, n_input)
+        if tr.enabled:
+            _trace_dispatch(tr, self.trace_track, t0, self.device,
+                            {"rows": len(uids), "k": k})
+        host = out.cpu().numpy()
+        tgt, n_emit, logp = host[:, :K1], host[:, K1], logp.cpu().numpy()
         results: Dict[int, np.ndarray] = {}
         self.last_logprobs = {}
         drafted_total = accepted_total = 0
@@ -1154,8 +1207,19 @@ class InferenceEngineV2:
 
     def step_tokens(self) -> Dict[int, int]:
         """One engine step returning ``{uid: next-token int}`` (the sampled
-        token computed with the step, never a host argmax)."""
-        rows = _materialize_rows(self._step_device(), want_tokens=True)
+        token computed with the step, never a host argmax). With tracing on
+        the step is split into ``engine.dispatch`` (``_step_device``: host
+        staging and the launches) and ``engine.device_wait``; the split
+        wraps the caller, so ``_step_device`` itself stays free of waits."""
+        tr = get_tracer()
+        if not tr.enabled:
+            rows = _materialize_rows(self._step_device(), want_tokens=True)
+            return {uid: int(tok) for uid, tok in rows.items()}
+        t0 = tr.now()
+        res = self._step_device()
+        _trace_dispatch(tr, self.trace_track, t0, self.device,
+                        {"rows": len(res), "tokens": int(self.last_scheduled_tokens or 0)})
+        rows = _materialize_rows(res, want_tokens=True)
         return {uid: int(tok) for uid, tok in rows.items()}
 
     def _step_device(self) -> Dict[int, tuple]:

@@ -58,9 +58,12 @@ the overflow check, the clip norm and the update are the same on every
 rank, and the reported loss is the global mean. There ZeRO stages above 0
 and checkpoints raise (ROADMAP queue 1, item 6). The loopback form is one
 process: nothing is reduced and every stage behaves as on one device.
-Offload, weight streaming, ZenFlow, pipelines, curriculum learning, the
-flops profiler and monitors raise ``NotImplementedError`` naming their
-ROADMAP items, and so does loading the JAX package's orbax store.
+Offload, weight streaming, ZenFlow, pipelines, curriculum learning and the
+flops profiler raise ``NotImplementedError`` naming their ROADMAP items,
+and so does loading the JAX package's orbax store. The monitors
+(``monitor.MonitorMaster``: csv, Prometheus, and TensorBoard / W&B / Comet
+where their packages are installed) get the JAX engine's events at its
+print steps; a monitor that fails to build or write never stops training.
 """
 
 import contextlib
@@ -86,7 +89,7 @@ from deepspeed_tpu_torch.runtime.optimizers import (
     tree_map,
 )
 from deepspeed_tpu_torch.utils import counter_hash
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (
     BACKWARD_GLOBAL_TIMER,
     FORWARD_GLOBAL_TIMER,
@@ -122,9 +125,6 @@ def _check_config(config: DeepSpeedConfig):
          or bool((config.data_efficiency or {}).get("enabled")),
          "curriculum learning / data efficiency", "ROADMAP queue 1, item 9"),
         (config.flops_profiler.enabled, "the flops profiler", "ROADMAP queue 1, item 9"),
-        (any(m.enabled for m in (config.tensorboard, config.wandb, config.csv_monitor,
-                                 config.comet, config.prometheus)),
-         "monitors", "ROADMAP queue 1, item 5"),
         (config.comms_logger.enabled, "the comms logger", "ROADMAP queue 1, item 6"),
         (config.activation_checkpointing.partition_activations
          or config.activation_checkpointing.cpu_checkpointing,
@@ -207,6 +207,7 @@ class DeepSpeedEngine:
             batch_size=config.train_batch_size,
             steps_per_output=config.steps_per_print,
         )
+        self.monitor = self._configure_monitor(config)
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
         self._last_loss = None
@@ -252,6 +253,15 @@ class DeepSpeedEngine:
                 "'optimizer' section"
             )
         return build_optimizer(config.optimizer)
+
+    def _configure_monitor(self, config):
+        try:
+            from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
+
+            return MonitorMaster(config)
+        except Exception as e:  # a monitor never stops training
+            logger.warning(f"Monitor disabled: {e}")
+            return None
 
     def _configure_lr_scheduler(self, client_scheduler, config):
         if client_scheduler is not None:
@@ -388,7 +398,9 @@ class DeepSpeedEngine:
         cfg = self.config
         check_overflow = (cfg.check_grad_overflow if cfg.check_grad_overflow is not None
                           else self.fp16_enabled)
-        monitor_norm = bool(cfg.monitor_grad_norm)
+        # None = auto: the norm is reduced when a monitor writes it
+        monitor_norm = (cfg.monitor_grad_norm if cfg.monitor_grad_norm is not None
+                        else bool(getattr(self.monitor, "enabled", False)))
         return check_overflow, monitor_norm
 
     def _rng(self, step, micro):
@@ -554,6 +566,18 @@ class DeepSpeedEngine:
                 + (" OVERFLOW-SKIPPED" if overflow else ""),
                 ranks=[0],
             )
+            if self.monitor is not None and self.monitor.enabled:
+                events = [
+                    ("Train/Samples/train_loss", float(loss), self.global_samples),
+                    ("Train/Samples/lr", self._current_lr(), self.global_samples),
+                    ("Train/Samples/grad_norm", gn, self.global_samples),
+                    ("Train/Samples/loss_scale", float(self.scaler_state.scale),
+                     self.global_samples),
+                ]
+                try:
+                    self.monitor.write_events(events)
+                except Exception as e:  # a monitor never stops training
+                    logger.warning(f"Monitor write failed: {e}")
         if (self.wall_clock_breakdown and self.config.steps_per_print
                 and self.global_steps % self.config.steps_per_print == 0):
             self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])

@@ -1,6 +1,9 @@
-"""Fault injection for the serving cluster (mirrors
-``deepspeed_tpu/serving/resilience``): ``faults`` is ported; health,
-retry and recovery come with ROADMAP queue 1, item 5."""
+"""Fault tolerance for the serving stack (mirrors
+``deepspeed_tpu/serving/resilience``): deterministic fault injection
+(``faults``) and the replica's step-error streak (``health``). The
+health state machine's probes and ``ResilienceConfig``, bounded retries
+(``retry``) and request recovery (``recovery``) come with the
+multi-engine router, ROADMAP queue 1, item 5."""
 
 from deepspeed_tpu_torch.serving.resilience.faults import (
     SITES,
@@ -13,6 +16,12 @@ from deepspeed_tpu_torch.serving.resilience.faults import (
     seeded_schedule,
     set_fault_injector,
 )
+from deepspeed_tpu_torch.serving.resilience.health import (
+    DEGRADED,
+    HEALTHY,
+    QUARANTINED,
+    ReplicaHealth,
+)
 
 __all__ = [
     "SITES",
@@ -24,4 +33,8 @@ __all__ = [
     "inject",
     "seeded_schedule",
     "set_fault_injector",
+    "HEALTHY",
+    "DEGRADED",
+    "QUARANTINED",
+    "ReplicaHealth",
 ]

@@ -1243,7 +1243,8 @@ def test_hf_layout_writer_and_the_bit_check(tmp_path, one_thread):
 
 
 def test_import_phases_run_end_to_end_on_cpu(tmp_path, one_thread, capsys):
-    """hf_import, train_import (the default-store round trip and
+    """hf_import, serve_cli (``dstpu serve`` as a subprocess on the
+    directory), train_import (the default-store round trip and
     zero_to_fp32 included) and graft_entry at tiny widths: through
     ``import_phases`` (its records printed, its directory removed), then
     each phase's record."""
@@ -1253,7 +1254,10 @@ def test_import_phases_run_end_to_end_on_cpu(tmp_path, one_thread, capsys):
     launches = chip_smoke.import_phases(torch, cpu, K, tmp_path, "cpu", hf_kw, train_kw)
     assert sorted(launches) == ["graft_entry", "hf_import", "train_import"]
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
-    assert [r["phase"] for r in lines] == ["hf_import", "train_import", "graft_entry"]
+    assert [r["phase"] for r in lines] == ["hf_import", "serve_cli", "train_import",
+                                           "graft_entry"]
+    # dstpu serve in a subprocess on hf_import's directory answered generate()'s tokens
+    assert lines[1]["equal"] and lines[1]["new_tokens"] == chip_smoke.SERVE_CLI_NEW
     assert all(r["seconds"] > 0 and r["card"] == "cpu" for r in lines)
     assert lines[0]["disk_free_gb"] > 0 and list((tmp_path / "build").iterdir()) == []
     rec, launches = chip_smoke.hf_import_phase(torch, cpu, K, tmp_path, **hf_kw)
@@ -1357,3 +1361,151 @@ def test_quant_phases_run_end_to_end_on_cpu(one_thread, capsys, monkeypatch):
     lo = rec["lora"]
     assert lo["base_grad"] is False and lo["merge_max_abs_err"] <= lo["merge_bound"]
     assert lo["base_rel_frobenius"] < 0.01
+
+
+# ---------------------------------------------------------------------------
+# the serving phase: the driver, the HTTP server, tracing and spec over the
+# engine phase's engine (here a tiny one), and its helpers
+# ---------------------------------------------------------------------------
+SERVE_TINY_WIDTHS = dict(n_layers=2, hidden_size=128, n_heads=4, n_kv_heads=2,
+                         ffn_hidden_size=256, vocab_size=512, dtype="float32")
+
+
+def _serve_tiny_engine(kv_cache_dtype="bf16"):
+    from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import transformer as T
+
+    cfg = T.get_config(chip_smoke.MODEL, **SERVE_TINY_WIDTHS)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    rc = RaggedInferenceEngineConfig.from_dict({
+        "dtype": "float32", "decode_steps": 8, "prompt_chunk": 64, "max_prompt_chunks": 4,
+        "kv_cache": {"block_size": 16, "num_blocks": 128, "max_blocks_per_seq": 12,
+                     "kv_cache_dtype": kv_cache_dtype},
+        "state_manager": {"max_tracked_sequences": 16, "max_ragged_batch_size": 256,
+                          "max_ragged_sequence_count": 8, "max_context": 192}})
+    return InferenceEngineV2(cfg, params, rc, device="cpu")
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["bf16", "int8"])
+def test_serving_phase_runs_end_to_end_on_cpu(one_thread, kv_cache_dtype):
+    """8 clients (4 streamed) over HTTP: every stream equals generate()'s
+    and the engine's steps replayed on the driver's schedule, /health and
+    /metrics answer, the traced pass holds the engine's dispatch /
+    device-wait spans and 8 request trees, the spec pass verifies, the
+    planted feedback fault is caught by the replay and by the margin; on
+    the CPU the plain versions run and no kernel launches."""
+    eng = _serve_tiny_engine(kv_cache_dtype)
+    int8 = kv_cache_dtype == "int8"
+    prompts = chip_smoke.serve_prompts(512, n=8, lens=(20, 150))
+    rec, launches = chip_smoke.serving_phase(torch, torch.device("cpu"), K, eng, int8=int8,
+                                             prompts=prompts, new_tokens=8)
+    json.dumps(rec)
+    passes = ["timed", "profiled"] + ([] if int8 else ["traced", "spec"])
+    assert [k for k in passes if k in rec] == passes
+    for name in passes:
+        st = rec[name]["streams"]
+        assert (st["equal"], st["near_tie_flips"], st["tokens_checked"]) == (8, [], 64), name
+        if name in ("timed", "spec"):
+            assert rec[name]["replay"]["equal"] == 8 and rec[name]["replay"]["diverged"] == []
+        # fp32: the served tokens are the plain forward's argmax; an int8 pool's
+        # codes carry absmax / 254 of rounding against its unquantized K/V
+        assert st["max_margin"] < (1e-2 if int8 else 1e-4)
+        assert set(rec[name]["launches"].values()) == {0}
+        plain = rec[name]["plain_calls"]
+        assert plain["rms_norm_reference"] > 0 and plain["paged_decode_attention_dense"] > 0
+        assert (plain["block_quant_reference"] > 0) == int8
+    planted = rec["planted"]
+    assert planted["caught"] == {"replay": True, "margin": True}
+    assert planted["replay"]["equal"] < 8 and planted["streams"]["max_margin"] > rec["logit_rtol"]
+    t = rec["timed"]
+    assert t["generated"] == 8 * 8 and t["tok_s"] > 0
+    assert 0 < t["ttft_s"]["p50"] <= t["ttft_s"]["p99"]
+    assert rec["profiled"]["idle_share"] is None  # no card: not measured
+    assert launches == {name: 0 for name in K.KERNELS}
+    if not int8:
+        tr = rec["traced"]["trace"]
+        assert tr["request_trees"] == 8 and tr["engine.dispatch"]["count"] > 0
+        assert tr["engine.dispatch"]["count"] == tr["engine.device_wait"]["count"]
+        assert rec["spec"]["spec"]["spec_rounds_total"] > 0
+    line = chip_smoke.serving_note(rec, "cpu")
+    assert "TTFT" in line and "not measured" in line and line.endswith("on cpu")
+    # nothing of the passes keeps the engine alive: the phases after this one
+    # need its card memory back once the caller lets go of it
+    import weakref
+
+    ref = weakref.ref(eng)
+    del eng
+    assert ref() is None
+
+
+def test_serving_helpers():
+    """The request mix, the percentile and idle-share arithmetic, the
+    stream comparison's divergence index and the /metrics parser."""
+    ps = chip_smoke.serve_prompts(1000)
+    assert len(ps) == chip_smoke.SERVE_CLIENTS
+    lo, hi = chip_smoke.SERVE_PROMPT_LENS
+    assert all(lo <= len(p) <= hi and p.dtype == np.int32 for p in ps)
+    assert np.array_equal(ps[0][:16], ps[0][16:32])  # a motif prompt repeats
+    assert [len(p) for p in ps] == [len(p) for p in chip_smoke.serve_prompts(1000)]
+    assert chip_smoke.percentiles(range(1, 101)) == {"p50": 50.5, "p99": 99.01}
+    assert chip_smoke.percentiles([None]) == {"p50": None, "p99": None}
+    assert chip_smoke.idle_share(30.0, 100.0) == pytest.approx(0.7)
+    assert chip_smoke.idle_share(None, 100.0) is None
+    assert chip_smoke.idle_share(120.0, 100.0) == 0.0
+    assert chip_smoke.first_divergence([1, 2, 3], [1, 2, 3]) is None
+    assert chip_smoke.first_divergence([1, 5, 3], [1, 2, 3]) == 1
+    assert chip_smoke.first_divergence([1, 2], [1, 2, 3]) == 2
+    got = chip_smoke.parse_prometheus('# TYPE a counter\na 3\nb{le="+Inf"} 1.5\n')
+    assert got == {"a": 3.0, 'b{le="+Inf"}': 1.5}
+    with pytest.raises(AssertionError, match="Prometheus"):
+        chip_smoke.parse_prometheus("not a sample line\n")
+
+
+def test_compare_streams_holds_each_token_to_the_reference_margin(one_thread):
+    """Every served token must be a greedy pick of the plain forward up to
+    the limit: a stream that takes the runner-up passes only when the two
+    are within it (reported as a near-tie flip), a token far below the
+    largest logit fails, and so does a stream of another length."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    eng = _serve_tiny_engine()
+    prompt = np.arange(1, 30, dtype=np.int32)
+    with torch.no_grad():
+        row = T.forward_reference(eng.params, torch.as_tensor(prompt[None].astype(np.int64)),
+                                  eng._mc)[0][0, -1].float()
+    order = torch.argsort(row, descending=True).tolist()
+    margin = float((row[order[0]] - row[order[1]]) / row.abs().max())
+    want, got = [[order[0]]], [[order[1]]]
+    out = chip_smoke.compare_streams(torch, eng, [prompt], got, want, rtol=margin * 1.01)
+    assert out["equal"] == 0 and out["near_tie_flips"][0]["at"] == 0
+    assert out["near_tie_flips"][0]["margin"] == pytest.approx(margin)
+    assert out["tokens_checked"] == 1 and out["max_margin"] == pytest.approx(margin)
+    with pytest.raises(AssertionError, match="largest logit"):
+        chip_smoke.compare_streams(torch, eng, [prompt], got, want, rtol=margin * 0.99)
+    with pytest.raises(AssertionError, match="largest logit"):
+        chip_smoke.compare_streams(torch, eng, [prompt], [[order[-1]]], [[order[-1]]], rtol=0.05)
+    with pytest.raises(AssertionError, match="tokens"):
+        chip_smoke.compare_streams(torch, eng, [prompt], [[order[0]]], [order[:2]], rtol=1.0)
+    assert chip_smoke.compare_streams(torch, eng, [prompt], want, want, rtol=0.0) == {
+        "equal": 1, "near_tie_flips": [], "tokens_checked": 1, "max_margin": 0.0}
+
+
+def test_trace_summary_counts_engine_spans_and_trees():
+    """The traced pass's checks on a hand-made document: spans counted on
+    the engine track, request trees by their roots, an invalid document or
+    a missing tree fails."""
+    ev = lambda name, pid, tid, ts, dur: {"ph": "X", "name": name, "pid": pid,  # noqa: E731
+                                          "tid": tid, "ts": ts, "dur": dur}
+    doc = {"traceEvents": [ev("engine.dispatch", 2, 1, 0.0, 3000.0),
+                           ev("engine.device_wait", 2, 1, 3000.0, 1000.0),
+                           ev("step.split", 2, 1, 0.0, 4000.0),
+                           ev("request", 1, 0, 0.0, 5000.0), ev("queued", 1, 0, 0.0, 10.0),
+                           ev("request", 1, 1, 0.0, 5000.0)], "displayTimeUnit": "ms"}
+    out = chip_smoke.trace_summary(doc, 2)
+    assert out["request_trees"] == 2 and out["engine.dispatch"] == {"count": 1, "ms": 3.0}
+    assert out["device_wait_share"] == pytest.approx(0.25)
+    with pytest.raises(AssertionError, match="request trees"):
+        chip_smoke.trace_summary(doc, 3)
+    with pytest.raises(AssertionError, match="Chrome"):
+        chip_smoke.trace_summary({"traceEvents": [{"ph": "X"}]}, 0)

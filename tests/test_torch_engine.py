@@ -220,10 +220,9 @@ def test_forward_matches_jax_forward():
     # weight-only quantization is served (tests/test_torch_inference_quant.py);
     # with tensor parallelism it stays refused
     ({"tp_size": 2, "quant": {"enabled": True}}, {}, None, "queue 1, item 6"),
-    # speculative decoding and the host tier are ported; what stays refused
-    # beside them: the engine's tracing spans, serving a sparsity layout
-    ({"spec_k": 2, "kv_cache": {"host_tier_bytes": 1 << 20, "prefix_cache": True}}, {},
-     "enable_tracing", "queue 1, item 5"),
+    # speculative decoding, the host tier and the tracing spans are ported
+    # (tests/test_torch_tracing.py); what stays refused beside them: serving
+    # a sparsity layout
     ({"spec_k": 2}, {"attn_sparsity": ("fixed", (("num_local_blocks", 2),))}, None,
      "ROADMAP section 3"),
 ])

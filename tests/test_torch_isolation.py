@@ -69,6 +69,13 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.models.hf",
     "deepspeed_tpu_torch.models.safetensors_io",
     "deepspeed_tpu_torch.models.transformer",
+    "deepspeed_tpu_torch.monitor",
+    "deepspeed_tpu_torch.monitor.monitor",
+    "deepspeed_tpu_torch.observability",
+    "deepspeed_tpu_torch.observability.cli",
+    "deepspeed_tpu_torch.observability.events",
+    "deepspeed_tpu_torch.observability.export",
+    "deepspeed_tpu_torch.observability.tracing",
     "deepspeed_tpu_torch.ops",
     "deepspeed_tpu_torch.ops.adam",
     "deepspeed_tpu_torch.ops.adam.fused_adam",
@@ -120,8 +127,19 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.runtime.zero",
     "deepspeed_tpu_torch.runtime.zero.config",
     "deepspeed_tpu_torch.serving",
+    "deepspeed_tpu_torch.serving.cluster",
+    "deepspeed_tpu_torch.serving.cluster.core",
+    "deepspeed_tpu_torch.serving.driver",
+    "deepspeed_tpu_torch.serving.metrics",
+    "deepspeed_tpu_torch.serving.request",
     "deepspeed_tpu_torch.serving.resilience",
     "deepspeed_tpu_torch.serving.resilience.faults",
+    "deepspeed_tpu_torch.serving.resilience.health",
+    "deepspeed_tpu_torch.serving.server",
+    "deepspeed_tpu_torch.serving.spec",
+    "deepspeed_tpu_torch.serving.spec.controller",
+    "deepspeed_tpu_torch.serving.spec.proposer",
+    "deepspeed_tpu_torch.serving.streaming",
     "deepspeed_tpu_torch.tokenizer",
     "deepspeed_tpu_torch.utils",
     "deepspeed_tpu_torch.utils.counter_hash",
@@ -144,6 +162,26 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "                             'ml_dtypes', 'flax'))))\n"
     )
     # -S: no site customization, which may import jax at interpreter start
+    out = subprocess.run(
+        [sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("root", ["deepspeed_tpu_torch.serving",
+                                  "deepspeed_tpu_torch.observability",
+                                  "deepspeed_tpu_torch.monitor.monitor"])
+def test_serving_stack_imports_alone_without_jax(root):
+    """The serving stack, the tracer and the monitors, each imported alone
+    in a fresh interpreter, load neither JAX nor the JAX package (their
+    JAX counterparts are stdlib-only, the copies too)."""
+    code = (
+        f"import importlib, json, sys\nimportlib.import_module({root!r})\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "      if m.split('.')[0] in ('jax', 'jaxlib', 'deepspeed_tpu', 'ml_dtypes'))))\n"
+    )
     out = subprocess.run(
         [sys.executable, "-S", "-c", f"import sys; sys.path[:0] = {sys.path!r}\n" + code],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
