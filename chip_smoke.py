@@ -94,15 +94,41 @@ Phases, each printing one JSON line (any failure exits non-zero):
    within 0.04 of the plain forward's largest logit on its served context
    (``compare_streams``). ``/health`` shows every block free once idle,
    ``/metrics`` parses as Prometheus text. Passes: timed (TTFT and TPOT p50
-   / p99, tok/s), profiled (the same mix under torch.profiler's CUDA
-   activity: the device's idle share), traced (``/debug/trace``: a valid
-   Chrome trace with the engine's dispatch and device-wait spans and one
-   tree per request), speculative (``NgramProposer``, k 4) and planted (a
-   driver fault fed back: both checks must catch it). Each pass counts the
-   served kernels' launches (RMSNorm, paged decode), and none of their
-   plain versions may run. serving_int8 (after engine_spec_int8): the
-   timed, profiled and planted passes over the int8 engine (paged decode
-   int8, block_quant).
+   / p99, tok/s), then over the mix's first 8 clients profiled (under
+   torch.profiler's CUDA activity: the device's idle share), traced
+   (``/debug/trace``: a valid Chrome trace with the engine's dispatch and
+   device-wait spans and one tree per request), speculative
+   (``NgramProposer``, k 4) and planted (a driver fault fed back: both
+   checks must catch it). Each pass counts the served kernels' launches
+   (RMSNorm, paged decode), and none of their plain versions may run.
+   serving_int8 (after engine_spec_int8): the timed, profiled and planted
+   passes over the int8 engine (paged decode int8, block_quant), its
+   streams held to the plain forward and the replay (no ``generate()``).
+3c'. router (after serving, on the engine phase's weights): the
+   multi-engine ``Router`` as ``dstpu serve --num-prefill-workers 1
+   --num-decode-replicas 2`` builds it, each engine over the same weight
+   tensors with its own 512-block pool, behind ``start_server(port=0)``.
+   Timed pass: the serving phase's 32 clients over the ``device`` KV wire
+   at 64-step rounds (TTFT / TPOT p50 / p99, tok/s, the handoffs with
+   their bytes and windows, each replica's launches of RMSNorm and paged
+   decode, counted by the thread that made them, and each fused round's
+   seconds beside the other replicas against the same round replayed
+   alone). Short passes of 8 clients (8 new tokens, 8-step rounds) over the ``host``
+   and ``in_process`` wires; in these and the timed pass each handoff's
+   copied blocks are held bit for bit against the exporter's blocks as
+   they stood at export. A planted pass (the importer adopts the pending
+   token plus one); a resilience pass (``ResilienceConfig``, a worker
+   crash planted on d1, and a replica drawn from a ``WarmSparePool`` of
+   one engine before the clients: every stream completes, ``/health``
+   counts the recovery, ``assert_warm_replicas`` finds no kernel built
+   after admission); then three int8-pool engines, a short ``host`` pass
+   with codes and scales bit for bit (paged decode int8 and block_quant
+   on both sides of the handoff). Every served token within 0.04 of the
+   plain forward's largest logit; in the timed and planted passes each
+   decode replica's engine calls and imports are replayed on a fresh
+   engine, and every timed stream must equal its replay token for token,
+   while the planted pass must be caught by both checks. The fleets are
+   freed before the engine_int8 phase.
 3c. engine_int8: the same engine and prompts with
    ``kv_cache_dtype="int8"``: logits against ``forward_reference`` (limit
    0.1), against the bf16 phase's rows computed from the same tokens, and
@@ -159,7 +185,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    versions; then the steps). Each prints its depth, its
    parameters and the bytes they take, and its peak memory.
 7. engine_per_row: the engine's per-row step with splash at all 32 layers,
-   an 8192-token context and 256-token chunks: 4 prompts of 6144-8176
+   an 8192-token context and 256-token chunks: 2 prompts of 6144-8176
    tokens prefilled and decoded for 16 tokens; every row step takes the
    splash prefill (launches counted exactly), logits against
    ``forward_reference`` and against the dense per-row path fed the same
@@ -201,7 +227,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    SDPA's, and the peak memory of each.
 11. train_ring: ``initialize(mpu=Topology(context=4, loopback=True))`` ->
    ``train_batch`` with ``attention_impl="flash_ring"`` at llama-7b width
-   (8 of 32 layers, ``max_seq_len`` 16384, seq 16384 in 4 chunks of 4096,
+   (4 of 32 layers, ``max_seq_len`` 16384, seq 16384 in 4 chunks of 4096,
    remat, bf16, micro-batch 1 x gas 2, AdamW as the train leg): the first
    step's loss and every gradient bit for bit equal to the same engine
    with ``attention_impl="flash"`` (built after it is freed), then 1
@@ -225,7 +251,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    --model <that directory> --port 0`` as a subprocess (killed in every
    case): once it prints its address, two ``tokens`` requests, one after
    the other, each equal to ``build_hf_engine``'s ``generate`` with the
-   engine config its flags make. train_import: a 2-layer cut of that directory through
+   engine config its flags make. train_import: a 1-layer cut of that directory through
    ``load_hf_model`` into ``initialize`` with a client ``torch.optim.AdamW``
    and ``grad_accum_dtype`` "bf16", 2 ``train_batch`` steps (flash and
    RMSNorm launches exact, the loss falling), a save with
@@ -266,8 +292,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 Serving kernels must launch in the engine phase (the int8 pool's in
 engine_int8 and its per-row check), in a verify step (engine_spec,
-engine_spec_int8) and from the serving driver's thread (serving,
-serving_int8), training kernels in the train legs,
+engine_spec_int8), from the serving driver's thread (serving,
+serving_int8) and from the router's replicas' threads (router,
+router_int8), training kernels in the train legs,
 the fused configuration's four in its leg, the splash kernels in the
 splash leg (the forward also in the per-row leg), the sparse kernels in the
 sparse_attn phase, the evoformer kernels in the evoformer phase, the chunk
@@ -3647,6 +3674,9 @@ SERVE_PROMPT_LENS = (128, 600)
 SERVE_NEW_TOKENS = 32
 SERVE_MOTIF_EVERY = 4
 SERVE_WAIT_S = 120
+# the serving phases' passes after the timed one (profiled, traced, spec,
+# planted) take the mix's first this many clients: the script's clock
+SERVE_SHORT_CLIENTS = 8
 # each served token's logit under the plain forward, below the row's
 # largest, relative to the row's largest magnitude (``compare_streams``).
 # Sound passes on an H100 read 0.0137-0.0189 over 1024 tokens, bf16 and
@@ -3724,13 +3754,16 @@ def compare_streams(torch, eng, prompts, got, want, rtol):
     streams equal to generate()'s, "near_tie_flips": [...],
     "tokens_checked", "max_margin"}; raises on a token past the limit
     (``rtol`` None: reads the margins and raises on none) or a stream of
-    another length."""
+    another length. ``want`` None holds the tokens to the plain forward
+    only ("equal" None)."""
     import numpy as np
 
     from deepspeed_tpu_torch.models import transformer as T
 
-    out = {"equal": 0, "near_tie_flips": [], "tokens_checked": 0, "max_margin": 0.0}
-    for uid, (p, g, w) in enumerate(zip(prompts, got, want)):
+    out = {"equal": None if want is None else 0, "near_tie_flips": [], "tokens_checked": 0,
+           "max_margin": 0.0}
+    for uid, (p, g) in enumerate(zip(prompts, got)):
+        w = g if want is None else want[uid]
         if len(g) != len(w):
             raise AssertionError(f"served stream {uid}: {len(g)} tokens, generate() {len(w)}")
         seq = np.concatenate([p, np.asarray(g[:-1], np.int32)]).astype(np.int64)
@@ -3748,6 +3781,8 @@ def compare_streams(torch, eng, prompts, got, want, rtol):
             raise AssertionError(f"served stream {uid}: token {i} ({int(g[i])}) is {worst:.4f} "
                                  f"below the plain forward's largest logit (limit {rtol})")
         d = first_divergence(g, w)
+        if want is None:
+            continue
         if d is None:
             out["equal"] += 1
             continue
@@ -3792,13 +3827,18 @@ def recorded_schedule(eng):
         del sched.submit, eng.step_tokens, eng.decode_round, eng.spec_round
 
 
-def replay_schedule(torch, eng, log, new_tokens):
+def replay_schedule(torch, eng, log, new_tokens, round_s=None):
     """The engine's own steps on a recorded serving schedule, with no
     driver, server or thread: every prompt submitted where the loop
     submitted it and every call made as the loop made it, so each batch
     holds the rows the driver's did; the tokens are fed back, and a
-    sequence finished at ``new_tokens``, here. Returns {prompt tuple:
-    tokens}."""
+    sequence finished at ``new_tokens``, here. A recorded handoff
+    ("import", KVHandoff: a router's decode replica) is imported where the
+    replica imported it, its pending token the stream's first. ``round_s``
+    (a list) receives each fused round's wall seconds. Returns {prompt
+    tuple: tokens}."""
+    from deepspeed_tpu_torch.serving.cluster.handoff import import_sequence
+
     sched, out, prompt_of = eng.scheduler, {}, {}
 
     def take(uid, toks, feedback):
@@ -3817,11 +3857,19 @@ def replay_schedule(torch, eng, log, new_tokens):
                 uid, prompt = arg
                 sched.submit(uid, prompt)
                 out[uid], prompt_of[uid] = [], tuple(int(t) for t in prompt)
+            elif kind == "import":
+                import_sequence(eng, arg)
+                out[arg.uid], prompt_of[arg.uid] = [], tuple(int(t) for t in arg.tokens)
+                take(arg.uid, [arg.pending_token], False)
             elif kind == "step":
                 for uid, tok in eng.step_tokens().items():
                     take(uid, [tok], True)
             elif kind == "round":
-                for uid, toks in eng.decode_round(arg).items():
+                t0 = time.perf_counter()
+                res = eng.decode_round(arg)
+                if round_s is not None and res:
+                    round_s.append(time.perf_counter() - t0)
+                for uid, toks in res.items():
                     take(uid, toks, False)
             else:
                 for uid, toks in eng.spec_round(arg[0], drafts=arg[1]).items():
@@ -4087,34 +4135,43 @@ def trace_summary(doc, n_requests):
 
 
 def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE_NEW_TOKENS,
-                  spec_k=SPEC_K):
+                  spec_k=SPEC_K, hold=None, generate=True):
     """The serving stack at the engine phase's engine (bf16 pool; ``int8``:
     the engine_int8 phase's): the requests' streams against
     ``engine.generate()`` on the same prompts (``compare_streams``), a timed
     pass (TTFT, TPOT, tok/s), a profiled pass (the device's idle share),
     a traced pass (/debug/trace valid, dispatch and device-wait spans, one
     tree per request), a speculative pass (``NgramProposer``, k ``spec_k``)
-    and a planted pass (``feedback_fault``). The timed, speculative and
+    and a planted pass (``feedback_fault``); every pass but the timed one
+    serves the first ``SERVE_SHORT_CLIENTS`` clients. The timed, speculative and
     planted passes record the driver's schedule and replay it on the
     engine (``replay_schedule``): the sound passes' streams must equal the
     replay token for token, the planted pass's must leave it and pass the
     margin limit. The int8 engine runs the timed, profiled and planted
     passes. Launches of the served kernels are counted in each pass; the
-    plain versions must not run on a card. Returns (record, launches of
-    the timed pass)."""
+    plain versions must not run on a card. ``hold`` receives the prompts
+    and ``generate()``'s streams (for the router phase); ``generate``
+    False holds the streams to the plain forward and the replay only.
+    Returns (record, launches of the timed pass)."""
     ds = int(eng.config.decode_steps)
     prompts = prompts if prompts is not None else serve_prompts(eng._mc.vocab_size)
     rtol = SERVE_MARGIN_RTOL
     nb = eng.config.kv_cache.num_blocks
     rec = {"phase": "serving_int8" if int8 else "serving", "clients": len(prompts),
-           "streamed": len(prompts) // 2, "new_tokens": new_tokens, "decode_steps": ds,
+           "streamed": len(prompts) // 2, "short_clients": SERVE_SHORT_CLIENTS,
+           "new_tokens": new_tokens,
+           "decode_steps": ds,
            "prompt_lens": [min(len(p) for p in prompts), max(len(p) for p in prompts)],
            "logit_rtol": rtol}
-    t0 = time.perf_counter()
-    want = [[int(t) for t in o[len(p):]]
-            for o, p in zip(eng.generate(prompts, max_new_tokens=new_tokens), prompts)]
-    _sync(torch, dev)
-    rec["generate_seconds"] = time.perf_counter() - t0
+    want = None
+    if generate:
+        t0 = time.perf_counter()
+        want = [[int(t) for t in o[len(p):]]
+                for o, p in zip(eng.generate(prompts, max_new_tokens=new_tokens), prompts)]
+        _sync(torch, dev)
+        rec["generate_seconds"] = time.perf_counter() - t0
+    if hold is not None:
+        hold.update(prompts=prompts, want=want)
     served = (SERVE_KERNELS if not int8 else ("rms_norm_fwd",) + INT8_KERNELS)
     passes = [("timed", dict(record=True)), ("profiled", dict(profile=True))]
     if not int8:
@@ -4122,7 +4179,9 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
     passes += [("planted", dict(record=True, fault=True))]
     launches = None
     for name, kw in passes:
-        run = served_pass(torch, dev, K, eng, prompts, new_tokens, ds, **kw)
+        n = len(prompts) if name == "timed" else min(SERVE_SHORT_CLIENTS, len(prompts))
+        ps = prompts[:n]
+        run = served_pass(torch, dev, K, eng, ps, new_tokens, ds, **kw)
         # the pass's driver and server sit in reference cycles (the handler
         # class closes over the driver, the driver over the engine): collect
         # them, so the engine's memory goes with the caller's last reference
@@ -4130,18 +4189,20 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
         planted = kw.get("fault", False)
         p = {"seconds": run["seconds"], "launches": {k: run["launches"][k] for k in served},
              "plain_calls": run["plain_calls"],
-             "streams": compare_streams(torch, eng, prompts, run["tokens"], want,
+             "clients": n,
+             "streams": compare_streams(torch, eng, ps, run["tokens"],
+                                        None if want is None else want[:n],
                                         None if planted else rtol)}
         if run["schedule"] is not None:
             t1 = time.perf_counter()
             replayed = replay_schedule(torch, eng, run["schedule"], new_tokens)
-            p["replay"] = compare_replay(prompts, run["tokens"], replayed)
+            p["replay"] = compare_replay(ps, run["tokens"], replayed)
             p["replay"]["seconds"] = time.perf_counter() - t1
-            if not planted and p["replay"]["equal"] != len(prompts):
+            if not planted and p["replay"]["equal"] != n:
                 raise AssertionError(f"serving {name} pass: served streams leave the engine's "
                                      f"steps on the driver's schedule: {p['replay']['diverged']}")
         if planted:
-            caught = {"replay": p["replay"]["equal"] < len(prompts),
+            caught = {"replay": p["replay"]["equal"] < n,
                       "margin": p["streams"]["max_margin"] > rtol}
             p["caught"] = caught
             if not all(caught.values()):
@@ -4156,7 +4217,7 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
         if not (h["kv_free_blocks"] == h["kv_total_blocks"] == nb):
             raise AssertionError(f"serving {name} pass: /health once idle {h}")
         finished = run["metrics"].get("dstpu_serving_requests_finished_total")
-        if finished != len(prompts):
+        if finished != n:
             raise AssertionError(f"serving {name} pass: /metrics finished {finished}")
         p["metrics_samples"] = len(run["metrics"])
         if name == "timed":
@@ -4168,7 +4229,7 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
             p["wall_ms"] = run.get("profiled_wall_ms")
             p["idle_share"] = idle_share(p["device_busy_ms"], p["wall_ms"])
         if name == "traced":
-            p["trace"] = trace_summary(run["trace"], len(prompts))
+            p["trace"] = trace_summary(run["trace"], n)
         if name == "spec":
             snap = run["snapshot"]
             p["spec"] = {k: snap[k] for k in ("spec_rounds_total", "spec_draft_tokens_total",
@@ -4190,11 +4251,488 @@ def serving_note(rec, card):
             f"{t['tok_s']:.1f} tok/s, device idle share "
             f"{'not measured' if idle is None else f'{idle:.3f}'} (profiled pass), "
             f"streams equal to the engine's steps on the driver's schedule "
-            f"{t['replay']['equal']}/{rec['clients']}, to generate() {t['streams']['equal']}/"
+            f"{t['replay']['equal']}/{rec['clients']}, to generate() "
+            f"{'not compared' if t['streams']['equal'] is None else t['streams']['equal']}/"
             f"{rec['clients']} (the rest leave it at near-ties; every served token within "
             f"{t['streams']['max_margin']:.4f} of the plain forward's largest logit, limit "
             f"{rec['logit_rtol']}; a planted feedback fault reads "
             f"{rec['planted']['streams']['max_margin']:.4f}), on {card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the multi-engine router on the engine phase's weights
+# ---------------------------------------------------------------------------
+# one prefill worker and two decode replicas (p0, d0, d1), each its own
+# engine over the engine phase's weights (one copy on the card) with
+# bench.py's engine config; the timed pass takes the serving phase's mix
+# over the ``device`` wire, the short passes this many of its requests
+ROUTER_PREFILL = 1
+ROUTER_DECODE = 2
+ROUTER_SHORT = 8
+ROUTER_TIMED_TRANSPORT = "device"
+ROUTER_SHORT_TRANSPORTS = ("host", "in_process")
+# the short passes' new tokens and fused rounds: one 8-step round covers a
+# request's decode tokens (the timed pass keeps 32 tokens and bench.py's
+# 64-step rounds): beside each other the replicas' rounds run ~5x slower
+# than alone (the interpreter lock), and the script has a clock
+ROUTER_SHORT_NEW_TOKENS = 8
+ROUTER_SHORT_DECODE_STEPS = 8
+# the resilience pass's planted crash: the first worker pass with work of
+# this decode replica dies outside the step, its residents recover
+ROUTER_CRASH_REPLICA = "d1"
+# its watchdog deadline: a 64-step round at full width holds its step for
+# seconds of host enqueue, so the deadline sits far above one and only the
+# planted crash fails a replica
+ROUTER_HUNG_STEP_S = 60.0
+# the router's threads, named by the router: the worker of replica X
+ROUTER_THREAD = "serving-{}"
+
+
+@contextlib.contextmanager
+def thread_launches(K):
+    """Each kernel's launches split by the thread that made them while the
+    block runs ({thread name: {kernel: n}}): the router names its worker
+    of replica X ``serving-X``. ``Kernel.launches`` becomes a property for
+    the block; every count goes on as before."""
+    import collections
+    import threading
+
+    cls = type(next(iter(K.KERNELS.values())))
+    tally = collections.defaultdict(collections.Counter)
+    lock = threading.Lock()
+
+    def get(self):
+        return self.__dict__.get("launches", 0)
+
+    def put(self, value):
+        old = self.__dict__.get("launches", 0)
+        self.__dict__["launches"] = value
+        if value > old:
+            with lock:
+                tally[threading.current_thread().name][self.name] += value - old
+
+    cls.launches = property(get, put)
+    try:
+        yield tally
+    finally:
+        del cls.launches
+
+
+def _bits(torch, t):
+    """``t``'s bits as an integer tensor of its width (a bit-for-bit
+    comparison: -0 differs from +0, a NaN equals itself)."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@contextlib.contextmanager
+def recorded_router(torch, engines, bits=False, fault_vocab=None):
+    """Records what each of ``engines`` (a router's decode replicas) is
+    asked while the block runs: its engine calls (``recorded_schedule``)
+    and each handoff it imports, in order ("import", KVHandoff). With
+    ``bits`` each handoff's source blocks are copied as they stand at
+    export, and the blocks the import wrote are held against them bit for
+    bit, every plane (an int8 pool's scales too). ``fault_vocab`` plants
+    the handoff fault: the importer adopts the pending token plus one, so
+    the replica decodes from a token the client never saw (the records
+    keep the handoff as exported). Yields {"logs": {engine id: log},
+    "round_s": {engine id: each fused round's wall seconds (rounds that
+    ran rows)}, "handoffs":
+    [per-handoff bits records]}."""
+    import dataclasses
+
+    import deepspeed_tpu_torch.serving.cluster.router as router_mod
+
+    export, import_ = router_mod.export_sequence, router_mod.import_sequence
+    out = {"logs": {}, "round_s": {}, "handoffs": []}
+    source = {}
+
+    def rec_export(engine, uid, pending_token, transport="host"):
+        ho = export(engine, uid, pending_token, transport=transport)
+        if bits:
+            blocks = [int(b) for b in engine.state_manager.get_sequence(uid).block_table]
+            idx = torch.as_tensor(blocks, device=engine.device)
+            source[uid] = {name: pool.index_select(1, idx)
+                           for name, pool in engine._kv_pool_planes().items()}
+        return ho
+
+    def rec_import(engine, ho):
+        log = out["logs"].get(id(engine))
+        if log is not None:
+            log.append(("import", ho))
+        use = ho
+        if fault_vocab is not None:
+            use = dataclasses.replace(ho, pending_token=(int(ho.pending_token) + 1) % fault_vocab)
+        copied = import_(engine, use)
+        if bits:
+            src = source.pop(ho.uid)
+            n = ho.n_blocks
+            table = [int(b) for b in engine.state_manager.get_sequence(ho.uid).block_table][:n]
+            idx = torch.as_tensor(table[n - copied:], device=engine.device)
+            mismatches = 0
+            for name, pool in engine._kv_pool_planes().items():
+                got = _bits(torch, pool.index_select(1, idx))
+                want = _bits(torch, src[name][:, n - copied:])
+                mismatches += int((got != want).sum())
+            out["handoffs"].append({"uid": int(ho.uid), "transport": ho.transport,
+                                    "blocks": n, "copied": int(copied),
+                                    "planes": sorted(src), "mismatches": mismatches})
+        return copied
+
+    def timed_round(eng, times):
+        recorded = eng.decode_round
+
+        def run(n_steps=None):
+            t0 = time.perf_counter()
+            res = recorded(n_steps)
+            if res:  # a round no row could take returns at once
+                times.append(time.perf_counter() - t0)
+            return res
+
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for eng in engines:
+            out["logs"][id(eng)] = stack.enter_context(recorded_schedule(eng))
+            # recorded_schedule's exit deletes this instance attribute too
+            eng.decode_round = timed_round(eng, out["round_s"].setdefault(id(eng), []))
+        router_mod.export_sequence, router_mod.import_sequence = rec_export, rec_import
+        try:
+            yield out
+        finally:
+            router_mod.export_sequence, router_mod.import_sequence = export, import_
+
+
+def router_fleet(torch, dev, eng, n=ROUTER_PREFILL + ROUTER_DECODE, kv_cache_dtype=None):
+    """``n`` engines over ``eng``'s weights (the same tensors: an engine
+    keeps parameters already in its dtype on its card) and engine config,
+    each with its own KV pool (``kv_cache_dtype`` overrides the pool's).
+    No ``warm_trace``: the engine phase built or loaded every kernel they
+    launch (a warm spare's pool warms it, and the router checks that)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+
+    rc = eng.config
+    if kv_cache_dtype is not None:
+        rc = dataclasses.replace(rc, kv_cache=dataclasses.replace(
+            rc.kv_cache, kv_cache_dtype=kv_cache_dtype))
+    out = []
+    for _ in range(n):
+        out.append(InferenceEngineV2(eng._mc, eng.params, rc, device=dev.type))
+    shared = all(e.params["embed"].data_ptr() == eng.params["embed"].data_ptr() for e in out)
+    if not shared:
+        raise AssertionError("router fleet: an engine copied the weights")
+    return out
+
+
+def router_pass(torch, dev, K, engines, prompts, new_tokens, transport, record=False,
+                bits=False, fault=False, resilience=None, faults=None, spare_pool=None,
+                scale_up=False, decode_steps=None):
+    """One pass of the multi-engine router as a user runs it:
+    ``Router(engines, num_prefill_workers=1, kv_transport=transport,
+    decode_steps=...)`` behind ``start_server(port=0)``, every prompt from
+    its own client thread at once (``http_clients``); the router and the
+    server are shut down in every case. ``record``/``bits``/``fault`` as in
+    ``recorded_router``; ``resilience`` a ``ResilienceConfig`` and
+    ``faults`` a list of ``FaultSpec``s installed for the pass;
+    ``spare_pool`` a ``WarmSparePool`` and ``scale_up`` one replica drawn
+    from it before the clients start; ``decode_steps`` the router's fused
+    round (default: the engine config's). Each engine's prefix trie is emptied
+    first (a fresh engine's state, for the replay). Returns the clients'
+    tokens, the requests' TTFT / TPOT, the kernel launches (all threads,
+    and split by thread), the plain versions' calls, the wall seconds,
+    /health once idle, /metrics parsed, the records and the warm-replica
+    count."""
+    from deepspeed_tpu_torch.serving import Router
+    from deepspeed_tpu_torch.serving.resilience import FaultInjector, set_fault_injector
+    from deepspeed_tpu_torch.serving.server import start_server
+
+    for e in engines:
+        cache = e.state_manager.prefix_cache
+        if cache is not None:
+            cache.clear()
+    ds = int(decode_steps or engines[0].config.decode_steps)
+    router = Router(engines=engines, num_prefill_workers=ROUTER_PREFILL,
+                    kv_transport=transport, decode_steps=ds, max_queue=2 * len(prompts),
+                    resilience=resilience, spare_pool=spare_pool)
+    out = {"transport": transport}
+    reqs = []
+    submit = router.submit
+
+    def recorded(*a, **k):
+        req = submit(*a, **k)
+        reqs.append(req)
+        return req
+
+    router.submit = recorded
+    server = None
+    decode_engines = engines[ROUTER_PREFILL:]
+    with contextlib.ExitStack() as stack:
+        rec = (stack.enter_context(recorded_router(
+            torch, decode_engines, bits=bits,
+            fault_vocab=engines[0]._mc.vocab_size if fault else None))
+            if (record or bits or fault) else None)
+        if faults:
+            stack.callback(set_fault_injector, None)
+            set_fault_injector(FaultInjector(list(faults)))
+        try:
+            with plain_version_calls() as plain, thread_launches(K) as per_thread:
+                if scale_up:
+                    core = router.add_decode_replica()
+                    if core is None:
+                        raise AssertionError("router: the warm-spare pool gave no engine")
+                    out["scaled_up"] = core.name
+                K.reset_counts()
+                router.start()
+                server = start_server(router, host="127.0.0.1", port=0)
+                base = "http://%s:%d" % server.server_address[:2]
+                t0 = time.perf_counter()
+                out["tokens"] = http_clients(base, prompts, new_tokens)
+                out["seconds"] = time.perf_counter() - t0
+                out["launches"] = K.counts()
+                deadline = time.monotonic() + SERVE_WAIT_S
+                while True:
+                    health = json.loads(_http(f"{base}/health"))
+                    if health["active_requests"] == 0 and health["queue_depth"] == 0:
+                        break
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"the router never went idle: {health}")
+                    time.sleep(0.01)
+                out["health"] = health
+                out["metrics"] = parse_prometheus(_http(f"{base}/metrics").decode())
+                if scale_up:
+                    out["warm_replicas"] = router.assert_warm_replicas()
+            out["plain_calls"] = dict(plain)
+            out["per_thread"] = {name: dict(c) for name, c in per_thread.items()}
+        finally:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+            router.shutdown(drain=False, timeout=60)
+    if rec is not None:
+        out["logs"] = [rec["logs"][id(e)] for e in decode_engines]
+        out["round_s"] = [s for e in decode_engines for s in rec["round_s"][id(e)]]
+        out["handoffs"] = rec["handoffs"]
+    out["ttft_s"] = [r.ttft_s for r in reqs]
+    out["tpot_s"] = [r.tpot_s for r in reqs]
+    out["states"] = sorted({r.state for r in reqs})
+    out["generated"] = sum(len(r.generated) for r in reqs)
+    out["snapshot"] = router.metrics.snapshot()
+    return out
+
+
+def router_replay(torch, dev, eng, run, prompts, new_tokens):
+    """Each decode replica's recorded calls and imports replayed on a fresh
+    engine over the same weights (``replay_schedule``), then every
+    client's stream against the replay that decoded it
+    (``compare_replay``); the prefill worker's first tokens ride the
+    handoffs. Returns the comparison with the replay's seconds."""
+    t0 = time.perf_counter()
+    replayed, round_s = {}, []
+    for log in run["logs"]:
+        fresh = router_fleet(torch, dev, eng, n=1, kv_cache_dtype=run.get("kv_cache_dtype"))[0]
+        replayed.update(replay_schedule(torch, fresh, log, new_tokens, round_s=round_s))
+        del fresh
+        gc.collect()
+    out = compare_replay(prompts, run["tokens"], replayed)
+    out["seconds"] = time.perf_counter() - t0
+    out["round_s"] = round_s
+    return out
+
+
+def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_NEW_TOKENS,
+                 short=ROUTER_SHORT):
+    """The multi-engine router at the engine phase's engine's weights and
+    config: one prefill worker and two decode replicas (``router_fleet``),
+    every client over HTTP. Passes: timed (the serving phase's mix over the
+    ``device`` wire, bench.py's 64-step rounds: TTFT / TPOT p50 / p99,
+    tok/s, the handoffs with their bytes and windows, each replica's kernel
+    launches, each fused round's seconds against the same round replayed
+    alone); short passes of ``short`` requests over the ``host`` and
+    ``in_process`` wires; planted (the importer adopts the pending token
+    plus one); resilience + elastic (``ResilienceConfig``, a worker crash
+    planted on d1, and one replica drawn from a ``WarmSparePool`` of one
+    engine before the clients: every stream completes, /health counts the
+    recovery, ``assert_warm_replicas`` finds no kernel built after
+    admission); and, over three int8-pool engines, a short ``host`` pass.
+    In the timed, short and int8 passes each handoff's copied blocks are
+    held bit for bit against the exporter's as they stood at export (an
+    int8 pool's scales too). Every served token is held within
+    ``SERVE_MARGIN_RTOL`` of the plain forward (``compare_streams``; each
+    stream also against ``generate()``'s ``want``). In the timed and
+    planted passes each decode replica's calls and imports are replayed on
+    a fresh engine: the timed pass's streams must equal the replay token
+    for token, the planted pass's must leave it and pass the margin limit.
+    On a card the plain versions must not run and every replica must
+    launch the served kernels. Returns (record, {"router": launches of the
+    timed pass, "router_int8": of the int8 pass})."""
+    from deepspeed_tpu_torch.serving.elastic import WarmSparePool
+    from deepspeed_tpu_torch.serving.resilience import FaultSpec, ResilienceConfig
+
+    prompts = prompts if prompts is not None else serve_prompts(eng._mc.vocab_size)
+    if want is None:
+        want = [[int(t) for t in o[len(p):]]
+                for o, p in zip(eng.generate(prompts, max_new_tokens=new_tokens), prompts)]
+    rtol = SERVE_MARGIN_RTOL
+    ds = int(eng.config.decode_steps)
+    short_ds = min(ds, ROUTER_SHORT_DECODE_STEPS)
+    short_new = min(new_tokens, ROUTER_SHORT_NEW_TOKENS)
+    rec = {"phase": "router", "prefill_workers": ROUTER_PREFILL,
+           "decode_replicas": ROUTER_DECODE, "clients": len(prompts),
+           "short_clients": short, "new_tokens": new_tokens, "decode_steps": ds,
+           "short_new_tokens": short_new, "short_decode_steps": short_ds, "logit_rtol": rtol}
+    t0 = time.perf_counter()
+    fleet = router_fleet(torch, dev, eng)
+    rec["fleet_seconds"] = time.perf_counter() - t0
+    names = ["p0"] + [f"d{i}" for i in range(ROUTER_DECODE)]
+    launches = {}
+
+    def held(name, run, n, served, replay=False, planted=False, quiet_ok=(), n_new=short_new):
+        t1 = time.perf_counter()
+        ps = prompts[:n]
+        p = {"transport": run["transport"], "seconds": run["seconds"],
+             "launches": {k: run["launches"][k] for k in served},
+             "replica_launches": {r: {k: run["per_thread"].get(ROUTER_THREAD.format(r), {})
+                                      .get(k, 0) for k in served}
+                                  for r in names + [run.get("scaled_up")] if r},
+             "plain_calls": run["plain_calls"], "states": run["states"],
+             "streams": compare_streams(torch, eng, ps, run["tokens"],
+                                        [w[:n_new] for w in want[:n]],
+                                        None if planted else rtol)}
+        h = run["health"]
+        p["handoffs"] = {"count": h["kv_handoffs"],
+                         "per_transport": h["kv_transport"]["per_transport"]}
+        if run["states"] != ["finished"]:
+            raise AssertionError(f"router {name} pass: request states {run['states']}")
+        if replay:
+            p["replay"] = router_replay(torch, dev, eng, run, ps, n_new)
+            alone, shared = p["replay"].pop("round_s"), run["round_s"]
+            p["round_s"] = {"rounds": len(shared),
+                            "router_mean": sum(shared) / max(1, len(shared)),
+                            "alone_mean": sum(alone) / max(1, len(alone))}
+            if not planted and p["replay"]["equal"] != n:
+                raise AssertionError(f"router {name} pass: served streams leave the replicas' "
+                                     f"steps replayed: {p['replay']['diverged']}")
+        if run.get("handoffs"):
+            bad = [x for x in run["handoffs"] if x["mismatches"]]
+            p["bits"] = {"handoffs": len(run["handoffs"]),
+                         "blocks_copied": sum(x["copied"] for x in run["handoffs"]),
+                         "planes": run["handoffs"][0]["planes"], "mismatches": len(bad)}
+            if bad or len(run["handoffs"]) != h["kv_handoffs"]:
+                raise AssertionError(f"router {name} pass: handoff payloads off the exporter's "
+                                     f"blocks: {bad[:4]} ({len(run['handoffs'])} checked of "
+                                     f"{h['kv_handoffs']})")
+        if planted:
+            p["caught"] = {"replay": p["replay"]["equal"] < n,
+                           "margin": p["streams"]["max_margin"] > rtol}
+            if not all(p["caught"].values()):
+                raise AssertionError(f"router planted pass: the fault went unseen by "
+                                     f"{p['caught']} (largest margin "
+                                     f"{p['streams']['max_margin']}, limit {rtol})")
+        if h["kv_handoffs"] < 1:
+            raise AssertionError(f"router {name} pass: no handoff")
+        if dev.type == "cuda":
+            quiet = {r: [k for k, c in v.items() if c <= 0]
+                     for r, v in p["replica_launches"].items()}
+            quiet = {r: v for r, v in quiet.items() if v and r not in quiet_ok}
+            if quiet or any(run["plain_calls"].values()):
+                raise AssertionError(f"router {name} pass: replicas launched none of {quiet}; "
+                                     f"plain versions {run['plain_calls']}")
+        if not h["kv_free_blocks"] == h["kv_total_blocks"]:
+            raise AssertionError(f"router {name} pass: /health once idle {h}")
+        finished = run["metrics"].get("dstpu_serving_requests_finished_total")
+        if finished != n:
+            raise AssertionError(f"router {name} pass: /metrics finished {finished}")
+        p["check_seconds"] = time.perf_counter() - t1
+        return p
+
+    # ---- timed: the serving phase's mix over the device wire, 64-step rounds
+    run = router_pass(torch, dev, K, fleet, prompts, new_tokens, ROUTER_TIMED_TRANSPORT,
+                      record=True, bits=True)
+    gc.collect()
+    p = held("timed", run, len(prompts), SERVE_KERNELS, replay=True, n_new=new_tokens)
+    p.update(ttft_s=percentiles(run["ttft_s"]), tpot_s=percentiles(run["tpot_s"]),
+             tok_s=run["generated"] / run["seconds"], generated=run["generated"])
+    launches["router"] = run["launches"]
+    rec["timed"] = p
+    del run
+    # ---- short passes: the other wires, each handoff's blocks bit for bit
+    for transport in ROUTER_SHORT_TRANSPORTS:
+        run = router_pass(torch, dev, K, fleet, prompts[:short], short_new, transport,
+                          bits=True, decode_steps=short_ds)
+        rec[f"short_{transport}"] = held(f"short_{transport}", run, short, SERVE_KERNELS)
+        del run
+        gc.collect()
+    # ---- planted: the importer adopts the pending token plus one
+    run = router_pass(torch, dev, K, fleet, prompts[:short], short_new,
+                      ROUTER_TIMED_TRANSPORT, fault=True, decode_steps=short_ds)
+    rec["planted"] = held("planted", run, short, SERVE_KERNELS, replay=True, planted=True)
+    del run
+    gc.collect()
+    # ---- resilience + elastic: a replica drawn from a warm spare before the
+    # clients, and d1's worker dying between steps (its residents recover)
+    pool = WarmSparePool(factory=lambda: router_fleet(torch, dev, eng, n=1)[0],
+                         count=1, warm_kw={"decode_steps": ds})
+    run = router_pass(torch, dev, K, fleet, prompts[:short], short_new,
+                      ROUTER_TIMED_TRANSPORT, decode_steps=short_ds,
+                      resilience=ResilienceConfig(hung_step_s=ROUTER_HUNG_STEP_S),
+                      faults=[FaultSpec("worker.crash", nth=1, replica=ROUTER_CRASH_REPLICA)],
+                      spare_pool=pool, scale_up=True)
+    # the crashed replica may take no placement again before the pass ends
+    p = held("resilience", run, short, SERVE_KERNELS, quiet_ok=(ROUTER_CRASH_REPLICA,))
+    res = run["health"]["resilience"]
+    p.update(resilience=res, crashed=run["health"]["replicas"][ROUTER_CRASH_REPLICA]["health"],
+             scaled_up=run["scaled_up"], warm_replicas=run["warm_replicas"],
+             decode_replicas=run["health"]["num_decode_replicas"])
+    if res["replica_failures"] < 1 or res["recoveries"] < 1:
+        raise AssertionError(f"router resilience pass: no recovery counted: {res}")
+    if run["warm_replicas"] != 1 or p["decode_replicas"] != ROUTER_DECODE + 1:
+        raise AssertionError(f"router elastic scale-up: {run['warm_replicas']} warm replicas, "
+                             f"{p['decode_replicas']} decode replicas")
+    rec["resilience"] = p
+    del run, pool, fleet
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # ---- int8 pools over the host wire: codes and scales bit for bit
+    t0 = time.perf_counter()
+    fleet = router_fleet(torch, dev, eng, kv_cache_dtype="int8")
+    rec["int8_fleet_seconds"] = time.perf_counter() - t0
+    run = router_pass(torch, dev, K, fleet, prompts[:short], short_new, "host", bits=True,
+                      decode_steps=short_ds)
+    rec["short_int8_host"] = held("short_int8_host", run, short,
+                                  ("rms_norm_fwd",) + INT8_KERNELS)
+    launches["router_int8"] = run["launches"]
+    del run, fleet
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def router_note(rec, card):
+    """The router phase's line: TTFT and TPOT (p50 / p99), tok/s, the
+    handoffs and each replica's launches, beside the card."""
+    t = rec["timed"]
+    ms = lambda d: "/".join("n/a" if v is None else f"{1e3 * v:.1f}" for v in d.values())  # noqa: E731
+    wire = t["handoffs"]["per_transport"].get(ROUTER_TIMED_TRANSPORT, {})
+    bits = [v["bits"] for v in rec.values() if isinstance(v, dict) and "bits" in v]
+    return (f"router: 1 prefill worker + {rec['decode_replicas']} decode replicas, "
+            f"{rec['clients']} HTTP clients x {rec['new_tokens']} tokens over the "
+            f"{ROUTER_TIMED_TRANSPORT} wire: TTFT p50/p99 {ms(t['ttft_s'])} ms, TPOT p50/p99 "
+            f"{ms(t['tpot_s'])} ms, {t['tok_s']:.1f} tok/s; {t['handoffs']['count']} handoffs, "
+            f"{int(wire.get('bytes', 0))} bytes in {int(wire.get('chunks', 0))} windows; "
+            f"launches by replica {t['replica_launches']}; streams equal to the replicas' "
+            f"replay {t['replay']['equal']}/{rec['clients']}, every token within "
+            f"{t['streams']['max_margin']:.4f} of the plain forward's largest logit (limit "
+            f"{rec['logit_rtol']}; the planted handoff fault reads "
+            f"{rec['planted']['streams']['max_margin']:.4f}, replay "
+            f"{rec['planted']['replay']['equal']}/{rec['short_clients']}); "
+            f"{sum(b['handoffs'] for b in bits)} handoffs bit for bit over device / host / "
+            f"in_process / int8 host; a fused round {t['round_s']['router_mean']:.2f} s "
+            f"beside the other replicas against {t['round_s']['alone_mean']:.2f} s replayed "
+            f"alone; resilience recoveries {rec['resilience']['resilience']['recoveries']}; "
+            f"warm scale-up {rec['resilience']['scaled_up']}, on {card}")
 
 
 def serve_cli_phase(torch, dev, K, work, root, new_tokens=SERVE_CLI_NEW, prompt_lens=(64, 512),
@@ -4271,7 +4809,7 @@ def serve_cli_phase(torch, dev, K, work, root, new_tokens=SERVE_CLI_NEW, prompt_
 
 # the per-row leg: the engine's per-row step (_step_per_row) with
 # attention_impl="splash" at Mistral's window of 4096 over an 8192-token
-# context (64 blocks of 128), 256-token prompt chunks; 4 prompts of 6144 to
+# context (64 blocks of 128), 256-token prompt chunks; 2 prompts of 6144 to
 # 8176 tokens, each then decoding 16 tokens (the context holds them)
 PER_ROW_CONFIG = {
     "dtype": "bfloat16", "decode_steps": 1, "prompt_chunk": 256, "max_prompt_chunks": 4,
@@ -4279,7 +4817,7 @@ PER_ROW_CONFIG = {
     "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 1024,
                       "max_ragged_sequence_count": 4, "max_context": 8192},
 }
-PER_ROW_PROMPTS = (4, 6144, 8192 - 16)  # count, shortest, longest
+PER_ROW_PROMPTS = (2, 6144, 8192 - 16)  # count, shortest, longest
 PER_ROW_NEW_TOKENS = 16
 # The splash per-row path against the dense per-row path fed the same
 # tokens: both run the same bf16 projections and norms and differ only in
@@ -5687,11 +6225,13 @@ RING_N = 4
 RING_CASES = {"llama2_7b_mha": dict(h=32, h_kv=32), "mistral_7b_v02_gqa": dict(h=32, h_kv=8)}
 RING_SEQ = 32768
 # the ring's training leg: llama-7b width (h 4096, 32 heads of 128, MHA,
-# ffn 11008, vocab 32000) at 8 of 32 layers (full depth is ~135 GB of
-# params and optimizer state at 20 B a parameter), max_seq_len raised to
-# 16384 and 4 chunks of 4096, remat with policy "nothing"
+# ffn 11008, vocab 32000) at 4 of 32 layers (full depth is ~135 GB of
+# params and optimizer state at 20 B a parameter; 4, not 8, for the
+# script's clock), max_seq_len raised to 16384 and 4 chunks of 4096, remat
+# with policy "nothing"
 RING_MODEL = "llama-7b"
 RING_TRAIN_SEQ = 16384
+RING_TRAIN_LAYERS = 4
 
 
 def ring_attn_phase(torch, dev, K, cases=None, seq=RING_SEQ, n=RING_N, d=128, seed=SEED):
@@ -5753,7 +6293,8 @@ def ring_attn_phase(torch, dev, K, cases=None, seq=RING_SEQ, n=RING_N, d=128, se
     return rec, launches
 
 
-def train_ring_phase(torch, dev, K, widths=None, seq=RING_TRAIN_SEQ, layers=TRAIN_LAYERS, n=RING_N,
+def train_ring_phase(torch, dev, K, widths=None, seq=RING_TRAIN_SEQ, layers=RING_TRAIN_LAYERS,
+                     n=RING_N,
                      timed_steps=4, profile=False):
     """``initialize(mpu=Topology(context=N, loopback=True))`` ->
     ``train_batch`` with ``attention_impl="flash_ring"`` at llama-7b width.
@@ -6576,9 +7117,10 @@ HF_ENGINE_CONFIG = {
                       "max_ragged_sequence_count": 4, "max_context": 640},
 }
 HF_PROMPTS = 4
-# train_import: a 2-layer cut of the same directory, a client torch AdamW,
-# grads accumulated in bf16
-IMPORT_TRAIN_LAYERS = 2
+# train_import: a 1-layer cut of the same directory (2 before the router
+# phase needed the script's time), a client torch AdamW, grads accumulated
+# in bf16
+IMPORT_TRAIN_LAYERS = 1
 IMPORT_TRAIN_SEQ = 1024
 IMPORT_TRAIN_CONFIG = {
     "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
@@ -7416,7 +7958,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     bf16_rows, held = {}, {}
     rec, serve_launches = engine_phase(torch, dev, K, profile=args.profile, keep=bf16_rows,
-                                       hold=held)
+                                       hold=held, bench_repeats=1)
     rec["card"] = card
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
@@ -7454,17 +7996,27 @@ def main(argv=None):
     emit(rec)
     # the serving stack (driver, HTTP server, tracing, spec) on the same engine
     serving_launches = {}
+    served = {}
     t0 = time.perf_counter()
-    rec, serving_launches["serving"] = serving_phase(torch, dev, K, held["engine"])
+    rec, serving_launches["serving"] = serving_phase(torch, dev, K, held["engine"], hold=served)
     rec.update(card=card, seconds=time.perf_counter() - t0)
     emit(rec)
     print(serving_note(rec, card), flush=True)
+    # the multi-engine router over the same weights and the same mix
+    t0 = time.perf_counter()
+    rec, launches = router_phase(torch, dev, K, held["engine"], prompts=served["prompts"],
+                                 want=served["want"])
+    serving_launches.update(launches)
+    rec.update(card=card, seconds=time.perf_counter() - t0)
+    emit(rec)
+    print(router_note(rec, card), flush=True)
     held.clear()
+    served.clear()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     rec, int8_launches = engine_phase(torch, dev, K, kv_cache_dtype="int8", bf16_rows=bf16_rows,
-                                      profile=args.profile, hold=held)
+                                      profile=args.profile, hold=held, bench_repeats=1)
     rec.update(card=card, seconds=time.perf_counter() - t0, kv_pool_info_bf16=bf16_info,
                gen_tok_s_over_bf16=rec["gen_tok_s"] / bf16_gen,
                round_tok_s_over_bf16=rec["round_tok_s"] / bf16_round)
@@ -7477,7 +8029,7 @@ def main(argv=None):
     emit(rec)
     t0 = time.perf_counter()
     rec, serving_launches["serving_int8"] = serving_phase(torch, dev, K, held["engine"],
-                                                          int8=True)
+                                                          int8=True, generate=False)
     rec.update(card=card, seconds=time.perf_counter() - t0)
     emit(rec)
     print(serving_note(rec, card), flush=True)
@@ -7611,6 +8163,9 @@ def main(argv=None):
                 if serving_launches["serving"][n] <= 0]
     missing += [f"{n} (serving_int8)" for n in ("rms_norm_fwd",) + INT8_KERNELS
                 if serving_launches["serving_int8"][n] <= 0]
+    missing += [f"{n} (router)" for n in SERVE_KERNELS if serving_launches["router"][n] <= 0]
+    missing += [f"{n} (router_int8)" for n in ("rms_norm_fwd",) + INT8_KERNELS
+                if serving_launches["router_int8"][n] <= 0]
     missing += [f"{n} (train_import)" for n in TRAIN_KERNELS
                 if import_launches["train_import"][n] <= 0]
     missing += [f"{n} (graft_entry)" for n in ("rms_norm_fwd", "flash_fwd")

@@ -12,20 +12,24 @@ fetched.
         [--sample --temperature 0.8] [--dtype bfloat16] [--device cpu]
 
 ``serve`` runs the same v2 engine behind the long-lived serving driver and
-HTTP front end (``deepspeed_tpu_torch/serving``), on one engine:
+HTTP front end (``deepspeed_tpu_torch/serving``), on one engine, or on
+several behind the in-process multi-engine ``Router`` (prefill workers
+handing KV blocks to decode replicas, all sharing one copy of the weights):
 
     python -m deepspeed_tpu_torch.inference.cli serve --model /path/to/hf_dir \\
         --port 8000 [--num-blocks 512] [--max-context 4096] [--timeout 120] \\
-        [--decode-steps 8] [--spec-k 4] [--kv-cache-dtype int8] [--trace]
+        [--decode-steps 8] [--spec-k 4] [--kv-cache-dtype int8] [--trace] \\
+        [--num-prefill-workers 1 --num-decode-replicas 2 --kv-transport device] \\
+        [--placement slo] [--resilience] [--min/--max-decode-replicas N]
 
     curl -N -X POST http://127.0.0.1:8000/generate \\
         -d '{"prompt": "Once upon a time", "max_new_tokens": 64, "stream": true}'
 
-Every kernel the served path launches is built or loaded (``warm_trace``)
-before the first request is admitted. ``--tp`` above 1 raises (ROADMAP
-queue 1, item 6). The multi-engine flags (``--num-decode-replicas`` above
-1, ``--num-prefill-workers``, the elastic and resilience flags,
-``--control-port``) and the ``serve-agent`` command raise (item 5).
+Every kernel the served path launches is built or loaded (``warm_trace``,
+on every engine and warm spare) before the first request is admitted.
+``--tp`` above 1 raises (ROADMAP queue 1, item 6). The cross-process
+pieces — ``--control-port`` / ``--control-host``, ``--kv-transport remote``
+and the ``serve-agent`` command — raise (item 5).
 """
 
 import argparse
@@ -154,10 +158,8 @@ def generate_main(argv=None) -> int:
 
 def _serve_parser(prog, description):
     """The serve argument surface of the JAX package's ``dstpu serve``,
-    plus ``--device``. The flags that switch the multi-engine router on
-    parse and are refused by ``build_serving_stack``; the ones that only
-    tune it (placement, KV transport, load shedding, recovery limits, the
-    control host) come with it (ROADMAP queue 1, item 5)."""
+    plus ``--device``. The cross-process flags parse and are refused by
+    ``build_serving_stack`` (ROADMAP queue 1, item 5)."""
     p = argparse.ArgumentParser(prog=prog, description=description)
     p.add_argument("--model", required=True, help="HF checkpoint directory")
     p.add_argument("--host", default="127.0.0.1")
@@ -196,11 +198,38 @@ def _serve_parser(prog, description):
     p.add_argument("--comm-overlap", default="none", choices=("none", "tiled"))
     p.add_argument("--tp-overlap-tiles", type=int, default=4)
     p.add_argument("--num-prefill-workers", type=int, default=0,
-                   help="disaggregated prefill engines (ROADMAP queue 1, item 5)")
+                   help="disaggregated prefill engines: each hands a request's KV "
+                   "blocks to a decode replica after its first token")
     p.add_argument("--num-decode-replicas", type=int, default=1,
-                   help="decode replicas behind a router (1 only; ROADMAP queue 1, item 5)")
-    p.add_argument("--min-decode-replicas", type=int, default=0)
-    p.add_argument("--max-decode-replicas", type=int, default=0)
+                   help="decode replicas behind the router (each owns its own KV "
+                   "pool; >1 or --num-prefill-workers >= 1 builds the multi-engine "
+                   "Router instead of the single driver)")
+    p.add_argument("--placement", default="slo",
+                   choices=("slo", "round_robin", "least_loaded"),
+                   help="decode-replica placement policy: slo ranks by free-block "
+                   "headroom / queue depth / deadline slack")
+    p.add_argument("--kv-transport", default="host",
+                   choices=("host", "device", "in_process", "remote"),
+                   help="KV handoff wire for prefill->decode moves: host bounces "
+                   "blocks through numpy; device ships them in chunked device "
+                   "windows (no host round-trip); in_process is one device "
+                   "gather; remote (cross-process) is ROADMAP queue 1, item 5")
+    p.add_argument("--min-decode-replicas", type=int, default=0,
+                   help="elastic serving floor: autoscaling never retires below "
+                   "this (0 = elastic control plane off)")
+    p.add_argument("--max-decode-replicas", type=int, default=0,
+                   help="elastic serving ceiling: engines beyond "
+                   "--num-decode-replicas spawn as warm spares (kernels built "
+                   "or loaded at spawn)")
+    p.add_argument("--shed-degrade-at", type=float, default=0.5,
+                   help="queue occupancy at which non-interactive tiers get "
+                   "their max_new_tokens capped")
+    p.add_argument("--shed-spec-off-at", type=float, default=0.75,
+                   help="queue occupancy at which speculative decoding is "
+                   "disabled for non-interactive tiers")
+    p.add_argument("--shed-reject-at", type=float, default=0.9,
+                   help="queue occupancy at which the lowest QoS tier is "
+                   "rejected with 503 + Retry-After")
     p.add_argument("--no-prefix-cache", action="store_true",
                    help="disable automatic prefix caching (on by default when serving)")
     p.add_argument("--prefix-cache-blocks", type=int, default=0,
@@ -210,7 +239,14 @@ def _serve_parser(prog, description):
     p.add_argument("--kv-host-tier-chunk-blocks", type=int, default=8,
                    help="blocks per re-import window")
     p.add_argument("--resilience", action="store_true",
-                   help="fault-tolerant serving (ROADMAP queue 1, item 5)")
+                   help="fault-tolerant serving: step watchdog + replica "
+                   "quarantine with probation probes, bit-identical request "
+                   "recovery off failed replicas, bounded handoff/pull retries")
+    p.add_argument("--hung-step-s", type=float, default=5.0,
+                   help="watchdog deadline: an engine step older than this "
+                   "quarantines its replica and recovers its residents")
+    p.add_argument("--max-recoveries", type=int, default=3,
+                   help="per-request recovery budget before the stream fails")
     p.add_argument("--trace", action="store_true",
                    help="request tracing: per-request span trees and the engine "
                    "timeline at /debug/trace")
@@ -235,6 +271,8 @@ def serve_parse_args(argv=None):
     )
     p.add_argument("--control-port", type=int, default=None, metavar="PORT",
                    help="the multi-host control plane (ROADMAP queue 1, item 5)")
+    p.add_argument("--control-host", default=None,
+                   help="interface the control plane binds (ROADMAP queue 1, item 5)")
     return p.parse_args(argv)
 
 
@@ -283,31 +321,20 @@ def engine_config_from_args(args, cfg):
 
 
 def _refuse_multi_engine(args):
-    """The serve flags that build the JAX package's multi-engine router,
-    its elastic control plane or its resilience layer: refused, naming
-    the ROADMAP item that ports them."""
-    n_prefill = int(getattr(args, "num_prefill_workers", 0) or 0)
-    n_decode = int(getattr(args, "num_decode_replicas", 1) or 1)
-    if n_prefill < 0 or n_decode < 1:
-        raise ValueError(
-            f"need num_prefill_workers >= 0 and num_decode_replicas >= 1 "
-            f"(got {n_prefill}/{n_decode})")
+    """The serve flags that need what the port does not have yet: the
+    cross-process control plane and KV wire (ROADMAP queue 1, item 5) and
+    tensor parallelism (item 6). Refused before anything is built."""
     what = []
-    if n_decode > 1:
-        what.append(f"--num-decode-replicas {n_decode}")
-    if n_prefill:
-        what.append(f"--num-prefill-workers {n_prefill}")
-    if int(getattr(args, "min_decode_replicas", 0) or 0) or int(
-            getattr(args, "max_decode_replicas", 0) or 0):
-        what.append("--min/--max-decode-replicas (elastic serving)")
-    if getattr(args, "resilience", False):
-        what.append("--resilience")
     if getattr(args, "control_port", None) is not None:
         what.append("--control-port")
+    if getattr(args, "control_host", None) is not None:
+        what.append("--control-host")
+    if getattr(args, "kv_transport", "host") == "remote":
+        what.append("--kv-transport remote")
     if what:
         raise NotImplementedError(
-            f"serve: {', '.join(what)} needs the multi-engine router, which is not "
-            "ported yet (ROADMAP queue 1, item 5)")
+            f"serve: {', '.join(what)} needs the cross-process control plane and KV "
+            "wire (serving/net/), which are not ported yet (ROADMAP queue 1, item 5)")
     if args.tp > 1:
         raise NotImplementedError(
             f"serve: --tp {args.tp} (tensor parallelism) is not ported yet "
@@ -315,18 +342,28 @@ def _refuse_multi_engine(args):
 
 
 def build_serving_stack(args, cfg=None, params=None, tok=None):
-    """Engine + driver from parsed serve args (split out so tests build the
-    stack without a socket). Pass cfg/params/tok to skip checkpoint
-    loading. One engine serves behind ``ServingDriver``; its kernels are
-    built or loaded by ``warm_trace`` before the driver admits anything.
-    A directory without ``tokenizer.json`` (or a machine without the
-    ``tokenizers`` package) serves token ids only, where the JAX package's
-    command refuses to start. Returns (driver, tokenizer or None); the
-    caller starts the driver."""
+    """Engine(s) + driver from parsed serve args (split out so tests build
+    the stack without a socket). Pass cfg/params/tok to skip checkpoint
+    loading. One engine serves behind ``ServingDriver``; with
+    ``--num-decode-replicas`` > 1, ``--num-prefill-workers`` >= 1, the
+    elastic bounds or ``--resilience`` the engines (sharing the read-only
+    params, each with its own KV pool) go behind the multi-engine
+    ``Router``. Every engine, warm spares included, is ``warm_trace``d
+    before anything is admitted. A directory without ``tokenizer.json``
+    (or a machine without the ``tokenizers`` package) serves token ids
+    only, where the JAX package's command refuses to start. Returns
+    (driver or router, tokenizer or None); the caller starts it."""
     from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.serving.cluster import Router
     from deepspeed_tpu_torch.serving.driver import ServingDriver
 
     _refuse_multi_engine(args)
+    n_prefill = int(getattr(args, "num_prefill_workers", 0) or 0)
+    n_decode = int(getattr(args, "num_decode_replicas", 1) or 1)
+    if n_prefill < 0 or n_decode < 1:
+        raise ValueError(
+            f"need num_prefill_workers >= 0 and num_decode_replicas >= 1 "
+            f"(got {n_prefill}/{n_decode})")
     if getattr(args, "trace", False):
         from deepspeed_tpu_torch.observability import configure_tracing
 
@@ -351,19 +388,84 @@ def build_serving_stack(args, cfg=None, params=None, tok=None):
             print(f"dstpu serve: no tokenizer ({e}); serving token ids only",
                   file=sys.stderr, flush=True)
     rc = engine_config_from_args(args, cfg)
-    engine = InferenceEngineV2(cfg, params, rc, device=device)
-    engine.warm_trace(decode_steps=args.decode_steps,
-                      spec_k=int(getattr(args, "spec_k", 0) or 0))
-    driver = ServingDriver(
-        engine,
+    warm_kw = {"decode_steps": args.decode_steps,
+               "spec_k": int(getattr(args, "spec_k", 0) or 0)}
+    # elastic control plane: --min/--max-decode-replicas bound the
+    # autoscaler; engines past --num-decode-replicas spawn as warm spares
+    elastic_min = int(getattr(args, "min_decode_replicas", 0) or 0)
+    elastic_max = int(getattr(args, "max_decode_replicas", 0) or 0)
+    elastic_cfg = None
+    if elastic_min or elastic_max:
+        from deepspeed_tpu_torch.serving.elastic import ElasticServingConfig
+
+        elastic_cfg = ElasticServingConfig(
+            min_decode_replicas=max(1, elastic_min),
+            max_decode_replicas=max(1, elastic_min, elastic_max, n_decode),
+            shed_degrade_at=getattr(args, "shed_degrade_at", 0.5),
+            shed_spec_off_at=getattr(args, "shed_spec_off_at", 0.75),
+            shed_reject_at=getattr(args, "shed_reject_at", 0.9),
+        )
+        n_decode = max(n_decode, elastic_cfg.min_decode_replicas)
+    resilience_cfg = None
+    if getattr(args, "resilience", False):
+        from deepspeed_tpu_torch.serving.resilience import ResilienceConfig
+
+        resilience_cfg = ResilienceConfig(
+            hung_step_s=float(getattr(args, "hung_step_s", 5.0)),
+            max_recoveries=int(getattr(args, "max_recoveries", 3)),
+        )
+
+    def new_engine():
+        # params are read-only at inference time: an engine keeps the
+        # caller's tensors when they are already in its dtype on its
+        # device, so every engine shares one copy of the weights and only
+        # the KV pools and scheduler state are per engine
+        return InferenceEngineV2(cfg, params, rc, device=device)
+
+    if (n_prefill == 0 and n_decode == 1 and elastic_cfg is None
+            and resilience_cfg is None):
+        engine = new_engine()
+        engine.warm_trace(**warm_kw)
+        driver = ServingDriver(
+            engine,
+            eos_token_id=getattr(tok, "eos_token_id", None),
+            max_queue=args.max_queue,
+            kv_headroom=args.kv_headroom,
+            default_timeout_s=args.timeout,
+            decode_steps=args.decode_steps,
+            spec_ngram=getattr(args, "spec_ngram", 3),
+        )
+        return driver, tok
+    engines = [new_engine() for _ in range(n_prefill + n_decode)]
+    for engine in engines:
+        engine.warm_trace(**warm_kw)
+    spare_pool = None
+    if elastic_cfg is not None:
+        from deepspeed_tpu_torch.serving.elastic import WarmSparePool
+
+        # spares spawn (and build or load their kernels) NOW, at build
+        # time — scale-up later is pure wiring
+        spare_pool = WarmSparePool(
+            factory=new_engine,
+            count=max(0, elastic_cfg.max_decode_replicas - n_decode),
+            warm_kw=warm_kw,
+        )
+    router = Router(
+        engines=engines,
+        num_prefill_workers=n_prefill,
         eos_token_id=getattr(tok, "eos_token_id", None),
         max_queue=args.max_queue,
         kv_headroom=args.kv_headroom,
         default_timeout_s=args.timeout,
         decode_steps=args.decode_steps,
         spec_ngram=getattr(args, "spec_ngram", 3),
+        placement=getattr(args, "placement", "slo"),
+        kv_transport=getattr(args, "kv_transport", "host"),
+        elastic=elastic_cfg,
+        spare_pool=spare_pool,
+        resilience=resilience_cfg,
     )
-    return driver, tok
+    return router, tok
 
 
 def serve_main(argv=None) -> int:

@@ -408,12 +408,20 @@ class InferenceEngineV2:
         importer's freshly allocated table slots; ids need not match the
         exporter's), after ``check_kv_payload`` validates every plane. A
         JAX engine's int8 or fp32 payload imports as it is; a bf16 one's
-        planes go as their bits (``plane.view(np.uint16)``)."""
+        planes go as their bits (``plane.view(np.uint16)``). A device
+        payload (``export_kv_blocks_device``'s tensors, or column slices of
+        them) scatters without a host copy, held to the device window's
+        contract."""
         n = len(block_ids)
         if n == 0:
             return
-        self._check_kv_payload(n, payload)
         idx = torch.as_tensor(np.asarray(list(block_ids), np.int64), device=self.device)
+        if any(isinstance(p, torch.Tensor) for p in payload.values()):
+            self._check_device_window(n, payload)
+            for name, pool in self._kv_pool_planes().items():
+                pool.index_copy_(1, idx, payload[name])
+            return
+        self._check_kv_payload(n, payload)
         for name, pool in self._kv_pool_planes().items():
             vals = torch.from_numpy(np.ascontiguousarray(payload[name]))
             if pool.dtype == torch.bfloat16:

@@ -1,8 +1,5 @@
 """The serving stack of the port (mirrors ``deepspeed_tpu/serving``).
 
-The single-replica path is ported: a background driver loop over one
-``InferenceEngineV2``, with its HTTP front end, streaming and telemetry.
-
   * ``request``    — ``Request`` lifecycle + per-request ``SamplingParams``
   * ``driver``     — background continuous-batching loop with KV-aware
                      admission control, timeouts, error isolation, drain
@@ -13,16 +10,33 @@ The single-replica path is ported: a background driver loop over one
                      /debug/trace, /debug/events)
   * ``spec``       — speculative decoding: the n-gram proposer and the
                      adaptive draft length over the engine's verify rounds
-  * ``cluster``    — ``EngineCore``, the engine-facing half of the loop
-  * ``resilience`` — fault injection and the replica health state machine
+  * ``cluster``    — disaggregated prefill/decode serving: the in-process
+                     multi-engine ``Router`` with KV-block handoff,
+                     SLO-aware placement and the prefix directory
+  * ``resilience`` — fault injection, the replica health state machine,
+                     bounded retries and bit-identical request recovery
+  * ``elastic``    — autoscaling decode replicas from warm spares, QoS
+                     preempt-and-resume, graceful load shedding
 
-The multi-engine ``Router`` with its KV handoff and placement, the network
-transports, the remote agent and the elastic control plane are ROADMAP
-queue 1, item 5: their names raise ``NotImplementedError`` saying so.
+The cross-process pieces — the network transports, the remote core and the
+replica agent — are ROADMAP queue 1, item 5: their names raise
+``NotImplementedError`` saying so.
 """
 
-from deepspeed_tpu_torch.serving.cluster import EngineCore
+from deepspeed_tpu_torch.serving.cluster import (
+    EngineCore,
+    HandoffError,
+    KVHandoff,
+    Router,
+    get_placement,
+)
 from deepspeed_tpu_torch.serving.driver import RequestRejected, ServingDriver
+from deepspeed_tpu_torch.serving.elastic import (
+    DegradationLadder,
+    ElasticController,
+    ElasticServingConfig,
+    WarmSparePool,
+)
 from deepspeed_tpu_torch.serving.metrics import ServingMetrics
 from deepspeed_tpu_torch.serving.request import Request, RequestState, SamplingParams
 from deepspeed_tpu_torch.serving.spec import (
@@ -33,25 +47,30 @@ from deepspeed_tpu_torch.serving.spec import (
 )
 from deepspeed_tpu_torch.serving.streaming import IncrementalDetokenizer, TokenStream
 
-# the JAX package's serving names that later slices port
-_LATER = (
-    "Router", "KVHandoff", "HandoffError", "get_placement",
-    "DegradationLadder", "ElasticController", "ElasticServingConfig", "WarmSparePool",
-)
+# the JAX package's cross-process serving names that a later slice ports
+_LATER = ("ReplicaAgent", "RemoteEngineHandle")
 
 
 def __getattr__(name):
     if name in _LATER:
         raise NotImplementedError(
             f"deepspeed_tpu_torch.serving.{name} is not ported yet (ROADMAP queue 1, item 5: "
-            "the multi-engine router and the elastic control plane)")
+            "the remote core and the replica agent)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [
     "AdaptiveSpecController",
+    "DegradationLadder",
     "DraftProposer",
+    "ElasticController",
+    "ElasticServingConfig",
     "EngineCore",
+    "WarmSparePool",
+    "HandoffError",
+    "KVHandoff",
+    "Router",
+    "get_placement",
     "IncrementalDetokenizer",
     "NgramProposer",
     "Request",

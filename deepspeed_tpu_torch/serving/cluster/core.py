@@ -1,10 +1,9 @@
 """Engine-agnostic scheduling/admission core.
 
 Copy of ``deepspeed_tpu/serving/cluster/core.py``, over the port's
-``InferenceEngineV2``, with what the single-engine ``ServingDriver``
-reaches: the multi-engine ``Router``, and the core's methods that serve it
-(prefix-directory hashes, probation probes, KV endpoints, handoff tallies,
-the hung-step watchdog stamp), are ROADMAP queue 1, item 5.
+``InferenceEngineV2``. A port engine is unsharded (``tp_shards`` is 1,
+tensor parallel is ROADMAP queue 1, item 6) and has no remote-KV listener
+(``serving/net/`` is item 5), so ``kv_endpoint_address`` is None.
 
 This is the single-engine ``ServingDriver`` loop body factored out of its
 one-engine assumption: everything that talks to the ENGINE — KV-aware
@@ -33,13 +32,37 @@ step would interleave with its writes.
 """
 
 import threading
+import time
 from typing import Dict, Optional
+
+import torch
 
 from deepspeed_tpu_torch.observability.tracing import get_tracer
 from deepspeed_tpu_torch.serving.request import Request
 from deepspeed_tpu_torch.serving.resilience.faults import get_fault_injector
 from deepspeed_tpu_torch.serving.resilience.health import ReplicaHealth
 from deepspeed_tpu_torch.utils.logging import logger
+
+
+def engine_device_index(engine) -> Optional[int]:
+    """The CUDA device index a thread driving ``engine`` must make current:
+    the engine's, or (a device without an index) the one current in the
+    calling thread. None for a CPU engine or a fake without a device."""
+    device = getattr(engine, "device", None)
+    if isinstance(device, torch.device) and device.type == "cuda":
+        return device.index if device.index is not None else torch.cuda.current_device()
+    return None
+
+
+def run_in_engine_scope(device_index: Optional[int], fn, *args):
+    """Run ``fn(*args)`` as a serving thread's body. Grad mode and the
+    current CUDA device are per thread in torch: every thread that steps,
+    exports, imports or warms an engine runs without autograd and on the
+    engine's card, as the single-engine driver's loop does."""
+    with torch.no_grad():
+        if device_index is not None:
+            torch.cuda.set_device(device_index)
+        return fn(*args)
 
 
 class EngineCore:
@@ -65,10 +88,17 @@ class EngineCore:
         self.kv_headroom = float(kv_headroom)
         self.metrics = metrics
         self.requests: Dict[int, Request] = {}  # uid -> Request resident here
-        # failure detection: the replica's step-error streak, and the
-        # step-failed flag the wrapper uses to drive note_success
+        # elastic scale-down: a retired core takes no new admissions and its
+        # worker thread exits once the resident set drains
+        self.retired = False
+        # failure detection: per-replica health state machine, the step
+        # watchdog stamp (monotonic start of the step in flight, None
+        # between steps — the coordinator reads it without the step lock,
+        # which is the point: a wedged step never releases that lock), and
+        # the step-failed flag the wrapper uses to drive note_success
         self.health = ReplicaHealth(self.name)
         self._step_failed = False
+        self.step_started_at: Optional[float] = None
         # serializes engine stepping against KV import/export (both write
         # the pools) and scheduler mutation from other threads (admission,
         # cancel cleanup)
@@ -81,8 +111,10 @@ class EngineCore:
         # land on this replica's row of the timeline
         if hasattr(engine, "replica_name"):
             engine.replica_name = self.name
-        # per-replica tally for the labeled /metrics gauges
+        # per-replica tallies for the labeled /metrics gauges
         self.decode_tokens = 0
+        self.handoffs_in = 0
+        self.handoffs_out = 0
         # speculative decoding: spec_k=None inherits the engine config's
         # spec_k; 0 disables. Only meaningful on cores that decode.
         if spec_k is None:
@@ -116,6 +148,54 @@ class EngineCore:
         """The engine's host-memory block tier (None when disabled or the
         engine is a fake without one)."""
         return getattr(self.engine, "host_tier", None)
+
+    def tp_shards(self) -> int:
+        """Tensor-parallel width of this engine (1 for the port's unsharded
+        engine and minimal fakes). A tp=N replica spreads each sequence's
+        KV and attention across N devices, so placement treats its pool
+        and compute as N-way aggregated capacity."""
+        return int(getattr(self.engine, "_tp", 1) or 1)
+
+    # -- tiered prefix store (PrefixDirectory bridge) ---------------------
+    def prefix_hashes(self) -> set:
+        """Chain hashes this replica can seed a prefix from — device trie
+        ∪ host tier — i.e. its PrefixDirectory advertisement. Caller holds
+        ``step_lock`` (the trie mutates under stepping)."""
+        out = set()
+        cache = self.prefix_cache()
+        if cache is not None and hasattr(cache, "prefix_hashes"):
+            out |= cache.prefix_hashes()
+        tier = self.host_tier()
+        if tier is not None:
+            out |= set(tier.keys())
+        return out
+
+    def prefix_chain(self, tokens) -> list:
+        """Chain hashes of the full prompt blocks a seed could cover
+        (capped one token short: prefill must still produce next-token
+        logits). Empty without a prefix cache."""
+        cache = self.prefix_cache()
+        if cache is None or not hasattr(cache, "_matchable_blocks"):
+            return []
+        from deepspeed_tpu_torch.inference.v2.host_tier import chain_hashes
+
+        toks = list(tokens)
+        return chain_hashes(toks, cache.block_size,
+                            cache._matchable_blocks(len(toks)))
+
+    def prefix_coverage(self, keys) -> int:
+        """Contiguous run from the start of ``keys`` this replica holds
+        (device or host tier). Pure probe — no refs, no LRU touches —
+        used by placement affinity and the router's peer-pull planner."""
+        if not keys:
+            return 0
+        held = self.prefix_hashes()
+        n = 0
+        for key in keys:
+            if key not in held:
+                break
+            n += 1
+        return n
 
     def _inc(self, name: str, delta: float = 1) -> None:
         if self.metrics is not None:
@@ -323,12 +403,18 @@ class EngineCore:
         Returns True if any token landed / request advanced (progress).
         Caller holds ``step_lock``.
 
-        Feeds the health state: a clean step resets the error streak; the
-        failure handler advances it before telling the sink."""
+        Wraps the step in the watchdog window — ``step_started_at`` is
+        the monotonic stamp the coordinator's hung-step scan reads
+        WITHOUT the step lock (a wedged step never releases it) — and
+        feeds the health state machine: a clean step resets the error
+        streak; the failure handler advances it before telling the
+        sink."""
         self._step_failed = False
+        self.step_started_at = time.monotonic()
         try:
             return self._step_locked(sink)
         finally:
+            self.step_started_at = None
             if not self._step_failed:
                 self.health.note_success()
 
@@ -350,9 +436,10 @@ class EngineCore:
         try:
             faults = get_fault_injector()
             if faults.enabled:
-                # chaos seam: a hang spec sleeps here, inside the step; an
-                # error spec raises into the engine-failure handler below,
-                # exactly like a real step fault
+                # chaos seam: a hang spec sleeps here INSIDE the watchdog
+                # window (step_started_at is set); an error spec raises
+                # into the engine-failure handler below, exactly like a
+                # real step fault
                 faults.check("step.hang", replica=self.name)
                 faults.check("engine.step", replica=self.name)
             if use_spec and self._spec_step(sink, sched):
@@ -425,6 +512,41 @@ class EngineCore:
         self._reap_capped(sink)
         return progress
 
+    # -- probation probes -------------------------------------------------
+    def probe(self, lock_timeout_s: float = 0.5) -> None:
+        """Synthetic probation probe; raises on failure. A probe cannot
+        lie about a wedged replica: it fails outright if a step is still
+        in flight or the step lock can't be acquired quickly (a hung step
+        owns it forever). Otherwise it runs one empty engine step through
+        the fault seam — so a scheduled ``engine.step`` fault at probe
+        time deterministically fails the probe, and a real engine that
+        can't even step an empty batch stays quarantined."""
+        if self.step_started_at is not None:
+            raise RuntimeError(f"probe({self.name}): a step is still in flight")
+        if not self.step_lock.acquire(timeout=lock_timeout_s):
+            raise RuntimeError(f"probe({self.name}): step lock unavailable")
+        try:
+            faults = get_fault_injector()
+            if faults.enabled:
+                faults.check("engine.step", replica=self.name)
+            self.engine.step_tokens()
+        finally:
+            self.step_lock.release()
+
+    def kv_endpoint_address(self):
+        """``(host, port)`` of this engine's remote-KV listener, or None
+        when no ``KVEndpoint`` is attached — always, in the port, until
+        the remote transport (``serving/net/``, ROADMAP queue 1, item 5)
+        is ported. Health and placement metadata carry this."""
+        ep = getattr(self.engine, "_kv_endpoint", None)
+        return ep.address if ep is not None else None
+
+    def kv_endpoint_stats(self) -> Dict:
+        """Stage/transfer counters of the attached ``KVEndpoint`` ({} when
+        none)."""
+        ep = getattr(self.engine, "_kv_endpoint", None)
+        return dict(ep.stats()) if ep is not None else {}
+
     # -- observability ---------------------------------------------------
     def replica_stats(self) -> Dict[str, float]:
         """Per-replica gauge snapshot for the labeled /metrics samples."""
@@ -434,13 +556,13 @@ class EngineCore:
             "kv_total_blocks": self.kv_total,
             "kv_blocks_in_use": max(0, self.kv_total - free),
             "active_requests": len(self.requests),
-            # the JAX package's labeled gauges, kept for its /metrics rows:
-            # the port's engine is unsharded (tensor parallel is ROADMAP
-            # queue 1, item 6) and one replica hands nothing off
-            "tp_shards": 1,
+            # tensor-parallel width of the engine (1 = unsharded):
+            # placement scoring divides KV/compute pressure by this, and
+            # the /metrics label row proves WHICH replicas are tp>1
+            "tp_shards": self.tp_shards(),
             "decode_tokens_total": self.decode_tokens,
-            "handoffs_in_total": 0,
-            "handoffs_out_total": 0,
+            "handoffs_in_total": self.handoffs_in,
+            "handoffs_out_total": self.handoffs_out,
         }
         alloc_stats = getattr(self.engine.state_manager, "alloc_stats", None)
         if alloc_stats is not None:

@@ -30,8 +30,7 @@ with a compute-free fake over the REAL scheduler/allocator stack.
 The engine-facing half of the loop (admission accounting, stepping, spec
 rounds, capped reaping) lives in ``serving.cluster.core.EngineCore``; this
 driver is the one-engine (colocated prefill and decode) owner of a single
-core. The JAX package's many-engine owner, ``Router``, is ROADMAP queue 1,
-item 5.
+core; ``serving.cluster.router.Router`` is the many-engine owner.
 """
 
 import threading
@@ -40,7 +39,6 @@ from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 from deepspeed_tpu_torch.observability.events import get_event_log
 from deepspeed_tpu_torch.observability.tracing import (
@@ -154,14 +152,18 @@ class ServingDriver:
     def start(self) -> "ServingDriver":
         if self._thread is not None:
             raise RuntimeError("driver already started")
+        from deepspeed_tpu_torch.serving.cluster.core import (
+            engine_device_index,
+            run_in_engine_scope,
+        )
+
         # the card the loop binds: the engine's, or (a device without an
-        # index) the one current in the thread that starts the driver
-        device = getattr(self.engine, "device", None)
-        self._cuda_device = None
-        if isinstance(device, torch.device) and device.type == "cuda":
-            self._cuda_device = (device.index if device.index is not None
-                                 else torch.cuda.current_device())
-        self._thread = threading.Thread(target=self._loop, name="serving-driver", daemon=True)
+        # index) the one current in the thread that starts the driver. Grad
+        # mode and the current CUDA device are per thread in torch: the loop
+        # runs without autograd (no output carries a ``grad_fn``) on it
+        self._thread = threading.Thread(
+            target=run_in_engine_scope, args=(engine_device_index(self.engine), self._loop),
+            name="serving-driver", daemon=True)
         self._thread.start()
         return self
 
@@ -471,15 +473,6 @@ class ServingDriver:
 
     # the loop ----------------------------------------------------------
     def _loop(self):
-        """The step loop's thread. Grad mode and the current CUDA device
-        are per thread in torch: the loop runs without autograd (no output
-        carries a ``grad_fn``) and on the engine's device."""
-        with torch.no_grad():
-            if self._cuda_device is not None:
-                torch.cuda.set_device(self._cuda_device)
-            self._run_loop()
-
-    def _run_loop(self):
         stall_wait = False
         while True:
             with self._cond:

@@ -1,9 +1,8 @@
-"""Fault tolerance for the serving stack (mirrors
+"""Fault tolerance for the serving cluster (mirrors
 ``deepspeed_tpu/serving/resilience``): deterministic fault injection
-(``faults``) and the replica's step-error streak (``health``). The
-health state machine's probes and ``ResilienceConfig``, bounded retries
-(``retry``) and request recovery (``recovery``) come with the
-multi-engine router, ROADMAP queue 1, item 5."""
+(``faults``), the replica health state machine (``health``), bounded
+retry-with-backoff (``retry``), and bit-identical request recovery
+(``recovery``)."""
 
 from deepspeed_tpu_torch.serving.resilience.faults import (
     SITES,
@@ -19,9 +18,13 @@ from deepspeed_tpu_torch.serving.resilience.faults import (
 from deepspeed_tpu_torch.serving.resilience.health import (
     DEGRADED,
     HEALTHY,
+    PROBATION,
     QUARANTINED,
     ReplicaHealth,
+    ResilienceConfig,
 )
+from deepspeed_tpu_torch.serving.resilience.recovery import plan_recovery, replay_prompt
+from deepspeed_tpu_torch.serving.resilience.retry import RetryPolicy, with_retries
 
 __all__ = [
     "SITES",
@@ -36,5 +39,11 @@ __all__ = [
     "HEALTHY",
     "DEGRADED",
     "QUARANTINED",
+    "PROBATION",
     "ReplicaHealth",
+    "ResilienceConfig",
+    "RetryPolicy",
+    "with_retries",
+    "plan_recovery",
+    "replay_prompt",
 ]

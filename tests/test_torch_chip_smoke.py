@@ -1509,3 +1509,97 @@ def test_trace_summary_counts_engine_spans_and_trees():
         chip_smoke.trace_summary(doc, 3)
     with pytest.raises(AssertionError, match="Chrome"):
         chip_smoke.trace_summary({"traceEvents": [{"ph": "X"}]}, 0)
+
+
+def test_router_phase_runs_end_to_end_on_cpu(one_thread):
+    """The router phase at the tiny size on the CPU's plain versions: one
+    prefill worker and two decode replicas over HTTP. (a) every handoff's
+    copied blocks equal the exporter's bit for bit over the host,
+    in_process and device wires and an int8 pool (scales too); (b) every
+    served token is the plain forward's top (fp32); (c) every decode
+    replica's calls and imports replayed on a fresh engine give every
+    stream token for token; the planted handoff fault is caught by (b) and
+    by (c); the crash pass recovers and completes; the warm spare's
+    admission builds nothing; no kernel launches and nothing of the fleets
+    outlives the phase."""
+    import weakref
+
+    eng = _serve_tiny_engine()
+    prompts = chip_smoke.serve_prompts(512, n=8, lens=(20, 150))
+    fleets = []
+    fleet = chip_smoke.router_fleet
+
+    def tracked(*a, **k):
+        out = fleet(*a, **k)
+        fleets.extend(weakref.ref(e) for e in out)
+        return out
+
+    chip_smoke.router_fleet = tracked
+    try:
+        rec, launches = chip_smoke.router_phase(torch, torch.device("cpu"), K, eng,
+                                                prompts=prompts, new_tokens=8, short=4)
+    finally:
+        chip_smoke.router_fleet = fleet
+    json.dumps(rec)
+    assert launches["router"] == launches["router_int8"] == {name: 0 for name in K.KERNELS}
+    t = rec["timed"]
+    assert t["replay"] == {"equal": 8, "diverged": [], "seconds": t["replay"]["seconds"]}
+    assert t["handoffs"]["count"] == 8 and t["generated"] == 8 * 8
+    assert t["round_s"]["rounds"] > 0 and t["round_s"]["alone_mean"] > 0
+    wire = t["handoffs"]["per_transport"]["device"]
+    assert wire["handoffs"] == 8 and wire["bytes"] > 0 and wire["chunks"] >= 8
+    for name, n in (("timed", 8), ("short_host", 4), ("short_in_process", 4),
+                    ("short_int8_host", 4)):
+        p = rec[name]
+        assert p["bits"]["mismatches"] == 0 and p["bits"]["handoffs"] == n, name
+        assert p["bits"]["blocks_copied"] > 0
+    assert rec["short_host"]["transport"] == rec["short_int8_host"]["transport"] == "host"
+    assert rec["short_int8_host"]["bits"]["planes"] == ["k", "k_scale", "v", "v_scale"]
+    assert rec["short_host"]["bits"]["planes"] == ["k", "v"]
+    for name in ("timed", "short_host", "short_in_process", "resilience"):
+        st = rec[name]["streams"]
+        assert st["max_margin"] < 1e-4, name  # fp32: the plain forward's argmax
+        plain = rec[name]["plain_calls"]
+        assert plain["rms_norm_reference"] > 0 and plain["block_quant_reference"] == 0
+    assert rec["short_int8_host"]["plain_calls"]["block_quant_reference"] > 0
+    assert rec["short_int8_host"]["streams"]["max_margin"] < 1e-2
+    planted = rec["planted"]
+    assert planted["caught"] == {"replay": True, "margin": True}
+    assert planted["replay"]["equal"] < 4 and planted["streams"]["max_margin"] > 0.04
+    res = rec["resilience"]
+    assert res["resilience"]["replica_failures"] == 1 and res["resilience"]["recoveries"] >= 1
+    assert "worker crash" in res["crashed"]["last_error"]
+    assert (res["scaled_up"], res["warm_replicas"], res["decode_replicas"]) == ("d2", 1, 3)
+    line = chip_smoke.router_note(rec, "cpu")
+    assert "TTFT" in line and "bit for bit" in line and line.endswith("on cpu")
+    import gc
+
+    gc.collect()
+    assert fleets and all(ref() is None for ref in fleets)
+
+
+def test_thread_launches_splits_counts_by_thread():
+    """Launch counts made on named threads land on their thread's tally
+    while every kernel's own count goes on as before; the property is gone
+    after the block."""
+    import threading
+
+    k = K.KERNELS["paged_decode"]
+    K.reset_counts()
+    with chip_smoke.thread_launches(K) as tally:
+        def bump(n):
+            for _ in range(n):
+                k.launches += 1
+
+        threads = [threading.Thread(target=bump, args=(n,), name=f"serving-d{i}")
+                   for i, n in enumerate((3, 5))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        bump(2)
+    assert tally["serving-d0"]["paged_decode"] == 3 and tally["serving-d1"]["paged_decode"] == 5
+    assert tally[threading.current_thread().name]["paged_decode"] == 2
+    assert k.launches == 10 and "launches" in vars(k)
+    K.reset_counts()
+    assert k.launches == 0

@@ -103,10 +103,12 @@ def test_module_entry_runs_generate(real_format_dir):
 
 
 def test_unported_commands_raise(real_format_dir):
-    """``serve`` runs on one engine (test_module_entry_serves_the_jax_tokens);
-    its multi-engine forms and ``serve-agent`` raise, naming item 5."""
+    """``serve`` runs (test_module_entry_serves_the_jax_tokens); its
+    cross-process forms and ``serve-agent`` raise, naming item 5."""
     path, _ = real_format_dir
-    for argv in (["serve", "--model", path, "--num-decode-replicas", "2"],
+    for argv in (["serve", "--model", path, "--num-decode-replicas", "2", "--control-port", "0"],
+                 ["serve", "--model", path, "--num-prefill-workers", "1",
+                  "--kv-transport", "remote"],
                  ["serve-agent", "--model", path]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
             pcli.main(argv)

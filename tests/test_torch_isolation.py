@@ -129,12 +129,24 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.serving",
     "deepspeed_tpu_torch.serving.cluster",
     "deepspeed_tpu_torch.serving.cluster.core",
+    "deepspeed_tpu_torch.serving.cluster.handoff",
+    "deepspeed_tpu_torch.serving.cluster.placement",
+    "deepspeed_tpu_torch.serving.cluster.prefix_directory",
+    "deepspeed_tpu_torch.serving.cluster.router",
     "deepspeed_tpu_torch.serving.driver",
+    "deepspeed_tpu_torch.serving.elastic",
+    "deepspeed_tpu_torch.serving.elastic.config",
+    "deepspeed_tpu_torch.serving.elastic.controller",
+    "deepspeed_tpu_torch.serving.elastic.preemption",
+    "deepspeed_tpu_torch.serving.elastic.shedding",
+    "deepspeed_tpu_torch.serving.elastic.spares",
     "deepspeed_tpu_torch.serving.metrics",
     "deepspeed_tpu_torch.serving.request",
     "deepspeed_tpu_torch.serving.resilience",
     "deepspeed_tpu_torch.serving.resilience.faults",
     "deepspeed_tpu_torch.serving.resilience.health",
+    "deepspeed_tpu_torch.serving.resilience.recovery",
+    "deepspeed_tpu_torch.serving.resilience.retry",
     "deepspeed_tpu_torch.serving.server",
     "deepspeed_tpu_torch.serving.spec",
     "deepspeed_tpu_torch.serving.spec.controller",

@@ -350,20 +350,31 @@ class TestServeCommand:
         ["--max-decode-replicas", "3"], ["--resilience"], ["--control-port", "0"],
     ], ids=["replicas", "prefill", "elastic", "resilience", "control"])
     def test_multi_engine_flags_name_item_5(self, flags):
-        args = pcli.serve_parse_args(SERVE_ARGV + flags)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-            pcli.build_serving_stack(args)
+        """Each multi-engine form builds the router, but not with the
+        cross-process control plane: ``--control-port`` (and the
+        ``remote`` KV wire) are refused, naming item 5, before any engine
+        is built."""
+        for extra in (["--control-port", "0"], ["--kv-transport", "remote"]):
+            args = pcli.serve_parse_args(SERVE_ARGV + flags + extra)
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+                pcli.build_serving_stack(args)
 
     @pytest.mark.parametrize("flags", [
         ["--placement", "least_loaded"], ["--kv-transport", "remote"],
         ["--shed-reject-at", "0.5"], ["--hung-step-s", "1"], ["--control-host", "0.0.0.0"],
     ], ids=["placement", "transport", "shed", "hung", "control-host"])
     def test_router_tuning_flags_are_not_parsed(self, flags, capsys):
-        """The flags that only tune the router are left to its slice: an
-        error, never a silent no-op."""
-        with pytest.raises(SystemExit):
-            pcli.serve_parse_args(SERVE_ARGV + flags)
-        assert "unrecognized arguments" in capsys.readouterr().err
+        """The flags that only tune the router parse now, as the JAX
+        package's do, and keep their value; an unknown choice is an
+        argparse error, never a silent default."""
+        jargs = jcli.serve_parse_args(SERVE_ARGV + flags)
+        args = pcli.serve_parse_args(SERVE_ARGV + flags)
+        dest = flags[0].lstrip("-").replace("-", "_")
+        assert getattr(args, dest) == getattr(jargs, dest)
+        if dest in ("placement", "kv_transport"):
+            with pytest.raises(SystemExit):
+                pcli.serve_parse_args(SERVE_ARGV + [flags[0], "bogus"])
+            assert "invalid choice" in capsys.readouterr().err
 
     def test_refusals(self):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
@@ -374,9 +385,11 @@ class TestServeCommand:
             pcli.build_serving_stack(pcli.serve_parse_args(
                 SERVE_ARGV + ["--num-prefill-workers", "-1"]))
         import deepspeed_tpu_torch.serving as serving
+        import deepspeed_tpu_torch.serving.cluster as cluster
 
-        for name in ("Router", "KVHandoff", "ElasticController", "WarmSparePool"):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-                getattr(serving, name)
+        for mod in (serving, cluster):
+            for name in ("ReplicaAgent", "RemoteEngineHandle"):
+                with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+                    getattr(mod, name)
         with pytest.raises(AttributeError):
             serving.NoSuchName  # noqa: B018
