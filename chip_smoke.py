@@ -127,8 +127,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
    plain forward's largest logit; in the timed and planted passes each
    decode replica's engine calls and imports are replayed on a fresh
    engine, and every timed stream must equal its replay token for token,
-   while the planted pass must be caught by both checks. The fleets are
-   freed before the engine_int8 phase.
+   while the planted pass must be caught by both checks. The short passes
+   run on a model cut to 4 layers made from the seed (the script's clock).
+   The fleets are freed before the remote phase.
+3c''. remote (after router): the router in this process, a decode agent in
+   its own (``tools/torch_remote_agent.py``: ``ReplicaAgent`` over
+   ``EngineCore(role="decode")``, its weights rebuilt from the seed, the
+   two digests equal), joined over ``serve_control``, the handoffs over the
+   remote KV wire. Timed pass: p0 on the engine phase's weights and a
+   standby d0 of one block (so every stream decodes in the agent), the
+   serving phase's 32 clients, 64-step rounds: TTFT / TPOT p50 / p99,
+   tok/s, the handoffs' bytes and windows, the endpoint's wire bytes, the
+   agent's launches (counted in the child) and its rounds' seconds beside
+   the same rounds replayed alone in the child. At 4 layers, 8 clients of
+   8 tokens, 8-step rounds: an int8 pool, a planted importer, a wire fault
+   (``net.recv`` in the child: its import retries) and a SIGKILL of the
+   agent mid-decode (its residents replay on a local d0, a second agent
+   joins under the same name, passes probation and decodes). Each handoff's
+   blocks as imported in the child equal the exporter's at export (digests,
+   every plane); each stream equals the agent's calls and imports replayed
+   on a fresh engine in the child (the planted pass must leave it and the
+   0.04 margin); stages drained, pools full after; no plain version on
+   either side; every child exits 0 on the GOODBYE.
 3c. engine_int8: the same engine and prompts with
    ``kv_cache_dtype="int8"``: logits against ``forward_reference`` (limit
    0.1), against the bf16 phase's rows computed from the same tokens, and
@@ -145,7 +165,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    every leaf's gradient of ``make_loss_fn`` (the kernels) against autograd
    through ``forward_reference`` + ``nll_loss`` on the same weights, a
    control against another batch's gradients, then 8 engine steps on that
-   batch (the loss must fall). Timed leg (8 layers, ``initialize`` ->
+   batch (the loss must fall). Timed leg (4 layers, ``initialize`` ->
    ``train_batch``, micro-batch 1, 2 accumulation steps, AdamW, WarmupLR,
    clipping): 1 warm-up and 4 timed steps, losses, step seconds, tok/s,
    MFU, peak memory and the training kernels' exact launch counts.
@@ -251,7 +271,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    --model <that directory> --port 0`` as a subprocess (killed in every
    case): once it prints its address, two ``tokens`` requests, one after
    the other, each equal to ``build_hf_engine``'s ``generate`` with the
-   engine config its flags make. train_import: a 1-layer cut of that directory through
+   engine config its flags make. serve_agent_cli: that ``serve`` with
+   ``--num-prefill-workers 1 --kv-transport remote --control-port 0`` and
+   ``serve-agent --join`` on the same directory, two subprocesses: two
+   requests (round robin: the second decodes in the agent), each equal to
+   ``generate``; SIGINT to serve, and both exit 0. train_import: a 1-layer cut of that directory through
    ``load_hf_model`` into ``initialize`` with a client ``torch.optim.AdamW``
    and ``grad_accum_dtype`` "bf16", 2 ``train_batch`` steps (flash and
    RMSNorm launches exact, the loss falling), a save with
@@ -293,8 +317,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 Serving kernels must launch in the engine phase (the int8 pool's in
 engine_int8 and its per-row check), in a verify step (engine_spec,
 engine_spec_int8), from the serving driver's thread (serving,
-serving_int8) and from the router's replicas' threads (router,
-router_int8), training kernels in the train legs,
+serving_int8), from the router's replicas' threads (router,
+router_int8), in the remote phase's p0 and in its agent's process
+(remote, remote_agent, remote_int8, remote_agent_int8), training kernels in the train legs,
 the fused configuration's four in its leg, the splash kernels in the
 splash leg (the forward also in the per-row leg), the sparse kernels in the
 sparse_attn phase, the evoformer kernels in the evoformer phase, the chunk
@@ -3677,6 +3702,13 @@ SERVE_WAIT_S = 120
 # the serving phases' passes after the timed one (profiled, traced, spec,
 # planted) take the mix's first this many clients: the script's clock
 SERVE_SHORT_CLIENTS = 8
+# and the traced and planted passes run on a model cut to this many layers
+# from the seed (``cut_engine``; the script's clock), their streams held to
+# its generate() and plain forward. The spec pass stays whole: the n-gram
+# proposer drafts where the model continues the prompts' repeated motif,
+# which the random 32-layer model does and a 4-layer cut did not (no
+# verify round ran on the card)
+SERVE_SHORT_LAYERS = 4
 # each served token's logit under the plain forward, below the row's
 # largest, relative to the row's largest magnitude (``compare_streams``).
 # Sound passes on an H100 read 0.0137-0.0189 over 1024 tokens, bf16 and
@@ -4135,7 +4167,7 @@ def trace_summary(doc, n_requests):
 
 
 def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE_NEW_TOKENS,
-                  spec_k=SPEC_K, hold=None, generate=True):
+                  spec_k=SPEC_K, hold=None, generate=True, short_layers=SERVE_SHORT_LAYERS):
     """The serving stack at the engine phase's engine (bf16 pool; ``int8``:
     the engine_int8 phase's): the requests' streams against
     ``engine.generate()`` on the same prompts (``compare_streams``), a timed
@@ -4143,9 +4175,12 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
     a traced pass (/debug/trace valid, dispatch and device-wait spans, one
     tree per request), a speculative pass (``NgramProposer``, k ``spec_k``)
     and a planted pass (``feedback_fault``); every pass but the timed one
-    serves the first ``SERVE_SHORT_CLIENTS`` clients. The timed, speculative and
+    serves the first ``SERVE_SHORT_CLIENTS`` clients, and the traced and
+    planted passes an engine of ``short_layers`` layers
+    (``cut_engine``: the same configs, weights from the seed; its own
+    ``generate()`` and plain forward hold their streams). The timed, speculative and
     planted passes record the driver's schedule and replay it on the
-    engine (``replay_schedule``): the sound passes' streams must equal the
+    pass's engine (``replay_schedule``): the sound passes' streams must equal the
     replay token for token, the planted pass's must leave it and pass the
     margin limit. The int8 engine runs the timed, profiled and planted
     passes. Launches of the served kernels are counted in each pass; the
@@ -4178,10 +4213,22 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
         passes += [("traced", dict(trace=True)), ("spec", dict(spec_k=spec_k, record=True))]
     passes += [("planted", dict(record=True, fault=True))]
     launches = None
+    small = small_want = None
     for name, kw in passes:
         n = len(prompts) if name == "timed" else min(SERVE_SHORT_CLIENTS, len(prompts))
         ps = prompts[:n]
-        run = served_pass(torch, dev, K, eng, ps, new_tokens, ds, **kw)
+        ref, ref_want = eng, None if want is None else want[:n]
+        if name in ("traced", "planted"):
+            if small is None:
+                t0 = time.perf_counter()
+                small = cut_engine(torch, dev, eng, short_layers)
+                if generate:
+                    small_want = [[int(t) for t in o[len(p):]] for o, p in
+                                  zip(small.generate(ps, max_new_tokens=new_tokens), ps)]
+                rec.update(short_layers=small._mc.n_layers,
+                           short_setup_seconds=time.perf_counter() - t0)
+            ref, ref_want = small, small_want
+        run = served_pass(torch, dev, K, ref, ps, new_tokens, ds, **kw)
         # the pass's driver and server sit in reference cycles (the handler
         # class closes over the driver, the driver over the engine): collect
         # them, so the engine's memory goes with the caller's last reference
@@ -4190,12 +4237,11 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
         p = {"seconds": run["seconds"], "launches": {k: run["launches"][k] for k in served},
              "plain_calls": run["plain_calls"],
              "clients": n,
-             "streams": compare_streams(torch, eng, ps, run["tokens"],
-                                        None if want is None else want[:n],
+             "streams": compare_streams(torch, ref, ps, run["tokens"], ref_want,
                                         None if planted else rtol)}
         if run["schedule"] is not None:
             t1 = time.perf_counter()
-            replayed = replay_schedule(torch, eng, run["schedule"], new_tokens)
+            replayed = replay_schedule(torch, ref, run["schedule"], new_tokens)
             p["replay"] = compare_replay(ps, run["tokens"], replayed)
             p["replay"]["seconds"] = time.perf_counter() - t1
             if not planted and p["replay"]["equal"] != n:
@@ -4277,6 +4323,9 @@ ROUTER_SHORT_TRANSPORTS = ("host", "in_process")
 # than alone (the interpreter lock), and the script has a clock
 ROUTER_SHORT_NEW_TOKENS = 8
 ROUTER_SHORT_DECODE_STEPS = 8
+# and their depth (the script's clock): a model of this many layers
+# from the seed, its streams held to its own plain forward
+ROUTER_SHORT_LAYERS = 4
 # the resilience pass's planted crash: the first worker pass with work of
 # this decode replica dies outside the step, its residents recover
 ROUTER_CRASH_REPLICA = "d1"
@@ -4400,6 +4449,20 @@ def recorded_router(torch, engines, bits=False, fault_vocab=None):
             yield out
         finally:
             router_mod.export_sequence, router_mod.import_sequence = export, import_
+
+
+def cut_engine(torch, dev, eng, n_layers):
+    """An engine with ``eng``'s model config at ``n_layers`` layers, its
+    weights made from ``SEED`` on ``dev``, and ``eng``'s engine config: a
+    phase's short passes at a cut depth."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import transformer as T
+
+    cfg = dataclasses.replace(eng._mc, n_layers=min(int(n_layers), eng._mc.n_layers))
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    return InferenceEngineV2(cfg, params, eng.config, device=dev.type)
 
 
 def router_fleet(torch, dev, eng, n=ROUTER_PREFILL + ROUTER_DECODE, kv_cache_dtype=None):
@@ -4541,15 +4604,16 @@ def router_replay(torch, dev, eng, run, prompts, new_tokens):
 
 
 def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_NEW_TOKENS,
-                 short=ROUTER_SHORT):
+                 short=ROUTER_SHORT, short_layers=ROUTER_SHORT_LAYERS):
     """The multi-engine router at the engine phase's engine's weights and
     config: one prefill worker and two decode replicas (``router_fleet``),
     every client over HTTP. Passes: timed (the serving phase's mix over the
     ``device`` wire, bench.py's 64-step rounds: TTFT / TPOT p50 / p99,
     tok/s, the handoffs with their bytes and windows, each replica's kernel
     launches, each fused round's seconds against the same round replayed
-    alone); short passes of ``short`` requests over the ``host`` and
-    ``in_process`` wires; planted (the importer adopts the pending token
+    alone); then, over a model of ``short_layers`` layers from the seed
+    (``cut_engine``; their tokens held to its plain forward), short passes of
+    ``short`` requests over the ``host`` and ``in_process`` wires; planted (the importer adopts the pending token
     plus one); resilience + elastic (``ResilienceConfig``, a worker crash
     planted on d1, and one replica drawn from a ``WarmSparePool`` of one
     engine before the clients: every stream completes, /health counts the
@@ -4587,7 +4651,10 @@ def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_N
     names = ["p0"] + [f"d{i}" for i in range(ROUTER_DECODE)]
     launches = {}
 
-    def held(name, run, n, served, replay=False, planted=False, quiet_ok=(), n_new=short_new):
+    def held(name, run, n, served, replay=False, planted=False, quiet_ok=(), n_new=short_new,
+             ref=None):
+        # ``ref``: the short passes' cut engine, whose plain forward holds
+        # their tokens (no generate() reference at that depth)
         t1 = time.perf_counter()
         ps = prompts[:n]
         p = {"transport": run["transport"], "seconds": run["seconds"],
@@ -4596,8 +4663,8 @@ def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_N
                                       .get(k, 0) for k in served}
                                   for r in names + [run.get("scaled_up")] if r},
              "plain_calls": run["plain_calls"], "states": run["states"],
-             "streams": compare_streams(torch, eng, ps, run["tokens"],
-                                        [w[:n_new] for w in want[:n]],
+             "streams": compare_streams(torch, ref or eng, ps, run["tokens"],
+                                        None if ref else [w[:n_new] for w in want[:n]],
                                         None if planted else rtol)}
         h = run["health"]
         p["handoffs"] = {"count": h["kv_handoffs"],
@@ -4605,7 +4672,7 @@ def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_N
         if run["states"] != ["finished"]:
             raise AssertionError(f"router {name} pass: request states {run['states']}")
         if replay:
-            p["replay"] = router_replay(torch, dev, eng, run, ps, n_new)
+            p["replay"] = router_replay(torch, dev, ref or eng, run, ps, n_new)
             alone, shared = p["replay"].pop("round_s"), run["round_s"]
             p["round_s"] = {"rounds": len(shared),
                             "router_mean": sum(shared) / max(1, len(shared)),
@@ -4655,23 +4722,31 @@ def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_N
              tok_s=run["generated"] / run["seconds"], generated=run["generated"])
     launches["router"] = run["launches"]
     rec["timed"] = p
-    del run
+    del run, fleet
+    gc.collect()
+    # ---- the short passes over a model cut to ``short_layers`` layers
+    t0 = time.perf_counter()
+    small = cut_engine(torch, dev, eng, short_layers)
+    fleet = router_fleet(torch, dev, small)
+    rec.update(short_layers=small._mc.n_layers, short_fleet_seconds=time.perf_counter() - t0)
     # ---- short passes: the other wires, each handoff's blocks bit for bit
     for transport in ROUTER_SHORT_TRANSPORTS:
         run = router_pass(torch, dev, K, fleet, prompts[:short], short_new, transport,
                           bits=True, decode_steps=short_ds)
-        rec[f"short_{transport}"] = held(f"short_{transport}", run, short, SERVE_KERNELS)
+        rec[f"short_{transport}"] = held(f"short_{transport}", run, short, SERVE_KERNELS,
+                                         ref=small)
         del run
         gc.collect()
     # ---- planted: the importer adopts the pending token plus one
     run = router_pass(torch, dev, K, fleet, prompts[:short], short_new,
                       ROUTER_TIMED_TRANSPORT, fault=True, decode_steps=short_ds)
-    rec["planted"] = held("planted", run, short, SERVE_KERNELS, replay=True, planted=True)
+    rec["planted"] = held("planted", run, short, SERVE_KERNELS, replay=True, planted=True,
+                          ref=small)
     del run
     gc.collect()
     # ---- resilience + elastic: a replica drawn from a warm spare before the
     # clients, and d1's worker dying between steps (its residents recover)
-    pool = WarmSparePool(factory=lambda: router_fleet(torch, dev, eng, n=1)[0],
+    pool = WarmSparePool(factory=lambda: router_fleet(torch, dev, small, n=1)[0],
                          count=1, warm_kw={"decode_steps": ds})
     run = router_pass(torch, dev, K, fleet, prompts[:short], short_new,
                       ROUTER_TIMED_TRANSPORT, decode_steps=short_ds,
@@ -4679,7 +4754,8 @@ def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_N
                       faults=[FaultSpec("worker.crash", nth=1, replica=ROUTER_CRASH_REPLICA)],
                       spare_pool=pool, scale_up=True)
     # the crashed replica may take no placement again before the pass ends
-    p = held("resilience", run, short, SERVE_KERNELS, quiet_ok=(ROUTER_CRASH_REPLICA,))
+    p = held("resilience", run, short, SERVE_KERNELS, quiet_ok=(ROUTER_CRASH_REPLICA,),
+             ref=small)
     res = run["health"]["resilience"]
     p.update(resilience=res, crashed=run["health"]["replicas"][ROUTER_CRASH_REPLICA]["health"],
              scaled_up=run["scaled_up"], warm_replicas=run["warm_replicas"],
@@ -4696,14 +4772,14 @@ def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_N
         torch.cuda.empty_cache()
     # ---- int8 pools over the host wire: codes and scales bit for bit
     t0 = time.perf_counter()
-    fleet = router_fleet(torch, dev, eng, kv_cache_dtype="int8")
+    fleet = router_fleet(torch, dev, small, kv_cache_dtype="int8")
     rec["int8_fleet_seconds"] = time.perf_counter() - t0
     run = router_pass(torch, dev, K, fleet, prompts[:short], short_new, "host", bits=True,
                       decode_steps=short_ds)
     rec["short_int8_host"] = held("short_int8_host", run, short,
-                                  ("rms_norm_fwd",) + INT8_KERNELS)
+                                  ("rms_norm_fwd",) + INT8_KERNELS, ref=small)
     launches["router_int8"] = run["launches"]
-    del run, fleet
+    del run, fleet, small
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4733,6 +4809,593 @@ def router_note(rec, card):
             f"beside the other replicas against {t['round_s']['alone_mean']:.2f} s replayed "
             f"alone; resilience recoveries {rec['resilience']['resilience']['recoveries']}; "
             f"warm scale-up {rec['resilience']['scaled_up']}, on {card}")
+
+
+# ---------------------------------------------------------------------------
+# remote: the router in this process, a decode replica's agent in its own
+# (tools/torch_remote_agent.py), over the remote KV wire and the control plane
+# ---------------------------------------------------------------------------
+REMOTE_AGENT = "tools/torch_remote_agent.py"
+REMOTE_NAME = "r0"
+# the short passes (int8, planted, wire fault, SIGKILL) build their own model
+# from the seed at this cut depth on both sides of the wire: the script's clock
+REMOTE_SHORT_WIDTHS = {"n_layers": 4}
+# a child's deadlines: interpreter, torch, the card, the weights, the dial;
+# and, after the router's GOODBYE, its replay and its result line
+REMOTE_JOIN_S = 300
+REMOTE_RESULT_S = 300
+# the wire-fault pass: the agent's 2nd KV frame read dies (its fetch), and
+# its import retries the same staged transfer
+REMOTE_FAULT = ("net.recv", 2)
+# the SIGKILL pass: the agent's rounds wait this long first, so it is killed
+# mid-decode (after its first round of the 8-step rounds: 32 tokens take
+# four); and the probe backoff of the router's health
+REMOTE_KILL_ROUND_SLEEP_S = 0.5
+REMOTE_KILL_NEW_TOKENS = 32
+REMOTE_PROBE = {"probe_backoff_s": 0.2, "probe_backoff_max_s": 2.0}
+
+
+def bits_digest(torch, tensors, chunk=1 << 24):
+    """A digest of ``tensors``' bits, in order: each one's bits as integers
+    of its width, weighted by position (mod 65521, plus one) and summed in
+    int64 on its own device, with its shape and dtype. The sum wraps and
+    wraps the same in any order, so equal bits give equal digests on any
+    device; a flipped bit changes it."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        flat = _bits(torch, t.contiguous()).reshape(-1)
+        total = 0
+        for lo in range(0, flat.numel(), chunk):
+            x = flat[lo:lo + chunk].to(torch.int64)
+            w = torch.arange(lo, lo + x.numel(), device=x.device, dtype=torch.int64) % 65521 + 1
+            total = (total + int((x * w).sum())) % (1 << 64)
+        h.update(f"{tuple(t.shape)}:{t.dtype}:{total};".encode())
+    return h.hexdigest()[:16]
+
+
+def weights_digest(torch, params):
+    """``bits_digest`` of a parameter tree's leaves in sorted path order."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import tree_leaves
+
+    return bits_digest(torch, tree_leaves(params))
+
+
+def blocks_digest(torch, engine, blocks):
+    """``bits_digest`` of every pool plane of ``engine`` at ``blocks``, in
+    plane-name order (an int8 pool's scales too): the handoff's unit."""
+    idx = torch.as_tensor([int(b) for b in blocks], device=engine.device)
+    planes = engine._kv_pool_planes()
+    return bits_digest(torch, [planes[k].index_select(1, idx) for k in sorted(planes)])
+
+
+def seeded_model(torch, dev, widths=None):
+    """The model of ``MODEL`` at ``widths`` and its weights made from
+    ``SEED`` on ``dev``, as the engine phase makes them: (cfg, params)."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    cfg = T.get_config(MODEL, **(widths or {}))
+    return cfg, T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+
+def remote_model(torch, dev, cfg, params, engine_config=None, kv_cache_dtype="bf16",
+                 decode_steps=None, num_blocks=None):
+    """An engine over ``params`` (kept, not copied) with the engine config
+    ``engine_config`` (``ENGINE_CONFIG``), the pool's dtype, the fused
+    round and the pool's block count overridden: the remote phase's engines
+    on both sides of the wire."""
+    from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+
+    ec = dict(engine_config or ENGINE_CONFIG)
+    ec["kv_cache"] = dict(ec["kv_cache"], kv_cache_dtype=kv_cache_dtype)
+    if num_blocks is not None:
+        ec["kv_cache"]["num_blocks"] = int(num_blocks)
+    if decode_steps is not None:
+        ec["decode_steps"] = int(decode_steps)
+    return InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig.from_dict(ec),
+                             device=dev.type)
+
+
+class AgentChild:
+    """``tools/torch_remote_agent.py`` in a subprocess of the checkout at
+    ``root``: each pass's JSON spec goes in a line on its standard input,
+    its "WEIGHTS" and "RESULT" lines come back on its standard output (its
+    other lines kept for a failure's message). ``prebuild`` ({"device",
+    "widths"}) has it make those weights at once, before its first pass.
+    Every wait has a deadline."""
+
+    def __init__(self, root, prebuild=None):
+        import collections
+        import queue
+        import threading
+
+        self.lines, self.tail = queue.Queue(), collections.deque(maxlen=40)
+        repo = Path(__file__).resolve().parent
+        pre = ["--prebuild", json.dumps(prebuild)] if prebuild else []
+        self.proc = subprocess.Popen(
+            [sys.executable, str(repo / REMOTE_AGENT), *pre], cwd=str(root),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="1"))
+        threading.Thread(target=lambda: [self.lines.put(ln) for ln in self.proc.stdout],
+                         daemon=True).start()
+
+    def send(self, spec):
+        self.proc.stdin.write(json.dumps(spec) + "\n")
+        self.proc.stdin.flush()
+
+    def expect(self, tag, timeout):
+        """The JSON after the next line starting with ``tag``; raises when
+        the child exits or the deadline passes first."""
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=1.0)
+            except queue.Empty:
+                if self.proc.poll() is not None and self.lines.empty():
+                    raise AssertionError(f"remote agent exited {self.proc.returncode} before "
+                                         f"{tag}: {''.join(self.tail)}")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"remote agent: no {tag} in {timeout} s: "
+                                         f"{''.join(self.tail)}")
+                continue
+            if line.startswith(tag + " "):
+                return json.loads(line[len(tag) + 1:])
+            self.tail.append(line)
+
+    def close(self, timeout=REMOTE_RESULT_S):
+        """End its input and wait for its exit code (killed past the
+        deadline, which fails)."""
+        try:
+            self.proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"remote agent did not exit in {timeout} s")
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def wait_agent_joined(router, name, child, timeout=REMOTE_JOIN_S):
+    """Until ``router``'s control plane holds ``name`` connected; raises if
+    the child exits or the deadline passes first."""
+    deadline = time.monotonic() + timeout
+    while not (router.health()["control_plane"]["remote_replicas"].get(name, {})
+               .get("connected", False)):
+        if child.proc.poll() is not None:
+            raise AssertionError(f"remote agent exited {child.proc.returncode} before joining: "
+                                 f"{''.join(child.tail)}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"remote agent {name} never joined in {timeout} s")
+        time.sleep(0.02)
+
+
+def remote_pass(torch, dev, K, engines, child, spec, prompts, new_tokens):
+    """One pass of the router with a remote decode agent, as a user runs it:
+    ``Router(engines, num_prefill_workers=1, kv_transport="remote",
+    decode_steps=spec's)`` (p0, and a standby d0 whose one-block pool holds
+    no request, so every stream decodes in the agent) behind
+    ``serve_control("127.0.0.1", 0)`` and ``start_server(port=0)``; the
+    child is sent ``spec`` with the control address, builds its engine and
+    joins; every prompt from its own client thread at once. The router and
+    the server are shut down in every case: the GOODBYE ends the agent's
+    run, and the child's RESULT follows. Each handoff's source blocks are
+    digested at export (``blocks_digest``). Returns the clients' tokens,
+    TTFT / TPOT, this process's launches and plain calls, /health once
+    idle, /metrics, the export digests, the child's WEIGHTS and RESULT."""
+    import deepspeed_tpu_torch.serving.cluster.router as router_mod
+    from deepspeed_tpu_torch.serving import Router
+    from deepspeed_tpu_torch.serving.server import start_server
+
+    for e in engines:
+        cache = e.state_manager.prefix_cache
+        if cache is not None:
+            cache.clear()
+    router = Router(engines=engines, num_prefill_workers=1, kv_transport="remote",
+                    decode_steps=int(spec["decode_steps"]), max_queue=2 * len(prompts))
+    out, reqs, digests = {}, [], {}
+    submit, export = router.submit, router_mod.export_sequence
+
+    def recorded(*a, **k):
+        req = submit(*a, **k)
+        reqs.append(req)
+        return req
+
+    def rec_export(engine, uid, pending_token, transport="host"):
+        blocks = engine.state_manager.get_sequence(uid).block_table
+        digests[int(uid)] = blocks_digest(torch, engine, blocks)
+        return export(engine, uid, pending_token, transport=transport)
+
+    router.submit = recorded
+    router_mod.export_sequence = rec_export
+    server = None
+    try:
+        with plain_version_calls() as plain:
+            K.reset_counts()
+            router.start()
+            addr = router.serve_control("127.0.0.1", 0)
+            t0 = time.perf_counter()
+            child.send(dict(spec, join=list(addr)))
+            out["weights"] = child.expect("WEIGHTS", REMOTE_JOIN_S)
+            wait_agent_joined(router, spec["name"], child)
+            out["join_seconds"] = time.perf_counter() - t0
+            server = start_server(router, host="127.0.0.1", port=0)
+            base = "http://%s:%d" % server.server_address[:2]
+            t0 = time.perf_counter()
+            out["tokens"] = http_clients(base, prompts, new_tokens)
+            out["seconds"] = time.perf_counter() - t0
+            out["launches"] = K.counts()
+            deadline = time.monotonic() + SERVE_WAIT_S
+            while True:
+                health = json.loads(_http(f"{base}/health"))
+                staged = health["kv_transport"]["endpoints"].get("p0", {}).get("staged_now")
+                if health["active_requests"] == 0 and health["queue_depth"] == 0 and staged == 0:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"remote pass: the router never went idle: {health}")
+                time.sleep(0.01)
+            out["health"] = health
+            out["metrics"] = parse_prometheus(_http(f"{base}/metrics").decode())
+        out["plain_calls"] = dict(plain)
+    finally:
+        router_mod.export_sequence = export
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        router.shutdown(drain=False, timeout=60)
+    out["agent"] = child.expect("RESULT", REMOTE_RESULT_S)
+    out["digests"] = digests
+    out["ttft_s"] = [r.ttft_s for r in reqs]
+    out["tpot_s"] = [r.tpot_s for r in reqs]
+    out["states"] = sorted({r.state for r in reqs})
+    out["generated"] = sum(len(r.generated) for r in reqs)
+    out["free_blocks"] = [e.state_manager.free_blocks for e in engines]
+    return out
+
+
+def remote_checks(torch, dev, eng, run, prompts, want, kernels, parent_kernels, rtol, n_new,
+                  planted=False, weights=None):
+    """The checks of one remote pass, over ``run`` (``remote_pass``) and the
+    plain forward of ``eng``'s weights. Every request finished; every
+    handoff's blocks as imported in the child equal the exporter's as they
+    stood at export (digests, every plane); every stream equal to the
+    agent's calls and imports replayed on a fresh engine in the child and
+    every token within ``rtol`` of the plain forward's top (planted: both
+    must catch it); the endpoint's stages drained, both pools back to
+    full; the child's weights' digest ``weights``; on a card the child
+    launched ``kernels``, this process ``parent_kernels``, and no plain
+    version ran on either side. Returns the pass's record."""
+    agent, h = run["agent"], run["health"]
+    n = len(prompts)
+    p = {"seconds": run["seconds"], "join_seconds": run["join_seconds"],
+         "launches": {k: run["launches"].get(k, 0) for k in parent_kernels},
+         "agent_launches": {k: agent["launches"].get(k, 0) for k in kernels},
+         "plain_calls": run["plain_calls"], "agent_plain_calls": agent["plain_calls"],
+         "states": run["states"], "agent_rc": agent["rc"],
+         "agent_seconds": agent["seconds"], "import_retries": agent["import_retries"],
+         "faults_fired": agent["faults_fired"]}
+    if run["states"] != ["finished"] or agent["rc"] != 0:
+        raise AssertionError(f"remote pass: states {run['states']}, agent rc {agent['rc']}")
+    if weights is not None and run["weights"]["digest"] != weights:
+        raise AssertionError(f"remote pass: the agent's weights {run['weights']} are not this "
+                             f"process's ({weights})")
+    p["weights_digest"] = run["weights"]["digest"]
+    p["streams"] = compare_streams(torch, eng, prompts, run["tokens"], want,
+                                   None if planted else rtol)
+    replayed = {tuple(int(t) for t in pr): toks for pr, toks in agent["replay"]["streams"]}
+    p["replay"] = compare_replay(prompts, run["tokens"], replayed)
+    p["replay"]["seconds"] = agent["replay"]["seconds"]
+    rounds, alone = agent["round_s"], agent["replay"]["round_s"]
+    p["round_s"] = {"rounds": len(rounds), "agent_mean": sum(rounds) / max(1, len(rounds)),
+                    "alone_mean": sum(alone) / max(1, len(alone))}
+    wire = h["kv_transport"]["per_transport"].get("remote", {})
+    ep = h["kv_transport"]["endpoints"].get("p0", {})
+    # the importer counts the windows (the router never sees a remote
+    # import's): one CHUNK frame per window of its fresh blocks
+    p["handoffs"] = {"count": h["kv_handoffs"], "bytes": wire.get("bytes", 0),
+                     "windows": sum(x["windows"] for x in agent["handoffs"]),
+                     "wire_bytes_sent": ep.get("wire_bytes_sent", 0),
+                     "staged_now": ep.get("staged_now")}
+    bad = [x for x in agent["handoffs"] if run["digests"].get(x["uid"]) != x["digest"]]
+    p["bits"] = {"handoffs": len(agent["handoffs"]),
+                 "blocks": sum(x["blocks"] for x in agent["handoffs"]),
+                 "planes": agent["handoffs"][0]["planes"] if agent["handoffs"] else [],
+                 "mismatches": len(bad)}
+    if bad or len(agent["handoffs"]) != n or len(run["digests"]) != n or h["kv_handoffs"] != n:
+        raise AssertionError(f"remote pass: handoffs off the exporter's blocks: {bad[:4]}; "
+                             f"{len(agent['handoffs'])} imported, {len(run['digests'])} "
+                             f"exported, {h['kv_handoffs']} counted, {n} requests")
+    if planted:
+        p["caught"] = {"replay": p["replay"]["equal"] < n,
+                       "margin": p["streams"]["max_margin"] > rtol}
+        if not all(p["caught"].values()):
+            raise AssertionError(f"remote planted pass: the fault went unseen by {p['caught']} "
+                                 f"(largest margin {p['streams']['max_margin']}, limit {rtol})")
+    elif p["replay"]["equal"] != n:
+        raise AssertionError(f"remote pass: served streams leave the agent's calls replayed: "
+                             f"{p['replay']['diverged']}")
+    total = eng.config.kv_cache.num_blocks
+    if p["handoffs"]["staged_now"] != 0 or agent["free_blocks"] != agent["num_blocks"] \
+            or run["free_blocks"][0] != total:
+        raise AssertionError(f"remote pass: staged {p['handoffs']['staged_now']}, agent pool "
+                             f"{agent['free_blocks']} / {agent['num_blocks']} free, p0 "
+                             f"{run['free_blocks'][0]} / {total}")
+    finished = run["metrics"].get("dstpu_serving_requests_finished_total")
+    if finished != n or run["generated"] != n * n_new:
+        raise AssertionError(f"remote pass: /metrics finished {finished}, "
+                             f"{run['generated']} tokens")
+    if dev.type == "cuda":
+        quiet = [k for k, c in p["agent_launches"].items() if c <= 0]
+        quiet += [f"{k} (p0)" for k, c in p["launches"].items() if c <= 0]
+        if quiet or any(run["plain_calls"].values()) or any(agent["plain_calls"].values()):
+            raise AssertionError(f"remote pass: launched none of {quiet}; plain versions "
+                                 f"{run['plain_calls']} here, {agent['plain_calls']} in the "
+                                 f"agent")
+    return p
+
+
+def remote_sigkill_pass(torch, dev, K, engines, child, child2, spec, prompts, new_tokens,
+                        short_new, rtol):
+    """The chaos pass across the process boundary: ``Router(engines (p0 and
+    a full local d0), kv_transport="remote", placement="round_robin",
+    resilience=...)`` with the agent ``child``; once a stream is mid-decode
+    in the agent (its rounds wait ``REMOTE_KILL_ROUND_SLEEP_S`` first) the
+    child is SIGKILLed: the replica is quarantined and its residents replay
+    on d0; then a second agent process, ``child2`` (started with the first,
+    idle until now), joins under the same name, passes its probation probe
+    and decodes again; its GOODBYE exit code is 0. Every stream within
+    ``rtol`` of the plain forward's top. Returns the record."""
+    from deepspeed_tpu_torch.serving import Router, SamplingParams
+    from deepspeed_tpu_torch.serving.resilience import ResilienceConfig
+
+    router = Router(engines=engines, num_prefill_workers=1, kv_transport="remote",
+                    decode_steps=int(spec["decode_steps"]), placement="round_robin",
+                    resilience=ResilienceConfig(hung_step_s=ROUTER_HUNG_STEP_S, **REMOTE_PROBE))
+    name = spec["name"]
+    rec = {}
+
+    def run(ps, n_new):
+        reqs = [router.submit(p, params=SamplingParams(max_new_tokens=n_new, ignore_eos=True))
+                for p in ps]
+        return reqs
+
+    def wait(reqs):
+        for r in reqs:
+            if not r.wait(SERVE_WAIT_S):
+                raise AssertionError(f"remote sigkill pass: request {r.uid} did not finish "
+                                     f"({r.state})")
+        return [list(r.generated) for r in reqs]
+
+    try:
+        router.start()
+        addr = router.serve_control("127.0.0.1", 0)
+        child.send(dict(spec, join=list(addr), round_sleep_s=REMOTE_KILL_ROUND_SLEEP_S))
+        rec["weights"] = child.expect("WEIGHTS", REMOTE_JOIN_S)["digest"]
+        wait_agent_joined(router, name, child)
+        handle = next(c for c in router.decode if getattr(c, "is_remote", False))
+        reqs = run(prompts, new_tokens)
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while not any(r.uid in handle.requests and len(r.generated) >= 2 for r in reqs):
+            if time.monotonic() > deadline or all(r.is_terminal for r in reqs):
+                raise AssertionError("remote sigkill pass: no stream mid-decode in the agent")
+            time.sleep(0.005)
+        rec["killed_mid_stream"] = sum(r.uid in handle.requests for r in reqs)
+        os.kill(child.proc.pid, 9)
+        child.kill()
+        rec["killed_rc"] = child.proc.returncode
+        first = wait(reqs)
+        h = router.health()
+        rec["resilience"] = h["resilience"]
+        rec["quarantines"] = h["replicas"][name]["health"]["quarantines"]
+        if rec["resilience"]["replica_failures"] < 1 or rec["resilience"]["recoveries"] < 1 \
+                or rec["quarantines"] < 1:
+            raise AssertionError(f"remote sigkill pass: no recovery counted: {h['resilience']}")
+        rec["first"] = compare_streams(torch, engines[0], prompts, first, None, rtol)
+        finished = h["replicas"][name]["requests_finished_total"]
+        t0 = time.perf_counter()
+        child2.send(dict(spec, join=list(addr), round_sleep_s=0.0, replay=False))
+        rec["weights_restarted"] = child2.expect("WEIGHTS", REMOTE_JOIN_S)["digest"]
+        wait_agent_joined(router, name, child2)
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while router.health()["replicas"][name]["health"]["state"] != "healthy":
+            if time.monotonic() > deadline:
+                raise AssertionError(f"remote sigkill pass: the restarted agent was not "
+                                     f"re-admitted: {router.health()['replicas'][name]}")
+            time.sleep(0.02)
+        rec["readmit_seconds"] = time.perf_counter() - t0
+        second = wait(run(prompts, short_new))
+        rec["second"] = compare_streams(torch, engines[0], prompts, second, None, rtol)
+        rec["restarted_finished"] = (router.health()["replicas"][name]
+                                     ["requests_finished_total"] - finished)
+        if rec["restarted_finished"] < 1:
+            raise AssertionError("remote sigkill pass: the restarted agent decoded nothing")
+    finally:
+        router.shutdown(drain=False, timeout=60)
+        child.kill()
+    try:
+        result = child2.expect("RESULT", REMOTE_RESULT_S)
+        rec["restarted_rc"] = child2.close()
+    finally:
+        child2.kill()
+    rec["restarted_launches"] = result["launches"]
+    rec["free_blocks"] = [e.state_manager.free_blocks for e in engines] + [result["free_blocks"]]
+    if rec["restarted_rc"] != 0 or result["rc"] != 0:
+        raise AssertionError(f"remote sigkill pass: the restarted agent exited "
+                             f"{rec['restarted_rc']} (its run {result['rc']})")
+    if rec["weights"] != rec["weights_restarted"]:
+        raise AssertionError("remote sigkill pass: the restarted agent's weights differ")
+    total = engines[0].config.kv_cache.num_blocks
+    if rec["free_blocks"] != [total, total, result["num_blocks"]]:
+        raise AssertionError(f"remote sigkill pass: pools {rec['free_blocks']}")
+    if dev.type == "cuda" and (result["launches"].get("paged_decode", 0) <= 0
+                               or any(result["plain_calls"].values())):
+        raise AssertionError(f"remote sigkill pass: the restarted agent launched "
+                             f"{result['launches']}, plain versions {result['plain_calls']}")
+    return rec
+
+
+def remote_phase(torch, dev, K, eng, root, prompts=None, want=None, new_tokens=SERVE_NEW_TOKENS,
+                 short=ROUTER_SHORT, engine_config=None, widths=None,
+                 short_widths=REMOTE_SHORT_WIDTHS):
+    """The router with a decode replica's agent in its own process
+    (``tools/torch_remote_agent.py``), over the remote KV wire and the
+    control plane, at ``eng``'s weights (the engine phase's, whose model the
+    child rebuilds from the seed: the two weights' digests must be equal).
+    Timed pass: the serving phase's mix, 64-step rounds (TTFT / TPOT p50 /
+    p99, tok/s, the handoffs with their bytes and windows, the endpoint's
+    wire bytes, the agent's launches and its rounds' seconds against the
+    same rounds replayed alone). Then, at ``short_widths`` (a cut depth, on
+    both sides), short passes of ``short`` requests, 8 tokens, 8-step
+    rounds: an int8 pool (codes and scales across the wire), a planted
+    importer (the pending token plus one: both checks must catch it), a
+    wire fault (``REMOTE_FAULT`` in the child: its import retries), and the
+    SIGKILL pass (``remote_sigkill_pass``); their three children start
+    when the timed pass ends, making their weights while it is checked.
+    ``remote_checks`` holds every pass. Returns (record, {"remote": this process's launches in the timed
+    pass, "remote_agent": the agent's, and the int8 pass's as
+    "remote_int8" / "remote_agent_int8"})."""
+    prompts = prompts if prompts is not None else serve_prompts(eng._mc.vocab_size)
+    if want is None:
+        want = [[int(t) for t in o[len(p):]]
+                for o, p in zip(eng.generate(prompts, max_new_tokens=new_tokens), prompts)]
+    rtol = SERVE_MARGIN_RTOL
+    ec = engine_config or ENGINE_CONFIG
+    ds = int(ec["decode_steps"])
+    short_ds = min(ds, ROUTER_SHORT_DECODE_STEPS)
+    short_new = min(new_tokens, ROUTER_SHORT_NEW_TOKENS)
+    rec = {"phase": "remote", "agent": REMOTE_AGENT, "clients": len(prompts),
+           "short_clients": short, "new_tokens": new_tokens, "decode_steps": ds,
+           "short_new_tokens": short_new, "short_decode_steps": short_ds,
+           "short_widths": short_widths, "logit_rtol": rtol}
+    spec = {"name": REMOTE_NAME, "device": dev.type, "widths": widths, "engine_config": ec,
+            "kv_cache_dtype": "bf16", "decode_steps": ds, "new_tokens": new_tokens,
+            "replay": True}
+    launches = {}
+    t0 = time.perf_counter()
+    weights = weights_digest(torch, eng.params)
+    rec["weights_digest_seconds"] = time.perf_counter() - t0
+    # ---- timed: p0 over the engine phase's weights, d0 a one-block standby
+    fleet = [remote_model(torch, dev, eng._mc, eng.params, engine_config=ec),
+             remote_model(torch, dev, eng._mc, eng.params, engine_config=ec, num_blocks=1)]
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cut = {"widths": dict(widths or {}, **short_widths), "decode_steps": short_ds,
+           "new_tokens": short_new}
+    children = []
+    try:
+        child = AgentChild(root)
+        try:
+            run = remote_pass(torch, dev, K, fleet, child, spec, prompts, new_tokens)
+            rec["timed_child_rc"] = child.close()
+        finally:
+            child.kill()
+        if rec["timed_child_rc"] != 0:
+            raise AssertionError(f"remote timed pass: the agent exited {rec['timed_child_rc']}")
+        del fleet
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # the short passes' agents start now, making their weights while
+        # the timed pass is checked: the short passes' child, the SIGKILL
+        # pass's victim and the agent that joins after the kill
+        pre = {"device": dev.type, "widths": cut["widths"]}
+        children = [AgentChild(root, prebuild=pre) for _ in range(3)]
+        p = remote_checks(torch, dev, eng, run, prompts, want, SERVE_KERNELS, SERVE_KERNELS,
+                          rtol, new_tokens, weights=weights)
+        p.update(ttft_s=percentiles(run["ttft_s"]), tpot_s=percentiles(run["tpot_s"]),
+                 tok_s=run["generated"] / run["seconds"], generated=run["generated"])
+        launches["remote"], launches["remote_agent"] = run["launches"], run["agent"]["launches"]
+        rec["timed"] = p
+        del run
+        gc.collect()
+        # ---- the short passes at the cut depth: one child, one pass a line
+        t0 = time.perf_counter()
+        small_cfg, small_params = seeded_model(torch, dev, cut["widths"])
+        small_weights = weights_digest(torch, small_params)
+        rec["short_setup_seconds"] = time.perf_counter() - t0
+        ps = prompts[:short]
+        child = children[0]
+        for name, extra, kv in (("short_int8", {}, "int8"),
+                                ("planted", {"planted": True}, "bf16"),
+                                ("wire_fault", {"faults": [[*REMOTE_FAULT, REMOTE_NAME]]},
+                                 "bf16")):
+            fleet = [remote_model(torch, dev, small_cfg, small_params, engine_config=ec,
+                                  kv_cache_dtype=kv),
+                     remote_model(torch, dev, small_cfg, small_params, engine_config=ec,
+                                  kv_cache_dtype=kv, num_blocks=1)]
+            run = remote_pass(torch, dev, K, fleet, child,
+                              dict(spec, **cut, **extra, kv_cache_dtype=kv), ps, short_new)
+            kernels = ("rms_norm_fwd",) + INT8_KERNELS if kv == "int8" else SERVE_KERNELS
+            rec[name] = remote_checks(torch, dev, fleet[0], run, ps, None, kernels, kernels,
+                                      rtol, short_new, planted=name == "planted",
+                                      weights=small_weights)
+            if kv == "int8":
+                launches["remote_int8"] = run["launches"]
+                launches["remote_agent_int8"] = run["agent"]["launches"]
+            del run, fleet
+            gc.collect()
+        rec["short_child_rc"] = child.close()
+        fault = rec["wire_fault"]
+        if rec["short_child_rc"] != 0 or not fault["faults_fired"] \
+                or fault["import_retries"] < 1:
+            raise AssertionError(f"remote short passes: the agent exited "
+                                 f"{rec['short_child_rc']}; wire fault fired "
+                                 f"{fault['faults_fired']}, import retries "
+                                 f"{fault['import_retries']}")
+        # ---- SIGKILL: the agent killed mid-decode, a local d0 takes its residents
+        fleet = [remote_model(torch, dev, small_cfg, small_params, engine_config=ec),
+                 remote_model(torch, dev, small_cfg, small_params, engine_config=ec,
+                              decode_steps=short_ds)]
+        r = remote_sigkill_pass(torch, dev, K, fleet, children[1], children[2],
+                                dict(spec, **cut, replay=False), ps,
+                                REMOTE_KILL_NEW_TOKENS, short_new, rtol)
+        if r["weights"] != small_weights:
+            raise AssertionError("remote sigkill pass: the agent's weights are not this "
+                                 "process's")
+        rec["sigkill"] = r
+        del fleet, small_params
+    finally:
+        for c in children:
+            c.kill()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def remote_note(rec, card):
+    """The remote phase's line: TTFT and TPOT (p50 / p99), tok/s, the
+    handoffs, the agent's rounds and launches, beside the card."""
+    t = rec["timed"]
+    ms = lambda d: "/".join("n/a" if v is None else f"{1e3 * v:.1f}" for v in d.values())  # noqa: E731
+    bits = [v["bits"] for v in rec.values() if isinstance(v, dict) and "bits" in v]
+    k = rec["sigkill"]
+    return (f"remote: p0 here, the decode agent in its own process over the remote KV wire, "
+            f"{rec['clients']} HTTP clients x {rec['new_tokens']} tokens: TTFT p50/p99 "
+            f"{ms(t['ttft_s'])} ms, TPOT p50/p99 {ms(t['tpot_s'])} ms, {t['tok_s']:.1f} tok/s; "
+            f"{t['handoffs']['count']} handoffs, {int(t['handoffs']['bytes'])} bytes in "
+            f"{int(t['handoffs']['windows'])} windows, {int(t['handoffs']['wire_bytes_sent'])} "
+            f"wire bytes; agent launches {t['agent_launches']}; its {t['round_s']['rounds']} "
+            f"fused rounds {t['round_s']['agent_mean']:.2f} s against "
+            f"{t['round_s']['alone_mean']:.2f} s replayed alone; streams equal to the agent's "
+            f"replay {t['replay']['equal']}/{rec['clients']}, every token within "
+            f"{t['streams']['max_margin']:.4f} of the plain top (limit {rec['logit_rtol']}; "
+            f"planted {rec['planted']['streams']['max_margin']:.4f}, replay "
+            f"{rec['planted']['replay']['equal']}/{rec['short_clients']}); "
+            f"{sum(b['handoffs'] for b in bits)} handoffs bit for bit (bf16 and int8); wire "
+            f"fault retried {rec['wire_fault']['import_retries']}x; SIGKILL recoveries "
+            f"{k['resilience']['recoveries']}, the restarted agent decoded "
+            f"{k['restarted_finished']}, on {card}")
 
 
 def serve_cli_phase(torch, dev, K, work, root, new_tokens=SERVE_CLI_NEW, prompt_lens=(64, 512),
@@ -4804,6 +5467,145 @@ def serve_cli_phase(torch, dev, K, work, root, new_tokens=SERVE_CLI_NEW, prompt_
                kv_total_blocks=health["kv_total_blocks"], equal=got == want)
     if got != want:
         raise AssertionError(f"serve_cli: served {got} against generate() {want}")
+    return rec, None
+
+
+# serve_agent_cli: dstpu serve with the control plane and the remote wire,
+# and serve-agent joining it, as two subprocesses on hf_import's directory;
+# round robin over [d0, the agent], so the second request decodes there
+SERVE_AGENT_FLAGS = ("--num-prefill-workers", "1", "--kv-transport", "remote",
+                     "--placement", "round_robin", "--control-port", "0",
+                     "--control-host", "127.0.0.1")
+SERVE_AGENT_NAME = "r0"
+
+
+def _stderr_lines(proc):
+    """A queue fed with ``proc``'s stderr lines by a daemon thread."""
+    import queue
+    import threading
+
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stderr], daemon=True).start()
+    return lines
+
+
+def _read_until(proc, lines, tail, pattern, timeout, what):
+    """The first match of ``pattern`` in ``proc``'s next stderr lines;
+    raises when it exits or the deadline passes first."""
+    import queue
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            if proc.poll() is not None and lines.empty():
+                raise AssertionError(f"{what} exited {proc.returncode}: {''.join(tail[-20:])}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: nothing in {timeout} s: {''.join(tail[-20:])}")
+            continue
+        tail.append(line)
+        m = re.search(pattern, line)
+        if m:
+            return m
+
+
+def serve_agent_cli_phase(torch, dev, K, work, root, new_tokens=SERVE_CLI_NEW,
+                          prompt_lens=(64, 512), flags=SERVE_CLI_FLAGS):
+    """``python -m deepspeed_tpu_torch.inference.cli serve --model work/hf
+    --port 0 --num-prefill-workers 1 --kv-transport remote --control-port
+    0`` and ``... serve-agent --model work/hf --join HOST:PORT`` as two
+    subprocesses: the router's control address and HTTP address read from
+    its stderr, the agent joined (``/health``), two ``tokens`` requests one
+    after the other, each equal to ``build_hf_engine``'s ``generate`` on the
+    directory (round robin: the second decodes in the agent); then SIGINT
+    to serve, whose shutdown says GOODBYE to the agent: both must exit 0.
+    Both are killed in every case. Returns (record, None)."""
+    import signal
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference import cli
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_hf_engine
+
+    path = Path(work) / "hf"
+    serve_argv = ["serve", "--model", str(path), "--port", "0", "--device", dev.type, *flags,
+                  *SERVE_AGENT_FLAGS]
+    agent_argv = ["serve-agent", "--model", str(path), "--device", dev.type, *flags,
+                  "--name", SERVE_AGENT_NAME, "--join"]
+    mod = ["python", "-m", "deepspeed_tpu_torch.inference.cli"]
+    rec = {"phase": "serve_agent_cli",
+           "argv": [mod + serve_argv[:2] + ["<hf_import dir>"] + serve_argv[3:],
+                    mod + agent_argv[:2] + ["<hf_import dir>"] + agent_argv[3:] + ["HOST:PORT"]]}
+    rng = np.random.default_rng(SEED + 8)
+    cfg = json.loads((path / "config.json").read_text())
+    prompts = [rng.integers(0, cfg["vocab_size"], size=int(n)).astype(np.int32)
+               for n in rng.integers(*prompt_lens, size=2)]
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    t0 = time.perf_counter()
+    serve = subprocess.Popen([sys.executable, "-m", "deepspeed_tpu_torch.inference.cli",
+                              *serve_argv], cwd=str(root), stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True, env=env)
+    agent = None
+    got = []
+    try:
+        lines, tail = _stderr_lines(serve), []
+        m = _read_until(serve, lines, tail, r"control plane on ([0-9.]+):([0-9]+)",
+                        SERVE_CLI_WAIT_S, "serve_agent_cli serve")
+        join = f"{m.group(1)}:{m.group(2)}"
+        agent = subprocess.Popen([sys.executable, "-m", "deepspeed_tpu_torch.inference.cli",
+                                  *agent_argv, join], cwd=str(root), stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE, text=True, env=env)
+        agent_lines, agent_tail = _stderr_lines(agent), []
+        base = _read_until(serve, lines, tail, r"listening on (http://[0-9.]+:[0-9]+)",
+                           SERVE_CLI_WAIT_S, "serve_agent_cli serve").group(1)
+        rec["listening_seconds"] = time.perf_counter() - t0
+        deadline = time.monotonic() + SERVE_CLI_WAIT_S
+        while not (json.loads(_http(f"{base}/health"))["control_plane"]["remote_replicas"]
+                   .get(SERVE_AGENT_NAME, {}).get("connected", False)):
+            while not agent_lines.empty():
+                agent_tail.append(agent_lines.get())
+            if agent.poll() is not None:
+                raise AssertionError(f"serve-agent exited {agent.returncode} before joining: "
+                                     f"{''.join(agent_tail[-20:])}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve-agent never joined in {SERVE_CLI_WAIT_S} s: "
+                                     f"{''.join(agent_tail[-20:])}")
+            time.sleep(0.05)
+        rec["joined_seconds"] = time.perf_counter() - t0
+        for p in prompts:
+            t1 = time.perf_counter()
+            reply = json.loads(_http(f"{base}/generate", {
+                "tokens": [int(t) for t in p], "max_new_tokens": new_tokens,
+                "ignore_eos": True}))
+            got.append(reply["tokens"])
+            rec.setdefault("request_seconds", []).append(time.perf_counter() - t1)
+        health = json.loads(_http(f"{base}/health"))
+        rec["agent_finished"] = health["replicas"][SERVE_AGENT_NAME]["requests_finished_total"]
+        serve.send_signal(signal.SIGINT)
+        try:
+            rec["serve_rc"] = serve.wait(timeout=SERVE_CLI_WAIT_S)
+            rec["agent_rc"] = agent.wait(timeout=SERVE_CLI_WAIT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("serve_agent_cli: a process did not exit on shutdown")
+    finally:
+        for proc in (serve, agent):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    args = cli.serve_parse_args(serve_argv[1:])
+    eng = build_hf_engine(str(path), cli.engine_config_from_args(args, None), device=dev.type)
+    want = [[int(t) for t in eng.generate([p], max_new_tokens=new_tokens)[0][len(p):]]
+            for p in prompts]
+    rec.update(prompt_lens=[len(p) for p in prompts], new_tokens=new_tokens,
+               kv_total_blocks=health["kv_total_blocks"], equal=got == want)
+    if got != want or rec["agent_finished"] < 1:
+        raise AssertionError(f"serve_agent_cli: served {got} against generate() {want}; the "
+                             f"agent finished {rec['agent_finished']}")
+    if rec["serve_rc"] != 0 or rec["agent_rc"] != 0:
+        raise AssertionError(f"serve_agent_cli: serve exited {rec['serve_rc']}, serve-agent "
+                             f"{rec['agent_rc']}: {''.join(tail[-10:])}")
     return rec, None
 
 
@@ -5095,11 +5897,12 @@ def profile_engine(torch, eng, rng, vocab, steps=8):
 # phase 4: training at Mistral-7B width
 # ---------------------------------------------------------------------------
 SEQ = 4096
-# the timed leg: 8 of Mistral-7B's 32 layers. Full depth cannot train on one
+# the timed leg: 4 of Mistral-7B's 32 layers. Full depth cannot train on one
 # 80 GB card: 7.24 B params x (2 bf16 param + 4 fp32 master + 8 Adam
 # moments + 4 fp32 grad accumulator + 2 bf16 micro-grad) bytes is ~145 GB;
-# 8 layers are 2.007 B params, ~40 GB of the same
-TRAIN_LAYERS = 8
+# 8 layers are 2.007 B params, ~40 GB of the same; 4 keep the script's clock
+# (train_fused's checkpoint round trip halves)
+TRAIN_LAYERS = 4
 PARITY_LAYERS = 2
 TRAIN_CONFIG = {
     "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
@@ -7434,7 +8237,9 @@ def graft_entry_phase(torch, dev, K):
 
 def import_phases(torch, dev, K, root, card, hf_kw=None, train_kw=None):
     """hf_import, serve_cli (``dstpu serve`` on hf_import's directory, in a
-    subprocess), train_import and graft_entry, each emitted with its
+    subprocess), serve_agent_cli (``dstpu serve`` with the control plane and
+    ``serve-agent`` joining it, two subprocesses), train_import and
+    graft_entry, each emitted with its
     seconds; the checkpoints they write are removed. ``hf_kw`` / ``train_kw``
     shrink hf_import and train_import for a rehearsal on the CPU. Returns
     the launches of each phase of this process."""
@@ -7450,6 +8255,8 @@ def import_phases(torch, dev, K, root, card, hf_kw=None, train_kw=None):
         for name, run in (("hf_import", lambda: hf_import_phase(torch, dev, K, work,
                                                                 **(hf_kw or {}))),
                           ("serve_cli", lambda: serve_cli_phase(torch, dev, K, work, root)),
+                          ("serve_agent_cli",
+                           lambda: serve_agent_cli_phase(torch, dev, K, work, root)),
                           ("train_import", lambda: train_import_phase(torch, dev, K, work,
                                                                       **(train_kw or {}))),
                           ("graft_entry", lambda: graft_entry_phase(torch, dev, K))):
@@ -7470,6 +8277,11 @@ def import_phases(torch, dev, K, root, card, hf_kw=None, train_kw=None):
                 print(f"serve_cli: listening after {rec['listening_seconds']:.1f} s, two "
                       f"requests of {rec['new_tokens']} tokens equal to generate(), on {card}",
                       flush=True)
+            if name == "serve_agent_cli":
+                print(f"serve_agent_cli: serve listening after {rec['listening_seconds']:.1f} s, "
+                      f"serve-agent joined after {rec['joined_seconds']:.1f} s, two requests of "
+                      f"{rec['new_tokens']} tokens equal to generate() ({rec['agent_finished']} "
+                      f"decoded by the agent), both exited 0 on shutdown, on {card}", flush=True)
             emit(rec)
             torch.cuda.empty_cache()
     finally:
@@ -8010,6 +8822,15 @@ def main(argv=None):
     rec.update(card=card, seconds=time.perf_counter() - t0)
     emit(rec)
     print(router_note(rec, card), flush=True)
+    torch.cuda.empty_cache()
+    # the router here, a decode replica's agent in its own process
+    t0 = time.perf_counter()
+    rec, launches = remote_phase(torch, dev, K, held["engine"], root, prompts=served["prompts"],
+                                 want=served["want"])
+    serving_launches.update(launches)
+    rec.update(card=card, seconds=time.perf_counter() - t0)
+    emit(rec)
+    print(remote_note(rec, card), flush=True)
     held.clear()
     served.clear()
     torch.cuda.empty_cache()
@@ -8166,6 +8987,10 @@ def main(argv=None):
     missing += [f"{n} (router)" for n in SERVE_KERNELS if serving_launches["router"][n] <= 0]
     missing += [f"{n} (router_int8)" for n in ("rms_norm_fwd",) + INT8_KERNELS
                 if serving_launches["router_int8"][n] <= 0]
+    missing += [f"{n} ({phase})" for phase in ("remote", "remote_agent") for n in SERVE_KERNELS
+                if serving_launches[phase][n] <= 0]
+    missing += [f"{n} ({phase})" for phase in ("remote_int8", "remote_agent_int8")
+                for n in ("rms_norm_fwd",) + INT8_KERNELS if serving_launches[phase][n] <= 0]
     missing += [f"{n} (train_import)" for n in TRAIN_KERNELS
                 if import_launches["train_import"][n] <= 0]
     missing += [f"{n} (graft_entry)" for n in ("rms_norm_fwd", "flash_fwd")

@@ -59,15 +59,23 @@ def init_distributed(dist_backend: Optional[str] = None, distributed_port: int =
                      rank: Optional[int] = None, timeout: Optional[timedelta] = None,
                      store=None, device: Optional[str] = None):
     """Initialize the default process group once (later calls return).
-    ``dist_backend`` defaults to NCCL when ``device`` (default: "cuda" when
-    a card is visible) is CUDA, else gloo. Without ``init_method`` or
-    ``store`` the rendezvous is ``tcp://MASTER_ADDR:MASTER_PORT`` (default
-    localhost and ``distributed_port``); rank and world size default to
-    ``RANK`` and ``WORLD_SIZE`` (0 and 1)."""
+    ``device`` defaults to "cuda" (to "cpu" when ``dist_backend`` is
+    "gloo"): the CPU and gloo are taken only when the caller asks for
+    them, and asking for a card where none is visible raises.
+    ``dist_backend`` defaults to NCCL on a card, gloo on the CPU. Without
+    ``init_method`` or ``store`` the rendezvous is
+    ``tcp://MASTER_ADDR:MASTER_PORT`` (default localhost and
+    ``distributed_port``); rank and world size default to ``RANK`` and
+    ``WORLD_SIZE`` (0 and 1)."""
     if is_initialized():
         return
     dist = _dist()
-    device = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    if device is None:
+        device = "cpu" if dist_backend == "gloo" else "cuda"
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_distributed: no CUDA device is visible; pass device='cpu' or "
+            "dist_backend='gloo' to run the process group on the CPU")
     backend = dist_backend or ("nccl" if torch.device(device).type == "cuda" else "gloo")
     world_size = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else world_size
     rank = int(os.environ.get("RANK", 0)) if rank is None else rank

@@ -13,8 +13,11 @@ fetched.
 
 ``serve`` runs the same v2 engine behind the long-lived serving driver and
 HTTP front end (``deepspeed_tpu_torch/serving``), on one engine, or on
-several behind the in-process multi-engine ``Router`` (prefill workers
-handing KV blocks to decode replicas, all sharing one copy of the weights):
+several behind the multi-engine ``Router`` (prefill workers handing KV
+blocks to decode replicas, all sharing one copy of the weights); with
+``--control-port`` decode replicas in other processes join it, each a
+``serve-agent`` over its own engine (``--kv-transport remote`` carries
+their handoffs over a socket):
 
     python -m deepspeed_tpu_torch.inference.cli serve --model /path/to/hf_dir \\
         --port 8000 [--num-blocks 512] [--max-context 4096] [--timeout 120] \\
@@ -22,14 +25,17 @@ handing KV blocks to decode replicas, all sharing one copy of the weights):
         [--num-prefill-workers 1 --num-decode-replicas 2 --kv-transport device] \\
         [--placement slo] [--resilience] [--min/--max-decode-replicas N]
 
+    python -m deepspeed_tpu_torch.inference.cli serve --model DIR --port 8000 \\
+        --num-prefill-workers 1 --kv-transport remote --control-port 7000
+    python -m deepspeed_tpu_torch.inference.cli serve-agent --model DIR \\
+        --join ROUTER_HOST:7000 [--name remote-1] [--decode-steps 64]
+
     curl -N -X POST http://127.0.0.1:8000/generate \\
         -d '{"prompt": "Once upon a time", "max_new_tokens": 64, "stream": true}'
 
 Every kernel the served path launches is built or loaded (``warm_trace``,
-on every engine and warm spare) before the first request is admitted.
-``--tp`` above 1 raises (ROADMAP queue 1, item 6). The cross-process
-pieces — ``--control-port`` / ``--control-host``, ``--kv-transport remote``
-and the ``serve-agent`` command — raise (item 5).
+on every engine, warm spare and agent) before the first request is
+admitted. ``--tp`` above 1 raises (ROADMAP queue 1, item 6).
 """
 
 import argparse
@@ -157,9 +163,9 @@ def generate_main(argv=None) -> int:
 
 
 def _serve_parser(prog, description):
-    """The serve argument surface of the JAX package's ``dstpu serve``,
-    plus ``--device``. The cross-process flags parse and are refused by
-    ``build_serving_stack`` (ROADMAP queue 1, item 5)."""
+    """The shared serve / serve-agent argument surface of the JAX
+    package's ``dstpu serve``, plus ``--device``: everything an engine
+    build needs plus the router-side knobs serve-agent ignores."""
     p = argparse.ArgumentParser(prog=prog, description=description)
     p.add_argument("--model", required=True, help="HF checkpoint directory")
     p.add_argument("--host", default="127.0.0.1")
@@ -213,7 +219,9 @@ def _serve_parser(prog, description):
                    help="KV handoff wire for prefill->decode moves: host bounces "
                    "blocks through numpy; device ships them in chunked device "
                    "windows (no host round-trip); in_process is one device "
-                   "gather; remote (cross-process) is ROADMAP queue 1, item 5")
+                   "gather; remote stages the host form at a per-engine "
+                   "KVEndpoint and pulls credit-flow-controlled chunk windows "
+                   "over a socket (cross-process)")
     p.add_argument("--min-decode-replicas", type=int, default=0,
                    help="elastic serving floor: autoscaling never retires below "
                    "this (0 = elastic control plane off)")
@@ -270,9 +278,32 @@ def serve_parse_args(argv=None):
         "(continuous batching, streaming)",
     )
     p.add_argument("--control-port", type=int, default=None, metavar="PORT",
-                   help="the multi-host control plane (ROADMAP queue 1, item 5)")
-    p.add_argument("--control-host", default=None,
-                   help="interface the control plane binds (ROADMAP queue 1, item 5)")
+                   help="expose the multi-host control plane on this port "
+                   "(0 = ephemeral): remote decode replicas join with "
+                   "`serve-agent --join HOST:PORT`. Needs the multi-engine "
+                   "router (--num-decode-replicas > 1 or "
+                   "--num-prefill-workers >= 1); cross-process KV handoffs "
+                   "additionally need --kv-transport remote")
+    p.add_argument("--control-host", default="0.0.0.0",
+                   help="interface the control plane binds (agents on other "
+                   "machines must be able to reach it)")
+    return p.parse_args(argv)
+
+
+def serve_agent_parse_args(argv=None):
+    p = _serve_parser(
+        prog="python -m deepspeed_tpu_torch.inference.cli serve-agent",
+        description="run one decode replica in this process and join a "
+        "router's multi-host control plane (serve must expose one with "
+        "--control-port; KV handoffs need --kv-transport remote)",
+    )
+    p.add_argument("--join", required=True, metavar="HOST:PORT",
+                   help="the router's control-plane address "
+                   "(Router.serve_control)")
+    p.add_argument("--name", default=None,
+                   help="replica name to register under (default: the "
+                   "router assigns the next dN; reusing a name re-joins "
+                   "a quarantined replica after a restart)")
     return p.parse_args(argv)
 
 
@@ -320,25 +351,33 @@ def engine_config_from_args(args, cfg):
     })
 
 
-def _refuse_multi_engine(args):
-    """The serve flags that need what the port does not have yet: the
-    cross-process control plane and KV wire (ROADMAP queue 1, item 5) and
-    tensor parallelism (item 6). Refused before anything is built."""
-    what = []
-    if getattr(args, "control_port", None) is not None:
-        what.append("--control-port")
-    if getattr(args, "control_host", None) is not None:
-        what.append("--control-host")
-    if getattr(args, "kv_transport", "host") == "remote":
-        what.append("--kv-transport remote")
-    if what:
-        raise NotImplementedError(
-            f"serve: {', '.join(what)} needs the cross-process control plane and KV "
-            "wire (serving/net/), which are not ported yet (ROADMAP queue 1, item 5)")
+def _refuse_tp(args, command="serve"):
+    """Tensor parallelism is not ported (ROADMAP queue 1, item 6): refused
+    before anything is built."""
     if args.tp > 1:
         raise NotImplementedError(
-            f"serve: --tp {args.tp} (tensor parallelism) is not ported yet "
+            f"{command}: --tp {args.tp} (tensor parallelism) is not ported yet "
             "(ROADMAP queue 1, item 6)")
+
+
+def _load_model(args, device, tok=None):
+    """(cfg, params, tokenizer or None) of ``args.model``: the weights on
+    ``device``; a directory without ``tokenizer.json`` (or a machine
+    without the ``tokenizers`` package) gives no tokenizer, and the
+    stack serves token ids only."""
+    from deepspeed_tpu_torch.models import load_hf_model
+
+    cfg, params = load_hf_model(args.model, dtype=args.dtype, device=device)
+    if tok is None and args.model:
+        from deepspeed_tpu_torch.tokenizer import load_tokenizer
+
+        try:
+            tok = load_tokenizer(args.model)
+        except (FileNotFoundError, ImportError) as e:
+            # serve token ids ("tokens" bodies); a "prompt" body gets a 400
+            print(f"dstpu serve: no tokenizer ({e}); serving token ids only",
+                  file=sys.stderr, flush=True)
+    return cfg, params, tok
 
 
 def build_serving_stack(args, cfg=None, params=None, tok=None):
@@ -357,7 +396,7 @@ def build_serving_stack(args, cfg=None, params=None, tok=None):
     from deepspeed_tpu_torch.serving.cluster import Router
     from deepspeed_tpu_torch.serving.driver import ServingDriver
 
-    _refuse_multi_engine(args)
+    _refuse_tp(args)
     n_prefill = int(getattr(args, "num_prefill_workers", 0) or 0)
     n_decode = int(getattr(args, "num_decode_replicas", 1) or 1)
     if n_prefill < 0 or n_decode < 1:
@@ -374,19 +413,7 @@ def build_serving_stack(args, cfg=None, params=None, tok=None):
         )
     device = getattr(args, "device", "cuda")
     if cfg is None or params is None:
-        from deepspeed_tpu_torch.models import load_hf_model
-
-        cfg, params = load_hf_model(args.model, dtype=args.dtype, device=device)
-    if tok is None and args.model:
-        from deepspeed_tpu_torch.tokenizer import load_tokenizer
-
-        try:
-            tok = load_tokenizer(args.model)
-        except (FileNotFoundError, ImportError) as e:
-            # no tokenizer.json, or no tokenizers package on this machine:
-            # serve token ids ("tokens" bodies); a "prompt" body gets a 400
-            print(f"dstpu serve: no tokenizer ({e}); serving token ids only",
-                  file=sys.stderr, flush=True)
+        cfg, params, tok = _load_model(args, device, tok)
     rc = engine_config_from_args(args, cfg)
     warm_kw = {"decode_steps": args.decode_steps,
                "spec_k": int(getattr(args, "spec_k", 0) or 0)}
@@ -476,6 +503,18 @@ def serve_main(argv=None) -> int:
     args = serve_parse_args(argv)
     driver, tok = build_serving_stack(args)
     driver.start()
+    if args.control_port is not None:
+        if not hasattr(driver, "serve_control"):
+            print("dstpu serve: --control-port needs the multi-engine "
+                  "router (--num-decode-replicas > 1 or "
+                  "--num-prefill-workers >= 1)", file=sys.stderr)
+            driver.shutdown()
+            return 2
+        chost, cport = driver.serve_control(args.control_host,
+                                            args.control_port)
+        print(f"dstpu serve: control plane on {chost}:{cport} "
+              f"(join with `serve-agent --join HOST:{cport}`)",
+              file=sys.stderr, flush=True)
     server = None
     try:
         server = start_server(driver, host=args.host, port=args.port, tokenizer=tok)
@@ -496,14 +535,63 @@ def serve_main(argv=None) -> int:
     return 0
 
 
+def build_agent_core(args, cfg=None, params=None, tok=None):
+    """One decode ``EngineCore`` for ``serve-agent`` (split out so tests
+    build an agent without a checkpoint), its engine on ``--device`` and
+    warmed (``warm_trace``) before it joins. The engine comes from the
+    SAME flag->config mapping as the router's replicas — same seed, same
+    sampling keys, so the streams it decodes are a local replica's."""
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.serving.cluster.core import EngineCore
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+
+    _refuse_tp(args, "serve-agent")
+    device = getattr(args, "device", "cuda")
+    if cfg is None or params is None:
+        cfg, params, tok = _load_model(args, device, tok)
+    rc = engine_config_from_args(args, cfg)
+    engine = InferenceEngineV2(cfg, params, rc, device=device)
+    engine.warm_trace(decode_steps=args.decode_steps,
+                      spec_k=int(getattr(args, "spec_k", 0) or 0))
+    core = EngineCore(
+        engine, name=args.name or "agent", role="decode",
+        decode_steps=args.decode_steps, kv_headroom=args.kv_headroom,
+        spec_k=int(getattr(args, "spec_k", 0) or 0),
+        spec_ngram=getattr(args, "spec_ngram", 3),
+        metrics=ServingMetrics(),
+    )
+    return core, tok
+
+
+def serve_agent_main(argv=None) -> int:
+    args = serve_agent_parse_args(argv)
+    host, _, port = str(args.join).rpartition(":")
+    if not port.isdigit():
+        print(f"dstpu serve-agent: --join must be HOST:PORT "
+              f"(got {args.join!r})", file=sys.stderr)
+        return 2
+    join = (host or "127.0.0.1", int(port))
+    from deepspeed_tpu_torch.serving.cluster.agent import ReplicaAgent
+
+    core, _tok = build_agent_core(args)
+    agent = ReplicaAgent(core, join, name=args.name or None,
+                         metrics=core.metrics)
+    print(f"dstpu serve-agent: decode replica joining control plane at "
+          f"{join[0]}:{join[1]}", file=sys.stderr, flush=True)
+    try:
+        return agent.run()
+    except KeyboardInterrupt:
+        print("dstpu serve-agent: shutting down...", file=sys.stderr)
+        agent.close()
+        return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
     if argv and argv[0] == "serve-agent":
-        raise NotImplementedError(
-            "serve-agent: the remote replica agent is not ported yet "
-            "(ROADMAP queue 1, item 5)")
+        return serve_agent_main(argv[1:])
     if argv and argv[0] == "generate":
         argv = argv[1:]
     return generate_main(argv)

@@ -10,17 +10,15 @@
                      /debug/trace, /debug/events)
   * ``spec``       — speculative decoding: the n-gram proposer and the
                      adaptive draft length over the engine's verify rounds
-  * ``cluster``    — disaggregated prefill/decode serving: the in-process
+  * ``cluster``    — disaggregated prefill/decode serving: the
                      multi-engine ``Router`` with KV-block handoff,
-                     SLO-aware placement and the prefix directory
+                     SLO-aware placement and the prefix directory; decode
+                     replicas in other processes (``ReplicaAgent``)
+  * ``net``        — the cross-process KV wire and control plane
   * ``resilience`` — fault injection, the replica health state machine,
                      bounded retries and bit-identical request recovery
   * ``elastic``    — autoscaling decode replicas from warm spares, QoS
                      preempt-and-resume, graceful load shedding
-
-The cross-process pieces — the network transports, the remote core and the
-replica agent — are ROADMAP queue 1, item 5: their names raise
-``NotImplementedError`` saying so.
 """
 
 from deepspeed_tpu_torch.serving.cluster import (
@@ -46,17 +44,6 @@ from deepspeed_tpu_torch.serving.spec import (
     SpecParams,
 )
 from deepspeed_tpu_torch.serving.streaming import IncrementalDetokenizer, TokenStream
-
-# the JAX package's cross-process serving names that a later slice ports
-_LATER = ("ReplicaAgent", "RemoteEngineHandle")
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"deepspeed_tpu_torch.serving.{name} is not ported yet (ROADMAP queue 1, item 5: "
-            "the remote core and the replica agent)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [

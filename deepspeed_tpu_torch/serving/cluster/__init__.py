@@ -7,9 +7,9 @@ scheduling/admission loop the single-engine ``ServingDriver`` runs over
 one engine. Prefill workers run chunked prefill and hand finished KV
 blocks (paged block tables + int8 scale planes) to the decode replica
 chosen by an SLO-aware placement policy; hot prefixes replicate through
-each replica's token-block trie. Everything runs in one process: the
-remote core and the replica agent (``RemoteEngineHandle``,
-``ReplicaAgent``) are ROADMAP queue 1, item 5.
+each replica's token-block trie. A decode replica may run in another
+process: a :class:`ReplicaAgent` there joins the router's control plane,
+which holds it as a :class:`RemoteEngineHandle`.
 """
 
 from deepspeed_tpu_torch.serving.cluster.core import EngineCore
@@ -28,20 +28,12 @@ from deepspeed_tpu_torch.serving.cluster.placement import (
     get_placement,
 )
 from deepspeed_tpu_torch.serving.cluster.router import Router
-
-# the JAX package's cross-process names that a later slice ports
-_LATER = ("ReplicaAgent", "RemoteEngineHandle")
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"deepspeed_tpu_torch.serving.cluster.{name} is not ported yet (ROADMAP "
-            "queue 1, item 5: the remote core and the replica agent)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
+from deepspeed_tpu_torch.serving.cluster.agent import ReplicaAgent
+from deepspeed_tpu_torch.serving.cluster.remote_core import RemoteEngineHandle
 
 __all__ = [
+    "ReplicaAgent",
+    "RemoteEngineHandle",
     "EngineCore",
     "HandoffError",
     "KVHandoff",

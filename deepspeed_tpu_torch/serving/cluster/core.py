@@ -2,8 +2,7 @@
 
 Copy of ``deepspeed_tpu/serving/cluster/core.py``, over the port's
 ``InferenceEngineV2``. A port engine is unsharded (``tp_shards`` is 1,
-tensor parallel is ROADMAP queue 1, item 6) and has no remote-KV listener
-(``serving/net/`` is item 5), so ``kv_endpoint_address`` is None.
+tensor parallel is ROADMAP queue 1, item 6).
 
 This is the single-engine ``ServingDriver`` loop body factored out of its
 one-engine assumption: everything that talks to the ENGINE — KV-aware
@@ -535,15 +534,17 @@ class EngineCore:
 
     def kv_endpoint_address(self):
         """``(host, port)`` of this engine's remote-KV listener, or None
-        when no ``KVEndpoint`` is attached — always, in the port, until
-        the remote transport (``serving/net/``, ROADMAP queue 1, item 5)
-        is ported. Health and placement metadata carry this."""
+        when no ``KVEndpoint`` is attached (non-remote transports). Health
+        and placement metadata carry this so a cross-process importer can
+        discover where to FETCH a staged handoff from."""
         ep = getattr(self.engine, "_kv_endpoint", None)
         return ep.address if ep is not None else None
 
     def kv_endpoint_stats(self) -> Dict:
         """Stage/transfer counters of the attached ``KVEndpoint`` ({} when
-        none)."""
+        none). Health metadata goes through this instead of reaching into
+        ``engine._kv_endpoint`` so remote handles (no local engine) can
+        answer with their agent-reported snapshot."""
         ep = getattr(self.engine, "_kv_endpoint", None)
         return dict(ep.stats()) if ep is not None else {}
 

@@ -3,9 +3,8 @@
 Copy of ``deepspeed_tpu/serving/cluster/handoff.py`` over the port's
 ``InferenceEngineV2``: a device payload is a dict of torch tensors on the
 exporter's card, a host payload numpy (a bf16 pool's planes as their
-uint16 bits). The ``remote`` transport (``serving/net/``) is ROADMAP
-queue 1, item 5: ``get_transport("remote")`` raises until it is ported.
-Every transfer in this module is issued on the calling thread's current
+uint16 bits; the ``remote`` wire tags them ``bfloat16``, as the JAX
+package's does). Every transfer in this module is issued on the calling thread's current
 stream, so an export's gathers are ordered before the import that reads
 them, and a payload is freed only behind the work that read it.
 
@@ -33,8 +32,13 @@ instead of hard-coded host numpy:
   row, all gathers issued up front) into the fixed-window scatter. No
   host copy, and the decode replica's first decode round queues behind
   the windows' scatters on the same stream.
-- ``remote`` — the cross-process wire of the JAX package (``serving/net/``),
-  not ported yet.
+- ``remote`` — the cross-process wire (``serving/net/``): the exporter
+  stages the ``host`` representation at its ``KVEndpoint`` and the
+  handoff carries only ``(endpoint, transfer_id)``; the importer pulls
+  credit-flow-controlled chunk windows over a socket and scatters each
+  through the fixed-window import, so decode starts before the tail
+  lands. The only transport whose handoffs can cross a process boundary
+  (``serving.net.wire.encode_handoff_meta``).
 
 Prefix replication rides every transport the same way: the importer first
 seeds from the TARGET replica's token-block trie (a hit skips the payload
@@ -243,8 +247,8 @@ _TRANSPORTS: Dict[str, KVTransport] = {
                         DeviceTransport())
 }
 
-# "remote" is the JAX package's cross-process wire: named, and refused by
-# get_transport until serving/net/ is ported
+# "remote" registers lazily on first use (get_transport) so importing the
+# handoff seam never drags in the socket subsystem
 KV_TRANSPORTS = ("device", "host", "in_process", "remote")
 
 
@@ -254,10 +258,9 @@ def get_transport(name) -> KVTransport:
     if isinstance(name, KVTransport):
         return name
     key = str(name)
-    if key == "remote":
-        raise NotImplementedError(
-            "kv_transport='remote': the cross-process KV wire (serving/net/) is "
-            "not ported yet (ROADMAP queue 1, item 5)")
+    if key == "remote" and key not in _TRANSPORTS:
+        from deepspeed_tpu_torch.serving.net.transport import RemoteTransport
+        _TRANSPORTS[key] = RemoteTransport()
     try:
         return _TRANSPORTS[key]
     except KeyError:

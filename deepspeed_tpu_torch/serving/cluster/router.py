@@ -1,13 +1,12 @@
 """Front-end router for disaggregated prefill/decode serving.
 
 Copy of ``deepspeed_tpu/serving/cluster/router.py`` over the port's
-engines, in one process. The cross-process control plane — remote decode
-agents joining over ``serve_control``, their ``RemoteEngineHandle``s and
-the remote KV wire — is ROADMAP queue 1, item 5 (``serving/net/``): its
-methods raise ``NotImplementedError`` and every ``is_remote`` branch
-reads False. Each thread the router starts (the coordinator, one worker
-per core) runs without autograd and on the engines' card
-(``run_in_engine_scope``).
+engines. Decode replicas may live in other processes: agents
+(``serving/cluster/agent.py``) join over ``serve_control`` as
+``RemoteEngineHandle``s, and their handoffs ride the ``remote`` KV wire
+(``serving/net/``). Each thread the router starts (the coordinator, one
+worker per core, remote ones included) runs without autograd and on the
+engines' card (``run_in_engine_scope``).
 
 One change of flow against the JAX package: a handoff is imported by its
 TARGET's worker, between the target's steps under its own step lock, not
@@ -16,7 +15,11 @@ length (a 64-step fused round holds its core's lock for seconds), so a
 prefill worker that imported itself would queue behind every decode
 round. Export and import both run on the threads' current stream (the
 device's default stream), which orders an export's gathers before the
-import that reads them and frees a payload only behind that read.
+import that reads them and frees a payload only behind that read. A
+remote replica's worker sends the ADOPT, which the port's agent answers
+at once and imports between its own steps; an import that fails there
+comes back as an ``adopt_failed`` EVENT, and the request recovers as one
+resident on a lost agent does (``_remote_event``).
 
 One ``Router`` owns N engines wrapped in :class:`EngineCore`: the first
 ``P`` are **prefill workers** (chunked prefill only — their split-step
@@ -228,10 +231,19 @@ class Router:
         self._decode_seq = len(self.decode)  # next dN replica name
         self._finish_times: deque = deque(maxlen=64)  # Retry-After drain rate
 
-        # the remote transport's KVEndpoints and the multi-host control
-        # plane (ROADMAP queue 1, item 5): get_transport refuses "remote"
-        # and serve_control raises, so both stay empty
+        # remote transport: every exporting engine gets a KVEndpoint up
+        # front (registration) so its address is in placement/health
+        # metadata before the first handoff; fakes (no exportable pool)
+        # hand off bookkeeping-only and need no listener
         self._kv_endpoints = []
+        if self._kv_transport.name == "remote":
+            from deepspeed_tpu_torch.serving.net.transport import ensure_endpoint
+            for core in self.prefill:
+                if hasattr(core.engine, "export_kv_blocks"):
+                    self._kv_endpoints.append(ensure_endpoint(core.engine))
+        # multi-host control plane: a ControlEndpoint (serve_control) that
+        # remote decode agents dial into; their RemoteEngineHandles join
+        # self.decode and take placements like any local replica
         self._control = None
         # the card the router's threads bind (None on the CPU)
         self._cuda_device = engine_device_index(self.decode[0].engine)
@@ -596,37 +608,236 @@ class Router:
                 agg[k] = agg.get(k, 0) + v
         return agg
 
-    # -- multi-host control plane (ROADMAP queue 1, item 5) --------------
-    def _control_plane(self, what: str):
-        raise NotImplementedError(
-            f"Router.{what}: the multi-host control plane (remote decode agents, "
-            "serving/net/) is not ported yet (ROADMAP queue 1, item 5)")
-
+    # -- multi-host control plane ----------------------------------------
     def serve_control(self, host: str = "127.0.0.1", port: int = 0):
-        """The control listener remote decode agents dial into."""
-        self._control_plane("serve_control")
+        """Start (idempotently) the control listener that remote decode
+        agents (``dstpu serve-agent --join host:port``) dial into, and
+        return its bound ``(host, port)``. Each agent contributes one
+        :class:`RemoteEngineHandle` to ``self.decode``; tokens flow back
+        over its events channel, KV handoffs ride the remote KV wire."""
+        if self._control is None:
+            from deepspeed_tpu_torch.serving.net.control import ControlEndpoint
+            self._control = ControlEndpoint(
+                host, port, name="router-ctl",
+                on_channel=self._on_control_channel,
+                metrics=self.metrics,
+            ).start()
+        return self._control.address
 
     def _on_control_channel(self, meta: Dict, channel) -> Dict:
-        self._control_plane("_on_control_channel")
+        """ControlEndpoint bootstrap hook (accept thread, no router locks
+        held). Agents dial twice: the ``rpc`` channel registers/re-joins
+        the replica, the ``events`` channel carries its token pump."""
+        kind = str(meta.get("channel", "rpc"))
+        if kind == "rpc":
+            return self._agent_hello(meta, channel)
+        if kind == "events":
+            name = str(meta.get("name", ""))
+            with self._cond:
+                handle = next(
+                    (c for c in self.decode
+                     if c.name == name and getattr(c, "is_remote", False)),
+                    None)
+            if handle is None:
+                raise ValueError(
+                    f"events channel for unknown remote replica {name!r}")
+            handle.attach_events(channel)
+            log_event("agent_joined", replica=name,
+                      kv_blocks=handle.kv_total,
+                      tp_shards=handle.tp_shards(),
+                      kv_endpoint=(list(handle.kv_endpoint_address())
+                                   if handle.kv_endpoint_address() else None))
+            with self._cond:
+                self._cond.notify_all()  # placement may seat queued work now
+            return {"name": name}
+        raise ValueError(f"unknown control channel kind {kind!r}")
 
     def _agent_hello(self, meta: Dict, channel) -> Dict:
-        self._control_plane("_agent_hello")
+        """Register a remote decode replica from its bootstrap META (or
+        re-attach a known one after an agent restart — same name, fresh
+        channels and pool state; its probation probe re-admits it)."""
+        from deepspeed_tpu_torch.serving.cluster.remote_core import RemoteEngineHandle
+        requested = str(meta.get("name") or "")
+        with self._cond:
+            existing = (next((c for c in self.decode if c.name == requested),
+                             None) if requested else None)
+            if existing is not None and not getattr(existing, "is_remote", False):
+                raise ValueError(
+                    f"replica name {requested!r} is taken by a local engine")
+            if existing is None:
+                name = requested or f"d{self._decode_seq}"
+                if not requested:
+                    self._decode_seq += 1
+        if existing is not None:
+            existing.update_meta(meta)
+            existing.attach_rpc(channel)
+            log_event("agent_rejoined", replica=existing.name,
+                      health=existing.health.state)
+            with self._cond:
+                self._cond.notify_all()
+            return {"name": existing.name}
+        handle = RemoteEngineHandle(name, meta, self, metrics=self.metrics,
+                                    resilience=self._resilience)
+        handle.attach_rpc(channel)
+        self.add_remote_replica(handle)
+        return {"name": name}
 
     def add_remote_replica(self, handle) -> None:
-        """Wire a remote decode replica into the fleet."""
-        self._control_plane("add_remote_replica")
+        """Wire a :class:`RemoteEngineHandle` into the decode fleet: the
+        same bookkeeping as :meth:`add_decode_replica`, minus the engine
+        (it lives in the agent's process)."""
+        with self._cond:
+            self.decode.append(handle)
+            self.cores.append(handle)
+            self._reserved[handle.name] = [0, 0]
+            self._tally[handle.name] = {"finished": 0, "ttft_sum": 0.0,
+                                        "ttft_n": 0, "tpot_sum": 0.0,
+                                        "tpot_n": 0}
+            if self._threads and not self._stopping:
+                t = threading.Thread(target=self.run_in_engine_scope,
+                                     args=(self._worker, handle),
+                                     name=f"serving-{handle.name}",
+                                     daemon=True)
+                self._threads.append(t)
+                t.start()
+            self.metrics.set_gauge("decode_replicas", len(self.decode))
+            self.metrics.update_replica(handle.name, handle.replica_stats(),
+                                        role=handle.role, remote=True)
+            self._cond.notify_all()
 
     def _remote_token(self, core, obj: Dict) -> None:
-        self._control_plane("_remote_token")
+        """Events-channel TOKEN frame (pump thread): route into the same
+        sink path a local ``step_once`` would have called. ``feedback``
+        already happened agent-side. Frames racing a finish/recovery are
+        dropped by the residency check — the agent's stream is stale."""
+        uid = int(obj.get("uid", -1))
+        with self._cond:
+            req = self._by_uid.get(uid)
+            if req is None or req.is_terminal or core.requests.get(uid) is not req:
+                return
+            if "tok" in obj:
+                self.deliver(core, req, int(obj["tok"]), feedback=False)
+            elif obj.get("fin") == "length_cap":
+                self.finish_capped(core, req)
 
     def _remote_stats(self, core, obj: Dict) -> None:
-        self._control_plane("_remote_stats")
+        """Events-channel STATS push: the handle already folded it into
+        its admission caches; roll it up into /metrics and the prefix
+        directory, then wake the coordinator (freed blocks may seat the
+        queue head)."""
+        with self._cond:
+            st = core.replica_stats()
+            r = self._reserved.get(core.name)
+            if r is not None:
+                st["reserved_blocks"] = r[0]
+            t = self._tally.get(core.name)
+            if t is not None:
+                st["requests_finished_total"] = t["finished"]
+            self.metrics.update_replica(core.name, st, role=core.role,
+                                        remote=True)
+            if self._placeable(core):
+                self.directory.advertise(core.name, core.prefix_hashes())
+            self._cond.notify_all()
 
     def _remote_event(self, core, obj: Dict) -> None:
-        self._control_plane("_remote_event")
+        """Events-channel EVENT frame. ``engine_failed`` mirrors the local
+        sink's ``engine_failed`` — except the agent already dropped its
+        residents (its sink released them), so recovery detaches only.
+        ``adopt_failed`` (the port's agent: an ADOPT it acknowledged could
+        not import, its retries spent) recovers that one request the same
+        way, and releases its staged transfer at the exporter."""
+        event = str(obj.get("event", ""))
+        if event == "adopt_failed":
+            self._remote_adopt_failed(core, obj)
+            return
+        if event != "engine_failed":
+            log_event(f"agent_{event or 'event'}", replica=core.name,
+                      **{k: v for k, v in obj.items() if k != "event"})
+            return
+        error = str(obj.get("error", ""))
+        core.health.note_error(error)
+        log_event("engine_failed", replica=core.name, error=error,
+                  in_flight=len(core.requests), health=core.health.state)
+        with self._cond:
+            if self._resilience is None:
+                for req in list(core.requests.values()):
+                    self._finish_on_locked(core, req, RequestState.FAILED,
+                                           "engine_error", error=error,
+                                           scheduler_done=True)
+            else:
+                self.metrics.inc("replica_failures_total")
+                self._note_quarantine_locked(core)
+                for req in list(core.requests.values()):
+                    self._recover_resident_locked(
+                        core, req, pool_readable=False,
+                        cause=f"agent engine step: {error}",
+                        detach_only=True)
+            self._cond.notify_all()
+
+    def _remote_adopt_failed(self, core, obj: Dict) -> None:
+        uid = int(obj.get("uid", -1))
+        error = str(obj.get("error", ""))
+        tid = obj.get("transfer_id")
+        if tid:
+            for ep in list(self._kv_endpoints):
+                ep.release(str(tid))
+        log_event("handoff_failed", uid=uid, target=core.name, error=error)
+        logger.warning(f"serving: handoff import of uid={uid} onto "
+                       f"{core.name} failed: {error}")
+        self.metrics.handoff_aborted("remote")
+        with core.step_lock:
+            with self._cond:
+                req = self._by_uid.get(uid)
+                if (req is None or req.is_terminal
+                        or core.requests.get(uid) is not req):
+                    return
+                if self._resilience is None:
+                    self._finish_on_locked(core, req, RequestState.FAILED,
+                                           "error",
+                                           error=f"handoff import: {error}",
+                                           scheduler_done=True)
+                else:
+                    self._recover_resident_locked(
+                        core, req, pool_readable=False,
+                        cause=f"handoff import: {error}", detach_only=True)
+                self._cond.notify_all()
 
     def _agent_lost(self, core, err: str) -> None:
-        self._control_plane("_agent_lost")
+        """The control wire to an agent died (pump EOF, RPC failure, or an
+        explicit GOODBYE): quarantine the replica and recover its residents
+        by replay — the agent's pool is unreachable, but every stream is
+        re-derivable from its delivered tokens. ``mark_disconnected`` makes
+        this idempotent across the pump/flusher race. A restarted agent
+        re-joins under the same name and probation re-admits it."""
+        if not core.mark_disconnected():
+            return
+        # the residents' handoffs the agent may not have fetched yet
+        # (it imports between its steps): release them at the exporters
+        for tid in core.adopted_transfers():
+            for ep in list(self._kv_endpoints):
+                ep.release(tid)
+        err = str(err)
+        state = core.health.note_crash(err)
+        logger.warning(f"serving[{core.name}]: agent lost: {err}")
+        self.metrics.inc("replica_failures_total")
+        with core.step_lock:
+            with self._cond:
+                self._handoff_out.pop(core.name, None)
+                self._note_quarantine_locked(core)
+                log_event("agent_lost", replica=core.name, error=err,
+                          health=state, in_flight=len(core.requests))
+                for req in list(core.requests.values()):
+                    if self._resilience is not None:
+                        # detach_only: the agent is gone — there is no
+                        # scheduler to finish, nothing to CANCEL
+                        self._recover_resident_locked(
+                            core, req, pool_readable=False,
+                            cause=f"agent lost: {err}", detach_only=True)
+                    else:
+                        self._finish_on_locked(core, req, RequestState.FAILED,
+                                               "engine_error", error=err,
+                                               scheduler_done=True)
+                self._cond.notify_all()
 
     # -- internals -------------------------------------------------------
     def _reject(self, reason: str, message: str = "",
@@ -860,16 +1071,25 @@ class Router:
             for req in list(core.requests.values()):
                 self._recover_resident_locked(core, req, pool_readable=False,
                                               cause=err, detach_only=True)
-            # handoffs waiting for the wedged worker are resident nowhere:
-            # unwind each and replay it elsewhere
-            for req, ho, source in self._handoff_in.pop(core.name, []):
-                self._abort_handoff(ho, source)
-                if not self._requeue_for_replay_locked(req, err):
-                    self._release_resv_locked(req.uid)
-                    self._by_uid.pop(req.uid, None)
-                    self._cancel_uids.discard(req.uid)
-                    self._terminate_locked(req, RequestState.FAILED, "error",
-                                           error=f"handoff import: {err}")
+            self._replay_inbound_locked(core, err)
+
+    def _replay_inbound_locked(self, core: EngineCore, err: str,
+                               inbound=None) -> None:
+        """Handoffs waiting for a failed replica's worker (``inbound``, or
+        all queued for ``core``) are resident nowhere: unwind each and
+        replay it elsewhere (or fail it without resilience). The worker
+        would otherwise import them into the quarantined replica and step
+        them there."""
+        if inbound is None:
+            inbound = self._handoff_in.pop(core.name, [])
+        for req, ho, source in inbound:
+            self._abort_handoff(ho, source)
+            if not self._requeue_for_replay_locked(req, err):
+                self._release_resv_locked(req.uid)
+                self._by_uid.pop(req.uid, None)
+                self._cancel_uids.discard(req.uid)
+                self._terminate_locked(req, RequestState.FAILED, "error",
+                                       error=f"handoff import: {err}")
 
     def _probe_plan_locked(self):
         """Pick one quarantined core whose probation backoff elapsed and
@@ -1758,6 +1978,7 @@ class Router:
                     else:
                         self._finish_on_locked(core, req, RequestState.FAILED,
                                                "engine_error", error=err)
+                self._replay_inbound_locked(core, f"worker crash: {err}")
                 self._cond.notify_all()
 
     def _worker_pass(self, core: EngineCore, stall_wait: bool) -> Optional[bool]:
@@ -1787,9 +2008,14 @@ class Router:
                 self._cond.wait(timeout)
                 stall_wait = False
         # the handoffs addressed to this core land first, under its own
-        # step lock (the import takes it again: an RLock)
+        # step lock (the import takes it again: an RLock); those its
+        # prefill worker queued after the core failed replay elsewhere
         with self._cond:
             inbound = self._handoff_in.pop(core.name, [])
+            if inbound and not self._placeable(core):
+                self._replay_inbound_locked(
+                    core, f"{core.name} is {core.health.state}", inbound)
+                inbound = []
         if inbound:
             with core.step_lock:
                 for req, ho, source in inbound:

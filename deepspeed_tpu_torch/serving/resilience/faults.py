@@ -1,8 +1,8 @@
 """Deterministic fault injection for the serving cluster.
 
 Copy of ``deepspeed_tpu/serving/resilience/faults.py`` (stdlib only). The
-port's engine, core, handoff and router check every site but the remote
-wire's (``serving/net/``, ROADMAP queue 1, item 5).
+port's engine, core, handoff, router and wire (``serving/net/``) check
+every site.
 
 The chaos harness is a *seam*, not a framework: the serving hot paths
 call ``get_fault_injector().check(site, replica=...)`` at a small set of

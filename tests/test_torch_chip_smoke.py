@@ -1244,7 +1244,8 @@ def test_hf_layout_writer_and_the_bit_check(tmp_path, one_thread):
 
 def test_import_phases_run_end_to_end_on_cpu(tmp_path, one_thread, capsys):
     """hf_import, serve_cli (``dstpu serve`` as a subprocess on the
-    directory), train_import (the default-store round trip and
+    directory), serve_agent_cli (``dstpu serve`` with the control plane and
+    ``serve-agent`` joining it, two subprocesses), train_import (the default-store round trip and
     zero_to_fp32 included) and graft_entry at tiny widths: through
     ``import_phases`` (its records printed, its directory removed), then
     each phase's record."""
@@ -1254,10 +1255,15 @@ def test_import_phases_run_end_to_end_on_cpu(tmp_path, one_thread, capsys):
     launches = chip_smoke.import_phases(torch, cpu, K, tmp_path, "cpu", hf_kw, train_kw)
     assert sorted(launches) == ["graft_entry", "hf_import", "train_import"]
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
-    assert [r["phase"] for r in lines] == ["hf_import", "serve_cli", "train_import",
-                                           "graft_entry"]
+    assert [r["phase"] for r in lines] == ["hf_import", "serve_cli", "serve_agent_cli",
+                                           "train_import", "graft_entry"]
     # dstpu serve in a subprocess on hf_import's directory answered generate()'s tokens
     assert lines[1]["equal"] and lines[1]["new_tokens"] == chip_smoke.SERVE_CLI_NEW
+    # and with serve-agent joining its control plane: the agent decoded one of
+    # the two requests, both processes exited 0 on the shutdown
+    sac = lines[2]
+    assert sac["equal"] and sac["agent_finished"] >= 1
+    assert sac["serve_rc"] == sac["agent_rc"] == 0
     assert all(r["seconds"] > 0 and r["card"] == "cpu" for r in lines)
     assert lines[0]["disk_free_gb"] > 0 and list((tmp_path / "build").iterdir()) == []
     rec, launches = chip_smoke.hf_import_phase(torch, cpu, K, tmp_path, **hf_kw)
@@ -1371,20 +1377,23 @@ SERVE_TINY_WIDTHS = dict(n_layers=2, hidden_size=128, n_heads=4, n_kv_heads=2,
                          ffn_hidden_size=256, vocab_size=512, dtype="float32")
 
 
+SERVE_TINY_ENGINE = {
+    "dtype": "float32", "decode_steps": 8, "prompt_chunk": 64, "max_prompt_chunks": 4,
+    "kv_cache": {"block_size": 16, "num_blocks": 128, "max_blocks_per_seq": 12},
+    "state_manager": {"max_tracked_sequences": 16, "max_ragged_batch_size": 256,
+                      "max_ragged_sequence_count": 8, "max_context": 192}}
+
+
 def _serve_tiny_engine(kv_cache_dtype="bf16"):
     from deepspeed_tpu_torch.inference.config import RaggedInferenceEngineConfig
     from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
     from deepspeed_tpu_torch.models import transformer as T
 
     cfg = T.get_config(chip_smoke.MODEL, **SERVE_TINY_WIDTHS)
-    params = T.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
-    rc = RaggedInferenceEngineConfig.from_dict({
-        "dtype": "float32", "decode_steps": 8, "prompt_chunk": 64, "max_prompt_chunks": 4,
-        "kv_cache": {"block_size": 16, "num_blocks": 128, "max_blocks_per_seq": 12,
-                     "kv_cache_dtype": kv_cache_dtype},
-        "state_manager": {"max_tracked_sequences": 16, "max_ragged_batch_size": 256,
-                          "max_ragged_sequence_count": 8, "max_context": 192}})
-    return InferenceEngineV2(cfg, params, rc, device="cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(chip_smoke.SEED), torch.device("cpu"))
+    ec = dict(SERVE_TINY_ENGINE)
+    ec["kv_cache"] = dict(ec["kv_cache"], kv_cache_dtype=kv_cache_dtype)
+    return InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig.from_dict(ec), device="cpu")
 
 
 @pytest.mark.parametrize("kv_cache_dtype", ["bf16", "int8"])
@@ -1570,12 +1579,78 @@ def test_router_phase_runs_end_to_end_on_cpu(one_thread):
     assert res["resilience"]["replica_failures"] == 1 and res["resilience"]["recoveries"] >= 1
     assert "worker crash" in res["crashed"]["last_error"]
     assert (res["scaled_up"], res["warm_replicas"], res["decode_replicas"]) == ("d2", 1, 3)
+    assert rec["short_layers"] == 2  # min(ROUTER_SHORT_LAYERS, the tiny model's 2)
     line = chip_smoke.router_note(rec, "cpu")
     assert "TTFT" in line and "bit for bit" in line and line.endswith("on cpu")
     import gc
 
     gc.collect()
     assert fleets and all(ref() is None for ref in fleets)
+
+
+def test_remote_phase_runs_end_to_end_on_cpu(one_thread):
+    """The remote phase at the tiny size on the CPU's plain versions, with
+    real agent children (``tools/torch_remote_agent.py``): the child's
+    weights' digest equals this process's; (a) every handoff's blocks as
+    imported in the child equal the exporter's at export (digests, an int8
+    pool's scales too); (b) every served token is the plain forward's top;
+    (c) the agent's calls and imports replayed on a fresh engine in the
+    child give every stream token for token; the planted importer is
+    caught by (b) and (c); the wire fault in the child retries to the same
+    streams; the SIGKILLed agent's residents recover on d0 and a restarted
+    agent re-joins, passes probation and decodes; every child exits 0 on
+    the GOODBYE (or its input's end); nothing leaks."""
+    eng = _serve_tiny_engine()
+    prompts = chip_smoke.serve_prompts(512, n=8, lens=(20, 150))
+    rec, launches = chip_smoke.remote_phase(
+        torch, torch.device("cpu"), K, eng, ROOT, prompts=prompts, new_tokens=8, short=4,
+        engine_config=SERVE_TINY_ENGINE, widths=SERVE_TINY_WIDTHS,
+        short_widths={"n_layers": 1})
+    json.dumps(rec)
+    assert set(launches) == {"remote", "remote_agent", "remote_int8", "remote_agent_int8"}
+    assert all(v == {name: 0 for name in K.KERNELS} for v in launches.values())
+    t = rec["timed"]
+    assert t["replay"]["equal"] == 8 and t["streams"]["max_margin"] < 1e-4
+    assert t["bits"] == {"handoffs": 8, "blocks": t["bits"]["blocks"], "planes": ["k", "v"],
+                         "mismatches": 0} and t["bits"]["blocks"] >= 16
+    assert t["handoffs"]["count"] == 8 and t["handoffs"]["staged_now"] == 0
+    assert t["handoffs"]["wire_bytes_sent"] > t["handoffs"]["bytes"] > 0
+    assert t["handoffs"]["windows"] >= 8  # the child counts them: one a chunk of 8 blocks
+    assert t["round_s"]["rounds"] > 0 and t["round_s"]["alone_mean"] > 0
+    assert t["agent_rc"] == 0 and rec["timed_child_rc"] == rec["short_child_rc"] == 0
+    assert t["agent_plain_calls"]["rms_norm_reference"] > 0
+    i8 = rec["short_int8"]
+    assert i8["bits"]["planes"] == ["k", "k_scale", "v", "v_scale"]
+    assert i8["bits"]["mismatches"] == 0 and i8["replay"]["equal"] == 4
+    assert i8["agent_plain_calls"]["block_quant_reference"] > 0
+    assert i8["plain_calls"]["block_quant_reference"] > 0
+    planted = rec["planted"]
+    assert planted["caught"] == {"replay": True, "margin": True}
+    fault = rec["wire_fault"]
+    assert fault["faults_fired"] == ["net.recv"] and fault["import_retries"] >= 1
+    assert fault["replay"]["equal"] == 4 and fault["streams"]["max_margin"] < 1e-4
+    k = rec["sigkill"]
+    assert k["killed_rc"] == -9 and k["restarted_rc"] == 0 and k["restarted_finished"] >= 1
+    assert k["resilience"]["recoveries"] >= 1 and k["quarantines"] >= 1
+    assert k["first"]["max_margin"] < 1e-4 and k["second"]["max_margin"] < 1e-4
+    line = chip_smoke.remote_note(rec, "cpu")
+    assert "TTFT" in line and "bit for bit" in line and line.endswith("on cpu")
+
+
+def test_bits_digest_sees_every_bit_and_no_order():
+    """``bits_digest``: equal bits give equal digests on any chunking; one
+    flipped bit, another shape or dtype give another."""
+    x = torch.randn(3, 1000, dtype=torch.float32)
+    y = torch.randint(-128, 127, (7, 9), dtype=torch.int8)
+    d = chip_smoke.bits_digest(torch, [x, y])
+    assert d == chip_smoke.bits_digest(torch, [x.clone(), y.clone()], chunk=97)
+    flipped = x.clone()
+    flipped.view(torch.int32)[1, 17] ^= 1
+    assert chip_smoke.bits_digest(torch, [flipped, y]) != d
+    assert chip_smoke.bits_digest(torch, [x.reshape(1000, 3), y]) != d
+    assert chip_smoke.bits_digest(torch, [y, x]) != d
+    assert chip_smoke.bits_digest(torch, [x.to(torch.bfloat16)]) != chip_smoke.bits_digest(
+        torch, [x.to(torch.bfloat16).view(torch.int16)])
 
 
 def test_thread_launches_splits_counts_by_thread():

@@ -16,7 +16,8 @@ holds every result to the single-process arithmetic on the ranks' inputs:
   * the process ring over gloo (``ring_attention_local``, forward and both
     gradient rings) equals the loopback ring on the gathered arrays bit for
     bit (the same plain chunk versions on the same chunks, one thread each);
-  * a CUDA tensor on a gloo group raises.
+  * a CUDA tensor on a gloo group raises;
+  * ``init_distributed`` takes the CPU and gloo only when asked.
 """
 
 import json
@@ -239,6 +240,30 @@ def test_topology_refusals_and_counts():
     assert t.dp_world_size == 2 and t.context_parallel_size == 4
     assert t.group("context") is None and t.axis_index("context") == 0
     assert json.dumps(repr(t))
+
+
+def test_init_distributed_takes_the_cpu_only_when_asked(monkeypatch):
+    """Unasked, ``init_distributed`` wants the card and raises where none is
+    visible, before any rendezvous; ``dist_backend="gloo"`` (or
+    ``device="cpu"``) still brings a one-rank gloo group up on the CPU."""
+    from deepspeed_tpu_torch import comm
+
+    if comm.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}, {"dist_backend": "nccl"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            comm.init_distributed(store=torch.distributed.HashStore(), world_size=1, rank=0,
+                                  **kw)
+        assert not comm.is_initialized()
+    for kw in ({"dist_backend": "gloo"}, {"device": "cpu"}):
+        comm.init_distributed(store=torch.distributed.HashStore(), world_size=1, rank=0,
+                              timeout=timedelta(seconds=60), **kw)
+        try:
+            assert comm.is_initialized() and comm.get_world_size() == 1
+            assert torch.distributed.get_backend() == "gloo"
+        finally:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -104,14 +104,35 @@ def test_module_entry_runs_generate(real_format_dir):
 
 def test_unported_commands_raise(real_format_dir):
     """``serve`` runs (test_module_entry_serves_the_jax_tokens); its
-    cross-process forms and ``serve-agent`` raise, naming item 5."""
+    cross-process forms build the router on the directory (the control
+    plane bound by ``serve_main``, the remote wire's endpoint registered),
+    and ``serve-agent`` builds its engine there and dials its ``--join``
+    (nothing listens at port 1: the bounded dial's last refusal raises).
+    Only tensor parallelism still raises, naming item 6."""
+    from deepspeed_tpu_torch.serving import Router
+    from deepspeed_tpu_torch.serving.resilience.retry import RetryPolicy
+
     path, _ = real_format_dir
-    for argv in (["serve", "--model", path, "--num-decode-replicas", "2", "--control-port", "0"],
-                 ["serve", "--model", path, "--num-prefill-workers", "1",
-                  "--kv-transport", "remote"],
-                 ["serve-agent", "--model", path]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-            pcli.main(argv)
+    for argv in (["--model", path, "--num-decode-replicas", "2", "--control-port", "0"],
+                 ["--model", path, "--num-prefill-workers", "1", "--kv-transport", "remote"]):
+        front, _ = pcli.build_serving_stack(pcli.serve_parse_args(argv + ["--device", "cpu"]))
+        try:
+            assert isinstance(front, Router) and front.serve_control("127.0.0.1", 0)[1] > 0
+        finally:
+            front.shutdown(drain=False)
+    args = pcli.serve_agent_parse_args(["--model", path, "--device", "cpu", "--join",
+                                        "127.0.0.1:1", "--name", "a1"])
+    core, _ = pcli.build_agent_core(args)
+    assert core.name == "a1" and core.role == "decode"
+    from deepspeed_tpu_torch.serving.cluster.agent import ReplicaAgent
+
+    agent = ReplicaAgent(core, ("127.0.0.1", 1), name="a1",
+                         dial_retry=RetryPolicy(attempts=2, backoff_s=0.01))
+    try:
+        with pytest.raises(OSError):
+            agent.connect()
+    finally:
+        agent.close()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
         pcli.main(["generate", "--device", "cpu", "--tp", "2"] + _argv(path, "v1", "jugs"))
     assert pcli.generate_main(["--model", path, "--device", "cpu"]) == 2  # no prompt

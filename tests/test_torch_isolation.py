@@ -128,10 +128,12 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.runtime.zero.config",
     "deepspeed_tpu_torch.serving",
     "deepspeed_tpu_torch.serving.cluster",
+    "deepspeed_tpu_torch.serving.cluster.agent",
     "deepspeed_tpu_torch.serving.cluster.core",
     "deepspeed_tpu_torch.serving.cluster.handoff",
     "deepspeed_tpu_torch.serving.cluster.placement",
     "deepspeed_tpu_torch.serving.cluster.prefix_directory",
+    "deepspeed_tpu_torch.serving.cluster.remote_core",
     "deepspeed_tpu_torch.serving.cluster.router",
     "deepspeed_tpu_torch.serving.driver",
     "deepspeed_tpu_torch.serving.elastic",
@@ -141,6 +143,12 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.serving.elastic.shedding",
     "deepspeed_tpu_torch.serving.elastic.spares",
     "deepspeed_tpu_torch.serving.metrics",
+    "deepspeed_tpu_torch.serving.net",
+    "deepspeed_tpu_torch.serving.net.control",
+    "deepspeed_tpu_torch.serving.net.endpoint",
+    "deepspeed_tpu_torch.serving.net.flow",
+    "deepspeed_tpu_torch.serving.net.transport",
+    "deepspeed_tpu_torch.serving.net.wire",
     "deepspeed_tpu_torch.serving.request",
     "deepspeed_tpu_torch.serving.resilience",
     "deepspeed_tpu_torch.serving.resilience.faults",
@@ -184,11 +192,16 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("root", ["deepspeed_tpu_torch.serving",
                                   "deepspeed_tpu_torch.observability",
-                                  "deepspeed_tpu_torch.monitor.monitor"])
+                                  "deepspeed_tpu_torch.monitor.monitor",
+                                  "deepspeed_tpu_torch.serving.net",
+                                  "deepspeed_tpu_torch.serving.cluster.agent",
+                                  "deepspeed_tpu_torch.serving.cluster.remote_core",
+                                  "deepspeed_tpu_torch.inference.cli"])
 def test_serving_stack_imports_alone_without_jax(root):
-    """The serving stack, the tracer and the monitors, each imported alone
-    in a fresh interpreter, load neither JAX nor the JAX package (their
-    JAX counterparts are stdlib-only, the copies too)."""
+    """The serving stack, the tracer and the monitors, the cross-process
+    wire, the agent, the remote core and the CLI, each imported alone in a
+    fresh interpreter, load neither JAX, ml_dtypes nor the JAX package
+    (their JAX counterparts are stdlib-only, the copies too)."""
     code = (
         f"import importlib, json, sys\nimportlib.import_module({root!r})\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"

@@ -1,7 +1,7 @@
 """The port's serving resilience against the JAX package's, on the CPU.
 
-Mirrors ``tests/unit/test_resilience.py`` (its remote-agent cases are
-ROADMAP queue 1, item 5). The building blocks are driven directly in both
+Mirrors ``tests/unit/test_resilience.py`` (a remote agent's loss, replay
+and re-admission are held in ``tests/test_torch_multihost.py``). The building blocks are driven directly in both
 packages over tables of inputs and must answer alike: the replica health
 state machine after the same event sequences (fake clock), bounded
 retries (fake sleep), the recovery planner. The Router cases run one chaos

@@ -1,8 +1,9 @@
 """The port's multi-engine Router against the JAX package's, on the CPU.
 
 Mirrors ``tests/unit/test_disagg.py`` and ``tests/unit/test_kv_transport.py``
-(their tensor-parallel and remote classes are ROADMAP queue 1, items 6 and
-5). The fake-engine tests run one scenario through both packages, each over
+(their tensor-parallel classes are ROADMAP queue 1, item 6; the remote wire
+is held in ``tests/test_torch_net_transport.py`` and
+``tests/test_torch_multihost.py``). The fake-engine tests run one scenario through both packages, each over
 its own real scheduler, allocator and state manager under ``FakeEngine``
 (``tests/test_torch_serving.py``: compute-free, the next token is the last
 one + 1), and hold the port to the JAX package's observable results: token
@@ -396,22 +397,28 @@ class TestHandoffInvariants:
                 eng.scheduler.adopt(7, 1)
 
     def test_transport_registry_and_remote_refused(self):
-        """The same names resolve in both packages; a typo fails at
-        configuration time; the port refuses the cross-process wire, naming
-        its ROADMAP item, and so does a Router asked for it."""
+        """The same names resolve in both packages, the cross-process wire
+        too (registered on first use); a typo fails at configuration time;
+        a Router asked for the remote wire builds on it in both."""
         jh, ph = _cluster(JAX).handoff, _cluster(PORT).handoff
         assert ph.KV_TRANSPORTS == jh.KV_TRANSPORTS
-        for name in ("host", "in_process", "device"):
+        for name in ("host", "in_process", "device", "remote"):
             tr = ph.get_transport(name)
             assert tr.name == name == jh.get_transport(name).name
-            assert ph.get_transport(tr) is tr
+            assert ph.get_transport(tr) is tr and ph.get_transport(name) is tr
+            assert type(tr).__name__ == type(jh.get_transport(name)).__name__
         for h in (jh, ph):
             with pytest.raises(ValueError, match="kv_transport='warp'"):
                 h.get_transport("warp")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-            ph.get_transport("remote")
-        with pytest.raises(NotImplementedError, match="serving/net/"):
-            _cluster(PORT).Router(engines=[FakeEngine(PORT)], kv_transport="remote")
+
+        def scenario(ns):
+            router = _cluster(ns).Router(engines=[FakeEngine(ns)], kv_transport="remote")
+            try:
+                return router._kv_transport.name, router.health()["kv_transport"]["endpoints"]
+            finally:
+                router.shutdown()
+
+        assert on_both(scenario) == ("remote", {})
 
     @pytest.mark.parametrize("transport", ["host", "in_process", "device"])
     def test_fake_engines_ride_every_transport(self, transport):
@@ -434,14 +441,24 @@ class TestHandoffInvariants:
         assert on_both(scenario) == (transport, None, 0, list(range(1, 9)), 8, 2, 9)
 
     def test_control_plane_names_item_5(self):
-        router = _cluster(PORT).Router(engines=[FakeEngine(PORT)])
-        for call in (lambda: router.serve_control(), lambda: router.add_remote_replica(None),
-                     lambda: router._agent_lost(None, "x")):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-                call()
-        h = router.health()
-        assert h["control_plane"] == {"enabled": False, "address": None, "remote_replicas": {}}
-        assert h["kv_transport"]["endpoints"] == {}
+        """The multi-host control plane is served: ``serve_control`` binds
+        once (idempotent) and /health reports it; before an agent joins
+        there is no remote replica and no KV endpoint, in both packages."""
+
+        def scenario(ns):
+            router = _cluster(ns).Router(engines=[FakeEngine(ns)])
+            before = router.health()["control_plane"]
+            try:
+                addr = router.serve_control("127.0.0.1", 0)
+                h = router.health()
+                return (before, router.serve_control() == addr, addr[1] > 0,
+                        h["control_plane"]["enabled"], h["control_plane"]["address"] == list(addr),
+                        h["control_plane"]["remote_replicas"], h["kv_transport"]["endpoints"])
+            finally:
+                router.shutdown()
+
+        assert on_both(scenario) == ({"enabled": False, "address": None, "remote_replicas": {}},
+                                     True, True, True, True, {}, {})
 
 
 # ---------------------------------------------------------------------------
@@ -681,11 +698,35 @@ class TestServeCLI:
         (["--kv-transport", "remote"], "item 5"), (["--tp", "2"], "item 6"),
     ], ids=["control-port", "control-host", "remote", "tp"])
     def test_refused_flags_name_their_item(self, flags, item):
+        """The cross-process flags (ROADMAP queue 1, item 5, ported) parse
+        as the JAX package's do and build the router: the control plane's
+        own flags are read by ``serve_main``, the remote wire registers p0's
+        KV endpoint at construction. ``--tp`` above 1 stays refused, naming
+        item 6, before anything is built."""
+        from deepspeed_tpu.inference import cli as jcli
         from deepspeed_tpu_torch.inference import cli as pcli
+        from deepspeed_tpu_torch.serving import Router
+        from tests import test_torch_spec_decode as sd
 
-        args = pcli.serve_parse_args(SERVE_ARGV + ["--num-decode-replicas", "2"] + flags)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-            pcli.build_serving_stack(args)
+        argv = SERVE_ARGV + ["--num-prefill-workers", "1"] + flags
+        args = pcli.serve_parse_args(argv)
+        if item == "item 6":
+            with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+                pcli.build_serving_stack(args)
+            return
+        jargs = jcli.serve_parse_args([a for a in argv if a not in ("--device", "cpu")])
+        for key in ("control_port", "control_host", "kv_transport"):
+            assert getattr(args, key) == getattr(jargs, key), key
+        base = sd.port_engine()
+        front, _ = pcli.build_serving_stack(args, cfg=base._mc, params=base.params,
+                                            tok=SimpleNamespace(eos_token_id=None))
+        try:
+            assert isinstance(front, Router)
+            h = front.health()
+            assert h["kv_transport"]["transport"] == args.kv_transport
+            assert ("p0" in h["kv_transport"]["endpoints"]) == (args.kv_transport == "remote")
+        finally:
+            front.shutdown(drain=False)
 
 
 class TestRouterMetrics:

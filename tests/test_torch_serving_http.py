@@ -9,8 +9,8 @@ the ``/debug/trace`` family and the error responses. ``FakeEngine`` (from
 engines are the tiny model of ``tests/test_torch_spec_decode.py`` on
 identical weights, compared token for token (exact). The ``serve``
 command's stack is built from parsed arguments on that model in memory;
-the multi-engine flags and ``serve-agent`` are refused naming ROADMAP
-queue 1, item 5. Every server and driver is shut down in a ``finally``
+the multi-engine and cross-process flags build the router, ``--tp`` above
+1 is refused naming ROADMAP queue 1, item 6. Every server and driver is shut down in a ``finally``
 and every socket read has a timeout.
 """
 
@@ -350,14 +350,37 @@ class TestServeCommand:
         ["--max-decode-replicas", "3"], ["--resilience"], ["--control-port", "0"],
     ], ids=["replicas", "prefill", "elastic", "resilience", "control"])
     def test_multi_engine_flags_name_item_5(self, flags):
-        """Each multi-engine form builds the router, but not with the
-        cross-process control plane: ``--control-port`` (and the
-        ``remote`` KV wire) are refused, naming item 5, before any engine
-        is built."""
+        """Each multi-engine form builds the router with the cross-process
+        pieces (ROADMAP queue 1, item 5, now ported): ``--control-port``
+        parses as the JAX package's does and the router serves the control
+        plane (``serve_main`` binds it); ``--kv-transport remote`` registers
+        every prefill worker's KV endpoint at construction."""
+        from deepspeed_tpu_torch.serving import Router
+        from tests import test_torch_spec_decode as sd
+
+        base = sd.port_engine()
         for extra in (["--control-port", "0"], ["--kv-transport", "remote"]):
-            args = pcli.serve_parse_args(SERVE_ARGV + flags + extra)
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-                pcli.build_serving_stack(args)
+            args = pcli.serve_parse_args(SERVE_ARGV + ["--device", "cpu"] + flags + extra)
+            jargs = jcli.serve_parse_args(SERVE_ARGV + flags + extra)
+            assert (args.control_port, args.control_host, args.kv_transport) == (
+                jargs.control_port, jargs.control_host, jargs.kv_transport)
+            front, _ = pcli.build_serving_stack(args, cfg=base._mc, params=base.params, tok=None)
+            try:
+                # --control-port alone is one engine: the driver, which has no
+                # control plane (serve_main refuses it, as the JAX command does)
+                assert isinstance(front, Router) == (flags != ["--control-port", "0"])
+                if not isinstance(front, Router):
+                    assert not hasattr(front, "serve_control")
+                    continue
+                addr = front.serve_control("127.0.0.1", 0)
+                h = front.health()
+                assert h["control_plane"]["enabled"] and h["control_plane"]["address"] == list(addr)
+                assert h["kv_transport"]["transport"] == args.kv_transport
+                workers = [c.name for c in front.prefill]
+                assert sorted(h["kv_transport"]["endpoints"]) == (
+                    workers if args.kv_transport == "remote" else [])
+            finally:
+                front.shutdown(drain=False)
 
     @pytest.mark.parametrize("flags", [
         ["--placement", "least_loaded"], ["--kv-transport", "remote"],
@@ -377,19 +400,28 @@ class TestServeCommand:
             assert "invalid choice" in capsys.readouterr().err
 
     def test_refusals(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-            pcli.main(["serve-agent", "--model", "x", "--join", "127.0.0.1:1"])
+        """``serve-agent`` wants ``--join HOST:PORT`` (2 otherwise); ``--tp``
+        above 1 stays refused for serve and serve-agent, naming item 6; the
+        agent and the remote core are ``serving.cluster``'s names, not
+        ``serving``'s, as in the JAX package."""
+        assert pcli.main(["serve-agent", "--model", "x", "--join", "nohost"]) == 2
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
             pcli.build_serving_stack(pcli.serve_parse_args(SERVE_ARGV + ["--tp", "2"]))
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+            pcli.build_agent_core(pcli.serve_agent_parse_args(
+                SERVE_ARGV + ["--tp", "2", "--join", "127.0.0.1:1"]))
         with pytest.raises(ValueError, match="num_prefill_workers"):
             pcli.build_serving_stack(pcli.serve_parse_args(
                 SERVE_ARGV + ["--num-prefill-workers", "-1"]))
+        import deepspeed_tpu.serving as jserving
         import deepspeed_tpu_torch.serving as serving
         import deepspeed_tpu_torch.serving.cluster as cluster
+        from deepspeed_tpu_torch.serving.cluster.agent import ReplicaAgent
+        from deepspeed_tpu_torch.serving.cluster.remote_core import RemoteEngineHandle
 
-        for mod in (serving, cluster):
-            for name in ("ReplicaAgent", "RemoteEngineHandle"):
-                with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-                    getattr(mod, name)
+        assert (cluster.ReplicaAgent, cluster.RemoteEngineHandle) == (ReplicaAgent,
+                                                                      RemoteEngineHandle)
+        for name in ("ReplicaAgent", "RemoteEngineHandle"):
+            assert hasattr(serving, name) == hasattr(jserving, name) is False
         with pytest.raises(AttributeError):
             serving.NoSuchName  # noqa: B018
