@@ -94,8 +94,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    within 0.04 of the plain forward's largest logit on its served context
    (``compare_streams``). ``/health`` shows every block free once idle,
    ``/metrics`` parses as Prometheus text. Passes: timed (TTFT and TPOT p50
-   / p99, tok/s), then over the mix's first 8 clients profiled (under
-   torch.profiler's CUDA activity: the device's idle share), traced
+   / p99, tok/s), then over the mix's first 4 clients profiled (under
+   torch.profiler's CUDA activity: the device's idle share), over its
+   first 8 traced
    (``/debug/trace``: a valid Chrome trace with the engine's dispatch and
    device-wait spans and one tree per request), speculative
    (``NgramProposer``, k 4) and planted (a driver fault fed back: both
@@ -108,7 +109,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    multi-engine ``Router`` as ``dstpu serve --num-prefill-workers 1
    --num-decode-replicas 2`` builds it, each engine over the same weight
    tensors with its own 512-block pool, behind ``start_server(port=0)``.
-   Timed pass: the serving phase's 32 clients over the ``device`` KV wire
+   Timed pass: the serving mix's first 16 clients over the ``device`` KV wire
    at 64-step rounds (TTFT / TPOT p50 / p99, tok/s, the handoffs with
    their bytes and windows, each replica's launches of RMSNorm and paged
    decode, counted by the thread that made them, and each fused round's
@@ -136,7 +137,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    two digests equal), joined over ``serve_control``, the handoffs over the
    remote KV wire. Timed pass: p0 on the engine phase's weights and a
    standby d0 of one block (so every stream decodes in the agent), the
-   serving phase's 32 clients, 64-step rounds: TTFT / TPOT p50 / p99,
+   serving mix's first 16 clients, 64-step rounds: TTFT / TPOT p50 / p99,
    tok/s, the handoffs' bytes and windows, the endpoint's wire bytes, the
    agent's launches (counted in the child) and its rounds' seconds beside
    the same rounds replayed alone in the child. At 4 layers, 8 clients of
@@ -205,7 +206,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    versions; then the steps). Each prints its depth, its
    parameters and the bytes they take, and its peak memory.
 7. engine_per_row: the engine's per-row step with splash at all 32 layers,
-   an 8192-token context and 256-token chunks: 2 prompts of 6144-8176
+   an 8192-token context and 256-token chunks: 1 prompt of 6144-8176
    tokens prefilled and decoded for 16 tokens; every row step takes the
    splash prefill (launches counted exactly), logits against
    ``forward_reference`` and against the dense per-row path fed the same
@@ -313,6 +314,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
    adapters only, ``merge_lora``'s product within bf16's bound of the call.
    These phases launch no kernel of their own: the quantized models' paths
    launch the serving and training kernels, counted.
+   host_ops: the registry's ``cpu_adam`` and ``async_io`` built from
+   ``csrc/`` with g++: the native CPU-Adam, Adagrad and Lion and the two
+   bf16 casts at [4096, 14336] against their plain versions (relative
+   Frobenius, HOST_OPS_RTOL / HOST_OPS_MOMENT_RTOL; casts bit for bit), ms
+   and GB/s; ``AioHandle`` writing and reading 1 GiB sync and async (bytes
+   equal, GB/s, the reads warm), ``io_bench``; the host's MemTotal.
+   train_offload: Mistral-7B width, seq 4096, micro-batch 1 x gas 2, AdamW,
+   bf16, 2 layers (NVMe 1): the tiers none, ``cpu``, ``cpu`` with ratio
+   0.4, ``super_offload``, ``nvme``, ``offload_param: cpu`` and ZenFlow,
+   each 1 warm-up + 3 timed steps from the same seeded weights: losses
+   within 0.02 of the run without offload, peak device memory of the
+   state-holding tiers below its by 0.9 of the fp32 state, ZenFlow's step
+   on the card against the CPU's (1e-6); step s, D2H / H2D bytes, the host
+   optimizer's s, NVMe GB/s. train_stream: bench.py's streamed 7B at 4
+   layers, seq 2048: the streamed engine against itself with every leaf on
+   the card, the first loss and the params after 3 steps bit for bit (and
+   after one step without int8 moments), at most two layers' streamed
+   slices on the card at once; peak memory, staged GB/s against a 1 GiB
+   pinned copy, the copies' hidden share.
 
 Serving kernels must launch in the engine phase (the int8 pool's in
 engine_int8 and its per-row check), in a verify step (engine_spec,
@@ -328,7 +348,8 @@ train_alibi: together every kernel (train_moe and train_mlm must launch the
 flash kernels too, engine_moe and hf_import the serving kernels,
 train_import the training kernels, graft_entry RMSNorm and the flash
 forward; train_qmm the training kernels at every precision, serve_wq8 and
-serve_wq4 the serving kernels). The line before the last lists the
+serve_wq4 the serving kernels; every train_offload tier and train_stream
+the training kernels). The line before the last lists the
 kernels; the last line is the result object. With no card, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -3702,6 +3723,9 @@ SERVE_WAIT_S = 120
 # the serving phases' passes after the timed one (profiled, traced, spec,
 # planted) take the mix's first this many clients: the script's clock
 SERVE_SHORT_CLIENTS = 8
+# and the profiled pass the first this many (the profiler's trace of a
+# pass of 8 clients took ~7 s)
+SERVE_PROFILED_CLIENTS = 4
 # and the traced and planted passes run on a model cut to this many layers
 # from the seed (``cut_engine``; the script's clock), their streams held to
 # its generate() and plain forward. The spec pass stays whole: the n-gram
@@ -4175,7 +4199,8 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
     a traced pass (/debug/trace valid, dispatch and device-wait spans, one
     tree per request), a speculative pass (``NgramProposer``, k ``spec_k``)
     and a planted pass (``feedback_fault``); every pass but the timed one
-    serves the first ``SERVE_SHORT_CLIENTS`` clients, and the traced and
+    serves the first ``SERVE_SHORT_CLIENTS`` clients (the profiled one the
+    first ``SERVE_PROFILED_CLIENTS``), and the traced and
     planted passes an engine of ``short_layers`` layers
     (``cut_engine``: the same configs, weights from the seed; its own
     ``generate()`` and plain forward hold their streams). The timed, speculative and
@@ -4215,7 +4240,9 @@ def serving_phase(torch, dev, K, eng, int8=False, prompts=None, new_tokens=SERVE
     launches = None
     small = small_want = None
     for name, kw in passes:
-        n = len(prompts) if name == "timed" else min(SERVE_SHORT_CLIENTS, len(prompts))
+        n = (len(prompts) if name == "timed" else
+             min(SERVE_PROFILED_CLIENTS if name == "profiled" else SERVE_SHORT_CLIENTS,
+                 len(prompts)))
         ps = prompts[:n]
         ref, ref_want = eng, None if want is None else want[:n]
         if name in ("traced", "planted"):
@@ -4314,6 +4341,9 @@ def serving_note(rec, card):
 # over the ``device`` wire, the short passes this many of its requests
 ROUTER_PREFILL = 1
 ROUTER_DECODE = 2
+# the timed pass takes the serving mix's first this many clients (the
+# script's clock: its replay and check scale with the clients)
+ROUTER_TIMED_CLIENTS = 16
 ROUTER_SHORT = 8
 ROUTER_TIMED_TRANSPORT = "device"
 ROUTER_SHORT_TRANSPORTS = ("host", "in_process")
@@ -4634,9 +4664,11 @@ def router_phase(torch, dev, K, eng, prompts=None, want=None, new_tokens=SERVE_N
     from deepspeed_tpu_torch.serving.resilience import FaultSpec, ResilienceConfig
 
     prompts = prompts if prompts is not None else serve_prompts(eng._mc.vocab_size)
+    prompts = prompts[:ROUTER_TIMED_CLIENTS]
     if want is None:
         want = [[int(t) for t in o[len(p):]]
                 for o, p in zip(eng.generate(prompts, max_new_tokens=new_tokens), prompts)]
+    want = want[:len(prompts)]
     rtol = SERVE_MARGIN_RTOL
     ds = int(eng.config.decode_steps)
     short_ds = min(ds, ROUTER_SHORT_DECODE_STEPS)
@@ -4816,6 +4848,9 @@ def router_note(rec, card):
 # (tools/torch_remote_agent.py), over the remote KV wire and the control plane
 # ---------------------------------------------------------------------------
 REMOTE_AGENT = "tools/torch_remote_agent.py"
+# the timed pass takes the serving mix's first this many clients (the
+# script's clock, as the router's)
+REMOTE_TIMED_CLIENTS = 16
 REMOTE_NAME = "r0"
 # the short passes (int8, planted, wire fault, SIGKILL) build their own model
 # from the seed at this cut depth on both sides of the wire: the script's clock
@@ -5264,9 +5299,11 @@ def remote_phase(torch, dev, K, eng, root, prompts=None, want=None, new_tokens=S
     pass, "remote_agent": the agent's, and the int8 pass's as
     "remote_int8" / "remote_agent_int8"})."""
     prompts = prompts if prompts is not None else serve_prompts(eng._mc.vocab_size)
+    prompts = prompts[:REMOTE_TIMED_CLIENTS]
     if want is None:
         want = [[int(t) for t in o[len(p):]]
                 for o, p in zip(eng.generate(prompts, max_new_tokens=new_tokens), prompts)]
+    want = want[:len(prompts)]
     rtol = SERVE_MARGIN_RTOL
     ec = engine_config or ENGINE_CONFIG
     ds = int(ec["decode_steps"])
@@ -5611,15 +5648,16 @@ def serve_agent_cli_phase(torch, dev, K, work, root, new_tokens=SERVE_CLI_NEW,
 
 # the per-row leg: the engine's per-row step (_step_per_row) with
 # attention_impl="splash" at Mistral's window of 4096 over an 8192-token
-# context (64 blocks of 128), 256-token prompt chunks; 2 prompts of 6144 to
-# 8176 tokens, each then decoding 16 tokens (the context holds them)
+# context (64 blocks of 128), 256-token prompt chunks; 1 prompt of 6144 to
+# 8176 tokens (one, for the script's clock), then decoding 16 tokens
+# (the context holds them)
 PER_ROW_CONFIG = {
     "dtype": "bfloat16", "decode_steps": 1, "prompt_chunk": 256, "max_prompt_chunks": 4,
     "kv_cache": {"block_size": 128, "num_blocks": 4 * 64, "max_blocks_per_seq": 64},
     "state_manager": {"max_tracked_sequences": 8, "max_ragged_batch_size": 1024,
                       "max_ragged_sequence_count": 4, "max_context": 8192},
 }
-PER_ROW_PROMPTS = (2, 6144, 8192 - 16)  # count, shortest, longest
+PER_ROW_PROMPTS = (1, 6144, 8192 - 16)  # count, shortest, longest
 PER_ROW_NEW_TOKENS = 16
 # The splash per-row path against the dense per-row path fed the same
 # tokens: both run the same bf16 projections and norms and differ only in
@@ -5904,6 +5942,9 @@ SEQ = 4096
 # (train_fused's checkpoint round trip halves)
 TRAIN_LAYERS = 4
 PARITY_LAYERS = 2
+# the fused leg's parity leg, whose engine also makes the checkpoint round
+# trip (~10 GB at 2 layers): 1 layer, for the script's clock
+FUSED_PARITY_LAYERS = 1
 TRAIN_CONFIG = {
     "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
     "bf16": {"enabled": True},
@@ -8692,6 +8733,671 @@ def device_profile(torch, fns, sums=()):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# offload and streaming: the native host ops, the offload
+# tiers through train_batch, weight streaming
+# ---------------------------------------------------------------------------
+HOST_OPS_SHAPE = (4096, 14336)  # one Mistral-7B w_up
+# native against plain, as ||native - plain|| / ||plain|| of each output
+# (-march=native may contract to FMA, so not bit for bit): the params and
+# the casts within 1e-6; a moment updated by (1 - beta) g within 2e-5,
+# since the library rounds 1 - beta to fp32 from fp32 beta and the plain
+# version (the JAX module's numpy math) from the double 1 - beta: 1 -
+# 0.999f is 1.2e-5 off 0.001
+HOST_OPS_RTOL = 1e-6
+HOST_OPS_MOMENT_RTOL = 2e-5
+AIO_BYTES = 1 << 30
+IO_BENCH_MB = 64
+# the offload tiers at Mistral-7B width, seq 4096, micro-batch 1 x gas 2,
+# AdamW, bf16: cut to 2 of 32 layers (full depth holds ~87 GB of fp32 state
+# alone), the NVMe tier to 1 (its state crosses the disk twice a step)
+OFFLOAD_LAYERS = 2
+OFFLOAD_NVME_LAYERS = 1
+OFFLOAD_TIMED_STEPS = 3
+OFFLOAD_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+    "zero_optimization": {"stage": 2}, "steps_per_print": 1000,
+}
+OFFLOAD_TIERS = {
+    "none": {},
+    "cpu": {"offload_optimizer": {"device": "cpu"}},
+    "cpu_ratio": {"offload_optimizer": {"device": "cpu", "ratio": 0.4}},
+    "super_offload": {"offload_optimizer": {"device": "cpu", "super_offload": True}},
+    "nvme": {"offload_optimizer": {"device": "nvme"}},
+    "offload_param": {"offload_param": {"device": "cpu"}},
+    "zenflow": {},
+}
+# ZenFlow runs full AdamW for its warm-up rounds: over the leg's steps, so
+# its losses answer the reference's (its selective steps update a tenth of
+# the 2-D columns and differ by design); the selective step, the boundary
+# and the reselection run in the card-against-CPU check that follows
+ZENFLOW_SECTION = {"topk_ratio": 0.1, "update_interval": 2, "select_interval": 2,
+                   "full_warm_up_rounds": 1 + OFFLOAD_TIMED_STEPS}
+OFFLOAD_LOSS_ATOL = PARITY_LOSS_ATOL
+# the state-holding tiers' peak device memory must sit this share of the
+# fp32 state's bytes (master + moments) below the reference's
+OFFLOAD_MEM_SHARE = 0.9
+OFFLOAD_MEM_TIERS = ("cpu", "super_offload", "nvme")
+# ZenFlow's step on the card against the same step on the CPU: the fp32
+# state within this share of each tensor's largest element
+ZENFLOW_RTOL = 1e-6
+# a matrix (its selective columns), a vector and a stacked leaf
+ZENFLOW_LEAVES = ("layers/attn_norm", "final_norm", "layers/wq")
+# bench.py's streamed 7B (h 4096, 32/32 heads, ffn 11008, vocab 32000, seq
+# 2048, remat "nothing", bf16, AdamW lr 1e-4, ZeRO 3, offload_param cpu,
+# offload_optimizer cpu with int8 moments), micro-batch 1: cut to 4 of 32
+# layers for the clock and the run's host memory
+STREAM_LAYERS = 4
+STREAM_SEQ = 2048
+STREAM_STEPS = 3
+STREAM_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"},
+                          "offload_optimizer": {"device": "cpu", "stream_quant_bits": 8}},
+    "steps_per_print": 1000,
+}
+
+
+def host_mem_total():
+    """The host's MemTotal in bytes (/proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def filesystem_of(path):
+    """(mount point, type) of the filesystem holding ``path`` (/proc/mounts)."""
+    path = os.path.realpath(path)
+    best = ("/", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    return {"mount": best[0], "type": best[1]}
+
+
+def _rel_err(torch, got, want):
+    """max |got - want| over want's largest magnitude."""
+    got, want = got.float().reshape(-1), want.float().reshape(-1)
+    if not want.numel():
+        return 0.0
+    scale = float(want.abs().max()) or 1.0
+    return float((got - want).abs().max()) / scale
+
+
+def _rel_fro(torch, got, want):
+    """||got - want|| / ||want||, in double."""
+    got, want = got.double().reshape(-1), want.double().reshape(-1)
+    return float(torch.linalg.vector_norm(got - want)) / (
+        float(torch.linalg.vector_norm(want)) or 1.0)
+
+
+def _host_ms(fn, reps=3):
+    fn()  # warm: page faults, OpenMP's threads
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def host_ops_phase(torch, dev, shape=HOST_OPS_SHAPE, aio_bytes=AIO_BYTES, bench_mb=IO_BENCH_MB):
+    """The two native host libraries, built from csrc/ through the op
+    registry: CPU-Adam, Adagrad, Lion and the bf16 casts at ``shape``
+    against their plain versions (relative error, ms, GB/s), then
+    ``AioHandle`` writing and reading ``aio_bytes`` sync and async (bytes
+    equal, GB/s) and ``io_bench``."""
+    import contextlib as _cl
+    import io
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch import get_accelerator
+    from deepspeed_tpu_torch.ops.adam import cpu_adam as C
+    from deepspeed_tpu_torch.ops.aio import AioHandle
+    from deepspeed_tpu_torch.utils import io_bench
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "host_ops", "shape": list(shape), "mem_total_gb": host_mem_total() / 1e9,
+           "cpu_count": os.cpu_count()}
+    t0 = time.perf_counter()
+    for name in ("cpu_adam", "async_io"):
+        get_accelerator().create_op_builder(name).load(verbose=False)
+    rec["build_seconds"] = time.perf_counter() - t0
+    n = shape[0] * shape[1]
+    gen = torch.Generator().manual_seed(SEED)
+
+    def fresh():
+        return [torch.randn(n, generator=gen) * s for s in (1.0, 1e-2, 1e-3, 1e-6)]
+
+    p, g, m, v = fresh()
+    v.abs_()
+    ops = {}
+    ARGS = ("params", "grads", "exp_avg", "exp_avg_sq")
+    P, MOM = HOST_OPS_RTOL, HOST_OPS_MOMENT_RTOL
+
+    def record(name, native, plain, outs, nbytes):
+        """Run ``native`` and ``plain`` once each on copies of the same
+        inputs, compare ``outs`` ({index of an argument: its limit}), then
+        time."""
+        a = [t.clone() for t in (p, g, m, v)]
+        b = [t.clone() for t in (p, g, m, v)]
+        native(*a)
+        t0 = time.perf_counter()
+        plain(*b)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = {}
+        for i, limit in outs.items():
+            fro = _rel_fro(torch, a[i], b[i])
+            errs[ARGS[i]] = {"rel_frobenius": fro, "max_rel": _rel_err(torch, a[i], b[i]),
+                             "limit": limit}
+            if not fro <= limit:
+                raise AssertionError(f"host_ops {name}: {ARGS[i]} differs from the plain "
+                                     f"version by {fro:.3g} (relative Frobenius, limit {limit})")
+        ms = _host_ms(lambda: native(*a))
+        ops[name] = {"errors": errs, "ms": ms, "plain_ms": plain_ms,
+                     "gb_s": nbytes / ms / 1e6}
+
+    adam, adam_ref = C.DeepSpeedCPUAdam(lr=1e-3, weight_decay=0.01), \
+        C.DeepSpeedCPUAdam(lr=1e-3, weight_decay=0.01)
+    record("adam", lambda a, b, c, d: adam.step(a, b, c, d, step=1),
+           lambda a, b, c, d: adam_ref.step_reference(a, b, c, d, step=1),
+           {0: P, 2: MOM, 3: MOM}, 28 * n)
+    record("adagrad", lambda a, b, c, d: C.cpu_adagrad_step(a, b, d, 1e-2),
+           lambda a, b, c, d: C.cpu_adagrad_step_reference(a, b, d, 1e-2), {0: P, 3: P}, 20 * n)
+    record("lion", lambda a, b, c, d: C.cpu_lion_step(a, b, c, 1e-4, weight_decay=0.01),
+           lambda a, b, c, d: C.cpu_lion_step_reference(a, b, c, 1e-4, weight_decay=0.01),
+           {0: P, 2: MOM}, 20 * n)
+    # the casts: bf16 bits compared exactly (RNE is one rounding), timed alone
+    half, half_ref = torch.empty(n, dtype=torch.bfloat16), torch.empty(n, dtype=torch.bfloat16)
+    wide, wide_ref = torch.empty(n), torch.empty(n)
+    C.fp32_to_bf16(p, half)
+    C.fp32_to_bf16_reference(p, half_ref)
+    C.bf16_to_fp32(half, wide)
+    C.bf16_to_fp32_reference(half, wide_ref)
+    for name, got, want, native, plain in (
+            ("fp32_to_bf16", half, half_ref, lambda: C.fp32_to_bf16(p, half),
+             lambda: C.fp32_to_bf16_reference(p, half_ref)),
+            ("bf16_to_fp32", wide, wide_ref, lambda: C.bf16_to_fp32(half, wide),
+             lambda: C.bf16_to_fp32_reference(half, wide_ref))):
+        same = bool(torch.equal(got.view(torch.int16) if got.dtype == torch.bfloat16 else got,
+                                want.view(torch.int16) if want.dtype == torch.bfloat16 else want))
+        if not same:
+            raise AssertionError(f"host_ops {name}: the library's bits differ from the plain "
+                                 "version's")
+        ms = _host_ms(native)
+        ops[name] = {"bit_equal": same, "ms": ms, "plain_ms": _host_ms(plain, reps=1),
+                     "gb_s": 6 * n / ms / 1e6}
+    rec["ops"] = ops
+    del p, g, m, v
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_aio_")
+    rec["aio_dir_filesystem"] = filesystem_of(work)
+    try:
+        h = AioHandle(block_size=1 << 20, intra_op_parallelism=8)
+        src = h.new_cpu_locked_tensor(aio_bytes // 4)
+        dst = h.new_cpu_locked_tensor(aio_bytes // 4)
+        src.copy_(torch.randn(src.numel(), generator=gen))
+        aio = {"bytes": aio_bytes, "pinned": bool(src.is_pinned())}
+        for mode in ("sync", "async"):
+            path = os.path.join(work, f"{mode}.bin")
+            dst.zero_()
+            t0 = time.perf_counter()
+            if mode == "sync":
+                h.sync_pwrite(src, path)
+            else:
+                h.async_pwrite(src, path)
+                h.wait()
+            tw = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if mode == "sync":
+                h.sync_pread(dst, path)
+            else:
+                h.async_pread(dst, path)
+                h.wait()
+            tr = time.perf_counter() - t0
+            equal = bool(torch.equal(src.view(torch.int32), dst.view(torch.int32)))
+            if not equal:
+                raise AssertionError(f"host_ops: AioHandle {mode} read back other bytes")
+            aio[mode] = {"write_gb_s": aio_bytes / tw / 1e9, "read_gb_s": aio_bytes / tr / 1e9,
+                         "read_warm": True, "equal": equal}
+            os.remove(path)
+        h.free_cpu_locked_tensor(src)
+        h.free_cpu_locked_tensor(dst)
+        h.close()
+        rec["aio"] = aio
+        runs = []
+        for read in (False, True):
+            out = io.StringIO()
+            with _cl.redirect_stdout(out):
+                io_bench.main(["--path", work, "--size_mb", str(bench_mb)]
+                              + (["--read"] if read else []))
+            runs.append(json.loads(out.getvalue().strip().splitlines()[-1]))
+        rec["io_bench"] = runs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["seconds_in_phase"] = time.perf_counter() - t_phase
+    return rec
+
+
+def _tier_config(name, nvme_dir, base=OFFLOAD_CONFIG):
+    import copy
+
+    cfg = copy.deepcopy(base)
+    z = dict(cfg["zero_optimization"], **copy.deepcopy(OFFLOAD_TIERS[name]))
+    if name == "nvme":
+        z["offload_optimizer"]["nvme_path"] = nvme_dir
+    cfg["zero_optimization"] = z
+    if name == "zenflow":
+        cfg["zenflow"] = dict(ZENFLOW_SECTION)
+    return cfg
+
+
+def _state_bytes(params):
+    """fp32 master + two fp32 moments of every floating leaf."""
+    return 12 * sum(t.numel() for t in leaves(params).values() if t.is_floating_point())
+
+
+def zenflow_card_check(torch, dev, eng, grads):
+    """Two ZenFlow steps (the next selective one and, with it, a boundary
+    that reselects) on copies of the engine's state and ``grads`` at the
+    ``ZENFLOW_LEAVES`` paths, on the card and on the CPU: the fp32 state
+    within ZENFLOW_RTOL of each tensor's largest element, the selected
+    columns the same sets."""
+    from deepspeed_tpu_torch.runtime.zenflow import COUNTS, LEAF_FIELDS, ZenFlowOptimizer
+
+    opt = eng.optimizer
+
+    def sub(tree, where):
+        flat = leaves(tree)
+        out = {}
+        for path in ZENFLOW_LEAVES:
+            keys = path.split("/")
+            node = out
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = flat[path].detach().to(where, copy=True)
+        return out
+
+    def copies(where):
+        state = {f: sub(eng.opt_state[f], where) for f in LEAF_FIELDS}
+        state.update({c: eng.opt_state[c] for c in COUNTS})
+        return sub(eng.params, where), sub(grads, where), state
+
+    zf = ZenFlowOptimizer(opt.cfg, **opt.defaults)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        params, g, state = copies(where)
+        for _ in range(2):
+            state = zf.step(g, state, params, 1e-4)
+        runs[where.type] = (params, state)
+    (pc, sc), (ph, sh) = runs[dev.type], runs["cpu"]
+    worst, param_flips = 0.0, 0
+    for f in ("sel_m", "sel_v", "acc", "master", "m", "v"):
+        for path, t in leaves(sc[f]).items():
+            err = _rel_err(torch, t.cpu(), leaves(sh[f])[path])
+            if not err <= ZENFLOW_RTOL:
+                raise AssertionError(f"zenflow: {f} {path} on the card differs from the CPU "
+                                     f"step by {err:.3g} of its largest element")
+            worst = max(worst, err)
+    for path, t in leaves(sc["indices"]).items():
+        a, b = sorted(t.cpu().tolist()), sorted(leaves(sh["indices"])[path].tolist())
+        if a != b:
+            raise AssertionError(f"zenflow: the card selected other columns of {path}")
+    for path, t in leaves(pc).items():
+        param_flips += int((t.cpu() != leaves(ph)[path]).sum())
+    return {"leaves": list(ZENFLOW_LEAVES), "steps": 2, "max_rel_err": worst,
+            "bf16_params_differing": param_flips,
+            "counts": {c: sc[c] for c in COUNTS}}
+
+
+def train_offload_phase(torch, dev, K, widths=None, seq=SEQ, layers=OFFLOAD_LAYERS,
+                        nvme_layers=OFFLOAD_NVME_LAYERS, timed_steps=OFFLOAD_TIMED_STEPS,
+                        tiers=tuple(OFFLOAD_TIERS)):
+    """``initialize`` -> ``train_batch`` under each offload tier at
+    Mistral-7B width, each from the same seeded weights and batches: losses
+    within OFFLOAD_LOSS_ATOL of the reference (no offload) run, peak device
+    memory of the state-holding tiers below the reference's by
+    OFFLOAD_MEM_SHARE of the fp32 state bytes, ZenFlow's step on the card
+    against the CPU. Reports step s, D2H / H2D bytes a step, the host
+    optimizer's s and the NVMe tier's read / write GB/s."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as T
+
+    widths = dict(widths or {})
+    widths.setdefault("dtype", "bfloat16")
+    t_phase = time.perf_counter()
+    base = dict(OFFLOAD_CONFIG)
+    if widths["dtype"] != "bfloat16":  # a CPU rehearsal in the model's own dtype
+        base.pop("bf16")
+    gas = base["gradient_accumulation_steps"]
+    rec = {"phase": "train_offload", "model": MODEL, "seq": seq, "layers": layers,
+           "nvme_layers": nvme_layers, "micro_batch": 1, "gas": gas, "tiers": {}}
+    nvme_dir = tempfile.mkdtemp(prefix="chip_smoke_nvme_")
+    rec["nvme_filesystem"] = filesystem_of(nvme_dir)
+    # the largest host tier: the state page-locked, made from an unpinned
+    # copy (2 x 12 bytes a parameter); refuse a host that cannot hold it
+    cfg = T.get_config(MODEL, n_layers=layers, **widths)
+    h, d = cfg.hidden_size, cfg.head_dim
+    n = (cfg.n_layers * (h * (cfg.n_heads + 2 * cfg.kv_heads) * d + cfg.n_heads * d * h
+                         + 3 * h * cfg.ffn_dim) + 2 * cfg.vocab_size * h)
+    rec.update(mem_total_gb=host_mem_total() / 1e9, host_gb_needed=24 * n / 1e9)
+    if rec["host_gb_needed"] > rec["mem_total_gb"]:
+        raise AssertionError(f"train_offload: the host has {rec['mem_total_gb']:.1f} GB, the "
+                             f"tiers need ~{rec['host_gb_needed']:.1f} GB")
+    rng = np.random.default_rng(SEED + 26)
+    refs = {}
+    try:
+        for name in tiers:
+            n_layers = nvme_layers if name == "nvme" else layers
+            # the reference (no offload) at this depth first, once
+            legs = ([(f"none@{n_layers}", "none")] if n_layers not in refs else []) + \
+                ([] if name == "none" else [(name, name)])
+            for label, tier in legs:
+                cfg = T.get_config(MODEL, n_layers=n_layers, remat=False, **widths)
+                batches = [{"input_ids": torch.as_tensor(np.random.default_rng(
+                    SEED + 26 + i).integers(0, cfg.vocab_size, size=(gas, seq + 1)), device=dev)}
+                    for i in range(1 + timed_steps)]
+                _sync(torch, dev)
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 26),
+                                       dev)
+                state_bytes = _state_bytes(params)
+                K.reset_counts()
+                eng, *_ = deepspeed_tpu_torch.initialize(
+                    model=T.make_loss_fn(cfg), model_parameters=params,
+                    config=_tier_config(tier, nvme_dir, base))
+                del params
+                _sync(torch, dev)
+                init_s = time.perf_counter() - t0
+                host_s = []
+                if eng._host_opt is not None:
+                    step = eng._host_opt.step
+
+                    def timed_step(*a, _step=step, **k):
+                        t1 = time.perf_counter()
+                        out = _step(*a, **k)
+                        host_s.append(time.perf_counter() - t1)
+                        return out
+
+                    eng._host_opt.step = timed_step
+                losses, step_s = [], []
+                for b in batches:
+                    t1 = time.perf_counter()
+                    losses.append(float(eng.train_batch(batch=b)))
+                    _sync(torch, dev)
+                    step_s.append(time.perf_counter() - t1)
+                out = {"layers": n_layers, "losses": losses, "step_s": step_s[1:],
+                       "warmup_s": step_s[0], "init_s": init_s, "state_gb": state_bytes / 1e9,
+                       "launches": K.counts()}
+                if dev.type == "cuda":
+                    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                n = sum(t.numel() for t in leaves(eng.params).values())
+                mean_step = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+                d2h = h2d = 0
+                if tier in ("cpu", "super_offload", "nvme"):
+                    d2h, h2d = 4 * n, 2 * n  # fp32 grads down, bf16 params up
+                elif tier == "cpu_ratio":
+                    d2h = h2d = eng._host_state_bytes  # the host leaves staged through
+                elif tier == "offload_param":
+                    d2h, h2d = 2 * n, 2 * n  # params staged up, the new ones written back
+                out.update(d2h_bytes_per_step=d2h, h2d_bytes_per_step=h2d,
+                           d2h_gb_s=d2h / mean_step / 1e9, h2d_gb_s=h2d / mean_step / 1e9)
+                if tier == "cpu_ratio":
+                    out["host_state_gb"] = eng._host_state_bytes / 1e9
+                if host_s:
+                    out["host_optimizer_s"] = host_s[1:]
+                if tier == "nvme":
+                    # the state's bytes read and written a step over the host
+                    # step's seconds (reads, writes and CPU-Adam overlap)
+                    sw = eng._host_opt
+                    per = 3 * 4 * sum(t.numel() for t in leaves(eng.params).values())
+                    host = sum(host_s[1:]) / max(len(host_s) - 1, 1)
+                    out.update(nvme_read_gb_s=per / host / 1e9, nvme_write_gb_s=per / host / 1e9,
+                               nvme_bytes_read=sw.bytes_read, nvme_bytes_written=sw.bytes_written)
+                if tier == "zenflow":
+                    stacked = eng._stack_batch(batches[0])
+                    grads = eng._grads_only(stacked)[0]
+                    out["card_vs_cpu"] = zenflow_card_check(torch, dev, eng, grads)
+                    del grads
+                if not all(np.isfinite(losses)):
+                    raise AssertionError(f"train_offload {label}: non-finite losses {losses}")
+                out["seconds"] = time.perf_counter() - t0
+                print(json.dumps({"train_offload_tier": label, "seconds": out["seconds"],
+                                  "init_s": init_s, "step_s": step_s, "losses": losses,
+                                  "peak_gb": out.get("peak_gb")}), flush=True)
+                if label.startswith("none@"):
+                    refs[n_layers] = out
+                    rec["tiers"][label] = out
+                else:
+                    ref = refs[n_layers]
+                    diff = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+                    out["max_loss_diff"] = diff
+                    if not diff <= OFFLOAD_LOSS_ATOL:
+                        raise AssertionError(f"train_offload {label}: losses {losses} against the "
+                                             f"reference's {ref['losses']} (limit "
+                                             f"{OFFLOAD_LOSS_ATOL})")
+                    if tier in OFFLOAD_MEM_TIERS and dev.type == "cuda":
+                        saved = ref["peak_gb"] - out["peak_gb"]
+                        out["peak_saved_over_state"] = saved / out["state_gb"]
+                        if not saved >= OFFLOAD_MEM_SHARE * out["state_gb"]:
+                            raise AssertionError(
+                                f"train_offload {label}: peak {out['peak_gb']:.2f} GB against the "
+                                f"reference's {ref['peak_gb']:.2f} GB saves {saved:.2f} GB, under "
+                                f"{OFFLOAD_MEM_SHARE} of the {out['state_gb']:.2f} GB of state")
+                    rec["tiers"][label] = out
+                del eng
+    finally:
+        shutil.rmtree(nvme_dir, ignore_errors=True)
+    rec["seconds_in_phase"] = time.perf_counter() - t_phase
+    return rec
+
+
+def all_on_card(torch, eng, dev):
+    """Move a streamed engine's host leaves and state to the card and drop
+    its streamer: the same engine with every leaf on the card (its
+    StreamedAdamW takes the whole-leaf path)."""
+    from deepspeed_tpu_torch.runtime.optimizers import tree_map
+
+    def to(t):
+        return t.detach().to(dev).requires_grad_(t.requires_grad) if isinstance(
+            t, torch.Tensor) else t
+
+    eng.params = tree_map(to, eng.params)
+    st = eng.opt_state
+    eng.opt_state = st._replace(master=tree_map(to, st.master),
+                                inner={k: tree_map(to, v) if isinstance(v, dict) else v
+                                       for k, v in st.inner.items()})
+    eng._streamer = None
+    return eng
+
+
+def _stream_run(torch, dev, K, cfg, ds_config, batches, on_card):
+    """One streamed engine (every leaf on the card when ``on_card``) over
+    ``batches``: losses, step s, the optimizer's s, peak memory, launches,
+    the streamer's counters and the params after the last step (CPU)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as T
+
+    _sync(torch, dev)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 27), dev)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=T.make_loss_fn(cfg), model_parameters=params,
+                                             config=ds_config)
+    del params
+    if on_card:
+        all_on_card(torch, eng, dev)
+    st = eng._streamer
+    if st is not None:
+        st.timing = True
+    opt_s = []
+    step = eng.optimizer.step
+
+    def timed(*a, **k):
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        out = step(*a, **k)
+        _sync(torch, dev)
+        opt_s.append(time.perf_counter() - t1)
+        return out
+
+    eng.optimizer.step = timed
+    K.reset_counts()
+    losses, step_s, copy_ms = [], [], []
+    for b in batches:
+        if st is not None:
+            st.reset_counts()
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch=b)))
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t1)
+        if st is not None:
+            copy_ms.append(st.copy_ms())
+    out = {"losses": losses, "step_s": step_s, "optimizer_s": opt_s,
+           "launches": K.counts()}
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if st is not None:
+        out.update(layer_slice_gb=st.layer_bytes / 1e9, peak_streamed_gb=st.peak_bytes / 1e9,
+                   extra_stages=st.extra_stages, stages_per_step=st.stages,
+                   h2d_gb_per_step=st.h2d_bytes / 1e9, d2h_gb_per_step=st.d2h_bytes / 1e9,
+                   copy_ms=copy_ms)
+    final = {k: t.detach().cpu() for k, t in leaves(eng.params).items()}
+    del eng
+    return out, final
+
+
+def train_stream_phase(torch, dev, K, widths=None, layers=STREAM_LAYERS, seq=STREAM_SEQ,
+                       steps=STREAM_STEPS):
+    """bench.py's streamed 7B through ``train_batch``: the streamed engine
+    (layers staged from pinned host memory one ahead, StreamedAdamW over the
+    int8-moment host state) against the same engine with every leaf on the
+    card. Gates: (a) the first loss bit for bit; (b) the params after
+    ``steps`` bit for bit (and after one step without int8 moments);
+    (c) at most two layers' streamed slices on the card at once."""
+    import copy
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    widths = dict(widths or {})
+    widths.setdefault("dtype", "bfloat16")
+    t_phase = time.perf_counter()
+    ds_config = copy.deepcopy(STREAM_CONFIG)
+    if widths["dtype"] != "bfloat16":
+        ds_config.pop("bf16")
+    preset = widths.pop("preset", "llama-7b")
+    cfg = T.get_config(preset, n_layers=layers, max_seq_len=seq, remat=True,
+                       remat_policy="nothing", weight_stream=True, **widths)
+    rec = {"phase": "train_stream", "model": preset, "layers": layers, "seq": seq,
+           "micro_batch": 1, "stream_quant_bits": 8}
+    rng = np.random.default_rng(SEED + 27)
+    batches = [{"input_ids": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, seq + 1)),
+                                             device=dev)} for _ in range(steps)]
+    rec["streamed"], p_stream = _stream_run(torch, dev, K, cfg, ds_config, batches, False)
+    rec["on_card"], p_card = _stream_run(torch, dev, K, cfg, ds_config, batches, True)
+    s, c = rec["streamed"], rec["on_card"]
+
+    def same_params(a, b, what):
+        for k in b:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"train_stream {what}: leaf {k} differs from the all-on-card "
+                                     f"run's after the steps (max abs diff "
+                                     f"{float((a[k].float() - b[k].float()).abs().max())})")
+
+    rec["gate_a_first_loss_equal"] = s["losses"][0] == c["losses"][0]
+    if not rec["gate_a_first_loss_equal"]:
+        raise AssertionError(f"train_stream (a): the first loss {s['losses'][0]!r} is not the "
+                             f"all-on-card run's {c['losses'][0]!r}")
+    same_params(p_stream, p_card, "(b)")
+    rec["gate_b_params_equal"] = True
+    bound = 2 * s["layer_slice_gb"]
+    rec["gate_c"] = {"peak_streamed_gb": s["peak_streamed_gb"], "bound_gb": bound,
+                     "extra_stages": s["extra_stages"]}
+    if not (s["peak_streamed_gb"] <= bound + 1e-9 and s["extra_stages"] == 0):
+        raise AssertionError(f"train_stream (c): {s['peak_streamed_gb']:.3f} GB of streamed "
+                             f"weights on the card at once ({s['extra_stages']} layers without a "
+                             f"slot), above two layers' {bound:.3f} GB")
+    del p_stream, p_card
+    if dev.type == "cuda":
+        # the link's own reading: one 1 GiB pinned H2D copy
+        host = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+        devbuf = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+        devbuf.copy_(host, non_blocking=True)
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        devbuf.copy_(host, non_blocking=True)
+        ev1.record()
+        ev1.synchronize()
+        rec["link_h2d_gb_s"] = (1 << 30) / ev0.elapsed_time(ev1) / 1e6
+        del host, devbuf
+        timed = list(range(1, steps))
+        copy_s = sum(s["copy_ms"][i] for i in timed) / 1e3 / len(timed)
+        fb_stream = sum(s["step_s"][i] - s["optimizer_s"][i] for i in timed) / len(timed)
+        fb_card = sum(c["step_s"][i] - c["optimizer_s"][i] for i in timed) / len(timed)
+        bytes_step = (s["h2d_gb_per_step"] + s["d2h_gb_per_step"]) * 1e9
+        rec.update(staged_gb_s=bytes_step / copy_s / 1e9, copy_s_per_step=copy_s,
+                   fwd_bwd_s={"streamed": fb_stream, "on_card": fb_card},
+                   hidden_share=max(0.0, min(1.0, 1.0 - max(0.0, fb_stream - fb_card) / copy_s)))
+    # int8 moments off: one short pass, gate (b) only
+    q0 = copy.deepcopy(ds_config)
+    q0["zero_optimization"]["offload_optimizer"]["stream_quant_bits"] = 0
+    r0, a0 = _stream_run(torch, dev, K, cfg, q0, batches[:1], False)
+    r1, b0 = _stream_run(torch, dev, K, cfg, q0, batches[:1], True)
+    same_params(a0, b0, "(b) without int8 moments")
+    rec["quant0"] = {"streamed": r0, "on_card": r1, "gate_b_params_equal": True}
+    rec["seconds_in_phase"] = time.perf_counter() - t_phase
+    return rec
+
+
+
+def offload_note(rec, card):
+    """One line of a host_ops / train_offload / train_stream record."""
+    if rec["phase"] == "host_ops":
+        ops = ", ".join(f"{k} {v['ms']:.1f} ms ({v['gb_s']:.1f} GB/s, plain {v['plain_ms']:.0f})"
+                        for k, v in rec["ops"].items())
+        aio = rec["aio"]
+        return (f"host_ops: {ops}; AioHandle 1 GiB on {rec['aio_dir_filesystem']['type']}: sync "
+                f"write {aio['sync']['write_gb_s']:.2f} / read {aio['sync']['read_gb_s']:.2f} "
+                f"GB/s (warm), async {aio['async']['write_gb_s']:.2f} / "
+                f"{aio['async']['read_gb_s']:.2f}; host MemTotal {rec['mem_total_gb']:.1f} GB; "
+                f"on {card}")
+    if rec["phase"] == "train_offload":
+        steps = ", ".join(f"{k} {sum(v['step_s']) / len(v['step_s']):.3f} s / "
+                          f"{v.get('peak_gb', 0):.2f} GB" for k, v in rec["tiers"].items())
+        return f"train_offload ({rec['layers']} layers, step s / peak): {steps}; on {card}"
+    s, c = rec["streamed"], rec["on_card"]
+    return (f"train_stream ({rec['layers']} layers of {rec['model']}): steps "
+            f"{[round(x, 3) for x in s['step_s']]} s streamed, "
+            f"{[round(x, 3) for x in c['step_s']]} on the card; peak {s.get('peak_gb', 0):.2f} "
+            f"against {c.get('peak_gb', 0):.2f} GB; streamed weights on the card at once "
+            f"{s['peak_streamed_gb']:.3f} GB (two layers {2 * s['layer_slice_gb']:.3f}); staged "
+            f"{rec.get('staged_gb_s', 0):.1f} GB/s against the link's "
+            f"{rec.get('link_h2d_gb_s', 0):.1f}; hidden {rec.get('hidden_share', 0):.2f}; on "
+            f"{card}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -8869,7 +9575,9 @@ def main(argv=None):
     for leg in ("train", "train_fused", "train_splash"):
         t0 = time.perf_counter()
         rec, launches = train_phase(torch, dev, K, profile=args.profile,
-                                    fused=leg == "train_fused", splash=leg == "train_splash")
+                                    fused=leg == "train_fused", splash=leg == "train_splash",
+                                    parity_layers=(FUSED_PARITY_LAYERS if leg == "train_fused"
+                                                   else PARITY_LAYERS))
         train_launches[leg] = launches
         rec["card"] = card
         rec["seconds"] = time.perf_counter() - t0
@@ -8947,6 +9655,25 @@ def main(argv=None):
     print(f"qmatmul + train_qmm + serve_wq8 + serve_wq4 + serve_wq8_int8 + fp_quantizer + "
           f"lora: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
+    # offload and streaming: the native host ops, every offload tier
+    # through train_batch, weight streaming
+    offload_launches = {}
+    for name, run_phase in (("host_ops", lambda: host_ops_phase(torch, dev)),
+                            ("train_offload", lambda: train_offload_phase(torch, dev, K)),
+                            ("train_stream", lambda: train_stream_phase(torch, dev, K))):
+        t0 = time.perf_counter()
+        rec = run_phase()
+        rec.update(card=card, seconds=time.perf_counter() - t0)
+        emit(rec)
+        print(offload_note(rec, card), flush=True)
+        if name == "train_offload":
+            offload_launches[name] = rec["tiers"][f"none@{OFFLOAD_LAYERS}"]["launches"]
+            offload_launches["train_offload_streams"] = {
+                tier: r["launches"] for tier, r in rec["tiers"].items()}
+        elif name == "train_stream":
+            offload_launches[name] = rec["streamed"]["launches"]
+        torch.cuda.empty_cache()
+
     # serving kernels launch in the engine phase (the int8 pool's in the
     # engine_int8 phase and the int8 per-row check), training kernels in the
     # train legs, the fused leg's four in the fused leg, the splash kernels
@@ -9002,6 +9729,11 @@ def main(argv=None):
                 if quant_launches[phase][n] <= 0]
     missing += [f"{n} (serve_wq8_int8)" for n in ("rms_norm_fwd",) + INT8_KERNELS
                 if quant_launches["serve_wq8_int8"][n] <= 0]
+    missing += [f"{n} (train_offload {tier})" for tier, counts in
+                offload_launches["train_offload_streams"].items()
+                for n in TRAIN_KERNELS if counts[n] <= 0]
+    missing += [f"{n} (train_stream)" for n in TRAIN_KERNELS
+                if offload_launches["train_stream"][n] <= 0]
     if missing or set(launched) != set(K.KERNELS):
         raise AssertionError(
             f"a kernel of the path was not launched: {missing}; serving {serve_launches}, "
@@ -9057,6 +9789,8 @@ def main(argv=None):
                for phase_name in ("serve_wq8", "serve_wq4", "serve_wq8_int8")},
             **{f"launches_train_qmm_{mode}": quant_launches["train_qmm"][mode].get(name, 0)
                for mode in QMM_TRAIN_MODES},
+            **{f"launches_{phase_name}": offload_launches[phase_name].get(name, 0)
+               for phase_name in ("train_offload", "train_stream")},
             "matched": True,  # check_close raised otherwise
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

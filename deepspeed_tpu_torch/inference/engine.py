@@ -76,7 +76,6 @@ class InferenceEngine:
                 raise NotImplementedError(
                     "quantized inference with tensor parallelism is unsupported")
             raise _later("tensor_parallel.tp_size > 1", "ROADMAP queue 1, item 6: multi-GPU")
-        T._check_forward(self.model_config)
         dtype = T.DTYPES.get(config.dtype, torch.bfloat16)
 
         def place(tree):

@@ -38,7 +38,9 @@ types and masked-LM head, and two forwards:
 ``decode_step`` / ``init_kv_cache`` are the v1 inference engine's cached
 decode over contiguous KV caches (``inference/engine.py``).
 
-Quantized projections and weight streaming are later slices and raise
+With ``weight_stream`` and the training engine's ``offload_param``, the
+streamed weights stay in host memory and each layer's are staged as it
+runs (``models/weight_stream.py``). Features of later slices raise
 ``NotImplementedError`` naming their ROADMAP items.
 """
 
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.quantization.quantize import QuantizedWeight, maybe_dequantize
+from deepspeed_tpu_torch.models.weight_stream import active_streamer
 from deepspeed_tpu_torch.ops.attention.core import alibi_bias, attention, mha_reference
 from deepspeed_tpu_torch.ops.normalization import (
     fused_layer_norm,
@@ -235,13 +238,12 @@ class TransformerConfig:
     # "none" keeps full-width GSPMD collectives (bit-identical to before)
     comm_quant: str = "none"
     # ZeRO-Infinity weight streaming (reference partition_parameters.py
-    # remote_device + partitioned_param_coordinator prefetch): params rest in
-    # pinned_host; each scan iteration stages ONE layer's weights into HBM
-    # (XLA's latency-hiding scheduler overlaps the copy with compute — the
-    # reference's prefetch_bucket_size machinery for free), remat re-stages
-    # them in backward, and weight grads stream back to host via the staging
-    # vjp. HBM then holds one layer + activations, so models far larger than
-    # HBM train on one chip. Requires offload_param + a TPU backend; no-op
+    # remote_device + partitioned_param_coordinator prefetch): the streamed
+    # params rest in page-locked host memory; each layer's weights are staged
+    # to the device one layer ahead on a copy stream, remat re-stages them in
+    # backward, and their grads go back to the host (models/weight_stream.py).
+    # The device then holds two layers' weights + activations. Takes effect
+    # under the training engine's offload_param (its stream_scope); a no-op
     # elsewhere.
     weight_stream: bool = False
 
@@ -1001,9 +1003,23 @@ def _layer(c: TransformerConfig, lp, x, positions, segment_ids=None, local_flag=
     return x + mlp_out, aux
 
 
-def _check_forward(c: TransformerConfig):
-    if c.weight_stream:
-        raise NotImplementedError("weight_stream is not ported yet (ROADMAP queue 1, item 7)")
+def _streamer(params, c: TransformerConfig):
+    """The engine's weight streamer when this model streams and the params
+    are its own, else None."""
+    if not c.weight_stream:
+        return None
+    st = active_streamer()
+    return st if st is not None and st.owns_layers(params.get("layers", {})) else None
+
+
+def _stream_top(params, c: TransformerConfig):
+    """The params with the streamed 2-D leaves (embeddings, the LM head)
+    staged to the device; the stacked layers stay on the host, staged a
+    layer at a time by ``forward_hidden``."""
+    st = _streamer(params, c)
+    if st is None:
+        return params
+    return {k: st.whole(v) for k, v in params.items()}
 
 
 # The JAX package's remat policies (``remat_policy``), cheapest memory
@@ -1085,7 +1101,6 @@ def forward_hidden(params: Dict[str, Any], tokens, config: TransformerConfig, po
     raises ValueError whenever remat is on). ``reference`` selects the plain
     oracle path (see ``forward_reference``)."""
     c = config
-    _check_forward(c)
     if c.remat:
         remat_policy(c.remat_policy)
     remat = c.remat and not reference and torch.is_grad_enabled()
@@ -1093,24 +1108,47 @@ def forward_hidden(params: Dict[str, Any], tokens, config: TransformerConfig, po
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device, dtype=torch.int32)
+    st = _streamer(params, c)
+    params = _stream_top(params, c)
     x = embed_tokens(params, tokens, positions, c, token_type_ids=token_type_ids)
     # one unbind per stacked weight: its backward stacks the L layer grads
     # once, where indexing w[li] would give every layer's grad a full [L, ...]
-    # zero buffer to add into (a quantized weight is sliced per layer)
+    # zero buffer to add into (a quantized weight is sliced per layer);
+    # streamed weights are staged a layer at a time instead
+    streamed = st.layers if st is not None else {}
     stacked = {k: w.unbind(0) if isinstance(w, torch.Tensor) else w
-               for k, w in params["layers"].items()}
+               for k, w in params["layers"].items() if k not in streamed}
     aux_total = 0.0
     for li in range(c.n_layers):
         lp = {k: w[li] for k, w in stacked.items()}
         flag = None if c.attn_layer_pattern is None else int(c.attn_layer_pattern[li])
-        layer = functools.partial(_layer, c, lp, positions=positions, segment_ids=segment_ids,
-                                  local_flag=flag, reference=reference)
+        kw = dict(positions=positions, segment_ids=segment_ids, local_flag=flag,
+                  reference=reference)
+        if st is None:
+            layer = functools.partial(_layer, c, lp, **kw)
+        else:
+            # the device copy is taken inside the (remat'd) layer, so the
+            # backward's recompute takes it again instead of keeping it; the
+            # copies run outside: here, and in the backward from a hook on
+            # the layer's output (before the recompute)
+            st.ahead(li)
+            layer = functools.partial(_streamed_layer, st, li, c, lp, streamed, **kw)
         x, aux = _remat_layer(c.remat_policy, layer, x) if remat else layer(x)
+        if st is not None:
+            st.layer_done(li)
+            if remat:
+                x.register_hook(st.backward_hook(li))
         aux_total = aux_total + aux
     if c.final_norm:
         x = _norm(x, params["final_norm"], params.get("final_norm_b"), c.norm, c.norm_eps,
                   rms=rms_norm_reference if reference else rms_norm)
     return x, aux_total
+
+
+def _streamed_layer(st, li, c, lp, host_layer, x, **kw):
+    """``_layer`` over ``lp`` (the unstreamed slices) and layer ``li``'s
+    streamed slices of ``host_layer``, staged by ``st``."""
+    return _layer(c, {**lp, **st.layer(li, host_layer)}, x, **kw)
 
 
 def _mlm_transform(params, x, c: TransformerConfig):
@@ -1137,6 +1175,7 @@ def forward(params: Dict[str, Any], tokens, config: TransformerConfig, positions
             segment_ids=None, token_type_ids=None) -> Tuple[torch.Tensor, Any]:
     """Full forward: tokens [b, s] -> (logits [b, s, vocab], aux_loss),
     through ``attention`` and ``rms_norm`` (the kernels on a card)."""
+    params = _stream_top(params, config)
     x, aux = forward_hidden(params, tokens, config, positions, segment_ids, token_type_ids)
     return _head(params, x, config), aux
 
@@ -1148,6 +1187,7 @@ def forward_reference(params: Dict[str, Any], tokens, config: TransformerConfig,
     ``rms_norm_reference`` on any device, never a kernel, and no remat.
     Differentiable, so its autograd gradients are the reference of the
     kernel path's."""
+    params = _stream_top(params, config)
     x, aux = forward_hidden(params, tokens, config, positions, segment_ids, token_type_ids,
                             reference=True)
     return _head(params, x, config), aux
@@ -1171,7 +1211,6 @@ def decode_step(params, tokens, config: TransformerConfig, kv_caches, positions)
             "decode_step: bidirectional encoder models (attn_causal=False) "
             "do not autoregressively decode — call forward() instead"
         )
-    _check_forward(c)
     tokens = torch.as_tensor(tokens)
     dt = DTYPES[c.dtype]
     ck, cv, lens = kv_caches
@@ -1320,6 +1359,7 @@ def make_loss_fn(config: TransformerConfig):
         return loss + config.moe_aux_loss_coef * aux if config.n_experts > 0 else loss
 
     def head_nll(params, inputs, labels, mask, positions, segment_ids):
+        params = _stream_top(params, config)
         if fused or tiled:
             x, aux = forward_hidden(params, inputs, config, positions=positions,
                                     segment_ids=segment_ids)

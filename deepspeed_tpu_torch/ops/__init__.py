@@ -10,6 +10,7 @@ kernels build when an op is loaded on a card, or at their first launch.
 from deepspeed_tpu_torch.ops.op_builder import (
     ALL_OPS,
     CUDAOpBuilder,
+    NativeOpBuilder,
     OpBuilder,
     UnportedOpBuilder,
     register_op,
@@ -121,16 +122,12 @@ class RandomLTDBuilder(OpBuilder):
         return random_ltd
 
 
-@register_op
-class AsyncIOBuilder(UnportedOpBuilder):
-    NAME = "async_io"
-    ROADMAP = "ROADMAP queue 1, item 7: ops/aio"
+# host ops: g++ builds of csrc/ (NativeOpBuilder), loaded on either accelerator
+from deepspeed_tpu_torch.ops.adam.cpu_adam import CPUAdamBuilder  # noqa: E402
+from deepspeed_tpu_torch.ops.aio import AsyncIOBuilder  # noqa: E402
 
-
-@register_op
-class CPUAdamBuilder(UnportedOpBuilder):
-    NAME = "cpu_adam"
-    ROADMAP = "ROADMAP queue 1, item 7: ops/adam/cpu_adam.py"
+register_op(AsyncIOBuilder)
+register_op(CPUAdamBuilder)
 
 
 # Sparse attention is a first-class export, not just a builder target (the

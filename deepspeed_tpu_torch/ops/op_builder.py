@@ -9,9 +9,32 @@ card; on the CPU accelerator it hands out the op, whose wrappers take their
 plain versions for CPU tensors. An op the port does not have yet is
 registered all the same (``UnportedOpBuilder``): it is not compatible and
 its ``load()`` raises, naming its ROADMAP item.
+
+Host ops (the CPU optimizers of the offload tiers and the async file I/O
+of the NVMe tier) are C++ under ``csrc/``, shared with the JAX package and
+built read-only: ``NativeOpBuilder`` compiles its sources with ``g++`` at
+first use into ``build/torch_kernels/host/`` (``jit_native``) and binds the
+library's plain C ABI with ctypes, as the CUDA libraries are bound. A build
+that fails raises with the compiler's message: there is no switch that
+turns a native op off and no fallback on an entry point.
 """
 
+import ctypes
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
 from deepspeed_tpu_torch.utils.logging import logger
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+CSRC_DIR = REPO_ROOT / "csrc"
+HOST_BUILD_DIR = REPO_ROOT / "build" / "torch_kernels" / "host"
+HOST_FLAGS = ("-fopenmp", "-march=native", "-funroll-loops")
+_HOST_BUILD_LOCK = threading.Lock()
 
 
 class OpBuilder:
@@ -87,6 +110,80 @@ class UnportedOpBuilder(OpBuilder):
 
     def _build(self):
         raise NotImplementedError(f"op {self.NAME!r} is not ported yet ({self.ROADMAP})")
+
+
+def host_library_path(name: str, sources) -> Path:
+    """Where ``jit_native`` puts a library: named by the sources' bytes,
+    the flags and, since ``-march=native`` bakes in the host's ISA, the
+    machine and host name."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    h.update(platform.machine().encode())
+    h.update(platform.node().encode())  # -march=native
+    return HOST_BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def jit_native(name: str, sources) -> Path:
+    """Compile ``csrc/`` sources (paths relative to it) into one shared
+    library with ``g++ -O3 -shared``, unless it is built already, and return
+    its path. The compile writes a file of its own and renames it into
+    place, so processes that build at once never load half a library.
+    Raises RuntimeError with the compiler's message when it fails."""
+    srcs = [CSRC_DIR / s for s in sources]
+    out = host_library_path(name, srcs)
+    with _HOST_BUILD_LOCK:
+        if out.exists():
+            return out
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"native build of {name}: g++ not found on PATH")
+        HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [gxx, "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", *HOST_FLAGS,
+               *map(str, srcs), "-o", str(tmp)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"native build of {name} failed (g++ exit {proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+        logger.info(f"built native op {name} -> {out}")
+        return out
+
+
+class NativeOpBuilder(OpBuilder):
+    """An op backed by a g++-built library of ``csrc/`` sources, bound with
+    ctypes. Subclasses set ``SOURCES`` (relative to ``csrc/``) and declare
+    the entry points' signatures in ``_bind(lib)``. ``cls.lib()`` is the
+    one library of the process; ``load()`` hands it out. It builds on
+    either accelerator: host code needs no card."""
+
+    SOURCES = ()
+    _libs = {}
+    _lock = threading.Lock()
+
+    def is_compatible(self, verbose=False):
+        # a probe that compiles nothing
+        return self.NAME in self._libs or shutil.which("g++") is not None
+
+    @classmethod
+    def lib(cls):
+        if cls.NAME not in NativeOpBuilder._libs:
+            with NativeOpBuilder._lock:
+                if cls.NAME not in NativeOpBuilder._libs:
+                    lib = ctypes.CDLL(str(jit_native(cls.NAME, cls.SOURCES)))
+                    cls._bind(lib)
+                    NativeOpBuilder._libs[cls.NAME] = lib
+        return NativeOpBuilder._libs[cls.NAME]
+
+    def _build(self):
+        return self.lib()
+
+    @staticmethod
+    def _bind(lib):
+        raise NotImplementedError
 
 
 # Populated by the @register_op decorators in deepspeed_tpu_torch/ops/__init__.py.

@@ -58,9 +58,39 @@ the overflow check, the clip norm and the update are the same on every
 rank, and the reported loss is the global mean. There ZeRO stages above 0
 and checkpoints raise (ROADMAP queue 1, item 6). The loopback form is one
 process: nothing is reduced and every stage behaves as on one device.
-Offload, weight streaming, ZenFlow, pipelines, curriculum learning and the
-flops profiler raise ``NotImplementedError`` naming their ROADMAP items,
-and so does loading the JAX package's orbax store. The monitors
+Pipelines, curriculum learning and the flops profiler raise
+``NotImplementedError`` naming their ROADMAP items, and so does loading the
+JAX package's orbax store.
+
+The offload tiers, chosen by the JAX engine's rules:
+
+  * ``offload_optimizer.device: cpu`` (the pinned-host tier): the fp32
+    masters and the optimizer's state live in page-locked host memory; each
+    leaf's gradient comes down on a copy stream while the previous leaf's
+    update runs on the host, in the configured optimizer's own torch math,
+    and the params go back up. FusedAdam and Muon stage their state
+    through the card a leaf at a time instead (as the JAX engine stages
+    them through HBM). With ``ratio < 1`` (Twin-Flow) only that share of
+    the state's bytes, largest leaves first, lives on the host and the
+    update runs on the card.
+  * ``offload_param.device: cpu``: the params rest in page-locked host
+    memory between steps and are staged to the card when a step starts.
+  * ``super_offload`` and ``nvme`` (the host-optimizer tiers): the step
+    ends at gradients on the card, the overflow skip is decided, and the
+    native CPU-Adam updates state resident in host memory
+    (``runtime/superoffload.py``) or swapped through files
+    (``runtime/swap_tensor.py``); a client optimizer, a non-Adam
+    optimizer, ZenFlow, several processes or ``nvme`` without a path fall
+    back to the pinned-host tier with the JAX engine's warning, and the
+    imperative ``step()`` raises, as the JAX engine's does.
+  * ``weight_stream`` (the model config's) with ``offload_param``: the
+    model stages each layer's weights from host memory, one layer ahead,
+    and sends their gradients back (``models/weight_stream.py``); the
+    update is ``StreamedAdamW`` (``runtime/streamed_adam.py``) over
+    host-resident state. JAX's guards stand: one micro-batch a step, no
+    clipping, no fp16, Adam or AdamW.
+  * ``zenflow``: the selective optimizer of ``runtime/zenflow.py``, its
+    state on the card (as the JAX engine keeps it). The monitors
 (``monitor.MonitorMaster``: csv, Prometheus, and TensorBoard / W&B / Comet
 where their packages are installed) get the JAX engine's events at its
 print steps; a monitor that fails to build or write never stops training.
@@ -112,14 +142,11 @@ def _check_config(config: DeepSpeedConfig):
     """Raise for every configured section this slice does not run."""
     z = config.zero_optimization
     checks = [
-        (z.offload_optimizer.device != "none" or z.offload_param.device != "none",
-         "ZeRO offload (offload_optimizer/offload_param)", "ROADMAP queue 1, item 7"),
         (z.zero_quantized_gradients or z.zero_quantized_weights
          or z.zero_quantized_nontrainable_weights or z.zeropp_loco_param is not None,
          "ZeRO++ quantized exchange (qgZ/qwZ/LoCo)", "ROADMAP queue 1, item 6"),
         ((z.mics_shard_size or -1) > 0 or (z.zero_hpz_partition_size or 1) > 1,
          "MiCS / hpZ shard groups", "ROADMAP queue 1, item 6"),
-        (bool(config.zenflow), "ZenFlow", "ROADMAP queue 1, item 7"),
         (config.pipeline.stages > 1, "pipeline parallelism", "ROADMAP queue 1, item 6"),
         (bool((config.curriculum_learning or {}).get("enabled"))
          or bool((config.data_efficiency or {}).get("enabled")),
@@ -140,6 +167,18 @@ def _check_config(config: DeepSpeedConfig):
             "DeepSpeedEngine: the eigenvalue section drives nothing in the engine (the JAX "
             "engine never reads it); compute eigenvalues with deepspeed_tpu_torch.runtime."
             "eigenvalue.Eigenvalue on a loss that runs the plain path")
+
+
+def _leaves_of(tree):
+    return [v for _, v in _leaves(tree)]
+
+
+def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    """A host copy of ``t`` (page-locked when ``pin``), keeping
+    requires_grad."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    h.copy_(t.detach())
+    return h.requires_grad_(t.requires_grad)
 
 
 def _snapshot_cast(params, dtype, device):
@@ -177,14 +216,31 @@ class DeepSpeedEngine:
         # the engine runs where the params live (numpy params: the card)
         first = next(v for _, v in _leaves(params))
         self.device = first.device if isinstance(first, torch.Tensor) else torch.device("cuda")
+        self._configure_tiers(config, optimizer, getattr(loss_fn, "model_config", None))
         self.params = _snapshot_cast(params, self.compute_dtype, self.device)
-        self._param_list = [p for _, p in _leaves(self.params)]
-        for p in self._param_list:
+        for p in _leaves_of(self.params):
             if p.is_floating_point():
                 p.requires_grad_(True)
 
         self.optimizer = self._configure_optimizer(optimizer, config, params)
-        self.opt_state = self.optimizer.init(self.params)
+        if self._weight_stream:
+            self.optimizer = self._streamed_optimizer(config)
+        self._host_opt = None
+        self._streamer = None
+        self._staged_params = None
+        if self._host_opt_requested:
+            # the state never exists as tensors of the engine: it is seeded
+            # straight into the host optimizer (host memory or files)
+            self._init_host_optimizer(config.zero_optimization)
+            self.opt_state = None
+        else:
+            # offloaded state is made on the host: the device never holds it,
+            # not even while it is made
+            self.opt_state = self.optimizer.init(
+                tree_map(lambda p: p.detach().cpu(), self.params) if self._offload_opt
+                else self.params)
+            self._place_state()
+        self._place_params()
 
         self.scaler_cfg = ls.make_config(config.fp16) if self.fp16_enabled else ls.STATIC_UNIT
         self.scaler_state = ls.init_state(self.scaler_cfg)
@@ -213,7 +269,7 @@ class DeepSpeedEngine:
         self._last_loss = None
         self._last_grad_norm = None
         self._last_overflow = None
-        n = sum(p.numel() for p in self._param_list)
+        n = sum(p.numel() for p in _leaves_of(self.params))
         log_dist(
             f"DeepSpeedEngine: {n / 1e6:.2f}M params | zero_stage={self.zero_stage} "
             f"| dtype={config.precision_dtype} | device={self.device} "
@@ -252,6 +308,15 @@ class DeepSpeedEngine:
                 "No optimizer: pass `optimizer=` to initialize() or set the config "
                 "'optimizer' section"
             )
+        if config.zenflow:
+            # ZenFlow's selective schedule (reference engine.py:351-356 +
+            # runtime/zenflow/): Adam-family only, as the reference
+            from deepspeed_tpu_torch.runtime.zenflow import build_zenflow_optimizer
+
+            name = (config.optimizer.type or "").lower()
+            if name not in ("adam", "adamw", "zenflowselectiveadam"):
+                raise ValueError(f"zenflow requires an Adam-family optimizer, got {name}")
+            return build_zenflow_optimizer(config.zenflow, config.optimizer)
         return build_optimizer(config.optimizer)
 
     def _configure_monitor(self, config):
@@ -275,6 +340,272 @@ class DeepSpeedEngine:
                 sched.set_base_lr(self.optimizer.get_lr())
             return sched
         return None
+
+    # ------------------------------------------------------------------
+    # the offload tiers (the JAX engine's __init__ and _opt_apply)
+    # ------------------------------------------------------------------
+    def _configure_tiers(self, config, client_optimizer, model_config):
+        """Resolve the tiers from the config, as the JAX engine does:
+        ``_host_opt_requested`` (super_offload / nvme, with its fall back),
+        ``_offload_opt`` (state in host memory), ``_offload_par`` (params in
+        host memory between steps) and ``_weight_stream``."""
+        zcfg = config.zero_optimization
+        oo = zcfg.offload_optimizer
+        self._super_offload = oo.device == "cpu" and bool(getattr(oo, "super_offload", False))
+        self._host_opt_requested = oo.device == "nvme" or self._super_offload
+        # the host tiers run CPU-Adam in one process; anything else falls
+        # back to the pinned-host tier with a warning instead of refusing
+        if self._host_opt_requested:
+            opt_name = ((config.optimizer.type or "adamw").lower()
+                        if client_optimizer is None else None)
+            adam_family = opt_name in ("adam", "adamw", "deepspeedcpuadam")
+            reason = None
+            if config.zenflow:
+                reason = "zenflow runs its own selective/offload schedule"
+            elif client_optimizer is not None or not adam_family:
+                reason = (f"optimizer {opt_name or type(client_optimizer).__name__} is not "
+                          "CPU-Adam-compatible")
+            elif self.topology.distributed:
+                reason = "multi-process runs are not supported by the host tier yet"
+            elif oo.device == "nvme" and not oo.nvme_path:
+                reason = "offload_optimizer.nvme_path is not set"
+            if reason is not None:
+                log_dist(f"offload_optimizer.device={oo.device}: {reason}; falling back to the "
+                         "pinned-host tier", ranks=[0])
+                self._host_opt_requested = False
+                self._super_offload = False
+        self._offload_opt = oo.device in ("cpu", "nvme") and not self._host_opt_requested
+        if config.zenflow and client_optimizer is not None:
+            logger.warning("zenflow config section is ignored when a client optimizer is "
+                           "passed to initialize(); remove one of the two")
+        if config.zenflow and client_optimizer is None and self._offload_opt:
+            log_dist("zenflow active: optimizer state stays device-resident; the "
+                     "boundary-interval schedule replaces pinned-host placement", ranks=[0])
+            self._offload_opt = False
+        self._offload_par = zcfg.offload_param.device != "none"
+        if zcfg.offload_param.device == "nvme":
+            log_dist("offload_param device 'nvme' maps to the host-memory tier (param NVMe "
+                     "swap not implemented)", ranks=[0])
+        self._offload_ratio = float(oo.ratio)
+        self._pin = self.device.type == "cuda"
+        self._weight_stream = bool(getattr(model_config, "weight_stream", False)
+                                   and self._offload_par)
+        if self._weight_stream:
+            if config.gradient_accumulation_steps != 1:
+                raise NotImplementedError(
+                    "weight_stream requires gradient_accumulation_steps == 1: accumulating "
+                    "full-model grads needs a host-side buffer pass that would stage HBM temps "
+                    "(grow the micro batch instead)")
+            if config.gradient_clipping:
+                raise NotImplementedError(
+                    "gradient_clipping is unsupported with weight_stream: the global-norm pass "
+                    "over host-resident grads would stage full-model fp32 temps in HBM")
+            if self.fp16_enabled:
+                raise NotImplementedError(
+                    "fp16 dynamic loss scaling is unsupported with weight_stream (no overflow "
+                    "scan over host grads) — use bf16")
+            if not self._offload_opt:
+                logger.warning(
+                    "weight_stream without offload_optimizer: host-resident grads would be "
+                    "pulled back to HBM for the device optimizer — enable "
+                    "zero_optimization.offload_optimizer (device 'cpu') for models larger "
+                    "than HBM")
+
+    def _streamed_optimizer(self, config):
+        """The weight-streaming tier's StreamedAdamW from the configured
+        Adam / AdamW (the JAX engine's guards and messages)."""
+        from deepspeed_tpu_torch.runtime.streamed_adam import StreamedAdamW
+
+        name = self.optimizer.name
+        if name not in ("adam", "adamw"):
+            raise NotImplementedError(
+                f"weight_stream supports Adam/AdamW only (got {name}): the chunk-streamed "
+                "host-state update is AdamW-specific (runtime/streamed_adam.py)")
+        d = self.optimizer.defaults
+        if name == "adam" and d.get("weight_decay", 0.0):
+            raise NotImplementedError(
+                "weight_stream implements decoupled (AdamW) weight decay only; use AdamW or "
+                "weight_decay=0")
+        zcfg = config.zero_optimization
+        return StreamedAdamW(
+            lr=d.get("lr", 1e-3), betas=tuple(d.get("betas", (0.9, 0.999))),
+            eps=d.get("eps", 1e-8), weight_decay=d.get("weight_decay", 0.0),
+            quant_bits=int(getattr(zcfg.offload_optimizer, "stream_quant_bits", 0) or 0),
+            overlap=zcfg.overlap_enabled, device=self.device)
+
+    def _to_host(self, t):
+        """A host (page-locked on a card) copy of a device tensor; a host
+        tensor stays as it is, pinned if it must be."""
+        if t.device.type == "cpu" and (not self._pin or t.is_pinned()):
+            return t
+        return _host_copy(t, self._pin)
+
+    def _place_state(self):
+        """Put each optimizer-state tensor where its tier says: with
+        ``offload_optimizer`` the host for ``ratio`` of the state's bytes,
+        largest leaves first (Twin-Flow; the JAX plan's
+        ``_partial_offload_mask`` over the state in its flatten order),
+        the device for the rest and for every other tier."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import tree_leaves
+
+        self._host_state_bytes = 0
+        if not self._offload_opt:
+            return  # the state was made beside the params
+        if isinstance(self.optimizer, TorchOptimizer):
+            master = tree_map(self._to_host, self.opt_state.master)
+            self.opt_state = self.opt_state._replace(master=master)
+            self.optimizer.repoint(master)
+            return
+        flat = [t for t in tree_leaves(self._opt_state_payload()) if isinstance(t, torch.Tensor)]
+        sizes = [t.numel() * t.element_size() for t in flat]
+        budget = self._offload_ratio * sum(sizes)
+        host, cum = set(), 0
+        for i in sorted(range(len(flat)), key=lambda j: -sizes[j]):
+            if self._offload_ratio < 1.0 and cum >= budget:
+                break
+            host.add(id(flat[i]))
+            cum += sizes[i]
+        self._host_state_bytes = sum(t.numel() * t.element_size() for t in flat
+                                     if id(t) in host)
+
+        def place(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            return self._to_host(t) if id(t) in host else t.to(self.device)
+
+        def place_tree(x):
+            return tree_map(place, x) if isinstance(x, dict) else place(x)
+
+        inner = {k: place_tree(v) for k, v in self.opt_state.inner.items()}
+        self.opt_state = self.opt_state._replace(master=place_tree(self.opt_state.master),
+                                                 inner=inner)
+
+    def _place_params(self):
+        """``offload_param``: params rest in host memory between steps (the
+        streamed leaves only, under weight streaming, whose streamer is
+        made here)."""
+        if not self._offload_par:
+            return
+        if not self._weight_stream:
+            self.params = tree_map(self._to_host, self.params)
+            return
+        from deepspeed_tpu_torch.models.weight_stream import WeightStreamer, streamed_leaf
+
+        def place(p):
+            return self._to_host(p) if streamed_leaf(tuple(p.shape), p.dtype) else p
+
+        layers = self.params.get("layers", {})
+        self.params = {k: ({n: place(w) for n, w in v.items()} if k == "layers"
+                           else place(v) if isinstance(v, torch.Tensor) else v)
+                       for k, v in self.params.items()}
+        stacked = {k: w for k, w in self.params.get("layers", {}).items()
+                   if w.device.type == "cpu" and layers[k].dim() >= 3}
+        whole = [v for k, v in self.params.items()
+                 if k != "layers" and isinstance(v, torch.Tensor) and v.device.type == "cpu"
+                 and streamed_leaf(tuple(v.shape), v.dtype)]
+        mc = getattr(self.loss_fn, "model_config", None)
+        self._streamer = WeightStreamer(stacked, whole, self.device,
+                                        remat=bool(getattr(mc, "remat", False)))
+
+    def _compute_params(self):
+        """The params the loss runs on: ``offload_param`` (not streamed)
+        stages them to the device once per step (dropped after the
+        update)."""
+        if not self._offload_par or self._weight_stream or self.device.type == "cpu":
+            return self.params
+        if self._staged_params is None:
+            def stage(p):
+                d = p.detach().to(self.device, non_blocking=True)
+                return d.requires_grad_(p.requires_grad)
+
+            self._staged_params = tree_map(stage, self.params)
+        return self._staged_params
+
+    def _init_host_optimizer(self, zcfg):
+        """The host-optimizer tiers (NVMe swap / SuperOffload resident): the
+        fp32 masters and moments live outside the engine's tensors; each
+        step runs the native CPU-Adam over them."""
+        ocfg = zcfg.offload_optimizer
+        if self.optimizer.name not in ("adam", "adamw"):
+            raise RuntimeError(f"superoffload requires adam/adamw, got {self.optimizer.name}")
+        d = self.optimizer.defaults
+        kw = dict(lr=d.get("lr", 1e-3), betas=tuple(d.get("betas", (0.9, 0.999))),
+                  eps=d.get("eps", 1e-8), weight_decay=d.get("weight_decay", 0.0),
+                  adamw_mode=self.optimizer.name == "adamw")
+        if self._super_offload:
+            from deepspeed_tpu_torch.runtime.superoffload import SuperOffloadHostOptimizer
+
+            self._host_opt = SuperOffloadHostOptimizer(
+                cpuadam_cores_perc=getattr(ocfg, "cpuadam_cores_perc", 0.8), **kw)
+        else:
+            from deepspeed_tpu_torch.runtime.swap_tensor import NVMeOptimizerSwapper
+
+            if not ocfg.nvme_path:
+                raise ValueError("offload_optimizer.device=nvme requires nvme_path")
+            self._host_opt = NVMeOptimizerSwapper(nvme_path=ocfg.nvme_path,
+                                                  buffer_count=ocfg.buffer_count, **kw)
+        self._host_leaf_paths = [path for path, p in _leaves(self.params)
+                                 if p.is_floating_point()]
+        self._host_opt.init_from_params((path.replace("/", "."), p)
+                                        for path, p in _leaves(self.params)
+                                        if p.is_floating_point())
+
+    @torch.no_grad()
+    def _offload_step(self, grads, lr):
+        """The optimizer step of the pinned-host tier, a leaf at a time:
+        on the host over host state (the gradient pulled one leaf ahead)
+        when every state leaf lives there, else on the device with the
+        host-resident state leaves staged in and written back."""
+        from deepspeed_tpu_torch.runtime.superoffload import GradPuller
+
+        opt = self.optimizer
+        if isinstance(opt, TorchOptimizer):
+            self.opt_state = opt.step(tree_map(lambda g: g.to("cpu"), grads), self.opt_state,
+                                      self.params, lr)
+            return
+        host_compute = (self._offload_ratio >= 1.0
+                        and opt.name not in ("muon", "fused_adam", "zenflow"))
+        lr = float(np.float32(lr))
+        state = self.opt_state
+        fields = [f for f, v in state.inner.items() if isinstance(v, dict)]
+        scalars = {f: v for f, v in state.inner.items() if f not in fields}
+        inner_leaves = {f: dict(_leaves(state.inner[f])) for f in fields}
+        grad_of = dict(_leaves(grads))
+        param_of = dict(_leaves(self.params))
+        paths = list(_leaves(state.master))
+        pull = GradPuller() if host_compute else None
+        if pull is not None and paths:
+            pull.start(0, grad_of[paths[0][0]])
+        out = scalars
+        for i, (path, m) in enumerate(paths):
+            if pull is not None:
+                g = pull.take(i).view(m.shape)
+                if i + 1 < len(paths):
+                    pull.start(i + 1, grad_of[paths[i + 1][0]])
+            else:
+                g = grad_of[path]
+            leaf = {f: inner_leaves[f][path] for f in fields}
+            staged = []
+            if not host_compute:
+                def dev(t):
+                    if t.device != self.device:
+                        d = t.to(self.device, non_blocking=True)
+                        staged.append((t, d))
+                        return d
+                    return t
+
+                m_use, leaf = dev(m), {f: dev(t) for f, t in leaf.items()}
+            else:
+                m_use = m
+            out = self.optimizer.tx.step(
+                {"x": g}, dict(scalars, **{f: {"x": t} for f, t in leaf.items()}),
+                {"x": m_use}, lr, {"x": param_of[path]})
+            for host, d in staged:
+                host.copy_(d, non_blocking=self._pin)
+        if self._pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.opt_state = state._replace(inner=dict(state.inner,
+                                                   **{f: out[f] for f in scalars}))
 
     # ------------------------------------------------------------------
     # getters (reference engine.py:588-1146)
@@ -424,17 +755,18 @@ class DeepSpeedEngine:
 
     def _micro_grads(self, mb, scale, micro=0):
         """One micro-batch: (loss, grads of loss * scale), in one pass."""
-        loss = self._loss(self.params, mb, micro)
+        params = self._compute_params()
+        loss = self._loss(params, mb, micro)
         scaled = (loss * torch.tensor(scale, dtype=loss.dtype)).float()
-        grads = torch.autograd.grad(scaled, self._param_list, allow_unused=True)
+        grads = torch.autograd.grad(scaled, _leaves_of(params), allow_unused=True)
         return scaled.detach() / scale, grads
 
     def _accumulate(self, acc, grads):
         """Add a micro-batch's grads, cast to the ``grad_accum_dtype``, into
-        buffers of that dtype (made on first use)."""
+        buffers of that dtype on the device (made on first use)."""
         if acc is None:
             acc = tree_map(lambda p: torch.zeros(p.shape, dtype=self.grad_accum_dtype,
-                                                 device=p.device), self.params)
+                                                 device=self.device), self.params)
         for (_, a), g in zip(_leaves(acc), grads):
             if g is not None:
                 a.add_(g.to(a.dtype))
@@ -475,7 +807,11 @@ class DeepSpeedEngine:
                 comm.all_reduce(a, axis=PORTED_AXES)
         grads, overflow, grad_norm = self._grad_epilogue(acc, scale)
         if not overflow:
-            self.opt_state = self.optimizer.step(grads, self.opt_state, self.params, lr)
+            if self._offload_opt:
+                self._offload_step(grads, lr)
+            else:
+                self.opt_state = self.optimizer.step(grads, self.opt_state, self.params, lr)
+        self._staged_params = None  # offload_param: the next step stages the new params
         self.scaler_state = ls.update_state(self.scaler_cfg, self.scaler_state, overflow)
         return grad_norm, overflow
 
@@ -485,6 +821,10 @@ class DeepSpeedEngine:
         if (data_iter is None) == (batch is None):
             raise ValueError("pass exactly one of data_iter/batch")
         stacked = self._stack_batch(data_iter if data_iter is not None else batch)
+        if self._host_opt is not None:
+            return self._train_batch_hostopt(stacked)
+        if self._weight_stream:
+            return self._train_batch_streamed(stacked)
         self.tput_timer.start()
         self.timers(STEP_GLOBAL_TIMER).start()
         scale = self._scale()
@@ -499,6 +839,99 @@ class DeepSpeedEngine:
         self.timers(STEP_GLOBAL_TIMER).stop()
         loss = self._global_loss(torch.stack(losses).mean())
         self._after_step(loss, grad_norm, overflow)
+        self.tput_timer.stop(global_step=True)
+        return loss
+
+    def _stream_scope(self):
+        from deepspeed_tpu_torch.models.weight_stream import stream_scope
+
+        if self._streamer is None:
+            return contextlib.nullcontext()
+        self._streamer.begin_step()
+        return stream_scope(self._streamer)
+
+    def _grads_only(self, stacked):
+        """The step up to the grad epilogue (gas micro-batches, accumulated):
+        (grads, overflow, grad_norm, loss, scale)."""
+        scale = self._scale()
+        acc, losses = None, []
+        for i in range(self.config.gradient_accumulation_steps):
+            loss, grads = self._micro_grads({k: v[i] for k, v in stacked.items()}, scale, i)
+            acc = self._accumulate(acc, grads)
+            del grads
+            losses.append(loss)
+        grads, overflow, grad_norm = self._grad_epilogue(acc, scale)
+        return grads, overflow, grad_norm, torch.stack(losses).mean(), scale
+
+    def _train_batch_hostopt(self, stacked):
+        """train_batch for the host-optimizer tiers: the grads-only step on
+        the device, the overflow skip decided here, then the host
+        optimizer's update and the new params up to the device (reference
+        stage3 step with _optimizer_states_and_gradient_swap_in/out)."""
+        lr = self._lr_for_step()
+        self.tput_timer.start()
+        self.timers(STEP_GLOBAL_TIMER).start()
+        grads, overflow, grad_norm, loss, _ = self._grads_only(stacked)
+        if not overflow:
+            leaf = dict(_leaves(grads))
+            new = self._host_opt.step([(path.replace("/", "."), leaf[path])
+                                       for path in self._host_leaf_paths], lr=lr)
+            with torch.no_grad():
+                param_of = dict(_leaves(self.params))
+                for path in self._host_leaf_paths:
+                    param_of[path].copy_(new[path.replace("/", ".")], non_blocking=self._pin)
+        self._staged_params = None
+        self.scaler_state = ls.update_state(self.scaler_cfg, self.scaler_state, overflow)
+        self.timers(STEP_GLOBAL_TIMER).stop()
+        self._after_step(loss, grad_norm, overflow)
+        self.tput_timer.stop(global_step=True)
+        return loss
+
+    def _train_batch_streamed(self, stacked):
+        """train_batch for the weight-streaming tier: one micro-batch whose
+        forward stages the layers from host memory and whose backward sends
+        their gradients to the host (``models/weight_stream.py``), then
+        StreamedAdamW over the host state. No overflow check and no
+        clipping (the tier's guards)."""
+        lr = self._lr_for_step()
+        self.tput_timer.start()
+        self.timers(STEP_GLOBAL_TIMER).start()
+        st = self._streamer
+        params = self.params
+        with self._stream_scope():
+            loss = self._loss(params, {k: v[0] for k, v in stacked.items()}, 0)
+        if st is not None:
+            st.begin_backward()
+        grads = torch.autograd.grad(loss.float(), _leaves_of(params), allow_unused=True)
+        if st is not None:
+            st.finish()
+        by_id = {id(t): g for t, g in zip(_leaves_of(params), grads)}
+        layers = st.layers if st is not None else {}
+
+        def grad(path, p):
+            g = by_id.get(id(p))
+            if path.startswith("layers/") and path[7:] in layers:
+                return st.grads[path[7:]]
+            if g is None:
+                return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return g.float() if g.device.type != "cpu" else g
+
+        grads = {}
+        for path, p in _leaves(params):
+            node = grads
+            keys = path.split("/")
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = grad(path, p)
+        _, monitor_norm = self._grad_epilogue_flags()
+        grad_norm = (global_grad_norm(tree_map(lambda g: g.float().cpu(), grads))
+                     if monitor_norm else torch.full((), float("nan")))
+        self.opt_state = self.optimizer.step(grads, self.opt_state, params, lr)
+        if self._pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.timers(STEP_GLOBAL_TIMER).stop()
+        loss = loss.detach()
+        self._after_step(loss, grad_norm, False)
         self.tput_timer.stop(global_step=True)
         return loss
 
@@ -538,6 +971,14 @@ class DeepSpeedEngine:
             return
         if self._acc_grads is None:
             raise RuntimeError("step() with no accumulated gradients")
+        if self._host_opt is not None:
+            raise NotImplementedError(
+                "the NVMe optimizer tier supports the fused train_batch() API only (the "
+                "imperative forward/backward/step path would leave accumulated grads "
+                "on-device across the host update)")
+        if self._weight_stream:
+            raise AssertionError("streamed optimizer must run eagerly (train_batch streamed "
+                                 "path), never inside the fused step jit")
         self.timers(STEP_GLOBAL_TIMER).start()
         acc, self._acc_grads = self._acc_grads, None
         grad_norm, overflow = self._apply(acc, self._scale())
@@ -585,8 +1026,8 @@ class DeepSpeedEngine:
     def eval_batch(self, batch):
         """The loss of one batch (no grads, no update)."""
         batch = self._local_batch(batch)
-        with torch.no_grad():
-            return self._global_loss(self._loss(self.params, batch))
+        with torch.no_grad(), self._stream_scope():
+            return self._global_loss(self._loss(self._compute_params(), batch))
 
     # ------------------------------------------------------------------
     # dataloader
@@ -642,7 +1083,13 @@ class DeepSpeedEngine:
 
     def _opt_state_payload(self):
         """The optimizer state as nested tuples whose leaves flatten in the
-        JAX package's order: the masters, then the transform's fields."""
+        JAX package's order: the masters, then the transform's fields. A
+        host-optimizer tier's state is read back from its optimizer (masters
+        first, so ``zero_to_fp32`` finds them); ZenFlow's is its own."""
+        if self._host_opt is not None:
+            return self._host_payload(self._host_opt.as_state_tree())
+        if hasattr(self.optimizer, "checkpoint_payload"):
+            return self.optimizer.checkpoint_payload(self.opt_state)
         if isinstance(self.optimizer, TorchOptimizer):
             return (self.opt_state.master, {"state": self.optimizer.state_tree()})
         inner = self.opt_state.inner
@@ -650,6 +1097,34 @@ class DeepSpeedEngine:
         return (self.opt_state.master, tuple(
             inner[f] if isinstance(inner[f], (dict, torch.Tensor)) else np.int32(inner[f])
             for f in fields))
+
+    def _host_payload(self, tree):
+        """A host optimizer's {"name.key": tensor, "steps": n} as (masters,
+        {"exp_avg", "exp_avg_sq", "steps"}), each a tree of the params'
+        paths."""
+        def nest(key):
+            out = {}
+            for path in self._host_leaf_paths:
+                keys = path.split("/")
+                node = out
+                for k in keys[:-1]:
+                    node = node.setdefault(k, {})
+                node[keys[-1]] = tree[f"{path.replace('/', '.')}.{key}"]
+            return out
+
+        return (nest("master"), {"exp_avg": nest("exp_avg"), "exp_avg_sq": nest("exp_avg_sq"),
+                                 "steps": np.int32(tree["steps"])})
+
+    def _restore_host_opt(self, loaded):
+        template = self._host_payload(self._host_opt.state_tree_template())
+        (steps,) = self._restore_tree(template, loaded, "opt_state")
+        masters, rest = template
+        tree = {"steps": int(steps)}
+        for key, part in (("master", masters), ("exp_avg", rest["exp_avg"]),
+                          ("exp_avg_sq", rest["exp_avg_sq"])):
+            for path, t in _leaves(part):
+                tree[f"{path.replace('/', '.')}.{key}"] = t
+        self._host_opt.load_state_tree(tree)
 
     def _no_checkpoint_across_processes(self):
         if self.topology.distributed:
@@ -730,17 +1205,23 @@ class DeepSpeedEngine:
         check_loadable(state_path)
         data = eng.load(state_path)
         self._restore_tree(self.params, data["params"], "params")
-        if (load_optimizer_states and not load_module_only and "opt_state" in data
-                and isinstance(self.optimizer, TorchOptimizer)):
+        self._staged_params = None
+        want_opt = load_optimizer_states and not load_module_only and "opt_state" in data
+        if want_opt and isinstance(self.optimizer, TorchOptimizer):
             self._restore_torch_optimizer(data)
-        elif load_optimizer_states and not load_module_only and "opt_state" in data:
+        elif want_opt and self._host_opt is not None:
+            self._restore_host_opt(data["opt_state"])
+        elif want_opt:
             scalars = self._restore_tree(self._opt_state_payload(), data["opt_state"],
                                          "opt_state")
-            inner = dict(self.opt_state.inner)
-            counts = [k for k in getattr(self.optimizer.tx, "state_fields", tuple(inner))
-                      if not isinstance(inner[k], (dict, torch.Tensor))]
-            inner.update({k: int(v) for k, v in zip(counts, scalars)})
-            self.opt_state = self.opt_state._replace(inner=inner)
+            if hasattr(self.optimizer, "restore_counts"):
+                self.opt_state = self.optimizer.restore_counts(self.opt_state, scalars)
+            else:
+                inner = dict(self.opt_state.inner)
+                counts = [k for k in getattr(self.optimizer.tx, "state_fields", tuple(inner))
+                          if not isinstance(inner[k], (dict, torch.Tensor))]
+                inner.update({k: int(v) for k, v in zip(counts, scalars)})
+                self.opt_state = self.opt_state._replace(inner=inner)
         if "scaler_state" in data and not load_module_only:
             scale, good, hyst = (np.asarray(x).item() for x in data["scaler_state"])
             self.scaler_state = ls.LossScaleState(float(scale), int(good), int(hyst))

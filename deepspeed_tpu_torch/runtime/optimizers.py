@@ -32,8 +32,9 @@ the params in place, one leaf at a time (no whole-model temporaries); the
 engine skips it on an fp16 overflow, which leaves everything unchanged.
 Each transform names its state's fields in the order the JAX package's
 state flattens (``state_fields``), which is the order of a checkpoint's
-entries. The 1-bit family and ``zenflowselectiveadam`` raise
-``NotImplementedError``.
+entries. The 1-bit family raises ``NotImplementedError``;
+``zenflowselectiveadam`` is Adam / AdamW here, as in the JAX package (the
+engine's ``zenflow`` section builds ``runtime/zenflow.py``'s optimizer).
 
 ``TorchOptimizer`` takes a client's ``torch.optim.Optimizer`` (the JAX
 package takes a raw optax transform there): its params are re-pointed at
@@ -60,9 +61,10 @@ FUSED_LION = "fusedlion"
 ADAGRAD_OPTIMIZER = "adagrad"
 SGD_OPTIMIZER = "sgd"
 MUON_OPTIMIZER = "muon"
+ZENFLOW_ADAM = "zenflowselectiveadam"
 _LATER = {
     "onebitadam": "ROADMAP queue 1, item 6", "zerooneadam": "ROADMAP queue 1, item 6",
-    "onebitlamb": "ROADMAP queue 1, item 6", "zenflowselectiveadam": "ROADMAP queue 1, item 7",
+    "onebitlamb": "ROADMAP queue 1, item 6",
 }
 
 
@@ -338,11 +340,16 @@ class TorchOptimizer(DeepSpeedOptimizer):
     def init(self, params) -> OptState:
         state = OptState(master=tree_map(lambda p: p.detach().to(torch.float32, copy=True),
                                          params), inner={})
-        masters = dict(_leaves(state.master))
+        self.repoint(state.master)
+        return state
+
+    def repoint(self, master):
+        """Point the optimizer's param groups at the leaves of ``master``
+        (``init``'s masters, or their host copies under offload)."""
+        masters = dict(_leaves(master))
         it = iter(self._paths)
         for g in self.optimizer.param_groups:
             g["params"] = [masters[next(it)] for _ in g["params"]]
-        return state
 
     @torch.no_grad()
     def step(self, grads, state: OptState, params, lr) -> OptState:
@@ -392,7 +399,7 @@ def build_optimizer(opt_config) -> DeepSpeedOptimizer:
                                   adam_w_mode=adam_w_mode,
                                   bias_correction=params.pop("bias_correction", True)))
         canonical = "fused_adam"
-    elif name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, CPU_ADAM):
+    elif name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, CPU_ADAM, ZENFLOW_ADAM):
         is_adamw = name == ADAMW_OPTIMIZER or adam_w_mode
         tx = _Adam(float(betas[0]), float(betas[1]), float(eps), float(weight_decay), is_adamw)
         canonical = "adamw" if is_adamw else "adam"

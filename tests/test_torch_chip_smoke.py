@@ -1414,7 +1414,8 @@ def test_serving_phase_runs_end_to_end_on_cpu(one_thread, kv_cache_dtype):
     assert [k for k in passes if k in rec] == passes
     for name in passes:
         st = rec[name]["streams"]
-        assert (st["equal"], st["near_tie_flips"], st["tokens_checked"]) == (8, [], 64), name
+        n = chip_smoke.SERVE_PROFILED_CLIENTS if name == "profiled" else 8
+        assert (st["equal"], st["near_tie_flips"], st["tokens_checked"]) == (n, [], 8 * n), name
         if name in ("timed", "spec"):
             assert rec[name]["replay"]["equal"] == 8 and rec[name]["replay"]["diverged"] == []
         # fp32: the served tokens are the plain forward's argmax; an int8 pool's
@@ -1678,3 +1679,84 @@ def test_thread_launches_splits_counts_by_thread():
     assert k.launches == 10 and "launches" in vars(k)
     K.reset_counts()
     assert k.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# offload and streaming: host_ops, train_offload, train_stream
+# ---------------------------------------------------------------------------
+OFFLOAD_WIDTHS = dict(hidden_size=128, n_heads=4, n_kv_heads=2, ffn_hidden_size=256,
+                      vocab_size=512, dtype="float32", attention_impl="flash")
+
+
+@pytest.fixture
+def one_omp_thread(one_thread):
+    """The native host library on one OpenMP thread too."""
+    from deepspeed_tpu_torch.ops.adam import cpu_adam
+
+    prev = cpu_adam.set_num_threads(1)
+    yield
+    cpu_adam.set_num_threads(prev)
+
+
+def test_host_ops_phase_runs_end_to_end_on_cpu(one_omp_thread):
+    """The native ops against their plain versions at a small shape (the
+    params within 1e-6, the (1 - beta) moments within 2e-5, the casts bit
+    for bit), ``AioHandle`` sync and async round trips and ``io_bench``."""
+    rec = chip_smoke.host_ops_phase(torch, torch.device("cpu"), shape=(64, 256),
+                                    aio_bytes=1 << 20, bench_mb=1)
+    json.dumps(rec)
+    assert set(rec["ops"]) == {"adam", "adagrad", "lion", "fp32_to_bf16", "bf16_to_fp32"}
+    for name, op in rec["ops"].items():
+        assert op["ms"] > 0 and op["gb_s"] > 0, name
+        for err in op.get("errors", {}).values():
+            assert err["rel_frobenius"] <= err["limit"]
+    assert rec["ops"]["adam"]["errors"]["params"]["limit"] == chip_smoke.HOST_OPS_RTOL
+    assert rec["ops"]["fp32_to_bf16"]["bit_equal"] and rec["ops"]["bf16_to_fp32"]["bit_equal"]
+    for mode in ("sync", "async"):
+        assert rec["aio"][mode]["equal"] and rec["aio"][mode]["write_gb_s"] > 0
+    assert [r["op"] for r in rec["io_bench"]] == ["write", "read"]
+    assert rec["mem_total_gb"] > 0 and rec["aio_dir_filesystem"]["type"]
+
+
+def test_train_offload_phase_runs_end_to_end_on_cpu(one_omp_thread):
+    """Every tier at 2 tiny layers (NVMe at 1): losses within the gate of
+    the run without offload (on the CPU: equal, or within CPU-Adam's
+    rounding), the references at both depths, ZenFlow's two steps on the
+    "card" (here the CPU again) against the CPU's."""
+    rec = chip_smoke.train_offload_phase(torch, torch.device("cpu"), K, widths=OFFLOAD_WIDTHS,
+                                         seq=64)
+    json.dumps(rec)
+    assert set(rec["tiers"]) == {"none@2", "none@1", "cpu", "cpu_ratio", "super_offload",
+                                 "nvme", "offload_param", "zenflow"}
+    for name, t in rec["tiers"].items():
+        assert len(t["losses"]) == 4 and len(t["step_s"]) == 3, name
+        if not name.startswith("none"):
+            assert t["max_loss_diff"] <= chip_smoke.OFFLOAD_LOSS_ATOL, name
+    for name in ("cpu", "cpu_ratio", "offload_param"):
+        assert rec["tiers"][name]["max_loss_diff"] == 0.0, name  # the same math
+    assert rec["tiers"]["nvme"]["layers"] == 1
+    assert rec["tiers"]["nvme"]["nvme_bytes_written"] > 0
+    assert len(rec["tiers"]["super_offload"]["host_optimizer_s"]) == 3
+    z = rec["tiers"]["zenflow"]["card_vs_cpu"]
+    assert z["max_rel_err"] == 0.0 and z["counts"]["count"] == 6
+    assert z["counts"]["acc_steps"] == 0  # the second step was a boundary
+    assert rec["tiers"]["cpu_ratio"]["host_state_gb"] > 0
+
+
+def test_train_stream_phase_runs_end_to_end_on_cpu(one_omp_thread):
+    """bench.py's streamed configuration at tiny widths: the gates hold on
+    the CPU's shared host and device, through the same staging code."""
+    widths = dict(OFFLOAD_WIDTHS, hidden_size=256, n_heads=4, n_kv_heads=4,
+                  ffn_hidden_size=512)
+    rec = chip_smoke.train_stream_phase(torch, torch.device("cpu"), K, widths=widths, seq=64)
+    json.dumps(rec)
+    assert rec["gate_a_first_loss_equal"] and rec["gate_b_params_equal"]
+    s = rec["streamed"]
+    assert s["losses"] == rec["on_card"]["losses"] and len(s["losses"]) == 3
+    assert rec["gate_c"]["extra_stages"] == 0
+    assert rec["gate_c"]["peak_streamed_gb"] == rec["gate_c"]["bound_gb"]
+    assert s["stages_per_step"] == 2 * rec["layers"]  # the forward and the recompute
+    assert rec["quant0"]["gate_b_params_equal"]
+    assert "offload_note" in dir(chip_smoke)
+    line = chip_smoke.offload_note(dict(rec, phase="train_stream"), "CPU")
+    assert "train_stream" in line and "CPU" in line

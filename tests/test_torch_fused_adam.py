@@ -290,13 +290,21 @@ def test_decay_first_modes_match_optax_and_jax_package_raises(name):
 @pytest.mark.parametrize("kind", ["OneBitAdam", "ZeroOneAdam", "OneBitLamb",
                                   "ZenFlowSelectiveAdam"])
 def test_optimizers_still_waiting_raise(kind):
+    """The 1-bit family raises, naming its ROADMAP item. ZenFlowSelectiveAdam
+    waited for ZenFlow (item 7) and is Adam / AdamW now, as in the JAX
+    package's ``build_optimizer`` (the ``zenflow`` section builds ZenFlow)."""
     pc = PT.get_config("tiny", **BASE)
     tp = PT.init_params(pc, torch.Generator().manual_seed(0), "cpu")
+    config = {"train_micro_batch_size_per_gpu": 1,
+              "optimizer": {"type": kind, "params": {"lr": 1e-3}}}
+    if kind == "ZenFlowSelectiveAdam":
+        eng, *_ = deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc),
+                                                 model_parameters=tp, config=config)
+        assert eng.optimizer.name == "adamw"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        deepspeed_tpu_torch.initialize(
-            model=PT.make_loss_fn(pc), model_parameters=tp,
-            config={"train_micro_batch_size_per_gpu": 1,
-                    "optimizer": {"type": kind, "params": {"lr": 1e-3}}})
+        deepspeed_tpu_torch.initialize(model=PT.make_loss_fn(pc), model_parameters=tp,
+                                       config=config)
 
 
 @pytest.mark.cuda

@@ -69,6 +69,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.models.hf",
     "deepspeed_tpu_torch.models.safetensors_io",
     "deepspeed_tpu_torch.models.transformer",
+    "deepspeed_tpu_torch.models.weight_stream",
     "deepspeed_tpu_torch.monitor",
     "deepspeed_tpu_torch.monitor.monitor",
     "deepspeed_tpu_torch.observability",
@@ -78,7 +79,9 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.observability.tracing",
     "deepspeed_tpu_torch.ops",
     "deepspeed_tpu_torch.ops.adam",
+    "deepspeed_tpu_torch.ops.adam.cpu_adam",
     "deepspeed_tpu_torch.ops.adam.fused_adam",
+    "deepspeed_tpu_torch.ops.aio",
     "deepspeed_tpu_torch.ops.attention",
     "deepspeed_tpu_torch.ops.attention.core",
     "deepspeed_tpu_torch.ops.attention.flash",
@@ -124,8 +127,12 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.runtime.lr_schedules",
     "deepspeed_tpu_torch.runtime.optimizers",
     "deepspeed_tpu_torch.runtime.quantize",
+    "deepspeed_tpu_torch.runtime.streamed_adam",
+    "deepspeed_tpu_torch.runtime.superoffload",
+    "deepspeed_tpu_torch.runtime.swap_tensor",
     "deepspeed_tpu_torch.runtime.zero",
     "deepspeed_tpu_torch.runtime.zero.config",
+    "deepspeed_tpu_torch.runtime.zenflow",
     "deepspeed_tpu_torch.serving",
     "deepspeed_tpu_torch.serving.cluster",
     "deepspeed_tpu_torch.serving.cluster.agent",
@@ -164,6 +171,7 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.utils",
     "deepspeed_tpu_torch.utils.counter_hash",
     "deepspeed_tpu_torch.utils.groups",
+    "deepspeed_tpu_torch.utils.io_bench",
     "deepspeed_tpu_torch.utils.logging",
     "deepspeed_tpu_torch.utils.pytree",
     "deepspeed_tpu_torch.utils.timer",

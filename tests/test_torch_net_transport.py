@@ -618,6 +618,26 @@ class TestRemoteStreamParity:
             got, _, _ = _router_streams(PORT, pengs[1:], "remote", ps, sampling=seeded)
             assert got == want
 
+    def test_a_second_router_exports_over_the_same_engines(self):
+        """A Router's shutdown closes its engines' KVEndpoints. A second
+        Router over the same engines hands off over a fresh endpoint and
+        streams the first Router's tokens: ``ensure_endpoint`` replaces a
+        closed endpoint (the JAX package's keeps it, and every export of
+        the second Router then fails "endpoint closed")."""
+        ps = _real_prompts()[:3]
+        _, pengs = _engine_sets("float32", 3)
+        first, h1, _ = _router_streams(PORT, pengs, "remote", ps)
+        closed = pengs[0]._kv_endpoint
+        assert closed.closed
+        assert h1["kv_transport"]["per_transport"]["remote"]["handoffs"] == len(ps)
+        second, h2, _ = _router_streams(PORT, pengs, "remote", ps)
+        assert second == first
+        assert h2["kv_transport"]["per_transport"]["remote"]["handoffs"] == len(ps)
+        assert pengs[0]._kv_endpoint is not closed
+        assert h2["kv_transport"]["endpoints"]["p0"]["served"] == len(ps)
+        for e in pengs:
+            assert e.state_manager.free_blocks == e.config.kv_cache.num_blocks
+
     @pytest.mark.slow
     def test_int8_streams_match_the_driver(self):
         """int8 codes and fp32 scale planes cross the socket bit for bit."""

@@ -1,9 +1,10 @@
 """The port's op-registry entry point against the JAX package's.
 
 ``get_accelerator().create_op_builder(name).load()``: every op name the JAX
-package registers is registered; the ported ones load the port's code (the
-kernels' plain versions on the CPU accelerator), the others are not
-compatible and raise naming their ROADMAP item. ``get_accelerator()``
+package registers is registered, and every one loads: the ops with kernels
+hand out the port's code (the kernels' plain versions on the CPU
+accelerator), the host ops (``async_io``, ``cpu_adam``) build their
+``csrc/`` sources with g++ and hand out the library on either accelerator. ``get_accelerator()``
 honours ``DS_ACCELERATOR`` and, with no override, is the CUDA accelerator,
 which refuses a missing card instead of running on the host.
 ``env_report`` (``ds_report``) prints the stack and the op table.
@@ -43,8 +44,9 @@ ROOT = Path(__file__).resolve().parents[1]
 CUDA_OPS = ("flash_attn", "fused_adam", "quantizer", "rms_norm", "sparse_attn", "fp_quantizer",
             "evoformer_attn")
 PLAIN_OPS = ("spatial_inference", "random_ltd")
-PORTED = CUDA_OPS + PLAIN_OPS
-UNPORTED = ("async_io", "cpu_adam")
+# the host ops: g++ builds of csrc/, bound with ctypes (NativeOpBuilder)
+NATIVE_OPS = ("async_io", "cpu_adam")
+PORTED = CUDA_OPS + PLAIN_OPS + NATIVE_OPS
 
 
 @pytest.fixture
@@ -66,7 +68,7 @@ def accelerator(monkeypatch):
 
 def test_every_jax_op_is_registered():
     assert set(ALL_OPS) == set(jops.ALL_OPS)
-    assert set(PORTED) | set(UNPORTED) == set(ALL_OPS)
+    assert set(PORTED) == set(ALL_OPS)
     assert {n for n, ok in pops.__compatible_ops__.items() if ok} == set(PORTED)
 
 
@@ -89,7 +91,7 @@ def _expected(name):
     }[name]
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", CUDA_OPS + PLAIN_OPS)
 def test_ported_builders_load_the_ported_code(accelerator, monkeypatch, name):
     """On the CPU accelerator a ported op loads without building anything
     (its wrappers take their plain versions for CPU tensors)."""
@@ -106,12 +108,18 @@ def test_ported_builders_load_the_ported_code(accelerator, monkeypatch, name):
         assert all(k in K.KERNELS for k in builder.KERNELS) and builder.KERNELS
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", NATIVE_OPS)
 def test_unported_builders_raise(accelerator, name):
-    builder = accelerator("cpu").create_op_builder(name)
-    assert not builder.is_compatible()
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP queue"):
-        builder.load()
+    """The two builders that raised until their host libraries were ported
+    now load on either accelerator: the library built from csrc/ (once per
+    process); an unknown name still has no builder."""
+    from deepspeed_tpu_torch.ops.op_builder import NativeOpBuilder
+
+    for which in ("cpu", "cuda"):
+        builder = accelerator(which).create_op_builder(name)
+        assert isinstance(builder, NativeOpBuilder) and builder.is_compatible()
+        lib = builder.load(verbose=False)
+        assert lib is type(builder).lib() and lib is NativeOpBuilder._libs[name]
     assert accelerator("cpu").create_op_builder("no_such_op") is None
 
 

@@ -382,10 +382,10 @@ def test_config_rejects_what_jax_rejects(tmp_path):
 # ---------------------------------------------------------------------------
 UNPORTED_CONFIG = {
     "offload": ({"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
-                "queue 1, item 7"),
+                None),
     "qgz": ({"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
             "queue 1, item 6"),
-    "zenflow": ({"zenflow": {"topk_ratio": 0.1}}, "queue 1, item 7"),
+    "zenflow": ({"zenflow": {"topk_ratio": 0.1}}, None),
     "curriculum": ({"curriculum_learning": {"enabled": True}}, "queue 1, item 9"),
     "flops_profiler": ({"flops_profiler": {"enabled": True}}, "queue 1, item 9"),
     "monitor": ({"tensorboard": {"enabled": True}}, None),
@@ -401,9 +401,10 @@ UNPORTED_CONFIG = {
 @pytest.mark.parametrize("name", sorted(UNPORTED_CONFIG))
 def test_unported_config_raises(name, tmp_path, monkeypatch):
     """A section the port does not run yet raises, naming its ROADMAP item.
-    The FusedAdam and Lamb types and the monitors are ported (match None):
-    they build an engine that trains (the TensorBoard writer's files, where
-    its package is installed, land under the test's own directory)."""
+    The FusedAdam and Lamb types, the monitors, offload and ZenFlow are
+    ported (match None): they build an engine that trains (the TensorBoard
+    writer's files, where its package is installed, land under the test's
+    own directory)."""
     monkeypatch.chdir(tmp_path)
     over, match = UNPORTED_CONFIG[name]
     jc, pc = _configs()
